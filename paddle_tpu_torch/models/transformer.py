@@ -1,0 +1,281 @@
+"""The decoder-only LM of the serving path (counterpart of
+``paddle_tpu/models/transformer.py`` ``decoder_lm``, ``:228``).
+
+One :class:`DecoderLM` holds the weights; its views are methods:
+
+- :meth:`DecoderLM.full` -- logits over a whole sequence with dense
+  causal attention, recomputed from scratch (the JAX ``"full"`` mode:
+  the parity oracle).
+- :meth:`DecoderLM.prefill_paged` -- one request's prompt, right-padded
+  to its prompt bucket: causal attention whose K/V rows land in the
+  paged pool through the request's page lease, and the first token,
+  sampled on the device (``"prefill_paged"``).
+- :meth:`DecoderLM.decode_paged` -- one token for every slot of the
+  pool: K/V read and written through the ``[n_slots, max_pages]`` page
+  table, next tokens sampled on the device (``"decode_paged"``).
+
+The paged pools live in a :class:`PagedKVCache` that the serving engine
+owns and passes to the views; :func:`paged_geometry` validates its
+shape (``analysis/contracts.py`` ``validate_geometry``, paged subset).
+Weights come from a JAX checkpoint through ``models/convert.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.ops import kv_attention as kva
+from paddle_tpu_torch.ops import nn_ops
+
+KV_CODECS = ("none", "bf16", "int8")
+_STORE_DTYPES = {"none": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8}
+
+
+def position_encoding(max_len: int, d_model: int) -> np.ndarray:
+    """The sinusoidal table [max_len, d_model] (transformer.py:35)."""
+    pos = np.arange(max_len)[:, None].astype(np.float64)
+    i = np.arange(d_model // 2)[None, :].astype(np.float64)
+    angle = pos / np.power(10000.0, 2 * i / d_model)
+    enc = np.zeros((max_len, d_model))
+    enc[:, 0::2] = np.sin(angle)
+    enc[:, 1::2] = np.cos(angle)
+    return enc.astype(np.float32)
+
+
+@dataclass(frozen=True)
+class PagedGeometry:
+    """The paged pool's geometry: ``n_pages`` pages of ``page_size``
+    rows per layer, ``max_pages = cache_len / page_size`` table entries
+    per slot, K/V stored per ``kv_codec``."""
+    cache_len: int
+    n_slots: int
+    page_size: int
+    n_pages: int
+    max_pages: int
+    kv_codec: str
+
+    @property
+    def store_dtype(self) -> torch.dtype:
+        return _STORE_DTYPES[self.kv_codec]
+
+
+def paged_geometry(prompt_len: int, cache_len: int, n_slots: int,
+                   page_size: Optional[int] = None,
+                   n_pages: Optional[int] = None,
+                   kv_codec: str = "none") -> PagedGeometry:
+    """Validate and complete a paged geometry: ``page_size`` (default 4)
+    must divide ``cache_len``; ``n_pages`` defaults to the contiguous
+    pool's capacity ``n_slots * max_pages`` and must hold at least one
+    whole request."""
+    prompt_len, cache_len = int(prompt_len), int(cache_len)
+    if prompt_len > cache_len:
+        raise ValueError(f"prompt_len {prompt_len} > cache_len {cache_len}")
+    if not n_slots or int(n_slots) < 1:
+        raise ValueError(f"paged serving needs n_slots >= 1, got {n_slots}")
+    page_size = int(page_size) if page_size else 4
+    if cache_len % page_size:
+        raise ValueError(f"page_size {page_size} must divide cache_len "
+                         f"{cache_len}")
+    max_pages = cache_len // page_size
+    n_pages = int(n_pages) if n_pages else int(n_slots) * max_pages
+    if n_pages < max_pages:
+        raise ValueError(f"n_pages {n_pages} < one slot's span "
+                         f"{max_pages} -- no request could admit")
+    if kv_codec not in KV_CODECS:
+        raise ValueError(f"kv_codec {kv_codec!r} not in {KV_CODECS}")
+    return PagedGeometry(cache_len, int(n_slots), page_size, n_pages,
+                         max_pages, kv_codec)
+
+
+class PagedKVCache:
+    """Per-layer paged pools, zero-filled: K and V ``[n_pages,
+    page_size, H, D]`` in the codec's storage dtype, plus ``[n_pages,
+    page_size, H]`` fp32 scale planes for int8. The views update them in
+    place."""
+
+    def __init__(self, geometry: PagedGeometry, n_layer: int, n_head: int,
+                 head_dim: int, device: torch.device):
+        g = geometry
+        self.geometry = g
+        shape = (g.n_pages, g.page_size, n_head, head_dim)
+
+        def planes(shp, dt):
+            return [torch.zeros(shp, dtype=dt, device=device)
+                    for _ in range(n_layer)]
+        self.k = planes(shape, g.store_dtype)
+        self.v = planes(shape, g.store_dtype)
+        if g.kv_codec == "int8":
+            self.ks = planes(shape[:3], torch.float32)
+            self.vs = planes(shape[:3], torch.float32)
+        else:
+            self.ks = self.vs = [None] * n_layer
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm block: attention then FFN, each added to the residual.
+    Weight layouts follow the JAX scope: [in, out] matrices."""
+
+    def __init__(self, d_model: int, d_inner: int):
+        super().__init__()
+        m, i = d_model, d_inner
+        self.ln1_scale = nn.Parameter(torch.ones(m))
+        self.ln1_bias = nn.Parameter(torch.zeros(m))
+        self.wq = nn.Parameter(torch.zeros(m, m))
+        self.wk = nn.Parameter(torch.zeros(m, m))
+        self.wv = nn.Parameter(torch.zeros(m, m))
+        self.wo = nn.Parameter(torch.zeros(m, m))
+        self.ln2_scale = nn.Parameter(torch.ones(m))
+        self.ln2_bias = nn.Parameter(torch.zeros(m))
+        self.ffn1_w = nn.Parameter(torch.zeros(m, i))
+        self.ffn1_b = nn.Parameter(torch.zeros(i))
+        self.ffn2_w = nn.Parameter(torch.zeros(i, m))
+        self.ffn2_b = nn.Parameter(torch.zeros(m))
+
+    def forward(self, x, attend):
+        """``attend(x_normed, wq, wk, wv, wo)`` is the view's attention."""
+        a = nn_ops.layer_norm(x, self.ln1_scale, self.ln1_bias)
+        x = x + attend(a, self.wq, self.wk, self.wv, self.wo)
+        f = nn_ops.layer_norm(x, self.ln2_scale, self.ln2_bias)
+        h = nn_ops.fc(f, self.ffn1_w, self.ffn1_b, act="relu")
+        return x + nn_ops.fc(h, self.ffn2_w, self.ffn2_b)
+
+
+class DecoderLM(nn.Module):
+    """Decoder-only LM at the widths of ``decoder_lm``: token embedding
+    times sqrt(d_model) plus the sinusoidal position table (sized
+    ``cache_len``), ``n_layer`` pre-norm blocks, final layer norm, and
+    an untied vocabulary head. The weights start as zeros (layer-norm
+    scales as ones): load them with ``load_state_dict``, e.g. from
+    ``models.convert.params_from_jax``. Runs on ``device`` (``cuda``
+    unless ``"cpu"`` is asked for)."""
+
+    def __init__(self, vocab: int, d_model: int, d_inner: int, n_head: int,
+                 n_layer: int, cache_len: int, device=None):
+        super().__init__()
+        if d_model % n_head:
+            raise ValueError(f"d_model {d_model} not divisible by n_head "
+                             f"{n_head}")
+        self.vocab, self.d_model, self.d_inner = vocab, d_model, d_inner
+        self.n_head, self.n_layer = n_head, n_layer
+        self.cache_len = int(cache_len)
+        self.emb = nn.Parameter(torch.zeros(vocab, d_model))
+        self.layers = nn.ModuleList(DecoderLayer(d_model, d_inner)
+                                    for _ in range(n_layer))
+        self.lnf_scale = nn.Parameter(torch.ones(d_model))
+        self.lnf_bias = nn.Parameter(torch.zeros(d_model))
+        self.head_w = nn.Parameter(torch.zeros(d_model, vocab))
+        self.register_buffer(
+            "pos_enc",
+            torch.from_numpy(position_encoding(self.cache_len, d_model)),
+            persistent=False)
+        self.requires_grad_(False)
+        self.to(_device.resolve(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.emb.device
+
+    def new_cache(self, geometry: PagedGeometry) -> PagedKVCache:
+        if geometry.cache_len != self.cache_len:
+            raise ValueError(f"geometry cache_len {geometry.cache_len} != "
+                             f"model cache_len {self.cache_len}")
+        return PagedKVCache(geometry, self.n_layer, self.n_head,
+                            self.d_model // self.n_head, self.device)
+
+    def _embed(self, ids: torch.Tensor, positions: torch.Tensor):
+        """ids [B, T] -> emb[ids] * sqrt(M) + pe[positions]."""
+        x = nn_ops.scale(nn_ops.lookup_table(self.emb, ids),
+                         self.d_model ** 0.5)
+        return x + nn_ops.lookup_table(self.pos_enc, positions)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = nn_ops.layer_norm(x, self.lnf_scale, self.lnf_bias)
+        return nn_ops.fc(x, self.head_w)
+
+    @torch.no_grad()
+    def full(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids [B, T] (T <= cache_len) -> logits [B, T, V] under dense
+        causal attention -- the recompute oracle."""
+        ids = ids.to(self.device)
+        t = ids.shape[1]
+        x = self._embed(ids, torch.arange(t, device=self.device))
+        h = self.n_head
+        for layer in self.layers:
+            x = layer(x, lambda a, wq, wk, wv, wo:
+                      kva.causal_prefill(a, wq, wk, wv, wo, h)[0])
+        return self._logits(x)
+
+    def _to_device(self, *feeds):
+        """Host feeds to the model's device, all before the view enqueues
+        any kernel: a copy from pageable host memory waits for the
+        stream, so a copy after the layers would stall their launch."""
+        return [f.to(self.device) for f in feeds]
+
+    @torch.no_grad()
+    def prefill_paged(self, ids, seq_len, page_rows, seed, temperature,
+                      top_k, cache: PagedKVCache) -> torch.Tensor:
+        """ids [1, P] (a prompt right-padded to its bucket P), seq_len
+        [1, 1] (its true length), page_rows [P, 1] (the flat pool row of
+        each position; sentinels skip prefix-shared pages), seed/
+        temperature/top_k [1, 1] -> the first generated token [1, 1],
+        sampled at the prompt's last true position. Writes the prompt's
+        K/V into ``cache`` in place."""
+        dev = self.device
+        g = cache.geometry
+        write = kva.RowWrite.of(page_rows, g.n_pages * g.page_size, dev)
+        last = seq_len.reshape(-1).long() - 1
+        ids, last, seed, temperature, top_k = self._to_device(
+            ids.reshape(1, -1), last, seed, temperature, top_k)
+        p = ids.shape[1]
+        x = self._embed(ids, torch.arange(p, device=dev))
+        h, codec = self.n_head, g.kv_codec
+        for i, layer in enumerate(self.layers):
+            def attend(a, wq, wk, wv, wo, i=i):
+                return kva.prefill_paged_layer(
+                    a, wq, wk, wv, wo, cache.k[i], cache.v[i], cache.ks[i],
+                    cache.vs[i], write, h, codec)
+            x = layer(x, attend)
+        logits = self._logits(x[0, last])                    # [1, V]
+        return kva.token_sample(logits, temperature, top_k, seed,
+                                torch.zeros_like(seed))
+
+    @torch.no_grad()
+    def decode_paged(self, tok, pos, seq_len, gen_start, active, seed,
+                     sample_step, temperature, top_k, page_table,
+                     cache: PagedKVCache) -> torch.Tensor:
+        """One decode step over every slot: tok [S, 1] (each slot's last
+        token), pos/seq_len/gen_start/active [S, 1] (cache write index,
+        true prompt length, first generated position, live flag),
+        seed/sample_step/temperature/top_k [S, 1] (sampling state),
+        page_table [S, max_pages] -> next tokens [S, 1]. Inactive slots
+        ride along masked: their pages are not written."""
+        dev = self.device
+        g = cache.geometry
+        geom = kva.decode_geometry(page_table, pos, seq_len, gen_start,
+                                   active, g.n_pages, g.page_size, dev)
+        # semantic position: seq_len + generated-so-far; prompts are
+        # right-padded to their bucket, the cache row is storage only
+        sem = (seq_len.reshape(-1).long()
+               + pos.reshape(-1).long() - gen_start.reshape(-1).long())
+        sem = sem.clamp(0, self.cache_len - 1)
+        tok, sem, seed, sample_step, temperature, top_k = self._to_device(
+            tok.reshape(-1, 1), sem[:, None], seed, sample_step,
+            temperature, top_k)
+        x = self._embed(tok, sem)
+        h, codec = self.n_head, g.kv_codec
+        for i, layer in enumerate(self.layers):
+            def attend(a, wq, wk, wv, wo, i=i):
+                return kva.decode_paged_layer(
+                    a, wq, wk, wv, wo, cache.k[i], cache.v[i], cache.ks[i],
+                    cache.vs[i], geom, h, codec)
+            x = layer(x, attend)
+        logits = self._logits(x[:, 0])                       # [S, V]
+        return kva.token_sample(logits, temperature, top_k, seed,
+                                sample_step)

@@ -1,0 +1,290 @@
+"""Paged KV-cache attention and on-device token sampling: the serving
+ops of the decoder LM (counterpart of ``paddle_tpu/ops/kv_attention.py``,
+paged layout).
+
+Same numerics as the JAX emitters: every dot accumulates in fp32 and is
+cast back to the compute dtype, the softmax runs in fp32 over scores
+masked with the finite ``NEG``, and the probabilities are cast to the
+compute dtype before they meet V. The paged pools are
+``[n_pages, page_size, H, D]`` per layer, stored as fp32, bf16 or int8
+codes with one fp32 scale per (position, head); logical cache position
+``j`` of slot ``b`` lives at flat row ``table[b, j // ps] * ps + j % ps``.
+
+Unlike the JAX ops, which return new pools, these update the pools IN
+PLACE (``index_copy_``), as the donated buffers of the JAX executable
+are in effect. Write rows at or past the pool's end are DROPPED: a
+sentinel row marks a prefix page shared with another request, or an
+inactive slot, and writing it would break the copy-on-write contract of
+``serving/kv_pool.py``.
+
+The per-step geometry (which rows each slot reads, which rows it
+writes, which positions it may attend to) is computed once per step by
+:func:`decode_geometry` and shared by every layer; where the caller's
+index tensors lie on the CPU, it is computed there and moved to the
+pools' device in one copy each, so no layer waits on the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from paddle_tpu_torch.ops import attention_block as _ab
+from paddle_tpu_torch.ops.kernels import paged_attention as _pk
+
+_MASK32 = 0xFFFFFFFF
+
+
+def scores_to_probs(s: torch.Tensor, mask: torch.Tensor,
+                    dt: torch.dtype) -> torch.Tensor:
+    """fp32 scaled scores -> compute-dtype probabilities
+    (kv_attention.py:82 ``_scores_to_probs``)."""
+    s = s.masked_fill(~mask, _ab.NEG)
+    return torch.softmax(s, dim=-1).to(dt)
+
+
+def causal_prefill(x, wq, wk, wv, wo, h: int):
+    """Causal self-attention over X [B,T,M] plus the K/V projections
+    [B,T,H,D] the caller caches (kv_attention.py:90)."""
+    b, t, m = x.shape
+    d = m // h
+    dt = x.dtype
+    q = _ab.proj(x, wq, h)
+    k = _ab.proj(x, wk, h)
+    v = _ab.proj(x, wv, h)
+    s = _ab.dot("bqhd,bkhd->bhqk", q, k) * (float(d) ** -0.5)
+    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+    p = scores_to_probs(s, causal, dt)
+    c = _ab.dot("bhqk,bkhd->bhqd", p, v).to(dt)
+    out = _ab.dot("bhqd,hdm->bqm", c, wo.view(h, d, m)).to(dt)
+    return out, k, v
+
+
+def kv_quant(rows: torch.Tensor):
+    """rows [..., H, D] fp32 -> (int8 codes, fp32 scales [..., H]):
+    symmetric per-(position, head) scaling (kv_attention.py:216)."""
+    amax = rows.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-30) / 127.0
+    q = torch.clamp(torch.round(rows / scale[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scale.to(torch.float32)
+
+
+def paged_gather(flat: torch.Tensor, scales: Optional[torch.Tensor],
+                 rows: torch.Tensor, h: int, dt: torch.dtype) -> torch.Tensor:
+    """Gather K/V rows through page-table row indices: flat [R, H, D]
+    storage (fp32 | bf16 | int8 codes), scales [R, H] fp32 or None, rows
+    [N] int32 (rows >= R clamp to the last pool row; the mask zeroes
+    them). Returns [N, H, D] in ``dt`` (kv_attention.py:227). Always
+    through the kernel wrappers: CUDA pools launch the kernels."""
+    r, _, dk = flat.shape
+    if scales is not None:
+        out = _pk.gather_rows_dequant(flat.view(r, h * dk), scales, rows, h)
+    else:
+        out = _pk.gather_rows(flat.view(r, h * dk), rows)
+    return out.view(-1, h, dk).to(dt)
+
+
+def paged_pools(page_k, page_v, page_ks, page_vs, codec: str):
+    """Flat views of the paged pools (kv_attention.py:256): [R, H, D]
+    K/V and, for int8, [R, H] scales. Views share storage, so writes
+    through them land in the pools."""
+    n_pages, ps, h, dk = page_k.shape
+    rtot = n_pages * ps
+    fks = fvs = None
+    if codec == "int8":
+        fks, fvs = page_ks.view(rtot, h), page_vs.view(rtot, h)
+    return page_k.view(rtot, h, dk), page_v.view(rtot, h, dk), fks, fvs
+
+
+class RowWrite(NamedTuple):
+    """Which computed rows land where: ``vals[src]`` -> pool rows
+    ``dst``. Rows outside the pool are already filtered out."""
+    src: torch.Tensor
+    dst: torch.Tensor
+
+    @classmethod
+    def of(cls, rows: torch.Tensor, n_rows: int,
+           device: torch.device) -> "RowWrite":
+        """Drop the rows outside ``[0, n_rows)`` (scatter mode="drop",
+        kv_attention.py:281). Filtering a CUDA tensor waits for the
+        device; the engine hands CPU index tensors instead."""
+        rows = rows.reshape(-1).long()
+        keep = (rows >= 0) & (rows < n_rows)
+        src = torch.nonzero(keep).reshape(-1)
+        return cls(src.to(device), rows[keep].to(device))
+
+
+def paged_write(flat: torch.Tensor, fscale: Optional[torch.Tensor],
+                write: RowWrite, vals: torch.Tensor, codec: str):
+    """Scatter K/V rows (and int8 scales) into the flat pools in place
+    (kv_attention.py:274). ``vals`` [N, H, D]; only ``vals[write.src]``
+    is stored, at rows ``write.dst``."""
+    vals = vals[write.src]
+    if codec == "int8":
+        codes, scale = kv_quant(vals.to(torch.float32))
+        flat.index_copy_(0, write.dst, codes)
+        fscale.index_copy_(0, write.dst, scale)
+    else:
+        flat.index_copy_(0, write.dst, vals.to(flat.dtype))
+
+
+class DecodeGeometry(NamedTuple):
+    """One decode step's index sets, shared by every layer."""
+    rows: torch.Tensor       # [B * S] int32 gather rows (sentinels >= R)
+    valid: torch.Tensor      # [B, S] bool: positions a slot attends to
+    write: RowWrite          # this step's K/V row per active slot
+
+
+def decode_geometry(page_table, pos, seq_len, gen_start, active,
+                    n_pages: int, page_size: int,
+                    device: torch.device) -> DecodeGeometry:
+    """The paged decode's geometry (kv_attention.py:346-383) from the
+    step's feeds: PageTable [B, MP] int (sentinel n_pages past a slot's
+    span), Pos/SeqLen/GenStart/Active [B] or [B, 1] int. Computed where
+    the feeds lie, then moved to ``device``."""
+    table = page_table.long()
+    b, mp = table.shape
+    ps = int(page_size)
+    rtot = int(n_pages) * ps
+    pos = pos.reshape(-1).long()
+    lens = seq_len.reshape(-1).long()
+    gen0 = gen_start.reshape(-1).long()
+    act = active.reshape(-1) > 0
+    # this step's write row through the page table; inactive slots get
+    # the sentinel and drop -- a free slot's pages stay bit-identical
+    wpage = table.gather(1, (pos // ps).clamp(0, mp - 1)[:, None])[:, 0]
+    wrow = torch.where(act, wpage * ps + pos % ps,
+                       torch.full_like(pos, rtot))
+    j = torch.arange(ps, device=table.device)
+    rows = (table[:, :, None] * ps + j).reshape(-1).to(torch.int32)
+    s = torch.arange(mp * ps, device=table.device)
+    valid = (s[None, :] < lens[:, None]) | (
+        (s[None, :] >= gen0[:, None]) & (s[None, :] <= pos[:, None]))
+    return DecodeGeometry(rows.to(device), valid.to(device),
+                          RowWrite.of(wrow, rtot, device))
+
+
+def attend_paged(q, kk, vv, valid, wo, h: int, dt: torch.dtype):
+    """Masked attention of q [B,Tq,H,D] over gathered K/V [B,S,H,D];
+    ``valid`` broadcasts to [B,1,Tq,S]. Returns [B,Tq,M]."""
+    b, _, _, d = q.shape
+    m = h * d
+    s = _ab.dot("bqhd,bshd->bhqs", q, kk) * (float(d) ** -0.5)
+    p = scores_to_probs(s, valid, dt)
+    c = _ab.dot("bhqs,bshd->bhqd", p, vv).to(dt)
+    return _ab.dot("bhqd,hdm->bqm", c, wo.view(h, d, m)).to(dt)
+
+
+def decode_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks, page_vs,
+                       geom: DecodeGeometry, n_head: int,
+                       codec: str) -> torch.Tensor:
+    """One layer's paged decode attention for X [B,1,M] under a
+    precomputed :class:`DecodeGeometry`; writes this step's K/V rows
+    into the pools in place and returns Out [B,1,M]."""
+    h = n_head
+    b, _, m = x.shape
+    d = m // h
+    dt = x.dtype
+    flat_k, flat_v, fks, fvs = paged_pools(page_k, page_v, page_ks,
+                                           page_vs, codec)
+    q = _ab.proj(x, wq, h)
+    k_t = _ab.proj(x, wk, h)
+    v_t = _ab.proj(x, wv, h)
+    paged_write(flat_k, fks, geom.write, k_t[:, 0], codec)
+    paged_write(flat_v, fvs, geom.write, v_t[:, 0], codec)
+    kk = paged_gather(flat_k, fks, geom.rows, h, dt).view(b, -1, h, d)
+    vv = paged_gather(flat_v, fvs, geom.rows, h, dt).view(b, -1, h, d)
+    return attend_paged(q, kk, vv, geom.valid[:, None, None, :], wo, h, dt)
+
+
+def kv_attention_decode_paged(x, wq, wk, wv, wo, page_k, page_v, page_table,
+                              pos, seq_len, gen_start, active, n_head: int,
+                              codec: str = "none", page_ks=None,
+                              page_vs=None) -> torch.Tensor:
+    """One-token decode over the paged pool (kv_attention.py:323): X
+    [B,1,M], Wq..Wo [M,M], PageK/PageV [n_pages, ps, H, Dk] (+ PageKS/
+    PageVS [n_pages, ps, H] for int8), PageTable [B, MP], Pos/SeqLen/
+    GenStart/Active [B,1]. Writes the step's K/V at Pos where active
+    (pools updated in place) and attends over {j < seq_len} U
+    {gen_start <= j <= pos}. Returns Out [B,1,M]."""
+    n_pages, ps = page_k.shape[:2]
+    geom = decode_geometry(page_table, pos, seq_len, gen_start, active,
+                           n_pages, ps, x.device)
+    return decode_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks,
+                              page_vs, geom, n_head, codec)
+
+
+def prefill_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks,
+                        page_vs, write: RowWrite, n_head: int,
+                        codec: str) -> torch.Tensor:
+    """One layer's paged prefill: causal attention over X [B,T,M] whose
+    K/V rows land at ``write`` (per flattened prompt position). Returns
+    Out [B,T,M]; the pools are updated in place."""
+    h = n_head
+    flat_k, flat_v, fks, fvs = paged_pools(page_k, page_v, page_ks,
+                                           page_vs, codec)
+    out, k, v = causal_prefill(x, wq, wk, wv, wo, h)
+    dk = flat_k.shape[2]
+    paged_write(flat_k, fks, write, k.reshape(-1, h, dk), codec)
+    paged_write(flat_v, fvs, write, v.reshape(-1, h, dk), codec)
+    return out
+
+
+def kv_attention_prefill_paged(x, wq, wk, wv, wo, page_k, page_v, rows,
+                               n_head: int, codec: str = "none",
+                               page_ks=None, page_vs=None) -> torch.Tensor:
+    """Causal prefill whose K/V rows scatter into the paged pool at flat
+    ``rows`` [B*T] (or [B*T, 1]) per prompt position; sentinel rows (>=
+    n_pages * ps) skip prefix-shared pages (kv_attention.py:287).
+    Returns Out [B,T,M]; the pools are updated in place."""
+    n_pages, ps = page_k.shape[:2]
+    write = RowWrite.of(rows, n_pages * ps, x.device)
+    return prefill_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks,
+                               page_vs, write, n_head, codec)
+
+
+def gumbel_noise(seed: torch.Tensor, step: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """[B, V] Gumbel noise from a murmur-finalizer mix of (seed, step,
+    vocab index) (kv_attention.py:584-595). The JAX op reads its int64
+    feeds as int32 and mixes them as uint32; here the same bits are
+    carried in int64 and cut to 32 after every step (a product may
+    wrap int64, and its low 32 bits survive the wrap)."""
+    dev = seed.device
+    seed = seed.reshape(-1).long() & _MASK32
+    step = step.reshape(-1).long() & _MASK32
+    j = torch.arange(vocab, dtype=torch.int64, device=dev)[None, :]
+    x = ((j * 0x9E3779B9) & _MASK32) ^ ((seed * 0x85EBCA6B) & _MASK32)[:, None]
+    x = x ^ ((step * 0x27D4EB2F) & _MASK32)[:, None]
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _MASK32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _MASK32
+    x = x ^ (x >> 16)
+    # uniform in (0, 1) from the 24 high bits; never exactly 0 or 1
+    u = ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def token_sample(logits, temperature, top_k, seed, step) -> torch.Tensor:
+    """Logits [B,V], Temperature [B,1] float, TopK [B,1] int (<= 0: no
+    filter; 1: argmax), Seed [B,1] int, StepIdx [B,1] int -> [B,1] int64
+    (kv_attention.py:545). Rows with temperature <= 0 or top_k == 1 take
+    the argmax; the others sample the temperature-scaled top-k
+    distribution by Gumbel-max with :func:`gumbel_noise`."""
+    v = logits.shape[-1]
+    lg = logits.reshape(-1, v).to(torch.float32)
+    temp = temperature.reshape(-1).to(torch.float32)
+    topk = top_k.reshape(-1).long()
+    greedy = torch.argmax(lg, dim=-1)
+    scaled = lg / temp.clamp_min(1e-6)[:, None]
+    k = topk.clamp(1, v)
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    kth = sorted_desc.gather(1, (k - 1)[:, None])
+    # ties AT the kth value are all kept (as in the JAX op)
+    keep = (scaled >= kth) | (topk <= 0)[:, None]
+    masked = scaled.masked_fill(~keep, float("-inf"))
+    sampled = torch.argmax(masked + gumbel_noise(seed, step, v), dim=-1)
+    use_greedy = (temp <= 0.0) | (topk == 1)
+    return torch.where(use_greedy, greedy, sampled)[:, None]

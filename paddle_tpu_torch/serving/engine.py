@@ -1,0 +1,424 @@
+"""In-flight batched decoding over a paged KV cache (counterpart of
+``paddle_tpu/serving/engine.py`` ``SlotGenerativeModel`` and
+``PagedSlotGenerativeModel``).
+
+The decode step is ONE call over a fixed ``[n_slots]`` batch where each
+slot carries its own cache geometry and sampling state. Requests JOIN a
+free slot mid-flight (``admit`` prefills the prompt at its prompt bucket
+and samples the first token on the device) and LEAVE on EOS or their
+token budget (``step`` reports the leave and frees the slot): there is
+no wave barrier.
+
+The paged layout addresses each slot's cache through a per-slot page
+table into one shared ``[n_pages, page_size, H, D]`` pool per layer.
+Admission is gated by FREE PAGES for the request's span (prompt bucket
++ token budget) instead of a whole worst-case row, and requests with a
+common prompt prefix share its full pages through the refcounted radix
+tree of ``serving/kv_pool.py``. The decode step reads every slot's K/V
+through the page-gather kernels (``ops/kernels/paged_attention.py``).
+
+Sampling is greedy when ``temperature <= 0`` or ``top_k == 1``, else
+temperature/top-k Gumbel sampling keyed only by the per-request seed and
+the token index, so a sampled stream replays identically.
+
+Thread discipline: one dispatcher at a time; ``admit``/``step``/
+``release`` are not internally locked. Counters (``prefills``,
+``decode_steps``, ``tokens_generated``) are plain attributes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.models import transformer as _tf
+from paddle_tpu_torch.serving import bucketing, kv_pool
+
+
+class PromptTooLongError(ValueError):
+    """Admission rejection: the prompt exceeds the largest prompt
+    bucket."""
+
+
+class SlotExhaustedError(RuntimeError):
+    """No free decode slot (or, paged, too few free pages) -- the caller
+    must wait for a leave, or shed."""
+
+
+class SlotGenerativeModel:
+    """The slot lifecycle shared by the KV layouts: host mirror of the
+    per-slot state, admission, the decode step, release and
+    ``generate``. A layout subclass names its model views (``PREFILL``,
+    ``DECODE``), passes its cache to them (``_view_state``) and
+    supplies the capacity hooks (``_reserve_capacity``,
+    ``_admit_feeds``, ``_release_capacity``). The paged layout is the
+    one ported so far."""
+
+    PREFILL: str = ""
+    DECODE: str = ""
+
+    def __init__(self, name: str, model: _tf.DecoderLM,
+                 prompt_buckets: Sequence[int], n_slots: int):
+        self.name = name
+        self.model = model
+        self.prompt_buckets = bucketing.ladder(prompt_buckets)
+        self.prompt_len = self.prompt_buckets[-1]
+        self.n_slots = int(n_slots)
+        self.cache_len = model.cache_len
+        self.max_new = self.cache_len - self.prompt_len
+        self.prefills = 0
+        self.decode_steps = 0
+        self.tokens_generated = 0
+        # host mirror of the per-slot device state
+        s = self.n_slots
+        self._active = np.zeros(s, bool)
+        self._tok = np.zeros(s, np.int64)        # last emitted token
+        self._seq = np.zeros(s, np.int64)        # true prompt length
+        self._gen0 = np.zeros(s, np.int64)       # prompt bucket (gen start)
+        self._gen_count = np.zeros(s, np.int64)  # tokens emitted so far
+        self._seed = np.zeros(s, np.int64)
+        self._temp = np.zeros(s, np.float32)
+        self._topk = np.zeros(s, np.int64)
+        self._budget = np.zeros(s, np.int64)
+        self._eos: List[Optional[int]] = [None] * s
+
+    # -- layout hooks ----------------------------------------------------
+    def _view_state(self) -> dict:
+        """Extra keyword arguments of every view call (the cache)."""
+        return {}
+
+    def _admit_feeds(self, slot: int, p_len: int) -> dict:
+        """The layout-specific prefill feed: WHERE the prompt's KV rows
+        land."""
+        raise NotImplementedError
+
+    def _reserve_capacity(self, slot: int, prompt, p_len: int,
+                          budget: int):
+        """Admission-time capacity hook; raises SlotExhaustedError when
+        the layout cannot hold the request."""
+
+    def _release_capacity(self, slot: int):
+        """Failure twin of :meth:`_reserve_capacity`: undo the
+        reservation when the prefill raises before the slot goes live
+        (``release`` never runs for such a slot)."""
+
+    # -- plumbing --------------------------------------------------------
+    def _dispatch(self, view: str, feeds: Dict[str, np.ndarray]
+                  ) -> np.ndarray:
+        """Call a model view on host feeds; returns its tokens on the
+        host (the one wait for the device per call)."""
+        args = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in feeds.items()}
+        out = getattr(self.model, view)(**args, **self._view_state())
+        return out.cpu().numpy().reshape(-1)
+
+    def prompt_bucket_for(self, length: int) -> int:
+        b = bucketing.bucket_for(length, self.prompt_buckets)
+        if b is None:
+            raise PromptTooLongError(
+                f"prompt of length {length} exceeds the prompt bucket "
+                f"{self.prompt_len}")
+        return b
+
+    def free_count(self) -> int:
+        return int((~self._active).sum())
+
+    def active_count(self) -> int:
+        return int(self._active.sum())
+
+    def _decode_feeds(self) -> Dict[str, np.ndarray]:
+        return {"tok": self._tok[:, None],
+                "pos": (self._gen0 + self._gen_count - 1)[:, None],
+                "seq_len": self._seq[:, None],
+                "gen_start": self._gen0[:, None],
+                "active": self._active.astype(np.int64)[:, None],
+                "seed": self._seed[:, None],
+                "sample_step": self._gen_count[:, None],
+                "temperature": self._temp[:, None],
+                "top_k": self._topk[:, None]}
+
+    def _prefill_feeds(self, p_len: int) -> Dict[str, np.ndarray]:
+        return {"ids": np.zeros((1, p_len), np.int64),
+                **self._admit_feeds(0, p_len),
+                "seq_len": np.ones((1, 1), np.int64),
+                "seed": np.zeros((1, 1), np.int64),
+                "temperature": np.zeros((1, 1), np.float32),
+                "top_k": np.zeros((1, 1), np.int64)}
+
+    def warmup(self) -> Dict[str, int]:
+        """Dispatch every prefill bucket and the decode step once with
+        nothing live (no cache row is written), so first-use costs --
+        building the kernels, allocator growth -- land here and not on
+        the first request."""
+        n = 0
+        for p in self.prompt_buckets:
+            self._dispatch(self.PREFILL, self._prefill_feeds(p))
+            n += 1
+        self._dispatch(self.DECODE, self._decode_feeds())
+        self.reset()
+        return {"dispatched": n + 1}
+
+    # -- slot lifecycle --------------------------------------------------
+    def admit(self, prompt, *, seed: int = 0, temperature: float = 0.0,
+              top_k: int = 0, max_new: Optional[int] = None,
+              eos_id: Optional[int] = None
+              ) -> Tuple[int, int, Optional[str]]:
+        """JOIN: prefill ``prompt`` into a free slot (nearest prompt
+        bucket) and sample its first token on the device. Returns
+        (slot, first_token, done_cause); done_cause is None while the
+        request stays in flight, or 'eos'/'max_new' when the first token
+        already finished it (the slot is then freed again)."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        length = len(prompt)
+        if length < 1:
+            raise ValueError("empty prompt")
+        if length > self.prompt_len:
+            raise PromptTooLongError(
+                f"prompt of length {length} exceeds the prompt bucket "
+                f"{self.prompt_len}")
+        free = np.flatnonzero(~self._active)
+        if free.size == 0:
+            raise SlotExhaustedError(
+                f"model {self.name!r}: all {self.n_slots} decode slots "
+                f"are in flight (free_slots=0, "
+                f"active_slots={self.n_slots})")
+        slot = int(free[0])
+        p_len = self.prompt_bucket_for(length)
+        budget = self.max_new if max_new is None else int(max_new)
+        # generated rows land from gen_start = p_len; the last fed-back
+        # token writes at p_len + budget - 2, inside the cache
+        if budget < 1 or budget > self.cache_len - p_len:
+            raise ValueError(
+                f"max_new {budget} outside the cache budget "
+                f"(1..{self.cache_len - p_len} for a prompt padded to "
+                f"bucket {p_len})")
+        self._reserve_capacity(slot, prompt, p_len, budget)
+        ids = np.zeros((1, p_len), np.int64)
+        ids[0, :length] = prompt
+        try:
+            tok = self._dispatch(self.PREFILL, {
+                "ids": ids,
+                **self._admit_feeds(slot, p_len),
+                "seq_len": np.asarray([[length]], np.int64),
+                "seed": np.asarray([[int(seed)]], np.int64),
+                "temperature": np.asarray([[float(temperature)]],
+                                          np.float32),
+                "top_k": np.asarray([[int(top_k)]], np.int64)})
+        except BaseException:
+            self._release_capacity(slot)
+            raise
+        self.prefills += 1
+        self.tokens_generated += 1
+        first = int(tok[0])
+        self._active[slot] = True
+        self._tok[slot] = first
+        self._seq[slot] = length
+        self._gen0[slot] = p_len
+        self._gen_count[slot] = 1
+        self._seed[slot] = int(seed)
+        self._temp[slot] = float(temperature)
+        self._topk[slot] = int(top_k)
+        self._budget[slot] = budget
+        self._eos[slot] = eos_id
+        done = None
+        if eos_id is not None and first == eos_id:
+            done = "eos"
+        elif budget <= 1:
+            done = "max_new"
+        if done:
+            self.release(slot, cause=done)
+        return slot, first, done
+
+    def step(self) -> List[Tuple[int, int, Optional[str]]]:
+        """One decode call over the WHOLE pool (free slots ride along
+        masked). Returns (slot, token, done_cause) events; slots that hit
+        EOS or their token budget are released."""
+        live = np.flatnonzero(self._active)
+        if live.size == 0:
+            return []
+        out = self._dispatch(self.DECODE, self._decode_feeds())
+        self.decode_steps += 1
+        self.tokens_generated += int(live.size)
+        events = []
+        for slot in live:
+            slot = int(slot)
+            tok = int(out[slot])
+            self._tok[slot] = tok
+            self._gen_count[slot] += 1
+            eos = self._eos[slot]
+            done = None
+            if eos is not None and tok == eos:
+                done = "eos"
+            elif self._gen_count[slot] >= self._budget[slot]:
+                done = "max_new"
+            if done:
+                self.release(slot, cause=done)
+            events.append((slot, tok, done))
+        return events
+
+    def release(self, slot: int, cause: str = "cancelled"):
+        """LEAVE: free ``slot`` for the next admission."""
+        if not self._active[slot]:
+            return
+        self._active[slot] = False
+        self._eos[slot] = None
+
+    def reset(self):
+        self._active[:] = False
+        self._gen_count[:] = 0
+        self._eos = [None] * self.n_slots
+
+    def generate(self, prompts: Sequence, max_new=None, temperature=0.0,
+                 top_k=0, seeds: Optional[Sequence[int]] = None,
+                 eos_id: Optional[int] = None) -> List[np.ndarray]:
+        """Admit every prompt (queuing past ``n_slots`` until slots
+        free) and step the pool until all are done. ``max_new``,
+        ``temperature`` and ``top_k`` are one value for every request or
+        a sequence with one per prompt. Assumes exclusive use of the
+        pool."""
+        n = len(prompts)
+
+        def per_request(v):
+            return list(v) if isinstance(v, (list, tuple, np.ndarray)) \
+                else [v] * n
+        budgets, temps, topks = (per_request(v)
+                                 for v in (max_new, temperature, top_k))
+        pending = list(range(n))[::-1]
+        collected: Dict[int, list] = {i: [] for i in range(n)}
+        slot2idx: Dict[int, int] = {}
+        while pending or slot2idx:
+            while pending and self.free_count() > 0:
+                i = pending.pop()
+                slot, first, done = self.admit(
+                    prompts[i],
+                    seed=int(seeds[i]) if seeds is not None else 0,
+                    temperature=temps[i], top_k=topks[i],
+                    max_new=budgets[i], eos_id=eos_id)
+                collected[i].append(first)
+                if not done:
+                    slot2idx[slot] = i
+            for slot, tok, done in self.step():
+                i = slot2idx.get(slot)
+                if i is None:
+                    continue
+                collected[i].append(tok)
+                if done:
+                    del slot2idx[slot]
+        return [np.asarray(collected[i], np.int64) for i in range(n)]
+
+
+class PagedSlotGenerativeModel(SlotGenerativeModel):
+    """Slot engine over a PAGED KV pool: the decode view reads each
+    slot's K/V through a ``[n_slots, max_pages]`` page table into one
+    shared pool per layer. Admission acquires
+    ``ceil((prompt_bucket + budget) / page_size)`` pages from
+    :class:`~paddle_tpu_torch.serving.kv_pool.PagePool`; full pages of
+    the TRUE prompt are shared with earlier requests carrying the same
+    token prefix (the prefill skips their writes through sentinel rows;
+    the boundary page is always private)."""
+
+    PREFILL = "prefill_paged"
+    DECODE = "decode_paged"
+
+    def __init__(self, name: str, model: _tf.DecoderLM,
+                 geometry: _tf.PagedGeometry,
+                 prompt_buckets: Sequence[int]):
+        super().__init__(name, model, prompt_buckets, geometry.n_slots)
+        g = geometry
+        self.geometry = g
+        self.n_pages, self.page_size = g.n_pages, g.page_size
+        self.max_pages = g.max_pages
+        self.cache = model.new_cache(g)
+        self.pool = kv_pool.PagePool(self.n_pages, self.page_size)
+        # write-row sentinel: one past the flat pool -> the write drops
+        self._row_sentinel = self.n_pages * self.page_size
+        # host page-table mirror; n_pages is the TABLE sentinel (gather
+        # rows land past the pool and are clamped, then masked)
+        self._table = np.full((self.n_slots, self.max_pages),
+                              self.n_pages, np.int64)
+        self._pending_rows: Optional[np.ndarray] = None
+
+    def _view_state(self) -> dict:
+        return {"cache": self.cache}
+
+    def free_pages(self) -> int:
+        return self.pool.free_count()
+
+    def _decode_feeds(self):
+        feeds = SlotGenerativeModel._decode_feeds(self)
+        feeds["page_table"] = self._table.copy()
+        return feeds
+
+    def _admit_feeds(self, slot: int, p_len: int):
+        """Prefill feed: the flat pool row of each prompt position, or
+        the drop sentinel where the page is SHARED with the radix tree
+        (its K/V is resident and bit-identical by construction). With
+        no reservation pending (warmup) every row is a sentinel."""
+        rows = self._pending_rows
+        self._pending_rows = None
+        if rows is None:
+            rows = np.full((p_len, 1), self._row_sentinel, np.int64)
+        return {"page_rows": rows}
+
+    def _reserve_capacity(self, slot, prompt, p_len, budget):
+        span = self.pool.span_for(p_len + budget)
+        try:
+            pages, n_shared = self.pool.acquire(
+                slot, [int(t) for t in prompt], span)
+        except kv_pool.PagesExhaustedError as e:
+            raise SlotExhaustedError(
+                f"model {self.name!r}: page pool cannot cover a "
+                f"{span}-page admission (free_pages="
+                f"{self.pool.free_count()}, evictable_cached="
+                f"{self.pool.cached_count()}, pages_total="
+                f"{self.n_pages}, free_slots={self.free_count()}, "
+                f"active_slots={self.active_count()})") from e
+        ps = self.page_size
+        idx = np.arange(p_len)
+        rows = np.asarray(pages, np.int64)[idx // ps] * ps + idx % ps
+        rows[idx < n_shared * ps] = self._row_sentinel
+        self._pending_rows = rows[:, None]
+        self._table[slot, :] = self.n_pages
+        self._table[slot, :span] = pages
+
+    def _release_capacity(self, slot):
+        """A prefill died after acquire: abort the lease (its inserted
+        tree pages were never written), scrub the slot's table row, and
+        drop unconsumed write rows."""
+        self.pool.abort(slot)
+        self._table[slot, :] = self.n_pages
+        self._pending_rows = None
+
+    def release(self, slot: int, cause: str = "cancelled"):
+        if self._active[slot]:
+            self.pool.release(slot)
+            self._table[slot, :] = self.n_pages
+        SlotGenerativeModel.release(self, slot, cause=cause)
+
+    def reset(self):
+        self.pool.reset()
+        self._table[:] = self.n_pages
+        self._pending_rows = None
+        SlotGenerativeModel.reset(self)
+
+
+def make_slot_model(name: str, model: _tf.DecoderLM, *, n_slots: int,
+                    prompt_buckets: Sequence[int],
+                    page_size: Optional[int] = None,
+                    n_pages: Optional[int] = None, kv_codec: str = "none",
+                    device=None) -> PagedSlotGenerativeModel:
+    """Build the paged slot engine over ``model``: ``n_slots`` decode
+    slots, prompts padded to ``prompt_buckets`` (the largest is the
+    longest prompt; ``model.cache_len`` minus it is the token budget),
+    a pool of ``n_pages`` pages of ``page_size`` rows (default: room for
+    every slot's worst case) stored per ``kv_codec`` ('none' | 'bf16' |
+    'int8'). The model is moved to ``device`` (``cuda`` unless
+    ``"cpu"`` is asked for) and the pools are allocated there."""
+    model.to(_device.resolve(device))
+    buckets = bucketing.ladder(prompt_buckets)
+    geometry = _tf.paged_geometry(buckets[-1], model.cache_len, n_slots,
+                                  page_size, n_pages, kv_codec)
+    return PagedSlotGenerativeModel(name, model, geometry, buckets)
