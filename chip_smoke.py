@@ -32,7 +32,34 @@ final line:
    first tokens equal the oracle's and a second int8 run replays the
    first exactly, and every decode step launched its kernel twice per
    layer.
-5. Report: a ``{"kernels": [...]}`` line, then, last,
+5. Flash kernels: the flash-attention forward, dQ and dK/dV kernels at
+   the attention shapes of phase 6 (B*H 256, T 128, D 64), non-causal,
+   causal, and non-causal with dropout 0.1, each against its plain
+   PyTorch version on the same inputs (rtol 1e-4 / atol 1e-5 forward,
+   rtol 1e-3 / atol 1e-4 gradients; fp32 sums in another order), timed
+   as in phase 3 beside its plain version, its bound (the larger of its
+   FLOPs over 67 TFLOP/s fp32 -- TF32 is off -- and its bytes over
+   3.35 TB/s) and a library yardstick: ``scaled_dot_product_attention``
+   for the forward (at p = 0: its dropout bits differ) and that call's
+   backward for the dQ + dK/dV pair, held to allclose with the plain
+   versions first.
+6. Training: Transformer-base (vocab 32000, d_model 512, d_inner 2048,
+   8 heads, 6 + 6 layers, max_len 128, label smoothing 0.1, Adam at
+   1e-4; seeded random weights carried in through
+   ``transformer_params_from_jax``) takes 10 steps of 32 sequences (4096
+   tokens) of a seeded copy task, once with ``fused_attention=True``
+   (the flash kernels) and once with ``False`` (composed torch ops: the
+   oracle), dropout off. The launch counts are zeroed just before each
+   run and read just after. Checks: the two loss curves agree within
+   rtol 1e-3, every fused step launched each flash kernel 18 times
+   (6 encoder, 6 causal decoder and 6 cross attentions) and the
+   composed run none. Then 10 fused steps at dropout 0.1 on one batch
+   must give finite losses, the last below the first. Prints each run's
+   step p50 (host clock around steps that end in a synchronize),
+   tokens/s, peak memory, and a ``torch.profiler`` window of 3 steps:
+   device busy per step, idle share, and the flash kernels' share of
+   device time.
+7. Report: a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -45,7 +72,9 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12           # fp32 outside the tensor cores, same
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 LM = dict(vocab=32000, d_model=512, d_inner=2048, n_head=8, n_layer=6)
 SERVE = dict(n_slots=16, prompt_buckets=(32, 64, 128), page_size=16,
              n_pages=256)
@@ -54,6 +83,16 @@ N_REQUESTS = 24
 SAMPLED = (5, 11, 17, 23)          # request indices served with sampling
 SAMPLING = dict(temperature=0.8, top_k=40)
 NEAR_TIE = 1e-3
+TRAIN = dict(src_vocab=32000, tgt_vocab=32000, max_len=128, d_model=512,
+             d_inner=2048, n_head=8, n_layer=6)
+BATCH = 32                         # sequences a step: 4096 tokens
+TRAIN_STEPS = 10
+PROFILE_STEPS = 3
+CURVE_RTOL = 1e-3
+FLASH_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+FLASH_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+FLASH_VARIANTS = {"full": (False, 0.0), "causal": (True, 0.0),
+                  "dropout": (False, 0.1)}
 
 
 def fail(msg: str):
@@ -356,6 +395,321 @@ def slice_phase(torch, dev, card):
     return main_path_launches, per_layer
 
 
+# -- phase 5: flash kernels -------------------------------------------------
+
+def flash_cost(bh, tq, tk, d, causal):
+    """(FLOPs, bytes) of the forward, dQ and dK/dV at these shapes: 4, 6
+    and 8 FLOPs per visible (query, key) pair and head-dim element; each
+    input read once and each output written once."""
+    q_off = tk - tq
+    pairs = sum(min(tk, max(0, q_off + i + 1)) for i in range(tq)) \
+        if causal else tq * tk
+    mat_q, mat_k, row = bh * tq * d * 4, bh * tk * d * 4, bh * tq * 4
+    return {"flash_fwd": (4 * bh * pairs * d, mat_q + 2 * mat_k + mat_q
+                          + row),
+            "flash_dq": (6 * bh * pairs * d, 2 * mat_q + 2 * mat_k
+                         + 2 * row + mat_q),
+            "flash_dkv": (8 * bh * pairs * d, 2 * mat_q + 2 * mat_k
+                          + 2 * row + 2 * mat_k)}
+
+
+def bound_of(flops, nbytes):
+    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def close(got, want, tol):
+    import torch
+    return torch.allclose(got, want, **tol) and bool(
+        torch.isfinite(got).all())
+
+
+def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None):
+    """Each flash kernel against its plain version at the training
+    shapes, then timed beside plain, bound and library."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    import torch.nn.functional as F
+    h = h or TRAIN["n_head"]
+    t = t or TRAIN["max_len"]
+    d = d or TRAIN["d_model"] // TRAIN["n_head"]
+    bh, scale, seed = b * h, d ** -0.5, 20260
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, g = (torch.randn(bh, t, d, generator=gen, device=dev)
+                  for _ in range(4))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    results = {}
+    for variant, (causal, p) in FLASH_VARIANTS.items():
+        args = (causal, scale, p, seed)
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+        delta = (o_ref * g).sum(-1)
+        bwd = (q, k, v, g, lse_ref, delta)
+        o, lse = fa.flash_fwd(q, k, v, *args)
+        dq = fa.flash_dq(*bwd, *args)
+        dk, dv = fa.flash_dkv(*bwd, *args)
+        dq_ref = fa.flash_dq_ref(*bwd, *args)
+        dk_ref, dv_ref = fa.flash_dkv_ref(*bwd, *args)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want, tol in (
+                ("o", o, o_ref, FLASH_FWD_TOL),
+                ("lse", lse, lse_ref, FLASH_FWD_TOL),
+                ("dq", dq, dq_ref, FLASH_GRAD_TOL),
+                ("dk", dk, dk_ref, FLASH_GRAD_TOL),
+                ("dv", dv, dv_ref, FLASH_GRAD_TOL)):
+            errs[name] = float((got - want).abs().max())
+            if not close(got, want, tol):
+                fail(f"flash {variant}: {name} differs from the plain "
+                     f"version (max abs err {errs[name]}, tolerance {tol})")
+
+        # the library yardstick: one SDPA call (dropout off) and its
+        # backward, held to the plain versions at p = 0 first
+        q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_()
+                      for x in (q, k, v))
+        g4 = g.view(b, h, t, d)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal,
+                                                  scale=scale)
+        lib_out = lib_fwd()
+        lib_grads = torch.autograd.grad(lib_out, (q4, k4, v4), g4,
+                                        retain_graph=True)
+        o0, lse0 = fa.flash_fwd_ref(q, k, v, causal, scale)
+        d0 = (o0 * g).sum(-1)
+        want0 = (o0, fa.flash_dq_ref(q, k, v, g, lse0, d0, causal, scale),
+                 *fa.flash_dkv_ref(q, k, v, g, lse0, d0, causal, scale))
+        for name, got, want in zip(("o", "dq", "dk", "dv"),
+                                   (lib_out, *lib_grads), want0):
+            if not torch.allclose(got.reshape(want.shape), want,
+                                  **FLASH_GRAD_TOL):
+                fail(f"flash {variant}: the library yardstick's {name} "
+                     f"differs from the plain version at p = 0")
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (q4, k4, v4), g4,
+                                       retain_graph=True)
+        cost = flash_cost(bh, t, t, d, causal)
+        lib_bwd_ms = time_ms(torch, lib_bwd, flush)
+        lib_ms = {"flash_fwd": time_ms(torch, lib_fwd, flush),
+                  "flash_dq": lib_bwd_ms, "flash_dkv": lib_bwd_ms}
+        runs = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
+                              lambda: fa.flash_fwd_ref(q, k, v, *args),
+                              max(errs["o"], errs["lse"])),
+                "flash_dq": (lambda: fa.flash_dq(*bwd, *args),
+                             lambda: fa.flash_dq_ref(*bwd, *args),
+                             errs["dq"]),
+                "flash_dkv": (lambda: fa.flash_dkv(*bwd, *args),
+                              lambda: fa.flash_dkv_ref(*bwd, *args),
+                              max(errs["dk"], errs["dv"]))}
+        for kname, (fn, ref, err) in runs.items():
+            flops, nbytes = cost[kname]
+            bound_ms, bound_by = bound_of(flops, nbytes)
+            row = {"max_abs_err": err, "ms": time_ms(torch, fn, flush),
+                   "plain_ms": time_ms(torch, ref, flush),
+                   "library_ms": lib_ms[kname], "bound_ms": bound_ms,
+                   "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+            results[f"{kname}/{variant}"] = row
+            print(f"[{card}] {kname} {variant} [{bh}x{t}x{d}]: max abs err "
+                  f"{err:.3g}; kernel {row['ms'] * 1e3:.2f} us, plain "
+                  f"{row['plain_ms'] * 1e3:.2f} us, library "
+                  f"{row['library_ms'] * 1e3:.2f} us"
+                  f"{' (dq+dk+dv)' if kname != 'flash_fwd' else ''}, "
+                  f"bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    del flush
+    return results
+
+
+# -- phase 6: training ------------------------------------------------------
+
+def transformer_weights(model, seed: int) -> dict:
+    """Seeded weights for every parameter of ``model``, by state key:
+    embeddings and matrices N(0, fan_in**-0.5), layer-norm scales 1,
+    biases 0."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, p in model.state_dict().items():
+        shape = tuple(p.shape)
+        if key.endswith("_scale"):
+            out[key] = np.ones(shape, np.float32)
+        elif len(shape) == 1:
+            out[key] = np.zeros(shape, np.float32)
+        else:
+            fan_in = shape[1] if key.endswith("_emb") else shape[0]
+            out[key] = rng.normal(0.0, fan_in ** -0.5, shape).astype(
+                np.float32)
+    return out
+
+
+def copy_task(torch, dev, seed: int, steps: int, b: int, t: int, vocab: int):
+    """Per step (src, tgt, lbl) [B, T, 1] int64 on the device: src random
+    tokens, tgt = src shifted right behind a start token 1, lbl = src."""
+    rng = np.random.RandomState(seed)
+    feeds = []
+    for _ in range(steps):
+        src = rng.randint(3, vocab, (b, t))
+        tgt = np.concatenate([np.ones((b, 1), np.int64), src[:, :-1]], 1)
+        feeds.append(tuple(torch.from_numpy(x[:, :, None].astype(np.int64))
+                           .to(dev) for x in (src, tgt, src)))
+    return feeds
+
+
+def train(torch, model, opt, feeds, launches=None):
+    """One optimizer step per feed; returns the losses, each step's host
+    time (ending in a synchronize) and, with ``launches``, each step's
+    flash-kernel launches."""
+    losses, step_ms, per_step = [], [], []
+    for src, tgt, lbl in feeds:
+        before = dict(launches) if launches is not None else None
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = model(src, tgt, lbl)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        if launches is not None:
+            per_step.append({k: launches[k] - before[k] for k in launches})
+    return losses, step_ms, per_step
+
+
+def profile_window(torch, model, opt, feeds):
+    """(device busy ms per step, idle share, flash share of device time,
+    host ms per step) over a torch.profiler window of ``feeds``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(torch, model, opt, feeds)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events only: a user annotation (Optimizer.step#Adam.step)
+    # also carries device time, the sum of the kernels under it
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False)
+               and not ev.key.startswith("Optimizer.")]
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    flash_us = sum(ev.self_device_time_total for ev in kernels
+                   if "flash_" in ev.key)
+    n = len(feeds)
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
+    return {"device_busy_ms_per_step": busy_us / n / 1e3,
+            "host_ms_per_step": wall_ms / n,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
+            "flash_share": flash_us / busy_us if busy_us else 0.0,
+            "launches_per_step": sum(ev.count for ev in kernels) / n,
+            "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
+                             ev.count / n) for ev in top]}
+
+
+def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
+                profile_steps=PROFILE_STEPS):
+    """The training slice: fused (kernels) against composed (oracle)
+    from the same weights, launch counts per step, a dropout run, and
+    the step-time and profiler numbers."""
+    from paddle_tpu_torch.models import convert
+    from paddle_tpu_torch.models.transformer import build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = dict(TRAIN if cfg is None else cfg)
+    n_attn = 3 * cfg["n_layer"]          # encoder, causal decoder, cross
+    tokens = batch * cfg["max_len"]
+    weights = None
+    feeds = copy_task(torch, dev, 3, steps + profile_steps, batch,
+                      cfg["max_len"], cfg["tgt_vocab"])
+    runs, launched = {}, {}
+    for fused in (True, False):
+        model, opt = build(**cfg, dropout=0.0, fused_attention=fused,
+                           device=dev)
+        if weights is None:
+            weights = transformer_weights(model, 1)
+        names = convert.transformer_jax_names(cfg["n_layer"], fused)
+        model.load_state_dict(convert.transformer_params_from_jax(
+            {names[key]: w for key, w in weights.items()}))
+        label = f"fused_attention={fused}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, step_ms, per_step = train(torch, model, opt, feeds[:steps],
+                                          fa.LAUNCHES)
+        launched[fused] = dict(fa.LAUNCHES)
+        want = n_attn if fused else 0
+        for i, counts in enumerate(per_step):
+            if any(c != want for c in counts.values()):
+                fail(f"{label}: step {i} launched {counts}, want {want} "
+                     f"of each flash kernel")
+        if not all(np.isfinite(losses)):
+            fail(f"{label}: non-finite loss curve {losses}")
+        stats = {"losses": losses, "step_ms": step_ms,
+                 "step_p50_ms": float(np.median(step_ms)),
+                 "peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+        stats["tokens_per_s"] = tokens / stats["step_p50_ms"] * 1e3
+        if profile_steps:
+            stats["profile"] = prof = profile_window(torch, model, opt,
+                                                     feeds[steps:])
+            # against the step time without the profiler's own overhead
+            prof["idle_share_at_p50"] = 1.0 - prof[
+                "device_busy_ms_per_step"] / stats["step_p50_ms"]
+        runs[fused] = stats
+        prof = stats.get("profile", {})
+        print(f"[{card}] {label}: losses "
+              f"{[round(x, 5) for x in losses]}; step p50 "
+              f"{stats['step_p50_ms']:.3f} ms = {stats['tokens_per_s']:.0f} "
+              f"tokens/s; peak memory "
+              f"{stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; launches "
+              f"{launched[fused]}")
+        if prof:
+            print(f"[{card}] {label} profile ({profile_steps} steps): host "
+                  f"{prof['host_ms_per_step']:.3f} ms/step, device busy "
+                  f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle "
+                  f"share {prof['idle_share']:.3f} "
+                  f"({prof['idle_share_at_p50']:.3f} against the step "
+                  f"p50), flash kernels "
+                  f"{prof['flash_share']:.4f} of device time, "
+                  f"{prof['launches_per_step']:.0f} launches/step")
+            for key, us, count in prof["top_kernels"]:
+                print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+        del model, opt
+    a, b = runs[True]["losses"], runs[False]["losses"]
+    if not np.allclose(a, b, rtol=CURVE_RTOL, atol=0.0):
+        fail(f"fused and composed loss curves differ beyond rtol "
+             f"{CURVE_RTOL}: {a} vs {b}")
+    print(f"[{card}] the fused curve matches the composed one within rtol "
+          f"{CURVE_RTOL} (max rel diff "
+          f"{max(abs(x - y) / abs(y) for x, y in zip(a, b)):.3g}); each "
+          f"fused step launched each flash kernel {n_attn} times")
+
+    model, opt = build(**cfg, dropout=0.1, fused_attention=True, device=dev,
+                       generator=torch.Generator().manual_seed(7))
+    names = convert.transformer_jax_names(cfg["n_layer"], True)
+    model.load_state_dict(convert.transformer_params_from_jax(
+        {names[key]: w for key, w in weights.items()}))
+    # one batch seen again every step: the loss must fall through the
+    # dropout noise (fresh batches of random tokens differ by more than
+    # ten steps at lr 1e-4 gain)
+    losses, step_ms, _ = train(torch, model, opt, feeds[:1] * steps)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"dropout 0.1: losses {losses} are not finite and falling")
+    runs["dropout"] = {"losses": losses,
+                       "step_p50_ms": float(np.median(step_ms))}
+    print(f"[{card}] fused_attention=True dropout=0.1: losses "
+          f"{[round(x, 5) for x in losses]}; step p50 "
+          f"{runs['dropout']['step_p50_ms']:.3f} ms")
+    if profile_steps:
+        prof = runs["dropout"]["profile"] = profile_window(
+            torch, model, opt, feeds[:1] * profile_steps)
+        print(f"[{card}] dropout=0.1 profile ({profile_steps} steps): "
+              f"device busy {prof['device_busy_ms_per_step']:.3f} ms/step, "
+              f"flash kernels {prof['flash_share']:.4f} of device time, "
+              f"{prof['launches_per_step']:.0f} launches/step")
+        for key, us, count in prof["top_kernels"]:
+            print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+    return launched[True], n_attn, runs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -381,7 +735,9 @@ def main():
               + "\n  ".join(keep))
 
     measured = kernel_phase(torch, dev, card)
+    flash = flash_phase(torch, dev, card)
     launches, per_layer = slice_phase(torch, dev, card)
+    flash_launches, per_step, runs = train_phase(torch, dev, card)
 
     kernels = []
     for kname, key, line in (
@@ -399,8 +755,28 @@ def main():
             "library_us": m["library_ms"] * 1e3,
             "bound_us": m["bound_ms"] * 1e3,
             "launches_per_decode_step": per_layer, "card": card})
+    for kname, line in (("flash_fwd", 189), ("flash_dq", 481),
+                        ("flash_dkv", 504)):
+        m = flash[f"{kname}/full"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": flash_launches[kname],
+            "max_abs_err": max(flash[f"{kname}/{v}"]["max_abs_err"]
+                               for v in FLASH_VARIANTS),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "launches_per_train_step": per_step, "card": card,
+            "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
+                             ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err")}
+                         for v in FLASH_VARIANTS}})
     bf16 = measured["gather_rows/bf16"]
     print(json.dumps({"gather_rows_bf16": bf16, "card": card}))
+    print(json.dumps({"training": {
+        "fused_attention": runs[True], "composed": runs[False],
+        "dropout": runs["dropout"]}, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

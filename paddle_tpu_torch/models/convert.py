@@ -1,16 +1,28 @@
-"""Carry decoder-LM weights from a JAX scope into :class:`DecoderLM`.
+"""Carry weights from a JAX scope into the port's models. The layouts
+already agree: matrices are [in, out] on both sides.
 
-``paddle_tpu.models.transformer.build_decoder_lm_programs`` names every
-parameter explicitly under the prefix ``lm``, and the attention
-weights follow ``fluid/layers/nn.py`` ``_attention_projection_params``
-(``lm_l{i}_attn.wq`` ... ``.wo``). The layouts already agree:
-matrices are [in, out] on both sides.
+- :func:`params_from_jax` -> :class:`DecoderLM`.
+  ``paddle_tpu.models.transformer.build_decoder_lm_programs`` names every
+  parameter explicitly under the prefix ``lm``, and the attention
+  weights follow ``fluid/layers/nn.py`` ``_attention_projection_params``
+  (``lm_l{i}_attn.wq`` ... ``.wo``).
+- :func:`transformer_params_from_jax` -> :class:`Transformer`. ``build``
+  names only the two embeddings (``transformer_src_emb``,
+  ``transformer_tgt_emb``); every other parameter takes a LayerHelper
+  auto-name whose counter is global to the process
+  (``layer_norm_<k>.w_0/b_0``, ``fc_<k>.w_0/b_0``,
+  ``fused_multi_head_attention_<k>.w_0..w_3`` for wq, wk, wv, wo), so the
+  same program built twice, or in another process, numbers them
+  differently. The names are therefore matched by family and by their
+  order within the family, which is the order ``transformer()`` creates
+  them in; the port's :func:`transformer_layout` lists its parameters in
+  that same order.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -46,3 +58,147 @@ def params_from_jax(arrays: Dict[str, np.ndarray]
     return {state_key(name):
             torch.from_numpy(np.array(value, dtype=np.float32))
             for name, value in arrays.items()}
+
+
+# -- Transformer-base (models/transformer.py:135 transformer) ---------------
+
+_EMB = {"transformer_src_emb": "src_emb", "transformer_tgt_emb": "tgt_emb"}
+_AUTO = re.compile(r"(layer_norm|fc|fused_multi_head_attention)_(\d+)"
+                   r"\.([wb])_(\d+)$")
+
+
+def transformer_layout(n_layer: int, fused_attention: bool
+                       ) -> List[Tuple[str, List[Tuple[str, str]]]]:
+    """The :class:`Transformer`'s auto-named parameters in the order the
+    JAX ``transformer()`` creates them: one entry per layer creation,
+    ``(family, [(name suffix, state key), ...])``."""
+    out = []
+
+    def ln(key):
+        out.append(("layer_norm", [("w_0", f"{key}_scale"),
+                                   ("b_0", f"{key}_bias")]))
+
+    def attn(key):
+        ws = [f"{key}.w{c}" for c in "qkvo"]
+        if fused_attention:
+            out.append(("fused_multi_head_attention",
+                        [(f"w_{i}", w) for i, w in enumerate(ws)]))
+        else:
+            out.extend(("fc", [("w_0", w)]) for w in ws)
+
+    def ffn(key):
+        for n in (1, 2):
+            out.append(("fc", [("w_0", f"{key}.ffn{n}_w"),
+                               ("b_0", f"{key}.ffn{n}_b")]))
+
+    for i in range(n_layer):
+        e = f"encoder.{i}"
+        ln(f"{e}.ln1")
+        attn(f"{e}.attn")
+        ln(f"{e}.ln2")
+        ffn(e)
+    ln("enc_ln")
+    for i in range(n_layer):
+        d = f"decoder.{i}"
+        ln(f"{d}.ln1")
+        attn(f"{d}.self_attn")
+        ln(f"{d}.ln2")
+        attn(f"{d}.cross_attn")
+        ln(f"{d}.ln3")
+        ffn(d)
+    ln("dec_ln")
+    out.append(("fc", [("w_0", "head_w")]))
+    return out
+
+
+def transformer_jax_names(n_layer: int, fused_attention: bool
+                          ) -> Dict[str, str]:
+    """{state key: JAX name} as a fresh process names ``build``'s
+    parameters (every counter from 0)."""
+    names = dict((v, k) for k, v in _EMB.items())
+    counters: Dict[str, int] = {}
+    for fam, params in transformer_layout(n_layer, fused_attention):
+        n = counters.get(fam, 0)
+        counters[fam] = n + 1
+        for suffix, key in params:
+            names[key] = f"{fam}_{n}.{suffix}"
+    return names
+
+
+def transformer_state_keys(names) -> Dict[str, str]:
+    """{JAX name: :class:`Transformer` state key} for the parameter names
+    of one ``build`` (any counter offsets). Infers ``n_layer`` and the
+    attention variant from the names; raises on a name it cannot place
+    or a count that fits no Transformer."""
+    groups: Dict[str, Dict[int, set]] = {}
+    out = {}
+    for name in names:
+        if name in _EMB:
+            out[name] = _EMB[name]
+            continue
+        m = _AUTO.match(name)
+        if m is None:
+            raise KeyError(f"{name!r} is not a Transformer parameter")
+        fam, k = m.group(1), int(m.group(2))
+        groups.setdefault(fam, {}).setdefault(k, set()).add(
+            f"{m.group(3)}_{m.group(4)}")
+    if set(out.values()) != set(_EMB.values()):
+        raise KeyError(f"missing embeddings: want {sorted(_EMB)}")
+    n_ln = len(groups.get("layer_norm", {}))
+    if n_ln < 2 or (n_ln - 2) % 5:          # 2n + 1 encoder, 3n + 1 decoder
+        raise ValueError(f"{n_ln} layer norms fit no Transformer "
+                         f"(want 5 * n_layer + 2)")
+    n_layer = (n_ln - 2) // 5
+    fused = "fused_multi_head_attention" in groups
+    layout = transformer_layout(n_layer, fused)
+    for fam in set(groups) | {f for f, _ in layout}:
+        want = [p for f, p in layout if f == fam]
+        have = sorted(groups.get(fam, {}))
+        if len(have) != len(want):
+            raise ValueError(f"{fam}: {len(have)} layers in the scope, "
+                             f"{len(want)} in a {n_layer}-layer "
+                             f"Transformer (fused_attention={fused})")
+        for k, params in zip(have, want):
+            if groups[fam][k] != {s for s, _ in params}:
+                raise ValueError(f"{fam}_{k}: parameters "
+                                 f"{sorted(groups[fam][k])}, want "
+                                 f"{sorted(s for s, _ in params)}")
+            for suffix, key in params:
+                out[f"{fam}_{k}.{suffix}"] = key
+    return out
+
+
+def transformer_params_from_jax(arrays: Dict[str, np.ndarray]
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX scope arrays of one ``build``'s parameters -> a state dict for
+    ``Transformer.load_state_dict`` (fp32 CPU tensors). Raises on a name
+    that is not a parameter of ``build``, a count that fits no
+    Transformer, or a shape that disagrees with the embeddings'
+    widths."""
+    keys = transformer_state_keys(arrays)
+    state = {keys[n]: torch.from_numpy(np.array(v, dtype=np.float32))
+             for n, v in arrays.items()}
+    vs, m = state["src_emb"].shape
+    vt = state["tgt_emb"].shape[0]
+    inner = state["encoder.0.ffn1_w"].shape[1] \
+        if "encoder.0.ffn1_w" in state else None
+    for key, t in state.items():
+        if key.endswith(("_scale", "_bias", "ffn2_b")):
+            want = (m,)
+        elif key.endswith("ffn1_w"):
+            want = (m, inner)
+        elif key.endswith("ffn1_b"):
+            want = (inner,)
+        elif key.endswith("ffn2_w"):
+            want = (inner, m)
+        elif key == "head_w":
+            want = (m, vt)
+        elif key == "tgt_emb":
+            want = (vt, m)
+        elif key == "src_emb":
+            want = (vs, m)
+        else:                                 # attention projections
+            want = (m, m)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, want {want}")
+    return state

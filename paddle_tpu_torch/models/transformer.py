@@ -1,5 +1,8 @@
-"""The decoder-only LM of the serving path (counterpart of
-``paddle_tpu/models/transformer.py`` ``decoder_lm``, ``:228``).
+"""The transformer family (counterpart of
+``paddle_tpu/models/transformer.py``): the decoder-only LM of the
+serving path (``decoder_lm``, ``:228``) and the encoder-decoder
+Transformer-base of the training path (``transformer``, ``:135``, and
+``build``, ``:701``).
 
 One :class:`DecoderLM` holds the weights; its views are methods:
 
@@ -18,6 +21,14 @@ The paged pools live in a :class:`PagedKVCache` that the serving engine
 owns and passes to the views; :func:`paged_geometry` validates its
 shape (``analysis/contracts.py`` ``validate_geometry``, paged subset).
 Weights come from a JAX checkpoint through ``models/convert.py``.
+
+Training: :func:`build` makes a :class:`Transformer` (its ``forward``
+is the mean label-smoothed loss of ``build``'s graph) and its
+:class:`~paddle_tpu_torch.optimizer.Adam`. With ``fused_attention`` every
+attention runs :func:`~paddle_tpu_torch.ops.attention_block.
+fused_attention_block`, whose flash kernels run on the card; without it,
+the composed matmul/softmax/dropout graph of ``multi_head_attention``.
+Scope weights carry across with ``convert.transformer_params_from_jax``.
 """
 
 from __future__ import annotations
@@ -30,6 +41,9 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch import device as _device
+from paddle_tpu_torch import learning_rate_scheduler as lrs
+from paddle_tpu_torch.optimizer import Adam
+from paddle_tpu_torch.ops import attention_block as ab
 from paddle_tpu_torch.ops import kv_attention as kva
 from paddle_tpu_torch.ops import nn_ops
 
@@ -279,3 +293,269 @@ class DecoderLM(nn.Module):
         logits = self._logits(x[:, 0])                       # [S, V]
         return kva.token_sample(logits, temperature, top_k, seed,
                                 sample_step)
+
+
+# ---------------------------------------------------------------------------
+# Transformer-base training (transformer.py:45-177, :701-770)
+# ---------------------------------------------------------------------------
+
+class AttentionWeights(nn.Module):
+    """The four [M, M] projections of one attention, [in, out] layout."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        for name in ("wq", "wk", "wv", "wo"):
+            setattr(self, name, nn.Parameter(torch.zeros(d_model, d_model)))
+
+
+def multi_head_attention(x_q, x_kv, w: AttentionWeights, n_head: int,
+                         mask=None, dropout_p: float = 0.0, seed: int = 0):
+    """The composed attention of ``multi_head_attention`` (``:72-93``):
+    projections, q scaled by D**-0.5, ``q k^T`` (+ the additive mask),
+    softmax, dropout on the weights (``upscale_in_train``), ``w v``,
+    heads merged, ``Wo``. No kernel: the card-side oracle of the fused
+    block."""
+    b, tq, m = x_q.shape
+    tk = x_kv.shape[1]
+    h, d = n_head, m // n_head
+
+    def split_heads(x, wt, t):                       # [B,T,M] -> [B,H,T,D]
+        return nn_ops.fc(x, wt).view(b, t, h, d).transpose(1, 2)
+    q = nn_ops.scale(split_heads(x_q, w.wq, tq), d ** -0.5)
+    k, v = split_heads(x_kv, w.wk, tk), split_heads(x_kv, w.wv, tk)
+    logits = nn_ops.matmul(q, k, transpose_y=True)   # [B,H,Tq,Tk]
+    if mask is not None:
+        logits = logits + mask
+    weights = nn_ops.softmax(logits)
+    if dropout_p:
+        weights = nn_ops.dropout(weights, dropout_p, seed)
+    ctx = nn_ops.matmul(weights, v).transpose(1, 2).reshape(b, tq, m)
+    return nn_ops.fc(ctx, w.wo)
+
+
+class _FFN(nn.Module):
+    def __init__(self, d_model: int, d_inner: int):
+        super().__init__()
+        self.ffn1_w = nn.Parameter(torch.zeros(d_model, d_inner))
+        self.ffn1_b = nn.Parameter(torch.zeros(d_inner))
+        self.ffn2_w = nn.Parameter(torch.zeros(d_inner, d_model))
+        self.ffn2_b = nn.Parameter(torch.zeros(d_model))
+
+
+class EncoderLayer(_FFN):
+    """``encoder_layer`` (``:111``): pre-norm self-attention, then FFN."""
+
+    def __init__(self, d_model: int, d_inner: int):
+        super().__init__(d_model, d_inner)
+        self.ln1_scale = nn.Parameter(torch.ones(d_model))
+        self.ln1_bias = nn.Parameter(torch.zeros(d_model))
+        self.attn = AttentionWeights(d_model)
+        self.ln2_scale = nn.Parameter(torch.ones(d_model))
+        self.ln2_bias = nn.Parameter(torch.zeros(d_model))
+
+
+class Seq2SeqDecoderLayer(_FFN):
+    """``decoder_layer`` (``:120``): pre-norm causal self-attention,
+    cross-attention over the encoder output, then FFN."""
+
+    def __init__(self, d_model: int, d_inner: int):
+        super().__init__(d_model, d_inner)
+        self.ln1_scale = nn.Parameter(torch.ones(d_model))
+        self.ln1_bias = nn.Parameter(torch.zeros(d_model))
+        self.self_attn = AttentionWeights(d_model)
+        self.ln2_scale = nn.Parameter(torch.ones(d_model))
+        self.ln2_bias = nn.Parameter(torch.zeros(d_model))
+        self.cross_attn = AttentionWeights(d_model)
+        self.ln3_scale = nn.Parameter(torch.ones(d_model))
+        self.ln3_bias = nn.Parameter(torch.zeros(d_model))
+
+
+class Transformer(nn.Module):
+    """The encoder-decoder of ``transformer`` (``:135``) with the loss of
+    ``build``: ``forward(src_ids, tgt_ids, lbl_ids)`` -> the mean over
+    every position of the label-smoothed softmax cross entropy of the
+    vocabulary head (``fused_head=False``).
+
+    Dropout (``dropout > 0``, in training mode) follows the JAX graph:
+    after each embedding, on each sublayer's output before its residual
+    add, inside the FFN, and on the attention weights. Every site draws
+    a fresh int32 seed from ``generator`` (a CPU ``torch.Generator``;
+    torch's default one when None) on each forward, and the counter-hash
+    masks of the JAX ops turn it into keep bits. Weights start from the
+    port's own initialization (``reset_parameters``); parity runs load
+    the JAX scope instead (``convert.transformer_params_from_jax``)."""
+
+    def __init__(self, src_vocab: int, tgt_vocab: int, max_len: int,
+                 d_model: int = 512, d_inner: int = 2048, n_head: int = 8,
+                 n_layer: int = 6, dropout: float = 0.1,
+                 label_smooth_eps: float = 0.1,
+                 fused_attention: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if d_model % n_head:
+            raise ValueError(f"d_model {d_model} not divisible by n_head "
+                             f"{n_head}")
+        self.src_vocab, self.tgt_vocab = int(src_vocab), int(tgt_vocab)
+        self.max_len, self.d_model, self.d_inner = int(max_len), d_model, \
+            d_inner
+        self.n_head, self.n_layer = n_head, n_layer
+        self.dropout_p = float(dropout)
+        self.label_smooth_eps = float(label_smooth_eps)
+        self.fused_attention = bool(fused_attention)
+        self.generator = generator
+        m = d_model
+        self.src_emb = nn.Parameter(torch.zeros(src_vocab, m))
+        self.encoder = nn.ModuleList(EncoderLayer(m, d_inner)
+                                     for _ in range(n_layer))
+        self.enc_ln_scale = nn.Parameter(torch.ones(m))
+        self.enc_ln_bias = nn.Parameter(torch.zeros(m))
+        self.tgt_emb = nn.Parameter(torch.zeros(tgt_vocab, m))
+        self.decoder = nn.ModuleList(Seq2SeqDecoderLayer(m, d_inner)
+                                     for _ in range(n_layer))
+        self.dec_ln_scale = nn.Parameter(torch.ones(m))
+        self.dec_ln_bias = nn.Parameter(torch.zeros(m))
+        self.head_w = nn.Parameter(torch.zeros(m, tgt_vocab))
+        self.register_buffer(
+            "pos_enc", torch.from_numpy(position_encoding(max_len, m)),
+            persistent=False)
+        causal = np.triu(np.full((max_len, max_len), -1e9, np.float32), k=1)
+        self.register_buffer("causal_mask",
+                             torch.from_numpy(causal)[None, None],
+                             persistent=False)
+        self.reset_parameters()
+        self.to(_device.resolve(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.src_emb.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Embeddings ~ N(0, d_model**-0.5) (as ``build`` names them),
+        matrices Xavier-uniform, biases 0, layer-norm scales 1."""
+        for name, p in self.named_parameters():
+            if name.endswith("_emb"):
+                p.normal_(0.0, self.d_model ** -0.5, generator=generator)
+            elif p.dim() == 2:
+                bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+                p.uniform_(-bound, bound, generator=generator)
+            elif name.endswith("_scale"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+    # -- dropout ------------------------------------------------------------
+    def _dropping(self) -> bool:
+        return self.training and self.dropout_p > 0
+
+    def _seed(self) -> int:
+        gen = self.generator if self.generator is not None \
+            else torch.default_generator
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+
+    def _dropout(self, x):
+        if not self._dropping():
+            return x
+        return nn_ops.dropout(x, self.dropout_p, self._seed())
+
+    # -- blocks -------------------------------------------------------------
+    def _attention(self, x_q, x_kv, w: AttentionWeights, causal: bool):
+        p = self.dropout_p if self._dropping() else 0.0
+        seed = self._seed() if p else 0
+        if self.fused_attention:
+            return ab.fused_attention_block(x_q, x_kv, w.wq, w.wk, w.wv,
+                                            w.wo, self.n_head, causal, p,
+                                            seed)
+        t = x_q.shape[1]
+        mask = self.causal_mask[:, :, :t, :t] if causal else None
+        return multi_head_attention(x_q, x_kv, w, self.n_head, mask, p,
+                                    seed)
+
+    def _ffn(self, layer: _FFN, x):
+        h = nn_ops.fc(x, layer.ffn1_w, layer.ffn1_b, act="relu")
+        return nn_ops.fc(self._dropout(h), layer.ffn2_w, layer.ffn2_b)
+
+    def _embed(self, emb, ids):
+        x = nn_ops.scale(nn_ops.lookup_table(emb, ids), self.d_model ** 0.5)
+        return self._dropout(x + self.pos_enc[:ids.shape[1]])
+
+    def encode(self, src):
+        x = self._embed(self.src_emb, src)
+        for layer in self.encoder:
+            a = nn_ops.layer_norm(x, layer.ln1_scale, layer.ln1_bias)
+            x = x + self._dropout(self._attention(a, a, layer.attn, False))
+            f = nn_ops.layer_norm(x, layer.ln2_scale, layer.ln2_bias)
+            x = x + self._dropout(self._ffn(layer, f))
+        return nn_ops.layer_norm(x, self.enc_ln_scale, self.enc_ln_bias)
+
+    def decode(self, tgt, enc):
+        x = self._embed(self.tgt_emb, tgt)
+        for layer in self.decoder:
+            a = nn_ops.layer_norm(x, layer.ln1_scale, layer.ln1_bias)
+            x = x + self._dropout(self._attention(a, a, layer.self_attn,
+                                                  True))
+            c = nn_ops.layer_norm(x, layer.ln2_scale, layer.ln2_bias)
+            x = x + self._dropout(self._attention(c, enc, layer.cross_attn,
+                                                  False))
+            f = nn_ops.layer_norm(x, layer.ln3_scale, layer.ln3_bias)
+            x = x + self._dropout(self._ffn(layer, f))
+        return nn_ops.layer_norm(x, self.dec_ln_scale, self.dec_ln_bias)
+
+    def logits(self, src_ids, tgt_ids) -> torch.Tensor:
+        """[B, T, 1] (or [B, T]) ids -> [B, T, tgt_vocab] logits."""
+        dev = self.device
+        src = src_ids.to(dev).reshape(src_ids.shape[0], -1)
+        tgt = tgt_ids.to(dev).reshape(tgt_ids.shape[0], -1)
+        if max(src.shape[1], tgt.shape[1]) > self.max_len:
+            raise ValueError(f"sequence longer than max_len {self.max_len}")
+        return nn_ops.fc(self.decode(tgt, self.encode(src)), self.head_w)
+
+    def forward(self, src_ids, tgt_ids, lbl_ids) -> torch.Tensor:
+        """The scalar training loss of one batch: feeds [B, T, 1] int."""
+        logits = self.logits(src_ids, tgt_ids)
+        eps = self.label_smooth_eps if self.training else 0.0
+        loss = nn_ops.softmax_with_cross_entropy(
+            logits.reshape(-1, self.tgt_vocab),
+            lbl_ids.to(self.device).reshape(-1, 1), label_smoothing=eps)
+        return nn_ops.mean(loss)
+
+
+def build(is_train: bool = True, src_vocab: int = 32000,
+          tgt_vocab: int = 32000, max_len: int = 128, d_model: int = 512,
+          d_inner: int = 2048, n_head: int = 8, n_layer: int = 6,
+          dropout: float = 0.1, lr: float = 1e-4, warmup: int = 4000,
+          label_smooth_eps: float = 0.1, fused_attention: bool = False,
+          fused_head: bool = False, lr_scheduler: str = "const",
+          device=None, generator: Optional[torch.Generator] = None):
+    """Transformer-base training (``build``, ``:701``), with its
+    defaults: returns ``(model, optimizer)``. ``model(src_ids, tgt_ids,
+    lbl_ids)`` is the loss; the optimizer is the JAX package's Adam
+    (beta1 0.9, beta2 0.997, epsilon 1e-9) at ``lr`` (``"const"``) or
+    under the Noam schedule with ``lr`` as its multiplier (``"noam"``,
+    ``warmup`` steps). ``is_train=False`` gives the evaluation model
+    (no dropout, no smoothing) and no optimizer. Runs on ``device``
+    (``cuda`` unless ``"cpu"`` is asked for)."""
+    if fused_head:
+        raise NotImplementedError(
+            "fused_head (the fused_linear_ce kernel) is not ported yet; "
+            "build with fused_head=False")
+    model = Transformer(src_vocab, tgt_vocab, max_len, d_model, d_inner,
+                        n_head, n_layer, dropout if is_train else 0.0,
+                        label_smooth_eps if is_train else 0.0,
+                        fused_attention, device, generator)
+    if not is_train:
+        return model.eval(), None
+    if lr_scheduler == "noam":
+        if lr < 1e-2:
+            raise ValueError(
+                f"lr_scheduler='noam' interprets lr as the Noam multiplier "
+                f"(use ~1.0); lr={lr} would give a peak rate of "
+                f"~{lr * d_model ** -0.5 * warmup ** -0.5:.1e}")
+        rate = lrs.noam_decay(d_model, warmup, learning_rate=lr)
+    elif lr_scheduler == "const":
+        rate = lr
+    else:
+        raise ValueError(f"unknown lr_scheduler {lr_scheduler!r} "
+                         f"(expected 'const' or 'noam')")
+    return model.train(), Adam(model.parameters(), learning_rate=rate,
+                               beta1=0.9, beta2=0.997, epsilon=1e-9)

@@ -1,0 +1,345 @@
+"""Flash attention for training: the wrappers of the CUDA kernels in
+``paddle_tpu_torch/csrc/flash_attention.cu``, their plain PyTorch
+versions, and the ``torch.autograd.Function`` that joins them.
+
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``:
+
+- :func:`hash_keep_mask` -- the attention-dropout keep mask (``:53``), a
+  murmur-finalizer hash of (seed, b*H + h, query position, key position)
+  in uint32 arithmetic, carried here in int64 and cut to 32 bits after
+  every step. Bit-equal to the JAX function; the kernels compute the
+  same bits, so the forward and both backward passes drop the same
+  positions.
+- :func:`flash_fwd` -- ``_flash_fwd`` (``:174``): q [BH,Tq,D], k/v
+  [BH,Tk,D] -> o [BH,Tq,D], lse [BH,Tq].
+- :func:`flash_dq` and :func:`flash_dkv` -- the two kernels of
+  ``_flash_bwd_impl`` (``:455``): dQ, and dK with dV, from q, k, v, dO,
+  lse, delta = rowsum(o * dO) (computed by the caller, ``:471``) and an
+  optional lse cotangent.
+- :class:`FlashAttention` and :func:`flash_attention` -- ``flash_attention``
+  (``:321``) on [B,H,T,D], differentiable in q, k and v.
+
+Conventions of the TPU kernels: scores ``(q . k) * scale``; causal mask
+``qpos >= kpos`` with ``qpos = (tk - tq) + query index``, masked score
+-1e30; dropout (upscale_in_train) multiplies the softmax numerator and
+dP only, so ``lse`` stays dropout-free.
+
+Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
+plain version, CUDA tensors to the kernel (fp32, D in 32/64/128,
+contiguous), which is built on its first launch; anything else raises.
+``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
+adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.ops.kernels import build as _build
+
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+HEAD_DIMS = (32, 64, 128)          # the head widths the kernels take
+NEG = -1e30                        # _NEG: the masked score
+
+_MASK32 = 0xFFFFFFFF
+_lib = None
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_attention")
+        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint)
+        tail = [i, i, i, i, i, f, i, u, u, f, p]   # bh tq tk d causal scale
+        lib.paddle_flash_fwd.argtypes = [p] * 5 + tail  # dropout seed ...
+        lib.paddle_flash_dq.argtypes = [p] * 8 + tail
+        lib.paddle_flash_dkv.argtypes = [p] * 9 + tail
+        for fn in (lib.paddle_flash_fwd, lib.paddle_flash_dq,
+                   lib.paddle_flash_dkv):
+            fn.restype = i
+        _lib = lib
+    return _lib
+
+
+# -- dropout ----------------------------------------------------------------
+
+def dropout_params(dropout_p: float, seed: int) -> Tuple[int, int, float]:
+    """(seed bits, threshold, upscale) of the keep test ``hash >=
+    threshold``: the threshold ``min(int(p * 2**32), 2**32 - 1)`` in
+    double as the JAX function computes it, the upscale
+    ``float32(1 / (1 - p))``."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    thresh = min(int(dropout_p * 2.0 ** 32), 2 ** 32 - 1)
+    upscale = float(np.float32(1.0 / (1.0 - dropout_p)))
+    return int(seed) & _MASK32, thresh, upscale
+
+
+def hash_keep_mask(seed, bh, qpos, kpos, dropout_p: float) -> torch.Tensor:
+    """keep / (1 - p) as float32, broadcast over the integer tensors (or
+    ints) ``seed``, ``bh``, ``qpos``, ``kpos`` -- bit-equal to the JAX
+    ``hash_keep_mask``."""
+    seed_u, thresh, upscale = dropout_params(dropout_p, 0)
+    ref = next((t for t in (qpos, kpos, bh, seed)
+                if isinstance(t, torch.Tensor)), None)
+    dev = ref.device if ref is not None else None
+
+    def u32(t):
+        return torch.as_tensor(t, dtype=torch.int64, device=dev) & _MASK32
+    x = (((u32(qpos) * 0x9E3779B9) & _MASK32)
+         ^ ((u32(kpos) * 0x85EBCA6B) & _MASK32))
+    x = x ^ ((u32(seed) + u32(bh) * 0x27D4EB2F) & _MASK32)
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _MASK32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _MASK32
+    x = x ^ (x >> 16)
+    return (x >= thresh).to(torch.float32) * upscale
+
+
+def _tile_keep(seed, dropout_p, bh, tq, tk, dev) -> torch.Tensor:
+    """The [BH, Tq, Tk] keep mask of one attention call."""
+    q_off = tk - tq
+    return hash_keep_mask(
+        seed, torch.arange(bh, device=dev)[:, None, None],
+        q_off + torch.arange(tq, device=dev)[None, :, None],
+        torch.arange(tk, device=dev)[None, None, :], dropout_p)
+
+
+# -- plain versions ----------------------------------------------------------
+
+def _scores(q, k, causal, scale):
+    """[BH, Tq, Tk] scaled scores, causal positions at -1e30."""
+    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        qpos = (tk - tq) + torch.arange(tq, device=q.device)
+        visible = qpos[:, None] >= torch.arange(tk, device=q.device)[None]
+        s = s.masked_fill(~visible, NEG)
+    return s
+
+
+def flash_fwd_ref(q, k, v, causal: bool, scale: float,
+                  dropout_p: float = 0.0, seed: int = 0):
+    """Plain version of :func:`flash_fwd`: the whole score matrix."""
+    s = _scores(q, k, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    safe_l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if dropout_p > 0:
+        p = p * _tile_keep(seed, dropout_p, q.shape[0], q.shape[1],
+                           k.shape[1], q.device)
+    o = torch.matmul(p, v) / safe_l
+    return o, (m + torch.log(safe_l))[..., 0]
+
+
+def _probs_and_dp(q, k, v, dout, lse, causal, scale, dropout_p, seed):
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.matmul(dout, v.transpose(1, 2))
+    keep = None
+    if dropout_p > 0:
+        keep = _tile_keep(seed, dropout_p, q.shape[0], q.shape[1],
+                          k.shape[1], q.device)
+        dp = dp * keep
+    return p, dp, keep
+
+
+def flash_dq_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                 dropout_p: float = 0.0, seed: int = 0, dlse=None):
+    """Plain version of :func:`flash_dq`."""
+    p, dp, _ = _probs_and_dp(q, k, v, dout, lse, causal, scale, dropout_p,
+                             seed)
+    corr = delta if dlse is None else delta - dlse
+    ds = p * (dp - corr[..., None])
+    return torch.matmul(ds, k) * scale
+
+
+def flash_dkv_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                  dropout_p: float = 0.0, seed: int = 0, dlse=None):
+    """Plain version of :func:`flash_dkv`: (dk, dv)."""
+    p, dp, keep = _probs_and_dp(q, k, v, dout, lse, causal, scale,
+                                dropout_p, seed)
+    corr = delta if dlse is None else delta - dlse
+    ds = p * (dp - corr[..., None])
+    pm = p if keep is None else p * keep
+    return (torch.matmul(ds.transpose(1, 2), q) * scale,
+            torch.matmul(pm.transpose(1, 2), dout))
+
+
+# -- wrappers ----------------------------------------------------------------
+
+def _check_qkv(q, k, v, causal):
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape \
+            or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
+        raise ValueError(f"want q [BH,Tq,D], k/v [BH,Tk,D], got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if bh == 0 or tq == 0 or tk == 0:
+        raise ValueError(f"empty attention {tuple(q.shape)} x "
+                         f"{tuple(k.shape)}")
+    if causal and tq > tk:
+        raise ValueError(f"causal attention needs tq <= tk (rows before "
+                         f"the first key see nothing), got tq {tq}, "
+                         f"tk {tk}")
+    return bh, tq, tk, d
+
+
+def _check_kernel_args(name, tensors, d):
+    """What the kernels take: fp32, contiguous, 16-byte aligned, D in
+    HEAD_DIMS."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes float32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes 16-byte aligned "
+                             f"tensors")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head width {d} not in {HEAD_DIMS}")
+
+
+def _check_rows(name, bh, tq, *rows):
+    for r in rows:
+        if r is not None and r.shape != (bh, tq):
+            raise ValueError(f"{name}: lse/delta/dlse must be [{bh}, {tq}], "
+                             f"got {tuple(r.shape)}")
+
+
+def _check_launch(err: int, name: str):
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float, dropout_p: float = 0.0,
+              seed: int = 0):
+    """q [BH,Tq,D], k/v [BH,Tk,D] -> (o [BH,Tq,D], lse [BH,Tq] fp32)."""
+    bh, tq, tk, d = _check_qkv(q, k, v, causal)
+    seed_u, thresh, upscale = dropout_params(dropout_p, seed)
+    if not _device.uses_kernel(q, k, v):
+        return flash_fwd_ref(q, k, v, causal, scale, dropout_p, seed)
+    _check_kernel_args("flash_fwd", (q, k, v), d)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _kernels().paddle_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, tq, tk, d, int(causal), scale,
+            int(dropout_p > 0), seed_u, thresh, upscale,
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
+             dropout_p: float = 0.0, seed: int = 0, dlse=None):
+    """dQ [BH,Tq,D] from q, k, v, dO [BH,Tq,D], lse and delta [BH,Tq]
+    (and the lse cotangent ``dlse`` [BH,Tq], if any)."""
+    bh, tq, tk, d = _check_qkv(q, k, v, causal)
+    _check_rows("flash_dq", bh, tq, lse, delta, dlse)
+    seed_u, thresh, upscale = dropout_params(dropout_p, seed)
+    rows = [t for t in (lse, delta, dlse) if t is not None]
+    if not _device.uses_kernel(q, k, v, dout, *rows):
+        return flash_dq_ref(q, k, v, dout, lse, delta, causal, scale,
+                            dropout_p, seed, dlse)
+    _check_kernel_args("flash_dq", (q, k, v, dout, *rows), d)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_dq: dout {tuple(dout.shape)} != q "
+                         f"{tuple(q.shape)}")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _kernels().paddle_flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dq.data_ptr(),
+            bh, tq, tk, d, int(causal), scale, int(dropout_p > 0), seed_u,
+            thresh, upscale, torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "flash_dq")
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
+              dropout_p: float = 0.0, seed: int = 0, dlse=None):
+    """(dK, dV) [BH,Tk,D] from the same inputs as :func:`flash_dq`."""
+    bh, tq, tk, d = _check_qkv(q, k, v, causal)
+    _check_rows("flash_dkv", bh, tq, lse, delta, dlse)
+    seed_u, thresh, upscale = dropout_params(dropout_p, seed)
+    rows = [t for t in (lse, delta, dlse) if t is not None]
+    if not _device.uses_kernel(q, k, v, dout, *rows):
+        return flash_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
+                             dropout_p, seed, dlse)
+    _check_kernel_args("flash_dkv", (q, k, v, dout, *rows), d)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_dkv: dout {tuple(dout.shape)} != q "
+                         f"{tuple(q.shape)}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _kernels().paddle_flash_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dk.data_ptr(),
+            dv.data_ptr(), bh, tq, tk, d, int(causal), scale,
+            int(dropout_p > 0), seed_u, thresh, upscale,
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "flash_dkv")
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) on [BH,T,D]; the forward runs
+    :func:`flash_fwd`, the backward :func:`flash_dq` and
+    :func:`flash_dkv` from the saved (q, k, v, o, lse), regenerating the
+    dropout mask from the seed (the custom VJP of ``:320-550``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
+        o, lse = flash_fwd(q, k, v, causal, scale, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, dropout_p, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (o * dout).sum(dim=-1)                  # rowsum(o * dO)
+        dq = flash_dq(q, k, v, dout, lse, delta, *ctx.args)
+        dk, dv = flash_dkv(q, k, v, dout, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None, dropout_p: float = 0.0,
+                    seed: int = 0) -> torch.Tensor:
+    """q [B,H,Tq,D], k/v [B,H,Tk,D] -> [B,H,Tq,D]; ``scale`` defaults to
+    D**-0.5, ``seed`` (an int32 value) keys the dropout mask. The
+    [B*H,T,D] layout the kernels take is a copy when the inputs are not
+    contiguous in [B,H,T,D] (``reshape`` copies them)."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if scale is None:
+        scale = float(d) ** -0.5
+    o = FlashAttention.apply(q.reshape(b * h, tq, d),
+                             k.reshape(b * h, tk, d),
+                             v.reshape(b * h, tk, d), bool(causal),
+                             float(scale), float(dropout_p), int(seed))
+    return o.view(b, h, tq, d)

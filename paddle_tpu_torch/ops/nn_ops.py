@@ -8,6 +8,20 @@ numerics of their JAX emitters:
 - :func:`fc` -- ``paddle_tpu/ops/misc_ops.py:485`` (and the ``mul`` +
   bias + act chain ``layers.fc`` emits): weights in [in, out] layout.
 - :func:`scale` -- ``paddle_tpu/ops/math_ops.py:74``.
+
+and those the training path adds (differentiable through autograd, like
+the ops above):
+
+- :func:`dropout` -- ``nn_ops.py:462`` in training, ``upscale_in_train``:
+  the counter-hash keep mask over the flat element index
+  (``hash_keep_mask(seed, 0, index, 0, p)``).
+- :func:`softmax` -- ``nn_ops.py:528``, over the last axis.
+- :func:`softmax_with_cross_entropy` -- ``nn_ops.py:563``, hard labels:
+  ``lse - picked`` with closed-form label smoothing ``+ eps * (picked -
+  mean(logits))`` and ``ignore_index`` rows at 0.
+- :func:`matmul` -- ``paddle_tpu/ops/math_ops.py:51`` (batched, optional
+  ``transpose_y``).
+- :func:`mean` -- ``math_ops.py:122``.
 """
 
 from __future__ import annotations
@@ -15,6 +29,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from paddle_tpu_torch.ops.kernels.flash_attention import hash_keep_mask
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
@@ -53,3 +69,47 @@ def fc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
 def scale(x: torch.Tensor, factor: float, bias: float = 0.0) -> torch.Tensor:
     return x * factor + bias
 
+
+
+def dropout(x: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """Training-mode dropout, ``upscale_in_train``, with the JAX op's keep
+    mask: element ``i`` of the flattened ``x`` is kept (and scaled by
+    1 / (1 - p)) iff ``hash_keep_mask(seed, 0, i, 0, p)`` is non-zero, so
+    the same seed drops the same elements as the JAX op. ``seed`` is an
+    int32 value (the JAX op draws it from its step key)."""
+    if p >= 1.0:
+        return torch.zeros_like(x)      # everything dropped, no 0 * inf
+    idx = torch.arange(x.numel(), device=x.device).view(x.shape)
+    return x * hash_keep_mask(seed, 0, idx, 0, p).to(x.dtype)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(x, dim=-1)
+
+
+def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
+                               label_smoothing: float = 0.0,
+                               ignore_index: int = -100) -> torch.Tensor:
+    """logits [..., V], integer label [..., 1] (or [...]) -> loss [..., 1]
+    (fp32). The max is taken off the graph, as the JAX op stops its
+    gradient; the result and its gradient are those of ``-sum(q *
+    log_softmax(logits))`` with ``q = (1 - eps) * onehot + eps / V``."""
+    lg = logits.to(torch.float32)
+    m = lg.detach().amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.exp(lg - m).sum(dim=-1, keepdim=True))
+    lab = label.reshape(logits.shape[:-1] + (1,)).long()
+    picked = lg.gather(-1, lab.clamp(0, logits.shape[-1] - 1))
+    loss = lse - picked
+    if label_smoothing:
+        loss = loss + label_smoothing * (picked
+                                         - lg.mean(dim=-1, keepdim=True))
+    return torch.where(lab == ignore_index, torch.zeros_like(loss), loss)
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor,
+           transpose_y: bool = False) -> torch.Tensor:
+    return torch.matmul(x, y.transpose(-1, -2) if transpose_y else y)
+
+
+def mean(x: torch.Tensor) -> torch.Tensor:
+    return x.mean()

@@ -1,0 +1,88 @@
+"""Optimizers (counterpart of ``paddle_tpu/fluid/optimizer.py``).
+
+:class:`Adam` is the JAX package's Adam (``optimizer.py:197``
+``AdamOptimizer``, update rule ``ops/optimizer_ops.py:89`` ``_adam``,
+dense branch ``:140-149``), not ``torch.optim.Adam``: the bias
+correction folds into the step size and epsilon is added to
+``sqrt(m2)`` unscaled.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import numpy as np
+import torch
+
+
+class Adam(torch.optim.Optimizer):
+    """Per parameter, with float32 accumulators ``beta1_pow`` and
+    ``beta2_pow`` that START at ``beta1`` and ``beta2`` (the JAX
+    accumulators' fill values, ``optimizer.py:215-218``)::
+
+        lr_t = lr * sqrt(1 - beta2_pow) / (1 - beta1_pow)
+        m1   = beta1 * m1 + (1 - beta1) * g
+        m2   = beta2 * m2 + (1 - beta2) * g * g
+        p   -= lr_t * m1 / (sqrt(m2) + epsilon)
+        beta1_pow *= beta1;  beta2_pow *= beta2
+
+    ``learning_rate`` is a float or a schedule: a callable that returns
+    the rate of the step about to run (``learning_rate_scheduler``), read
+    once per :meth:`step`. The parameters, moments and beta powers are
+    updated IN PLACE. The beta powers and ``lr_t`` are host float32
+    scalars (one value per parameter, as in the JAX scope), so a step
+    never waits on the device; the moments live beside their parameters.
+    Parameters without a gradient are skipped, their beta powers
+    included."""
+
+    def __init__(self, params, learning_rate: Union[float, Callable] = 1e-3,
+                 beta1: float = 0.9, beta2: float = 0.999,
+                 epsilon: float = 1e-8):
+        if callable(learning_rate):
+            self.schedule = learning_rate
+            lr = 0.0
+        else:
+            self.schedule = None
+            lr = float(learning_rate)
+        super().__init__(params, dict(lr=lr, beta1=float(beta1),
+                                      beta2=float(beta2),
+                                      epsilon=float(epsilon)))
+
+    @torch.no_grad()
+    def step(self):
+        scheduled = self.schedule() if self.schedule is not None else None
+        one = np.float32(1.0)
+        for group in self.param_groups:
+            b1, b2, eps = group["beta1"], group["beta2"], group["epsilon"]
+            rate = np.float32(group["lr"] if scheduled is None
+                              else scheduled)
+            ps, gs, m1s, m2s, steps = [], [], [], [], []
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                if p.grad.is_sparse:
+                    raise ValueError("Adam takes dense gradients")
+                st = self.state[p]
+                if not st:
+                    st["moment1"] = torch.zeros_like(p)
+                    st["moment2"] = torch.zeros_like(p)
+                    st["beta1_pow"] = np.float32(b1)
+                    st["beta2_pow"] = np.float32(b2)
+                lr_t = rate * np.sqrt(one - st["beta2_pow"]) \
+                    / (one - st["beta1_pow"])
+                st["beta1_pow"] = st["beta1_pow"] * np.float32(b1)
+                st["beta2_pow"] = st["beta2_pow"] * np.float32(b2)
+                ps.append(p)
+                gs.append(p.grad)
+                m1s.append(st["moment1"])
+                m2s.append(st["moment2"])
+                steps.append(-float(lr_t))
+            if not ps:
+                continue
+            torch._foreach_mul_(m1s, b1)
+            torch._foreach_add_(m1s, gs, alpha=1.0 - b1)
+            torch._foreach_mul_(m2s, b2)
+            torch._foreach_addcmul_(m2s, gs, gs, value=1.0 - b2)
+            denom = torch._foreach_sqrt(m2s)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_addcdiv_(ps, m1s, denom, steps)
