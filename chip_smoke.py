@@ -43,23 +43,38 @@ final line:
    for the forward (at p = 0: its dropout bits differ) and that call's
    backward for the dQ + dK/dV pair, held to allclose with the plain
    versions first.
-6. Training: Transformer-base (vocab 32000, d_model 512, d_inner 2048,
+6. Fused-CE kernels: the fused linear + cross-entropy forward, dx and
+   dW kernels at the vocabulary head of phase 7 (N 4096 rows, D 512,
+   V 32000, label smoothing 0.1, every 50th row at ignore_index, a
+   non-uniform per-row cotangent) and at an edge shape (N 1000, D 100,
+   V 1003), each against its plain PyTorch version (rtol 1e-4 /
+   atol 1e-5 loss and lse, rtol 1e-3 / atol 1e-4 dx and dW), timed as
+   in phase 3 beside its plain version, its bound (as in phase 5) and a
+   library yardstick: ``F.cross_entropy(x @ w, ...)`` for the forward
+   and its autograd backward for the dx + dW pair (two calls each, held
+   to allclose with the plain versions first).
+7. Training: Transformer-base (vocab 32000, d_model 512, d_inner 2048,
    8 heads, 6 + 6 layers, max_len 128, label smoothing 0.1, Adam at
    1e-4; seeded random weights carried in through
    ``transformer_params_from_jax``) takes 10 steps of 32 sequences (4096
-   tokens) of a seeded copy task, once with ``fused_attention=True``
-   (the flash kernels) and once with ``False`` (composed torch ops: the
-   oracle), dropout off. The launch counts are zeroed just before each
-   run and read just after. Checks: the two loss curves agree within
-   rtol 1e-3, every fused step launched each flash kernel 18 times
-   (6 encoder, 6 causal decoder and 6 cross attentions) and the
-   composed run none. Then 10 fused steps at dropout 0.1 on one batch
-   must give finite losses, the last below the first. Prints each run's
-   step p50 (host clock around steps that end in a synchronize),
-   tokens/s, peak memory, and a ``torch.profiler`` window of 3 steps:
-   device busy per step, idle share, and the flash kernels' share of
-   device time.
-7. Report: a ``{"kernels": [...]}`` line, then, last,
+   tokens) of a seeded copy task three times from the same weights:
+   ``fused_attention=True`` (the flash kernels), ``False`` (composed
+   torch ops: the oracle) and ``fused_attention=True, fused_head=True``
+   (the flash and the fused-CE kernels), dropout off. The launch counts
+   are zeroed just before each run and read just after. Checks: the
+   composed and the fused-head curves agree with the fused-attention
+   curve within rtol 1e-3; every fused step launched each flash kernel
+   18 times (6 encoder, 6 causal decoder and 6 cross attentions) and the
+   composed run none; every fused-head step launched each fused-CE
+   kernel once and the other runs none. An evaluation forward
+   (``is_train=False``) with the fused head must equal the unfused one
+   within rtol 1e-4 and launch the forward kernel once. Then 10 fused
+   steps at dropout 0.1 on one batch must give finite losses, the last
+   below the first. Prints each run's step p50 (host clock around steps
+   that end in a synchronize), tokens/s, peak memory, and a
+   ``torch.profiler`` window of 3 steps: device busy per step, idle
+   share, and the flash and fused-CE kernels' shares of device time.
+8. Report: a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -75,6 +90,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # fp32 outside the tensor cores, same
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FCE_SOURCE = "paddle_tpu_torch/csrc/fused_ce.cu"
 LM = dict(vocab=32000, d_model=512, d_inner=2048, n_head=8, n_layer=6)
 SERVE = dict(n_slots=16, prompt_buckets=(32, 64, 128), page_size=16,
              n_pages=256)
@@ -93,6 +109,14 @@ FLASH_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 FLASH_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 FLASH_VARIANTS = {"full": (False, 0.0), "causal": (True, 0.0),
                   "dropout": (False, 0.1)}
+FCE_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+FCE_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+FCE_EDGE = (1000, 100, 1003)       # N, D, V off every tile multiple
+EVAL_RTOL = 1e-4
+TRAIN_RUNS = {"fused_attention": dict(fused_attention=True),
+              "composed": dict(fused_attention=False),
+              "fused_head": dict(fused_attention=True, fused_head=True)}
+IGNORE = -100
 
 
 def fail(msg: str):
@@ -521,7 +545,145 @@ def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None):
     return results
 
 
-# -- phase 6: training ------------------------------------------------------
+# -- phase 6: fused-CE kernels ----------------------------------------------
+
+def fce_cost(n, d, v):
+    """(FLOPs, bytes) of the fused-CE forward, dx and dW kernels: 2*N*D*V
+    for the forward's product, 4*N*D*V for each backward kernel (its own
+    recompute of z and its product); each input read once, each output
+    written once."""
+    x_b, w_b, row_b = n * d * 4, d * v * 4, n * 4
+    return {"fused_ce_fwd": (2 * n * d * v, x_b + w_b + row_b + 2 * row_b),
+            "fused_ce_dx": (4 * n * d * v, x_b + w_b + 3 * row_b + x_b),
+            "fused_ce_dw": (4 * n * d * v, x_b + w_b + 3 * row_b + w_b)}
+
+
+def fce_inputs(torch, dev, n, d, v, seed):
+    """x ~ N(0, 1) (a layer-normed decoder output), w ~ N(0, 1/D), labels
+    with every 50th row at ignore_index, a per-row cotangent in
+    [0.5, 1.5) (the kernels take any g; the mean's 1/N would put dx under
+    the absolute tolerance)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=dev)
+    w = torch.randn(d, v, generator=gen, device=dev) * d ** -0.5
+    labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+    labels[::50] = IGNORE
+    g = torch.rand(n, generator=gen, device=dev) + 0.5
+    return x, w, labels, g
+
+
+def fce_check(torch, fc, x, w, labels, g, eps, label):
+    """Each kernel against its plain version; returns the max abs errors
+    and the plain lse."""
+    loss, lse = fc.fused_ce_fwd(x, w, labels, eps)
+    want_loss, want_lse = fc.fused_ce_fwd_ref(x, w, labels, eps)
+    dx = fc.fused_ce_dx(x, w, labels, want_lse, g, eps)
+    dw = fc.fused_ce_dw(x, w, labels, want_lse, g, eps)
+    want_dx, want_dw = fc.fused_ce_bwd_ref(x, w, labels, want_lse, g, eps)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want, tol in (("loss", loss, want_loss, FCE_FWD_TOL),
+                                 ("lse", lse, want_lse, FCE_FWD_TOL),
+                                 ("dx", dx, want_dx, FCE_GRAD_TOL),
+                                 ("dw", dw, want_dw, FCE_GRAD_TOL)):
+        errs[name] = float((got - want).abs().max())
+        if not close(got, want, tol):
+            fail(f"fused CE {label}: {name} differs from the plain version "
+                 f"(max abs err {errs[name]}, tolerance {tol})")
+    if bool((loss[labels == IGNORE] != 0).any()):
+        fail(f"fused CE {label}: an ignored row has a non-zero loss")
+    return errs, want_lse, (want_loss, want_dx, want_dw)
+
+
+def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
+                   d=TRAIN["d_model"], v=TRAIN["tgt_vocab"], edge=FCE_EDGE):
+    """The fused-CE kernels against their plain versions at the head of
+    the training slice and at an edge shape, then timed beside plain,
+    bound and library."""
+    from paddle_tpu_torch.ops.kernels import fused_ce as fc
+    import torch.nn.functional as F
+    eps = 0.1
+    edge_errs, _, _ = fce_check(
+        torch, fc, *fce_inputs(torch, dev, *edge, 8), eps,
+        f"edge N {edge[0]} D {edge[1]} V {edge[2]}")
+    print(f"[{card}] fused CE edge shape N {edge[0]} D {edge[1]} V "
+          f"{edge[2]}: max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
+    x, w, labels, g = fce_inputs(torch, dev, n, d, v, 9)
+    errs, lse, (want_loss, want_dx, want_dw) = fce_check(
+        torch, fc, x, w, labels, g, eps, f"N {n} D {d} V {v}")
+
+    # the library yardstick: the composed head in two calls (a matmul and
+    # F.cross_entropy) and their autograd backward, held to the plain
+    # versions first
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    lab64 = labels.long()
+
+    def lib_fwd():
+        return F.cross_entropy(xr @ wr, lab64, reduction="none",
+                               label_smoothing=eps, ignore_index=IGNORE)
+    lib_loss = lib_fwd()
+    lib_dx, lib_dw = torch.autograd.grad(lib_loss, (xr, wr), g,
+                                         retain_graph=True)
+    for name, got, want, tol in (("loss", lib_loss, want_loss, FCE_FWD_TOL),
+                                 ("dx", lib_dx, want_dx, FCE_GRAD_TOL),
+                                 ("dw", lib_dw, want_dw, FCE_GRAD_TOL)):
+        if not torch.allclose(got, want, **tol):
+            fail(f"fused CE: the library yardstick's {name} differs from "
+                 f"the plain version (max abs err "
+                 f"{float((got - want).abs().max())})")
+    del want_dx, want_dw
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_loss, (xr, wr), g, retain_graph=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    lib_bwd_ms = time_ms(torch, lib_bwd, flush, n=20)
+    plain_bwd_ms = time_ms(torch, lambda: fc.fused_ce_bwd_ref(
+        x, w, labels, lse, g, eps), flush, n=20)
+    lib_ms = {"fused_ce_fwd": time_ms(torch, lib_fwd, flush, n=20),
+              "fused_ce_dx": lib_bwd_ms, "fused_ce_dw": lib_bwd_ms}
+    runs = {"fused_ce_fwd": (
+                lambda: fc.fused_ce_fwd(x, w, labels, eps),
+                lambda: fc.fused_ce_fwd_ref(x, w, labels, eps),
+                ("loss", "lse")),
+            "fused_ce_dx": (
+                lambda: fc.fused_ce_dx(x, w, labels, lse, g, eps), None,
+                ("dx",)),
+            "fused_ce_dw": (
+                lambda: fc.fused_ce_dw(x, w, labels, lse, g, eps), None,
+                ("dw",))}
+    cost = fce_cost(n, d, v)
+    results = {}
+    for kname, (fn, ref, outs) in runs.items():
+        err = max(errs[o] for o in outs)
+        flops, nbytes = cost[kname]
+        bound_ms, bound_by = bound_of(flops, nbytes)
+        row = {"max_abs_err": err, "ms": time_ms(torch, fn, flush, n=20),
+               "plain_ms": time_ms(torch, ref, flush, n=20) if ref
+               else plain_bwd_ms,
+               "library_ms": lib_ms[kname], "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "edge_max_abs_err": max(edge_errs[o] for o in outs)}
+        results[kname] = row
+        pair = " (dx+dW)" if kname != "fused_ce_fwd" else ""
+        print(f"[{card}] {kname} [N {n}, D {d}, V {v}]: max abs err "
+              f"{err:.3g}; kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms{pair}, library "
+              f"{row['library_ms']:.3f} ms{pair}, bound "
+              f"{bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+    flops = 6 * n * d * v
+    whole = bound_of(flops, cost["fused_ce_dx"][1] + d * v * 4)[0]
+    print(f"[{card}] fused CE backward: the two kernels "
+          f"{results['fused_ce_dx']['ms'] + results['fused_ce_dw']['ms']:.3f}"
+          f" ms against {results['fused_ce_dx']['bound_ms'] + results['fused_ce_dw']['bound_ms']:.3f}"
+          f" ms of their bounds; the function's own minimum (one recompute, "
+          f"{flops / 1e9:.1f} GFLOP) {whole:.3f} ms")
+    del flush
+    return results
+
+
+# -- phase 7: training ------------------------------------------------------
 
 def transformer_weights(model, seed: int) -> dict:
     """Seeded weights for every parameter of ``model``, by state key:
@@ -557,11 +719,11 @@ def copy_task(torch, dev, seed: int, steps: int, b: int, t: int, vocab: int):
 
 def train(torch, model, opt, feeds, launches=None):
     """One optimizer step per feed; returns the losses, each step's host
-    time (ending in a synchronize) and, with ``launches``, each step's
-    flash-kernel launches."""
+    time (ending in a synchronize) and, with ``launches`` (a function
+    returning the kernels' launch counts), each step's launches."""
     losses, step_ms, per_step = [], [], []
     for src, tgt, lbl in feeds:
-        before = dict(launches) if launches is not None else None
+        before = launches() if launches is not None else None
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
         loss = model(src, tgt, lbl)
@@ -571,13 +733,15 @@ def train(torch, model, opt, feeds, launches=None):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss.detach()))
         if launches is not None:
-            per_step.append({k: launches[k] - before[k] for k in launches})
+            after = launches()
+            per_step.append({k: after[k] - before[k] for k in after})
     return losses, step_ms, per_step
 
 
 def profile_window(torch, model, opt, feeds):
-    """(device busy ms per step, idle share, flash share of device time,
-    host ms per step) over a torch.profiler window of ``feeds``."""
+    """(device busy ms per step, idle share, flash and fused-CE shares of
+    device time, host ms per step) over a torch.profiler window of
+    ``feeds``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -595,12 +759,15 @@ def profile_window(torch, model, opt, feeds):
     busy_us = sum(ev.self_device_time_total for ev in kernels)
     flash_us = sum(ev.self_device_time_total for ev in kernels
                    if "flash_" in ev.key)
+    fce_us = sum(ev.self_device_time_total for ev in kernels
+                 if "fused_ce_" in ev.key)
     n = len(feeds)
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
     return {"device_busy_ms_per_step": busy_us / n / 1e3,
             "host_ms_per_step": wall_ms / n,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
             "flash_share": flash_us / busy_us if busy_us else 0.0,
+            "fused_ce_share": fce_us / busy_us if busy_us else 0.0,
             "launches_per_step": sum(ev.count for ev in kernels) / n,
             "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
                              ev.count / n) for ev in top]}
@@ -608,44 +775,60 @@ def profile_window(torch, model, opt, feeds):
 
 def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
                 profile_steps=PROFILE_STEPS):
-    """The training slice: fused (kernels) against composed (oracle)
-    from the same weights, launch counts per step, a dropout run, and
-    the step-time and profiler numbers."""
+    """The training slice: fused attention (the flash kernels), composed
+    (the oracle) and fused attention with the fused head (the flash and
+    fused-CE kernels) from the same weights, launch counts per step, an
+    evaluation forward of each head, a dropout run, and the step-time and
+    profiler numbers."""
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models.transformer import build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as fc
     cfg = dict(TRAIN if cfg is None else cfg)
     n_attn = 3 * cfg["n_layer"]          # encoder, causal decoder, cross
     tokens = batch * cfg["max_len"]
     weights = None
     feeds = copy_task(torch, dev, 3, steps + profile_steps, batch,
                       cfg["max_len"], cfg["tgt_vocab"])
-    runs, launched = {}, {}
-    for fused in (True, False):
-        model, opt = build(**cfg, dropout=0.0, fused_attention=fused,
-                           device=dev)
-        if weights is None:
-            weights = transformer_weights(model, 1)
-        names = convert.transformer_jax_names(cfg["n_layer"], fused)
+
+    def counts():
+        return {**fa.LAUNCHES, **fc.LAUNCHES}
+
+    def reset():
+        fa.reset_launches()
+        fc.reset_launches()
+
+    def load(model, kw):
+        names = convert.transformer_jax_names(
+            cfg["n_layer"], kw["fused_attention"], kw.get("fused_head", False))
         model.load_state_dict(convert.transformer_params_from_jax(
             {names[key]: w for key, w in weights.items()}))
-        label = f"fused_attention={fused}"
+
+    runs, launched = {}, {}
+    for label, kw in TRAIN_RUNS.items():
+        model, opt = build(**cfg, dropout=0.0, device=dev, **kw)
+        if weights is None:
+            weights = transformer_weights(model, 1)
+        load(model, kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()
+        reset()
         losses, step_ms, per_step = train(torch, model, opt, feeds[:steps],
-                                          fa.LAUNCHES)
-        launched[fused] = dict(fa.LAUNCHES)
-        want = n_attn if fused else 0
-        for i, counts in enumerate(per_step):
-            if any(c != want for c in counts.values()):
-                fail(f"{label}: step {i} launched {counts}, want {want} "
-                     f"of each flash kernel")
+                                          counts)
+        launched[label] = counts()
+        want = {k: n_attn if kw["fused_attention"] else 0
+                for k in fa.LAUNCHES}
+        want.update({k: int(kw.get("fused_head", False))
+                     for k in fc.LAUNCHES})
+        for i, c in enumerate(per_step):
+            if c != want:
+                fail(f"{label}: step {i} launched {c}, want {want}")
         if not all(np.isfinite(losses)):
             fail(f"{label}: non-finite loss curve {losses}")
         stats = {"losses": losses, "step_ms": step_ms,
                  "step_p50_ms": float(np.median(step_ms)),
-                 "peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+                 "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+                 "launches": launched[label]}
         stats["tokens_per_s"] = tokens / stats["step_p50_ms"] * 1e3
         if profile_steps:
             stats["profile"] = prof = profile_window(torch, model, opt,
@@ -653,40 +836,65 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
             # against the step time without the profiler's own overhead
             prof["idle_share_at_p50"] = 1.0 - prof[
                 "device_busy_ms_per_step"] / stats["step_p50_ms"]
-        runs[fused] = stats
+        runs[label] = stats
         prof = stats.get("profile", {})
         print(f"[{card}] {label}: losses "
               f"{[round(x, 5) for x in losses]}; step p50 "
               f"{stats['step_p50_ms']:.3f} ms = {stats['tokens_per_s']:.0f} "
               f"tokens/s; peak memory "
               f"{stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; launches "
-              f"{launched[fused]}")
+              f"{launched[label]}")
         if prof:
             print(f"[{card}] {label} profile ({profile_steps} steps): host "
                   f"{prof['host_ms_per_step']:.3f} ms/step, device busy "
                   f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle "
                   f"share {prof['idle_share']:.3f} "
                   f"({prof['idle_share_at_p50']:.3f} against the step "
-                  f"p50), flash kernels "
-                  f"{prof['flash_share']:.4f} of device time, "
-                  f"{prof['launches_per_step']:.0f} launches/step")
+                  f"p50), flash kernels {prof['flash_share']:.4f} and "
+                  f"fused-CE kernels {prof['fused_ce_share']:.4f} of device "
+                  f"time, {prof['launches_per_step']:.0f} launches/step")
             for key, us, count in prof["top_kernels"]:
                 print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
         del model, opt
-    a, b = runs[True]["losses"], runs[False]["losses"]
-    if not np.allclose(a, b, rtol=CURVE_RTOL, atol=0.0):
-        fail(f"fused and composed loss curves differ beyond rtol "
-             f"{CURVE_RTOL}: {a} vs {b}")
-    print(f"[{card}] the fused curve matches the composed one within rtol "
-          f"{CURVE_RTOL} (max rel diff "
-          f"{max(abs(x - y) / abs(y) for x, y in zip(a, b)):.3g}); each "
-          f"fused step launched each flash kernel {n_attn} times")
+    a = runs["fused_attention"]["losses"]
+    for label in ("composed", "fused_head"):
+        b = runs[label]["losses"]
+        if not np.allclose(b, a, rtol=CURVE_RTOL, atol=0.0):
+            fail(f"{label} and fused_attention loss curves differ beyond "
+                 f"rtol {CURVE_RTOL}: {b} vs {a}")
+        print(f"[{card}] the {label} curve matches the fused_attention one "
+              f"within rtol {CURVE_RTOL} (max rel diff "
+              f"{max(abs(x - y) / abs(y) for x, y in zip(b, a)):.3g})")
+    print(f"[{card}] each fused step launched each flash kernel {n_attn} "
+          f"times; each fused-head step each fused-CE kernel once")
 
-    model, opt = build(**cfg, dropout=0.1, fused_attention=True, device=dev,
+    # the evaluation model (no smoothing) of each head, one forward
+    eval_loss = {}
+    for head in (False, True):
+        kw = dict(fused_attention=True, fused_head=head)
+        model, _ = build(**cfg, is_train=False, device=dev, **kw)
+        load(model, kw)
+        reset()
+        with torch.no_grad():
+            eval_loss[head] = float(model(*feeds[0]))
+        want = {"fused_ce_fwd": int(head), "fused_ce_dx": 0, "fused_ce_dw": 0}
+        if dict(fc.LAUNCHES) != want:
+            fail(f"evaluation fused_head={head}: launched {fc.LAUNCHES}, "
+                 f"want {want}")
+        del model
+    if not np.isclose(eval_loss[True], eval_loss[False], rtol=EVAL_RTOL,
+                      atol=0.0):
+        fail(f"evaluation losses differ beyond rtol {EVAL_RTOL}: fused head "
+             f"{eval_loss[True]}, unfused {eval_loss[False]}")
+    runs["eval"] = {"fused_head": eval_loss[True],
+                    "unfused": eval_loss[False]}
+    print(f"[{card}] evaluation loss: fused head {eval_loss[True]:.7f}, "
+          f"unfused {eval_loss[False]:.7f} (within rtol {EVAL_RTOL})")
+
+    kw = dict(fused_attention=True)
+    model, opt = build(**cfg, dropout=0.1, device=dev, **kw,
                        generator=torch.Generator().manual_seed(7))
-    names = convert.transformer_jax_names(cfg["n_layer"], True)
-    model.load_state_dict(convert.transformer_params_from_jax(
-        {names[key]: w for key, w in weights.items()}))
+    load(model, kw)
     # one batch seen again every step: the loss must fall through the
     # dropout noise (fresh batches of random tokens differ by more than
     # ten steps at lr 1e-4 gain)
@@ -707,7 +915,7 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
-    return launched[True], n_attn, runs
+    return launched, n_attn, runs
 
 
 def main():
@@ -736,8 +944,10 @@ def main():
 
     measured = kernel_phase(torch, dev, card)
     flash = flash_phase(torch, dev, card)
+    fce = fused_ce_phase(torch, dev, card)
     launches, per_layer = slice_phase(torch, dev, card)
-    flash_launches, per_step, runs = train_phase(torch, dev, card)
+    train_launches, per_step, runs = train_phase(torch, dev, card)
+    flash_launches = train_launches["fused_attention"]
 
     kernels = []
     for kname, key, line in (
@@ -772,11 +982,21 @@ def main():
                              ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "max_abs_err")}
                          for v in FLASH_VARIANTS}})
+    for kname, line in (("fused_ce_fwd", 185), ("fused_ce_dx", 234),
+                        ("fused_ce_dw", 234)):
+        m = fce[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": FCE_SOURCE,
+            "replaces": f"paddle_tpu/ops/pallas/fused_ce.py:{line}",
+            "launches": train_launches["fused_head"][kname],
+            "max_abs_err": max(m["max_abs_err"], m["edge_max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "launches_per_train_step": 1,
+            "card": card})
     bf16 = measured["gather_rows/bf16"]
     print(json.dumps({"gather_rows_bf16": bf16, "card": card}))
-    print(json.dumps({"training": {
-        "fused_attention": runs[True], "composed": runs[False],
-        "dropout": runs["dropout"]}, "card": card}))
+    print(json.dumps({"training": runs, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

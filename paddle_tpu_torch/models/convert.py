@@ -11,7 +11,9 @@ already agree: matrices are [in, out] on both sides.
   ``transformer_tgt_emb``); every other parameter takes a LayerHelper
   auto-name whose counter is global to the process
   (``layer_norm_<k>.w_0/b_0``, ``fc_<k>.w_0/b_0``,
-  ``fused_multi_head_attention_<k>.w_0..w_3`` for wq, wk, wv, wo), so the
+  ``fused_multi_head_attention_<k>.w_0..w_3`` for wq, wk, wv, wo, and,
+  with ``fused_head``, ``fused_linear_ce_<k>.w_0`` for the head in place
+  of the last ``fc``; ``fluid/layers/nn.py:884-904``), so the
   same program built twice, or in another process, numbers them
   differently. The names are therefore matched by family and by their
   order within the family, which is the order ``transformer()`` creates
@@ -63,11 +65,12 @@ def params_from_jax(arrays: Dict[str, np.ndarray]
 # -- Transformer-base (models/transformer.py:135 transformer) ---------------
 
 _EMB = {"transformer_src_emb": "src_emb", "transformer_tgt_emb": "tgt_emb"}
-_AUTO = re.compile(r"(layer_norm|fc|fused_multi_head_attention)_(\d+)"
-                   r"\.([wb])_(\d+)$")
+_AUTO = re.compile(r"(layer_norm|fc|fused_multi_head_attention|"
+                   r"fused_linear_ce)_(\d+)\.([wb])_(\d+)$")
 
 
-def transformer_layout(n_layer: int, fused_attention: bool
+def transformer_layout(n_layer: int, fused_attention: bool,
+                       fused_head: bool = False
                        ) -> List[Tuple[str, List[Tuple[str, str]]]]:
     """The :class:`Transformer`'s auto-named parameters in the order the
     JAX ``transformer()`` creates them: one entry per layer creation,
@@ -107,17 +110,19 @@ def transformer_layout(n_layer: int, fused_attention: bool
         ln(f"{d}.ln3")
         ffn(d)
     ln("dec_ln")
-    out.append(("fc", [("w_0", "head_w")]))
+    out.append(("fused_linear_ce" if fused_head else "fc",
+                [("w_0", "head_w")]))
     return out
 
 
-def transformer_jax_names(n_layer: int, fused_attention: bool
-                          ) -> Dict[str, str]:
+def transformer_jax_names(n_layer: int, fused_attention: bool,
+                          fused_head: bool = False) -> Dict[str, str]:
     """{state key: JAX name} as a fresh process names ``build``'s
     parameters (every counter from 0)."""
     names = dict((v, k) for k, v in _EMB.items())
     counters: Dict[str, int] = {}
-    for fam, params in transformer_layout(n_layer, fused_attention):
+    for fam, params in transformer_layout(n_layer, fused_attention,
+                                          fused_head):
         n = counters.get(fam, 0)
         counters[fam] = n + 1
         for suffix, key in params:
@@ -127,9 +132,9 @@ def transformer_jax_names(n_layer: int, fused_attention: bool
 
 def transformer_state_keys(names) -> Dict[str, str]:
     """{JAX name: :class:`Transformer` state key} for the parameter names
-    of one ``build`` (any counter offsets). Infers ``n_layer`` and the
-    attention variant from the names; raises on a name it cannot place
-    or a count that fits no Transformer."""
+    of one ``build`` (any counter offsets). Infers ``n_layer``, the
+    attention variant and the head from the names; raises on a name it
+    cannot place or a count that fits no Transformer."""
     groups: Dict[str, Dict[int, set]] = {}
     out = {}
     for name in names:
@@ -150,14 +155,16 @@ def transformer_state_keys(names) -> Dict[str, str]:
                          f"(want 5 * n_layer + 2)")
     n_layer = (n_ln - 2) // 5
     fused = "fused_multi_head_attention" in groups
-    layout = transformer_layout(n_layer, fused)
+    fused_head = "fused_linear_ce" in groups
+    layout = transformer_layout(n_layer, fused, fused_head)
     for fam in set(groups) | {f for f, _ in layout}:
         want = [p for f, p in layout if f == fam]
         have = sorted(groups.get(fam, {}))
         if len(have) != len(want):
             raise ValueError(f"{fam}: {len(have)} layers in the scope, "
                              f"{len(want)} in a {n_layer}-layer "
-                             f"Transformer (fused_attention={fused})")
+                             f"Transformer (fused_attention={fused}, "
+                             f"fused_head={fused_head})")
         for k, params in zip(have, want):
             if groups[fam][k] != {s for s, _ in params}:
                 raise ValueError(f"{fam}_{k}: parameters "

@@ -28,6 +28,10 @@ is the mean label-smoothed loss of ``build``'s graph) and its
 attention runs :func:`~paddle_tpu_torch.ops.attention_block.
 fused_attention_block`, whose flash kernels run on the card; without it,
 the composed matmul/softmax/dropout graph of ``multi_head_attention``.
+With ``fused_head`` the vocabulary projection and the loss are one
+:func:`~paddle_tpu_torch.ops.nn_ops.fused_linear_ce`, whose fused-CE
+kernels run on the card; without it, the head's matmul and
+``softmax_with_cross_entropy``.
 Scope weights carry across with ``convert.transformer_params_from_jax``.
 """
 
@@ -374,7 +378,10 @@ class Transformer(nn.Module):
     """The encoder-decoder of ``transformer`` (``:135``) with the loss of
     ``build``: ``forward(src_ids, tgt_ids, lbl_ids)`` -> the mean over
     every position of the label-smoothed softmax cross entropy of the
-    vocabulary head (``fused_head=False``).
+    vocabulary head ``head_w``: the head's matmul and
+    ``softmax_with_cross_entropy``, or with ``fused_head`` the one op
+    ``fused_linear_ce`` over the flattened decoder output (``build``,
+    ``:721-731``). ``logits`` is the same either way.
 
     Dropout (``dropout > 0``, in training mode) follows the JAX graph:
     after each embedding, on each sublayer's output before its residual
@@ -390,7 +397,8 @@ class Transformer(nn.Module):
                  n_layer: int = 6, dropout: float = 0.1,
                  label_smooth_eps: float = 0.1,
                  fused_attention: bool = False, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fused_head: bool = False):
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} not divisible by n_head "
@@ -402,6 +410,7 @@ class Transformer(nn.Module):
         self.dropout_p = float(dropout)
         self.label_smooth_eps = float(label_smooth_eps)
         self.fused_attention = bool(fused_attention)
+        self.fused_head = bool(fused_head)
         self.generator = generator
         m = d_model
         self.src_emb = nn.Parameter(torch.zeros(src_vocab, m))
@@ -501,22 +510,31 @@ class Transformer(nn.Module):
             x = x + self._dropout(self._ffn(layer, f))
         return nn_ops.layer_norm(x, self.dec_ln_scale, self.dec_ln_bias)
 
-    def logits(self, src_ids, tgt_ids) -> torch.Tensor:
-        """[B, T, 1] (or [B, T]) ids -> [B, T, tgt_vocab] logits."""
+    def _decoded(self, src_ids, tgt_ids) -> torch.Tensor:
+        """[B, T, 1] (or [B, T]) ids -> the decoder output [B, T, M]."""
         dev = self.device
         src = src_ids.to(dev).reshape(src_ids.shape[0], -1)
         tgt = tgt_ids.to(dev).reshape(tgt_ids.shape[0], -1)
         if max(src.shape[1], tgt.shape[1]) > self.max_len:
             raise ValueError(f"sequence longer than max_len {self.max_len}")
-        return nn_ops.fc(self.decode(tgt, self.encode(src)), self.head_w)
+        return self.decode(tgt, self.encode(src))
+
+    def logits(self, src_ids, tgt_ids) -> torch.Tensor:
+        """[B, T, 1] (or [B, T]) ids -> [B, T, tgt_vocab] logits."""
+        return nn_ops.fc(self._decoded(src_ids, tgt_ids), self.head_w)
 
     def forward(self, src_ids, tgt_ids, lbl_ids) -> torch.Tensor:
         """The scalar training loss of one batch: feeds [B, T, 1] int."""
-        logits = self.logits(src_ids, tgt_ids)
         eps = self.label_smooth_eps if self.training else 0.0
-        loss = nn_ops.softmax_with_cross_entropy(
-            logits.reshape(-1, self.tgt_vocab),
-            lbl_ids.to(self.device).reshape(-1, 1), label_smoothing=eps)
+        label = lbl_ids.to(self.device).reshape(-1, 1)
+        if self.fused_head:
+            dec = self._decoded(src_ids, tgt_ids)
+            loss = nn_ops.fused_linear_ce(dec.reshape(-1, self.d_model),
+                                          self.head_w, label, eps)
+        else:
+            loss = nn_ops.softmax_with_cross_entropy(
+                self.logits(src_ids, tgt_ids).reshape(-1, self.tgt_vocab),
+                label, label_smoothing=eps)
         return nn_ops.mean(loss)
 
 
@@ -532,17 +550,14 @@ def build(is_train: bool = True, src_vocab: int = 32000,
     lbl_ids)`` is the loss; the optimizer is the JAX package's Adam
     (beta1 0.9, beta2 0.997, epsilon 1e-9) at ``lr`` (``"const"``) or
     under the Noam schedule with ``lr`` as its multiplier (``"noam"``,
-    ``warmup`` steps). ``is_train=False`` gives the evaluation model
+    ``warmup`` steps). ``fused_head`` makes the loss one
+    ``fused_linear_ce``. ``is_train=False`` gives the evaluation model
     (no dropout, no smoothing) and no optimizer. Runs on ``device``
     (``cuda`` unless ``"cpu"`` is asked for)."""
-    if fused_head:
-        raise NotImplementedError(
-            "fused_head (the fused_linear_ce kernel) is not ported yet; "
-            "build with fused_head=False")
     model = Transformer(src_vocab, tgt_vocab, max_len, d_model, d_inner,
                         n_head, n_layer, dropout if is_train else 0.0,
                         label_smooth_eps if is_train else 0.0,
-                        fused_attention, device, generator)
+                        fused_attention, device, generator, fused_head)
     if not is_train:
         return model.eval(), None
     if lr_scheduler == "noam":

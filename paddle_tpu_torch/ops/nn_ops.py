@@ -22,6 +22,9 @@ the ops above):
 - :func:`matmul` -- ``paddle_tpu/ops/math_ops.py:51`` (batched, optional
   ``transpose_y``).
 - :func:`mean` -- ``math_ops.py:122``.
+- :func:`fused_linear_ce` -- ``nn_ops.py:610``: the vocabulary projection
+  and the label-smoothed CE as one op, whose fused kernels run on the
+  card (``ops/kernels/fused_ce.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.ops.kernels import fused_ce as _fused_ce
 from paddle_tpu_torch.ops.kernels.flash_attention import hash_keep_mask
 
 
@@ -68,7 +72,6 @@ def fc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 def scale(x: torch.Tensor, factor: float, bias: float = 0.0) -> torch.Tensor:
     return x * factor + bias
-
 
 
 def dropout(x: torch.Tensor, p: float, seed: int) -> torch.Tensor:
@@ -113,3 +116,15 @@ def matmul(x: torch.Tensor, y: torch.Tensor,
 
 def mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean()
+
+
+def fused_linear_ce(x: torch.Tensor, w: torch.Tensor, label: torch.Tensor,
+                    label_smoothing: float = 0.0,
+                    ignore_index: int = -100) -> torch.Tensor:
+    """X [N, D] @ W [D, V] and the label-smoothed softmax CE of Label
+    [N, 1] int -> Loss [N, 1], the logits never materialized on the card.
+    Every shape goes to the fused function: the JAX op's ``supported``
+    gate is a TPU tiling rule, and its composed branch computes the same
+    function."""
+    return _fused_ce.fused_linear_ce(x, w, label.reshape(-1),
+                                     label_smoothing, ignore_index)

@@ -9,7 +9,11 @@ every ``<param>@GRAD``. Port side: ``paddle_tpu_torch.models.transformer.
 build`` on ``device="cpu"``, the same scope carried across with
 ``transformer_params_from_jax``, the same feeds, 10 steps. On the CPU the
 JAX fused block runs ``ops/attention_block.py`` and the port's runs the
-plain versions of its flash kernels.
+plain versions of its flash kernels. With ``fused_head`` the port's loss
+runs the plain versions of its fused-CE kernels, against the JAX op twice:
+through its CPU route, the composed matmul + CE branch (``fused_head``),
+and with ``PADDLE_TPU_FORCE_PALLAS=1``, the Pallas kernel in interpret
+mode (``fused_head_pallas``).
 
 Tolerances, each with its reason:
 - step-1 gradients rtol 1e-4 / atol 1e-6: one fp32 forward and backward
@@ -20,7 +24,9 @@ Tolerances, each with its reason:
   last-bit differences. A curve that is not finite fails outright
   (assert_allclose counts NaN equal to NaN)."""
 
+import importlib
 import os
+import re
 import subprocess
 import sys
 
@@ -43,7 +49,11 @@ BATCH, STEPS = 4, 10
 RUNS = {"fused": dict(fused_attention=True),
         "composed": dict(fused_attention=False),
         "fused_noam": dict(fused_attention=True, lr_scheduler="noam",
-                           lr=1.0, warmup=4)}
+                           lr=1.0, warmup=4),
+        "fused_head": dict(fused_attention=True, fused_head=True),
+        "fused_head_pallas": dict(fused_attention=True, fused_head=True)}
+PALLAS_RUNS = {"fused_head_pallas"}    # JAX side under FORCE_PALLAS=1
+FORCE_PALLAS = "PADDLE_TPU_FORCE_PALLAS"
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 CURVE_TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -61,9 +71,35 @@ def _finite_curve(curve):
     return curve
 
 
-def _jax_run(kw):
+def _jax_run(kw, force_pallas=False):
     """(initial parameters, step-1 gradients, loss curve) of the JAX
-    executor."""
+    executor. ``force_pallas`` sets ``PADDLE_TPU_FORCE_PALLAS=1`` for this
+    run only, which sends ``fused_linear_ce`` to the Pallas kernel in
+    interpret mode; the kernel's entry is wrapped to witness that it was
+    traced in exactly the runs that force it."""
+    pfc = importlib.import_module("paddle_tpu.ops.pallas.fused_ce")
+    kernel, old = pfc.fused_linear_ce, os.environ.get(FORCE_PALLAS)
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return kernel(*args, **kwargs)
+    pfc.fused_linear_ce = counted
+    if force_pallas:
+        os.environ[FORCE_PALLAS] = "1"
+    try:
+        out = _jax_train(kw)
+    finally:
+        pfc.fused_linear_ce = kernel
+        if old is None:
+            os.environ.pop(FORCE_PALLAS, None)
+        else:
+            os.environ[FORCE_PALLAS] = old
+    assert bool(calls) == force_pallas, (kw, force_pallas, len(calls))
+    return out
+
+
+def _jax_train(kw):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         loss, _, _ = jT.build(**CFG, dropout=0.0, **kw)
@@ -108,7 +144,7 @@ def jax_runs():
 
     def get(name):
         if name not in done:
-            done[name] = _jax_run(RUNS[name])
+            done[name] = _jax_run(RUNS[name], name in PALLAS_RUNS)
         return done[name]
     return get
 
@@ -123,23 +159,55 @@ def test_training_matches_the_jax_executor(jax_runs, run):
     np.testing.assert_allclose(curve, want_curve, **CURVE_TOL)
 
 
-@pytest.mark.parametrize("run", ["fused", "composed"])
+@pytest.mark.parametrize("run", ["fused", "composed", "fused_head"])
 def test_scope_names_map_onto_every_port_parameter(jax_runs, run):
     """The auto-named scope parameters of one build cover the port's
     parameters exactly once; a scope from another build (other counters)
-    maps the same way."""
+    maps the same way, family by family."""
     init, _, _ = jax_runs(run)
     keys = convert.transformer_state_keys(init)
-    model = tT.Transformer(**CFG, fused_attention=RUNS[run][
-        "fused_attention"], device="cpu")
+    fused, head = (RUNS[run].get(k, False)
+                   for k in ("fused_attention", "fused_head"))
+    model = tT.Transformer(**CFG, fused_attention=fused, fused_head=head,
+                           device="cpu")
     assert sorted(keys.values()) == sorted(model.state_dict())
-    fresh = convert.transformer_jax_names(CFG["n_layer"],
-                                          RUNS[run]["fused_attention"])
+    fresh = convert.transformer_jax_names(CFG["n_layer"], fused, head)
     by_key = {v: k for k, v in keys.items()}
+
+    def family(name):
+        return re.sub(r"_\d+\.", ".", name)
     for key, name in fresh.items():
         assert np.shape(init[by_key[key]]) == tuple(
             model.state_dict()[key].shape)
-        assert name.split("_")[0] == by_key[key].split("_")[0]
+        assert family(name) == family(by_key[key])
+    head_name = by_key["head_w"]
+    assert head_name.startswith("fused_linear_ce_" if head else "fc_")
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_evaluation_loss_matches_the_jax_executor(head):
+    """``is_train=False`` (no dropout, no smoothing): one forward of the
+    evaluation program from its startup weights, on both sides."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        loss, _, _ = jT.build(**CFG, is_train=False, fused_attention=True,
+                              fused_head=head)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.global_block().all_parameters()]
+    init = {n: np.array(scope.find_var(n)) for n in names}
+    src, tgt, lbl = _feeds()[0]
+    want = float(np.asarray(exe.run(
+        main, feed={"src_ids": src, "tgt_ids": tgt, "lbl_ids": lbl},
+        fetch_list=[loss.name], scope=scope)[0]).reshape(()))
+    model, opt = tT.build(**CFG, is_train=False, fused_attention=True,
+                          fused_head=head, device="cpu")
+    assert opt is None and model.fused_head == head
+    model.load_state_dict(convert.transformer_params_from_jax(init))
+    with torch.no_grad():
+        got = float(model(*(torch.from_numpy(x) for x in (src, tgt, lbl))))
+    np.testing.assert_allclose(got, want, **CURVE_TOL)
 
 
 def test_converter_raises_on_what_fits_no_transformer(jax_runs):
@@ -195,8 +263,8 @@ def test_adam_follows_the_jax_update_rule():
 
 
 def test_build_rejects_what_the_port_does_not_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="fused_head"):
-        tT.build(**CFG, fused_head=True, device="cpu")
+    model, opt = tT.build(**CFG, fused_head=True, device="cpu")
+    assert model.fused_head and model.training and opt is not None
     with pytest.raises(ValueError, match="Noam multiplier"):
         tT.build(**CFG, lr_scheduler="noam", lr=1e-4, device="cpu")
     with pytest.raises(ValueError, match="lr_scheduler"):
@@ -234,7 +302,8 @@ def test_training_modules_import_neither_jax_nor_paddle_tpu():
         "import sys\n"
         "import paddle_tpu_torch.models.transformer, "
         "paddle_tpu_torch.optimizer, paddle_tpu_torch.learning_rate_scheduler"
-        ", paddle_tpu_torch.ops.kernels.flash_attention\n"
+        ", paddle_tpu_torch.ops.kernels.flash_attention"
+        ", paddle_tpu_torch.ops.kernels.fused_ce\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
