@@ -74,8 +74,37 @@ final line:
    that end in a synchronize), tokens/s, peak memory, and a
    ``torch.profiler`` window of 3 steps: device busy per step, idle
    share, and the flash and fused-CE kernels' shares of device time.
-8. Report: a ``{"kernels": [...]}`` line, then, last,
-   ``{"ok": true, "device": {...}}``.
+8. LSTM kernels: the whole-sequence LSTM forward and backward kernels
+   at the shapes of phase 9 (T 100, B 64, H 512; seeded ``xproj`` x 0.4,
+   ``peep`` x 0.1, ``h0, c0`` x 0.3, ``w`` x H**-0.5, ragged lengths
+   1-100 with one full row, non-uniform cotangents on all four outputs)
+   and at an edge shape (T 7, B 5, H 100): the forward's four outputs
+   and the backward's five against the plain PyTorch versions (rtol 1e-4
+   / atol 1e-5 forward, rtol 1e-3 / atol 1e-4 gradients; fp32 sums in
+   another order, compounded over the steps), ``hidden`` and ``cell``
+   exactly 0 past each length, zero peepholes with full lengths against
+   a peephole-free cell loop, and two runs of the backward bit-equal.
+   Timed as in phase 3 beside the plain versions (the step loop; the
+   explicit backward formulae; autograd through the step loop) and the
+   bound, whose operations count only the steps inside each row's
+   length. No one PyTorch call computes this function (``nn.LSTM`` has
+   no peepholes and owns its input projection): ``library_ms`` is null.
+   The forward at B 1 gives the serial cost of a step (barrier, carry
+   round trip, cell latency) with almost no arithmetic.
+9. LSTM training: ``stacked_dynamic_lstm.build()`` at its defaults
+   (dict 5000, emb 512, hid 512, 3 layers, max_len 100, peepholes on,
+   Adam at 1e-3; seeded weights carried in through
+   ``lstm_params_from_jax``) takes 10 steps on one seeded batch of 64
+   ragged sequences whose label is a function of the words. The launch
+   counts are zeroed just before and read just after. Checks: every
+   step launched each LSTM kernel 3 times (one per layer); the first 3
+   losses agree within rtol 1e-3 with the same model on the CPU (the
+   plain versions) from the same weights and feeds; losses finite, the
+   last below the first. Prints step p50, words/s (valid and padded),
+   peak memory and a 3-step ``torch.profiler`` window with the LSTM
+   kernels' share of device time.
+10. Report: a ``{"kernels": [...]}`` line, then, last,
+    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -117,6 +146,14 @@ TRAIN_RUNS = {"fused_attention": dict(fused_attention=True),
               "composed": dict(fused_attention=False),
               "fused_head": dict(fused_attention=True, fused_head=True)}
 IGNORE = -100
+LSTM_SOURCE = "paddle_tpu_torch/csrc/fused_rnn.cu"
+LSTM = dict(dict_dim=5000, max_len=100, emb_dim=512, hid_dim=512,
+            stacked_num=3)
+LSTM_BATCH = 64
+LSTM_EDGE = (7, 5, 100)            # T, B, H off every tile multiple
+LSTM_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+LSTM_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+LSTM_ORACLE_STEPS = 3
 
 
 def fail(msg: str):
@@ -718,15 +755,17 @@ def copy_task(torch, dev, seed: int, steps: int, b: int, t: int, vocab: int):
 
 
 def train(torch, model, opt, feeds, launches=None):
-    """One optimizer step per feed; returns the losses, each step's host
+    """One optimizer step per feed (the model returns its loss, or a tuple
+    that starts with it); returns the losses, each step's host
     time (ending in a synchronize) and, with ``launches`` (a function
     returning the kernels' launch counts), each step's launches."""
     losses, step_ms, per_step = [], [], []
-    for src, tgt, lbl in feeds:
+    for feed in feeds:
         before = launches() if launches is not None else None
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        loss = model(src, tgt, lbl)
+        out = model(*feed)
+        loss = out[0] if isinstance(out, tuple) else out
         loss.backward()
         opt.step()
         torch.cuda.synchronize()
@@ -739,9 +778,9 @@ def train(torch, model, opt, feeds, launches=None):
 
 
 def profile_window(torch, model, opt, feeds):
-    """(device busy ms per step, idle share, flash and fused-CE shares of
-    device time, host ms per step) over a torch.profiler window of
-    ``feeds``."""
+    """(device busy ms per step, idle share, the flash, fused-CE and LSTM
+    kernels' shares of device time, host ms per step) over a
+    torch.profiler window of ``feeds``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -761,6 +800,8 @@ def profile_window(torch, model, opt, feeds):
                    if "flash_" in ev.key)
     fce_us = sum(ev.self_device_time_total for ev in kernels
                  if "fused_ce_" in ev.key)
+    lstm_us = sum(ev.self_device_time_total for ev in kernels
+                  if "lstm_" in ev.key)
     n = len(feeds)
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
     return {"device_busy_ms_per_step": busy_us / n / 1e3,
@@ -768,6 +809,7 @@ def profile_window(torch, model, opt, feeds):
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
             "flash_share": flash_us / busy_us if busy_us else 0.0,
             "fused_ce_share": fce_us / busy_us if busy_us else 0.0,
+            "lstm_share": lstm_us / busy_us if busy_us else 0.0,
             "launches_per_step": sum(ev.count for ev in kernels) / n,
             "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
                              ev.count / n) for ev in top]}
@@ -918,6 +960,307 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
     return launched, n_attn, runs
 
 
+# -- phase 8: LSTM kernels --------------------------------------------------
+
+def lstm_cost(t, b, h, lens_sum):
+    """(FLOPs, bytes) of the LSTM forward and backward kernels: one
+    [1, H] x [H, 4H] product per live (row, step) pair in the forward and
+    three in the backward (the recompute, dgates @ w^T, h_prev^T @
+    dgates), ``lens_sum`` pairs in all; each input read once, each output
+    written once."""
+    seq, state, x = t * b * h * 4, b * h * 4, t * b * 4 * h * 4
+    small = h * 4 * h * 4 + 3 * h * 4 + b * 4 + 2 * state   # w peep lens h0 c0
+    step = 2 * h * 4 * h
+    return {"lstm_train_fwd": (step * lens_sum,
+                               x + small + 2 * seq + 2 * state),
+            "lstm_train_bwd": (3 * step * lens_sum,
+                               x + small + 4 * seq + 2 * state
+                               + x + h * 4 * h * 4 + 3 * h * 4 + 2 * state)}
+
+
+def lstm_inputs(torch, dev, t, b, h, seed):
+    """Seeded inputs of the LSTM kernels and cotangents of their four
+    outputs. The recurrent weight is scaled by min(0.2, H**-0.5): at 0.2
+    and H 512 the recurrence is chaotic, and over 100 steps a last-bit
+    difference between two correct implementations grows to order 1."""
+    rng = np.random.RandomState(seed)
+
+    def normal(shape, scale):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+    lens = rng.randint(1, t + 1, size=b).astype(np.int32)
+    lens[0] = t                                # at least one full row
+    ins = (normal((t, b, 4 * h), 0.4), normal((h, 4 * h), min(0.2, h ** -0.5)),
+           normal((1, 3 * h), 0.1), torch.from_numpy(lens).to(dev),
+           normal((b, h), 0.3), normal((b, h), 0.3))
+    cot = (normal((t, b, h), 0.1), normal((t, b, h), 0.1),
+           normal((b, h), 1.0), normal((b, h), 1.0))
+    return ins, cot, int(lens.sum())
+
+
+def plain_cell_loop(torch, xproj, w, h, c):
+    """The LSTM cell without peepholes or lengths, step by step."""
+    hs, cs, hdim = [], [], w.shape[0]
+    for xt in xproj:
+        gates = xt + h @ w
+        i, f = (torch.sigmoid(gates[:, k * hdim:(k + 1) * hdim])
+                for k in (0, 1))
+        c = f * c + i * torch.tanh(gates[:, 2 * hdim:3 * hdim])
+        h = torch.sigmoid(gates[:, 3 * hdim:]) * torch.tanh(c)
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs), h, c
+
+
+def lstm_check(torch, fr, ins, cot, label):
+    """Each kernel against its plain version, the zeroed tail, the
+    peephole-free reduction and the backward's repeatability; returns the
+    max abs errors and the plain outputs."""
+    xproj, w, peep, lens, h0, c0 = ins
+    t = xproj.shape[0]
+    got = fr.lstm_train_fwd(*ins)
+    want = fr.lstm_train_fwd_plain(*ins)
+    back = fr.lstm_train_bwd(*ins, want[0], want[1], *cot)
+    again = fr.lstm_train_bwd(*ins, want[0], want[1], *cot)
+    want_back = fr.lstm_train_bwd_plain(*ins, want[0], want[1], *cot)
+    torch.cuda.synchronize()
+    errs = {}
+    names = ("hidden", "cell", "h_last", "c_last", "dx", "dw", "dpeep",
+             "dh0", "dc0")
+    for i, (name, a, b) in enumerate(zip(names, got + back,
+                                         tuple(want) + tuple(want_back))):
+        tol = LSTM_FWD_TOL if i < 4 else LSTM_GRAD_TOL
+        errs[name] = float((a - b).abs().max())
+        if a.shape != b.shape or not close(a, b, tol):
+            fail(f"LSTM {label}: {name} differs from the plain version "
+                 f"(max abs err {errs[name]}, tolerance {tol})")
+    past = (torch.arange(t, device=lens.device)[:, None]
+            >= lens[None, :])[:, :, None]
+    for name, seq in (("hidden", got[0]), ("cell", got[1])):
+        if bool((seq.masked_select(past) != 0).any()):
+            fail(f"LSTM {label}: {name} is not 0 past a row's length")
+    for name, a, b in zip(names[4:], back, again):
+        if not torch.equal(a, b):
+            fail(f"LSTM {label}: two runs of the backward give other bits "
+                 f"in {name}")
+    full = torch.full_like(lens, t)
+    free = fr.lstm_train_fwd(xproj, w, torch.zeros_like(peep), full, h0, c0)
+    for name, a, b in zip(names[:4], free,
+                          plain_cell_loop(torch, xproj, w, h0, c0)):
+        if not close(a, b, LSTM_FWD_TOL):
+            fail(f"LSTM {label}: zero peepholes and full lengths differ "
+                 f"from the peephole-free cell in {name} (max abs err "
+                 f"{float((a - b).abs().max())})")
+    return errs, want
+
+
+def lstm_phase(torch, dev, card, t=LSTM["max_len"], b=LSTM_BATCH,
+               h=LSTM["hid_dim"], edge=LSTM_EDGE):
+    """The LSTM kernels against their plain versions at the training
+    shapes and at an edge shape, then timed beside plain and bound."""
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    ins, cot, _ = lstm_inputs(torch, dev, *edge, 12)
+    edge_errs, _ = lstm_check(torch, fr, ins, cot,
+                              f"edge T {edge[0]} B {edge[1]} H {edge[2]}")
+    print(f"[{card}] LSTM edge shape T {edge[0]} B {edge[1]} H {edge[2]}: "
+          f"max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
+    ins, cot, lens_sum = lstm_inputs(torch, dev, t, b, h, 13)
+    errs, want = lstm_check(torch, fr, ins, cot, f"T {t} B {b} H {h}")
+    print(f"[{card}] LSTM T {t} B {b} H {h}: max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    hidden, cell = want[0], want[1]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def autograd_pair():
+        leaves = [x.detach().requires_grad_() if x.is_floating_point()
+                  else x for x in ins]
+        outs = fr.lstm_train_fwd_plain(*leaves)
+        return torch.autograd.grad(
+            outs, [x for x in leaves if x.is_floating_point()], cot)
+    runs = {"lstm_train_fwd": (
+                lambda: fr.lstm_train_fwd(*ins),
+                lambda: fr.lstm_train_fwd_plain(*ins),
+                ("hidden", "cell", "h_last", "c_last")),
+            "lstm_train_bwd": (
+                lambda: fr.lstm_train_bwd(*ins, hidden, cell, *cot),
+                lambda: fr.lstm_train_bwd_plain(*ins, hidden, cell, *cot),
+                ("dx", "dw", "dpeep", "dh0", "dc0"))}
+    cost = lstm_cost(t, b, h, lens_sum)
+    dense = lstm_cost(t, b, h, t * b)
+    one = tuple(x[:, :1].contiguous() if x.dim() == 3 else x[:1].contiguous()
+                for x in ins[:1] + ins[3:])
+    one = (one[0], ins[1], ins[2]) + one[1:]
+    serial_ms = time_ms(torch, lambda: fr.lstm_train_fwd(*one), flush, n=20)
+    results = {}
+    for kname, (fn, ref, outs) in runs.items():
+        flops, nbytes = cost[kname]
+        bound_ms, bound_by = bound_of(flops, nbytes)
+        row = {"max_abs_err": max(errs[o] for o in outs),
+               "edge_max_abs_err": max(edge_errs[o] for o in outs),
+               "ms": time_ms(torch, fn, flush, n=20),
+               "plain_ms": time_ms(torch, ref, flush, n=3, warm=1),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "dense_bound_ms": bound_of(*dense[kname])[0],
+               "live_steps": lens_sum, "steps": t * b}
+        row["us_per_step"] = row["ms"] / t * 1e3
+        results[kname] = row
+        print(f"[{card}] {kname} [T {t}, B {b}, H {h}]: max abs err "
+              f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms "
+              f"({row['us_per_step']:.2f} us a step), plain "
+              f"{row['plain_ms']:.3f} ms, no library call, bound "
+              f"{bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP over "
+              f"the {lens_sum} live of {t * b} (row, step) pairs, "
+              f"{nbytes / 1e6:.1f} MB; all pairs {row['dense_bound_ms']:.3f} "
+              f"ms)")
+    results["lstm_train_fwd"]["serial_us_per_step"] = serial_ms / t * 1e3
+    results["lstm_train_bwd"]["autograd_plain_ms"] = time_ms(
+        torch, autograd_pair, flush, n=3, warm=1)
+    print(f"[{card}] LSTM forward at B 1 (barrier, carry round trip and "
+          f"cell latency, almost no arithmetic): {serial_ms:.3f} ms, "
+          f"{serial_ms / t * 1e3:.2f} us a step; plain forward + autograd "
+          f"backward {results['lstm_train_bwd']['autograd_plain_ms']:.3f} ms")
+    del flush
+    return results
+
+
+# -- phase 9: LSTM training -------------------------------------------------
+
+def lstm_weights(model, seed: int) -> dict:
+    """Seeded weights for every parameter of ``model``, by state key:
+    matrices and the table N(0, fan_in**-0.5), gate biases 0, peepholes
+    (the last 3H of each LSTM bias) N(0, 0.1) so that they are live."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, p in model.state_dict().items():
+        shape = tuple(p.shape)
+        if key.endswith("lstm_b"):
+            hid = shape[1] // 7
+            out[key] = np.concatenate(
+                [np.zeros((1, 4 * hid)), rng.normal(0, 0.1, (1, 3 * hid))],
+                axis=1).astype(np.float32)
+        elif len(shape) == 1:
+            out[key] = np.zeros(shape, np.float32)
+        else:
+            fan_in = shape[1] if key == "emb" else shape[0]
+            out[key] = rng.normal(0.0, fan_in ** -0.5, shape).astype(
+                np.float32)
+    return out
+
+
+def lstm_batch(seed: int, b: int, t: int, vocab: int):
+    """(words [B,T] int64, seq_lens [B] int32, label [B,1] int64) from
+    numpy: ragged lengths 1..T with one full row; the label says whether
+    most of a row's valid words lie in the upper half of the vocabulary."""
+    rng = np.random.RandomState(seed)
+    words = rng.randint(0, vocab, (b, t)).astype(np.int64)
+    lens = rng.randint(1, t + 1, b).astype(np.int32)
+    lens[0] = t
+    valid = np.arange(t)[None, :] < lens[:, None]
+    upper = ((words >= vocab // 2) & valid).sum(1)
+    label = (2 * upper > lens).astype(np.int64)[:, None]
+    return words, lens, label
+
+
+def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
+                     steps=TRAIN_STEPS, profile_steps=PROFILE_STEPS,
+                     oracle_steps=LSTM_ORACLE_STEPS):
+    """The LSTM training slice on the card, its launch counts per step,
+    the CPU oracle over the first steps, and the step-time and profiler
+    numbers."""
+    from paddle_tpu_torch.models import convert
+    from paddle_tpu_torch.models.stacked_dynamic_lstm import build
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    cfg = dict(LSTM if cfg is None else cfg)
+    n_layer = cfg["stacked_num"]
+    names = convert.lstm_jax_names(n_layer)
+    arrays = lstm_batch(4, batch, cfg["max_len"], cfg["dict_dim"])
+    lens_sum = int(arrays[1].sum())
+
+    def make(device):
+        model, opt, _ = build(**cfg, device=device)
+        return model, opt
+
+    model, opt = make(dev)
+    weights = lstm_weights(model, 5)
+    state = convert.lstm_params_from_jax(
+        {names[key]: w for key, w in weights.items()}, n_layer)
+    model.load_state_dict(state)
+    feed = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fr.reset_launches()
+    losses, step_ms, per_step = train(torch, model, opt, [feed] * steps,
+                                      lambda: dict(fr.LAUNCHES))
+    launched = dict(fr.LAUNCHES)
+    want = {k: n_layer for k in fr.LAUNCHES}
+    for i, c in enumerate(per_step):
+        if c != want:
+            fail(f"LSTM training: step {i} launched {c}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"LSTM training: losses {losses} are not finite and falling")
+    stats = {"losses": losses, "step_ms": step_ms,
+             "step_p50_ms": float(np.median(step_ms)),
+             "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+             "launches": launched, "valid_words": lens_sum,
+             "padded_words": batch * cfg["max_len"]}
+    stats["words_per_s"] = lens_sum / stats["step_p50_ms"] * 1e3
+    stats["padded_words_per_s"] = stats["padded_words"] \
+        / stats["step_p50_ms"] * 1e3
+    print(f"[{card}] stacked_dynamic_lstm: losses "
+          f"{[round(x, 5) for x in losses]}; step p50 "
+          f"{stats['step_p50_ms']:.3f} ms = {stats['words_per_s']:.0f} "
+          f"words/s ({lens_sum} valid words a step; "
+          f"{stats['padded_words_per_s']:.0f} padded positions/s); peak "
+          f"memory {stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; launches "
+          f"{launched} ({n_layer} of each per step)")
+    if profile_steps:
+        stats["profile"] = prof = profile_window(torch, model, opt,
+                                                 [feed] * profile_steps)
+        prof["idle_share_at_p50"] = 1.0 - prof[
+            "device_busy_ms_per_step"] / stats["step_p50_ms"]
+        print(f"[{card}] stacked_dynamic_lstm profile ({profile_steps} "
+              f"steps): host {prof['host_ms_per_step']:.3f} ms/step, device "
+              f"busy {prof['device_busy_ms_per_step']:.3f} ms/step, idle "
+              f"share {prof['idle_share']:.3f} "
+              f"({prof['idle_share_at_p50']:.3f} against the step p50), "
+              f"LSTM kernels {prof['lstm_share']:.4f} of device time, "
+              f"{prof['launches_per_step']:.0f} launches/step")
+        for key, us, count in prof["top_kernels"]:
+            print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+    del model, opt
+
+    # the oracle: the same model on the CPU, where the wrappers take the
+    # plain versions, from the same weights on the same feeds
+    t0 = time.perf_counter()
+    before = dict(fr.LAUNCHES)
+    oracle, oracle_opt = make("cpu")
+    oracle.load_state_dict(state)
+    cpu_feed = tuple(torch.from_numpy(a) for a in arrays)
+    want_losses = []
+    for _ in range(oracle_steps):
+        oracle_opt.zero_grad(set_to_none=True)
+        loss, _ = oracle(*cpu_feed)
+        loss.backward()
+        oracle_opt.step()
+        want_losses.append(float(loss.detach()))
+    if dict(fr.LAUNCHES) != before:
+        fail("LSTM training: the CPU oracle launched a kernel")
+    if not np.allclose(losses[:oracle_steps], want_losses, rtol=CURVE_RTOL,
+                       atol=0.0):
+        fail(f"LSTM training: losses {losses[:oracle_steps]} differ from "
+             f"the CPU oracle's {want_losses} beyond rtol {CURVE_RTOL}")
+    gap = max(abs(x - y) / abs(y)
+              for x, y in zip(losses[:oracle_steps], want_losses))
+    stats["oracle_losses"] = want_losses
+    stats["oracle_max_rel_diff"] = gap
+    print(f"[{card}] stacked_dynamic_lstm: the first {oracle_steps} losses "
+          f"match the CPU oracle's within rtol {CURVE_RTOL} (max rel diff "
+          f"{gap:.3g}; oracle took {time.perf_counter() - t0:.1f} s)")
+    return launched, n_layer, stats
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -947,6 +1290,9 @@ def main():
     fce = fused_ce_phase(torch, dev, card)
     launches, per_layer = slice_phase(torch, dev, card)
     train_launches, per_step, runs = train_phase(torch, dev, card)
+    lstm = lstm_phase(torch, dev, card)
+    lstm_launches, lstm_per_step, lstm_run = lstm_train_phase(torch, dev,
+                                                              card)
     flash_launches = train_launches["fused_attention"]
 
     kernels = []
@@ -994,9 +1340,23 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "launches_per_train_step": 1,
             "card": card})
+    for kname, line in (("lstm_train_fwd", 171), ("lstm_train_bwd", 235)):
+        m = lstm[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": LSTM_SOURCE,
+            "replaces": f"paddle_tpu/ops/pallas/fused_rnn.py:{line}",
+            "launches": lstm_launches[kname],
+            "max_abs_err": max(m["max_abs_err"], m["edge_max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "launches_per_train_step": lstm_per_step,
+            "us_per_step": m["us_per_step"],
+            "dense_bound_ms": m["dense_bound_ms"], "card": card})
     bf16 = measured["gather_rows/bf16"]
     print(json.dumps({"gather_rows_bf16": bf16, "card": card}))
     print(json.dumps({"training": runs, "card": card}))
+    print(json.dumps({"lstm_kernels": lstm, "lstm_training": lstm_run,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

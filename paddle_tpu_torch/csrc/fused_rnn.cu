@@ -1,0 +1,720 @@
+// Whole-sequence trainable LSTM, forward and backward, written for Hopper
+// (compiled for sm_90a) behind a plain C interface that ctypes loads.
+//
+// Replaces the two Pallas TPU kernels of paddle_tpu/ops/pallas/fused_rnn.py:
+//   paddle_lstm_train_fwd <- _lstm_train_fwd_call (:167, pallas_call :171,
+//                            _lstm_train_fwd_kernel :49)
+//   paddle_lstm_train_bwd <- _lstm_train_vjp_bwd  (:224, pallas_call :235,
+//                            _lstm_train_bwd_kernel :91)
+//
+// All tensors are fp32, contiguous and time-major: xproj [T, B, 4H] (gate
+// pre-activations x @ Wx + b, gate order i, f, c, o), w [H, 4H] recurrent,
+// peep [3H] (W_ic | W_fc | W_oc, zeros without peepholes), lens [B] int32,
+// h0, c0 [B, H]; H <= 512, any B >= 1, any T >= 1. Beside lens the caller
+// gives order [B] int32, the rows sorted by falling length, and live [T]
+// int32, how many rows are longer than t.
+//
+// Forward, per step t (_lstm_train_fwd_kernel :60-88):
+//   gates = xproj[t] + h @ w
+//   i = sigmoid(gates_i + c * W_ic)     f = sigmoid(gates_f + c * W_fc)
+//   g = tanh(gates_c)                   c_cand = f * c + i * g
+//   o = sigmoid(gates_o + c_cand * W_oc)  h_cand = o * tanh(c_cand)
+//   m = t < lens;  the carries h, c keep the old state where m = 0;
+//   hidden[t], cell[t] = m * h_cand, m * c_cand (zero past a row's length);
+//   h_last, c_last = the carries after step T - 1.
+// Backward, in reverse time (_lstm_train_bwd_kernel :109-157): the gates are
+// recomputed from xproj[t], h_prev[t], c_prev[t] (the hidden and cell
+// sequences shifted by one step behind h0, c0); carries Dh, Dc start at the
+// cotangents of h_last, c_last; outputs dx [T, B, 4H] (the gate gradients),
+// dw [H, 4H], dpeep [3H], dh0, dc0 [B, H].
+//
+// What bounds them: arithmetic and a serial chain. One step is a [B, H] x
+// [H, 4H] product (134 MFLOP at B 64, H 512), the forward does one a step and
+// the backward three (the recompute, Dh = dgates @ w^T, dw += h_prev^T @
+// dgates), all in this source in fp32 outside the tensor cores. Step t + 1
+// cannot start before every unit of h[t] is known, so T steps are T grid-wide
+// barriers whatever the arithmetic rate.
+//
+// Design. The TPU kernel keeps h, c and the whole of w in one core's VMEM and
+// walks a sequential grid over time. On Hopper w (4 MB at H 512) fits no
+// SM's shared memory, and the time loop cannot be a grid dimension: blocks
+// run in no order. So each kernel is one cooperative launch of G = ceil(H/U)
+// persistent blocks (U = 1, 2 or 4 hidden units a block, the least that
+// keeps G within one block per SM: 128 blocks of 4 units at H 512), and the
+// time loop runs inside every block with one cooperative-groups grid barrier
+// a step:
+//   forward   block g owns units [gU, gU + U) and, for them, all four gate
+//             columns: that [H, 4U] slice of w stays in shared memory for the
+//             whole sequence (32 KB at H 512). Each step it multiplies the
+//             whole carry h [B, H] by its slice, finishes the cell for its
+//             units (its c never leaves the thread that owns it: the c_last
+//             buffer is the state) and publishes its units of the new h to a
+//             double-buffered [2, B, H] carry in global memory, which the
+//             other blocks read after the barrier through L2 (__ldcg: L1 is
+//             not coherent across SMs). The carry is not the hidden output:
+//             hidden is zero past a row's length, the carry is held there.
+//   backward  phase A: the same ownership recomputes the gates of its units
+//             from h_prev[t] (an input) and writes its columns of dx[t], an
+//             output anyway; Dc stays with its owner (the dc0 buffer is the
+//             state). Grid barrier. Phase B: Dh[:, k] = sum_n dgates[:, n] *
+//             w[k, n] needs every gate gradient of the step, so the owner of
+//             unit k reads all of dx[t] back through L2 against its [4H, U]
+//             row slice of w (32 KB more shared memory) and updates its own
+//             units of Dh (the dh0 buffer is the state). The next step's
+//             phase A needs only the block's own Dh, Dc, so one barrier a
+//             step is enough.
+//             dpeep needs only a thread's own gate gradients: each owner
+//             sums dgi * c_prev, dgf * c_prev and dgo * c_cand over its
+//             steps and rows in registers, and the block adds its 64 row
+//             shares in order at the end.
+//   dw        after the time loop, from dx and the saved hidden sequence, by
+//             one more kernel on the same stream: dw = h_prev_seq^T @ dx is
+//             one [H, T*B] x [T*B, 4H] product (128 x 64 output tiles, 8 x 4
+//             a thread, operands staged through shared memory). Every sum
+//             runs in a fixed order with no atomics: two runs give the same
+//             bits.
+// Inside a block both products share one routine over a staged chunk of the
+// left operand (64 rows, up to 512 deep: the whole carry at H 512, 129 KB, so
+// that one round of loads is in flight a step): a thread multiplies 8 rows by
+// 4 columns of the block's weight slice over one slice of the depth, and the
+// slices are added in a fixed order through shared memory. Batches above 64
+// rows take further passes over the chunk loop.
+//   A row past its length adds nothing: its state is held, its outputs and
+// gate gradients are 0. With the rows taken in order of falling length the
+// rows inside their length at step t are the first live[t] of `order`, so a
+// step stages and multiplies only those (about half of them for lengths
+// uniform in 1..T) and writes the zeros of the others without arithmetic. A
+// row's last states are written, and its gradient carries are read from the
+// cotangents of those states, at its own last step. Ragged edges (H not a
+// multiple of U or of the chunk, B not of 64) load as zeros and are never
+// written.
+// Activations are expf and tanhf at full precision: a hundred steps compound
+// an error. This is fp32 SIMT with no wgmma, no TMA and no bf16: the simple,
+// exact first version.
+//
+// Each function launches on the caller's stream, allocates nothing, does not
+// synchronise, and returns the CUDA error of its launches (0 = success;
+// cudaErrorInvalidValue for a shape it does not take,
+// cudaErrorCooperativeLaunchTooLarge where the card cannot hold the grid).
+
+#include <cmath>
+#include <cstdint>
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBT = 64;                   // batch rows of one pass
+constexpr int kMaxChunk = 512;            // most depth staged at once
+constexpr int kRed = kThreads * 32;       // floats of partial sums: 8 x 4 a
+                                          // thread at most
+constexpr int kMaxH = 512;
+constexpr int kMaxU = 4;
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// The depth of one staged chunk of a product of this depth: 128, 256 or 512
+// (kMaxChunk), the least that holds it all, so that each of up to 32 depth
+// slices is whole float4s and a thread stages one column of float4s. Rows
+// are chunk + 4 floats apart: float4 reads of eight rows then cover all 32
+// banks.
+__host__ __device__ constexpr int chunk_of(int depth) {
+  return depth <= 128 ? 128 : depth <= 256 ? 256 : kMaxChunk;
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// One 16-byte global -> shared copy in flight (cp.async), through L2 only:
+// the source may have been written by another SM before the last grid
+// barrier, and L1 is not coherent. An invalid source writes zeros and reads
+// nothing.
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// How the threads of a block share one product with NOUT output columns: a
+// thread holds 8 rows x kCols columns of the 64-row pass (rows rg, rg + 8,
+// ..., so that the float4 reads of a quarter-warp's eight rows cover all 32
+// banks) over one depth slice of the staged chunk; 8 * kColGroups threads
+// cover the pass and kSlices such groups split the depth.
+template <int NOUT>
+struct Tile {
+  static constexpr int kCols = NOUT < 4 ? NOUT : 4;
+  static constexpr int kColGroups = NOUT / kCols;
+  static constexpr int kPerSlice = 8 * kColGroups;
+  static constexpr int kSlices = kThreads / kPerSlice;
+};
+
+// acc[i][c] += sum over ks steps of depth of arow[8 i][k] * wk[k][c] for the
+// first N8 of a thread's eight rows: no branch inside, so that the loads of
+// one step of the loop run ahead of the FMAs of the last.
+template <int NOUT, int N8>
+__device__ __forceinline__ void multiply(const float* arow, const float* wk,
+                                         int ks, int stride,
+                                         float (&acc)[8][Tile<NOUT>::kCols]) {
+  constexpr int kCols = Tile<NOUT>::kCols;
+#pragma unroll 2
+  for (int kk = 0; kk < ks; kk += 4) {
+    float wv[4][kCols];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (kCols == 4) {
+        const float4 w4 =
+            *reinterpret_cast<const float4*>(wk + (kk + j) * NOUT);
+        wv[j][0] = w4.x;
+        wv[j][1] = w4.y;
+        wv[j][2] = w4.z;
+        wv[j][3] = w4.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) wv[j][c] = wk[(kk + j) * NOUT + c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N8; ++i) {
+      const float4 a4 =
+          *reinterpret_cast<const float4*>(arow + 8 * i * stride + kk);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          acc[i][c] = fmaf(av[j], wv[j][c], acc[i][c]);
+    }
+  }
+}
+
+// sum_k a[row][k] * wsm[k][n] for the 64 rows of a pass and n < NOUT, left
+// in red[slice][row][n] as one partial sum per depth slice (reduced() adds
+// them). Row r of the pass is row rowmap[r] of `a` in global memory (read
+// through L2), `rows` how many of the 64 exist, `depth` the true depth; wsm
+// holds round_up(depth, chunk_of(depth)) rows, zero past depth. A whole
+// chunk is staged with all its loads in flight before anything is
+// multiplied: as asynchronous copies where rows are 16-byte aligned, else
+// as plain loads. The product is bound by its shared-memory loads: a
+// warp's 128-bit load takes 4 cycles whether its lanes read 32 addresses or
+// one, so a thread multiplies an 8 x 4 tile from 8 + 4 such loads per 4
+// steps of depth (3 per 32 FMAs; one row and 16 columns a thread, 17 per 64,
+// took 1.7x the cycles on an H100), in a loop without branches (multiply():
+// with a test per row group inside it the loads could not run ahead of the
+// FMAs and it took 2.2x the cycles). Ends with the block synchronised and
+// red complete; starts with a barrier, so red and as may have been read just
+// before.
+template <int NOUT>
+__device__ __forceinline__ void tile_product(const float* a, int lda,
+                                             const int* __restrict__ rowmap,
+                                             int rows, int depth,
+                                             const float* wsm, float* as,
+                                             float* red) {
+  using T = Tile<NOUT>;
+  const int tid = threadIdx.x;
+  const int slice = tid / T::kPerSlice;
+  const int cg = tid % T::kPerSlice / 8, rg = tid % 8;
+  const int chunk = chunk_of(depth), stride = chunk + 4;
+  const int ks = chunk / T::kSlices;
+  // how many of this thread's rows rg + 8 i exist
+  const int mine = rows > rg ? (rows - rg + 7) / 8 : 0;
+  const bool vec = (lda & 3) == 0 && (depth & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  float acc[8][T::kCols];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < T::kCols; ++c) acc[i][c] = 0.0f;
+  for (int kc = 0; kc < depth; kc += chunk) {
+    __syncthreads();
+    if (vec) {
+      // a thread copies one column of float4s: chunk / 4 divides kThreads
+      const int c4 = chunk / 4, c = tid % c4 * 4;
+      const bool valid = kc + c < depth;
+#pragma unroll 4
+      for (int r = tid / c4; r < rows; r += kThreads / c4)
+        copy16(as + r * stride + c,
+               valid ? a + static_cast<size_t>(rowmap[r]) * lda + kc + c : a,
+               valid);
+      copies_done();
+    } else {
+      for (int idx = tid; idx < rows * chunk; idx += kThreads) {
+        const int r = idx / chunk, c = idx % chunk;
+        float v = 0.0f;
+        if (kc + c < depth)
+          v = __ldcg(a + static_cast<size_t>(rowmap[r]) * lda + kc + c);
+        as[r * stride + c] = v;
+      }
+    }
+    __syncthreads();
+    const float* arow = as + rg * stride + slice * ks;
+    const float* wk = wsm + static_cast<size_t>(kc + slice * ks) * NOUT +
+                      cg * T::kCols;
+    // whole pairs of row groups: the rows past `rows` of the last one are
+    // multiplied as they lie in shared memory and never read
+    switch ((rows + 15) / 16) {
+      case 1: multiply<NOUT, 2>(arow, wk, ks, stride, acc); break;
+      case 2: multiply<NOUT, 4>(arow, wk, ks, stride, acc); break;
+      case 3: multiply<NOUT, 6>(arow, wk, ks, stride, acc); break;
+      default: multiply<NOUT, 8>(arow, wk, ks, stride, acc); break;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (i < mine) {
+      float* out = red + (slice * kBT + rg + 8 * i) * NOUT + cg * T::kCols;
+#pragma unroll
+      for (int c = 0; c < T::kCols; ++c) out[c] = acc[i][c];
+    }
+  }
+  __syncthreads();
+}
+
+// The depth slices of one output, added in slice order.
+template <int NOUT>
+__device__ __forceinline__ float reduced(const float* red, int row, int n) {
+  float s = red[row * NOUT + n];
+#pragma unroll 4
+  for (int sl = 1; sl < Tile<NOUT>::kSlices; ++sl)
+    s += red[(sl * kBT + row) * NOUT + n];
+  return s;
+}
+
+// ws[k][u*4 + g] = w[k][g*H + u0 + u]: the four gate columns of the block's
+// units, zero past H in either direction.
+template <int U>
+__device__ __forceinline__ void load_gate_slice(const float* __restrict__ w,
+                                                float* ws, int h, int u0) {
+  const int hpad = round_up(h, chunk_of(h));
+  for (int idx = threadIdx.x; idx < hpad * 4 * U; idx += kThreads) {
+    const int k = idx / (4 * U), r = idx % (4 * U);
+    const int u = r / 4, g = r % 4, j = u0 + u;
+    ws[idx] = (k < h && j < h)
+        ? w[static_cast<size_t>(k) * 4 * h + g * h + j] : 0.0f;
+  }
+}
+
+template <int U>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ peep, const int* __restrict__ lens,
+                const int* __restrict__ order, const int* __restrict__ live,
+                const float* __restrict__ h0, const float* __restrict__ c0,
+                float* __restrict__ hidden, float* __restrict__ cell,
+                float* __restrict__ hlast, float* clast, float* carry,
+                int t_len, int b_len, int h) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;                                  // [hpad][4U]
+  float* as = ws + round_up(h, chunk_of(h)) * 4 * U;     // [64][chunk + 4]
+  float* red = as + kBT * (chunk_of(h) + 4);             // kRed floats
+  const int tid = threadIdx.x;
+  const int u0 = blockIdx.x * U;
+  load_gate_slice<U>(w, ws, h, u0);
+
+  // this thread's share of the cell: row bl of the pass, unit j
+  const int bl = tid / U, j = u0 + tid % U;
+  const bool owner = tid < kBT * U && j < h;
+  float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
+  if (owner) {
+    w_ic = peep[j];
+    w_fc = peep[h + j];
+    w_oc = peep[2 * h + j];
+  }
+  const size_t bh = static_cast<size_t>(b_len) * h;
+
+  for (int t = 0; t < t_len; ++t) {
+    const float* hin = t == 0 ? h0 : carry + (t & 1) * bh;
+    float* hout = carry + ((t + 1) & 1) * bh;
+    const float* cin = t == 0 ? c0 : clast;
+    const int n_live = live[t];
+    // the rows still inside their length: the first n_live of `order`
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const bool alive = owner && r0 + bl < n_live;
+      const int b = alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float xg[4] = {0.f, 0.f, 0.f, 0.f}, c_prev = 0.f;
+      if (alive) {     // in flight while the product runs
+        const float* xr = x + (static_cast<size_t>(t) * b_len + b) * 4 * h + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[g] = xr[g * h];
+        c_prev = cin[at];
+      }
+      tile_product<4 * U>(hin, h, order + r0, min(kBT, n_live - r0), h, ws,
+                          as, red);
+      if (alive) {
+        const int n = (tid % U) * 4;
+        const float gi = xg[0] + reduced<4 * U>(red, bl, n + 0);
+        const float gf = xg[1] + reduced<4 * U>(red, bl, n + 1);
+        const float gc = xg[2] + reduced<4 * U>(red, bl, n + 2);
+        const float go = xg[3] + reduced<4 * U>(red, bl, n + 3);
+        const float i = sigmoidf(gi + c_prev * w_ic);
+        const float f = sigmoidf(gf + c_prev * w_fc);
+        const float g = tanhf(gc);
+        const float c_new = f * c_prev + i * g;
+        const float o = sigmoidf(go + c_new * w_oc);
+        const float h_new = o * tanhf(c_new);
+        hout[at] = h_new;
+        clast[at] = c_new;
+        hidden[static_cast<size_t>(t) * bh + at] = h_new;
+        cell[static_cast<size_t>(t) * bh + at] = c_new;
+        if (t + 1 == t_len || t + 1 == lens[b]) hlast[at] = h_new;
+      }
+    }
+    // the rows past their length: zero outputs, the state stays as it is
+    if (owner) {
+      for (int r = n_live + bl; r < b_len; r += kBT) {
+        const size_t at = static_cast<size_t>(order[r]) * h + j;
+        hidden[static_cast<size_t>(t) * bh + at] = 0.0f;
+        cell[static_cast<size_t>(t) * bh + at] = 0.0f;
+        if (t == 0) {                  // a row of length 0 keeps h0, c0
+          hlast[at] = h0[at];
+          clast[at] = c0[at];
+        }
+      }
+    }
+    grid.sync();
+  }
+}
+
+template <int U>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ peep, const int* __restrict__ lens,
+                const int* __restrict__ order, const int* __restrict__ live,
+                const float* __restrict__ h0, const float* __restrict__ c0,
+                const float* __restrict__ hidden,
+                const float* __restrict__ cell,
+                const float* __restrict__ dhid,
+                const float* __restrict__ dcell,
+                const float* __restrict__ dhlast,
+                const float* __restrict__ dclast, float* dx,
+                float* __restrict__ dpeep, float* dh0, float* dc0, int t_len,
+                int b_len, int h) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int hpad = round_up(h, chunk_of(h));
+  const int npad = round_up(4 * h, chunk_of(4 * h));
+  float* ws = smem;                                  // [hpad][4U]
+  float* wr = ws + hpad * 4 * U;                     // [npad][U]
+  float* as = wr + npad * U;                         // [64][chunk + 4]
+  float* red = as + kBT * (chunk_of(4 * h) + 4);     // kRed floats
+  const int tid = threadIdx.x;
+  const int u0 = blockIdx.x * U;
+  load_gate_slice<U>(w, ws, h, u0);
+  // wr[n][u] = w[u0 + u][n]: the rows of the block's units
+  for (int idx = tid; idx < npad * U; idx += kThreads) {
+    const int u = idx / npad, n = idx % npad, k = u0 + u;
+    wr[n * U + u] = (n < 4 * h && k < h)
+        ? w[static_cast<size_t>(k) * 4 * h + n] : 0.0f;
+  }
+
+  const int bl = tid / U, j = u0 + tid % U;
+  const bool owner = tid < kBT * U && j < h;
+  float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
+  if (owner) {
+    w_ic = peep[j];
+    w_fc = peep[h + j];
+    w_oc = peep[2 * h + j];
+  }
+  const size_t bh = static_cast<size_t>(b_len) * h;
+  float dp_i = 0.f, dp_f = 0.f, dp_o = 0.f;   // this thread's share of dpeep
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const float* hp_seq = t == 0 ? h0 : hidden + (t - 1) * bh;
+    const float* cp_seq = t == 0 ? c0 : cell + (t - 1) * bh;
+    float* dxt = dx + static_cast<size_t>(t) * b_len * 4 * h;
+    const int n_live = live[t];
+
+    // phase A: the gates again and the gate gradients of the block's units,
+    // for the rows inside their length (the first n_live of `order`)
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const bool alive = owner && r0 + bl < n_live;
+      const int b = alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float xg[4] = {0.f, 0.f, 0.f, 0.f};
+      float c_prev = 0.f, gh = 0.f, gcell = 0.f;
+      if (alive) {
+        const float* xr = x + (static_cast<size_t>(t) * b_len + b) * 4 * h + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[g] = xr[g * h];
+        c_prev = cp_seq[at];
+        // a row's carries start at the cotangents of its last states
+        const bool last = t + 1 == t_len || t + 1 == lens[b];
+        gh = (last ? dhlast : dh0)[at] +
+             dhid[static_cast<size_t>(t) * bh + at];
+        gcell = (last ? dclast : dc0)[at] +
+                dcell[static_cast<size_t>(t) * bh + at];
+      }
+      tile_product<4 * U>(hp_seq, h, order + r0, min(kBT, n_live - r0), h, ws,
+                          as, red);
+      if (alive) {
+        const int n = (tid % U) * 4;
+        const float gi = xg[0] + reduced<4 * U>(red, bl, n + 0);
+        const float gf = xg[1] + reduced<4 * U>(red, bl, n + 1);
+        const float gc = xg[2] + reduced<4 * U>(red, bl, n + 2);
+        const float go = xg[3] + reduced<4 * U>(red, bl, n + 3);
+        const float i = sigmoidf(gi + c_prev * w_ic);
+        const float f = sigmoidf(gf + c_prev * w_fc);
+        const float g = tanhf(gc);
+        const float c_cand = f * c_prev + i * g;
+        const float o = sigmoidf(go + c_cand * w_oc);
+        const float tanh_c = tanhf(c_cand);
+        const float dgo = gh * tanh_c * o * (1.0f - o);
+        const float dc_cand =
+            gcell + gh * o * (1.0f - tanh_c * tanh_c) + dgo * w_oc;
+        const float dgi = dc_cand * g * i * (1.0f - i);
+        const float dgf = dc_cand * c_prev * f * (1.0f - f);
+        const float dgg = dc_cand * i * (1.0f - g * g);
+        float* dxr = dxt + static_cast<size_t>(b) * 4 * h + j;
+        dxr[0] = dgi;
+        dxr[h] = dgf;
+        dxr[2 * h] = dgg;
+        dxr[3 * h] = dgo;
+        dc0[at] = dc_cand * f + dgi * w_ic + dgf * w_fc;
+        dp_i = fmaf(dgi, c_prev, dp_i);
+        dp_f = fmaf(dgf, c_prev, dp_f);
+        dp_o = fmaf(dgo, c_cand, dp_o);
+      }
+    }
+    // the rows past their length: no gate gradient, the carries stay
+    if (owner) {
+      for (int r = n_live + bl; r < b_len; r += kBT) {
+        const int b = order[r];
+        float* dxr = dxt + static_cast<size_t>(b) * 4 * h + j;
+        dxr[0] = dxr[h] = dxr[2 * h] = dxr[3 * h] = 0.0f;
+        if (t == 0) {                  // a row of length 0 hands them on
+          const size_t at = static_cast<size_t>(b) * h + j;
+          dh0[at] = dhlast[at];
+          dc0[at] = dclast[at];
+        }
+      }
+    }
+    grid.sync();
+
+    // phase B: Dh of the block's units from every gate gradient of the step
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      tile_product<U>(dxt, 4 * h, order + r0, min(kBT, n_live - r0), 4 * h,
+                      wr, as, red);
+      if (owner && r0 + bl < n_live)
+        dh0[static_cast<size_t>(order[r0 + bl]) * h + j] =
+            reduced<U>(red, bl, tid % U);
+    }
+  }
+
+  // dpeep of the block's units: the 64 row shares, added in row order
+  __syncthreads();
+  if (tid < kBT * U) {
+    red[(0 * kBT + bl) * U + tid % U] = dp_i;
+    red[(1 * kBT + bl) * U + tid % U] = dp_f;
+    red[(2 * kBT + bl) * U + tid % U] = dp_o;
+  }
+  __syncthreads();
+  if (tid < 3 * U && u0 + tid % U < h) {
+    const int which = tid / U, u = tid % U;
+    float s = 0.0f;
+    for (int r = 0; r < kBT; ++r) s += red[(which * kBT + r) * U + u];
+    dpeep[which * h + u0 + u] = s;
+  }
+}
+
+// dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows, where row r of
+// h_prev_seq is h0[r] for r < B and hidden[r - B] after (the hidden
+// sequence one step behind).
+constexpr int kDwM = 128, kDwN = 64, kDwK = 16;
+
+__global__ void __launch_bounds__(kThreads)
+lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
+               const float* __restrict__ dx, float* __restrict__ dw, int rows,
+               int b_len, int h) {
+  __shared__ __align__(16) float a_s[kDwK][kDwM];
+  __shared__ __align__(16) float b_s[kDwK][kDwN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * kDwM, n0 = blockIdx.x * kDwN, n_len = 4 * h;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+  float ra[8], rb[4];
+
+  auto fetch = [&](int r0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = tid + i * kThreads, r = r0 + idx / kDwM;
+      const int m = m0 + idx % kDwM;
+      const float* src = r < b_len
+          ? h0 + static_cast<size_t>(r) * h
+          : hidden + static_cast<size_t>(r - b_len) * h;
+      ra[i] = (r < rows && m < h) ? src[m] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + i * kThreads, r = r0 + idx / kDwN;
+      const int n = n0 + idx % kDwN;
+      rb[i] = (r < rows && n < n_len)
+          ? dx[static_cast<size_t>(r) * n_len + n] : 0.0f;
+    }
+  };
+
+  fetch(0);
+  for (int r0 = 0; r0 < rows; r0 += kDwK) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = tid + i * kThreads;
+      a_s[idx / kDwM][idx % kDwM] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + i * kThreads;
+      b_s[idx / kDwN][idx % kDwN] = rb[i];
+    }
+    __syncthreads();
+    if (r0 + kDwK < rows) fetch(r0 + kDwK);   // in flight during the product
+#pragma unroll
+    for (int rr = 0; rr < kDwK; ++rr) {
+      const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[rr][ty * 8]);
+      const float4 a_hi =
+          *reinterpret_cast<const float4*>(&a_s[rr][ty * 8 + 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&b_s[rr][tx * 4]);
+      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
+                           a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int n = n0 + tx * 4 + jj;
+      if (m < h && n < n_len) dw[static_cast<size_t>(m) * n_len + n] =
+          acc[i][jj];
+    }
+  }
+}
+
+// The least U of 1, 2, 4 whose grid is at most one block per SM; 0 if none.
+int units_per_block(int h, int sms) {
+  for (int u = 1; u <= kMaxU; u *= 2)
+    if ((h + u - 1) / u <= sms) return u;
+  return 0;
+}
+
+cudaError_t card(int* sms) {
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// One cooperative launch of `kernel` on ceil(h / u) blocks, after checking
+// that the card holds them all at once.
+template <typename Kernel>
+cudaError_t launch_grid(Kernel kernel, int h, int u, size_t smem_bytes,
+                        int sms, void** args, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (h + u - 1) / u;
+  if (blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                     dim3(blocks), dim3(kThreads), args,
+                                     smem_bytes, s);
+}
+
+size_t fwd_smem(int h, int u) {
+  return sizeof(float) * (static_cast<size_t>(round_up(h, chunk_of(h))) * 4 *
+                              u +
+                          kBT * (chunk_of(h) + 4) + kRed);
+}
+
+size_t bwd_smem(int h, int u) {
+  const int n = 4 * h;
+  return sizeof(float) *
+         (static_cast<size_t>(round_up(h, chunk_of(h))) * 4 * u +
+          static_cast<size_t>(round_up(n, chunk_of(n))) * u +
+          kBT * (chunk_of(n) + 4) + kRed);
+}
+
+}  // namespace
+
+extern "C" int paddle_lstm_train_fwd(const float* x, const float* w,
+                                     const float* peep, const int* lens,
+                                     const int* order, const int* live,
+                                     const float* h0, const float* c0,
+                                     float* hidden, float* cell, float* hlast,
+                                     float* clast, float* carry, int t_len,
+                                     int b_len, int h, void* stream) {
+  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = card(&sms);
+  if (err != cudaSuccess) return err;
+  const int u = units_per_block(h, sms);
+  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
+                  &cell, &hlast, &clast, &carry, &t_len, &b_len, &h};
+  auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = fwd_smem(h, u);
+  if (u == 1) return launch_grid(lstm_fwd_kernel<1>, h, u, smem, sms, args, s);
+  if (u == 2) return launch_grid(lstm_fwd_kernel<2>, h, u, smem, sms, args, s);
+  return launch_grid(lstm_fwd_kernel<4>, h, u, smem, sms, args, s);
+}
+
+extern "C" int paddle_lstm_train_bwd(
+    const float* x, const float* w, const float* peep, const int* lens,
+    const int* order, const int* live, const float* h0, const float* c0,
+    const float* hidden, const float* cell,
+    const float* dhid, const float* dcell, const float* dhlast,
+    const float* dclast, float* dx, float* dw, float* dpeep, float* dh0,
+    float* dc0, int t_len, int b_len, int h, void* stream) {
+  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = card(&sms);
+  if (err != cudaSuccess) return err;
+  const int u = units_per_block(h, sms);
+  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
+                  &cell, &dhid, &dcell, &dhlast, &dclast, &dx, &dpeep, &dh0,
+                  &dc0, &t_len, &b_len, &h};
+  auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = bwd_smem(h, u);
+  if (u == 1)
+    err = launch_grid(lstm_bwd_kernel<1>, h, u, smem, sms, args, s);
+  else if (u == 2)
+    err = launch_grid(lstm_bwd_kernel<2>, h, u, smem, sms, args, s);
+  else
+    err = launch_grid(lstm_bwd_kernel<4>, h, u, smem, sms, args, s);
+  if (err != cudaSuccess) return err;
+  const int rows = t_len * b_len;
+  lstm_dw_kernel<<<dim3((4 * h + kDwN - 1) / kDwN, (h + kDwM - 1) / kDwM),
+                   kThreads, 0, s>>>(h0, hidden, dx, dw, rows, b_len, h);
+  return cudaGetLastError();
+}

@@ -19,6 +19,13 @@ already agree: matrices are [in, out] on both sides.
   order within the family, which is the order ``transformer()`` creates
   them in; the port's :func:`transformer_layout` lists its parameters in
   that same order.
+- :func:`lstm_params_from_jax` -> :class:`StackedDynamicLSTM`.
+  ``paddle_tpu.models.stacked_dynamic_lstm.build`` names nothing: the
+  table is ``embedding_<k>.w_0``, the ``fc`` layers ``fc_<k>.w_0`` (the
+  previous ``fc``'s output, or the embedding), ``.w_1`` (the previous
+  LSTM's output, from the second layer on) and ``.b_0``, the LSTMs
+  ``dynamic_lstm_<k>.w_0`` [H, 4H] and ``.b_0`` [1, 7H]; the last ``fc``
+  is the softmax head. Matched by family and order, like the above.
 """
 
 from __future__ import annotations
@@ -206,6 +213,109 @@ def transformer_params_from_jax(arrays: Dict[str, np.ndarray]
             want = (vs, m)
         else:                                 # attention projections
             want = (m, m)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, want {want}")
+    return state
+
+
+# -- stacked dynamic LSTM (models/stacked_dynamic_lstm.py:17 lstm_net) -------
+
+_LSTM_AUTO = re.compile(r"(embedding|fc|dynamic_lstm)_(\d+)\.([wb]_\d+)$")
+
+
+def lstm_layout(stacked_num: int) -> List[Tuple[str, List[Tuple[str, str]]]]:
+    """The :class:`StackedDynamicLSTM`'s parameters in the order the JAX
+    ``lstm_net`` creates them: ``(family, [(name suffix, state key), ...])``
+    per layer creation."""
+    out = [("embedding", [("w_0", "emb")])]
+    for i in range(stacked_num):
+        fc = [("w_0", f"layers.{i}.fc_w0")]
+        if i:
+            fc.append(("w_1", f"layers.{i}.fc_w1"))
+        out.append(("fc", fc + [("b_0", f"layers.{i}.fc_b")]))
+        out.append(("dynamic_lstm", [("w_0", f"layers.{i}.lstm_w"),
+                                     ("b_0", f"layers.{i}.lstm_b")]))
+    out.append(("fc", [("w_0", "head_w0"), ("w_1", "head_w1"),
+                       ("b_0", "head_b")]))
+    return out
+
+
+def lstm_jax_names(stacked_num: int) -> Dict[str, str]:
+    """{state key: JAX name} as a fresh process names ``build``'s
+    parameters (every counter from 0)."""
+    names: Dict[str, str] = {}
+    counters: Dict[str, int] = {}
+    for fam, params in lstm_layout(stacked_num):
+        n = counters.get(fam, 0)
+        counters[fam] = n + 1
+        for suffix, key in params:
+            names[key] = f"{fam}_{n}.{suffix}"
+    return names
+
+
+def lstm_state_keys(names, stacked_num: int) -> Dict[str, str]:
+    """{JAX name: :class:`StackedDynamicLSTM` state key} for the parameter
+    names of one ``build`` (any counter offsets). Raises on a name that is
+    no parameter of ``lstm_net`` (an unused one) and on a layer or a
+    parameter that the names lack (a missing one)."""
+    groups: Dict[str, Dict[int, set]] = {}
+    for name in names:
+        m = _LSTM_AUTO.match(name)
+        if m is None:
+            raise KeyError(f"{name!r} is not a stacked-LSTM parameter")
+        groups.setdefault(m.group(1), {}).setdefault(
+            int(m.group(2)), set()).add(m.group(3))
+    layout = lstm_layout(stacked_num)
+    out = {}
+    for fam in sorted(set(groups) | {f for f, _ in layout}):
+        want = [p for f, p in layout if f == fam]
+        have = sorted(groups.get(fam, {}))
+        if len(have) != len(want):
+            raise KeyError(f"{fam}: {len(have)} layers in the scope, "
+                           f"{len(want)} in a {stacked_num}-layer stacked "
+                           f"LSTM")
+        for k, params in zip(have, want):
+            if groups[fam][k] != {s for s, _ in params}:
+                raise KeyError(f"{fam}_{k}: parameters "
+                               f"{sorted(groups[fam][k])}, want "
+                               f"{sorted(s for s, _ in params)}")
+            for suffix, key in params:
+                out[f"{fam}_{k}.{suffix}"] = key
+    return out
+
+
+def lstm_params_from_jax(arrays: Dict[str, np.ndarray], stacked_num: int
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX scope arrays of one ``build``'s parameters -> a state dict for
+    ``StackedDynamicLSTM.load_state_dict`` (fp32 CPU tensors). Raises on a
+    missing or an unused name, and on a shape that fits no stacked LSTM
+    (a [1, 4H] LSTM bias has no peepholes; the model wants [1, 7H])."""
+    keys = lstm_state_keys(arrays, stacked_num)
+    state = {keys[n]: torch.from_numpy(np.array(v, dtype=np.float32))
+             for n, v in arrays.items()}
+    emb_dim = state["emb"].shape[1]
+    hid = state["layers.0.lstm_w"].shape[0]
+    classes = state["head_b"].shape[0]
+    for key, t in state.items():
+        if key == "emb":
+            continue
+        if key.endswith("lstm_w"):
+            want = (hid, 4 * hid)
+        elif key.endswith("lstm_b"):
+            want = (1, 7 * hid)
+        elif key.endswith("fc_b"):
+            want = (4 * hid,)
+        elif key.endswith("fc_w0"):
+            want = (emb_dim if key.startswith("layers.0.") else 4 * hid,
+                    4 * hid)
+        elif key.endswith("fc_w1"):
+            want = (hid, 4 * hid)
+        elif key == "head_w0":
+            want = (4 * hid, classes)
+        elif key == "head_w1":
+            want = (hid, classes)
+        else:                                 # head_b
+            want = (classes,)
         if tuple(t.shape) != want:
             raise ValueError(f"{key}: shape {tuple(t.shape)}, want {want}")
     return state

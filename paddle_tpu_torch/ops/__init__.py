@@ -1,2 +1,4 @@
 """Operators of the port: plain PyTorch functions with the JAX
-package's numerics, and the kernels under ``ops/kernels``."""
+package's numerics (``nn_ops``, ``rnn_ops``, ``sequence_ops``,
+``attention_block``, ``kv_attention``), and the kernels under
+``ops/kernels``."""

@@ -1,2 +1,4 @@
 """Hand-written CUDA kernels of the port, how they are built and
-loaded, and their plain PyTorch versions."""
+loaded (``build``), and their plain PyTorch versions:
+``paged_attention``, ``flash_attention``, ``fused_ce`` and
+``fused_rnn``."""

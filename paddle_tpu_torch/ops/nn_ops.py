@@ -6,7 +6,8 @@ numerics of their JAX emitters:
 - :func:`lookup_table` -- ``nn_ops.py:504`` (and ``gather``,
   ``paddle_tpu/ops/math_ops.py:245``): rows of a table by index.
 - :func:`fc` -- ``paddle_tpu/ops/misc_ops.py:485`` (and the ``mul`` +
-  bias + act chain ``layers.fc`` emits): weights in [in, out] layout.
+  ``sum`` + bias + act chain ``layers.fc`` emits): weights in [in, out]
+  layout, one per input.
 - :func:`scale` -- ``paddle_tpu/ops/math_ops.py:74``.
 
 and those the training path adds (differentiable through autograd, like
@@ -25,6 +26,14 @@ the ops above):
 - :func:`fused_linear_ce` -- ``nn_ops.py:610``: the vocabulary projection
   and the label-smoothed CE as one op, whose fused kernels run on the
   card (``ops/kernels/fused_ce.py``).
+
+and those of the LSTM classifier's head:
+
+- :func:`cross_entropy` -- ``nn_ops.py:544``, on probabilities:
+  ``-log(p[label] + 1e-9)`` with ``ignore_index`` rows at 0, or
+  ``-sum(label * log(p + 1e-9))`` for soft labels.
+- :func:`accuracy` -- ``paddle_tpu/ops/metric_ops.py:13``, fed the top-k
+  indices as ``layers.accuracy`` feeds it (``fluid/layers/nn.py:531``).
 """
 
 from __future__ import annotations
@@ -57,14 +66,28 @@ def lookup_table(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return w[ids.long()]
 
 
-def fc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+def fc(x, w, b: Optional[torch.Tensor] = None,
        act: Optional[str] = None) -> torch.Tensor:
-    """x [..., in] @ w [in, out] (+ b) (+ relu)."""
-    out = x @ w
+    """x [..., in] @ w [in, out] (+ b) (+ act: relu, tanh or softmax over
+    the last axis). With a list of inputs and a list of as many weights,
+    the products are summed before the one bias (``layers.fc``,
+    ``fluid/layers/nn.py:25-45``)."""
+    if isinstance(x, (list, tuple)):
+        if not isinstance(w, (list, tuple)) or len(w) != len(x):
+            raise ValueError("a multi-input fc takes one weight per input")
+        out = x[0] @ w[0]
+        for xi, wi in zip(x[1:], w[1:]):
+            out = out + xi @ wi
+    else:
+        out = x @ w
     if b is not None:
         out = out + b
     if act == "relu":
         out = torch.relu(out)
+    elif act == "tanh":
+        out = torch.tanh(out)
+    elif act == "softmax":
+        out = torch.softmax(out, dim=-1)
     elif act is not None:
         raise ValueError(f"unsupported activation {act!r}")
     return out
@@ -116,6 +139,36 @@ def matmul(x: torch.Tensor, y: torch.Tensor,
 
 def mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean()
+
+
+def cross_entropy(prob: torch.Tensor, label: torch.Tensor,
+                  soft_label: bool = False,
+                  ignore_index: int = -100) -> torch.Tensor:
+    """prob [N, D] probabilities, label [N, 1] (or [N]) integers, or
+    [N, D] weights with ``soft_label`` -> loss [N, 1] in fp32."""
+    if prob.dtype in (torch.bfloat16, torch.float16):
+        prob = prob.to(torch.float32)
+    eps = 1e-9
+    if soft_label:
+        return -(label * torch.log(prob + eps)).sum(dim=-1, keepdim=True)
+    lab = label.reshape(-1, 1).long()
+    picked = prob.gather(-1, lab.clamp(0, prob.shape[-1] - 1))
+    loss = -torch.log(picked + eps)
+    return torch.where(lab == ignore_index, torch.zeros_like(loss), loss)
+
+
+def accuracy(prob: torch.Tensor, label: torch.Tensor, k: int = 1):
+    """-> (accuracy [1] fp32, correct [1] int32, total [1] int32): the
+    share of rows whose label is among the k largest of ``prob`` [N, D].
+    Carries no gradient."""
+    with torch.no_grad():
+        idx = prob.topk(k, dim=-1).indices
+        hit = (idx == label.reshape(-1, 1)).any(dim=1)
+        correct = hit.to(torch.float32).sum()
+        total = idx.shape[0]
+        return ((correct / total).reshape(1),
+                correct.to(torch.int32).reshape(1),
+                torch.tensor([total], dtype=torch.int32, device=prob.device))
 
 
 def fused_linear_ce(x: torch.Tensor, w: torch.Tensor, label: torch.Tensor,

@@ -1,0 +1,104 @@
+"""Recurrent operators (counterpart of ``paddle_tpu/ops/rnn_ops.py``).
+
+:func:`dynamic_lstm` is ``_dynamic_lstm`` (``:49-157``): the input
+projection is done outside (by ``fc``), so ``x`` is [B, T, 4H] with gate
+order i, f, c~, o; the recurrent ``weight`` is [H, 4H]; ``bias`` is [1, 4H]
+or, with peepholes, [1, 7H] (the gate bias, then W_ic | W_fc | W_oc);
+variable-length rows are padded and masked by ``seq_lens`` [B].
+
+The op's attribute rule (``:98-101``) picks the path: the default cell
+(sigmoid gates, tanh cell and candidate) without reverse goes to
+``fused_lstm_train`` (``ops/kernels/fused_rnn.py``: the whole-sequence
+CUDA kernels on the card, their plain versions on the CPU); a reversed
+sequence or other activations go to the step loop of ``:125-153`` in
+torch, on either device. The JAX op's further conditions (``:105-107``:
+H % 128, B % 8, a VMEM budget) are a TPU's and are not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from paddle_tpu_torch.ops.kernels import fused_rnn as _fused_rnn
+
+_ACTS = {
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "identity": lambda x: x,
+}
+
+
+def _act(name):
+    return _ACTS[name or "tanh"]
+
+
+def dynamic_lstm(x: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor],
+                 h0: Optional[torch.Tensor] = None,
+                 c0: Optional[torch.Tensor] = None,
+                 seq_lens: Optional[torch.Tensor] = None,
+                 use_peepholes: bool = True, is_reverse: bool = False,
+                 gate_activation: str = "sigmoid",
+                 cell_activation: str = "tanh",
+                 candidate_activation: str = "tanh"):
+    """-> (Hidden [B,T,H], Cell [B,T,H], LastHidden [B,H], LastCell [B,H]);
+    Hidden and Cell are zero past each row's length, the last states are
+    those of each row's last valid step. Peepholes apply only with a
+    [1, 7H] bias, as in the JAX op (``:72-73``)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.to(torch.float32)      # the recurrence runs in fp32 (``:59-66``)
+    b, t, h4 = x.shape
+    h = h4 // 4
+    use_peepholes = bool(use_peepholes) and bias is not None \
+        and bias.shape[-1] == 7 * h
+    peep = None
+    if bias is not None:
+        flat = bias.reshape(-1)
+        x = x + flat[:4 * h]
+        if use_peepholes:
+            peep = flat[4 * h:]
+    h_init = h0 if h0 is not None else x.new_zeros((b, h))
+    c_init = c0 if c0 is not None else x.new_zeros((b, h))
+    xt_seq = x.transpose(0, 1)                          # [T, B, 4H]
+
+    if (not is_reverse and gate_activation == "sigmoid"
+            and cell_activation == "tanh"
+            and candidate_activation == "tanh"):
+        peep_arr = (peep.reshape(1, 3 * h).to(x.dtype) if use_peepholes
+                    else x.new_zeros((1, 3 * h)))
+        lens = (seq_lens.reshape(-1).to(torch.int32) if seq_lens is not None
+                else torch.full((b,), t, dtype=torch.int32, device=x.device))
+        hid_tm, cell_tm, h_last, c_last = _fused_rnn.fused_lstm_train(
+            xt_seq, weight.to(x.dtype), peep_arr, lens, h_init, c_init)
+        return (hid_tm.transpose(0, 1), cell_tm.transpose(0, 1), h_last,
+                c_last)
+
+    gate_act = _act(gate_activation)
+    cell_act = _act(cell_activation)
+    cand_act = _act(candidate_activation)
+    if use_peepholes:
+        w_ic, w_fc, w_oc = peep[:h], peep[h:2 * h], peep[2 * h:]
+    hs, cs = [None] * t, [None] * t
+    h_prev, c_prev = h_init, c_init
+    for step in (range(t - 1, -1, -1) if is_reverse else range(t)):
+        gates = xt_seq[step] + h_prev @ weight
+        gi, gf = gates[:, :h], gates[:, h:2 * h]
+        gc, go = gates[:, 2 * h:3 * h], gates[:, 3 * h:]
+        if use_peepholes:
+            gi = gi + c_prev * w_ic
+            gf = gf + c_prev * w_fc
+        c_new = gate_act(gf) * c_prev + gate_act(gi) * cand_act(gc)
+        if use_peepholes:
+            go = go + c_new * w_oc
+        h_new = gate_act(go) * cell_act(c_new)
+        if seq_lens is None:
+            m = torch.ones((b, 1), dtype=h_new.dtype, device=h_new.device)
+        else:
+            m = (step < seq_lens.reshape(-1, 1)).to(h_new.dtype)
+        h_prev = m * h_new + (1 - m) * h_prev
+        c_prev = m * c_new + (1 - m) * c_prev
+        hs[step], cs[step] = h_prev * m, c_prev * m
+    return (torch.stack(hs, dim=1), torch.stack(cs, dim=1), h_prev, c_prev)

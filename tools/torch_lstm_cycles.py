@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Where a step of the PyTorch port's whole-sequence LSTM kernels goes, in
+SM cycles, on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with one CUDA card and nvcc:
+
+    python3 tools/torch_lstm_cycles.py
+
+The card's machine has no profiler that reads inside a kernel, so this
+script instruments a copy of ``paddle_tpu_torch/csrc/fused_rnn.cu``: it
+inserts ``clock64()`` marks, taken by thread 0 of block 0 into a device
+array indexed by the time step, builds the copy with the flags of
+``paddle_tpu_torch/ops/kernels/build.py`` into ``build/lstm_cycles/``, and
+calls it through the port's own wrappers at T 100, B 64, H 512 with ragged
+lengths (1..T, about half of the (row, step) pairs live) and with full
+lengths. It prints the median cycles of one step for
+
+- the forward: the product ``h @ w`` (and inside it: staging the carry
+  from L2, the multiply-add loop, the cross-slice sums), the cell and its
+  stores, the grid barrier;
+- the backward: phase A's product and cell, the grid barrier, phase B
+  (``dgates @ w^T``);
+
+with the same numbers at the first and last steps, where a ragged batch
+has most and fewest live rows. The marks are placed by matching lines of
+the source, and the script fails if a line it looks for is gone. The marks
+cost a few cycles each; the instrumented kernels are not the port's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+T, B, H = 100, 64, 512
+SLOTS = 8                          # marks a step
+MAX_STEPS = 512
+
+MARKS = (
+    # (text to find, occurrences, replacement)
+    ("namespace cg = cooperative_groups;\n", 1,
+     "namespace cg = cooperative_groups;\n"
+     "__device__ long long g_dbg[%d];\n__device__ int g_t;\n"
+     "#define ME (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "#define MARK(i) if (ME) g_dbg[t * %d + (i)] = clock64();\n"
+     "#define MARKT(i) if (ME) g_dbg[g_t * %d + (i)] = clock64();\n"
+     % (SLOTS * MAX_STEPS, SLOTS, SLOTS)),
+    # forward: top of a step, after the product, around the barrier
+    ("    const int n_live = live[t];\n    // the rows still inside", 1,
+     "    const int n_live = live[t]; MARK(0) if (ME) g_t = t;\n"
+     "    // the rows still inside"),
+    ("      tile_product<4 * U>(hin, h, order + r0, min(kBT, n_live - r0), "
+     "h, ws,\n                          as, red);", 1,
+     "      tile_product<4 * U>(hin, h, order + r0, min(kBT, n_live - r0), "
+     "h, ws,\n                          as, red); MARK(1)"),
+    ("    grid.sync();", 2, "    MARK(2) grid.sync(); MARK(3)"),
+    # backward: top of a step, after phase A's product, after phase B
+    ("    const int n_live = live[t];\n\n    // phase A", 1,
+     "    const int n_live = live[t]; MARK(0)\n\n    // phase A"),
+    ("      tile_product<4 * U>(hp_seq, h, order + r0, min(kBT, n_live - "
+     "r0), h, ws,\n                          as, red);", 1,
+     "      tile_product<4 * U>(hp_seq, h, order + r0, min(kBT, n_live - "
+     "r0), h, ws,\n                          as, red); MARK(1)"),
+    ("            reduced<U>(red, bl, tid % U);\n    }\n", 1,
+     "            reduced<U>(red, bl, tid % U);\n    }\n    MARK(4)\n"),
+    # inside the product (read for the forward only: the backward's two
+    # products overwrite each other's marks)
+    ("    __syncthreads();\n    if (vec) {", 1,
+     "    __syncthreads(); MARKT(4)\n    if (vec) {"),
+    ("      copies_done();\n", 1, "      copies_done(); MARKT(5)\n"),
+    ("    __syncthreads();\n    const float* arow", 1,
+     "    __syncthreads(); MARKT(6)\n    const float* arow"),
+    ("#pragma unroll\n  for (int i = 0; i < 8; ++i) {\n    if (i < mine) {\n"
+     "      float* out", 1,
+     "MARKT(7)\n#pragma unroll\n  for (int i = 0; i < 8; ++i) {\n"
+     "    if (i < mine) {\n      float* out"),
+)
+READ_BACK = (
+    '\nextern "C" int paddle_lstm_cycles(long long* host) {\n'
+    "  return cudaMemcpyFromSymbol(host, g_dbg, sizeof(long long) * %d);\n}\n"
+    % (SLOTS * MAX_STEPS))
+
+
+def instrumented(source: str) -> str:
+    for find, count, put in MARKS:
+        if source.count(find) != count:
+            raise SystemExit(f"torch_lstm_cycles: expected {count} of "
+                             f"{find!r} in fused_rnn.cu, found "
+                             f"{source.count(find)}")
+        source = source.replace(find, put)
+    return source + READ_BACK
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_lstm_cycles: no CUDA device")
+    from paddle_tpu_torch.ops.kernels import build, fused_rnn as fr
+    out_dir = build.BUILD_DIR.parent / "lstm_cycles"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "fused_rnn_cycles.cu"
+    lib_path = out_dir / "fused_rnn_cycles.so"
+    src.write_text(instrumented(
+        (build.SOURCE_DIR / "fused_rnn.cu").read_text()))
+    subprocess.run([build.nvcc(),
+                    *[f for f in build.NVCC_FLAGS if f not in ("-Xptxas",
+                                                               "-v")],
+                    "-o", str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    fr._kernels()                      # the port's own argtypes, then swap
+    for name in ("paddle_lstm_train_fwd", "paddle_lstm_train_bwd"):
+        getattr(lib, name).argtypes = getattr(fr._lib, name).argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.paddle_lstm_cycles.argtypes = [ctypes.c_void_p]
+    fr._lib = lib
+
+    def smi(query):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+    card = smi("name,power.limit")
+    print(card)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(13)
+
+    def normal(shape, scale):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+    ragged = rng.randint(1, T + 1, size=B).astype(np.int32)
+    ragged[0] = T
+    x, w, peep = normal((T, B, 4 * H), 0.4), normal((H, 4 * H), H ** -0.5), \
+        normal((1, 3 * H), 0.1)
+    h0, c0 = normal((B, H), 0.3), normal((B, H), 0.3)
+    cot = (normal((T, B, H), 0.1), normal((T, B, H), 0.1),
+           normal((B, H), 1.0), normal((B, H), 1.0))
+
+    def marks():
+        torch.cuda.synchronize()
+        buf = np.zeros(SLOTS * MAX_STEPS, np.int64)
+        err = lib.paddle_lstm_cycles(buf.ctypes.data)
+        if err:
+            raise SystemExit(f"torch_lstm_cycles: read-back failed ({err})")
+        return buf.reshape(MAX_STEPS, SLOTS)[:T]
+
+    def show(label, names, seg):
+        print(f"[{card}] {label}: median cycles a step "
+              + ", ".join(f"{n} {np.median(seg[:, i]):.0f}"
+                          for i, n in enumerate(names))
+              + f"; at t = 2 {seg[2].tolist()}, at t = {T - 3} "
+              f"{seg[T - 3].tolist()}")
+
+    for label, lens_np in (("ragged", ragged), ("full", np.full(B, T,
+                                                                np.int32))):
+        lens = torch.from_numpy(lens_np).to(dev)
+        ins = (x, w, peep, lens, h0, c0)
+        for _ in range(3):
+            outs = fr.lstm_train_fwd(*ins)
+        d = marks()
+        step = np.median(d[1:, 0] - d[:-1, 0])
+        show(f"forward, {label} lengths ({int(lens_np.sum())} of {T * B} "
+             f"pairs live), step {step:.0f}",
+             ("product", "cell and stores", "barrier"),
+             np.stack([d[:, 1] - d[:, 0], d[:, 2] - d[:, 1],
+                       d[:, 3] - d[:, 2]], 1))
+        show(f"forward product, {label} lengths",
+             ("to the first barrier", "staging", "second barrier",
+              "multiply-add", "slice sums"),
+             np.stack([d[:, 4] - d[:, 0], d[:, 5] - d[:, 4],
+                       d[:, 6] - d[:, 5], d[:, 7] - d[:, 6],
+                       d[:, 1] - d[:, 7]], 1))
+        for _ in range(3):
+            fr.lstm_train_bwd(*ins, outs[0], outs[1], *cot)
+        d = marks()
+        step = np.median(d[:-1, 0] - d[1:, 0])
+        show(f"backward, {label} lengths, step {step:.0f}",
+             ("phase A product", "phase A cell and stores", "barrier",
+              "phase B"),
+             np.stack([d[:, 1] - d[:, 0], d[:, 2] - d[:, 1],
+                       d[:, 3] - d[:, 2], d[:, 4] - d[:, 3]], 1))
+    print(f"SM clock now / max: {smi('clocks.sm,clocks.max.sm')}")
+
+
+if __name__ == "__main__":
+    main()
