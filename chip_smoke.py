@@ -103,7 +103,43 @@ final line:
    last below the first. Prints step p50, words/s (valid and padded),
    peak memory and a 3-step ``torch.profiler`` window with the LSTM
    kernels' share of device time.
-10. Report: a ``{"kernels": [...]}`` line, then, last,
+10. GRU kernels: the whole-sequence GRU forward and backward kernels at
+    the shapes of phase 11 (T 32, B 64, H 512; seeded ``xproj`` x 0.4,
+    ``w`` x H**-0.5, ``h0`` x 0.3, ragged lengths 1-32 with one full row,
+    non-uniform cotangents on both outputs) and at an edge shape (T 7,
+    B 5, H 100): the forward's outputs (hidden, h_last and the ``rh``
+    residual) and the backward's three against the plain PyTorch versions
+    (rtol 1e-4 / atol 1e-5 forward, rtol 1e-3 / atol 1e-4 gradients),
+    ``hidden`` exactly 0 past each length, two runs of the backward
+    bit-equal. Timed as in phase 3 beside the plain versions (the step
+    loop; the explicit backward formulae; autograd through the step loop)
+    and the bound over the live (row, step) pairs. No one PyTorch call
+    computes this function (``nn.GRU`` applies the reset after its
+    product and owns the input projection): ``library_ms`` is null. The
+    forward at B 1 gives the serial cost of a step.
+11. MT training: ``machine_translation.build()`` at emb 512, hid 512,
+    vocabularies 10000, max_len 32 (seeded weights carried in through
+    ``mt_params_from_jax``) takes 10 steps of 64 fresh seeded pairs (the
+    first target the first source id, then the chain ``(7 x + 3) % V``;
+    ids over the whole vocabulary), lazy Adam over row-sparse table
+    gradients. The launch counts of every kernel module are zeroed just
+    before and read just after. Checks: every step launched each GRU
+    kernel twice (encoder, decoder) and nothing else; losses finite, the
+    last below the first; the table rows no batch touched bit-equal to
+    their start and every touched row moved; the first 3 losses within
+    rtol 1e-3 of the same model on the CPU from the same weights and
+    feeds. Prints step p50, words/s (2048 target words over it), peak
+    memory and a 3-step ``torch.profiler`` window.
+12. MT beam decode: ``generate`` (beam 4, 32 steps) on 64 seeded sources
+    with the weights after phase 11; counts zeroed just before, read just
+    after: one GRU forward launch (the encoder) and nothing else. Against
+    the same call on a CPU copy of the model: equal token streams, where a
+    row may diverge only at a near tie (at the first step whose selection
+    differs, the CPU's candidate scores at the first differing rank and
+    the next within 1e-4; counted), the other rows' lane scores within
+    rtol 1e-4, all sorted descending. Prints the p50 of a call,
+    sequences/s and a 3-call profiler window.
+13. Report: a ``{"kernels": [...]}`` line, then, last,
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -154,6 +190,16 @@ LSTM_EDGE = (7, 5, 100)            # T, B, H off every tile multiple
 LSTM_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 LSTM_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 LSTM_ORACLE_STEPS = 3
+MT = dict(src_vocab=10000, tgt_vocab=10000, max_len=32, emb_dim=512,
+          hid_dim=512)
+MT_BATCH = 64
+MT_GRU_PER_STEP = 2                # the encoder's and the decoder's GRU
+MT_ORACLE_STEPS = 3
+GRU_EDGE = (7, 5, 100)             # T, B, H off every tile multiple
+GRU_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+GRU_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+BEAM_TIE = 1e-4
+BEAM_RTOL = 1e-4
 
 
 def fail(msg: str):
@@ -778,15 +824,22 @@ def train(torch, model, opt, feeds, launches=None):
 
 
 def profile_window(torch, model, opt, feeds):
-    """(device busy ms per step, idle share, the flash, fused-CE and LSTM
-    kernels' shares of device time, host ms per step) over a
-    torch.profiler window of ``feeds``."""
+    """:func:`profile_calls` over training steps on ``feeds``."""
+    return profile_calls(torch, lambda: train(torch, model, opt, feeds),
+                         len(feeds))
+
+
+def profile_calls(torch, work, n):
+    """(device busy ms per step, idle share, the flash, fused-CE and
+    recurrent (LSTM or GRU loops and their products) kernels' shares of
+    device time, host ms per step) over a torch.profiler window of
+    ``work()``, which does ``n`` steps and ends in a synchronize."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train(torch, model, opt, feeds)
+        work()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device events only: a user annotation (Optimizer.step#Adam.step)
     # also carries device time, the sum of the kernels under it
@@ -800,16 +853,15 @@ def profile_window(torch, model, opt, feeds):
                    if "flash_" in ev.key)
     fce_us = sum(ev.self_device_time_total for ev in kernels
                  if "fused_ce_" in ev.key)
-    lstm_us = sum(ev.self_device_time_total for ev in kernels
-                  if "lstm_" in ev.key)
-    n = len(feeds)
+    rnn_us = sum(ev.self_device_time_total for ev in kernels
+                 if any(k in ev.key for k in ("lstm_", "gru_", "rnn_gemm")))
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
     return {"device_busy_ms_per_step": busy_us / n / 1e3,
             "host_ms_per_step": wall_ms / n,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
             "flash_share": flash_us / busy_us if busy_us else 0.0,
             "fused_ce_share": fce_us / busy_us if busy_us else 0.0,
-            "lstm_share": lstm_us / busy_us if busy_us else 0.0,
+            "rnn_share": rnn_us / busy_us if busy_us else 0.0,
             "launches_per_step": sum(ev.count for ev in kernels) / n,
             "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
                              ev.count / n) for ev in top]}
@@ -1194,7 +1246,7 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
     losses, step_ms, per_step = train(torch, model, opt, [feed] * steps,
                                       lambda: dict(fr.LAUNCHES))
     launched = dict(fr.LAUNCHES)
-    want = {k: n_layer for k in fr.LAUNCHES}
+    want = {k: n_layer if k.startswith("lstm_") else 0 for k in fr.LAUNCHES}
     for i, c in enumerate(per_step):
         if c != want:
             fail(f"LSTM training: step {i} launched {c}, want {want}")
@@ -1225,7 +1277,7 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
               f"busy {prof['device_busy_ms_per_step']:.3f} ms/step, idle "
               f"share {prof['idle_share']:.3f} "
               f"({prof['idle_share_at_p50']:.3f} against the step p50), "
-              f"LSTM kernels {prof['lstm_share']:.4f} of device time, "
+              f"LSTM kernels {prof['rnn_share']:.4f} of device time, "
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
@@ -1261,6 +1313,424 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
     return launched, n_layer, stats
 
 
+# -- phase 10: GRU kernels --------------------------------------------------
+
+def gru_cost(t, b, h, lens_sum):
+    """(FLOPs, bytes) of the GRU forward and backward: per live (row, step)
+    pair the forward's [1, H] x [H, 3H] products (6 H^2), the backward's
+    recompute (6 H^2), d_rh (2 H^2), Dh (4 H^2) and dw (6 H^2); each input
+    read once, each output written once."""
+    seq, state, x = t * b * h * 4, b * h * 4, t * b * 3 * h * 4
+    w_b = h * 3 * h * 4
+    return {"gru_train_fwd": (6 * h * h * lens_sum,
+                              x + w_b + b * 4 + state + 2 * seq + state),
+            "gru_train_bwd": (18 * h * h * lens_sum,
+                              x + w_b + b * 4 + state + 3 * seq + state
+                              + x + w_b + state)}
+
+
+def gru_inputs(torch, dev, t, b, h, seed):
+    """Seeded inputs of the GRU kernels (``w`` x H**-0.5, as for the LSTM)
+    and non-uniform cotangents of both outputs."""
+    rng = np.random.RandomState(seed)
+
+    def normal(shape, scale):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+    lens = rng.randint(1, t + 1, size=b).astype(np.int32)
+    lens[0] = t                                # at least one full row
+    ins = (normal((t, b, 3 * h), 0.4), normal((h, 3 * h), min(0.2, h ** -0.5)),
+           torch.from_numpy(lens).to(dev), normal((b, h), 0.3))
+    cot = (normal((t, b, h), 0.1), normal((b, h), 1.0))
+    return ins, cot, int(lens.sum())
+
+
+def gru_check(torch, fr, ins, cot, label):
+    """Each kernel against its plain version, the zeroed tail and the
+    backward's repeatability; returns the max abs errors and the plain
+    forward's outputs."""
+    t, lens = ins[0].shape[0], ins[2]
+    got = fr.gru_train_fwd(*ins)
+    want = fr.gru_train_fwd_plain(*ins)
+    back = fr.gru_train_bwd(*ins, want[0], want[2], *cot)
+    again = fr.gru_train_bwd(*ins, want[0], want[2], *cot)
+    want_back = fr.gru_train_bwd_plain(*ins, want[0], want[2], *cot)
+    torch.cuda.synchronize()
+    errs = {}
+    names = ("hidden", "h_last", "rh", "dx", "dw", "dh0")
+    for i, (name, a, b) in enumerate(zip(names, tuple(got) + tuple(back),
+                                         tuple(want) + tuple(want_back))):
+        tol = GRU_FWD_TOL if i < 3 else GRU_GRAD_TOL
+        errs[name] = float((a - b).abs().max())
+        if a.shape != b.shape or not close(a, b, tol):
+            fail(f"GRU {label}: {name} differs from the plain version "
+                 f"(max abs err {errs[name]}, tolerance {tol})")
+    past = (torch.arange(t, device=lens.device)[:, None]
+            >= lens[None, :])[:, :, None]
+    if bool((got[0].masked_select(past) != 0).any()):
+        fail(f"GRU {label}: hidden is not 0 past a row's length")
+    for name, a, b in zip(names[3:], back, again):
+        if not torch.equal(a, b):
+            fail(f"GRU {label}: two runs of the backward give other bits "
+                 f"in {name}")
+    return errs, want
+
+
+def gru_phase(torch, dev, card, t=MT["max_len"], b=MT_BATCH,
+              h=MT["hid_dim"], edge=GRU_EDGE):
+    """The GRU kernels against their plain versions at the training shapes
+    and at an edge shape, then timed beside plain and bound."""
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    ins, cot, _ = gru_inputs(torch, dev, *edge, 14)
+    edge_errs, _ = gru_check(torch, fr, ins, cot,
+                             f"edge T {edge[0]} B {edge[1]} H {edge[2]}")
+    print(f"[{card}] GRU edge shape T {edge[0]} B {edge[1]} H {edge[2]}: "
+          f"max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
+    ins, cot, lens_sum = gru_inputs(torch, dev, t, b, h, 15)
+    errs, want = gru_check(torch, fr, ins, cot, f"T {t} B {b} H {h}")
+    print(f"[{card}] GRU T {t} B {b} H {h}: max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    hidden, rh = want[0], want[2]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def autograd_pair():
+        leaves = [x.detach().requires_grad_() if x.is_floating_point()
+                  else x for x in ins]
+        outs = fr.gru_train_fwd_plain(*leaves)[:2]
+        return torch.autograd.grad(
+            outs, [x for x in leaves if x.is_floating_point()], cot)
+    runs = {"gru_train_fwd": (
+                lambda: fr.gru_train_fwd(*ins),
+                lambda: fr.gru_train_fwd_plain(*ins),
+                ("hidden", "h_last", "rh")),
+            "gru_train_bwd": (
+                lambda: fr.gru_train_bwd(*ins, hidden, rh, *cot),
+                lambda: fr.gru_train_bwd_plain(*ins, hidden, rh, *cot),
+                ("dx", "dw", "dh0"))}
+    cost = gru_cost(t, b, h, lens_sum)
+    dense = gru_cost(t, b, h, t * b)
+    one = (ins[0][:, :1].contiguous(), ins[1], ins[2][:1].contiguous(),
+           ins[3][:1].contiguous())
+    serial_ms = time_ms(torch, lambda: fr.gru_train_fwd(*one), flush, n=20)
+    results = {}
+    for kname, (fn, ref, outs) in runs.items():
+        flops, nbytes = cost[kname]
+        bound_ms, bound_by = bound_of(flops, nbytes)
+        row = {"max_abs_err": max(errs[o] for o in outs),
+               "edge_max_abs_err": max(edge_errs[o] for o in outs),
+               "ms": time_ms(torch, fn, flush, n=20),
+               "plain_ms": time_ms(torch, ref, flush, n=3, warm=1),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "dense_bound_ms": bound_of(*dense[kname])[0],
+               "live_steps": lens_sum, "steps": t * b}
+        row["us_per_step"] = row["ms"] / t * 1e3
+        results[kname] = row
+        print(f"[{card}] {kname} [T {t}, B {b}, H {h}]: max abs err "
+              f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms "
+              f"({row['us_per_step']:.2f} us a step), plain "
+              f"{row['plain_ms']:.3f} ms, no library call, bound "
+              f"{bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP over "
+              f"the {lens_sum} live of {t * b} (row, step) pairs, "
+              f"{nbytes / 1e6:.1f} MB; all pairs {row['dense_bound_ms']:.3f} "
+              f"ms)")
+    results["gru_train_fwd"]["serial_us_per_step"] = serial_ms / t * 1e3
+    results["gru_train_bwd"]["autograd_plain_ms"] = time_ms(
+        torch, autograd_pair, flush, n=3, warm=1)
+    print(f"[{card}] GRU forward at B 1 (two barriers, the state and r * h "
+          f"round trips and cell latency, almost no arithmetic): "
+          f"{serial_ms:.3f} ms, {serial_ms / t * 1e3:.2f} us a step; plain "
+          f"forward + autograd backward "
+          f"{results['gru_train_bwd']['autograd_plain_ms']:.3f} ms")
+    del flush
+    return results
+
+
+# -- phase 11: MT training --------------------------------------------------
+
+def mt_weights(model, seed: int) -> dict:
+    """Seeded weights for every parameter of ``model`` under its JAX scope
+    name: tables N(0, emb_dim**-0.5), matrices N(0, fan_in**-0.5), biases
+    0."""
+    from paddle_tpu_torch.models import convert
+    rng = np.random.RandomState(seed)
+    state = model.state_dict()
+    out = {}
+    for name in convert.MT_NAMES:
+        shape = tuple(state[convert.mt_state_key(name)].shape)
+        if name.endswith(".b"):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            fan_in = shape[1] if name.endswith("_emb") else shape[0]
+            out[name] = rng.normal(0.0, fan_in ** -0.5, shape).astype(
+                np.float32)
+    return out
+
+
+def mt_batches(seed: int, steps: int, b: int, t: int, vocab: int):
+    """Per step (src, tgt_in, tgt_out) [B, T] int64 from numpy, ids over
+    the whole vocabulary: src random; tgt_in starts at the start id 1;
+    tgt_out[0] = src[0] (through the attention) and after that the chain
+    tgt_out[k] = (7 tgt_in[k] + 3) % V with tgt_in[k] = tgt_out[k - 1]
+    (through the decoder's own input)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        src = rng.randint(0, vocab, (b, t)).astype(np.int64)
+        tgt_in = np.ones((b, t), np.int64)
+        tgt_out = np.zeros((b, t), np.int64)
+        tgt_out[:, 0] = src[:, 0]
+        for k in range(1, t):
+            tgt_in[:, k] = tgt_out[:, k - 1]
+            tgt_out[:, k] = (7 * tgt_in[:, k] + 3) % vocab
+        out.append((src, tgt_in, tgt_out))
+    return out
+
+
+def all_launches():
+    """Every kernel module's launch counts, by ``module.kernel``."""
+    from paddle_tpu_torch.ops.kernels import (flash_attention, fused_ce,
+                                              fused_rnn, paged_attention)
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": n
+            for m in (flash_attention, fused_ce, fused_rnn, paged_attention)
+            for k, n in m.LAUNCHES.items()}
+
+
+def reset_all_launches():
+    from paddle_tpu_torch.ops.kernels import (flash_attention, fused_ce,
+                                              fused_rnn, paged_attention)
+    for m in (flash_attention, fused_ce, fused_rnn, paged_attention):
+        m.reset_launches()
+
+
+def mt_train_phase(torch, dev, card, cfg=None, batch=MT_BATCH,
+                   steps=TRAIN_STEPS, profile_steps=PROFILE_STEPS,
+                   oracle_steps=MT_ORACLE_STEPS):
+    """The MT training slice on the card, its launch counts per step, the
+    CPU oracle over the first steps, lazy Adam's untouched rows, and the
+    step-time and profiler numbers. Returns the trained card model too."""
+    from paddle_tpu_torch.models import convert
+    from paddle_tpu_torch.models.machine_translation import build
+    cfg = dict(MT if cfg is None else cfg)
+    words = batch * cfg["max_len"]
+    feeds_np = mt_batches(6, steps + profile_steps, batch, cfg["max_len"],
+                          cfg["tgt_vocab"])
+
+    def make(device):
+        model, opt, _ = build(**cfg, device=device)
+        return model, opt
+
+    model, opt = make(dev)
+    state = convert.mt_params_from_jax(mt_weights(model, 7))
+    model.load_state_dict(state)
+    feeds = [tuple(torch.from_numpy(a).to(dev) for a in f) for f in feeds_np]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, step_ms, per_step = train(torch, model, opt, feeds[:steps],
+                                      all_launches)
+    launched = all_launches()
+    want = {k: (MT_GRU_PER_STEP if k.startswith("fused_rnn.gru_") else 0)
+            for k in launched}
+    for i, c in enumerate(per_step):
+        if c != want:
+            fail(f"MT training: step {i} launched {c}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"MT training: losses {losses} are not finite and falling")
+    stats = {"losses": losses, "step_ms": step_ms,
+             "step_p50_ms": float(np.median(step_ms)),
+             "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+             "launches": {k: n for k, n in launched.items() if n},
+             "words": words}
+    stats["words_per_s"] = words / stats["step_p50_ms"] * 1e3
+    print(f"[{card}] machine_translation: losses "
+          f"{[round(x, 5) for x in losses]}; step p50 "
+          f"{stats['step_p50_ms']:.3f} ms = {stats['words_per_s']:.0f} "
+          f"words/s ({words} target words a step); peak memory "
+          f"{stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; launches "
+          f"{stats['launches']} ({MT_GRU_PER_STEP} of each GRU kernel a "
+          f"step, no other kernel)")
+
+    # lazy Adam: the table rows no batch touched are as they started
+    for table, col in (("src_emb", 0), ("tgt_emb", 1)):
+        used = np.unique(np.concatenate(
+            [f[col].reshape(-1) for f in feeds_np[:steps]]))
+        untouched = np.setdiff1d(np.arange(getattr(model, table).shape[0]),
+                                 used)
+        now = getattr(model, table).detach().cpu()
+        if untouched.size == 0 or not torch.equal(
+                now[untouched], state[table][untouched]):
+            fail(f"MT training: {table} rows no batch touched moved "
+                 f"({untouched.size} untouched)")
+        if bool((now[used] == state[table][used]).all(dim=1).any()):
+            fail(f"MT training: a touched {table} row did not move")
+        stats[f"{table}_untouched_rows"] = int(untouched.size)
+    print(f"[{card}] lazy Adam: {stats['src_emb_untouched_rows']} source and "
+          f"{stats['tgt_emb_untouched_rows']} target table rows that no "
+          f"batch touched are bit-equal to their start; every touched row "
+          f"moved")
+    if profile_steps:
+        stats["profile"] = prof = profile_window(torch, model, opt,
+                                                 feeds[steps:])
+        prof["idle_share_at_p50"] = 1.0 - prof[
+            "device_busy_ms_per_step"] / stats["step_p50_ms"]
+        print(f"[{card}] machine_translation profile ({profile_steps} "
+              f"steps): host {prof['host_ms_per_step']:.3f} ms/step, device "
+              f"busy {prof['device_busy_ms_per_step']:.3f} ms/step, idle "
+              f"share {prof['idle_share']:.3f} "
+              f"({prof['idle_share_at_p50']:.3f} against the step p50), "
+              f"GRU kernels {prof['rnn_share']:.4f} of device time, "
+              f"{prof['launches_per_step']:.0f} launches/step")
+        for key, us, count in prof["top_kernels"]:
+            print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+
+    # the oracle: the same model on the CPU, where the wrappers take the
+    # plain versions, from the same weights on the same feeds
+    t0 = time.perf_counter()
+    before = all_launches()
+    oracle, oracle_opt = make("cpu")
+    oracle.load_state_dict(state)
+    want_losses = []
+    for f in feeds_np[:oracle_steps]:
+        oracle_opt.zero_grad(set_to_none=True)
+        loss = oracle(*(torch.from_numpy(a) for a in f))
+        loss.backward()
+        oracle_opt.step()
+        want_losses.append(float(loss.detach()))
+    if all_launches() != before:
+        fail("MT training: the CPU oracle launched a kernel")
+    if not np.allclose(losses[:oracle_steps], want_losses, rtol=CURVE_RTOL,
+                       atol=0.0):
+        fail(f"MT training: losses {losses[:oracle_steps]} differ from the "
+             f"CPU oracle's {want_losses} beyond rtol {CURVE_RTOL}")
+    gap = max(abs(x - y) / abs(y)
+              for x, y in zip(losses[:oracle_steps], want_losses))
+    stats["oracle_losses"] = want_losses
+    stats["oracle_max_rel_diff"] = gap
+    print(f"[{card}] machine_translation: the first {oracle_steps} losses "
+          f"match the CPU oracle's within rtol {CURVE_RTOL} (max rel diff "
+          f"{gap:.3g}; oracle took {time.perf_counter() - t0:.1f} s)")
+    del oracle, oracle_opt, opt
+    return launched, stats, model
+
+
+# -- phase 12: MT beam decode -----------------------------------------------
+
+def traced_generate(torch, model, src):
+    """``model.generate(src)`` with every beam step recorded: (ids, scores,
+    step records), each record the step's (selected ids, parents, the top
+    K + 1 candidate scores in the selection's order) on the host."""
+    from paddle_tpu_torch.ops import beam_ops
+    step, records = beam_ops.beam_step, []
+
+    def recording(pre_ids, pre_scores, scores, beam_size, end_id):
+        out = step(pre_ids, pre_scores, scores, beam_size, end_id)
+        # the next candidate the selection left out, as it ranks them
+        nxt = step(pre_ids, pre_scores, scores, beam_size + 1, end_id)[1]
+        records.append((out[0].cpu(), out[2].cpu(), nxt.cpu()))
+        return out
+    beam_ops.beam_step = recording
+    try:
+        ids, scores = model.generate(src)
+    finally:
+        beam_ops.beam_step = step
+    return ids.cpu(), scores.cpu(), records
+
+
+def mt_beam_phase(torch, dev, card, model, batch=MT_BATCH, reps=5):
+    """``generate`` on the card against the same call on the CPU model
+    with the same weights: token streams equal up to counted near ties,
+    lane scores close and sorted; exactly one GRU forward launch a call."""
+    from paddle_tpu_torch.models.machine_translation import build
+    cfg = MT
+    src_np = np.random.RandomState(8).randint(
+        0, cfg["src_vocab"], (batch, cfg["max_len"])).astype(np.int64)
+    src = torch.from_numpy(src_np).to(dev)
+    model.eval()
+    model.generate(src)                          # warm
+    torch.cuda.synchronize()
+    reset_all_launches()
+    ids = model.generate(src)[0]
+    torch.cuda.synchronize()
+    launched = all_launches()
+    want = {k: int(k == "fused_rnn.gru_train_fwd") for k in launched}
+    if launched != want:
+        fail(f"MT generate launched {launched}, want {want}")
+    call_ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ids = model.generate(src)[0]
+        ids.cpu()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    got_ids, got_scores, got_steps = traced_generate(torch, model, src)
+    cpu_model, _, _ = build(is_train=False, **cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    want_ids, want_scores, want_steps = traced_generate(
+        torch, cpu_model, torch.from_numpy(src_np))
+    w = model.beam_size
+    if tuple(got_ids.shape) != (batch, w, cfg["max_len"]) or bool(
+            (got_ids < 0).any() | (got_ids >= cfg["tgt_vocab"]).any()):
+        fail(f"MT generate: ids {tuple(got_ids.shape)} out of shape or range")
+    if not torch.isfinite(got_scores).all() or bool(
+            (got_scores[:, 1:] > got_scores[:, :-1]).any()):
+        fail("MT generate: lane scores are not finite and sorted")
+    ties, gaps, agree = 0, [], []
+    for b in range(batch):
+        first = next((t for t, (g, p) in enumerate(zip(got_steps, want_steps))
+                      if not (torch.equal(g[0][b], p[0][b])
+                              and torch.equal(g[1][b], p[1][b]))), None)
+        if first is None:
+            if not torch.equal(got_ids[b], want_ids[b]):
+                fail(f"MT generate: row {b} took the CPU's steps but "
+                     f"backtracked to other ids")
+            agree.append(b)
+            continue
+        # the first rank at which the two selections differ must be a near
+        # tie in the CPU's candidates: its score and the next one's
+        g, p = got_steps[first], want_steps[first]
+        k = next(r for r in range(w) if not (g[0][b, r] == p[0][b, r]
+                                             and g[1][b, r] == p[1][b, r]))
+        gap = float(p[2][b, k] - p[2][b, k + 1])
+        gaps.append(gap)
+        if gap > BEAM_TIE:
+            fail(f"MT generate: row {b} diverges from the CPU at step "
+                 f"{first}, rank {k}, where the CPU's candidates are "
+                 f"{gap:.3g} apart (near tie {BEAM_TIE})")
+        ties += 1
+    if agree and not torch.allclose(got_scores[agree], want_scores[agree],
+                                    rtol=BEAM_RTOL, atol=0.0):
+        fail(f"MT generate: lane scores differ from the CPU's beyond rtol "
+             f"{BEAM_RTOL} (max abs diff "
+             f"{float((got_scores[agree] - want_scores[agree]).abs().max())})")
+    p50 = float(np.median(call_ms))
+
+    def calls():
+        for _ in range(PROFILE_STEPS):
+            model.generate(src)
+        torch.cuda.synchronize()
+    prof = profile_calls(torch, calls, PROFILE_STEPS)
+    stats = {"profile": prof, "call_ms": call_ms, "call_p50_ms": p50,
+             "sequences_per_s": batch / p50 * 1e3, "near_ties": ties,
+             "near_tie_gaps": gaps, "rows_equal": len(agree),
+             "launches": {k: n for k, n in launched.items() if n}}
+    print(f"[{card}] machine_translation generate (B {batch}, beam {w}, "
+          f"{cfg['max_len']} steps): p50 {p50:.3f} ms = "
+          f"{stats['sequences_per_s']:.1f} sequences/s; launches "
+          f"{stats['launches']}; {len(agree)} of {batch} rows equal to the "
+          f"CPU's (ids, and scores within rtol {BEAM_RTOL}), {ties} "
+          f"diverge at a near tie (gaps {[f'{x:.2g}' for x in gaps]})")
+    print(f"[{card}] generate profile ({PROFILE_STEPS} calls): host "
+          f"{prof['host_ms_per_step']:.3f} ms/call, device busy "
+          f"{prof['device_busy_ms_per_step']:.3f} ms/call, idle share "
+          f"{prof['idle_share']:.3f}, GRU kernels {prof['rnn_share']:.4f} of "
+          f"device time, {prof['launches_per_step']:.0f} launches/call")
+    for key, us, count in prof["top_kernels"]:
+        print(f"    {us:10.1f} us/call {count:6.1f}/call  {key}")
+    return launched, stats
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1293,6 +1763,9 @@ def main():
     lstm = lstm_phase(torch, dev, card)
     lstm_launches, lstm_per_step, lstm_run = lstm_train_phase(torch, dev,
                                                               card)
+    gru = gru_phase(torch, dev, card)
+    mt_launches, mt_run, mt_model = mt_train_phase(torch, dev, card)
+    gen_launches, gen_run = mt_beam_phase(torch, dev, card, mt_model)
     flash_launches = train_launches["fused_attention"]
 
     kernels = []
@@ -1352,11 +1825,26 @@ def main():
             "library_ms": None, "launches_per_train_step": lstm_per_step,
             "us_per_step": m["us_per_step"],
             "dense_bound_ms": m["dense_bound_ms"], "card": card})
+    for kname, line in (("gru_train_fwd", 379), ("gru_train_bwd", 424)):
+        m = gru[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": LSTM_SOURCE,
+            "replaces": f"paddle_tpu/ops/pallas/fused_rnn.py:{line}",
+            "launches": mt_launches[f"fused_rnn.{kname}"],
+            "max_abs_err": max(m["max_abs_err"], m["edge_max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "launches_per_train_step": MT_GRU_PER_STEP,
+            "launches_per_generate": gen_launches[f"fused_rnn.{kname}"],
+            "us_per_step": m["us_per_step"],
+            "dense_bound_ms": m["dense_bound_ms"], "card": card})
     bf16 = measured["gather_rows/bf16"]
     print(json.dumps({"gather_rows_bf16": bf16, "card": card}))
     print(json.dumps({"training": runs, "card": card}))
     print(json.dumps({"lstm_kernels": lstm, "lstm_training": lstm_run,
                       "card": card}))
+    print(json.dumps({"gru_kernels": gru, "mt_training": mt_run,
+                      "mt_generate": gen_run, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

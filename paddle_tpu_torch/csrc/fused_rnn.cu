@@ -1,12 +1,15 @@
-// Whole-sequence trainable LSTM, forward and backward, written for Hopper
-// (compiled for sm_90a) behind a plain C interface that ctypes loads.
+// Whole-sequence trainable LSTM and GRU, forward and backward, written for
+// Hopper (compiled for sm_90a) behind a plain C interface that ctypes loads.
 //
-// Replaces the two Pallas TPU kernels of paddle_tpu/ops/pallas/fused_rnn.py:
+// Replaces the four Pallas TPU kernels of paddle_tpu/ops/pallas/fused_rnn.py:
 //   paddle_lstm_train_fwd <- _lstm_train_fwd_call (:167, pallas_call :171,
 //                            _lstm_train_fwd_kernel :49)
 //   paddle_lstm_train_bwd <- _lstm_train_vjp_bwd  (:224, pallas_call :235,
 //                            _lstm_train_bwd_kernel :91)
+//   paddle_gru_train_fwd, paddle_gru_train_bwd: the GRU pair, in the
+//                            section "GRU" at the end of this file.
 //
+// The LSTM:
 // All tensors are fp32, contiguous and time-major: xproj [T, B, 4H] (gate
 // pre-activations x @ Wx + b, gate order i, f, c, o), w [H, 4H] recurrent,
 // peep [3H] (W_ic | W_fc | W_oc, zeros without peepholes), lens [B] int32,
@@ -68,11 +71,11 @@
 //             steps and rows in registers, and the block adds its 64 row
 //             shares in order at the end.
 //   dw        after the time loop, from dx and the saved hidden sequence, by
-//             one more kernel on the same stream: dw = h_prev_seq^T @ dx is
-//             one [H, T*B] x [T*B, 4H] product (128 x 64 output tiles, 8 x 4
-//             a thread, operands staged through shared memory). Every sum
-//             runs in a fixed order with no atomics: two runs give the same
-//             bits.
+//             one more kernel on the same stream (rnn_gemm_kernel, which the
+//             GRU shares): dw = h_prev_seq^T @ dx is one [H, T*B] x
+//             [T*B, 4H] product (128 x 64 output tiles, 8 x 4 a thread,
+//             operands staged through shared memory). Every sum runs in a
+//             fixed order with no atomics: two runs give the same bits.
 // Inside a block both products share one routine over a staged chunk of the
 // left operand (64 rows, up to 512 deep: the whole carry at H 512, 129 KB, so
 // that one round of loads is in flight a step): a thread multiplies 8 rows by
@@ -529,19 +532,46 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows, where row r of
-// h_prev_seq is h0[r] for r < B and hidden[r - B] after (the hidden
-// sequence one step behind).
-constexpr int kDwM = 128, kDwN = 64, kDwK = 16;
+// The products outside the time loop: c[m][n] = sum_k a(m, k) * b[k][n]
+// for m < m_len, n < n_len, k < k_len (c and b with row strides ldc, ldb),
+// over 128 x 64 output tiles, 8 x 4 a thread, both operands staged
+// through shared memory 16 deep, every sum in a fixed order and no
+// atomics: two runs give the same bits. A is read through the matrix S
+// that the caller stores: row p of S is a0[p] for p < split and
+// a1[p - split] after (rows lda apart), so that h0 followed by the hidden
+// sequence reads as the hidden sequence one step behind. kAT: a(m, k) =
+// S[k][m], the weight gradients dw = h_prev_seq^T @ dx summed over the
+// T*B rows; else a(m, k) = S[m][k], the GRU's gate pre-activations
+// h_prev_seq @ w of every step at once. One launch computes up to two such
+// products of the same m_len, k_len and strides (blockIdx.z picks one):
+// the GRU's two halves, [h_prev_seq | rh] against [w_ur | w_c], run side by
+// side instead of one after the other.
+constexpr int kGemmM = 128, kGemmN = 64, kGemmK = 16;
 
+struct GemmPart {
+  const float* a0;
+  const float* a1;
+  int split;
+  const float* b;
+  float* c;
+  int n_len;
+};
+
+template <bool kAT>
 __global__ void __launch_bounds__(kThreads)
-lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
-               const float* __restrict__ dx, float* __restrict__ dw, int rows,
-               int b_len, int h) {
-  __shared__ __align__(16) float a_s[kDwK][kDwM];
-  __shared__ __align__(16) float b_s[kDwK][kDwN];
+rnn_gemm_kernel(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
+                int m_len, int k_len) {
+  const GemmPart g = blockIdx.z == 0 ? part0 : part1;
+  const int m0 = blockIdx.x * kGemmM, n0 = blockIdx.y * kGemmN;
+  if (n0 >= g.n_len) return;            // the narrower part's spare tiles
+  const float* __restrict__ a0 = g.a0;
+  const float* __restrict__ a1 = g.a1;
+  const float* __restrict__ b = g.b;
+  const int split = g.split, n_len = g.n_len;
+  // rows 4 floats longer than the tile: S's rows land on other banks
+  __shared__ __align__(16) float a_s[kGemmK][kGemmM + 4];
+  __shared__ __align__(16) float b_s[kGemmK][kGemmN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kDwM, n0 = blockIdx.x * kDwN, n_len = 4 * h;
   float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -549,41 +579,54 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
     for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
   float ra[8], rb[4];
 
-  auto fetch = [&](int r0) {
+  // element (kk, mm) of the A tile that element `idx` of a thread's loads
+  // is: consecutive threads read consecutive addresses of S
+  auto a_slot = [](int idx, int& kk, int& mm) {
+    if (kAT) {
+      kk = idx / kGemmM;
+      mm = idx % kGemmM;
+    } else {
+      kk = idx % kGemmK;
+      mm = idx / kGemmK;
+    }
+  };
+  auto fetch = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * kThreads, r = r0 + idx / kDwM;
-      const int m = m0 + idx % kDwM;
-      const float* src = r < b_len
-          ? h0 + static_cast<size_t>(r) * h
-          : hidden + static_cast<size_t>(r - b_len) * h;
-      ra[i] = (r < rows && m < h) ? src[m] : 0.0f;
+      int kk, mm;
+      a_slot(tid + i * kThreads, kk, mm);
+      const int k = k0 + kk, m = m0 + mm;
+      const int p = kAT ? k : m, q = kAT ? m : k;
+      const float* row = p < split ? a0 + static_cast<size_t>(p) * lda
+                                   : a1 + static_cast<size_t>(p - split) * lda;
+      ra[i] = (k < k_len && m < m_len) ? row[q] : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * kThreads, r = r0 + idx / kDwN;
-      const int n = n0 + idx % kDwN;
-      rb[i] = (r < rows && n < n_len)
-          ? dx[static_cast<size_t>(r) * n_len + n] : 0.0f;
+      const int idx = tid + i * kThreads, k = k0 + idx / kGemmN;
+      const int n = n0 + idx % kGemmN;
+      rb[i] = (k < k_len && n < n_len)
+          ? b[static_cast<size_t>(k) * ldb + n] : 0.0f;
     }
   };
 
   fetch(0);
-  for (int r0 = 0; r0 < rows; r0 += kDwK) {
+  for (int k0 = 0; k0 < k_len; k0 += kGemmK) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * kThreads;
-      a_s[idx / kDwM][idx % kDwM] = ra[i];
+      int kk, mm;
+      a_slot(tid + i * kThreads, kk, mm);
+      a_s[kk][mm] = ra[i];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * kThreads;
-      b_s[idx / kDwN][idx % kDwN] = rb[i];
+      b_s[idx / kGemmN][idx % kGemmN] = rb[i];
     }
     __syncthreads();
-    if (r0 + kDwK < rows) fetch(r0 + kDwK);   // in flight during the product
+    if (k0 + kGemmK < k_len) fetch(k0 + kGemmK);   // in flight meanwhile
 #pragma unroll
-    for (int rr = 0; rr < kDwK; ++rr) {
+    for (int rr = 0; rr < kGemmK; ++rr) {
       const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[rr][ty * 8]);
       const float4 a_hi =
           *reinterpret_cast<const float4*>(&a_s[rr][ty * 8 + 4]);
@@ -605,10 +648,24 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int n = n0 + tx * 4 + jj;
-      if (m < h && n < n_len) dw[static_cast<size_t>(m) * n_len + n] =
+      if (m < m_len && n < n_len) g.c[static_cast<size_t>(m) * ldc + n] =
           acc[i][jj];
     }
   }
+}
+
+// One rnn_gemm_kernel launch on stream s of one product, or of two
+// (part1.c not null) side by side.
+template <bool kAT>
+void rnn_gemm(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
+              int m_len, int k_len, cudaStream_t s) {
+  const int parts = part1.c == nullptr ? 1 : 2;
+  const int n_len = parts == 2 && part1.n_len > part0.n_len ? part1.n_len
+                                                            : part0.n_len;
+  const dim3 grid((m_len + kGemmM - 1) / kGemmM,
+                  (n_len + kGemmN - 1) / kGemmN, parts);
+  rnn_gemm_kernel<kAT><<<grid, kThreads, 0, s>>>(part0, part1, lda, ldb,
+                                                 ldc, m_len, k_len);
 }
 
 // The least U of 1, 2, 4 whose grid is at most one block per SM; 0 if none.
@@ -713,8 +770,347 @@ extern "C" int paddle_lstm_train_bwd(
   else
     err = launch_grid(lstm_bwd_kernel<4>, h, u, smem, sms, args, s);
   if (err != cudaSuccess) return err;
+  // dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows
+  rnn_gemm<true>({h0, hidden, b_len, dx, dw, 4 * h}, {}, h, 4 * h, 4 * h, h,
+                 t_len * b_len, s);
+  return cudaGetLastError();
+}
+
+// ---- GRU ------------------------------------------------------------------
+//
+// Whole-sequence trainable GRU (gru_op.cc layout), replacing
+//   paddle_gru_train_fwd <- _gru_train_fwd_call (:376, pallas_call :379,
+//                           _gru_train_fwd_kernel :287)
+//   paddle_gru_train_bwd <- _gru_train_vjp_bwd  (:416, pallas_call :424,
+//                           _gru_train_bwd_kernel :317)
+// of paddle_tpu/ops/pallas/fused_rnn.py. Time-major fp32: xproj [T, B, 3H]
+// (gate pre-activations with the bias, gate order u, r, c), w [H, 3H]
+// (w_ur = w[:, :2H], w_c = w[:, 2H:]), lens, order, live and h0 [B, H] as
+// for the LSTM; H <= 512, any B >= 1, any T >= 1.
+//
+// Forward, per step t (_gru_train_fwd_kernel :296-314):
+//   u, r = sigmoid(xproj[t][:, :2H] + h @ w_ur)
+//   c = tanh(xproj[t][:, 2H:] + (r * h) @ w_c)
+//   h_cand = (1 - u) * h + u * c;  m = t < lens
+//   hidden[t] = m * h_cand;  the state keeps h where m = 0;
+//   h_last = the state after step T - 1.
+// It also writes rh [T, B, H] = m * r * h_prev, a residual for the backward
+// (the left operand of the candidate's product and of dw[:, 2H:]).
+// Backward, in reverse time from Dh = dh_last (_gru_train_bwd_kernel
+// :330-373): Gh = m * (Dh + dhid[t]); du = Gh * (c - h_prev); dc = Gh * u;
+// dgc = dc * (1 - c^2); d_rh = dgc @ w_c^T; dgr = d_rh * h_prev * r(1 - r);
+// dgu = du * u(1 - u); dx[t] = [dgu, dgr, dgc];
+// Dh <- (1 - m) Dh + Gh (1 - u) + d_rh * r + [dgu, dgr] @ w_ur^T;
+// dw = [h_prev_seq^T @ dx[:, :2H], rh^T @ dx[:, 2H:]]; dh0 = Dh after step 0.
+//
+// What bounds them: as for the LSTM, fp32 arithmetic (a [B, H] x [H, 3H]
+// product a step forward, 100.7 MFLOP at B 64, H 512; three such a step
+// backward with the recompute and dw) and a serial chain of grid barriers.
+// A GRU step has two dependent products: (r * h) @ w_c needs r of every
+// unit, so the forward takes two barriers a step where the LSTM takes one.
+//
+// Design, on the LSTM's skeleton (cooperative launch of ceil(H/U) blocks of
+// U units, the block's slice of w in shared memory for the whole sequence,
+// tile_product over the rows still inside their length):
+//   forward   phase 1: the block's u and r columns ([H, 2U] of w_ur) times
+//             the state h; r * h_prev of its units goes to rh[t] (in global
+//             memory: the other blocks need it), u to hidden[t] (read back by
+//             the same thread in phase 2). Grid barrier. Phase 2: all of
+//             rh[t] times the block's w_c columns ([H, U]); c, h_new into
+//             hidden[t]. Grid barrier. The state is hidden[t - 1] itself: a
+//             row inside its length at t was inside it at t - 1, where
+//             hidden holds its state, and the rows past their length are
+//             never read again (no separate carry buffer).
+//   backward  the gates' pre-activations of every step need no other step,
+//             so one product before the loop computes them all at once
+//             ([T*B, H] x [H, 2H] over h_prev_seq and [T*B, H] x [H, H] over
+//             rh, by rnn_gemm into dx, which the loop then overwrites): the
+//             loop does no recompute product. Per step, phase A: the block's
+//             u, c, Gh, dgu, dgc (no product). Barrier. Phase B: d_rh of its
+//             units from all of dgc (dx[t][:, 2H:] read back through L2
+//             against its [H, U] rows of w_c), then dgr. Barrier. Phase C:
+//             Dh of its units from all of [dgu, dgr] against its [2H, U]
+//             rows of w_ur; it feeds the next step's phase A, which reads
+//             only the block's own Dh: two barriers a step. The Dh state
+//             lives in the dh0 buffer, each element with the thread that
+//             owns it. dw after the loop by rnn_gemm, in a fixed order.
+// Rows past their length get zero outputs and gate gradients; a row's last
+// state is written, and its gradient carry read from dh_last, at its own
+// last step.
+
+namespace {
+
+// ws_ur[k][2u + g] = w[k][g H + u0 + u] (g = 0: u, 1: r) and
+// ws_c[k][u] = w[k][2H + u0 + u], zero past H.
+template <int U>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const int* __restrict__ lens, const int* __restrict__ order,
+               const int* __restrict__ live, const float* __restrict__ h0,
+               float* hidden, float* __restrict__ hlast, float* rh,
+               int t_len, int b_len, int h) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int hpad = round_up(h, chunk_of(h));
+  float* ws_ur = smem;                               // [hpad][2U]
+  float* ws_c = ws_ur + hpad * 2 * U;                // [hpad][U]
+  float* as = ws_c + hpad * U;                       // [64][chunk + 4]
+  float* red = as + kBT * (chunk_of(h) + 4);         // kRed floats
+  const int tid = threadIdx.x;
+  const int u0 = blockIdx.x * U;
+  const size_t h3 = 3 * static_cast<size_t>(h);
+  for (int idx = tid; idx < hpad * U; idx += kThreads) {
+    const int k = idx / U, j = u0 + idx % U;
+    const bool in = k < h && j < h;
+    const float* wk = w + k * h3;
+    ws_ur[2 * idx] = in ? wk[j] : 0.0f;
+    ws_ur[2 * idx + 1] = in ? wk[h + j] : 0.0f;
+    ws_c[idx] = in ? wk[2 * h + j] : 0.0f;
+  }
+
+  // this thread's share: row bl of a pass, unit j
+  const int bl = tid / U, j = u0 + tid % U;
+  const bool owner = tid < kBT * U && j < h;
+  const size_t bh = static_cast<size_t>(b_len) * h;
+
+  for (int t = 0; t < t_len; ++t) {
+    const float* hin = t == 0 ? h0 : hidden + (t - 1) * bh;
+    float* hid_t = hidden + t * bh;
+    float* rh_t = rh + t * bh;
+    const float* x_t = x + t * b_len * h3;
+    const int n_live = live[t];
+    // phase 1: u, r of the block's units; r * h_prev published
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const bool alive = owner && r0 + bl < n_live;
+      const int b = alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float xu = 0.f, xr = 0.f, hp = 0.f;
+      if (alive) {       // in flight while the product runs
+        xu = x_t[b * h3 + j];
+        xr = x_t[b * h3 + h + j];
+        hp = hin[at];
+      }
+      tile_product<2 * U>(hin, h, order + r0, min(kBT, n_live - r0), h,
+                          ws_ur, as, red);
+      if (alive) {
+        const int n = (tid % U) * 2;
+        const float u = sigmoidf(xu + reduced<2 * U>(red, bl, n));
+        const float r = sigmoidf(xr + reduced<2 * U>(red, bl, n + 1));
+        rh_t[at] = r * hp;
+        hid_t[at] = u;
+      }
+    }
+    // the rows past their length: zero outputs, the state stays
+    if (owner) {
+      for (int r = n_live + bl; r < b_len; r += kBT) {
+        const size_t at = static_cast<size_t>(order[r]) * h + j;
+        hid_t[at] = 0.0f;
+        rh_t[at] = 0.0f;
+        if (t == 0) hlast[at] = h0[at];  // a row of length 0 keeps h0
+      }
+    }
+    grid.sync();
+
+    // phase 2: the candidate from all of rh[t], the new state
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const bool alive = owner && r0 + bl < n_live;
+      const int b = alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float xc = 0.f, u = 0.f, hp = 0.f;
+      if (alive) {
+        xc = x_t[b * h3 + 2 * h + j];
+        u = hid_t[at];
+        hp = hin[at];
+      }
+      tile_product<U>(rh_t, h, order + r0, min(kBT, n_live - r0), h, ws_c,
+                      as, red);
+      if (alive) {
+        const float c = tanhf(xc + reduced<U>(red, bl, tid % U));
+        const float h_new = (1.0f - u) * hp + u * c;
+        hid_t[at] = h_new;
+        if (t + 1 == t_len || t + 1 == lens[b]) hlast[at] = h_new;
+      }
+    }
+    grid.sync();
+  }
+}
+
+// wrc[n][u] = w[u0 + u][2H + n] (n < H) and wrur[n][u] = w[u0 + u][n]
+// (n < 2H): the rows of the block's units, zero past the depth.
+template <int U>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const int* __restrict__ lens, const int* __restrict__ order,
+               const int* __restrict__ live, const float* __restrict__ h0,
+               const float* __restrict__ hidden,
+               const float* __restrict__ dhid,
+               const float* __restrict__ dhlast, float* dx, float* dh0,
+               int t_len, int b_len, int h) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int cpad = round_up(h, chunk_of(h));
+  const int urpad = round_up(2 * h, chunk_of(2 * h));
+  float* wrc = smem;                                 // [cpad][U]
+  float* wrur = wrc + cpad * U;                      // [urpad][U]
+  float* as = wrur + urpad * U;                      // [64][chunk + 4]
+  float* red = as + kBT * (chunk_of(2 * h) + 4);     // kRed floats
+  const int tid = threadIdx.x;
+  const int u0 = blockIdx.x * U;
+  const size_t h3 = 3 * static_cast<size_t>(h);
+  for (int idx = tid; idx < cpad * U; idx += kThreads) {
+    const int u = idx / cpad, n = idx % cpad, k = u0 + u;
+    wrc[n * U + u] = (n < h && k < h) ? w[k * h3 + 2 * h + n] : 0.0f;
+  }
+  for (int idx = tid; idx < urpad * U; idx += kThreads) {
+    const int u = idx / urpad, n = idx % urpad, k = u0 + u;
+    wrur[n * U + u] = (n < 2 * h && k < h) ? w[k * h3 + n] : 0.0f;
+  }
+
+  const int bl = tid / U, j = u0 + tid % U;
+  const bool owner = tid < kBT * U && j < h;
+  const size_t bh = static_cast<size_t>(b_len) * h;
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const float* hp_seq = t == 0 ? h0 : hidden + (t - 1) * bh;
+    const float* x_t = x + t * b_len * h3;
+    float* dxt = dx + t * b_len * h3;    // holds the pre-activations until
+                                         // this step overwrites them
+    const int n_live = live[t];
+
+    // phase A: the block's u, c and their gate gradients
+    if (owner) {
+      for (int r = bl; r < n_live; r += kBT) {
+        const int b = order[r];
+        const size_t at = static_cast<size_t>(b) * h + j;
+        const float* xb = x_t + b * h3 + j;
+        float* db = dxt + b * h3 + j;
+        const float u = sigmoidf(xb[0] + db[0]);
+        const float c = tanhf(xb[2 * h] + db[2 * h]);
+        const float hp = hp_seq[at];
+        // a row's carry starts at the cotangent of its last state
+        const bool last = t + 1 == t_len || t + 1 == lens[b];
+        const float gh = (last ? dhlast : dh0)[at] + dhid[t * bh + at];
+        const float du = gh * (c - hp);
+        const float dgc = gh * u * (1.0f - c * c);
+        db[0] = du * u * (1.0f - u);
+        db[2 * h] = dgc;
+        dh0[at] = gh * (1.0f - u);
+      }
+      // the rows past their length: no gate gradient, the carry stays
+      for (int r = n_live + bl; r < b_len; r += kBT) {
+        const int b = order[r];
+        float* db = dxt + b * h3 + j;
+        db[0] = db[h] = db[2 * h] = 0.0f;
+        if (t == 0) {                  // a row of length 0 hands it on
+          const size_t at = static_cast<size_t>(b) * h + j;
+          dh0[at] = dhlast[at];
+        }
+      }
+    }
+    grid.sync();
+
+    // phase B: d_rh of the block's units from every dgc of the step
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const bool alive = owner && r0 + bl < n_live;
+      const int b = alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float zr = 0.f, hp = 0.f;
+      if (alive) {
+        zr = x_t[b * h3 + h + j] + dxt[b * h3 + h + j];
+        hp = hp_seq[at];
+      }
+      tile_product<U>(dxt + 2 * h, 3 * h, order + r0, min(kBT, n_live - r0),
+                      h, wrc, as, red);
+      if (alive) {
+        const float d_rh = reduced<U>(red, bl, tid % U);
+        const float r = sigmoidf(zr);
+        dxt[b * h3 + h + j] = d_rh * hp * r * (1.0f - r);
+        dh0[at] += d_rh * r;
+      }
+    }
+    grid.sync();
+
+    // phase C: the rest of Dh from every [dgu, dgr] of the step
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      tile_product<U>(dxt, 3 * h, order + r0, min(kBT, n_live - r0), 2 * h,
+                      wrur, as, red);
+      if (owner && r0 + bl < n_live)
+        dh0[static_cast<size_t>(order[r0 + bl]) * h + j] +=
+            reduced<U>(red, bl, tid % U);
+    }
+  }
+}
+
+size_t gru_fwd_smem(int h, int u) {
+  return sizeof(float) *
+         (static_cast<size_t>(round_up(h, chunk_of(h))) * 3 * u +
+          kBT * (chunk_of(h) + 4) + kRed);
+}
+
+size_t gru_bwd_smem(int h, int u) {
+  return sizeof(float) *
+         (static_cast<size_t>(round_up(h, chunk_of(h)) +
+                              round_up(2 * h, chunk_of(2 * h))) * u +
+          kBT * (chunk_of(2 * h) + 4) + kRed);
+}
+
+}  // namespace
+
+extern "C" int paddle_gru_train_fwd(const float* x, const float* w,
+                                    const int* lens, const int* order,
+                                    const int* live, const float* h0,
+                                    float* hidden, float* hlast, float* rh,
+                                    int t_len, int b_len, int h,
+                                    void* stream) {
+  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = card(&sms);
+  if (err != cudaSuccess) return err;
+  const int u = units_per_block(h, sms);
+  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &hlast, &rh,
+                  &t_len, &b_len, &h};
+  auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = gru_fwd_smem(h, u);
+  if (u == 1) return launch_grid(gru_fwd_kernel<1>, h, u, smem, sms, args, s);
+  if (u == 2) return launch_grid(gru_fwd_kernel<2>, h, u, smem, sms, args, s);
+  return launch_grid(gru_fwd_kernel<4>, h, u, smem, sms, args, s);
+}
+
+extern "C" int paddle_gru_train_bwd(
+    const float* x, const float* w, const int* lens, const int* order,
+    const int* live, const float* h0, const float* hidden, const float* rh,
+    const float* dhid, const float* dhlast, float* dx, float* dw, float* dh0,
+    int t_len, int b_len, int h, void* stream) {
+  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = card(&sms);
+  if (err != cudaSuccess) return err;
+  const int u = units_per_block(h, sms);
+  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
+  auto s = static_cast<cudaStream_t>(stream);
   const int rows = t_len * b_len;
-  lstm_dw_kernel<<<dim3((4 * h + kDwN - 1) / kDwN, (h + kDwM - 1) / kDwM),
-                   kThreads, 0, s>>>(h0, hidden, dx, dw, rows, b_len, h);
+  // the gate pre-activations of every step: [h_prev_seq @ w_ur, rh @ w_c]
+  rnn_gemm<false>({h0, hidden, b_len, w, dx, 2 * h},
+                  {rh, rh, rows, w + 2 * h, dx + 2 * h, h}, h, 3 * h, 3 * h,
+                  rows, h, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &dhid,
+                  &dhlast, &dx, &dh0, &t_len, &b_len, &h};
+  const size_t smem = gru_bwd_smem(h, u);
+  if (u == 1)
+    err = launch_grid(gru_bwd_kernel<1>, h, u, smem, sms, args, s);
+  else if (u == 2)
+    err = launch_grid(gru_bwd_kernel<2>, h, u, smem, sms, args, s);
+  else
+    err = launch_grid(gru_bwd_kernel<4>, h, u, smem, sms, args, s);
+  if (err != cudaSuccess) return err;
+  // dw = [h_prev_seq^T @ dx[:, :2H], rh^T @ dx[:, 2H:]] over the T*B rows
+  rnn_gemm<true>({h0, hidden, b_len, dx, dw, 2 * h},
+                 {rh, rh, rows, dx + 2 * h, dw + 2 * h, h}, h, 3 * h, 3 * h,
+                 h, rows, s);
   return cudaGetLastError();
 }

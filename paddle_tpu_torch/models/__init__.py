@@ -1,4 +1,5 @@
 """Models of the port: ``transformer`` (the decoder-only LM of the serving
 path and Transformer-base training), ``stacked_dynamic_lstm`` (the stacked
-LSTM classifier's training) and ``convert`` (JAX scope weights into
-them)."""
+LSTM classifier's training), ``machine_translation`` (the attention-GRU
+seq2seq model's training and beam decoding) and ``convert`` (JAX scope
+weights into them)."""

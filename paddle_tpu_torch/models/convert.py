@@ -26,6 +26,13 @@ already agree: matrices are [in, out] on both sides.
   LSTM's output, from the second layer on) and ``.b_0``, the LSTMs
   ``dynamic_lstm_<k>.w_0`` [H, 4H] and ``.b_0`` [1, 7H]; the last ``fc``
   is the softmax head. Matched by family and order, like the above.
+- :func:`mt_params_from_jax` -> :class:`MachineTranslation`.
+  ``paddle_tpu.models.machine_translation.build`` names all fourteen
+  parameters itself (``_p("mt.<name>")``): ``mt.src_emb``,
+  ``mt.enc_proj.w``/``.b``, ``mt.enc_gru.w``/``.b``, ``mt.h0.w``/``.b``,
+  ``mt.tgt_emb``, ``mt.dec_proj.w``, ``mt.dec_gru.w``/``.b``,
+  ``mt.attn.w``, ``mt.out.w``/``.b``; the state key is the name without
+  ``mt.`` and with ``_`` for ``.``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.models import machine_translation as mt
 
 _TOP = {"emb": "emb", "lnf_scale": "lnf_scale", "lnf_bias": "lnf_bias",
         "head_w": "head_w"}
@@ -318,4 +327,40 @@ def lstm_params_from_jax(arrays: Dict[str, np.ndarray], stacked_num: int
             want = (classes,)
         if tuple(t.shape) != want:
             raise ValueError(f"{key}: shape {tuple(t.shape)}, want {want}")
+    return state
+
+
+# -- machine translation (models/machine_translation.py:49 build) ------------
+
+MT_NAMES = ("mt.src_emb", "mt.enc_proj.w", "mt.enc_proj.b", "mt.enc_gru.w",
+             "mt.enc_gru.b", "mt.h0.w", "mt.h0.b", "mt.tgt_emb",
+             "mt.dec_proj.w", "mt.dec_gru.w", "mt.dec_gru.b", "mt.attn.w",
+             "mt.out.w", "mt.out.b")
+
+
+def mt_state_key(jax_name: str) -> str:
+    """The :class:`MachineTranslation` state key of one ``mt.*`` name."""
+    if jax_name not in MT_NAMES:
+        raise KeyError(f"{jax_name!r} is not a machine-translation "
+                       f"parameter")
+    return jax_name[len("mt."):].replace(".", "_")
+
+
+def mt_params_from_jax(arrays: Dict[str, np.ndarray]
+                       ) -> Dict[str, torch.Tensor]:
+    """JAX scope arrays of the fourteen ``mt.*`` parameters -> a state dict
+    for ``MachineTranslation.load_state_dict`` (fp32 CPU tensors). Raises
+    on a missing or an unused name, and on a shape that disagrees with the
+    widths the tables and the recurrent weights give."""
+    missing = sorted(set(MT_NAMES) - set(arrays))
+    if missing:
+        raise KeyError(f"missing machine-translation parameters: {missing}")
+    state = {mt_state_key(n): torch.from_numpy(np.array(v, dtype=np.float32))
+             for n, v in arrays.items()}
+    (vs, e), vt = state["src_emb"].shape, state["tgt_emb"].shape[0]
+    want = mt.param_shapes(vs, vt, e, state["enc_gru_w"].shape[0])
+    for key, t in state.items():
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, want "
+                             f"{want[key]}")
     return state

@@ -1,4 +1,4 @@
 """Operators of the port: plain PyTorch functions with the JAX
 package's numerics (``nn_ops``, ``rnn_ops``, ``sequence_ops``,
-``attention_block``, ``kv_attention``), and the kernels under
-``ops/kernels``."""
+``attention_block``, ``kv_attention``, ``beam_ops``), and the kernels
+under ``ops/kernels``."""

@@ -1,8 +1,8 @@
-"""Whole-sequence trainable LSTM: the wrappers of the CUDA kernels in
-``paddle_tpu_torch/csrc/fused_rnn.cu``, their plain PyTorch versions, and
-the ``torch.autograd.Function`` that joins them.
+"""Whole-sequence trainable LSTM and GRU: the wrappers of the CUDA kernels
+in ``paddle_tpu_torch/csrc/fused_rnn.cu``, their plain PyTorch versions,
+and the ``torch.autograd.Function`` s that join them.
 
-Counterpart of ``paddle_tpu/ops/pallas/fused_rnn.py``:
+Counterpart of ``paddle_tpu/ops/pallas/fused_rnn.py``, the LSTM:
 
 - :func:`lstm_train_fwd` -- ``_lstm_train_fwd_call`` (``:167``): the cell of
   ``_lstm_train_fwd_kernel`` (``:49-88``) over all T steps, peepholes and
@@ -23,12 +23,37 @@ Layout as there: ``xproj`` [T,B,4H] time-major gate pre-activations
 [1,3H] (W_ic | W_fc | W_oc; zeros without peepholes), ``seq_lens`` [B]
 (or [B,1]) integers (T everywhere for no mask), ``h0, c0`` [B,H].
 
+and the GRU (``:279-454``, gru_op.cc layout):
+
+- :func:`gru_train_fwd` -- ``_gru_train_fwd_call`` (``:376``): the cell of
+  ``_gru_train_fwd_kernel`` (``:287-314``) over all T steps, the length
+  mask inside -> (hidden [T,B,H], h_last [B,H], rh [T,B,H]); hidden is
+  zero past each row's length, h_last carries the last valid step, and
+  ``rh = m * r * h_prev`` is a residual of the backward that the TPU
+  kernel recomputes instead (the left operand of the candidate's product
+  and of ``dw[:, 2H:]``).
+- :func:`gru_train_bwd` -- ``_gru_train_vjp_bwd`` (``:416``): the
+  reverse-time formulae of ``_gru_train_bwd_kernel`` (``:330-373``) with
+  ``h_prev`` the hidden sequence one step behind ``h0`` (``:421-422``) ->
+  (dx [T,B,3H], dw [H,3H], dh0 [B,H]).
+- :class:`FusedGRUTrain` and :func:`fused_gru_train` -- ``fused_gru_train``
+  (``:402``) with the residuals of ``_gru_train_vjp_fwd`` (``:410-413``:
+  xproj, w, seq_lens, h0, hidden) and ``rh``.
+
+Layout as there: ``xproj`` [T,B,3H] (gate order u, r, c, bias included),
+``w`` [H,3H] (``w_ur = w[:, :2H]``, ``w_c = w[:, 2H:]``), ``seq_lens``,
+``h0`` [B,H]; ``h_t = (1 - u) * h + u * c``.
+
 On the card the T steps run inside one cooperative launch each way, the
-three matrix products of a step in the kernels' own bodies; a step works
-only on the rows still inside their length (:func:`_schedule`). The plain
-versions loop over time in PyTorch: they are for the CPU and for the
-comparisons; :func:`lstm_train_bwd_plain` is the explicit formulae, not
-autograd, so that each kernel output has a plain counterpart.
+matrix products of a step in the kernels' own bodies; a step works only
+on the rows still inside their length (:func:`_schedule`). The GRU
+backward computes the gate pre-activations of every step in one product
+before its loop, and both backwards compute ``dw`` in one product after
+it, in the same source. The plain versions loop over time in PyTorch:
+they are for the CPU and for the comparisons;
+:func:`lstm_train_bwd_plain` and :func:`gru_train_bwd_plain` are the
+explicit formulae, not autograd, so that each kernel output has a plain
+counterpart.
 
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
 plain version, CUDA tensors to the kernel (fp32, contiguous, H <=
@@ -46,7 +71,8 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.ops.kernels import build as _build
 
-LAUNCHES = {"lstm_train_fwd": 0, "lstm_train_bwd": 0}
+LAUNCHES = {"lstm_train_fwd": 0, "lstm_train_bwd": 0, "gru_train_fwd": 0,
+            "gru_train_bwd": 0}
 MAX_H = 512                        # kMaxH of the kernels
 
 _lib = None
@@ -64,7 +90,10 @@ def _kernels():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.paddle_lstm_train_fwd.argtypes = [p] * 13 + [i] * 3 + [p]
         lib.paddle_lstm_train_bwd.argtypes = [p] * 19 + [i] * 3 + [p]
-        for fn in (lib.paddle_lstm_train_fwd, lib.paddle_lstm_train_bwd):
+        lib.paddle_gru_train_fwd.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.paddle_gru_train_bwd.argtypes = [p] * 13 + [i] * 3 + [p]
+        for fn in (lib.paddle_lstm_train_fwd, lib.paddle_lstm_train_bwd,
+                   lib.paddle_gru_train_fwd, lib.paddle_gru_train_bwd):
             fn.restype = i
         _lib = lib
     return _lib
@@ -296,3 +325,165 @@ def fused_lstm_train(xproj, w, peep, seq_lens, h0, c0):
     return FusedLSTMTrain.apply(xproj.contiguous(), w.contiguous(),
                                 peep.contiguous(), seq_lens,
                                 h0.contiguous(), c0.contiguous())
+
+
+# -- GRU ---------------------------------------------------------------------
+
+def _gates(xt, h, rh, w):
+    """u, r, c of ``_gru_train_fwd_kernel`` (``:300-305``) from the step's
+    pre-activations, the state and ``rh`` (``r * h``, or None to form it
+    here)."""
+    hdim = h.shape[-1]
+    ur = torch.sigmoid(xt[:, :2 * hdim] + h @ w[:, :2 * hdim])
+    u, r = ur[:, :hdim], ur[:, hdim:]
+    if rh is None:
+        rh = r * h
+    c = torch.tanh(xt[:, 2 * hdim:] + rh @ w[:, 2 * hdim:])
+    return u, r, c, rh
+
+
+def gru_train_fwd_plain(xproj, w, seq_lens, h0):
+    """Plain version of :func:`gru_train_fwd`: the cell step by step.
+    Differentiable through autograd."""
+    h = h0
+    hs, rhs = [], []
+    for t in range(xproj.shape[0]):
+        u, _, c, rh = _gates(xproj[t], h, None, w)
+        h_cand = (1.0 - u) * h + u * c
+        m = _mask(t, seq_lens, h_cand)
+        h = m * h_cand + (1.0 - m) * h
+        hs.append(m * h_cand)
+        rhs.append(m * rh)
+    return torch.stack(hs), h, torch.stack(rhs)
+
+
+def gru_train_bwd_plain(xproj, w, seq_lens, h0, hidden, rh, dhid, dhlast):
+    """Plain version of :func:`gru_train_bwd`: the formulae of
+    ``_gru_train_bwd_kernel`` (``:346-368``) in reverse time, the gates
+    recomputed from ``xproj[t]``, ``h_prev`` and ``rh[t]``."""
+    hdim = w.shape[0]
+    w_ur, w_c = w[:, :2 * hdim], w[:, 2 * hdim:]
+    h_prev_seq = torch.cat([h0[None], hidden[:-1]])
+    dh = dhlast
+    dx = torch.empty_like(xproj)
+    dw = torch.zeros_like(w)
+    for t in range(xproj.shape[0] - 1, -1, -1):
+        h_prev = h_prev_seq[t]
+        u, r, c, _ = _gates(xproj[t], h_prev, rh[t], w)
+        m = _mask(t, seq_lens, h_prev)
+        gh = m * (dh + dhid[t])
+        du = gh * (c - h_prev)
+        dc = gh * u
+        dgc = dc * (1.0 - c * c)
+        d_rh = dgc @ w_c.t()
+        dr = d_rh * h_prev
+        dgu = du * u * (1.0 - u)
+        dgr = dr * r * (1.0 - r)
+        dg_ur = torch.cat([dgu, dgr], dim=1)
+        dx[t] = torch.cat([dg_ur, dgc], dim=1)
+        dh = ((1.0 - m) * dh + gh * (1.0 - u) + d_rh * r
+              + dg_ur @ w_ur.t())
+        dw[:, :2 * hdim] += h_prev.t() @ dg_ur
+        dw[:, 2 * hdim:] += rh[t].t() @ dgc
+    return dx, dw, dh
+
+
+def _check_gru_shapes(xproj, w, seq_lens, h0):
+    if xproj.dim() != 3 or xproj.shape[2] % 3:
+        raise ValueError(f"want xproj [T,B,3H], got {tuple(xproj.shape)}")
+    t, b, h3 = xproj.shape
+    h = h3 // 3
+    if t == 0 or b == 0 or h == 0:
+        raise ValueError(f"empty sequence batch {tuple(xproj.shape)}")
+    if tuple(w.shape) != (h, h3):
+        raise ValueError(f"want w [{h},{h3}], got {tuple(w.shape)}")
+    if seq_lens.numel() != b:
+        raise ValueError(f"want seq_lens [{b}], got {tuple(seq_lens.shape)}")
+    if seq_lens.dtype.is_floating_point or seq_lens.dtype == torch.bool:
+        raise ValueError(f"seq_lens must be integers, got {seq_lens.dtype}")
+    if tuple(h0.shape) != (b, h):
+        raise ValueError(f"want h0 [{b},{h}], got {tuple(h0.shape)}")
+    return t, b, h
+
+
+def gru_train_fwd(xproj, w, seq_lens, h0):
+    """-> (hidden [T,B,H], h_last [B,H], rh [T,B,H])."""
+    t, b, h = _check_gru_shapes(xproj, w, seq_lens, h0)
+    if not _device.uses_kernel(xproj, w, seq_lens, h0):
+        return gru_train_fwd_plain(xproj, w, seq_lens, h0)
+    _check_kernel_args("gru_train_fwd", (xproj, w, h0), h)
+    lens, order, live = _schedule(seq_lens, t)
+    hidden = torch.empty((t, b, h), dtype=torch.float32, device=xproj.device)
+    rh = torch.empty_like(hidden)
+    h_last = torch.empty_like(h0)
+    with torch.cuda.device(xproj.device):
+        err = _kernels().paddle_gru_train_fwd(
+            xproj.data_ptr(), w.data_ptr(), lens.data_ptr(), order.data_ptr(),
+            live.data_ptr(), h0.data_ptr(), hidden.data_ptr(),
+            h_last.data_ptr(), rh.data_ptr(), t, b, h,
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "gru_train_fwd")
+    LAUNCHES["gru_train_fwd"] += 1
+    return hidden, h_last, rh
+
+
+def gru_train_bwd(xproj, w, seq_lens, h0, hidden, rh, dhid, dhlast):
+    """-> (dx [T,B,3H], dw [H,3H], dh0 [B,H]) from the forward's inputs,
+    its hidden and rh sequences and the cotangents of hidden and h_last."""
+    t, b, h = _check_gru_shapes(xproj, w, seq_lens, h0)
+    for name, s, like in (("hidden", hidden, (t, b, h)),
+                          ("rh", rh, (t, b, h)),
+                          ("dhid", dhid, (t, b, h)),
+                          ("dhlast", dhlast, (b, h))):
+        if tuple(s.shape) != like:
+            raise ValueError(f"want {name} {list(like)}, got "
+                             f"{tuple(s.shape)}")
+    tensors = (xproj, w, h0, hidden, rh, dhid, dhlast)
+    if not _device.uses_kernel(seq_lens, *tensors):
+        return gru_train_bwd_plain(xproj, w, seq_lens, h0, hidden, rh, dhid,
+                                   dhlast)
+    _check_kernel_args("gru_train_bwd", tensors, h)
+    lens, order, live = _schedule(seq_lens, t)
+    dx = torch.empty_like(xproj)
+    dw = torch.empty_like(w)
+    dh0 = torch.empty_like(h0)
+    with torch.cuda.device(xproj.device):
+        err = _kernels().paddle_gru_train_bwd(
+            xproj.data_ptr(), w.data_ptr(), lens.data_ptr(), order.data_ptr(),
+            live.data_ptr(), h0.data_ptr(), hidden.data_ptr(), rh.data_ptr(),
+            dhid.data_ptr(), dhlast.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            dh0.data_ptr(), t, b, h, torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "gru_train_bwd")
+    LAUNCHES["gru_train_bwd"] += 1
+    return dx, dw, dh0
+
+
+class FusedGRUTrain(torch.autograd.Function):
+    """(hidden, h_last) of the whole sequence; the forward runs
+    :func:`gru_train_fwd` and saves the residuals of ``_gru_train_vjp_fwd``
+    (``:410-413``: xproj, w, seq_lens, h0, hidden) and ``rh``; the backward
+    runs :func:`gru_train_bwd` on the cotangents of both outputs (zeros for
+    one that gets none). ``seq_lens`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, xproj, w, seq_lens, h0):
+        hidden, h_last, rh = gru_train_fwd(xproj, w, seq_lens, h0)
+        ctx.save_for_backward(xproj, w, seq_lens, h0, hidden, rh)
+        return hidden, h_last
+
+    @staticmethod
+    def backward(ctx, dhid, dhlast):
+        xproj, w, seq_lens, h0, hidden, rh = ctx.saved_tensors
+        with torch.no_grad():
+            dx, dw, dh0 = gru_train_bwd(xproj, w, seq_lens, h0, hidden, rh,
+                                        dhid.contiguous(),
+                                        dhlast.contiguous())
+        return dx, dw, None, dh0
+
+
+def fused_gru_train(xproj, w, seq_lens, h0):
+    """Trainable whole-sequence GRU: xproj [T,B,3H], w [H,3H], seq_lens [B]
+    integers, h0 [B,H] -> (hidden [T,B,H], h_last [B,H]), differentiable in
+    xproj, w and h0."""
+    return FusedGRUTrain.apply(xproj.contiguous(), w.contiguous(), seq_lens,
+                               h0.contiguous())

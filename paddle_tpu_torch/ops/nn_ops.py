@@ -4,7 +4,11 @@ numerics of their JAX emitters:
 - :func:`layer_norm` -- ``paddle_tpu/ops/nn_ops.py:392``: population
   variance, eps 1e-5, normalized over the trailing dims.
 - :func:`lookup_table` -- ``nn_ops.py:504`` (and ``gather``,
-  ``paddle_tpu/ops/math_ops.py:245``): rows of a table by index.
+  ``paddle_tpu/ops/math_ops.py:245``): rows of a table by index; with
+  ``sparse=True`` the table's gradient is row-sparse (a sparse COO tensor
+  over the looked-up rows), as the JAX ``__vjp__`` emits a
+  ``RowSparseGrad`` for it (``paddle_tpu/ops/grad_ops.py:38``,
+  ``:137-150``).
 - :func:`fc` -- ``paddle_tpu/ops/misc_ops.py:485`` (and the ``mul`` +
   ``sum`` + bias + act chain ``layers.fc`` emits): weights in [in, out]
   layout, one per input.
@@ -61,8 +65,13 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
     return y
 
 
-def lookup_table(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """ids [...] int -> [..., D] rows of ``w`` [V, D]."""
+def lookup_table(w: torch.Tensor, ids: torch.Tensor,
+                 sparse: bool = False) -> torch.Tensor:
+    """ids [...] int -> [..., D] rows of ``w`` [V, D]; ``sparse``: the
+    gradient of ``w`` is a sparse tensor with one row per looked-up id
+    (duplicates not yet summed)."""
+    if sparse:
+        return torch.nn.functional.embedding(ids.long(), w, sparse=True)
     return w[ids.long()]
 
 

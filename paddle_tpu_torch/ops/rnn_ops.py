@@ -13,6 +13,16 @@ CUDA kernels on the card, their plain versions on the CPU); a reversed
 sequence or other activations go to the step loop of ``:125-153`` in
 torch, on either device. The JAX op's further conditions (``:105-107``:
 H % 128, B % 8, a VMEM budget) are a TPU's and are not carried over.
+
+:func:`dynamic_gru` is ``_dynamic_gru`` (``:160-219``): ``x`` is
+[B, T, 3H] with gate order u, r, c~; the recurrent ``weight`` is [H, 3H]
+(``[:, :2H]`` update and reset, ``[:, 2H:]`` candidate); ``bias`` is
+[1, 3H]; ``h_t = (1 - u) * h + u * c``. Its attribute rule (``:190-192``)
+sends the default cell (sigmoid gates, tanh candidate) without reverse to
+``fused_gru_train`` (the whole-sequence CUDA kernels on the card, their
+plain versions on the CPU), and a reversed sequence or another activation
+to the step loop of ``:205-218``. The alignment and VMEM conditions
+(``:194-196``) are not carried over, as for the LSTM.
 """
 
 from __future__ import annotations
@@ -102,3 +112,48 @@ def dynamic_lstm(x: torch.Tensor, weight: torch.Tensor,
         c_prev = m * c_new + (1 - m) * c_prev
         hs[step], cs[step] = h_prev * m, c_prev * m
     return (torch.stack(hs, dim=1), torch.stack(cs, dim=1), h_prev, c_prev)
+
+
+def dynamic_gru(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                h0: Optional[torch.Tensor] = None,
+                seq_lens: Optional[torch.Tensor] = None,
+                is_reverse: bool = False, gate_activation: str = "sigmoid",
+                activation: str = "tanh"):
+    """-> (Hidden [B,T,H], LastHidden [B,H]); Hidden is zero past each
+    row's length, LastHidden is each row's last valid state."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.to(torch.float32)      # the recurrence runs in fp32 (``:170``)
+    b, t, h3 = x.shape
+    h = h3 // 3
+    if bias is not None:
+        x = x + bias.reshape(-1)[:3 * h]
+    h_init = h0 if h0 is not None else x.new_zeros((b, h))
+    xt_seq = x.transpose(0, 1)                          # [T, B, 3H]
+
+    if (not is_reverse and gate_activation == "sigmoid"
+            and activation == "tanh"):
+        lens = (seq_lens.reshape(-1).to(torch.int32) if seq_lens is not None
+                else torch.full((b,), t, dtype=torch.int32, device=x.device))
+        hid_tm, h_last = _fused_rnn.fused_gru_train(
+            xt_seq, weight.to(x.dtype), lens, h_init)
+        return hid_tm.transpose(0, 1), h_last
+
+    gate_act = _act(gate_activation)
+    cand_act = _act(activation)
+    w_ur, w_c = weight[:, :2 * h], weight[:, 2 * h:]
+    hs = [None] * t
+    h_prev = h_init
+    for step in (range(t - 1, -1, -1) if is_reverse else range(t)):
+        xt = xt_seq[step]
+        ur = gate_act(xt[:, :2 * h] + h_prev @ w_ur)
+        u, r = ur[:, :h], ur[:, h:]
+        c = cand_act(xt[:, 2 * h:] + (r * h_prev) @ w_c)
+        h_new = (1.0 - u) * h_prev + u * c
+        if seq_lens is None:
+            m = torch.ones((b, 1), dtype=h_new.dtype, device=h_new.device)
+        else:
+            m = (step < seq_lens.reshape(-1, 1)).to(h_new.dtype)
+        h_prev = m * h_new + (1 - m) * h_prev
+        hs[step] = h_prev * m
+    return torch.stack(hs, dim=1), h_prev

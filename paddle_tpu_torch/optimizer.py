@@ -1,10 +1,11 @@
 """Optimizers (counterpart of ``paddle_tpu/fluid/optimizer.py``).
 
 :class:`Adam` is the JAX package's Adam (``optimizer.py:197``
-``AdamOptimizer``, update rule ``ops/optimizer_ops.py:89`` ``_adam``,
-dense branch ``:140-149``), not ``torch.optim.Adam``: the bias
-correction folds into the step size and epsilon is added to
-``sqrt(m2)`` unscaled.
+``AdamOptimizer``, update rule ``ops/optimizer_ops.py:89`` ``_adam``),
+not ``torch.optim.Adam``: the bias correction folds into the step size
+and epsilon is added to ``sqrt(m2)`` unscaled. A dense gradient takes the
+dense branch (``:140-149``); a row-sparse one (``lookup_table(...,
+sparse=True)``) the sparse branches (``:102-139``).
 """
 
 from __future__ import annotations
@@ -33,17 +34,29 @@ class Adam(torch.optim.Optimizer):
     scalars (one value per parameter, as in the JAX scope), so a step
     never waits on the device; the moments live beside their parameters.
     Parameters without a gradient are skipped, their beta powers
-    included."""
+    included.
+
+    A sparse gradient (a COO tensor of rows, as ``lookup_table(...,
+    sparse=True)`` gives) is coalesced first: duplicate rows are summed
+    before the squared-gradient moment, as the JAX op dedupes
+    (``:107``). Then, with ``lazy_mode=True`` (``:110-126``), only those
+    rows' ``m1``, ``m2`` and values are updated and the other rows'
+    moments do not decay; with ``lazy_mode=False`` (``:127-139``) every
+    row's moments decay and every row moves, the gradient being zero off
+    those rows. The beta powers advance once a step either way. A dense
+    gradient takes the dense rule whatever ``lazy_mode`` is, as in the
+    JAX op."""
 
     def __init__(self, params, learning_rate: Union[float, Callable] = 1e-3,
                  beta1: float = 0.9, beta2: float = 0.999,
-                 epsilon: float = 1e-8):
+                 epsilon: float = 1e-8, lazy_mode: bool = False):
         if callable(learning_rate):
             self.schedule = learning_rate
             lr = 0.0
         else:
             self.schedule = None
             lr = float(learning_rate)
+        self.lazy_mode = bool(lazy_mode)
         super().__init__(params, dict(lr=lr, beta1=float(beta1),
                                       beta2=float(beta2),
                                       epsilon=float(epsilon)))
@@ -60,8 +73,6 @@ class Adam(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                if p.grad.is_sparse:
-                    raise ValueError("Adam takes dense gradients")
                 st = self.state[p]
                 if not st:
                     st["moment1"] = torch.zeros_like(p)
@@ -72,6 +83,10 @@ class Adam(torch.optim.Optimizer):
                     / (one - st["beta1_pow"])
                 st["beta1_pow"] = st["beta1_pow"] * np.float32(b1)
                 st["beta2_pow"] = st["beta2_pow"] * np.float32(b2)
+                if p.grad.is_sparse:
+                    self._sparse_update(p, p.grad, st, b1, b2, eps,
+                                        float(lr_t))
+                    continue
                 ps.append(p)
                 gs.append(p.grad)
                 m1s.append(st["moment1"])
@@ -86,3 +101,19 @@ class Adam(torch.optim.Optimizer):
             denom = torch._foreach_sqrt(m2s)
             torch._foreach_add_(denom, eps)
             torch._foreach_addcdiv_(ps, m1s, denom, steps)
+
+    def _sparse_update(self, p, grad, st, b1, b2, eps, lr_t):
+        g = grad.coalesce()
+        rows, vals = g.indices()[0], g.values().to(p.dtype)
+        m1, m2 = st["moment1"], st["moment2"]
+        if self.lazy_mode:
+            m1_r = b1 * m1[rows] + (1.0 - b1) * vals
+            m2_r = b2 * m2[rows] + (1.0 - b2) * vals * vals
+            p_r = p[rows] - lr_t * m1_r / (torch.sqrt(m2_r) + eps)
+            m1[rows] = m1_r
+            m2[rows] = m2_r
+            p[rows] = p_r
+            return
+        m1.mul_(b1).index_add_(0, rows, (1.0 - b1) * vals)
+        m2.mul_(b2).index_add_(0, rows, (1.0 - b2) * vals * vals)
+        p.sub_(lr_t * m1 / (torch.sqrt(m2) + eps))

@@ -293,7 +293,8 @@ def _card_check(dev, T, B, H, seed, w_scale):
     want_back = tfr.lstm_train_bwd_plain(*ins, want[0], want[1], *cot)
     torch.cuda.synchronize()
     assert {k: tfr.LAUNCHES[k] - n0[k] for k in n0} == \
-        {"lstm_train_fwd": 1, "lstm_train_bwd": 2}
+        {"lstm_train_fwd": 1, "lstm_train_bwd": 2, "gru_train_fwd": 0,
+         "gru_train_bwd": 0}
     label = f"T={T} B={B} H={H}"
     for name, a, b in zip(OUT_NAMES, got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
@@ -335,7 +336,8 @@ def test_cuda_function_launches_once_each_way_and_rejects(cuda_device):
     sum(o.sum() for o in outs).backward()
     torch.cuda.synchronize()
     assert {k: tfr.LAUNCHES[k] - n0[k] for k in n0} == \
-        {"lstm_train_fwd": 1, "lstm_train_bwd": 1}
+        {"lstm_train_fwd": 1, "lstm_train_bwd": 1, "gru_train_fwd": 0,
+         "gru_train_bwd": 0}
     assert all(torch.isfinite(x.grad).all() for x in leaves)
     wide = [a.to(dev) for a in _torch(_make(T=2, B=2, H=tfr.MAX_H + 4))]
     with pytest.raises(ValueError, match="hidden width"):

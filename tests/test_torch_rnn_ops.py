@@ -3,9 +3,10 @@
 JAX package's ops, each run as one op through the executor on the CPU
 (tests/op_test.py ``run_single_op``).
 
-Tolerances: ``dynamic_lstm`` rtol/atol 2e-6 (the JAX package's own bound
-for its LSTM against its scan, tests/test_fused_rnn_train.py: fp32 sums in
-XLA's order against torch's over 6 steps); the pools, the cross entropy and
+Tolerances: ``dynamic_lstm`` and ``dynamic_gru`` rtol/atol 2e-6 (the JAX
+package's own bound for its LSTM and GRU against their scans,
+tests/test_fused_rnn_train.py: fp32 sums in XLA's order against torch's
+over 6 steps); the pools, the cross entropy and
 ``fc`` rtol 1e-6 / atol 1e-6 (a handful of fp32 operations an element);
 ``accuracy`` and ``MaxIndex`` exactly."""
 
@@ -113,6 +114,87 @@ def test_dynamic_lstm_gradients_reach_every_input():
     for t in leaves:
         assert t.grad is not None and bool((t.grad != 0).any())
     assert bool((bias.grad[:, 4 * H:] != 0).any())      # the peepholes
+
+
+GRU_OUTS = ("Hidden", "LastHidden")
+GRU_CASES = {
+    "plain": dict(),
+    "h0": dict(init=True),
+    "seq-lens": dict(lens=True),
+    "h0-seq-lens": dict(init=True, lens=True),
+    "no-bias": dict(init=True, bias=False),
+    "reverse": dict(init=True, lens=True, reverse=True),
+    "relu-candidate": dict(lens=True, act="relu"),
+    "identity-gates": dict(init=True, gate="identity"),
+}
+
+
+def _gru_data(seed=0):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(B, T, 3 * H) * 0.4).astype(np.float32)
+    w = (rng.randn(H, 3 * H) * 0.2).astype(np.float32)
+    bias = (rng.randn(1, 3 * H) * 0.1).astype(np.float32)
+    h0 = (rng.randn(B, H) * 0.3).astype(np.float32)
+    lens = np.array([T, 1, 3, 5], np.int32)
+    return x, w, bias, h0, lens
+
+
+@pytest.mark.parametrize("name", sorted(GRU_CASES))
+def test_dynamic_gru_matches_the_jax_op(name):
+    case = GRU_CASES[name]
+    x, w, bias, h0, lens = _gru_data()
+    inputs = {"Input": {"x": x}, "Weight": {"w": w}}
+    kw = {}
+    if case.get("bias", True):
+        inputs["Bias"] = {"b": bias}
+        kw["bias"] = torch.from_numpy(bias)
+    if case.get("init"):
+        inputs["H0"] = {"h0": h0}
+        kw["h0"] = torch.from_numpy(h0)
+    if case.get("lens"):
+        inputs["SeqLens"] = {"sl": lens}
+        kw["seq_lens"] = torch.from_numpy(lens)
+    attrs = {"is_reverse": case.get("reverse", False),
+             "gate_activation": case.get("gate", "sigmoid"),
+             "activation": case.get("act", "tanh")}
+    want = run_single_op("dynamic_gru", inputs, attrs, out_slots=GRU_OUTS)
+    before = dict(tfr.LAUNCHES)
+    got = trnn.dynamic_gru(torch.from_numpy(x), torch.from_numpy(w), **kw,
+                           **attrs)
+    assert tfr.LAUNCHES == before
+    for slot, g in zip(GRU_OUTS, got):
+        np.testing.assert_allclose(g.numpy(), want[f"__out_{slot}_0"],
+                                   err_msg=slot, **LSTM_TOL)
+    if case.get("lens"):
+        for b, n in enumerate(lens):
+            assert torch.all(got[0][b, n:] == 0)
+
+
+def test_dynamic_gru_routes_by_the_attribute_rule(monkeypatch):
+    """The default cell without reverse goes to ``fused_gru_train``;
+    reverse or another activation to the step loop."""
+    calls = []
+    real = tfr.fused_gru_train
+    monkeypatch.setattr(tfr, "fused_gru_train",
+                        lambda *a: calls.append(1) or real(*a))
+    x, w, bias, _, _ = (torch.from_numpy(a) for a in _gru_data())
+    trnn.dynamic_gru(x, w, bias)
+    assert len(calls) == 1
+    trnn.dynamic_gru(x, w, bias, is_reverse=True)
+    trnn.dynamic_gru(x, w, bias, gate_activation="relu")
+    trnn.dynamic_gru(x, w, bias, activation="identity")
+    assert len(calls) == 1
+    hidden = trnn.dynamic_gru(x.to(torch.bfloat16), w, bias)[0]
+    assert hidden.dtype == torch.float32 and len(calls) == 2
+
+
+def test_dynamic_gru_gradients_reach_every_input():
+    x, w, bias, h0, lens = (torch.from_numpy(a) for a in _gru_data())
+    leaves = [t.requires_grad_() for t in (x, w, bias, h0)]
+    outs = trnn.dynamic_gru(x, w, bias, h0, lens)
+    sum((o * o).sum() for o in outs).backward()
+    for t in leaves:
+        assert t.grad is not None and bool((t.grad != 0).any())
 
 
 def _pool_data(seed=1):

@@ -23,7 +23,8 @@ lengths. It prints the median cycles of one step for
 
 with the same numbers at the first and last steps, where a ragged batch
 has most and fewest live rows. The marks are placed by matching lines of
-the source, and the script fails if a line it looks for is gone. The marks
+the source before its GRU section, and the script fails if a line it looks
+for is gone. The marks
 cost a few cycles each; the instrumented kernels are not the port's.
 """
 
@@ -87,14 +88,20 @@ READ_BACK = (
     % (SLOTS * MAX_STEPS))
 
 
+GRU_SECTION = "\n// ---- GRU "
+
+
 def instrumented(source: str) -> str:
+    """The source with the marks in its LSTM part (everything before the
+    GRU section, which is left as it is)."""
+    lstm, gru_banner, gru = source.partition(GRU_SECTION)
     for find, count, put in MARKS:
-        if source.count(find) != count:
+        if lstm.count(find) != count:
             raise SystemExit(f"torch_lstm_cycles: expected {count} of "
                              f"{find!r} in fused_rnn.cu, found "
-                             f"{source.count(find)}")
-        source = source.replace(find, put)
-    return source + READ_BACK
+                             f"{lstm.count(find)}")
+        lstm = lstm.replace(find, put)
+    return lstm + gru_banner + gru + READ_BACK
 
 
 def main():
