@@ -42,7 +42,9 @@ final line:
    3.35 TB/s) and a library yardstick: ``scaled_dot_product_attention``
    for the forward (at p = 0: its dropout bits differ) and that call's
    backward for the dQ + dK/dV pair, held to allclose with the plain
-   versions first.
+   versions first. Then, causal, at head widths the wrappers pad or run
+   on the widest tiles (48: d_model 96 over 2 heads, run at 64; 256),
+   each kernel against its plain version, timed beside plain and bound.
 6. Fused-CE kernels: the fused linear + cross-entropy forward, dx and
    dW kernels at the vocabulary head of phase 7 (N 4096 rows, D 512,
    V 32000, label smoothing 0.1, every 50th row at ignore_index, a
@@ -52,7 +54,11 @@ final line:
    in phase 3 beside its plain version, its bound (as in phase 5) and a
    library yardstick: ``F.cross_entropy(x @ w, ...)`` for the forward
    and its autograd backward for the dx + dW pair (two calls each, held
-   to allclose with the plain versions first).
+   to allclose with the plain versions first). Then D above 512, which
+   the kernels take in chunks of 512: ``transformer_big``'s head (N 4096,
+   D 1024, V 32000; timed beside plain and bound), an edge shape (N 300,
+   D 700, V 1003) and the smallest input that raised before (x [1, 513],
+   through ``fused_linear_ce``), each against the plain versions.
 7. Training: Transformer-base (vocab 32000, d_model 512, d_inner 2048,
    8 heads, 6 + 6 layers, max_len 128, label smoothing 0.1, Adam at
    1e-4; seeded random weights carried in through
@@ -90,7 +96,10 @@ final line:
    length. No one PyTorch call computes this function (``nn.LSTM`` has
    no peepholes and owns its input projection): ``library_ms`` is null.
    The forward at B 1 gives the serial cost of a step (barrier, carry
-   round trip, cell latency) with almost no arithmetic.
+   round trip, cell latency) with almost no arithmetic. Then above H 512
+   (8 or 16 units a block, the slices of ``w`` in global scratch): T 16,
+   B 64 at H 1024 (timed beside plain and bound) and H 700, the same
+   checks.
 9. LSTM training: ``stacked_dynamic_lstm.build()`` at its defaults
    (dict 5000, emb 512, hid 512, 3 layers, max_len 100, peepholes on,
    Adam at 1e-3; seeded weights carried in through
@@ -116,7 +125,9 @@ final line:
     and the bound over the live (row, step) pairs. No one PyTorch call
     computes this function (``nn.GRU`` applies the reset after its
     product and owns the input projection): ``library_ms`` is null. The
-    forward at B 1 gives the serial cost of a step.
+    forward at B 1 gives the serial cost of a step. Then above H 512: T
+    16, B 64 at H 1024 (timed) and H 700, and x [1, 1, 1539] (H 513, the
+    smallest input that raised before), the same checks.
 11. MT training: ``machine_translation.build()`` at emb 512, hid 512,
     vocabularies 10000, max_len 32 (seeded weights carried in through
     ``mt_params_from_jax``) takes 10 steps of 64 fresh seeded pairs (the
@@ -139,8 +150,48 @@ final line:
     the next within 1e-4; counted), the other rows' lane scores within
     rtol 1e-4, all sorted descending. Prints the p50 of a call,
     sequences/s and a 3-call profiler window.
-13. Report: a ``{"kernels": [...]}`` line, then, last,
-    ``{"ok": true, "device": {...}}``.
+13. Pooling kernels: the masked sequence pool at the classifier's pools
+    of phase 14 (B 128, T 100, D 512, ragged lengths 1-100 with one full
+    row; SUM, AVERAGE and SQRT) and at an edge shape (B 5, T 7, D 100,
+    one zero length), and the embedding gather + pool at the op
+    program's shape of phase 15 (V 5000, D 128, B 128, T 100, ragged) and
+    at an edge shape (V 37, D 100, B 5, T 7, no lengths), each against its
+    plain version (rtol 1e-5 of the same pool of the absolute values,
+    atol 1e-6: fp32 sums in another order, whose error grows with the
+    terms' magnitudes, not with the sum, which cancels; beside the max
+    error it prints the element where an rtol of |plain| itself would be
+    tightest: its error, |plain| and the pool of |x|); both
+    kernels at the other dtypes the JAX op pools (fp64, fp16, bf16,
+    int32, bool, complex64) at a small ragged shape; timed as in phase 3
+    beside the plain version, the bound (bytes over 3.35 TB/s: the live
+    rows of x, or each distinct row of the table that a live id names,
+    the live ids, the lengths and the output) and, for the gather +
+    pool, ``F.embedding_bag`` over the live ids (held to its plain
+    version first; no one PyTorch call pools a padded batch by lengths:
+    the pool's ``library_ms`` is null).
+14. Text-conv training: the PaddlePaddle book's understand_sentiment
+    ``convolution_net`` from the port's entry points (``lookup_table``
+    with a sparse table gradient, two ``nets.SequenceConvPool`` of filter
+    sizes 3 and 4, tanh, ``"sqrt"`` pools, a softmax ``fc`` over both,
+    ``cross_entropy``, ``mean``, ``optimizer.Adagrad`` at 0.002) at the
+    book's widths (emb 128, 512 filters) over the repo's IMDB data
+    configuration (dict 5000, max_len 100; seeded weights carried in
+    through ``textconv_params_from_jax``) takes 10 steps, each on a
+    fresh seeded batch of 128 ragged rows whose label is a function of
+    the words (each row leans to one half of the vocabulary), TF32 off.
+    Counts zeroed just before and read just after: every step
+    launched the sequence-pool kernel twice and nothing else; losses
+    finite, the last below the first; the first 3 losses within rtol 1e-3
+    of the same model on the CPU. Prints step p50, words/s, peak memory
+    and a 3-step profiler window (device busy, idle share).
+15. The ``fused_embedding_seq_pool`` op program (the op, ``mean``, lazy
+    Adam at 0.05 over its row-sparse table gradient) at V 5000, D 128,
+    B 128, T 100, 10 steps of fresh seeded ids over the table's first
+    four fifths: one gather + pool launch a step and nothing else; the
+    rows read inside no length bit-equal, every row read inside one
+    moved; the first 3 losses within rtol 1e-3 of the CPU's.
+16. Report: a ``{"kernels": [...]}`` line (fourteen kernels), then,
+    last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -200,6 +251,30 @@ GRU_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRU_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 BEAM_TIE = 1e-4
 BEAM_RTOL = 1e-4
+FLASH_WIDTHS = (48, 256)           # head widths padded to 64 / run at 256
+FCE_WIDE = (4096, 1024, 32000)     # transformer_big's head: N, D, V
+FCE_WIDE_EDGE = (300, 700, 1003)
+LSTM_WIDE = ((16, 64, 1024), (16, 64, 700))        # T, B, H above 512
+GRU_WIDE = ((16, 64, 1024), (16, 64, 700), (1, 1, 513))
+SEQPOOL_SOURCE = "paddle_tpu_torch/csrc/seqpool.cu"
+EMBED_SOURCE = "paddle_tpu_torch/csrc/embed_pool.cu"
+POOL_TOL = dict(rtol=1e-5, atol=1e-6)
+# the pooling kernels' other dtypes -> rtol of the pool of |x|
+POOL_DTYPES = {"float64": 1e-12, "float16": 2e-3, "bfloat16": 1.6e-2,
+               "int32": 0.0, "bool": 0.0, "complex64": 1e-5}
+TEXTCONV = dict(dict_dim=5000, max_len=100, emb_dim=128, num_filters=512,
+                classes=2)
+TEXTCONV_BATCH = 128
+TEXTCONV_LR = 0.002
+TEXTCONV_POOLS_PER_STEP = 2        # the filter-3 and the filter-4 pool
+TEXTCONV_ORACLE_STEPS = 3
+SEQPOOL = (TEXTCONV_BATCH, TEXTCONV["max_len"], TEXTCONV["num_filters"])
+SEQPOOL_EDGE = (5, 7, 100)         # B, T, D
+OP_PROGRAM = dict(vocab=5000, dim=128, max_len=100)
+OP_PROGRAM_BATCH = 128
+EMBED_POOL = (OP_PROGRAM["vocab"], OP_PROGRAM["dim"], OP_PROGRAM_BATCH,
+              OP_PROGRAM["max_len"])
+EMBED_EDGE = (37, 100, 5, 7)       # V, D, B, T
 
 
 def fail(msg: str):
@@ -532,98 +607,117 @@ def close(got, want, tol):
         torch.isfinite(got).all())
 
 
-def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None):
-    """Each flash kernel against its plain version at the training
-    shapes, then timed beside plain, bound and library."""
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+def flash_library_ms(torch, fa, q, k, v, g, heads, causal, scale, flush):
+    """The library yardstick: one SDPA call (dropout off) and its
+    backward, held to the plain versions first; their times by kernel."""
     import torch.nn.functional as F
+    bh, t, d = q.shape
+    q4, k4, v4 = (x.view(bh // heads, heads, t, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    g4 = g.view(bh // heads, heads, t, d)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=scale)
+    lib_out = lib_fwd()
+    lib_grads = torch.autograd.grad(lib_out, (q4, k4, v4), g4,
+                                    retain_graph=True)
+    o0, lse0 = fa.flash_fwd_ref(q, k, v, causal, scale)
+    d0 = (o0 * g).sum(-1)
+    want0 = (o0, fa.flash_dq_ref(q, k, v, g, lse0, d0, causal, scale),
+             *fa.flash_dkv_ref(q, k, v, g, lse0, d0, causal, scale))
+    for name, got, want in zip(("o", "dq", "dk", "dv"),
+                               (lib_out, *lib_grads), want0):
+        if not torch.allclose(got.reshape(want.shape), want,
+                              **FLASH_GRAD_TOL):
+            fail(f"flash causal={causal}: the library yardstick's {name} "
+                 f"differs from the plain version at p = 0")
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (q4, k4, v4), g4,
+                                   retain_graph=True)
+    bwd_ms = time_ms(torch, lib_bwd, flush)
+    return {"flash_fwd": time_ms(torch, lib_fwd, flush), "flash_dq": bwd_ms,
+            "flash_dkv": bwd_ms}
+
+
+def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
+               lib_ms=None):
+    """Each flash kernel against its plain version at one shape, then
+    timed beside plain, bound and (``lib_ms``) library."""
+    q, k, v, g = qkvg
+    bh, t, d = q.shape
+    args = (causal, d ** -0.5, p, seed)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+    bwd = (q, k, v, g, lse_ref, (o_ref * g).sum(-1))
+    runs = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
+                          lambda: fa.flash_fwd_ref(q, k, v, *args),
+                          ("o", "lse"), FLASH_FWD_TOL),
+            "flash_dq": (lambda: fa.flash_dq(*bwd, *args),
+                         lambda: fa.flash_dq_ref(*bwd, *args), ("dq",),
+                         FLASH_GRAD_TOL),
+            "flash_dkv": (lambda: fa.flash_dkv(*bwd, *args),
+                          lambda: fa.flash_dkv_ref(*bwd, *args),
+                          ("dk", "dv"), FLASH_GRAD_TOL)}
+    cost = flash_cost(bh, t, t, d, causal)
+    rows = {}
+    for kname, (fn, ref, names, tol) in runs.items():
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+        err = 0.0
+        for name, a, w in zip(names, got, want):
+            err = max(err, float((a - w).abs().max()))
+            if a.shape != w.shape or not close(a, w, tol):
+                fail(f"flash {label}: {name} differs from the plain version "
+                     f"(max abs err {err}, tolerance {tol})")
+        flops, nbytes = cost[kname]
+        bound_ms, bound_by = bound_of(flops, nbytes)
+        row = rows[kname] = {
+            "max_abs_err": err, "ms": time_ms(torch, fn, flush),
+            "plain_ms": time_ms(torch, ref, flush),
+            "library_ms": lib_ms[kname] if lib_ms else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes, "kernel_width": fa.kernel_width(kname, d)}
+        lib = "" if not lib_ms else (
+            f", library {row['library_ms'] * 1e3:.2f} us"
+            f"{' (dq+dk+dv)' if kname != 'flash_fwd' else ''}")
+        print(f"[{card}] {kname} {label} [{bh}x{t}x{d}] (run at head width "
+              f"{row['kernel_width']}): max abs err {err:.3g}; kernel "
+              f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} "
+              f"us{lib}, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return rows
+
+
+def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
+                widths=FLASH_WIDTHS):
+    """Each flash kernel against its plain version at the training
+    shapes, timed beside plain, bound and library; then, causal, at the
+    head ``widths`` that the wrappers pad (d_model 96 over 2 heads: 48) or
+    run on the widest tiles (256), timed beside plain and bound."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     h = h or TRAIN["n_head"]
     t = t or TRAIN["max_len"]
     d = d or TRAIN["d_model"] // TRAIN["n_head"]
-    bh, scale, seed = b * h, d ** -0.5, 20260
+    seed = 20260
     gen = torch.Generator(device=dev).manual_seed(5)
-    q, k, v, g = (torch.randn(bh, t, d, generator=gen, device=dev)
-                  for _ in range(4))
+    qkvg = tuple(torch.randn(b * h, t, d, generator=gen, device=dev)
+                 for _ in range(4))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     results = {}
     for variant, (causal, p) in FLASH_VARIANTS.items():
-        args = (causal, scale, p, seed)
-        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
-        delta = (o_ref * g).sum(-1)
-        bwd = (q, k, v, g, lse_ref, delta)
-        o, lse = fa.flash_fwd(q, k, v, *args)
-        dq = fa.flash_dq(*bwd, *args)
-        dk, dv = fa.flash_dkv(*bwd, *args)
-        dq_ref = fa.flash_dq_ref(*bwd, *args)
-        dk_ref, dv_ref = fa.flash_dkv_ref(*bwd, *args)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, got, want, tol in (
-                ("o", o, o_ref, FLASH_FWD_TOL),
-                ("lse", lse, lse_ref, FLASH_FWD_TOL),
-                ("dq", dq, dq_ref, FLASH_GRAD_TOL),
-                ("dk", dk, dk_ref, FLASH_GRAD_TOL),
-                ("dv", dv, dv_ref, FLASH_GRAD_TOL)):
-            errs[name] = float((got - want).abs().max())
-            if not close(got, want, tol):
-                fail(f"flash {variant}: {name} differs from the plain "
-                     f"version (max abs err {errs[name]}, tolerance {tol})")
-
-        # the library yardstick: one SDPA call (dropout off) and its
-        # backward, held to the plain versions at p = 0 first
-        q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_()
-                      for x in (q, k, v))
-        g4 = g.view(b, h, t, d)
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(q4, k4, v4,
-                                                  is_causal=causal,
-                                                  scale=scale)
-        lib_out = lib_fwd()
-        lib_grads = torch.autograd.grad(lib_out, (q4, k4, v4), g4,
-                                        retain_graph=True)
-        o0, lse0 = fa.flash_fwd_ref(q, k, v, causal, scale)
-        d0 = (o0 * g).sum(-1)
-        want0 = (o0, fa.flash_dq_ref(q, k, v, g, lse0, d0, causal, scale),
-                 *fa.flash_dkv_ref(q, k, v, g, lse0, d0, causal, scale))
-        for name, got, want in zip(("o", "dq", "dk", "dv"),
-                                   (lib_out, *lib_grads), want0):
-            if not torch.allclose(got.reshape(want.shape), want,
-                                  **FLASH_GRAD_TOL):
-                fail(f"flash {variant}: the library yardstick's {name} "
-                     f"differs from the plain version at p = 0")
-
-        def lib_bwd():
-            return torch.autograd.grad(lib_out, (q4, k4, v4), g4,
-                                       retain_graph=True)
-        cost = flash_cost(bh, t, t, d, causal)
-        lib_bwd_ms = time_ms(torch, lib_bwd, flush)
-        lib_ms = {"flash_fwd": time_ms(torch, lib_fwd, flush),
-                  "flash_dq": lib_bwd_ms, "flash_dkv": lib_bwd_ms}
-        runs = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
-                              lambda: fa.flash_fwd_ref(q, k, v, *args),
-                              max(errs["o"], errs["lse"])),
-                "flash_dq": (lambda: fa.flash_dq(*bwd, *args),
-                             lambda: fa.flash_dq_ref(*bwd, *args),
-                             errs["dq"]),
-                "flash_dkv": (lambda: fa.flash_dkv(*bwd, *args),
-                              lambda: fa.flash_dkv_ref(*bwd, *args),
-                              max(errs["dk"], errs["dv"]))}
-        for kname, (fn, ref, err) in runs.items():
-            flops, nbytes = cost[kname]
-            bound_ms, bound_by = bound_of(flops, nbytes)
-            row = {"max_abs_err": err, "ms": time_ms(torch, fn, flush),
-                   "plain_ms": time_ms(torch, ref, flush),
-                   "library_ms": lib_ms[kname], "bound_ms": bound_ms,
-                   "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+        lib_ms = flash_library_ms(torch, fa, *qkvg, h, causal, d ** -0.5,
+                                  flush)
+        for kname, row in flash_rows(torch, fa, card, variant, qkvg, causal,
+                                     p, seed, flush, lib_ms).items():
             results[f"{kname}/{variant}"] = row
-            print(f"[{card}] {kname} {variant} [{bh}x{t}x{d}]: max abs err "
-                  f"{err:.3g}; kernel {row['ms'] * 1e3:.2f} us, plain "
-                  f"{row['plain_ms'] * 1e3:.2f} us, library "
-                  f"{row['library_ms'] * 1e3:.2f} us"
-                  f"{' (dq+dk+dv)' if kname != 'flash_fwd' else ''}, "
-                  f"bound {bound_ms * 1e3:.2f} us ({bound_by}: "
-                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    for dw in widths:
+        wide = tuple(torch.randn(b * 2, t, dw, generator=gen, device=dev)
+                     for _ in range(4))
+        for kname, row in flash_rows(torch, fa, card, "causal", wide, True,
+                                     0.0, seed, flush).items():
+            results[f"{kname}/d{dw}"] = row
     del flush
     return results
 
@@ -678,27 +772,12 @@ def fce_check(torch, fc, x, w, labels, g, eps, label):
     return errs, want_lse, (want_loss, want_dx, want_dw)
 
 
-def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
-                   d=TRAIN["d_model"], v=TRAIN["tgt_vocab"], edge=FCE_EDGE):
-    """The fused-CE kernels against their plain versions at the head of
-    the training slice and at an edge shape, then timed beside plain,
-    bound and library."""
-    from paddle_tpu_torch.ops.kernels import fused_ce as fc
+def fce_library_ms(torch, fc, ins, eps, wants, flush):
+    """The library yardstick: the composed head in two calls (a matmul and
+    F.cross_entropy) and their autograd backward, held to the plain
+    versions (``wants``: loss, dx, dW) first; their times by kernel."""
     import torch.nn.functional as F
-    eps = 0.1
-    edge_errs, _, _ = fce_check(
-        torch, fc, *fce_inputs(torch, dev, *edge, 8), eps,
-        f"edge N {edge[0]} D {edge[1]} V {edge[2]}")
-    print(f"[{card}] fused CE edge shape N {edge[0]} D {edge[1]} V "
-          f"{edge[2]}: max abs err "
-          + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
-    x, w, labels, g = fce_inputs(torch, dev, n, d, v, 9)
-    errs, lse, (want_loss, want_dx, want_dw) = fce_check(
-        torch, fc, x, w, labels, g, eps, f"N {n} D {d} V {v}")
-
-    # the library yardstick: the composed head in two calls (a matmul and
-    # F.cross_entropy) and their autograd backward, held to the plain
-    # versions first
+    x, w, labels, g = ins
     xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
     lab64 = labels.long()
 
@@ -708,23 +787,31 @@ def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
     lib_loss = lib_fwd()
     lib_dx, lib_dw = torch.autograd.grad(lib_loss, (xr, wr), g,
                                          retain_graph=True)
-    for name, got, want, tol in (("loss", lib_loss, want_loss, FCE_FWD_TOL),
-                                 ("dx", lib_dx, want_dx, FCE_GRAD_TOL),
-                                 ("dw", lib_dw, want_dw, FCE_GRAD_TOL)):
+    for name, got, want, tol in zip(
+            ("loss", "dx", "dw"), (lib_loss, lib_dx, lib_dw), wants,
+            (FCE_FWD_TOL, FCE_GRAD_TOL, FCE_GRAD_TOL)):
         if not torch.allclose(got, want, **tol):
             fail(f"fused CE: the library yardstick's {name} differs from "
                  f"the plain version (max abs err "
                  f"{float((got - want).abs().max())})")
-    del want_dx, want_dw
+    del lib_dx, lib_dw
 
     def lib_bwd():
         return torch.autograd.grad(lib_loss, (xr, wr), g, retain_graph=True)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    lib_bwd_ms = time_ms(torch, lib_bwd, flush, n=20)
+    bwd_ms = time_ms(torch, lib_bwd, flush, n=20)
+    return {"fused_ce_fwd": time_ms(torch, lib_fwd, flush, n=20),
+            "fused_ce_dx": bwd_ms, "fused_ce_dw": bwd_ms}
+
+
+def fce_rows(torch, fc, card, ins, eps, errs, edge_errs, lse, flush,
+             lib_ms=None, n=20, warm=5):
+    """The fused-CE kernels at one shape timed beside plain, bound and
+    (``lib_ms``) library, with the errors of :func:`fce_check` there and
+    at its edge shape."""
+    x, w, labels, g = ins
+    (nn, d), v = x.shape, w.shape[1]
     plain_bwd_ms = time_ms(torch, lambda: fc.fused_ce_bwd_ref(
-        x, w, labels, lse, g, eps), flush, n=20)
-    lib_ms = {"fused_ce_fwd": time_ms(torch, lib_fwd, flush, n=20),
-              "fused_ce_dx": lib_bwd_ms, "fused_ce_dw": lib_bwd_ms}
+        x, w, labels, lse, g, eps), flush, n=n, warm=warm)
     runs = {"fused_ce_fwd": (
                 lambda: fc.fused_ce_fwd(x, w, labels, eps),
                 lambda: fc.fused_ce_fwd_ref(x, w, labels, eps),
@@ -735,33 +822,83 @@ def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
             "fused_ce_dw": (
                 lambda: fc.fused_ce_dw(x, w, labels, lse, g, eps), None,
                 ("dw",))}
-    cost = fce_cost(n, d, v)
-    results = {}
+    cost = fce_cost(nn, d, v)
+    rows = {}
     for kname, (fn, ref, outs) in runs.items():
-        err = max(errs[o] for o in outs)
         flops, nbytes = cost[kname]
         bound_ms, bound_by = bound_of(flops, nbytes)
-        row = {"max_abs_err": err, "ms": time_ms(torch, fn, flush, n=20),
-               "plain_ms": time_ms(torch, ref, flush, n=20) if ref
-               else plain_bwd_ms,
-               "library_ms": lib_ms[kname], "bound_ms": bound_ms,
-               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-               "edge_max_abs_err": max(edge_errs[o] for o in outs)}
-        results[kname] = row
+        row = rows[kname] = {
+            "max_abs_err": max(errs[o] for o in outs),
+            "edge_max_abs_err": max(edge_errs[o] for o in outs),
+            "ms": time_ms(torch, fn, flush, n=n, warm=warm),
+            "plain_ms": time_ms(torch, ref, flush, n=n, warm=warm) if ref
+            else plain_bwd_ms,
+            "library_ms": lib_ms[kname] if lib_ms else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes}
         pair = " (dx+dW)" if kname != "fused_ce_fwd" else ""
-        print(f"[{card}] {kname} [N {n}, D {d}, V {v}]: max abs err "
-              f"{err:.3g}; kernel {row['ms']:.3f} ms, plain "
-              f"{row['plain_ms']:.3f} ms{pair}, library "
-              f"{row['library_ms']:.3f} ms{pair}, bound "
-              f"{bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
+        lib = f", library {row['library_ms']:.3f} ms{pair}" if lib_ms else ""
+        print(f"[{card}] {kname} [N {nn}, D {d}, V {v}]: max abs err "
+              f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms{pair}{lib}, bound {bound_ms:.3f} ms "
+              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return rows
+
+
+def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
+                   d=TRAIN["d_model"], v=TRAIN["tgt_vocab"], edge=FCE_EDGE,
+                   wide=FCE_WIDE, wide_edge=FCE_WIDE_EDGE):
+    """The fused-CE kernels against their plain versions at the head of
+    the training slice and at an edge shape, then timed beside plain,
+    bound and library; then, D above 512 in chunks: the smallest input
+    that raised before (x [1, 513]), an edge shape and
+    ``transformer_big``'s head (``wide``, timed beside plain and
+    bound)."""
+    from paddle_tpu_torch.ops.kernels import fused_ce as fc
+    eps = 0.1
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def shape(size, edge_size, seeds, lib=False, n_time=20, warm=5):
+        edge_errs, _, _ = fce_check(
+            torch, fc, *fce_inputs(torch, dev, *edge_size, seeds[0]), eps,
+            "edge N {} D {} V {}".format(*edge_size))
+        print(f"[{card}] fused CE edge shape N {edge_size[0]} D "
+              f"{edge_size[1]} V {edge_size[2]}: max abs err "
+              + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
+        ins = fce_inputs(torch, dev, *size, seeds[1])
+        errs, lse, wants = fce_check(torch, fc, *ins, eps,
+                                     "N {} D {} V {}".format(*size))
+        lib_ms = fce_library_ms(torch, fc, ins, eps, wants, flush) \
+            if lib else None
+        del wants
+        return fce_rows(torch, fc, card, ins, eps, errs, edge_errs, lse,
+                        flush, lib_ms, n=n_time, warm=warm)
+
+    results = shape((n, d, v), edge, (8, 9), lib=True)
     flops = 6 * n * d * v
-    whole = bound_of(flops, cost["fused_ce_dx"][1] + d * v * 4)[0]
+    whole = bound_of(flops, fce_cost(n, d, v)["fused_ce_dx"][1]
+                     + d * v * 4)[0]
     print(f"[{card}] fused CE backward: the two kernels "
           f"{results['fused_ce_dx']['ms'] + results['fused_ce_dw']['ms']:.3f}"
           f" ms against {results['fused_ce_dx']['bound_ms'] + results['fused_ce_dw']['bound_ms']:.3f}"
           f" ms of their bounds; the function's own minimum (one recompute, "
           f"{flops / 1e9:.1f} GFLOP) {whole:.3f} ms")
+
+    # D above 512: the depth in chunks of 512 inside the kernels
+    x1 = torch.randn(1, 513, device=dev)
+    w1 = torch.randn(513, 2, device=dev) * 513 ** -0.5
+    lab1 = torch.zeros(1, dtype=torch.long, device=dev)
+    got1 = fc.fused_linear_ce(x1, w1, lab1)[:, 0]
+    want1 = fc.fused_ce_fwd_ref(x1, w1, lab1)[0]
+    torch.cuda.synchronize()
+    if not close(got1, want1, FCE_FWD_TOL):
+        fail(f"fused CE x [1, 513]: loss {got1.tolist()}, plain "
+             f"{want1.tolist()}")
+    print(f"[{card}] fused CE x [1, 513] (raised before): loss "
+          f"{float(got1[0]):.6f}, plain {float(want1[0]):.6f}")
+    for kname, row in shape(wide, wide_edge, (10, 11), n_time=5,
+                            warm=1).items():
+        results[f"{kname}/d{wide[1]}"] = row
     del flush
     return results
 
@@ -830,9 +967,9 @@ def profile_window(torch, model, opt, feeds):
 
 
 def profile_calls(torch, work, n):
-    """(device busy ms per step, idle share, the flash, fused-CE and
-    recurrent (LSTM or GRU loops and their products) kernels' shares of
-    device time, host ms per step) over a torch.profiler window of
+    """(device busy ms per step, idle share, the flash, fused-CE,
+    recurrent (LSTM or GRU loops and their products) and pooling kernels'
+    shares of device time, host ms per step) over a torch.profiler window of
     ``work()``, which does ``n`` steps and ends in a synchronize."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -855,6 +992,8 @@ def profile_calls(torch, work, n):
                  if "fused_ce_" in ev.key)
     rnn_us = sum(ev.self_device_time_total for ev in kernels
                  if any(k in ev.key for k in ("lstm_", "gru_", "rnn_gemm")))
+    pool_us = sum(ev.self_device_time_total for ev in kernels
+                  if "seqpool" in ev.key or "embed_pool" in ev.key)
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
     return {"device_busy_ms_per_step": busy_us / n / 1e3,
             "host_ms_per_step": wall_ms / n,
@@ -862,6 +1001,7 @@ def profile_calls(torch, work, n):
             "flash_share": flash_us / busy_us if busy_us else 0.0,
             "fused_ce_share": fce_us / busy_us if busy_us else 0.0,
             "rnn_share": rnn_us / busy_us if busy_us else 0.0,
+            "pool_share": pool_us / busy_us if busy_us else 0.0,
             "launches_per_step": sum(ev.count for ev in kernels) / n,
             "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
                              ev.count / n) for ev in top]}
@@ -1106,77 +1246,6 @@ def lstm_check(torch, fr, ins, cot, label):
     return errs, want
 
 
-def lstm_phase(torch, dev, card, t=LSTM["max_len"], b=LSTM_BATCH,
-               h=LSTM["hid_dim"], edge=LSTM_EDGE):
-    """The LSTM kernels against their plain versions at the training
-    shapes and at an edge shape, then timed beside plain and bound."""
-    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
-    ins, cot, _ = lstm_inputs(torch, dev, *edge, 12)
-    edge_errs, _ = lstm_check(torch, fr, ins, cot,
-                              f"edge T {edge[0]} B {edge[1]} H {edge[2]}")
-    print(f"[{card}] LSTM edge shape T {edge[0]} B {edge[1]} H {edge[2]}: "
-          f"max abs err "
-          + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
-    ins, cot, lens_sum = lstm_inputs(torch, dev, t, b, h, 13)
-    errs, want = lstm_check(torch, fr, ins, cot, f"T {t} B {b} H {h}")
-    print(f"[{card}] LSTM T {t} B {b} H {h}: max abs err "
-          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
-    hidden, cell = want[0], want[1]
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-
-    def autograd_pair():
-        leaves = [x.detach().requires_grad_() if x.is_floating_point()
-                  else x for x in ins]
-        outs = fr.lstm_train_fwd_plain(*leaves)
-        return torch.autograd.grad(
-            outs, [x for x in leaves if x.is_floating_point()], cot)
-    runs = {"lstm_train_fwd": (
-                lambda: fr.lstm_train_fwd(*ins),
-                lambda: fr.lstm_train_fwd_plain(*ins),
-                ("hidden", "cell", "h_last", "c_last")),
-            "lstm_train_bwd": (
-                lambda: fr.lstm_train_bwd(*ins, hidden, cell, *cot),
-                lambda: fr.lstm_train_bwd_plain(*ins, hidden, cell, *cot),
-                ("dx", "dw", "dpeep", "dh0", "dc0"))}
-    cost = lstm_cost(t, b, h, lens_sum)
-    dense = lstm_cost(t, b, h, t * b)
-    one = tuple(x[:, :1].contiguous() if x.dim() == 3 else x[:1].contiguous()
-                for x in ins[:1] + ins[3:])
-    one = (one[0], ins[1], ins[2]) + one[1:]
-    serial_ms = time_ms(torch, lambda: fr.lstm_train_fwd(*one), flush, n=20)
-    results = {}
-    for kname, (fn, ref, outs) in runs.items():
-        flops, nbytes = cost[kname]
-        bound_ms, bound_by = bound_of(flops, nbytes)
-        row = {"max_abs_err": max(errs[o] for o in outs),
-               "edge_max_abs_err": max(edge_errs[o] for o in outs),
-               "ms": time_ms(torch, fn, flush, n=20),
-               "plain_ms": time_ms(torch, ref, flush, n=3, warm=1),
-               "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-               "dense_bound_ms": bound_of(*dense[kname])[0],
-               "live_steps": lens_sum, "steps": t * b}
-        row["us_per_step"] = row["ms"] / t * 1e3
-        results[kname] = row
-        print(f"[{card}] {kname} [T {t}, B {b}, H {h}]: max abs err "
-              f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms "
-              f"({row['us_per_step']:.2f} us a step), plain "
-              f"{row['plain_ms']:.3f} ms, no library call, bound "
-              f"{bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP over "
-              f"the {lens_sum} live of {t * b} (row, step) pairs, "
-              f"{nbytes / 1e6:.1f} MB; all pairs {row['dense_bound_ms']:.3f} "
-              f"ms)")
-    results["lstm_train_fwd"]["serial_us_per_step"] = serial_ms / t * 1e3
-    results["lstm_train_bwd"]["autograd_plain_ms"] = time_ms(
-        torch, autograd_pair, flush, n=3, warm=1)
-    print(f"[{card}] LSTM forward at B 1 (barrier, carry round trip and "
-          f"cell latency, almost no arithmetic): {serial_ms:.3f} ms, "
-          f"{serial_ms / t * 1e3:.2f} us a step; plain forward + autograd "
-          f"backward {results['lstm_train_bwd']['autograd_plain_ms']:.3f} ms")
-    del flush
-    return results
-
-
 # -- phase 9: LSTM training -------------------------------------------------
 
 def lstm_weights(model, seed: int) -> dict:
@@ -1376,57 +1445,56 @@ def gru_check(torch, fr, ins, cot, label):
     return errs, want
 
 
-def gru_phase(torch, dev, card, t=MT["max_len"], b=MT_BATCH,
-              h=MT["hid_dim"], edge=GRU_EDGE):
-    """The GRU kernels against their plain versions at the training shapes
-    and at an edge shape, then timed beside plain and bound."""
-    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
-    ins, cot, _ = gru_inputs(torch, dev, *edge, 14)
-    edge_errs, _ = gru_check(torch, fr, ins, cot,
-                             f"edge T {edge[0]} B {edge[1]} H {edge[2]}")
-    print(f"[{card}] GRU edge shape T {edge[0]} B {edge[1]} H {edge[2]}: "
-          f"max abs err "
-          + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
-    ins, cot, lens_sum = gru_inputs(torch, dev, t, b, h, 15)
-    errs, want = gru_check(torch, fr, ins, cot, f"T {t} B {b} H {h}")
-    print(f"[{card}] GRU T {t} B {b} H {h}: max abs err "
-          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
-    hidden, rh = want[0], want[2]
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+def rnn_kinds():
+    """What differs between the LSTM's and the GRU's kernel checks."""
+    return {
+        "LSTM": dict(
+            names=("lstm_train_fwd", "lstm_train_bwd"), inputs=lstm_inputs,
+            check=lstm_check, cost=lstm_cost,
+            outs=(("hidden", "cell", "h_last", "c_last"),
+                  ("dx", "dw", "dpeep", "dh0", "dc0")),
+            residuals=(0, 1), batched=(3, 4, 5), seeds=(12, 13),
+            shape=(LSTM["max_len"], LSTM_BATCH, LSTM["hid_dim"]),
+            edge=LSTM_EDGE, wide=LSTM_WIDE,
+            serial="barrier, carry round trip and cell latency"),
+        "GRU": dict(
+            names=("gru_train_fwd", "gru_train_bwd"), inputs=gru_inputs,
+            check=gru_check, cost=gru_cost,
+            outs=(("hidden", "h_last", "rh"), ("dx", "dw", "dh0")),
+            residuals=(0, 2), batched=(2, 3), seeds=(14, 15),
+            shape=(MT["max_len"], MT_BATCH, MT["hid_dim"]), edge=GRU_EDGE,
+            wide=GRU_WIDE,
+            serial="two barriers, the state and r * h round trips and cell "
+                   "latency")}
 
-    def autograd_pair():
-        leaves = [x.detach().requires_grad_() if x.is_floating_point()
-                  else x for x in ins]
-        outs = fr.gru_train_fwd_plain(*leaves)[:2]
-        return torch.autograd.grad(
-            outs, [x for x in leaves if x.is_floating_point()], cot)
-    runs = {"gru_train_fwd": (
-                lambda: fr.gru_train_fwd(*ins),
-                lambda: fr.gru_train_fwd_plain(*ins),
-                ("hidden", "h_last", "rh")),
-            "gru_train_bwd": (
-                lambda: fr.gru_train_bwd(*ins, hidden, rh, *cot),
-                lambda: fr.gru_train_bwd_plain(*ins, hidden, rh, *cot),
-                ("dx", "dw", "dh0"))}
-    cost = gru_cost(t, b, h, lens_sum)
-    dense = gru_cost(t, b, h, t * b)
-    one = (ins[0][:, :1].contiguous(), ins[1], ins[2][:1].contiguous(),
-           ins[3][:1].contiguous())
-    serial_ms = time_ms(torch, lambda: fr.gru_train_fwd(*one), flush, n=20)
-    results = {}
-    for kname, (fn, ref, outs) in runs.items():
+
+def rnn_rows(torch, fr, card, kind, ins, cot, want, errs, lens_sum, flush):
+    """A recurrent pair at one shape timed beside plain and bound (no one
+    PyTorch call computes either), with the errors of its check."""
+    spec = rnn_kinds()[kind]
+    (t, b), h = ins[0].shape[:2], ins[1].shape[0]
+    res = tuple(want[i] for i in spec["residuals"])
+    fwd, bwd = (getattr(fr, n) for n in spec["names"])
+    fwd_plain, bwd_plain = (getattr(fr, n + "_plain") for n in spec["names"])
+    cost = spec["cost"](t, b, h, lens_sum)
+    dense = spec["cost"](t, b, h, t * b)
+    rows = {}
+    for kname, fn, ref, outs in (
+            (spec["names"][0], lambda: fwd(*ins), lambda: fwd_plain(*ins),
+             spec["outs"][0]),
+            (spec["names"][1], lambda: bwd(*ins, *res, *cot),
+             lambda: bwd_plain(*ins, *res, *cot), spec["outs"][1])):
         flops, nbytes = cost[kname]
         bound_ms, bound_by = bound_of(flops, nbytes)
-        row = {"max_abs_err": max(errs[o] for o in outs),
-               "edge_max_abs_err": max(edge_errs[o] for o in outs),
-               "ms": time_ms(torch, fn, flush, n=20),
-               "plain_ms": time_ms(torch, ref, flush, n=3, warm=1),
-               "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-               "dense_bound_ms": bound_of(*dense[kname])[0],
-               "live_steps": lens_sum, "steps": t * b}
+        row = rows[kname] = {
+            "max_abs_err": max(errs[o] for o in outs),
+            "ms": time_ms(torch, fn, flush, n=20),
+            "plain_ms": time_ms(torch, ref, flush, n=3, warm=1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": nbytes,
+            "dense_bound_ms": bound_of(*dense[kname])[0],
+            "live_steps": lens_sum, "steps": t * b}
         row["us_per_step"] = row["ms"] / t * 1e3
-        results[kname] = row
         print(f"[{card}] {kname} [T {t}, B {b}, H {h}]: max abs err "
               f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms "
               f"({row['us_per_step']:.2f} us a step), plain "
@@ -1435,14 +1503,67 @@ def gru_phase(torch, dev, card, t=MT["max_len"], b=MT_BATCH,
               f"the {lens_sum} live of {t * b} (row, step) pairs, "
               f"{nbytes / 1e6:.1f} MB; all pairs {row['dense_bound_ms']:.3f} "
               f"ms)")
-    results["gru_train_fwd"]["serial_us_per_step"] = serial_ms / t * 1e3
-    results["gru_train_bwd"]["autograd_plain_ms"] = time_ms(
-        torch, autograd_pair, flush, n=3, warm=1)
-    print(f"[{card}] GRU forward at B 1 (two barriers, the state and r * h "
-          f"round trips and cell latency, almost no arithmetic): "
-          f"{serial_ms:.3f} ms, {serial_ms / t * 1e3:.2f} us a step; plain "
-          f"forward + autograd backward "
-          f"{results['gru_train_bwd']['autograd_plain_ms']:.3f} ms")
+    return rows
+
+
+def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
+    """The LSTM or GRU kernels (``kind``) against their plain versions at
+    an edge shape, at the training shape and at the ``wide`` shapes above
+    H 512 (U 8 or 16 units a block, the slices of w in global scratch;
+    the GRU's last is the smallest input that raised before, x [1, 1,
+    1539]); the training shape and the first wide one timed beside plain
+    and bound, the training shape also at B 1 and against the plain
+    forward with its autograd backward."""
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    spec = rnn_kinds()[kind]
+    shape, edge = shape or spec["shape"], edge or spec["edge"]
+    wide = spec["wide"] if wide is None else wide
+    ins, cot, _ = spec["inputs"](torch, dev, *edge, spec["seeds"][0])
+    edge_errs, _ = spec["check"](torch, fr, ins, cot,
+                                 "edge T {} B {} H {}".format(*edge))
+    print(f"[{card}] {kind} edge shape T {edge[0]} B {edge[1]} H {edge[2]}: "
+          f"max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    results = {}
+    for i, (t, b, h) in enumerate((shape,) + tuple(wide)):
+        ins, cot, lens_sum = spec["inputs"](
+            torch, dev, t, b, h, spec["seeds"][1] if i == 0 else 29 + i)
+        errs, want = spec["check"](torch, fr, ins, cot, f"T {t} B {b} H {h}")
+        print(f"[{card}] {kind} T {t} B {b} H {h}: max abs err "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+        if i > 1:
+            continue
+        rows = rnn_rows(torch, fr, card, kind, ins, cot, want, errs,
+                        lens_sum, flush)
+        for kname, row in rows.items():
+            results[kname if i == 0 else f"{kname}/h{h}"] = row
+        if i:
+            continue
+        for kname, outs in zip(spec["names"], spec["outs"]):
+            results[kname]["edge_max_abs_err"] = max(edge_errs[o]
+                                                     for o in outs)
+        one = tuple(x[:, :1].contiguous() if j == 0 else
+                    x[:1].contiguous() if j in spec["batched"] else x
+                    for j, x in enumerate(ins))
+        fwd = getattr(fr, spec["names"][0])
+        serial_ms = time_ms(torch, lambda: fwd(*one), flush, n=20)
+
+        def autograd_pair():
+            leaves = [x.detach().requires_grad_() if x.is_floating_point()
+                      else x for x in ins]
+            outs = getattr(fr, spec["names"][0] + "_plain")(*leaves)
+            return torch.autograd.grad(
+                outs[:len(cot)], [x for x in leaves if x.is_floating_point()],
+                cot)
+        fwd_row, bwd_row = (results[n] for n in spec["names"])
+        fwd_row["serial_us_per_step"] = serial_ms / t * 1e3
+        bwd_row["autograd_plain_ms"] = time_ms(torch, autograd_pair, flush,
+                                               n=3, warm=1)
+        print(f"[{card}] {kind} forward at B 1 ({spec['serial']}, almost no "
+              f"arithmetic): {serial_ms:.3f} ms, {serial_ms / t * 1e3:.2f} us "
+              f"a step; plain forward + autograd backward "
+              f"{bwd_row['autograd_plain_ms']:.3f} ms")
     del flush
     return results
 
@@ -1488,19 +1609,22 @@ def mt_batches(seed: int, steps: int, b: int, t: int, vocab: int):
     return out
 
 
+def kernel_modules():
+    from paddle_tpu_torch.ops.kernels import (embed_pool, flash_attention,
+                                              fused_ce, fused_rnn,
+                                              paged_attention, seqpool)
+    return (flash_attention, fused_ce, fused_rnn, paged_attention, seqpool,
+            embed_pool)
+
+
 def all_launches():
     """Every kernel module's launch counts, by ``module.kernel``."""
-    from paddle_tpu_torch.ops.kernels import (flash_attention, fused_ce,
-                                              fused_rnn, paged_attention)
     return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": n
-            for m in (flash_attention, fused_ce, fused_rnn, paged_attention)
-            for k, n in m.LAUNCHES.items()}
+            for m in kernel_modules() for k, n in m.LAUNCHES.items()}
 
 
 def reset_all_launches():
-    from paddle_tpu_torch.ops.kernels import (flash_attention, fused_ce,
-                                              fused_rnn, paged_attention)
-    for m in (flash_attention, fused_ce, fused_rnn, paged_attention):
+    for m in kernel_modules():
         m.reset_launches()
 
 
@@ -1731,6 +1855,463 @@ def mt_beam_phase(torch, dev, card, model, batch=MT_BATCH, reps=5):
     return launched, stats
 
 
+# -- phase 13: pooling kernels ----------------------------------------------
+
+def seqpool_cost(b, d, lens_sum):
+    """Bytes of the masked pool: the live rows of x, the lengths and the
+    output; one add a float read (operations never bound it)."""
+    return lens_sum * d, lens_sum * d * 4 + b * 4 + b * d * 4
+
+
+def embed_pool_cost(b, d, lens_sum, distinct):
+    """Bytes of the gather + pool: each of the ``distinct`` rows of w that
+    a live position names, read once (a row named again comes from L2:
+    the op program's table is 2.56 MB), the ``lens_sum`` live ids, the
+    lengths and the output; one add a live element."""
+    return lens_sum * d, distinct * d * 4 + lens_sum * 4 + b * 4 + b * d * 4
+
+
+def ragged_lens(rng, b, t, zero=False):
+    """Lengths 1..T with one full row (and, with ``zero``, one empty)."""
+    lens = rng.randint(1, t + 1, b).astype(np.int32)
+    lens[0] = t
+    if zero:
+        lens[-1] = 0
+    return lens
+
+
+def pool_check(torch, label, got, want, scale, rtol=POOL_TOL["rtol"]):
+    """|got - want| <= atol + rtol * scale, with ``scale`` the same pool of
+    the absolute values: the error of a sum grows with the sum of its
+    terms' magnitudes, not with the (cancelling) sum itself. Returns the
+    max abs error and, at the element where an rtol of |want| itself
+    would be tightest, that element's error, |want| and scale."""
+    torch.cuda.synchronize()
+    wide = torch.complex128 if got.is_complex() else torch.float64
+    err = (got.to(wide) - want.to(wide)).abs().flatten()
+    mag = want.to(wide).abs().flatten()
+    at = int((err / (POOL_TOL["atol"] + rtol * mag)).argmax())
+    worst = (float(err.max()), float(err[at]), float(mag[at]),
+             float(scale.flatten()[at]))
+    if got.shape != want.shape or got.dtype != want.dtype or not bool(
+            torch.isfinite(got.to(wide)).all()) or bool(
+            (err > POOL_TOL["atol"] + rtol * scale.flatten()).any()):
+        fail(f"{label} differs from its plain version: max abs err "
+             f"{worst[0]} (rtol {rtol} of the pool of |x|, atol "
+             f"{POOL_TOL['atol']}); tightest against |plain|: err "
+             f"{worst[1]} where |plain| is {worst[2]} and the pool of |x| "
+             f"{worst[3]}")
+    return worst
+
+
+def pool_dtypes(torch, dev, card, sp, ep, rng):
+    """Both pooling kernels at every other dtype that the JAX op pools,
+    at a small ragged shape, against their plain versions (rtol of the
+    pool of |x|: fp16 and bf16 round the sum once where the plain
+    versions round it twice)."""
+    b, t, d, v = 6, 9, 12, 23
+    lens = torch.tensor([9, 0, 4, 1, 7, 3], device=dev)
+    ids = torch.from_numpy(rng.randint(0, v, (b, t))).to(dev)
+    errs = {}
+    for name, rtol in POOL_DTYPES.items():
+        dtype = getattr(torch, name)
+        wide = torch.complex128 if dtype.is_complex else torch.float64
+        x, w = (torch.from_numpy(rng.randn(*shape) * 4) for shape in
+                ((b, t, d), (v, d)))
+        if dtype.is_complex:
+            x, w = (torch.complex(a, torch.from_numpy(rng.randn(*a.shape)))
+                    for a in (x, w))
+        x, w = (a.to(dtype).to(dev) for a in (x, w))
+        err = max(pool_check(torch, f"seqpool {m} {dtype}",
+                             sp.masked_seqpool_fwd(x, lens, m),
+                             sp.masked_seqpool_ref(x, lens, m),
+                             sp.masked_seqpool_ref(x.to(wide).abs(), lens, m),
+                             rtol)[0] for m in sp.MODES)
+        if dtype != torch.bool:
+            err = max(err, pool_check(
+                torch, f"embed_pool {dtype}",
+                ep.fused_embed_seq_pool(w, ids, lens),
+                ep.fused_embed_seq_pool_ref(w, ids, lens),
+                ep.fused_embed_seq_pool_ref(w.to(wide).abs(), ids, lens),
+                rtol)[0])
+        errs[name] = err
+    print(f"[{card}] pooling kernels at other dtypes [{b}x{t}x{d}], table "
+          f"[{v}x{d}]: max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    return errs
+
+
+def pool_phase(torch, dev, card, seqpool=SEQPOOL, seqpool_edge=SEQPOOL_EDGE,
+               embed=EMBED_POOL, embed_edge=EMBED_EDGE):
+    """The masked sequence-pool kernel at the classifier's pools and the
+    gather + pool kernel at the op program's shape, each at an edge shape
+    and at the other dtypes too, against their plain versions; then timed
+    beside plain, bound and, for the gather + pool,
+    ``F.embedding_bag``."""
+    from paddle_tpu_torch.ops.kernels import embed_pool as ep
+    from paddle_tpu_torch.ops.kernels import seqpool as sp
+    import torch.nn.functional as F
+    rng = np.random.RandomState(16)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    results = {}
+
+    def worst_text(worst):
+        return (f"{worst[0]:.3g} (tightest against |plain|: err "
+                f"{worst[1]:.3g} where |plain| is {worst[2]:.4g}, the pool "
+                f"of |x| {worst[3]:.4g})")
+
+    for (b, t, d), main in ((seqpool_edge, False), (seqpool, True)):
+        x = torch.from_numpy(rng.randn(b, t, d).astype(np.float32)).to(dev)
+        lens_np = ragged_lens(rng, b, t, zero=not main)
+        lens = torch.from_numpy(lens_np).to(dev)
+        worst = {m: pool_check(torch, f"seqpool {m} [{b}x{t}x{d}]",
+                               sp.masked_seqpool_fwd(x, lens, m),
+                               sp.masked_seqpool_ref(x, lens, m),
+                               sp.masked_seqpool_ref(x.abs(), lens, m))
+                 for m in sp.MODES}
+        print(f"[{card}] seqpool [{b}x{t}x{d}], lengths {lens_np.min()}-"
+              f"{lens_np.max()}: max abs err "
+              + ", ".join(f"{m} {worst_text(w)}" for m, w in worst.items()))
+        err = max(w[0] for w in worst.values())
+        if not main:
+            edge_err = err
+            continue
+        lens_sum = int(lens_np.sum())
+        flops, nbytes = seqpool_cost(b, d, lens_sum)
+        bound_ms, bound_by = bound_of(flops, nbytes)
+        row = {"max_abs_err": err, "edge_max_abs_err": edge_err,
+               "ms": time_ms(torch, lambda: sp.masked_seqpool_fwd(
+                   x, lens, "SQRT"), flush),
+               "plain_ms": time_ms(torch, lambda: sp.masked_seqpool_ref(
+                   x, lens, "SQRT"), flush),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+               "live_rows": lens_sum, "rows": b * t,
+               "modes_ms": {m: time_ms(torch, lambda m=m: sp.masked_seqpool_fwd(
+                   x, lens, m), flush) for m in ("SUM", "AVERAGE")}}
+        results["seqpool"] = row
+        print(f"[{card}] seqpool SQRT [{b}x{t}x{d}]: kernel "
+              f"{row['ms'] * 1e3:.2f} us (SUM "
+              f"{row['modes_ms']['SUM'] * 1e3:.2f}, AVERAGE "
+              f"{row['modes_ms']['AVERAGE'] * 1e3:.2f}), plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, no library call (no one "
+              f"PyTorch call pools a padded batch by lengths), bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
+              f"{lens_sum} of {b * t} rows live)")
+
+    for (v, d, b, t), main in ((embed_edge, False), (embed, True)):
+        w = torch.from_numpy(rng.randn(v, d).astype(np.float32)).to(dev)
+        ids_np = rng.randint(0, v, (b, t)).astype(np.int64)
+        lens_np = ragged_lens(rng, b, t) if main else None
+        ids = torch.from_numpy(ids_np).to(dev)
+        lens = None if lens_np is None else torch.from_numpy(lens_np).to(dev)
+        worst = pool_check(torch, f"embed_pool [{v}x{d}] [{b}x{t}]",
+                           ep.fused_embed_seq_pool(w, ids, lens),
+                           ep.fused_embed_seq_pool_ref(w, ids, lens),
+                           ep.fused_embed_seq_pool_ref(w.abs(), ids, lens))
+        print(f"[{card}] embed_pool table [{v}x{d}], ids [{b}x{t}], "
+              f"{'ragged lengths' if main else 'no lengths'}: max abs err "
+              f"{worst_text(worst)}")
+        if not main:
+            edge_err = worst[0]
+            continue
+        # the library yardstick: embedding_bag over the live ids, one bag
+        # a row, held to the plain version first
+        live = np.arange(t)[None, :] < lens_np[:, None]
+        flat = torch.from_numpy(ids_np[live]).to(dev)
+        offsets = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(lens_np)[:-1]]).astype(np.int64)).to(dev)
+
+        def lib():
+            return F.embedding_bag(flat, w, offsets, mode="sum")
+        pool_check(torch, "embed_pool: the library yardstick", lib(),
+                   ep.fused_embed_seq_pool_ref(w, ids, lens),
+                   ep.fused_embed_seq_pool_ref(w.abs(), ids, lens))
+        lens_sum = int(lens_np.sum())
+        distinct = int(np.unique(ids_np[live]).size)
+        flops, nbytes = embed_pool_cost(b, d, lens_sum, distinct)
+        bound_ms, bound_by = bound_of(flops, nbytes)
+        row = {"max_abs_err": worst[0], "edge_max_abs_err": edge_err,
+               "ms": time_ms(torch, lambda: ep.fused_embed_seq_pool(
+                   w, ids, lens), flush),
+               "plain_ms": time_ms(torch, lambda: ep.fused_embed_seq_pool_ref(
+                   w, ids, lens), flush),
+               "library_ms": time_ms(torch, lib, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "flops": flops, "live_rows": lens_sum, "rows": b * t,
+               "distinct_rows": distinct}
+        results["embed_pool"] = row
+        print(f"[{card}] embed_pool [{v}x{d}] [{b}x{t}]: kernel "
+              f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} "
+              f"us, library {row['library_ms'] * 1e3:.2f} us "
+              f"(F.embedding_bag), bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}: {nbytes / 1e6:.2f} MB, {distinct} distinct of "
+              f"{lens_sum} live rows, {b * t} in all)")
+    results["dtypes_max_abs_err"] = pool_dtypes(torch, dev, card, sp, ep, rng)
+    del flush
+    return results
+
+
+# -- phase 14: text-conv training -------------------------------------------
+
+def textconv_model(torch, cfg, device):
+    """The book's convolution_net from the port's entry points: a sparse
+    table, two ``nets.SequenceConvPool`` (filter sizes 3 and 4, tanh,
+    ``"sqrt"``), a softmax ``fc`` over both, ``cross_entropy`` and
+    ``mean``; state keys those of ``convert.TEXTCONV_LAYOUT``."""
+    from torch import nn
+    from paddle_tpu_torch import nets
+    from paddle_tpu_torch.ops import nn_ops as tnn
+    v, e, f, c = (cfg["dict_dim"], cfg["emb_dim"], cfg["num_filters"],
+                  cfg["classes"])
+
+    class TextConv(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Parameter(torch.zeros(v, e, device=device))
+            self.conv3, self.conv4 = (nets.SequenceConvPool(
+                e, f, k, act="tanh", pool_type="sqrt", device=device)
+                for k in (3, 4))
+            self.fc_w0 = nn.Parameter(torch.zeros(f, c, device=device))
+            self.fc_w1 = nn.Parameter(torch.zeros(f, c, device=device))
+            self.fc_b = nn.Parameter(torch.zeros(c, device=device))
+
+        def forward(self, words, lens, label):
+            x = tnn.lookup_table(self.emb, words, sparse=True)
+            pred = tnn.fc([self.conv3(x, lens), self.conv4(x, lens)],
+                          [self.fc_w0, self.fc_w1], self.fc_b, act="softmax")
+            return tnn.mean(tnn.cross_entropy(pred, label))
+    return TextConv()
+
+
+def textconv_weights(cfg, seed: int) -> dict:
+    """Seeded weights under the JAX program's auto names: the table and
+    the matrices N(0, fan_in**-0.5), the biases 0."""
+    rng = np.random.RandomState(seed)
+    v, e, f, c = (cfg["dict_dim"], cfg["emb_dim"], cfg["num_filters"],
+                  cfg["classes"])
+
+    def normal(shape, fan_in):
+        return rng.normal(0.0, fan_in ** -0.5, shape).astype(np.float32)
+    return {"embedding_0.w_0": normal((v, e), e),
+            "sequence_conv_0.w_0": normal((3 * e, f), 3 * e),
+            "sequence_conv_0.b_0": np.zeros(f, np.float32),
+            "sequence_conv_1.w_0": normal((4 * e, f), 4 * e),
+            "sequence_conv_1.b_0": np.zeros(f, np.float32),
+            "fc_0.w_0": normal((f, c), 2 * f), "fc_0.w_1": normal((f, c), 2 * f),
+            "fc_0.b_0": np.zeros(c, np.float32)}
+
+
+def textconv_batch(seed: int, b: int, t: int, vocab: int, lean=0.8):
+    """(words [B,T] int64, seq_lens [B] int32, label [B,1] int64), fresh
+    for each ``seed``: ragged lengths 1..T with one full row; each row
+    draws its words from the upper half of the vocabulary with
+    probability ``lean`` or 1 - ``lean``, and its label says whether most
+    of its valid words lie in the upper half. (Words uniform over the
+    vocabulary, as phase 9's, give a signal that 10 Adagrad steps at 0.002
+    over fresh batches do not learn: the loss stays at ln 2.)"""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, t + 1, b).astype(np.int32)
+    lens[0] = t
+    half = vocab // 2
+    upper = rng.rand(b, t) < np.where(rng.rand(b) < 0.5, lean,
+                                      1 - lean)[:, None]
+    words = np.where(upper, rng.randint(half, vocab, (b, t)),
+                     rng.randint(0, half, (b, t))).astype(np.int64)
+    valid = np.arange(t)[None, :] < lens[:, None]
+    label = (2 * (upper & valid).sum(1) > lens).astype(np.int64)[:, None]
+    return words, lens, label
+
+
+def train_oracle(torch, make, state, feeds_np, steps):
+    """The first ``steps`` losses of the same model on the CPU, where the
+    wrappers take the plain versions, from the same weights and feeds."""
+    before = all_launches()
+    model, opt = make("cpu")
+    if state is not None:
+        model.load_state_dict(state)
+    losses = []
+    for feed in feeds_np[:steps]:
+        opt.zero_grad(set_to_none=True)
+        loss = model(*(torch.from_numpy(a) for a in feed))
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    if all_launches() != before:
+        fail("the CPU oracle launched a kernel")
+    return losses
+
+
+def check_oracle(label, losses, want, card, t0):
+    n = len(want)
+    if not np.allclose(losses[:n], want, rtol=CURVE_RTOL, atol=0.0):
+        fail(f"{label}: losses {losses[:n]} differ from the CPU oracle's "
+             f"{want} beyond rtol {CURVE_RTOL}")
+    gap = max(abs(x - y) / abs(y) for x, y in zip(losses[:n], want))
+    print(f"[{card}] {label}: the first {n} losses match the CPU oracle's "
+          f"within rtol {CURVE_RTOL} (max rel diff {gap:.3g}; oracle took "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return gap
+
+
+def textconv_phase(torch, dev, card, cfg=None, batch=TEXTCONV_BATCH,
+                   steps=TRAIN_STEPS, profile_steps=PROFILE_STEPS,
+                   oracle_steps=TEXTCONV_ORACLE_STEPS):
+    """The text-conv classifier's training on the card: 2 seqpool launches
+    a step and no other kernel, the CPU oracle over the first steps, and
+    the step-time and profiler numbers."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import convert
+    cfg = dict(TEXTCONV if cfg is None else cfg)
+    t = cfg["max_len"]
+    feeds_np = [textconv_batch(20 + i, batch, t, cfg["dict_dim"])
+                for i in range(steps + profile_steps)]
+    words = [int(f[1].sum()) for f in feeds_np]
+
+    def make(device):
+        model = textconv_model(torch, cfg, device)
+        return model, topt.Adagrad(model.parameters(),
+                                   learning_rate=TEXTCONV_LR)
+
+    state = convert.textconv_params_from_jax(textconv_weights(cfg, 21))
+    model, opt = make(dev)
+    model.load_state_dict(state)
+    feeds = [tuple(torch.from_numpy(a).to(dev) for a in f) for f in feeds_np]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, step_ms, per_step = train(torch, model, opt, feeds[:steps],
+                                      all_launches)
+    launched = all_launches()
+    want = {k: TEXTCONV_POOLS_PER_STEP if k == "seqpool.seqpool" else 0
+            for k in launched}
+    for i, c in enumerate(per_step):
+        if c != want:
+            fail(f"text-conv training: step {i} launched {c}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"text-conv training: losses {losses} are not finite and "
+             f"falling")
+    p50 = float(np.median(step_ms))
+    stats = {"losses": losses, "step_ms": step_ms, "step_p50_ms": p50,
+             "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+             "launches": {k: n for k, n in launched.items() if n},
+             "valid_words_per_step": float(np.mean(words[:steps])),
+             "padded_words": batch * t}
+    stats["words_per_s"] = stats["valid_words_per_step"] / p50 * 1e3
+    print(f"[{card}] text-conv classifier: losses "
+          f"{[round(x, 5) for x in losses]}; step p50 {p50:.3f} ms = "
+          f"{stats['words_per_s']:.0f} words/s "
+          f"({stats['valid_words_per_step']:.0f} valid words a step of "
+          f"{batch * t}); peak memory "
+          f"{stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; launches "
+          f"{stats['launches']} ({TEXTCONV_POOLS_PER_STEP} seqpool a step, "
+          f"no other kernel)")
+    if profile_steps:
+        stats["profile"] = prof = profile_window(torch, model, opt,
+                                                 feeds[steps:])
+        prof["idle_share_at_p50"] = 1.0 - prof[
+            "device_busy_ms_per_step"] / p50
+        print(f"[{card}] text-conv profile ({profile_steps} steps): host "
+              f"{prof['host_ms_per_step']:.3f} ms/step, device busy "
+              f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle share "
+              f"{prof['idle_share']:.3f} ({prof['idle_share_at_p50']:.3f} "
+              f"against the step p50), pooling kernels "
+              f"{prof['pool_share']:.4f} of device time, "
+              f"{prof['launches_per_step']:.0f} launches/step")
+        for key, us, count in prof["top_kernels"]:
+            print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+    del model, opt
+    t0 = time.perf_counter()
+    want_losses = train_oracle(torch, make, state, feeds_np, oracle_steps)
+    stats["oracle_losses"] = want_losses
+    stats["oracle_max_rel_diff"] = check_oracle(
+        "text-conv classifier", losses, want_losses, card, t0)
+    return launched, stats
+
+
+# -- phase 15: the fused_embedding_seq_pool op program ----------------------
+
+def op_program_feeds(cfg, batch, steps):
+    """Per step (ids [B, T] int64, lens [B] int32): fresh seeded ids over
+    the table but its last fifth (rows that no batch reads, where lazy
+    Adam's untouched rows show), ragged lengths with one full row."""
+    rng = np.random.RandomState(22)
+    t = cfg["max_len"]
+    return [(rng.randint(0, cfg["vocab"] * 4 // 5, (batch, t)).astype(
+        np.int64), ragged_lens(rng, batch, t)) for _ in range(steps)]
+
+
+def op_program_phase(torch, dev, card, cfg=None, batch=OP_PROGRAM_BATCH,
+                     steps=TRAIN_STEPS, oracle_steps=TEXTCONV_ORACLE_STEPS):
+    """``fused_embedding_seq_pool`` + ``mean`` + lazy Adam over the
+    row-sparse table gradient: one embed_pool launch a step and no other
+    kernel, the rows read inside no length bit-equal and every row read
+    inside one moved, and the CPU oracle over the first steps."""
+    from torch import nn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import convert
+    from paddle_tpu_torch.ops import lod_ops, nn_ops
+    cfg = dict(OP_PROGRAM if cfg is None else cfg)
+    table = (np.random.RandomState(23).rand(cfg["vocab"], cfg["dim"])
+             * 0.2).astype(np.float32)     # mean 0.1: a loss far from 0
+    init = convert.table_from_jax({"emb_w": table})
+    feeds_np = op_program_feeds(cfg, batch, steps)
+
+    class OpProgram(nn.Module):
+        def __init__(self, device):
+            super().__init__()
+            self.w = nn.Parameter(init.clone().to(device))
+
+        def forward(self, ids, lens):
+            return nn_ops.mean(lod_ops.fused_embedding_seq_pool(
+                self.w, ids, lens))
+
+    def make(device):
+        model = OpProgram(device)
+        return model, topt.Adam(model.parameters(), learning_rate=0.05,
+                                lazy_mode=True)
+
+    model, opt = make(dev)
+    feeds = [tuple(torch.from_numpy(a).to(dev) for a in f) for f in feeds_np]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    losses, step_ms, per_step = train(torch, model, opt, feeds, all_launches)
+    launched = all_launches()
+    want = {k: int(k == "embed_pool.embed_pool") for k in launched}
+    for i, c in enumerate(per_step):
+        if c != want:
+            fail(f"op program: step {i} launched {c}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"op program: losses {losses} are not finite and falling")
+    t = cfg["max_len"]
+    live = np.unique(np.concatenate([
+        ids[np.arange(t)[None, :] < lens[:, None]] for ids, lens in feeds_np]))
+    still = np.setdiff1d(np.arange(cfg["vocab"]), live)
+    now = model.w.detach().cpu()
+    if still.size == 0 or not torch.equal(now[still], init[still]):
+        fail(f"op program: rows read inside no length moved ({still.size} "
+             f"such rows)")
+    if bool((now[live] == init[live]).all(dim=1).any()):
+        fail("op program: a row read inside a length did not move")
+    stats = {"losses": losses, "step_ms": step_ms,
+             "step_p50_ms": float(np.median(step_ms)),
+             "launches": {k: n for k, n in launched.items() if n},
+             "rows_read": int(live.size), "rows_still": int(still.size)}
+    print(f"[{card}] fused_embedding_seq_pool program: losses "
+          f"{[round(x, 5) for x in losses]}; step p50 "
+          f"{stats['step_p50_ms']:.3f} ms; launches {stats['launches']} (one "
+          f"embed_pool a step, no other kernel); lazy Adam: {still.size} "
+          f"rows read inside no length bit-equal, all {live.size} rows read "
+          f"inside one moved")
+    del model, opt
+    t0 = time.perf_counter()
+    want_losses = train_oracle(torch, make, None, feeds_np, oracle_steps)
+    stats["oracle_losses"] = want_losses
+    stats["oracle_max_rel_diff"] = check_oracle(
+        "fused_embedding_seq_pool program", losses, want_losses, card, t0)
+    return launched, stats
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1760,12 +2341,16 @@ def main():
     fce = fused_ce_phase(torch, dev, card)
     launches, per_layer = slice_phase(torch, dev, card)
     train_launches, per_step, runs = train_phase(torch, dev, card)
-    lstm = lstm_phase(torch, dev, card)
+    lstm = rnn_phase(torch, dev, card, "LSTM")
     lstm_launches, lstm_per_step, lstm_run = lstm_train_phase(torch, dev,
                                                               card)
-    gru = gru_phase(torch, dev, card)
+    gru = rnn_phase(torch, dev, card, "GRU")
     mt_launches, mt_run, mt_model = mt_train_phase(torch, dev, card)
     gen_launches, gen_run = mt_beam_phase(torch, dev, card, mt_model)
+    del mt_model
+    pools = pool_phase(torch, dev, card)
+    tc_launches, tc_run = textconv_phase(torch, dev, card)
+    op_launches, op_run = op_program_phase(torch, dev, card)
     flash_launches = train_launches["fused_attention"]
 
     kernels = []
@@ -1838,6 +2423,24 @@ def main():
             "launches_per_generate": gen_launches[f"fused_rnn.{kname}"],
             "us_per_step": m["us_per_step"],
             "dense_bound_ms": m["dense_bound_ms"], "card": card})
+    for kname, source, path, line, launches, per_step in (
+            ("seqpool", SEQPOOL_SOURCE, "seqpool", 94,
+             tc_launches["seqpool.seqpool"], TEXTCONV_POOLS_PER_STEP),
+            ("embed_pool", EMBED_SOURCE, "embed_pool", 100,
+             op_launches["embed_pool.embed_pool"], 1)):
+        m = pools[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": f"paddle_tpu/ops/pallas/{path}.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(m["max_abs_err"], m["edge_max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "launches_per_train_step": per_step, "card": card})
+    wide = {key: row for res in (flash, fce, lstm, gru)
+            for key, row in res.items()
+            if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
     bf16 = measured["gather_rows/bf16"]
     print(json.dumps({"gather_rows_bf16": bf16, "card": card}))
     print(json.dumps({"training": runs, "card": card}))
@@ -1845,6 +2448,9 @@ def main():
                       "card": card}))
     print(json.dumps({"gru_kernels": gru, "mt_training": mt_run,
                       "mt_generate": gen_run, "card": card}))
+    print(json.dumps({"wide_kernels": wide, "pool_kernels": pools,
+                      "textconv_training": tc_run, "op_program": op_run,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -8,8 +8,9 @@
 //   paddle_flash_dq   <- _flash_bwd_impl (:455, pallas_call :481, _dq_kernel :342)
 //   paddle_flash_dkv  <- _flash_bwd_impl (:455, pallas_call :504, _dkv_kernel :396)
 //
-// All three take fp32 [BH, T, D] tensors (row-major, contiguous; D = 32, 64
-// or 128) and keep the TPU kernels' conventions: scores s = (q . k) * scale;
+// All three take fp32 [BH, T, D] tensors (row-major, contiguous; D = 32, 64,
+// 128 or 256: the wrapper zero-pads other head widths up to the next of
+// these, which is exact since the scale is passed in) and keep the TPU kernels' conventions: scores s = (q . k) * scale;
 // causal mask qpos >= kpos with qpos = (tk - tq) + query index, masked score
 // -1e30; attention-weight dropout (upscale_in_train) multiplies the softmax
 // numerator and dP only, with the keep bit from the same murmur-finalizer
@@ -34,12 +35,15 @@
 // query rows, dK/dV tiles their key rows). A block is 256 threads as a
 // 16 x 16 grid over a 64 x 64 score tile: thread (ty, tx) owns rows
 // ty + 16i and columns tx + 16j (i, j < 4), so a row's 16 owners sit in
-// one half-warp and its max and sum reduce with four xor shuffles. The
+// one half-warp and its max and sum reduce with four xor shuffles. At
+// D 256 the tiles are 32 x 32 (i, j < 2), so that four staged [32][257]
+// tiles (137 KB for dK/dV) fit in shared memory and the [2][16] rows of
+// o, dq, dk and dv a thread accumulates fit in registers (Tile). The
 // tiles of q, k, v and dO are staged in shared memory with rows padded to
 // D + 1 floats (the column-strided reads of k and v hit 16 distinct banks);
 // the probability tile goes through shared memory between the two
 // products. This is fp32 SIMT with no wgmma and no TMA: the simple, exact
-// first version. Ragged edges (T not a multiple of 64) are masked: rows
+// first version. Ragged edges (T not a multiple of the tile) are masked: rows
 // past T load as zeros and are never written, columns past tk get
 // probability 0. Causal tiles wholly above the diagonal are skipped
 // (_block_visible, :29).
@@ -54,11 +58,19 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per tile
-constexpr int kBK = 64;          // key rows per tile
 constexpr int kThreads = 256;    // 16 x 16
-constexpr int kLP = kBK + 1;     // padded row of a score tile
 constexpr float kNeg = -1e30f;   // _NEG: masked score and initial max
+
+// The tiles of head width D: RI query rows (and RI key columns of a score
+// tile) a thread, B = 16 RI rows a tile. 64-row tiles up to D 128; at D 256
+// tiles of 32 rows, so that the staged tiles fit in shared memory (dQ and
+// dK/dV stage four [B][D + 1] tiles) and the accumulators in registers.
+template <int D>
+struct Tile {
+  static constexpr int RI = D > 128 ? 2 : 4;
+  static constexpr int B = 16 * RI;
+  static constexpr int LP = B + 1;  // padded row of a score tile
+};
 
 struct Dropout {
   uint32_t seed;     // the int32 seed's bits
@@ -104,27 +116,27 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
   }
 }
 
-// a[i][j] = sum_d x[ty + 16i][d] * y[tx + 16j][d] over two [64][D + 1] tiles
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&a)[4][4],
+// a[i][j] = sum_d x[ty + 16i][d] * y[tx + 16j][d] over two [B][D + 1] tiles
+template <int D, int RI = Tile<D>::RI>
+__device__ __forceinline__ void tile_dot(float (&a)[RI][RI],
                                          const float* __restrict__ x,
                                          const float* __restrict__ y,
                                          int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) a[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float xv[4], yv[4];
+    float xv[RI], yv[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = x[(ty + 16 * i) * (D + 1) + d];
+    for (int i = 0; i < RI; ++i) xv[i] = x[(ty + 16 * i) * (D + 1) + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) yv[j] = y[(tx + 16 * j) * (D + 1) + d];
+    for (int j = 0; j < RI; ++j) yv[j] = y[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
+      for (int j = 0; j < RI; ++j) a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
   }
 }
 
@@ -143,18 +155,20 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// key tiles [0, n) that a query tile ending (exclusive) at q_end can see
+// key tiles of bk rows [0, n) that a query tile ending (exclusive) at q_end
+// can see
 __device__ __forceinline__ int visible_key_tiles(int tk, int causal,
-                                                 int q_off, int q_end) {
-  const int n = (tk + kBK - 1) / kBK;
+                                                 int q_off, int q_end,
+                                                 int bk) {
+  const int n = (tk + bk - 1) / bk;
   if (!causal) return n;
   const int last = q_off + q_end;  // keys < last are visible to some row
-  const int v = last > 0 ? (last + kBK - 1) / kBK : 0;
+  const int v = last > 0 ? (last + bk - 1) / bk : 0;
   return v < n ? v : n;
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (BH, ceil(tq / 64)); o [BH, tq, D], lse [BH, tq]
+// forward: grid (BH, ceil(tq / B)); o [BH, tq, D], lse [BH, tq]
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -162,42 +176,44 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ lse, int tq, int tk, int causal,
                  float scale, Dropout dr) {
   constexpr int LD = D + 1, DJ = D / 16;
+  constexpr int RI = Tile<D>::RI, BQ = Tile<D>::B, BK = Tile<D>::B;
+  constexpr int LP = Tile<D>::LP;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + kBQ * LD;
-  float* sV = sK + kBK * LD;
-  float* sP = sV + kBK * LD;  // [kBQ][kLP], numerator weights p * keep
-  const int bh = blockIdx.x, q0 = blockIdx.y * kBQ;
+  float* sK = sQ + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sP = sV + BK * LD;  // [BQ][LP], numerator weights p * keep
+  const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q_off = tk - tq;
   const size_t qbase = static_cast<size_t>(bh) * tq * D;
   const size_t kbase = static_cast<size_t>(bh) * tk * D;
-  load_tile<D, kBQ>(sQ, q + qbase, q0, tq);
+  load_tile<D, BQ>(sQ, q + qbase, q0, tq);
 
-  float m[4], l[4], acc[4][DJ];
+  float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
-  const int q_end = min(q0 + kBQ, tq);
-  const int n_kt = visible_key_tiles(tk, causal, q_off, q_end);
+  const int q_end = min(q0 + BQ, tq);
+  const int n_kt = visible_key_tiles(tk, causal, q_off, q_end, BK);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * BK;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<D, kBK>(sK, k + kbase, k0, tk);
-    load_tile<D, kBK>(sV, v + kbase, k0, tk);
+    load_tile<D, BK>(sK, k + kbase, k0, tk);
+    load_tile<D, BK>(sV, v + kbase, k0, tk);
     __syncthreads();
-    float s[4][4];
+    float s[RI][RI];
     tile_dot<D>(s, sQ, sK, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qpos = q_off + q0 + ty + 16 * i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float sv = s[i][j] * scale;
         if (causal && qpos < kpos) sv = kNeg;
@@ -208,13 +224,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float p = expf(s[i][j] - m_new);
         rs += p;
         const float pv = dr.on ? p * keep_factor(dr, bh, qpos,
                                                  k0 + tx + 16 * j)
                                : p;
-        sP[(ty + 16 * i) * kLP + tx + 16 * j] = pv;
+        sP[(ty + 16 * i) * LP + tx + 16 * j] = pv;
       }
       l[i] = l[i] * alpha + row_sum(rs);
       m[i] = m_new;
@@ -223,20 +239,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4], vv[DJ];
+    for (int c = 0; c < BK; ++c) {
+      float pv[RI], vv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kLP + c];
+      for (int i = 0; i < RI; ++i) pv[i] = sP[(ty + 16 * i) * LP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) vv[j] = sV[c * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= tq) continue;
     const float safe_l = fmaxf(l[i], 1e-30f);
@@ -248,7 +264,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dQ: grid (BH, ceil(tq / 64)); dq [BH, tq, D]
+// dQ: grid (BH, ceil(tq / B)); dq [BH, tq, D]
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -257,24 +273,26 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ dlse, float* __restrict__ dq,
                 int tq, int tk, int causal, float scale, Dropout dr) {
   constexpr int LD = D + 1, DJ = D / 16;
+  constexpr int RI = Tile<D>::RI, BQ = Tile<D>::B, BK = Tile<D>::B;
+  constexpr int LP = Tile<D>::LP;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sG = sQ + kBQ * LD;  // dO
-  float* sK = sG + kBQ * LD;
-  float* sV = sK + kBK * LD;
-  float* sS = sV + kBK * LD;  // [kBQ][kLP], dS
-  const int bh = blockIdx.x, q0 = blockIdx.y * kBQ;
+  float* sG = sQ + BQ * LD;  // dO
+  float* sK = sG + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sS = sV + BK * LD;  // [BQ][LP], dS
+  const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q_off = tk - tq;
   const size_t qbase = static_cast<size_t>(bh) * tq * D;
   const size_t kbase = static_cast<size_t>(bh) * tk * D;
   const size_t rbase = static_cast<size_t>(bh) * tq;
-  load_tile<D, kBQ>(sQ, q + qbase, q0, tq);
-  load_tile<D, kBQ>(sG, dout + qbase, q0, tq);
+  load_tile<D, BQ>(sQ, q + qbase, q0, tq);
+  load_tile<D, BQ>(sG, dout + qbase, q0, tq);
 
-  float row_lse[4], corr[4], acc[4][DJ];
+  float row_lse[RI], corr[RI], acc[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     row_lse[i] = qi < tq ? lse[rbase + qi] : 0.f;
     // ds = p * (dp - delta + dlse) (:385-386)
@@ -283,46 +301,46 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
-  const int n_kt = visible_key_tiles(tk, causal, q_off, min(q0 + kBQ, tq));
+  const int n_kt = visible_key_tiles(tk, causal, q_off, min(q0 + BQ, tq), BK);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * BK;
     __syncthreads();
-    load_tile<D, kBK>(sK, k + kbase, k0, tk);
-    load_tile<D, kBK>(sV, v + kbase, k0, tk);
+    load_tile<D, BK>(sK, k + kbase, k0, tk);
+    load_tile<D, BK>(sV, v + kbase, k0, tk);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
     tile_dot<D>(s, sQ, sK, ty, tx);
     tile_dot<D>(dp, sG, sV, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qpos = q_off + q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float sv = s[i][j] * scale;
         if (causal && qpos < kpos) sv = kNeg;
         const float p = kpos < tk ? expf(sv - row_lse[i]) : 0.f;
         const float dpv = dr.on ? dp[i][j] * keep_factor(dr, bh, qpos, kpos)
                                 : dp[i][j];
-        sS[(ty + 16 * i) * kLP + tx + 16 * j] = p * (dpv - corr[i]);
+        sS[(ty + 16 * i) * LP + tx + 16 * j] = p * (dpv - corr[i]);
       }
     }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float dsv[4], kv[DJ];
+    for (int c = 0; c < BK; ++c) {
+      float dsv[RI], kv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sS[(ty + 16 * i) * kLP + c];
+      for (int i = 0; i < RI; ++i) dsv[i] = sS[(ty + 16 * i) * LP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) kv[j] = sK[c * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= tq) continue;
     float* row = dq + qbase + static_cast<size_t>(qi) * D;
@@ -332,7 +350,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: grid (BH, ceil(tk / 64)); dk, dv [BH, tk, D]
+// dK, dV: grid (BH, ceil(tk / B)); dk, dv [BH, tk, D]
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -343,38 +361,40 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dv, int tq, int tk, int causal,
                  float scale, Dropout dr) {
   constexpr int LD = D + 1, DJ = D / 16;
+  constexpr int RI = Tile<D>::RI, BQ = Tile<D>::B, BK = Tile<D>::B;
+  constexpr int LP = Tile<D>::LP;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + kBK * LD;
-  float* sQ = sV + kBK * LD;
-  float* sG = sQ + kBQ * LD;   // dO
-  float* sP = sG + kBQ * LD;   // [kBQ][kLP], p * keep
-  float* sS = sP + kBQ * kLP;  // [kBQ][kLP], dS
-  float* sL = sS + kBQ * kLP;  // [kBQ] lse
-  float* sC = sL + kBQ;        // [kBQ] delta - dlse
-  const int bh = blockIdx.x, k0 = blockIdx.y * kBK;
+  float* sV = sK + BK * LD;
+  float* sQ = sV + BK * LD;
+  float* sG = sQ + BQ * LD;   // dO
+  float* sP = sG + BQ * LD;   // [BQ][LP], p * keep
+  float* sS = sP + BQ * LP;   // [BQ][LP], dS
+  float* sL = sS + BQ * LP;   // [BQ] lse
+  float* sC = sL + BQ;        // [BQ] delta - dlse
+  const int bh = blockIdx.x, k0 = blockIdx.y * BK;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q_off = tk - tq;
   const size_t qbase = static_cast<size_t>(bh) * tq * D;
   const size_t kbase = static_cast<size_t>(bh) * tk * D;
   const size_t rbase = static_cast<size_t>(bh) * tq;
-  load_tile<D, kBK>(sK, k + kbase, k0, tk);
-  load_tile<D, kBK>(sV, v + kbase, k0, tk);
+  load_tile<D, BK>(sK, k + kbase, k0, tk);
+  load_tile<D, BK>(sV, v + kbase, k0, tk);
 
-  float acc_k[4][DJ], acc_v[4][DJ];
+  float acc_k[RI][DJ], acc_v[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-  const int n_qt = (tq + kBQ - 1) / kBQ;
+  const int n_qt = (tq + BQ - 1) / BQ;
   for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ;
+    const int q0 = qt * BQ;
     // query tile qt sees this key tile iff its last query reaches it (:421)
-    if (causal && k0 >= q_off + min(q0 + kBQ, tq)) continue;
+    if (causal && k0 >= q_off + min(q0 + BQ, tq)) continue;
     __syncthreads();
-    load_tile<D, kBQ>(sQ, q + qbase, q0, tq);
-    load_tile<D, kBQ>(sG, dout + qbase, q0, tq);
-    if (threadIdx.x < kBQ) {
+    load_tile<D, BQ>(sQ, q + qbase, q0, tq);
+    load_tile<D, BQ>(sG, dout + qbase, q0, tq);
+    if (threadIdx.x < BQ) {
       const int qi = q0 + threadIdx.x;
       sL[threadIdx.x] = qi < tq ? lse[rbase + qi] : 0.f;
       sC[threadIdx.x] = qi < tq ? delta[rbase + qi] -
@@ -383,33 +403,33 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     // score tile in (query row, key column) order
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
     tile_dot<D>(s, sQ, sK, ty, tx);
     tile_dot<D>(dp, sG, sV, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
       const int qi = q0 + r, qpos = q_off + qi;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float sv = s[i][j] * scale;
         if (causal && qpos < kpos) sv = kNeg;
         const float p = (qi < tq && kpos < tk) ? expf(sv - sL[r]) : 0.f;
         const float keep = dr.on ? keep_factor(dr, bh, qpos, kpos) : 1.f;
-        sP[r * kLP + tx + 16 * j] = p * keep;
-        sS[r * kLP + tx + 16 * j] = p * (dp[i][j] * keep - sC[r]);
+        sP[r * LP + tx + 16 * j] = p * keep;
+        sS[r * LP + tx + 16 * j] = p * (dp[i][j] * keep - sC[r]);
       }
     }
     __syncthreads();
     // dV[c] += sum_r (p keep)[r][c] dO[r];  dK[c] += sum_r dS[r][c] Q[r]
 #pragma unroll 4
-    for (int r = 0; r < kBQ; ++r) {
-      float pv[4], sv[4], gv[DJ], qv[DJ];
+    for (int r = 0; r < BQ; ++r) {
+      float pv[RI], sv[RI], gv[DJ], qv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[r * kLP + ty + 16 * i];
-        sv[i] = sS[r * kLP + ty + 16 * i];
+      for (int i = 0; i < RI; ++i) {
+        pv[i] = sP[r * LP + ty + 16 * i];
+        sv[i] = sS[r * LP + ty + 16 * i];
       }
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
@@ -417,7 +437,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         qv[j] = sQ[r * LD + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           acc_v[i][j] = fmaf(pv[i], gv[j], acc_v[i][j]);
@@ -426,7 +446,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= tk) continue;
     float* krow = dk + kbase + static_cast<size_t>(kj) * D;
@@ -439,15 +459,20 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-constexpr size_t fwd_smem(int d) {
-  return sizeof(float) * ((kBQ + 2 * kBK) * (d + 1) + kBQ * kLP);
+template <int D>
+constexpr size_t fwd_smem() {
+  constexpr int B = Tile<D>::B;
+  return sizeof(float) * (3 * B * (D + 1) + B * Tile<D>::LP);
 }
-constexpr size_t dq_smem(int d) {
-  return sizeof(float) * ((2 * kBQ + 2 * kBK) * (d + 1) + kBQ * kLP);
+template <int D>
+constexpr size_t dq_smem() {
+  constexpr int B = Tile<D>::B;
+  return sizeof(float) * (4 * B * (D + 1) + B * Tile<D>::LP);
 }
-constexpr size_t dkv_smem(int d) {
-  return sizeof(float) *
-         ((2 * kBK + 2 * kBQ) * (d + 1) + 2 * kBQ * kLP + 2 * kBQ);
+template <int D>
+constexpr size_t dkv_smem() {
+  constexpr int B = Tile<D>::B;
+  return sizeof(float) * (4 * B * (D + 1) + 2 * B * Tile<D>::LP + 2 * B);
 }
 
 // above 48 KB a kernel needs the opt-in, once per instantiation
@@ -471,10 +496,10 @@ template <int D>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v,
                        float* o, float* lse, int bh, int tq, int tk,
                        int causal, float scale, Dropout dr, cudaStream_t s) {
-  const size_t smem = fwd_smem(D);
+  const size_t smem = fwd_smem<D>();
   cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kBQ - 1) / kBQ);
+  const dim3 grid(bh, (tq + Tile<D>::B - 1) / Tile<D>::B);
   flash_fwd_kernel<D><<<grid, kThreads, smem, s>>>(q, k, v, o, lse, tq, tk,
                                                    causal, scale, dr);
   return cudaGetLastError();
@@ -485,10 +510,10 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* g, const float* lse, const float* delta,
                       const float* dlse, float* dq, int bh, int tq, int tk,
                       int causal, float scale, Dropout dr, cudaStream_t s) {
-  const size_t smem = dq_smem(D);
+  const size_t smem = dq_smem<D>();
   cudaError_t err = allow_smem(flash_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kBQ - 1) / kBQ);
+  const dim3 grid(bh, (tq + Tile<D>::B - 1) / Tile<D>::B);
   flash_dq_kernel<D><<<grid, kThreads, smem, s>>>(
       q, k, v, g, lse, delta, dlse, dq, tq, tk, causal, scale, dr);
   return cudaGetLastError();
@@ -500,18 +525,19 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dlse, float* dk, float* dv, int bh,
                        int tq, int tk, int causal, float scale, Dropout dr,
                        cudaStream_t s) {
-  const size_t smem = dkv_smem(D);
+  const size_t smem = dkv_smem<D>();
   cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + kBK - 1) / kBK);
+  const dim3 grid(bh, (tk + Tile<D>::B - 1) / Tile<D>::B);
   flash_dkv_kernel<D><<<grid, kThreads, smem, s>>>(
       q, k, v, g, lse, delta, dlse, dk, dv, tq, tk, causal, scale, dr);
   return cudaGetLastError();
 }
 
+// the smallest tiles (32 rows, D 256) bound the grid's second dimension
 bool shapes_ok(int bh, int tq, int tk) {
-  return bh > 0 && tq > 0 && tk > 0 && (tq + kBQ - 1) / kBQ <= 65535 &&
-         (tk + kBK - 1) / kBK <= 65535;
+  return bh > 0 && tq > 0 && tk > 0 && (tq + 31) / 32 <= 65535 &&
+         (tk + 31) / 32 <= 65535;
 }
 
 }  // namespace
@@ -529,6 +555,7 @@ extern "C" int paddle_flash_fwd(const float* q, const float* k,
     case 32: return launch_fwd<32>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
     case 64: return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
     case 128: return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
+    case 256: return launch_fwd<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -547,6 +574,7 @@ extern "C" int paddle_flash_dq(const float* q, const float* k,
     case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
     case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
     case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
+    case 256: return launch_dq<256>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -566,6 +594,7 @@ extern "C" int paddle_flash_dkv(const float* q, const float* k,
     case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
     case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
+    case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,8 @@
 //   paddle_fused_ce_dw   <- the same TPU kernel, dW
 //
 // Inputs are fp32 and contiguous: x [N, D] row-major, w [D, V] row-major,
-// labels [N] int32; D <= 512. With z = x @ w the forward writes, per row,
+// labels [N] int32; any D (wider than 512 in chunks, below). With z = x @ w
+// the forward writes, per row,
 //   lse  = max z + log(sum exp(z - max z))
 //   loss = lse - (1 - eps) * z[label] - eps * sum(z) / V   (0 where label ==
 //          ignore_index)
@@ -61,6 +62,17 @@
 // TMA: the simple, exact first version.
 // Ragged edges (N, V not multiples of the tiles, any D <= 512) load as zeros
 // and are masked out of the statistics and of dz, and never written.
+//   D > 512 (transformer_big's d_model 1024): a P tile of 32 x D no longer
+// fits beside Q, nor the [32, D] dx accumulator in registers. The depth is
+// then taken in chunks of 512 in increasing order (chunked_scores): each
+// chunk of P and of Q is staged anew and each thread carries its two
+// half-sums over the chunks in registers, the same order in all three
+// kernels, so their z still agree bit for bit. The dx and dW kernels give
+// each block one 512-wide chunk of their output (a second grid dimension):
+// every block recomputes z over the whole of D, then stages the Q tile of
+// its own chunk for the product. That costs one more recompute of z per
+// output chunk; it is exact and deterministic. D <= 512 keeps the path
+// above.
 //
 // Each function launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() of its launches (0 = success;
@@ -79,24 +91,27 @@ constexpr int kLP = kP + 4;     // sP row stride: [d][p], 16-byte aligned
 constexpr int kLQ = kQ + 1;     // sQ row stride: [d][q], odd
 constexpr int kLS = kQ + 1;     // sS row stride: [p][q]
 constexpr int kLG = kP + 4;     // sG row stride: [q][p], 16-byte aligned
-constexpr int kMaxD = 512;
+constexpr int kChunkD = 512;    // the widest D held whole in shared memory
 constexpr float kNeg = -1e30f;  // the TPU kernel's initial running max
 
-// sP[dd][p] <- the fixed tile: rows p0.. of x (kPRows) or columns p0.. of w
+// sP[dd][p] <- the fixed tile over depth [d0, d0 + dc) of the row width d:
+// rows p0.. of x (kPRows) or columns p0.. of w
 template <bool kPRows>
 __device__ __forceinline__ void load_p(float* __restrict__ sP,
                                        const float* __restrict__ x,
                                        const float* __restrict__ w, int p0,
-                                       int n, int d, int v) {
-  for (int i = threadIdx.x; i < kP * d; i += kThreads) {
+                                       int n, int d, int d0, int dc, int v) {
+  for (int i = threadIdx.x; i < kP * dc; i += kThreads) {
     if (kPRows) {
-      const int p = i / d, dd = i - p * d;
+      const int p = i / dc, dd = i - p * dc;
       sP[dd * kLP + p] =
-          p0 + p < n ? __ldg(x + static_cast<size_t>(p0 + p) * d + dd) : 0.f;
+          p0 + p < n ? __ldg(x + static_cast<size_t>(p0 + p) * d + d0 + dd)
+                     : 0.f;
     } else {
       const int dd = i / kP, p = i % kP;
       sP[dd * kLP + p] =
-          p0 + p < v ? __ldg(w + static_cast<size_t>(dd) * v + p0 + p) : 0.f;
+          p0 + p < v ? __ldg(w + static_cast<size_t>(d0 + dd) * v + p0 + p)
+                     : 0.f;
     }
   }
 }
@@ -115,47 +130,44 @@ __device__ __forceinline__ void copies_done() {
                    : "memory");
 }
 
-// sQ[dd][q] <- the streamed tile: columns q0.. of w (kPRows) or rows q0.. of
-// x. Every element is its own asynchronous copy, so a thread has its whole
-// share of the tile in flight at once instead of a few loads at a time;
-// the caller's barrier follows copies_done().
+// sQ[dd][q] <- the streamed tile over depth [d0, d0 + dc) of the row width
+// d: columns q0.. of w (kPRows) or rows q0.. of x. Every element is its own
+// asynchronous copy, so a thread has its whole share of the tile in flight
+// at once instead of a few loads at a time; the caller's barrier follows
+// copies_done().
 template <bool kPRows>
 __device__ __forceinline__ void load_q(float* __restrict__ sQ,
                                        const float* __restrict__ x,
                                        const float* __restrict__ w, int q0,
-                                       int n, int d, int v) {
+                                       int n, int d, int d0, int dc, int v) {
   if (kPRows) {  // rows of 64 columns, coalesced along q
     const int q = threadIdx.x % kQ;
     const bool ok = q0 + q < v;
-    const float* src = w + (ok ? q0 + q : 0);
-    for (int dd = threadIdx.x / kQ; dd < d; dd += kThreads / kQ)
+    const float* src = w + static_cast<size_t>(d0) * v + (ok ? q0 + q : 0);
+    for (int dd = threadIdx.x / kQ; dd < dc; dd += kThreads / kQ)
       copy4(sQ + dd * kLQ + q, src + static_cast<size_t>(dd) * v, ok);
   } else {       // rows of x, coalesced along d
     for (int q = 0; q < kQ; ++q) {
       const bool ok = q0 + q < n;
-      const float* src = x + (ok ? static_cast<size_t>(q0 + q) * d : 0);
-      for (int dd = threadIdx.x; dd < d; dd += kThreads)
+      const float* src = x + (ok ? static_cast<size_t>(q0 + q) * d : 0) + d0;
+      for (int dd = threadIdx.x; dd < dc; dd += kThreads)
         copy4(sQ + dd * kLQ + q, src + dd, ok);
     }
   }
   copies_done();
 }
 
-// sS[p][q] = sum_dd sP[dd][p] * sQ[dd][q]: each half of the block sums half
-// of d, then the first half adds the second's sum to its own. Every thread
-// must call it; it ends in a barrier.
-__device__ __forceinline__ void scores(float* __restrict__ sS,
-                                       const float* __restrict__ sP,
-                                       const float* __restrict__ sQ, int d) {
+// acc[i][e] += sum_dd sP[dd][p] * sQ[dd][q] over this thread's half of the
+// staged depth d: threads 0-127 take the first half, 128-255 the second,
+// p = 4 tp + i, q = tq + 16 e.
+__device__ __forceinline__ void scores_add(float (&acc)[4][4],
+                                           const float* __restrict__ sP,
+                                           const float* __restrict__ sQ,
+                                           int d) {
   const int half = threadIdx.x / 128, u = threadIdx.x % 128;
-  const int tp = u / 16, tq = u % 16;  // p = 4 tp + i, q = tq + 16 e
+  const int tp = u / 16, tq = u % 16;
   const int dh = (d + 1) / 2;
   const int d0 = half * dh, d1 = min(d, d0 + dh);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 #pragma unroll 4
   for (int k = d0; k < d1; ++k) {
     const float4 pv = *reinterpret_cast<const float4*>(sP + k * kLP + 4 * tp);
@@ -168,6 +180,14 @@ __device__ __forceinline__ void scores(float* __restrict__ sS,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(pr[i], qv[e], acc[i][e]);
   }
+}
+
+// sS[p][q] <- the first half's sums plus the second's, in that order. Every
+// thread must call it; it ends in a barrier.
+__device__ __forceinline__ void scores_out(float* __restrict__ sS,
+                                           const float (&acc)[4][4]) {
+  const int half = threadIdx.x / 128, u = threadIdx.x % 128;
+  const int tp = u / 16, tq = u % 16;
   if (half == 1) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -186,6 +206,46 @@ __device__ __forceinline__ void scores(float* __restrict__ sS,
       }
   }
   __syncthreads();
+}
+
+// sS[p][q] = sum_dd sP[dd][p] * sQ[dd][q] over one staged depth d (<= 512).
+// Every thread must call it; it ends in a barrier.
+__device__ __forceinline__ void scores(float* __restrict__ sS,
+                                       const float* __restrict__ sP,
+                                       const float* __restrict__ sQ, int d) {
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  scores_add(acc, sP, sQ, d);
+  scores_out(sS, acc);
+}
+
+// The same scores for D > 512: the depth in chunks of 512 in increasing
+// order, both tiles of each chunk staged anew (P does not fit whole), each
+// thread's half-sums carried over the chunks in registers. All three kernels
+// take this path for the same D, so their z agree bit for bit. Starts and
+// ends with a barrier.
+template <bool kPRows>
+__device__ __forceinline__ void chunked_scores(
+    float* __restrict__ sS, float* __restrict__ sP, float* __restrict__ sQ,
+    const float* __restrict__ x, const float* __restrict__ w, int p0, int q0,
+    int n, int d, int v) {
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int d0 = 0; d0 < d; d0 += kChunkD) {
+    const int dc = min(kChunkD, d - d0);
+    __syncthreads();  // the last reads of sP, sQ and sS are done
+    load_p<kPRows>(sP, x, w, p0, n, d, d0, dc, v);
+    load_q<kPRows>(sQ, x, w, q0, n, d, d0, dc, v);
+    __syncthreads();
+    scores_add(acc, sP, sQ, dc);
+  }
+  scores_out(sS, acc);
 }
 
 // reductions over the eight lanes that share one score row
@@ -210,17 +270,20 @@ __host__ __device__ constexpr int fwd_smem_floats(int d) {
 // ---------------------------------------------------------------------------
 // forward, grid (ceil(N / 32), splits): the running (max, sumexp, sum z,
 // z_label) of each row over vocab chunks [s * cps, (s + 1) * cps) of 64
-// columns, written to part [4][splits][N]
+// columns, written to part [4][splits][N]. kChunked: D > 512, the scores
+// by chunked_scores.
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const int* __restrict__ labels, float* __restrict__ part,
                     int n, int d, int v, int cps) {
   extern __shared__ float smem[];
+  const int ds = kChunked ? kChunkD : d;  // depth of the staged tiles
   float* sP = smem;
-  float* sQ = sP + d * kLP;
-  float* sS = sQ + d * kLQ;
+  float* sQ = sP + ds * kLP;
+  float* sS = sQ + ds * kLQ;
   const int p0 = blockIdx.x * kP, s = blockIdx.y, splits = gridDim.y;
-  load_p<true>(sP, x, w, p0, n, d, v);
+  if (!kChunked) load_p<true>(sP, x, w, p0, n, d, 0, d, v);
   const int p = threadIdx.x / 8, sub = threadIdx.x % 8;
   const int row = p0 + p;
   const int lab = row < n ? labels[row] : -1;
@@ -229,10 +292,14 @@ fused_ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int cb = s * cps, ce = min(n_chunks, cb + cps);
   for (int c = cb; c < ce; ++c) {
     const int q0 = c * kQ;
-    __syncthreads();  // the previous chunk's reads of sQ and sS are done
-    load_q<true>(sQ, x, w, q0, n, d, v);
-    __syncthreads();
-    scores(sS, sP, sQ, d);
+    if (kChunked) {
+      chunked_scores<true>(sS, sP, sQ, x, w, p0, q0, n, d, v);
+    } else {
+      __syncthreads();  // the previous chunk's reads of sQ and sS are done
+      load_q<true>(sQ, x, w, q0, n, d, 0, d, v);
+      __syncthreads();
+      scores(sS, sP, sQ, d);
+    }
     float z[8];
     float cmax = -INFINITY;
 #pragma unroll
@@ -301,8 +368,11 @@ __host__ __device__ constexpr int bwd_smem_floats(int nj) {
 // backward. kPRows: dx, grid ceil(N / 32), P = x rows, Q = w columns over
 // the whole vocabulary; else dW, grid ceil(V / 32), P = w columns, Q = x rows
 // over all N. NJ = ceil(D / 128): a thread accumulates 4 P rows x 4 NJ
-// columns d = lane + 32 j.
-template <bool kPRows, int NJ>
+// columns d = lane + 32 j. kChunked (D > 512, NJ 4): the grid's second
+// dimension cuts the output's D into chunks of 512, one a block; every block
+// computes z over the whole of D (chunked_scores), then stages the Q tile of
+// its own output chunk for the product.
+template <bool kPRows, int NJ, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ce_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const int* __restrict__ labels,
@@ -310,6 +380,9 @@ fused_ce_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     float* __restrict__ out, int n, int d, int v, float on,
                     float off, int ignore) {
   constexpr int kJ = 4 * NJ, kDPad = 128 * NJ;
+  // the block's output columns (dx) or rows (dW): [o0, o0 + od)
+  const int o0 = kChunked ? blockIdx.y * kChunkD : 0;
+  const int od = kChunked ? min(kChunkD, d - o0) : d;
   extern __shared__ float smem[];
   float* sP = smem;                  // [kDPad][kLP]
   float* sQ = sP + kDPad * kLP;      // [kDPad][kLQ]; rows >= d stay zero
@@ -320,8 +393,11 @@ fused_ce_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   int* sLab = reinterpret_cast<int*>(sGr + kQ);
   const int p0 = blockIdx.x * kP;
   const int wp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  load_p<kPRows>(sP, x, w, p0, n, d, v);
-  for (int i = d * kLQ + threadIdx.x; i < kDPad * kLQ; i += kThreads)
+  if (!kChunked) load_p<kPRows>(sP, x, w, p0, n, d, 0, d, v);
+  // rows past the depth stay zero (a chunked block's columns past od read
+  // what an earlier chunk left and are never written)
+  for (int i = (kChunked ? kDPad : d) * kLQ + threadIdx.x; i < kDPad * kLQ;
+       i += kThreads)
     sQ[i] = 0.f;
   auto load_rows = [&](int r0, int count) {
     if (threadIdx.x < count) {
@@ -342,10 +418,19 @@ fused_ce_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int st = 0; st < steps; ++st) {
     const int q0 = st * kQ;
     __syncthreads();  // the previous step's reads of sQ, sG and the rows
-    load_q<kPRows>(sQ, x, w, q0, n, d, v);
-    if (!kPRows) load_rows(q0, kQ);
-    __syncthreads();
-    scores(sS, sP, sQ, d);
+    if (kChunked) {
+      if (!kPRows) load_rows(q0, kQ);
+      chunked_scores<kPRows>(sS, sP, sQ, x, w, p0, q0, n, d, v);
+      if (o0 + kChunkD < d) {  // sQ holds the last chunk, not the block's
+        load_q<kPRows>(sQ, x, w, q0, n, d, o0, od, v);
+        __syncthreads();
+      }
+    } else {
+      load_q<kPRows>(sQ, x, w, q0, n, d, 0, d, v);
+      if (!kPRows) load_rows(q0, kQ);
+      __syncthreads();
+      scores(sS, sP, sQ, d);
+    }
     {  // dz (_dlogits): thread -> p = t / 8, q = t % 8 + 8 k
       const int p = threadIdx.x / 8, sub = threadIdx.x % 8;
 #pragma unroll
@@ -386,7 +471,7 @@ fused_ce_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
         const int dd = lane + 32 * j;
-        if (dd < d) out[static_cast<size_t>(r) * d + dd] = acc[i][j];
+        if (dd < od) out[static_cast<size_t>(r) * d + o0 + dd] = acc[i][j];
       }
     }
   } else {  // dW columns, staged through shared memory to write rows of 32
@@ -399,9 +484,10 @@ fused_ce_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int j = 0; j < kJ; ++j)
         buf[(lane + 32 * j) * kLB + 4 * wp + i] = acc[i][j];
     __syncthreads();
-    for (int i = threadIdx.x; i < d * kP; i += kThreads) {
+    for (int i = threadIdx.x; i < od * kP; i += kThreads) {
       const int dd = i / kP, p = i % kP;
-      if (p0 + p < v) out[static_cast<size_t>(dd) * v + p0 + p] = buf[dd * kLB + p];
+      if (p0 + p < v)
+        out[static_cast<size_t>(o0 + dd) * v + p0 + p] = buf[dd * kLB + p];
     }
   }
 }
@@ -414,18 +500,19 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <bool kPRows, int NJ>
+template <bool kPRows, int NJ, bool kChunked = false>
 cudaError_t launch_bwd(const float* x, const float* w, const int* labels,
                        const float* lse, const float* g, float* out, int n,
                        int d, int v, float on, float off, int ignore,
                        cudaStream_t s) {
   const size_t smem = sizeof(float) * bwd_smem_floats(NJ);
-  auto kernel = fused_ce_bwd_kernel<kPRows, NJ>;
+  auto kernel = fused_ce_bwd_kernel<kPRows, NJ, kChunked>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int tiles = kPRows ? (n + kP - 1) / kP : (v + kP - 1) / kP;
-  kernel<<<tiles, kThreads, smem, s>>>(x, w, labels, lse, g, out, n, d, v, on,
-                                       off, ignore);
+  const dim3 grid(tiles, kChunked ? (d + kChunkD - 1) / kChunkD : 1);
+  kernel<<<grid, kThreads, smem, s>>>(x, w, labels, lse, g, out, n, d, v, on,
+                                      off, ignore);
   return cudaGetLastError();
 }
 
@@ -434,8 +521,12 @@ cudaError_t dispatch_bwd(const float* x, const float* w, const int* labels,
                          const float* lse, const float* g, float* out, int n,
                          int d, int v, float on, float off, int ignore,
                          void* stream) {
-  if (n <= 0 || v <= 0 || d <= 0 || d > kMaxD) return cudaErrorInvalidValue;
+  if (n <= 0 || v <= 0 || d <= 0 || (d + kChunkD - 1) / kChunkD > 65535)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kChunkD)
+    return launch_bwd<kPRows, 4, true>(x, w, labels, lse, g, out, n, d, v, on,
+                                       off, ignore, s);
   switch ((d + 127) / 128) {
     case 1: return launch_bwd<kPRows, 1>(x, w, labels, lse, g, out, n, d, v, on, off, ignore, s);
     case 2: return launch_bwd<kPRows, 2>(x, w, labels, lse, g, out, n, d, v, on, off, ignore, s);
@@ -454,18 +545,20 @@ extern "C" int paddle_fused_ce_fwd(const float* x, const float* w,
                                    float* loss, float* lse, int n, int d,
                                    int v, int splits, float on, float eps,
                                    float vocab, int ignore, void* stream) {
-  if (n <= 0 || v <= 0 || d <= 0 || d > kMaxD || splits < 1 ||
-      splits > 65535)
+  if (n <= 0 || v <= 0 || d <= 0 || splits < 1 || splits > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * fwd_smem_floats(d);
-  cudaError_t err = allow_smem(fused_ce_fwd_kernel, smem);
+  const bool chunked = d > kChunkD;
+  const size_t smem =
+      sizeof(float) * fwd_smem_floats(chunked ? kChunkD : d);
+  auto kernel = chunked ? fused_ce_fwd_kernel<true>
+                        : fused_ce_fwd_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n_chunks = (v + kQ - 1) / kQ;
   const int cps = (n_chunks + splits - 1) / splits;
   const dim3 grid((n + kP - 1) / kP, splits);
-  fused_ce_fwd_kernel<<<grid, kThreads, smem, s>>>(x, w, labels, part, n, d,
-                                                   v, cps);
+  kernel<<<grid, kThreads, smem, s>>>(x, w, labels, part, n, d, v, cps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fused_ce_combine_kernel<<<(n + 255) / 256, 256, 0, s>>>(

@@ -13,7 +13,7 @@
 // All tensors are fp32, contiguous and time-major: xproj [T, B, 4H] (gate
 // pre-activations x @ Wx + b, gate order i, f, c, o), w [H, 4H] recurrent,
 // peep [3H] (W_ic | W_fc | W_oc, zeros without peepholes), lens [B] int32,
-// h0, c0 [B, H]; H <= 512, any B >= 1, any T >= 1. Beside lens the caller
+// h0, c0 [B, H]; any H up to 16 x the SMs, B >= 1, T >= 1. Beside lens the caller
 // gives order [B] int32, the rows sorted by falling length, and live [T]
 // int32, how many rows are longer than t.
 //
@@ -94,10 +94,22 @@
 // Activations are expf and tanhf at full precision: a hundred steps compound
 // an error. This is fp32 SIMT with no wgmma, no TMA and no bf16: the simple,
 // exact first version.
+//   Wider than H 512 (transformer-sized recurrent layers, H 1024): with one
+// block per SM at most, a block must own U = 8 units (16 past 8 x the SMs),
+// and its slices of w no longer fit in shared memory beside the staged
+// chunk (the backward's two slices take 256 KB at H 1024, U 8). The kernels
+// instantiated for U 8 and 16 therefore keep them in scratch in global
+// memory that the wrapper allocates (paddle_rnn_scratch_floats: 16 MB for
+// the LSTM forward at H 1024, w itself is 16 MB), each block writing its
+// own slices at the start and reading them every step through L1 and L2
+// (50 MB): the same products in the same order, from another memory. A
+// thread then owns 2 or 4 (row, unit) pairs of a pass where it owned one
+// (Owner), and the dpeep shares are summed over 32 or 16 rows. H <= 512
+// keeps U <= 4 and its slices in shared memory, as above.
 //
 // Each function launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns the CUDA error of its launches (0 = success;
-// cudaErrorInvalidValue for a shape it does not take,
+// cudaErrorInvalidValue for a shape it does not take or a missing scratch,
 // cudaErrorCooperativeLaunchTooLarge where the card cannot hold the grid).
 
 #include <cmath>
@@ -114,8 +126,9 @@ constexpr int kBT = 64;                   // batch rows of one pass
 constexpr int kMaxChunk = 512;            // most depth staged at once
 constexpr int kRed = kThreads * 32;       // floats of partial sums: 8 x 4 a
                                           // thread at most
-constexpr int kMaxH = 512;
-constexpr int kMaxU = 4;
+constexpr int kMaxSmemU = 4;             // up to 4 units a block, the w
+                                         // slices live in shared memory
+constexpr int kMaxU = 16;
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -308,6 +321,51 @@ __device__ __forceinline__ void load_gate_slice(const float* __restrict__ w,
   }
 }
 
+// The (row, unit) pairs of the cell that a thread owns: unit j = u0 + tid % U
+// and rows bl[o] = tid / U + o * kRowStep of a pass of kBT rows, o < kOwn.
+// Up to U = 4 a pass has at most kThreads pairs (one a thread, threads past
+// kBT * U own none); at U = 8 and 16 a thread owns 2 and 4.
+template <int U>
+struct Owner {
+  static constexpr int kOwn = (kBT * U + kThreads - 1) / kThreads;
+  static constexpr int kRowStep = kThreads / U;
+  // the row shares a unit's dpeep is summed over at the end
+  static constexpr int kShares = kBT < kRowStep ? kBT : kRowStep;
+};
+
+// Floats of one block's slices of w, per kernel: where they live in shared
+// memory they come first, then the staging area of stage_floats.
+__host__ __device__ inline int lstm_fwd_slice(int h, int u) {
+  return round_up(h, chunk_of(h)) * 4 * u;                       // ws
+}
+__host__ __device__ inline int lstm_bwd_slice(int h, int u) {
+  return round_up(h, chunk_of(h)) * 4 * u +                      // ws
+         round_up(4 * h, chunk_of(4 * h)) * u;                   // wr
+}
+__host__ __device__ inline int gru_fwd_slice(int h, int u) {
+  return round_up(h, chunk_of(h)) * 3 * u;                       // ws_ur, ws_c
+}
+__host__ __device__ inline int gru_bwd_slice(int h, int u) {
+  return (round_up(h, chunk_of(h)) +                             // wrc
+          round_up(2 * h, chunk_of(2 * h))) * u;                 // wrur
+}
+
+// The block's slices of w and its staging area (as, then red): the slices in
+// shared memory up to U = 4, in the caller's scratch in global memory above
+// (slice floats a block), where they do not fit beside the staging area.
+struct Smem {
+  float* w;
+  float* as;
+};
+
+template <int U>
+__device__ __forceinline__ Smem carve(float* smem, float* wscratch,
+                                      int slice) {
+  if (U > kMaxSmemU)
+    return {wscratch + static_cast<size_t>(blockIdx.x) * slice, smem};
+  return {smem, smem + slice};
+}
+
 template <int U>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -316,21 +374,29 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ h0, const float* __restrict__ c0,
                 float* __restrict__ hidden, float* __restrict__ cell,
                 float* __restrict__ hlast, float* clast, float* carry,
-                int t_len, int b_len, int h) {
+                float* wscratch, int t_len, int b_len, int h) {
+  using O = Owner<U>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                                  // [hpad][4U]
-  float* as = ws + round_up(h, chunk_of(h)) * 4 * U;     // [64][chunk + 4]
-  float* red = as + kBT * (chunk_of(h) + 4);             // kRed floats
+  const Smem sm = carve<U>(smem, wscratch, lstm_fwd_slice(h, U));
+  float* ws = sm.w;                                  // [hpad][4U]
+  float* as = sm.as;                                 // [64][chunk + 4]
+  float* red = as + kBT * (chunk_of(h) + 4);         // kRed floats
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
   load_gate_slice<U>(w, ws, h, u0);
 
-  // this thread's share of the cell: row bl of the pass, unit j
-  const int bl = tid / U, j = u0 + tid % U;
-  const bool owner = tid < kBT * U && j < h;
+  // this thread's shares of the cell: rows bl[o] of the pass, unit j
+  const int j = u0 + tid % U;
+  int bl[O::kOwn];
+  bool owner[O::kOwn];
+#pragma unroll
+  for (int o = 0; o < O::kOwn; ++o) {
+    bl[o] = tid / U + o * O::kRowStep;
+    owner[o] = bl[o] < kBT && j < h;
+  }
   float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
-  if (owner) {
+  if (tid < kBT * U && j < h) {
     w_ic = peep[j];
     w_fc = peep[h + j];
     w_oc = peep[2 * h + j];
@@ -344,40 +410,53 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int n_live = live[t];
     // the rows still inside their length: the first n_live of `order`
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
-      const bool alive = owner && r0 + bl < n_live;
-      const int b = alive ? order[r0 + bl] : 0;
-      const size_t at = static_cast<size_t>(b) * h + j;
-      float xg[4] = {0.f, 0.f, 0.f, 0.f}, c_prev = 0.f;
-      if (alive) {     // in flight while the product runs
-        const float* xr = x + (static_cast<size_t>(t) * b_len + b) * 4 * h + j;
+      bool alive[O::kOwn];
+      int b[O::kOwn];
+      float xg[O::kOwn][4], c_prev[O::kOwn];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) xg[g] = xr[g * h];
-        c_prev = cin[at];
+      for (int o = 0; o < O::kOwn; ++o) {
+        alive[o] = owner[o] && r0 + bl[o] < n_live;
+        b[o] = alive[o] ? order[r0 + bl[o]] : 0;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[o][g] = 0.f;
+        c_prev[o] = 0.f;
+        if (alive[o]) {  // in flight while the product runs
+          const float* xr =
+              x + (static_cast<size_t>(t) * b_len + b[o]) * 4 * h + j;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) xg[o][g] = xr[g * h];
+          c_prev[o] = cin[static_cast<size_t>(b[o]) * h + j];
+        }
       }
       tile_product<4 * U>(hin, h, order + r0, min(kBT, n_live - r0), h, ws,
                           as, red);
-      if (alive) {
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        if (!alive[o]) continue;
+        const size_t at = static_cast<size_t>(b[o]) * h + j;
         const int n = (tid % U) * 4;
-        const float gi = xg[0] + reduced<4 * U>(red, bl, n + 0);
-        const float gf = xg[1] + reduced<4 * U>(red, bl, n + 1);
-        const float gc = xg[2] + reduced<4 * U>(red, bl, n + 2);
-        const float go = xg[3] + reduced<4 * U>(red, bl, n + 3);
-        const float i = sigmoidf(gi + c_prev * w_ic);
-        const float f = sigmoidf(gf + c_prev * w_fc);
+        const float gi = xg[o][0] + reduced<4 * U>(red, bl[o], n + 0);
+        const float gf = xg[o][1] + reduced<4 * U>(red, bl[o], n + 1);
+        const float gc = xg[o][2] + reduced<4 * U>(red, bl[o], n + 2);
+        const float go = xg[o][3] + reduced<4 * U>(red, bl[o], n + 3);
+        const float i = sigmoidf(gi + c_prev[o] * w_ic);
+        const float f = sigmoidf(gf + c_prev[o] * w_fc);
         const float g = tanhf(gc);
-        const float c_new = f * c_prev + i * g;
-        const float o = sigmoidf(go + c_new * w_oc);
-        const float h_new = o * tanhf(c_new);
+        const float c_new = f * c_prev[o] + i * g;
+        const float og = sigmoidf(go + c_new * w_oc);
+        const float h_new = og * tanhf(c_new);
         hout[at] = h_new;
         clast[at] = c_new;
         hidden[static_cast<size_t>(t) * bh + at] = h_new;
         cell[static_cast<size_t>(t) * bh + at] = c_new;
-        if (t + 1 == t_len || t + 1 == lens[b]) hlast[at] = h_new;
+        if (t + 1 == t_len || t + 1 == lens[b[o]]) hlast[at] = h_new;
       }
     }
     // the rows past their length: zero outputs, the state stays as it is
-    if (owner) {
-      for (int r = n_live + bl; r < b_len; r += kBT) {
+#pragma unroll
+    for (int o = 0; o < O::kOwn; ++o) {
+      if (!owner[o]) continue;
+      for (int r = n_live + bl[o]; r < b_len; r += kBT) {
         const size_t at = static_cast<size_t>(order[r]) * h + j;
         hidden[static_cast<size_t>(t) * bh + at] = 0.0f;
         cell[static_cast<size_t>(t) * bh + at] = 0.0f;
@@ -403,15 +482,17 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ dcell,
                 const float* __restrict__ dhlast,
                 const float* __restrict__ dclast, float* dx,
-                float* __restrict__ dpeep, float* dh0, float* dc0, int t_len,
-                int b_len, int h) {
+                float* __restrict__ dpeep, float* dh0, float* dc0,
+                float* wscratch, int t_len, int b_len, int h) {
+  using O = Owner<U>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int hpad = round_up(h, chunk_of(h));
   const int npad = round_up(4 * h, chunk_of(4 * h));
-  float* ws = smem;                                  // [hpad][4U]
+  const Smem sm = carve<U>(smem, wscratch, lstm_bwd_slice(h, U));
+  float* ws = sm.w;                                  // [hpad][4U]
   float* wr = ws + hpad * 4 * U;                     // [npad][U]
-  float* as = wr + npad * U;                         // [64][chunk + 4]
+  float* as = sm.as;                                 // [64][chunk + 4]
   float* red = as + kBT * (chunk_of(4 * h) + 4);     // kRed floats
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
@@ -423,10 +504,16 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         ? w[static_cast<size_t>(k) * 4 * h + n] : 0.0f;
   }
 
-  const int bl = tid / U, j = u0 + tid % U;
-  const bool owner = tid < kBT * U && j < h;
+  const int j = u0 + tid % U;
+  int bl[O::kOwn];
+  bool owner[O::kOwn];
+#pragma unroll
+  for (int o = 0; o < O::kOwn; ++o) {
+    bl[o] = tid / U + o * O::kRowStep;
+    owner[o] = bl[o] < kBT && j < h;
+  }
   float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
-  if (owner) {
+  if (tid < kBT * U && j < h) {
     w_ic = peep[j];
     w_fc = peep[h + j];
     w_oc = peep[2 * h + j];
@@ -443,57 +530,71 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     // phase A: the gates again and the gate gradients of the block's units,
     // for the rows inside their length (the first n_live of `order`)
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
-      const bool alive = owner && r0 + bl < n_live;
-      const int b = alive ? order[r0 + bl] : 0;
-      const size_t at = static_cast<size_t>(b) * h + j;
-      float xg[4] = {0.f, 0.f, 0.f, 0.f};
-      float c_prev = 0.f, gh = 0.f, gcell = 0.f;
-      if (alive) {
-        const float* xr = x + (static_cast<size_t>(t) * b_len + b) * 4 * h + j;
+      bool alive[O::kOwn];
+      int b[O::kOwn];
+      float xg[O::kOwn][4], c_prev[O::kOwn], gh[O::kOwn], gcell[O::kOwn];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) xg[g] = xr[g * h];
-        c_prev = cp_seq[at];
-        // a row's carries start at the cotangents of its last states
-        const bool last = t + 1 == t_len || t + 1 == lens[b];
-        gh = (last ? dhlast : dh0)[at] +
-             dhid[static_cast<size_t>(t) * bh + at];
-        gcell = (last ? dclast : dc0)[at] +
-                dcell[static_cast<size_t>(t) * bh + at];
+      for (int o = 0; o < O::kOwn; ++o) {
+        alive[o] = owner[o] && r0 + bl[o] < n_live;
+        b[o] = alive[o] ? order[r0 + bl[o]] : 0;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[o][g] = 0.f;
+        c_prev[o] = gh[o] = gcell[o] = 0.f;
+        if (alive[o]) {
+          const size_t at = static_cast<size_t>(b[o]) * h + j;
+          const float* xr =
+              x + (static_cast<size_t>(t) * b_len + b[o]) * 4 * h + j;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) xg[o][g] = xr[g * h];
+          c_prev[o] = cp_seq[at];
+          // a row's carries start at the cotangents of its last states
+          const bool last = t + 1 == t_len || t + 1 == lens[b[o]];
+          gh[o] = (last ? dhlast : dh0)[at] +
+                  dhid[static_cast<size_t>(t) * bh + at];
+          gcell[o] = (last ? dclast : dc0)[at] +
+                     dcell[static_cast<size_t>(t) * bh + at];
+        }
       }
       tile_product<4 * U>(hp_seq, h, order + r0, min(kBT, n_live - r0), h, ws,
                           as, red);
-      if (alive) {
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        if (!alive[o]) continue;
+        const size_t at = static_cast<size_t>(b[o]) * h + j;
         const int n = (tid % U) * 4;
-        const float gi = xg[0] + reduced<4 * U>(red, bl, n + 0);
-        const float gf = xg[1] + reduced<4 * U>(red, bl, n + 1);
-        const float gc = xg[2] + reduced<4 * U>(red, bl, n + 2);
-        const float go = xg[3] + reduced<4 * U>(red, bl, n + 3);
-        const float i = sigmoidf(gi + c_prev * w_ic);
-        const float f = sigmoidf(gf + c_prev * w_fc);
+        const float gi = xg[o][0] + reduced<4 * U>(red, bl[o], n + 0);
+        const float gf = xg[o][1] + reduced<4 * U>(red, bl[o], n + 1);
+        const float gc = xg[o][2] + reduced<4 * U>(red, bl[o], n + 2);
+        const float go = xg[o][3] + reduced<4 * U>(red, bl[o], n + 3);
+        const float cp = c_prev[o];
+        const float i = sigmoidf(gi + cp * w_ic);
+        const float f = sigmoidf(gf + cp * w_fc);
         const float g = tanhf(gc);
-        const float c_cand = f * c_prev + i * g;
-        const float o = sigmoidf(go + c_cand * w_oc);
+        const float c_cand = f * cp + i * g;
+        const float og = sigmoidf(go + c_cand * w_oc);
         const float tanh_c = tanhf(c_cand);
-        const float dgo = gh * tanh_c * o * (1.0f - o);
+        const float dgo = gh[o] * tanh_c * og * (1.0f - og);
         const float dc_cand =
-            gcell + gh * o * (1.0f - tanh_c * tanh_c) + dgo * w_oc;
+            gcell[o] + gh[o] * og * (1.0f - tanh_c * tanh_c) + dgo * w_oc;
         const float dgi = dc_cand * g * i * (1.0f - i);
-        const float dgf = dc_cand * c_prev * f * (1.0f - f);
+        const float dgf = dc_cand * cp * f * (1.0f - f);
         const float dgg = dc_cand * i * (1.0f - g * g);
-        float* dxr = dxt + static_cast<size_t>(b) * 4 * h + j;
+        float* dxr = dxt + static_cast<size_t>(b[o]) * 4 * h + j;
         dxr[0] = dgi;
         dxr[h] = dgf;
         dxr[2 * h] = dgg;
         dxr[3 * h] = dgo;
         dc0[at] = dc_cand * f + dgi * w_ic + dgf * w_fc;
-        dp_i = fmaf(dgi, c_prev, dp_i);
-        dp_f = fmaf(dgf, c_prev, dp_f);
+        dp_i = fmaf(dgi, cp, dp_i);
+        dp_f = fmaf(dgf, cp, dp_f);
         dp_o = fmaf(dgo, c_cand, dp_o);
       }
     }
     // the rows past their length: no gate gradient, the carries stay
-    if (owner) {
-      for (int r = n_live + bl; r < b_len; r += kBT) {
+#pragma unroll
+    for (int o = 0; o < O::kOwn; ++o) {
+      if (!owner[o]) continue;
+      for (int r = n_live + bl[o]; r < b_len; r += kBT) {
         const int b = order[r];
         float* dxr = dxt + static_cast<size_t>(b) * 4 * h + j;
         dxr[0] = dxr[h] = dxr[2 * h] = dxr[3 * h] = 0.0f;
@@ -510,24 +611,28 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       tile_product<U>(dxt, 4 * h, order + r0, min(kBT, n_live - r0), 4 * h,
                       wr, as, red);
-      if (owner && r0 + bl < n_live)
-        dh0[static_cast<size_t>(order[r0 + bl]) * h + j] =
-            reduced<U>(red, bl, tid % U);
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o)
+        if (owner[o] && r0 + bl[o] < n_live)
+          dh0[static_cast<size_t>(order[r0 + bl[o]]) * h + j] =
+              reduced<U>(red, bl[o], tid % U);
     }
   }
 
-  // dpeep of the block's units: the 64 row shares, added in row order
+  // dpeep of the block's units: the row shares, added in share order
   __syncthreads();
-  if (tid < kBT * U) {
-    red[(0 * kBT + bl) * U + tid % U] = dp_i;
-    red[(1 * kBT + bl) * U + tid % U] = dp_f;
-    red[(2 * kBT + bl) * U + tid % U] = dp_o;
+  if (tid < O::kShares * U) {
+    const int r = tid / U, u = tid % U;
+    red[(0 * O::kShares + r) * U + u] = dp_i;
+    red[(1 * O::kShares + r) * U + u] = dp_f;
+    red[(2 * O::kShares + r) * U + u] = dp_o;
   }
   __syncthreads();
   if (tid < 3 * U && u0 + tid % U < h) {
     const int which = tid / U, u = tid % U;
     float s = 0.0f;
-    for (int r = 0; r < kBT; ++r) s += red[(which * kBT + r) * U + u];
+    for (int r = 0; r < O::kShares; ++r)
+      s += red[(which * O::kShares + r) * U + u];
     dpeep[which * h + u0 + u] = s;
   }
 }
@@ -668,21 +773,67 @@ void rnn_gemm(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
                                                  ldc, m_len, k_len);
 }
 
-// The least U of 1, 2, 4 whose grid is at most one block per SM; 0 if none.
-int units_per_block(int h, int sms) {
-  for (int u = 1; u <= kMaxU; u *= 2)
-    if ((h + u - 1) / u <= sms) return u;
-  return 0;
+// What a kernel of `kind` runs with at width h on this card: U units a block
+// (ceil(h / U) blocks, at most one per SM: the least U of 1, 2, 4 whose
+// slices of w fit in shared memory beside the staging area, else the least
+// of 8, 16, with the slices in global scratch), its dynamic shared memory,
+// and the floats of global scratch it needs (0: none).
+enum Kind { kLstmFwd = 0, kLstmBwd = 1, kGruFwd = 2, kGruBwd = 3 };
+
+int slice_floats(int kind, int h, int u) {
+  switch (kind) {
+    case kLstmFwd: return lstm_fwd_slice(h, u);
+    case kLstmBwd: return lstm_bwd_slice(h, u);
+    case kGruFwd: return gru_fwd_slice(h, u);
+    default: return gru_bwd_slice(h, u);
+  }
 }
 
-cudaError_t card(int* sms) {
-  int dev = 0, coop = 0;
+// as, then red: the staged chunk of a product's left operand, whose depth is
+// H (forward), 4H (LSTM backward) or 2H (GRU backward), and its partial sums
+int stage_floats(int kind, int h) {
+  const int depth = kind == kLstmBwd ? 4 * h : kind == kGruBwd ? 2 * h : h;
+  return kBT * (chunk_of(depth) + 4) + kRed;
+}
+
+struct Plan {
+  int u = 0;
+  int sms = 0;
+  size_t smem = 0;
+  long long scratch = 0;
+};
+
+cudaError_t plan_for(int kind, int h, Plan* p) {
+  int dev = 0, coop = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t stage = sizeof(float) * stage_floats(kind, h);
+  for (int u = 1; u <= kMaxU; u *= 2) {
+    const int blocks = (h + u - 1) / u;
+    if (blocks > p->sms) continue;
+    const size_t slices = sizeof(float) *
+                          static_cast<size_t>(slice_floats(kind, h, u));
+    if (u <= kMaxSmemU) {
+      if (slices + stage > static_cast<size_t>(optin)) continue;
+      p->u = u;
+      p->smem = slices + stage;
+      p->scratch = 0;
+    } else {
+      p->u = u;
+      p->smem = stage;
+      p->scratch = static_cast<long long>(blocks) * slice_floats(kind, h, u);
+    }
+    return cudaSuccess;
+  }
+  return cudaErrorCooperativeLaunchTooLarge;
 }
 
 // One cooperative launch of `kernel` on ceil(h / u) blocks, after checking
@@ -705,43 +856,53 @@ cudaError_t launch_grid(Kernel kernel, int h, int u, size_t smem_bytes,
                                      smem_bytes, s);
 }
 
-size_t fwd_smem(int h, int u) {
-  return sizeof(float) * (static_cast<size_t>(round_up(h, chunk_of(h))) * 4 *
-                              u +
-                          kBT * (chunk_of(h) + 4) + kRed);
-}
+// The launch of kernel template K at the plan's U (1, 2, 4, 8 or 16).
+#define PADDLE_RNN_LAUNCH(K, plan, h, args, s)                               \
+  ((plan).u == 1    ? launch_grid(K<1>, h, 1, (plan).smem, (plan).sms, args, s) \
+   : (plan).u == 2  ? launch_grid(K<2>, h, 2, (plan).smem, (plan).sms, args, s) \
+   : (plan).u == 4  ? launch_grid(K<4>, h, 4, (plan).smem, (plan).sms, args, s) \
+   : (plan).u == 8  ? launch_grid(K<8>, h, 8, (plan).smem, (plan).sms, args, s) \
+                    : launch_grid(K<16>, h, 16, (plan).smem, (plan).sms, args, s))
 
-size_t bwd_smem(int h, int u) {
-  const int n = 4 * h;
-  return sizeof(float) *
-         (static_cast<size_t>(round_up(h, chunk_of(h))) * 4 * u +
-          static_cast<size_t>(round_up(n, chunk_of(n))) * u +
-          kBT * (chunk_of(n) + 4) + kRed);
+// The plan of a launch, checked against the scratch the caller passed.
+cudaError_t checked_plan(int kind, int t_len, int b_len, int h,
+                         const float* wscratch, Plan* p) {
+  if (t_len < 1 || b_len < 1 || h < 1) return cudaErrorInvalidValue;
+  cudaError_t err = plan_for(kind, h, p);
+  if (err != cudaSuccess) return err;
+  if (p->scratch > 0 && wscratch == nullptr) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
+
+// The floats of global scratch (for the blocks' slices of w) that a kernel
+// of this kind needs at width h on the current card: 0 where the slices fit
+// in shared memory; a negative CUDA error where no launch is possible.
+extern "C" long long paddle_rnn_scratch_floats(int kind, int h) {
+  if (kind < kLstmFwd || kind > kGruBwd || h < 1)
+    return -static_cast<long long>(cudaErrorInvalidValue);
+  Plan p;
+  const cudaError_t err = plan_for(kind, h, &p);
+  return err == cudaSuccess ? p.scratch : -static_cast<long long>(err);
+}
 
 extern "C" int paddle_lstm_train_fwd(const float* x, const float* w,
                                      const float* peep, const int* lens,
                                      const int* order, const int* live,
                                      const float* h0, const float* c0,
                                      float* hidden, float* cell, float* hlast,
-                                     float* clast, float* carry, int t_len,
-                                     int b_len, int h, void* stream) {
-  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
-    return cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = card(&sms);
+                                     float* clast, float* carry,
+                                     float* wscratch, int t_len, int b_len,
+                                     int h, void* stream) {
+  Plan p;
+  cudaError_t err = checked_plan(kLstmFwd, t_len, b_len, h, wscratch, &p);
   if (err != cudaSuccess) return err;
-  const int u = units_per_block(h, sms);
-  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
-                  &cell, &hlast, &clast, &carry, &t_len, &b_len, &h};
+                  &cell, &hlast, &clast, &carry, &wscratch, &t_len, &b_len,
+                  &h};
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = fwd_smem(h, u);
-  if (u == 1) return launch_grid(lstm_fwd_kernel<1>, h, u, smem, sms, args, s);
-  if (u == 2) return launch_grid(lstm_fwd_kernel<2>, h, u, smem, sms, args, s);
-  return launch_grid(lstm_fwd_kernel<4>, h, u, smem, sms, args, s);
+  return PADDLE_RNN_LAUNCH(lstm_fwd_kernel, p, h, args, s);
 }
 
 extern "C" int paddle_lstm_train_bwd(
@@ -750,25 +911,15 @@ extern "C" int paddle_lstm_train_bwd(
     const float* hidden, const float* cell,
     const float* dhid, const float* dcell, const float* dhlast,
     const float* dclast, float* dx, float* dw, float* dpeep, float* dh0,
-    float* dc0, int t_len, int b_len, int h, void* stream) {
-  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
-    return cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = card(&sms);
+    float* dc0, float* wscratch, int t_len, int b_len, int h, void* stream) {
+  Plan p;
+  cudaError_t err = checked_plan(kLstmBwd, t_len, b_len, h, wscratch, &p);
   if (err != cudaSuccess) return err;
-  const int u = units_per_block(h, sms);
-  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
                   &cell, &dhid, &dcell, &dhlast, &dclast, &dx, &dpeep, &dh0,
-                  &dc0, &t_len, &b_len, &h};
+                  &dc0, &wscratch, &t_len, &b_len, &h};
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = bwd_smem(h, u);
-  if (u == 1)
-    err = launch_grid(lstm_bwd_kernel<1>, h, u, smem, sms, args, s);
-  else if (u == 2)
-    err = launch_grid(lstm_bwd_kernel<2>, h, u, smem, sms, args, s);
-  else
-    err = launch_grid(lstm_bwd_kernel<4>, h, u, smem, sms, args, s);
+  err = PADDLE_RNN_LAUNCH(lstm_bwd_kernel, p, h, args, s);
   if (err != cudaSuccess) return err;
   // dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows
   rnn_gemm<true>({h0, hidden, b_len, dx, dw, 4 * h}, {}, h, 4 * h, 4 * h, h,
@@ -786,7 +937,7 @@ extern "C" int paddle_lstm_train_bwd(
 // of paddle_tpu/ops/pallas/fused_rnn.py. Time-major fp32: xproj [T, B, 3H]
 // (gate pre-activations with the bias, gate order u, r, c), w [H, 3H]
 // (w_ur = w[:, :2H], w_c = w[:, 2H:]), lens, order, live and h0 [B, H] as
-// for the LSTM; H <= 512, any B >= 1, any T >= 1.
+// for the LSTM; any H up to 16 x the SMs, B >= 1, T >= 1.
 //
 // Forward, per step t (_gru_train_fwd_kernel :296-314):
 //   u, r = sigmoid(xproj[t][:, :2H] + h @ w_ur)
@@ -848,13 +999,15 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const int* __restrict__ lens, const int* __restrict__ order,
                const int* __restrict__ live, const float* __restrict__ h0,
                float* hidden, float* __restrict__ hlast, float* rh,
-               int t_len, int b_len, int h) {
+               float* wscratch, int t_len, int b_len, int h) {
+  using O = Owner<U>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int hpad = round_up(h, chunk_of(h));
-  float* ws_ur = smem;                               // [hpad][2U]
+  const Smem sm = carve<U>(smem, wscratch, gru_fwd_slice(h, U));
+  float* ws_ur = sm.w;                               // [hpad][2U]
   float* ws_c = ws_ur + hpad * 2 * U;                // [hpad][U]
-  float* as = ws_c + hpad * U;                       // [64][chunk + 4]
+  float* as = sm.as;                                 // [64][chunk + 4]
   float* red = as + kBT * (chunk_of(h) + 4);         // kRed floats
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
@@ -868,9 +1021,15 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     ws_c[idx] = in ? wk[2 * h + j] : 0.0f;
   }
 
-  // this thread's share: row bl of a pass, unit j
-  const int bl = tid / U, j = u0 + tid % U;
-  const bool owner = tid < kBT * U && j < h;
+  // this thread's shares: rows bl[o] of a pass, unit j
+  const int j = u0 + tid % U;
+  int bl[O::kOwn];
+  bool owner[O::kOwn];
+#pragma unroll
+  for (int o = 0; o < O::kOwn; ++o) {
+    bl[o] = tid / U + o * O::kRowStep;
+    owner[o] = bl[o] < kBT && j < h;
+  }
   const size_t bh = static_cast<size_t>(b_len) * h;
 
   for (int t = 0; t < t_len; ++t) {
@@ -881,28 +1040,38 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int n_live = live[t];
     // phase 1: u, r of the block's units; r * h_prev published
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
-      const bool alive = owner && r0 + bl < n_live;
-      const int b = alive ? order[r0 + bl] : 0;
-      const size_t at = static_cast<size_t>(b) * h + j;
-      float xu = 0.f, xr = 0.f, hp = 0.f;
-      if (alive) {       // in flight while the product runs
-        xu = x_t[b * h3 + j];
-        xr = x_t[b * h3 + h + j];
-        hp = hin[at];
+      bool alive[O::kOwn];
+      int b[O::kOwn];
+      float xu[O::kOwn], xr[O::kOwn], hp[O::kOwn];
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        alive[o] = owner[o] && r0 + bl[o] < n_live;
+        b[o] = alive[o] ? order[r0 + bl[o]] : 0;
+        xu[o] = xr[o] = hp[o] = 0.f;
+        if (alive[o]) {       // in flight while the product runs
+          xu[o] = x_t[b[o] * h3 + j];
+          xr[o] = x_t[b[o] * h3 + h + j];
+          hp[o] = hin[static_cast<size_t>(b[o]) * h + j];
+        }
       }
       tile_product<2 * U>(hin, h, order + r0, min(kBT, n_live - r0), h,
                           ws_ur, as, red);
-      if (alive) {
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        if (!alive[o]) continue;
+        const size_t at = static_cast<size_t>(b[o]) * h + j;
         const int n = (tid % U) * 2;
-        const float u = sigmoidf(xu + reduced<2 * U>(red, bl, n));
-        const float r = sigmoidf(xr + reduced<2 * U>(red, bl, n + 1));
-        rh_t[at] = r * hp;
+        const float u = sigmoidf(xu[o] + reduced<2 * U>(red, bl[o], n));
+        const float r = sigmoidf(xr[o] + reduced<2 * U>(red, bl[o], n + 1));
+        rh_t[at] = r * hp[o];
         hid_t[at] = u;
       }
     }
     // the rows past their length: zero outputs, the state stays
-    if (owner) {
-      for (int r = n_live + bl; r < b_len; r += kBT) {
+#pragma unroll
+    for (int o = 0; o < O::kOwn; ++o) {
+      if (!owner[o]) continue;
+      for (int r = n_live + bl[o]; r < b_len; r += kBT) {
         const size_t at = static_cast<size_t>(order[r]) * h + j;
         hid_t[at] = 0.0f;
         rh_t[at] = 0.0f;
@@ -913,22 +1082,31 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
     // phase 2: the candidate from all of rh[t], the new state
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
-      const bool alive = owner && r0 + bl < n_live;
-      const int b = alive ? order[r0 + bl] : 0;
-      const size_t at = static_cast<size_t>(b) * h + j;
-      float xc = 0.f, u = 0.f, hp = 0.f;
-      if (alive) {
-        xc = x_t[b * h3 + 2 * h + j];
-        u = hid_t[at];
-        hp = hin[at];
+      bool alive[O::kOwn];
+      int b[O::kOwn];
+      float xc[O::kOwn], ug[O::kOwn], hp[O::kOwn];
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        alive[o] = owner[o] && r0 + bl[o] < n_live;
+        b[o] = alive[o] ? order[r0 + bl[o]] : 0;
+        xc[o] = ug[o] = hp[o] = 0.f;
+        if (alive[o]) {
+          const size_t at = static_cast<size_t>(b[o]) * h + j;
+          xc[o] = x_t[b[o] * h3 + 2 * h + j];
+          ug[o] = hid_t[at];
+          hp[o] = hin[at];
+        }
       }
       tile_product<U>(rh_t, h, order + r0, min(kBT, n_live - r0), h, ws_c,
                       as, red);
-      if (alive) {
-        const float c = tanhf(xc + reduced<U>(red, bl, tid % U));
-        const float h_new = (1.0f - u) * hp + u * c;
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        if (!alive[o]) continue;
+        const size_t at = static_cast<size_t>(b[o]) * h + j;
+        const float c = tanhf(xc[o] + reduced<U>(red, bl[o], tid % U));
+        const float h_new = (1.0f - ug[o]) * hp[o] + ug[o] * c;
         hid_t[at] = h_new;
-        if (t + 1 == t_len || t + 1 == lens[b]) hlast[at] = h_new;
+        if (t + 1 == t_len || t + 1 == lens[b[o]]) hlast[at] = h_new;
       }
     }
     grid.sync();
@@ -945,14 +1123,16 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ hidden,
                const float* __restrict__ dhid,
                const float* __restrict__ dhlast, float* dx, float* dh0,
-               int t_len, int b_len, int h) {
+               float* wscratch, int t_len, int b_len, int h) {
+  using O = Owner<U>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int cpad = round_up(h, chunk_of(h));
   const int urpad = round_up(2 * h, chunk_of(2 * h));
-  float* wrc = smem;                                 // [cpad][U]
+  const Smem sm = carve<U>(smem, wscratch, gru_bwd_slice(h, U));
+  float* wrc = sm.w;                                 // [cpad][U]
   float* wrur = wrc + cpad * U;                      // [urpad][U]
-  float* as = wrur + urpad * U;                      // [64][chunk + 4]
+  float* as = sm.as;                                 // [64][chunk + 4]
   float* red = as + kBT * (chunk_of(2 * h) + 4);     // kRed floats
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
@@ -966,8 +1146,14 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     wrur[n * U + u] = (n < 2 * h && k < h) ? w[k * h3 + n] : 0.0f;
   }
 
-  const int bl = tid / U, j = u0 + tid % U;
-  const bool owner = tid < kBT * U && j < h;
+  const int j = u0 + tid % U;
+  int bl[O::kOwn];
+  bool owner[O::kOwn];
+#pragma unroll
+  for (int o = 0; o < O::kOwn; ++o) {
+    bl[o] = tid / U + o * O::kRowStep;
+    owner[o] = bl[o] < kBT && j < h;
+  }
   const size_t bh = static_cast<size_t>(b_len) * h;
 
   for (int t = t_len - 1; t >= 0; --t) {
@@ -978,8 +1164,10 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int n_live = live[t];
 
     // phase A: the block's u, c and their gate gradients
-    if (owner) {
-      for (int r = bl; r < n_live; r += kBT) {
+#pragma unroll
+    for (int o = 0; o < O::kOwn; ++o) {
+      if (!owner[o]) continue;
+      for (int r = bl[o]; r < n_live; r += kBT) {
         const int b = order[r];
         const size_t at = static_cast<size_t>(b) * h + j;
         const float* xb = x_t + b * h3 + j;
@@ -997,7 +1185,7 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         dh0[at] = gh * (1.0f - u);
       }
       // the rows past their length: no gate gradient, the carry stays
-      for (int r = n_live + bl; r < b_len; r += kBT) {
+      for (int r = n_live + bl[o]; r < b_len; r += kBT) {
         const int b = order[r];
         float* db = dxt + b * h3 + j;
         db[0] = db[h] = db[2 * h] = 0.0f;
@@ -1011,20 +1199,28 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
     // phase B: d_rh of the block's units from every dgc of the step
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
-      const bool alive = owner && r0 + bl < n_live;
-      const int b = alive ? order[r0 + bl] : 0;
-      const size_t at = static_cast<size_t>(b) * h + j;
-      float zr = 0.f, hp = 0.f;
-      if (alive) {
-        zr = x_t[b * h3 + h + j] + dxt[b * h3 + h + j];
-        hp = hp_seq[at];
+      bool alive[O::kOwn];
+      int b[O::kOwn];
+      float zr[O::kOwn], hp[O::kOwn];
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        alive[o] = owner[o] && r0 + bl[o] < n_live;
+        b[o] = alive[o] ? order[r0 + bl[o]] : 0;
+        zr[o] = hp[o] = 0.f;
+        if (alive[o]) {
+          zr[o] = x_t[b[o] * h3 + h + j] + dxt[b[o] * h3 + h + j];
+          hp[o] = hp_seq[static_cast<size_t>(b[o]) * h + j];
+        }
       }
       tile_product<U>(dxt + 2 * h, 3 * h, order + r0, min(kBT, n_live - r0),
                       h, wrc, as, red);
-      if (alive) {
-        const float d_rh = reduced<U>(red, bl, tid % U);
-        const float r = sigmoidf(zr);
-        dxt[b * h3 + h + j] = d_rh * hp * r * (1.0f - r);
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o) {
+        if (!alive[o]) continue;
+        const size_t at = static_cast<size_t>(b[o]) * h + j;
+        const float d_rh = reduced<U>(red, bl[o], tid % U);
+        const float r = sigmoidf(zr[o]);
+        dxt[b[o] * h3 + h + j] = d_rh * hp[o] * r * (1.0f - r);
         dh0[at] += d_rh * r;
       }
     }
@@ -1034,24 +1230,13 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       tile_product<U>(dxt, 3 * h, order + r0, min(kBT, n_live - r0), 2 * h,
                       wrur, as, red);
-      if (owner && r0 + bl < n_live)
-        dh0[static_cast<size_t>(order[r0 + bl]) * h + j] +=
-            reduced<U>(red, bl, tid % U);
+#pragma unroll
+      for (int o = 0; o < O::kOwn; ++o)
+        if (owner[o] && r0 + bl[o] < n_live)
+          dh0[static_cast<size_t>(order[r0 + bl[o]]) * h + j] +=
+              reduced<U>(red, bl[o], tid % U);
     }
   }
-}
-
-size_t gru_fwd_smem(int h, int u) {
-  return sizeof(float) *
-         (static_cast<size_t>(round_up(h, chunk_of(h))) * 3 * u +
-          kBT * (chunk_of(h) + 4) + kRed);
-}
-
-size_t gru_bwd_smem(int h, int u) {
-  return sizeof(float) *
-         (static_cast<size_t>(round_up(h, chunk_of(h)) +
-                              round_up(2 * h, chunk_of(2 * h))) * u +
-          kBT * (chunk_of(2 * h) + 4) + kRed);
 }
 
 }  // namespace
@@ -1060,36 +1245,25 @@ extern "C" int paddle_gru_train_fwd(const float* x, const float* w,
                                     const int* lens, const int* order,
                                     const int* live, const float* h0,
                                     float* hidden, float* hlast, float* rh,
-                                    int t_len, int b_len, int h,
-                                    void* stream) {
-  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
-    return cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = card(&sms);
+                                    float* wscratch, int t_len, int b_len,
+                                    int h, void* stream) {
+  Plan p;
+  cudaError_t err = checked_plan(kGruFwd, t_len, b_len, h, wscratch, &p);
   if (err != cudaSuccess) return err;
-  const int u = units_per_block(h, sms);
-  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &hlast, &rh,
-                  &t_len, &b_len, &h};
+                  &wscratch, &t_len, &b_len, &h};
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = gru_fwd_smem(h, u);
-  if (u == 1) return launch_grid(gru_fwd_kernel<1>, h, u, smem, sms, args, s);
-  if (u == 2) return launch_grid(gru_fwd_kernel<2>, h, u, smem, sms, args, s);
-  return launch_grid(gru_fwd_kernel<4>, h, u, smem, sms, args, s);
+  return PADDLE_RNN_LAUNCH(gru_fwd_kernel, p, h, args, s);
 }
 
 extern "C" int paddle_gru_train_bwd(
     const float* x, const float* w, const int* lens, const int* order,
     const int* live, const float* h0, const float* hidden, const float* rh,
     const float* dhid, const float* dhlast, float* dx, float* dw, float* dh0,
-    int t_len, int b_len, int h, void* stream) {
-  if (t_len < 1 || b_len < 1 || h < 1 || h > kMaxH)
-    return cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = card(&sms);
+    float* wscratch, int t_len, int b_len, int h, void* stream) {
+  Plan p;
+  cudaError_t err = checked_plan(kGruBwd, t_len, b_len, h, wscratch, &p);
   if (err != cudaSuccess) return err;
-  const int u = units_per_block(h, sms);
-  if (u == 0) return cudaErrorCooperativeLaunchTooLarge;
   auto s = static_cast<cudaStream_t>(stream);
   const int rows = t_len * b_len;
   // the gate pre-activations of every step: [h_prev_seq @ w_ur, rh @ w_c]
@@ -1099,14 +1273,8 @@ extern "C" int paddle_gru_train_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &dhid,
-                  &dhlast, &dx, &dh0, &t_len, &b_len, &h};
-  const size_t smem = gru_bwd_smem(h, u);
-  if (u == 1)
-    err = launch_grid(gru_bwd_kernel<1>, h, u, smem, sms, args, s);
-  else if (u == 2)
-    err = launch_grid(gru_bwd_kernel<2>, h, u, smem, sms, args, s);
-  else
-    err = launch_grid(gru_bwd_kernel<4>, h, u, smem, sms, args, s);
+                  &dhlast, &dx, &dh0, &wscratch, &t_len, &b_len, &h};
+  err = PADDLE_RNN_LAUNCH(gru_bwd_kernel, p, h, args, s);
   if (err != cudaSuccess) return err;
   // dw = [h_prev_seq^T @ dx[:, :2H], rh^T @ dx[:, 2H:]] over the T*B rows
   rnn_gemm<true>({h0, hidden, b_len, dx, dw, 2 * h},

@@ -26,6 +26,10 @@ already agree: matrices are [in, out] on both sides.
   LSTM's output, from the second layer on) and ``.b_0``, the LSTMs
   ``dynamic_lstm_<k>.w_0`` [H, 4H] and ``.b_0`` [1, 7H]; the last ``fc``
   is the softmax head. Matched by family and order, like the above.
+- :func:`textconv_params_from_jax` -> the text-conv classifier, which
+  the caller assembles from ``nets.SequenceConvPool`` and ``fc``
+  (``TEXTCONV_LAYOUT``), and :func:`table_from_jax` -> the table of the
+  ``fused_embedding_seq_pool`` op program (``emb_w``).
 - :func:`mt_params_from_jax` -> :class:`MachineTranslation`.
   ``paddle_tpu.models.machine_translation.build`` names all fourteen
   parameters itself (``_p("mt.<name>")``): ``mt.src_emb``,
@@ -262,27 +266,27 @@ def lstm_jax_names(stacked_num: int) -> Dict[str, str]:
     return names
 
 
-def lstm_state_keys(names, stacked_num: int) -> Dict[str, str]:
-    """{JAX name: :class:`StackedDynamicLSTM` state key} for the parameter
-    names of one ``build`` (any counter offsets). Raises on a name that is
-    no parameter of ``lstm_net`` (an unused one) and on a layer or a
-    parameter that the names lack (a missing one)."""
+def _auto_state_keys(names, pattern, layout, what: str, model: str
+                     ) -> Dict[str, str]:
+    """{JAX name: state key} for auto-named parameters (``pattern``
+    matches family, counter and suffix), matched to ``layout``'s
+    ``(family, [(suffix, state key), ...])`` entries by family and by
+    counter order. Raises on a name that is no ``what`` parameter and on a
+    layer count or parameter set that differs from ``model``'s."""
     groups: Dict[str, Dict[int, set]] = {}
     for name in names:
-        m = _LSTM_AUTO.match(name)
+        m = pattern.match(name)
         if m is None:
-            raise KeyError(f"{name!r} is not a stacked-LSTM parameter")
+            raise KeyError(f"{name!r} is not a {what} parameter")
         groups.setdefault(m.group(1), {}).setdefault(
             int(m.group(2)), set()).add(m.group(3))
-    layout = lstm_layout(stacked_num)
     out = {}
     for fam in sorted(set(groups) | {f for f, _ in layout}):
         want = [p for f, p in layout if f == fam]
         have = sorted(groups.get(fam, {}))
         if len(have) != len(want):
             raise KeyError(f"{fam}: {len(have)} layers in the scope, "
-                           f"{len(want)} in a {stacked_num}-layer stacked "
-                           f"LSTM")
+                           f"{len(want)} in {model}")
         for k, params in zip(have, want):
             if groups[fam][k] != {s for s, _ in params}:
                 raise KeyError(f"{fam}_{k}: parameters "
@@ -291,6 +295,16 @@ def lstm_state_keys(names, stacked_num: int) -> Dict[str, str]:
             for suffix, key in params:
                 out[f"{fam}_{k}.{suffix}"] = key
     return out
+
+
+def lstm_state_keys(names, stacked_num: int) -> Dict[str, str]:
+    """{JAX name: :class:`StackedDynamicLSTM` state key} for the parameter
+    names of one ``build`` (any counter offsets). Raises on a name that is
+    no parameter of ``lstm_net`` (an unused one) and on a layer or a
+    parameter that the names lack (a missing one)."""
+    return _auto_state_keys(names, _LSTM_AUTO, lstm_layout(stacked_num),
+                            "stacked-LSTM",
+                            f"a {stacked_num}-layer stacked LSTM")
 
 
 def lstm_params_from_jax(arrays: Dict[str, np.ndarray], stacked_num: int
@@ -364,3 +378,63 @@ def mt_params_from_jax(arrays: Dict[str, np.ndarray]
             raise ValueError(f"{key}: shape {tuple(t.shape)}, want "
                              f"{want[key]}")
     return state
+
+
+# -- the text-conv classifier (tests/test_book.py:173; the PaddlePaddle
+#    book's understand_sentiment convolution_net) and the op program of
+#    tests/test_sparse_grad.py:295 -------------------------------------------
+
+_TEXTCONV_AUTO = re.compile(r"(embedding|sequence_conv|fc)_(\d+)\.([wb]_\d+)$")
+TEXTCONV_LAYOUT = (
+    ("embedding", [("w_0", "emb")]),
+    ("sequence_conv", [("w_0", "conv3.filter"), ("b_0", "conv3.bias")]),
+    ("sequence_conv", [("w_0", "conv4.filter"), ("b_0", "conv4.bias")]),
+    ("fc", [("w_0", "fc_w0"), ("w_1", "fc_w1"), ("b_0", "fc_b")]))
+
+
+def textconv_state_keys(names) -> Dict[str, str]:
+    """{JAX name: text-conv key of ``TEXTCONV_LAYOUT``} for the parameter
+    names of one classifier program (any counter offsets); raises on a
+    missing or an unused name."""
+    return _auto_state_keys(names, _TEXTCONV_AUTO, TEXTCONV_LAYOUT,
+                            "text-conv", "the text-conv classifier")
+
+
+def textconv_params_from_jax(arrays: Dict[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX scope arrays of the text-conv classifier -> its port's
+    parameters (fp32 CPU tensors) under the keys of ``TEXTCONV_LAYOUT``:
+    ``emb`` [V, E], ``conv3.filter`` [3E, F] and ``conv3.bias`` [F] (the
+    first ``sequence_conv_pool``, filter size 3), ``conv4.*`` (the second,
+    size 4), ``fc_w0`` [F, C] and ``fc_w1`` [F, C] (the softmax ``fc``'s
+    weight per input, c3 then c4) and ``fc_b`` [C]. The program names
+    nothing: ``embedding_<k>.w_0``, ``sequence_conv_<k>.w_0/b_0`` and
+    ``fc_<k>.w_0/w_1/b_0`` are matched by family and creation order.
+    Raises on a missing or an unused name and on a shape that disagrees
+    with the table's and the filters' widths."""
+    keys = textconv_state_keys(arrays)
+    state = {keys[n]: torch.from_numpy(np.array(v, dtype=np.float32))
+             for n, v in arrays.items()}
+    e = state["emb"].shape[1]
+    f, c = state["conv3.filter"].shape[1], state["fc_b"].shape[0]
+    want = {"emb": (state["emb"].shape[0], e), "conv3.filter": (3 * e, f),
+            "conv3.bias": (f,), "conv4.filter": (4 * e, f),
+            "conv4.bias": (f,), "fc_w0": (f, c), "fc_w1": (f, c),
+            "fc_b": (c,)}
+    for key, t in state.items():
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, want "
+                             f"{want[key]}")
+    return state
+
+
+def table_from_jax(arrays: Dict[str, np.ndarray], name: str = "emb_w"
+                   ) -> torch.Tensor:
+    """The one table of the ``fused_embedding_seq_pool`` op program,
+    ``emb_w`` [V, D] (named explicitly there), as an fp32 CPU tensor."""
+    if set(arrays) != {name}:
+        raise KeyError(f"want the one table {name!r}, got {sorted(arrays)}")
+    t = torch.from_numpy(np.array(arrays[name], dtype=np.float32))
+    if t.dim() != 2:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want [V, D]")
+    return t

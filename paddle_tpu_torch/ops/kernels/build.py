@@ -3,8 +3,9 @@
 Each ``paddle_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
 compiles on its own into ``build/paddle_tpu_torch/<name>.<digest>.so``
 at the root of the checkout (the directory is listed in ``.gitignore``).
-The digest is taken over the source text and the compiler flags, so an
-edited source builds anew and an unchanged one is reused. Nothing is
+The digest is taken over the source text, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header
+builds anew and an unchanged one is reused. Nothing is
 built at import time: the first launch of a kernel builds its library,
 and ``build()`` builds several at once, one ``nvcc`` process per source,
 all started together.
@@ -58,9 +59,10 @@ def sources() -> list:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (SOURCE_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}.{digest[:12]}.so"
 
 

@@ -1,0 +1,115 @@
+"""Embedding gather + masked sum pool: the wrapper of the CUDA kernel in
+``paddle_tpu_torch/csrc/embed_pool.cu`` and its plain PyTorch version.
+
+Counterpart of ``paddle_tpu/ops/pallas/embed_pool.py``:
+
+- :func:`fused_embed_seq_pool` -- ``_embed_pool_impl`` (``:78``): w [V,D],
+  ids [B,T] int and lens [B] (None: every t counts) -> [B,D] =
+  ``sum_{t < lens[b]} w[clip(ids[b,t], 0, V-1)]``, accumulated in fp32,
+  without the [B,T,D] gathered rows on the card.
+
+The clip is the TPU kernel's (``:81``); the JAX op's composed branch
+(``paddle_tpu/ops/lod_ops.py:219``, ``w[ids]``) wraps a negative id
+instead, so the two branches agree only on ids in [0, V). There is no
+backward kernel, as on the TPU: the op's gradients are built in torch
+(``paddle_tpu_torch/ops/lod_ops.py``).
+
+Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
+plain version, CUDA tensors to the kernel (any V, D, B and T; the ids are
+converted to int32), which is built on its first launch; anything else
+raises. The kernel takes the tables of every dtype the JAX op's composed
+branch gathers, as the seqpool kernel takes them
+(``seqpool.kernel_operand``: floats summed in fp32, fp64 in fp64, integers
+as int64, complex as its real view). ``LAUNCHES`` counts kernel launches;
+only a kernel launch adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.ops.kernels import build as _build
+from paddle_tpu_torch.ops.kernels import seqpool as _seqpool
+
+LAUNCHES = {"embed_pool": 0}
+
+_lib = None
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = _build.load("embed_pool")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.paddle_embed_pool.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.paddle_embed_pool.restype = i
+        _lib = lib
+    return _lib
+
+
+def fused_embed_seq_pool_ref(w, ids, lens=None):
+    """Plain version of :func:`fused_embed_seq_pool`: the [B,T,D] gathered
+    rows, masked and summed over T."""
+    emb = w[ids.long().clamp(0, w.shape[0] - 1)]
+    if lens is not None:
+        t = ids.shape[1]
+        mask = torch.arange(t, device=w.device)[None, :] < lens.reshape(-1, 1)
+        emb = emb * mask[:, :, None].to(emb.dtype)
+    return emb.sum(dim=1)
+
+
+def _check_shapes(w, ids, lens):
+    if w.dim() != 2 or ids.dim() != 2:
+        raise ValueError(f"want w [V,D] and ids [B,T], got {tuple(w.shape)} "
+                         f"and {tuple(ids.shape)}")
+    if w.shape[0] == 0 or w.shape[1] == 0 or ids.shape[0] == 0:
+        raise ValueError(f"empty pool: w {tuple(w.shape)}, ids "
+                         f"{tuple(ids.shape)}")
+    for name, t in (("ids", ids), ("lens", lens)):
+        if t is not None and (t.dtype.is_floating_point
+                              or t.dtype == torch.bool):
+            raise ValueError(f"{name} must be integers, got {t.dtype}")
+    if lens is not None and lens.numel() != ids.shape[0]:
+        raise ValueError(f"want lens [{ids.shape[0]}], got "
+                         f"{tuple(lens.shape)}")
+
+
+def _check_launch(err: int, name: str):
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def fused_embed_seq_pool(w, ids, lens: Optional[torch.Tensor] = None):
+    """w [V,D], ids [B,T] int, lens [B] int or None -> [B,D] of w's dtype
+    (int64 for an integer table)."""
+    _check_shapes(w, ids, lens)
+    tensors = (w, ids) if lens is None else (w, ids, lens)
+    if not _device.uses_kernel(*tensors):
+        return fused_embed_seq_pool_ref(w, ids, lens)
+    (v, d), (b, t) = w.shape, ids.shape
+    if w.is_complex():
+        out = fused_embed_seq_pool(torch.view_as_real(w).reshape(v, 2 * d),
+                                   ids, lens)
+        return torch.view_as_complex(out.view(b, d, 2))
+    w, code = _seqpool.kernel_operand(w)
+    ids32 = ids.to(torch.int32).contiguous()
+    lens32 = None if lens is None else \
+        lens.reshape(-1).to(torch.int32).contiguous()
+    out = torch.empty((b, d), dtype=w.dtype, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _kernels().paddle_embed_pool(
+            w.data_ptr(), ids32.data_ptr(),
+            None if lens32 is None else lens32.data_ptr(), out.data_ptr(),
+            b, t, v, d, code, torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "fused_embed_seq_pool")
+    LAUNCHES["embed_pool"] += 1
+    return out

@@ -25,8 +25,13 @@ Conventions of the TPU kernels: scores ``(q . k) * scale``; causal mask
 dP only, so ``lse`` stays dropout-free.
 
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
-plain version, CUDA tensors to the kernel (fp32, D in 32/64/128,
-contiguous), which is built on its first launch; anything else raises.
+plain version, CUDA tensors to the kernel (fp32, contiguous), which is
+built on its first launch; anything else raises. The kernels take head
+widths 32, 64, 128 and 256; the wrappers zero-pad q, k, v (and dO) along
+the head width up to the next of these and slice the padding off o, dq,
+dk and dv. That is exact: the scale is passed in, the padded columns add
+0 to every score, and the padded output columns are products with zeros.
+A head width above 256 raises.
 ``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
 adds to it.
 """
@@ -43,7 +48,7 @@ from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.ops.kernels import build as _build
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-HEAD_DIMS = (32, 64, 128)          # the head widths the kernels take
+HEAD_DIMS = (32, 64, 128, 256)     # the head widths the kernels take
 NEG = -1e30                        # _NEG: the masked score
 
 _MASK32 = 0xFFFFFFFF
@@ -197,9 +202,8 @@ def _check_qkv(q, k, v, causal):
     return bh, tq, tk, d
 
 
-def _check_kernel_args(name, tensors, d):
-    """What the kernels take: fp32, contiguous, 16-byte aligned, D in
-    HEAD_DIMS."""
+def _check_kernel_args(name, tensors):
+    """What the kernels take: fp32, contiguous, 16-byte aligned."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: the kernel takes float32, got "
@@ -209,8 +213,27 @@ def _check_kernel_args(name, tensors, d):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel takes 16-byte aligned "
                              f"tensors")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head width {d} not in {HEAD_DIMS}")
+
+
+def kernel_width(name: str, d: int) -> int:
+    """The head width the kernels run at for width ``d``: the least of
+    HEAD_DIMS that holds it."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"{name}: head width {d} > {HEAD_DIMS[-1]}")
+
+
+def padded(width: int, *tensors):
+    """The tensors zero-padded along the last axis to ``width``."""
+    return tuple(t if t.shape[-1] == width else
+                 torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
+
+
+def unpadded(d: int, t: torch.Tensor) -> torch.Tensor:
+    """``t`` without the padding past head width ``d``."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _check_rows(name, bh, tq, *rows):
@@ -236,18 +259,20 @@ def flash_fwd(q, k, v, causal: bool, scale: float, dropout_p: float = 0.0,
     seed_u, thresh, upscale = dropout_params(dropout_p, seed)
     if not _device.uses_kernel(q, k, v):
         return flash_fwd_ref(q, k, v, causal, scale, dropout_p, seed)
-    _check_kernel_args("flash_fwd", (q, k, v), d)
+    _check_kernel_args("flash_fwd", (q, k, v))
+    width = kernel_width("flash_fwd", d)
+    q, k, v = padded(width, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _kernels().paddle_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, tq, tk, d, int(causal), scale,
+            lse.data_ptr(), bh, tq, tk, width, int(causal), scale,
             int(dropout_p > 0), seed_u, thresh, upscale,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    return unpadded(d, o), lse
 
 
 def flash_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
@@ -261,20 +286,22 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
     if not _device.uses_kernel(q, k, v, dout, *rows):
         return flash_dq_ref(q, k, v, dout, lse, delta, causal, scale,
                             dropout_p, seed, dlse)
-    _check_kernel_args("flash_dq", (q, k, v, dout, *rows), d)
+    _check_kernel_args("flash_dq", (q, k, v, dout, *rows))
     if dout.shape != q.shape:
         raise ValueError(f"flash_dq: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
+    width = kernel_width("flash_dq", d)
+    q, k, v, dout = padded(width, q, k, v, dout)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _kernels().paddle_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dq.data_ptr(),
-            bh, tq, tk, d, int(causal), scale, int(dropout_p > 0), seed_u,
+            bh, tq, tk, width, int(causal), scale, int(dropout_p > 0), seed_u,
             thresh, upscale, torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_dq")
     LAUNCHES["flash_dq"] += 1
-    return dq
+    return unpadded(d, dq)
 
 
 def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
@@ -287,21 +314,23 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
     if not _device.uses_kernel(q, k, v, dout, *rows):
         return flash_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
                              dropout_p, seed, dlse)
-    _check_kernel_args("flash_dkv", (q, k, v, dout, *rows), d)
+    _check_kernel_args("flash_dkv", (q, k, v, dout, *rows))
     if dout.shape != q.shape:
         raise ValueError(f"flash_dkv: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
+    width = kernel_width("flash_dkv", d)
+    q, k, v, dout = padded(width, q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _kernels().paddle_flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dk.data_ptr(),
-            dv.data_ptr(), bh, tq, tk, d, int(causal), scale,
+            dv.data_ptr(), bh, tq, tk, width, int(causal), scale,
             int(dropout_p > 0), seed_u, thresh, upscale,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
-    return dk, dv
+    return unpadded(d, dk), unpadded(d, dv)
 
 
 class FlashAttention(torch.autograd.Function):

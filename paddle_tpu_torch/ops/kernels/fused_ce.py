@@ -22,8 +22,9 @@ The [N, V] logits never reach device memory on the kernel path. The plain
 versions materialize them: they are for the CPU and for the comparisons.
 
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
-plain version, CUDA tensors to the kernel (fp32, contiguous, D <= 512),
-which is built on its first launch; anything else raises. ``LAUNCHES``
+plain version, CUDA tensors to the kernel (fp32, contiguous, any D: rows
+wider than 512 run in chunks of 512 inside the kernels), which is built on
+its first launch; anything else raises. ``LAUNCHES``
 counts kernel launches per wrapper; only a kernel launch adds to it.
 """
 
@@ -38,7 +39,6 @@ from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.ops.kernels import build as _build
 
 LAUNCHES = {"fused_ce_fwd": 0, "fused_ce_dx": 0, "fused_ce_dw": 0}
-MAX_D = 512                        # the widest x row the kernels take
 ROWS_PER_BLOCK = 32                # kP of the kernels
 COLS_PER_CHUNK = 64                # kQ of the kernels
 
@@ -135,17 +135,14 @@ def _check_shapes(x, w, labels, *rows):
     return n, d, v
 
 
-def _check_kernel_args(name, tensors, d, ignore_index):
-    """What the kernels take: fp32, contiguous, D <= MAX_D, an int32
-    ignore_index."""
+def _check_kernel_args(name, tensors, ignore_index):
+    """What the kernels take: fp32, contiguous, an int32 ignore_index."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: the kernel takes float32, got "
                              f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
-    if d > MAX_D:
-        raise ValueError(f"{name}: row width {d} > {MAX_D}")
     if not -2 ** 31 <= ignore_index < 2 ** 31:
         raise ValueError(f"{name}: ignore_index {ignore_index} is not int32")
 
@@ -173,7 +170,7 @@ def fused_ce_fwd(x, w, labels, eps: float = 0.0, ignore_index: int = -100):
     n, d, v = _check_shapes(x, w, labels)
     if not _device.uses_kernel(x, w, labels):
         return fused_ce_fwd_ref(x, w, labels, eps, ignore_index)
-    _check_kernel_args("fused_ce_fwd", (x, w), d, ignore_index)
+    _check_kernel_args("fused_ce_fwd", (x, w), ignore_index)
     on, eps_f, _, vocab = _consts(eps, v)
     lab = _labels32(labels)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -198,7 +195,7 @@ def _bwd(name, x, w, labels, lse, g, eps, ignore_index):
     if not _device.uses_kernel(x, w, labels, lse, g):
         ref = fused_ce_bwd_ref(x, w, labels, lse, g, eps, ignore_index)
         return ref[0] if name == "fused_ce_dx" else ref[1]
-    _check_kernel_args(name, (x, w, lse, g), d, ignore_index)
+    _check_kernel_args(name, (x, w, lse, g), ignore_index)
     on, _, off, _ = _consts(eps, v)
     out = torch.empty_like(x if name == "fused_ce_dx" else w)
     fn = getattr(_kernels(), f"paddle_{name}")

@@ -56,8 +56,12 @@ explicit formulae, not autograd, so that each kernel output has a plain
 counterpart.
 
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
-plain version, CUDA tensors to the kernel (fp32, contiguous, H <=
-``MAX_H``), which is built on its first launch; anything else raises.
+plain version, CUDA tensors to the kernel (fp32, contiguous), which is
+built on its first launch; anything else raises. Up to H 512 each block
+of a kernel keeps its slices of ``w`` in shared memory; above, the
+wrapper allocates scratch in device memory for them
+(:func:`_scratch`). A width whose grid the card cannot hold (above 16
+units a block on every SM: H > 2112 on an H100) raises.
 ``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
 adds to it.
 """
@@ -73,7 +77,8 @@ from paddle_tpu_torch.ops.kernels import build as _build
 
 LAUNCHES = {"lstm_train_fwd": 0, "lstm_train_bwd": 0, "gru_train_fwd": 0,
             "gru_train_bwd": 0}
-MAX_H = 512                        # kMaxH of the kernels
+KINDS = {"lstm_train_fwd": 0, "lstm_train_bwd": 1, "gru_train_fwd": 2,
+         "gru_train_bwd": 3}         # the kernels' Kind
 
 _lib = None
 
@@ -88,10 +93,12 @@ def _kernels():
     if _lib is None:
         lib = _build.load("fused_rnn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paddle_lstm_train_fwd.argtypes = [p] * 13 + [i] * 3 + [p]
-        lib.paddle_lstm_train_bwd.argtypes = [p] * 19 + [i] * 3 + [p]
-        lib.paddle_gru_train_fwd.argtypes = [p] * 9 + [i] * 3 + [p]
-        lib.paddle_gru_train_bwd.argtypes = [p] * 13 + [i] * 3 + [p]
+        lib.paddle_lstm_train_fwd.argtypes = [p] * 14 + [i] * 3 + [p]
+        lib.paddle_lstm_train_bwd.argtypes = [p] * 20 + [i] * 3 + [p]
+        lib.paddle_gru_train_fwd.argtypes = [p] * 10 + [i] * 3 + [p]
+        lib.paddle_gru_train_bwd.argtypes = [p] * 14 + [i] * 3 + [p]
+        lib.paddle_rnn_scratch_floats.argtypes = [i, i]
+        lib.paddle_rnn_scratch_floats.restype = ctypes.c_longlong
         for fn in (lib.paddle_lstm_train_fwd, lib.paddle_lstm_train_bwd,
                    lib.paddle_gru_train_fwd, lib.paddle_gru_train_bwd):
             fn.restype = i
@@ -200,21 +207,34 @@ def _check_shapes(xproj, w, peep, seq_lens, h0, c0):
     return t, b, h
 
 
-def _check_kernel_args(name, tensors, h):
-    """What the kernels take: fp32, contiguous, H <= MAX_H."""
+def _check_kernel_args(name, tensors):
+    """What the kernels take: fp32, contiguous."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: the kernel takes float32, got "
                              f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
-    if h > MAX_H:
-        raise ValueError(f"{name}: hidden width {h} > {MAX_H}")
 
 
 def _check_launch(err: int, name: str):
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _scratch(name: str, h: int, device):
+    """Device scratch for the blocks' slices of ``w`` where the kernel
+    keeps them in global memory (H > 512), else None; the kernel says how
+    many floats (``paddle_rnn_scratch_floats``)."""
+    n = _kernels().paddle_rnn_scratch_floats(KINDS[name], h)
+    if n < 0:
+        raise RuntimeError(f"{name}: no launch at hidden width {h} on this "
+                           f"card (CUDA error {-n})")
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
 def _schedule(seq_lens, t: int):
@@ -234,18 +254,19 @@ def lstm_train_fwd(xproj, w, peep, seq_lens, h0, c0):
     t, b, h = _check_shapes(xproj, w, peep, seq_lens, h0, c0)
     if not _device.uses_kernel(xproj, w, peep, seq_lens, h0, c0):
         return lstm_train_fwd_plain(xproj, w, peep, seq_lens, h0, c0)
-    _check_kernel_args("lstm_train_fwd", (xproj, w, peep, h0, c0), h)
+    _check_kernel_args("lstm_train_fwd", (xproj, w, peep, h0, c0))
     lens, order, live = _schedule(seq_lens, t)
     hidden = torch.empty((t, b, h), dtype=torch.float32, device=xproj.device)
     cell = torch.empty_like(hidden)
     h_last, c_last = torch.empty_like(h0), torch.empty_like(c0)
     carry = torch.empty((2, b, h), dtype=torch.float32, device=xproj.device)
     with torch.cuda.device(xproj.device):
+        ws = _scratch("lstm_train_fwd", h, xproj.device)
         err = _kernels().paddle_lstm_train_fwd(
             xproj.data_ptr(), w.data_ptr(), peep.data_ptr(), lens.data_ptr(),
             order.data_ptr(), live.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hidden.data_ptr(), cell.data_ptr(), h_last.data_ptr(),
-            c_last.data_ptr(), carry.data_ptr(), t, b, h,
+            c_last.data_ptr(), carry.data_ptr(), _ptr(ws), t, b, h,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "lstm_train_fwd")
     LAUNCHES["lstm_train_fwd"] += 1
@@ -272,20 +293,22 @@ def lstm_train_bwd(xproj, w, peep, seq_lens, h0, c0, hidden, cell, dhid,
     if not _device.uses_kernel(seq_lens, *tensors):
         return lstm_train_bwd_plain(xproj, w, peep, seq_lens, h0, c0, hidden,
                                     cell, dhid, dcell, dhlast, dclast)
-    _check_kernel_args("lstm_train_bwd", tensors, h)
+    _check_kernel_args("lstm_train_bwd", tensors)
     lens, order, live = _schedule(seq_lens, t)
     dx = torch.empty_like(xproj)
     dw = torch.empty_like(w)
     dpeep = torch.empty((1, 3 * h), dtype=torch.float32, device=xproj.device)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
     with torch.cuda.device(xproj.device):
+        ws = _scratch("lstm_train_bwd", h, xproj.device)
         err = _kernels().paddle_lstm_train_bwd(
             xproj.data_ptr(), w.data_ptr(), peep.data_ptr(), lens.data_ptr(),
             order.data_ptr(), live.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hidden.data_ptr(), cell.data_ptr(), dhid.data_ptr(),
             dcell.data_ptr(), dhlast.data_ptr(), dclast.data_ptr(),
             dx.data_ptr(), dw.data_ptr(),
-            dpeep.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t, b, h,
+            dpeep.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), _ptr(ws), t, b,
+            h,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "lstm_train_bwd")
     LAUNCHES["lstm_train_bwd"] += 1
@@ -411,16 +434,17 @@ def gru_train_fwd(xproj, w, seq_lens, h0):
     t, b, h = _check_gru_shapes(xproj, w, seq_lens, h0)
     if not _device.uses_kernel(xproj, w, seq_lens, h0):
         return gru_train_fwd_plain(xproj, w, seq_lens, h0)
-    _check_kernel_args("gru_train_fwd", (xproj, w, h0), h)
+    _check_kernel_args("gru_train_fwd", (xproj, w, h0))
     lens, order, live = _schedule(seq_lens, t)
     hidden = torch.empty((t, b, h), dtype=torch.float32, device=xproj.device)
     rh = torch.empty_like(hidden)
     h_last = torch.empty_like(h0)
     with torch.cuda.device(xproj.device):
+        ws = _scratch("gru_train_fwd", h, xproj.device)
         err = _kernels().paddle_gru_train_fwd(
             xproj.data_ptr(), w.data_ptr(), lens.data_ptr(), order.data_ptr(),
             live.data_ptr(), h0.data_ptr(), hidden.data_ptr(),
-            h_last.data_ptr(), rh.data_ptr(), t, b, h,
+            h_last.data_ptr(), rh.data_ptr(), _ptr(ws), t, b, h,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "gru_train_fwd")
     LAUNCHES["gru_train_fwd"] += 1
@@ -442,17 +466,19 @@ def gru_train_bwd(xproj, w, seq_lens, h0, hidden, rh, dhid, dhlast):
     if not _device.uses_kernel(seq_lens, *tensors):
         return gru_train_bwd_plain(xproj, w, seq_lens, h0, hidden, rh, dhid,
                                    dhlast)
-    _check_kernel_args("gru_train_bwd", tensors, h)
+    _check_kernel_args("gru_train_bwd", tensors)
     lens, order, live = _schedule(seq_lens, t)
     dx = torch.empty_like(xproj)
     dw = torch.empty_like(w)
     dh0 = torch.empty_like(h0)
     with torch.cuda.device(xproj.device):
+        ws = _scratch("gru_train_bwd", h, xproj.device)
         err = _kernels().paddle_gru_train_bwd(
             xproj.data_ptr(), w.data_ptr(), lens.data_ptr(), order.data_ptr(),
             live.data_ptr(), h0.data_ptr(), hidden.data_ptr(), rh.data_ptr(),
             dhid.data_ptr(), dhlast.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-            dh0.data_ptr(), t, b, h, torch.cuda.current_stream().cuda_stream)
+            dh0.data_ptr(), _ptr(ws), t, b, h,
+            torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "gru_train_bwd")
     LAUNCHES["gru_train_bwd"] += 1
     return dx, dw, dh0

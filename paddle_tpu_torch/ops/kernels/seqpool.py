@@ -1,0 +1,191 @@
+"""Masked sequence pool (SUM, AVERAGE, SQRT): the wrapper of the CUDA
+kernel in ``paddle_tpu_torch/csrc/seqpool.cu``, its plain PyTorch
+version, and the ``torch.autograd.Function`` around them.
+
+Counterpart of ``paddle_tpu/ops/pallas/seqpool.py``:
+
+- :func:`masked_seqpool_fwd` -- ``_masked_seqpool_impl`` (``:79``): x
+  [B,T,D] and lens [B] -> [B,D], the fp32 sum over t < lens[b], divided
+  by ``max(n, 1)`` (AVERAGE) or ``sqrt(max(n, 1))`` (SQRT).
+- :func:`masked_seqpool_bwd` -- ``_seqpool_bwd`` (``:59-73``), in torch as
+  there: the output gradient broadcast over T, divided as the forward
+  divides, and masked past each length.
+- :class:`MaskedSeqPool` and :func:`masked_seqpool` -- ``masked_seqpool``
+  (``:48``), differentiable in x.
+
+The TPU kernel also has a MAX branch, which no caller routes to it
+(``paddle_tpu/ops/sequence_ops.py:69``) and which has no VJP; MAX, LAST
+and FIRST stay in torch (``paddle_tpu_torch/ops/sequence_ops.py``).
+
+Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
+plain version, CUDA tensors to the kernel (any B, T and D), which is built
+on its first launch; anything else raises. ``LAUNCHES`` counts kernel
+launches; only a kernel launch adds to it.
+
+The kernel takes every dtype the JAX op's refer branch pools
+(:func:`kernel_operand`): fp32, fp64, fp16 and bf16 as they are, summed in
+fp32 (fp64 for fp64); integers and bool summed in int64, as ``torch.sum``
+widens them, their AVERAGE and SQRT that sum divided by the length cast to
+x's type (fp32, as the plain version divides); complex x as its real view
+of twice the width, which pools the two parts apart, exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.ops.kernels import build as _build
+
+LAUNCHES = {"seqpool": 0}
+MODES = {"SUM": 0, "AVERAGE": 1, "SQRT": 2}
+# the element types of csrc/pool_elem.cuh, by their codes there
+DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+          torch.bfloat16: 3, torch.int64: 4}
+
+_lib = None
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = _build.load("seqpool")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.paddle_seqpool.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.paddle_seqpool.restype = i
+        _lib = lib
+    return _lib
+
+
+def _mode(pooltype: str) -> str:
+    ptype = str(pooltype).upper()
+    if ptype not in MODES:
+        raise ValueError(f"masked_seqpool pools {sorted(MODES)}, got "
+                         f"{pooltype!r}")
+    return ptype
+
+
+def _divisor(lens, ptype, like):
+    """[B, 1] ``max(n, 1)`` (AVERAGE) or its square root (SQRT); None for
+    SUM."""
+    if ptype == "SUM":
+        return None
+    # the length cast to x's type, then at least 1 (jnp.maximum), also for
+    # the complex and bool types that clamp_min does not take
+    denom = lens.reshape(-1, 1).to(like.dtype)
+    small = (denom.real if denom.is_complex() else denom) < 1
+    denom = torch.where(small, torch.ones_like(denom), denom)
+    return denom if ptype == "AVERAGE" else torch.sqrt(denom)
+
+
+def masked_seqpool_ref(x, lens, pooltype: str = "SUM"):
+    """Plain version of :func:`masked_seqpool_fwd`: the masked sum over the
+    whole [B, T, D] (the refer branch of ``_sequence_pool``,
+    ``paddle_tpu/ops/sequence_ops.py:75-84``)."""
+    ptype = _mode(pooltype)
+    b, t = x.shape[0], x.shape[1]
+    mask = torch.arange(t, device=x.device)[None, :] < lens.reshape(-1, 1)
+    out = (x * mask[:, :, None].to(x.dtype)).sum(dim=1)
+    div = _divisor(lens, ptype, x)
+    return out if div is None else out / div
+
+
+def _check_shapes(x, lens):
+    if x.dim() != 3:
+        raise ValueError(f"want x [B,T,D], got {tuple(x.shape)}")
+    if x.shape[0] == 0 or x.shape[2] == 0:
+        raise ValueError(f"empty pool {tuple(x.shape)}")
+    if lens.numel() != x.shape[0]:
+        raise ValueError(f"want lens [{x.shape[0]}], got "
+                         f"{tuple(lens.shape)}")
+    if lens.dtype.is_floating_point or lens.dtype == torch.bool:
+        raise ValueError(f"lens must be integers, got {lens.dtype}")
+
+
+def _check_launch(err: int, name: str):
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def kernel_operand(x):
+    """(x as the pooling kernels read it, its dtype code): floats as they
+    are, integers and bool widened to int64, contiguous. Raises for a
+    dtype no kernel takes (complex is viewed as real by the callers)."""
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.int64)
+    if x.dtype not in DTYPES:
+        raise ValueError(f"the pooling kernels take "
+                         f"{[str(k) for k in DTYPES]}, integers and bool "
+                         f"(as int64) and complex, got {x.dtype}")
+    return x.contiguous(), DTYPES[x.dtype]
+
+
+def masked_seqpool_fwd(x, lens, pooltype: str = "SUM"):
+    """x [B,T,D], lens [B] int -> [B,D] of x's dtype (int64 for the SUM
+    of integers, fp32 for their AVERAGE and SQRT)."""
+    ptype = _mode(pooltype)
+    _check_shapes(x, lens)
+    if not _device.uses_kernel(x, lens):
+        return masked_seqpool_ref(x, lens, ptype)
+    b, t, d = x.shape
+    if x.is_complex():
+        out = masked_seqpool_fwd(torch.view_as_real(x).reshape(b, t, 2 * d),
+                                 lens, ptype)
+        return torch.view_as_complex(out.view(b, d, 2))
+    if ptype != "SUM" and not x.is_floating_point():
+        # integers: the kernel's int64 sum over the length cast to x's own
+        # type (true division, as the plain version divides)
+        return masked_seqpool_fwd(x, lens, "SUM") / _divisor(lens, ptype, x)
+    x, code = kernel_operand(x)
+    lens32 = lens.reshape(-1).to(torch.int32).contiguous()
+    out = torch.empty((b, d), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels().paddle_seqpool(
+            x.data_ptr(), lens32.data_ptr(), out.data_ptr(), b, t, d,
+            MODES[ptype], code, torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "masked_seqpool")
+    LAUNCHES["seqpool"] += 1
+    return out
+
+
+def masked_seqpool_bwd(g, lens, t: int, pooltype: str = "SUM"):
+    """dx [B,T,D] of :func:`masked_seqpool_fwd` from the output gradient g
+    [B,D] (``_seqpool_bwd``)."""
+    ptype = _mode(pooltype)
+    b, d = g.shape
+    mask = torch.arange(t, device=g.device)[None, :] < lens.reshape(-1, 1)
+    gx = g[:, None, :].expand(b, t, d)
+    div = _divisor(lens, ptype, g)
+    if div is not None:
+        gx = gx / div[:, :, None]
+    return gx * mask[:, :, None].to(g.dtype)
+
+
+class MaskedSeqPool(torch.autograd.Function):
+    """[B,D] pool of x [B,T,D] over t < lens[b]; the forward runs
+    :func:`masked_seqpool_fwd` (the kernel on the card), the backward
+    :func:`masked_seqpool_bwd` in torch. ``lens`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, lens, pooltype):
+        ctx.save_for_backward(lens)
+        ctx.args = (x.shape[1], pooltype)
+        return masked_seqpool_fwd(x, lens, pooltype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (lens,) = ctx.saved_tensors
+        return masked_seqpool_bwd(g, lens, *ctx.args), None, None
+
+
+def masked_seqpool(x, lens, pooltype: str = "SUM") -> torch.Tensor:
+    """x [B,T,D], lens [B] int -> [B,D]: SUM, AVERAGE or SQRT over the
+    first lens[b] steps of each row, differentiable in x."""
+    return MaskedSeqPool.apply(x, lens, _mode(pooltype))

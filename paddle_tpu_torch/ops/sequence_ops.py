@@ -3,11 +3,17 @@
 is ``[B, T, ...]`` plus ``seq_lens`` [B], and every op is a masked dense
 computation.
 
-:func:`sequence_pool` is ``_sequence_pool`` (``:55-108``) as its refer
-branch computes it (``:75-107``), in plain torch for every pool type: the
-JAX op sends SUM / AVERAGE / SQRT at aligned widths to a Pallas kernel
-(``ops/pallas/seqpool.py``), which has no counterpart here yet; MAX, LAST
-and FIRST never reach it.
+- :func:`sequence_pool` is ``_sequence_pool`` (``:55-108``). SUM, AVERAGE
+  and SQRT go to ``ops/kernels/seqpool.py`` ``masked_seqpool`` for every
+  shape (an x of rank other than 3 viewed as [B, T, prod(rest)] and back):
+  its CUDA kernel on the card, its plain version, the JAX op's refer
+  branch (``:75-84``), on the CPU. The JAX op sends these pools to its
+  Pallas kernel only at aligned widths; the numbers are the same either
+  way. MAX, LAST and FIRST stay in plain torch, as no caller routes them
+  to the kernel.
+- :func:`sequence_conv` is ``_sequence_conv`` (``:152-181``): the context
+  window as shifted copies (im2col), one product with the filter
+  (``torch.matmul``, as JAX leaves the einsum to XLA), the result masked.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.ops.kernels import seqpool as _seqpool
+
 POOL_TYPES = ("SUM", "AVERAGE", "SQRT", "MAX", "LAST", "FIRST")
 
 
@@ -23,6 +31,12 @@ def _lens_or_full(seq_lens, b, t, device):
     if seq_lens is None:
         return torch.full((b,), t, dtype=torch.int32, device=device)
     return seq_lens.reshape(-1).to(torch.int32)
+
+
+def _mask_bt(seq_lens, b, t, device):
+    """[B, T] bool validity mask."""
+    lens = _lens_or_full(seq_lens, b, t, device)
+    return torch.arange(t, device=device)[None, :] < lens[:, None]
 
 
 def sequence_pool(x: torch.Tensor, seq_lens: Optional[torch.Tensor] = None,
@@ -35,19 +49,13 @@ def sequence_pool(x: torch.Tensor, seq_lens: Optional[torch.Tensor] = None,
     pooltype = str(pooltype).upper()
     if return_max_index and pooltype != "MAX":
         raise ValueError("MaxIndex is an output of the MAX pool only")
-    tail = (1,) * (x.dim() - 2)
     lens_i = _lens_or_full(seq_lens, b, t, x.device)
-    mask = (torch.arange(t, device=x.device)[None, :]
-            < lens_i[:, None]).reshape(b, t, *tail)
-    fmask = mask.to(x.dtype)
-    lens_b = lens_i.to(x.dtype).clamp_min(1).reshape(b, *tail)
+    if pooltype in _seqpool.MODES:
+        out = _seqpool.masked_seqpool(x.reshape(b, t, -1), lens_i, pooltype)
+        return out.view(b, *x.shape[2:])
+    tail = (1,) * (x.dim() - 2)
+    mask = _mask_bt(seq_lens, b, t, x.device).reshape(b, t, *tail)
     nonempty = (lens_i > 0).reshape(b, *tail)
-    if pooltype == "SUM":
-        return (x * fmask).sum(dim=1)
-    if pooltype == "AVERAGE":
-        return (x * fmask).sum(dim=1) / lens_b
-    if pooltype == "SQRT":
-        return (x * fmask).sum(dim=1) / torch.sqrt(lens_b)
     if pooltype == "MAX":
         lowest = torch.finfo(x.dtype).min if x.dtype.is_floating_point \
             else torch.iinfo(x.dtype).min
@@ -64,3 +72,39 @@ def sequence_pool(x: torch.Tensor, seq_lens: Optional[torch.Tensor] = None,
     if pooltype == "FIRST":
         return torch.where(nonempty, x[:, 0], torch.zeros_like(x[:, 0]))
     raise ValueError(f"unknown pooltype {pooltype!r}")
+
+
+def default_context_start(context_length: int) -> int:
+    """The layer's and the op's default ``contextStart``,
+    ``-(context_length - 1) // 2`` as Python reads it: the floor of a
+    negative half, -1 at length 3 but -2 at length 4
+    (``fluid/layers/sequence.py:72``, ``sequence_ops.py:164``)."""
+    return -(context_length - 1) // 2
+
+
+def sequence_conv(x: torch.Tensor, filt: torch.Tensor,
+                  seq_lens: Optional[torch.Tensor] = None,
+                  context_length: int = 3,
+                  context_start: Optional[int] = None) -> torch.Tensor:
+    """X [B,T,D], filter [context_length*D, M] -> Out [B,T,M]: step t sees
+    the rows t + context_start .. t + context_start + context_length - 1
+    of the masked x (zeros outside [0, T) and past each length),
+    flattened and multiplied by the filter; the rows past each length are
+    0."""
+    if context_start is None:
+        context_start = default_context_start(context_length)
+    b, t, d = x.shape
+    if filt.shape[0] != context_length * d:
+        raise ValueError(f"want filter [{context_length * d}, M], got "
+                         f"{tuple(filt.shape)}")
+    mask = _mask_bt(seq_lens, b, t, x.device).to(x.dtype)[:, :, None]
+    xm = x * mask
+    steps = torch.arange(t, device=x.device)
+    cols = []
+    for k in range(context_length):
+        idx = steps + (context_start + k)
+        valid = ((idx >= 0) & (idx < t)).to(x.dtype)
+        cols.append(xm.index_select(1, idx.clamp(0, t - 1))
+                    * valid[None, :, None])
+    out = torch.matmul(torch.cat(cols, dim=-1), filt)
+    return out * mask

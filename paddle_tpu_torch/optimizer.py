@@ -6,6 +6,10 @@ not ``torch.optim.Adam``: the bias correction folds into the step size
 and epsilon is added to ``sqrt(m2)`` unscaled. A dense gradient takes the
 dense branch (``:140-149``); a row-sparse one (``lookup_table(...,
 sparse=True)``) the sparse branches (``:102-139``).
+
+:class:`Adagrad` is ``AdagradOptimizer`` (``optimizer.py:268-287``, rule
+``ops/optimizer_ops.py:173-182``), not ``torch.optim.Adagrad``: no
+learning-rate decay, no initial accumulator, epsilon outside the root.
 """
 
 from __future__ import annotations
@@ -14,6 +18,13 @@ from typing import Callable, Union
 
 import numpy as np
 import torch
+
+
+def _rate(learning_rate):
+    """(schedule or None, the constant rate) of a float or a callable."""
+    if callable(learning_rate):
+        return learning_rate, 0.0
+    return None, float(learning_rate)
 
 
 class Adam(torch.optim.Optimizer):
@@ -50,12 +61,7 @@ class Adam(torch.optim.Optimizer):
     def __init__(self, params, learning_rate: Union[float, Callable] = 1e-3,
                  beta1: float = 0.9, beta2: float = 0.999,
                  epsilon: float = 1e-8, lazy_mode: bool = False):
-        if callable(learning_rate):
-            self.schedule = learning_rate
-            lr = 0.0
-        else:
-            self.schedule = None
-            lr = float(learning_rate)
+        self.schedule, lr = _rate(learning_rate)
         self.lazy_mode = bool(lazy_mode)
         super().__init__(params, dict(lr=lr, beta1=float(beta1),
                                       beta2=float(beta2),
@@ -117,3 +123,39 @@ class Adam(torch.optim.Optimizer):
         m1.mul_(b1).index_add_(0, rows, (1.0 - b1) * vals)
         m2.mul_(b2).index_add_(0, rows, (1.0 - b2) * vals * vals)
         p.sub_(lr_t * m1 / (torch.sqrt(m2) + eps))
+
+
+class Adagrad(torch.optim.Optimizer):
+    """Per parameter, with a ``moment`` accumulator that starts at 0::
+
+        moment += g * g
+        p      -= lr * g / (sqrt(moment) + epsilon)
+
+    in place, ``lr`` a float32 value (or a schedule, read once per
+    :meth:`step`). The JAX package applies ``adagrad`` only to dense
+    gradients (it is not in ``core/selected_rows.py:139``
+    ``SPARSE_APPLY_OPS``), so a row-sparse gradient is densified first,
+    duplicate rows summed: every row's moment takes ``g * g``, zero off
+    the looked-up rows. Parameters without a gradient are skipped."""
+
+    def __init__(self, params, learning_rate: Union[float, Callable] = 1e-2,
+                 epsilon: float = 1e-6):
+        self.schedule, lr = _rate(learning_rate)
+        super().__init__(params, dict(lr=lr, epsilon=float(epsilon)))
+
+    @torch.no_grad()
+    def step(self):
+        scheduled = self.schedule() if self.schedule is not None else None
+        for group in self.param_groups:
+            rate = float(np.float32(group["lr"] if scheduled is None
+                                    else scheduled))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.to_dense() if p.grad.is_sparse else p.grad
+                st = self.state[p]
+                if not st:
+                    st["moment"] = torch.zeros_like(p)
+                moment = st["moment"]
+                moment.add_(g * g)
+                p.sub_(rate * g / (torch.sqrt(moment) + group["epsilon"]))

@@ -205,6 +205,39 @@ def test_lse_cotangent_enters_ds():
     assert torch.count_nonzero(dv) == 0
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_head_width_padding_is_exact(causal):
+    """The wrappers run a head width of 48 at 64 on the card: q, k, v and
+    dO zero-padded along the head width, the scale passed in, the padding
+    sliced off o, dq, dk and dv. Run on the plain versions in float64,
+    that transform equals unpadded attention (lse too) to float64's last
+    bits."""
+    rng = np.random.RandomState(12)
+    bh, t, d = 3, 20, 48
+    width = tfa.kernel_width("flash", d)
+    assert width == 64
+    q, k, v, g = (torch.from_numpy(rng.randn(bh, t, d)) for _ in range(4))
+    args = (causal, d ** -0.5, 0.2, SEED)
+    o, lse = tfa.flash_fwd_ref(q, k, v, *args)
+    delta = (o * g).sum(-1)
+    qp, kp, vp, gp = tfa.padded(width, q, k, v, g)
+    assert qp.shape == (bh, t, width) and bool((qp[..., d:] == 0).all())
+    op, lsep = tfa.flash_fwd_ref(qp, kp, vp, *args)
+    wide = (qp, kp, vp, gp, lsep, delta) + args
+    exact = dict(rtol=1e-12, atol=1e-13)
+    for got, want in (
+            (tfa.unpadded(d, op), o), (lsep, lse),
+            (tfa.unpadded(d, tfa.flash_dq_ref(*wide)),
+             tfa.flash_dq_ref(q, k, v, g, lse, delta, *args)),
+            *zip((tfa.unpadded(d, x) for x in tfa.flash_dkv_ref(*wide)),
+                 tfa.flash_dkv_ref(q, k, v, g, lse, delta, *args))):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **exact)
+    assert [tfa.kernel_width("f", n) for n in (1, 32, 33, 100, 129, 256)] \
+        == [32, 32, 64, 128, 256, 256]
+    with pytest.raises(ValueError, match="head width 257"):
+        tfa.kernel_width("flash_fwd", 257)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(2, 4, 8)
     with pytest.raises(ValueError, match="tq <= tk"):
@@ -229,14 +262,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
     """Each kernel against its plain version on the card at the training
     shapes (B 2, H 8, T 128, D 64), a ragged T = 100, dropout 0.1, a
-    causal cross length and D = 128; the autograd Function launches each
-    kernel once per call."""
+    causal cross length, D = 128 and D = 256, and head widths the
+    wrappers pad (48: d_model 96 over 2 heads; 8, 200); the autograd
+    Function launches each kernel once per call."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     cases = [(16, 128, 128, 64, False, 0.0), (16, 128, 128, 64, True, 0.0),
              (16, 100, 100, 64, True, 0.0), (16, 128, 128, 64, False, 0.1),
              (16, 100, 100, 64, True, 0.1), (8, 70, 130, 64, True, 0.1),
-             (4, 128, 128, 128, True, 0.1), (4, 96, 80, 32, False, 0.2)]
+             (4, 128, 128, 128, True, 0.1), (4, 96, 80, 32, False, 0.2),
+             (4, 128, 128, 48, True, 0.1), (4, 100, 100, 256, True, 0.0),
+             (8, 70, 130, 256, True, 0.1), (4, 40, 40, 200, False, 0.2),
+             (2, 33, 33, 8, True, 0.0)]
     for bh, tq, tk, d, causal, p in cases:
         q, g = (torch.randn(bh, tq, d, generator=gen, device=cuda_device)
                 for _ in range(2))

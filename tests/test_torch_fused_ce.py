@@ -170,17 +170,56 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tfc.fused_ce_fwd(meta, w, labels)
 
 
+def test_chunked_depth_is_exact_against_the_plain_versions():
+    """D > 512 on the card: z is summed over 512-wide depth chunks in
+    order, and dx / dW are made one 512-wide output chunk at a time from
+    that z. The same decomposition in float64 at D 700 equals the whole
+    products to the last bits of float64, and the plain versions (which
+    compute in float32) within float32's rounding."""
+    rng = np.random.RandomState(11)
+    n, d, v, eps, chunk = 40, 700, 90, 0.1, 512
+    x = torch.from_numpy(rng.randn(n, d)).double()
+    w = torch.from_numpy(rng.randn(d, v) * d ** -0.5).double()
+    labels = torch.from_numpy(rng.randint(0, v, n))
+    labels[::7] = IGNORE
+    g = torch.from_numpy(rng.rand(n) + 0.5).double()
+    starts = range(0, d, chunk)
+    z = sum(x[:, c:c + chunk] @ w[c:c + chunk] for c in starts)
+    np.testing.assert_allclose(z.numpy(), (x @ w).numpy(), rtol=1e-12,
+                               atol=1e-12)
+    loss, lse = tfc.fused_ce_fwd_ref(x, w, labels, eps)
+    on, _, off, _ = tfc._consts(eps, v)
+    t = torch.where(torch.arange(v)[None] == labels[:, None], on, 0.0) + off
+    dz = (torch.exp(z - lse[:, None]) - t) * g[:, None]
+    dz[labels == IGNORE] = 0
+    dx = torch.cat([dz @ w[c:c + chunk].t() for c in starts], dim=1)
+    dw = torch.cat([x[:, c:c + chunk].t() @ dz for c in starts], dim=0)
+    np.testing.assert_allclose(dx.numpy(), (dz @ w.t()).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(dw.numpy(), (x.t() @ dz).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    want_dx, want_dw = tfc.fused_ce_bwd_ref(x, w, labels, lse, g, eps)
+    np.testing.assert_allclose(dx.numpy(), want_dx.numpy(), rtol=1e-4,
+                               atol=1e-7)
+    np.testing.assert_allclose(dw.numpy(), want_dw.numpy(), rtol=1e-4,
+                               atol=1e-7)
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
     """Each kernel against its plain version on the card at edge shapes
-    (N, D and V not multiples of the tiles, D up to 512, vocab splits),
-    eps 0 and 0.1, ignored rows; the autograd Function launches each
-    kernel once per call; D > 512 and float64 raise."""
+    (N, D and V not multiples of the tiles, D up to 512, vocab splits, and
+    D above 512 in chunks: 513, 700, 1024 and 1100), eps 0 and 0.1,
+    ignored rows; the autograd Function launches each kernel once per
+    call, also at the smallest input that raised before (x [1, 513]);
+    float64 raises."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     for n, d, v, eps in [(1000, 100, 1003, 0.1), (37, 512, 640, 0.0),
                          (300, 257, 129, 0.1), (4096, 512, 4000, 0.1),
-                         (5, 3, 7, 0.0)]:
+                         (5, 3, 7, 0.0), (300, 700, 1003, 0.1),
+                         (64, 513, 200, 0.0), (512, 1024, 3000, 0.1),
+                         (33, 1100, 70, 0.1)]:
         x = torch.randn(n, d, generator=gen, device=cuda_device)
         w = torch.randn(d, v, generator=gen, device=cuda_device) * d ** -0.5
         labels = torch.randint(0, v, (n,), generator=gen, device=cuda_device)
@@ -213,9 +252,13 @@ def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
     assert {k: tfc.LAUNCHES[k] - n0[k] for k in n0} == \
         {"fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
-    with pytest.raises(ValueError, match="row width"):
-        tfc.fused_ce_fwd(torch.zeros(4, 520, device=cuda_device),
-                         torch.zeros(520, 8, device=cuda_device),
-                         labels[:4])
+    x1 = torch.randn(1, 513, device=cuda_device, requires_grad=True)
+    w1 = torch.randn(513, 2, device=cuda_device)
+    lab1 = torch.tensor([[0]], device=cuda_device)
+    got = tnn.fused_linear_ce(x1, w1, lab1)
+    torch.testing.assert_close(got[:, 0], tfc.fused_ce_fwd_ref(
+        x1.detach(), w1, lab1[:, 0])[0], rtol=1e-4, atol=1e-5)
+    got.sum().backward()
+    assert torch.isfinite(x1.grad).all()
     with pytest.raises(ValueError, match="float32"):
         tfc.fused_ce_fwd(x.detach().double(), w.detach().double(), labels)

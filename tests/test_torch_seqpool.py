@@ -1,0 +1,243 @@
+"""The PyTorch port's masked sequence pool (paddle_tpu_torch/ops/kernels/
+seqpool.py) and its callers ``sequence_pool`` and ``sequence_conv``
+(paddle_tpu_torch/ops/sequence_ops.py) against the JAX package: the Pallas
+kernel ``masked_seqpool`` in interpret mode (paddle_tpu/ops/pallas/
+seqpool.py), its custom VJP, and the ``sequence_pool`` and
+``sequence_conv`` ops through the executor (tests/op_test.py
+``run_single_op``; on the CPU the ops take their composed branches).
+
+Tolerances: rtol 1e-5 / atol 1e-6 for the pools and their gradients (one
+fp32 sum over T in another order; on the card, at T 100, the rtol is
+taken of the pool of |x|, since the error of a sum grows with its terms'
+magnitudes, not with the sum); rtol 1e-5 / atol 1e-5 for
+``sequence_conv`` (a product of depth 4 * 16 in another order).
+
+The CUDA kernel runs only on the card: the ``gpu`` test holds it against
+its plain version there and skips elsewhere
+(``pytest --noconftest -m gpu tests/test_torch_seqpool.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import sequence_ops as tseq
+from paddle_tpu_torch.ops.kernels import seqpool as tsp
+
+POOL_TOL = dict(rtol=1e-5, atol=1e-6)
+CONV_TOL = dict(rtol=1e-5, atol=1e-5)
+MODES = ("SUM", "AVERAGE", "SQRT")
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """(jax, the JAX package's Pallas seqpool module)."""
+    import importlib
+    jax = pytest.importorskip("jax")
+    return jax, importlib.import_module("paddle_tpu.ops.pallas.seqpool")
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided at run time (never at import or collection)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
+                    "mode (run on the card with `pytest -m gpu`)")
+    return torch.device("cuda")
+
+
+def _data(b=5, t=7, d=128, seed=0):
+    """B not a multiple of 8 (the TPU kernel pads it), one empty row, one
+    full row."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, t, d).astype(np.float32)
+    lens = rng.randint(1, t + 1, b).astype(np.int32)
+    lens[0], lens[1] = t, 0
+    return x, lens
+
+
+@pytest.mark.parametrize("pooltype", MODES)
+def test_plain_version_matches_the_pallas_kernel(jx, pooltype):
+    jax, psp = jx
+    x, lens = _data()
+    want = psp.masked_seqpool(jax.numpy.asarray(x), jax.numpy.asarray(lens),
+                              pooltype, True)
+    got = tsp.masked_seqpool(torch.from_numpy(x), torch.from_numpy(lens),
+                             pooltype)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **POOL_TOL)
+    assert torch.all(got[1] == 0)
+
+
+@pytest.mark.parametrize("pooltype", MODES)
+def test_gradient_matches_the_pallas_vjp(jx, pooltype):
+    jax, psp = jx
+    x, lens = _data(seed=1)
+    g = np.random.RandomState(2).randn(x.shape[0], x.shape[2]).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda a: psp.masked_seqpool(
+        a, jax.numpy.asarray(lens), pooltype, True), jax.numpy.asarray(x))
+    (want,) = vjp(jax.numpy.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    tsp.masked_seqpool(xt, torch.from_numpy(lens), pooltype).backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), **POOL_TOL)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 6), (5, 7, 3, 4), (5, 7)],
+                         ids=["rank3", "rank4", "rank2"])
+@pytest.mark.parametrize("pooltype", MODES)
+def test_sequence_pool_matches_the_jax_op_at_any_rank(pooltype, shape):
+    from op_test import run_single_op
+    rng = np.random.RandomState(3)
+    x = rng.randn(*shape).astype(np.float32)
+    lens = np.array([7, 0, 3, 1, 5], np.int32)
+    want = run_single_op("sequence_pool",
+                         {"X": {"x": x}, "SeqLens": {"sl": lens}},
+                         {"pooltype": pooltype})["__out_Out_0"]
+    got = tseq.sequence_pool(torch.from_numpy(x), torch.from_numpy(lens),
+                             pooltype)
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), want, **POOL_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "int32"])
+@pytest.mark.parametrize("pooltype", MODES)
+def test_sequence_pool_matches_the_jax_op_at_other_dtypes(pooltype, dtype):
+    """The refer branch pools every dtype, and so does the port: fp16 in
+    fp16 (rtol 2e-3: two fp16 roundings), int32 summed exactly (int64 in
+    the port, as torch.sum widens it), its AVERAGE and SQRT in fp32."""
+    from op_test import run_single_op
+    rng = np.random.RandomState(8)
+    x = (rng.randn(5, 7, 6) * 4).astype(dtype)
+    lens = np.array([7, 0, 3, 1, 5], np.int32)
+    want = run_single_op("sequence_pool",
+                         {"X": {"x": x}, "SeqLens": {"sl": lens}},
+                         {"pooltype": pooltype})["__out_Out_0"]
+    got = tseq.sequence_pool(torch.from_numpy(x), torch.from_numpy(lens),
+                             pooltype)
+    assert got.shape == tuple(want.shape)
+    assert got.is_floating_point() == np.issubdtype(want.dtype, np.floating)
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
+                               rtol=2e-3 if dtype == "float16" else 1e-6,
+                               atol=1e-3 if dtype == "float16" else 0)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    x, lens = _data(d=12)
+    xt, lt = torch.from_numpy(x), torch.from_numpy(lens)
+    before = dict(tsp.LAUNCHES)
+    for mode in MODES:
+        assert torch.equal(tsp.masked_seqpool_fwd(xt, lt, mode),
+                           tsp.masked_seqpool_ref(xt, lt, mode))
+    assert tsp.LAUNCHES == before
+
+
+def test_wrapper_rejects_what_it_does_not_take():
+    x = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError, match="pools"):
+        tsp.masked_seqpool(x, torch.tensor([1, 2]), "MAX")
+    with pytest.raises(ValueError, match="want lens"):
+        tsp.masked_seqpool(x, torch.tensor([1, 2, 3]), "SUM")
+    with pytest.raises(ValueError, match="integers"):
+        tsp.masked_seqpool(x, torch.tensor([1.0, 2.0]), "SUM")
+    with pytest.raises(ValueError, match="want x"):
+        tsp.masked_seqpool(x[0], torch.tensor([1, 2]), "SUM")
+    meta = torch.zeros(2, 3, 4, device="meta")
+    with pytest.raises(ValueError, match="devices|unsupported device"):
+        tsp.masked_seqpool_fwd(meta, torch.tensor([1, 2]), "SUM")
+
+
+def test_default_context_start_floors_a_negative_half():
+    assert [tseq.default_context_start(n) for n in (1, 2, 3, 4, 5)] == \
+        [0, -1, -1, -2, -2]
+
+
+@pytest.mark.parametrize("with_lens", [True, False], ids=["seq-lens",
+                                                           "full"])
+@pytest.mark.parametrize("filter_size", [3, 4])
+def test_sequence_conv_matches_the_jax_op(filter_size, with_lens):
+    from op_test import run_single_op
+    rng = np.random.RandomState(4)
+    b, t, d, m = 5, 9, 16, 8
+    x = rng.randn(b, t, d).astype(np.float32)
+    w = rng.randn(filter_size * d, m).astype(np.float32)
+    lens = np.array([9, 0, 4, 1, 7], np.int32)
+    inputs = {"X": {"x": x}, "Filter": {"f": w}}
+    if with_lens:
+        inputs["SeqLens"] = {"sl": lens}
+    # the op's own default contextStart, as the layer passes it
+    want = run_single_op("sequence_conv", inputs,
+                         {"contextLength": filter_size})["__out_Out_0"]
+    got = tseq.sequence_conv(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(lens) if with_lens else None,
+                             filter_size)
+    np.testing.assert_allclose(got.numpy(), want, **CONV_TOL)
+    if with_lens:
+        assert torch.all(got[1] == 0)
+    with pytest.raises(ValueError, match="want filter"):
+        tseq.sequence_conv(torch.from_numpy(x), torch.from_numpy(w[1:]),
+                           None, filter_size)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_the_plain_version(cuda_device):
+    """At the classifier's pools (B 128, T 100, D 512, ragged, one full
+    row), at an edge shape (B 5, T 7, D 100, one zero length) and at a
+    width of no whole float4s (the scalar path), each pool type, one
+    launch a call; the Function's backward runs in torch."""
+    rng = np.random.RandomState(5)
+    for b, t, d in ((128, 100, 512), (5, 7, 100), (3, 4, 6)):
+        x = torch.from_numpy(rng.randn(b, t, d).astype(np.float32)).to(
+            cuda_device)
+        lens = rng.randint(1, t + 1, b).astype(np.int32)
+        lens[0] = t
+        lens[-1] = 0
+        lt = torch.from_numpy(lens).to(cuda_device)
+        for mode in MODES:
+            n0 = tsp.LAUNCHES["seqpool"]
+            got = tsp.masked_seqpool_fwd(x, lt, mode)
+            torch.cuda.synchronize()
+            assert tsp.LAUNCHES["seqpool"] == n0 + 1
+            # fp32 sums in another order: the error grows with the terms'
+            # magnitudes, so the tolerance is relative to the pool of |x|
+            scale = tsp.masked_seqpool_ref(x.abs(), lt, mode)
+            err = (got - tsp.masked_seqpool_ref(x, lt, mode)).abs()
+            assert bool((err <= POOL_TOL["atol"]
+                         + POOL_TOL["rtol"] * scale).all()), \
+                f"{mode} {b}x{t}x{d}: max abs err {float(err.max())}"
+    xg = torch.randn(4, 6, 8, device=cuda_device, requires_grad=True)
+    tseq.sequence_pool(xg, torch.tensor([6, 2, 0, 1], device=cuda_device),
+                       "sqrt").sum().backward()
+    assert torch.isfinite(xg.grad).all() and bool((xg.grad[2] == 0).all())
+
+
+# rtol of the pool of |x| for each dtype the kernel takes besides fp32: fp16
+# and bf16 round the sum once where the plain version rounds it twice
+DTYPE_RTOL = {torch.float64: 1e-12, torch.float16: 2e-3,
+              torch.bfloat16: 1.6e-2, torch.int32: 0.0, torch.bool: 0.0,
+              torch.complex64: 1e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPE_RTOL), ids=str)
+def test_cuda_kernel_takes_every_dtype(cuda_device, dtype):
+    """Every dtype the JAX op's refer branch pools: each pool type one
+    launch, the plain version's dtype and values."""
+    rng = np.random.RandomState(7)
+    b, t, d = 6, 9, 12
+    x = torch.from_numpy(rng.randn(b, t, d) * 4)
+    if dtype.is_complex:
+        x = torch.complex(x, torch.from_numpy(rng.randn(b, t, d)))
+    x = x.to(dtype).to(cuda_device)
+    lens = torch.tensor([9, 0, 4, 1, 7, 3], device=cuda_device)
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    for mode in MODES:
+        n0 = tsp.LAUNCHES["seqpool"]
+        got = tsp.masked_seqpool_fwd(x, lens, mode)
+        torch.cuda.synchronize()
+        assert tsp.LAUNCHES["seqpool"] == n0 + 1
+        want = tsp.masked_seqpool_ref(x, lens, mode)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = tsp.masked_seqpool_ref(x.to(wide).abs(), lens, mode)
+        err = (got.to(wide) - want.to(wide)).abs()
+        assert bool((err <= 1e-6 + DTYPE_RTOL[dtype] * scale).all()), \
+            f"{dtype} {mode}: max abs err {float(err.max())}"

@@ -68,8 +68,8 @@ MARKS = (
      "r0), h, ws,\n                          as, red);", 1,
      "      tile_product<4 * U>(hp_seq, h, order + r0, min(kBT, n_live - "
      "r0), h, ws,\n                          as, red); MARK(1)"),
-    ("            reduced<U>(red, bl, tid % U);\n    }\n", 1,
-     "            reduced<U>(red, bl, tid % U);\n    }\n    MARK(4)\n"),
+    ("              reduced<U>(red, bl[o], tid % U);\n    }\n", 1,
+     "              reduced<U>(red, bl[o], tid % U);\n    }\n    MARK(4)\n"),
     # inside the product (read for the forward only: the backward's two
     # products overwrite each other's marks)
     ("    __syncthreads();\n    if (vec) {", 1,
