@@ -43,8 +43,13 @@ final line:
    for the forward (at p = 0: its dropout bits differ) and that call's
    backward for the dQ + dK/dV pair, held to allclose with the plain
    versions first. Then, causal, at head widths the wrappers pad or run
-   on the widest tiles (48: d_model 96 over 2 heads, run at 64; 256),
-   each kernel against its plain version, timed beside plain and bound.
+   on the widest tiles (48: d_model 96 over 2 heads, run at 64; 256) or
+   take in 256-wide chunks (257 and 320, run at 512), each kernel
+   against its plain version, timed beside plain and bound; and one
+   training step of a causal attention block at d_model 257 over 1 head
+   and 640 over 2 (head widths 257 and 320): the fused block (one launch
+   of each kernel) equals the composed block, output within rtol 1e-4,
+   gradients of the input and the projections within rtol 1e-3.
 6. Fused-CE kernels: the fused linear + cross-entropy forward, dx and
    dW kernels at the vocabulary head of phase 7 (N 4096 rows, D 512,
    V 32000, label smoothing 0.1, every 50th row at ignore_index, a
@@ -98,8 +103,9 @@ final line:
    The forward at B 1 gives the serial cost of a step (barrier, carry
    round trip, cell latency) with almost no arithmetic. Then above H 512
    (8 or 16 units a block, the slices of ``w`` in global scratch): T 16,
-   B 64 at H 1024 (timed beside plain and bound) and H 700, the same
-   checks.
+   B 64 at H 1024 (timed beside plain and bound) and H 700, and above
+   16 units on every SM (groups of 16 units in passes): T 4, B 2 at
+   H 2113, the same checks.
 9. LSTM training: ``stacked_dynamic_lstm.build()`` at its defaults
    (dict 5000, emb 512, hid 512, 3 layers, max_len 100, peepholes on,
    Adam at 1e-3; seeded weights carried in through
@@ -126,8 +132,10 @@ final line:
     computes this function (``nn.GRU`` applies the reset after its
     product and owns the input projection): ``library_ms`` is null. The
     forward at B 1 gives the serial cost of a step. Then above H 512: T
-    16, B 64 at H 1024 (timed) and H 700, and x [1, 1, 1539] (H 513, the
-    smallest input that raised before), the same checks.
+    16, B 64 at H 1024 (timed) and H 700, x [1, 1, 1539] (H 513, the
+    least width above 512), and above 16 units on every SM (groups of 16
+    units in passes) x [1, 1, 6339] and T 4, B 2 at H 2113, the same
+    checks.
 11. MT training: ``machine_translation.build()`` at emb 512, hid 512,
     vocabularies 10000, max_len 32 (seeded weights carried in through
     ``mt_params_from_jax``) takes 10 steps of 64 fresh seeded pairs (the
@@ -162,7 +170,8 @@ final line:
     error it prints the element where an rtol of |plain| itself would be
     tightest: its error, |plain| and the pool of |x|); both
     kernels at the other dtypes the JAX op pools (fp64, fp16, bf16,
-    int32, bool, complex64) at a small ragged shape; timed as in phase 3
+    int32, bool, complex64, float8 e4m3fn and e5m2, uint16, uint32,
+    uint64) at a small ragged shape; timed as in phase 3
     beside the plain version, the bound (bytes over 3.35 TB/s: the live
     rows of x, or each distinct row of the table that a live id names,
     the live ids, the lengths and the output) and, for the gather +
@@ -190,8 +199,34 @@ final line:
     four fifths: one gather + pool launch a step and nothing else; the
     rows read inside no length bit-equal, every row read inside one
     moved; the first 3 losses within rtol 1e-3 of the CPU's.
-16. Report: a ``{"kernels": [...]}`` line (fourteen kernels), then,
-    last, ``{"ok": true, "device": {...}}``.
+16. The hot-rows cache's kernels: the row gather (the page gather's
+    kernel) and the in-place row scatter at deepfm's cache [32769, 17]
+    fp32 with K 8192 distinct slots and at an edge of K 5 (slots R - 1,
+    R and R + 1 among them), each bit-equal to its plain version, the
+    scatter leaving every other row unchanged and its storage in place;
+    timed as in phase 3 beside the plain version, the bound (bytes over
+    3.35 TB/s: the K rows read, the K rows written, the K slots) and one
+    PyTorch call (``index_select``, ``index_copy_``).
+17. deepfm over the hot-rows cache: ``deepfm.build()`` at its defaults
+    (26 fields, V 100000, K 16, fc 400 x 3, lazy Adam 1e-3), batch 2048,
+    seeded zipf(1.1) ids, seeded weights, TF32 off, the table on 2
+    in-process row-range shards behind a 32768-row cache
+    (``enable_sharded_table``), 30 steps: each translates the batch's ids
+    on the host (pulls and installs the misses, writes dirty evicted rows
+    back), then steps the model. Counts zeroed just before the steps and
+    the final flush and read just after: the cache kernels and nothing
+    else, 3 scatter launches a call that installed, 3 gather launches a
+    call that wrote back (the flush's included), write-backs in at least
+    10 steps; the table's and the moments' storage unchanged; all losses
+    within rtol 1e-4 of the same model on one table on the card (the
+    twin), the first 3 within rtol 1e-3 of the CPU's; after the flush
+    the shards hold the twin's rows (rtol 1e-4, atol 1e-6). Prints both
+    arms' step p50 and examples/s, the host split of a step (translate,
+    pull, write-back, install, model step), hit rates by unique id and by
+    occurrence, misses and evictions a step, pull and push bytes a step,
+    peak memory and a 3-step profiler window.
+18. Report: a ``{"kernels": [...]}`` line (sixteen kernels), then, last,
+    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -251,17 +286,24 @@ GRU_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRU_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 BEAM_TIE = 1e-4
 BEAM_RTOL = 1e-4
-FLASH_WIDTHS = (48, 256)           # head widths padded to 64 / run at 256
+FLASH_WIDTHS = (48, 256, 257, 320)  # padded to 64 / at 256 / 2 chunks of 256
+FLASH_BLOCKS = ((257, 1), (640, 2))   # d_model, n_head: head width 257, 320
 FCE_WIDE = (4096, 1024, 32000)     # transformer_big's head: N, D, V
 FCE_WIDE_EDGE = (300, 700, 1003)
-LSTM_WIDE = ((16, 64, 1024), (16, 64, 700))        # T, B, H above 512
-GRU_WIDE = ((16, 64, 1024), (16, 64, 700), (1, 1, 513))
+LSTM_WIDE = ((16, 64, 1024), (16, 64, 700), (4, 2, 2113))  # T, B, H > 512
+GRU_WIDE = ((16, 64, 1024), (16, 64, 700), (1, 1, 513), (1, 1, 2113),
+            (4, 2, 2113))
 SEQPOOL_SOURCE = "paddle_tpu_torch/csrc/seqpool.cu"
 EMBED_SOURCE = "paddle_tpu_torch/csrc/embed_pool.cu"
 POOL_TOL = dict(rtol=1e-5, atol=1e-6)
 # the pooling kernels' other dtypes -> rtol of the pool of |x|
+# (float8 rounds every partial sum at the same points in both: one float8
+# step of the pool of |x| covers a conversion that rounds a tie the other
+# way; unsigned sums are exact)
 POOL_DTYPES = {"float64": 1e-12, "float16": 2e-3, "bfloat16": 1.6e-2,
-               "int32": 0.0, "bool": 0.0, "complex64": 1e-5}
+               "int32": 0.0, "bool": 0.0, "complex64": 1e-5,
+               "float8_e4m3fn": 2.0 ** -3, "float8_e5m2": 2.0 ** -2,
+               "uint16": 0.0, "uint32": 0.0, "uint64": 0.0}
 TEXTCONV = dict(dict_dim=5000, max_len=100, emb_dim=128, num_filters=512,
                 classes=2)
 TEXTCONV_BATCH = 128
@@ -275,6 +317,19 @@ OP_PROGRAM_BATCH = 128
 EMBED_POOL = (OP_PROGRAM["vocab"], OP_PROGRAM["dim"], OP_PROGRAM_BATCH,
               OP_PROGRAM["max_len"])
 EMBED_EDGE = (37, 100, 5, 7)       # V, D, B, T
+CACHE_SOURCE = "paddle_tpu_torch/csrc/embed_cache.cu"
+DEEPFM = dict(num_fields=26, vocab_size=100000, embed_dim=16, lr=1e-3)
+DEEPFM_BATCH = 2048                # README.md's DeepFM row
+DEEPFM_STEPS = 30
+DEEPFM_SHARDS = 2
+CACHE_CAPACITY = 32768
+CACHE_ROWS = (CACHE_CAPACITY + 1, DEEPFM["embed_dim"] + 1)
+CACHE_K = 8192
+ZIPF_A = 1.1
+DEEPFM_RTOL = 1e-4                 # cached against the single-table twin
+DEEPFM_ORACLE_STEPS = 3
+DEEPFM_ROWS_TOL = dict(rtol=1e-4, atol=1e-6)
+CACHE_FAMILIES = 3                 # param, moment1, moment2
 
 
 def fail(msg: str):
@@ -690,12 +745,69 @@ def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
     return rows
 
 
+def flash_block_step(torch, fa, card, dev, d_model, n_head, b=4, t=64,
+                     seed=31):
+    """One training step of a causal self-attention block at ``d_model``
+    over ``n_head`` heads: the fused block (``fused_attention_block``, one
+    launch of each flash kernel) against the composed block
+    (``multi_head_attention``, no kernel) on the same seeded input, weights
+    and output gradient: the output within FLASH_FWD_TOL, the gradients of
+    the input and of the four projections within FLASH_GRAD_TOL."""
+    from types import SimpleNamespace
+    from paddle_tpu_torch.models import transformer as tr
+    from paddle_tpu_torch.ops import attention_block as ab
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, g = (torch.randn(b, t, d_model, generator=gen, device=dev)
+            for _ in range(2))
+    ws = [torch.randn(d_model, d_model, generator=gen, device=dev)
+          * d_model ** -0.5 for _ in range(4)]
+    mask = torch.triu(torch.full((t, t), -1e9, device=dev), 1)
+
+    def step(fused):
+        leaves = [a.clone().requires_grad_() for a in (x, *ws)]
+        if fused:
+            out = ab.fused_attention_block(leaves[0], leaves[0], *leaves[1:],
+                                           n_head, causal=True)
+        else:
+            w = SimpleNamespace(**dict(zip(("wq", "wk", "wv", "wo"),
+                                           leaves[1:])))
+            out = tr.multi_head_attention(leaves[0], leaves[0], w, n_head,
+                                          mask=mask)
+        return (out, *torch.autograd.grad(out, leaves, g))
+
+    n0 = dict(fa.LAUNCHES)
+    fused = step(True)
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - n0[k] for k in n0}
+    composed = step(False)
+    torch.cuda.synchronize()
+    label = (f"attention block d_model {d_model} / {n_head} head(s) (head "
+             f"width {d_model // n_head}, run at "
+             f"{fa.kernel_width('flash', d_model // n_head)})")
+    if launched != {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}:
+        fail(f"{label}: one step launched {launched}")
+    errs = {}
+    for name, a, w, tol in zip(("out", "dx", "dwq", "dwk", "dwv", "dwo"),
+                               fused, composed,
+                               (FLASH_FWD_TOL,) + (FLASH_GRAD_TOL,) * 5):
+        errs[name] = float((a - w).abs().max().detach())
+        if not close(a, w, tol):
+            fail(f"{label}: fused {name} differs from the composed block "
+                 f"(max abs err {errs[name]}, tolerance {tol})")
+    print(f"[{card}] {label}, B {b}, T {t}: one training step, fused equals "
+          f"composed; max abs err "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    return {"max_abs_err": errs, "launches": launched}
+
+
 def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
-                widths=FLASH_WIDTHS):
+                widths=FLASH_WIDTHS, blocks=FLASH_BLOCKS):
     """Each flash kernel against its plain version at the training
     shapes, timed beside plain, bound and library; then, causal, at the
-    head ``widths`` that the wrappers pad (d_model 96 over 2 heads: 48) or
-    run on the widest tiles (256), timed beside plain and bound."""
+    head ``widths`` that the wrappers pad (d_model 96 over 2 heads: 48),
+    run on the widest tiles (256) or take in 256-wide chunks (257, 320),
+    timed beside plain and bound; then one training step of the attention
+    ``blocks`` whose head width is above 256 against the composed block."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     h = h or TRAIN["n_head"]
     t = t or TRAIN["max_len"]
@@ -719,6 +831,9 @@ def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
                                      0.0, seed, flush).items():
             results[f"{kname}/d{dw}"] = row
     del flush
+    for d_model, heads in blocks:
+        results[f"block/m{d_model}h{heads}"] = flash_block_step(
+            torch, fa, card, dev, d_model, heads)
     return results
 
 
@@ -1510,8 +1625,10 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
     """The LSTM or GRU kernels (``kind``) against their plain versions at
     an edge shape, at the training shape and at the ``wide`` shapes above
     H 512 (U 8 or 16 units a block, the slices of w in global scratch;
-    the GRU's last is the smallest input that raised before, x [1, 1,
-    1539]); the training shape and the first wide one timed beside plain
+    the GRU's x [1, 1, 1539], H 513, the least width above 512; H 2113,
+    above 16 units on every SM, runs groups of 16 units in passes:
+    the GRU's x [1, 1, 6339] and both at T 4, B 2); the training shape and
+    the first wide one timed beside plain
     and bound, the training shape also at B 1 and against the plain
     forward with its autograd backward."""
     from paddle_tpu_torch.ops.kernels import fused_rnn as fr
@@ -1610,11 +1727,12 @@ def mt_batches(seed: int, steps: int, b: int, t: int, vocab: int):
 
 
 def kernel_modules():
-    from paddle_tpu_torch.ops.kernels import (embed_pool, flash_attention,
-                                              fused_ce, fused_rnn,
-                                              paged_attention, seqpool)
+    from paddle_tpu_torch.ops.kernels import (embed_cache, embed_pool,
+                                              flash_attention, fused_ce,
+                                              fused_rnn, paged_attention,
+                                              seqpool)
     return (flash_attention, fused_ce, fused_rnn, paged_attention, seqpool,
-            embed_pool)
+            embed_pool, embed_cache)
 
 
 def all_launches():
@@ -1906,9 +2024,9 @@ def pool_check(torch, label, got, want, scale, rtol=POOL_TOL["rtol"]):
 
 def pool_dtypes(torch, dev, card, sp, ep, rng):
     """Both pooling kernels at every other dtype that the JAX op pools,
-    at a small ragged shape, against their plain versions (rtol of the
-    pool of |x|: fp16 and bf16 round the sum once where the plain
-    versions round it twice)."""
+    float8 and unsigned included, at a small ragged shape, against their
+    plain versions (rtol of the pool of |x|: fp16 and bf16 round the sum
+    once where the plain versions round it twice)."""
     b, t, d, v = 6, 9, 12, 23
     lens = torch.tensor([9, 0, 4, 1, 7, 3], device=dev)
     ids = torch.from_numpy(rng.randint(0, v, (b, t))).to(dev)
@@ -1918,6 +2036,8 @@ def pool_dtypes(torch, dev, card, sp, ep, rng):
         wide = torch.complex128 if dtype.is_complex else torch.float64
         x, w = (torch.from_numpy(rng.randn(*shape) * 4) for shape in
                 ((b, t, d), (v, d)))
+        if name.startswith("uint"):
+            x, w = x.abs(), w.abs()
         if dtype.is_complex:
             x, w = (torch.complex(a, torch.from_numpy(rng.randn(*a.shape)))
                     for a in (x, w))
@@ -2133,7 +2253,8 @@ def train_oracle(torch, make, state, feeds_np, steps):
     losses = []
     for feed in feeds_np[:steps]:
         opt.zero_grad(set_to_none=True)
-        loss = model(*(torch.from_numpy(a) for a in feed))
+        out = model(*(torch.from_numpy(a) for a in feed))
+        loss = out[0] if isinstance(out, tuple) else out
         loss.backward()
         opt.step()
         losses.append(float(loss.detach()))
@@ -2312,6 +2433,367 @@ def op_program_phase(torch, dev, card, cfg=None, batch=OP_PROGRAM_BATCH,
     return launched, stats
 
 
+# -- phase 16: the hot-rows cache's kernels ---------------------------------
+
+def cache_kernel_phase(torch, dev, card, shape=CACHE_ROWS, k=CACHE_K):
+    """The cache's row gather and in-place row scatter at deepfm's cache
+    [32769, 17] fp32, K distinct slots (as the free list gives them), and
+    at an edge of K 5 whose slots hold R - 1, R and R + 1: each bit-equal
+    to its plain version, the scatter leaving every other row unchanged
+    and writing through the cache's own storage; timed (CUDA events, L2
+    flushed) beside the plain version, the bound (bytes over 3.35 TB/s:
+    the K rows read, the K rows written, the K slots) and one PyTorch
+    call (``index_select`` over the clamped slots, ``index_copy_`` over
+    the kept ones)."""
+    from paddle_tpu_torch.ops.kernels import embed_cache as ek
+    r, w = shape
+    gen = torch.Generator(device=dev).manual_seed(16)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    results = {}
+    for kk in (5, k):
+        cache = torch.randn(r, w, generator=gen, device=dev)
+        slots = torch.randperm(r - 1, generator=gen, device=dev)[:kk] \
+            .to(torch.int32)
+        if kk == 5:
+            slots[:3] = torch.tensor([r - 1, r, r + 1], device=dev)
+        rows = torch.randn(kk, w, generator=gen, device=dev)
+        orig = cache.clone()
+        got = ek.gather_rows(cache, slots)
+        ptr = cache.data_ptr()
+        out = ek.scatter_rows(cache, slots, rows)
+        torch.cuda.synchronize()
+        want_g = ek.gather_rows_ref(orig, slots)
+        want_s = ek.scatter_rows_ref(orig.clone(), slots, rows)
+        keep = (slots >= 0) & (slots < r)
+        others = torch.ones(r, dtype=torch.bool, device=dev)
+        others[slots[keep].long()] = False
+        if not torch.equal(got, want_g):
+            fail(f"cache gather K {kk} differs from its plain version")
+        if out is not cache or cache.data_ptr() != ptr:
+            fail(f"cache scatter K {kk} did not write in place")
+        if not torch.equal(cache, want_s) or not torch.equal(
+                cache[others], orig[others]):
+            fail(f"cache scatter K {kk} differs from its plain version")
+        if kk != k:
+            print(f"[{card}] cache kernels, edge K {kk} (slots R - 1, R, "
+                  f"R + 1 among them): gather and scatter bit-equal to "
+                  f"their plain versions, the other rows unchanged")
+            continue
+        kept_slots, kept_rows = slots[keep].long(), rows[keep]
+        clamped = slots.long().clamp(0, r - 1)
+        nbytes = 2 * kk * w * 4 + kk * 4
+        for name, fn, ref, lib in (
+                ("cache_gather_rows", lambda: ek.gather_rows(cache, slots),
+                 lambda: ek.gather_rows_ref(cache, slots),
+                 lambda: cache.index_select(0, clamped)),
+                ("cache_scatter_rows",
+                 lambda: ek.scatter_rows(cache, slots, rows),
+                 lambda: ek.scatter_rows_ref(cache, slots, rows),
+                 lambda: cache.index_copy_(0, kept_slots, kept_rows))):
+            row = results[name] = {
+                "max_abs_err": 0.0, "ms": time_ms(torch, fn, flush),
+                "plain_ms": time_ms(torch, ref, flush),
+                "library_ms": time_ms(torch, lib, flush),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": nbytes, "k": kk,
+                "cache": [r, w]}
+            print(f"[{card}] {name} [{r}x{w}] fp32, K {kk}: bit-equal; "
+                  f"kernel {row['ms'] * 1e3:.2f} us, plain "
+                  f"{row['plain_ms'] * 1e3:.2f} us, library "
+                  f"{row['library_ms'] * 1e3:.2f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.3f} MB)")
+    del flush
+    return results
+
+
+# -- phase 17: deepfm over the hot-rows cache --------------------------------
+
+def zipf_feeds(steps, batch, fields, vocab, a=ZIPF_A, seed=11):
+    """Per step (ids [B, F, 1] int64, label [B, 1] fp32): truncated zipf(a)
+    ids, rank r of [1, vocab] with probability ~ r**-a (id r - 1), and the
+    label ``ids[:, 0, 0] % 2``."""
+    rng = np.random.RandomState(seed)
+    p = np.arange(1, vocab + 1, dtype=np.float64) ** -a
+    p /= p.sum()
+    out = []
+    for _ in range(steps):
+        ids = rng.choice(vocab, size=(batch, fields, 1), p=p).astype(np.int64)
+        out.append((ids, (ids[:, 0, 0] % 2).astype(np.float32)[:, None]))
+    return out
+
+
+def deepfm_weights(cfg, seed: int) -> dict:
+    """Seeded weights under the JAX scope names of deepfm's build: the
+    table uniform in [-0.01, 0.01], the fc weights Xavier-uniform, the
+    biases 0."""
+    from paddle_tpu_torch.models import deepfm
+    rng = np.random.RandomState(seed)
+    shapes = deepfm.param_shapes(cfg["num_fields"], cfg["vocab_size"],
+                                 cfg["embed_dim"])
+    out = {"deepfm_emb": rng.uniform(-0.01, 0.01, shapes["emb"]).astype(
+        np.float32)}
+    for i in range(len(deepfm.HIDDEN) + 1):
+        w = shapes[f"fc_w{i}"]
+        bound = (6.0 / (w[0] + w[1])) ** 0.5
+        out[f"fc_{i}.w_0"] = rng.uniform(-bound, bound, w).astype(np.float32)
+        out[f"fc_{i}.b_0"] = np.zeros(shapes[f"fc_b{i}"], np.float32)
+    return out
+
+
+class Split:
+    """Host time of the cache's parts inside a step: each wrapped call adds
+    its wall time to ``ms[name]`` (pull and write-back end in host copies,
+    so they include the waits on the card)."""
+
+    def __init__(self, cache, client):
+        self.ms = {"pull": 0.0, "write_back": 0.0, "install": 0.0}
+        for obj, attr, name in ((client, "pull_rows", "pull"),
+                                (cache, "_writeback", "write_back"),
+                                (cache, "_device_set_rows", "install")):
+            setattr(obj, attr, self._timed(getattr(obj, attr), name))
+
+    def _timed(self, fn, name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.ms[name] += (time.perf_counter() - t0) * 1e3
+        return call
+
+
+def deepfm_cached_steps(torch, dev, model, opt, cache, feeds, split=None):
+    """Train steps over the cache: translate on the host, then the model
+    step, ending in a synchronize. Per step: loss, ms of the translate,
+    of the model step and of the cache's parts, and the cache's counters
+    after it."""
+    out = []
+    for ids, label in feeds:
+        before = dict(split.ms) if split else {}
+        t0 = time.perf_counter()
+        slots = cache.translate(ids)
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = model(torch.from_numpy(slots).to(dev),
+                        torch.from_numpy(label).to(dev))
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rec = {"loss": float(loss.detach()), "translate_ms": (t1 - t0) * 1e3,
+               "model_ms": (t2 - t1) * 1e3, "step_ms": (t2 - t0) * 1e3,
+               "hits": cache.hits, "misses": cache.misses,
+               "evictions": cache.evictions, "lookups": cache.lookups,
+               "hit_lookups": cache.hit_lookups, "installs": cache.installs,
+               "writebacks": cache.writebacks}
+        if split:
+            rec.update({f"{k}_ms": split.ms[k] - before[k] for k in split.ms})
+        out.append(rec)
+    return out
+
+
+def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
+                 steps=DEEPFM_STEPS, capacity=CACHE_CAPACITY,
+                 shards=DEEPFM_SHARDS, profile_steps=PROFILE_STEPS,
+                 oracle_steps=DEEPFM_ORACLE_STEPS):
+    """deepfm's build() trained over the hot-rows cache of a table on
+    ``shards`` in-process row-range shards (capacity ``capacity``), on
+    seeded zipf ids, TF32 off, against the same model on one table on the
+    card (the twin) and, for the first steps, on the CPU. Counts zeroed
+    just before the steps and the final flush and read just after: every
+    launch is a cache kernel, the scatter's 3 a call that installed, the
+    gather's 3 a call that wrote back (the flush's included). Then the
+    step time and host split of both arms, the cache's rates, memory and
+    a profiler window."""
+    from paddle_tpu_torch.distributed import sharded_table as st
+    from paddle_tpu_torch.models import convert, deepfm
+    from paddle_tpu_torch.ops import embed_cache as ec
+    cfg = dict(DEEPFM if cfg is None else cfg)
+    v, k1 = cfg["vocab_size"], cfg["embed_dim"] + 1
+    t0 = time.perf_counter()
+    feeds = zipf_feeds(steps + profile_steps, batch, cfg["num_fields"], v)
+    state = convert.deepfm_params_from_jax(deepfm_weights(cfg, 17))
+    gen_s = time.perf_counter() - t0
+
+    def make(device):
+        model, opt, _ = deepfm.build(**cfg, device=device)
+        model.load_state_dict(state)
+        return model, opt
+
+    # the twin: one [V, 1 + K] table on the card
+    twin, twin_opt = make(dev)
+    twin_feeds = [tuple(torch.from_numpy(a).to(dev) for a in f)
+                  for f in feeds[:steps]]
+    reset_all_launches()
+    torch.cuda.synchronize()
+    twin_losses, twin_ms, _ = train(torch, twin, twin_opt, twin_feeds)
+    if any(all_launches().values()):
+        fail(f"deepfm twin: launched {all_launches()}")
+
+    # the cached arm
+    model, opt = make(dev)
+    client = st.in_process_fleet(v, shards)
+    client.seed_from_value("deepfm_emb", state["emb"].numpy())
+    t0 = time.perf_counter()
+    cache = ec.enable_sharded_table(model.emb, opt, client, capacity)
+    enable_s = time.perf_counter() - t0
+    split = Split(cache, client)
+    sizes = []
+    set_rows = cache._device_set_rows
+
+    def sized(fam, slots, vals):
+        sizes.append(ec.bucket(slots.size))
+        return set_rows(fam, slots, vals)
+    cache._device_set_rows = sized
+    ptrs = lambda: (model.emb.data_ptr(),  # noqa: E731
+                    *(opt.state[model.emb][m].data_ptr()
+                      for m in ("moment1", "moment2")))
+    ptr0 = ptrs()
+    bytes0 = dict(client.bytes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    recs = deepfm_cached_steps(torch, dev, model, opt, cache, feeds[:steps],
+                               split)
+    flushed = cache.flush()
+    torch.cuda.synchronize()
+    launched = all_launches()
+    peak = int(torch.cuda.max_memory_allocated())
+    gathers, scatters = (launched.pop(f"embed_cache.{n}")
+                         for n in ("gather_rows", "scatter_rows"))
+    if any(launched.values()):
+        fail(f"deepfm over the cache: launched {launched} beside the cache "
+             f"kernels")
+    if scatters != CACHE_FAMILIES * cache.installs or \
+            gathers != CACHE_FAMILIES * cache.writebacks:
+        fail(f"deepfm over the cache: {scatters} scatter and {gathers} "
+             f"gather launches for {cache.installs} installs and "
+             f"{cache.writebacks} write-backs (the flush's included)")
+    if not scatters or not gathers:
+        fail("deepfm over the cache: a cache kernel was never launched")
+    wrote = sum(1 for a, b in zip([{"writebacks": 0}] + recs, recs)
+                if b["writebacks"] > a["writebacks"])
+    if wrote < 10:
+        fail(f"deepfm over the cache: only {wrote} steps wrote back")
+    if ptrs() != ptr0:
+        fail("deepfm over the cache: the table or a moment changed storage")
+    losses = [r["loss"] for r in recs]
+    if not all(np.isfinite(losses)) or not np.allclose(
+            losses, twin_losses, rtol=DEEPFM_RTOL, atol=0.0):
+        fail(f"deepfm over the cache: losses {losses} differ from the "
+             f"single-table twin's {twin_losses} beyond rtol {DEEPFM_RTOL}")
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, twin_losses))
+    touched = np.unique(np.concatenate([f[0].reshape(-1)
+                                        for f in feeds[:steps]]))
+    pulled = torch.from_numpy(client.pull_rows(
+        "deepfm_emb", touched, families=[("param", k1)])["param"])
+    want_rows = twin.emb.detach()[torch.from_numpy(touched).to(dev)].cpu()
+    rows_err = float((pulled - want_rows).abs().max())
+    if not torch.allclose(pulled, want_rows, **DEEPFM_ROWS_TOL):
+        fail(f"deepfm over the cache: after the flush the shards' rows "
+             f"differ from the twin's table (max abs err {rows_err}, "
+             f"tolerance {DEEPFM_ROWS_TOL})")
+    n_steps = len(recs)
+    per = lambda key: [b[key] - a[key] for a, b in  # noqa: E731
+                       zip([dict.fromkeys(recs[0], 0)] + recs, recs)]
+    hits, misses, evictions = per("hits"), per("misses"), per("evictions")
+    lookups, hit_lookups = per("lookups"), per("hit_lookups")
+    moved = {d: sum(n - bytes0[(d, sh)] for (dd, sh), n
+                    in client.bytes.items() if dd == d)
+             for d in ("pull", "push")}
+    p50 = float(np.median([r["step_ms"] for r in recs]))
+    twin_p50 = float(np.median(twin_ms))
+    warm = recs[6:]                      # past the cold fill
+    stats = {
+        "losses": losses, "twin_losses": twin_losses,
+        "max_rel_diff_to_twin": loss_gap, "rows_max_abs_err": rows_err,
+        "touched_rows": int(touched.size), "step_ms": [r["step_ms"]
+                                                       for r in recs],
+        "step_p50_ms": p50, "examples_per_s": batch / p50 * 1e3,
+        "twin_step_p50_ms": twin_p50,
+        "twin_examples_per_s": batch / twin_p50 * 1e3,
+        "host_split_p50_ms": {key: float(np.median([r[f"{key}_ms"]
+                                                    for r in recs]))
+                              for key in ("translate", "pull", "write_back",
+                                          "install", "model")},
+        "host_split_p50_ms_past_step_6": {
+            key: float(np.median([r[f"{key}_ms"] for r in warm]))
+            for key in ("translate", "pull", "write_back", "install",
+                        "model")},
+        "hit_rate_unique": sum(hits) / max(1, sum(hits) + sum(misses)),
+        "hit_rate_occurrence": sum(hit_lookups) / max(1, sum(lookups)),
+        "hit_rate_unique_past_step_6": sum(hits[6:]) / max(
+            1, sum(hits[6:]) + sum(misses[6:])),
+        "hit_rate_occurrence_past_step_6": sum(hit_lookups[6:]) / max(
+            1, sum(lookups[6:])),
+        "misses_per_step": misses, "evictions_per_step": evictions,
+        "pull_bytes_per_step": moved["pull"] / n_steps,
+        "push_bytes_per_step": moved["push"] / n_steps,
+        "installs": cache.installs, "writebacks": cache.writebacks,
+        "steps_that_wrote_back": wrote, "flushed_rows": flushed,
+        "launches": {"gather_rows": gathers, "scatter_rows": scatters},
+        "install_buckets": {str(b): sizes.count(b) // CACHE_FAMILIES
+                            for b in sorted(set(sizes))},
+        "peak_mem_bytes": peak, "feeds_s": gen_s, "enable_s": enable_s,
+        "capacity": capacity, "shards": shards, "batch": batch,
+        "occupancy": cache.occupancy}
+    common = max(stats["install_buckets"],
+                 key=lambda b: stats["install_buckets"][b])
+    stats["most_used_install_bucket"] = int(common)
+    print(f"[{card}] deepfm (26 fields, V {v}, K {k1 - 1}, fc 400 x 3, lazy "
+          f"Adam {cfg['lr']}), batch {batch}, {steps} steps over a "
+          f"{capacity}-row cache on {shards} shards: losses "
+          f"{[round(x, 5) for x in losses]}; the single-table twin's within "
+          f"rtol {DEEPFM_RTOL} (max rel diff {loss_gap:.3g}); after the "
+          f"flush ({flushed} rows) the shards hold the twin's rows "
+          f"({touched.size} touched, max abs err {rows_err:.3g}); storage "
+          f"kept")
+    print(f"[{card}] deepfm cache kernels: {scatters} scatter launches for "
+          f"{cache.installs} installs, {gathers} gather launches for "
+          f"{cache.writebacks} write-backs (flush included), {wrote} steps "
+          f"wrote back; install buckets {stats['install_buckets']} (most "
+          f"used {common})")
+    print(f"[{card}] deepfm step p50 {p50:.3f} ms = "
+          f"{stats['examples_per_s']:.0f} examples/s over the cache, twin "
+          f"{twin_p50:.3f} ms = {stats['twin_examples_per_s']:.0f} "
+          f"examples/s; host split p50 (ms) "
+          + ", ".join(f"{k} {x:.3f}" for k, x in
+                      stats["host_split_p50_ms"].items())
+          + "; past step 6 "
+          + ", ".join(f"{k} {x:.3f}" for k, x in
+                      stats["host_split_p50_ms_past_step_6"].items()))
+    print(f"[{card}] deepfm cache: hit rate {stats['hit_rate_unique']:.4f} "
+          f"by unique id, {stats['hit_rate_occurrence']:.4f} by occurrence "
+          f"({stats['hit_rate_unique_past_step_6']:.4f} / "
+          f"{stats['hit_rate_occurrence_past_step_6']:.4f} past step 6); "
+          f"misses a step {misses}; evictions a step {evictions}; pull "
+          f"{stats['pull_bytes_per_step'] / 1e6:.3f} MB, push "
+          f"{stats['push_bytes_per_step'] / 1e6:.3f} MB a step; peak memory "
+          f"{peak / 2 ** 20:.1f} MiB")
+    if profile_steps:
+        stats["profile"] = prof = profile_calls(
+            torch, lambda: deepfm_cached_steps(torch, dev, model, opt, cache,
+                                               feeds[steps:]),
+            profile_steps)
+        prof["idle_share_at_p50"] = 1.0 - prof[
+            "device_busy_ms_per_step"] / p50
+        print(f"[{card}] deepfm profile ({profile_steps} steps over the "
+              f"cache): host {prof['host_ms_per_step']:.3f} ms/step, device "
+              f"busy {prof['device_busy_ms_per_step']:.3f} ms/step, idle "
+              f"share {prof['idle_share']:.3f} "
+              f"({prof['idle_share_at_p50']:.3f} against the step p50), "
+              f"{prof['launches_per_step']:.0f} launches/step")
+        for key, us, count in prof["top_kernels"]:
+            print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+    del model, opt, twin, twin_opt
+    t0 = time.perf_counter()
+    want_losses = train_oracle(torch, make, None, feeds, oracle_steps)
+    stats["oracle_losses"] = want_losses
+    stats["oracle_max_rel_diff"] = check_oracle(
+        "deepfm over the cache", losses, want_losses, card, t0)
+    return {"gather_rows": gathers, "scatter_rows": scatters}, stats
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2351,6 +2833,8 @@ def main():
     pools = pool_phase(torch, dev, card)
     tc_launches, tc_run = textconv_phase(torch, dev, card)
     op_launches, op_run = op_program_phase(torch, dev, card)
+    cache_kernels = cache_kernel_phase(torch, dev, card)
+    fm_launches, fm_run = deepfm_phase(torch, dev, card)
     flash_launches = train_launches["fused_attention"]
 
     kernels = []
@@ -2368,7 +2852,8 @@ def main():
             "kernel_us": m["ms"] * 1e3, "plain_us": m["plain_ms"] * 1e3,
             "library_us": m["library_ms"] * 1e3,
             "bound_us": m["bound_ms"] * 1e3,
-            "launches_per_decode_step": per_layer, "card": card})
+            "launches_per_decode_step": per_layer,
+            "launches_per_train_step": 0, "card": card})
     for kname, line in (("flash_fwd", 189), ("flash_dq", 481),
                         ("flash_dkv", 504)):
         m = flash[f"{kname}/full"]
@@ -2438,6 +2923,19 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
             "launches_per_train_step": per_step, "card": card})
+    for kname, key, source, line in (
+            ("cache_gather_rows", "gather_rows", SOURCE, 79),
+            ("cache_scatter_rows", "scatter_rows", CACHE_SOURCE, 133)):
+        m = cache_kernels[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": f"paddle_tpu/ops/pallas/embed_cache.py:{line}",
+            "launches": fm_launches[key], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "launches_per_train_step": fm_launches[key] / DEEPFM_STEPS,
+            "k": m["k"], "card": card})
     wide = {key: row for res in (flash, fce, lstm, gru)
             for key, row in res.items()
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
@@ -2451,6 +2949,10 @@ def main():
     print(json.dumps({"wide_kernels": wide, "pool_kernels": pools,
                       "textconv_training": tc_run, "op_program": op_run,
                       "card": card}))
+    print(json.dumps({"attention_blocks": {
+        key: row for key, row in flash.items() if key.startswith("block/")},
+        "cache_kernels": cache_kernels, "deepfm_training": fm_run,
+        "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

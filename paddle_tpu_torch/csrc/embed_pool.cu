@@ -72,13 +72,13 @@ embed_pool_kernel(const E* __restrict__ w, const int* __restrict__ ids,
       E r[kUnroll];
 #pragma unroll
       for (int k = 0; k < kUnroll; ++k)
-        r[k] = __ldg(w + static_cast<size_t>(clip_id(__ldg(idb + t + k), v))
-                             * d + c);
+        r[k] = P::load(w + static_cast<size_t>(clip_id(__ldg(idb + t + k), v))
+                               * d + c);
 #pragma unroll
       for (int k = 0; k < kUnroll; ++k) acc = P::add(acc, P::widen(r[k]));
     }
     for (; t < n; ++t)
-      acc = P::add(acc, P::widen(__ldg(
+      acc = P::add(acc, P::widen(P::load(
           w + static_cast<size_t>(clip_id(__ldg(idb + t), v)) * d + c)));
     ob[c] = P::sum_out(acc);
   }
@@ -115,6 +115,10 @@ extern "C" int paddle_embed_pool(const void* w, const int* ids,
       return launch<__half>(w, ids, lens, out, b_len, t_len, v, d, s);
     case kBF16:
       return launch<__nv_bfloat16>(w, ids, lens, out, b_len, t_len, v, d, s);
+    case kF8E4M3:
+      return launch<F8<__NV_E4M3>>(w, ids, lens, out, b_len, t_len, v, d, s);
+    case kF8E5M2:
+      return launch<F8<__NV_E5M2>>(w, ids, lens, out, b_len, t_len, v, d, s);
     case kI64:
       return launch<long long>(w, ids, lens, out, b_len, t_len, v, d, s);
     default:

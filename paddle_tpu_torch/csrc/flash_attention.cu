@@ -9,8 +9,9 @@
 //   paddle_flash_dkv  <- _flash_bwd_impl (:455, pallas_call :504, _dkv_kernel :396)
 //
 // All three take fp32 [BH, T, D] tensors (row-major, contiguous; D = 32, 64,
-// 128 or 256: the wrapper zero-pads other head widths up to the next of
-// these, which is exact since the scale is passed in) and keep the TPU kernels' conventions: scores s = (q . k) * scale;
+// 128, 256 or a multiple of 256: the wrapper zero-pads other head widths up
+// to the next of these, which is exact since the scale is passed in) and keep
+// the TPU kernels' conventions: scores s = (q . k) * scale;
 // causal mask qpos >= kpos with qpos = (tk - tq) + query index, masked score
 // -1e30; attention-weight dropout (upscale_in_train) multiplies the softmax
 // numerator and dP only, with the keep bit from the same murmur-finalizer
@@ -47,6 +48,15 @@
 // past T load as zeros and are never written, columns past tk get
 // probability 0. Causal tiles wholly above the diagonal are skipped
 // (_block_visible, :29).
+//
+// Head widths above 256 (kWide) run in chunks of 256 columns, as
+// fused_ce.cu takes its depth in chunks of 512. Each block owns one 256-wide
+// chunk of its output tile (o, dq, or dk and dv: grid z) and recomputes the
+// scores s = q . k, and dp = dO . v, over the whole width, staging the
+// chunks of q, k (dO, v) one after the other and accumulating in the same
+// order in every block and all three kernels, so every block of a query
+// tile computes bit-identical scores, max, sum and lse. Then it stages the
+// chunk it owns of v (k; q and dO) for the output product.
 //
 // Each function launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() of its launch (0 =
@@ -94,19 +104,20 @@ __device__ __forceinline__ float keep_factor(const Dropout& dr, uint32_t bh,
   return x >= dr.thresh ? dr.upscale : 0.0f;
 }
 
-// rows [row0, row0 + kRows) of a [n_rows, D] matrix into a [kRows][D + 1]
-// shared tile, rows past n_rows as zeros; 16-byte global loads.
+// rows [row0, row0 + kRows) of an [n_rows, D] matrix whose rows lie ld
+// floats apart into a [kRows][D + 1] shared tile, rows past n_rows as zeros;
+// 16-byte global loads.
 template <int D, int kRows>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const float* __restrict__ src,
-                                          int row0, int n_rows) {
+                                          int row0, int n_rows, int ld) {
   constexpr int kVec = D / 4;
   for (int i = threadIdx.x; i < kRows * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < n_rows) {
       val = *reinterpret_cast<const float4*>(
-          src + static_cast<size_t>(row0 + r) * D + c);
+          src + static_cast<size_t>(row0 + r) * ld + c);
     }
     float* d = dst + r * (D + 1) + c;
     d[0] = val.x;
@@ -116,16 +127,21 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
   }
 }
 
-// a[i][j] = sum_d x[ty + 16i][d] * y[tx + 16j][d] over two [B][D + 1] tiles
+template <int RI>
+__device__ __forceinline__ void zero(float (&a)[RI][RI]) {
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < RI; ++j) a[i][j] = 0.f;
+}
+
+// a[i][j] += sum_d x[ty + 16i][d] * y[tx + 16j][d] over two [B][D + 1] tiles,
+// d in increasing order
 template <int D, int RI = Tile<D>::RI>
 __device__ __forceinline__ void tile_dot(float (&a)[RI][RI],
                                          const float* __restrict__ x,
                                          const float* __restrict__ y,
                                          int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RI; ++j) a[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
     float xv[RI], yv[RI];
@@ -168,13 +184,15 @@ __device__ __forceinline__ int visible_key_tiles(int tk, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (BH, ceil(tq / B)); o [BH, tq, D], lse [BH, tq]
-template <int D>
+// forward: grid (BH, ceil(tq / B), nc); o [BH, tq, nc * D], lse [BH, tq].
+// kWide: nc chunks of D = 256 columns, this block's output chunk blockIdx.z;
+// otherwise nc = 1.
+template <int D, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int tq, int tk, int causal,
-                 float scale, Dropout dr) {
+                 float scale, Dropout dr, int nc) {
   constexpr int LD = D + 1, DJ = D / 16;
   constexpr int RI = Tile<D>::RI, BQ = Tile<D>::B, BK = Tile<D>::B;
   constexpr int LP = Tile<D>::LP;
@@ -186,9 +204,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q_off = tk - tq;
-  const size_t qbase = static_cast<size_t>(bh) * tq * D;
-  const size_t kbase = static_cast<size_t>(bh) * tk * D;
-  load_tile<D, BQ>(sQ, q + qbase, q0, tq);
+  const int n_ch = kWide ? nc : 1, ch = kWide ? blockIdx.z : 0;
+  const int ld = n_ch * D;
+  const size_t qbase = static_cast<size_t>(bh) * tq * ld;
+  const size_t kbase = static_cast<size_t>(bh) * tk * ld;
+  if (!kWide) load_tile<D, BQ>(sQ, q + qbase, q0, tq, ld);
 
   float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
@@ -202,12 +222,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_kt = visible_key_tiles(tk, causal, q_off, q_end, BK);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<D, BK>(sK, k + kbase, k0, tk);
-    load_tile<D, BK>(sV, v + kbase, k0, tk);
-    __syncthreads();
     float s[RI][RI];
-    tile_dot<D>(s, sQ, sK, ty, tx);
+    for (int c = 0; c < n_ch; ++c) {
+      __syncthreads();  // the previous tile's (chunk's) reads are done
+      if (kWide) load_tile<D, BQ>(sQ, q + qbase + c * D, q0, tq, ld);
+      load_tile<D, BK>(sK, k + kbase + c * D, k0, tk, ld);
+      if (c == n_ch - 1) load_tile<D, BK>(sV, v + kbase + ch * D, k0, tk, ld);
+      __syncthreads();
+      if (c == 0) zero(s);
+      tile_dot<D>(s, sQ, sK, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int qpos = q_off + q0 + ty + 16 * i;
@@ -256,22 +280,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + ty + 16 * i;
     if (qi >= tq) continue;
     const float safe_l = fmaxf(l[i], 1e-30f);
-    float* orow = o + qbase + static_cast<size_t>(qi) * D;
+    float* orow = o + qbase + static_cast<size_t>(qi) * ld + ch * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] / safe_l;
-    if (tx == 0) lse[static_cast<size_t>(bh) * tq + qi] = m[i] + logf(safe_l);
+    if (tx == 0 && ch == 0)
+      lse[static_cast<size_t>(bh) * tq + qi] = m[i] + logf(safe_l);
   }
 }
 
 // ---------------------------------------------------------------------------
-// dQ: grid (BH, ceil(tq / B)); dq [BH, tq, D]
-template <int D>
+// dQ: grid (BH, ceil(tq / B), nc); dq [BH, tq, nc * D]
+template <int D, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const float* __restrict__ dlse, float* __restrict__ dq,
-                int tq, int tk, int causal, float scale, Dropout dr) {
+                int tq, int tk, int causal, float scale, Dropout dr, int nc) {
   constexpr int LD = D + 1, DJ = D / 16;
   constexpr int RI = Tile<D>::RI, BQ = Tile<D>::B, BK = Tile<D>::B;
   constexpr int LP = Tile<D>::LP;
@@ -284,11 +309,15 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q_off = tk - tq;
-  const size_t qbase = static_cast<size_t>(bh) * tq * D;
-  const size_t kbase = static_cast<size_t>(bh) * tk * D;
+  const int n_ch = kWide ? nc : 1, ch = kWide ? blockIdx.z : 0;
+  const int ld = n_ch * D;
+  const size_t qbase = static_cast<size_t>(bh) * tq * ld;
+  const size_t kbase = static_cast<size_t>(bh) * tk * ld;
   const size_t rbase = static_cast<size_t>(bh) * tq;
-  load_tile<D, BQ>(sQ, q + qbase, q0, tq);
-  load_tile<D, BQ>(sG, dout + qbase, q0, tq);
+  if (!kWide) {
+    load_tile<D, BQ>(sQ, q + qbase, q0, tq, ld);
+    load_tile<D, BQ>(sG, dout + qbase, q0, tq, ld);
+  }
 
   float row_lse[RI], corr[RI], acc[RI][DJ];
 #pragma unroll
@@ -304,13 +333,27 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_kt = visible_key_tiles(tk, causal, q_off, min(q0 + BQ, tq), BK);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D, BK>(sK, k + kbase, k0, tk);
-    load_tile<D, BK>(sV, v + kbase, k0, tk);
-    __syncthreads();
     float s[RI][RI], dp[RI][RI];
-    tile_dot<D>(s, sQ, sK, ty, tx);
-    tile_dot<D>(dp, sG, sV, ty, tx);
+    for (int c = 0; c < n_ch; ++c) {
+      __syncthreads();
+      if (kWide) {
+        load_tile<D, BQ>(sQ, q + qbase + c * D, q0, tq, ld);
+        load_tile<D, BQ>(sG, dout + qbase + c * D, q0, tq, ld);
+      }
+      load_tile<D, BK>(sK, k + kbase + c * D, k0, tk, ld);
+      load_tile<D, BK>(sV, v + kbase + c * D, k0, tk, ld);
+      __syncthreads();
+      if (c == 0) {
+        zero(s);
+        zero(dp);
+      }
+      tile_dot<D>(s, sQ, sK, ty, tx);
+      tile_dot<D>(dp, sG, sV, ty, tx);
+    }
+    if (kWide && ch != n_ch - 1) {  // the chunk of k this block's dq takes
+      __syncthreads();
+      load_tile<D, BK>(sK, k + kbase + ch * D, k0, tk, ld);
+    }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int qpos = q_off + q0 + ty + 16 * i;
@@ -343,15 +386,15 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= tq) continue;
-    float* row = dq + qbase + static_cast<size_t>(qi) * D;
+    float* row = dq + qbase + static_cast<size_t>(qi) * ld + ch * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: grid (BH, ceil(tk / B)); dk, dv [BH, tk, D]
-template <int D>
+// dK, dV: grid (BH, ceil(tk / B), nc); dk, dv [BH, tk, nc * D]
+template <int D, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
@@ -359,7 +402,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ delta,
                  const float* __restrict__ dlse, float* __restrict__ dk,
                  float* __restrict__ dv, int tq, int tk, int causal,
-                 float scale, Dropout dr) {
+                 float scale, Dropout dr, int nc) {
   constexpr int LD = D + 1, DJ = D / 16;
   constexpr int RI = Tile<D>::RI, BQ = Tile<D>::B, BK = Tile<D>::B;
   constexpr int LP = Tile<D>::LP;
@@ -375,11 +418,15 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x, k0 = blockIdx.y * BK;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q_off = tk - tq;
-  const size_t qbase = static_cast<size_t>(bh) * tq * D;
-  const size_t kbase = static_cast<size_t>(bh) * tk * D;
+  const int n_ch = kWide ? nc : 1, ch = kWide ? blockIdx.z : 0;
+  const int ld = n_ch * D;
+  const size_t qbase = static_cast<size_t>(bh) * tq * ld;
+  const size_t kbase = static_cast<size_t>(bh) * tk * ld;
   const size_t rbase = static_cast<size_t>(bh) * tq;
-  load_tile<D, BK>(sK, k + kbase, k0, tk);
-  load_tile<D, BK>(sV, v + kbase, k0, tk);
+  if (!kWide) {
+    load_tile<D, BK>(sK, k + kbase, k0, tk, ld);
+    load_tile<D, BK>(sV, v + kbase, k0, tk, ld);
+  }
 
   float acc_k[RI][DJ], acc_v[RI][DJ];
 #pragma unroll
@@ -391,21 +438,36 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q0 = qt * BQ;
     // query tile qt sees this key tile iff its last query reaches it (:421)
     if (causal && k0 >= q_off + min(q0 + BQ, tq)) continue;
-    __syncthreads();
-    load_tile<D, BQ>(sQ, q + qbase, q0, tq);
-    load_tile<D, BQ>(sG, dout + qbase, q0, tq);
-    if (threadIdx.x < BQ) {
-      const int qi = q0 + threadIdx.x;
-      sL[threadIdx.x] = qi < tq ? lse[rbase + qi] : 0.f;
-      sC[threadIdx.x] = qi < tq ? delta[rbase + qi] -
-                                      (dlse ? dlse[rbase + qi] : 0.f)
-                                : 0.f;
-    }
-    __syncthreads();
     // score tile in (query row, key column) order
     float s[RI][RI], dp[RI][RI];
-    tile_dot<D>(s, sQ, sK, ty, tx);
-    tile_dot<D>(dp, sG, sV, ty, tx);
+    for (int c = 0; c < n_ch; ++c) {
+      __syncthreads();
+      load_tile<D, BQ>(sQ, q + qbase + c * D, q0, tq, ld);
+      load_tile<D, BQ>(sG, dout + qbase + c * D, q0, tq, ld);
+      if (kWide) {
+        load_tile<D, BK>(sK, k + kbase + c * D, k0, tk, ld);
+        load_tile<D, BK>(sV, v + kbase + c * D, k0, tk, ld);
+      }
+      if (c == 0 && threadIdx.x < BQ) {
+        const int qi = q0 + threadIdx.x;
+        sL[threadIdx.x] = qi < tq ? lse[rbase + qi] : 0.f;
+        sC[threadIdx.x] = qi < tq ? delta[rbase + qi] -
+                                        (dlse ? dlse[rbase + qi] : 0.f)
+                                  : 0.f;
+      }
+      __syncthreads();
+      if (c == 0) {
+        zero(s);
+        zero(dp);
+      }
+      tile_dot<D>(s, sQ, sK, ty, tx);
+      tile_dot<D>(dp, sG, sV, ty, tx);
+    }
+    if (kWide && ch != n_ch - 1) {  // the chunks of q and dO this block takes
+      __syncthreads();
+      load_tile<D, BQ>(sQ, q + qbase + ch * D, q0, tq, ld);
+      load_tile<D, BQ>(sG, dout + qbase + ch * D, q0, tq, ld);
+    }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
@@ -449,8 +511,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RI; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= tk) continue;
-    float* krow = dk + kbase + static_cast<size_t>(kj) * D;
-    float* vrow = dv + kbase + static_cast<size_t>(kj) * D;
+    float* krow = dk + kbase + static_cast<size_t>(kj) * ld + ch * D;
+    float* vrow = dv + kbase + static_cast<size_t>(kj) * ld + ch * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       krow[tx + 16 * j] = acc_k[i][j] * scale;
@@ -492,55 +554,71 @@ Dropout make_dropout(int on, unsigned seed, unsigned thresh, float upscale) {
   return dr;
 }
 
-template <int D>
+template <int D, bool kWide>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v,
-                       float* o, float* lse, int bh, int tq, int tk,
+                       float* o, float* lse, int bh, int tq, int tk, int nc,
                        int causal, float scale, Dropout dr, cudaStream_t s) {
   const size_t smem = fwd_smem<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, kWide>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + Tile<D>::B - 1) / Tile<D>::B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, s>>>(q, k, v, o, lse, tq, tk,
-                                                   causal, scale, dr);
+  const dim3 grid(bh, (tq + Tile<D>::B - 1) / Tile<D>::B, nc);
+  flash_fwd_kernel<D, kWide><<<grid, kThreads, smem, s>>>(
+      q, k, v, o, lse, tq, tk, causal, scale, dr, nc);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kWide>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* g, const float* lse, const float* delta,
                       const float* dlse, float* dq, int bh, int tq, int tk,
-                      int causal, float scale, Dropout dr, cudaStream_t s) {
+                      int nc, int causal, float scale, Dropout dr,
+                      cudaStream_t s) {
   const size_t smem = dq_smem<D>();
-  cudaError_t err = allow_smem(flash_dq_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_dq_kernel<D, kWide>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + Tile<D>::B - 1) / Tile<D>::B);
-  flash_dq_kernel<D><<<grid, kThreads, smem, s>>>(
-      q, k, v, g, lse, delta, dlse, dq, tq, tk, causal, scale, dr);
+  const dim3 grid(bh, (tq + Tile<D>::B - 1) / Tile<D>::B, nc);
+  flash_dq_kernel<D, kWide><<<grid, kThreads, smem, s>>>(
+      q, k, v, g, lse, delta, dlse, dq, tq, tk, causal, scale, dr, nc);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kWide>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* g, const float* lse, const float* delta,
                        const float* dlse, float* dk, float* dv, int bh,
-                       int tq, int tk, int causal, float scale, Dropout dr,
-                       cudaStream_t s) {
+                       int tq, int tk, int nc, int causal, float scale,
+                       Dropout dr, cudaStream_t s) {
   const size_t smem = dkv_smem<D>();
-  cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_dkv_kernel<D, kWide>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + Tile<D>::B - 1) / Tile<D>::B);
-  flash_dkv_kernel<D><<<grid, kThreads, smem, s>>>(
-      q, k, v, g, lse, delta, dlse, dk, dv, tq, tk, causal, scale, dr);
+  const dim3 grid(bh, (tk + Tile<D>::B - 1) / Tile<D>::B, nc);
+  flash_dkv_kernel<D, kWide><<<grid, kThreads, smem, s>>>(
+      q, k, v, g, lse, delta, dlse, dk, dv, tq, tk, causal, scale, dr, nc);
   return cudaGetLastError();
 }
 
-// the smallest tiles (32 rows, D 256) bound the grid's second dimension
-bool shapes_ok(int bh, int tq, int tk) {
+// the smallest tiles (32 rows, D 256) bound the grid's second dimension,
+// the 256-wide chunks of a head width its third
+bool shapes_ok(int bh, int tq, int tk, int d) {
   return bh > 0 && tq > 0 && tk > 0 && (tq + 31) / 32 <= 65535 &&
-         (tk + 31) / 32 <= 65535;
+         (tk + 31) / 32 <= 65535 && (d <= 256 || d / 256 <= 65535);
 }
 
 }  // namespace
+
+// d: 32, 64, 128, 256 (one instantiation each) or a multiple of 256 (the
+// D 256 tiles over d / 256 chunks)
+#define PADDLE_FLASH_DISPATCH(launch, ...)                                  \
+  switch (d) {                                                              \
+    case 32: return launch<32, false>(__VA_ARGS__, 1, causal, scale, dr, s);  \
+    case 64: return launch<64, false>(__VA_ARGS__, 1, causal, scale, dr, s);  \
+    case 128: return launch<128, false>(__VA_ARGS__, 1, causal, scale, dr, s); \
+    case 256: return launch<256, false>(__VA_ARGS__, 1, causal, scale, dr, s); \
+    default:                                                                \
+      if (d > 256 && d % 256 == 0)                                          \
+        return launch<256, true>(__VA_ARGS__, d / 256, causal, scale, dr, s); \
+      return cudaErrorInvalidValue;                                         \
+  }
 
 extern "C" int paddle_flash_fwd(const float* q, const float* k,
                                 const float* v, float* o, float* lse,
@@ -548,16 +626,10 @@ extern "C" int paddle_flash_fwd(const float* q, const float* k,
                                 float scale, int dropout, unsigned seed,
                                 unsigned thresh, float upscale,
                                 void* stream) {
-  if (!shapes_ok(bh, tq, tk)) return cudaErrorInvalidValue;
+  if (!shapes_ok(bh, tq, tk, d)) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(dropout, seed, thresh, upscale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch_fwd<32>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
-    case 64: return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
-    case 128: return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
-    case 256: return launch_fwd<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, dr, s);
-    default: return cudaErrorInvalidValue;
-  }
+  PADDLE_FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, bh, tq, tk)
 }
 
 extern "C" int paddle_flash_dq(const float* q, const float* k,
@@ -567,16 +639,11 @@ extern "C" int paddle_flash_dq(const float* q, const float* k,
                                int tk, int d, int causal, float scale,
                                int dropout, unsigned seed, unsigned thresh,
                                float upscale, void* stream) {
-  if (!shapes_ok(bh, tq, tk)) return cudaErrorInvalidValue;
+  if (!shapes_ok(bh, tq, tk, d)) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(dropout, seed, thresh, upscale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
-    case 256: return launch_dq<256>(q, k, v, dout, lse, delta, dlse, dq, bh, tq, tk, causal, scale, dr, s);
-    default: return cudaErrorInvalidValue;
-  }
+  PADDLE_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dlse, dq, bh,
+                        tq, tk)
 }
 
 extern "C" int paddle_flash_dkv(const float* q, const float* k,
@@ -587,14 +654,9 @@ extern "C" int paddle_flash_dkv(const float* q, const float* k,
                                 float scale, int dropout, unsigned seed,
                                 unsigned thresh, float upscale,
                                 void* stream) {
-  if (!shapes_ok(bh, tq, tk)) return cudaErrorInvalidValue;
+  if (!shapes_ok(bh, tq, tk, d)) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(dropout, seed, thresh, upscale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
-    case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dlse, dk, dv, bh, tq, tk, causal, scale, dr, s);
-    default: return cudaErrorInvalidValue;
-  }
+  PADDLE_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dlse, dk, dv,
+                        bh, tq, tk)
 }

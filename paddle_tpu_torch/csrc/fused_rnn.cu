@@ -13,7 +13,7 @@
 // All tensors are fp32, contiguous and time-major: xproj [T, B, 4H] (gate
 // pre-activations x @ Wx + b, gate order i, f, c, o), w [H, 4H] recurrent,
 // peep [3H] (W_ic | W_fc | W_oc, zeros without peepholes), lens [B] int32,
-// h0, c0 [B, H]; any H up to 16 x the SMs, B >= 1, T >= 1. Beside lens the caller
+// h0, c0 [B, H]; any H, B >= 1, T >= 1. Beside lens the caller
 // gives order [B] int32, the rows sorted by falling length, and live [T]
 // int32, how many rows are longer than t.
 //
@@ -106,6 +106,17 @@
 // thread then owns 2 or 4 (row, unit) pairs of a pass where it owned one
 // (Owner), and the dpeep shares are summed over 32 or 16 rows. H <= 512
 // keeps U <= 4 and its slices in shared memory, as above.
+//   Wider than 16 x the SMs (H 2112 on an H100: the ceil(H / 16) blocks of
+// 16 units no longer fit one per SM): the same one cooperative launch, on
+// one block per SM, each block owning ceil(H / 16 / SMs) such groups of 16
+// units ("passes", the kPasses instantiations of U 16). Between the same
+// grid barriers a block runs each phase of a step once per pass, for the
+// pass's 16 units, exactly as the block of those 16 units runs it at H
+// <= 2112; every pass's slices of w (and, for the LSTM backward, its
+// threads' running dpeep shares) have their own place in the scratch.
+// Up to H 2112 the instantiations are those above and compile as before.
+// (A pass loop leaves its body at the indentation it had without one:
+// tools/torch_lstm_cycles.py places its marks by matching these lines.)
 //
 // Each function launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns the CUDA error of its launches (0 = success;
@@ -128,7 +139,7 @@ constexpr int kRed = kThreads * 32;       // floats of partial sums: 8 x 4 a
                                           // thread at most
 constexpr int kMaxSmemU = 4;             // up to 4 units a block, the w
                                          // slices live in shared memory
-constexpr int kMaxU = 16;
+constexpr int kMaxU = 16;                 // units of a pass above that
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -333,6 +344,54 @@ struct Owner {
   static constexpr int kShares = kBT < kRowStep ? kBT : kRowStep;
 };
 
+// A thread's (row, unit) pairs of the units [u0, u0 + U): unit j, rows bl[o]
+// of a pass of kBT rows, owner[o] where that pair exists.
+template <int U>
+struct Share {
+  int j;
+  int bl[Owner<U>::kOwn];
+  bool owner[Owner<U>::kOwn];
+};
+
+template <int U>
+__device__ __forceinline__ Share<U> share_of(int u0, int h) {
+  using O = Owner<U>;
+  Share<U> sh;
+  sh.j = u0 + threadIdx.x % U;
+#pragma unroll
+  for (int o = 0; o < O::kOwn; ++o) {
+    sh.bl[o] = threadIdx.x / U + o * O::kRowStep;
+    sh.owner[o] = sh.bl[o] < kBT && sh.j < h;
+  }
+  return sh;
+}
+
+// The passes of a block: one (the block's own U units) below kPasses; with
+// kPasses, the groups of U units vb = blockIdx.x + p * gridDim.x < ceil(h / U).
+template <int U, bool kPasses>
+__device__ __forceinline__ int passes_of(int h) {
+  if (!kPasses) return 1;
+  const int groups = (h + U - 1) / U;
+  return (groups - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+}
+
+// The LSTM's peepholes of unit j (0 for the threads that own no pair).
+struct Peep {
+  float i, f, o;
+};
+
+template <int U>
+__device__ __forceinline__ Peep peep_of(const float* __restrict__ peep,
+                                        int j, int h) {
+  Peep pp{0.f, 0.f, 0.f};
+  if (threadIdx.x < kBT * U && j < h) {
+    pp.i = peep[j];
+    pp.f = peep[h + j];
+    pp.o = peep[2 * h + j];
+  }
+  return pp;
+}
+
 // Floats of one block's slices of w, per kernel: where they live in shared
 // memory they come first, then the staging area of stage_floats.
 __host__ __device__ inline int lstm_fwd_slice(int h, int u) {
@@ -348,6 +407,12 @@ __host__ __device__ inline int gru_fwd_slice(int h, int u) {
 __host__ __device__ inline int gru_bwd_slice(int h, int u) {
   return (round_up(h, chunk_of(h)) +                             // wrc
           round_up(2 * h, chunk_of(2 * h))) * u;                 // wrur
+}
+
+// The scratch floats of one pass's group of units: its slices of w and, for
+// the LSTM backward, its threads' three running dpeep shares.
+__host__ __device__ inline int pass_floats(int slice, bool lstm_bwd) {
+  return slice + (lstm_bwd ? 3 * kThreads : 0);
 }
 
 // The block's slices of w and its staging area (as, then red): the slices in
@@ -366,7 +431,15 @@ __device__ __forceinline__ Smem carve(float* smem, float* wscratch,
   return {smem, smem + slice};
 }
 
-template <int U>
+// The slices of w of pass group vb: the block's own (carve) below kPasses,
+// else the group's place in the scratch, `stride` (pass_floats) apart.
+template <bool kPasses>
+__device__ __forceinline__ float* pass_w(const Smem& sm, float* wscratch,
+                                         int vb, int stride) {
+  return kPasses ? wscratch + static_cast<size_t>(vb) * stride : sm.w;
+}
+
+template <int U, bool kPasses = false>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ peep, const int* __restrict__ lens,
@@ -378,35 +451,36 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   using O = Owner<U>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
-  const Smem sm = carve<U>(smem, wscratch, lstm_fwd_slice(h, U));
-  float* ws = sm.w;                                  // [hpad][4U]
+  const int slice = lstm_fwd_slice(h, U);
+  const Smem sm = carve<U>(smem, wscratch, slice);
   float* as = sm.as;                                 // [64][chunk + 4]
   float* red = as + kBT * (chunk_of(h) + 4);         // kRed floats
   const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * U;
-  load_gate_slice<U>(w, ws, h, u0);
+  const int n_pass = passes_of<U, kPasses>(h);
+  for (int p = 0; p < n_pass; ++p) {                 // ws: [hpad][4U]
+    const int vb = blockIdx.x + p * gridDim.x;
+    load_gate_slice<U>(w, pass_w<kPasses>(sm, wscratch, vb, slice), h,
+                       vb * U);
+  }
 
   // this thread's shares of the cell: rows bl[o] of the pass, unit j
-  const int j = u0 + tid % U;
-  int bl[O::kOwn];
-  bool owner[O::kOwn];
-#pragma unroll
-  for (int o = 0; o < O::kOwn; ++o) {
-    bl[o] = tid / U + o * O::kRowStep;
-    owner[o] = bl[o] < kBT && j < h;
-  }
-  float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
-  if (tid < kBT * U && j < h) {
-    w_ic = peep[j];
-    w_fc = peep[h + j];
-    w_oc = peep[2 * h + j];
-  }
+  const Share<U> sh0 = share_of<U>(blockIdx.x * U, h);
+  const Peep pp0 = peep_of<U>(peep, sh0.j, h);
   const size_t bh = static_cast<size_t>(b_len) * h;
 
   for (int t = 0; t < t_len; ++t) {
     const float* hin = t == 0 ? h0 : carry + (t & 1) * bh;
     float* hout = carry + ((t + 1) & 1) * bh;
     const float* cin = t == 0 ? c0 : clast;
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const float* ws = pass_w<kPasses>(sm, wscratch, vb, slice);
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const Peep pp = kPasses ? peep_of<U>(peep, sh.j, h) : pp0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
+    const float w_ic = pp.i, w_fc = pp.f, w_oc = pp.o;
     const int n_live = live[t];
     // the rows still inside their length: the first n_live of `order`
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
@@ -466,11 +540,12 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
       }
     }
+    }  // passes
     grid.sync();
   }
 }
 
-template <int U>
+template <int U, bool kPasses = false>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ peep, const int* __restrict__ lens,
@@ -489,35 +564,32 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ __align__(16) float smem[];
   const int hpad = round_up(h, chunk_of(h));
   const int npad = round_up(4 * h, chunk_of(4 * h));
-  const Smem sm = carve<U>(smem, wscratch, lstm_bwd_slice(h, U));
-  float* ws = sm.w;                                  // [hpad][4U]
-  float* wr = ws + hpad * 4 * U;                     // [npad][U]
+  const int slice = lstm_bwd_slice(h, U);
+  const int stride = pass_floats(slice, true);
+  const Smem sm = carve<U>(smem, wscratch, slice);
   float* as = sm.as;                                 // [64][chunk + 4]
   float* red = as + kBT * (chunk_of(4 * h) + 4);     // kRed floats
   const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * U;
-  load_gate_slice<U>(w, ws, h, u0);
-  // wr[n][u] = w[u0 + u][n]: the rows of the block's units
-  for (int idx = tid; idx < npad * U; idx += kThreads) {
-    const int u = idx / npad, n = idx % npad, k = u0 + u;
-    wr[n * U + u] = (n < 4 * h && k < h)
-        ? w[static_cast<size_t>(k) * 4 * h + n] : 0.0f;
+  const int n_pass = passes_of<U, kPasses>(h);
+  for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x, u0 = vb * U;
+    float* ws = pass_w<kPasses>(sm, wscratch, vb, stride);  // [hpad][4U]
+    float* wr = ws + hpad * 4 * U;                          // [npad][U]
+    load_gate_slice<U>(w, ws, h, u0);
+    // wr[n][u] = w[u0 + u][n]: the rows of the block's units
+    for (int idx = tid; idx < npad * U; idx += kThreads) {
+      const int u = idx / npad, n = idx % npad, k = u0 + u;
+      wr[n * U + u] = (n < 4 * h && k < h)
+          ? w[static_cast<size_t>(k) * 4 * h + n] : 0.0f;
+    }
+    if (kPasses) {                  // the pass's running dpeep shares
+      float* dps = ws + slice;
+      dps[tid] = dps[kThreads + tid] = dps[2 * kThreads + tid] = 0.f;
+    }
   }
 
-  const int j = u0 + tid % U;
-  int bl[O::kOwn];
-  bool owner[O::kOwn];
-#pragma unroll
-  for (int o = 0; o < O::kOwn; ++o) {
-    bl[o] = tid / U + o * O::kRowStep;
-    owner[o] = bl[o] < kBT && j < h;
-  }
-  float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
-  if (tid < kBT * U && j < h) {
-    w_ic = peep[j];
-    w_fc = peep[h + j];
-    w_oc = peep[2 * h + j];
-  }
+  const Share<U> sh0 = share_of<U>(blockIdx.x * U, h);
+  const Peep pp0 = peep_of<U>(peep, sh0.j, h);
   const size_t bh = static_cast<size_t>(b_len) * h;
   float dp_i = 0.f, dp_f = 0.f, dp_o = 0.f;   // this thread's share of dpeep
 
@@ -529,6 +601,21 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
     // phase A: the gates again and the gate gradients of the block's units,
     // for the rows inside their length (the first n_live of `order`)
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const float* ws = pass_w<kPasses>(sm, wscratch, vb, stride);
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const Peep pp = kPasses ? peep_of<U>(peep, sh.j, h) : pp0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
+    const float w_ic = pp.i, w_fc = pp.f, w_oc = pp.o;
+    float* dps = const_cast<float*>(ws) + slice;
+    if (kPasses) {
+      dp_i = dps[tid];
+      dp_f = dps[kThreads + tid];
+      dp_o = dps[2 * kThreads + tid];
+    }
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       bool alive[O::kOwn];
       int b[O::kOwn];
@@ -605,9 +692,23 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
       }
     }
+    if (kPasses) {
+      dps[tid] = dp_i;
+      dps[kThreads + tid] = dp_f;
+      dps[2 * kThreads + tid] = dp_o;
+    }
+    }  // passes
     grid.sync();
 
     // phase B: Dh of the block's units from every gate gradient of the step
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const float* wr =
+        pass_w<kPasses>(sm, wscratch, vb, stride) + hpad * 4 * U;
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       tile_product<U>(dxt, 4 * h, order + r0, min(kBT, n_live - r0), 4 * h,
                       wr, as, red);
@@ -617,23 +718,33 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
           dh0[static_cast<size_t>(order[r0 + bl[o]]) * h + j] =
               reduced<U>(red, bl[o], tid % U);
     }
+    }  // passes
   }
 
   // dpeep of the block's units: the row shares, added in share order
-  __syncthreads();
-  if (tid < O::kShares * U) {
-    const int r = tid / U, u = tid % U;
-    red[(0 * O::kShares + r) * U + u] = dp_i;
-    red[(1 * O::kShares + r) * U + u] = dp_f;
-    red[(2 * O::kShares + r) * U + u] = dp_o;
-  }
-  __syncthreads();
-  if (tid < 3 * U && u0 + tid % U < h) {
-    const int which = tid / U, u = tid % U;
-    float s = 0.0f;
-    for (int r = 0; r < O::kShares; ++r)
-      s += red[(which * O::kShares + r) * U + u];
-    dpeep[which * h + u0 + u] = s;
+  for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x, u0 = vb * U;
+    if (kPasses) {
+      const float* dps = pass_w<kPasses>(sm, wscratch, vb, stride) + slice;
+      dp_i = dps[tid];
+      dp_f = dps[kThreads + tid];
+      dp_o = dps[2 * kThreads + tid];
+    }
+    __syncthreads();
+    if (tid < O::kShares * U) {
+      const int r = tid / U, u = tid % U;
+      red[(0 * O::kShares + r) * U + u] = dp_i;
+      red[(1 * O::kShares + r) * U + u] = dp_f;
+      red[(2 * O::kShares + r) * U + u] = dp_o;
+    }
+    __syncthreads();
+    if (tid < 3 * U && u0 + tid % U < h) {
+      const int which = tid / U, u = tid % U;
+      float s = 0.0f;
+      for (int r = 0; r < O::kShares; ++r)
+        s += red[(which * O::kShares + r) * U + u];
+      dpeep[which * h + u0 + u] = s;
+    }
   }
 }
 
@@ -776,8 +887,9 @@ void rnn_gemm(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
 // What a kernel of `kind` runs with at width h on this card: U units a block
 // (ceil(h / U) blocks, at most one per SM: the least U of 1, 2, 4 whose
 // slices of w fit in shared memory beside the staging area, else the least
-// of 8, 16, with the slices in global scratch), its dynamic shared memory,
-// and the floats of global scratch it needs (0: none).
+// of 8, 16, with the slices in global scratch; above 16 x the SMs, U 16 in
+// passes on one block per SM), its dynamic shared memory, and the floats of
+// global scratch it needs (0: none).
 enum Kind { kLstmFwd = 0, kLstmBwd = 1, kGruFwd = 2, kGruBwd = 3 };
 
 int slice_floats(int kind, int h, int u) {
@@ -799,6 +911,8 @@ int stage_floats(int kind, int h) {
 struct Plan {
   int u = 0;
   int sms = 0;
+  int blocks = 0;
+  bool passes = false;
   size_t smem = 0;
   long long scratch = 0;
 };
@@ -821,26 +935,36 @@ cudaError_t plan_for(int kind, int h, Plan* p) {
     if (blocks > p->sms) continue;
     const size_t slices = sizeof(float) *
                           static_cast<size_t>(slice_floats(kind, h, u));
+    p->u = u;
+    p->blocks = blocks;
     if (u <= kMaxSmemU) {
       if (slices + stage > static_cast<size_t>(optin)) continue;
-      p->u = u;
       p->smem = slices + stage;
       p->scratch = 0;
     } else {
-      p->u = u;
       p->smem = stage;
       p->scratch = static_cast<long long>(blocks) * slice_floats(kind, h, u);
     }
     return cudaSuccess;
   }
-  return cudaErrorCooperativeLaunchTooLarge;
+  // wider than 16 units on every SM: groups of 16 units in passes
+  if (stage > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  const long long groups = (h + kMaxU - 1) / kMaxU;
+  p->u = kMaxU;
+  p->blocks = p->sms;
+  p->passes = true;
+  p->smem = stage;
+  p->scratch = groups * pass_floats(slice_floats(kind, h, kMaxU),
+                                    kind == kLstmBwd);
+  return cudaSuccess;
 }
 
-// One cooperative launch of `kernel` on ceil(h / u) blocks, after checking
+// One cooperative launch of `kernel` on the plan's blocks, after checking
 // that the card holds them all at once.
 template <typename Kernel>
-cudaError_t launch_grid(Kernel kernel, int h, int u, size_t smem_bytes,
-                        int sms, void** args, cudaStream_t s) {
+cudaError_t launch_grid(Kernel kernel, const Plan& plan, void** args,
+                        cudaStream_t s) {
+  const size_t smem_bytes = plan.smem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes));
@@ -849,20 +973,22 @@ cudaError_t launch_grid(Kernel kernel, int h, int u, size_t smem_bytes,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem_bytes);
   if (err != cudaSuccess) return err;
-  const int blocks = (h + u - 1) / u;
-  if (blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  if (plan.blocks > per_sm * plan.sms)
+    return cudaErrorCooperativeLaunchTooLarge;
   return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                     dim3(blocks), dim3(kThreads), args,
+                                     dim3(plan.blocks), dim3(kThreads), args,
                                      smem_bytes, s);
 }
 
-// The launch of kernel template K at the plan's U (1, 2, 4, 8 or 16).
-#define PADDLE_RNN_LAUNCH(K, plan, h, args, s)                               \
-  ((plan).u == 1    ? launch_grid(K<1>, h, 1, (plan).smem, (plan).sms, args, s) \
-   : (plan).u == 2  ? launch_grid(K<2>, h, 2, (plan).smem, (plan).sms, args, s) \
-   : (plan).u == 4  ? launch_grid(K<4>, h, 4, (plan).smem, (plan).sms, args, s) \
-   : (plan).u == 8  ? launch_grid(K<8>, h, 8, (plan).smem, (plan).sms, args, s) \
-                    : launch_grid(K<16>, h, 16, (plan).smem, (plan).sms, args, s))
+// The launch of kernel template K at the plan's U (1, 2, 4, 8 or 16, or 16
+// in passes).
+#define PADDLE_RNN_LAUNCH(K, plan, h, args, s)                      \
+  ((plan).passes    ? launch_grid(K<16, true>, plan, args, s)      \
+   : (plan).u == 1  ? launch_grid(K<1>, plan, args, s)             \
+   : (plan).u == 2  ? launch_grid(K<2>, plan, args, s)             \
+   : (plan).u == 4  ? launch_grid(K<4>, plan, args, s)             \
+   : (plan).u == 8  ? launch_grid(K<8>, plan, args, s)             \
+                    : launch_grid(K<16>, plan, args, s))
 
 // The plan of a launch, checked against the scratch the caller passed.
 cudaError_t checked_plan(int kind, int t_len, int b_len, int h,
@@ -993,7 +1119,7 @@ namespace {
 
 // ws_ur[k][2u + g] = w[k][g H + u0 + u] (g = 0: u, 1: r) and
 // ws_c[k][u] = w[k][2H + u0 + u], zero past H.
-template <int U>
+template <int U, bool kPasses = false>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const int* __restrict__ lens, const int* __restrict__ order,
@@ -1004,32 +1130,29 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int hpad = round_up(h, chunk_of(h));
-  const Smem sm = carve<U>(smem, wscratch, gru_fwd_slice(h, U));
-  float* ws_ur = sm.w;                               // [hpad][2U]
-  float* ws_c = ws_ur + hpad * 2 * U;                // [hpad][U]
+  const int slice = gru_fwd_slice(h, U);
+  const Smem sm = carve<U>(smem, wscratch, slice);
   float* as = sm.as;                                 // [64][chunk + 4]
   float* red = as + kBT * (chunk_of(h) + 4);         // kRed floats
   const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * U;
   const size_t h3 = 3 * static_cast<size_t>(h);
-  for (int idx = tid; idx < hpad * U; idx += kThreads) {
-    const int k = idx / U, j = u0 + idx % U;
-    const bool in = k < h && j < h;
-    const float* wk = w + k * h3;
-    ws_ur[2 * idx] = in ? wk[j] : 0.0f;
-    ws_ur[2 * idx + 1] = in ? wk[h + j] : 0.0f;
-    ws_c[idx] = in ? wk[2 * h + j] : 0.0f;
+  const int n_pass = passes_of<U, kPasses>(h);
+  for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x, u0 = vb * U;
+    float* ws_ur = pass_w<kPasses>(sm, wscratch, vb, slice);  // [hpad][2U]
+    float* ws_c = ws_ur + hpad * 2 * U;                        // [hpad][U]
+    for (int idx = tid; idx < hpad * U; idx += kThreads) {
+      const int k = idx / U, j = u0 + idx % U;
+      const bool in = k < h && j < h;
+      const float* wk = w + k * h3;
+      ws_ur[2 * idx] = in ? wk[j] : 0.0f;
+      ws_ur[2 * idx + 1] = in ? wk[h + j] : 0.0f;
+      ws_c[idx] = in ? wk[2 * h + j] : 0.0f;
+    }
   }
 
   // this thread's shares: rows bl[o] of a pass, unit j
-  const int j = u0 + tid % U;
-  int bl[O::kOwn];
-  bool owner[O::kOwn];
-#pragma unroll
-  for (int o = 0; o < O::kOwn; ++o) {
-    bl[o] = tid / U + o * O::kRowStep;
-    owner[o] = bl[o] < kBT && j < h;
-  }
+  const Share<U> sh0 = share_of<U>(blockIdx.x * U, h);
   const size_t bh = static_cast<size_t>(b_len) * h;
 
   for (int t = 0; t < t_len; ++t) {
@@ -1039,6 +1162,13 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* x_t = x + t * b_len * h3;
     const int n_live = live[t];
     // phase 1: u, r of the block's units; r * h_prev published
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const float* ws_ur = pass_w<kPasses>(sm, wscratch, vb, slice);
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       bool alive[O::kOwn];
       int b[O::kOwn];
@@ -1078,9 +1208,18 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         if (t == 0) hlast[at] = h0[at];  // a row of length 0 keeps h0
       }
     }
+    }  // passes
     grid.sync();
 
     // phase 2: the candidate from all of rh[t], the new state
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const float* ws_c = pass_w<kPasses>(sm, wscratch, vb, slice) +
+                        hpad * 2 * U;
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       bool alive[O::kOwn];
       int b[O::kOwn];
@@ -1109,13 +1248,14 @@ gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         if (t + 1 == t_len || t + 1 == lens[b[o]]) hlast[at] = h_new;
       }
     }
+    }  // passes
     grid.sync();
   }
 }
 
 // wrc[n][u] = w[u0 + u][2H + n] (n < H) and wrur[n][u] = w[u0 + u][n]
 // (n < 2H): the rows of the block's units, zero past the depth.
-template <int U>
+template <int U, bool kPasses = false>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const int* __restrict__ lens, const int* __restrict__ order,
@@ -1129,31 +1269,28 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ __align__(16) float smem[];
   const int cpad = round_up(h, chunk_of(h));
   const int urpad = round_up(2 * h, chunk_of(2 * h));
-  const Smem sm = carve<U>(smem, wscratch, gru_bwd_slice(h, U));
-  float* wrc = sm.w;                                 // [cpad][U]
-  float* wrur = wrc + cpad * U;                      // [urpad][U]
+  const int slice = gru_bwd_slice(h, U);
+  const Smem sm = carve<U>(smem, wscratch, slice);
   float* as = sm.as;                                 // [64][chunk + 4]
   float* red = as + kBT * (chunk_of(2 * h) + 4);     // kRed floats
   const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * U;
   const size_t h3 = 3 * static_cast<size_t>(h);
-  for (int idx = tid; idx < cpad * U; idx += kThreads) {
-    const int u = idx / cpad, n = idx % cpad, k = u0 + u;
-    wrc[n * U + u] = (n < h && k < h) ? w[k * h3 + 2 * h + n] : 0.0f;
-  }
-  for (int idx = tid; idx < urpad * U; idx += kThreads) {
-    const int u = idx / urpad, n = idx % urpad, k = u0 + u;
-    wrur[n * U + u] = (n < 2 * h && k < h) ? w[k * h3 + n] : 0.0f;
+  const int n_pass = passes_of<U, kPasses>(h);
+  for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x, u0 = vb * U;
+    float* wrc = pass_w<kPasses>(sm, wscratch, vb, slice);  // [cpad][U]
+    float* wrur = wrc + cpad * U;                           // [urpad][U]
+    for (int idx = tid; idx < cpad * U; idx += kThreads) {
+      const int u = idx / cpad, n = idx % cpad, k = u0 + u;
+      wrc[n * U + u] = (n < h && k < h) ? w[k * h3 + 2 * h + n] : 0.0f;
+    }
+    for (int idx = tid; idx < urpad * U; idx += kThreads) {
+      const int u = idx / urpad, n = idx % urpad, k = u0 + u;
+      wrur[n * U + u] = (n < 2 * h && k < h) ? w[k * h3 + n] : 0.0f;
+    }
   }
 
-  const int j = u0 + tid % U;
-  int bl[O::kOwn];
-  bool owner[O::kOwn];
-#pragma unroll
-  for (int o = 0; o < O::kOwn; ++o) {
-    bl[o] = tid / U + o * O::kRowStep;
-    owner[o] = bl[o] < kBT && j < h;
-  }
+  const Share<U> sh0 = share_of<U>(blockIdx.x * U, h);
   const size_t bh = static_cast<size_t>(b_len) * h;
 
   for (int t = t_len - 1; t >= 0; --t) {
@@ -1164,6 +1301,12 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int n_live = live[t];
 
     // phase A: the block's u, c and their gate gradients
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
 #pragma unroll
     for (int o = 0; o < O::kOwn; ++o) {
       if (!owner[o]) continue;
@@ -1195,9 +1338,17 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
       }
     }
+    }  // passes
     grid.sync();
 
     // phase B: d_rh of the block's units from every dgc of the step
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const float* wrc = pass_w<kPasses>(sm, wscratch, vb, slice);
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       bool alive[O::kOwn];
       int b[O::kOwn];
@@ -1224,9 +1375,17 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         dh0[at] += d_rh * r;
       }
     }
+    }  // passes
     grid.sync();
 
     // phase C: the rest of Dh from every [dgu, dgr] of the step
+    for (int p = 0; p < n_pass; ++p) {
+    const int vb = blockIdx.x + p * gridDim.x;
+    const float* wrur = pass_w<kPasses>(sm, wscratch, vb, slice) + cpad * U;
+    const Share<U> sh = kPasses ? share_of<U>(vb * U, h) : sh0;
+    const int j = sh.j;
+    const int (&bl)[O::kOwn] = sh.bl;
+    const bool (&owner)[O::kOwn] = sh.owner;
     for (int r0 = 0; r0 < n_live; r0 += kBT) {
       tile_product<U>(dxt, 3 * h, order + r0, min(kBT, n_live - r0), 2 * h,
                       wrur, as, red);
@@ -1236,6 +1395,7 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
           dh0[static_cast<size_t>(order[r0 + bl[o]]) * h + j] +=
               reduced<U>(red, bl[o], tid % U);
     }
+    }  // passes
   }
 }
 

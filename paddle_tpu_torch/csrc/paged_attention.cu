@@ -25,7 +25,14 @@
 // [0, n_rows - 1]: page-table sentinels point at rows >= n_rows, and the
 // attention mask zeroes whatever those rows hold. Nothing is carried
 // between blocks. Rows whose byte width is not a multiple of 16 (or whose
-// base is not 16-byte aligned) take a scalar path that copies bytes.
+// base is not 16-byte aligned) take the widest word that the width and the
+// bases allow, 8 or 4 bytes (the hot-rows cache's 68-byte rows: 17 words),
+// else single bytes.
+//
+// paddle_gather_rows is also the port of the hot-rows cache's gather
+// (paddle_tpu/ops/pallas/embed_cache.py gather_rows, :58, pallas_call :79:
+// cache[min(slot, R - 1)], the same function on the slots >= 0 that the
+// cache issues; paddle_tpu_torch/ops/kernels/embed_cache.py launches it).
 //
 // Both functions launch on the caller's stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() of the launch (0 = success).
@@ -42,7 +49,7 @@ __device__ __forceinline__ long long clamp_row(int r, long long n_rows) {
   return v < 0 ? 0 : (v >= n_rows ? n_rows - 1 : v);
 }
 
-// out[k, :] = pool[clamp(rows[k]), :], copied as vectors of type V.
+// out[k, :] = pool[clamp(rows[k]), :], copied as words of type V.
 template <typename V>
 __global__ void gather_rows_kernel(const V* __restrict__ pool,
                                    long long n_rows, long long vecs_per_row,
@@ -139,6 +146,10 @@ extern "C" int paddle_gather_rows(const void* pool, long long n_rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (row_bytes % 16 == 0 && aligned(pool, 16) && aligned(out, 16)) {
     launch_gather<uint4>(pool, n_rows, row_bytes, rows, n_out, out, s);
+  } else if (row_bytes % 8 == 0 && aligned(pool, 8) && aligned(out, 8)) {
+    launch_gather<uint2>(pool, n_rows, row_bytes, rows, n_out, out, s);
+  } else if (row_bytes % 4 == 0 && aligned(pool, 4) && aligned(out, 4)) {
+    launch_gather<uint32_t>(pool, n_rows, row_bytes, rows, n_out, out, s);
   } else {
     launch_gather<uint8_t>(pool, n_rows, row_bytes, rows, n_out, out, s);
   }

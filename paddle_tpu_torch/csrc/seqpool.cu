@@ -69,12 +69,12 @@ seqpool_kernel(const E* __restrict__ x, const int* __restrict__ lens,
     E v[kUnroll];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k)
-      v[k] = __ldg(xb + static_cast<size_t>(t + k) * d);
+      v[k] = P::load(xb + static_cast<size_t>(t + k) * d);
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) acc = P::add(acc, P::widen(v[k]));
   }
   for (; t < live; ++t)
-    acc = P::add(acc, P::widen(__ldg(xb + static_cast<size_t>(t) * d)));
+    acc = P::add(acc, P::widen(P::load(xb + static_cast<size_t>(t) * d)));
   E* o = out + static_cast<size_t>(b) * d + c;
   if constexpr (kMode == 0) {
     *o = P::sum_out(acc);
@@ -128,6 +128,10 @@ extern "C" int paddle_seqpool(const void* x, const int* lens, void* out,
       return launch<__half>(x, lens, out, b_len, t_len, d, mode, s);
     case kBF16:
       return launch<__nv_bfloat16>(x, lens, out, b_len, t_len, d, mode, s);
+    case kF8E4M3:
+      return launch<F8<__NV_E4M3>>(x, lens, out, b_len, t_len, d, mode, s);
+    case kF8E5M2:
+      return launch<F8<__NV_E5M2>>(x, lens, out, b_len, t_len, d, mode, s);
     case kI64:
       return launch<long long>(x, lens, out, b_len, t_len, d, mode, s);
     default:

@@ -1,0 +1,2 @@
+"""Distributed pieces of the port: ``sharded_table`` (a table split by
+row range over a fleet of row-store shards, in process)."""

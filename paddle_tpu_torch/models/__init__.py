@@ -1,5 +1,6 @@
 """Models of the port: ``transformer`` (the decoder-only LM of the serving
 path and Transformer-base training), ``stacked_dynamic_lstm`` (the stacked
 LSTM classifier's training), ``machine_translation`` (the attention-GRU
-seq2seq model's training and beam decoding) and ``convert`` (JAX scope
-weights into them)."""
+seq2seq model's training and beam decoding), ``deepfm`` (the CTR model,
+trainable over a hot-rows cache of a sharded table) and ``convert`` (JAX
+scope weights into them)."""

@@ -37,6 +37,10 @@ already agree: matrices are [in, out] on both sides.
   ``mt.tgt_emb``, ``mt.dec_proj.w``, ``mt.dec_gru.w``/``.b``,
   ``mt.attn.w``, ``mt.out.w``/``.b``; the state key is the name without
   ``mt.`` and with ``_`` for ``.``.
+- :func:`deepfm_params_from_jax` -> :class:`DeepFM`.
+  ``paddle_tpu.models.deepfm.build`` names the table ``deepfm_emb``; its
+  four ``fc`` layers take auto-names ``fc_<k>.w_0/b_0``, matched by
+  creation order.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch.models import deepfm as _deepfm
 from paddle_tpu_torch.models import machine_translation as mt
 
 _TOP = {"emb": "emb", "lnf_scale": "lnf_scale", "lnf_bias": "lnf_bias",
@@ -438,3 +443,36 @@ def table_from_jax(arrays: Dict[str, np.ndarray], name: str = "emb_w"
     if t.dim() != 2:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want [V, D]")
     return t
+
+
+# -- deepfm (models/deepfm.py:19 deepfm) --------------------------------------
+
+_DEEPFM_AUTO = re.compile(r"(fc)_(\d+)\.([wb]_\d+)$")
+DEEPFM_LAYOUT = tuple(("fc", [("w_0", f"fc_w{i}"), ("b_0", f"fc_b{i}")])
+                      for i in range(len(_deepfm.HIDDEN) + 1))
+
+
+def deepfm_params_from_jax(arrays: Dict[str, np.ndarray], table: str =
+                           "deepfm_emb") -> Dict[str, torch.Tensor]:
+    """JAX scope arrays of one deepfm ``build``'s parameters -> a state dict
+    for ``DeepFM.load_state_dict`` (fp32 CPU tensors): ``table`` [V, 1+K]
+    as ``emb``, the ``fc`` layers in creation order as ``fc_w<i>`` /
+    ``fc_b<i>``. Raises on a missing or an unused name and on a shape that
+    disagrees with the table's and the first ``fc``'s widths."""
+    if table not in arrays:
+        raise KeyError(f"missing the deepfm table {table!r}")
+    rest = {n: v for n, v in arrays.items() if n != table}
+    keys = _auto_state_keys(rest, _DEEPFM_AUTO, DEEPFM_LAYOUT, "deepfm",
+                            "deepfm")
+    state = {keys[n]: torch.from_numpy(np.array(v, dtype=np.float32))
+             for n, v in rest.items()}
+    state["emb"] = torch.from_numpy(np.array(arrays[table],
+                                             dtype=np.float32))
+    v, k1 = state["emb"].shape
+    fields = state["fc_w0"].shape[0] // (k1 - 1)
+    want = _deepfm.param_shapes(fields, v, k1 - 1)
+    for key, t in state.items():
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, want "
+                             f"{want[key]}")
+    return state

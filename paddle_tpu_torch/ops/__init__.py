@@ -1,4 +1,5 @@
 """Operators of the port: plain PyTorch functions with the JAX
 package's numerics (``nn_ops``, ``rnn_ops``, ``sequence_ops``,
-``attention_block``, ``kv_attention``, ``beam_ops``), and the kernels
+``attention_block``, ``kv_attention``, ``beam_ops``, ``lod_ops``), the
+hot-rows cache of a sharded table (``embed_cache``), and the kernels
 under ``ops/kernels``."""

@@ -1,4 +1,4 @@
 """Hand-written CUDA kernels of the port, how they are built and
 loaded (``build``), and their plain PyTorch versions:
-``paged_attention``, ``flash_attention``, ``fused_ce`` and
-``fused_rnn``."""
+``paged_attention``, ``flash_attention``, ``fused_ce``, ``fused_rnn``,
+``seqpool``, ``embed_pool`` and ``embed_cache``."""

@@ -19,9 +19,10 @@ plain version, CUDA tensors to the kernel (any V, D, B and T; the ids are
 converted to int32), which is built on its first launch; anything else
 raises. The kernel takes the tables of every dtype the JAX op's composed
 branch gathers, as the seqpool kernel takes them
-(``seqpool.kernel_operand``: floats summed in fp32, fp64 in fp64, integers
-as int64, complex as its real view). ``LAUNCHES`` counts kernel launches;
-only a kernel launch adds to it.
+(``seqpool.kernel_operand``: floats summed in fp32, fp64 in fp64, float8
+rounded to its type after every row, integers as int64, unsigned ones to
+uint64, complex as its real view; ``seqpool.masked_sum``). ``LAUNCHES``
+counts kernel launches; only a kernel launch adds to it.
 """
 
 from __future__ import annotations
@@ -59,12 +60,17 @@ def _kernels():
 def fused_embed_seq_pool_ref(w, ids, lens=None):
     """Plain version of :func:`fused_embed_seq_pool`: the [B,T,D] gathered
     rows, masked and summed over T."""
+    unsigned = w.dtype in _seqpool.UNSIGNED
+    if unsigned:                        # CUDA gathers no unsigned rows
+        w = _seqpool.as_int64(w)
     emb = w[ids.long().clamp(0, w.shape[0] - 1)]
-    if lens is not None:
-        t = ids.shape[1]
+    t = ids.shape[1]
+    if lens is None:
+        mask = torch.ones(ids.shape, dtype=torch.bool, device=w.device)
+    else:
         mask = torch.arange(t, device=w.device)[None, :] < lens.reshape(-1, 1)
-        emb = emb * mask[:, :, None].to(emb.dtype)
-    return emb.sum(dim=1)
+    out = _seqpool.masked_sum(emb, mask)
+    return out.view(torch.uint64) if unsigned else out
 
 
 def _check_shapes(w, ids, lens):
@@ -100,6 +106,7 @@ def fused_embed_seq_pool(w, ids, lens: Optional[torch.Tensor] = None):
         out = fused_embed_seq_pool(torch.view_as_real(w).reshape(v, 2 * d),
                                    ids, lens)
         return torch.view_as_complex(out.view(b, d, 2))
+    unsigned = w.dtype in _seqpool.UNSIGNED
     w, code = _seqpool.kernel_operand(w)
     ids32 = ids.to(torch.int32).contiguous()
     lens32 = None if lens is None else \
@@ -112,4 +119,4 @@ def fused_embed_seq_pool(w, ids, lens: Optional[torch.Tensor] = None):
             b, t, v, d, code, torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "fused_embed_seq_pool")
     LAUNCHES["embed_pool"] += 1
-    return out
+    return out.view(torch.uint64) if unsigned else out

@@ -27,11 +27,12 @@ dP only, so ``lse`` stays dropout-free.
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
 plain version, CUDA tensors to the kernel (fp32, contiguous), which is
 built on its first launch; anything else raises. The kernels take head
-widths 32, 64, 128 and 256; the wrappers zero-pad q, k, v (and dO) along
-the head width up to the next of these and slice the padding off o, dq,
-dk and dv. That is exact: the scale is passed in, the padded columns add
-0 to every score, and the padded output columns are products with zeros.
-A head width above 256 raises.
+widths 32, 64, 128 and 256, and above 256 every multiple of 256 (in
+256-wide chunks, each block one chunk of its output tile); the wrappers
+zero-pad q, k, v (and dO) along the head width up to the next of these
+and slice the padding off o, dq, dk and dv. That is exact: the scale is
+passed in, the padded columns add 0 to every score, and the padded
+output columns are products with zeros.
 ``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
 adds to it.
 """
@@ -48,7 +49,8 @@ from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.ops.kernels import build as _build
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-HEAD_DIMS = (32, 64, 128, 256)     # the head widths the kernels take
+HEAD_DIMS = (32, 64, 128, 256)     # one instantiation each; above 256,
+CHUNK = 256                        # multiples of the 256-wide chunk
 NEG = -1e30                        # _NEG: the masked score
 
 _MASK32 = 0xFFFFFFFF
@@ -217,11 +219,13 @@ def _check_kernel_args(name, tensors):
 
 def kernel_width(name: str, d: int) -> int:
     """The head width the kernels run at for width ``d``: the least of
-    HEAD_DIMS that holds it."""
+    HEAD_DIMS that holds it, above 256 the least multiple of 256."""
+    if d < 1:
+        raise ValueError(f"{name}: head width {d}")
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"{name}: head width {d} > {HEAD_DIMS[-1]}")
+    return -(-d // CHUNK) * CHUNK
 
 
 def padded(width: int, *tensors):

@@ -60,8 +60,10 @@ plain version, CUDA tensors to the kernel (fp32, contiguous), which is
 built on its first launch; anything else raises. Up to H 512 each block
 of a kernel keeps its slices of ``w`` in shared memory; above, the
 wrapper allocates scratch in device memory for them
-(:func:`_scratch`). A width whose grid the card cannot hold (above 16
-units a block on every SM: H > 2112 on an H100) raises.
+(:func:`_scratch`). Above 16 units on every SM (H > 2112 on an H100)
+one block per SM walks several groups of 16 units a step, in passes
+between the same grid barriers, their slices in that scratch too: every
+width takes the one cooperative launch.
 ``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
 adds to it.
 """

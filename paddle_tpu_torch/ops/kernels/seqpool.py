@@ -27,7 +27,17 @@ The kernel takes every dtype the JAX op's refer branch pools
 fp32 (fp64 for fp64); integers and bool summed in int64, as ``torch.sum``
 widens them, their AVERAGE and SQRT that sum divided by the length cast to
 x's type (fp32, as the plain version divides); complex x as its real view
-of twice the width, which pools the two parts apart, exactly.
+of twice the width, which pools the two parts apart, exactly. Unsigned
+integers (uint16, uint32, uint64) are summed as the int64 of their bits,
+exact modulo 2**64, and pool to uint64 (the reference's own unsigned
+type is uint32 without x64); their AVERAGE and SQRT are fp32, as the
+reference's. Float8 (e4m3fn, e5m2) is summed in fp32 with every partial
+sum rounded to the float8 type, in t order, as the reference's float8
+sum on the CPU rounds it (an fp32 sum rounded once differs from it in
+about half of the elements), and pools to the same float8 type; its
+AVERAGE and SQRT divide by the length rounded to float8 (its root
+rounded again) and round the quotient once (:func:`masked_sum`,
+:func:`divided`).
 """
 
 from __future__ import annotations
@@ -43,7 +53,10 @@ LAUNCHES = {"seqpool": 0}
 MODES = {"SUM": 0, "AVERAGE": 1, "SQRT": 2}
 # the element types of csrc/pool_elem.cuh, by their codes there
 DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
-          torch.bfloat16: 3, torch.int64: 4}
+          torch.bfloat16: 3, torch.int64: 4, torch.float8_e4m3fn: 5,
+          torch.float8_e5m2: 6}
+FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
 
 _lib = None
 
@@ -74,9 +87,19 @@ def _mode(pooltype: str) -> str:
 
 def _divisor(lens, ptype, like):
     """[B, 1] ``max(n, 1)`` (AVERAGE) or its square root (SQRT); None for
-    SUM."""
+    SUM. For float8 and unsigned ``like`` an fp32 tensor: the length
+    rounded to float8 (and its root rounded again), or the length as an
+    unsigned value."""
     if ptype == "SUM":
         return None
+    if like.dtype in FLOAT8 + UNSIGNED:
+        denom = lens.reshape(-1, 1).to(like.dtype).to(torch.float32)
+        if like.dtype in FLOAT8:
+            denom = denom.clamp_min(1.0)
+            return denom if ptype == "AVERAGE" else \
+                torch.sqrt(denom).to(like.dtype).to(torch.float32)
+        denom = denom.clamp_min(1.0)
+        return denom if ptype == "AVERAGE" else torch.sqrt(denom)
     # the length cast to x's type, then at least 1 (jnp.maximum), also for
     # the complex and bool types that clamp_min does not take
     denom = lens.reshape(-1, 1).to(like.dtype)
@@ -85,16 +108,54 @@ def _divisor(lens, ptype, like):
     return denom if ptype == "AVERAGE" else torch.sqrt(denom)
 
 
+def masked_sum(x, mask):
+    """x [B, T, D] summed over T where mask [B, T] holds: torch's sum
+    (integers and bool widened to int64), unsigned integers as the uint64
+    of that int64 sum, float8 in fp32 rounded to x's type after every
+    step, in t order."""
+    if x.dtype in FLOAT8:
+        xs = x.to(torch.float32) * mask[:, :, None]
+        acc = torch.zeros_like(xs[:, 0])
+        for i in range(x.shape[1]):
+            acc = (acc + xs[:, i]).to(x.dtype).to(torch.float32)
+        return acc.to(x.dtype)
+    if x.dtype in UNSIGNED:
+        # summed as the int64 of their bits (CUDA has no arithmetic on the
+        # unsigned types): exact modulo 2**64
+        return (as_int64(x) * mask[:, :, None]).sum(dim=1).view(torch.uint64)
+    return (x * mask[:, :, None].to(x.dtype)).sum(dim=1)
+
+
+def as_int64(x):
+    """An unsigned integer tensor as int64 of the same value modulo 2**64:
+    uint64 reinterpreted, uint16 and uint32 widened."""
+    return x.view(torch.int64) if x.dtype == torch.uint64 else \
+        x.to(torch.int64)
+
+
+def divided(total, lens, ptype, dtype):
+    """``total``, the SUM pool of an x of ``dtype``, divided as the
+    reference divides it for AVERAGE and SQRT: float8 in fp32 and rounded
+    once, unsigned in fp32, the other types in x's own type (integers and
+    bool by true division)."""
+    div = _divisor(lens, ptype, torch.empty((), dtype=dtype))
+    if div is None:
+        return total
+    if dtype in FLOAT8:
+        return (total.to(torch.float32) / div).to(dtype)
+    if dtype in UNSIGNED:
+        return total.to(torch.float32) / div
+    return total / div
+
+
 def masked_seqpool_ref(x, lens, pooltype: str = "SUM"):
     """Plain version of :func:`masked_seqpool_fwd`: the masked sum over the
     whole [B, T, D] (the refer branch of ``_sequence_pool``,
     ``paddle_tpu/ops/sequence_ops.py:75-84``)."""
     ptype = _mode(pooltype)
-    b, t = x.shape[0], x.shape[1]
+    t = x.shape[1]
     mask = torch.arange(t, device=x.device)[None, :] < lens.reshape(-1, 1)
-    out = (x * mask[:, :, None].to(x.dtype)).sum(dim=1)
-    div = _divisor(lens, ptype, x)
-    return out if div is None else out / div
+    return divided(masked_sum(x, mask), lens, ptype, x.dtype)
 
 
 def _check_shapes(x, lens):
@@ -116,9 +177,12 @@ def _check_launch(err: int, name: str):
 
 def kernel_operand(x):
     """(x as the pooling kernels read it, its dtype code): floats as they
-    are, integers and bool widened to int64, contiguous. Raises for a
-    dtype no kernel takes (complex is viewed as real by the callers)."""
-    if not (x.is_floating_point() or x.is_complex()):
+    are, integers and bool widened to int64 (uint64 as its bits),
+    contiguous. Raises for a dtype no kernel takes (complex is viewed as
+    real by the callers)."""
+    if x.dtype in UNSIGNED:
+        x = as_int64(x)
+    elif not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.int64)
     if x.dtype not in DTYPES:
         raise ValueError(f"the pooling kernels take "
@@ -142,7 +206,9 @@ def masked_seqpool_fwd(x, lens, pooltype: str = "SUM"):
     if ptype != "SUM" and not x.is_floating_point():
         # integers: the kernel's int64 sum over the length cast to x's own
         # type (true division, as the plain version divides)
-        return masked_seqpool_fwd(x, lens, "SUM") / _divisor(lens, ptype, x)
+        return divided(masked_seqpool_fwd(x, lens, "SUM"), lens, ptype,
+                       x.dtype)
+    unsigned = x.dtype in UNSIGNED
     x, code = kernel_operand(x)
     lens32 = lens.reshape(-1).to(torch.int32).contiguous()
     out = torch.empty((b, d), dtype=x.dtype, device=x.device)
@@ -152,7 +218,7 @@ def masked_seqpool_fwd(x, lens, pooltype: str = "SUM"):
             MODES[ptype], code, torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "masked_seqpool")
     LAUNCHES["seqpool"] += 1
-    return out
+    return out.view(torch.uint64) if unsigned else out
 
 
 def masked_seqpool_bwd(g, lens, t: int, pooltype: str = "SUM"):

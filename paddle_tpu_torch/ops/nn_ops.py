@@ -38,10 +38,23 @@ and those of the LSTM classifier's head:
   ``-sum(label * log(p + 1e-9))`` for soft labels.
 - :func:`accuracy` -- ``paddle_tpu/ops/metric_ops.py:13``, fed the top-k
   indices as ``layers.accuracy`` feeds it (``fluid/layers/nn.py:531``).
+
+and those of deepfm:
+
+- :func:`sigmoid_cross_entropy_with_logits` -- ``nn_ops.py:650-664``:
+  ``max(x, 0) - x * label + log1p(exp(-|x|))``, 0 where the label is
+  ``ignore_index``, divided by the count of the others with
+  ``normalize``.
+- :func:`sigmoid`, :func:`square` (the activations of
+  ``paddle_tpu/ops/basic.py:197-203``), :func:`reduce_sum`
+  (``math_ops.py:100-115``), :func:`slice` (``math_ops.py:218``, the
+  bounds clipped as there) and :func:`reshape` (``math_ops.py:147``, a 0
+  copying the input's dim).
 """
 
 from __future__ import annotations
 
+from builtins import slice as builtins_slice
 from typing import Optional
 
 import torch
@@ -190,3 +203,58 @@ def fused_linear_ce(x: torch.Tensor, w: torch.Tensor, label: torch.Tensor,
     function."""
     return _fused_ce.fused_linear_ce(x, w, label.reshape(-1),
                                      label_smoothing, ignore_index)
+
+
+def sigmoid_cross_entropy_with_logits(x: torch.Tensor, label: torch.Tensor,
+                                      ignore_index: int = -100,
+                                      normalize: bool = False
+                                      ) -> torch.Tensor:
+    """Elementwise loss of logits ``x`` against labels of x's shape (fp32
+    for fp16 and bf16 logits)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.to(torch.float32)
+    loss = torch.clamp_min(x, 0.0) - x * label \
+        + torch.log1p(torch.exp(-x.abs()))
+    ignored = label == ignore_index
+    loss = torch.where(ignored, torch.zeros_like(loss), loss)
+    if normalize:
+        loss = loss / torch.clamp_min((~ignored).to(x.dtype).sum(), 1.0)
+    return loss
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def square(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(x)
+
+
+def reduce_sum(x: torch.Tensor, dim=None, keep_dim: bool = False
+               ) -> torch.Tensor:
+    """The sum over ``dim`` (an int or a list; None: every axis)."""
+    if dim is None:
+        dims = tuple(range(x.dim()))
+    else:
+        dims = tuple(d % x.dim() for d in ([dim] if isinstance(dim, int)
+                                           else dim))
+    return x.sum(dim=dims, keepdim=keep_dim)
+
+
+def slice(x: torch.Tensor, axes, starts, ends) -> torch.Tensor:  # noqa: A001
+    """``x[..., s:e, ...]`` on each of ``axes``, negative bounds counted
+    from the end and every bound clipped into the axis."""
+    idx = [builtins_slice(None)] * x.dim()
+    for a, s, e in zip(axes, starts, ends):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = builtins_slice(s, e)
+    return x[tuple(idx)]
+
+
+def reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x`` in ``shape``, where a 0 copies x's dim at that position and
+    one -1 takes the rest."""
+    shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+    return x.reshape(shape)

@@ -147,6 +147,67 @@ def test_op_matches_the_jax_op_at_other_dtypes(dtype):
                                atol=1e-3 if dtype == "float16" else 0)
 
 
+# float8 and unsigned arrays between numpy (ml_dtypes, as JAX takes them)
+# and torch, by their bits
+NARROW = {"float8_e4m3fn": torch.float8_e4m3fn,
+          "float8_e5m2": torch.float8_e5m2, "uint16": torch.uint16,
+          "uint32": torch.uint32, "uint64": torch.uint64}
+
+
+def _np_narrow(a: np.ndarray, dtype: str) -> np.ndarray:
+    import ml_dtypes
+    return a.astype(getattr(ml_dtypes, dtype) if dtype.startswith("float8")
+                    else np.dtype(dtype))
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name.startswith("float8"):
+        return torch.from_numpy(a.view(np.uint8)).view(NARROW[a.dtype.name])
+    return torch.from_numpy(a.astype(np.int64)).to(NARROW[a.dtype.name])
+
+
+def _values(t: torch.Tensor) -> np.ndarray:
+    """float64 values of a float8, unsigned or float tensor."""
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64).numpy().astype(np.float64)
+    return t.to(torch.float64 if t.is_floating_point() else torch.int64) \
+        .numpy().astype(np.float64)
+
+
+# what the reference's fused_embedding_seq_pool returns on the CPU (x64
+# off: an unsigned sum is uint32), and the port's dtype for it
+JAX_DTYPE = {"float8_e4m3fn": "float8_e4m3fn", "float8_e5m2": "float8_e5m2",
+             "uint32": "uint32", "uint64": "uint32"}
+PORT_DTYPE = {"float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2, "uint32": torch.uint64,
+              "uint64": torch.uint64}
+
+
+@pytest.mark.parametrize("dtype", sorted(JAX_DTYPE))
+def test_op_matches_the_jax_op_at_float8_and_unsigned(dtype):
+    """The composed branch of the JAX op (``_fused_embedding_seq_pool``,
+    called as the executor calls it: its program layer refuses these
+    dtypes) sums float8 rows in float8, every partial sum rounded, and
+    unsigned rows to an unsigned sum; the port's plain version gives the
+    same values bit for bit."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops import lod_ops as jlod
+    rng = np.random.RandomState(12)
+    w = (rng.randn(9, 5) * 3).astype(np.float32)
+    w = _np_narrow(np.abs(w) if dtype.startswith("u") else w, dtype)
+    ids = rng.randint(0, 9, (6, 11)).astype(np.int32)
+    lens = np.array([11, 0, 3, 1, 7, 9], np.int32)
+    want = jlod._fused_embedding_seq_pool(
+        None, {"W": [jnp.asarray(w)], "Ids": [jnp.asarray(ids)],
+               "SeqLens": [jnp.asarray(lens)]}, {})["Out"][0]
+    assert str(want.dtype) == JAX_DTYPE[dtype]
+    got = tlod.fused_embedding_seq_pool(_to_torch(w), torch.from_numpy(ids),
+                                        torch.from_numpy(lens))
+    assert got.dtype == PORT_DTYPE[dtype]
+    np.testing.assert_array_equal(_values(got),
+                                  np.asarray(want).astype(np.float64))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     w, ids, lens = _data(d=12)
     args = (torch.from_numpy(w), torch.from_numpy(ids),
@@ -209,10 +270,14 @@ def test_cuda_kernel_matches_the_plain_version(cuda_device):
 
 # rtol of the pool of |w| for each table dtype the kernel takes besides
 # fp32: fp16 and bf16 round the sum once where the plain version rounds it
-# after its own fp32 accumulation too
+# after its own fp32 accumulation too; float8 rounds every partial sum
+# at the same points in both (one float8 step of the pool of |w| covers a
+# conversion that rounds a tie the other way); unsigned sums are exact
 DTYPE_RTOL = {torch.float64: 1e-12, torch.float16: 2e-3,
               torch.bfloat16: 1.6e-2, torch.int32: 0.0, torch.int64: 0.0,
-              torch.complex64: 1e-5}
+              torch.complex64: 1e-5, torch.float8_e4m3fn: 2.0 ** -3,
+              torch.float8_e5m2: 2.0 ** -2, torch.uint16: 0.0,
+              torch.uint32: 0.0, torch.uint64: 0.0}
 
 
 @pytest.mark.gpu
@@ -223,6 +288,8 @@ def test_cuda_kernel_takes_every_dtype(cuda_device, dtype):
     rng = np.random.RandomState(8)
     v, d, b, t = 23, 12, 5, 9
     w = torch.from_numpy(rng.randn(v, d) * 4)
+    if dtype in (torch.uint16, torch.uint32, torch.uint64):
+        w = w.abs()
     if dtype.is_complex:
         w = torch.complex(w, torch.from_numpy(rng.randn(v, d)))
     w = w.to(dtype).to(cuda_device)

@@ -232,10 +232,40 @@ def test_head_width_padding_is_exact(causal):
             *zip((tfa.unpadded(d, x) for x in tfa.flash_dkv_ref(*wide)),
                  tfa.flash_dkv_ref(q, k, v, g, lse, delta, *args))):
         np.testing.assert_allclose(got.numpy(), want.numpy(), **exact)
-    assert [tfa.kernel_width("f", n) for n in (1, 32, 33, 100, 129, 256)] \
-        == [32, 32, 64, 128, 256, 256]
-    with pytest.raises(ValueError, match="head width 257"):
-        tfa.kernel_width("flash_fwd", 257)
+    assert [tfa.kernel_width("f", n)
+            for n in (1, 32, 33, 100, 129, 256, 257, 320, 512, 513)] \
+        == [32, 32, 64, 128, 256, 256, 512, 512, 512, 768]
+    with pytest.raises(ValueError, match="head width 0"):
+        tfa.kernel_width("flash_fwd", 0)
+
+
+
+@pytest.mark.parametrize("d", [257, 320])
+def test_wide_head_width_padding_is_exact(d):
+    """Above 256 the kernels take the head width in 256-wide chunks: the
+    wrappers pad 257 and 320 to 512. Run on the plain versions in
+    float64, that padding equals unpadded attention (lse too) to float64's
+    last bits, causal, with dropout."""
+    rng = np.random.RandomState(13)
+    bh, t = 2, 9
+    width = tfa.kernel_width("flash", d)
+    assert width == 512
+    q, k, v, g = (torch.from_numpy(rng.randn(bh, t, d) * 0.1)
+                  for _ in range(4))
+    args = (True, d ** -0.5, 0.2, SEED)
+    o, lse = tfa.flash_fwd_ref(q, k, v, *args)
+    delta = (o * g).sum(-1)
+    qp, kp, vp, gp = tfa.padded(width, q, k, v, g)
+    op, lsep = tfa.flash_fwd_ref(qp, kp, vp, *args)
+    wide = (qp, kp, vp, gp, lsep, delta) + args
+    exact = dict(rtol=1e-12, atol=1e-13)
+    for got, want in (
+            (tfa.unpadded(d, op), o), (lsep, lse),
+            (tfa.unpadded(d, tfa.flash_dq_ref(*wide)),
+             tfa.flash_dq_ref(q, k, v, g, lse, delta, *args)),
+            *zip((tfa.unpadded(d, x) for x in tfa.flash_dkv_ref(*wide)),
+                 tfa.flash_dkv_ref(q, k, v, g, lse, delta, *args))):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **exact)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -262,8 +292,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
     """Each kernel against its plain version on the card at the training
     shapes (B 2, H 8, T 128, D 64), a ragged T = 100, dropout 0.1, a
-    causal cross length, D = 128 and D = 256, and head widths the
-    wrappers pad (48: d_model 96 over 2 heads; 8, 200); the autograd
+    causal cross length, D = 128 and D = 256, head widths the
+    wrappers pad (48: d_model 96 over 2 heads; 8, 200), and above 256 in
+    256-wide chunks (257, 320: d_model 640 over 2 heads, 512); the autograd
     Function launches each kernel once per call."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -273,7 +304,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
              (4, 128, 128, 128, True, 0.1), (4, 96, 80, 32, False, 0.2),
              (4, 128, 128, 48, True, 0.1), (4, 100, 100, 256, True, 0.0),
              (8, 70, 130, 256, True, 0.1), (4, 40, 40, 200, False, 0.2),
-             (2, 33, 33, 8, True, 0.0)]
+             (2, 33, 33, 8, True, 0.0), (2, 64, 64, 320, True, 0.1),
+             (2, 40, 40, 257, False, 0.0), (2, 33, 47, 512, True, 0.0)]
     for bh, tq, tk, d, causal, p in cases:
         q, g = (torch.randn(bh, tq, d, generator=gen, device=cuda_device)
                 for _ in range(2))

@@ -121,6 +121,72 @@ def test_sequence_pool_matches_the_jax_op_at_other_dtypes(pooltype, dtype):
                                atol=1e-3 if dtype == "float16" else 0)
 
 
+# float8 and unsigned arrays between numpy (ml_dtypes, as JAX takes them)
+# and torch, by their bits
+NARROW = {"float8_e4m3fn": torch.float8_e4m3fn,
+          "float8_e5m2": torch.float8_e5m2, "uint16": torch.uint16,
+          "uint32": torch.uint32, "uint64": torch.uint64}
+
+
+def _np_narrow(a: np.ndarray, dtype: str) -> np.ndarray:
+    import ml_dtypes
+    return a.astype(getattr(ml_dtypes, dtype) if dtype.startswith("float8")
+                    else np.dtype(dtype))
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name.startswith("float8"):
+        return torch.from_numpy(a.view(np.uint8)).view(NARROW[a.dtype.name])
+    return torch.from_numpy(a.astype(np.int64)).to(NARROW[a.dtype.name])
+
+
+def _values(t: torch.Tensor) -> np.ndarray:
+    """float64 values of a float8, unsigned or float tensor."""
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64).numpy().astype(np.float64)
+    return t.to(torch.float64 if t.is_floating_point() else torch.int64) \
+        .numpy().astype(np.float64)
+
+
+# what the reference's sequence_pool returns for these inputs on the CPU
+# (x64 off: an unsigned sum is uint32)
+JAX_DTYPE = {("float8_e4m3fn", "SUM"): "float8_e4m3fn",
+             ("float8_e4m3fn", "AVERAGE"): "float8_e4m3fn",
+             ("float8_e4m3fn", "SQRT"): "float8_e4m3fn",
+             ("float8_e5m2", "SUM"): "float8_e5m2",
+             ("uint32", "SUM"): "uint32", ("uint32", "AVERAGE"): "float32",
+             ("uint32", "SQRT"): "float32", ("uint16", "SUM"): "uint32",
+             ("uint64", "SQRT"): "float32"}
+PORT_DTYPE = {"float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2, "uint32": torch.uint64,
+              "float32": torch.float32}
+
+
+@pytest.mark.parametrize("dtype,pooltype", sorted(JAX_DTYPE))
+def test_sequence_pool_matches_the_jax_op_at_float8_and_unsigned(dtype,
+                                                                  pooltype):
+    """The refer branch of the JAX op (``_sequence_pool``, called as the
+    executor calls it: its program layer refuses these dtypes) pools
+    float8 in float8, every partial sum rounded, and unsigned integers to
+    an unsigned sum (uint32 without x64; the port's uint64) and an fp32
+    AVERAGE / SQRT. The port's plain version gives the same values bit for
+    bit, and the dtypes written in JAX_DTYPE / PORT_DTYPE."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops import sequence_ops as jseq
+    rng = np.random.RandomState(11)
+    x = (rng.randn(6, 11, 5) * 4).astype(np.float32)
+    x = _np_narrow(np.abs(x) if dtype.startswith("u") else x, dtype)
+    lens = np.array([11, 0, 3, 1, 7, 9], np.int32)
+    want = jseq._sequence_pool(None, {"X": [jnp.asarray(x)],
+                                      "SeqLens": [jnp.asarray(lens)]},
+                               {"pooltype": pooltype})["Out"][0]
+    assert str(want.dtype) == JAX_DTYPE[(dtype, pooltype)]
+    got = tseq.sequence_pool(_to_torch(x), torch.from_numpy(lens), pooltype)
+    assert got.dtype == PORT_DTYPE[JAX_DTYPE[(dtype, pooltype)]]
+    np.testing.assert_array_equal(_values(got),
+                                  np.asarray(want).astype(np.float64))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     x, lens = _data(d=12)
     xt, lt = torch.from_numpy(x), torch.from_numpy(lens)
@@ -212,19 +278,27 @@ def test_cuda_kernel_matches_the_plain_version(cuda_device):
 
 # rtol of the pool of |x| for each dtype the kernel takes besides fp32: fp16
 # and bf16 round the sum once where the plain version rounds it twice
+# float8 rounds every partial sum at the same points in both (one float8
+# step of the pool of |x| covers a conversion that rounds a tie the other
+# way); unsigned sums are exact
 DTYPE_RTOL = {torch.float64: 1e-12, torch.float16: 2e-3,
               torch.bfloat16: 1.6e-2, torch.int32: 0.0, torch.bool: 0.0,
-              torch.complex64: 1e-5}
+              torch.complex64: 1e-5, torch.float8_e4m3fn: 2.0 ** -3,
+              torch.float8_e5m2: 2.0 ** -2, torch.uint16: 0.0,
+              torch.uint32: 0.0, torch.uint64: 0.0}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPE_RTOL), ids=str)
 def test_cuda_kernel_takes_every_dtype(cuda_device, dtype):
-    """Every dtype the JAX op's refer branch pools: each pool type one
-    launch, the plain version's dtype and values."""
+    """Every dtype the JAX op's refer branch pools (float8 and unsigned
+    too): each pool type one launch, the plain version's dtype and
+    values."""
     rng = np.random.RandomState(7)
     b, t, d = 6, 9, 12
     x = torch.from_numpy(rng.randn(b, t, d) * 4)
+    if dtype in tsp.UNSIGNED:
+        x = x.abs()
     if dtype.is_complex:
         x = torch.complex(x, torch.from_numpy(rng.randn(b, t, d)))
     x = x.to(dtype).to(cuda_device)
