@@ -50,20 +50,27 @@ final line:
    and 640 over 2 (head widths 257 and 320): the fused block (one launch
    of each kernel) equals the composed block, output within rtol 1e-4,
    gradients of the input and the projections within rtol 1e-3.
-6. Fused-CE kernels: the fused linear + cross-entropy forward, dx and
-   dW kernels at the vocabulary head of phase 7 (N 4096 rows, D 512,
-   V 32000, label smoothing 0.1, every 50th row at ignore_index, a
-   non-uniform per-row cotangent) and at an edge shape (N 1000, D 100,
-   V 1003), each against its plain PyTorch version (rtol 1e-4 /
-   atol 1e-5 loss and lse, rtol 1e-3 / atol 1e-4 dx and dW), timed as
-   in phase 3 beside its plain version, its bound (as in phase 5) and a
-   library yardstick: ``F.cross_entropy(x @ w, ...)`` for the forward
-   and its autograd backward for the dx + dW pair (two calls each, held
-   to allclose with the plain versions first). Then D above 512, which
-   the kernels take in chunks of 512: ``transformer_big``'s head (N 4096,
-   D 1024, V 32000; timed beside plain and bound), an edge shape (N 300,
-   D 700, V 1003) and the smallest input that raised before (x [1, 513],
-   through ``fused_linear_ce``), each against the plain versions.
+6. Fused-CE kernels: the fused linear + cross-entropy forward and
+   backward kernels (tensor cores: fp32 through 3xTF32, bf16 natively) at
+   the vocabulary head of phase 7 (N 4096 rows, D 512, V 32000, label
+   smoothing 0.1, every 50th row at ignore_index, a non-uniform per-row
+   cotangent) and at an edge shape (N 1000, D 100, V 1003), fp32 and
+   bf16, each against its plain PyTorch version (fp32: rtol 1e-4 / atol
+   1e-5 loss and lse, rtol 1e-3 / atol 1e-4 dx and dW; bf16: the same
+   for loss and lse, dx and dW within one bf16 step plus one step of
+   every rounded dz term), a second call of each bit-equal to the first;
+   timed as in phase 3 beside its plain version, the time of its
+   operand copies (the prep kernel, inside the kernel's time), two bounds
+   (the FLOPs at the tensor-core rate of its path: three TF32 products
+   at 495 TFLOP/s for fp32, 989 TFLOP/s for bf16; and at 67 TFLOP/s fp32
+   outside the tensor cores, as the earlier kernels' rows were bound;
+   each against the bytes over 3.35 TB/s) and a library yardstick:
+   ``F.cross_entropy`` of the matmul's fp32 logits for the forward and
+   its autograd backward for the backward (held to allclose with the
+   plain versions first in fp32). Then the smallest input that raised
+   before (x [1, 513], through ``fused_linear_ce``), and
+   ``transformer_big``'s head (N 4096, D 1024, V 32000; timed beside
+   plain and bounds) with an edge shape (N 300, D 700, V 1003).
 7. Training: Transformer-base (vocab 32000, d_model 512, d_inner 2048,
    8 heads, 6 + 6 layers, max_len 128, label smoothing 0.1, Adam at
    1e-4; seeded random weights carried in through
@@ -76,15 +83,17 @@ final line:
    composed and the fused-head curves agree with the fused-attention
    curve within rtol 1e-3; every fused step launched each flash kernel
    18 times (6 encoder, 6 causal decoder and 6 cross attentions) and the
-   composed run none; every fused-head step launched each fused-CE
-   kernel once and the other runs none. An evaluation forward
-   (``is_train=False``) with the fused head must equal the unfused one
-   within rtol 1e-4 and launch the forward kernel once. Then 10 fused
+   composed run none; every fused-head step launched the fused-CE
+   forward and backward once each and the other runs none. An
+   evaluation forward (``is_train=False``) with the fused head must
+   equal the unfused one within rtol 1e-4 and launch the forward kernel
+   once. Then 10 fused
    steps at dropout 0.1 on one batch must give finite losses, the last
    below the first. Prints each run's step p50 (host clock around steps
    that end in a synchronize), tokens/s, peak memory, and a
    ``torch.profiler`` window of 3 steps: device busy per step, idle
-   share, and the flash and fused-CE kernels' shares of device time.
+   share, and the flash and fused-CE kernels' shares of device time;
+   then the three runs' device busy a step side by side.
 8. LSTM kernels: the whole-sequence LSTM forward and backward kernels
    at the shapes of phase 9 (T 100, B 64, H 512; seeded ``xproj`` x 0.4,
    ``peep`` x 0.1, ``h0, c0`` x 0.3, ``w`` x H**-0.5, ragged lengths
@@ -170,8 +179,9 @@ final line:
     error it prints the element where an rtol of |plain| itself would be
     tightest: its error, |plain| and the pool of |x|); both
     kernels at the other dtypes the JAX op pools (fp64, fp16, bf16,
-    int32, bool, complex64, float8 e4m3fn and e5m2, uint16, uint32,
-    uint64) at a small ragged shape; timed as in phase 3
+    int32, bool, complex64, float8 e4m3fn, e5m2, e4m3fnuz and e5m2fnuz
+    (the fnuz pair bit for bit), uint16, uint32, uint64) at a small
+    ragged shape; timed as in phase 3
     beside the plain version, the bound (bytes over 3.35 TB/s: the live
     rows of x, or each distinct row of the table that a live id names,
     the live ids, the lengths and the output) and, for the gather +
@@ -225,7 +235,7 @@ final line:
     pull, write-back, install, model step), hit rates by unique id and by
     occurrence, misses and evictions a step, pull and push bytes a step,
     peak memory and a 3-step profiler window.
-18. Report: a ``{"kernels": [...]}`` line (sixteen kernels), then, last,
+18. Report: a ``{"kernels": [...]}`` line (fifteen kernels), then, last,
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -239,6 +249,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # fp32 outside the tensor cores, same
+TF32_FLOPS_PER_S = 495e12          # dense tensor cores, same
+BF16_FLOPS_PER_S = 989e12
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FCE_SOURCE = "paddle_tpu_torch/csrc/fused_ce.cu"
@@ -263,6 +275,7 @@ FLASH_VARIANTS = {"full": (False, 0.0), "causal": (True, 0.0),
 FCE_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 FCE_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 FCE_EDGE = (1000, 100, 1003)       # N, D, V off every tile multiple
+FCE_MANTISSA = {"bfloat16": 7, "float16": 10}
 EVAL_RTOL = 1e-4
 TRAIN_RUNS = {"fused_attention": dict(fused_attention=True),
               "composed": dict(fused_attention=False),
@@ -299,10 +312,13 @@ POOL_TOL = dict(rtol=1e-5, atol=1e-6)
 # the pooling kernels' other dtypes -> rtol of the pool of |x|
 # (float8 rounds every partial sum at the same points in both: one float8
 # step of the pool of |x| covers a conversion that rounds a tie the other
-# way; unsigned sums are exact)
+# way; the fnuz types' hand-written conversions round as torch's do, bit
+# for bit: their steps are all above POOL_TOL's atol; unsigned sums are
+# exact)
 POOL_DTYPES = {"float64": 1e-12, "float16": 2e-3, "bfloat16": 1.6e-2,
                "int32": 0.0, "bool": 0.0, "complex64": 1e-5,
                "float8_e4m3fn": 2.0 ** -3, "float8_e5m2": 2.0 ** -2,
+               "float8_e4m3fnuz": 0.0, "float8_e5m2fnuz": 0.0,
                "uint16": 0.0, "uint32": 0.0, "uint64": 0.0}
 TEXTCONV = dict(dict_dim=5000, max_len=100, emb_dim=128, num_filters=512,
                 classes=2)
@@ -839,73 +855,130 @@ def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
 
 # -- phase 6: fused-CE kernels ----------------------------------------------
 
-def fce_cost(n, d, v):
-    """(FLOPs, bytes) of the fused-CE forward, dx and dW kernels: 2*N*D*V
-    for the forward's product, 4*N*D*V for each backward kernel (its own
-    recompute of z and its product); each input read once, each output
-    written once."""
-    x_b, w_b, row_b = n * d * 4, d * v * 4, n * 4
+def fce_cost(n, d, v, elem=4):
+    """(FLOPs, bytes) of the fused-CE forward and backward: 2*N*D*V for the
+    forward's product; 6*N*D*V for the backward (one recompute of z and
+    the two gradient products); each input read once, each output written
+    once (``elem`` bytes an operand value)."""
+    x_b, w_b, row_b = n * d * elem, d * v * elem, n * 4
     return {"fused_ce_fwd": (2 * n * d * v, x_b + w_b + row_b + 2 * row_b),
-            "fused_ce_dx": (4 * n * d * v, x_b + w_b + 3 * row_b + x_b),
-            "fused_ce_dw": (4 * n * d * v, x_b + w_b + 3 * row_b + w_b)}
+            "fused_ce_bwd": (6 * n * d * v,
+                             2 * x_b + 2 * w_b + 3 * row_b)}
 
 
-def fce_inputs(torch, dev, n, d, v, seed):
+def fce_bounds(flops, nbytes, dtype_name):
+    """(bound_ms, bound_by, simt_bound_ms): the bound at the tensor-core
+    rate of the kernel's path (fp32 through 3xTF32: three TF32 products
+    at 495 TFLOP/s; bf16 and fp16 at 989) and, for comparison with the
+    earlier kernels, at 67 TFLOP/s fp32 outside the tensor cores; each
+    against the bytes over 3.35 TB/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * flops / TF32_FLOPS_PER_S if dtype_name == "float32" \
+        else flops / BF16_FLOPS_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            bound_of(flops, nbytes)[0])
+
+
+def fce_inputs(torch, dev, n, d, v, seed, dtype=None):
     """x ~ N(0, 1) (a layer-normed decoder output), w ~ N(0, 1/D), labels
     with every 50th row at ignore_index, a per-row cotangent in
     [0.5, 1.5) (the kernels take any g; the mean's 1/N would put dx under
-    the absolute tolerance)."""
+    the absolute tolerance); x and w rounded to ``dtype`` when given."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(n, d, generator=gen, device=dev)
     w = torch.randn(d, v, generator=gen, device=dev) * d ** -0.5
     labels = torch.randint(0, v, (n,), generator=gen, device=dev)
     labels[::50] = IGNORE
     g = torch.rand(n, generator=gen, device=dev) + 0.5
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
     return x, w, labels, g
 
 
+def fce_low_tol(torch, fc, x, w, labels, lse, g, eps):
+    """Per-element slack of dx and dW for bf16 / fp16 operands (both sides
+    round dz to the operand type and their fp32 sums once): one step of
+    dz (2**-m |dz|, m mantissa bits) times its partner, summed, plus the
+    fp32 order term; the comparison adds one step of the result
+    (tests/test_torch_fused_ce.py ``_low_precision_tol``)."""
+    m = FCE_MANTISSA[str(x.dtype).split(".")[-1]]
+    xf, wf = x.float(), w.float()
+    on, _, off, _ = fc._consts(eps, w.shape[1])
+    cols = torch.arange(w.shape[1], device=x.device)
+    t = torch.where(cols[None] == labels.long()[:, None], on, 0.0) + off
+    dz = (torch.exp(xf @ wf - lse[:, None]) - t) * g[:, None]
+    dz = torch.where((labels == IGNORE)[:, None], 0.0, dz).abs()
+    n, v = dz.shape
+    return ((2.0 ** -m + v * 2.0 ** -24) * (dz @ wf.abs().t()),
+            (2.0 ** -m + n * 2.0 ** -24) * (xf.abs().t() @ dz))
+
+
+def fce_within(torch, got, want, slack):
+    """|got - want| <= one step of got's dtype at |want| + slack."""
+    m = FCE_MANTISSA[str(got.dtype).split(".")[-1]]
+    wf = want.float()
+    step = torch.exp2(torch.floor(torch.log2(
+        wf.abs().clamp_min(torch.finfo(got.dtype).tiny))) - m)
+    err = (got.float() - wf).abs()
+    return bool((err <= step + slack).all()), float(err.max())
+
+
 def fce_check(torch, fc, x, w, labels, g, eps, label):
-    """Each kernel against its plain version; returns the max abs errors
-    and the plain lse."""
+    """Each kernel against its plain version (fp32 within FCE_FWD_TOL /
+    FCE_GRAD_TOL, bf16 and fp16 gradients within :func:`fce_low_tol`),
+    and a second call bit-equal to the first; returns the max abs errors,
+    the plain lse and the plain (loss, dx, dW)."""
     loss, lse = fc.fused_ce_fwd(x, w, labels, eps)
     want_loss, want_lse = fc.fused_ce_fwd_ref(x, w, labels, eps)
-    dx = fc.fused_ce_dx(x, w, labels, want_lse, g, eps)
-    dw = fc.fused_ce_dw(x, w, labels, want_lse, g, eps)
+    dx, dw = fc.fused_ce_bwd(x, w, labels, want_lse, g, eps)
     want_dx, want_dw = fc.fused_ce_bwd_ref(x, w, labels, want_lse, g, eps)
+    again = fc.fused_ce_fwd(x, w, labels, eps)[0], *fc.fused_ce_bwd(
+        x, w, labels, want_lse, g, eps)
     torch.cuda.synchronize()
     errs = {}
-    for name, got, want, tol in (("loss", loss, want_loss, FCE_FWD_TOL),
-                                 ("lse", lse, want_lse, FCE_FWD_TOL),
-                                 ("dx", dx, want_dx, FCE_GRAD_TOL),
-                                 ("dw", dw, want_dw, FCE_GRAD_TOL)):
-        errs[name] = float((got - want).abs().max())
-        if not close(got, want, tol):
+    slack = fce_low_tol(torch, fc, x, w, labels, want_lse, g, eps) \
+        if x.dtype != torch.float32 else (None, None)
+    for name, got, want, tol, sl in (
+            ("loss", loss, want_loss, FCE_FWD_TOL, None),
+            ("lse", lse, want_lse, FCE_FWD_TOL, None),
+            ("dx", dx, want_dx, FCE_GRAD_TOL, slack[0]),
+            ("dw", dw, want_dw, FCE_GRAD_TOL, slack[1])):
+        if sl is None:
+            errs[name] = float((got - want).abs().max())
+            ok = close(got, want, tol)
+        else:
+            ok, errs[name] = fce_within(torch, got, want, sl)
+        if not ok:
             fail(f"fused CE {label}: {name} differs from the plain version "
-                 f"(max abs err {errs[name]}, tolerance {tol})")
+                 f"(max abs err {errs[name]})")
+    if not all(torch.equal(a, b) for a, b in zip(again, (loss, dx, dw))):
+        fail(f"fused CE {label}: a second call gave other bits")
     if bool((loss[labels == IGNORE] != 0).any()):
         fail(f"fused CE {label}: an ignored row has a non-zero loss")
     return errs, want_lse, (want_loss, want_dx, want_dw)
 
 
-def fce_library_ms(torch, fc, ins, eps, wants, flush):
-    """The library yardstick: the composed head in two calls (a matmul and
-    F.cross_entropy) and their autograd backward, held to the plain
-    versions (``wants``: loss, dx, dW) first; their times by kernel."""
+def fce_library_ms(torch, fc, ins, eps, wants, flush, tol=True):
+    """The library yardstick: the composed head in two calls (a matmul in
+    the operands' dtype and F.cross_entropy on its fp32 logits) and their
+    autograd backward, held to the plain versions (``wants``: loss, dx,
+    dW) first where ``tol``; their times by kernel."""
     import torch.nn.functional as F
     x, w, labels, g = ins
     xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
     lab64 = labels.long()
 
     def lib_fwd():
-        return F.cross_entropy(xr @ wr, lab64, reduction="none",
+        return F.cross_entropy((xr @ wr).float(), lab64, reduction="none",
                                label_smoothing=eps, ignore_index=IGNORE)
     lib_loss = lib_fwd()
     lib_dx, lib_dw = torch.autograd.grad(lib_loss, (xr, wr), g,
                                          retain_graph=True)
-    for name, got, want, tol in zip(
+    for name, got, want, t in zip(
             ("loss", "dx", "dw"), (lib_loss, lib_dx, lib_dw), wants,
             (FCE_FWD_TOL, FCE_GRAD_TOL, FCE_GRAD_TOL)):
-        if not torch.allclose(got, want, **tol):
+        if tol and not torch.allclose(got, want, **t):
             fail(f"fused CE: the library yardstick's {name} differs from "
                  f"the plain version (max abs err "
                  f"{float((got - want).abs().max())})")
@@ -913,50 +986,51 @@ def fce_library_ms(torch, fc, ins, eps, wants, flush):
 
     def lib_bwd():
         return torch.autograd.grad(lib_loss, (xr, wr), g, retain_graph=True)
-    bwd_ms = time_ms(torch, lib_bwd, flush, n=20)
     return {"fused_ce_fwd": time_ms(torch, lib_fwd, flush, n=20),
-            "fused_ce_dx": bwd_ms, "fused_ce_dw": bwd_ms}
+            "fused_ce_bwd": time_ms(torch, lib_bwd, flush, n=20)}
 
 
 def fce_rows(torch, fc, card, ins, eps, errs, edge_errs, lse, flush,
              lib_ms=None, n=20, warm=5):
-    """The fused-CE kernels at one shape timed beside plain, bound and
-    (``lib_ms``) library, with the errors of :func:`fce_check` there and
-    at its edge shape."""
+    """The fused-CE kernels at one shape timed beside plain, both bounds,
+    the prep kernel's share and (``lib_ms``) library, with the errors of
+    :func:`fce_check` there and at its edge shape."""
     x, w, labels, g = ins
     (nn, d), v = x.shape, w.shape[1]
-    plain_bwd_ms = time_ms(torch, lambda: fc.fused_ce_bwd_ref(
-        x, w, labels, lse, g, eps), flush, n=n, warm=warm)
+    dtype_name = str(x.dtype).split(".")[-1]
     runs = {"fused_ce_fwd": (
                 lambda: fc.fused_ce_fwd(x, w, labels, eps),
                 lambda: fc.fused_ce_fwd_ref(x, w, labels, eps),
+                lambda: (fc.prepare(x, False), fc.prepare(w, True)),
                 ("loss", "lse")),
-            "fused_ce_dx": (
-                lambda: fc.fused_ce_dx(x, w, labels, lse, g, eps), None,
-                ("dx",)),
-            "fused_ce_dw": (
-                lambda: fc.fused_ce_dw(x, w, labels, lse, g, eps), None,
-                ("dw",))}
-    cost = fce_cost(nn, d, v)
+            "fused_ce_bwd": (
+                lambda: fc.fused_ce_bwd(x, w, labels, lse, g, eps),
+                lambda: fc.fused_ce_bwd_ref(x, w, labels, lse, g, eps),
+                lambda: (fc.prepare(x, False), fc.prepare(w, True),
+                         fc.prepare(w, False), fc.prepare(x, True)),
+                ("dx", "dw"))}
+    cost = fce_cost(nn, d, v, x.element_size())
     rows = {}
-    for kname, (fn, ref, outs) in runs.items():
+    for kname, (fn, ref, prep, outs) in runs.items():
         flops, nbytes = cost[kname]
-        bound_ms, bound_by = bound_of(flops, nbytes)
+        bound_ms, bound_by, simt_ms = fce_bounds(flops, nbytes, dtype_name)
         row = rows[kname] = {
             "max_abs_err": max(errs[o] for o in outs),
             "edge_max_abs_err": max(edge_errs[o] for o in outs),
             "ms": time_ms(torch, fn, flush, n=n, warm=warm),
-            "plain_ms": time_ms(torch, ref, flush, n=n, warm=warm) if ref
-            else plain_bwd_ms,
+            "plain_ms": time_ms(torch, ref, flush, n=n, warm=warm),
+            "prep_ms": time_ms(torch, prep, flush, n=n, warm=warm),
             "library_ms": lib_ms[kname] if lib_ms else None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": nbytes}
-        pair = " (dx+dW)" if kname != "fused_ce_fwd" else ""
-        lib = f", library {row['library_ms']:.3f} ms{pair}" if lib_ms else ""
-        print(f"[{card}] {kname} [N {nn}, D {d}, V {v}]: max abs err "
-              f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms, plain "
-              f"{row['plain_ms']:.3f} ms{pair}{lib}, bound {bound_ms:.3f} ms "
-              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "simt_bound_ms": simt_ms, "flops": flops, "bytes": nbytes,
+            "dtype": dtype_name}
+        lib = (f", library {row['library_ms']:.3f} ms" if lib_ms else "")
+        print(f"[{card}] {kname} {dtype_name} [N {nn}, D {d}, V {v}]: max "
+              f"abs err {row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms "
+              f"(its operand copies {row['prep_ms']:.3f} ms), plain "
+              f"{row['plain_ms']:.3f} ms{lib}, bound {bound_ms:.3f} ms "
+              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
+              f"MB; {simt_ms:.3f} ms at the fp32 SIMT rate)")
     return rows
 
 
@@ -964,42 +1038,40 @@ def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
                    d=TRAIN["d_model"], v=TRAIN["tgt_vocab"], edge=FCE_EDGE,
                    wide=FCE_WIDE, wide_edge=FCE_WIDE_EDGE):
     """The fused-CE kernels against their plain versions at the head of
-    the training slice and at an edge shape, then timed beside plain,
-    bound and library; then, D above 512 in chunks: the smallest input
-    that raised before (x [1, 513]), an edge shape and
-    ``transformer_big``'s head (``wide``, timed beside plain and
-    bound)."""
+    the training slice and at an edge shape, fp32, then timed beside
+    plain, both bounds, their operand copies and library; the same in
+    bf16 (its own library yardstick); the smallest input that raised
+    before (x [1, 513]); and ``transformer_big``'s head (``wide``, timed
+    beside plain and bound) with its edge shape."""
     from paddle_tpu_torch.ops.kernels import fused_ce as fc
     eps = 0.1
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    def shape(size, edge_size, seeds, lib=False, n_time=20, warm=5):
+    def shape(size, edge_size, seeds, lib=False, n_time=20, warm=5,
+              dtype=None):
         edge_errs, _, _ = fce_check(
-            torch, fc, *fce_inputs(torch, dev, *edge_size, seeds[0]), eps,
-            "edge N {} D {} V {}".format(*edge_size))
+            torch, fc, *fce_inputs(torch, dev, *edge_size, seeds[0], dtype),
+            eps, "edge N {} D {} V {}".format(*edge_size))
         print(f"[{card}] fused CE edge shape N {edge_size[0]} D "
-              f"{edge_size[1]} V {edge_size[2]}: max abs err "
+              f"{edge_size[1]} V {edge_size[2]} ({dtype or torch.float32}): "
+              f"max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
-        ins = fce_inputs(torch, dev, *size, seeds[1])
+        ins = fce_inputs(torch, dev, *size, seeds[1], dtype)
         errs, lse, wants = fce_check(torch, fc, *ins, eps,
                                      "N {} D {} V {}".format(*size))
-        lib_ms = fce_library_ms(torch, fc, ins, eps, wants, flush) \
-            if lib else None
+        lib_ms = fce_library_ms(torch, fc, ins, eps, wants, flush,
+                                tol=dtype is None) if lib else None
         del wants
         return fce_rows(torch, fc, card, ins, eps, errs, edge_errs, lse,
                         flush, lib_ms, n=n_time, warm=warm)
 
     results = shape((n, d, v), edge, (8, 9), lib=True)
-    flops = 6 * n * d * v
-    whole = bound_of(flops, fce_cost(n, d, v)["fused_ce_dx"][1]
-                     + d * v * 4)[0]
-    print(f"[{card}] fused CE backward: the two kernels "
-          f"{results['fused_ce_dx']['ms'] + results['fused_ce_dw']['ms']:.3f}"
-          f" ms against {results['fused_ce_dx']['bound_ms'] + results['fused_ce_dw']['bound_ms']:.3f}"
-          f" ms of their bounds; the function's own minimum (one recompute, "
-          f"{flops / 1e9:.1f} GFLOP) {whole:.3f} ms")
+    print(f"[{card}] fused CE: two calls of each kernel gave the same bits "
+          f"at every shape checked")
+    for kname, row in shape((n, d, v), edge, (12, 13), lib=True,
+                            dtype=torch.bfloat16).items():
+        results[f"{kname}/bf16"] = row
 
-    # D above 512: the depth in chunks of 512 inside the kernels
     x1 = torch.randn(1, 513, device=dev)
     w1 = torch.randn(513, 2, device=dev) * 513 ** -0.5
     lab1 = torch.zeros(1, dtype=torch.long, device=dev)
@@ -1215,7 +1287,15 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
               f"within rtol {CURVE_RTOL} (max rel diff "
               f"{max(abs(x - y) / abs(y) for x, y in zip(b, a)):.3g})")
     print(f"[{card}] each fused step launched each flash kernel {n_attn} "
-          f"times; each fused-head step each fused-CE kernel once")
+          f"times; each fused-head step the fused-CE forward and backward "
+          f"once each")
+    if profile_steps:
+        busy = {label: runs[label]["profile"]["device_busy_ms_per_step"]
+                for label in TRAIN_RUNS}
+        print(f"[{card}] device busy a step: fused head "
+              f"{busy['fused_head']:.3f} ms, composed head (fused attention) "
+              f"{busy['fused_attention']:.3f} ms, composed attention and head "
+              f"{busy['composed']:.3f} ms")
 
     # the evaluation model (no smoothing) of each head, one forward
     eval_loss = {}
@@ -1226,7 +1306,7 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
         reset()
         with torch.no_grad():
             eval_loss[head] = float(model(*feeds[0]))
-        want = {"fused_ce_fwd": int(head), "fused_ce_dx": 0, "fused_ce_dw": 0}
+        want = {"fused_ce_fwd": int(head), "fused_ce_bwd": 0}
         if dict(fc.LAUNCHES) != want:
             fail(f"evaluation fused_head={head}: launched {fc.LAUNCHES}, "
                  f"want {want}")
@@ -2871,8 +2951,7 @@ def main():
                              ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "max_abs_err")}
                          for v in FLASH_VARIANTS}})
-    for kname, line in (("fused_ce_fwd", 185), ("fused_ce_dx", 234),
-                        ("fused_ce_dw", 234)):
+    for kname, line in (("fused_ce_fwd", 185), ("fused_ce_bwd", 234)):
         m = fce[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": FCE_SOURCE,
@@ -2882,6 +2961,10 @@ def main():
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "launches_per_train_step": 1,
+            "simt_bound_ms": m["simt_bound_ms"], "prep_ms": m["prep_ms"],
+            "bf16": {key: fce[f"{kname}/bf16"][key] for key in
+                     ("ms", "plain_ms", "bound_ms", "library_ms", "prep_ms",
+                      "max_abs_err")},
             "card": card})
     for kname, line in (("lstm_train_fwd", 171), ("lstm_train_bwd", 235)):
         m = lstm[kname]

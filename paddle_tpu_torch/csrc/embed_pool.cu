@@ -119,6 +119,10 @@ extern "C" int paddle_embed_pool(const void* w, const int* ids,
       return launch<F8<__NV_E4M3>>(w, ids, lens, out, b_len, t_len, v, d, s);
     case kF8E5M2:
       return launch<F8<__NV_E5M2>>(w, ids, lens, out, b_len, t_len, v, d, s);
+    case kF8E4M3Fnuz:
+      return launch<Fnuz<4, 3>>(w, ids, lens, out, b_len, t_len, v, d, s);
+    case kF8E5M2Fnuz:
+      return launch<Fnuz<5, 2>>(w, ids, lens, out, b_len, t_len, v, d, s);
     case kI64:
       return launch<long long>(w, ids, lens, out, b_len, t_len, v, d, s);
     default:

@@ -10,8 +10,9 @@
 //   __nv_bfloat16    float         __nv_bfloat16 (rounded once)
 //   long long        long long     long long, SUM only
 //   F8<E4M3>, F8<E5M2> float, rounded float8 (each partial sum rounded)
+//   Fnuz<4, 3>, Fnuz<5, 2> the same, for float8 e4m3fnuz and e5m2fnuz
 //
-// Float8 (e4m3fn, e5m2) is summed in fp32 with every partial sum rounded to
+// Float8 (e4m3fn, e5m2, e4m3fnuz, e5m2fnuz) is summed in fp32 with every partial sum rounded to
 // the float8 type, in t order: that is what the reference's float8 sum
 // computes (XLA on the CPU accumulates in the element type), and an fp32 sum
 // rounded once differs from it in about half of the elements. Its AVERAGE and
@@ -35,7 +36,8 @@
 
 // dtype codes shared with the Python wrappers
 enum PoolDtype {
-  kF32 = 0, kF64 = 1, kF16 = 2, kBF16 = 3, kI64 = 4, kF8E4M3 = 5, kF8E5M2 = 6
+  kF32 = 0, kF64 = 1, kF16 = 2, kBF16 = 3, kI64 = 4, kF8E4M3 = 5, kF8E5M2 = 6,
+  kF8E4M3Fnuz = 7, kF8E5M2Fnuz = 8
 };
 
 // A float8 element: its storage byte, tagged with its interpretation.
@@ -194,6 +196,75 @@ struct Elem<F8<kKind>> {
   static __device__ __forceinline__ E sum_out(float a) { return E{bits(a)}; }
   static __device__ __forceinline__ E mean_out(float a, float c) {
     return E{bits(a / c)};
+  }
+  static __device__ __forceinline__ float rounded(float c) {
+    return value(bits(c));
+  }
+};
+
+// Float8 with E exponent and M mantissa bits, exponent bias 2^(E - 1), no
+// infinities and no negative zero: e4m3fnuz (Fnuz<4, 3>, largest 240) and
+// e5m2fnuz (Fnuz<5, 2>, largest 57344). 0x80 is the one NaN. cuda_fp8.h has
+// no conversions for them; these round as torch's (and ml_dtypes', the
+// reference's) CPU conversion does: to nearest on the type's grid, ties to
+// even; a value that rounds past the largest finite one, an infinity or a
+// NaN gives the NaN; a value that rounds to zero gives +0.
+template <int E, int M>
+struct Fnuz {
+  unsigned char bits;
+};
+
+template <int E, int M>
+struct Elem<Fnuz<E, M>> {
+  using X = Fnuz<E, M>;
+  using Acc = float;
+  using Real = float;
+  static constexpr bool kDivides = true;
+  static constexpr int kBias = 1 << (E - 1);
+  static constexpr int kTopExp = (1 << E) - 1;  // every exponent is finite
+  static __device__ __forceinline__ X load(const X* p) {
+    return X{__ldg(&p->bits)};
+  }
+  static __device__ __forceinline__ float value(unsigned char b) {
+    if (b == 0x80) return __int_as_float(0x7fc00000);
+    const int e = (b >> M) & kTopExp, m = b & ((1 << M) - 1);
+    const float mag = e == 0 ? ldexpf(static_cast<float>(m), 1 - kBias - M)
+                             : ldexpf(static_cast<float>(m + (1 << M)),
+                                      e - kBias - M);
+    return (b & 0x80) ? -mag : mag;
+  }
+  static __device__ __forceinline__ unsigned char bits(float v) {
+    if (!isfinite(v)) return 0x80;
+    const float a = fabsf(v);
+    if (a == 0.f) return 0;
+    int e;
+    frexpf(a, &e);
+    e -= 1;                                 // a in [2^e, 2^(e + 1))
+    const bool sub = e < 1 - kBias;         // below the least normal
+    const int step = (sub ? 1 - kBias : e) - M;  // the grid: 2^step
+    const int q = static_cast<int>(rintf(ldexpf(a, -step)));  // <= 2^(M+1)
+    if (q == 0) return 0;
+    int be, bm;
+    if (sub) {           // q <= 2^M; 2^M is the least normal
+      be = q >> M;
+      bm = q & ((1 << M) - 1);
+    } else if (q == (2 << M)) {  // rounded up into the next binade
+      be = e + 1 + kBias;
+      bm = 0;
+    } else {
+      be = e + kBias;
+      bm = q - (1 << M);
+    }
+    if (be > kTopExp) return 0x80;
+    return static_cast<unsigned char>((v < 0.f ? 0x80 : 0) | (be << M) | bm);
+  }
+  static __device__ __forceinline__ float widen(X v) { return value(v.bits); }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return value(bits(a + b));
+  }
+  static __device__ __forceinline__ X sum_out(float a) { return X{bits(a)}; }
+  static __device__ __forceinline__ X mean_out(float a, float c) {
+    return X{bits(a / c)};
   }
   static __device__ __forceinline__ float rounded(float c) {
     return value(bits(c));

@@ -132,6 +132,10 @@ extern "C" int paddle_seqpool(const void* x, const int* lens, void* out,
       return launch<F8<__NV_E4M3>>(x, lens, out, b_len, t_len, d, mode, s);
     case kF8E5M2:
       return launch<F8<__NV_E5M2>>(x, lens, out, b_len, t_len, d, mode, s);
+    case kF8E4M3Fnuz:
+      return launch<Fnuz<4, 3>>(x, lens, out, b_len, t_len, d, mode, s);
+    case kF8E5M2Fnuz:
+      return launch<Fnuz<5, 2>>(x, lens, out, b_len, t_len, d, mode, s);
     case kI64:
       return launch<long long>(x, lens, out, b_len, t_len, d, mode, s);
     default:

@@ -31,7 +31,7 @@ of twice the width, which pools the two parts apart, exactly. Unsigned
 integers (uint16, uint32, uint64) are summed as the int64 of their bits,
 exact modulo 2**64, and pool to uint64 (the reference's own unsigned
 type is uint32 without x64); their AVERAGE and SQRT are fp32, as the
-reference's. Float8 (e4m3fn, e5m2) is summed in fp32 with every partial
+reference's. Float8 (e4m3fn, e5m2, e4m3fnuz, e5m2fnuz) is summed in fp32 with every partial
 sum rounded to the float8 type, in t order, as the reference's float8
 sum on the CPU rounds it (an fp32 sum rounded once differs from it in
 about half of the elements), and pools to the same float8 type; its
@@ -54,8 +54,10 @@ MODES = {"SUM": 0, "AVERAGE": 1, "SQRT": 2}
 # the element types of csrc/pool_elem.cuh, by their codes there
 DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
           torch.bfloat16: 3, torch.int64: 4, torch.float8_e4m3fn: 5,
-          torch.float8_e5m2: 6}
-FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+          torch.float8_e5m2: 6, torch.float8_e4m3fnuz: 7,
+          torch.float8_e5m2fnuz: 8}
+FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2, torch.float8_e4m3fnuz,
+          torch.float8_e5m2fnuz)
 UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
 
 _lib = None

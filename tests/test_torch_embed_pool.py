@@ -150,7 +150,9 @@ def test_op_matches_the_jax_op_at_other_dtypes(dtype):
 # float8 and unsigned arrays between numpy (ml_dtypes, as JAX takes them)
 # and torch, by their bits
 NARROW = {"float8_e4m3fn": torch.float8_e4m3fn,
-          "float8_e5m2": torch.float8_e5m2, "uint16": torch.uint16,
+          "float8_e5m2": torch.float8_e5m2,
+          "float8_e4m3fnuz": torch.float8_e4m3fnuz,
+          "float8_e5m2fnuz": torch.float8_e5m2fnuz, "uint16": torch.uint16,
           "uint32": torch.uint32, "uint64": torch.uint64}
 
 
@@ -177,9 +179,13 @@ def _values(t: torch.Tensor) -> np.ndarray:
 # what the reference's fused_embedding_seq_pool returns on the CPU (x64
 # off: an unsigned sum is uint32), and the port's dtype for it
 JAX_DTYPE = {"float8_e4m3fn": "float8_e4m3fn", "float8_e5m2": "float8_e5m2",
-             "uint32": "uint32", "uint64": "uint32"}
+             "float8_e4m3fnuz": "float8_e4m3fnuz",
+             "float8_e5m2fnuz": "float8_e5m2fnuz", "uint32": "uint32",
+             "uint64": "uint32"}
 PORT_DTYPE = {"float8_e4m3fn": torch.float8_e4m3fn,
-              "float8_e5m2": torch.float8_e5m2, "uint32": torch.uint64,
+              "float8_e5m2": torch.float8_e5m2,
+              "float8_e4m3fnuz": torch.float8_e4m3fnuz,
+              "float8_e5m2fnuz": torch.float8_e5m2fnuz, "uint32": torch.uint64,
               "uint64": torch.uint64}
 
 
@@ -272,11 +278,14 @@ def test_cuda_kernel_matches_the_plain_version(cuda_device):
 # fp32: fp16 and bf16 round the sum once where the plain version rounds it
 # after its own fp32 accumulation too; float8 rounds every partial sum
 # at the same points in both (one float8 step of the pool of |w| covers a
-# conversion that rounds a tie the other way); unsigned sums are exact
+# conversion that rounds a tie the other way); the fnuz float8 types are
+# held bit for bit (hand-written conversions that round as torch does; their
+# steps are all above the 1e-6 atol); unsigned sums are exact
 DTYPE_RTOL = {torch.float64: 1e-12, torch.float16: 2e-3,
               torch.bfloat16: 1.6e-2, torch.int32: 0.0, torch.int64: 0.0,
               torch.complex64: 1e-5, torch.float8_e4m3fn: 2.0 ** -3,
-              torch.float8_e5m2: 2.0 ** -2, torch.uint16: 0.0,
+              torch.float8_e5m2: 2.0 ** -2, torch.float8_e4m3fnuz: 0.0,
+              torch.float8_e5m2fnuz: 0.0, torch.uint16: 0.0,
               torch.uint32: 0.0, torch.uint64: 0.0}
 
 

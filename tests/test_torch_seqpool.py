@@ -16,6 +16,8 @@ The CUDA kernel runs only on the card: the ``gpu`` test holds it against
 its plain version there and skips elsewhere
 (``pytest --noconftest -m gpu tests/test_torch_seqpool.py``)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -124,7 +126,9 @@ def test_sequence_pool_matches_the_jax_op_at_other_dtypes(pooltype, dtype):
 # float8 and unsigned arrays between numpy (ml_dtypes, as JAX takes them)
 # and torch, by their bits
 NARROW = {"float8_e4m3fn": torch.float8_e4m3fn,
-          "float8_e5m2": torch.float8_e5m2, "uint16": torch.uint16,
+          "float8_e5m2": torch.float8_e5m2,
+          "float8_e4m3fnuz": torch.float8_e4m3fnuz,
+          "float8_e5m2fnuz": torch.float8_e5m2fnuz, "uint16": torch.uint16,
           "uint32": torch.uint32, "uint64": torch.uint64}
 
 
@@ -154,11 +158,18 @@ JAX_DTYPE = {("float8_e4m3fn", "SUM"): "float8_e4m3fn",
              ("float8_e4m3fn", "AVERAGE"): "float8_e4m3fn",
              ("float8_e4m3fn", "SQRT"): "float8_e4m3fn",
              ("float8_e5m2", "SUM"): "float8_e5m2",
+             ("float8_e4m3fnuz", "SUM"): "float8_e4m3fnuz",
+             ("float8_e4m3fnuz", "AVERAGE"): "float8_e4m3fnuz",
+             ("float8_e4m3fnuz", "SQRT"): "float8_e4m3fnuz",
+             ("float8_e5m2fnuz", "SUM"): "float8_e5m2fnuz",
+             ("float8_e5m2fnuz", "SQRT"): "float8_e5m2fnuz",
              ("uint32", "SUM"): "uint32", ("uint32", "AVERAGE"): "float32",
              ("uint32", "SQRT"): "float32", ("uint16", "SUM"): "uint32",
              ("uint64", "SQRT"): "float32"}
 PORT_DTYPE = {"float8_e4m3fn": torch.float8_e4m3fn,
-              "float8_e5m2": torch.float8_e5m2, "uint32": torch.uint64,
+              "float8_e5m2": torch.float8_e5m2,
+              "float8_e4m3fnuz": torch.float8_e4m3fnuz,
+              "float8_e5m2fnuz": torch.float8_e5m2fnuz, "uint32": torch.uint64,
               "float32": torch.float32}
 
 
@@ -185,6 +196,85 @@ def test_sequence_pool_matches_the_jax_op_at_float8_and_unsigned(dtype,
     assert got.dtype == PORT_DTYPE[JAX_DTYPE[(dtype, pooltype)]]
     np.testing.assert_array_equal(_values(got),
                                   np.asarray(want).astype(np.float64))
+
+
+# float8 without infinities or negative zero: (exponent bits, mantissa bits)
+FNUZ = {"float8_e4m3fnuz": (4, 3), "float8_e5m2fnuz": (5, 2)}
+
+
+@pytest.mark.parametrize("dtype", sorted(FNUZ))
+def test_fnuz_codes_round_trip(dtype):
+    """All 256 codes of a fnuz type: torch's value of each is the
+    reference's (ml_dtypes, as JAX holds it), and the plain conversion
+    back gives the same code (0x80, the one NaN, included)."""
+    import ml_dtypes
+    codes = np.arange(256, dtype=np.uint8)
+    values = torch.from_numpy(codes).view(NARROW[dtype]).to(torch.float32)
+    want = codes.view(getattr(ml_dtypes, dtype)).astype(np.float32)
+    np.testing.assert_array_equal(values.numpy(), want)   # NaN == NaN here
+    assert int(torch.isnan(values).sum()) == 1 and bool(values[128].isnan())
+    back = values.to(NARROW[dtype]).view(torch.uint8).numpy()
+    np.testing.assert_array_equal(back, codes)
+
+
+def _fnuz_rule(values: np.ndarray, e_bits: int, m_bits: int) -> np.ndarray:
+    """The codes ``Elem<Fnuz<E, M>>::bits`` (csrc/pool_elem.cuh) gives, in
+    numpy: round to nearest on the type's grid, ties to even; past the
+    largest finite value, infinities and NaN -> 0x80; zero -> +0."""
+    bias, top = 1 << (e_bits - 1), (1 << e_bits) - 1
+    out = []
+    for v in values.astype(np.float32):
+        if not np.isfinite(v):
+            out.append(0x80)
+            continue
+        a = abs(float(v))
+        if a == 0.0:
+            out.append(0)
+            continue
+        e = math.frexp(a)[1] - 1
+        sub = e < 1 - bias
+        step = (1 - bias if sub else e) - m_bits
+        q = int(np.rint(np.float32(math.ldexp(a, -step))))
+        if q == 0:
+            out.append(0)
+            continue
+        if sub:
+            be, bm = q >> m_bits, q & ((1 << m_bits) - 1)
+        elif q == 2 << m_bits:
+            be, bm = e + 1 + bias, 0
+        else:
+            be, bm = e + bias, q - (1 << m_bits)
+        out.append(0x80 if be > top else
+                   (0x80 if v < 0 else 0) | (be << m_bits) | bm)
+    return np.array(out, np.uint8)
+
+
+@pytest.mark.parametrize("dtype", sorted(FNUZ))
+def test_fnuz_rounding_rule_is_the_references(dtype):
+    """The pooling kernels' hand-written fnuz conversion rule (mirrored in
+    :func:`_fnuz_rule`) against torch's conversion (the plain versions')
+    and ml_dtypes' (the reference's) on every code's value, every midpoint
+    between neighbours, the floats just either side of each midpoint, the
+    overflow edge, float32 subnormals, zeros, infinities and NaN."""
+    import ml_dtypes
+    codes = np.arange(256, dtype=np.uint8)
+    grid = np.unique(np.abs(codes.view(getattr(ml_dtypes, dtype))
+                            .astype(np.float64)))
+    grid = grid[np.isfinite(grid)]
+    mids = (grid[:-1] + grid[1:]) / 2
+    top = grid[-1] + (grid[-1] - grid[-2]) / 2     # the overflow edge
+    pts = np.concatenate([grid, mids, [top, top * 1.5, 1e30, 1e-40, 1e-45]])
+    pts = pts.astype(np.float32)
+    pts = np.concatenate([pts, np.nextafter(pts, np.float32(np.inf)),
+                          np.nextafter(pts, np.float32(0))])
+    pts = np.concatenate([pts, -pts, np.float32([0.0, -0.0, np.inf,
+                                                 -np.inf, np.nan])])
+    got = _fnuz_rule(pts, *FNUZ[dtype])
+    by_torch = torch.from_numpy(pts).to(NARROW[dtype]).view(
+        torch.uint8).numpy()
+    by_reference = pts.astype(getattr(ml_dtypes, dtype)).view(np.uint8)
+    np.testing.assert_array_equal(by_torch, by_reference)
+    np.testing.assert_array_equal(got, by_torch)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -277,14 +367,18 @@ def test_cuda_kernel_matches_the_plain_version(cuda_device):
 
 
 # rtol of the pool of |x| for each dtype the kernel takes besides fp32: fp16
-# and bf16 round the sum once where the plain version rounds it twice
+# and bf16 round the sum once where the plain version rounds it twice;
+# the fnuz float8 types convert by hand-written rules that round as torch
+# does, so they are held bit for bit (their steps are all above the 1e-6
+# atol)
 # float8 rounds every partial sum at the same points in both (one float8
 # step of the pool of |x| covers a conversion that rounds a tie the other
 # way); unsigned sums are exact
 DTYPE_RTOL = {torch.float64: 1e-12, torch.float16: 2e-3,
               torch.bfloat16: 1.6e-2, torch.int32: 0.0, torch.bool: 0.0,
               torch.complex64: 1e-5, torch.float8_e4m3fn: 2.0 ** -3,
-              torch.float8_e5m2: 2.0 ** -2, torch.uint16: 0.0,
+              torch.float8_e5m2: 2.0 ** -2, torch.float8_e4m3fnuz: 0.0,
+              torch.float8_e5m2fnuz: 0.0, torch.uint16: 0.0,
               torch.uint32: 0.0, torch.uint64: 0.0}
 
 
