@@ -70,7 +70,15 @@ final line:
    plain versions first in fp32). Then the smallest input that raised
    before (x [1, 513], through ``fused_linear_ce``), and
    ``transformer_big``'s head (N 4096, D 1024, V 32000; timed beside
-   plain and bounds) with an edge shape (N 300, D 700, V 1003).
+   plain and bounds) with an edge shape (N 300, D 700, V 1003). Then x
+   and w of two dtypes (bf16 / fp32, fp32 / bf16, fp16 / fp32, bf16 /
+   fp16, as the JAX function takes them) at the edge shape and the head,
+   each kernel against its plain version (loss and lse within the fp32
+   tolerances; dx in x's dtype and dW in w's within one step of their
+   dtype plus one step of x's dtype of every dz term where x is the
+   narrower), a second backward bit-equal, timed at the head; and the
+   same pairs through ``fused_linear_ce`` and its autograd backward at
+   the edge shape.
 7. Training: Transformer-base (vocab 32000, d_model 512, d_inner 2048,
    8 heads, 6 + 6 layers, max_len 128, label smoothing 0.1, Adam at
    1e-4; seeded random weights carried in through
@@ -114,7 +122,14 @@ final line:
    (8 or 16 units a block, the slices of ``w`` in global scratch): T 16,
    B 64 at H 1024 (timed beside plain and bound) and H 700, and above
    16 units on every SM (groups of 16 units in passes): T 4, B 2 at
-   H 2113, the same checks.
+   H 2113, the same checks. Each shape prints which backward kernel ran
+   (``fused_rnn.lstm_bwd_kernel_for``: the cluster kernel with its
+   cluster size, units and blocks, or the grid kernel). At the training
+   shape the backward is also split by kernel in a profiler window (the
+   time loop, the ``dw`` product, the rest), timed against the grid
+   kernel in the same run (the plan emptied), and bound twice: its
+   FLOPs as three TF32 products at 495 TFLOP/s and at 67 TFLOP/s fp32
+   outside the tensor cores.
 9. LSTM training: ``stacked_dynamic_lstm.build()`` at its defaults
    (dict 5000, emb 512, hid 512, 3 layers, max_len 100, peepholes on,
    Adam at 1e-3; seeded weights carried in through
@@ -187,7 +202,12 @@ final line:
     the live ids, the lengths and the output) and, for the gather +
     pool, ``F.embedding_bag`` over the live ids (held to its plain
     version first; no one PyTorch call pools a padded batch by lengths:
-    the pool's ``library_ms`` is null).
+    the pool's ``library_ms`` is null). The gather + pool and
+    ``F.embedding_bag`` are timed in turns, kernel then library then
+    library then kernel, in 6 rounds of 50 launches each: the medians
+    and the spread of the rounds, the kernel's ``ms`` the median; and by
+    their device time alone (a profiler window, each call after the same
+    L2 flush).
 14. Text-conv training: the PaddlePaddle book's understand_sentiment
     ``convolution_net`` from the port's entry points (``lookup_table``
     with a sparse table gradient, two ``nets.SequenceConvPool`` of filter
@@ -275,7 +295,9 @@ FLASH_VARIANTS = {"full": (False, 0.0), "causal": (True, 0.0),
 FCE_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 FCE_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 FCE_EDGE = (1000, 100, 1003)       # N, D, V off every tile multiple
-FCE_MANTISSA = {"bfloat16": 7, "float16": 10}
+FCE_MANTISSA = {"bfloat16": 7, "float16": 10, "float32": 23}
+FCE_MIXED = (("bfloat16", "float32"), ("float32", "bfloat16"),
+             ("float16", "float32"), ("bfloat16", "float16"))
 EVAL_RTOL = 1e-4
 TRAIN_RUNS = {"fused_attention": dict(fused_attention=True),
               "composed": dict(fused_attention=False),
@@ -333,6 +355,7 @@ OP_PROGRAM_BATCH = 128
 EMBED_POOL = (OP_PROGRAM["vocab"], OP_PROGRAM["dim"], OP_PROGRAM_BATCH,
               OP_PROGRAM["max_len"])
 EMBED_EDGE = (37, 100, 5, 7)       # V, D, B, T
+EMBED_ROUNDS = 6                   # interleaved timing rounds
 CACHE_SOURCE = "paddle_tpu_torch/csrc/embed_cache.cu"
 DEEPFM = dict(num_fields=26, vocab_size=100000, embed_dim=16, lr=1e-3)
 DEEPFM_BATCH = 2048                # README.md's DeepFM row
@@ -903,6 +926,7 @@ def fce_low_tol(torch, fc, x, w, labels, lse, g, eps):
     fp32 order term; the comparison adds one step of the result
     (tests/test_torch_fused_ce.py ``_low_precision_tol``)."""
     m = FCE_MANTISSA[str(x.dtype).split(".")[-1]]
+    step = 0.0 if x.dtype == torch.float32 else 2.0 ** -m   # dz not rounded
     xf, wf = x.float(), w.float()
     on, _, off, _ = fc._consts(eps, w.shape[1])
     cols = torch.arange(w.shape[1], device=x.device)
@@ -910,8 +934,8 @@ def fce_low_tol(torch, fc, x, w, labels, lse, g, eps):
     dz = (torch.exp(xf @ wf - lse[:, None]) - t) * g[:, None]
     dz = torch.where((labels == IGNORE)[:, None], 0.0, dz).abs()
     n, v = dz.shape
-    return ((2.0 ** -m + v * 2.0 ** -24) * (dz @ wf.abs().t()),
-            (2.0 ** -m + n * 2.0 ** -24) * (xf.abs().t() @ dz))
+    return ((step + v * 2.0 ** -24) * (dz @ wf.abs().t()),
+            (step + n * 2.0 ** -24) * (xf.abs().t() @ dz))
 
 
 def fce_within(torch, got, want, slack):
@@ -1034,6 +1058,80 @@ def fce_rows(torch, fc, card, ins, eps, errs, edge_errs, lse, flush,
     return rows
 
 
+def fce_mixed(torch, fc, dev, card, size, edge, eps, flush):
+    """x and w of two dtypes (``FCE_MIXED``) at the edge shape and at
+    ``size``: each kernel against its plain version, the gradients in
+    x's and w's dtypes within :func:`fce_low_tol` at x's dtype, a second
+    backward bit-equal; the head timed; then each pair through
+    ``fused_linear_ce`` and autograd at the edge shape."""
+    from paddle_tpu_torch.ops import nn_ops as tnn
+    rows = {}
+    for i, (xn, wn) in enumerate(FCE_MIXED):
+        xdt, wdt = getattr(torch, xn), getattr(torch, wn)
+        label = f"{xn}/{wn}"
+        for sz, seed in ((edge, 60 + i), (size, 70 + i)):
+            x, w, labels, g = fce_inputs(torch, dev, *sz, seed)
+            x, w = x.to(xdt), w.to(wdt)
+            loss, lse = fc.fused_ce_fwd(x, w, labels, eps)
+            want_loss, want_lse = fc.fused_ce_fwd_ref(x, w, labels, eps)
+            dx, dw = fc.fused_ce_bwd(x, w, labels, want_lse, g, eps)
+            want_dx, want_dw = fc.fused_ce_bwd_ref(x, w, labels, want_lse, g,
+                                                   eps)
+            again = fc.fused_ce_bwd(x, w, labels, want_lse, g, eps)
+            torch.cuda.synchronize()
+            where = f"fused CE {label} N {sz[0]} D {sz[1]} V {sz[2]}"
+            errs = {}
+            for name, got, want in (("loss", loss, want_loss),
+                                    ("lse", lse, want_lse)):
+                errs[name] = float((got - want).abs().max())
+                if not close(got, want, FCE_FWD_TOL):
+                    fail(f"{where}: {name} differs from the plain version "
+                         f"(max abs err {errs[name]})")
+            if dx.dtype != xdt or dw.dtype != wdt:
+                fail(f"{where}: gradients in {dx.dtype} / {dw.dtype}")
+            sx, sw = fce_low_tol(torch, fc, x, w, labels, want_lse, g, eps)
+            for name, got, want, sl in (("dx", dx, want_dx, sx),
+                                        ("dw", dw, want_dw, sw)):
+                ok, errs[name] = fce_within(torch, got, want, sl)
+                if not ok:
+                    fail(f"{where}: {name} differs from the plain version "
+                         f"(max abs err {errs[name]})")
+            if not (torch.equal(again[0], dx) and torch.equal(again[1], dw)):
+                fail(f"{where}: a second backward gave other bits")
+            del want_dx, want_dw, again
+        row = rows[label] = {
+            "max_abs_err": errs,
+            "fwd_ms": time_ms(torch, lambda: fc.fused_ce_fwd(
+                x, w, labels, eps), flush, n=5, warm=1),
+            "bwd_ms": time_ms(torch, lambda: fc.fused_ce_bwd(
+                x, w, labels, lse, g, eps), flush, n=5, warm=1)}
+        xe, we, labe, ge = fce_inputs(torch, dev, *edge, 80 + i)
+        xe = xe.to(xdt).requires_grad_()
+        we = we.to(wdt).requires_grad_()
+        out = tnn.fused_linear_ce(xe, we, labe[:, None], eps)
+        out[:, 0].backward(ge)
+        want_loss, want_lse = fc.fused_ce_fwd_ref(xe.detach(), we.detach(),
+                                                  labe, eps)
+        want_dx, want_dw = fc.fused_ce_bwd_ref(xe.detach(), we.detach(), labe,
+                                               want_lse, ge, eps)
+        sx, sw = fce_low_tol(torch, fc, xe.detach(), we.detach(), labe,
+                             want_lse, ge, eps)
+        if not (close(out[:, 0].detach(), want_loss, FCE_FWD_TOL)
+                and fce_within(torch, xe.grad, want_dx, sx)[0]
+                and fce_within(torch, we.grad, want_dw, sw)[0]
+                and xe.grad.dtype == xdt and we.grad.dtype == wdt):
+            fail(f"fused CE {label}: fused_linear_ce's autograd differs from "
+                 f"the plain versions")
+        print(f"[{card}] fused CE x {xn}, w {wn} [N {size[0]}, D {size[1]}, "
+              f"V {size[2]}]: max abs err "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + f"; forward {row['fwd_ms']:.3f} ms, backward "
+              f"{row['bwd_ms']:.3f} ms (the fp32 path over the widened "
+              f"operands); fused_linear_ce and its backward match at the "
+              f"edge shape")
+    return rows
+
+
 def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
                    d=TRAIN["d_model"], v=TRAIN["tgt_vocab"], edge=FCE_EDGE,
                    wide=FCE_WIDE, wide_edge=FCE_WIDE_EDGE):
@@ -1086,6 +1184,8 @@ def fused_ce_phase(torch, dev, card, n=BATCH * TRAIN["max_len"],
     for kname, row in shape(wide, wide_edge, (10, 11), n_time=5,
                             warm=1).items():
         results[f"{kname}/d{wide[1]}"] = row
+    results["mixed"] = fce_mixed(torch, fc, dev, card, (n, d, v), edge, eps,
+                                 flush)
     del flush
     return results
 
@@ -1690,15 +1790,73 @@ def rnn_rows(torch, fr, card, kind, ins, cot, want, errs, lens_sum, flush):
             "dense_bound_ms": bound_of(*dense[kname])[0],
             "live_steps": lens_sum, "steps": t * b}
         row["us_per_step"] = row["ms"] / t * 1e3
+        if kname == "lstm_train_bwd":
+            lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush)
         print(f"[{card}] {kname} [T {t}, B {b}, H {h}]: max abs err "
               f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms "
               f"({row['us_per_step']:.2f} us a step), plain "
               f"{row['plain_ms']:.3f} ms, no library call, bound "
-              f"{bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP over "
-              f"the {lens_sum} live of {t * b} (row, step) pairs, "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}: "
+              f"{flops / 1e9:.2f} GFLOP over the {lens_sum} live of "
+              f"{t * b} (row, step) pairs, "
               f"{nbytes / 1e6:.1f} MB; all pairs {row['dense_bound_ms']:.3f} "
               f"ms)")
     return rows
+
+
+def kernel_split(torch, fn, n=5):
+    """Device ms a call of ``fn`` by kernel name, from a profiler window of
+    ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.self_device_time_total / n / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0}
+
+
+def lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
+    """The LSTM backward's kernel (cluster or grid) and bounds at width h:
+    its FLOPs as three TF32 products at 495 TFLOP/s where the loop runs on
+    the tensor cores (the cluster kernel; the dw product does at every
+    width), else the loop's two thirds at 67 TFLOP/s; both against the
+    bytes. At the training shape also its time by kernel and the grid
+    kernel's time in the same run."""
+    plan = fr.lstm_bwd_kernel_for(h, torch.device("cuda"))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    tc = 3 * flops / TF32_FLOPS_PER_S
+    t_ops = tc if plan["kernel"] == "cluster" else \
+        2 / 3 * flops / FP32_FLOPS_PER_S + tc / 3
+    row["kernel"] = plan
+    row["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    row["tf32x3_bound_ms"] = max(tc, t_bytes) * 1e3
+    row["simt_bound_ms"] = bound_of(flops, nbytes)[0]
+    if plan["kernel"] != "cluster":
+        return
+    split = kernel_split(torch, fn)
+    row["loop_ms"] = sum(v for k, v in split.items() if "lstm_bwd" in k)
+    row["dw_ms"] = sum(v for k, v in split.items() if "lstm_dw" in k)
+    row["rest_ms"] = sum(split.values()) - row["loop_ms"] - row["dw_ms"]
+    key = (torch.cuda.current_device(), h)
+    saved = fr._plans[key]
+    fr._plans[key] = None                  # the grid kernel, this run
+    row["grid_ms"] = time_ms(torch, fn, flush, n=20)
+    grid = kernel_split(torch, fn)
+    fr._plans[key] = saved
+    row["grid_loop_ms"] = sum(v for k, v in grid.items() if "lstm_bwd" in k)
+    print(f"[{card}] lstm_train_bwd at H {h}: {plan}; by kernel: loop "
+          f"{row['loop_ms']:.3f} ms, dw {row['dw_ms']:.3f} ms, the rest "
+          f"{row['rest_ms']:.3f} ms; the grid kernel (the earlier design) "
+          f"{row['grid_ms']:.3f} ms in this run (its loop "
+          f"{row['grid_loop_ms']:.3f} ms); bounds "
+          f"{row['tf32x3_bound_ms']:.3f} ms at 3xTF32, "
+          f"{row['simt_bound_ms']:.3f} ms at the SIMT rate")
 
 
 def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
@@ -1718,8 +1876,10 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
     ins, cot, _ = spec["inputs"](torch, dev, *edge, spec["seeds"][0])
     edge_errs, _ = spec["check"](torch, fr, ins, cot,
                                  "edge T {} B {} H {}".format(*edge))
-    print(f"[{card}] {kind} edge shape T {edge[0]} B {edge[1]} H {edge[2]}: "
-          f"max abs err "
+    ran = (f" (backward: {fr.lstm_bwd_kernel_for(edge[2], dev)})"
+           if kind == "LSTM" else "")
+    print(f"[{card}] {kind} edge shape T {edge[0]} B {edge[1]} H {edge[2]}"
+          f"{ran}: max abs err "
           + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     results = {}
@@ -1727,7 +1887,9 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
         ins, cot, lens_sum = spec["inputs"](
             torch, dev, t, b, h, spec["seeds"][1] if i == 0 else 29 + i)
         errs, want = spec["check"](torch, fr, ins, cot, f"T {t} B {b} H {h}")
-        print(f"[{card}] {kind} T {t} B {b} H {h}: max abs err "
+        ran = (f" (backward: {fr.lstm_bwd_kernel_for(h, dev)})"
+               if kind == "LSTM" else "")
+        print(f"[{card}] {kind} T {t} B {b} H {h}{ran}: max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if i > 1:
             continue
@@ -2231,22 +2393,47 @@ def pool_phase(torch, dev, card, seqpool=SEQPOOL, seqpool_edge=SEQPOOL_EDGE,
         distinct = int(np.unique(ids_np[live]).size)
         flops, nbytes = embed_pool_cost(b, d, lens_sum, distinct)
         bound_ms, bound_by = bound_of(flops, nbytes)
+        # kernel and library in turns (K L L K ...): rows 10-11 swung 2-4x
+        # between runs, so their comparison is made within one call
+        rounds = {"kernel": [], "library": []}
+        for r in range(EMBED_ROUNDS):
+            for name in (("kernel", "library") if r % 2 == 0 else
+                         ("library", "kernel")):
+                rounds[name].append(time_ms(
+                    torch, (lambda: ep.fused_embed_seq_pool(w, ids, lens))
+                    if name == "kernel" else lib, flush))
         row = {"max_abs_err": worst[0], "edge_max_abs_err": edge_err,
-               "ms": time_ms(torch, lambda: ep.fused_embed_seq_pool(
-                   w, ids, lens), flush),
+               "ms": float(np.median(rounds["kernel"])),
                "plain_ms": time_ms(torch, lambda: ep.fused_embed_seq_pool_ref(
                    w, ids, lens), flush),
-               "library_ms": time_ms(torch, lib, flush),
+               "library_ms": float(np.median(rounds["library"])),
+               "rounds_ms": rounds, "warps": ep.pool_warps(t, 0),
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "flops": flops, "live_rows": lens_sum, "rows": b * t,
                "distinct_rows": distinct}
+        row["faster_than_library"] = row["ms"] < row["library_ms"]
+        # device time alone (profiler: every kernel of the call but the
+        # flush's fill), each call after the same flush: the events above
+        # also count any wait for the host's launch
+        for name, fn in (("kernel", lambda: ep.fused_embed_seq_pool(
+                w, ids, lens)), ("library", lib)):
+            split = kernel_split(torch, lambda fn=fn: (flush.zero_(), fn()),
+                                 n=20)
+            row[f"{name}_device_ms"] = sum(
+                v for k, v in split.items() if "FillFunctor" not in k)
         results["embed_pool"] = row
-        print(f"[{card}] embed_pool [{v}x{d}] [{b}x{t}]: kernel "
-              f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} "
-              f"us, library {row['library_ms'] * 1e3:.2f} us "
-              f"(F.embedding_bag), bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}: {nbytes / 1e6:.2f} MB, {distinct} distinct of "
-              f"{lens_sum} live rows, {b * t} in all)")
+        spread = {k: f"{min(x) * 1e3:.2f}-{max(x) * 1e3:.2f}"
+                  for k, x in rounds.items()}
+        print(f"[{card}] embed_pool [{v}x{d}] [{b}x{t}] ({row['warps']} "
+              f"warps a row): kernel {row['ms'] * 1e3:.2f} us (rounds "
+              f"{spread['kernel']}), library {row['library_ms'] * 1e3:.2f} "
+              f"us (F.embedding_bag; rounds {spread['library']}), medians of "
+              f"{EMBED_ROUNDS} interleaved rounds; device time alone "
+              f"{row['kernel_device_ms'] * 1e3:.2f} us, library "
+              f"{row['library_device_ms'] * 1e3:.2f} us; plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} "
+              f"us ({bound_by}: {nbytes / 1e6:.2f} MB, {distinct} distinct "
+              f"of {lens_sum} live rows, {b * t} in all)")
     results["dtypes_max_abs_err"] = pool_dtypes(torch, dev, card, sp, ep, rng)
     del flush
     return results
@@ -2962,6 +3149,7 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "launches_per_train_step": 1,
             "simt_bound_ms": m["simt_bound_ms"], "prep_ms": m["prep_ms"],
+            "mixed": fce["mixed"],
             "bf16": {key: fce[f"{kname}/bf16"][key] for key in
                      ("ms", "plain_ms", "bound_ms", "library_ms", "prep_ms",
                       "max_abs_err")},
@@ -2977,7 +3165,10 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "launches_per_train_step": lstm_per_step,
             "us_per_step": m["us_per_step"],
-            "dense_bound_ms": m["dense_bound_ms"], "card": card})
+            "dense_bound_ms": m["dense_bound_ms"], "card": card,
+            **{k: m[k] for k in ("kernel", "tf32x3_bound_ms",
+                                 "simt_bound_ms", "loop_ms", "dw_ms",
+                                 "grid_ms", "grid_loop_ms") if k in m}})
     for kname, line in (("gru_train_fwd", 379), ("gru_train_bwd", 424)):
         m = gru[kname]
         kernels.append({
@@ -3005,7 +3196,10 @@ def main():
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
-            "launches_per_train_step": per_step, "card": card})
+            "launches_per_train_step": per_step, "card": card,
+            **{k: m[k] for k in ("rounds_ms", "warps", "faster_than_library",
+                                 "kernel_device_ms", "library_device_ms")
+               if k in m}})
     for kname, key, source, line in (
             ("cache_gather_rows", "gather_rows", SOURCE, 79),
             ("cache_scatter_rows", "scatter_rows", CACHE_SOURCE, 133)):

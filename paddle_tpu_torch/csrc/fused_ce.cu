@@ -7,8 +7,10 @@
 //   paddle_fused_ce_fwd  <- _fwd     (:173, pallas_call :185, _fwd_kernel :47)
 //   paddle_fused_ce_bwd  <- _vjp_bwd (:222, pallas_call :234, _bwd_kernel :101)
 //
-// x [N, D] and w [D, V] share one dtype: fp32, bf16 or fp16; labels [N]
-// int32. With z = x @ w summed in fp32 the forward writes, per row,
+// x [N, D] and w [D, V] share one dtype: fp32, bf16 or fp16 (a mixed pair
+// reaches the kernels widened to fp32 by the wrapper, and the backward then
+// rounds dz to x's type: dz_round); labels [N] int32. With z = x @ w summed
+// in fp32 the forward writes, per row,
 //   lse  = max z + log(sum exp(z - max z))
 //   loss = lse - (1 - eps) * z[label] - eps * sum(z) / V   (0 where label ==
 //          ignore_index)
@@ -88,6 +90,7 @@
 #include <cstdint>
 #include <cstring>
 #include <initializer_list>
+#include <type_traits>
 #include <utility>
 
 namespace {
@@ -603,12 +606,22 @@ struct DzArgs {
   float on, off;
 };
 
+// dz as the JAX function rounds it for an x narrower than the operands'
+// fp32 path (mixed x and w), R 1 / 2: to bf16 / fp16, back in fp32
+// exactly; R 0: as it is
+template <int R>
+__device__ __forceinline__ float round_dz(float v) {
+  if (R == 1) return __bfloat162float(__float2bfloat16_rn(v));
+  if (R == 2) return __half2float(__float2half_rn(v));
+  return v;
+}
+
 // how many of `tiles` tiles block blockIdx.x of a persistent grid takes
 __device__ __forceinline__ int my_tiles(int tiles) {
   return (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
 }
 
-template <class K>
+template <class K, int R = 0>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ce_dz_kernel(const __grid_constant__ DzArgs<K> args) {
   extern __shared__ char smem[];
@@ -642,7 +655,8 @@ fused_ce_dz_kernel(const __grid_constant__ DzArgs<K> args) {
               dz[e] = 0.f;
               if (col + e < args.v && lab != args.ignore) {
                 const float t = (col + e == lab ? args.on : 0.f) + args.off;
-                dz[e] = (expf(acc[4 * j + 2 * h + e] - lse) - t) * g;
+                dz[e] = round_dz<R>(
+                    (expf(acc[4 * j + 2 * h + e] - lse) - t) * g);
               }
             }
             if (args.dz_hi && live)
@@ -880,7 +894,7 @@ int bwd(const void* xh, const void* xl, int ldx, const void* wth,
         const float* lse, const float* g, void* dzh, void* dzl, void* dzth,
         void* dztl, int ldn, float* part, float* dx_acc, void* dx, void* dw,
         int n, int d, int v, int vs, int sms, float on, float off,
-        int ignore, cudaStream_t s) {
+        int ignore, int dz_round, cudaStream_t s) {
   using T = typename K::T;
   const bool want_dx = dx != nullptr, want_dw = dw != nullptr;
   if (!pairs_ok<K>({{xh, xl}, {wth, wtl}, {wh, wl}, {xth, xtl}, {dzh, dzl},
@@ -929,7 +943,12 @@ int bwd(const void* xh, const void* xl, int ldx, const void* wth,
   gr.d = d;
   gr.vs = vs;
   gr.tiles_d = (d + kTile - 1) / kTile;
-  cudaError_t err = allow_smem(fused_ce_dz_kernel<K>);
+  auto dz_kernel = fused_ce_dz_kernel<K>;
+  if constexpr (std::is_same<K, Tf32x3>::value) {
+    if (dz_round == 1) dz_kernel = fused_ce_dz_kernel<K, 1>;
+    if (dz_round == 2) dz_kernel = fused_ce_dz_kernel<K, 2>;
+  }
+  cudaError_t err = allow_smem(dz_kernel);
   if (err == cudaSuccess) err = allow_smem(fused_ce_grad_kernel<K>);
   if (err != cudaSuccess) return err;
   const int tiles_n = (n + kTile - 1) / kTile;
@@ -939,8 +958,8 @@ int bwd(const void* xh, const void* xl, int ldx, const void* wth,
     dz.v0 = v0;
     dz.tiles_n = tiles_n;
     dz.tiles_v = tiles_v;
-    fused_ce_dz_kernel<K><<<std::min(tiles_n * tiles_v, sms), kThreads,
-                            kSmemBytes, s>>>(dz);
+    dz_kernel<<<std::min(tiles_n * tiles_v, sms), kThreads, kSmemBytes,
+                s>>>(dz);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     gr.v0 = v0;
@@ -1008,7 +1027,9 @@ extern "C" int paddle_fused_ce_fwd(int kind, const void* xh, const void* xl,
 // (with dW) in the operand type, part [ceil(N / vs), D, vs] fp32 (with dW),
 // dx_acc [N, D] fp32 (with dx; may be dx itself for fp32). dx [N, D] and
 // dw [D, V] in the operand type, either null; vs a multiple of 128; sms: the
-// blocks of a persistent launch (one an SM).
+// blocks of a persistent launch (one an SM). dz_round (fp32 only, for an x
+// of a narrower type than w): 1 / 2 rounds dz to bf16 / fp16 before the two
+// gradient products, 0 leaves it fp32.
 extern "C" int paddle_fused_ce_bwd(
     int kind, const void* xh, const void* xl, int ldx, const void* wth,
     const void* wtl, int ldwt, const void* wh, const void* wl, int ldw,
@@ -1016,12 +1037,14 @@ extern "C" int paddle_fused_ce_bwd(
     const float* lse, const float* g, void* dzh, void* dzl, void* dzth,
     void* dztl, int ldn, float* part, float* dx_acc, void* dx, void* dw,
     int n, int d, int v, int vs, int sms, float on, float off, int ignore,
-    void* stream) {
+    int dz_round, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dz_round < 0 || dz_round > 2 || (dz_round && kind != 0))
+    return cudaErrorInvalidValue;
   switch (kind) {
-    case 0: return bwd<Tf32x3>(xh, xl, ldx, wth, wtl, ldwt, wh, wl, ldw, xth, xtl, ldxt, labels, lse, g, dzh, dzl, dzth, dztl, ldn, part, dx_acc, dx, dw, n, d, v, vs, sms, on, off, ignore, s);
-    case 1: return bwd<Bf16>(xh, xl, ldx, wth, wtl, ldwt, wh, wl, ldw, xth, xtl, ldxt, labels, lse, g, dzh, dzl, dzth, dztl, ldn, part, dx_acc, dx, dw, n, d, v, vs, sms, on, off, ignore, s);
-    case 2: return bwd<Fp16>(xh, xl, ldx, wth, wtl, ldwt, wh, wl, ldw, xth, xtl, ldxt, labels, lse, g, dzh, dzl, dzth, dztl, ldn, part, dx_acc, dx, dw, n, d, v, vs, sms, on, off, ignore, s);
+    case 0: return bwd<Tf32x3>(xh, xl, ldx, wth, wtl, ldwt, wh, wl, ldw, xth, xtl, ldxt, labels, lse, g, dzh, dzl, dzth, dztl, ldn, part, dx_acc, dx, dw, n, d, v, vs, sms, on, off, ignore, dz_round, s);
+    case 1: return bwd<Bf16>(xh, xl, ldx, wth, wtl, ldwt, wh, wl, ldw, xth, xtl, ldxt, labels, lse, g, dzh, dzl, dzth, dztl, ldn, part, dx_acc, dx, dw, n, d, v, vs, sms, on, off, ignore, 0, s);
+    case 2: return bwd<Fp16>(xh, xl, ldx, wth, wtl, ldwt, wh, wl, ldw, xth, xtl, ldxt, labels, lse, g, dzh, dzl, dzth, dztl, ldn, part, dx_acc, dx, dw, n, d, v, vs, sms, on, off, ignore, 0, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -34,9 +34,13 @@
 // What bounds them: arithmetic and a serial chain. One step is a [B, H] x
 // [H, 4H] product (134 MFLOP at B 64, H 512), the forward does one a step and
 // the backward three (the recompute, Dh = dgates @ w^T, dw += h_prev^T @
-// dgates), all in this source in fp32 outside the tensor cores. Step t + 1
-// cannot start before every unit of h[t] is known, so T steps are T grid-wide
-// barriers whatever the arithmetic rate.
+// dgates). Step t + 1 cannot start before every unit of h[t] is known, so T
+// steps are T grid-wide barriers whatever the arithmetic rate. The forward,
+// the GRU pair and the backward's grid kernel (lstm_bwd_kernel) multiply in
+// fp32 outside the tensor cores; the backward at H <= 512 runs on clusters
+// and the tensor cores (lstm_bwd_cluster_kernel, the section "LSTM backward
+// on thread-block clusters" below), and its dw product on the tensor cores
+// at every width (lstm_dw_kernel), both at fp32 accuracy through 3xTF32.
 //
 // Design. The TPU kernel keeps h, c and the whole of w in one core's VMEM and
 // walks a sequential grid over time. On Hopper w (4 MB at H 512) fits no
@@ -56,7 +60,9 @@
 //             other blocks read after the barrier through L2 (__ldcg: L1 is
 //             not coherent across SMs). The carry is not the hidden output:
 //             hidden is zero past a row's length, the carry is held there.
-//   backward  phase A: the same ownership recomputes the gates of its units
+//   backward  (lstm_bwd_kernel, the widths the cluster kernel does not take:
+//             H above 512 or not a multiple of 4)
+//             phase A: the same ownership recomputes the gates of its units
 //             from h_prev[t] (an input) and writes its columns of dx[t], an
 //             output anyway; Dc stays with its owner (the dc0 buffer is the
 //             state). Grid barrier. Phase B: Dh[:, k] = sum_n dgates[:, n] *
@@ -71,11 +77,10 @@
 //             steps and rows in registers, and the block adds its 64 row
 //             shares in order at the end.
 //   dw        after the time loop, from dx and the saved hidden sequence, by
-//             one more kernel on the same stream (rnn_gemm_kernel, which the
-//             GRU shares): dw = h_prev_seq^T @ dx is one [H, T*B] x
-//             [T*B, 4H] product (128 x 64 output tiles, 8 x 4 a thread,
-//             operands staged through shared memory). Every sum runs in a
-//             fixed order with no atomics: two runs give the same bits.
+//             one more kernel on the same stream (lstm_dw_kernel, wgmma):
+//             dw = h_prev_seq^T @ dx is one [H, T*B] x [T*B, 4H] product.
+//             Every sum runs in a fixed order with no atomics: two runs give
+//             the same bits.
 // Inside a block both products share one routine over a staged chunk of the
 // left operand (64 rows, up to 512 deep: the whole carry at H 512, 129 KB, so
 // that one round of loads is in flight a step): a thread multiplies 8 rows by
@@ -92,8 +97,7 @@
 // multiple of U or of the chunk, B not of 64) load as zeros and are never
 // written.
 // Activations are expf and tanhf at full precision: a hundred steps compound
-// an error. This is fp32 SIMT with no wgmma, no TMA and no bf16: the simple,
-// exact first version.
+// an error.
 //   Wider than H 512 (transformer-sized recurrent layers, H 1024): with one
 // block per SM at most, a block must own U = 8 units (16 past 8 x the SMs),
 // and its slices of w no longer fit in shared memory beside the staged
@@ -1000,6 +1004,860 @@ cudaError_t checked_plan(int kind, int t_len, int b_len, int h,
   return cudaSuccess;
 }
 
+
+// ---- LSTM backward on thread-block clusters and tensor cores ---------------
+//
+// lstm_bwd_cluster_kernel computes what lstm_bwd_kernel computes, at H <= 512
+// and H a multiple of 4, for any T and B. What held lstm_bwd_kernel back was
+// traffic more than arithmetic: every step each of its 128 blocks staged all
+// of h_prev[t] (128 KB) from L2 for phase A and read all of dx[t] (512 KB)
+// back for phase B, 80 MB a step through L2, and its products ran outside
+// the tensor cores. Here:
+//   * Clusters of C = 2 blocks (kCC). Block g owns units [4g, 4g + 4) for
+//     the cell as before (U = 4, 16 gate columns), ceil(H / 4) blocks
+//     rounded up to whole clusters; a cluster owns the 4C units of its
+//     blocks, 16C gate columns. At one block an SM the H100's GPCs hold
+//     66 clusters of 2 but only 30 of 4 and 15 of 8, and H 512 takes 128
+//     blocks: 2 is the one size that fits every width up to 512. The
+//     wrapper's lstm_bwd_plan checks that every cluster fits at once
+//     (cudaOccupancyMaxActiveClusters).
+//   * Both products split the depth across the cluster. Block rank q holds
+//     W_q = w[q kh .. q kh + kh)[the cluster's 16C columns] (kh = ceil(H /
+//     C) rounded up to 64, rows past H zero), split into TF32 hi and lo, in
+//     shared memory for the whole sequence: as W_q^T for phase A and as
+//     W_q for phase B.
+//   * Phase A: each block stages columns [q kh, q kh + kh) of the live rows
+//     of h_prev[t] (cp.async, issued a pass ahead: h_prev is an input), so
+//     the cluster reads h_prev from L2 once, and multiplies them by W_q on
+//     the tensor cores: a [64, 16C] partial of the cluster's gates. Each
+//     block sends the partial of every peer's 16 columns into that peer's
+//     shared memory (distributed shared memory); the owner adds the C
+//     partials in rank order and runs the cell.
+//   * Phase B: each block sends its 16 columns of dgates, split into TF32
+//     hi and lo, into every block of the cluster, and multiplies them by
+//     W_q^T: columns [q kh, q kh + kh) of a [64, H] partial of Dh = dgates @
+//     w^T over the cluster's columns, written to global memory. After the
+//     grid barrier each block adds the ceil(H / 4) / C clusters' partials of
+//     its own units in a fixed order. No block reads all of dx[t]: per
+//     step a block stages 64 x kh floats, sends 2 x 16C x 64 and writes
+//     64 x kh.
+//   * The products are wgmma (TF32, two warpgroups) at fp32 accuracy through
+//     3xTF32: a = hi + lo, a product hi*hi + (hi*lo + lo*hi), each term in
+//     its own accumulators. Phase A's left operand (h_prev) comes from
+//     registers, split where it is loaded; its right one, and both of phase
+//     B's, from shared memory in the 128-byte-swizzled K-major layout
+//     wgmma reads (W_q^T, W_q, the exchanged gate gradients). The two
+//     warpgroups split phase A's depth; each of the three terms has its
+//     own accumulators.
+//   * One grid barrier a step, hand-written (an arrival counter:
+//     red.release and an ld.acquire spin that traps after 2^35 cycles), on
+//     a cooperative launch of the cluster grid (cudaLaunchKernelEx with
+//     both attributes), whose blocks the card holds at once. The counter
+//     is never reset: a launch takes the value it starts from (`base`) and
+//     adds T x blocks, and the wrapper keeps one counter and its value a
+//     stream, so no launch zeroes it.
+// Batches above 64 rows take passes of 64 rows, two cluster barriers each.
+// Every sum runs in a fixed order: two runs give the same bits.
+
+constexpr int kCC = 2;              // blocks of a cluster
+constexpr int kCU = 4;              // units of a block
+constexpr int kCN = 4 * kCU;        // its gate columns
+constexpr int kCMaxH = 512;         // widest H of the cluster kernel
+
+// the rows of w that a block of a cluster holds: ceil(H / C) rounded up to
+// the 64 rows of a wgmma tile
+__host__ __device__ constexpr int lstm_cluster_kh(int h) {
+  return round_up((h + kCC - 1) / kCC, 64);
+}
+
+// bytes of the cluster kernel's shared memory regions
+struct ClusterSmem {
+  int wt, wq, dg, hs, pa;   // W_q^T, W_q, the gate gradients: hi and lo each
+  __host__ __device__ explicit ClusterSmem(int h) {
+    const int kh = lstm_cluster_kh(h);
+    wt = kCN * kCC * kh * 4;                            // [16C][kh]
+    wq = wt;                                            // [kh][16C]
+    dg = kBT * kCN * kCC * 4;                           // [64][16C]
+    hs = kBT * (kh + 4) * 4;                            // [64][kh + 4]
+    pa = kCC * 2 * kBT * kCN * 4;                       // [C][halves][64][16]
+  }
+  __host__ __device__ size_t bytes() const {          // + 1024: alignment
+    return 1024 + 2 * (static_cast<size_t>(wt) + wq + dg) + hs + pa;
+  }
+};
+
+__device__ __forceinline__ uint32_t tf32_bits(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a = hi + lo, both TF32 (|a - hi - lo| <= 2^-22 |a|)
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(a);
+  lo = tf32_bits(a - __uint_as_float(hi));
+}
+
+// Element (r, k) of a [rows][K] operand that wgmma reads K-major with the
+// 128-byte swizzle: K / 32 boxes of rows x 128 bytes (1024-byte aligned),
+// the 16-byte chunks of row r XORed with r % 8.
+__device__ __forceinline__ int sw_at(int rows, int r, int k) {
+  return (k >> 5) * rows * 32 + r * 32 + ((((k >> 2) & 7) ^ (r & 7)) << 2) +
+         (k & 3);
+}
+
+// the wgmma descriptor of such a box from row 0 at p: start address, leading
+// offset 16 B (unused), 1024 B between groups of 8 rows, 128-byte swizzle
+__device__ __forceinline__ uint64_t sw_desc(const float* p) {
+  const uint64_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n"
+               "wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// the accumulators are settled after the wait: no read of them moves above it
+template <int N>
+__device__ __forceinline__ void settle(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// a wgmma's register operand stays live (and unchanged) up to here: no
+// other value takes its registers while the wgmma may still read them
+template <int S>
+__device__ __forceinline__ void hold(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[s][e])::"memory");
+}
+
+// d += A (64 rows) x B (N rows)^T over 8 of depth, both from K-major
+// swizzled boxes (descriptors a, b); N = 32 or 64
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A (64 rows, from registers: the m16n8k8 TF32 fragment of each warp's
+// 16 rows) x B (N rows of a K-major swizzled box, descriptor b)^T over 8 of
+// depth; N = 32 or 64 (16 or 32 accumulators a thread)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// big += Ahi Bhi; small += Ahi Blo + Alo Bhi over 8 of depth
+template <int R>
+__device__ __forceinline__ void wgmma_3x(float (&big)[R], float (&small)[R],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         uint64_t bh, uint64_t bl) {
+  wgmma_rs(big, ah, bh);
+  wgmma_rs(small, ah, bl);
+  wgmma_rs(small, al, bh);
+}
+
+// The grid barrier: every block's thread 0 adds one to *count and waits
+// until it reaches `target` (the count the launch started from plus the
+// barrier's number times the blocks; compared modulo 2^32, so the count
+// may wrap); writes before it are visible to every block after it.
+__device__ __forceinline__ void grid_barrier(unsigned* count,
+                                             unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count)
+                 : "memory");
+    const long long t0 = clock64();
+    unsigned seen = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+      if (static_cast<int>(seen - target) < 0 &&
+          clock64() - t0 > (1ll << 35))
+        __trap();
+    } while (static_cast<int>(seen - target) < 0);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Where a cluster's partial of Dh for (row position pos, hidden unit k)
+// lies in its step's buffer: eight units of a row (32 bytes, one sector)
+// for each cluster in turn, so that phase B writes, and the reduce reads,
+// whole sectors.
+__device__ __forceinline__ size_t part_at(int pos, int k, int cl,
+                                          int clusters, int h) {
+  return ((static_cast<size_t>(pos) * ((h + 7) / 8) + k / 8) * clusters +
+          cl) * 8 + (k & 7);
+}
+
+// Phase B of the cluster kernel with both operands in shared memory: the
+// pass's gate gradients dg [64, 16C] (A) times W_q [kh, 16C]^T (B) over the
+// cluster's kxn columns, for N columns from column n0 of the block's depth.
+// Writes rows < rows of the partial of Dh into the step's buffer pt.
+template <int N>
+__device__ __forceinline__ void product_b_ss(
+    const float* dg_hi, const float* dg_lo, const float* wq_hi,
+    const float* wq_lo, int kxn, int kh, int n0, float* pt, int r0, int rows,
+    int k0q, int cl, int clusters, int h) {
+  constexpr int kR = N / 2;
+  const int lane = threadIdx.x % 32, wq = threadIdx.x / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4;
+  float big[kR], sa[kR], sb[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) big[i] = sa[i] = sb[i] = 0.f;
+  wg_fence();
+  for (int kb = 0; kb < kxn; kb += 32) {
+    const size_t abox = static_cast<size_t>(kb >> 5) * kBT * 32;
+    const size_t bbox = static_cast<size_t>(kb >> 5) * kh * 32 +
+                        static_cast<size_t>(n0) * 32;
+    const uint64_t ah = sw_desc(dg_hi + abox), al = sw_desc(dg_lo + abox);
+    const uint64_t bh = sw_desc(wq_hi + bbox), bl = sw_desc(wq_lo + bbox);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      wgmma_ss(big, ah + 2 * s, bh + 2 * s);
+      wgmma_ss(sa, ah + 2 * s, bl + 2 * s);
+      wgmma_ss(sb, al + 2 * s, bh + 2 * s);
+    }
+  }
+  wg_commit_wait();
+  settle(big);
+  settle(sa);
+  settle(sb);
+#pragma unroll
+  for (int jn = 0; jn < N / 8; ++jn)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 16 * wq + g8 + 8 * hh;
+      const int k = k0q + n0 + 8 * jn + 2 * tig;
+      if (row < rows && k < h) {
+        const int i = 4 * jn + 2 * hh;
+        __stcg(reinterpret_cast<float2*>(
+                   pt + part_at(r0 + row, k, cl, clusters, h)),
+               make_float2(big[i] + sa[i] + sb[i],
+                           big[i + 1] + sa[i + 1] + sb[i + 1]));
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_cluster_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ peep,
+                        const int* __restrict__ lens,
+                        const int* __restrict__ order,
+                        const int* __restrict__ live,
+                        const float* __restrict__ h0,
+                        const float* __restrict__ c0,
+                        const float* __restrict__ hidden,
+                        const float* __restrict__ cell,
+                        const float* __restrict__ dhid,
+                        const float* __restrict__ dcell,
+                        const float* __restrict__ dhlast,
+                        const float* __restrict__ dclast, float* dx,
+                        float* __restrict__ dpeep, float* dh0, float* dc0,
+                        float* part, unsigned* count, unsigned base,
+                        int t_len, int b_len, int h) {
+  constexpr int kXN = kCN * kCC;             // the cluster's gate columns
+  constexpr int kHalves = 2;                 // partial gates from a peer
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ char smem_raw[];
+  const ClusterSmem lay(h);
+  const int kh = lstm_cluster_kh(h), hst = kh + 4;
+  float* wt_hi = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* wt_lo = wt_hi + lay.wt / 4;         // W_q^T [16C][kh], sw_at
+  float* wq_hi = wt_lo + lay.wt / 4;         // W_q [kh][16C], sw_at
+  float* wq_lo = wq_hi + lay.wq / 4;
+  float* dg_hi = wq_lo + lay.wq / 4;         // gate gradients [64][16C]
+  float* dg_lo = dg_hi + lay.dg / 4;
+  float* hs = dg_lo + lay.dg / 4;            // [64][kh + 4] fp32
+  float* pa = hs + lay.hs / 4;               // [C][halves][64][16] fp32
+  const int tid = threadIdx.x, lane = tid % 32;
+  // the warpgroup (uniform to the compiler, or it serializes the wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), wq = tid / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4;
+  const int q = static_cast<int>(cluster.block_rank());
+  const int clusters = gridDim.x / kCC, cl = blockIdx.x / kCC;
+  const int u0 = blockIdx.x * kCU, k0q = q * kh;
+
+  // W_q^T: element (n, k), n = q' * 16 + u * 4 + gate of the cluster's
+  // columns, is w[q kh + k][gate * H + (cl C + q') * 4 + u]
+  for (int idx = tid; idx < kXN * kh; idx += kThreads) {
+    const int n = idx / kh, k = idx % kh, kk = k0q + k;
+    const int j = (cl * kCC + n / kCN) * kCU + n % kCN / 4;
+    uint32_t hi = 0, lo = 0;
+    if (kk < h && j < h)
+      split_tf32(w[static_cast<size_t>(kk) * 4 * h + (n % 4) * h + j], hi, lo);
+    wt_hi[sw_at(kXN, n, k)] = __uint_as_float(hi);
+    wt_lo[sw_at(kXN, n, k)] = __uint_as_float(lo);
+    wq_hi[sw_at(kh, k, n)] = __uint_as_float(hi);
+    wq_lo[sw_at(kh, k, n)] = __uint_as_float(lo);
+  }
+  for (int idx = tid; idx < lay.hs / 4; idx += kThreads) hs[idx] = 0.0f;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();                     // the zeros before any staged row
+
+  // stage columns [q kh, q kh + kh) of the pass's rows of h_prev into hs
+  auto stage = [&](int tt, int rr) {
+    const float* hp = tt == 0 ? h0 : hidden + static_cast<size_t>(tt - 1) *
+                                              b_len * h;
+    const int rows = min(kBT, live[tt] - rr), c4 = kh / 4;
+    for (int idx = tid; idx < rows * c4; idx += kThreads) {
+      const int i = idx / c4, c = idx % c4 * 4, k = k0q + c;
+      const bool valid = k < h;
+      copy16(hs + i * hst + c,
+             valid ? hp + static_cast<size_t>(order[rr + i]) * h + k : hp,
+             valid);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  int first = t_len - 1;
+  while (first > 0 && live[first] == 0) --first;
+  if (live[first] > 0) stage(first, 0);
+  cluster.sync();
+
+  // this thread's (row, unit) pair of a pass: row tid / 4, unit j
+  const int bl = tid / kCU, ju = tid % kCU, j = u0 + ju;
+  const bool unit = j < h;
+  float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
+  if (unit) {
+    w_ic = peep[j];
+    w_fc = peep[h + j];
+    w_oc = peep[2 * h + j];
+  }
+  const size_t bh = static_cast<size_t>(b_len) * h;
+  const size_t pstride = static_cast<size_t>(clusters) * b_len * h;
+  float dp_i = 0.f, dp_f = 0.f, dp_o = 0.f;
+  unsigned target = base;
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const float* cp_seq = t == 0 ? c0 : cell + (t - 1) * bh;
+    float* dxt = dx + static_cast<size_t>(t) * b_len * 4 * h;
+    float* pt = part + (t & 1) * pstride;    // this step's partials of Dh
+    const int n_live = live[t];
+
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const int rows = min(kBT, n_live - r0);
+      // the cell's inputs, in flight while the staged rows land
+      // (all loaded at once and used only in the cell, after product A)
+      const bool alive = unit && bl < rows;
+      const int b = alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float xg[4] = {0.f, 0.f, 0.f, 0.f}, cp = 0.f;
+      float in_h[3] = {0.f, 0.f, 0.f}, in_c[3] = {0.f, 0.f, 0.f};
+      int len_b = 0;
+      if (alive) {
+        const float* xr =
+            x + (static_cast<size_t>(t) * b_len + b) * 4 * h + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[g] = xr[g * h];
+        cp = cp_seq[at];
+        len_b = lens[b];
+        in_h[0] = dhlast[at];
+        in_h[1] = dh0[at];
+        in_h[2] = dhid[static_cast<size_t>(t) * bh + at];
+        in_c[0] = dclast[at];
+        in_c[1] = dc0[at];
+        in_c[2] = dcell[static_cast<size_t>(t) * bh + at];
+      }
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+      // staged
+
+      // product A: the cluster's gates over this block's depth, [64, 16C];
+      // warpgroup wg takes half the depth (all 16C columns, each half sent
+      // as its own partial)
+      {
+        const int kb0 = wg * kh / 2, kb1 = kb0 + kh / 2;
+        constexpr int kR = kXN / 2;
+        float big[kR], sa[kR], sb[kR];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) big[i] = sa[i] = sb[i] = 0.f;
+        const int r = 16 * wq + g8;
+        for (int kb = kb0; kb < kb1; kb += 32) {     // one box of depth
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int k = kb + 8 * s + tig;
+            split_tf32(hs[r * hst + k], ah[s][0], al[s][0]);
+            split_tf32(hs[(r + 8) * hst + k], ah[s][1], al[s][1]);
+            split_tf32(hs[r * hst + k + 4], ah[s][2], al[s][2]);
+            split_tf32(hs[(r + 8) * hst + k + 4], ah[s][3], al[s][3]);
+          }
+          const size_t box = static_cast<size_t>(kb >> 5) * kXN * 32;
+          const uint64_t dh = sw_desc(wt_hi + box), dl = sw_desc(wt_lo + box);
+          wg_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            wgmma_rs(big, ah[s], dh + 2 * s);
+            wgmma_rs(sa, ah[s], dl + 2 * s);
+            wgmma_rs(sb, al[s], dh + 2 * s);
+          }
+          wg_commit_wait();
+          settle(big);
+          settle(sa);
+          settle(sb);
+        }
+        // each owner's 16 columns into its pa[q][half]
+#pragma unroll
+        for (int jn = 0; jn < kXN / 8; ++jn) {
+          const int n = 8 * jn + 2 * tig, owner = n / kCN;
+          float* dst = cluster.map_shared_rank(pa, owner) +
+                       (q * kHalves + wg) * kBT * kCN + n % kCN;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r + 8 * hh, i = 4 * jn + 2 * hh;
+            if (row < rows)
+              *reinterpret_cast<float2*>(dst + row * kCN) = make_float2(
+                  big[i] + sa[i] + sb[i], big[i + 1] + sa[i + 1] + sb[i + 1]);
+          }
+        }
+      }
+      cluster.sync();                  // every partial of the gates landed
+      if (r0 + kBT < n_live) stage(t, r0 + kBT);   // the next pass's rows
+
+      // the cell of this thread's pair
+      float4 dg = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (alive) {
+        // a row's carries start at the cotangents of its last states
+        const bool last = t + 1 == t_len || t + 1 == len_b;
+        const float gh = (last ? in_h[0] : in_h[1]) + in_h[2];
+        const float gcell = (last ? in_c[0] : in_c[1]) + in_c[2];
+        float gate[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float s = 0.f;
+          for (int p = 0; p < kCC * kHalves; ++p)
+            s += pa[(p * kBT + bl) * kCN + ju * 4 + g];
+          gate[g] = xg[g] + s;
+        }
+        const float i = sigmoidf(gate[0] + cp * w_ic);
+        const float f = sigmoidf(gate[1] + cp * w_fc);
+        const float g = tanhf(gate[2]);
+        const float c_cand = f * cp + i * g;
+        const float og = sigmoidf(gate[3] + c_cand * w_oc);
+        const float tanh_c = tanhf(c_cand);
+        const float dgo = gh * tanh_c * og * (1.0f - og);
+        const float dc_cand =
+            gcell + gh * og * (1.0f - tanh_c * tanh_c) + dgo * w_oc;
+        const float dgi = dc_cand * g * i * (1.0f - i);
+        const float dgf = dc_cand * cp * f * (1.0f - f);
+        const float dgg = dc_cand * i * (1.0f - g * g);
+        float* dxr = dxt + static_cast<size_t>(b) * 4 * h + j;
+        dxr[0] = dgi;
+        dxr[h] = dgf;
+        dxr[2 * h] = dgg;
+        dxr[3 * h] = dgo;
+        dc0[at] = dc_cand * f + dgi * w_ic + dgf * w_fc;
+        dp_i = fmaf(dgi, cp, dp_i);
+        dp_f = fmaf(dgf, cp, dp_f);
+        dp_o = fmaf(dgo, c_cand, dp_o);
+        dg = make_float4(dgi, dgf, dgg, dgo);
+      }
+      // cluster exchange: the block's 16 columns of dgates, hi and lo, into
+      // every block's gate gradients
+      {
+        uint32_t hi[4], lo[4];
+        split_tf32(dg.x, hi[0], lo[0]);
+        split_tf32(dg.y, hi[1], lo[1]);
+        split_tf32(dg.z, hi[2], lo[2]);
+        split_tf32(dg.w, hi[3], lo[3]);
+        const int at_dg = sw_at(kBT, bl, q * kCN + ju * 4);
+#pragma unroll
+        for (int p = 0; p < kCC; ++p) {
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(dg_hi, p) +
+                                    at_dg) =
+              make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(dg_lo, p) +
+                                    at_dg) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
+      cluster.sync();                  // every gate gradient has landed
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+
+      // phase B: the gate gradients [64, 16C] times W_q^T [16C, kh]: columns
+      // [q kh, q kh + kh) of the cluster's partial of Dh for the pass's
+      // rows, both operands in shared memory; warpgroup wg takes columns
+      // [wg kh / 2, ..), in chunks of at most 64
+      const int nw = kh / 2;
+      for (int c = 0; c < nw; c += 64) {
+        const int n0 = wg * nw + c;
+        if (nw - c >= 64)
+          product_b_ss<64>(dg_hi, dg_lo, wq_hi, wq_lo, kXN, kh, n0, pt, r0,
+                           rows, k0q, cl, clusters, h);
+        else
+          product_b_ss<32>(dg_hi, dg_lo, wq_hi, wq_lo, kXN, kh, n0, pt, r0,
+                           rows, k0q, cl, clusters, h);
+      }
+    }
+    // the rows past their length: no gate gradient, the carries stay
+    if (unit) {
+      for (int r = n_live + bl; r < b_len; r += kBT) {
+        const int b = order[r];
+        float* dxr = dxt + static_cast<size_t>(b) * 4 * h + j;
+        dxr[0] = dxr[h] = dxr[2 * h] = dxr[3 * h] = 0.0f;
+        if (t == 0) {                  // a row of length 0 hands them on
+          const size_t at = static_cast<size_t>(b) * h + j;
+          dh0[at] = dhlast[at];
+          dc0[at] = dclast[at];
+        }
+      }
+    }
+    if (t > 0 && n_live > 0) stage(t - 1, 0);   // the next step's rows
+    grid_barrier(count, target += gridDim.x);
+
+    // reduce: Dh of the cluster's units from the clusters' partials. Rank q
+    // adds clusters [q per, (q + 1) per) for every unit of its cluster (kS
+    // threads an item, their sums added in order), and sends each owner
+    // its four units' sums; the owner adds the C ranks' sums in order.
+    {
+      constexpr int kS = kThreads / (kBT * kCC);
+      static_assert(kS == 2, "two threads an item");
+      const int per = (clusters + kCC - 1) / kCC, cq0 = q * per;
+      const int cq1 = min(clusters, cq0 + per), sub = (per + kS - 1) / kS;
+      float* rx = dg_hi;                       // [C ranks][64][4], free now
+      for (int rb = 0; rb < n_live; rb += kBT) {
+        for (int it = tid; it < kBT * kCC * kS; it += kThreads) {
+          const int item = it / kS, part = it % kS;
+          const int row = item / kCC, p = item % kCC, r = rb + row;
+          const int u = (cl * kCC + p) * kCU;  // the owner's first unit
+          const int c0 = cq0 + part * sub, c1 = min(cq1, c0 + sub);
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < n_live && u < h) {
+            const float* src = pt + part_at(r, u, 0, clusters, h);
+            for (int c = c0; c < c1; c += 16) {
+              float4 v[16];
+#pragma unroll
+              for (int i = 0; i < 16; ++i)
+                v[i] = c + i < c1 ? __ldcg(reinterpret_cast<const float4*>(
+                                        src + static_cast<size_t>(c + i) * 8))
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+              for (int i = 0; i < 16; ++i)
+                if (c + i < c1) {
+                  const bool first = c + i == c0;
+                  sum.x = first ? v[i].x : sum.x + v[i].x;
+                  sum.y = first ? v[i].y : sum.y + v[i].y;
+                  sum.z = first ? v[i].z : sum.z + v[i].z;
+                  sum.w = first ? v[i].w : sum.w + v[i].w;
+                }
+            }
+          }
+          {                    // the two halves (a + b is b + a exactly)
+            const float4 o = make_float4(
+                __shfl_xor_sync(0xffffffffu, sum.x, 1),
+                __shfl_xor_sync(0xffffffffu, sum.y, 1),
+                __shfl_xor_sync(0xffffffffu, sum.z, 1),
+                __shfl_xor_sync(0xffffffffu, sum.w, 1));
+            sum = make_float4(sum.x + o.x, sum.y + o.y, sum.z + o.z,
+                              sum.w + o.w);
+          }
+          if (part == 0 && r < n_live)
+            *reinterpret_cast<float4*>(cluster.map_shared_rank(rx, p) +
+                                       (q * kBT + row) * kCU) = sum;
+        }
+        cluster.sync();                        // every rank's sums landed
+        const int r = rb + bl;
+        if (r < n_live && unit) {
+          float dh = rx[bl * kCU + ju];
+          for (int p = 1; p < kCC; ++p) dh += rx[(p * kBT + bl) * kCU + ju];
+          dh0[static_cast<size_t>(order[r]) * h + j] = dh;
+        }
+        if (rb + kBT < n_live) cluster.sync(); // rx is read before reuse
+      }
+    }
+    // end of a step
+  }
+
+  // dpeep of the block's units: the 64 row shares, added in row order
+  __syncthreads();
+  pa[(0 * kBT + bl) * kCU + ju] = dp_i;
+  pa[(1 * kBT + bl) * kCU + ju] = dp_f;
+  pa[(2 * kBT + bl) * kCU + ju] = dp_o;
+  __syncthreads();
+  if (tid < 3 * kCU && u0 + tid % kCU < h) {
+    const int which = tid / kCU, u = tid % kCU;
+    float s = 0.0f;
+    for (int r = 0; r < kBT; ++r) s += pa[(which * kBT + r) * kCU + u];
+    dpeep[which * h + u0 + u] = s;
+  }
+  cluster.sync();                      // no peer reads this block's memory
+}
+
+// The weight gradient dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows on
+// the tensor cores (wgmma m64n64k8, 3xTF32), computed as its transpose
+// dw^T [4H, H] = dx^T @ h_prev_seq: 128 x 64 tiles of dw^T (128 blocks at
+// H 512), each warpgroup 64 x 64, depth tiles of 32 rows. Both tiles land
+// in shared memory as they lie (cp.async, three stages in flight: the
+// loads of h_prev_seq, read from L2 or memory behind dx's stream, were the
+// kernel's longest wait when they went through registers). dx^T is the
+// left operand: each warp reads its fragments from dx's tile, split into
+// TF32 halves as it reads them. h_prev_seq's tile is split and stored
+// transposed in the 128-byte-swizzled K-major layout wgmma reads. Every
+// sum in one fixed order, no atomics. Row p of h_prev_seq is h0[p] for
+// p < B and hidden[p - B] after; rows 16-byte aligned take cp.async,
+// others plain loads.
+constexpr int kDwM = 128, kDwN = 64, kDwK = 32;      // dw^T tile, depth
+constexpr int kDwLdA = kDwM + 8;                      // 32 banks a fragment
+constexpr int kDwLdS = kDwN + 8;                      // h_prev's staged rows
+constexpr int kDwRing = 3;                            // stages
+constexpr int kDwA = kDwK * kDwLdA;                   // floats of dx a stage
+constexpr int kDwS = kDwK * kDwLdS;                   // floats of h_prev
+constexpr int kDwB = kDwN * kDwK;                     // floats a half of S^T
+constexpr int kDwSmem =
+    1024 +
+    (2 * kDwB + kDwRing * (kDwA + kDwS)) * static_cast<int>(sizeof(float));
+
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
+               const float* __restrict__ dx, float* __restrict__ dw,
+               int split, int k_len, int h) {
+  extern __shared__ char dw_raw[];
+  float* sb = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(dw_raw) + 1023) & ~uintptr_t(1023));
+  float* ring = sb + 2 * kDwB;                 // [3][32][128 + 8] dx tiles
+  float* sring = ring + kDwRing * kDwA;        // [3][32][64 + 4] h_prev
+  const int n_len = 4 * h;
+  const int n0 = blockIdx.x * kDwM, m0 = blockIdx.y * kDwN;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), wq = tid / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4;
+  const int tiles = (k_len + kDwK - 1) / kDwK;
+  const bool vec = (h & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(dx) |
+                     reinterpret_cast<uintptr_t>(h0) |
+                     reinterpret_cast<uintptr_t>(hidden)) & 15) == 0;
+  // 16 bytes of a row from src into dst where they are valid (zeros past
+  // the row's end or the last row)
+  auto put4 = [&](float* dst, const float* src, int valid) {
+    if (vec) {
+      copy16(dst, valid == 4 ? src : dx, valid == 4);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = e < valid ? src[e] : 0.0f;
+    }
+  };
+  // tile kt of dx (32 rows of 128 columns) and of h_prev_seq (32 rows of
+  // 64 columns) into ring stage kt % 3
+  auto stage = [&](int kt) {
+    const int k0 = kt * kDwK;
+    float* da = ring + (kt % kDwRing) * kDwA;
+    float* ds = sring + (kt % kDwRing) * kDwS;
+#pragma unroll
+    for (int i = 0; i < kDwK * kDwM / 4 / kThreads; ++i) {
+      const int idx = tid + i * kThreads, kk = idx / (kDwM / 4);
+      const int c = idx % (kDwM / 4) * 4, p = k0 + kk, n = n0 + c;
+      put4(da + kk * kDwLdA + c, dx + static_cast<size_t>(p) * n_len + n,
+           p < k_len ? max(0, min(4, n_len - n)) : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kDwK * kDwN / 4 / kThreads; ++i) {
+      const int idx = tid + i * kThreads, kk = idx / (kDwN / 4);
+      const int c = idx % (kDwN / 4) * 4, p = k0 + kk, m = m0 + c;
+      const float* row =
+          p < split ? h0 + static_cast<size_t>(p) * h
+                    : hidden + static_cast<size_t>(p - split) * h;
+      put4(ds + kk * kDwLdS + c, row + m,
+           p < k_len ? max(0, min(4, h - m)) : 0);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  float big[32], small[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) big[i] = small[i] = 0.f;
+  stage(0);
+  if (tiles > 1) stage(1);
+  const int row = 64 * wg + 16 * wq + g8;      // this thread's dw^T rows
+  for (int kt = 0; kt < tiles; ++kt) {
+    if (kt + 1 < tiles)                        // tile kt has landed
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();                           // and tile kt-1 is consumed
+    if (kt + 2 < tiles) stage(kt + 2);         // the stage tile kt-1 left
+    // h_prev's tile, split and transposed: a warp 8 columns by 4 rows,
+    // so that the swizzled stores hit 32 banks
+    const float* s_s = sring + (kt % kDwRing) * kDwS;
+#pragma unroll
+    for (int i = 0; i < kDwK * kDwN / kThreads; ++i) {
+      const int idx = tid + i * kThreads, wi = idx / 32, li = idx % 32;
+      const int mm = wi % 8 * 8 + li % 8, kk = wi / 8 * 4 + li / 8;
+      uint32_t hi, lo;
+      split_tf32(s_s[kk * kDwLdS + mm], hi, lo);
+      sb[sw_at(kDwN, mm, kk)] = __uint_as_float(hi);
+      sb[kDwB + sw_at(kDwN, mm, kk)] = __uint_as_float(lo);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    const float* a_s = ring + (kt % kDwRing) * kDwA;
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = 8 * s + tig;
+      split_tf32(a_s[k * kDwLdA + row], ah[s][0], al[s][0]);
+      split_tf32(a_s[k * kDwLdA + row + 8], ah[s][1], al[s][1]);
+      split_tf32(a_s[(k + 4) * kDwLdA + row], ah[s][2], al[s][2]);
+      split_tf32(a_s[(k + 4) * kDwLdA + row + 8], ah[s][3], al[s][3]);
+    }
+    __syncthreads();                           // S^T stored by every thread
+    const uint64_t dh = sw_desc(sb), dl = sw_desc(sb + kDwB);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_3x(big, small, ah[s], al[s], dh + 2 * s, dl + 2 * s);
+    wg_commit_wait();
+    hold(ah);
+    hold(al);
+    settle(big);
+    settle(small);
+  }
+  // dw[m][n] = dw^T[n][m]: accumulator (row 8 hh, column 8 jn + 2 tig + e)
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + row + 8 * hh, m = m0 + 8 * jn + 2 * tig + e;
+        const int i = 4 * jn + 2 * hh + e;
+        if (n < n_len && m < h)
+          dw[static_cast<size_t>(m) * n_len + n] = big[i] + small[i];
+      }
+}
+
+cudaError_t lstm_dw(const float* h0, const float* hidden, const float* dx,
+                    float* dw, int t_len, int b_len, int h, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((4 * h + kDwM - 1) / kDwM, (h + kDwN - 1) / kDwN);
+  lstm_dw_kernel<<<grid, kThreads, kDwSmem, s>>>(h0, hidden, dx, dw, b_len,
+                                                 t_len * b_len, h);
+  return cudaGetLastError();
+}
+
+cudaError_t cluster_config(int h, int blocks, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attrs, bool coop) {
+  const size_t smem = ClusterSmem(h).bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kCC;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = nullptr;
+  cfg->attrs = attrs;
+  cfg->numAttrs = coop ? 2 : 1;
+  return cudaSuccess;
+}
+
+// clusters of the cluster kernel the card holds at once at width h (0: none)
+cudaError_t max_clusters(int h, int* n) {
+  *n = 0;
+  if (ClusterSmem(h).bytes() > 232448) return cudaSuccess;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[2];
+  cudaError_t err = cluster_config(h, kCC, &cfg, attrs, false);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(n, lstm_bwd_cluster_kernel, &cfg);
+}
+
+cudaError_t launch_cluster(int blocks, int h, void** args, cudaStream_t s) {
+  if (blocks % kCC != 0) return cudaErrorInvalidValue;
+  int fit = 0;
+  cudaError_t err = max_clusters(h, &fit);
+  if (err != cudaSuccess) return err;
+  if (blocks > fit * kCC) return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[2];
+  err = cluster_config(h, blocks, &cfg, attrs, true);
+  if (err != cudaSuccess) return err;
+  cfg.stream = s;
+  return cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<void*>(lstm_bwd_cluster_kernel), args);
+}
+
 }  // namespace
 
 // The floats of global scratch (for the blocks' slices of w) that a kernel
@@ -1031,26 +1889,57 @@ extern "C" int paddle_lstm_train_fwd(const float* x, const float* w,
   return PADDLE_RNN_LAUNCH(lstm_fwd_kernel, p, h, args, s);
 }
 
+// clusters of 2 blocks of the cluster kernel that the card holds at once at
+// width h (0: none fit); a negative CUDA error
+extern "C" int paddle_lstm_bwd_max_clusters(int h) {
+  if (h < 1 || h > kCMaxH) return -static_cast<int>(cudaErrorInvalidValue);
+  int n = 0;
+  const cudaError_t err = max_clusters(h, &n);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+
+// blocks 0: lstm_bwd_kernel on plan_for's grid (wscratch where the plan
+// needs it); else lstm_bwd_cluster_kernel on `blocks` blocks (whole
+// clusters of 2, 4 units each, H <= 512 and a multiple of 4, h0 and hidden
+// 16-byte aligned) with part [2, blocks / 2, B, H] fp32 scratch and
+// count, the grid barrier's counter, at `base` when the launch starts (one
+// barrier a step: it ends at base + T x blocks, modulo 2^32). Then dw on
+// the tensor cores.
 extern "C" int paddle_lstm_train_bwd(
     const float* x, const float* w, const float* peep, const int* lens,
     const int* order, const int* live, const float* h0, const float* c0,
     const float* hidden, const float* cell,
     const float* dhid, const float* dcell, const float* dhlast,
     const float* dclast, float* dx, float* dw, float* dpeep, float* dh0,
-    float* dc0, float* wscratch, int t_len, int b_len, int h, void* stream) {
-  Plan p;
-  cudaError_t err = checked_plan(kLstmBwd, t_len, b_len, h, wscratch, &p);
-  if (err != cudaSuccess) return err;
-  void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
-                  &cell, &dhid, &dcell, &dhlast, &dclast, &dx, &dpeep, &dh0,
-                  &dc0, &wscratch, &t_len, &b_len, &h};
+    float* dc0, float* wscratch, float* part, unsigned* count,
+    unsigned base, int t_len, int b_len, int h, int blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  err = PADDLE_RNN_LAUNCH(lstm_bwd_kernel, p, h, args, s);
+  cudaError_t err;
+  if (blocks == 0) {
+    Plan p;
+    err = checked_plan(kLstmBwd, t_len, b_len, h, wscratch, &p);
+    if (err != cudaSuccess) return err;
+    void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
+                    &cell, &dhid, &dcell, &dhlast, &dclast, &dx, &dpeep,
+                    &dh0, &dc0, &wscratch, &t_len, &b_len, &h};
+    err = PADDLE_RNN_LAUNCH(lstm_bwd_kernel, p, h, args, s);
+  } else {
+    if (t_len < 1 || b_len < 1 || h < 1 || h > kCMaxH || h % 4 != 0 ||
+        blocks < 1 || static_cast<long long>(blocks) * kCU < h ||
+        part == nullptr || count == nullptr ||
+        ((reinterpret_cast<uintptr_t>(h0) |
+          reinterpret_cast<uintptr_t>(hidden)) & 15) != 0)
+      return cudaErrorInvalidValue;
+    void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
+                    &cell, &dhid, &dcell, &dhlast, &dclast, &dx, &dpeep,
+                    &dh0, &dc0, &part, &count, &base, &t_len, &b_len,
+                    &h};
+    err = launch_cluster(blocks, h, args, s);
+  }
   if (err != cudaSuccess) return err;
   // dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows
-  rnn_gemm<true>({h0, hidden, b_len, dx, dw, 4 * h}, {}, h, 4 * h, 4 * h, h,
-                 t_len * b_len, s);
-  return cudaGetLastError();
+  return lstm_dw(h0, hidden, dx, dw, t_len, b_len, h, s);
 }
 
 // ---- GRU ------------------------------------------------------------------

@@ -15,14 +15,22 @@ backward kernel, as on the TPU: the op's gradients are built in torch
 (``paddle_tpu_torch/ops/lod_ops.py``).
 
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
-plain version, CUDA tensors to the kernel (any V, D, B and T; the ids are
-converted to int32), which is built on its first launch; anything else
-raises. The kernel takes the tables of every dtype the JAX op's composed
-branch gathers, as the seqpool kernel takes them
+plain version, CUDA tensors to the kernel (any V, D, B and T; int32 and
+int64 ids and lengths as they are, other integers as int64), which is
+built on its first launch; anything else raises. The kernel takes the
+tables of every dtype the JAX op's composed branch gathers, as the
+seqpool kernel takes them
 (``seqpool.kernel_operand``: floats summed in fp32, fp64 in fp64, float8
 rounded to its type after every row, integers as int64, unsigned ones to
 uint64, complex as its real view; ``seqpool.masked_sum``). ``LAUNCHES``
 counts kernel launches; only a kernel launch adds to it.
+
+The kernel splits each row's ids across the warps of one block
+(:func:`pool_warps`), each warp summing a contiguous chunk of t, and adds
+the warps' sums in warp order: an fp32 (fp64, int64) sum of the same
+terms in another order than the plain version's, the same bits on every
+run. Float8 tables keep one warp a row, which adds in t order: their
+every partial sum is rounded to the type.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from paddle_tpu_torch.ops.kernels import build as _build
 from paddle_tpu_torch.ops.kernels import seqpool as _seqpool
 
 LAUNCHES = {"embed_pool": 0}
+MAX_WARPS = 8                       # warps of a block, all on one row
+IDS_PER_WARP = 12                   # the least chunk of t worth a warp
+ORDERED_CODES = (5, 6, 7, 8)        # float8 PoolDtype codes: t order
 
 _lib = None
 
@@ -51,10 +62,20 @@ def _kernels():
     if _lib is None:
         lib = _build.load("embed_pool")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paddle_embed_pool.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.paddle_embed_pool.argtypes = [p, p, i, p, i, p] + [i] * 6 + [p]
         lib.paddle_embed_pool.restype = i
         _lib = lib
     return _lib
+
+
+def pool_warps(t: int, code: int) -> int:
+    """The warps that share one row's ids in the kernel: enough that none
+    walks more than about ``IDS_PER_WARP`` of its T ids, at most
+    ``MAX_WARPS``; 1 for the float8 types (``ORDERED_CODES``), whose sum
+    is taken in t order."""
+    if code in ORDERED_CODES:
+        return 1
+    return max(1, min(MAX_WARPS, -(-t // IDS_PER_WARP)))
 
 
 def fused_embed_seq_pool_ref(w, ids, lens=None):
@@ -89,6 +110,14 @@ def _check_shapes(w, ids, lens):
                          f"{tuple(lens.shape)}")
 
 
+def _index_operand(t):
+    """Ids or lengths as the kernel reads them: int32 and int64 as they
+    are, other integers as int64; contiguous."""
+    if t.dtype not in (torch.int32, torch.int64):
+        t = t.to(torch.int64)
+    return t.contiguous()
+
+
 def _check_launch(err: int, name: str):
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
@@ -108,15 +137,16 @@ def fused_embed_seq_pool(w, ids, lens: Optional[torch.Tensor] = None):
         return torch.view_as_complex(out.view(b, d, 2))
     unsigned = w.dtype in _seqpool.UNSIGNED
     w, code = _seqpool.kernel_operand(w)
-    ids32 = ids.to(torch.int32).contiguous()
-    lens32 = None if lens is None else \
-        lens.reshape(-1).to(torch.int32).contiguous()
+    ids = _index_operand(ids)
+    lens = None if lens is None else _index_operand(lens.reshape(-1))
     out = torch.empty((b, d), dtype=w.dtype, device=w.device)
     with torch.cuda.device(w.device):
         err = _kernels().paddle_embed_pool(
-            w.data_ptr(), ids32.data_ptr(),
-            None if lens32 is None else lens32.data_ptr(), out.data_ptr(),
-            b, t, v, d, code, torch.cuda.current_stream().cuda_stream)
+            w.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
+            None if lens is None else lens.data_ptr(),
+            int(lens is not None and lens.dtype == torch.int64),
+            out.data_ptr(), b, t, v, d, code, pool_warps(t, code),
+            torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "fused_embed_seq_pool")
     LAUNCHES["embed_pool"] += 1
     return out.view(torch.uint64) if unsigned else out

@@ -17,11 +17,14 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_ce.py``:
 - :class:`FusedLinearCE` and :func:`fused_linear_ce` -- ``fused_linear_ce``
   (``:208``), loss [N, 1], differentiable in x and w.
 
-x and w share one dtype, fp32, bf16 or fp16, as in the JAX function: z
-is summed in fp32 (``preferred_element_type``), loss and lse are fp32,
-dz is rounded to the operands' dtype for the two gradient products
-(``:122-125``), which are summed in fp32 and returned in x's and w's
-dtype. A mixed-dtype x and w raises.
+x and w are fp32, bf16 or fp16, as in the JAX function: z is summed in
+fp32 from the promoted operands (``preferred_element_type``), loss and
+lse are fp32, dz is rounded to x's dtype where that is narrower than
+fp32 (``dz.astype(x.dtype)``, ``:125``) for the two gradient products,
+which are summed in fp32 and returned in x's and w's dtype (``:260``).
+On the card a mixed pair (bf16 or fp16 beside fp32, or bf16 beside
+fp16) widens its narrower operand to fp32 (exact) and runs the fp32
+path, whose dz launch rounds dz to x's dtype when x is the narrower.
 
 The [N, V] logits never reach device memory on the kernel path. The plain
 versions materialize them: they are for the CPU and for the comparisons.
@@ -81,7 +84,7 @@ def _kernels():
             [i] + [p, p, i] * 2 + [p] * 4 + [i] * 4 + [f] * 3 + [i, p])
         lib.paddle_fused_ce_bwd.argtypes = (
             [i] + [p, p, i] * 4 + [p] * 3 + [p] * 4 + [i] + [p] * 4
-            + [i] * 5 + [f] * 2 + [i, p])
+            + [i] * 5 + [f] * 2 + [i, i, p])
         for fn in (lib.paddle_fused_ce_prep, lib.paddle_fused_ce_fwd,
                    lib.paddle_fused_ce_bwd):
             fn.restype = i
@@ -157,8 +160,16 @@ def _wide(t):
     return t if t.dtype in (torch.float32, torch.float64) else t.float()
 
 
+def _promoted(x, w):
+    """x and w as the products sum them, in one dtype: the wider of the
+    two after :func:`_wide` (fp32 unless one is fp64)."""
+    x, w = _wide(x), _wide(w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def _logits(x, w):
-    return torch.matmul(_wide(x), _wide(w)).to(torch.float32)
+    return torch.matmul(*_promoted(x, w)).to(torch.float32)
 
 
 def fused_ce_fwd_ref(x, w, labels, eps: float = 0.0,
@@ -177,7 +188,8 @@ def fused_ce_fwd_ref(x, w, labels, eps: float = 0.0,
 def fused_ce_bwd_ref(x, w, labels, lse, g, eps: float = 0.0,
                      ignore_index: int = -100):
     """Plain version of :func:`fused_ce_bwd`: (dx, dW) through the whole
-    [N, V] dlogits, rounded to the operands' dtype for the products."""
+    [N, V] dlogits, rounded to x's dtype for the products, returned in
+    x's and w's dtype."""
     on, _, off, _ = _consts(eps, w.shape[1])
     z = _logits(x, w)
     cols = torch.arange(w.shape[1], device=z.device)
@@ -187,9 +199,10 @@ def fused_ce_bwd_ref(x, w, labels, lse, g, eps: float = 0.0,
                      dz)
     if x.dtype not in (torch.float32, torch.float64):
         dz = dz.to(x.dtype)
-    dz = _wide(dz)
-    return (torch.matmul(dz, _wide(w).t()).to(x.dtype),
-            torch.matmul(_wide(x).t(), dz).to(w.dtype))
+    xp, wp = _promoted(x, w)
+    dz = dz.to(xp.dtype)
+    return (torch.matmul(dz, wp.t()).to(x.dtype),
+            torch.matmul(xp.t(), dz).to(w.dtype))
 
 
 # -- wrappers ----------------------------------------------------------------
@@ -198,9 +211,6 @@ def _check_shapes(x, w, labels, *rows):
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"want x [N,D] and w [D,V], got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
-    if x.dtype != w.dtype:
-        raise ValueError(f"x and w must share a dtype, got {x.dtype} and "
-                         f"{w.dtype}")
     n, d = x.shape
     v = w.shape[1]
     if n == 0 or d == 0 or v == 0:
@@ -219,9 +229,10 @@ def _check_shapes(x, w, labels, *rows):
 def _check_kernel_args(name, x, w, rows, ignore_index) -> int:
     """What the kernels take: x and w fp32, bf16 or fp16, lse and g fp32,
     all contiguous, an int32 ignore_index. Returns the operand kind."""
-    if x.dtype not in KINDS:
-        raise ValueError(f"{name}: the kernel takes float32, bfloat16 or "
-                         f"float16, got {x.dtype}")
+    for t in (x, w):
+        if t.dtype not in KINDS:
+            raise ValueError(f"{name}: the kernel takes float32, bfloat16 "
+                             f"or float16, got {t.dtype}")
     for t in rows:
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: lse and g must be float32, got "
@@ -255,6 +266,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _widened(x, w):
+    """A mixed pair as the fp32 path takes it: each operand in fp32
+    (exact from bf16 and fp16), contiguous."""
+    return x.float().contiguous(), w.float().contiguous()
+
+
 def prepare(t: torch.Tensor, transpose: bool):
     """The prep kernel: a K-major copy of the contiguous matrix ``t`` (of
     its transpose with ``transpose``), rows padded to 16 bytes, as
@@ -279,6 +296,8 @@ def fused_ce_fwd(x, w, labels, eps: float = 0.0, ignore_index: int = -100):
     if not _device.uses_kernel(x, w, labels):
         return fused_ce_fwd_ref(x, w, labels, eps, ignore_index)
     kind = _check_kernel_args("fused_ce_fwd", x, w, (), ignore_index)
+    if x.dtype != w.dtype:
+        (x, w), kind = _widened(x, w), 0
     on, eps_f, _, vocab = _consts(eps, v)
     lab = _labels32(labels)
     splits = vocab_splits(n, v, _sms(x.device))
@@ -310,6 +329,11 @@ def fused_ce_bwd(x, w, labels, lse, g, eps: float = 0.0,
         gx, gw = fused_ce_bwd_ref(x, w, labels, lse, g, eps, ignore_index)
         return gx if dx else None, gw if dw else None
     kind = _check_kernel_args("fused_ce_bwd", x, w, (lse, g), ignore_index)
+    x_dtype, w_dtype, dz_round = x.dtype, w.dtype, 0
+    if x_dtype != w_dtype:
+        if x_dtype != torch.float32:
+            dz_round = KINDS[x_dtype]           # 1 bf16, 2 fp16
+        (x, w), kind = _widened(x, w), 0
     on, _, off, _ = _consts(eps, v)
     vs, dev = SLAB_COLS, x.device
     xo, wt = prepare(x, False), prepare(w, True)
@@ -339,10 +363,11 @@ def fused_ce_bwd(x, w, labels, lse, g, eps: float = 0.0,
             lse.data_ptr(), g.data_ptr(), _ptr(dz[0]), _ptr(dz[1]),
             _ptr(dzt[0]), _ptr(dzt[1]), ldn, _ptr(part), _ptr(acc),
             _ptr(gx), _ptr(gw), n, d, v, vs, _sms(dev), on, off,
-            int(ignore_index), _stream())
+            int(ignore_index), dz_round, _stream())
     _check_launch(err, "fused_ce_bwd")
     LAUNCHES["fused_ce_bwd"] += 1
-    return gx, gw
+    return (None if gx is None else gx.to(x_dtype),
+            None if gw is None else gw.to(w_dtype))
 
 
 def fused_ce_dx(x, w, labels, lse, g, eps: float = 0.0,

@@ -231,6 +231,20 @@ def test_out_of_range_ids_read_the_clipped_row():
     torch.testing.assert_close(got, (w[0] + w[3] + w[2])[None])
 
 
+@pytest.mark.parametrize("t, code, warps", [
+    (100, 0, 8), (7, 0, 1), (12, 2, 1), (13, 3, 2), (30, 4, 3), (96, 1, 8),
+    (1000, 0, 8), (0, 0, 1), (100, 5, 1), (100, 6, 1), (100, 7, 1),
+    (100, 8, 1)])
+def test_pool_warps_plan(t, code, warps):
+    """The kernel's chunk plan: enough warps a row that none walks more
+    than about 12 ids (13 at the op program's T 100, 8 warps), at most
+    8; one warp for the float8 codes 5-8, which sum in t order."""
+    assert tep.pool_warps(t, code) == warps
+    if warps > 1:
+        assert -(-t // warps) <= tep.IDS_PER_WARP or \
+            warps == tep.MAX_WARPS
+
+
 def test_wrapper_rejects_what_it_does_not_take():
     w = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="want w"):
@@ -314,4 +328,31 @@ def test_cuda_kernel_takes_every_dtype(cuda_device, dtype):
     scale = tep.fused_embed_seq_pool_ref(w.to(wide).abs(), ids, lens)
     err = (got.to(wide) - want.to(wide)).abs()
     assert bool((err <= 1e-6 + DTYPE_RTOL[dtype] * scale).all()), \
+        f"{dtype}: max abs err {float(err.max())}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.float16, torch.bfloat16,
+                                   torch.int64, torch.float8_e4m3fnuz],
+                         ids=str)
+def test_cuda_kernel_splits_rows_across_warps(cuda_device, dtype):
+    """At T 100 (8 warps a row; float8 one) with ragged lengths, lengths
+    0 and T among them: the plain version's values within the dtype's
+    rtol of the pool of |w|, and the same bits on a second call (the
+    warps' sums are added in warp order)."""
+    rng = np.random.RandomState(9)
+    v, d, b, t = 300, 40, 7, 100
+    w = torch.from_numpy(rng.randn(v, d) * 4).to(dtype).to(cuda_device)
+    ids = torch.from_numpy(rng.randint(0, v, (b, t))).to(cuda_device)
+    lens = torch.tensor([100, 0, 37, 1, 99, 13, 64], device=cuda_device)
+    got = tep.fused_embed_seq_pool(w, ids, lens)
+    again = tep.fused_embed_seq_pool(w, ids, lens)
+    want = tep.fused_embed_seq_pool_ref(w, ids, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = tep.fused_embed_seq_pool_ref(w.double().abs(), ids, lens)
+    err = (got.double() - want.double()).abs()
+    rtol = TOL["rtol"] if dtype == torch.float32 else DTYPE_RTOL[dtype]
+    assert bool((err <= 1e-6 + rtol * scale).all()), \
         f"{dtype}: max abs err {float(err.max())}"

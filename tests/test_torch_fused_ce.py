@@ -35,7 +35,10 @@ KERNEL_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 SHAPES = [(16, 8, 24), (64, 32, 48)]      # (N, D, V)
 LOW_SHAPES = [(8, 128, 128)] + SHAPES
 IGNORE = -100
-MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+MANTISSA = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
+# x / w dtype pairs that the JAX function takes mixed
+MIXED = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+         (torch.float16, torch.float32), (torch.bfloat16, torch.float16)]
 
 
 @pytest.fixture(scope="module")
@@ -96,8 +99,9 @@ def _ulp(t, dtype):
 
 def _low_precision_tol(x, w, labels, lse, g, eps, dtype):
     """Per-element tolerances of dx and dW for 16-bit operands. Both sides
-    round dz to ``dtype``, sum its products in fp32 and round the sum to
-    ``dtype`` once. Their fp32 z differ in the last bits (another order),
+    round dz to ``dtype`` (not at all for fp32: a mixed pair's fp32 x),
+    sum its products in fp32 and round the sum to the result's dtype
+    once. Their fp32 z differ in the last bits (another order),
     so a dz near a rounding tie may round to the other neighbour: one step
     of it, at most 2**-m |dz| (m mantissa bits), moves a sum by that times
     its partner. So |got - want| <= one step of the result + (2**-m + K *
@@ -110,7 +114,7 @@ def _low_precision_tol(x, w, labels, lse, g, eps, dtype):
     t = torch.where(cols[None] == labels.long()[:, None], on, 0.0) + off
     dz = ((torch.exp(z - lse.double()[:, None]) - t) * g.double()[:, None])
     dz = torch.where((labels == IGNORE)[:, None], 0.0, dz).abs()
-    step = 2.0 ** -MANTISSA[dtype]
+    step = 0.0 if dtype == torch.float32 else 2.0 ** -MANTISSA[dtype]
     n, v = dz.shape
     return ((step + v * 2.0 ** -24) * (dz @ wf.abs().t()),
             (step + n * 2.0 ** -24) * (xf.abs().t() @ dz))
@@ -168,10 +172,55 @@ def test_low_precision_matches_pallas(jx, shape, eps, dtype):
                    dtype)
 
 
-def test_mixed_dtypes_raise():
-    x, w, labels, _ = (torch.from_numpy(a) for a in _data(*SHAPES[0]))
-    with pytest.raises(ValueError, match="share a dtype"):
-        tfc.fused_linear_ce(x.to(torch.bfloat16), w, labels)
+def _jnp_dtype(jnp, dtype):
+    return {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16,
+            torch.float32: jnp.float32}[dtype]
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+@pytest.mark.parametrize("dtypes", MIXED, ids=lambda d: f"{d[0]}-{d[1]}")
+def test_mixed_dtypes_match_pallas(jx, dtypes, eps):
+    """x and w of two dtypes, as the JAX function takes them: z summed in
+    fp32 from the promoted operands, loss and lse fp32, dz rounded to x's
+    dtype where that is narrower than fp32, dx in x's dtype and dW in w's.
+    Loss and lse within the fp32 tolerances (both sides sum the same
+    exact fp32 products in another order); dx and dW within
+    :func:`_low_precision_tol` at x's dtype (a dz near a rounding tie of
+    x's dtype, the fp32 order, one step of the result's dtype)."""
+    jax, jnp, pfc = jx
+    xdt, wdt = dtypes
+    x, w, labels, g = _data(8, 128, 128)
+    jx_ = jnp.asarray(x).astype(_jnp_dtype(jnp, xdt))
+    jw_ = jnp.asarray(w).astype(_jnp_dtype(jnp, wdt))
+    want_loss, want_lse = pfc._fwd(jx_, jw_, jnp.asarray(labels), eps,
+                                   IGNORE, True)
+
+    def f(a, b):
+        loss = pfc.fused_linear_ce(a, b, jnp.asarray(labels), eps, IGNORE,
+                                   True)
+        return jnp.sum(loss[:, 0] * jnp.asarray(g))
+    want_dx, want_dw = jax.grad(f, argnums=(0, 1))(jx_, jw_)
+    assert want_dx.dtype == jx_.dtype and want_dw.dtype == jw_.dtype
+    tx, tw = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(dt)
+              .requires_grad_() for a, dt in ((jx_, xdt), (jw_, wdt)))
+    lab = torch.from_numpy(labels)
+    loss, lse = tfc.fused_ce_fwd_ref(tx.detach(), tw.detach(), lab, eps,
+                                     IGNORE)
+    assert loss.dtype == torch.float32 and lse.dtype == torch.float32
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss)[:, 0],
+                               **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[:, 0],
+                               **FWD_TOL)
+    got = tfc.fused_linear_ce(tx, tw, lab, eps, IGNORE)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy()[:, 0],
+                               np.asarray(want_loss)[:, 0], **FWD_TOL)
+    (got[:, 0] * torch.from_numpy(g)).sum().backward()
+    assert tx.grad.dtype == xdt and tw.grad.dtype == wdt
+    sx, sw = _low_precision_tol(tx.detach(), tw.detach(), lab, lse,
+                                torch.from_numpy(g), eps, xdt)
+    assert _within(tx.grad, np.array(want_dx.astype(jnp.float32)), sx, xdt)
+    assert _within(tw.grad, np.array(want_dw.astype(jnp.float32)), sw, wdt)
 
 
 def test_split_tf32_halves():
@@ -492,3 +541,44 @@ def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
     assert torch.isfinite(x1.grad).all()
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         tfc.fused_ce_fwd(x.detach().double(), w.detach().double(), labels)
+
+
+@pytest.mark.gpu
+def test_cuda_mixed_dtypes_match_plain_versions(cuda_device):
+    """A mixed x / w pair on the card (the fp32 path over the widened
+    operands, dz rounded to x's dtype where x is the narrower) against
+    the plain versions: loss and lse within the fp32 kernel tolerances,
+    dx in x's dtype and dW in w's within :func:`_low_precision_tol` at
+    x's dtype; one launch each way; a second backward bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    for xdt, wdt in MIXED:
+        for n, d, v, eps in ((1000, 100, 1003, 0.1), (300, 700, 1003, 0.0),
+                             (8, 128, 128, 0.1)):
+            x = torch.randn(n, d, generator=gen, device=cuda_device).to(xdt)
+            w = (torch.randn(d, v, generator=gen, device=cuda_device)
+                 * d ** -0.5).to(wdt)
+            labels = torch.randint(0, v, (n,), generator=gen,
+                                   device=cuda_device)
+            labels[::7] = IGNORE
+            g = torch.rand(n, generator=gen, device=cuda_device) + 0.5
+            n0 = dict(tfc.LAUNCHES)
+            loss, lse = tfc.fused_ce_fwd(x, w, labels, eps)
+            want_loss, want_lse = tfc.fused_ce_fwd_ref(x, w, labels, eps)
+            dx, dw = tfc.fused_ce_bwd(x, w, labels, want_lse, g, eps)
+            want_dx, want_dw = tfc.fused_ce_bwd_ref(x, w, labels, want_lse,
+                                                    g, eps)
+            torch.cuda.synchronize()
+            assert {k: tfc.LAUNCHES[k] - n0[k] for k in n0} == \
+                {"fused_ce_fwd": 1, "fused_ce_bwd": 1}
+            label = f"n={n} d={d} v={v} eps={eps} {xdt}/{wdt}"
+            assert dx.dtype == xdt and dw.dtype == wdt, label
+            for name, got, want in (("loss", loss, want_loss),
+                                    ("lse", lse, want_lse)):
+                torch.testing.assert_close(got, want, msg=f"{name} {label}",
+                                           **KERNEL_FWD_TOL)
+            sx, sw = _low_precision_tol(x.cpu(), w.cpu(), labels.cpu(),
+                                        want_lse.cpu(), g.cpu(), eps, xdt)
+            assert _within(dx.cpu(), want_dx.cpu(), sx, xdt), f"dx {label}"
+            assert _within(dw.cpu(), want_dw.cpu(), sw, wdt), f"dw {label}"
+            again = tfc.fused_ce_bwd(x, w, labels, want_lse, g, eps)
+            assert torch.equal(again[0], dx) and torch.equal(again[1], dw)

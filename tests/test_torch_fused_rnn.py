@@ -276,6 +276,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tfr.lstm_train_fwd(meta[0], w, peep, sl, h0, c0)
 
 
+@pytest.mark.parametrize("h, sms, fit, plan", [
+    (512, 132, 66, 128),               # the H100's plan
+    (512, 132, 63, None),              # not every cluster fits: grid kernel
+    (512, 120, 66, None),              # fewer SMs
+    (480, 132, 66, 120),
+    (100, 132, 66, 26),                # 25 groups, 13 clusters
+    (4, 132, 66, 2),
+    (8, 132, 1, 2),                    # one cluster, and it fits
+    (500, 132, 66, 126),
+    (102, 132, 66, None),              # not a multiple of 4
+    (516, 132, 66, None),              # above H 512
+    (1024, 132, 66, None),
+    (512, 132, 0, None)])
+def test_lstm_bwd_plan(h, sms, fit, plan):
+    """The LSTM backward's kernel as a function of H, the SMs and how many
+    clusters of 2 the card holds: the cluster kernel's blocks, ceil(H / 4)
+    rounded up to whole clusters, where they all fit at once; the grid
+    kernel (None) above H 512, off multiples of 4, or where they do not."""
+    assert tfr.lstm_bwd_plan(h, sms, fit) == plan
+
+
 def _card_check(dev, T, B, H, seed, w_scale):
     arrays = _make(seed=seed, T=T, B=B, H=H, w_scale=w_scale)
     if B > 2:
@@ -359,3 +380,35 @@ def test_cuda_function_launches_once_each_way_and_rejects(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tfr.lstm_train_fwd(ins[0].detach().transpose(0, 1).contiguous()
                            .transpose(0, 1), *[a.detach() for a in ins[1:]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(100, 64, 512), (7, 5, 100), (5, 130, 512),
+                                   (3, 1, 4), (9, 64, 64), (3, 64, 288),
+                                   (20, 64, 480)])
+def test_cuda_cluster_and_grid_backward_agree(cuda_device, monkeypatch,
+                                              shape):
+    """Where the plan picks the cluster kernel, it and the grid kernel
+    (forced by emptying the plan) against the plain version within the
+    gradient tolerances, each bit-equal across two runs; on an H100 (132
+    SMs) the plan at H 512 is 128 blocks in clusters of 2. A stream's
+    launches share one grid-barrier counter, never zeroed between them:
+    each adds T x blocks, and the wrapper's value of it agrees (a new
+    stream starts its own, here after two launches)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    T, B, H = shape
+    report = tfr.lstm_bwd_kernel_for(H, cuda_device)
+    assert report["kernel"] == "cluster", report
+    if H == 512 and torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count == 132:
+        assert (report["cluster"], report["blocks"]) == (2, 128), report
+    _card_check(cuda_device, T, B, H, 1, min(0.2, H ** -0.5))
+    count, base = tfr._barrier(cuda_device)
+    assert int(count) % 2 ** 32 == base > 0
+    with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+        _card_check(cuda_device, T, B, H, 1, min(0.2, H ** -0.5))
+        count, base = tfr._barrier(cuda_device)
+        assert int(count) % 2 ** 32 == base == 2 * T * report["blocks"]
+    key = (torch.cuda.current_device(), H)
+    monkeypatch.setitem(tfr._plans, key, None)
+    _card_check(cuda_device, T, B, H, 1, min(0.2, H ** -0.5))

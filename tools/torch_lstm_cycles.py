@@ -18,8 +18,12 @@ lengths. It prints the median cycles of one step for
 - the forward: the product ``h @ w`` (and inside it: staging the carry
   from L2, the multiply-add loop, the cross-slice sums), the cell and its
   stores, the grid barrier;
-- the backward: phase A's product and cell, the grid barrier, phase B
-  (``dgates @ w^T``);
+- the backward (the cluster kernel, ``lstm_bwd_cluster_kernel``): the
+  staged columns of ``h_prev`` landing, product A on the tensor cores,
+  the exchange of its partial gates inside the cluster, the cell and its
+  stores, the exchange of gate gradients, phase B (its rows of the
+  cluster's partial of ``dgates @ w^T``), the grid barrier, the reduce of
+  the clusters' partials of ``Dh``;
 
 with the same numbers at the first and last steps, where a ragged batch
 has most and fewest live rows. The marks are placed by matching lines of
@@ -40,7 +44,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 T, B, H = 100, 64, 512
-SLOTS = 8                          # marks a step
+SLOTS = 10                         # marks a step
 MAX_STEPS = 512
 
 MARKS = (
@@ -61,15 +65,27 @@ MARKS = (
      "      tile_product<4 * U>(hin, h, order + r0, min(kBT, n_live - r0), "
      "h, ws,\n                          as, red); MARK(1)"),
     ("    grid.sync();", 2, "    MARK(2) grid.sync(); MARK(3)"),
-    # backward: top of a step, after phase A's product, after phase B
-    ("    const int n_live = live[t];\n\n    // phase A", 1,
-     "    const int n_live = live[t]; MARK(0)\n\n    // phase A"),
-    ("      tile_product<4 * U>(hp_seq, h, order + r0, min(kBT, n_live - "
-     "r0), h, ws,\n                          as, red);", 1,
-     "      tile_product<4 * U>(hp_seq, h, order + r0, min(kBT, n_live - "
-     "r0), h, ws,\n                          as, red); MARK(1)"),
-    ("              reduced<U>(red, bl[o], tid % U);\n    }\n", 1,
-     "              reduced<U>(red, bl[o], tid % U);\n    }\n    MARK(4)\n"),
+    # the cluster backward (lstm_bwd_cluster_kernel): top of a step, the
+    # staged rows landed, product A, the cell, the cluster exchange, phase
+    # B, the grid barrier, the reduce of the clusters' partials
+    ("    const int n_live = live[t];\n\n    for (int r0 = 0; r0 < n_live; "
+     "r0 += kBT) {\n      const int rows", 1,
+     "    const int n_live = live[t]; MARK(0)\n\n    for (int r0 = 0; r0 < "
+     "n_live; r0 += kBT) {\n      const int rows"),
+    ("      // staged\n", 1, "      MARK(1)\n"),
+    ("      cluster.sync();                  // every partial of the gates "
+     "landed\n", 1,
+     "      MARK(2) cluster.sync();          // every partial of the gates "
+     "landed\n      MARK(3)\n"),
+    ("      // cluster exchange:", 1,
+     "      MARK(4)\n      // cluster exchange:"),
+    ("      cluster.sync();                  // every gate gradient has "
+     "landed\n", 1,
+     "      cluster.sync();                  // every gate gradient has "
+     "landed\n      MARK(5)\n"),
+    ("    grid_barrier(count, target += gridDim.x);\n", 1,
+     "    MARK(6) grid_barrier(count, target += gridDim.x); MARK(7)\n"),
+    ("    // end of a step\n", 1, "    MARK(8)\n"),
     # inside the product (read for the forward only: the backward's two
     # products overwrite each other's marks)
     ("    __syncthreads();\n    if (vec) {", 1,
@@ -185,11 +201,11 @@ def main():
             fr.lstm_train_bwd(*ins, outs[0], outs[1], *cot)
         d = marks()
         step = np.median(d[:-1, 0] - d[1:, 0])
-        show(f"backward, {label} lengths, step {step:.0f}",
-             ("phase A product", "phase A cell and stores", "barrier",
-              "phase B"),
-             np.stack([d[:, 1] - d[:, 0], d[:, 2] - d[:, 1],
-                       d[:, 3] - d[:, 2], d[:, 4] - d[:, 3]], 1))
+        show(f"backward ({fr.lstm_bwd_kernel_for(H, dev)}), {label} "
+             f"lengths, step {step:.0f}",
+             ("staging", "product A", "exchange A", "cell and stores",
+              "exchange B", "phase B", "grid barrier", "reduce"),
+             np.stack([d[:, i + 1] - d[:, i] for i in range(8)], 1))
     print(f"SM clock now / max: {smi('clocks.sm,clocks.max.sm')}")
 
 
