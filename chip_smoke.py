@@ -32,24 +32,37 @@ final line:
    first tokens equal the oracle's and a second int8 run replays the
    first exactly, and every decode step launched its kernel twice per
    layer.
-5. Flash kernels: the flash-attention forward, dQ and dK/dV kernels at
-   the attention shapes of phase 6 (B*H 256, T 128, D 64), non-causal,
-   causal, and non-causal with dropout 0.1, each against its plain
-   PyTorch version on the same inputs (rtol 1e-4 / atol 1e-5 forward,
-   rtol 1e-3 / atol 1e-4 gradients; fp32 sums in another order), timed
-   as in phase 3 beside its plain version, its bound (the larger of its
-   FLOPs over 67 TFLOP/s fp32 -- TF32 is off -- and its bytes over
-   3.35 TB/s) and a library yardstick: ``scaled_dot_product_attention``
-   for the forward (at p = 0: its dropout bits differ) and that call's
-   backward for the dQ + dK/dV pair, held to allclose with the plain
-   versions first. Then, causal, at head widths the wrappers pad or run
-   on the widest tiles (48: d_model 96 over 2 heads, run at 64; 256) or
-   take in 256-wide chunks (257 and 320, run at 512), each kernel
-   against its plain version, timed beside plain and bound; and one
-   training step of a causal attention block at d_model 257 over 1 head
-   and 640 over 2 (head widths 257 and 320): the fused block (one launch
-   of each kernel) equals the composed block, output within rtol 1e-4,
-   gradients of the input and the projections within rtol 1e-3.
+5. Flash kernels: the flash-attention forward, the one-pass backward
+   (``flash_bwd``: dQ, dK and dV in one launch on the tensor cores, fp32
+   through 3xTF32) and the dQ and dK/dV kernels (which ``flash_bwd`` runs
+   above its range: key length 512, head width 128) at the attention
+   shapes of phase 7 (B*H 256, T 128, D 64), non-causal, causal, and
+   non-causal with dropout 0.1, each against its plain PyTorch version on
+   the same inputs (rtol 1e-4 / atol 1e-5 forward, rtol 1e-3 / atol 1e-4
+   gradients; fp32 sums in another order), a second ``flash_bwd`` bit-equal
+   to the first; timed as in phase 3 beside its plain version, two bounds
+   (the larger of its FLOPs over the rate of its path -- 67 TFLOP/s fp32
+   outside the tensor cores, or three TF32 products at 495 TFLOP/s for
+   ``flash_bwd`` -- and its bytes over 3.35 TB/s; each row gives both) and
+   a library yardstick: ``scaled_dot_product_attention`` for the forward
+   (at p = 0: its dropout bits differ) and that call's backward, which
+   computes dQ, dK and dV at once (against ``flash_bwd`` and the pair),
+   held to allclose with the plain versions first. The same shape in bf16
+   and fp16 for the forward and ``flash_bwd``, full and causal with dropout
+   0.1, against the plain versions in the working type (one step of the
+   dtype at the largest magnitude plus one of each element), bf16 full
+   timed beside plain, bound (989 TFLOP/s) and SDPA's bf16 backward. Then
+   the whole ``FlashAttention.backward`` (delta and ``flash_bwd``) against
+   SDPA's backward, fp32 full and causal and bf16 full, in turns over 4
+   rounds. Then, causal, at head widths the wrappers pad or run on the
+   widest tiles (48: d_model 96 over 2 heads, run at 64; 256) or take in
+   256-wide chunks (257 and 320, run at 512), each kernel against its
+   plain version, timed beside plain and bound; and one training step of
+   a causal attention block at d_model 257 over 1 head and 640 over 2
+   (head widths 257 and 320): the fused block (one launch of the forward,
+   and of the dQ and dK/dV kernels) equals the composed block, output
+   within rtol 1e-4, gradients of the input and the projections within
+   rtol 1e-3.
 6. Fused-CE kernels: the fused linear + cross-entropy forward and
    backward kernels (tensor cores: fp32 through 3xTF32, bf16 natively) at
    the vocabulary head of phase 7 (N 4096 rows, D 512, V 32000, label
@@ -89,9 +102,10 @@ final line:
    (the flash and the fused-CE kernels), dropout off. The launch counts
    are zeroed just before each run and read just after. Checks: the
    composed and the fused-head curves agree with the fused-attention
-   curve within rtol 1e-3; every fused step launched each flash kernel
-   18 times (6 encoder, 6 causal decoder and 6 cross attentions) and the
-   composed run none; every fused-head step launched the fused-CE
+   curve within rtol 1e-3; every fused step launched the flash forward
+   and ``flash_bwd`` 18 times each (6 encoder, 6 causal decoder and 6
+   cross attentions), the dQ and dK/dV kernels never, and the composed
+   run none; every fused-head step launched the fused-CE
    forward and backward once each and the other runs none. An
    evaluation forward (``is_train=False``) with the fused head must
    equal the unfused one within rtol 1e-4 and launch the forward kernel
@@ -255,7 +269,10 @@ final line:
     pull, write-back, install, model step), hit rates by unique id and by
     occurrence, misses and evictions a step, pull and push bytes a step,
     peak memory and a 3-step profiler window.
-18. Report: a ``{"kernels": [...]}`` line (fifteen kernels), then, last,
+18. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+    functions of the JAX package that reach ``pl.pallas_call``, with the
+    flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
+    that run above its range), then, last,
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -292,6 +309,7 @@ FLASH_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 FLASH_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 FLASH_VARIANTS = {"full": (False, 0.0), "causal": (True, 0.0),
                   "dropout": (False, 0.1)}
+FLASH_LOW_STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 FCE_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 FCE_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 FCE_EDGE = (1000, 100, 1003)       # N, D, V off every tile multiple
@@ -673,24 +691,29 @@ def slice_phase(torch, dev, card):
 
 # -- phase 5: flash kernels -------------------------------------------------
 
-def flash_cost(bh, tq, tk, d, causal):
-    """(FLOPs, bytes) of the forward, dQ and dK/dV at these shapes: 4, 6
-    and 8 FLOPs per visible (query, key) pair and head-dim element; each
-    input read once and each output written once."""
+def flash_cost(bh, tq, tk, d, causal, elem=4):
+    """(FLOPs, bytes) of the forward, dQ, dK/dV and the one-pass backward
+    at these shapes: 4, 6, 8 and 10 FLOPs per visible (query, key) pair and
+    head-dim element; each input read once and each output written once
+    (``elem`` bytes an operand value; the rows are fp32)."""
     q_off = tk - tq
     pairs = sum(min(tk, max(0, q_off + i + 1)) for i in range(tq)) \
         if causal else tq * tk
-    mat_q, mat_k, row = bh * tq * d * 4, bh * tk * d * 4, bh * tq * 4
+    mat_q, mat_k, row = bh * tq * d * elem, bh * tk * d * elem, bh * tq * 4
     return {"flash_fwd": (4 * bh * pairs * d, mat_q + 2 * mat_k + mat_q
                           + row),
             "flash_dq": (6 * bh * pairs * d, 2 * mat_q + 2 * mat_k
                          + 2 * row + mat_q),
             "flash_dkv": (8 * bh * pairs * d, 2 * mat_q + 2 * mat_k
-                          + 2 * row + 2 * mat_k)}
+                          + 2 * row + 2 * mat_k),
+            "flash_bwd": (10 * bh * pairs * d, 2 * mat_q + 2 * mat_k
+                          + 2 * row + mat_q + 2 * mat_k)}
 
 
-def bound_of(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound_of(flops, nbytes, rate=FP32_FLOPS_PER_S):
+    """(ms, what bounds it): the larger of the FLOPs at ``rate`` and the
+    bytes at the card's memory rate."""
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -701,9 +724,21 @@ def close(got, want, tol):
         torch.isfinite(got).all())
 
 
+def low_tol(torch, want):
+    """bf16 / fp16 against the plain version in the same dtype: one step
+    of the dtype at the largest magnitude plus one of each element (the
+    forward's online softmax rounds p against a running max; sums in
+    another order)."""
+    step = FLASH_LOW_STEP[str(want.dtype).split(".")[1]]
+    return dict(rtol=step, atol=step * float(want.float().abs().max()))
+
+
 def flash_library_ms(torch, fa, q, k, v, g, heads, causal, scale, flush):
     """The library yardstick: one SDPA call (dropout off) and its
-    backward, held to the plain versions first; their times by kernel."""
+    backward, held to the plain versions first (fp32 within
+    FLASH_GRAD_TOL, bf16 / fp16 within ``low_tol``); their times by kernel.
+    The backward computes dQ, dK and dV in one call: it is the yardstick of
+    ``flash_bwd`` and of the dQ + dK/dV pair together."""
     import torch.nn.functional as F
     bh, t, d = q.shape
     q4, k4, v4 = (x.view(bh // heads, heads, t, d).detach().requires_grad_()
@@ -717,33 +752,41 @@ def flash_library_ms(torch, fa, q, k, v, g, heads, causal, scale, flush):
     lib_grads = torch.autograd.grad(lib_out, (q4, k4, v4), g4,
                                     retain_graph=True)
     o0, lse0 = fa.flash_fwd_ref(q, k, v, causal, scale)
-    d0 = (o0 * g).sum(-1)
-    want0 = (o0, fa.flash_dq_ref(q, k, v, g, lse0, d0, causal, scale),
-             *fa.flash_dkv_ref(q, k, v, g, lse0, d0, causal, scale))
+    d0 = (o0.float() * g.float()).sum(-1)
+    want0 = (o0, *fa.flash_bwd_ref(q, k, v, g, lse0, d0, causal, scale))
     for name, got, want in zip(("o", "dq", "dk", "dv"),
                                (lib_out, *lib_grads), want0):
-        if not torch.allclose(got.reshape(want.shape), want,
-                              **FLASH_GRAD_TOL):
-            fail(f"flash causal={causal}: the library yardstick's {name} "
-                 f"differs from the plain version at p = 0")
+        tol = FLASH_GRAD_TOL if want.dtype == torch.float32 \
+            else low_tol(torch, want)
+        if not torch.allclose(got.reshape(want.shape).float(), want.float(),
+                              **tol):
+            fail(f"flash causal={causal} {q.dtype}: the library yardstick's "
+                 f"{name} differs from the plain version at p = 0")
 
     def lib_bwd():
         return torch.autograd.grad(lib_out, (q4, k4, v4), g4,
                                    retain_graph=True)
     bwd_ms = time_ms(torch, lib_bwd, flush)
     return {"flash_fwd": time_ms(torch, lib_fwd, flush), "flash_dq": bwd_ms,
-            "flash_dkv": bwd_ms}
+            "flash_dkv": bwd_ms, "flash_bwd": bwd_ms}
 
 
 def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
-               lib_ms=None):
-    """Each flash kernel against its plain version at one shape, then
-    timed beside plain, bound and (``lib_ms``) library."""
+               lib_ms=None, kernels=("flash_fwd", "flash_dq", "flash_dkv",
+                                     "flash_bwd"), timed=True):
+    """Each flash kernel against its plain version at one shape (fp32
+    within FLASH_FWD_TOL / FLASH_GRAD_TOL, bf16 / fp16 within ``low_tol``),
+    ``flash_bwd`` twice with the same bits; then (``timed``) each timed
+    beside plain, its bounds and (``lib_ms``) library. ``flash_bwd`` runs
+    the tensor-core kernel within its range (its bound: three TF32
+    products at 495 TFLOP/s for fp32, 989 TFLOP/s for bf16 / fp16), else
+    the dQ and dK/dV kernels; the others are fp32 SIMT (67 TFLOP/s). Every
+    row also gives the other bound."""
     q, k, v, g = qkvg
     bh, t, d = q.shape
     args = (causal, d ** -0.5, p, seed)
     o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
-    bwd = (q, k, v, g, lse_ref, (o_ref * g).sum(-1))
+    bwd = (q, k, v, g, lse_ref, (o_ref.float() * g.float()).sum(-1))
     runs = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
                           lambda: fa.flash_fwd_ref(q, k, v, *args),
                           ("o", "lse"), FLASH_FWD_TOL),
@@ -752,36 +795,111 @@ def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
                          FLASH_GRAD_TOL),
             "flash_dkv": (lambda: fa.flash_dkv(*bwd, *args),
                           lambda: fa.flash_dkv_ref(*bwd, *args),
-                          ("dk", "dv"), FLASH_GRAD_TOL)}
-    cost = flash_cost(bh, t, t, d, causal)
+                          ("dk", "dv"), FLASH_GRAD_TOL),
+            "flash_bwd": (lambda: fa.flash_bwd(*bwd, *args),
+                          lambda: fa.flash_bwd_ref(*bwd, *args),
+                          ("dq", "dk", "dv"), FLASH_GRAD_TOL)}
+    low = q.dtype != torch.float32
+    elem = q.element_size()
+    cost = flash_cost(bh, t, t, d, causal, elem)
+    tensor_rate = BF16_FLOPS_PER_S if low else TF32_FLOPS_PER_S / 3
     rows = {}
-    for kname, (fn, ref, names, tol) in runs.items():
+    for kname in kernels:
+        fn, ref, names, tol = runs[kname]
         got, want = fn(), ref()
         torch.cuda.synchronize()
         got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
         err = 0.0
         for name, a, w in zip(names, got, want):
-            err = max(err, float((a - w).abs().max()))
-            if a.shape != w.shape or not close(a, w, tol):
+            wtol = low_tol(torch, w) if low and name != "lse" else tol
+            err = max(err, float((a.float() - w.float()).abs().max()))
+            if a.shape != w.shape or a.dtype != w.dtype or \
+                    not close(a.float(), w.float(), wtol):
                 fail(f"flash {label}: {name} differs from the plain version "
-                     f"(max abs err {err}, tolerance {tol})")
+                     f"(max abs err {err}, tolerance {wtol})")
+        route = kname
+        if kname == "flash_bwd":
+            route = fa.bwd_kernel(t, d)
+            again = fn()
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                fail(f"flash {label}: a second flash_bwd gave other bits")
         flops, nbytes = cost[kname]
-        bound_ms, bound_by = bound_of(flops, nbytes)
+        simt_ms, simt_by = bound_of(flops, nbytes)
+        tc_ms, tc_by = bound_of(flops, nbytes, tensor_rate)
+        on_tc = route == "flash_bwd"
         row = rows[kname] = {
-            "max_abs_err": err, "ms": time_ms(torch, fn, flush),
-            "plain_ms": time_ms(torch, ref, flush),
-            "library_ms": lib_ms[kname] if lib_ms else None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": nbytes, "kernel_width": fa.kernel_width(kname, d)}
+            "max_abs_err": err, "route": route,
+            "bound_ms": tc_ms if on_tc else simt_ms,
+            "bound_by": tc_by if on_tc else simt_by,
+            "bound_simt_ms": simt_ms, "bound_tensor_ms": tc_ms,
+            "flops": flops, "bytes": nbytes, "dtype": str(q.dtype),
+            "kernel_width": fa.kernel_width(kname, d), "ms": None,
+            "plain_ms": None, "library_ms": None}
+        if not timed:
+            continue
+        row.update(ms=time_ms(torch, fn, flush),
+                   plain_ms=time_ms(torch, ref, flush),
+                   library_ms=lib_ms[kname] if lib_ms else None)
         lib = "" if not lib_ms else (
             f", library {row['library_ms'] * 1e3:.2f} us"
-            f"{' (dq+dk+dv)' if kname != 'flash_fwd' else ''}")
-        print(f"[{card}] {kname} {label} [{bh}x{t}x{d}] (run at head width "
-              f"{row['kernel_width']}): max abs err {err:.3g}; kernel "
-              f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} "
-              f"us{lib}, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            f"{' (dQ+dK+dV)' if kname != 'flash_fwd' else ''}")
+        print(f"[{card}] {kname} {label} [{bh}x{t}x{d}] {q.dtype} (run at "
+              f"head width {row['kernel_width']}"
+              f"{', as ' + route if route != kname else ''}): max abs err "
+              f"{err:.3g}; kernel {row['ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms'] * 1e3:.2f} us{lib}, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; SIMT "
+              f"{simt_ms * 1e3:.2f} us, tensor cores {tc_ms * 1e3:.2f} us)")
+    if not timed:
+        print(f"[{card}] flash {label} [{bh}x{t}x{d}] {q.dtype}: "
+              + ", ".join(f"{k} max abs err {r['max_abs_err']:.3g}"
+                          for k, r in rows.items()))
     return rows
+
+
+def flash_function_ms(torch, fa, qkvg, heads, causal, flush, rounds=4):
+    """The whole ``FlashAttention.backward`` (delta = rowsum(o * dO) and
+    one ``flash_bwd``) against SDPA's backward on the same inputs, in
+    turns (ours, library, library, ours) over ``rounds`` rounds: the median
+    of each by CUDA events (the host's time too where it exceeds the
+    device's). Then the device time a call of each, of ``flash_bwd`` alone
+    and (fp32) of the dQ + dK/dV pair, from a profiler window
+    (``kernel_split``): the sum over the kernels of the call."""
+    import torch.nn.functional as F
+    q, k, v, g = qkvg
+    bh, t, d = q.shape
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*(x.view(bh // heads, heads, t, d)
+                               for x in leaves), causal)
+    lib_leaves = [x.view(bh // heads, heads, t, d).detach().requires_grad_()
+                  for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, is_causal=causal)
+    g4 = g.view(bh // heads, heads, t, d)
+
+    def ours():
+        return torch.autograd.grad(out, leaves, g4, retain_graph=True)
+
+    def lib():
+        return torch.autograd.grad(lib_out, lib_leaves, g4, retain_graph=True)
+    times = {"function": [], "library": []}
+    for _ in range(rounds):
+        for name, fn in (("function", ours), ("library", lib),
+                         ("library", lib), ("function", ours)):
+            times[name].append(time_ms(torch, fn, flush, n=20))
+    res = {name: float(np.median(ts)) for name, ts in times.items()}
+    o, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5)
+    args = (q, k, v, g, lse, (o.float() * g.float()).sum(-1), causal,
+            d ** -0.5)
+    device = {"function": ours, "library": lib,
+              "flash_bwd": lambda: fa.flash_bwd(*args)}
+    if q.dtype == torch.float32:
+        device["pair"] = lambda: (fa.flash_dq(*args), fa.flash_dkv(*args))
+    for name, fn in device.items():
+        split = kernel_split(torch, fn, n=10)
+        res[f"{name}_device_ms"] = sum(split.values())
+        res[f"{name}_kernels"] = split
+    return res
 
 
 def flash_block_step(torch, fa, card, dev, d_model, n_head, b=4, t=64,
@@ -823,8 +941,11 @@ def flash_block_step(torch, fa, card, dev, d_model, n_head, b=4, t=64,
     label = (f"attention block d_model {d_model} / {n_head} head(s) (head "
              f"width {d_model // n_head}, run at "
              f"{fa.kernel_width('flash', d_model // n_head)})")
-    if launched != {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}:
-        fail(f"{label}: one step launched {launched}")
+    one = fa.bwd_kernel(t, d_model // n_head) == "flash_bwd"
+    want = {"flash_fwd": 1, "flash_dq": int(not one),
+            "flash_dkv": int(not one), "flash_bwd": int(one)}
+    if launched != want:
+        fail(f"{label}: one step launched {launched}, want {want}")
     errs = {}
     for name, a, w, tol in zip(("out", "dx", "dwq", "dwk", "dwv", "dwo"),
                                fused, composed,
@@ -840,13 +961,15 @@ def flash_block_step(torch, fa, card, dev, d_model, n_head, b=4, t=64,
 
 
 def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
-                widths=FLASH_WIDTHS, blocks=FLASH_BLOCKS):
+                widths=FLASH_WIDTHS, blocks=FLASH_BLOCKS, rounds=4):
     """Each flash kernel against its plain version at the training
-    shapes, timed beside plain, bound and library; then, causal, at the
-    head ``widths`` that the wrappers pad (d_model 96 over 2 heads: 48),
-    run on the widest tiles (256) or take in 256-wide chunks (257, 320),
-    timed beside plain and bound; then one training step of the attention
-    ``blocks`` whose head width is above 256 against the composed block."""
+    shapes, timed beside plain, bounds and library; the same in bf16 (timed)
+    and fp16 for the forward and the one-pass backward; the whole autograd
+    backward against SDPA's in turns; then, causal, at the head ``widths``
+    that the wrappers pad (d_model 96 over 2 heads: 48), run on the widest
+    tiles (256) or take in 256-wide chunks (257, 320), timed beside plain
+    and bound; then one training step of the attention ``blocks`` whose
+    head width is above 256 against the composed block."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     h = h or TRAIN["n_head"]
     t = t or TRAIN["max_len"]
@@ -863,6 +986,33 @@ def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
         for kname, row in flash_rows(torch, fa, card, variant, qkvg, causal,
                                      p, seed, flush, lib_ms).items():
             results[f"{kname}/{variant}"] = row
+    low = {}
+    for dt, timed in ((torch.bfloat16, True), (torch.float16, False)):
+        name = str(dt).split(".")[1]
+        low[name] = x = tuple(a.to(dt) for a in qkvg)
+        lib_ms = flash_library_ms(torch, fa, *x, h, False, d ** -0.5,
+                                  flush) if timed else None
+        for label, causal, p in (("full", False, 0.0),
+                                 ("causal dropout", True, 0.1)):
+            rows = flash_rows(torch, fa, card, f"{label} {name}", x, causal,
+                              p, seed, flush, lib_ms,
+                              kernels=("flash_fwd", "flash_bwd"),
+                              timed=timed and not causal)
+            for kname, row in rows.items():
+                results[f"{kname}/{label.replace(' ', '_')}_{name}"] = row
+    for label, x, causal in (("full", qkvg, False), ("causal", qkvg, True),
+                             ("full bfloat16", low["bfloat16"], False)):
+        r = results[f"function/{label.replace(' ', '_')}"] = \
+            flash_function_ms(torch, fa, x, h, causal, flush, rounds)
+        pair = (f", the dQ + dK/dV pair {r['pair_device_ms'] * 1e3:.2f} us"
+                if "pair_device_ms" in r else "")
+        print(f"[{card}] FlashAttention.backward {label} [{b * h}x{t}x{d}] "
+              f"(delta and flash_bwd) {r['function'] * 1e3:.2f} us, SDPA "
+              f"backward {r['library'] * 1e3:.2f} us ({rounds} rounds in "
+              f"turns, medians by events); device time a call: the "
+              f"Function {r['function_device_ms'] * 1e3:.2f} us, SDPA "
+              f"{r['library_device_ms'] * 1e3:.2f} us, flash_bwd alone "
+              f"{r['flash_bwd_device_ms'] * 1e3:.2f} us{pair}")
     for dw in widths:
         wide = tuple(torch.randn(b * 2, t, dw, generator=gen, device=dev)
                      for _ in range(4))
@@ -1337,7 +1487,12 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
         losses, step_ms, per_step = train(torch, model, opt, feeds[:steps],
                                           counts)
         launched[label] = counts()
-        want = {k: n_attn if kw["fused_attention"] else 0
+        one = fa.bwd_kernel(cfg["max_len"],
+                            cfg["d_model"] // cfg["n_head"]) == "flash_bwd"
+        per_kernel = {"flash_fwd": n_attn, "flash_bwd": n_attn * one,
+                      "flash_dq": n_attn * (not one),
+                      "flash_dkv": n_attn * (not one)}
+        want = {k: per_kernel[k] if kw["fused_attention"] else 0
                 for k in fa.LAUNCHES}
         want.update({k: int(kw.get("fused_head", False))
                      for k in fc.LAUNCHES})
@@ -1386,9 +1541,10 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
         print(f"[{card}] the {label} curve matches the fused_attention one "
               f"within rtol {CURVE_RTOL} (max rel diff "
               f"{max(abs(x - y) / abs(y) for x, y in zip(b, a)):.3g})")
-    print(f"[{card}] each fused step launched each flash kernel {n_attn} "
-          f"times; each fused-head step the fused-CE forward and backward "
-          f"once each")
+    print(f"[{card}] each fused step launched the flash forward and "
+          f"backward {n_attn} times each ({launched['fused_attention']}); "
+          f"each fused-head step the fused-CE forward and backward once "
+          f"each")
     if profile_steps:
         busy = {label: runs[label]["profile"]["device_busy_ms_per_step"]
                 for label in TRAIN_RUNS}
@@ -3121,10 +3277,14 @@ def main():
             "bound_us": m["bound_ms"] * 1e3,
             "launches_per_decode_step": per_layer,
             "launches_per_train_step": 0, "card": card})
-    for kname, line in (("flash_fwd", 189), ("flash_dq", 481),
-                        ("flash_dkv", 504)):
+    for kname, line in (("flash_fwd", "189"), ("flash_bwd", "481, :504"),
+                        ("flash_dq", "481"), ("flash_dkv", "504")):
         m = flash[f"{kname}/full"]
-        kernels.append({
+        variants = list(FLASH_VARIANTS) + (
+            ["full_bfloat16", "causal_dropout_bfloat16", "full_float16",
+             "causal_dropout_float16"]
+            if kname in ("flash_fwd", "flash_bwd") else [])
+        entry = {
             "name": kname, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": flash_launches[kname],
@@ -3133,11 +3293,19 @@ def main():
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
-            "launches_per_train_step": per_step, "card": card,
+            "bound_simt_ms": m["bound_simt_ms"],
+            "bound_tensor_ms": m["bound_tensor_ms"],
+            "launches_per_train_step":
+                flash_launches[kname] // TRAIN_STEPS, "card": card,
             "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "max_abs_err")}
-                         for v in FLASH_VARIANTS}})
+                              "library_ms", "max_abs_err", "dtype")}
+                         for v in variants}}
+        if kname in ("flash_dq", "flash_dkv"):
+            entry["path"] = ("flash_bwd's route at key lengths above "
+                             "512 or head widths above 128; timed here at "
+                             "the main shape beside flash_bwd")
+        kernels.append(entry)
     for kname, line in (("fused_ce_fwd", 185), ("fused_ce_bwd", 234)):
         m = fce[kname]
         kernels.append({
@@ -3218,6 +3386,9 @@ def main():
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
     bf16 = measured["gather_rows/bf16"]
     print(json.dumps({"gather_rows_bf16": bf16, "card": card}))
+    print(json.dumps({"flash": {key: row for key, row in flash.items()
+                                if not key.startswith("block/")},
+                      "card": card}))
     print(json.dumps({"training": runs, "card": card}))
     print(json.dumps({"lstm_kernels": lstm, "lstm_training": lstm_run,
                       "card": card}))

@@ -12,10 +12,14 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``:
   positions.
 - :func:`flash_fwd` -- ``_flash_fwd`` (``:174``): q [BH,Tq,D], k/v
   [BH,Tk,D] -> o [BH,Tq,D], lse [BH,Tq].
+- :func:`flash_bwd` -- ``_flash_bwd_impl`` (``:455``): dQ, dK and dV in
+  one launch on the tensor cores, from q, k, v, dO, lse, delta =
+  rowsum(o * dO) (computed by the caller, ``:471``) and an optional lse
+  cotangent; at key lengths above ``BWD_MAX_TK`` or head widths above 128
+  it runs :func:`flash_dq` and :func:`flash_dkv`.
 - :func:`flash_dq` and :func:`flash_dkv` -- the two kernels of
-  ``_flash_bwd_impl`` (``:455``): dQ, and dK with dV, from q, k, v, dO,
-  lse, delta = rowsum(o * dO) (computed by the caller, ``:471``) and an
-  optional lse cotangent.
+  ``_flash_bwd_impl`` (``:481``, ``:504``) one by one: dQ, and dK with
+  dV (fp32 SIMT kernels, any length and head width).
 - :class:`FlashAttention` and :func:`flash_attention` -- ``flash_attention``
   (``:321``) on [B,H,T,D], differentiable in q, k and v.
 
@@ -24,9 +28,19 @@ Conventions of the TPU kernels: scores ``(q . k) * scale``; causal mask
 -1e30; dropout (upscale_in_train) multiplies the softmax numerator and
 dP only, so ``lse`` stays dropout-free.
 
+Roundings of the TPU kernels, which the plain versions and the kernels
+keep for bf16 and fp16 operands: the scores, their max, sum and lse in
+fp32 from the operands as stored (``_masked_scores``, ``:36-50``); p
+times the keep factor rounded to v's dtype before p . v (``:133-134``);
+dP in fp32; dS rounded to k's dtype for dQ and to q's for dK, p times
+the keep factor to dO's for dV; every sum in fp32; o, dq, dk and dv in
+the dtypes of q, q, k and v, lse in fp32.
+
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
-plain version, CUDA tensors to the kernel (fp32, contiguous), which is
-built on its first launch; anything else raises. The kernels take head
+plain version, CUDA tensors to the kernel (fp32, bf16 or fp16, all of
+one dtype, contiguous), which is built on its first launch; anything
+else raises. The plain versions also take q, k and v of different dtypes,
+as the JAX function does; the kernels do not. The kernels take head
 widths 32, 64, 128 and 256, and above 256 every multiple of 256 (in
 256-wide chunks, each block one chunk of its output tile); the wrappers
 zero-pad q, k, v (and dO) along the head width up to the next of these
@@ -48,13 +62,30 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.ops.kernels import build as _build
 
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd": 0}
 HEAD_DIMS = (32, 64, 128, 256)     # one instantiation each; above 256,
 CHUNK = 256                        # multiples of the 256-wide chunk
+BWD_HEAD_DIMS = (32, 64, 128)      # flash_bwd's tensor-core kernel takes
+BWD_TILE = 64                      # and up to 8 key tiles of 64 (8
+BWD_MAX_TK = 8 * BWD_TILE          # planes of dQ partials)
 NEG = -1e30                        # _NEG: the masked score
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _MASK32 = 0xFFFFFFFF
 _lib = None
+_counts = {}                       # (device, stream) -> flash_bwd's counters
+
+
+def _head_counts(dev, bh: int) -> torch.Tensor:
+    """flash_bwd's counters of finished blocks, at least one a head, for
+    the current stream (launches on one stream run in turn): zeros, which
+    every launch leaves zero (the last block of a head resets its own)."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    counts = _counts.get(key)
+    if counts is None or counts.numel() < bh:
+        counts = _counts[key] = torch.zeros(max(bh, 4096), dtype=torch.int32,
+                                            device=dev)
+    return counts
 
 
 def reset_launches():
@@ -68,12 +99,14 @@ def _kernels():
         lib = _build.load("flash_attention")
         p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
-        tail = [i, i, i, i, i, f, i, u, u, f, p]   # bh tq tk d causal scale
-        lib.paddle_flash_fwd.argtypes = [p] * 5 + tail  # dropout seed ...
+        # bh tq tk d dtype causal scale dropout seed thresh upscale stream
+        tail = [i, i, i, i, i, i, f, i, u, u, f, p]
+        lib.paddle_flash_fwd.argtypes = [p] * 5 + tail
         lib.paddle_flash_dq.argtypes = [p] * 8 + tail
         lib.paddle_flash_dkv.argtypes = [p] * 9 + tail
+        lib.paddle_flash_bwd.argtypes = [p] * 12 + tail
         for fn in (lib.paddle_flash_fwd, lib.paddle_flash_dq,
-                   lib.paddle_flash_dkv):
+                   lib.paddle_flash_dkv, lib.paddle_flash_bwd):
             fn.restype = i
         _lib = lib
     return _lib
@@ -126,9 +159,27 @@ def _tile_keep(seed, dropout_p, bh, tq, tk, dev) -> torch.Tensor:
 
 # -- plain versions ----------------------------------------------------------
 
+def _sum_type(*tensors) -> torch.dtype:
+    """The dtype the plain versions sum in: fp32, or wider if an operand
+    is (fp64 in the tests)."""
+    out = torch.float32
+    for t in tensors:
+        out = torch.promote_types(out, t.dtype)
+    return out
+
+
+def _as(t: torch.Tensor, *dtypes) -> torch.Tensor:
+    """``t`` rounded through each dtype in turn (``t.to(a).to(b)``)."""
+    for dt in dtypes:
+        t = t.to(dt)
+    return t
+
+
 def _scores(q, k, causal, scale):
-    """[BH, Tq, Tk] scaled scores, causal positions at -1e30."""
-    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    """[BH, Tq, Tk] scaled scores, summed in fp32 (or wider) from the
+    operands as stored, causal positions at -1e30."""
+    st = _sum_type(q, k)
+    s = torch.matmul(q.to(st), k.to(st).transpose(1, 2)) * scale
     if causal:
         tq, tk = q.shape[1], k.shape[1]
         qpos = (tk - tq) + torch.arange(tq, device=q.device)
@@ -147,13 +198,16 @@ def flash_fwd_ref(q, k, v, causal: bool, scale: float,
     if dropout_p > 0:
         p = p * _tile_keep(seed, dropout_p, q.shape[0], q.shape[1],
                            k.shape[1], q.device)
-    o = torch.matmul(p, v) / safe_l
-    return o, (m + torch.log(safe_l))[..., 0]
+    st = _sum_type(p, v)
+    o = torch.matmul(_as(p, v.dtype, st), v.to(st)) / safe_l
+    return o.to(q.dtype), (m + torch.log(safe_l))[..., 0]
 
 
 def _probs_and_dp(q, k, v, dout, lse, causal, scale, dropout_p, seed):
-    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
-    dp = torch.matmul(dout, v.transpose(1, 2))
+    s = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None].to(s.dtype))
+    st = _sum_type(dout, v, p)
+    dp = torch.matmul(dout.to(st), v.to(st).transpose(1, 2))
     keep = None
     if dropout_p > 0:
         keep = _tile_keep(seed, dropout_p, q.shape[0], q.shape[1],
@@ -162,14 +216,32 @@ def _probs_and_dp(q, k, v, dout, lse, causal, scale, dropout_p, seed):
     return p, dp, keep
 
 
+def _ds(p, dp, delta, dlse):
+    corr = delta if dlse is None else delta - dlse
+    return p * (dp - corr[..., None].to(p.dtype))
+
+
+def _dq(ds, q, k, scale):
+    """dS (rounded to k's dtype) . k, summed in ds's dtype, in q's."""
+    st = ds.dtype
+    return (torch.matmul(_as(ds, k.dtype, st), k.to(st)) * scale).to(q.dtype)
+
+
+def _dkv(ds, pm, q, k, v, dout, scale):
+    """(dS^T . q, (p keep)^T . dO), dS rounded to q's dtype and p keep to
+    dO's, summed in ds's dtype, in k's and v's."""
+    st = ds.dtype
+    dk = torch.matmul(_as(ds, q.dtype, st).transpose(1, 2), q.to(st)) * scale
+    dv = torch.matmul(_as(pm, dout.dtype, st).transpose(1, 2), dout.to(st))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_dq_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
                  dropout_p: float = 0.0, seed: int = 0, dlse=None):
     """Plain version of :func:`flash_dq`."""
     p, dp, _ = _probs_and_dp(q, k, v, dout, lse, causal, scale, dropout_p,
                              seed)
-    corr = delta if dlse is None else delta - dlse
-    ds = p * (dp - corr[..., None])
-    return torch.matmul(ds, k) * scale
+    return _dq(_ds(p, dp, delta, dlse), q, k, scale)
 
 
 def flash_dkv_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
@@ -177,11 +249,19 @@ def flash_dkv_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
     """Plain version of :func:`flash_dkv`: (dk, dv)."""
     p, dp, keep = _probs_and_dp(q, k, v, dout, lse, causal, scale,
                                 dropout_p, seed)
-    corr = delta if dlse is None else delta - dlse
-    ds = p * (dp - corr[..., None])
     pm = p if keep is None else p * keep
-    return (torch.matmul(ds.transpose(1, 2), q) * scale,
-            torch.matmul(pm.transpose(1, 2), dout))
+    return _dkv(_ds(p, dp, delta, dlse), pm, q, k, v, dout, scale)
+
+
+def flash_bwd_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                  dropout_p: float = 0.0, seed: int = 0, dlse=None):
+    """Plain version of :func:`flash_bwd`: (dq, dk, dv), the scores and
+    dP computed once."""
+    p, dp, keep = _probs_and_dp(q, k, v, dout, lse, causal, scale,
+                                dropout_p, seed)
+    ds = _ds(p, dp, delta, dlse)
+    pm = p if keep is None else p * keep
+    return (_dq(ds, q, k, scale), *_dkv(ds, pm, q, k, v, dout, scale))
 
 
 # -- wrappers ----------------------------------------------------------------
@@ -204,17 +284,27 @@ def _check_qkv(q, k, v, causal):
     return bh, tq, tk, d
 
 
-def _check_kernel_args(name, tensors):
-    """What the kernels take: fp32, contiguous, 16-byte aligned."""
-    for t in tensors:
+def _check_kernel_args(name, operands, rows=()):
+    """What the kernels take: q, k, v (and dO) of one dtype, fp32, bf16
+    or fp16; lse, delta and dlse in fp32; all contiguous and 16-byte
+    aligned. Returns the operands' dtype code."""
+    dtypes = {t.dtype for t in operands}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPES:
+        raise ValueError(f"{name}: the kernels take q, k, v and dO of one "
+                         f"dtype, float32, bfloat16 or float16, got "
+                         f"{[str(t.dtype) for t in operands]} (the plain "
+                         f"versions, on the CPU, take mixed dtypes)")
+    for t in rows:
         if t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes float32, got "
-                             f"{t.dtype}")
+            raise ValueError(f"{name}: lse, delta and dlse must be float32, "
+                             f"got {t.dtype}")
+    for t in (*operands, *rows):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel takes 16-byte aligned "
                              f"tensors")
+    return DTYPES[next(iter(dtypes))]
 
 
 def kernel_width(name: str, d: int) -> int:
@@ -263,7 +353,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float, dropout_p: float = 0.0,
     seed_u, thresh, upscale = dropout_params(dropout_p, seed)
     if not _device.uses_kernel(q, k, v):
         return flash_fwd_ref(q, k, v, causal, scale, dropout_p, seed)
-    _check_kernel_args("flash_fwd", (q, k, v))
+    code = _check_kernel_args("flash_fwd", (q, k, v))
     width = kernel_width("flash_fwd", d)
     q, k, v = padded(width, q, k, v)
     o = torch.empty_like(q)
@@ -271,7 +361,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float, dropout_p: float = 0.0,
     with torch.cuda.device(q.device):
         err = _kernels().paddle_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, tq, tk, width, int(causal), scale,
+            lse.data_ptr(), bh, tq, tk, width, code, int(causal), scale,
             int(dropout_p > 0), seed_u, thresh, upscale,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_fwd")
@@ -290,7 +380,7 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
     if not _device.uses_kernel(q, k, v, dout, *rows):
         return flash_dq_ref(q, k, v, dout, lse, delta, causal, scale,
                             dropout_p, seed, dlse)
-    _check_kernel_args("flash_dq", (q, k, v, dout, *rows))
+    code = _check_kernel_args("flash_dq", (q, k, v, dout), rows)
     if dout.shape != q.shape:
         raise ValueError(f"flash_dq: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
@@ -301,8 +391,8 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
         err = _kernels().paddle_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dq.data_ptr(),
-            bh, tq, tk, width, int(causal), scale, int(dropout_p > 0), seed_u,
-            thresh, upscale, torch.cuda.current_stream().cuda_stream)
+            bh, tq, tk, width, code, int(causal), scale, int(dropout_p > 0),
+            seed_u, thresh, upscale, torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_dq")
     LAUNCHES["flash_dq"] += 1
     return unpadded(d, dq)
@@ -318,7 +408,7 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
     if not _device.uses_kernel(q, k, v, dout, *rows):
         return flash_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
                              dropout_p, seed, dlse)
-    _check_kernel_args("flash_dkv", (q, k, v, dout, *rows))
+    code = _check_kernel_args("flash_dkv", (q, k, v, dout), rows)
     if dout.shape != q.shape:
         raise ValueError(f"flash_dkv: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
@@ -329,7 +419,7 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
         err = _kernels().paddle_flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dk.data_ptr(),
-            dv.data_ptr(), bh, tq, tk, width, int(causal), scale,
+            dv.data_ptr(), bh, tq, tk, width, code, int(causal), scale,
             int(dropout_p > 0), seed_u, thresh, upscale,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_dkv")
@@ -337,11 +427,62 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
     return unpadded(d, dk), unpadded(d, dv)
 
 
+def bwd_kernel(tk: int, d: int) -> str:
+    """The kernel :func:`flash_bwd` launches on a CUDA tensor for key
+    length ``tk`` and head width ``d``: ``"flash_bwd"`` (the tensor-core
+    kernel) within its range, else ``"flash_dq+flash_dkv"``."""
+    width = kernel_width("flash_bwd", d)
+    if width in BWD_HEAD_DIMS and tk <= BWD_MAX_TK:
+        return "flash_bwd"
+    return "flash_dq+flash_dkv"
+
+
+def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
+              dropout_p: float = 0.0, seed: int = 0, dlse=None):
+    """(dQ [BH,Tq,D], dK [BH,Tk,D], dV [BH,Tk,D]) from the inputs of
+    :func:`flash_dq`: one launch of the tensor-core kernel at key lengths
+    up to ``BWD_MAX_TK`` and head widths up to 128, else :func:`flash_dq`
+    and :func:`flash_dkv`."""
+    bh, tq, tk, d = _check_qkv(q, k, v, causal)
+    _check_rows("flash_bwd", bh, tq, lse, delta, dlse)
+    seed_u, thresh, upscale = dropout_params(dropout_p, seed)
+    rows = [t for t in (lse, delta, dlse) if t is not None]
+    if not _device.uses_kernel(q, k, v, dout, *rows):
+        return flash_bwd_ref(q, k, v, dout, lse, delta, causal, scale,
+                             dropout_p, seed, dlse)
+    code = _check_kernel_args("flash_bwd", (q, k, v, dout), rows)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_bwd: dout {tuple(dout.shape)} != q "
+                         f"{tuple(q.shape)}")
+    if bwd_kernel(tk, d) != "flash_bwd":
+        args = (q, k, v, dout, lse, delta, causal, scale, dropout_p, seed,
+                dlse)
+        return (flash_dq(*args), *flash_dkv(*args))
+    width = kernel_width("flash_bwd", d)
+    q, k, v, dout = padded(width, q, k, v, dout)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # each key tile's share of dQ, summed in tile order by the kernel
+    tiles = -(-tk // BWD_TILE)
+    dqp = None if tiles == 1 else torch.empty(
+        (tiles, bh, tq, width), dtype=torch.float32, device=q.device)
+    counts = None if tiles == 1 else _head_counts(q.device, bh)
+    with torch.cuda.device(q.device):
+        err = _kernels().paddle_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(dqp), _ptr(counts), bh, tq,
+            tk, width, code, int(causal), scale, int(dropout_p > 0), seed_u,
+            thresh, upscale, torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "flash_bwd")
+    LAUNCHES["flash_bwd"] += 1
+    return unpadded(d, dq), unpadded(d, dk), unpadded(d, dv)
+
+
 class FlashAttention(torch.autograd.Function):
     """o = attention(q, k, v) on [BH,T,D]; the forward runs
-    :func:`flash_fwd`, the backward :func:`flash_dq` and
-    :func:`flash_dkv` from the saved (q, k, v, o, lse), regenerating the
-    dropout mask from the seed (the custom VJP of ``:320-550``)."""
+    :func:`flash_fwd`, the backward :func:`flash_bwd` from the saved (q,
+    k, v, o, lse), regenerating the dropout mask from the seed (the
+    custom VJP of ``:320-550``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
@@ -354,9 +495,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        delta = (o * dout).sum(dim=-1)                  # rowsum(o * dO)
-        dq = flash_dq(q, k, v, dout, lse, delta, *ctx.args)
-        dk, dv = flash_dkv(q, k, v, dout, lse, delta, *ctx.args)
+        st = _sum_type(o, dout)
+        delta = (o.to(st) * dout.to(st)).sum(dim=-1)    # rowsum(o * dO)
+        dq, dk, dv = flash_bwd(q, k, v, dout, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

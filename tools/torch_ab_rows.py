@@ -12,11 +12,19 @@ into the checkout's own ``build/``; both checkouts must share the
 wrappers' signatures) and the timing, inputs and shapes from this
 checkout's ``chip_smoke.py``: ``time_ms`` (CUDA events, L2 flushed before
 each call), ``fce_inputs`` at Transformer-base's head (N 4096, D 512,
-V 32000, label smoothing 0.1) in fp32 and bf16, and ``EMBED_POOL`` with
+V 32000, label smoothing 0.1) in fp32 and bf16, ``EMBED_POOL`` with
 ``ragged_lens`` for the ``fused_embedding_seq_pool`` op program's shape
-(V 5000, D 128, B 128, T 100). It prints one JSON line: the card and the
-median time of the fused-CE forward and backward and of the embedding
-gather + pool.
+(V 5000, D 128, B 128, T 100), and Transformer-base's attention shape (B*H
+256, T 128, D 64). It prints one JSON line: the card and the median time
+of the fused-CE forward and backward, of the embedding gather + pool, and
+of the flash-attention backward in fp32 (full, causal) and bf16 (full):
+the checkout's ``flash_bwd`` (where it has none, its ``flash_dq`` and
+``flash_dkv`` in turn), the whole autograd backward of its
+``flash_attention`` (delta included), and SDPA's backward on the same
+inputs (dQ, dK and dV in one call), each by CUDA events (``_us``; the
+host's time too where the call's host side outlasts its device work) and
+by device time from a profiler window (``_device_us``). A row the
+checkout cannot run (bf16 before the kernels took it) is null.
 """
 
 from __future__ import annotations
@@ -69,7 +77,67 @@ def main():
     lens = torch.from_numpy(cs.ragged_lens(rng, b, t)).to(dev)
     out["embed_pool_us"] = cs.time_ms(
         torch, lambda: ep.fused_embed_seq_pool(table, ids, lens), flush) * 1e3
+    out.update(flash_rows(cs, torch, dev, flush))
     print(json.dumps(out), flush=True)
+
+
+def flash_rows(cs, torch, dev, flush):
+    """Median us of the flash backward, the autograd backward and SDPA's
+    backward at Transformer-base's attention shape, per variant."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    heads, t = cs.TRAIN["n_head"], cs.TRAIN["max_len"]
+    d = cs.TRAIN["d_model"] // heads
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = [torch.randn(cs.BATCH * heads, t, d, generator=gen, device=dev)
+            for _ in range(4)]
+    rows = {}
+    for name, dt, causal in (("fp32_full", torch.float32, False),
+                             ("fp32_causal", torch.float32, True),
+                             ("bf16_full", torch.bfloat16, False)):
+        q, k, v, g = (x.to(dt) for x in base)
+        shape = (cs.BATCH, heads, t, d)
+        leaves = [x.view(shape).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        def lib():
+            return torch.autograd.grad(lib_out, leaves, g.view(shape),
+                                       retain_graph=True)
+        rows[f"sdpa_bwd_{name}_us"] = 1e3 * cs.time_ms(torch, lib, flush)
+        rows[f"sdpa_bwd_{name}_device_us"] = device_us(cs, torch, lib)
+        try:
+            o, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5)
+            delta = (o.float() * g.float()).sum(-1)
+            args = (q, k, v, g, lse, delta, causal, d ** -0.5)
+            one = getattr(fa, "flash_bwd", None)
+
+            def bwd():
+                if one is None:                    # before the one-pass kernel
+                    return fa.flash_dq(*args), fa.flash_dkv(*args)
+                return one(*args)
+            rows[f"flash_bwd_{name}_us"] = 1e3 * cs.time_ms(torch, bwd, flush)
+            rows[f"flash_bwd_{name}_device_us"] = device_us(cs, torch, bwd)
+            ours = [x.view(shape).detach().requires_grad_()
+                    for x in (q, k, v)]
+            out = fa.flash_attention(*ours, causal)
+
+            def function():
+                return torch.autograd.grad(out, ours, g.view(shape),
+                                           retain_graph=True)
+            rows[f"function_bwd_{name}_us"] = 1e3 * cs.time_ms(
+                torch, function, flush)
+            rows[f"function_bwd_{name}_device_us"] = device_us(cs, torch,
+                                                               function)
+        except ValueError:             # the parent's kernels take fp32 only
+            for kind in ("flash_bwd", "function_bwd"):
+                rows[f"{kind}_{name}_us"] = None
+                rows[f"{kind}_{name}_device_us"] = None
+    return rows
+
+
+def device_us(cs, torch, fn):
+    """Device us a call of ``fn``: its kernels' time summed over a profiler
+    window (``chip_smoke.kernel_split``), host time left out."""
+    return 1e3 * sum(cs.kernel_split(torch, fn, n=10).values())
 
 
 if __name__ == "__main__":
