@@ -47,15 +47,20 @@ final line:
    a library yardstick: ``scaled_dot_product_attention`` for the forward
    (at p = 0: its dropout bits differ) and that call's backward, which
    computes dQ, dK and dV at once (against ``flash_bwd`` and the pair),
-   held to allclose with the plain versions first. The same shape in bf16
+   held to allclose with the plain versions first. The library's times
+   are its device time a call (a profiler window: its autograd calls are
+   host-bound, so their CUDA events read the host's time), beside the
+   kernel's own device time. The same shape in bf16
    and fp16 for the forward and ``flash_bwd``, full and causal with dropout
    0.1, against the plain versions in the working type (one step of the
    dtype at the largest magnitude plus one of each element), bf16 full
    timed beside plain, bound (989 TFLOP/s) and SDPA's bf16 backward. Then
    the whole ``FlashAttention.backward`` (delta and ``flash_bwd``) against
    SDPA's backward, fp32 full and causal and bf16 full, in turns over 4
-   rounds. Then, causal, at head widths the wrappers pad or run on the
-   widest tiles (48: d_model 96 over 2 heads, run at 64; 256) or take in
+   rounds, and by device time: the Function against SDPA's whole backward,
+   ``flash_bwd`` alone against SDPA's longest kernel alone. Then, causal,
+   at head widths the wrappers pad or run on the widest tiles (48:
+   d_model 96 over 2 heads, run at 64; 256) or take in
    256-wide chunks (257 and 320, run at 512), each kernel against its
    plain version, timed beside plain and bound; and one training step of
    a causal attention block at d_model 257 over 1 head and 640 over 2
@@ -736,9 +741,11 @@ def low_tol(torch, want):
 def flash_library_ms(torch, fa, q, k, v, g, heads, causal, scale, flush):
     """The library yardstick: one SDPA call (dropout off) and its
     backward, held to the plain versions first (fp32 within
-    FLASH_GRAD_TOL, bf16 / fp16 within ``low_tol``); their times by kernel.
-    The backward computes dQ, dK and dV in one call: it is the yardstick of
-    ``flash_bwd`` and of the dQ + dK/dV pair together."""
+    FLASH_GRAD_TOL, bf16 / fp16 within ``low_tol``); the device time a
+    call of each (``kernel_split``: SDPA's calls are host-bound, so CUDA
+    events would read the host's time), and under ``event_`` keys their
+    CUDA-event times. The backward computes dQ, dK and dV in one call: it
+    is the yardstick of ``flash_bwd`` and of the dQ + dK/dV pair together."""
     import torch.nn.functional as F
     bh, t, d = q.shape
     q4, k4, v4 = (x.view(bh // heads, heads, t, d).detach().requires_grad_()
@@ -766,9 +773,18 @@ def flash_library_ms(torch, fa, q, k, v, g, heads, causal, scale, flush):
     def lib_bwd():
         return torch.autograd.grad(lib_out, (q4, k4, v4), g4,
                                    retain_graph=True)
-    bwd_ms = time_ms(torch, lib_bwd, flush)
-    return {"flash_fwd": time_ms(torch, lib_fwd, flush), "flash_dq": bwd_ms,
-            "flash_dkv": bwd_ms, "flash_bwd": bwd_ms}
+    fwd_ms, bwd_ms = (device_ms(torch, fn) for fn in (lib_fwd, lib_bwd))
+    ev_fwd, ev_bwd = (time_ms(torch, fn, flush) for fn in (lib_fwd, lib_bwd))
+    return {"flash_fwd": fwd_ms, "flash_dq": bwd_ms, "flash_dkv": bwd_ms,
+            "flash_bwd": bwd_ms, "event_flash_fwd": ev_fwd,
+            "event_flash_dq": ev_bwd, "event_flash_dkv": ev_bwd,
+            "event_flash_bwd": ev_bwd}
+
+
+def device_ms(torch, fn, n=10):
+    """Device ms a call of ``fn``: its kernels' time summed over a
+    profiler window (``kernel_split``), the host's time left out."""
+    return sum(kernel_split(torch, fn, n=n).values())
 
 
 def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
@@ -777,7 +793,8 @@ def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
     """Each flash kernel against its plain version at one shape (fp32
     within FLASH_FWD_TOL / FLASH_GRAD_TOL, bf16 / fp16 within ``low_tol``),
     ``flash_bwd`` twice with the same bits; then (``timed``) each timed
-    beside plain, its bounds and (``lib_ms``) library. ``flash_bwd`` runs
+    beside plain, its bounds, its device time a call and (``lib_ms``) the
+    library's device time (by events too). ``flash_bwd`` runs
     the tensor-core kernel within its range (its bound: three TF32
     products at 495 TFLOP/s for fp32, 989 TFLOP/s for bf16 / fp16), else
     the dQ and dK/dV kernels; the others are fp32 SIMT (67 TFLOP/s). Every
@@ -834,15 +851,24 @@ def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
             "bound_simt_ms": simt_ms, "bound_tensor_ms": tc_ms,
             "flops": flops, "bytes": nbytes, "dtype": str(q.dtype),
             "kernel_width": fa.kernel_width(kname, d), "ms": None,
-            "plain_ms": None, "library_ms": None}
+            "plain_ms": None, "library_ms": None, "device_ms": None,
+            "library_event_ms": None}
         if not timed:
             continue
         row.update(ms=time_ms(torch, fn, flush),
                    plain_ms=time_ms(torch, ref, flush),
-                   library_ms=lib_ms[kname] if lib_ms else None)
-        lib = "" if not lib_ms else (
-            f", library {row['library_ms'] * 1e3:.2f} us"
-            f"{' (dQ+dK+dV)' if kname != 'flash_fwd' else ''}")
+                   device_ms=device_ms(torch, fn))
+        if lib_ms:
+            row.update(library_ms=lib_ms[kname],
+                       library_event_ms=lib_ms[f"event_{kname}"])
+            one_call = " (dQ+dK+dV in one call)" if kname != "flash_fwd" \
+                else ""
+            lib = (f"; device time a call {row['device_ms'] * 1e3:.2f} us "
+                   f"against the library's {row['library_ms'] * 1e3:.2f} us"
+                   f"{one_call} (its events "
+                   f"{row['library_event_ms'] * 1e3:.2f} us)")
+        else:
+            lib = f"; device time a call {row['device_ms'] * 1e3:.2f} us"
         print(f"[{card}] {kname} {label} [{bh}x{t}x{d}] {q.dtype} (run at "
               f"head width {row['kernel_width']}"
               f"{', as ' + route if route != kname else ''}): max abs err "
@@ -858,14 +884,20 @@ def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
     return rows
 
 
-def flash_function_ms(torch, fa, qkvg, heads, causal, flush, rounds=4):
+def flash_function_ms(torch, fa, qkvg, heads, causal, flush, rounds=4,
+                      bwd=None):
     """The whole ``FlashAttention.backward`` (delta = rowsum(o * dO) and
     one ``flash_bwd``) against SDPA's backward on the same inputs, in
     turns (ours, library, library, ours) over ``rounds`` rounds: the median
     of each by CUDA events (the host's time too where it exceeds the
-    device's). Then the device time a call of each, of ``flash_bwd`` alone
-    and (fp32) of the dQ + dK/dV pair, from a profiler window
-    (``kernel_split``): the sum over the kernels of the call."""
+    device's). Then the device time a call of each, of the backward kernel
+    alone (``bwd(*args)`` with the arguments of ``flash_bwd``; by default
+    ``flash_bwd``) and (fp32) of the dQ + dK/dV pair, from a profiler window
+    (``kernel_split``): the sum over the kernels of the call. Like is held
+    against like: the Function against SDPA's whole backward, the kernel
+    alone against SDPA's longest kernel alone (``library_kernel``: its
+    name and ms a call; the rest of SDPA's backward, its delta among it,
+    is elementwise and reduction kernels)."""
     import torch.nn.functional as F
     q, k, v, g = qkvg
     bh, t, d = q.shape
@@ -891,15 +923,26 @@ def flash_function_ms(torch, fa, qkvg, heads, causal, flush, rounds=4):
     o, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5)
     args = (q, k, v, g, lse, (o.float() * g.float()).sum(-1), causal,
             d ** -0.5)
+    bwd = bwd or fa.flash_bwd
     device = {"function": ours, "library": lib,
-              "flash_bwd": lambda: fa.flash_bwd(*args)}
+              "flash_bwd": lambda: bwd(*args)}
     if q.dtype == torch.float32:
         device["pair"] = lambda: (fa.flash_dq(*args), fa.flash_dkv(*args))
     for name, fn in device.items():
         split = kernel_split(torch, fn, n=10)
         res[f"{name}_device_ms"] = sum(split.values())
         res[f"{name}_kernels"] = split
+    top = max(res["library_kernels"].items(), key=lambda kv: kv[1],
+              default=("", 0.0))
+    res["library_kernel"], res["library_kernel_ms"] = short_name(top[0]), \
+        top[1]
     return res
+
+
+def short_name(kernel):
+    """A profiler kernel name up to its argument list, at most 60
+    characters."""
+    return kernel.split("(")[0][:60]
 
 
 def flash_block_step(torch, fa, card, dev, d_model, n_head, b=4, t=64,
@@ -1010,9 +1053,14 @@ def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
               f"(delta and flash_bwd) {r['function'] * 1e3:.2f} us, SDPA "
               f"backward {r['library'] * 1e3:.2f} us ({rounds} rounds in "
               f"turns, medians by events); device time a call: the "
-              f"Function {r['function_device_ms'] * 1e3:.2f} us, SDPA "
-              f"{r['library_device_ms'] * 1e3:.2f} us, flash_bwd alone "
-              f"{r['flash_bwd_device_ms'] * 1e3:.2f} us{pair}")
+              f"Function {r['function_device_ms'] * 1e3:.2f} us against "
+              f"SDPA's backward {r['library_device_ms'] * 1e3:.2f} us; "
+              f"flash_bwd alone {r['flash_bwd_device_ms'] * 1e3:.2f} us "
+              f"against SDPA's longest kernel alone "
+              f"{r['library_kernel_ms'] * 1e3:.2f} us "
+              f"({r['library_kernel']}){pair}; SDPA's backward by kernel: "
+              + ", ".join(f"{short_name(k)} {v_ * 1e3:.2f} us" for k, v_ in
+                          r["library_kernels"].items()))
     for dw in widths:
         wide = tuple(torch.randn(b * 2, t, dw, generator=gen, device=dev)
                      for _ in range(4))
@@ -3295,12 +3343,22 @@ def main():
             "library_ms": m["library_ms"],
             "bound_simt_ms": m["bound_simt_ms"],
             "bound_tensor_ms": m["bound_tensor_ms"],
+            "device_ms": m["device_ms"],
+            "library_event_ms": m["library_event_ms"],
             "launches_per_train_step":
                 flash_launches[kname] // TRAIN_STEPS, "card": card,
             "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "max_abs_err", "dtype")}
+                              "library_ms", "device_ms", "max_abs_err",
+                              "dtype")}
                          for v in variants}}
+        if kname == "flash_bwd":
+            entry["function_vs_library"] = {
+                v: {key: flash[f"function/{v}"][key] for key in
+                    ("function_device_ms", "library_device_ms",
+                     "flash_bwd_device_ms", "library_kernel",
+                     "library_kernel_ms")}
+                for v in ("full", "causal", "full_bfloat16")}
         if kname in ("flash_dq", "flash_dkv"):
             entry["path"] = ("flash_bwd's route at key lengths above "
                              "512 or head widths above 128; timed here at "

@@ -89,7 +89,12 @@
 // block of the head sums every row over the planes in key-tile order (only
 // those whose keys the row's step sees) and sets the counter back to 0. No
 // block waits for another, so a block with few causal steps leaves its SM
-// early. A block that holds every key (tk <= 64) writes dq directly. Every
+// early. A block that holds every key (tk <= 64) writes dq directly. The
+// planes are C times dQ's size, so they grow with the square of the length
+// (BH 256, D 64: 268 MB at T 512 and 1.07 GB at T 1024, against dq's 34 and
+// 67 MB), and the last block holds up to 8 of a row's planes in registers:
+// the kernel takes up to 8 key tiles (tk <= 512), and longer keys run
+// paddle_flash_dq + paddle_flash_dkv, whose memory is linear in T. Every
 // sum runs in one fixed order (the counter only picks which block does
 // the summing): two runs give the same bits. Shared memory at fp32, D 64:
 // 112 KB, two blocks an SM.
@@ -702,7 +707,8 @@ namespace bwd {
 constexpr int kBK = 64;        // keys a block: the M of one warpgroup's wgmma
 constexpr int kBQ = 32;        // queries a step
 constexpr int kThreads = 128;  // one warpgroup
-constexpr int kMaxC = 8;       // key tiles (dQ partial planes): tk <= 512
+constexpr int kMaxC = 8;       // key tiles (dQ partial planes, held in
+                               // registers by the sum): tk <= 512
 
 // The operand kinds: how a value is split for the tensor cores, the depth
 // of one wgmma k-step (32 bytes), and the wgmma itself.

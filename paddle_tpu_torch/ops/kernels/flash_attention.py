@@ -66,8 +66,9 @@ LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd": 0}
 HEAD_DIMS = (32, 64, 128, 256)     # one instantiation each; above 256,
 CHUNK = 256                        # multiples of the 256-wide chunk
 BWD_HEAD_DIMS = (32, 64, 128)      # flash_bwd's tensor-core kernel takes
-BWD_TILE = 64                      # and up to 8 key tiles of 64 (8
-BWD_MAX_TK = 8 * BWD_TILE          # planes of dQ partials)
+BWD_TILE = 64                      # and up to 8 key tiles of 64: a
+BWD_MAX_TK = 8 * BWD_TILE          # plane of dQ partials each (scratch
+                                   # of C x dQ's size, square in T)
 NEG = -1e30                        # _NEG: the masked score
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 

@@ -26,6 +26,7 @@ import torch
 from paddle_tpu_torch.ops import attention_block as tab
 from paddle_tpu_torch.ops import nn_ops as tnn
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels import fused_ce as tfc
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -316,8 +317,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
 
 def test_bwd_kernel_range():
     """Which kernel flash_bwd launches on the card: the tensor-core kernel
-    at head widths up to 128 (after padding) and key lengths up to 512
-    (clusters of up to 8 key tiles of 64), the SIMT pair beyond."""
+    at head widths up to 128 (after padding) and key lengths up to 512 (up
+    to 8 key tiles of 64, each a plane of dQ partials), the SIMT pair
+    beyond."""
     assert tfa.BWD_MAX_TK == 512
     one = "flash_bwd"
     two = "flash_dq+flash_dkv"
@@ -325,6 +327,62 @@ def test_bwd_kernel_range():
                         (33, 48, one), (513, 64, two), (128, 129, two),
                         (128, 256, two), (4096, 64, two), (64, 320, two)):
         assert tfa.bwd_kernel(tk, d) == want, (tk, d)
+
+
+# (case, shape [BH, Tq, Tk, D]): the main path's attention shape and the
+# CASES shapes, at which one TF32 term per product breaks GRAD_TOL
+TF32_CASES = [(c, (256, 128, 128, 64)) for c in ("full", "causal",
+                                                 "dropout")] + \
+    [(c, (6, CASES[c][1], CASES[c][2], 8)) for c in sorted(CASES)]
+
+
+@pytest.mark.parametrize("case,shape", TF32_CASES,
+                         ids=[f"{c}-{s[0]}x{s[1]}x{s[2]}x{s[3]}"
+                              for c, s in TF32_CASES])
+def test_three_tf32_terms_hold_the_fp32_tolerance(monkeypatch, case, shape):
+    """Why flash_bwd's fp32 kernel takes three TF32 products, and that the
+    card's check (the kernel against flash_bwd_ref within GRAD_TOL) tells
+    them from one. flash_bwd_ref runs with every product (S, dP, dV, dK,
+    dQ) made as the kernel's wgmma makes it: each operand split hi =
+    tf32(a), lo = tf32(a - hi), the two small products summed first, then
+    hi * hi, in fp32 (three terms); or hi * hi alone (one term). Against
+    the fp32 plain version, three terms stay far inside GRAD_TOL (below 5 %
+    of it at these seeds), one term breaks it in each of dq, dk and dv
+    (by 3.8 to 29 times at these seeds)."""
+    bh, tq, tk, d = shape
+    causal, p = CASES[case][0], (0.1 if case == "dropout" and bh == 256
+                                 else CASES[case][3])
+    rng = np.random.RandomState(5)
+    q, g = (torch.from_numpy(rng.randn(bh, tq, d).astype(np.float32))
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(bh, tk, d).astype(np.float32))
+            for _ in range(2))
+    args = (causal, d ** -0.5, p, SEED)
+    o, lse = tfa.flash_fwd_ref(q, k, v, *args)
+    bwd = (q, k, v, g, lse, (o * g).sum(-1))
+    want = tfa.flash_bwd_ref(*bwd, *args)
+    matmul = torch.matmul
+
+    def one(a, b):
+        return matmul(tfc.split_tf32(a.contiguous())[0],
+                      tfc.split_tf32(b.contiguous())[0])
+
+    def three(a, b):
+        (ah, al), (bh_, bl) = (tfc.split_tf32(x.contiguous())
+                               for x in (a, b))
+        return (matmul(ah, bl) + matmul(al, bh_)) + matmul(ah, bh_)
+
+    def excess(got, ref):
+        return float(((got - ref).abs() / (GRAD_TOL["atol"] + GRAD_TOL[
+            "rtol"] * ref.abs())).max())
+    for terms, inside in ((three, True), (one, False)):
+        monkeypatch.setattr(torch, "matmul", terms)
+        got = tfa.flash_bwd_ref(*bwd, *args)
+        monkeypatch.setattr(torch, "matmul", matmul)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            e = excess(a, w)
+            assert (e < 0.05 if inside else e > 2.0), \
+                (terms.__name__, name, e)
 
 
 def test_lse_cotangent_enters_ds():

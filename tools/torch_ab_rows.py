@@ -17,14 +17,15 @@ V 32000, label smoothing 0.1) in fp32 and bf16, ``EMBED_POOL`` with
 (V 5000, D 128, B 128, T 100), and Transformer-base's attention shape (B*H
 256, T 128, D 64). It prints one JSON line: the card and the median time
 of the fused-CE forward and backward, of the embedding gather + pool, and
-of the flash-attention backward in fp32 (full, causal) and bf16 (full):
-the checkout's ``flash_bwd`` (where it has none, its ``flash_dq`` and
-``flash_dkv`` in turn), the whole autograd backward of its
-``flash_attention`` (delta included), and SDPA's backward on the same
-inputs (dQ, dK and dV in one call), each by CUDA events (``_us``; the
-host's time too where the call's host side outlasts its device work) and
-by device time from a profiler window (``_device_us``). A row the
-checkout cannot run (bf16 before the kernels took it) is null.
+of the flash-attention backward in fp32 (full, causal) and bf16 (full)
+from ``flash_function_ms``: the whole autograd backward of the checkout's
+``flash_attention`` (delta included) and SDPA's backward on the same
+inputs (dQ, dK and dV in one call), by CUDA events (``_us``; the host's
+time too where the call's host side outlasts its device work) and by
+device time from a profiler window (``_device_us``), and by device time
+the checkout's ``flash_bwd`` alone (where it has none, its ``flash_dq``
+and ``flash_dkv``) and SDPA's longest kernel alone (``sdpa_kernel_``).
+The bf16 rows of a checkout whose kernels take fp32 only are null.
 """
 
 from __future__ import annotations
@@ -82,62 +83,43 @@ def main():
 
 
 def flash_rows(cs, torch, dev, flush):
-    """Median us of the flash backward, the autograd backward and SDPA's
-    backward at Transformer-base's attention shape, per variant."""
-    import torch.nn.functional as F
+    """The flash backward at Transformer-base's attention shape, per
+    variant, from ``chip_smoke.flash_function_ms`` (4 rounds in turns):
+    the checkout's autograd backward and SDPA's by events, and by device
+    time the autograd backward, SDPA's, the checkout's backward kernel
+    alone (``flash_bwd``; where it has none, its ``flash_dq`` and
+    ``flash_dkv``) and SDPA's longest kernel alone, in us. A checkout
+    whose kernels take fp32 only gets null bf16 rows."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     heads, t = cs.TRAIN["n_head"], cs.TRAIN["max_len"]
     d = cs.TRAIN["d_model"] // heads
     gen = torch.Generator(device=dev).manual_seed(5)
     base = [torch.randn(cs.BATCH * heads, t, d, generator=gen, device=dev)
             for _ in range(4)]
+    one = getattr(fa, "flash_bwd", None)
+    fp32_only = one is None                # before the one-pass kernel
+
+    def pair(*args):
+        return fa.flash_dq(*args), fa.flash_dkv(*args)
+    keys = {"function_bwd_{}_us": "function", "sdpa_bwd_{}_us": "library",
+            "function_bwd_{}_device_us": "function_device_ms",
+            "sdpa_bwd_{}_device_us": "library_device_ms",
+            "flash_bwd_{}_device_us": "flash_bwd_device_ms",
+            "sdpa_kernel_{}_device_us": "library_kernel_ms"}
     rows = {}
     for name, dt, causal in (("fp32_full", torch.float32, False),
                              ("fp32_causal", torch.float32, True),
                              ("bf16_full", torch.bfloat16, False)):
-        q, k, v, g = (x.to(dt) for x in base)
-        shape = (cs.BATCH, heads, t, d)
-        leaves = [x.view(shape).detach().requires_grad_() for x in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-        def lib():
-            return torch.autograd.grad(lib_out, leaves, g.view(shape),
-                                       retain_graph=True)
-        rows[f"sdpa_bwd_{name}_us"] = 1e3 * cs.time_ms(torch, lib, flush)
-        rows[f"sdpa_bwd_{name}_device_us"] = device_us(cs, torch, lib)
-        try:
-            o, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5)
-            delta = (o.float() * g.float()).sum(-1)
-            args = (q, k, v, g, lse, delta, causal, d ** -0.5)
-            one = getattr(fa, "flash_bwd", None)
-
-            def bwd():
-                if one is None:                    # before the one-pass kernel
-                    return fa.flash_dq(*args), fa.flash_dkv(*args)
-                return one(*args)
-            rows[f"flash_bwd_{name}_us"] = 1e3 * cs.time_ms(torch, bwd, flush)
-            rows[f"flash_bwd_{name}_device_us"] = device_us(cs, torch, bwd)
-            ours = [x.view(shape).detach().requires_grad_()
-                    for x in (q, k, v)]
-            out = fa.flash_attention(*ours, causal)
-
-            def function():
-                return torch.autograd.grad(out, ours, g.view(shape),
-                                           retain_graph=True)
-            rows[f"function_bwd_{name}_us"] = 1e3 * cs.time_ms(
-                torch, function, flush)
-            rows[f"function_bwd_{name}_device_us"] = device_us(cs, torch,
-                                                               function)
-        except ValueError:             # the parent's kernels take fp32 only
-            for kind in ("flash_bwd", "function_bwd"):
-                rows[f"{kind}_{name}_us"] = None
-                rows[f"{kind}_{name}_device_us"] = None
+        if fp32_only and dt != torch.float32:
+            rows.update({key.format(name): None for key in keys})
+            rows[f"sdpa_kernel_{name}"] = None
+            continue
+        r = cs.flash_function_ms(torch, fa, tuple(x.to(dt) for x in base),
+                                 heads, causal, flush, bwd=one or pair)
+        rows.update({key.format(name): 1e3 * r[src]
+                     for key, src in keys.items()})
+        rows[f"sdpa_kernel_{name}"] = r["library_kernel"]
     return rows
-
-
-def device_us(cs, torch, fn):
-    """Device us a call of ``fn``: its kernels' time summed over a profiler
-    window (``chip_smoke.kernel_split``), host time left out."""
-    return 1e3 * sum(cs.kernel_split(torch, fn, n=10).values())
 
 
 if __name__ == "__main__":
