@@ -32,9 +32,10 @@ final line:
    first tokens equal the oracle's and a second int8 run replays the
    first exactly, and every decode step launched its kernel twice per
    layer.
-5. Flash kernels: the flash-attention forward, the one-pass backward
-   (``flash_bwd``: dQ, dK and dV in one launch on the tensor cores, fp32
-   through 3xTF32) and the dQ and dK/dV kernels (which ``flash_bwd`` runs
+5. Flash kernels: the flash-attention forward (on the tensor cores up to
+   head width 128, fp32 through 3xTF32; a second call bit-equal), the
+   one-pass backward (``flash_bwd``: dQ, dK and dV in one launch on the
+   tensor cores) and the dQ and dK/dV kernels (which ``flash_bwd`` runs
    above its range: key length 512, head width 128) at the attention
    shapes of phase 7 (B*H 256, T 128, D 64), non-causal, causal, and
    non-causal with dropout 0.1, each against its plain PyTorch version on
@@ -58,7 +59,12 @@ final line:
    the whole ``FlashAttention.backward`` (delta and ``flash_bwd``) against
    SDPA's backward, fp32 full and causal and bf16 full, in turns over 4
    rounds, and by device time: the Function against SDPA's whole backward,
-   ``flash_bwd`` alone against SDPA's longest kernel alone. Then, causal,
+   ``flash_bwd`` alone against SDPA's longest kernel alone. q, k and v of
+   mixed dtypes (q bf16 with k, v fp32; v fp16 with q, k fp32; dO in q's
+   dtype), causal with dropout 0.1: the forward and ``flash_bwd`` against
+   the plain versions, each output in the reference's dtype, within one
+   step of the narrow dtype. The forward at key length 1024 (B*H 16),
+   causal with dropout, fp32 and bf16. Then, causal,
    at head widths the wrappers pad or run on the widest tiles (48:
    d_model 96 over 2 heads, run at 64; 256) or take in
    256-wide chunks (257 and 320, run at 512), each kernel against its
@@ -119,8 +125,10 @@ final line:
    below the first. Prints each run's step p50 (host clock around steps
    that end in a synchronize), tokens/s, peak memory, and a
    ``torch.profiler`` window of 3 steps: device busy per step, idle
-   share, and the flash and fused-CE kernels' shares of device time;
-   then the three runs' device busy a step side by side.
+   share, and the flash and fused-CE kernels' shares of device time, and
+   by profiler name the forward's tensor-core kernel and ``flash_bwd``
+   (each 18 a step, the SIMT forward none: checked) with their launches
+   and device time a step; then the three runs' device busy side by side.
 8. LSTM kernels: the whole-sequence LSTM forward and backward kernels
    at the shapes of phase 9 (T 100, B 64, H 512; seeded ``xproj`` x 0.4,
    ``peep`` x 0.1, ``h0, c0`` x 0.3, ``w`` x H**-0.5, ragged lengths
@@ -142,9 +150,12 @@ final line:
    B 64 at H 1024 (timed beside plain and bound) and H 700, and above
    16 units on every SM (groups of 16 units in passes): T 4, B 2 at
    H 2113, the same checks. Each shape prints which backward kernel ran
-   (``fused_rnn.lstm_bwd_kernel_for``: the cluster kernel with its
-   cluster size, units and blocks, or the grid kernel). At the training
-   shape the backward is also split by kernel in a profiler window (the
+   (``fused_rnn.lstm_kernel_for``: the cluster kernel with its cluster
+   size, units and blocks, or the grid kernel) in each direction. At the
+   training shape the forward (the cluster kernel) runs twice with the
+   same bits and is held to the grid kernel in the same run (the plan
+   emptied; timed), bound at 3xTF32 and at the SIMT rate; the backward is
+   also split by kernel in a profiler window (the
    time loop, the ``dw`` product, the rest), timed against the grid
    kernel in the same run (the plan emptied), and bound twice: its
    FLOPs as three TF32 products at 495 TFLOP/s and at 67 TFLOP/s fp32
@@ -160,7 +171,9 @@ final line:
    plain versions) from the same weights and feeds; losses finite, the
    last below the first. Prints step p50, words/s (valid and padded),
    peak memory and a 3-step ``torch.profiler`` window with the LSTM
-   kernels' share of device time.
+   kernels' share of device time, and by profiler name each LSTM kernel's
+   launches and device time a step (the cluster forward and backward 3 a
+   step each, the grid kernels none: checked).
 10. GRU kernels: the whole-sequence GRU forward and backward kernels at
     the shapes of phase 11 (T 32, B 64, H 512; seeded ``xproj`` x 0.4,
     ``w`` x H**-0.5, ``h0`` x 0.3, ragged lengths 1-32 with one full row,
@@ -294,7 +307,7 @@ FP32_FLOPS_PER_S = 67e12           # fp32 outside the tensor cores, same
 TF32_FLOPS_PER_S = 495e12          # dense tensor cores, same
 BF16_FLOPS_PER_S = 989e12
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
-FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cuh"
 FCE_SOURCE = "paddle_tpu_torch/csrc/fused_ce.cu"
 LM = dict(vocab=32000, d_model=512, d_inner=2048, n_head=8, n_layer=6)
 SERVE = dict(n_slots=16, prompt_buckets=(32, 64, 128), page_size=16,
@@ -315,6 +328,9 @@ FLASH_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 FLASH_VARIANTS = {"full": (False, 0.0), "causal": (True, 0.0),
                   "dropout": (False, 0.1)}
 FLASH_LOW_STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+FLASH_MIXED = (("bfloat16", "float32", "float32"),   # q, k, v as the CPU
+               ("float32", "float32", "float16"))    # test mixes them
+FLASH_LONG = 1024                  # a key length past flash_bwd's 512
 FCE_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 FCE_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 FCE_EDGE = (1000, 100, 1003)       # N, D, V off every tile multiple
@@ -792,13 +808,14 @@ def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
                                      "flash_bwd"), timed=True):
     """Each flash kernel against its plain version at one shape (fp32
     within FLASH_FWD_TOL / FLASH_GRAD_TOL, bf16 / fp16 within ``low_tol``),
-    ``flash_bwd`` twice with the same bits; then (``timed``) each timed
-    beside plain, its bounds, its device time a call and (``lib_ms``) the
-    library's device time (by events too). ``flash_bwd`` runs
-    the tensor-core kernel within its range (its bound: three TF32
-    products at 495 TFLOP/s for fp32, 989 TFLOP/s for bf16 / fp16), else
-    the dQ and dK/dV kernels; the others are fp32 SIMT (67 TFLOP/s). Every
-    row also gives the other bound."""
+    the forward and ``flash_bwd`` twice with the same bits; then
+    (``timed``) each timed beside plain, its bounds, its device time a call
+    and (``lib_ms``) the library's device time (by events too). The
+    forward runs its tensor-core kernel up to head width 128, ``flash_bwd``
+    within its range (their bound: three TF32 products at 495 TFLOP/s for
+    fp32, 989 TFLOP/s for bf16 / fp16), else the forward's SIMT kernel and
+    the dQ and dK/dV kernels, which are fp32 SIMT (67 TFLOP/s). Every row
+    also gives the other bound."""
     q, k, v, g = qkvg
     bh, t, d = q.shape
     args = (causal, d ** -0.5, p, seed)
@@ -835,15 +852,16 @@ def flash_rows(torch, fa, card, label, qkvg, causal, p, seed, flush,
                 fail(f"flash {label}: {name} differs from the plain version "
                      f"(max abs err {err}, tolerance {wtol})")
         route = kname
-        if kname == "flash_bwd":
-            route = fa.bwd_kernel(t, d)
+        if kname in ("flash_fwd", "flash_bwd"):
+            route = fa.fwd_kernel(d) if kname == "flash_fwd" \
+                else fa.bwd_kernel(t, d)
             again = fn()
             if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
-                fail(f"flash {label}: a second flash_bwd gave other bits")
+                fail(f"flash {label}: a second {kname} gave other bits")
         flops, nbytes = cost[kname]
         simt_ms, simt_by = bound_of(flops, nbytes)
         tc_ms, tc_by = bound_of(flops, nbytes, tensor_rate)
-        on_tc = route == "flash_bwd"
+        on_tc = route in ("flash_bwd", "tensor_cores")
         row = rows[kname] = {
             "max_abs_err": err, "route": route,
             "bound_ms": tc_ms if on_tc else simt_ms,
@@ -1003,12 +1021,60 @@ def flash_block_step(torch, fa, card, dev, d_model, n_head, b=4, t=64,
     return {"max_abs_err": errs, "launches": launched}
 
 
+def flash_mixed(torch, fa, card, qkvg, seed):
+    """q, k, v of mixed dtypes (FLASH_MIXED, the combinations of the CPU
+    test ``test_mixed_dtypes_match_pallas``), dO in q's dtype, causal with
+    dropout 0.1: the forward and ``flash_bwd`` against the plain versions
+    on the same inputs, each output in the dtype the reference gives it
+    (o and dq in q's, dk in k's, dv in v's), within one step of the narrow
+    dtype at the largest magnitude plus one of each element (the kernels
+    round p and dS to it where the reference does; a value at a rounding
+    boundary may round the other way), lse within FLASH_FWD_TOL."""
+    q, k, v, g = qkvg
+    d = q.shape[-1]
+    args = (True, d ** -0.5, 0.1, seed)
+    out = {}
+    for dtypes in FLASH_MIXED:
+        dts = [getattr(torch, n) for n in dtypes]
+        narrow = next(n for n in dtypes if n != "float32")
+        step = FLASH_LOW_STEP[narrow]
+        x = (q.to(dts[0]), k.to(dts[1]), v.to(dts[2]))
+        gq = g.to(dts[0])
+        o, lse = fa.flash_fwd(*x, *args)
+        want_o, want_lse = fa.flash_fwd_ref(*x, *args)
+        bwd = (*x, gq, want_lse, (want_o.float() * gq.float()).sum(-1))
+        got = fa.flash_bwd(*bwd, *args)
+        want = fa.flash_bwd_ref(*bwd, *args)
+        torch.cuda.synchronize()
+        label = f"flash q {dtypes[0]}, k {dtypes[1]}, v {dtypes[2]}"
+        errs = {"lse": float((lse - want_lse).abs().max())}
+        if not close(lse, want_lse, FLASH_FWD_TOL):
+            fail(f"{label}: lse differs from the plain version")
+        for name, a, w, dt in zip(("o", "dq", "dk", "dv"), (o, *got),
+                                  (want_o, *want), (dts[0], *dts)):
+            tol = dict(rtol=step, atol=step * float(w.float().abs().max()))
+            errs[name] = float((a.float() - w.float()).abs().max())
+            if a.dtype != dt or not close(a.float(), w.float(), tol):
+                fail(f"{label}: {name} ({a.dtype}, want {dt}) differs from "
+                     f"the plain version (max abs err {errs[name]}, "
+                     f"tolerance {tol})")
+        out["/".join(dtypes)] = errs
+        print(f"[{card}] {label} [{q.shape[0]}x{q.shape[1]}x{d}] causal "
+              f"dropout 0.1 (widened to fp32, rounded to {narrow} where the "
+              f"reference rounds): max abs err "
+              + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    return out
+
+
 def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
-                widths=FLASH_WIDTHS, blocks=FLASH_BLOCKS, rounds=4):
+                widths=FLASH_WIDTHS, blocks=FLASH_BLOCKS, rounds=4,
+                long=FLASH_LONG):
     """Each flash kernel against its plain version at the training
     shapes, timed beside plain, bounds and library; the same in bf16 (timed)
-    and fp16 for the forward and the one-pass backward; the whole autograd
-    backward against SDPA's in turns; then, causal, at the head ``widths``
+    and fp16 for the forward and the one-pass backward; q, k, v of mixed
+    dtypes; the forward at key length ``long`` (above flash_bwd's 512), fp32
+    and bf16; the whole autograd backward against SDPA's in turns; then,
+    causal, at the head ``widths``
     that the wrappers pad (d_model 96 over 2 heads: 48), run on the widest
     tiles (256) or take in 256-wide chunks (257, 320), timed beside plain
     and bound; then one training step of the attention ``blocks`` whose
@@ -1043,6 +1109,15 @@ def flash_phase(torch, dev, card, b=BATCH, h=None, t=None, d=None,
                               timed=timed and not causal)
             for kname, row in rows.items():
                 results[f"{kname}/{label.replace(' ', '_')}_{name}"] = row
+    results["mixed"] = flash_mixed(torch, fa, card, qkvg, seed)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        x = tuple(torch.randn(16, long, d, generator=gen, device=dev).to(dt)
+                  for _ in range(4))
+        results[f"flash_fwd/t{long}_{name}"] = flash_rows(
+            torch, fa, card, f"causal dropout T {long} {name}", x, True,
+            0.1, seed, flush, kernels=("flash_fwd",), timed=False)[
+                "flash_fwd"]
     for label, x, causal in (("full", qkvg, False), ("causal", qkvg, True),
                              ("full bfloat16", low["bfloat16"], False)):
         r = results[f"function/{label.replace(' ', '_')}"] = \
@@ -1480,6 +1555,13 @@ def profile_calls(torch, work, n):
     pool_us = sum(ev.self_device_time_total for ev in kernels
                   if "seqpool" in ev.key or "embed_pool" in ev.key)
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
+    families = {}
+    for ev in kernels:
+        name = kernel_family(ev.key)
+        if name:
+            us, count = families.get(name, (0.0, 0.0))
+            families[name] = (us + ev.self_device_time_total / n,
+                              count + ev.count / n)
     return {"device_busy_ms_per_step": busy_us / n / 1e3,
             "host_ms_per_step": wall_ms / n,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
@@ -1488,8 +1570,51 @@ def profile_calls(torch, work, n):
             "rnn_share": rnn_us / busy_us if busy_us else 0.0,
             "pool_share": pool_us / busy_us if busy_us else 0.0,
             "launches_per_step": sum(ev.count for ev in kernels) / n,
+            "families": families,
             "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
                              ev.count / n) for ev in top]}
+
+
+# the port's kernels by profiler name: (family, what the name holds, what
+# it must not hold)
+KERNEL_FAMILIES = (
+    ("flash_fwd tensor cores", "tc::flash_fwd_kernel", None),
+    ("flash_fwd SIMT", "flash_fwd_kernel", "tc::"),
+    ("flash_bwd", "flash_bwd_kernel", None),
+    ("flash_dq", "flash_dq_kernel", None),
+    ("flash_dkv", "flash_dkv_kernel", None),
+    ("lstm_fwd cluster", "lstm_fwd_cluster_kernel", None),
+    ("lstm_fwd grid", "lstm_fwd_kernel", None),
+    ("lstm_bwd cluster", "lstm_bwd_cluster_kernel", None),
+    ("lstm_bwd grid", "lstm_bwd_kernel", None),
+    ("lstm_dw", "lstm_dw_kernel", None))
+
+
+def kernel_family(key):
+    """The family of KERNEL_FAMILIES a profiler kernel name belongs to, or
+    None."""
+    for name, has, lacks in KERNEL_FAMILIES:
+        if has in key and (lacks is None or lacks not in key):
+            return name
+    return None
+
+
+def family_line(prof, busy_key="device_busy_ms_per_step"):
+    """The families' launches and device share a step, as printed."""
+    busy = prof[busy_key] * 1e3
+    return ", ".join(f"{name} {count:.0f} a step, {us:.1f} us "
+                     f"({us / busy:.4f} of device time)"
+                     for name, (us, count) in sorted(prof["families"]
+                                                     .items()))
+
+
+def check_families(label, prof, want):
+    """Fail unless each family of ``want`` launched that many kernels a step
+    in the profiler window (0: none)."""
+    got = {name: round(prof["families"].get(name, (0.0, 0.0))[1], 3)
+           for name in want}
+    if got != {name: float(n) for name, n in want.items()}:
+        fail(f"{label}: kernels a step by family {got}, want {want}")
 
 
 def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
@@ -1579,6 +1704,14 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
                   f"time, {prof['launches_per_step']:.0f} launches/step")
             for key, us, count in prof["top_kernels"]:
                 print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+            if kw["fused_attention"]:
+                check_families(label, prof, {
+                    "flash_fwd tensor cores": n_attn
+                    if fa.fwd_kernel(cfg["d_model"] // cfg["n_head"])
+                    == "tensor_cores" else 0,
+                    "flash_bwd": n_attn * one})
+                print(f"[{card}] {label}: the flash kernels a step: "
+                      f"{family_line(prof)}")
         del model, opt
     a = runs["fused_attention"]["losses"]
     for label in ("composed", "fused_head"):
@@ -1849,6 +1982,12 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+        plans = {k: fr.lstm_kernel_for(k, cfg["hid_dim"], dev)["kernel"]
+                 for k in ("lstm_train_fwd", "lstm_train_bwd")}
+        check_families("LSTM training", prof, {
+            f"lstm_{k[11:]} {plans[k]}": n_layer for k in plans})
+        print(f"[{card}] stacked_dynamic_lstm: the LSTM kernels a step: "
+              f"{family_line(prof)}")
     del model, opt
 
     # the oracle: the same model on the CPU, where the wrappers take the
@@ -1994,6 +2133,8 @@ def rnn_rows(torch, fr, card, kind, ins, cot, want, errs, lens_sum, flush):
             "dense_bound_ms": bound_of(*dense[kname])[0],
             "live_steps": lens_sum, "steps": t * b}
         row["us_per_step"] = row["ms"] / t * 1e3
+        if kname == "lstm_train_fwd":
+            lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush)
         if kname == "lstm_train_bwd":
             lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush)
         print(f"[{card}] {kname} [T {t}, B {b}, H {h}]: max abs err "
@@ -2024,6 +2165,55 @@ def kernel_split(torch, fn, n=5):
             and ev.self_device_time_total > 0}
 
 
+def lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
+    """The LSTM forward's kernel (cluster or grid) and bounds at width h:
+    its FLOPs as three TF32 products at 495 TFLOP/s where it runs on the
+    tensor cores (the cluster kernel), else at 67 TFLOP/s; both against
+    the bytes. Where the cluster kernel runs: two calls bit-equal, and the
+    grid kernel in the same run (the plan emptied) timed and held to it
+    within LSTM_FWD_TOL."""
+    dev = torch.device("cuda")
+    plan = fr.lstm_kernel_for("lstm_train_fwd", h, dev)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    tc = 3 * flops / TF32_FLOPS_PER_S
+    row["kernel"] = plan
+    row["tf32x3_bound_ms"] = max(tc, t_bytes) * 1e3
+    row["simt_bound_ms"] = bound_of(flops, nbytes)[0]
+    if plan["kernel"] != "cluster":
+        return
+    row["bound_ms"] = row["tf32x3_bound_ms"]
+    row["bound_by"] = "operations" if tc >= t_bytes else "bytes"
+    row["device_ms"] = device_ms(torch, fn)
+    got, again = fn(), fn()
+    key = (torch.cuda.current_device(), "lstm_train_fwd", h)
+    saved = fr._plans[key]
+    fr._plans[key] = None                  # the grid kernel, this run
+    try:
+        grid = fn()
+        row["grid_ms"] = time_ms(torch, fn, flush, n=20)
+    finally:
+        fr._plans[key] = saved
+    torch.cuda.synchronize()
+    names = ("hidden", "cell", "h_last", "c_last")
+    for name, a, b in zip(names, got, again):
+        if not torch.equal(a, b):
+            fail(f"lstm_train_fwd at H {h}: two runs give other bits in "
+                 f"{name}")
+    row["grid_max_abs_diff"] = max(float((a - b).abs().max())
+                                   for a, b in zip(got, grid))
+    for name, a, b in zip(names, got, grid):
+        if not close(a, b, LSTM_FWD_TOL):
+            fail(f"lstm_train_fwd at H {h}: the cluster kernel's {name} "
+                 f"differs from the grid kernel's (max abs diff "
+                 f"{float((a - b).abs().max())})")
+    print(f"[{card}] lstm_train_fwd at H {h}: {plan}; device time a call "
+          f"{row['device_ms']:.3f} ms; two runs bit-equal; the grid kernel "
+          f"(the earlier design) {row['grid_ms']:.3f} ms in this run, within "
+          f"{row['grid_max_abs_diff']:.3g} of the cluster kernel; bounds "
+          f"{row['tf32x3_bound_ms']:.3f} ms at 3xTF32, "
+          f"{row['simt_bound_ms']:.3f} ms at the SIMT rate")
+
+
 def lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
     """The LSTM backward's kernel (cluster or grid) and bounds at width h:
     its FLOPs as three TF32 products at 495 TFLOP/s where the loop runs on
@@ -2031,7 +2221,7 @@ def lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
     width), else the loop's two thirds at 67 TFLOP/s; both against the
     bytes. At the training shape also its time by kernel and the grid
     kernel's time in the same run."""
-    plan = fr.lstm_bwd_kernel_for(h, torch.device("cuda"))
+    plan = fr.lstm_kernel_for("lstm_train_bwd", h, torch.device("cuda"))
     t_bytes = nbytes / HBM_BYTES_PER_S
     tc = 3 * flops / TF32_FLOPS_PER_S
     t_ops = tc if plan["kernel"] == "cluster" else \
@@ -2047,12 +2237,14 @@ def lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
     row["loop_ms"] = sum(v for k, v in split.items() if "lstm_bwd" in k)
     row["dw_ms"] = sum(v for k, v in split.items() if "lstm_dw" in k)
     row["rest_ms"] = sum(split.values()) - row["loop_ms"] - row["dw_ms"]
-    key = (torch.cuda.current_device(), h)
+    key = (torch.cuda.current_device(), "lstm_train_bwd", h)
     saved = fr._plans[key]
     fr._plans[key] = None                  # the grid kernel, this run
-    row["grid_ms"] = time_ms(torch, fn, flush, n=20)
-    grid = kernel_split(torch, fn)
-    fr._plans[key] = saved
+    try:
+        row["grid_ms"] = time_ms(torch, fn, flush, n=20)
+        grid = kernel_split(torch, fn)
+    finally:
+        fr._plans[key] = saved
     row["grid_loop_ms"] = sum(v for k, v in grid.items() if "lstm_bwd" in k)
     print(f"[{card}] lstm_train_bwd at H {h}: {plan}; by kernel: loop "
           f"{row['loop_ms']:.3f} ms, dw {row['dw_ms']:.3f} ms, the rest "
@@ -2061,6 +2253,13 @@ def lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
           f"{row['grid_loop_ms']:.3f} ms); bounds "
           f"{row['tf32x3_bound_ms']:.3f} ms at 3xTF32, "
           f"{row['simt_bound_ms']:.3f} ms at the SIMT rate")
+
+
+def lstm_plans(fr, h, dev):
+    """Which kernel each LSTM direction runs at width h, as printed."""
+    return " (forward: {}, backward: {})".format(
+        *(fr.lstm_kernel_for(k, h, dev)
+          for k in ("lstm_train_fwd", "lstm_train_bwd")))
 
 
 def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
@@ -2080,8 +2279,7 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
     ins, cot, _ = spec["inputs"](torch, dev, *edge, spec["seeds"][0])
     edge_errs, _ = spec["check"](torch, fr, ins, cot,
                                  "edge T {} B {} H {}".format(*edge))
-    ran = (f" (backward: {fr.lstm_bwd_kernel_for(edge[2], dev)})"
-           if kind == "LSTM" else "")
+    ran = lstm_plans(fr, edge[2], dev) if kind == "LSTM" else ""
     print(f"[{card}] {kind} edge shape T {edge[0]} B {edge[1]} H {edge[2]}"
           f"{ran}: max abs err "
           + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
@@ -2091,8 +2289,7 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
         ins, cot, lens_sum = spec["inputs"](
             torch, dev, t, b, h, spec["seeds"][1] if i == 0 else 29 + i)
         errs, want = spec["check"](torch, fr, ins, cot, f"T {t} B {b} H {h}")
-        ran = (f" (backward: {fr.lstm_bwd_kernel_for(h, dev)})"
-               if kind == "LSTM" else "")
+        ran = lstm_plans(fr, h, dev) if kind == "LSTM" else ""
         print(f"[{card}] {kind} T {t} B {b} H {h}{ran}: max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if i > 1:
@@ -3346,7 +3543,8 @@ def main():
             "device_ms": m["device_ms"],
             "library_event_ms": m["library_event_ms"],
             "launches_per_train_step":
-                flash_launches[kname] // TRAIN_STEPS, "card": card,
+                flash_launches[kname] // TRAIN_STEPS, "kernel": m["route"],
+            "card": card,
             "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "device_ms", "max_abs_err",
@@ -3394,7 +3592,9 @@ def main():
             "dense_bound_ms": m["dense_bound_ms"], "card": card,
             **{k: m[k] for k in ("kernel", "tf32x3_bound_ms",
                                  "simt_bound_ms", "loop_ms", "dw_ms",
-                                 "grid_ms", "grid_loop_ms") if k in m}})
+                                 "grid_ms", "grid_loop_ms",
+                                 "grid_max_abs_diff", "device_ms")
+               if k in m}})
     for kname, line in (("gru_train_fwd", 379), ("gru_train_bwd", 424)):
         m = gru[kname]
         kernels.append({

@@ -35,15 +35,18 @@
 // [H, 4H] product (134 MFLOP at B 64, H 512), the forward does one a step and
 // the backward three (the recompute, Dh = dgates @ w^T, dw += h_prev^T @
 // dgates). Step t + 1 cannot start before every unit of h[t] is known, so T
-// steps are T grid-wide barriers whatever the arithmetic rate. The forward,
-// the GRU pair and the backward's grid kernel (lstm_bwd_kernel) multiply in
-// fp32 outside the tensor cores; the backward at H <= 512 runs on clusters
-// and the tensor cores (lstm_bwd_cluster_kernel, the section "LSTM backward
-// on thread-block clusters" below), and its dw product on the tensor cores
-// at every width (lstm_dw_kernel), both at fp32 accuracy through 3xTF32.
+// steps are T grid-wide barriers whatever the arithmetic rate. The grid
+// kernels (lstm_fwd_kernel, lstm_bwd_kernel) and the GRU pair multiply in
+// fp32 outside the tensor cores; at H <= 512 the LSTM backward and forward
+// run on clusters and the tensor cores (lstm_bwd_cluster_kernel and
+// lstm_fwd_cluster_kernel, the sections "LSTM backward on thread-block
+// clusters" and "LSTM forward on ..." below), and the backward's dw product
+// on the tensor cores at every width (lstm_dw_kernel), all at fp32
+// accuracy through 3xTF32.
 //
-// Design. The TPU kernel keeps h, c and the whole of w in one core's VMEM and
-// walks a sequential grid over time. On Hopper w (4 MB at H 512) fits no
+// Design of the grid kernels (above H 512, or where the cluster kernels do
+// not fit). The TPU kernel keeps h, c and the whole of w in one core's VMEM
+// and walks a sequential grid over time. On Hopper w (4 MB at H 512) fits no
 // SM's shared memory, and the time loop cannot be a grid dimension: blocks
 // run in no order. So each kernel is one cooperative launch of G = ceil(H/U)
 // persistent blocks (U = 1, 2 or 4 hidden units a block, the least that
@@ -1019,7 +1022,7 @@ cudaError_t checked_plan(int kind, int t_len, int b_len, int h,
 //     blocks, 16C gate columns. At one block an SM the H100's GPCs hold
 //     66 clusters of 2 but only 30 of 4 and 15 of 8, and H 512 takes 128
 //     blocks: 2 is the one size that fits every width up to 512. The
-//     wrapper's lstm_bwd_plan checks that every cluster fits at once
+//     wrapper's lstm_plan checks that every cluster fits at once
 //     (cudaOccupancyMaxActiveClusters).
 //   * Both products split the depth across the cluster. Block rank q holds
 //     W_q = w[q kh .. q kh + kh)[the cluster's 16C columns] (kh = ceil(H /
@@ -1070,14 +1073,15 @@ __host__ __device__ constexpr int lstm_cluster_kh(int h) {
   return round_up((h + kCC - 1) / kCC, 64);
 }
 
-// bytes of the cluster kernel's shared memory regions
+// bytes of the cluster kernels' shared memory regions (the forward's has
+// no W_q and no gate gradients)
 struct ClusterSmem {
   int wt, wq, dg, hs, pa;   // W_q^T, W_q, the gate gradients: hi and lo each
-  __host__ __device__ explicit ClusterSmem(int h) {
+  __host__ __device__ ClusterSmem(int h, bool fwd) {
     const int kh = lstm_cluster_kh(h);
     wt = kCN * kCC * kh * 4;                            // [16C][kh]
-    wq = wt;                                            // [kh][16C]
-    dg = kBT * kCN * kCC * 4;                           // [64][16C]
+    wq = fwd ? 0 : wt;                                  // [kh][16C]
+    dg = fwd ? 0 : kBT * kCN * kCC * 4;                 // [64][16C]
     hs = kBT * (kh + 4) * 4;                            // [64][kh + 4]
     pa = kCC * 2 * kBT * kCN * 4;                       // [C][halves][64][16]
   }
@@ -1333,7 +1337,7 @@ lstm_bwd_cluster_kernel(const float* __restrict__ x,
   constexpr int kHalves = 2;                 // partial gates from a peer
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ char smem_raw[];
-  const ClusterSmem lay(h);
+  const ClusterSmem lay(h, false);
   const int kh = lstm_cluster_kh(h), hst = kh + 4;
   float* wt_hi = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -1658,6 +1662,226 @@ lstm_bwd_cluster_kernel(const float* __restrict__ x,
   cluster.sync();                      // no peer reads this block's memory
 }
 
+// ---- LSTM forward on thread-block clusters and tensor cores ----------------
+//
+// lstm_fwd_cluster_kernel computes what lstm_fwd_kernel computes, at the
+// widths of the cluster backward (H <= 512, H a multiple of 4), for any T and
+// B. Its step is the backward's phase A (lstm_bwd_cluster_kernel above): on
+// clusters of C = 2 blocks (kCC), block g owning units [4g, 4g + 4) for the
+// cell, block rank q holding W_q^T = w[q kh .. q kh + kh)[the cluster's 16C
+// gate columns]^T, split into TF32 hi and lo, in shared memory for the whole
+// sequence. Each step each block stages columns [q kh, q kh + kh) of the live
+// rows of the state h (cp.async through L2: the carry was written by other
+// SMs before the last grid barrier), so the cluster reads the state once
+// where each of lstm_fwd_kernel's blocks read all of it (16 MB a step across
+// its 128 blocks at B 64, H 512), multiplies them by W_q on the tensor cores
+// (wgmma, 3xTF32, the two warpgroups splitting the depth) and sends each
+// peer the partial of its 16 columns through distributed shared memory; the
+// owner adds the C x 2 partials in rank order to xproj[t] and runs the cell.
+// No carry buffer: a row inside its length at step t was inside it at step
+// t - 1, so its state is hidden[t - 1] (h0 at t = 0) and its cell state
+// cell[t - 1] (c0), which the owner of the pair wrote itself. One grid
+// barrier a step (the hand-written counter of the backward, the same
+// stream's counter). The state of step t exists only after step t - 1's
+// barrier, so nothing of it can be loaded ahead; the cell's inputs
+// (xproj[t], the cell state) load while the staged rows land. (Taking the
+// product box by box as the staged boxes land, or in twice the chains of
+// accumulators, gained nothing on the card: the staging and the product
+// add up whatever their overlap. tools/torch_lstm_cycles.py splits a step.)
+// The steps past each row's length are zeroed before the recurrence.
+// Batches above 64 rows take passes of 64 rows. Every sum runs in a fixed
+// order: two runs give the same bits.
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_cluster_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ peep,
+                        const int* __restrict__ lens,
+                        const int* __restrict__ order,
+                        const int* __restrict__ live,
+                        const float* __restrict__ h0,
+                        const float* __restrict__ c0, float* hidden,
+                        float* cell, float* __restrict__ hlast,
+                        float* __restrict__ clast, unsigned* count,
+                        unsigned base, int t_len, int b_len, int h) {
+  constexpr int kXN = kCN * kCC;             // the cluster's gate columns
+  constexpr int kHalves = 2;                 // partial gates from a peer
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ char smem_raw[];
+  const ClusterSmem lay(h, true);
+  const int kh = lstm_cluster_kh(h), hst = kh + 4;
+  float* wt_hi = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* wt_lo = wt_hi + lay.wt / 4;         // W_q^T [16C][kh], sw_at
+  float* hs = wt_lo + lay.wt / 4;            // [64][kh + 4] fp32
+  float* pa = hs + lay.hs / 4;               // [C][halves][64][16] fp32
+  const int tid = threadIdx.x, lane = tid % 32;
+  // the warpgroup (uniform to the compiler, or it serializes the wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), wq = tid / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4;
+  const int q = static_cast<int>(cluster.block_rank());
+  const int cl = blockIdx.x / kCC;
+  const int u0 = blockIdx.x * kCU, k0q = q * kh;
+
+  // W_q^T: element (n, k), n = q' * 16 + u * 4 + gate of the cluster's
+  // columns, is w[q kh + k][gate * H + (cl C + q') * 4 + u]
+  for (int idx = tid; idx < kXN * kh; idx += kThreads) {
+    const int n = idx / kh, k = idx % kh, kk = k0q + k;
+    const int j = (cl * kCC + n / kCN) * kCU + n % kCN / 4;
+    uint32_t hi = 0, lo = 0;
+    if (kk < h && j < h)
+      split_tf32(w[static_cast<size_t>(kk) * 4 * h + (n % 4) * h + j], hi, lo);
+    wt_hi[sw_at(kXN, n, k)] = __uint_as_float(hi);
+    wt_lo[sw_at(kXN, n, k)] = __uint_as_float(lo);
+  }
+  for (int idx = tid; idx < lay.hs / 4; idx += kThreads) hs[idx] = 0.0f;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();                     // the zeros before any staged row
+  cluster.sync();                      // every block's memory is in place
+
+  // this thread's (row, unit) pair of a pass: row tid / 4, unit j
+  const int bl = tid / kCU, ju = tid % kCU, j = u0 + ju;
+  const bool unit = j < h;
+  float w_ic = 0.f, w_fc = 0.f, w_oc = 0.f;
+  if (unit) {
+    w_ic = peep[j];
+    w_fc = peep[h + j];
+    w_oc = peep[2 * h + j];
+  }
+  const size_t bh = static_cast<size_t>(b_len) * h;
+  unsigned target = base;
+  // the steps past each row's length: zero outputs, written before the
+  // recurrence (which never reads them); a row of length 0 keeps h0, c0
+  if (unit) {
+    for (int r = bl; r < b_len; r += kBT) {
+      const int b = order[r], len_b = lens[b];
+      const size_t at = static_cast<size_t>(b) * h + j;
+      for (int t = len_b > 0 ? len_b : 0; t < t_len; ++t) {
+        hidden[static_cast<size_t>(t) * bh + at] = 0.0f;
+        cell[static_cast<size_t>(t) * bh + at] = 0.0f;
+      }
+      if (len_b <= 0) {
+        hlast[at] = h0[at];
+        clast[at] = c0[at];
+      }
+    }
+  }
+  for (int t = 0; t < t_len; ++t) {
+    const float* hp = t == 0 ? h0 : hidden + (t - 1) * bh;
+    const float* cp_seq = t == 0 ? c0 : cell + (t - 1) * bh;
+    const int n_live = live[t];
+
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const int rows = min(kBT, n_live - r0), c4 = kh / 4;
+      // columns [q kh, q kh + kh) of the pass's rows of the state
+      for (int idx = tid; idx < rows * c4; idx += kThreads) {
+        const int i = idx / c4, c = idx % c4 * 4, k = k0q + c;
+        const bool valid = k < h;
+        copy16(hs + i * hst + c,
+               valid ? hp + static_cast<size_t>(order[r0 + i]) * h + k : hp,
+               valid);
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      // the cell's inputs, in flight while the staged rows land
+      const bool alive = unit && bl < rows;
+      const int b = alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float xg[4] = {0.f, 0.f, 0.f, 0.f}, cp = 0.f;
+      int len_b = 0;
+      if (alive) {
+        const float* xr =
+            x + (static_cast<size_t>(t) * b_len + b) * 4 * h + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[g] = xr[g * h];
+        cp = cp_seq[at];
+        len_b = lens[b];
+      }
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+      // staged
+
+      // the cluster's gates over this block's depth, [64, 16C]; warpgroup
+      // wg takes half the depth (all 16C columns, each half sent as its own
+      // partial)
+      {
+        const int kb0 = wg * kh / 2, kb1 = kb0 + kh / 2;
+        constexpr int kR = kXN / 2;
+        float big[kR], sa[kR], sb[kR];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) big[i] = sa[i] = sb[i] = 0.f;
+        const int r = 16 * wq + g8;
+        for (int kb = kb0; kb < kb1; kb += 32) {     // one box of depth
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int k = kb + 8 * s + tig;
+            split_tf32(hs[r * hst + k], ah[s][0], al[s][0]);
+            split_tf32(hs[(r + 8) * hst + k], ah[s][1], al[s][1]);
+            split_tf32(hs[r * hst + k + 4], ah[s][2], al[s][2]);
+            split_tf32(hs[(r + 8) * hst + k + 4], ah[s][3], al[s][3]);
+          }
+          const size_t box = static_cast<size_t>(kb >> 5) * kXN * 32;
+          const uint64_t dh = sw_desc(wt_hi + box), dl = sw_desc(wt_lo + box);
+          wg_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            wgmma_rs(big, ah[s], dh + 2 * s);
+            wgmma_rs(sa, ah[s], dl + 2 * s);
+            wgmma_rs(sb, al[s], dh + 2 * s);
+          }
+          wg_commit_wait();
+          hold(ah);
+          hold(al);
+          settle(big);
+          settle(sa);
+          settle(sb);
+        }
+        // each owner's 16 columns into its pa[q][half]
+#pragma unroll
+        for (int jn = 0; jn < kXN / 8; ++jn) {
+          const int n = 8 * jn + 2 * tig, owner = n / kCN;
+          float* dst = cluster.map_shared_rank(pa, owner) +
+                       (q * kHalves + wg) * kBT * kCN + n % kCN;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r + 8 * hh, i = 4 * jn + 2 * hh;
+            if (row < rows)
+              *reinterpret_cast<float2*>(dst + row * kCN) = make_float2(
+                  big[i] + sa[i] + sb[i], big[i + 1] + sa[i + 1] + sb[i + 1]);
+          }
+        }
+      }
+      cluster.sync();                  // every partial of the gates landed
+
+      // the cell of this thread's pair
+      if (alive) {
+        float gate[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float sum = 0.f;
+          for (int p = 0; p < kCC * kHalves; ++p)
+            sum += pa[(p * kBT + bl) * kCN + ju * 4 + g];
+          gate[g] = xg[g] + sum;
+        }
+        const float i = sigmoidf(gate[0] + cp * w_ic);
+        const float f = sigmoidf(gate[1] + cp * w_fc);
+        const float g = tanhf(gate[2]);
+        const float c_new = f * cp + i * g;
+        const float og = sigmoidf(gate[3] + c_new * w_oc);
+        const float h_new = og * tanhf(c_new);
+        hidden[static_cast<size_t>(t) * bh + at] = h_new;
+        cell[static_cast<size_t>(t) * bh + at] = c_new;
+        if (t + 1 == t_len || t + 1 == len_b) {
+          hlast[at] = h_new;
+          clast[at] = c_new;
+        }
+      }
+      if (r0 + kBT < n_live) cluster.sync();   // pa and hs are read before
+                                               // the next pass reuses them
+    }
+    grid_barrier(count, target += gridDim.x);
+  }
+}
+
 // The weight gradient dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows on
 // the tensor cores (wgmma m64n64k8, 3xTF32), computed as its transpose
 // dw^T [4H, H] = dx^T @ h_prev_seq: 128 x 64 tiles of dw^T (128 blocks at
@@ -1810,11 +2034,19 @@ cudaError_t lstm_dw(const float* h0, const float* hidden, const float* dx,
   return cudaGetLastError();
 }
 
-cudaError_t cluster_config(int h, int blocks, cudaLaunchConfig_t* cfg,
+const void* cluster_kernel(bool fwd) {
+  return fwd ? reinterpret_cast<const void*>(lstm_fwd_cluster_kernel)
+             : reinterpret_cast<const void*>(lstm_bwd_cluster_kernel);
+}
+
+// the launch configuration of a cluster kernel (fwd: the forward's) on
+// `blocks` blocks at width h
+cudaError_t cluster_config(bool fwd, int h, int blocks,
+                           cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attrs, bool coop) {
-  const size_t smem = ClusterSmem(h).bytes();
+  const size_t smem = ClusterSmem(h, fwd).bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cluster_kernel(fwd), cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   attrs[0].id = cudaLaunchAttributeClusterDimension;
@@ -1832,30 +2064,42 @@ cudaError_t cluster_config(int h, int blocks, cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
-// clusters of the cluster kernel the card holds at once at width h (0: none)
-cudaError_t max_clusters(int h, int* n) {
+// clusters of a cluster kernel the card holds at once at width h (0: none)
+cudaError_t max_clusters(bool fwd, int h, int* n) {
   *n = 0;
-  if (ClusterSmem(h).bytes() > 232448) return cudaSuccess;
+  if (ClusterSmem(h, fwd).bytes() > 232448) return cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attrs[2];
-  cudaError_t err = cluster_config(h, kCC, &cfg, attrs, false);
+  cudaError_t err = cluster_config(fwd, h, kCC, &cfg, attrs, false);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(n, lstm_bwd_cluster_kernel, &cfg);
+  return cudaOccupancyMaxActiveClusters(n, cluster_kernel(fwd), &cfg);
 }
 
-cudaError_t launch_cluster(int blocks, int h, void** args, cudaStream_t s) {
+cudaError_t launch_cluster(bool fwd, int blocks, int h, void** args,
+                           cudaStream_t s) {
   if (blocks % kCC != 0) return cudaErrorInvalidValue;
   int fit = 0;
-  cudaError_t err = max_clusters(h, &fit);
+  cudaError_t err = max_clusters(fwd, h, &fit);
   if (err != cudaSuccess) return err;
   if (blocks > fit * kCC) return cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attrs[2];
-  err = cluster_config(h, blocks, &cfg, attrs, true);
+  err = cluster_config(fwd, h, blocks, &cfg, attrs, true);
   if (err != cudaSuccess) return err;
   cfg.stream = s;
-  return cudaLaunchKernelExC(
-      &cfg, reinterpret_cast<void*>(lstm_bwd_cluster_kernel), args);
+  return cudaLaunchKernelExC(&cfg, cluster_kernel(fwd), args);
+}
+
+// the checks of a cluster launch: shape, blocks, the barrier's counter, and
+// the rows the 16-byte copies stage (h0, hidden) 16-byte aligned
+bool cluster_args_ok(int t_len, int b_len, int h, int blocks,
+                     const void* count, const float* h0,
+                     const float* hidden) {
+  return t_len >= 1 && b_len >= 1 && h >= 1 && h <= kCMaxH && h % 4 == 0 &&
+         blocks >= 1 && static_cast<long long>(blocks) * kCU >= h &&
+         count != nullptr &&
+         ((reinterpret_cast<uintptr_t>(h0) |
+           reinterpret_cast<uintptr_t>(hidden)) & 15) == 0;
 }
 
 }  // namespace
@@ -1871,30 +2115,47 @@ extern "C" long long paddle_rnn_scratch_floats(int kind, int h) {
   return err == cudaSuccess ? p.scratch : -static_cast<long long>(err);
 }
 
+// blocks 0: lstm_fwd_kernel on plan_for's grid, carry [2, B, H] fp32
+// scratch (and wscratch where the plan needs it); else
+// lstm_fwd_cluster_kernel on `blocks` blocks (whole clusters of 2, 4 units
+// each, H <= 512 and a multiple of 4, h0 and hidden 16-byte aligned), count
+// the grid barrier's counter at `base` when the launch starts (it ends at
+// base + T x blocks, modulo 2^32).
 extern "C" int paddle_lstm_train_fwd(const float* x, const float* w,
                                      const float* peep, const int* lens,
                                      const int* order, const int* live,
                                      const float* h0, const float* c0,
                                      float* hidden, float* cell, float* hlast,
                                      float* clast, float* carry,
-                                     float* wscratch, int t_len, int b_len,
-                                     int h, void* stream) {
-  Plan p;
-  cudaError_t err = checked_plan(kLstmFwd, t_len, b_len, h, wscratch, &p);
-  if (err != cudaSuccess) return err;
-  void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
-                  &cell, &hlast, &clast, &carry, &wscratch, &t_len, &b_len,
-                  &h};
+                                     float* wscratch, unsigned* count,
+                                     unsigned base, int t_len, int b_len,
+                                     int h, int blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return PADDLE_RNN_LAUNCH(lstm_fwd_kernel, p, h, args, s);
+  if (blocks == 0) {
+    Plan p;
+    cudaError_t err = checked_plan(kLstmFwd, t_len, b_len, h, wscratch, &p);
+    if (err != cudaSuccess) return err;
+    if (carry == nullptr) return cudaErrorInvalidValue;
+    void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
+                    &cell, &hlast, &clast, &carry, &wscratch, &t_len, &b_len,
+                    &h};
+    return PADDLE_RNN_LAUNCH(lstm_fwd_kernel, p, h, args, s);
+  }
+  if (!cluster_args_ok(t_len, b_len, h, blocks, count, h0, hidden))
+    return cudaErrorInvalidValue;
+  void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
+                  &cell, &hlast, &clast, &count, &base, &t_len, &b_len, &h};
+  return launch_cluster(true, blocks, h, args, s);
 }
 
-// clusters of 2 blocks of the cluster kernel that the card holds at once at
-// width h (0: none fit); a negative CUDA error
-extern "C" int paddle_lstm_bwd_max_clusters(int h) {
-  if (h < 1 || h > kCMaxH) return -static_cast<int>(cudaErrorInvalidValue);
+// clusters of 2 blocks of the cluster kernel of `kind` (kLstmFwd or
+// kLstmBwd) that the card holds at once at width h (0: none fit); a
+// negative CUDA error
+extern "C" int paddle_lstm_max_clusters(int kind, int h) {
+  if (h < 1 || h > kCMaxH || (kind != kLstmFwd && kind != kLstmBwd))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
-  const cudaError_t err = max_clusters(h, &n);
+  const cudaError_t err = max_clusters(kind == kLstmFwd, h, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -1925,17 +2186,14 @@ extern "C" int paddle_lstm_train_bwd(
                     &dh0, &dc0, &wscratch, &t_len, &b_len, &h};
     err = PADDLE_RNN_LAUNCH(lstm_bwd_kernel, p, h, args, s);
   } else {
-    if (t_len < 1 || b_len < 1 || h < 1 || h > kCMaxH || h % 4 != 0 ||
-        blocks < 1 || static_cast<long long>(blocks) * kCU < h ||
-        part == nullptr || count == nullptr ||
-        ((reinterpret_cast<uintptr_t>(h0) |
-          reinterpret_cast<uintptr_t>(hidden)) & 15) != 0)
+    if (!cluster_args_ok(t_len, b_len, h, blocks, count, h0, hidden) ||
+        part == nullptr)
       return cudaErrorInvalidValue;
     void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
                     &cell, &dhid, &dcell, &dhlast, &dclast, &dx, &dpeep,
                     &dh0, &dc0, &part, &count, &base, &t_len, &b_len,
                     &h};
-    err = launch_cluster(blocks, h, args, s);
+    err = launch_cluster(false, blocks, h, args, s);
   }
   if (err != cudaSuccess) return err;
   // dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows

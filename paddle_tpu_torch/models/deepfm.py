@@ -75,7 +75,8 @@ class DeepFM(nn.Module):
         if ids.dim() == 3:
             ids = ids[..., 0]
         k = self.embed_dim
-        both = nn_ops.lookup_table(self.emb, ids, sparse=True)  # [B, F, 1+K]
+        both = nn_ops.lookup_table(self.emb, ids[..., None],
+                                   sparse=True)          # [B, F, 1+K]
         w1 = nn_ops.slice(both, axes=[2], starts=[0], ends=[1])
         first_order = nn_ops.reduce_sum(w1, dim=1)               # [B, 1]
         emb = nn_ops.slice(both, axes=[2], starts=[1], ends=[1 + k])

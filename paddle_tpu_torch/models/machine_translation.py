@@ -82,7 +82,8 @@ class MachineTranslation(nn.Module):
 
     def encode(self, src):
         """-> (enc [B, T, H], the decoder's first state [B, H])."""
-        emb = nn_ops.lookup_table(self.src_emb, src, sparse=True)
+        emb = nn_ops.lookup_table(self.src_emb, src[..., None],
+                                  sparse=True)
         proj = nn_ops.fc(emb, self.enc_proj_w, self.enc_proj_b)
         enc, _ = rnn_ops.dynamic_gru(proj, self.enc_gru_w, self.enc_gru_b)
         dec_h0 = nn_ops.fc(enc[:, self.max_len - 1], self.h0_w, self.h0_b,
@@ -91,7 +92,8 @@ class MachineTranslation(nn.Module):
 
     def forward(self, src, tgt_in, tgt_out):
         enc, dec_h0 = self.encode(src)
-        temb = nn_ops.lookup_table(self.tgt_emb, tgt_in, sparse=True)
+        temb = nn_ops.lookup_table(self.tgt_emb, tgt_in[..., None],
+                                   sparse=True)
         dproj = nn_ops.fc(temb, self.dec_proj_w)
         dec, _ = rnn_ops.dynamic_gru(dproj, self.dec_gru_w, self.dec_gru_b,
                                      h0=dec_h0)

@@ -95,7 +95,7 @@ class StackedDynamicLSTM(nn.Module):
                 p.uniform_(-bound, bound, generator=generator)
 
     def predict(self, words, seq_lens):
-        inputs = [nn_ops.lookup_table(self.emb, words)]
+        inputs = [nn_ops.lookup_table(self.emb, words[..., None])]
         for layer in self.layers:
             inputs = layer(inputs, seq_lens)
         pooled = [sequence_ops.sequence_pool(x, seq_lens, "MAX")

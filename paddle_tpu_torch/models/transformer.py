@@ -209,9 +209,10 @@ class DecoderLM(nn.Module):
 
     def _embed(self, ids: torch.Tensor, positions: torch.Tensor):
         """ids [B, T] -> emb[ids] * sqrt(M) + pe[positions]."""
-        x = nn_ops.scale(nn_ops.lookup_table(self.emb, ids),
+        # ids [..., 1]: the table keeps the ids' shape at any T, 1 too
+        x = nn_ops.scale(nn_ops.lookup_table(self.emb, ids[..., None]),
                          self.d_model ** 0.5)
-        return x + nn_ops.lookup_table(self.pos_enc, positions)
+        return x + nn_ops.lookup_table(self.pos_enc, positions[..., None])
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = nn_ops.layer_norm(x, self.lnf_scale, self.lnf_bias)
@@ -485,7 +486,8 @@ class Transformer(nn.Module):
         return nn_ops.fc(self._dropout(h), layer.ffn2_w, layer.ffn2_b)
 
     def _embed(self, emb, ids):
-        x = nn_ops.scale(nn_ops.lookup_table(emb, ids), self.d_model ** 0.5)
+        x = nn_ops.scale(nn_ops.lookup_table(emb, ids[..., None]),
+                         self.d_model ** 0.5)
         return self._dropout(x + self.pos_enc[:ids.shape[1]])
 
     def encode(self, src):

@@ -1,6 +1,8 @@
 """Flash attention for training: the wrappers of the CUDA kernels in
-``paddle_tpu_torch/csrc/flash_attention.cu``, their plain PyTorch
-versions, and the ``torch.autograd.Function`` that joins them.
+``paddle_tpu_torch/csrc/flash_attention.cuh`` (built as
+``flash_attention.cu`` and, for q, k, v of mixed dtypes,
+``flash_attention_mixed.cu``), their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``:
 
@@ -11,7 +13,8 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``:
   same bits, so the forward and both backward passes drop the same
   positions.
 - :func:`flash_fwd` -- ``_flash_fwd`` (``:174``): q [BH,Tq,D], k/v
-  [BH,Tk,D] -> o [BH,Tq,D], lse [BH,Tq].
+  [BH,Tk,D] -> o [BH,Tq,D], lse [BH,Tq]; on the tensor cores at head
+  widths up to 128 (:func:`fwd_kernel`), above in 256-wide SIMT chunks.
 - :func:`flash_bwd` -- ``_flash_bwd_impl`` (``:455``): dQ, dK and dV in
   one launch on the tensor cores, from q, k, v, dO, lse, delta =
   rowsum(o * dO) (computed by the caller, ``:471``) and an optional lse
@@ -37,10 +40,14 @@ the keep factor to dO's for dV; every sum in fp32; o, dq, dk and dv in
 the dtypes of q, q, k and v, lse in fp32.
 
 Routing (``paddle_tpu_torch.device.uses_kernel``): CPU tensors go to the
-plain version, CUDA tensors to the kernel (fp32, bf16 or fp16, all of
-one dtype, contiguous), which is built on its first launch; anything
-else raises. The plain versions also take q, k and v of different dtypes,
-as the JAX function does; the kernels do not. The kernels take head
+plain version, CUDA tensors to the kernel (fp32, bf16 or fp16,
+contiguous), which is built on its first launch; anything else raises.
+q, k and v (and dO) of one dtype run that dtype's kernels. Of mixed
+dtypes, as the JAX function takes them, the wrappers widen them to fp32
+(exact) and run the fp32 kernels instantiated to round p and dS to the
+narrower dtypes where the plain versions do (``rounds``: one narrow
+dtype a rounding point, dO in q's dtype); the outputs come back in the
+dtypes above. The kernels take head
 widths 32, 64, 128 and 256, and above 256 every multiple of 256 (in
 256-wide chunks, each block one chunk of its output tile); the wrappers
 zero-pad q, k, v (and dO) along the head width up to the next of these
@@ -65,6 +72,7 @@ from paddle_tpu_torch.ops.kernels import build as _build
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd": 0}
 HEAD_DIMS = (32, 64, 128, 256)     # one instantiation each; above 256,
 CHUNK = 256                        # multiples of the 256-wide chunk
+FWD_HEAD_DIMS = (32, 64, 128)      # the forward's tensor-core kernel takes
 BWD_HEAD_DIMS = (32, 64, 128)      # flash_bwd's tensor-core kernel takes
 BWD_TILE = 64                      # and up to 8 key tiles of 64: a
 BWD_MAX_TK = 8 * BWD_TILE          # plane of dQ partials each (scratch
@@ -73,7 +81,7 @@ NEG = -1e30                        # _NEG: the masked score
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _MASK32 = 0xFFFFFFFF
-_lib = None
+_libs = {}                         # "flash_attention", "flash_attention_mixed"
 _counts = {}                       # (device, stream) -> flash_bwd's counters
 
 
@@ -94,14 +102,18 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def _kernels():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
+def _kernels(rounds: int = 0):
+    """The library of a call: ``flash_attention`` (one storage type,
+    ``rounds`` 0) or ``flash_attention_mixed`` (mixed dtypes widened to
+    fp32, ``rounds`` non-zero); both export the same functions."""
+    name = "flash_attention_mixed" if rounds else "flash_attention"
+    if name not in _libs:
+        lib = _build.load(name)
         p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
-        # bh tq tk d dtype causal scale dropout seed thresh upscale stream
-        tail = [i, i, i, i, i, i, f, i, u, u, f, p]
+        # bh tq tk d dtype causal scale dropout seed thresh upscale rounds
+        # stream
+        tail = [i, i, i, i, i, i, f, i, u, u, f, i, p]
         lib.paddle_flash_fwd.argtypes = [p] * 5 + tail
         lib.paddle_flash_dq.argtypes = [p] * 8 + tail
         lib.paddle_flash_dkv.argtypes = [p] * 9 + tail
@@ -109,8 +121,8 @@ def _kernels():
         for fn in (lib.paddle_flash_fwd, lib.paddle_flash_dq,
                    lib.paddle_flash_dkv, lib.paddle_flash_bwd):
             fn.restype = i
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
 # -- dropout ----------------------------------------------------------------
@@ -285,16 +297,15 @@ def _check_qkv(q, k, v, causal):
     return bh, tq, tk, d
 
 
-def _check_kernel_args(name, operands, rows=()):
-    """What the kernels take: q, k, v (and dO) of one dtype, fp32, bf16
-    or fp16; lse, delta and dlse in fp32; all contiguous and 16-byte
-    aligned. Returns the operands' dtype code."""
-    dtypes = {t.dtype for t in operands}
-    if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPES:
-        raise ValueError(f"{name}: the kernels take q, k, v and dO of one "
-                         f"dtype, float32, bfloat16 or float16, got "
-                         f"{[str(t.dtype) for t in operands]} (the plain "
-                         f"versions, on the CPU, take mixed dtypes)")
+def _kernel_args(name, operands, rows=()):
+    """What the kernels take: q, k, v (and dO) in fp32, bf16 or fp16; lse,
+    delta and dlse in fp32; all contiguous and 16-byte aligned. Returns
+    the operands as the kernels take them and their dtype code: as given
+    where they share one dtype, else widened to fp32 (exact), code 0."""
+    for t in operands:
+        if t.dtype not in DTYPES:
+            raise ValueError(f"{name}: the kernels take q, k, v and dO in "
+                             f"float32, bfloat16 or float16, got {t.dtype}")
     for t in rows:
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: lse, delta and dlse must be float32, "
@@ -305,7 +316,26 @@ def _check_kernel_args(name, operands, rows=()):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel takes 16-byte aligned "
                              f"tensors")
-    return DTYPES[next(iter(dtypes))]
+    if len({t.dtype for t in operands}) == 1:
+        return tuple(operands), DTYPES[operands[0].dtype]
+    return tuple(t.float() for t in operands), 0
+
+
+def rounds(name, p=torch.float32, q=torch.float32, k=torch.float32) -> int:
+    """The fp32 kernels' rounding code of a mixed call, p + 3 q + 9 k with
+    each the dtype's code (0 float32: no rounding): ``p`` the dtype p times
+    the keep factor is rounded to (v's in the forward, dO's in the
+    backward), ``q`` that of dS before dK (q's), ``k`` that of dS before dQ
+    (k's). Instantiated: dO in q's dtype, and one narrow dtype among the
+    backward's points."""
+    cp, cq, ck = (DTYPES[dt] for dt in (p, q, k))
+    if cp != cq and name != "flash_fwd":
+        raise ValueError(f"{name}: of mixed dtypes the kernels take dO in "
+                         f"q's dtype, got dO {p} and q {q}")
+    if cq and ck and cq != ck:
+        raise ValueError(f"{name}: of mixed dtypes the kernels round to one "
+                         f"of bfloat16 and float16, got q {q} and k {k}")
+    return cp + 3 * cq + 9 * ck
 
 
 def kernel_width(name: str, d: int) -> int:
@@ -354,20 +384,22 @@ def flash_fwd(q, k, v, causal: bool, scale: float, dropout_p: float = 0.0,
     seed_u, thresh, upscale = dropout_params(dropout_p, seed)
     if not _device.uses_kernel(q, k, v):
         return flash_fwd_ref(q, k, v, causal, scale, dropout_p, seed)
-    code = _check_kernel_args("flash_fwd", (q, k, v))
+    dtypes = tuple(t.dtype for t in (q, k, v))
+    mixed = rounds("flash_fwd", dtypes[2]) if len(set(dtypes)) > 1 else 0
+    (q, k, v), code = _kernel_args("flash_fwd", (q, k, v))
     width = kernel_width("flash_fwd", d)
     q, k, v = padded(width, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _kernels().paddle_flash_fwd(
+        err = _kernels(mixed).paddle_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, tq, tk, width, code, int(causal), scale,
-            int(dropout_p > 0), seed_u, thresh, upscale,
+            int(dropout_p > 0), seed_u, thresh, upscale, mixed,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
-    return unpadded(d, o), lse
+    return unpadded(d, o).to(dtypes[0]), lse
 
 
 def flash_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
@@ -381,22 +413,25 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
     if not _device.uses_kernel(q, k, v, dout, *rows):
         return flash_dq_ref(q, k, v, dout, lse, delta, causal, scale,
                             dropout_p, seed, dlse)
-    code = _check_kernel_args("flash_dq", (q, k, v, dout), rows)
     if dout.shape != q.shape:
         raise ValueError(f"flash_dq: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
+    dtypes = tuple(t.dtype for t in (q, k, v, dout))
+    mixed = rounds("flash_dq", k=dtypes[1]) if len(set(dtypes)) > 1 else 0
+    (q, k, v, dout), code = _kernel_args("flash_dq", (q, k, v, dout), rows)
     width = kernel_width("flash_dq", d)
     q, k, v, dout = padded(width, q, k, v, dout)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _kernels().paddle_flash_dq(
+        err = _kernels(mixed).paddle_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dq.data_ptr(),
             bh, tq, tk, width, code, int(causal), scale, int(dropout_p > 0),
-            seed_u, thresh, upscale, torch.cuda.current_stream().cuda_stream)
+            seed_u, thresh, upscale, mixed,
+            torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_dq")
     LAUNCHES["flash_dq"] += 1
-    return unpadded(d, dq)
+    return unpadded(d, dq).to(dtypes[0])
 
 
 def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
@@ -409,23 +444,34 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
     if not _device.uses_kernel(q, k, v, dout, *rows):
         return flash_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
                              dropout_p, seed, dlse)
-    code = _check_kernel_args("flash_dkv", (q, k, v, dout), rows)
     if dout.shape != q.shape:
         raise ValueError(f"flash_dkv: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
+    dtypes = tuple(t.dtype for t in (q, k, v, dout))
+    mixed = rounds("flash_dkv", dtypes[3], dtypes[0]) \
+        if len(set(dtypes)) > 1 else 0
+    (q, k, v, dout), code = _kernel_args("flash_dkv", (q, k, v, dout), rows)
     width = kernel_width("flash_dkv", d)
     q, k, v, dout = padded(width, q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _kernels().paddle_flash_dkv(
+        err = _kernels(mixed).paddle_flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dk.data_ptr(),
             dv.data_ptr(), bh, tq, tk, width, code, int(causal), scale,
-            int(dropout_p > 0), seed_u, thresh, upscale,
+            int(dropout_p > 0), seed_u, thresh, upscale, mixed,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
-    return unpadded(d, dk), unpadded(d, dv)
+    return unpadded(d, dk).to(dtypes[1]), unpadded(d, dv).to(dtypes[2])
+
+
+def fwd_kernel(d: int) -> str:
+    """The kernel :func:`flash_fwd` launches on a CUDA tensor at head width
+    ``d``: ``"tensor_cores"`` up to width 128 (after padding), else
+    ``"simt"`` (the 256-wide tiles, in chunks above 256)."""
+    width = kernel_width("flash_fwd", d)
+    return "tensor_cores" if width in FWD_HEAD_DIMS else "simt"
 
 
 def bwd_kernel(tk: int, d: int) -> str:
@@ -451,7 +497,6 @@ def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
     if not _device.uses_kernel(q, k, v, dout, *rows):
         return flash_bwd_ref(q, k, v, dout, lse, delta, causal, scale,
                              dropout_p, seed, dlse)
-    code = _check_kernel_args("flash_bwd", (q, k, v, dout), rows)
     if dout.shape != q.shape:
         raise ValueError(f"flash_bwd: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
@@ -459,6 +504,10 @@ def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
         args = (q, k, v, dout, lse, delta, causal, scale, dropout_p, seed,
                 dlse)
         return (flash_dq(*args), *flash_dkv(*args))
+    dtypes = tuple(t.dtype for t in (q, k, v, dout))
+    mixed = rounds("flash_bwd", dtypes[3], dtypes[0], dtypes[1]) \
+        if len(set(dtypes)) > 1 else 0
+    (q, k, v, dout), code = _kernel_args("flash_bwd", (q, k, v, dout), rows)
     width = kernel_width("flash_bwd", d)
     q, k, v, dout = padded(width, q, k, v, dout)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -468,15 +517,16 @@ def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
         (tiles, bh, tq, width), dtype=torch.float32, device=q.device)
     counts = None if tiles == 1 else _head_counts(q.device, bh)
     with torch.cuda.device(q.device):
-        err = _kernels().paddle_flash_bwd(
+        err = _kernels(mixed).paddle_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(dqp), _ptr(counts), bh, tq,
             tk, width, code, int(causal), scale, int(dropout_p > 0), seed_u,
-            thresh, upscale, torch.cuda.current_stream().cuda_stream)
+            thresh, upscale, mixed, torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "flash_bwd")
     LAUNCHES["flash_bwd"] += 1
-    return unpadded(d, dq), unpadded(d, dk), unpadded(d, dv)
+    return tuple(unpadded(d, t).to(dt)
+                 for t, dt in zip((dq, dk, dv), dtypes))
 
 
 class FlashAttention(torch.autograd.Function):

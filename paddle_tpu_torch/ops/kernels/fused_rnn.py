@@ -63,13 +63,13 @@ wrapper allocates scratch in device memory for them
 (:func:`_scratch`). Above 16 units on every SM (H > 2112 on an H100)
 one block per SM walks several groups of 16 units a step, in passes
 between the same grid barriers, their slices in that scratch too: every
-width takes the one cooperative launch. The LSTM backward at H <= 512,
-H a multiple of 4, runs another kernel (:func:`lstm_bwd_plan`): clusters
-of 2 blocks that split each step's products by depth (the cluster reads
-``h_prev`` once) and exchange partial gates and gate gradients through
-distributed shared memory, the products on the tensor cores at fp32
-accuracy (3xTF32); its ``dw`` product runs on the tensor cores at every
-width.
+width takes the one cooperative launch. The LSTM forward and backward at
+H <= 512, H a multiple of 4, run other kernels (:func:`lstm_plan`):
+clusters of 2 blocks that split each step's products by depth (the
+cluster reads the state, or ``h_prev``, once) and exchange partial gates
+(and gate gradients) through distributed shared memory, the products on
+the tensor cores at fp32 accuracy (3xTF32); the backward's ``dw`` product
+runs on the tensor cores at every width.
 ``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
 adds to it.
 """
@@ -107,11 +107,12 @@ def _kernels():
     if _lib is None:
         lib = _build.load("fused_rnn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paddle_lstm_train_fwd.argtypes = [p] * 14 + [i] * 3 + [p]
+        lib.paddle_lstm_train_fwd.argtypes = ([p] * 15 + [ctypes.c_uint]
+                                              + [i] * 4 + [p])
         lib.paddle_lstm_train_bwd.argtypes = ([p] * 22 + [ctypes.c_uint]
                                               + [i] * 4 + [p])
-        lib.paddle_lstm_bwd_max_clusters.argtypes = [i]
-        lib.paddle_lstm_bwd_max_clusters.restype = i
+        lib.paddle_lstm_max_clusters.argtypes = [i, i]
+        lib.paddle_lstm_max_clusters.restype = i
         lib.paddle_gru_train_fwd.argtypes = [p] * 10 + [i] * 3 + [p]
         lib.paddle_gru_train_bwd.argtypes = [p] * 14 + [i] * 3 + [p]
         lib.paddle_rnn_scratch_floats.argtypes = [i, i]
@@ -254,41 +255,43 @@ def _scratch(name: str, h: int, device):
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
-def lstm_bwd_plan(h: int, sms: int, max_clusters: int):
-    """Which kernel the LSTM backward runs at width ``h`` on a card of
-    ``sms`` SMs that holds ``max_clusters`` of the cluster kernel's
-    clusters at once (``cudaOccupancyMaxActiveClusters``): the blocks of
-    the cluster kernel (ceil(h / ``CLUSTER_UNITS``) rounded up to whole
-    clusters of ``CLUSTER``), or None for the grid kernel
-    (``lstm_bwd_kernel``: H above ``CLUSTER_MAX_H`` or not a multiple of
-    4, or its clusters do not all fit)."""
+def lstm_plan(h: int, sms: int, max_clusters: int):
+    """Which kernel an LSTM direction runs at width ``h`` on a card of
+    ``sms`` SMs that holds ``max_clusters`` of that direction's cluster
+    kernel's clusters at once (``cudaOccupancyMaxActiveClusters``): the
+    blocks of the cluster kernel (ceil(h / ``CLUSTER_UNITS``) rounded up to
+    whole clusters of ``CLUSTER``), or None for the grid kernel
+    (``lstm_fwd_kernel`` / ``lstm_bwd_kernel``: H above ``CLUSTER_MAX_H`` or
+    not a multiple of 4, or its clusters do not all fit)."""
     if h < 1 or h % 4 or h > CLUSTER_MAX_H:
         return None
     blocks = -(-h // (CLUSTER_UNITS * CLUSTER)) * CLUSTER
     return blocks if blocks <= min(sms, max_clusters * CLUSTER) else None
 
 
-def _bwd_plan(h: int):
-    """:func:`lstm_bwd_plan` on the current card, asked once per width."""
+def _plan(name: str, h: int):
+    """:func:`lstm_plan` of ``name`` ("lstm_train_fwd" or
+    "lstm_train_bwd") on the current card, asked once per width."""
     dev = torch.cuda.current_device()
-    if (dev, h) not in _plans:
-        fit = _kernels().paddle_lstm_bwd_max_clusters(h) if (
+    key = (dev, name, h)
+    if key not in _plans:
+        fit = _kernels().paddle_lstm_max_clusters(KINDS[name], h) if (
             0 < h <= CLUSTER_MAX_H) else 0
         if fit < 0:
-            raise RuntimeError(f"lstm_train_bwd: no cluster occupancy at "
-                               f"hidden width {h} (CUDA error {-fit})")
+            raise RuntimeError(f"{name}: no cluster occupancy at hidden "
+                               f"width {h} (CUDA error {-fit})")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _plans[(dev, h)] = lstm_bwd_plan(h, sms, fit)
-    return _plans[(dev, h)]
+        _plans[key] = lstm_plan(h, sms, fit)
+    return _plans[key]
 
 
 def _barrier(device):
-    """The cluster kernel's grid-barrier counter on the current stream of
+    """The cluster kernels' grid-barrier counter on the current stream of
     ``device`` and the value the stream's next launch finds in it: a list
-    [counter, value], zeroed once when first asked for. A launch adds T x
-    blocks (one barrier a step) and the wrapper adds the same to the
-    value, so launches in one stream share the counter and none zeroes
-    it."""
+    [counter, value], zeroed once when first asked for. A launch of either
+    direction adds T x blocks (one barrier a step) and the wrapper adds the
+    same to the value, so launches in one stream share the counter and none
+    zeroes it."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
@@ -299,16 +302,34 @@ def _barrier(device):
     return _barriers[key]
 
 
-def lstm_bwd_kernel_for(h: int, device) -> dict:
-    """The LSTM backward's kernel at width ``h`` on ``device``, as a run
-    reports it: ``kernel`` "cluster" (with ``cluster``, ``units`` and
-    ``blocks``) or "grid"."""
+def lstm_kernel_for(name: str, h: int, device) -> dict:
+    """The kernel of ``name`` ("lstm_train_fwd" or "lstm_train_bwd") at
+    width ``h`` on ``device``, as a run reports it: ``kernel`` "cluster"
+    (with ``cluster``, ``units`` and ``blocks``) or "grid"."""
     with torch.cuda.device(device):
-        plan = _bwd_plan(h)
+        plan = _plan(name, h)
     if plan is None:
         return {"kernel": "grid"}
     return {"kernel": "cluster", "cluster": CLUSTER, "units": CLUSTER_UNITS,
             "blocks": plan}
+
+
+def _cluster_blocks(name, h, h0, hidden):
+    """The plan's blocks, or None where the rows its 16-byte copies stage
+    (h0, hidden) are not 16-byte aligned."""
+    blocks = _plan(name, h)
+    if blocks is not None and (h0.data_ptr() | hidden.data_ptr()) % 16:
+        return None
+    return blocks
+
+
+def _advance(bar, base, err, t, blocks):
+    """The barrier's value after a launch from ``base``: T x blocks on, or
+    a new counter where the launch failed (its count is unknown)."""
+    if err:
+        bar[:] = [torch.zeros_like(bar[0]), 0]
+    else:
+        bar[1] = (base + t * blocks) % 2 ** 32
 
 
 def _schedule(seq_lens, t: int):
@@ -333,15 +354,27 @@ def lstm_train_fwd(xproj, w, peep, seq_lens, h0, c0):
     hidden = torch.empty((t, b, h), dtype=torch.float32, device=xproj.device)
     cell = torch.empty_like(hidden)
     h_last, c_last = torch.empty_like(h0), torch.empty_like(c0)
-    carry = torch.empty((2, b, h), dtype=torch.float32, device=xproj.device)
     with torch.cuda.device(xproj.device):
-        ws = _scratch("lstm_train_fwd", h, xproj.device)
+        blocks = _cluster_blocks("lstm_train_fwd", h, h0, hidden)
+        carry = ws = bar = None
+        base = 0
+        if blocks is None:
+            blocks = 0
+            carry = torch.empty((2, b, h), dtype=torch.float32,
+                                device=xproj.device)
+            ws = _scratch("lstm_train_fwd", h, xproj.device)
+        else:
+            bar = _barrier(xproj.device)
+            base = bar[1]
         err = _kernels().paddle_lstm_train_fwd(
             xproj.data_ptr(), w.data_ptr(), peep.data_ptr(), lens.data_ptr(),
             order.data_ptr(), live.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hidden.data_ptr(), cell.data_ptr(), h_last.data_ptr(),
-            c_last.data_ptr(), carry.data_ptr(), _ptr(ws), t, b, h,
+            c_last.data_ptr(), _ptr(carry), _ptr(ws),
+            _ptr(bar[0] if bar else None), base, t, b, h, blocks,
             torch.cuda.current_stream().cuda_stream)
+        if bar:
+            _advance(bar, base, err, t, blocks)
     _check_launch(err, "lstm_train_fwd")
     LAUNCHES["lstm_train_fwd"] += 1
     return hidden, cell, h_last, c_last
@@ -374,9 +407,7 @@ def lstm_train_bwd(xproj, w, peep, seq_lens, h0, c0, hidden, cell, dhid,
     dpeep = torch.empty((1, 3 * h), dtype=torch.float32, device=xproj.device)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
     with torch.cuda.device(xproj.device):
-        blocks = _bwd_plan(h)
-        if blocks is not None and (h0.data_ptr() | hidden.data_ptr()) % 16:
-            blocks = None               # rows its 16-byte copies cannot take
+        blocks = _cluster_blocks("lstm_train_bwd", h, h0, hidden)
         ws = part = bar = None
         base = 0
         if blocks is None:
@@ -397,10 +428,8 @@ def lstm_train_bwd(xproj, w, peep, seq_lens, h0, c0, hidden, cell, dhid,
             _ptr(part), _ptr(bar[0] if bar else None), base, t, b, h,
             blocks,
             torch.cuda.current_stream().cuda_stream)
-        if bar and err:                 # the count is unknown: a new one
-            bar[:] = [torch.zeros_like(bar[0]), 0]
-        elif bar:
-            bar[1] = (base + t * blocks) % 2 ** 32
+        if bar:
+            _advance(bar, base, err, t, blocks)
     _check_launch(err, "lstm_train_bwd")
     LAUNCHES["lstm_train_bwd"] += 1
     return dx, dw, dpeep, dh0, dc0

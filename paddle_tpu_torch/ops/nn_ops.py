@@ -4,7 +4,8 @@ numerics of their JAX emitters:
 - :func:`layer_norm` -- ``paddle_tpu/ops/nn_ops.py:392``: population
   variance, eps 1e-5, normalized over the trailing dims.
 - :func:`lookup_table` -- ``nn_ops.py:504`` (and ``gather``,
-  ``paddle_tpu/ops/math_ops.py:245``): rows of a table by index; with
+  ``paddle_tpu/ops/math_ops.py:245``): rows of a table by index, a
+  trailing id dim of 1 dropped, ``padding_idx`` rows zeroed; with
   ``sparse=True`` the table's gradient is row-sparse (a sparse COO tensor
   over the looked-up rows), as the JAX ``__vjp__`` emits a
   ``RowSparseGrad`` for it (``paddle_tpu/ops/grad_ops.py:38``,
@@ -78,14 +79,25 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
     return y
 
 
-def lookup_table(w: torch.Tensor, ids: torch.Tensor,
-                 sparse: bool = False) -> torch.Tensor:
-    """ids [...] int -> [..., D] rows of ``w`` [V, D]; ``sparse``: the
-    gradient of ``w`` is a sparse tensor with one row per looked-up id
-    (duplicates not yet summed)."""
+def lookup_table(w: torch.Tensor, ids: torch.Tensor, sparse: bool = False,
+                 padding_idx: Optional[int] = None) -> torch.Tensor:
+    """ids [..., 1] or [...] int -> [..., D] rows of ``w`` [V, D]: a
+    trailing id dim of 1 is dropped (``nn_ops.py:513``), so ids [B, T]
+    give [B, T, D] and so do ids [B, T, 1]. ``padding_idx`` >= 0: the rows
+    whose id equals it are zeros, and their gradient is too
+    (``:508-512``, ``grad_ops.py:68-71``). ``sparse``: the gradient of
+    ``w`` is a sparse tensor with one row per looked-up id (duplicates not
+    yet summed)."""
+    ids = ids.long()
+    keep = ids.shape[:-1] if ids.dim() and ids.shape[-1] == 1 else ids.shape
+    flat = ids.reshape(-1)
     if sparse:
-        return torch.nn.functional.embedding(ids.long(), w, sparse=True)
-    return w[ids.long()]
+        out = torch.nn.functional.embedding(flat, w, sparse=True)
+    else:
+        out = w[flat]
+    if padding_idx is not None and padding_idx >= 0:
+        out = out.masked_fill((flat == padding_idx)[:, None], 0.0)
+    return out.reshape(*keep, w.shape[-1])
 
 
 def fc(x, w, b: Optional[torch.Tensor] = None,

@@ -184,7 +184,10 @@ def test_low_precision_matches_pallas(jx, dtype, case):
 def test_mixed_dtypes_match_pallas(jx, dtypes):
     """q, k, v of different dtypes, as the JAX function takes them: o and
     dq in q's dtype, dk in k's, dv in v's, within LOW_TOL of the narrowest
-    dtype. The kernels take one dtype and say so."""
+    dtype. On the card the wrappers widen them to fp32 (exact) and pass the
+    kernels the narrower dtypes to round p and dS to: p x keep to v's in
+    the forward and to dO's (q's) before dV, dS to q's before dK and to
+    k's before dQ."""
     jax, jnp, pfa = jx
     causal, p, q, k, v, g = _inputs("causal_dropout")
     jdts = [getattr(jnp, n) for n in dtypes]
@@ -206,8 +209,15 @@ def test_mixed_dtypes_match_pallas(jx, dtypes):
                                 (tdts[0], *tdts)):
         assert got.dtype == dt, name
         _assert_low(got, w.astype(jnp.float32), narrow, f"{dtypes} {name}")
-    with pytest.raises(ValueError, match="one dtype"):
-        tfa._check_kernel_args("flash_fwd", [x.detach() for x in leaves])
+    detached = [x.detach() for x in leaves]
+    widened, code = tfa._kernel_args("flash_fwd", detached)
+    assert code == 0
+    for a, b_ in zip(widened, detached):
+        assert a.dtype == torch.float32 and torch.equal(a, b_.float())
+    codes = [tfa.DTYPES[dt] for dt in tdts]
+    assert tfa.rounds("flash_fwd", tdts[2]) == codes[2]
+    assert tfa.rounds("flash_bwd", tdts[0], tdts[0], tdts[1]) == \
+        codes[0] * 4 + codes[1] * 9
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -315,6 +325,32 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert tfa.LAUNCHES == before
 
 
+def test_mixed_rounding_codes():
+    """What the mixed library takes: one narrow dtype among the backward's
+    rounding points, dO in q's dtype; the forward rounds to v's alone."""
+    bf, hf, f = torch.bfloat16, torch.float16, torch.float32
+    assert tfa.rounds("flash_fwd", hf, bf, bf) == 2 + 3 + 9
+    assert tfa.rounds("flash_dq", k=hf) == 18
+    assert tfa.rounds("flash_bwd", f, f, f) == 0
+    with pytest.raises(ValueError, match="dO in q's dtype"):
+        tfa.rounds("flash_bwd", f, bf, bf)
+    with pytest.raises(ValueError, match="one of bfloat16 and float16"):
+        tfa.rounds("flash_bwd", bf, bf, hf)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tfa._kernel_args("flash_fwd", [torch.zeros(2, 4, 8)] * 2
+                         + [torch.zeros(2, 4, 8, dtype=torch.float64)])
+
+
+def test_fwd_kernel_range():
+    """Which kernel flash_fwd launches on the card: the tensor-core kernel
+    at head widths up to 128 (after padding) and every length, the SIMT
+    kernel on 256-wide tiles beyond."""
+    for d, want in ((1, "tensor_cores"), (32, "tensor_cores"),
+                    (48, "tensor_cores"), (128, "tensor_cores"),
+                    (129, "simt"), (256, "simt"), (320, "simt")):
+        assert tfa.fwd_kernel(d) == want, d
+
+
 def test_bwd_kernel_range():
     """Which kernel flash_bwd launches on the card: the tensor-core kernel
     at head widths up to 128 (after padding) and key lengths up to 512 (up
@@ -383,6 +419,61 @@ def test_three_tf32_terms_hold_the_fp32_tolerance(monkeypatch, case, shape):
             e = excess(a, w)
             assert (e < 0.05 if inside else e > 2.0), \
                 (terms.__name__, name, e)
+
+
+# the card's check of the forward (chip_smoke.py FLASH_FWD_TOL, the gpu
+# tests): the kernel against flash_fwd_ref
+CARD_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+FWD_TF32_CASES = [(c, (256, 128, 128, 64)) for c in ("full", "causal",
+                                                     "dropout")] + \
+    [(c, (6, CASES[c][1], CASES[c][2], 8)) for c in sorted(CASES)]
+
+
+@pytest.mark.parametrize("case,shape", FWD_TF32_CASES,
+                         ids=[f"{c}-{s[0]}x{s[1]}x{s[2]}x{s[3]}"
+                              for c, s in FWD_TF32_CASES])
+def test_three_tf32_terms_hold_the_forward_tolerance(monkeypatch, case,
+                                                     shape):
+    """Why flash_fwd's fp32 kernel takes three TF32 products, and that the
+    card's check (the kernel against flash_fwd_ref within CARD_FWD_TOL)
+    tells them from one: flash_fwd_ref with both products (S = q k^T and
+    p . v) made as the kernel's wgmma makes them, three terms or one (as
+    in test_three_tf32_terms_hold_the_fp32_tolerance). Against the fp32
+    plain version, three terms stay inside a tenth of CARD_FWD_TOL (o at
+    0.9-9.4 % of it, lse at 0.1-2.5 %), one breaks it in o at every case
+    (by 20 to 89 times at these seeds)."""
+    bh, tq, tk, d = shape
+    causal, p = CASES[case][0], (0.1 if case == "dropout" and bh == 256
+                                 else CASES[case][3])
+    rng = np.random.RandomState(6)
+    q = torch.from_numpy(rng.randn(bh, tq, d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(bh, tk, d).astype(np.float32))
+            for _ in range(2))
+    args = (causal, d ** -0.5, p, SEED)
+    want = tfa.flash_fwd_ref(q, k, v, *args)
+    matmul = torch.matmul
+
+    def one(a, b):
+        return matmul(tfc.split_tf32(a.contiguous())[0],
+                      tfc.split_tf32(b.contiguous())[0])
+
+    def three(a, b):
+        (ah, al), (bh_, bl) = (tfc.split_tf32(x.contiguous())
+                               for x in (a, b))
+        return (matmul(ah, bl) + matmul(al, bh_)) + matmul(ah, bh_)
+
+    def excess(got, ref):
+        return float(((got - ref).abs() / (CARD_FWD_TOL["atol"] + CARD_FWD_TOL[
+            "rtol"] * ref.abs())).max())
+    for terms, inside in ((three, True), (one, False)):
+        monkeypatch.setattr(torch, "matmul", terms)
+        o, lse = tfa.flash_fwd_ref(q, k, v, *args)
+        monkeypatch.setattr(torch, "matmul", matmul)
+        e_o, e_lse = excess(o, want[0]), excess(lse, want[1])
+        if inside:
+            assert e_o < 0.15 and e_lse < 0.15, (terms.__name__, e_o, e_lse)
+        else:
+            assert e_o > 10.0, (terms.__name__, e_o, e_lse)
 
 
 def test_lse_cotangent_enters_ds():
@@ -501,8 +592,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
     element, for the forward's online softmax and sums in another order),
     and the lse cotangent on both routes.
     flash_bwd launches one kernel a call and repeats its bits; the autograd
-    Function launches the forward and the backward once a call; the
-    kernels refuse q, k, v of mixed dtypes."""
+    Function launches the forward and the backward once a call."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     fp32 = [(16, 128, 128, 64, False, 0.0), (16, 128, 128, 64, True, 0.0),
@@ -588,6 +678,110 @@ def test_cuda_kernels_match_plain_versions(cuda_device, monkeypatch):
         assert {n: tfa.LAUNCHES[n] - n0[n] for n in n0} == \
             {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0, "flash_bwd": 1}
         assert q.grad.dtype == dt and torch.isfinite(q.grad).all()
-    x = torch.randn(2, 16, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="one dtype"):
-        tfa.flash_fwd(x, x.bfloat16(), x, False, 0.125)
+
+
+def _card_low_tol(want, narrow):
+    """Within one step of the narrow dtype at the largest magnitude plus one
+    of each element (the gpu tests' bf16 / fp16 tolerance)."""
+    step = LOW_STEP[narrow]
+    return dict(rtol=step, atol=step * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_forward_matches_plain_version(cuda_device,
+                                                        monkeypatch):
+    """The forward on the tensor cores against flash_fwd_ref at every head
+    width it takes (32, 64, 128 and the widths padded to them) and at
+    lengths off every tile multiple, above 512 and above 1000 keys, in
+    fp32 (CARD_FWD_TOL), bf16 and fp16 (one step of the dtype at the
+    largest magnitude plus one of each element), full, causal (tq <= tk)
+    and with dropout; one launch a call, a second call bit-equal."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    shapes = [(3, 1, 1), (3, 33, 33), (2, 64, 200), (2, 127, 127),
+              (2, 100, 513), (1, 700, 1100)]
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (8, 32, 48, 64, 100, 128):
+            assert tfa.fwd_kernel(d) == "tensor_cores"
+            for bh, tq, tk in shapes:
+                for causal, p in ((False, 0.0), (True, 0.0), (False, 0.2),
+                                  (True, 0.1)):
+                    q = torch.randn(bh, tq, d, generator=gen,
+                                    device=cuda_device).to(dt)
+                    k, v = (torch.randn(bh, tk, d, generator=gen,
+                                        device=cuda_device).to(dt)
+                            for _ in range(2))
+                    args = (causal, d ** -0.5, p, 77)
+                    n0 = tfa.LAUNCHES["flash_fwd"]
+                    o, lse = tfa.flash_fwd(q, k, v, *args)
+                    again = tfa.flash_fwd(q, k, v, *args)
+                    want_o, want_lse = tfa.flash_fwd_ref(q, k, v, *args)
+                    torch.cuda.synchronize()
+                    label = f"{dt} d={d} {bh}x{tq}x{tk} {causal} {p}"
+                    assert tfa.LAUNCHES["flash_fwd"] == n0 + 2, label
+                    assert torch.equal(o, again[0]) and \
+                        torch.equal(lse, again[1]), label
+                    tol = CARD_FWD_TOL if dt == torch.float32 else \
+                        _card_low_tol(want_o, str(dt).split(".")[1])
+                    assert o.dtype == dt, label
+                    torch.testing.assert_close(o.float(), want_o.float(),
+                                               msg=f"o {label}", **tol)
+                    torch.testing.assert_close(lse, want_lse,
+                                               msg=f"lse {label}",
+                                               **CARD_FWD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [("bfloat16", "float32", "float32"),
+                                    ("float32", "float32", "float16"),
+                                    ("float16", "float16", "float32"),
+                                    ("float32", "bfloat16", "bfloat16")],
+                         ids=["q_bf16", "v_fp16", "qk_fp16", "kv_bf16"])
+def test_cuda_mixed_dtypes_match_plain_versions(cuda_device, monkeypatch,
+                                                dtypes):
+    """q, k, v of mixed dtypes on the card (the combinations of
+    test_mixed_dtypes_match_pallas, and two more), dO in q's dtype: the
+    forward, flash_bwd and the dQ / dK,dV pair against the plain versions,
+    each output in the dtype the reference gives it (o and dq in q's, dk in
+    k's, dv in v's), within one step of the narrow dtype at the largest
+    magnitude plus one of each element: the kernels round p and dS to the
+    narrow dtype where the reference does, and a value that lies at a
+    rounding boundary may round the other way. Within the tensor cores'
+    range and beyond it (key length 513, head width 320)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    dts = [getattr(torch, n) for n in dtypes]
+    narrow = next(n for n in dtypes if n != "float32")
+    for bh, tq, tk, d, causal, p in ((16, 128, 128, 64, True, 0.1),
+                                     (4, 70, 130, 32, False, 0.2),
+                                     (4, 40, 513, 64, False, 0.0),
+                                     (2, 64, 64, 320, True, 0.1)):
+        q, g = (torch.randn(bh, tq, d, generator=gen, device=cuda_device)
+                .to(dts[0]) for _ in range(2))
+        k = torch.randn(bh, tk, d, generator=gen, device=cuda_device) \
+            .to(dts[1])
+        v = torch.randn(bh, tk, d, generator=gen, device=cuda_device) \
+            .to(dts[2])
+        args = (causal, d ** -0.5, p, 5)
+        o, lse = tfa.flash_fwd(q, k, v, *args)
+        want_o, want_lse = tfa.flash_fwd_ref(q, k, v, *args)
+        bwd = (q, k, v, g, want_lse,
+               (want_o.float() * g.float()).sum(-1)) + args
+        want = tfa.flash_bwd_ref(*bwd)
+        got = {"bwd": tfa.flash_bwd(*bwd),
+               "pair": (tfa.flash_dq(*bwd), *tfa.flash_dkv(*bwd))}
+        torch.cuda.synchronize()
+        label = f"{dtypes} {bh}x{tq}x{tk}x{d} {causal} {p}"
+        assert o.dtype == dts[0], label
+        torch.testing.assert_close(o.float(), want_o.float(),
+                                   msg=f"o {label}",
+                                   **_card_low_tol(want_o, narrow))
+        torch.testing.assert_close(lse, want_lse, msg=f"lse {label}",
+                                   **CARD_FWD_TOL)
+        for route, grads in got.items():
+            for name, a, w, dt in zip(("dq", "dk", "dv"), grads, want,
+                                      (dts[0], dts[1], dts[2])):
+                assert a.dtype == dt, f"{route} {name} {label}"
+                torch.testing.assert_close(
+                    a.float(), w.float(), msg=f"{route} {name} {label}",
+                    **_card_low_tol(w, narrow))

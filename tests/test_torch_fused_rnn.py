@@ -276,6 +276,63 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tfr.lstm_train_fwd(meta[0], w, peep, sl, h0, c0)
 
 
+# the card's checks (chip_smoke.py LSTM_FWD_TOL / LSTM_GRAD_TOL, the gpu
+# tests): the kernels against the plain versions
+CARD_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+CARD_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(100, 64, 512), (6, 8, 128), (7, 5, 100)],
+                         ids=["T100xB64xH512", "T6xB8xH128", "T7xB5xH100"])
+def test_three_tf32_terms_hold_the_lstm_tolerances(monkeypatch, shape):
+    """Why the cluster kernels (the forward's product, the backward's two
+    and ``dw``) take three TF32 products, and that the card's checks tell
+    them from one: the plain versions with every product made as the
+    kernels' wgmma makes it (each operand split hi = tf32(a), lo = tf32(a -
+    hi); the two small products, then hi * hi), three terms or one, at the
+    training shape (T 100, B 64, H 512) and two small ones, ragged, w x
+    H**-0.5. Against the fp32 plain versions, three terms stay within 5 %
+    of the tolerances (the outputs at 0.4-3.1 % of CARD_FWD_TOL, the
+    gradients at 0.04-0.9 % of CARD_GRAD_TOL), one breaks the outputs by
+    3.3 to 15.6 times and the gradients in dw and dh0 (by 2.0 to 8.4
+    times) at these seeds."""
+    T, B, H = shape
+    ins = _torch(_make(seed=3, T=T, B=B, H=H, w_scale=H ** -0.5))
+    rng = np.random.RandomState(7)
+    cot = [torch.from_numpy((rng.randn(*s) * k).astype(np.float32))
+           for s, k in (((T, B, H), .1), ((T, B, H), .1), ((B, H), 1.),
+                        ((B, H), 1.))]
+    want = tfr.lstm_train_fwd_plain(*ins)
+    want_back = tfr.lstm_train_bwd_plain(*ins, want[0], want[1], *cot)
+    matmul = torch.matmul
+    from paddle_tpu_torch.ops.kernels import fused_ce as tfc
+
+    def one(a, b):
+        return matmul(tfc.split_tf32(a.contiguous())[0],
+                      tfc.split_tf32(b.contiguous())[0])
+
+    def three(a, b):
+        (ah, al), (bh, bl) = (tfc.split_tf32(x.contiguous())
+                              for x in (a, b))
+        return (matmul(ah, bl) + matmul(al, bh)) + matmul(ah, bh)
+
+    def excess(got, ref, tol):
+        return float(((got - ref).abs() / (tol["atol"] + tol["rtol"]
+                                           * ref.abs())).max())
+    for terms, inside in ((three, True), (one, False)):
+        monkeypatch.setattr(torch.Tensor, "__matmul__", terms)
+        got = tfr.lstm_train_fwd_plain(*ins)
+        back = tfr.lstm_train_bwd_plain(*ins, want[0], want[1], *cot)
+        monkeypatch.undo()
+        e_out = max(excess(a, b, CARD_FWD_TOL) for a, b in zip(got, want))
+        e_grad = max(excess(a, b, CARD_GRAD_TOL)
+                     for a, b in zip(back, want_back))
+        if inside:
+            assert e_out < 0.05 and e_grad < 0.05, (e_out, e_grad)
+        else:
+            assert e_out > 3.0 and e_grad > 1.5, (e_out, e_grad)
+
+
 @pytest.mark.parametrize("h, sms, fit, plan", [
     (512, 132, 66, 128),               # the H100's plan
     (512, 132, 63, None),              # not every cluster fits: grid kernel
@@ -290,11 +347,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     (1024, 132, 66, None),
     (512, 132, 0, None)])
 def test_lstm_bwd_plan(h, sms, fit, plan):
-    """The LSTM backward's kernel as a function of H, the SMs and how many
-    clusters of 2 the card holds: the cluster kernel's blocks, ceil(H / 4)
-    rounded up to whole clusters, where they all fit at once; the grid
-    kernel (None) above H 512, off multiples of 4, or where they do not."""
-    assert tfr.lstm_bwd_plan(h, sms, fit) == plan
+    """The kernel of an LSTM direction (the plan the forward and the
+    backward share, each with its own cluster kernel's occupancy) as a
+    function of H, the SMs and how many clusters of 2 the card holds: the
+    cluster kernel's blocks, ceil(H / 4) rounded up to whole clusters,
+    where they all fit at once; the grid kernel (None) above H 512, off
+    multiples of 4, or where they do not."""
+    assert tfr.lstm_plan(h, sms, fit) == plan
 
 
 def _card_check(dev, T, B, H, seed, w_scale):
@@ -382,33 +441,72 @@ def test_cuda_function_launches_once_each_way_and_rejects(cuda_device):
                            .transpose(0, 1), *[a.detach() for a in ins[1:]])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(100, 64, 512), (7, 5, 100), (5, 130, 512),
-                                   (3, 1, 4), (9, 64, 64), (3, 64, 288),
-                                   (20, 64, 480)])
-def test_cuda_cluster_and_grid_backward_agree(cuda_device, monkeypatch,
-                                              shape):
-    """Where the plan picks the cluster kernel, it and the grid kernel
-    (forced by emptying the plan) against the plain version within the
-    gradient tolerances, each bit-equal across two runs; on an H100 (132
-    SMs) the plan at H 512 is 128 blocks in clusters of 2. A stream's
-    launches share one grid-barrier counter, never zeroed between them:
-    each adds T x blocks, and the wrapper's value of it agrees (a new
-    stream starts its own, here after two launches)."""
+CLUSTER_SHAPES = [(100, 64, 512), (7, 5, 100), (5, 130, 512), (3, 1, 4),
+                  (9, 64, 64), (3, 64, 288), (20, 64, 480)]
+
+
+def _cluster_and_grid_agree(dev, monkeypatch, shape, name):
+    """Where the plan of ``name`` picks its cluster kernel, it and the grid
+    kernel (forced by emptying that plan) against the plain versions, each
+    bit-equal across two runs; on an H100 (132 SMs) the plan at H 512 is
+    128 blocks in clusters of 2. A stream's launches of both directions
+    share one grid-barrier counter, never zeroed between them: each adds
+    T x blocks, and the wrapper's value of it agrees (a new stream starts
+    its own: one forward and two backward launches a check)."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     T, B, H = shape
-    report = tfr.lstm_bwd_kernel_for(H, cuda_device)
+    report = tfr.lstm_kernel_for(name, H, dev)
     assert report["kernel"] == "cluster", report
     if H == 512 and torch.cuda.get_device_properties(
-            cuda_device).multi_processor_count == 132:
+            dev).multi_processor_count == 132:
         assert (report["cluster"], report["blocks"]) == (2, 128), report
-    _card_check(cuda_device, T, B, H, 1, min(0.2, H ** -0.5))
-    count, base = tfr._barrier(cuda_device)
+    _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
+    count, base = tfr._barrier(dev)
     assert int(count) % 2 ** 32 == base > 0
-    with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
-        _card_check(cuda_device, T, B, H, 1, min(0.2, H ** -0.5))
-        count, base = tfr._barrier(cuda_device)
-        assert int(count) % 2 ** 32 == base == 2 * T * report["blocks"]
-    key = (torch.cuda.current_device(), H)
+    blocks = {n: tfr.lstm_kernel_for(n, H, dev).get("blocks", 0)
+              for n in ("lstm_train_fwd", "lstm_train_bwd")}
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
+        count, base = tfr._barrier(dev)
+        assert int(count) % 2 ** 32 == base == T * (
+            blocks["lstm_train_fwd"] + 2 * blocks["lstm_train_bwd"])
+    key = (torch.cuda.current_device(), name, H)
     monkeypatch.setitem(tfr._plans, key, None)
-    _card_check(cuda_device, T, B, H, 1, min(0.2, H ** -0.5))
+    assert tfr.lstm_kernel_for(name, H, dev) == {"kernel": "grid"}
+    _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cuda_cluster_and_grid_backward_agree(cuda_device, monkeypatch,
+                                              shape):
+    """The backward's cluster kernel and grid kernel against the plain
+    versions (``_cluster_and_grid_agree``)."""
+    _cluster_and_grid_agree(cuda_device, monkeypatch, shape,
+                            "lstm_train_bwd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cuda_cluster_and_grid_forward_agree(cuda_device, monkeypatch,
+                                             shape):
+    """The forward's cluster kernel and grid kernel against the plain
+    versions (``_cluster_and_grid_agree``), and against each other within
+    the forward's tolerance; each bit-equal across two runs."""
+    T, B, H = shape
+    blocks = tfr.lstm_kernel_for("lstm_train_fwd", H, cuda_device).get(
+        "blocks")
+    _cluster_and_grid_agree(cuda_device, monkeypatch, shape,
+                            "lstm_train_fwd")      # leaves the grid kernel
+    ins = [a.to(cuda_device) for a in _torch(_make(seed=2, T=T, B=B, H=H,
+                                                   w_scale=H ** -0.5))]
+    grid = tfr.lstm_train_fwd(*ins)
+    monkeypatch.setitem(tfr._plans, (torch.cuda.current_device(),
+                                     "lstm_train_fwd", H), blocks)
+    cluster = tfr.lstm_train_fwd(*ins)
+    again = tfr.lstm_train_fwd(*ins)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(OUT_NAMES, cluster, again, grid):
+        assert torch.equal(a, b), f"{name}: not repeatable"
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5,
+                                   msg=f"{name}: cluster against grid")

@@ -26,6 +26,13 @@ device time from a profiler window (``_device_us``), and by device time
 the checkout's ``flash_bwd`` alone (where it has none, its ``flash_dq``
 and ``flash_dkv``) and SDPA's longest kernel alone (``sdpa_kernel_``).
 The bf16 rows of a checkout whose kernels take fp32 only are null.
+Since the forwards' redesign it also times, by events and by device time,
+the checkout's flash-attention forward (``flash_fwd``) in fp32 (full,
+causal), bf16 (full) and on q in bf16 with k and v in fp32 (null for a
+checkout whose kernels refuse mixed dtypes) beside SDPA's forward on the
+same inputs (device time; its calls are host-bound), and the LSTM forward
+(``lstm_train_fwd``) at ``stacked_dynamic_lstm``'s shape (T 100, B 64,
+H 512, ragged, from ``chip_smoke.lstm_inputs``).
 """
 
 from __future__ import annotations
@@ -79,7 +86,57 @@ def main():
     out["embed_pool_us"] = cs.time_ms(
         torch, lambda: ep.fused_embed_seq_pool(table, ids, lens), flush) * 1e3
     out.update(flash_rows(cs, torch, dev, flush))
+    out.update(forward_rows(cs, torch, dev, flush))
     print(json.dumps(out), flush=True)
+
+
+def forward_rows(cs, torch, dev, flush):
+    """The flash forward at Transformer-base's attention shape and the LSTM
+    forward at the stacked LSTM's, in us: by events (``_us``) and by device
+    time (``_device_us``); SDPA's forward by device time beside the flash
+    rows (``sdpa_fwd_``); null where the checkout refuses the dtypes."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    heads, t = cs.TRAIN["n_head"], cs.TRAIN["max_len"]
+    d = cs.TRAIN["d_model"] // heads
+    gen = torch.Generator(device=dev).manual_seed(6)
+    base = [torch.randn(cs.BATCH * heads, t, d, generator=gen, device=dev)
+            for _ in range(3)]
+    rows = {}
+    for name, dts, causal in (
+            ("fp32_full", (torch.float32,) * 3, False),
+            ("fp32_causal", (torch.float32,) * 3, True),
+            ("bf16_full", (torch.bfloat16,) * 3, False),
+            ("mixed_q_bf16_full", (torch.bfloat16, torch.float32,
+                                   torch.float32), False)):
+        q, k, v = (x.to(dt) for x, dt in zip(base, dts))
+
+        def ours():
+            return fa.flash_fwd(q, k, v, causal, d ** -0.5)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                *(x.view(cs.BATCH, heads, t, d) for x in (q, k, v)),
+                is_causal=causal)
+        try:
+            ours()
+        except ValueError:          # a parent that refuses these dtypes
+            rows.update({f"flash_fwd_{name}_us": None,
+                         f"flash_fwd_{name}_device_us": None})
+            continue
+        rows[f"flash_fwd_{name}_us"] = 1e3 * cs.time_ms(torch, ours, flush)
+        rows[f"flash_fwd_{name}_device_us"] = 1e3 * cs.device_ms(torch, ours)
+        if len(set(dts)) == 1:
+            rows[f"sdpa_fwd_{name}_device_us"] = 1e3 * cs.device_ms(torch,
+                                                                   lib)
+    ins, _, _ = cs.lstm_inputs(torch, dev, cs.LSTM["max_len"],
+                               cs.LSTM_BATCH, cs.LSTM["hid_dim"], 13)
+    rows["lstm_train_fwd_us"] = 1e3 * cs.time_ms(
+        torch, lambda: fr.lstm_train_fwd(*ins), flush, n=20)
+    rows["lstm_train_fwd_device_us"] = 1e3 * cs.device_ms(
+        torch, lambda: fr.lstm_train_fwd(*ins))
+    return rows
 
 
 def flash_rows(cs, torch, dev, flush):

@@ -15,9 +15,14 @@ calls it through the port's own wrappers at T 100, B 64, H 512 with ragged
 lengths (1..T, about half of the (row, step) pairs live) and with full
 lengths. It prints the median cycles of one step for
 
-- the forward: the product ``h @ w`` (and inside it: staging the carry
-  from L2, the multiply-add loop, the cross-slice sums), the cell and its
-  stores, the grid barrier;
+- the forward (the cluster kernel, ``lstm_fwd_cluster_kernel``): the
+  staged columns of the state landing, the product on the tensor cores,
+  the exchange of its partial gates inside the cluster, the cell and its
+  stores, the rest of the step, the grid barrier;
+- the forward's grid kernel (``lstm_fwd_kernel``, which the plan picks
+  above H 512; here forced by emptying the plan): the product ``h @ w``
+  (and inside it: staging the carry from L2, the multiply-add loop, the
+  cross-slice sums), the cell and its stores, the grid barrier;
 - the backward (the cluster kernel, ``lstm_bwd_cluster_kernel``): the
   staged columns of ``h_prev`` landing, product A on the tensor cores,
   the exchange of its partial gates inside the cluster, the cell and its
@@ -65,25 +70,31 @@ MARKS = (
      "      tile_product<4 * U>(hin, h, order + r0, min(kBT, n_live - r0), "
      "h, ws,\n                          as, red); MARK(1)"),
     ("    grid.sync();", 2, "    MARK(2) grid.sync(); MARK(3)"),
-    # the cluster backward (lstm_bwd_cluster_kernel): top of a step, the
-    # staged rows landed, product A, the cell, the cluster exchange, phase
-    # B, the grid barrier, the reduce of the clusters' partials
+    # the cluster kernels (lstm_fwd_cluster_kernel and
+    # lstm_bwd_cluster_kernel, the same marks where they share lines): top
+    # of a step, the staged rows landed, product A, its exchange; the
+    # forward's cell; the backward's cell, the cluster exchange, phase B;
+    # the grid barrier, the backward's reduce of the clusters' partials
     ("    const int n_live = live[t];\n\n    for (int r0 = 0; r0 < n_live; "
-     "r0 += kBT) {\n      const int rows", 1,
+     "r0 += kBT) {\n      const int rows", 2,
      "    const int n_live = live[t]; MARK(0)\n\n    for (int r0 = 0; r0 < "
      "n_live; r0 += kBT) {\n      const int rows"),
-    ("      // staged\n", 1, "      MARK(1)\n"),
+    ("      // staged\n", 2, "      MARK(1)\n"),
     ("      cluster.sync();                  // every partial of the gates "
-     "landed\n", 1,
+     "landed\n", 2,
      "      MARK(2) cluster.sync();          // every partial of the gates "
      "landed\n      MARK(3)\n"),
+    ("      if (r0 + kBT < n_live) cluster.sync();   // pa and hs are read "
+     "before\n", 1,
+     "      MARK(4) if (r0 + kBT < n_live) cluster.sync();   // pa and hs "
+     "are read before\n"),
     ("      // cluster exchange:", 1,
      "      MARK(4)\n      // cluster exchange:"),
     ("      cluster.sync();                  // every gate gradient has "
      "landed\n", 1,
      "      cluster.sync();                  // every gate gradient has "
      "landed\n      MARK(5)\n"),
-    ("    grid_barrier(count, target += gridDim.x);\n", 1,
+    ("    grid_barrier(count, target += gridDim.x);\n", 2,
      "    MARK(6) grid_barrier(count, target += gridDim.x); MARK(7)\n"),
     ("    // end of a step\n", 1, "    MARK(8)\n"),
     # inside the product (read for the forward only: the backward's two
@@ -186,12 +197,26 @@ def main():
             outs = fr.lstm_train_fwd(*ins)
         d = marks()
         step = np.median(d[1:, 0] - d[:-1, 0])
-        show(f"forward, {label} lengths ({int(lens_np.sum())} of {T * B} "
-             f"pairs live), step {step:.0f}",
+        show(f"forward ({fr.lstm_kernel_for('lstm_train_fwd', H, dev)}), "
+             f"{label} lengths ({int(lens_np.sum())} of {T * B} pairs "
+             f"live), step {step:.0f}",
+             ("staging", "product", "exchange", "cell and stores",
+              "the rest", "grid barrier"),
+             np.stack([d[:, 1] - d[:, 0], d[:, 2] - d[:, 1],
+                       d[:, 3] - d[:, 2], d[:, 4] - d[:, 3],
+                       d[:, 6] - d[:, 4], d[:, 7] - d[:, 6]], 1))
+        key = (torch.cuda.current_device(), "lstm_train_fwd", H)
+        saved, fr._plans[key] = fr._plans[key], None    # the grid kernel
+        for _ in range(3):
+            fr.lstm_train_fwd(*ins)
+        fr._plans[key] = saved
+        d = marks()
+        step = np.median(d[1:, 0] - d[:-1, 0])
+        show(f"forward (grid kernel), {label} lengths, step {step:.0f}",
              ("product", "cell and stores", "barrier"),
              np.stack([d[:, 1] - d[:, 0], d[:, 2] - d[:, 1],
                        d[:, 3] - d[:, 2]], 1))
-        show(f"forward product, {label} lengths",
+        show(f"forward product (grid kernel), {label} lengths",
              ("to the first barrier", "staging", "second barrier",
               "multiply-add", "slice sums"),
              np.stack([d[:, 4] - d[:, 0], d[:, 5] - d[:, 4],
@@ -201,7 +226,8 @@ def main():
             fr.lstm_train_bwd(*ins, outs[0], outs[1], *cot)
         d = marks()
         step = np.median(d[:-1, 0] - d[1:, 0])
-        show(f"backward ({fr.lstm_bwd_kernel_for(H, dev)}), {label} "
+        show(f"backward ({fr.lstm_kernel_for('lstm_train_bwd', H, dev)}), "
+             f"{label} "
              f"lengths, step {step:.0f}",
              ("staging", "product A", "exchange A", "cell and stores",
               "exchange B", "phase B", "grid barrier", "reduce"),
