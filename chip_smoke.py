@@ -15,11 +15,15 @@ final line:
    ptxas's register and spill report.
 3. Kernels: each page-gather kernel at the decode shapes of phase 4
    (4096 pool rows, 4096 gathered rows, 512 wide, sentinel rows
-   included) must equal its plain PyTorch version exactly. Each is
-   timed with CUDA events (median per launch, L2 flushed before each
-   launch as a decode step finds it), beside its plain version, one
-   PyTorch library call computing the same function, and its bound:
-   the bytes it must move over the card's 3.35 TB/s.
+   included) must equal its plain PyTorch version exactly; the
+   dequantizing gather also at its edges (``DEQUANT_EDGES``: one row, a
+   count off a block's rows, only sentinels, head widths 16 and 48 and,
+   on the scalar kernel, 6). Each is timed with CUDA events (median per
+   launch, L2 flushed before each launch as a decode step finds it) and
+   by device time alone after the same flush (a profiler window),
+   beside its plain version, one PyTorch library call computing the same
+   function (by events and device time), and its bound: the bytes it
+   must move over the card's 3.35 TB/s.
 4. Slice: ``decoder_lm`` at Transformer-base width (vocab 32000,
    d_model 512, d_inner 2048, 8 heads, 6 layers; seeded random weights
    carried in through ``params_from_jax``) serves 24 requests through
@@ -31,7 +35,9 @@ final line:
    a divergence passes only at a near tie, top-2 gap < 1e-3), int8's
    first tokens equal the oracle's and a second int8 run replays the
    first exactly, and every decode step launched its kernel twice per
-   layer.
+   layer. Then, per codec, a profiler window of 20 decode steps with
+   every slot busy: device busy per step, idle share, and by profiler
+   name that every page gather ran that codec's kernel.
 5. Flash kernels: the flash-attention forward (on the tensor cores up to
    head width 128, fp32 through 3xTF32; a second call bit-equal), the
    one-pass backward (``flash_bwd``: dQ, dK and dV in one launch on the
@@ -150,7 +156,7 @@ final line:
    B 64 at H 1024 (timed beside plain and bound) and H 700, and above
    16 units on every SM (groups of 16 units in passes): T 4, B 2 at
    H 2113, the same checks. Each shape prints which backward kernel ran
-   (``fused_rnn.lstm_kernel_for``: the cluster kernel with its cluster
+   (``fused_rnn.rnn_kernel_for``: the cluster kernel with its cluster
    size, units and blocks, or the grid kernel) in each direction. At the
    training shape the forward (the cluster kernel) runs twice with the
    same bits and is held to the grid kernel in the same run (the plan
@@ -187,7 +193,12 @@ final line:
     and the bound over the live (row, step) pairs. No one PyTorch call
     computes this function (``nn.GRU`` applies the reset after its
     product and owns the input projection): ``library_ms`` is null. The
-    forward at B 1 gives the serial cost of a step. Then above H 512: T
+    forward at B 1 gives the serial cost of a step. At the training shape
+    the backward (the cluster kernel up to H 512) is also split by kernel
+    in a profiler window (the loop, ``dw``, the rest), held to the grid
+    kernel run in the same process (the plan emptied; timed) within the
+    gradients' tolerance, and bound at 3xTF32 and at the SIMT rate; each
+    shape prints which kernel each direction ran. Then above H 512: T
     16, B 64 at H 1024 (timed) and H 700, x [1, 1, 1539] (H 513, the
     least width above 512), and above 16 units on every SM (groups of 16
     units in passes) x [1, 1, 6339] and T 4, B 2 at H 2113, the same
@@ -199,7 +210,9 @@ final line:
     ids over the whole vocabulary), lazy Adam over row-sparse table
     gradients. The launch counts of every kernel module are zeroed just
     before and read just after. Checks: every step launched each GRU
-    kernel twice (encoder, decoder) and nothing else; losses finite, the
+    kernel twice (encoder, decoder) and nothing else, by profiler name
+    the backward's cluster kernel both times (the grid kernel where the
+    plan picks it); losses finite, the
     last below the first; the table rows no batch touched bit-equal to
     their start and every touched row moved; the first 3 losses within
     rtol 1e-3 of the same model on the CPU from the same weights and
@@ -268,7 +281,8 @@ final line:
     scatter leaving every other row unchanged and its storage in place;
     timed as in phase 3 beside the plain version, the bound (bytes over
     3.35 TB/s: the K rows read, the K rows written, the K slots) and one
-    PyTorch call (``index_select``, ``index_copy_``).
+    PyTorch call (``index_select``, ``index_copy_``), each by events and
+    by device time.
 17. deepfm over the hot-rows cache: ``deepfm.build()`` at its defaults
     (26 fields, V 100000, K 16, fc 400 x 3, lazy Adam 1e-3), batch 2048,
     seeded zipf(1.1) ids, seeded weights, TF32 off, the table on 2
@@ -314,6 +328,7 @@ SERVE = dict(n_slots=16, prompt_buckets=(32, 64, 128), page_size=16,
              n_pages=256)
 CACHE_LEN = 256                    # largest bucket 128 + max_new 128
 N_REQUESTS = 24
+DECODE_PROFILE_STEPS = 20
 SAMPLED = (5, 11, 17, 23)          # request indices served with sampling
 SAMPLING = dict(temperature=0.8, top_k=40)
 NEAR_TIE = 1e-3
@@ -451,6 +466,56 @@ def time_ms(torch, fn, flush, n=50, warm=5):
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
+def flushed_device_ms(torch, fn, flush, n=20, tries=3):
+    """Device ms a call of ``fn`` alone, each call after the same L2 flush:
+    its kernels' time in a profiler window, the flush's fill left out (CUDA
+    events also count the host's launch where it outlasts the kernel). A
+    window that saw none of its kernels is taken again; None (not measured)
+    after ``tries`` such windows."""
+    for _ in range(tries):
+        split = kernel_split(torch, lambda: (flush.zero_(), fn()), n=n)
+        ms = sum(v for k, v in split.items() if "FillFunctor" not in k)
+        if ms > 0:
+            return ms
+    return None
+
+
+def us(ms):
+    """Milliseconds as printed microseconds, or "not measured"."""
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+# the dequantizing gather's edge shapes: (pool rows, heads, head width,
+# gathered rows, rows) -- one row; rows off a block's 32; only sentinels;
+# head widths 16 and 48 (the row kernel) and 6 (the scalar kernel)
+DEQUANT_EDGES = ((4096, 8, 64, 1, "random"), (4096, 8, 64, 37, "random"),
+                 (300, 8, 64, 100, "sentinels"), (64, 4, 16, 50, "random"),
+                 (64, 8, 48, 33, "random"), (64, 3, 6, 70, "random"))
+
+
+def dequant_edges(torch, dev, card, pa):
+    """The dequantizing gather bit-equal to its plain version at
+    ``DEQUANT_EDGES``; returns the largest error (0)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for r, heads, dk, k, kind in DEQUANT_EDGES:
+        codes = torch.randint(-127, 128, (r, heads * dk), generator=gen,
+                              device=dev, dtype=torch.int32).to(torch.int8)
+        scales = torch.rand(r, heads, generator=gen, device=dev) + 1e-3
+        rows = (torch.randint(0, r + 16, (k,), generator=gen, device=dev,
+                              dtype=torch.int32) if kind == "random" else
+                torch.full((k,), r + 3, dtype=torch.int32, device=dev))
+        got = pa.gather_rows_dequant(codes, scales, rows, heads)
+        want = pa.gather_rows_dequant_ref(codes, scales, rows, heads)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"gather_rows_dequant [{r}x{heads * dk}], {heads} heads, "
+                 f"K {k} ({kind}) differs from its plain version (max abs "
+                 f"err {float((got - want).abs().max())})")
+    print(f"[{card}] gather_rows_dequant at the edges (pool rows, heads, "
+          f"head width, K, rows: {[e for e in DEQUANT_EDGES]}): bit-equal")
+    return 0.0
+
+
 def kernel_phase(torch, dev, card):
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     g = SERVE
@@ -482,11 +547,15 @@ def kernel_phase(torch, dev, card):
         row = {"max_abs_err": err, "ms": time_ms(torch, fn, flush),
                "plain_ms": time_ms(torch, ref, flush),
                "library_ms": time_ms(torch, lib, flush),
+               "device_ms": flushed_device_ms(torch, fn, flush),
+               "library_device_ms": flushed_device_ms(torch, lib, flush),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes", "bytes": nbytes, "distinct_rows": uniq}
-        print(f"[{card}] {name}: exact; kernel {row['ms'] * 1e3:.2f} us, "
-              f"plain {row['plain_ms'] * 1e3:.2f} us, library "
-              f"{row['library_ms'] * 1e3:.2f} us, bound "
+        print(f"[{card}] {name}: exact; kernel {row['ms'] * 1e3:.2f} us "
+              f"(device {us(row['device_ms'])}), plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, library "
+              f"{row['library_ms'] * 1e3:.2f} us (device "
+              f"{us(row['library_device_ms'])}), bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB: "
               f"{uniq} distinct pool rows read)")
         return row
@@ -514,6 +583,8 @@ def kernel_phase(torch, dev, card):
         lambda: pa.gather_rows_dequant(codes, scales, rows, heads),
         lambda: pa.gather_rows_dequant_ref(codes, scales, rows, heads),
         dequant_lib, uniq * (width + heads * 4) + idx_bytes + k * width * 4)
+    results["gather_rows_dequant/int8"]["edge_max_abs_err"] = dequant_edges(
+        torch, dev, card, pa)
     del flush
     return results
 
@@ -664,6 +735,57 @@ def oracle_check(torch, lm, reqs, streams, label, first_only=False):
     return ties
 
 
+def decode_busy(torch, engine, card, label, kname, per_layer,
+                steps=DECODE_PROFILE_STEPS):
+    """Device busy per decode step of ``engine`` (every slot filled with
+    a seeded 64-token prompt, 5 untraced steps, then ``steps`` in a
+    profiler window), its idle share, and by profiler name that every page
+    gather of the window ran ``kname``'s kernel (``per_layer`` a step)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(3)
+    for _ in range(engine.n_slots):
+        engine.admit(rng.randint(1, LM["vocab"], 64), max_new=128)
+    for _ in range(5):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    engine.reset()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    want = {"gather_rows": "gather_rows_kernel",
+            "gather_rows_dequant": "gather_rows_dequant_kernel"}[kname]
+    ran = {ev.key: ev.count for ev in kernels if "gather_rows" in ev.key}
+    if sum(ran.values()) != per_layer * steps or any(
+            want not in key for key in ran):
+        fail(f"{label}: the page gathers of {steps} decode steps ran "
+             f"{ran}, want {per_layer * steps} of {want}")
+    gather_us = sum(ev.self_device_time_total for ev in kernels
+                    if "gather_rows" in ev.key)
+    out = {"device_busy_ms_per_step": busy_us / steps / 1e3,
+           "host_ms_per_step": wall_ms / steps,
+           "gather_us_per_step": gather_us / steps,
+           "launches_per_step": sum(ev.count for ev in kernels) / steps}
+    out["idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out[
+        "host_ms_per_step"]
+    print(f"[{card}] {label} profile ({steps} decode steps of "
+          f"{engine.n_slots} slots): device busy "
+          f"{out['device_busy_ms_per_step']:.3f} ms/step (as "
+          f"tools/torch_decode_profile.py reads it), host "
+          f"{out['host_ms_per_step']:.3f} ms/step "
+          f"(profiler on), idle share {out['idle_share']:.3f}; page gathers "
+          f"{out['gather_us_per_step']:.1f} us/step, {per_layer} a step, "
+          f"all {want}")
+    return out
+
+
 def slice_phase(torch, dev, card):
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models.transformer import DecoderLM
@@ -707,7 +829,11 @@ def slice_phase(torch, dev, card):
         fail("kv_codec=int8: a second run gave other streams")
     print(f"[{card}] kv_codec=int8: first tokens equal the oracle's "
           f"({ties} near ties); a second run replays every stream")
-    return main_path_launches, per_layer
+    busy = {codec: decode_busy(torch, engines[codec], card,
+                               f"kv_codec={codec}", kname, per_layer)
+            for codec, kname in (("none", "gather_rows"),
+                                 ("int8", "gather_rows_dequant"))}
+    return main_path_launches, per_layer, busy
 
 
 # -- phase 5: flash kernels -------------------------------------------------
@@ -1551,7 +1677,7 @@ def profile_calls(torch, work, n):
     fce_us = sum(ev.self_device_time_total for ev in kernels
                  if "fused_ce_" in ev.key)
     rnn_us = sum(ev.self_device_time_total for ev in kernels
-                 if any(k in ev.key for k in ("lstm_", "gru_", "rnn_gemm")))
+                 if any(k in ev.key for k in ("lstm_", "gru_", "rnn_")))
     pool_us = sum(ev.self_device_time_total for ev in kernels
                   if "seqpool" in ev.key or "embed_pool" in ev.key)
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
@@ -1587,7 +1713,11 @@ KERNEL_FAMILIES = (
     ("lstm_fwd grid", "lstm_fwd_kernel", None),
     ("lstm_bwd cluster", "lstm_bwd_cluster_kernel", None),
     ("lstm_bwd grid", "lstm_bwd_kernel", None),
-    ("lstm_dw", "lstm_dw_kernel", None))
+    ("gru_fwd grid", "gru_fwd_kernel", None),
+    ("gru_bwd cluster", "gru_bwd_cluster_kernel", None),
+    ("gru_bwd grid", "gru_bwd_kernel", None),
+    ("rnn_gemm", "rnn_gemm_kernel", None),
+    ("rnn_dw", "rnn_dw_kernel", None))
 
 
 def kernel_family(key):
@@ -1982,7 +2112,7 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
-        plans = {k: fr.lstm_kernel_for(k, cfg["hid_dim"], dev)["kernel"]
+        plans = {k: fr.rnn_kernel_for(k, cfg["hid_dim"], dev)["kernel"]
                  for k in ("lstm_train_fwd", "lstm_train_bwd")}
         check_families("LSTM training", prof, {
             f"lstm_{k[11:]} {plans[k]}": n_layer for k in plans})
@@ -2135,8 +2265,9 @@ def rnn_rows(torch, fr, card, kind, ins, cot, want, errs, lens_sum, flush):
         row["us_per_step"] = row["ms"] / t * 1e3
         if kname == "lstm_train_fwd":
             lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush)
-        if kname == "lstm_train_bwd":
-            lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush)
+        if kname in ("lstm_train_bwd", "gru_train_bwd"):
+            rnn_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush,
+                           kname)
         print(f"[{card}] {kname} [T {t}, B {b}, H {h}]: max abs err "
               f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms "
               f"({row['us_per_step']:.2f} us a step), plain "
@@ -2173,7 +2304,7 @@ def lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
     grid kernel in the same run (the plan emptied) timed and held to it
     within LSTM_FWD_TOL."""
     dev = torch.device("cuda")
-    plan = fr.lstm_kernel_for("lstm_train_fwd", h, dev)
+    plan = fr.rnn_kernel_for("lstm_train_fwd", h, dev)
     t_bytes = nbytes / HBM_BYTES_PER_S
     tc = 3 * flops / TF32_FLOPS_PER_S
     row["kernel"] = plan
@@ -2214,14 +2345,20 @@ def lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
           f"{row['simt_bound_ms']:.3f} ms at the SIMT rate")
 
 
-def lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
-    """The LSTM backward's kernel (cluster or grid) and bounds at width h:
-    its FLOPs as three TF32 products at 495 TFLOP/s where the loop runs on
-    the tensor cores (the cluster kernel; the dw product does at every
-    width), else the loop's two thirds at 67 TFLOP/s; both against the
-    bytes. At the training shape also its time by kernel and the grid
-    kernel's time in the same run."""
-    plan = fr.lstm_kernel_for("lstm_train_bwd", h, torch.device("cuda"))
+def rnn_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush,
+                   name):
+    """The backward's kernel (cluster or grid) of ``name``
+    ("lstm_train_bwd" or "gru_train_bwd") and bounds at width h: its FLOPs
+    as three TF32 products at 495 TFLOP/s where the loop runs on the tensor
+    cores (the cluster kernel; the dw product does at every width), else
+    the loop's two thirds at 67 TFLOP/s; both against the bytes. At the
+    training shape also its time by kernel (the loop, dw, the rest), and
+    the grid kernel run in the same process (the plan emptied): timed, by
+    kernel, and held to the cluster kernel within the gradients'
+    tolerance."""
+    plan = fr.rnn_kernel_for(name, h, torch.device("cuda"))
+    loop = name[:-len("_train_bwd")] + "_bwd"       # lstm_bwd, gru_bwd
+    tol = LSTM_GRAD_TOL if name.startswith("lstm") else GRU_GRAD_TOL
     t_bytes = nbytes / HBM_BYTES_PER_S
     tc = 3 * flops / TF32_FLOPS_PER_S
     t_ops = tc if plan["kernel"] == "cluster" else \
@@ -2234,32 +2371,45 @@ def lstm_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
     if plan["kernel"] != "cluster":
         return
     split = kernel_split(torch, fn)
-    row["loop_ms"] = sum(v for k, v in split.items() if "lstm_bwd" in k)
-    row["dw_ms"] = sum(v for k, v in split.items() if "lstm_dw" in k)
-    row["rest_ms"] = sum(split.values()) - row["loop_ms"] - row["dw_ms"]
-    key = (torch.cuda.current_device(), "lstm_train_bwd", h)
+    row["device_ms"] = sum(split.values())
+    row["loop_ms"] = sum(v for k, v in split.items() if loop in k)
+    row["dw_ms"] = sum(v for k, v in split.items() if "rnn_dw" in k)
+    row["rest_ms"] = row["device_ms"] - row["loop_ms"] - row["dw_ms"]
+    got = fn()
+    key = (torch.cuda.current_device(), name, h)
     saved = fr._plans[key]
     fr._plans[key] = None                  # the grid kernel, this run
     try:
+        grid = fn()
         row["grid_ms"] = time_ms(torch, fn, flush, n=20)
-        grid = kernel_split(torch, fn)
+        gsplit = kernel_split(torch, fn)
     finally:
         fr._plans[key] = saved
-    row["grid_loop_ms"] = sum(v for k, v in grid.items() if "lstm_bwd" in k)
-    print(f"[{card}] lstm_train_bwd at H {h}: {plan}; by kernel: loop "
+    torch.cuda.synchronize()
+    row["grid_device_ms"] = sum(gsplit.values())
+    row["grid_loop_ms"] = sum(v for k, v in gsplit.items() if loop in k)
+    row["grid_split_ms"] = gsplit
+    row["grid_max_abs_diff"] = max(float((a - b).abs().max())
+                                   for a, b in zip(got, grid))
+    for a, b in zip(got, grid):
+        if not close(a, b, tol):
+            fail(f"{name} at H {h}: the cluster kernel differs from the "
+                 f"grid kernel (max abs diff {row['grid_max_abs_diff']})")
+    print(f"[{card}] {name} at H {h}: {plan}; by kernel: loop "
           f"{row['loop_ms']:.3f} ms, dw {row['dw_ms']:.3f} ms, the rest "
-          f"{row['rest_ms']:.3f} ms; the grid kernel (the earlier design) "
-          f"{row['grid_ms']:.3f} ms in this run (its loop "
-          f"{row['grid_loop_ms']:.3f} ms); bounds "
+          f"{row['rest_ms']:.3f} ms (device {row['device_ms']:.3f} ms); the "
+          f"grid kernel (the earlier design) {row['grid_ms']:.3f} ms in this "
+          f"run (device {row['grid_device_ms']:.3f} ms, its loop "
+          f"{row['grid_loop_ms']:.3f} ms), within "
+          f"{row['grid_max_abs_diff']:.3g} of the cluster kernel; bounds "
           f"{row['tf32x3_bound_ms']:.3f} ms at 3xTF32, "
           f"{row['simt_bound_ms']:.3f} ms at the SIMT rate")
 
 
-def lstm_plans(fr, h, dev):
-    """Which kernel each LSTM direction runs at width h, as printed."""
+def rnn_plans(fr, names, h, dev):
+    """Which kernel each direction runs at width h, as printed."""
     return " (forward: {}, backward: {})".format(
-        *(fr.lstm_kernel_for(k, h, dev)
-          for k in ("lstm_train_fwd", "lstm_train_bwd")))
+        *(fr.rnn_kernel_for(k, h, dev) for k in names))
 
 
 def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
@@ -2279,7 +2429,7 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
     ins, cot, _ = spec["inputs"](torch, dev, *edge, spec["seeds"][0])
     edge_errs, _ = spec["check"](torch, fr, ins, cot,
                                  "edge T {} B {} H {}".format(*edge))
-    ran = lstm_plans(fr, edge[2], dev) if kind == "LSTM" else ""
+    ran = rnn_plans(fr, spec["names"], edge[2], dev)
     print(f"[{card}] {kind} edge shape T {edge[0]} B {edge[1]} H {edge[2]}"
           f"{ran}: max abs err "
           + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
@@ -2289,7 +2439,7 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
         ins, cot, lens_sum = spec["inputs"](
             torch, dev, t, b, h, spec["seeds"][1] if i == 0 else 29 + i)
         errs, want = spec["check"](torch, fr, ins, cot, f"T {t} B {b} H {h}")
-        ran = lstm_plans(fr, h, dev) if kind == "LSTM" else ""
+        ran = rnn_plans(fr, spec["names"], h, dev)
         print(f"[{card}] {kind} T {t} B {b} H {h}{ran}: max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if i > 1:
@@ -2469,6 +2619,16 @@ def mt_train_phase(torch, dev, card, cfg=None, batch=MT_BATCH,
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+        from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+        plan = fr.rnn_kernel_for("gru_train_bwd", cfg["hid_dim"],
+                                 dev)["kernel"]
+        check_families("MT training", prof, {
+            "gru_fwd grid": MT_GRU_PER_STEP,
+            "gru_bwd cluster": MT_GRU_PER_STEP if plan == "cluster" else 0,
+            "gru_bwd grid": 0 if plan == "cluster" else MT_GRU_PER_STEP})
+        stats["gru_bwd_kernel"] = plan
+        print(f"[{card}] machine_translation: the GRU kernels a step: "
+              f"{family_line(prof)}")
 
     # the oracle: the same model on the CPU, where the wrappers take the
     # plain versions, from the same weights on the same feeds
@@ -2818,10 +2978,7 @@ def pool_phase(torch, dev, card, seqpool=SEQPOOL, seqpool_edge=SEQPOOL_EDGE,
         # also count any wait for the host's launch
         for name, fn in (("kernel", lambda: ep.fused_embed_seq_pool(
                 w, ids, lens)), ("library", lib)):
-            split = kernel_split(torch, lambda fn=fn: (flush.zero_(), fn()),
-                                 n=20)
-            row[f"{name}_device_ms"] = sum(
-                v for k, v in split.items() if "FillFunctor" not in k)
+            row[f"{name}_device_ms"] = flushed_device_ms(torch, fn, flush)
         results["embed_pool"] = row
         spread = {k: f"{min(x) * 1e3:.2f}-{max(x) * 1e3:.2f}"
                   for k, x in rounds.items()}
@@ -2830,8 +2987,8 @@ def pool_phase(torch, dev, card, seqpool=SEQPOOL, seqpool_edge=SEQPOOL_EDGE,
               f"{spread['kernel']}), library {row['library_ms'] * 1e3:.2f} "
               f"us (F.embedding_bag; rounds {spread['library']}), medians of "
               f"{EMBED_ROUNDS} interleaved rounds; device time alone "
-              f"{row['kernel_device_ms'] * 1e3:.2f} us, library "
-              f"{row['library_device_ms'] * 1e3:.2f} us; plain "
+              f"{us(row['kernel_device_ms'])}, library "
+              f"{us(row['library_device_ms'])}; plain "
               f"{row['plain_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} "
               f"us ({bound_by}: {nbytes / 1e6:.2f} MB, {distinct} distinct "
               f"of {lens_sum} live rows, {b * t} in all)")
@@ -3162,13 +3319,17 @@ def cache_kernel_phase(torch, dev, card, shape=CACHE_ROWS, k=CACHE_K):
                 "max_abs_err": 0.0, "ms": time_ms(torch, fn, flush),
                 "plain_ms": time_ms(torch, ref, flush),
                 "library_ms": time_ms(torch, lib, flush),
+                "device_ms": flushed_device_ms(torch, fn, flush),
+                "library_device_ms": flushed_device_ms(torch, lib, flush),
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "bytes": nbytes, "k": kk,
                 "cache": [r, w]}
             print(f"[{card}] {name} [{r}x{w}] fp32, K {kk}: bit-equal; "
-                  f"kernel {row['ms'] * 1e3:.2f} us, plain "
+                  f"kernel {row['ms'] * 1e3:.2f} us (device "
+                  f"{us(row['device_ms'])}), plain "
                   f"{row['plain_ms'] * 1e3:.2f} us, library "
-                  f"{row['library_ms'] * 1e3:.2f} us, bound "
+                  f"{row['library_ms'] * 1e3:.2f} us (device "
+                  f"{us(row['library_device_ms'])}), bound "
                   f"{row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.3f} MB)")
     del flush
     return results
@@ -3489,7 +3650,7 @@ def main():
     measured = kernel_phase(torch, dev, card)
     flash = flash_phase(torch, dev, card)
     fce = fused_ce_phase(torch, dev, card)
-    launches, per_layer = slice_phase(torch, dev, card)
+    launches, per_layer, decode = slice_phase(torch, dev, card)
     train_launches, per_step, runs = train_phase(torch, dev, card)
     lstm = rnn_phase(torch, dev, card, "LSTM")
     lstm_launches, lstm_per_step, lstm_run = lstm_train_phase(torch, dev,
@@ -3513,14 +3674,20 @@ def main():
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": f"paddle_tpu/ops/pallas/paged_attention.py:{line}",
-            "launches": launches[kname], "max_abs_err": m["max_abs_err"],
+            "launches": launches[kname],
+            "max_abs_err": max(m["max_abs_err"],
+                               m.get("edge_max_abs_err", 0.0)),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
             "kernel_us": m["ms"] * 1e3, "plain_us": m["plain_ms"] * 1e3,
             "library_us": m["library_ms"] * 1e3,
             "bound_us": m["bound_ms"] * 1e3,
+            "device_ms": m["device_ms"],
+            "library_device_ms": m["library_device_ms"],
             "launches_per_decode_step": per_layer,
+            "decode_step": decode["none" if kname == "gather_rows"
+                                  else "int8"],
             "launches_per_train_step": 0, "card": card})
     for kname, line in (("flash_fwd", "189"), ("flash_bwd", "481, :504"),
                         ("flash_dq", "481"), ("flash_dkv", "504")):
@@ -3607,7 +3774,13 @@ def main():
             "library_ms": None, "launches_per_train_step": MT_GRU_PER_STEP,
             "launches_per_generate": gen_launches[f"fused_rnn.{kname}"],
             "us_per_step": m["us_per_step"],
-            "dense_bound_ms": m["dense_bound_ms"], "card": card})
+            "dense_bound_ms": m["dense_bound_ms"], "card": card,
+            **{k: m[k] for k in ("kernel", "tf32x3_bound_ms",
+                                 "simt_bound_ms", "device_ms", "loop_ms",
+                                 "dw_ms", "rest_ms", "grid_ms",
+                                 "grid_device_ms", "grid_loop_ms",
+                                 "grid_max_abs_diff")
+               if k in m}})
     for kname, source, path, line, launches, per_step in (
             ("seqpool", SEQPOOL_SOURCE, "seqpool", 94,
              tc_launches["seqpool.seqpool"], TEXTCONV_POOLS_PER_STEP),
@@ -3638,12 +3811,15 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
             "launches_per_train_step": fm_launches[key] / DEEPFM_STEPS,
+            "device_ms": m["device_ms"],
+            "library_device_ms": m["library_device_ms"],
             "k": m["k"], "card": card})
     wide = {key: row for res in (flash, fce, lstm, gru)
             for key, row in res.items()
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
     bf16 = measured["gather_rows/bf16"]
-    print(json.dumps({"gather_rows_bf16": bf16, "card": card}))
+    print(json.dumps({"gather_rows_bf16": bf16, "decode_steps": decode,
+                      "card": card}))
     print(json.dumps({"flash": {key: row for key, row in flash.items()
                                 if not key.startswith("block/")},
                       "card": card}))

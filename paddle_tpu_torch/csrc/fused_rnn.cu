@@ -36,13 +36,14 @@
 // the backward three (the recompute, Dh = dgates @ w^T, dw += h_prev^T @
 // dgates). Step t + 1 cannot start before every unit of h[t] is known, so T
 // steps are T grid-wide barriers whatever the arithmetic rate. The grid
-// kernels (lstm_fwd_kernel, lstm_bwd_kernel) and the GRU pair multiply in
-// fp32 outside the tensor cores; at H <= 512 the LSTM backward and forward
-// run on clusters and the tensor cores (lstm_bwd_cluster_kernel and
-// lstm_fwd_cluster_kernel, the sections "LSTM backward on thread-block
-// clusters" and "LSTM forward on ..." below), and the backward's dw product
-// on the tensor cores at every width (lstm_dw_kernel), all at fp32
-// accuracy through 3xTF32.
+// kernels (lstm_fwd_kernel, lstm_bwd_kernel, the GRU's gru_fwd_kernel and
+// gru_bwd_kernel) multiply in fp32 outside the tensor cores; at H <= 512 the
+// LSTM backward and forward and the GRU backward run on clusters and the
+// tensor cores (lstm_bwd_cluster_kernel, lstm_fwd_cluster_kernel and
+// gru_bwd_cluster_kernel, the sections "LSTM backward on thread-block
+// clusters", "LSTM forward on ..." and "GRU backward on ..." below), and
+// both backwards' dw product on the tensor cores at every width
+// (rnn_dw_kernel), all at fp32 accuracy through 3xTF32.
 //
 // Design of the grid kernels (above H 512, or where the cluster kernels do
 // not fit). The TPU kernel keeps h, c and the whole of w in one core's VMEM
@@ -80,7 +81,7 @@
 //             steps and rows in registers, and the block adds its 64 row
 //             shares in order at the end.
 //   dw        after the time loop, from dx and the saved hidden sequence, by
-//             one more kernel on the same stream (lstm_dw_kernel, wgmma):
+//             one more kernel on the same stream (rnn_dw_kernel, wgmma):
 //             dw = h_prev_seq^T @ dx is one [H, T*B] x [T*B, 4H] product.
 //             Every sum runs in a fixed order with no atomics: two runs give
 //             the same bits.
@@ -755,20 +756,18 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// The products outside the time loop: c[m][n] = sum_k a(m, k) * b[k][n]
-// for m < m_len, n < n_len, k < k_len (c and b with row strides ldc, ldb),
-// over 128 x 64 output tiles, 8 x 4 a thread, both operands staged
-// through shared memory 16 deep, every sum in a fixed order and no
-// atomics: two runs give the same bits. A is read through the matrix S
-// that the caller stores: row p of S is a0[p] for p < split and
-// a1[p - split] after (rows lda apart), so that h0 followed by the hidden
-// sequence reads as the hidden sequence one step behind. kAT: a(m, k) =
-// S[k][m], the weight gradients dw = h_prev_seq^T @ dx summed over the
-// T*B rows; else a(m, k) = S[m][k], the GRU's gate pre-activations
-// h_prev_seq @ w of every step at once. One launch computes up to two such
-// products of the same m_len, k_len and strides (blockIdx.z picks one):
-// the GRU's two halves, [h_prev_seq | rh] against [w_ur | w_c], run side by
-// side instead of one after the other.
+// The product before the GRU grid kernel's time loop: c[m][n] = sum_k
+// a(m, k) * b[k][n] for m < m_len, n < n_len, k < k_len (c and b with row
+// strides ldc, ldb), over 128 x 64 output tiles, 8 x 4 a thread, both
+// operands staged through shared memory 16 deep, every sum in a fixed order
+// and no atomics: two runs give the same bits. a(m, k) = S[m][k], where row
+// p of S is a0[p] for p < split and a1[p - split] after (rows lda apart), so
+// that h0 followed by the hidden sequence reads as the hidden sequence one
+// step behind: the GRU's gate pre-activations h_prev_seq @ w of every step
+// at once. One launch computes up to two such products of the same m_len,
+// k_len and strides (blockIdx.z picks one): the GRU's two halves,
+// [h_prev_seq | rh] against [w_ur | w_c], run side by side instead of one
+// after the other.
 constexpr int kGemmM = 128, kGemmN = 64, kGemmK = 16;
 
 struct GemmPart {
@@ -780,7 +779,6 @@ struct GemmPart {
   int n_len;
 };
 
-template <bool kAT>
 __global__ void __launch_bounds__(kThreads)
 rnn_gemm_kernel(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
                 int m_len, int k_len) {
@@ -802,27 +800,16 @@ rnn_gemm_kernel(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
     for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
   float ra[8], rb[4];
 
-  // element (kk, mm) of the A tile that element `idx` of a thread's loads
+  // element (kk, mm) of the A tile that element idx of a thread's loads
   // is: consecutive threads read consecutive addresses of S
-  auto a_slot = [](int idx, int& kk, int& mm) {
-    if (kAT) {
-      kk = idx / kGemmM;
-      mm = idx % kGemmM;
-    } else {
-      kk = idx % kGemmK;
-      mm = idx / kGemmK;
-    }
-  };
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      int kk, mm;
-      a_slot(tid + i * kThreads, kk, mm);
-      const int k = k0 + kk, m = m0 + mm;
-      const int p = kAT ? k : m, q = kAT ? m : k;
-      const float* row = p < split ? a0 + static_cast<size_t>(p) * lda
-                                   : a1 + static_cast<size_t>(p - split) * lda;
-      ra[i] = (k < k_len && m < m_len) ? row[q] : 0.0f;
+      const int idx = tid + i * kThreads, kk = idx % kGemmK;
+      const int k = k0 + kk, m = m0 + idx / kGemmK;
+      const float* row = m < split ? a0 + static_cast<size_t>(m) * lda
+                                   : a1 + static_cast<size_t>(m - split) * lda;
+      ra[i] = (k < k_len && m < m_len) ? row[k] : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -837,9 +824,8 @@ rnn_gemm_kernel(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
   for (int k0 = 0; k0 < k_len; k0 += kGemmK) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      int kk, mm;
-      a_slot(tid + i * kThreads, kk, mm);
-      a_s[kk][mm] = ra[i];
+      const int idx = tid + i * kThreads;
+      a_s[idx % kGemmK][idx / kGemmK] = ra[i];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -879,7 +865,6 @@ rnn_gemm_kernel(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
 
 // One rnn_gemm_kernel launch on stream s of one product, or of two
 // (part1.c not null) side by side.
-template <bool kAT>
 void rnn_gemm(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
               int m_len, int k_len, cudaStream_t s) {
   const int parts = part1.c == nullptr ? 1 : 2;
@@ -887,8 +872,8 @@ void rnn_gemm(GemmPart part0, GemmPart part1, int lda, int ldb, int ldc,
                                                             : part0.n_len;
   const dim3 grid((m_len + kGemmM - 1) / kGemmM,
                   (n_len + kGemmN - 1) / kGemmN, parts);
-  rnn_gemm_kernel<kAT><<<grid, kThreads, 0, s>>>(part0, part1, lda, ldb,
-                                                 ldc, m_len, k_len);
+  rnn_gemm_kernel<<<grid, kThreads, 0, s>>>(part0, part1, lda, ldb, ldc,
+                                            m_len, k_len);
 }
 
 // What a kernel of `kind` runs with at width h on this card: U units a block
@@ -1066,6 +1051,7 @@ constexpr int kCC = 2;              // blocks of a cluster
 constexpr int kCU = 4;              // units of a block
 constexpr int kCN = 4 * kCU;        // its gate columns
 constexpr int kCMaxH = 512;         // widest H of the cluster kernel
+constexpr int kGN = 3 * kCU * kCC;  // the GRU cluster's gate columns (24)
 
 // the rows of w that a block of a cluster holds: ceil(H / C) rounded up to
 // the 64 rows of a wgmma tile
@@ -1073,20 +1059,26 @@ __host__ __device__ constexpr int lstm_cluster_kh(int h) {
   return round_up((h + kCC - 1) / kCC, 64);
 }
 
-// bytes of the cluster kernels' shared memory regions (the forward's has
-// no W_q and no gate gradients)
+// bytes of the cluster kernels' shared memory regions, by kind (the LSTM
+// forward's has no W_q and no gate gradients; the GRU backward's has no W_q,
+// which it keeps in registers, and stages rh beside h_prev)
 struct ClusterSmem {
-  int wt, wq, dg, hs, pa;   // W_q^T, W_q, the gate gradients: hi and lo each
-  __host__ __device__ ClusterSmem(int h, bool fwd) {
+  int wt, wq, dg, hs, rs, pa, rx;  // W_q^T, W_q, the gate gradients: hi and
+                                   // lo each; the staged rows, partials
+  __host__ __device__ ClusterSmem(int h, int kind) {
     const int kh = lstm_cluster_kh(h);
-    wt = kCN * kCC * kh * 4;                            // [16C][kh]
-    wq = fwd ? 0 : wt;                                  // [kh][16C]
-    dg = fwd ? 0 : kBT * kCN * kCC * 4;                 // [64][16C]
+    const bool fwd = kind == kLstmFwd, gru = kind == kGruBwd;
+    wt = (gru ? kGN : kCN * kCC) * kh * 4;              // [16C or 24][kh]
+    wq = fwd || gru ? 0 : wt;                           // [kh][16C]
+    dg = fwd ? 0 : kBT * kCN * kCC * 4;                 // [64][32]
     hs = kBT * (kh + 4) * 4;                            // [64][kh + 4]
-    pa = kCC * 2 * kBT * kCN * 4;                       // [C][halves][64][16]
+    rs = gru ? hs : 0;                                  // rh, the same
+    pa = kCC * 2 * kBT * (gru ? 3 * kCU : kCN) * 4;     // [C][halves][64][n]
+    rx = gru ? kCU * kBT * 4 : 0;                       // [4][64]
   }
   __host__ __device__ size_t bytes() const {          // + 1024: alignment
-    return 1024 + 2 * (static_cast<size_t>(wt) + wq + dg) + hs + pa;
+    return 1024 + 2 * (static_cast<size_t>(wt) + wq + dg) + hs + rs + pa +
+           rx;
   }
 };
 
@@ -1181,7 +1173,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
 
 // d += A (64 rows, from registers: the m16n8k8 TF32 fragment of each warp's
 // 16 rows) x B (N rows of a K-major swizzled box, descriptor b)^T over 8 of
-// depth; N = 32 or 64 (16 or 32 accumulators a thread)
+// depth; N = 8, 16, 32 or 64 (4, 8, 16 or 32 accumulators a thread)
+__device__ __forceinline__ void wgmma_rs(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4],
                                          uint64_t b) {
@@ -1232,14 +1248,20 @@ __device__ __forceinline__ void wgmma_3x(float (&big)[R], float (&small)[R],
 // The grid barrier: every block's thread 0 adds one to *count and waits
 // until it reaches `target` (the count the launch started from plus the
 // barrier's number times the blocks; compared modulo 2^32, so the count
-// may wrap); writes before it are visible to every block after it.
-__device__ __forceinline__ void grid_barrier(unsigned* count,
-                                             unsigned target) {
+// may wrap); writes before it are visible to every block after it. Split
+// in two, so that a block can work on what does not depend on the other
+// blocks between its arrival and its wait.
+__device__ __forceinline__ void grid_arrive(unsigned* count) {
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count)
                  : "memory");
+  }
+}
+
+__device__ __forceinline__ void grid_wait(unsigned* count, unsigned target) {
+  if (threadIdx.x == 0) {
     const long long t0 = clock64();
     unsigned seen = 0;
     do {
@@ -1254,6 +1276,12 @@ __device__ __forceinline__ void grid_barrier(unsigned* count,
     __threadfence();
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void grid_barrier(unsigned* count,
+                                             unsigned target) {
+  grid_arrive(count);
+  grid_wait(count, target);
 }
 
 // Where a cluster's partial of Dh for (row position pos, hidden unit k)
@@ -1337,7 +1365,7 @@ lstm_bwd_cluster_kernel(const float* __restrict__ x,
   constexpr int kHalves = 2;                 // partial gates from a peer
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ char smem_raw[];
-  const ClusterSmem lay(h, false);
+  const ClusterSmem lay(h, kLstmBwd);
   const int kh = lstm_cluster_kh(h), hst = kh + 4;
   float* wt_hi = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -1707,7 +1735,7 @@ lstm_fwd_cluster_kernel(const float* __restrict__ x,
   constexpr int kHalves = 2;                 // partial gates from a peer
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ char smem_raw[];
-  const ClusterSmem lay(h, true);
+  const ClusterSmem lay(h, kLstmFwd);
   const int kh = lstm_cluster_kh(h), hst = kh + 4;
   float* wt_hi = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -1882,19 +1910,22 @@ lstm_fwd_cluster_kernel(const float* __restrict__ x,
   }
 }
 
-// The weight gradient dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows on
-// the tensor cores (wgmma m64n64k8, 3xTF32), computed as its transpose
-// dw^T [4H, H] = dx^T @ h_prev_seq: 128 x 64 tiles of dw^T (128 blocks at
-// H 512), each warpgroup 64 x 64, depth tiles of 32 rows. Both tiles land
-// in shared memory as they lie (cp.async, three stages in flight: the
-// loads of h_prev_seq, read from L2 or memory behind dx's stream, were the
-// kernel's longest wait when they went through registers). dx^T is the
+// The weight gradients on the tensor cores (wgmma m64n64k8, 3xTF32): dw
+// [H, N] = S^T @ dx over the T*B rows, where dx is [T*B, N] and S the left
+// operand of a range of dw's columns: the LSTM's h_prev_seq for all of dw
+// [H, 4H]; the GRU's h_prev_seq for dw[:, :2H] and rh for dw[:, 2H:] (two
+// parts, one launch). Computed as its transpose dw^T [N, H] = dx^T @ S:
+// 128 x 64 tiles of dw^T (a part's tiles, then the next part's: 128 blocks
+// at the LSTM's H 512), each warpgroup 64 x 64, depth tiles of 32 rows.
+// Both tiles land in shared memory as they lie (cp.async, three stages in
+// flight: the loads of S, read from L2 or memory behind dx's stream, were
+// the kernel's longest wait when they went through registers). dx^T is the
 // left operand: each warp reads its fragments from dx's tile, split into
-// TF32 halves as it reads them. h_prev_seq's tile is split and stored
-// transposed in the 128-byte-swizzled K-major layout wgmma reads. Every
-// sum in one fixed order, no atomics. Row p of h_prev_seq is h0[p] for
-// p < B and hidden[p - B] after; rows 16-byte aligned take cp.async,
-// others plain loads.
+// TF32 halves as it reads them. S's tile is split and stored transposed in
+// the 128-byte-swizzled K-major layout wgmma reads. Every sum in one fixed
+// order, no atomics. Row p of a part's S is a0[p] for p < split and
+// a1[p - split] after (h0 then the hidden sequence: h_prev_seq); rows
+// 16-byte aligned take cp.async, others plain loads.
 constexpr int kDwM = 128, kDwN = 64, kDwK = 32;      // dw^T tile, depth
 constexpr int kDwLdA = kDwM + 8;                      // 32 banks a fragment
 constexpr int kDwLdS = kDwN + 8;                      // h_prev's staged rows
@@ -1906,25 +1937,40 @@ constexpr int kDwSmem =
     1024 +
     (2 * kDwB + kDwRing * (kDwA + kDwS)) * static_cast<int>(sizeof(float));
 
+// the left operand of dw's columns [n0, n1)
+struct DwPart {
+  const float* a0;
+  const float* a1;
+  int split;
+  int n0, n1;
+};
+
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
-               const float* __restrict__ dx, float* __restrict__ dw,
-               int split, int k_len, int h) {
+rnn_dw_kernel(DwPart part0, DwPart part1, int tiles0,
+              const float* __restrict__ dx, float* __restrict__ dw,
+              int n_len, int k_len, int h) {
   extern __shared__ char dw_raw[];
   float* sb = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(dw_raw) + 1023) & ~uintptr_t(1023));
   float* ring = sb + 2 * kDwB;                 // [3][32][128 + 8] dx tiles
-  float* sring = ring + kDwRing * kDwA;        // [3][32][64 + 4] h_prev
-  const int n_len = 4 * h;
-  const int n0 = blockIdx.x * kDwM, m0 = blockIdx.y * kDwN;
+  float* sring = ring + kDwRing * kDwA;        // [3][32][64 + 4] S tiles
+  const bool second = static_cast<int>(blockIdx.x) >= tiles0;
+  const DwPart pt = second ? part1 : part0;
+  const float* __restrict__ a0 = pt.a0;
+  const float* __restrict__ a1 = pt.a1;
+  const int split = pt.split, n_end = pt.n1;
+  const int n0 = pt.n0 + (blockIdx.x - (second ? tiles0 : 0)) * kDwM;
+  const int m0 = blockIdx.y * kDwN;
   const int tid = threadIdx.x, lane = tid % 32;
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), wq = tid / 32 % 4;
   const int g8 = lane / 4, tig = lane % 4;
   const int tiles = (k_len + kDwK - 1) / kDwK;
   const bool vec = (h & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(dx) |
-                     reinterpret_cast<uintptr_t>(h0) |
-                     reinterpret_cast<uintptr_t>(hidden)) & 15) == 0;
+                     reinterpret_cast<uintptr_t>(part0.a0) |
+                     reinterpret_cast<uintptr_t>(part0.a1) |
+                     reinterpret_cast<uintptr_t>(part1.a0) |
+                     reinterpret_cast<uintptr_t>(part1.a1)) & 15) == 0;
   // 16 bytes of a row from src into dst where they are valid (zeros past
   // the row's end or the last row)
   auto put4 = [&](float* dst, const float* src, int valid) {
@@ -1935,8 +1981,8 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
       for (int e = 0; e < 4; ++e) dst[e] = e < valid ? src[e] : 0.0f;
     }
   };
-  // tile kt of dx (32 rows of 128 columns) and of h_prev_seq (32 rows of
-  // 64 columns) into ring stage kt % 3
+  // tile kt of dx (32 rows of 128 columns) and of S (32 rows of 64
+  // columns) into ring stage kt % 3
   auto stage = [&](int kt) {
     const int k0 = kt * kDwK;
     float* da = ring + (kt % kDwRing) * kDwA;
@@ -1946,15 +1992,15 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
       const int idx = tid + i * kThreads, kk = idx / (kDwM / 4);
       const int c = idx % (kDwM / 4) * 4, p = k0 + kk, n = n0 + c;
       put4(da + kk * kDwLdA + c, dx + static_cast<size_t>(p) * n_len + n,
-           p < k_len ? max(0, min(4, n_len - n)) : 0);
+           p < k_len ? max(0, min(4, n_end - n)) : 0);
     }
 #pragma unroll
     for (int i = 0; i < kDwK * kDwN / 4 / kThreads; ++i) {
       const int idx = tid + i * kThreads, kk = idx / (kDwN / 4);
       const int c = idx % (kDwN / 4) * 4, p = k0 + kk, m = m0 + c;
       const float* row =
-          p < split ? h0 + static_cast<size_t>(p) * h
-                    : hidden + static_cast<size_t>(p - split) * h;
+          p < split ? a0 + static_cast<size_t>(p) * h
+                    : a1 + static_cast<size_t>(p - split) * h;
       put4(ds + kk * kDwLdS + c, row + m,
            p < k_len ? max(0, min(4, h - m)) : 0);
     }
@@ -1974,7 +2020,7 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
       asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();                           // and tile kt-1 is consumed
     if (kt + 2 < tiles) stage(kt + 2);         // the stage tile kt-1 left
-    // h_prev's tile, split and transposed: a warp 8 columns by 4 rows,
+    // S's tile, split and transposed: a warp 8 columns by 4 rows,
     // so that the swizzled stores hit 32 banks
     const float* s_s = sring + (kt % kDwRing) * kDwS;
 #pragma unroll
@@ -2018,35 +2064,57 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ hidden,
       for (int e = 0; e < 2; ++e) {
         const int n = n0 + row + 8 * hh, m = m0 + 8 * jn + 2 * tig + e;
         const int i = 4 * jn + 2 * hh + e;
-        if (n < n_len && m < h)
+        if (n < n_end && m < h)
           dw[static_cast<size_t>(m) * n_len + n] = big[i] + small[i];
       }
 }
 
-cudaError_t lstm_dw(const float* h0, const float* hidden, const float* dx,
-                    float* dw, int t_len, int b_len, int h, cudaStream_t s) {
+// dw [H, n_len] from dx [T*B, n_len]: part0's columns, then part1's (n1 ==
+// n0: none)
+cudaError_t rnn_dw(DwPart part0, DwPart part1, const float* dx, float* dw,
+                   int n_len, int t_len, int b_len, int h, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
+      rnn_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((4 * h + kDwM - 1) / kDwM, (h + kDwN - 1) / kDwN);
-  lstm_dw_kernel<<<grid, kThreads, kDwSmem, s>>>(h0, hidden, dx, dw, b_len,
-                                                 t_len * b_len, h);
+  const int tiles0 = (part0.n1 - part0.n0 + kDwM - 1) / kDwM;
+  const int tiles1 = (part1.n1 - part1.n0 + kDwM - 1) / kDwM;
+  const dim3 grid(tiles0 + tiles1, (h + kDwN - 1) / kDwN);
+  rnn_dw_kernel<<<grid, kThreads, kDwSmem, s>>>(part0, part1, tiles0, dx, dw,
+                                                n_len, t_len * b_len, h);
   return cudaGetLastError();
 }
 
-const void* cluster_kernel(bool fwd) {
-  return fwd ? reinterpret_cast<const void*>(lstm_fwd_cluster_kernel)
-             : reinterpret_cast<const void*>(lstm_bwd_cluster_kernel);
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_cluster_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ order,
+                       const int* __restrict__ live,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ hidden,
+                       const float* __restrict__ rh,
+                       const float* __restrict__ dhid,
+                       const float* __restrict__ dhlast, float* dx,
+                       float* dh0, float* part, unsigned* count,
+                       unsigned base, int t_len, int b_len, int h);
+
+// the cluster kernel of `kind` (kLstmFwd, kLstmBwd or kGruBwd)
+const void* cluster_kernel(int kind) {
+  return kind == kLstmFwd
+             ? reinterpret_cast<const void*>(lstm_fwd_cluster_kernel)
+         : kind == kLstmBwd
+             ? reinterpret_cast<const void*>(lstm_bwd_cluster_kernel)
+             : reinterpret_cast<const void*>(gru_bwd_cluster_kernel);
 }
 
-// the launch configuration of a cluster kernel (fwd: the forward's) on
-// `blocks` blocks at width h
-cudaError_t cluster_config(bool fwd, int h, int blocks,
+// the launch configuration of the cluster kernel of `kind` on `blocks`
+// blocks at width h
+cudaError_t cluster_config(int kind, int h, int blocks,
                            cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attrs, bool coop) {
-  const size_t smem = ClusterSmem(h, fwd).bytes();
+  const size_t smem = ClusterSmem(h, kind).bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_kernel(fwd), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cluster_kernel(kind), cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   attrs[0].id = cudaLaunchAttributeClusterDimension;
@@ -2064,30 +2132,31 @@ cudaError_t cluster_config(bool fwd, int h, int blocks,
   return cudaSuccess;
 }
 
-// clusters of a cluster kernel the card holds at once at width h (0: none)
-cudaError_t max_clusters(bool fwd, int h, int* n) {
+// clusters of the cluster kernel of `kind` the card holds at once at width
+// h (0: none)
+cudaError_t max_clusters(int kind, int h, int* n) {
   *n = 0;
-  if (ClusterSmem(h, fwd).bytes() > 232448) return cudaSuccess;
+  if (ClusterSmem(h, kind).bytes() > 232448) return cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attrs[2];
-  cudaError_t err = cluster_config(fwd, h, kCC, &cfg, attrs, false);
+  cudaError_t err = cluster_config(kind, h, kCC, &cfg, attrs, false);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(n, cluster_kernel(fwd), &cfg);
+  return cudaOccupancyMaxActiveClusters(n, cluster_kernel(kind), &cfg);
 }
 
-cudaError_t launch_cluster(bool fwd, int blocks, int h, void** args,
+cudaError_t launch_cluster(int kind, int blocks, int h, void** args,
                            cudaStream_t s) {
   if (blocks % kCC != 0) return cudaErrorInvalidValue;
   int fit = 0;
-  cudaError_t err = max_clusters(fwd, h, &fit);
+  cudaError_t err = max_clusters(kind, h, &fit);
   if (err != cudaSuccess) return err;
   if (blocks > fit * kCC) return cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attrs[2];
-  err = cluster_config(fwd, h, blocks, &cfg, attrs, true);
+  err = cluster_config(kind, h, blocks, &cfg, attrs, true);
   if (err != cudaSuccess) return err;
   cfg.stream = s;
-  return cudaLaunchKernelExC(&cfg, cluster_kernel(fwd), args);
+  return cudaLaunchKernelExC(&cfg, cluster_kernel(kind), args);
 }
 
 // the checks of a cluster launch: shape, blocks, the barrier's counter, and
@@ -2145,17 +2214,18 @@ extern "C" int paddle_lstm_train_fwd(const float* x, const float* w,
     return cudaErrorInvalidValue;
   void* args[] = {&x, &w, &peep, &lens, &order, &live, &h0, &c0, &hidden,
                   &cell, &hlast, &clast, &count, &base, &t_len, &b_len, &h};
-  return launch_cluster(true, blocks, h, args, s);
+  return launch_cluster(kLstmFwd, blocks, h, args, s);
 }
 
-// clusters of 2 blocks of the cluster kernel of `kind` (kLstmFwd or
-// kLstmBwd) that the card holds at once at width h (0: none fit); a
+// clusters of 2 blocks of the cluster kernel of `kind` (kLstmFwd, kLstmBwd
+// or kGruBwd) that the card holds at once at width h (0: none fit); a
 // negative CUDA error
-extern "C" int paddle_lstm_max_clusters(int kind, int h) {
-  if (h < 1 || h > kCMaxH || (kind != kLstmFwd && kind != kLstmBwd))
+extern "C" int paddle_rnn_max_clusters(int kind, int h) {
+  if (h < 1 || h > kCMaxH ||
+      (kind != kLstmFwd && kind != kLstmBwd && kind != kGruBwd))
     return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
-  const cudaError_t err = max_clusters(kind == kLstmFwd, h, &n);
+  const cudaError_t err = max_clusters(kind, h, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -2193,11 +2263,13 @@ extern "C" int paddle_lstm_train_bwd(
                     &cell, &dhid, &dcell, &dhlast, &dclast, &dx, &dpeep,
                     &dh0, &dc0, &part, &count, &base, &t_len, &b_len,
                     &h};
-    err = launch_cluster(false, blocks, h, args, s);
+    err = launch_cluster(kLstmBwd, blocks, h, args, s);
   }
   if (err != cudaSuccess) return err;
   // dw [H, 4H] = h_prev_seq^T @ dx over the T*B rows
-  return lstm_dw(h0, hidden, dx, dw, t_len, b_len, h, s);
+  const DwPart seq = {h0, hidden, b_len, 0, 4 * h};
+  return rnn_dw(seq, {h0, hidden, b_len, 4 * h, 4 * h}, dx, dw, 4 * h, t_len,
+                b_len, h, s);
 }
 
 // ---- GRU ------------------------------------------------------------------
@@ -2233,9 +2305,11 @@ extern "C" int paddle_lstm_train_bwd(
 // A GRU step has two dependent products: (r * h) @ w_c needs r of every
 // unit, so the forward takes two barriers a step where the LSTM takes one.
 //
-// Design, on the LSTM's skeleton (cooperative launch of ceil(H/U) blocks of
-// U units, the block's slice of w in shared memory for the whole sequence,
-// tile_product over the rows still inside their length):
+// Design of the grid kernels (the forward at every width; the backward above
+// H 512, at H not a multiple of 4, or where the cluster kernel's clusters do
+// not all fit), on the LSTM's skeleton (cooperative launch of ceil(H/U)
+// blocks of U units, the block's slice of w in shared memory for the whole
+// sequence, tile_product over the rows still inside their length):
 //   forward   phase 1: the block's u and r columns ([H, 2U] of w_ur) times
 //             the state h; r * h_prev of its units goes to rh[t] (in global
 //             memory: the other blocks need it), u to hidden[t] (read back by
@@ -2257,10 +2331,60 @@ extern "C" int paddle_lstm_train_bwd(
 //             rows of w_ur; it feeds the next step's phase A, which reads
 //             only the block's own Dh: two barriers a step. The Dh state
 //             lives in the dh0 buffer, each element with the thread that
-//             owns it. dw after the loop by rnn_gemm, in a fixed order.
+//             owns it.
+// Both backwards compute dw after the loop on the tensor cores (rnn_dw_kernel:
+// h_prev_seq against dx[:, :2H], rh against dx[:, 2H:], one launch).
 // Rows past their length get zero outputs and gate gradients; a row's last
 // state is written, and its gradient carry read from dh_last, at its own
 // last step.
+//
+// ---- GRU backward on thread-block clusters and tensor cores ---------------
+//
+// gru_bwd_cluster_kernel computes what gru_bwd_kernel computes, at H <= 512
+// and H a multiple of 4, for any T and B, with no product before its loop.
+// What held gru_bwd_kernel back: two SIMT products over every (row, step)
+// pair outside the loop (the pre-activations and dw, about half of the
+// pairs dead at the training shape), and per step each of its 128 blocks
+// reading all of dgc[t] and all of [dgu, dgr] back through L2 (48 MB a step)
+// for fp32 SIMT products, behind two cooperative grid syncs. Here, as in
+// lstm_bwd_cluster_kernel (clusters of C = 2 blocks, block g owning units
+// [4g, 4g + 4) for the cell, rank q the depth rows [q kh, q kh + kh) of the
+// cluster's gate columns of w):
+//   * Phase A, the recompute, on the tensor cores: the gates' products need
+//     h_prev[t] (for u, r) and rh[t] (for c), both inputs, so each block
+//     stages columns [q kh, q kh + kh) of both for the pass's live rows
+//     (cp.async, issued as soon as the last product read the buffers) and
+//     multiplies them by W_q^T = w[q kh .. q kh + kh)[the cluster's 24 gate
+//     columns]^T, split into TF32 hi and lo in shared memory for the whole
+//     sequence (u and r: N 16
+//     against h_prev, c: N 8 against rh; the two warpgroups split the
+//     depth). Each partial goes to its owner through distributed shared
+//     memory; the owner adds the C x 2 partials in order, runs the cell,
+//     writes dgu and dgc (and r, in dgr's place, until phase C), and keeps
+//     Gh (1 - u) in the dh0 buffer, the carry's state.
+//   * Phase B: d_rh = dgc @ w_c^T needs every unit's dgc. Each block sends
+//     its units' dgc, split hi / lo, into both blocks of the cluster; each
+//     multiplies them by its rows of w_c, W_q (in registers for the whole
+//     sequence: the transposed product P^T = W_q dg^T, W_q as wgmma's A from
+//     registers, dg as B from shared memory), and writes rows [q kh, q kh +
+//     kh) of the cluster's partial to global memory. Grid barrier. Each
+//     block adds the clusters' partials of its own units in cluster order
+//     (gru_reduce: no cluster exchange): d_rh, then dgr and Gh (1 - u) +
+//     d_rh r.
+//   * Phase C: [dgu, dgr] @ w_ur^T, the same way (k-steps u and r of W_q),
+//     its partials summed after the second grid barrier into the carry.
+//   Two grid barriers a step (d_rh needs every dgc; the next step's cell
+//   needs every [dgu, dgr]), the hand-written arrival counter of the LSTM's
+//   cluster kernels on the same stream's counter: a launch adds 2T x blocks.
+//   The recompute needs no other block, so a block runs the next step's
+//   between its arrival at a barrier and its wait (the u, r product at the
+//   first, the c product at the second; the rows of the step after staged
+//   as soon as these have read them): the products hide in the barriers'
+//   latency. A batch's later passes of 64 rows recompute in line.
+//   Partials cross L2 (each block writes 64 x kh floats and reads 64 x 4 x
+//   clusters a phase); no block reads another cluster's gate gradients.
+// Batches above 64 rows take passes of 64 rows. Every sum runs in a fixed
+// order: two runs give the same bits.
 
 namespace {
 
@@ -2546,6 +2670,484 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// Phases B and C of gru_bwd_cluster_kernel: P^T = W_q (A, registers: tile
+// wg + 2 i of its kh depth rows, k-step s = gate u, r or c) times the pass's
+// gate gradients dg [64][32]^T (B, shared memory) over k-steps [S0, S1),
+// 3xTF32; rows k < h, columns r0 + pos < lim of the cluster's partial go to
+// pt[k][cl][pos] (bpad positions a row of clusters).
+template <int S0, int S1>
+__device__ __forceinline__ void gru_product_t(
+    uint32_t (&wah)[2][3][4], uint32_t (&wal)[2][3][4], const float* dg_hi,
+    const float* dg_lo, float* pt, int tiles, int wg, int k0q, int r0,
+    int lim, int cl, int clusters, int bpad, int h) {
+  const int lane = threadIdx.x % 32, wq = threadIdx.x / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4;
+  const uint64_t bh = sw_desc(dg_hi), bl = sw_desc(dg_lo);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int mt = wg + 2 * i;
+    if (mt >= tiles) break;
+    float big[32], small[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) big[e] = small[e] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int s = S0; s < S1; ++s)
+      wgmma_3x(big, small, wah[i][s], wal[i][s], bh + 2 * s, bl + 2 * s);
+    wg_commit_wait();
+    hold(wah[i]);
+    hold(wal[i]);
+    settle(big);
+    settle(small);
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = k0q + 64 * mt + 16 * wq + g8 + 8 * hh;
+        const int pos = r0 + 8 * jn + 2 * tig, e = 4 * jn + 2 * hh;
+        if (k >= h || pos >= lim) continue;
+        float* dst = pt + (static_cast<size_t>(k) * clusters + cl) * bpad + pos;
+        if (pos + 1 < lim)
+          __stcg(reinterpret_cast<float2*>(dst),
+                 make_float2(big[e] + small[e], big[e + 1] + small[e + 1]));
+        else
+          __stcg(dst, big[e] + small[e]);
+      }
+  }
+}
+
+// The clusters' partials pt[k][cl][pos] of rows [rb, rb + 64) (those below
+// n_live) of the block's own 4 units, added in cluster order: four threads
+// an item (4 rows of a unit) each a quarter of the clusters, the quarters
+// added in a fixed order by two shuffles; the sums land in rx[u][row]. Ends
+// with the block synchronised; starts its stores with a barrier, so rx may
+// have been read just before.
+__device__ __forceinline__ void gru_reduce(const float* pt, float* rx, int rb,
+                                           int n_live, int u0, int clusters,
+                                           int bpad, int h) {
+  const int item = threadIdx.x / 4, quarter = threadIdx.x % 4;
+  const int u = item / 16, pos = rb + 4 * (item % 16);  // 4 units x 16 x 4
+  const int per = (clusters + 3) / 4, c0 = quarter * per;
+  const int c1 = min(clusters, c0 + per);
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (pos < n_live && u0 + u < h) {
+    const float* src = pt + static_cast<size_t>(u0 + u) * clusters * bpad +
+                       pos;
+    for (int c = c0; c < c1; c += 16) {
+      float4 p[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        p[i] = c + i < c1 ? __ldcg(reinterpret_cast<const float4*>(
+                                src + static_cast<size_t>(c + i) * bpad))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (c + i < c1)
+          sum = make_float4(sum.x + p[i].x, sum.y + p[i].y, sum.z + p[i].z,
+                            sum.w + p[i].w);
+    }
+  }
+#pragma unroll
+  for (int m = 1; m <= 2; m *= 2) {    // (q0 + q1) + (q2 + q3): a + b is b + a
+    const float4 o = make_float4(__shfl_xor_sync(0xffffffffu, sum.x, m),
+                                 __shfl_xor_sync(0xffffffffu, sum.y, m),
+                                 __shfl_xor_sync(0xffffffffu, sum.z, m),
+                                 __shfl_xor_sync(0xffffffffu, sum.w, m));
+    sum = make_float4(sum.x + o.x, sum.y + o.y, sum.z + o.z, sum.w + o.w);
+  }
+  __syncthreads();                             // rx's last readers are done
+  if (quarter == 0 && pos < n_live)
+    *reinterpret_cast<float4*>(rx + u * kBT + pos - rb) = sum;
+  __syncthreads();
+}
+
+// The recompute of gru_bwd_cluster_kernel, one product: the pass's staged
+// rows (h_prev for the u and r gates, kR 8: N 16; rh for the c gate, kR 4:
+// N 8) over warpgroup wg's half of the block's depth, times the cluster's
+// columns of W_q^T from row n0 of its boxes, 3xTF32; each owner's columns
+// of the partial go into its pa[q][wg] (gate0: the first gate's column).
+template <int kR>
+__device__ __forceinline__ void gru_gates(cg::cluster_group& cluster,
+                                          const float* staged,
+                                          const float* wt_hi,
+                                          const float* wt_lo, int n0,
+                                          int gate0, float* pa, int rows,
+                                          int q, int wg, int kh) {
+  constexpr int kUC = 3 * kCU;
+  const int lane = threadIdx.x % 32, wq = threadIdx.x / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4, hst = kh + 4;
+  const int kb0 = wg * kh / 2, kb1 = kb0 + kh / 2, r = 16 * wq + g8;
+  float big[kR], sa[kR], sb[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) big[i] = sa[i] = sb[i] = 0.f;
+  for (int kb = kb0; kb < kb1; kb += 32) {     // one box of depth
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = kb + 8 * s + tig;
+      split_tf32(staged[r * hst + k], ah[s][0], al[s][0]);
+      split_tf32(staged[(r + 8) * hst + k], ah[s][1], al[s][1]);
+      split_tf32(staged[r * hst + k + 4], ah[s][2], al[s][2]);
+      split_tf32(staged[(r + 8) * hst + k + 4], ah[s][3], al[s][3]);
+    }
+    const size_t box = static_cast<size_t>(kb >> 5) * kGN * 32 + n0 * 32;
+    const uint64_t dh = sw_desc(wt_hi + box), dl = sw_desc(wt_lo + box);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      wgmma_rs(big, ah[s], dh + 2 * s);
+      wgmma_rs(sa, ah[s], dl + 2 * s);
+      wgmma_rs(sb, al[s], dh + 2 * s);
+    }
+    wg_commit_wait();
+    hold(ah);
+    hold(al);
+    settle(big);
+    settle(sa);
+    settle(sb);
+  }
+  // column 8 jn + 2 tig + e is gate gate0 + jn of unit v = 2 tig + e of
+  // the cluster (owner v / 4)
+  const int v = 2 * tig;
+  float* dst = cluster.map_shared_rank(pa, v / kCU) +
+               (q * 2 + wg) * kBT * kUC + v % kCU;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r + 8 * hh;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int jn = 0; jn < kR / 4; ++jn) {
+      const int i = 4 * jn + 2 * hh;
+      *reinterpret_cast<float2*>(dst + row * kUC + (gate0 + jn) * kCU) =
+          make_float2(big[i] + sa[i] + sb[i],
+                      big[i + 1] + sa[i + 1] + sb[i + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_cluster_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ order,
+                       const int* __restrict__ live,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ hidden,
+                       const float* __restrict__ rh,
+                       const float* __restrict__ dhid,
+                       const float* __restrict__ dhlast, float* dx,
+                       float* dh0, float* part, unsigned* count,
+                       unsigned base, int t_len, int b_len, int h) {
+  constexpr int kHalves = 2;                 // partial gates from a peer
+  constexpr int kUC = 3 * kCU;               // a block's gate columns
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ char smem_raw[];
+  const ClusterSmem lay(h, kGruBwd);
+  const int kh = lstm_cluster_kh(h), hst = kh + 4, tiles = kh / 64;
+  float* wt_hi = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* wt_lo = wt_hi + lay.wt / 4;         // W_q^T [24][kh], sw_at
+  float* dg_hi = wt_lo + lay.wt / 4;         // gate gradients [64][32]:
+  float* dg_lo = dg_hi + lay.dg / 4;         // u 0-7, r 8-15, c 16-23
+  float* hs = dg_lo + lay.dg / 4;            // h_prev [64][kh + 4] fp32
+  float* rs = hs + lay.hs / 4;               // rh [64][kh + 4] fp32
+  float* pa = rs + lay.rs / 4;               // [C][halves][64][12] fp32
+  float* rx = pa + lay.pa / 4;               // [4][64] fp32
+  const int tid = threadIdx.x, lane = tid % 32;
+  // the warpgroup (uniform to the compiler, or it serializes the wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), wq = tid / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4;
+  const int q = static_cast<int>(cluster.block_rank());
+  const int clusters = gridDim.x / kCC, cl = blockIdx.x / kCC;
+  const int u0 = blockIdx.x * kCU, k0q = q * kh;
+  const size_t h3 = 3 * static_cast<size_t>(h);
+
+  // W_q^T: row n = gate * 8 + v (gates u, r, c; v = q' * 4 + u, unit
+  // cl * 8 + v), element (n, k) = w[q kh + k][gate * H + cl * 8 + v]
+  for (int idx = tid; idx < kGN * kh; idx += kThreads) {
+    const int n = idx / kh, k = idx % kh, kk = k0q + k;
+    const int j = cl * kCC * kCU + n % 8;
+    uint32_t hi = 0, lo = 0;
+    if (kk < h && j < h) split_tf32(w[kk * h3 + (n / 8) * h + j], hi, lo);
+    wt_hi[sw_at(kGN, n, k)] = __uint_as_float(hi);
+    wt_lo[sw_at(kGN, n, k)] = __uint_as_float(lo);
+  }
+  // W_q as phases B and C's A operand, for the whole sequence: tile wg + 2 i
+  // of the depth rows, k-step s = gate, the m16n8k8 fragment of each warp
+  uint32_t wah[2][3][4], wal[2][3][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0q + 64 * (wg + 2 * i) + 16 * wq + g8 + 8 * (e & 1);
+        const int j = cl * kCC * kCU + tig + 4 * (e >> 1);
+        const bool in = wg + 2 * i < tiles && k < h && j < h;
+        split_tf32(in ? w[k * h3 + s * h + j] : 0.f, wah[i][s][e],
+                   wal[i][s][e]);
+      }
+  for (int idx = tid; idx < (lay.hs + lay.rs) / 4; idx += kThreads)
+    hs[idx] = 0.0f;
+  for (int idx = tid; idx < lay.dg / 2; idx += kThreads) dg_hi[idx] = 0.0f;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();                     // the zeros before any staged row
+
+  // stage columns [q kh, q kh + kh) of the pass's rows of h_prev into hs
+  // (buffers & 1) and of rh into rs (buffers & 2), each thread's row ids
+  // loaded four at a time
+  auto stage = [&](int tt, int rr, int buffers) {
+    const size_t off = static_cast<size_t>(tt) * b_len * h;
+    const float* hp = tt == 0 ? h0 : hidden + off - static_cast<size_t>(b_len) * h;
+    const float* rp = rh + off;
+    const int c4 = kh / 4, n = min(kBT, live[tt] - rr) * c4;
+    for (int idx0 = tid; idx0 < n; idx0 += 4 * kThreads) {
+      int b4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = idx0 + e * kThreads;
+        b4[e] = idx < n ? order[rr + idx / c4] : 0;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = idx0 + e * kThreads;
+        if (idx >= n) break;
+        const int i = idx / c4, c = idx % c4 * 4, k = k0q + c;
+        const bool valid = k < h;
+        const size_t at = static_cast<size_t>(b4[e]) * h + k;
+        if (buffers & 1) copy16(hs + i * hst + c, valid ? hp + at : hp, valid);
+        if (buffers & 2) copy16(rs + i * hst + c, valid ? rp + at : rp, valid);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  // the recompute's two products of a staged pass into the owners' pa
+  auto gates_ur = [&](int rows) {
+    gru_gates<8>(cluster, hs, wt_hi, wt_lo, 0, 0, pa, rows, q, wg, kh);
+  };
+  auto gates_c = [&](int rows) {
+    gru_gates<4>(cluster, rs, wt_hi, wt_lo, 16, 2, pa, rows, q, wg, kh);
+  };
+  int first = t_len - 1;
+  while (first > 0 && live[first] == 0) --first;
+  // after step tt's last read of the buffers: stage step tt - 1's first rows
+  auto stage_after = [&](int tt, int buffers) {
+    if (tt >= 1 && tt <= first) stage(tt - 1, 0, buffers);
+  };
+
+  // this thread's (row, unit) pair of a pass: row tid / 4, unit j, and the
+  // cell's inputs of its pair (the carry read only where `carry`)
+  const int bl = tid / kCU, ju = tid % kCU, j = u0 + ju;
+  const bool unit = j < h;
+  const size_t bh = static_cast<size_t>(b_len) * h;
+  float cx[3] = {0.f, 0.f, 0.f}, chp = 0.f, cdl = 0.f, cdh = 0.f,
+        ccarry = 0.f;
+  int cb = 0, clen = 0;
+  bool calive = false;
+  auto load_cell = [&](int tt, int r0, bool carry) {
+    calive = unit && bl < min(kBT, live[tt] - r0);
+    cb = calive ? order[r0 + bl] : 0;
+    if (!calive) return;
+    const size_t at = static_cast<size_t>(cb) * h + j;
+    const float* xb = x + (static_cast<size_t>(tt) * b_len + cb) * h3 + j;
+    cx[0] = xb[0];
+    cx[1] = xb[h];
+    cx[2] = xb[2 * h];
+    chp = (tt == 0 ? h0 : hidden + (tt - 1) * bh)[at];
+    clen = lens[cb];
+    cdl = dhlast[at];
+    cdh = dhid[static_cast<size_t>(tt) * bh + at];
+    if (carry) ccarry = dh0[at];
+  };
+
+  // the first step's first rows, before the loop; later steps' while the
+  // grid barriers of the step before settle
+  if (live[first] > 0) {
+    load_cell(first, 0, true);
+    stage(first, 0, 3);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    gates_ur(min(kBT, live[first]));
+    gates_c(min(kBT, live[first]));
+    __syncthreads();                   // hs, rs are read before restaging
+    if (live[first] <= kBT) stage_after(first, 3);
+  }
+  cluster.sync();                      // every block's memory is in place
+
+  const int bpad = round_up(b_len, 4);
+  float* part_r = part;                      // d_rh's partials [H][cl][bpad]
+  float* part_h = part + static_cast<size_t>(h) * clusters * bpad;  // Dh's
+  const int at_u = sw_at(kBT, bl, q * kCU + ju);
+  const int at_r = sw_at(kBT, bl, 8 + q * kCU + ju);
+  const int at_c = sw_at(kBT, bl, 16 + q * kCU + ju);
+  unsigned target = base;
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const float* hp_seq = t == 0 ? h0 : hidden + (t - 1) * bh;
+    float* dxt = dx + static_cast<size_t>(t) * b_len * h3;
+    const int n_live = live[t];
+
+    // phase A: the cell on the recomputed gates, dgu and dgc; phase B: the
+    // cluster's partials of d_rh
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const int rows = min(kBT, n_live - r0);
+      if (r0 > 0) {                    // a later pass: its gates in line
+        load_cell(t, r0, true);
+        stage(t, r0, 3);
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+        gates_ur(rows);
+        gates_c(rows);
+        cluster.sync();                // every partial of the gates landed
+        if (r0 + kBT >= n_live) stage_after(t, 3);
+      }
+      // the cell of this thread's pair
+      float dgc = 0.f;
+      if (calive) {
+        float z[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          float sum = 0.f;
+          for (int p = 0; p < kCC * kHalves; ++p)
+            sum += pa[(p * kBT + bl) * kUC + g * kCU + ju];
+          z[g] = sum;
+        }
+        const float u = sigmoidf(cx[0] + z[0]);
+        const float rg = sigmoidf(cx[1] + z[1]);
+        const float c = tanhf(cx[2] + z[2]);
+        // a row's carry starts at the cotangent of its last state
+        const bool last = t + 1 == t_len || t + 1 == clen;
+        const float gh = (last ? cdl : ccarry) + cdh;
+        const float du = gh * (c - chp);
+        dgc = gh * u * (1.0f - c * c);
+        float* db = dxt + cb * h3 + j;
+        db[0] = du * u * (1.0f - u);
+        db[h] = rg;                    // r, in dgr's place until phase C
+        db[2 * h] = dgc;
+        dh0[static_cast<size_t>(cb) * h + j] = gh * (1.0f - u);
+      }
+      // cluster exchange: the block's dgc, hi and lo, into every block's
+      // gate gradients
+      {
+        uint32_t hi, lo;
+        split_tf32(dgc, hi, lo);
+#pragma unroll
+        for (int p = 0; p < kCC; ++p) {
+          cluster.map_shared_rank(dg_hi, p)[at_c] = __uint_as_float(hi);
+          cluster.map_shared_rank(dg_lo, p)[at_c] = __uint_as_float(lo);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
+      cluster.sync();                  // every dgc has landed
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      // phase B: rows [q kh, q kh + kh) of the cluster's partial of
+      // dgc @ w_c^T for the pass's rows
+      gru_product_t<2, 3>(wah, wal, dg_hi, dg_lo, part_r, tiles, wg, k0q, r0,
+                          r0 + rows, cl, clusters, bpad, h);
+    }
+    // the rows past their length: no gate gradient, the carry stays
+    if (unit) {
+      for (int r = n_live + bl; r < b_len; r += kBT) {
+        const int b = order[r];
+        float* db = dxt + b * h3 + j;
+        db[0] = db[h] = db[2 * h] = 0.0f;
+        if (t == 0) {                  // a row of length 0 hands it on
+          const size_t at = static_cast<size_t>(b) * h + j;
+          dh0[at] = dhlast[at];
+        }
+      }
+    }
+    // the next step's first rows (staged since the last read of hs, rs):
+    // their u, r gates while the first barrier settles
+    const bool next = t >= 1 && t <= first;
+    const int next_rows = next ? min(kBT, live[t - 1]) : 0;
+    grid_arrive(count);
+    if (next) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+      gates_ur(next_rows);
+    }
+    grid_wait(count, target += gridDim.x);
+
+    // phase C: d_rh from the clusters' partials, dgr, and the cluster's
+    // partials of [dgu, dgr] @ w_ur^T
+    for (int rb = 0; rb < n_live; rb += kBT) {
+      const int r = rb + bl;
+      const bool alive = unit && r < n_live;
+      float* db = dxt;
+      size_t at = 0;
+      float rg = 0.f, dgu = 0.f, hpv = 0.f, carry = 0.f;
+      if (alive) {                     // in flight while the partials add
+        at = static_cast<size_t>(order[r]) * h + j;
+        db = dxt + order[r] * h3 + j;
+        rg = db[h];
+        dgu = db[0];
+        hpv = hp_seq[at];
+        carry = dh0[at];
+      }
+      gru_reduce(part_r, rx, rb, n_live, u0, clusters, bpad, h);
+      float dgr = 0.f;
+      if (alive) {
+        const float d_rh = rx[ju * kBT + bl];
+        dgr = d_rh * hpv * rg * (1.0f - rg);
+        db[h] = dgr;
+        dh0[at] = carry + d_rh * rg;
+      }
+      {
+        uint32_t uh, ul, rhi, rlo;
+        split_tf32(dgu, uh, ul);
+        split_tf32(dgr, rhi, rlo);
+#pragma unroll
+        for (int p = 0; p < kCC; ++p) {
+          float* dh = cluster.map_shared_rank(dg_hi, p);
+          float* dl = cluster.map_shared_rank(dg_lo, p);
+          dh[at_u] = __uint_as_float(uh);
+          dl[at_u] = __uint_as_float(ul);
+          dh[at_r] = __uint_as_float(rhi);
+          dl[at_r] = __uint_as_float(rlo);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
+      cluster.sync();                  // every dgu, dgr has landed
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      gru_product_t<0, 2>(wah, wal, dg_hi, dg_lo, part_h, tiles, wg, k0q, rb,
+                          min(n_live, rb + kBT), cl, clusters, bpad, h);
+    }
+    // the next step's c gates, then the step after's first rows staged
+    // (after the partials of d_rh have been read: the two contend for L2)
+    // and the next cell's inputs loaded, while the second barrier settles
+    grid_arrive(count);
+    if (next) {
+      gates_c(next_rows);
+      __syncthreads();                 // hs, rs are read before restaging
+      if (live[t - 1] <= kBT) stage_after(t - 1, 3);
+      load_cell(t - 1, 0, false);
+    }
+    cluster.sync();                    // the next step's partial gates landed
+    grid_wait(count, target += gridDim.x);
+
+    // the carry: the clusters' partials of [dgu, dgr] @ w_ur^T added in
+    for (int rb = 0; rb < n_live; rb += kBT) {
+      const int r = rb + bl;
+      const bool alive = unit && r < n_live;
+      size_t at = 0;
+      float carry = 0.f;
+      if (alive) {
+        at = static_cast<size_t>(order[r]) * h + j;
+        carry = dh0[at];
+      }
+      gru_reduce(part_h, rx, rb, n_live, u0, clusters, bpad, h);
+      if (alive) {
+        carry += rx[ju * kBT + bl];
+        dh0[at] = carry;
+        if (rb == 0) ccarry = carry;   // the next cell's, pass 0
+      }
+    }
+    // end of a step
+  }
+  cluster.sync();                      // no peer reads this block's memory
+}
+
 }  // namespace
 
 extern "C" int paddle_gru_train_fwd(const float* x, const float* w,
@@ -2563,29 +3165,47 @@ extern "C" int paddle_gru_train_fwd(const float* x, const float* w,
   return PADDLE_RNN_LAUNCH(gru_fwd_kernel, p, h, args, s);
 }
 
+// blocks 0: rnn_gemm (the gate pre-activations) and gru_bwd_kernel on
+// plan_for's grid (wscratch where the plan needs it); else
+// gru_bwd_cluster_kernel on `blocks` blocks (whole clusters of 2, 4 units
+// each, H <= 512 and a multiple of 4, h0, hidden and rh 16-byte aligned)
+// with part [2, H, blocks / 2, round_up(B, 4)] fp32 scratch and count, the
+// grid barrier's counter, at `base` when the launch starts (two barriers a
+// step: it ends at base + 2T x blocks, modulo 2^32). Then dw on the tensor
+// cores.
 extern "C" int paddle_gru_train_bwd(
     const float* x, const float* w, const int* lens, const int* order,
     const int* live, const float* h0, const float* hidden, const float* rh,
     const float* dhid, const float* dhlast, float* dx, float* dw, float* dh0,
-    float* wscratch, int t_len, int b_len, int h, void* stream) {
-  Plan p;
-  cudaError_t err = checked_plan(kGruBwd, t_len, b_len, h, wscratch, &p);
-  if (err != cudaSuccess) return err;
+    float* wscratch, float* part, unsigned* count, unsigned base, int t_len,
+    int b_len, int h, int blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const int rows = t_len * b_len;
-  // the gate pre-activations of every step: [h_prev_seq @ w_ur, rh @ w_c]
-  rnn_gemm<false>({h0, hidden, b_len, w, dx, 2 * h},
-                  {rh, rh, rows, w + 2 * h, dx + 2 * h, h}, h, 3 * h, 3 * h,
-                  rows, h, s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &dhid,
-                  &dhlast, &dx, &dh0, &wscratch, &t_len, &b_len, &h};
-  err = PADDLE_RNN_LAUNCH(gru_bwd_kernel, p, h, args, s);
+  cudaError_t err;
+  if (blocks == 0) {
+    Plan p;
+    err = checked_plan(kGruBwd, t_len, b_len, h, wscratch, &p);
+    if (err != cudaSuccess) return err;
+    // the gate pre-activations of every step: [h_prev_seq @ w_ur, rh @ w_c]
+    const int rows = t_len * b_len;
+    rnn_gemm({h0, hidden, b_len, w, dx, 2 * h},
+             {rh, rh, rows, w + 2 * h, dx + 2 * h, h}, h, 3 * h, 3 * h, rows,
+             h, s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &dhid,
+                    &dhlast, &dx, &dh0, &wscratch, &t_len, &b_len, &h};
+    err = PADDLE_RNN_LAUNCH(gru_bwd_kernel, p, h, args, s);
+  } else {
+    if (!cluster_args_ok(t_len, b_len, h, blocks, count, h0, hidden) ||
+        part == nullptr || (reinterpret_cast<uintptr_t>(rh) & 15) != 0)
+      return cudaErrorInvalidValue;
+    void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &rh,
+                    &dhid, &dhlast, &dx, &dh0, &part, &count, &base,
+                    &t_len, &b_len, &h};
+    err = launch_cluster(kGruBwd, blocks, h, args, s);
+  }
   if (err != cudaSuccess) return err;
   // dw = [h_prev_seq^T @ dx[:, :2H], rh^T @ dx[:, 2H:]] over the T*B rows
-  rnn_gemm<true>({h0, hidden, b_len, dx, dw, 2 * h},
-                 {rh, rh, rows, dx + 2 * h, dw + 2 * h, h}, h, 3 * h, 3 * h,
-                 h, rows, s);
-  return cudaGetLastError();
+  return rnn_dw({h0, hidden, b_len, 0, 2 * h}, {rh, rh, 0, 2 * h, 3 * h}, dx,
+                dw, 3 * h, t_len, b_len, h, s);
 }

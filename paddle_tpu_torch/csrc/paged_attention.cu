@@ -27,7 +27,10 @@
 // between blocks. Rows whose byte width is not a multiple of 16 (or whose
 // base is not 16-byte aligned) take the widest word that the width and the
 // bases allow, 8 or 4 bytes (the hot-rows cache's 68-byte rows: 17 words),
-// else single bytes.
+// else single bytes. gather_rows_dequant has a design of its own (at
+// gather_rows_dequant_kernel: two rows a warp, every load in flight
+// before the first store), and a scalar kernel for head widths that are
+// not a multiple of 4.
 //
 // paddle_gather_rows is also the port of the hot-rows cache's gather
 // (paddle_tpu/ops/pallas/embed_cache.py gather_rows, :58, pallas_call :79:
@@ -65,32 +68,77 @@ __global__ void gather_rows_kernel(const V* __restrict__ pool,
   }
 }
 
-// out[k, c] = float(codes[r, c]) * scales[r, c / head_dim], r = clamp(rows[k]).
-// Each thread takes 16 codes (one 16-byte load) that lie inside one head,
-// reads that head's scale once, and writes 16 floats as four float4 stores.
-__global__ void gather_rows_dequant_vec16(
-    const int8_t* __restrict__ codes, const float* __restrict__ scales,
-    long long n_rows, int width, int heads, int head_dim,
-    const int* __restrict__ rows, long long n_out, float* __restrict__ out) {
-  const long long k = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (k >= n_out) return;
-  const long long r = clamp_row(rows[k], n_rows);
-  const int groups = width / 16;
-  const int8_t* src = codes + r * width;
-  const float* scl = scales + r * heads;
-  float* dst = out + k * width;
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    const int c0 = g * 16;
-    const float s = scl[c0 / head_dim];
-    const int4 raw = *reinterpret_cast<const int4*>(src + c0);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-    float4* d4 = reinterpret_cast<float4*>(dst + c0);
+// out[k, c] = float(codes[r, c]) * scales[r, c / head_dim], r = clamp(rows[k]),
+// for head widths that are a multiple of 4 (codes 4-byte and out 16-byte
+// aligned). At the decode step's shape (4096 rows of 512 codes and 8
+// scales) the kernel is a chain of three dependent memory round trips (row
+// id, then codes and scale, then the 8.4 MB of fp32 stores), so it is
+// built to have every row's loads in flight before any store and to keep
+// the stores wide and coalesced:
+//   * a warp takes kDqRows rows at a time: lane i < kDqRows loads row id i
+//     (one coalesced load) and the ids reach the other lanes by shuffles;
+//   * then, for every row and every 128 codes of it, each lane issues its
+//     4-byte load of 4 codes (a warp: 128 contiguous bytes) and the scale of
+//     their head, all before the first store;
+//   * then each lane stores its 4 dequantized values of each as one float4,
+//     a warp 512 contiguous bytes a store;
+//   * the grid is one wave at most (the SMs times the blocks an SM holds,
+//     asked once per device), warps striding over the rows.
+// Rows past the pool take the last row; nothing is carried between warps.
+// rows a warp has in flight: two (at the decode shape four rows a warp
+// and eight were slower on an H100: fewer warps issue the stores)
+constexpr int kDqRows = 2;
+constexpr int kDqCols = 512;               // codes of a row a warp loads at once
+
+__global__ void __launch_bounds__(kThreads)
+gather_rows_dequant_kernel(const int8_t* __restrict__ codes,
+                           const float* __restrict__ scales,
+                           long long n_rows, int width, int heads,
+                           int head_dim, const int* __restrict__ rows,
+                           long long n_out, float* __restrict__ out) {
+  constexpr int kQ = kDqCols / 128;        // 4 codes a lane, 128 a warp
+  const int lane = threadIdx.x % 32;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  for (long long k0 = warp * kDqRows; k0 < n_out; k0 += warps * kDqRows) {
+    long long mine = 0;
+    if (lane < kDqRows && k0 + lane < n_out)
+      mine = clamp_row(rows[k0 + lane], n_rows);
+    long long r[kDqRows];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      d4[q] = make_float4(__fmul_rn(static_cast<float>(b[4 * q + 0]), s),
-                          __fmul_rn(static_cast<float>(b[4 * q + 1]), s),
-                          __fmul_rn(static_cast<float>(b[4 * q + 2]), s),
-                          __fmul_rn(static_cast<float>(b[4 * q + 3]), s));
+    for (int i = 0; i < kDqRows; ++i) r[i] = __shfl_sync(0xffffffffu, mine, i);
+    for (int c0 = 0; c0 < width; c0 += kDqCols) {
+      int raw[kDqRows][kQ];
+      float sc[kDqRows][kQ];
+#pragma unroll
+      for (int i = 0; i < kDqRows; ++i)
+#pragma unroll
+        for (int qq = 0; qq < kQ; ++qq) {
+          const int c = c0 + 128 * qq + 4 * lane;
+          raw[i][qq] = 0;
+          sc[i][qq] = 0.f;
+          if (k0 + i < n_out && c < width) {
+            raw[i][qq] = __ldg(reinterpret_cast<const int*>(
+                codes + r[i] * width + c));
+            sc[i][qq] = __ldg(scales + r[i] * heads + c / head_dim);
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < kDqRows; ++i)
+#pragma unroll
+        for (int qq = 0; qq < kQ; ++qq) {
+          const int c = c0 + 128 * qq + 4 * lane;
+          if (k0 + i >= n_out || c >= width) continue;
+          const int8_t* b = reinterpret_cast<const int8_t*>(&raw[i][qq]);
+          const float s = sc[i][qq];
+          *reinterpret_cast<float4*>(out + (k0 + i) * width + c) =
+              make_float4(__fmul_rn(static_cast<float>(b[0]), s),
+                          __fmul_rn(static_cast<float>(b[1]), s),
+                          __fmul_rn(static_cast<float>(b[2]), s),
+                          __fmul_rn(static_cast<float>(b[3]), s));
+        }
     }
   }
 }
@@ -136,6 +184,28 @@ bool aligned(const void* p, long long a) {
   return reinterpret_cast<std::uintptr_t>(p) % a == 0;
 }
 
+// The blocks of gather_rows_dequant_kernel that the current card holds at
+// once (its SMs times the blocks an SM holds), asked once per device.
+cudaError_t dequant_wave(int* wave) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && cached[dev] > 0) {
+    *wave = cached[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gather_rows_dequant_kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  *wave = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < 64) cached[dev] = *wave;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int paddle_gather_rows(const void* pool, long long n_rows,
@@ -166,10 +236,14 @@ extern "C" int paddle_gather_rows_dequant(const int8_t* codes,
   if (n_rows <= 0 || heads <= 0 || width % heads) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int head_dim = width / heads;
-  if (head_dim % 16 == 0 && aligned(codes, 16) && aligned(out, 16)) {
-    const dim3 block = block_for(width / 16);
-    const dim3 grid(static_cast<unsigned>((n_out + block.y - 1) / block.y));
-    gather_rows_dequant_vec16<<<grid, block, 0, s>>>(
+  if (head_dim % 4 == 0 && aligned(codes, 4) && aligned(out, 16)) {
+    int wave = 0;
+    const cudaError_t err = dequant_wave(&wave);
+    if (err != cudaSuccess) return err;
+    const long long per_block = (kThreads / 32) * kDqRows;
+    const long long need = (n_out + per_block - 1) / per_block;
+    const unsigned grid = static_cast<unsigned>(need < wave ? need : wave);
+    gather_rows_dequant_kernel<<<grid, kThreads, 0, s>>>(
         codes, scales, n_rows, width, heads, head_dim, rows, n_out, out);
   } else {
     const dim3 block = block_for(width);

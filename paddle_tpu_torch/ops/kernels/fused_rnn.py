@@ -47,10 +47,11 @@ Layout as there: ``xproj`` [T,B,3H] (gate order u, r, c, bias included),
 On the card the T steps run inside one cooperative launch each way, the
 matrix products of a step in the kernels' own bodies; a step works only
 on the rows still inside their length (:func:`_schedule`). The GRU
-backward computes the gate pre-activations of every step in one product
-before its loop, and both backwards compute ``dw`` in one product after
-it, in the same source. The plain versions loop over time in PyTorch:
-they are for the CPU and for the comparisons;
+backward's grid kernel computes the gate pre-activations of every step in
+one product before its loop, and both backwards compute ``dw`` in one
+product after it on the tensor cores, in the same source. The plain
+versions loop over time in PyTorch: they are for the CPU and for the
+comparisons;
 :func:`lstm_train_bwd_plain` and :func:`gru_train_bwd_plain` are the
 explicit formulae, not autograd, so that each kernel output has a plain
 counterpart.
@@ -63,13 +64,14 @@ wrapper allocates scratch in device memory for them
 (:func:`_scratch`). Above 16 units on every SM (H > 2112 on an H100)
 one block per SM walks several groups of 16 units a step, in passes
 between the same grid barriers, their slices in that scratch too: every
-width takes the one cooperative launch. The LSTM forward and backward at
-H <= 512, H a multiple of 4, run other kernels (:func:`lstm_plan`):
-clusters of 2 blocks that split each step's products by depth (the
-cluster reads the state, or ``h_prev``, once) and exchange partial gates
-(and gate gradients) through distributed shared memory, the products on
-the tensor cores at fp32 accuracy (3xTF32); the backward's ``dw`` product
-runs on the tensor cores at every width.
+width takes the one cooperative launch. The LSTM forward and backward and
+the GRU backward at H <= 512, H a multiple of 4, run other kernels
+(:func:`rnn_plan`, :func:`rnn_kernel_for`): clusters of 2 blocks that
+split each step's products by depth (the cluster reads the state, or
+``h_prev`` and ``rh``, once) and exchange partial gates (and gate
+gradients) through distributed shared memory, the products on the tensor
+cores at fp32 accuracy (3xTF32); the backwards' ``dw`` products run on the
+tensor cores at every width.
 ``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
 adds to it.
 """
@@ -87,6 +89,9 @@ LAUNCHES = {"lstm_train_fwd": 0, "lstm_train_bwd": 0, "gru_train_fwd": 0,
             "gru_train_bwd": 0}
 KINDS = {"lstm_train_fwd": 0, "lstm_train_bwd": 1, "gru_train_fwd": 2,
          "gru_train_bwd": 3}         # the kernels' Kind
+# the kernels with a cluster kernel, and its grid barriers a step
+CLUSTER_BARRIERS = {"lstm_train_fwd": 1, "lstm_train_bwd": 1,
+                    "gru_train_bwd": 2}
 
 CLUSTER = 2                   # blocks of a cluster of the cluster kernel
 CLUSTER_UNITS = 4             # hidden units of one of its blocks
@@ -111,10 +116,11 @@ def _kernels():
                                               + [i] * 4 + [p])
         lib.paddle_lstm_train_bwd.argtypes = ([p] * 22 + [ctypes.c_uint]
                                               + [i] * 4 + [p])
-        lib.paddle_lstm_max_clusters.argtypes = [i, i]
-        lib.paddle_lstm_max_clusters.restype = i
+        lib.paddle_rnn_max_clusters.argtypes = [i, i]
+        lib.paddle_rnn_max_clusters.restype = i
         lib.paddle_gru_train_fwd.argtypes = [p] * 10 + [i] * 3 + [p]
-        lib.paddle_gru_train_bwd.argtypes = [p] * 14 + [i] * 3 + [p]
+        lib.paddle_gru_train_bwd.argtypes = ([p] * 16 + [ctypes.c_uint]
+                                             + [i] * 4 + [p])
         lib.paddle_rnn_scratch_floats.argtypes = [i, i]
         lib.paddle_rnn_scratch_floats.restype = ctypes.c_longlong
         for fn in (lib.paddle_lstm_train_fwd, lib.paddle_lstm_train_bwd,
@@ -255,14 +261,15 @@ def _scratch(name: str, h: int, device):
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
-def lstm_plan(h: int, sms: int, max_clusters: int):
-    """Which kernel an LSTM direction runs at width ``h`` on a card of
-    ``sms`` SMs that holds ``max_clusters`` of that direction's cluster
-    kernel's clusters at once (``cudaOccupancyMaxActiveClusters``): the
-    blocks of the cluster kernel (ceil(h / ``CLUSTER_UNITS``) rounded up to
-    whole clusters of ``CLUSTER``), or None for the grid kernel
-    (``lstm_fwd_kernel`` / ``lstm_bwd_kernel``: H above ``CLUSTER_MAX_H`` or
-    not a multiple of 4, or its clusters do not all fit)."""
+def rnn_plan(h: int, sms: int, max_clusters: int):
+    """Which kernel a recurrent kernel with a cluster kernel (the LSTM's
+    two directions, the GRU's backward) runs at width ``h`` on a card of
+    ``sms`` SMs that holds ``max_clusters`` of that cluster kernel's
+    clusters at once (``cudaOccupancyMaxActiveClusters``): the blocks of the
+    cluster kernel (ceil(h / ``CLUSTER_UNITS``) rounded up to whole
+    clusters of ``CLUSTER``), or None for the grid kernel (H above
+    ``CLUSTER_MAX_H`` or not a multiple of 4, or its clusters do not all
+    fit)."""
     if h < 1 or h % 4 or h > CLUSTER_MAX_H:
         return None
     blocks = -(-h // (CLUSTER_UNITS * CLUSTER)) * CLUSTER
@@ -270,28 +277,30 @@ def lstm_plan(h: int, sms: int, max_clusters: int):
 
 
 def _plan(name: str, h: int):
-    """:func:`lstm_plan` of ``name`` ("lstm_train_fwd" or
-    "lstm_train_bwd") on the current card, asked once per width."""
+    """:func:`rnn_plan` of kernel ``name`` on the current card, asked once
+    per width; None (the grid kernel) for a kernel without a cluster kernel
+    (the GRU forward)."""
     dev = torch.cuda.current_device()
     key = (dev, name, h)
     if key not in _plans:
-        fit = _kernels().paddle_lstm_max_clusters(KINDS[name], h) if (
-            0 < h <= CLUSTER_MAX_H) else 0
+        fit = 0
+        if name in CLUSTER_BARRIERS and 0 < h <= CLUSTER_MAX_H:
+            fit = _kernels().paddle_rnn_max_clusters(KINDS[name], h)
         if fit < 0:
             raise RuntimeError(f"{name}: no cluster occupancy at hidden "
                                f"width {h} (CUDA error {-fit})")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _plans[key] = lstm_plan(h, sms, fit)
+        _plans[key] = rnn_plan(h, sms, fit)
     return _plans[key]
 
 
 def _barrier(device):
     """The cluster kernels' grid-barrier counter on the current stream of
     ``device`` and the value the stream's next launch finds in it: a list
-    [counter, value], zeroed once when first asked for. A launch of either
-    direction adds T x blocks (one barrier a step) and the wrapper adds the
-    same to the value, so launches in one stream share the counter and none
-    zeroes it."""
+    [counter, value], zeroed once when first asked for. A launch adds T x
+    blocks for each of its grid barriers a step (the LSTM's kernels one, the
+    GRU backward's two) and the wrapper adds the same to the value, so
+    launches in one stream share the counter and none zeroes it."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
@@ -302,10 +311,10 @@ def _barrier(device):
     return _barriers[key]
 
 
-def lstm_kernel_for(name: str, h: int, device) -> dict:
-    """The kernel of ``name`` ("lstm_train_fwd" or "lstm_train_bwd") at
-    width ``h`` on ``device``, as a run reports it: ``kernel`` "cluster"
-    (with ``cluster``, ``units`` and ``blocks``) or "grid"."""
+def rnn_kernel_for(name: str, h: int, device) -> dict:
+    """The kernel of ``name`` (a key of ``KINDS``) at width ``h`` on
+    ``device``, as a run reports it: ``kernel`` "cluster" (with
+    ``cluster``, ``units`` and ``blocks``) or "grid"."""
     with torch.cuda.device(device):
         plan = _plan(name, h)
     if plan is None:
@@ -314,22 +323,23 @@ def lstm_kernel_for(name: str, h: int, device) -> dict:
             "blocks": plan}
 
 
-def _cluster_blocks(name, h, h0, hidden):
+def _cluster_blocks(name, h, *staged):
     """The plan's blocks, or None where the rows its 16-byte copies stage
-    (h0, hidden) are not 16-byte aligned."""
+    (h0, hidden; the GRU's rh too) are not 16-byte aligned."""
     blocks = _plan(name, h)
-    if blocks is not None and (h0.data_ptr() | hidden.data_ptr()) % 16:
+    if blocks is not None and any(x.data_ptr() % 16 for x in staged):
         return None
     return blocks
 
 
-def _advance(bar, base, err, t, blocks):
-    """The barrier's value after a launch from ``base``: T x blocks on, or
-    a new counter where the launch failed (its count is unknown)."""
+def _advance(bar, base, err, name, t, blocks):
+    """The barrier's value after a launch of kernel ``name`` from
+    ``base``: T x blocks on for each of its barriers a step, or a new
+    counter where the launch failed (its count is unknown)."""
     if err:
         bar[:] = [torch.zeros_like(bar[0]), 0]
     else:
-        bar[1] = (base + t * blocks) % 2 ** 32
+        bar[1] = (base + CLUSTER_BARRIERS[name] * t * blocks) % 2 ** 32
 
 
 def _schedule(seq_lens, t: int):
@@ -374,7 +384,7 @@ def lstm_train_fwd(xproj, w, peep, seq_lens, h0, c0):
             _ptr(bar[0] if bar else None), base, t, b, h, blocks,
             torch.cuda.current_stream().cuda_stream)
         if bar:
-            _advance(bar, base, err, t, blocks)
+            _advance(bar, base, err, "lstm_train_fwd", t, blocks)
     _check_launch(err, "lstm_train_fwd")
     LAUNCHES["lstm_train_fwd"] += 1
     return hidden, cell, h_last, c_last
@@ -429,7 +439,7 @@ def lstm_train_bwd(xproj, w, peep, seq_lens, h0, c0, hidden, cell, dhid,
             blocks,
             torch.cuda.current_stream().cuda_stream)
         if bar:
-            _advance(bar, base, err, t, blocks)
+            _advance(bar, base, err, "lstm_train_bwd", t, blocks)
     _check_launch(err, "lstm_train_bwd")
     LAUNCHES["lstm_train_bwd"] += 1
     return dx, dw, dpeep, dh0, dc0
@@ -592,13 +602,28 @@ def gru_train_bwd(xproj, w, seq_lens, h0, hidden, rh, dhid, dhlast):
     dw = torch.empty_like(w)
     dh0 = torch.empty_like(h0)
     with torch.cuda.device(xproj.device):
-        ws = _scratch("gru_train_bwd", h, xproj.device)
+        blocks = _cluster_blocks("gru_train_bwd", h, h0, hidden, rh)
+        ws = part = bar = None
+        base = 0
+        if blocks is None:
+            blocks = 0
+            ws = _scratch("gru_train_bwd", h, xproj.device)
+        else:
+            # the clusters' partials of d_rh and of Dh: [2, H, clusters,
+            # B rounded up to 4]
+            part = torch.empty((2, h, blocks // CLUSTER, -(-b // 4) * 4),
+                               dtype=torch.float32, device=xproj.device)
+            bar = _barrier(xproj.device)
+            base = bar[1]
         err = _kernels().paddle_gru_train_bwd(
             xproj.data_ptr(), w.data_ptr(), lens.data_ptr(), order.data_ptr(),
             live.data_ptr(), h0.data_ptr(), hidden.data_ptr(), rh.data_ptr(),
             dhid.data_ptr(), dhlast.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-            dh0.data_ptr(), _ptr(ws), t, b, h,
+            dh0.data_ptr(), _ptr(ws), _ptr(part),
+            _ptr(bar[0] if bar else None), base, t, b, h, blocks,
             torch.cuda.current_stream().cuda_stream)
+        if bar:
+            _advance(bar, base, err, "gru_train_bwd", t, blocks)
     _check_launch(err, "gru_train_bwd")
     LAUNCHES["gru_train_bwd"] += 1
     return dx, dw, dh0

@@ -274,6 +274,115 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tfr.gru_train_fwd(meta[0], w, sl, h0)
 
 
+# the tolerance of the kernels' gradients against the plain versions on the
+# card (chip_smoke.py GRU_GRAD_TOL, the gpu tests below)
+CARD_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 512), (7, 5, 100)],
+                         ids=["T32xB64xH512", "T7xB5xH100"])
+def test_three_tf32_terms_hold_the_gru_tolerance(monkeypatch, shape):
+    """Why the cluster backward (the recompute, d_rh, Dh and dw) takes
+    three TF32 products, and that the card's checks tell them from one:
+    the plain backward with every product made as the kernels' wgmma
+    makes it (each operand split hi = tf32(a), lo = tf32(a - hi); the two
+    small products, then hi * hi), three terms or one, at the training
+    shape (T 32, B 64, H 512) and at GRU_EDGE (T 7, B 5, H 100), ragged,
+    w x H**-0.5, non-uniform cotangents of both outputs. Against the fp32
+    plain backward, three terms stay within 5 % of CARD_GRAD_TOL and one
+    breaks it by more than 1.5 times at these seeds."""
+    T, B, H = shape
+    ins = _torch(_make(seed=3, T=T, B=B, H=H, w_scale=H ** -0.5))
+    rng = np.random.RandomState(7)
+    cot = [torch.from_numpy((rng.randn(*s) * k).astype(np.float32))
+           for s, k in (((T, B, H), .1), ((B, H), 1.))]
+    hidden, _, rh = tfr.gru_train_fwd_plain(*ins)
+    want = tfr.gru_train_bwd_plain(*ins, hidden, rh, *cot)
+    matmul = torch.matmul
+    from paddle_tpu_torch.ops.kernels import fused_ce as tfc
+
+    def one(a, b):
+        return matmul(tfc.split_tf32(a.contiguous())[0],
+                      tfc.split_tf32(b.contiguous())[0])
+
+    def three(a, b):
+        (ah, al), (bh, bl) = (tfc.split_tf32(x.contiguous())
+                              for x in (a, b))
+        return (matmul(ah, bl) + matmul(al, bh)) + matmul(ah, bh)
+
+    def excess(got, ref):
+        return float(((got - ref).abs() / (CARD_GRAD_TOL["atol"]
+                                           + CARD_GRAD_TOL["rtol"]
+                                           * ref.abs())).max())
+    for terms, inside in ((three, True), (one, False)):
+        monkeypatch.setattr(torch.Tensor, "__matmul__", terms)
+        got = tfr.gru_train_bwd_plain(*ins, hidden, rh, *cot)
+        monkeypatch.undo()
+        e = max(excess(a, b) for a, b in zip(got, want))
+        if inside:
+            assert e < 0.05, e
+        else:
+            assert e > 1.5, e
+
+
+class _Lib:
+    """The kernels' library as the plan asks it: the clusters of 2 that
+    each kind's cluster kernel fits (``fits``), and which kinds were
+    asked."""
+
+    def __init__(self, fits):
+        self.fits, self.asked = fits, []
+
+    def paddle_rnn_max_clusters(self, kind, h):
+        self.asked.append(kind)
+        return self.fits[kind]
+
+
+@pytest.mark.parametrize("name, fits, h, plan", [
+    ("gru_train_bwd", {3: 66}, 512, 128),       # the H100: 64 clusters
+    ("gru_train_bwd", {3: 63}, 512, None),      # not every cluster fits
+    ("gru_train_bwd", {3: 66}, 100, 26),
+    ("gru_train_bwd", {3: 66}, 102, None),      # not a multiple of 4
+    ("gru_train_bwd", {3: 66}, 516, None),      # above H 512
+    ("gru_train_bwd", {3: 0}, 64, None),        # no cluster fits at all
+    ("gru_train_fwd", {}, 512, None),           # no cluster kernel
+    ("lstm_train_fwd", {0: 66}, 512, 128),
+    ("lstm_train_bwd", {1: 66}, 480, 120)])
+def test_plan_routes_each_kernel(monkeypatch, name, fits, h, plan):
+    """The shared plan on a card of 132 SMs (the H100's): the GRU backward
+    asks its own cluster kernel's occupancy (kind 3) and takes it where
+    all its clusters fit at once, H <= 512 and H a multiple of 4; the GRU
+    forward has no cluster kernel and asks nothing; the LSTM's directions
+    ask theirs. The plan is asked once per width."""
+    lib = _Lib(fits)
+    monkeypatch.setattr(tfr, "_kernels", lambda: lib)
+    monkeypatch.setattr(tfr, "_plans", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 132})())
+    assert tfr._plan(name, h) == plan
+    assert tfr._plan(name, h) == plan
+    asks = [tfr.KINDS[name]] if name in tfr.CLUSTER_BARRIERS and (
+        h <= tfr.CLUSTER_MAX_H) else []
+    assert lib.asked == asks
+
+
+@pytest.mark.parametrize("name, barriers", [
+    ("gru_train_bwd", 2), ("lstm_train_bwd", 1), ("lstm_train_fwd", 1)])
+def test_barrier_counter_advances_by_each_kernels_barriers(name, barriers):
+    """A stream's grid-barrier counter: a launch from ``base`` ends at
+    base + barriers a step x T x blocks (modulo 2^32; the GRU backward
+    waits twice a step), and a failed launch leaves a new zeroed counter."""
+    count = torch.zeros(1, dtype=torch.int32)
+    bar = [count, 2 ** 32 - 100]
+    tfr._advance(bar, bar[1], 0, name, 32, 128)
+    assert bar[0] is count
+    assert bar[1] == (2 ** 32 - 100 + barriers * 32 * 128) % 2 ** 32
+    tfr._advance(bar, bar[1], 700, name, 32, 128)
+    assert bar[1] == 0 and bar[0] is not count and int(bar[0]) == 0
+
+
 def _card_check(dev, T, B, H, seed, w_scale):
     arrays = _make(seed=seed, T=T, B=B, H=H, w_scale=w_scale)
     if B > 2:
@@ -354,3 +463,50 @@ def test_cuda_function_launches_once_each_way_and_rejects(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tfr.gru_train_fwd(ins[0].detach().transpose(0, 1).contiguous()
                           .transpose(0, 1), *[a.detach() for a in ins[1:]])
+
+
+CLUSTER_SHAPES = [(100, 64, 512), (7, 5, 100), (5, 130, 512), (3, 1, 4),
+                  (9, 64, 64), (3, 64, 288), (20, 64, 480)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cuda_cluster_and_grid_gru_backward_agree(cuda_device, monkeypatch,
+                                                  shape):
+    """Where the plan picks the GRU backward's cluster kernel (on an H100
+    at H 512: 128 blocks in clusters of 2), it and the grid kernel (forced
+    by emptying the plan) against the plain versions, each bit-equal across
+    two runs, and against each other within the gradients' tolerance. A
+    new stream starts its own grid-barrier counter, which the backward
+    advances by 2T x blocks a launch (two barriers a step): after one
+    forward (the grid kernel, no counter) and two backward launches it
+    stands at 4T x blocks, and the wrapper's value agrees."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dev = cuda_device
+    T, B, H = shape
+    report = tfr.rnn_kernel_for("gru_train_bwd", H, dev)
+    assert report["kernel"] == "cluster", report
+    assert tfr.rnn_kernel_for("gru_train_fwd", H, dev) == {"kernel": "grid"}
+    if H == 512 and torch.cuda.get_device_properties(
+            dev).multi_processor_count == 132:
+        assert (report["cluster"], report["blocks"]) == (2, 128), report
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
+        count, base = tfr._barrier(dev)
+        assert int(count) % 2 ** 32 == base == 4 * T * report["blocks"]
+    ins = [a.to(dev) for a in _torch(_make(seed=2, T=T, B=B, H=H,
+                                           w_scale=H ** -0.5))]
+    rng = np.random.RandomState(3)
+    cot = [torch.from_numpy((rng.randn(*s) * k).astype(np.float32)).to(dev)
+           for s, k in (((T, B, H), .1), ((B, H), 1.))]
+    hidden, _, rh = tfr.gru_train_fwd_plain(*ins)
+    cluster = tfr.gru_train_bwd(*ins, hidden, rh, *cot)
+    monkeypatch.setitem(tfr._plans, (torch.cuda.current_device(),
+                                     "gru_train_bwd", H), None)
+    assert tfr.rnn_kernel_for("gru_train_bwd", H, dev) == {"kernel": "grid"}
+    grid = tfr.gru_train_bwd(*ins, hidden, rh, *cot)
+    torch.cuda.synchronize()
+    for name, a, b in zip(GRAD_NAMES, cluster, grid):
+        torch.testing.assert_close(a, b, **CARD_GRAD_TOL,
+                                   msg=f"{name}: cluster against grid")
+    _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))

@@ -353,7 +353,7 @@ def test_lstm_bwd_plan(h, sms, fit, plan):
     cluster kernel's blocks, ceil(H / 4) rounded up to whole clusters,
     where they all fit at once; the grid kernel (None) above H 512, off
     multiples of 4, or where they do not."""
-    assert tfr.lstm_plan(h, sms, fit) == plan
+    assert tfr.rnn_plan(h, sms, fit) == plan
 
 
 def _card_check(dev, T, B, H, seed, w_scale):
@@ -455,7 +455,7 @@ def _cluster_and_grid_agree(dev, monkeypatch, shape, name):
     its own: one forward and two backward launches a check)."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     T, B, H = shape
-    report = tfr.lstm_kernel_for(name, H, dev)
+    report = tfr.rnn_kernel_for(name, H, dev)
     assert report["kernel"] == "cluster", report
     if H == 512 and torch.cuda.get_device_properties(
             dev).multi_processor_count == 132:
@@ -463,7 +463,7 @@ def _cluster_and_grid_agree(dev, monkeypatch, shape, name):
     _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
     count, base = tfr._barrier(dev)
     assert int(count) % 2 ** 32 == base > 0
-    blocks = {n: tfr.lstm_kernel_for(n, H, dev).get("blocks", 0)
+    blocks = {n: tfr.rnn_kernel_for(n, H, dev).get("blocks", 0)
               for n in ("lstm_train_fwd", "lstm_train_bwd")}
     with torch.cuda.stream(torch.cuda.Stream(dev)):
         _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
@@ -472,7 +472,7 @@ def _cluster_and_grid_agree(dev, monkeypatch, shape, name):
             blocks["lstm_train_fwd"] + 2 * blocks["lstm_train_bwd"])
     key = (torch.cuda.current_device(), name, H)
     monkeypatch.setitem(tfr._plans, key, None)
-    assert tfr.lstm_kernel_for(name, H, dev) == {"kernel": "grid"}
+    assert tfr.rnn_kernel_for(name, H, dev) == {"kernel": "grid"}
     _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
 
 
@@ -494,7 +494,7 @@ def test_cuda_cluster_and_grid_forward_agree(cuda_device, monkeypatch,
     versions (``_cluster_and_grid_agree``), and against each other within
     the forward's tolerance; each bit-equal across two runs."""
     T, B, H = shape
-    blocks = tfr.lstm_kernel_for("lstm_train_fwd", H, cuda_device).get(
+    blocks = tfr.rnn_kernel_for("lstm_train_fwd", H, cuda_device).get(
         "blocks")
     _cluster_and_grid_agree(cuda_device, monkeypatch, shape,
                             "lstm_train_fwd")      # leaves the grid kernel

@@ -141,6 +141,35 @@ def test_cuda_kernels_match_plain_versions_at_decode_shapes(cuda_device):
             got, tpa.gather_rows_dequant_ref(codes, scales, rows, heads))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("r, heads, dk, k, rows", [
+    (4096, 8, 64, 4096, "random"), (4096, 8, 64, 1, "random"),
+    (4096, 8, 64, 37, "random"), (300, 8, 64, 100, "sentinels"),
+    (64, 4, 16, 50, "random"), (64, 8, 48, 33, "random"),
+    (64, 3, 6, 70, "random")])
+def test_cuda_dequant_gather_matches_plain_at_edges(cuda_device, r, heads,
+                                                    dk, k, rows):
+    """The dequantizing gather bit-equal to its plain version (the product
+    through __fmul_rn, as the plain version's fp32 multiply) at the decode
+    shape and the edges chip_smoke.py holds it at: one row, a count off a
+    block's 32 rows, only sentinel rows, head widths 16 and 48 (the row
+    kernel: head widths a multiple of 4) and 6 (the scalar kernel); one
+    launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    codes = torch.randint(-127, 128, (r, heads * dk), generator=gen,
+                          device=cuda_device, dtype=torch.int32).to(torch.int8)
+    scales = torch.rand(r, heads, generator=gen, device=cuda_device) + 1e-3
+    ids = (torch.randint(0, r + 16, (k,), generator=gen, device=cuda_device,
+                         dtype=torch.int32) if rows == "random" else
+           torch.full((k,), r + 3, dtype=torch.int32, device=cuda_device))
+    n0 = tpa.LAUNCHES["gather_rows_dequant"]
+    got = tpa.gather_rows_dequant(codes, scales, ids, heads)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["gather_rows_dequant"] == n0 + 1
+    assert torch.equal(got, tpa.gather_rows_dequant_ref(codes, scales, ids,
+                                                        heads))
+
+
 def _random_lm_params(rng, vocab, m, inner, n_layer):
     """Seeded weights under the JAX scope names of decoder_lm."""
     def normal(*shape):

@@ -32,7 +32,14 @@ causal), bf16 (full) and on q in bf16 with k and v in fp32 (null for a
 checkout whose kernels refuse mixed dtypes) beside SDPA's forward on the
 same inputs (device time; its calls are host-bound), and the LSTM forward
 (``lstm_train_fwd``) at ``stacked_dynamic_lstm``'s shape (T 100, B 64,
-H 512, ragged, from ``chip_smoke.lstm_inputs``).
+H 512, ragged, from ``chip_smoke.lstm_inputs``). Since the GRU backward's
+redesign it also times, by events and by device time, the GRU backward
+(``gru_train_bwd``) at ``machine_translation``'s shape (T 32, B 64, H 512,
+ragged, from ``chip_smoke.gru_inputs``; device time by kernel too) and the
+dequantizing page gather (``gather_rows_dequant``) at the decode step's
+shape (4096 of 4096 pool rows of 512 int8 codes, 8 heads, from
+``chip_smoke.decode_rows``; device time after the same L2 flush as the
+events, ``chip_smoke.flushed_device_ms``).
 """
 
 from __future__ import annotations
@@ -87,7 +94,47 @@ def main():
         torch, lambda: ep.fused_embed_seq_pool(table, ids, lens), flush) * 1e3
     out.update(flash_rows(cs, torch, dev, flush))
     out.update(forward_rows(cs, torch, dev, flush))
+    out.update(gru_gather_rows(cs, torch, dev, flush))
     print(json.dumps(out), flush=True)
+
+
+def gru_gather_rows(cs, torch, dev, flush):
+    """Row 9, the GRU backward at the translation model's training shape,
+    and row 15, the dequantizing page gather at the decode step's, in us:
+    by events (``_us``) and by device time (``_device_us``); the GRU
+    backward's device time by kernel too (``gru_train_bwd_split_us``)."""
+    import numpy as np
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    rows = {}
+    ins, cot, _ = cs.gru_inputs(torch, dev, cs.MT["max_len"], cs.MT_BATCH,
+                                cs.MT["hid_dim"], 15)
+    hidden, _, rh = fr.gru_train_fwd_plain(*ins)
+
+    def gru():
+        return fr.gru_train_bwd(*ins, hidden, rh, *cot)
+    rows["gru_train_bwd_us"] = 1e3 * cs.time_ms(torch, gru, flush, n=20)
+    split = cs.kernel_split(torch, gru, n=10)
+    rows["gru_train_bwd_device_us"] = 1e3 * sum(split.values())
+    rows["gru_train_bwd_split_us"] = {
+        cs.short_name(k.replace("(anonymous namespace)::", "")): 1e3 * v
+        for k, v in split.items() if v > 1e-3}
+    g = cs.SERVE
+    r = g["n_pages"] * g["page_size"]
+    ids = torch.from_numpy(cs.decode_rows(
+        np.random.RandomState(0), g["n_slots"],
+        cs.CACHE_LEN // g["page_size"], g["n_pages"], g["page_size"])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes = torch.randint(-127, 128, (r, cs.LM["d_model"]), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.int8)
+    scales = torch.rand(r, cs.LM["n_head"], generator=gen, device=dev) + 1e-3
+
+    def gather():
+        return pa.gather_rows_dequant(codes, scales, ids, cs.LM["n_head"])
+    rows["gather_rows_dequant_us"] = 1e3 * cs.time_ms(torch, gather, flush)
+    ms = cs.flushed_device_ms(torch, gather, flush)
+    rows["gather_rows_dequant_device_us"] = None if ms is None else 1e3 * ms
+    return rows
 
 
 def forward_rows(cs, torch, dev, flush):

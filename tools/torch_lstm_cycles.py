@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a step of the PyTorch port's whole-sequence LSTM kernels goes, in
-SM cycles, on one NVIDIA GPU.
+"""Where a step of the PyTorch port's whole-sequence LSTM kernels and GRU
+backward goes, in SM cycles, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
@@ -30,10 +30,22 @@ lengths. It prints the median cycles of one step for
   cluster's partial of ``dgates @ w^T``), the grid barrier, the reduce of
   the clusters' partials of ``Dh``;
 
+and, at the translation model's shape (T 32, B 64, H 512; ragged lengths
+1..T from ``chip_smoke.gru_inputs``, and full lengths):
+
+- the GRU backward (the cluster kernel, ``gru_bwd_cluster_kernel``): the
+  cell and its stores, the exchange of ``dgc``, phase B (the cluster's
+  partial of ``d_rh``) with the rows past their length, the first grid
+  barrier (from the arrival, with the next step's u, r products, then the
+  wait), the reduce of the clusters' partials of ``d_rh``, ``dgr`` and
+  the exchange of ``[dgu, dgr]``, the cluster's partial of Dh, the second
+  grid barrier (with the next step's c product and its cluster sync, then
+  the wait), the reduce of the clusters' partials of Dh;
+
 with the same numbers at the first and last steps, where a ragged batch
 has most and fewest live rows. The marks are placed by matching lines of
-the source before its GRU section, and the script fails if a line it looks
-for is gone. The marks
+the source (the LSTM's before its GRU section, the GRU's after it), and
+the script fails if a line it looks for is gone. The marks
 cost a few cycles each; the instrumented kernels are not the port's.
 """
 
@@ -49,7 +61,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 T, B, H = 100, 64, 512
-SLOTS = 10                         # marks a step
+SLOTS = 16                         # marks a step
 MAX_STEPS = 512
 
 MARKS = (
@@ -109,6 +121,39 @@ MARKS = (
      "MARKT(7)\n#pragma unroll\n  for (int i = 0; i < 8; ++i) {\n"
      "    if (i < mine) {\n      float* out"),
 )
+# gru_bwd_cluster_kernel's marks, in the GRU section: (text, occurrences,
+# replacement)
+GRU_MARKS = (
+    ("    const int n_live = live[t];\n\n    // phase A: the cell on the "
+     "recomputed gates", 1,
+     "    const int n_live = live[t]; MARK(0)\n\n    // phase A: the cell on "
+     "the recomputed gates"),
+    ("      // cluster exchange: the block's dgc", 1,
+     "      MARK(1)\n      // cluster exchange: the block's dgc"),
+    ("      cluster.sync();                  // every dgc has landed\n", 1,
+     "      cluster.sync();                  // every dgc has landed\n"
+     "      MARK(2)\n"),
+    ("    grid_arrive(count);\n    if (next) {\n      asm volatile", 1,
+     "    MARK(3) grid_arrive(count);\n    if (next) {\n      asm volatile"),
+    ("    grid_wait(count, target += gridDim.x);\n\n    // phase C", 1,
+     "    MARK(4) grid_wait(count, target += gridDim.x); MARK(5)\n\n"
+     "    // phase C"),
+    ("      gru_reduce(part_r, rx, rb, n_live, u0, clusters, bpad, h);\n", 1,
+     "      gru_reduce(part_r, rx, rb, n_live, u0, clusters, bpad, h);"
+     " MARK(6)\n"),
+    ("      cluster.sync();                  // every dgu, dgr has landed\n",
+     1, "      cluster.sync();                  // every dgu, dgr has landed\n"
+     "      MARK(7)\n"),
+    ("    // the next step's c gates", 1,
+     "    MARK(8)\n    // the next step's c gates"),
+    ("    cluster.sync();                    // the next step's partial gates "
+     "landed\n", 1,
+     "    MARK(9) cluster.sync();            // the next step's partial gates "
+     "landed\n    MARK(10)\n"),
+    ("    grid_wait(count, target += gridDim.x);\n\n    // the carry", 1,
+     "    grid_wait(count, target += gridDim.x); MARK(11)\n\n    // the carry"),
+    ("    // end of a step\n", 1, "    MARK(12)\n"),
+)
 READ_BACK = (
     '\nextern "C" int paddle_lstm_cycles(long long* host) {\n'
     "  return cudaMemcpyFromSymbol(host, g_dbg, sizeof(long long) * %d);\n}\n"
@@ -118,17 +163,24 @@ READ_BACK = (
 GRU_SECTION = "\n// ---- GRU "
 
 
-def instrumented(source: str) -> str:
-    """The source with the marks in its LSTM part (everything before the
-    GRU section, which is left as it is)."""
-    lstm, gru_banner, gru = source.partition(GRU_SECTION)
-    for find, count, put in MARKS:
-        if lstm.count(find) != count:
+def marked(text: str, marks) -> str:
+    """``text`` with each mark's text replaced, after checking that it
+    occurs as often as the mark expects."""
+    for find, count, put in marks:
+        if text.count(find) != count:
             raise SystemExit(f"torch_lstm_cycles: expected {count} of "
                              f"{find!r} in fused_rnn.cu, found "
-                             f"{lstm.count(find)}")
-        lstm = lstm.replace(find, put)
-    return lstm + gru_banner + gru + READ_BACK
+                             f"{text.count(find)}")
+        text = text.replace(find, put)
+    return text
+
+
+def instrumented(source: str) -> str:
+    """The source with the LSTM's marks in its part before the GRU section
+    and the GRU backward's after it."""
+    lstm, gru_banner, gru = source.partition(GRU_SECTION)
+    return (marked(lstm, MARKS) + gru_banner + marked(gru, GRU_MARKS)
+            + READ_BACK)
 
 
 def main():
@@ -148,7 +200,8 @@ def main():
                     "-o", str(lib_path), str(src)], check=True)
     lib = ctypes.CDLL(str(lib_path))
     fr._kernels()                      # the port's own argtypes, then swap
-    for name in ("paddle_lstm_train_fwd", "paddle_lstm_train_bwd"):
+    for name in ("paddle_lstm_train_fwd", "paddle_lstm_train_bwd",
+                 "paddle_gru_train_bwd"):
         getattr(lib, name).argtypes = getattr(fr._lib, name).argtypes
         getattr(lib, name).restype = ctypes.c_int
     lib.paddle_lstm_cycles.argtypes = [ctypes.c_void_p]
@@ -186,8 +239,8 @@ def main():
         print(f"[{card}] {label}: median cycles a step "
               + ", ".join(f"{n} {np.median(seg[:, i]):.0f}"
                           for i, n in enumerate(names))
-              + f"; at t = 2 {seg[2].tolist()}, at t = {T - 3} "
-              f"{seg[T - 3].tolist()}")
+              + f"; at t = 2 {seg[2].tolist()}, at t = {len(seg) - 3} "
+              f"{seg[-3].tolist()}")
 
     for label, lens_np in (("ragged", ragged), ("full", np.full(B, T,
                                                                 np.int32))):
@@ -197,7 +250,7 @@ def main():
             outs = fr.lstm_train_fwd(*ins)
         d = marks()
         step = np.median(d[1:, 0] - d[:-1, 0])
-        show(f"forward ({fr.lstm_kernel_for('lstm_train_fwd', H, dev)}), "
+        show(f"forward ({fr.rnn_kernel_for('lstm_train_fwd', H, dev)}), "
              f"{label} lengths ({int(lens_np.sum())} of {T * B} pairs "
              f"live), step {step:.0f}",
              ("staging", "product", "exchange", "cell and stores",
@@ -226,13 +279,38 @@ def main():
             fr.lstm_train_bwd(*ins, outs[0], outs[1], *cot)
         d = marks()
         step = np.median(d[:-1, 0] - d[1:, 0])
-        show(f"backward ({fr.lstm_kernel_for('lstm_train_bwd', H, dev)}), "
+        show(f"backward ({fr.rnn_kernel_for('lstm_train_bwd', H, dev)}), "
              f"{label} "
              f"lengths, step {step:.0f}",
              ("staging", "product A", "exchange A", "cell and stores",
               "exchange B", "phase B", "grid barrier", "reduce"),
              np.stack([d[:, i + 1] - d[:, i] for i in range(8)], 1))
+    gru(torch, fr, dev, marks, show)
     print(f"SM clock now / max: {smi('clocks.sm,clocks.max.sm')}")
+
+
+def gru(torch, fr, dev, marks, show):
+    """The GRU backward's cluster kernel, ragged and full lengths, at the
+    translation model's shape."""
+    import chip_smoke as cs
+    t_len, b, h = cs.MT["max_len"], cs.MT_BATCH, cs.MT["hid_dim"]
+    ins, cot, _ = cs.gru_inputs(torch, dev, t_len, b, h, 15)
+    full = torch.full_like(ins[2], t_len)
+    for label, lens in (("ragged", ins[2]), ("full", full)):
+        args = (ins[0], ins[1], lens, ins[3])
+        hidden, _, rh = fr.gru_train_fwd_plain(*args)
+        for _ in range(3):
+            fr.gru_train_bwd(*args, hidden, rh, *cot)
+        d = marks()[:t_len]
+        step = np.median(d[:-1, 0] - d[1:, 0])
+        seg = np.stack([d[:, i + 1] - d[:, i] for i in range(12)], 1)
+        show(f"GRU backward ({fr.rnn_kernel_for('gru_train_bwd', h, dev)}), "
+             f"{label} lengths ({int(lens.sum())} of {t_len * b} pairs "
+             f"live), T {t_len}, step {step:.0f}",
+             ("cell and stores", "exchange dgc", "phase B", "barrier 1 with "
+              "the next u, r gates", "barrier 1 wait", "reduce d_rh",
+              "dgr and exchange", "product C", "barrier 2 with the next c "
+              "gates", "cluster sync", "barrier 2 wait", "reduce Dh"), seg)
 
 
 if __name__ == "__main__":
