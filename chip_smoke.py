@@ -158,10 +158,11 @@ final line:
    H 2113, the same checks. Each shape prints which backward kernel ran
    (``fused_rnn.rnn_kernel_for``: the cluster kernel with its cluster
    size, units and blocks, or the grid kernel) in each direction. At the
-   training shape the forward (the cluster kernel) runs twice with the
-   same bits and is held to the grid kernel in the same run (the plan
-   emptied; timed), bound at 3xTF32 and at the SIMT rate; the backward is
-   also split by kernel in a profiler window (the
+   training shape and at the edge the forward (the cluster kernel) runs
+   twice with the same bits and is held to the grid kernel in the same
+   run (the plan emptied); at the training shape both are timed by events
+   and by device time, bound at 3xTF32 and at the SIMT rate; the
+   backward is also split by kernel in a profiler window (the
    time loop, the ``dw`` product, the rest), timed against the grid
    kernel in the same run (the plan emptied), and bound twice: its
    FLOPs as three TF32 products at 495 TFLOP/s and at 67 TFLOP/s fp32
@@ -194,7 +195,13 @@ final line:
     computes this function (``nn.GRU`` applies the reset after its
     product and owns the input projection): ``library_ms`` is null. The
     forward at B 1 gives the serial cost of a step. At the training shape
-    the backward (the cluster kernel up to H 512) is also split by kernel
+    and at the edge the forward (the cluster kernel up to H 512, as for
+    the LSTM in phase 8) runs twice with the same bits and is held to the
+    grid kernel run in the same process (the plan emptied) within the
+    forward's tolerance; at the training shape both are timed by events
+    and by device time (the call and the recurrent kernel alone, a
+    profiler window) and bound at 3xTF32 and at the SIMT rate. The
+    backward (the cluster kernel up to H 512) is also split by kernel
     in a profiler window (the loop, ``dw``, the rest), held to the grid
     kernel run in the same process (the plan emptied; timed) within the
     gradients' tolerance, and bound at 3xTF32 and at the SIMT rate; each
@@ -202,7 +209,7 @@ final line:
     16, B 64 at H 1024 (timed) and H 700, x [1, 1, 1539] (H 513, the
     least width above 512), and above 16 units on every SM (groups of 16
     units in passes) x [1, 1, 6339] and T 4, B 2 at H 2113, the same
-    checks.
+    checks, each direction the grid kernel (checked).
 11. MT training: ``machine_translation.build()`` at emb 512, hid 512,
     vocabularies 10000, max_len 32 (seeded weights carried in through
     ``mt_params_from_jax``) takes 10 steps of 64 fresh seeded pairs (the
@@ -211,8 +218,8 @@ final line:
     gradients. The launch counts of every kernel module are zeroed just
     before and read just after. Checks: every step launched each GRU
     kernel twice (encoder, decoder) and nothing else, by profiler name
-    the backward's cluster kernel both times (the grid kernel where the
-    plan picks it); losses finite, the
+    the forward's and the backward's cluster kernels both times (the grid
+    kernels where the plan picks them); losses finite, the
     last below the first; the table rows no batch touched bit-equal to
     their start and every touched row moved; the first 3 losses within
     rtol 1e-3 of the same model on the CPU from the same weights and
@@ -226,7 +233,9 @@ final line:
     differs, the CPU's candidate scores at the first differing rank and
     the next within 1e-4; counted), the other rows' lane scores within
     rtol 1e-4, all sorted descending. Prints the p50 of a call,
-    sequences/s and a 3-call profiler window.
+    sequences/s and a 3-call profiler window, in which the forward launch
+    of each call is the cluster kernel by profiler name (the grid kernel
+    where the plan picks it: checked).
 13. Pooling kernels: the masked sequence pool at the classifier's pools
     of phase 14 (B 128, T 100, D 512, ragged lengths 1-100 with one full
     row; SUM, AVERAGE and SQRT) and at an edge shape (B 5, T 7, D 100,
@@ -252,7 +261,8 @@ final line:
     library then kernel, in 6 rounds of 50 launches each: the medians
     and the spread of the rounds, the kernel's ``ms`` the median; and by
     their device time alone (a profiler window, each call after the same
-    L2 flush).
+    L2 flush). The sequence pool, too, by its device time alone after the
+    same flush, in each mode.
 14. Text-conv training: the PaddlePaddle book's understand_sentiment
     ``convolution_net`` from the port's entry points (``lookup_table``
     with a sparse table gradient, two ``nets.SequenceConvPool`` of filter
@@ -1713,6 +1723,7 @@ KERNEL_FAMILIES = (
     ("lstm_fwd grid", "lstm_fwd_kernel", None),
     ("lstm_bwd cluster", "lstm_bwd_cluster_kernel", None),
     ("lstm_bwd grid", "lstm_bwd_kernel", None),
+    ("gru_fwd cluster", "gru_fwd_cluster_kernel", None),
     ("gru_fwd grid", "gru_fwd_kernel", None),
     ("gru_bwd cluster", "gru_bwd_cluster_kernel", None),
     ("gru_bwd grid", "gru_bwd_kernel", None),
@@ -2263,8 +2274,9 @@ def rnn_rows(torch, fr, card, kind, ins, cot, want, errs, lens_sum, flush):
             "dense_bound_ms": bound_of(*dense[kname])[0],
             "live_steps": lens_sum, "steps": t * b}
         row["us_per_step"] = row["ms"] / t * 1e3
-        if kname == "lstm_train_fwd":
-            lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush)
+        if kname in ("lstm_train_fwd", "gru_train_fwd"):
+            rnn_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush,
+                           kname)
         if kname in ("lstm_train_bwd", "gru_train_bwd"):
             rnn_bwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush,
                            kname)
@@ -2296,15 +2308,45 @@ def kernel_split(torch, fn, n=5):
             and ev.self_device_time_total > 0}
 
 
-def lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
-    """The LSTM forward's kernel (cluster or grid) and bounds at width h:
-    its FLOPs as three TF32 products at 495 TFLOP/s where it runs on the
-    tensor cores (the cluster kernel), else at 67 TFLOP/s; both against
-    the bytes. Where the cluster kernel runs: two calls bit-equal, and the
-    grid kernel in the same run (the plan emptied) timed and held to it
-    within LSTM_FWD_TOL."""
+def cluster_against_grid(torch, fr, name, fn, h, tol, label):
+    """The forward ``name`` (its cluster kernel at width h) run twice,
+    bit-equal, and held to its grid kernel run in the same process (the
+    plan emptied) within ``tol``; returns the max abs difference."""
+    got, again = fn(), fn()
+    key = (torch.cuda.current_device(), name, h)
+    saved = fr._plans[key]
+    fr._plans[key] = None                  # the grid kernel, this run
+    try:
+        grid = fn()
+    finally:
+        fr._plans[key] = saved
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, again)):
+        if not torch.equal(a, b):
+            fail(f"{name} {label}: two runs give other bits in output {i}")
+    for i, (a, b) in enumerate(zip(got, grid)):
+        if not close(a, b, tol):
+            fail(f"{name} {label}: the cluster kernel's output {i} differs "
+                 f"from the grid kernel's (max abs diff "
+                 f"{float((a - b).abs().max())}, tolerance {tol})")
+    return max(float((a - b).abs().max()) for a, b in zip(got, grid))
+
+
+def rnn_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush,
+                   name):
+    """The forward's kernel (cluster or grid) of ``name``
+    ("lstm_train_fwd" or "gru_train_fwd") and bounds at width h: its FLOPs
+    as three TF32 products at 495 TFLOP/s where it runs on the tensor
+    cores (the cluster kernel), else at 67 TFLOP/s; both against the
+    bytes. Where the cluster kernel runs: two calls bit-equal, and the
+    grid kernel in the same run (the plan emptied) held to it within the
+    forward's tolerance; both timed by events and by device time (a
+    profiler window: every kernel of the call, and the recurrent kernel
+    alone)."""
     dev = torch.device("cuda")
-    plan = fr.rnn_kernel_for("lstm_train_fwd", h, dev)
+    plan = fr.rnn_kernel_for(name, h, dev)
+    loop = name[:-len("_train_fwd")] + "_fwd"       # lstm_fwd, gru_fwd
+    tol = LSTM_FWD_TOL if name.startswith("lstm") else GRU_FWD_TOL
     t_bytes = nbytes / HBM_BYTES_PER_S
     tc = 3 * flops / TF32_FLOPS_PER_S
     row["kernel"] = plan
@@ -2314,32 +2356,27 @@ def lstm_fwd_extras(torch, fr, card, row, fn, flops, nbytes, h, flush):
         return
     row["bound_ms"] = row["tf32x3_bound_ms"]
     row["bound_by"] = "operations" if tc >= t_bytes else "bytes"
-    row["device_ms"] = device_ms(torch, fn)
-    got, again = fn(), fn()
-    key = (torch.cuda.current_device(), "lstm_train_fwd", h)
+    split = kernel_split(torch, fn)
+    row["device_ms"] = sum(split.values())
+    row["loop_ms"] = sum(v for k, v in split.items() if loop in k)
+    row["grid_max_abs_diff"] = cluster_against_grid(
+        torch, fr, name, fn, h, tol, f"at H {h}")
+    key = (torch.cuda.current_device(), name, h)
     saved = fr._plans[key]
     fr._plans[key] = None                  # the grid kernel, this run
     try:
-        grid = fn()
         row["grid_ms"] = time_ms(torch, fn, flush, n=20)
+        gsplit = kernel_split(torch, fn)
     finally:
         fr._plans[key] = saved
-    torch.cuda.synchronize()
-    names = ("hidden", "cell", "h_last", "c_last")
-    for name, a, b in zip(names, got, again):
-        if not torch.equal(a, b):
-            fail(f"lstm_train_fwd at H {h}: two runs give other bits in "
-                 f"{name}")
-    row["grid_max_abs_diff"] = max(float((a - b).abs().max())
-                                   for a, b in zip(got, grid))
-    for name, a, b in zip(names, got, grid):
-        if not close(a, b, LSTM_FWD_TOL):
-            fail(f"lstm_train_fwd at H {h}: the cluster kernel's {name} "
-                 f"differs from the grid kernel's (max abs diff "
-                 f"{float((a - b).abs().max())})")
-    print(f"[{card}] lstm_train_fwd at H {h}: {plan}; device time a call "
-          f"{row['device_ms']:.3f} ms; two runs bit-equal; the grid kernel "
-          f"(the earlier design) {row['grid_ms']:.3f} ms in this run, within "
+    row["grid_device_ms"] = sum(gsplit.values())
+    row["grid_loop_ms"] = sum(v for k, v in gsplit.items() if loop in k)
+    print(f"[{card}] {name} at H {h}: {plan}; device time a call "
+          f"{row['device_ms']:.3f} ms (the cluster kernel "
+          f"{row['loop_ms']:.3f}); two runs bit-equal; the grid kernel (the "
+          f"earlier design) {row['grid_ms']:.3f} ms in this run (device "
+          f"{row['grid_device_ms']:.3f} ms, the grid kernel "
+          f"{row['grid_loop_ms']:.3f}), within "
           f"{row['grid_max_abs_diff']:.3g} of the cluster kernel; bounds "
           f"{row['tf32x3_bound_ms']:.3f} ms at 3xTF32, "
           f"{row['simt_bound_ms']:.3f} ms at the SIMT rate")
@@ -2430,6 +2467,13 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
     edge_errs, _ = spec["check"](torch, fr, ins, cot,
                                  "edge T {} B {} H {}".format(*edge))
     ran = rnn_plans(fr, spec["names"], edge[2], dev)
+    fwd_name, fwd = spec["names"][0], getattr(fr, spec["names"][0])
+    if fr.rnn_kernel_for(fwd_name, edge[2], dev)["kernel"] == "cluster":
+        diff = cluster_against_grid(
+            torch, fr, fwd_name, lambda: fwd(*ins), edge[2],
+            LSTM_FWD_TOL if kind == "LSTM" else GRU_FWD_TOL, "at the edge")
+        ran += (f"; the forward's two runs bit-equal, within {diff:.3g} of "
+                f"the grid kernel")
     print(f"[{card}] {kind} edge shape T {edge[0]} B {edge[1]} H {edge[2]}"
           f"{ran}: max abs err "
           + ", ".join(f"{k} {e:.3g}" for k, e in edge_errs.items()))
@@ -2440,6 +2484,10 @@ def rnn_phase(torch, dev, card, kind, shape=None, edge=None, wide=None):
             torch, dev, t, b, h, spec["seeds"][1] if i == 0 else 29 + i)
         errs, want = spec["check"](torch, fr, ins, cot, f"T {t} B {b} H {h}")
         ran = rnn_plans(fr, spec["names"], h, dev)
+        if i and any(fr.rnn_kernel_for(n, h, dev)["kernel"] != "grid"
+                     for n in spec["names"]):
+            fail(f"{kind} at H {h}: a kernel other than the grid kernel "
+                 f"ran{ran}")
         print(f"[{card}] {kind} T {t} B {b} H {h}{ran}: max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if i > 1:
@@ -2619,14 +2667,13 @@ def mt_train_phase(torch, dev, card, cfg=None, batch=MT_BATCH,
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
-        from paddle_tpu_torch.ops.kernels import fused_rnn as fr
-        plan = fr.rnn_kernel_for("gru_train_bwd", cfg["hid_dim"],
-                                 dev)["kernel"]
-        check_families("MT training", prof, {
-            "gru_fwd grid": MT_GRU_PER_STEP,
-            "gru_bwd cluster": MT_GRU_PER_STEP if plan == "cluster" else 0,
-            "gru_bwd grid": 0 if plan == "cluster" else MT_GRU_PER_STEP})
-        stats["gru_bwd_kernel"] = plan
+        want = {}
+        for name in ("gru_fwd", "gru_bwd"):
+            plan = gru_plan(name, cfg["hid_dim"], dev)
+            want[f"{name} cluster"] = MT_GRU_PER_STEP * (plan == "cluster")
+            want[f"{name} grid"] = MT_GRU_PER_STEP * (plan == "grid")
+            stats[f"{name}_kernel"] = plan
+        check_families("MT training", prof, want)
         print(f"[{card}] machine_translation: the GRU kernels a step: "
               f"{family_line(prof)}")
 
@@ -2658,6 +2705,13 @@ def mt_train_phase(torch, dev, card, cfg=None, batch=MT_BATCH,
           f"{gap:.3g}; oracle took {time.perf_counter() - t0:.1f} s)")
     del oracle, oracle_opt, opt
     return launched, stats, model
+
+
+def gru_plan(name, h, dev):
+    """"cluster" or "grid": the kernel that the GRU's ``name`` ("gru_fwd"
+    or "gru_bwd") runs at width h."""
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    return fr.rnn_kernel_for(name.replace("_", "_train_"), h, dev)["kernel"]
 
 
 # -- phase 12: MT beam decode -----------------------------------------------
@@ -2756,10 +2810,16 @@ def mt_beam_phase(torch, dev, card, model, batch=MT_BATCH, reps=5):
             model.generate(src)
         torch.cuda.synchronize()
     prof = profile_calls(torch, calls, PROFILE_STEPS)
+    plan = gru_plan("gru_fwd", cfg["hid_dim"], dev)
+    check_families("MT generate", prof, {
+        "gru_fwd cluster": int(plan == "cluster"),
+        "gru_fwd grid": int(plan == "grid"), "gru_bwd cluster": 0,
+        "gru_bwd grid": 0})
     stats = {"profile": prof, "call_ms": call_ms, "call_p50_ms": p50,
              "sequences_per_s": batch / p50 * 1e3, "near_ties": ties,
              "near_tie_gaps": gaps, "rows_equal": len(agree),
-             "launches": {k: n for k, n in launched.items() if n}}
+             "launches": {k: n for k, n in launched.items() if n},
+             "gru_fwd_kernel": plan}
     print(f"[{card}] machine_translation generate (B {batch}, beam {w}, "
           f"{cfg['max_len']} steps): p50 {p50:.3f} ms = "
           f"{stats['sequences_per_s']:.1f} sequences/s; launches "
@@ -2770,7 +2830,8 @@ def mt_beam_phase(torch, dev, card, model, batch=MT_BATCH, reps=5):
           f"{prof['host_ms_per_step']:.3f} ms/call, device busy "
           f"{prof['device_busy_ms_per_step']:.3f} ms/call, idle share "
           f"{prof['idle_share']:.3f}, GRU kernels {prof['rnn_share']:.4f} of "
-          f"device time, {prof['launches_per_step']:.0f} launches/call")
+          f"device time, {prof['launches_per_step']:.0f} launches/call; the "
+          f"GRU kernels a call: {family_line(prof)}")
     for key, us, count in prof["top_kernels"]:
         print(f"    {us:10.1f} us/call {count:6.1f}/call  {key}")
     return launched, stats
@@ -2911,12 +2972,23 @@ def pool_phase(torch, dev, card, seqpool=SEQPOOL, seqpool_edge=SEQPOOL_EDGE,
                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
                "live_rows": lens_sum, "rows": b * t,
                "modes_ms": {m: time_ms(torch, lambda m=m: sp.masked_seqpool_fwd(
-                   x, lens, m), flush) for m in ("SUM", "AVERAGE")}}
+                   x, lens, m), flush) for m in ("SUM", "AVERAGE")},
+               "warps": sp.pool_warps(t, 0)}
+        # device time alone, each call after the same L2 flush (events
+        # also count the host's launch on a grid this small)
+        row["modes_device_ms"] = {m: flushed_device_ms(
+            torch, lambda m=m: sp.masked_seqpool_fwd(x, lens, m), flush)
+            for m in sp.MODES}
+        row["device_ms"] = row["modes_device_ms"]["SQRT"]
         results["seqpool"] = row
-        print(f"[{card}] seqpool SQRT [{b}x{t}x{d}]: kernel "
+        print(f"[{card}] seqpool SQRT [{b}x{t}x{d}] ({row['warps']} warps a "
+              f"row): kernel "
               f"{row['ms'] * 1e3:.2f} us (SUM "
               f"{row['modes_ms']['SUM'] * 1e3:.2f}, AVERAGE "
-              f"{row['modes_ms']['AVERAGE'] * 1e3:.2f}), plain "
+              f"{row['modes_ms']['AVERAGE'] * 1e3:.2f}); device time alone "
+              + ", ".join(f"{m} {us(v)}"
+                          for m, v in row["modes_device_ms"].items())
+              + f"; plain "
               f"{row['plain_ms'] * 1e3:.2f} us, no library call (no one "
               f"PyTorch call pools a padded batch by lengths), bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
@@ -3797,7 +3869,8 @@ def main():
             "library_ms": m["library_ms"],
             "launches_per_train_step": per_step, "card": card,
             **{k: m[k] for k in ("rounds_ms", "warps", "faster_than_library",
-                                 "kernel_device_ms", "library_device_ms")
+                                 "kernel_device_ms", "library_device_ms",
+                                 "device_ms", "modes_device_ms")
                if k in m}})
     for kname, key, source, line in (
             ("cache_gather_rows", "gather_rows", SOURCE, 79),

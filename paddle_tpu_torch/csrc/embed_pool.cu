@@ -62,20 +62,6 @@ namespace {
 constexpr int kMaxWarps = 8;
 constexpr int kInFlight = 16;              // row loads issued before the adds
 
-// float8 sums round every partial sum, so their order is part of the result
-template <typename E>
-struct Ordered {
-  static constexpr bool value = false;
-};
-template <__nv_fp8_interpretation_t K>
-struct Ordered<F8<K>> {
-  static constexpr bool value = true;
-};
-template <int E, int M>
-struct Ordered<Fnuz<E, M>> {
-  static constexpr bool value = true;
-};
-
 // an id clipped into [0, V): int32 or int64 ids
 template <typename I>
 __device__ __forceinline__ int clip_id(I id, int v) {

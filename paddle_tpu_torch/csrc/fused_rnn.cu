@@ -37,13 +37,13 @@
 // dgates). Step t + 1 cannot start before every unit of h[t] is known, so T
 // steps are T grid-wide barriers whatever the arithmetic rate. The grid
 // kernels (lstm_fwd_kernel, lstm_bwd_kernel, the GRU's gru_fwd_kernel and
-// gru_bwd_kernel) multiply in fp32 outside the tensor cores; at H <= 512 the
-// LSTM backward and forward and the GRU backward run on clusters and the
-// tensor cores (lstm_bwd_cluster_kernel, lstm_fwd_cluster_kernel and
-// gru_bwd_cluster_kernel, the sections "LSTM backward on thread-block
-// clusters", "LSTM forward on ..." and "GRU backward on ..." below), and
-// both backwards' dw product on the tensor cores at every width
-// (rnn_dw_kernel), all at fp32 accuracy through 3xTF32.
+// gru_bwd_kernel) multiply in fp32 outside the tensor cores; at H <= 512 all
+// four run on clusters and the tensor cores instead
+// (lstm_bwd_cluster_kernel, lstm_fwd_cluster_kernel, gru_bwd_cluster_kernel
+// and gru_fwd_cluster_kernel, the sections "LSTM backward on thread-block
+// clusters", "LSTM forward on ...", "GRU backward on ..." and "GRU forward
+// on ..." below), and both backwards' dw product on the tensor cores at
+// every width (rnn_dw_kernel), all at fp32 accuracy through 3xTF32.
 //
 // Design of the grid kernels (above H 512, or where the cluster kernels do
 // not fit). The TPU kernel keeps h, c and the whole of w in one core's VMEM
@@ -1052,6 +1052,8 @@ constexpr int kCU = 4;              // units of a block
 constexpr int kCN = 4 * kCU;        // its gate columns
 constexpr int kCMaxH = 512;         // widest H of the cluster kernel
 constexpr int kGN = 3 * kCU * kCC;  // the GRU cluster's gate columns (24)
+constexpr int kGfWG = 4;            // warpgroups of the GRU forward's block
+constexpr int kGfThreads = 128 * kGfWG;
 
 // the rows of w that a block of a cluster holds: ceil(H / C) rounded up to
 // the 64 rows of a wgmma tile
@@ -1059,22 +1061,25 @@ __host__ __device__ constexpr int lstm_cluster_kh(int h) {
   return round_up((h + kCC - 1) / kCC, 64);
 }
 
-// bytes of the cluster kernels' shared memory regions, by kind (the LSTM
-// forward's has no W_q and no gate gradients; the GRU backward's has no W_q,
-// which it keeps in registers, and stages rh beside h_prev)
+// bytes of the cluster kernels' shared memory regions, by kind (the
+// forwards have no W_q and no gate gradients; the GRU backward has no W_q,
+// which it keeps in registers, and stages rh beside h_prev; the GRU
+// forward stages h_prev and rh in turn in one buffer)
 struct ClusterSmem {
   int wt, wq, dg, hs, rs, pa, rx;  // W_q^T, W_q, the gate gradients: hi and
                                    // lo each; the staged rows, partials
   __host__ __device__ ClusterSmem(int h, int kind) {
     const int kh = lstm_cluster_kh(h);
-    const bool fwd = kind == kLstmFwd, gru = kind == kGruBwd;
+    const bool fwd = kind == kLstmFwd || kind == kGruFwd;
+    const bool gru = kind == kGruFwd || kind == kGruBwd;
     wt = (gru ? kGN : kCN * kCC) * kh * 4;              // [16C or 24][kh]
     wq = fwd || gru ? 0 : wt;                           // [kh][16C]
     dg = fwd ? 0 : kBT * kCN * kCC * 4;                 // [64][32]
     hs = kBT * (kh + 4) * 4;                            // [64][kh + 4]
-    rs = gru ? hs : 0;                                  // rh, the same
-    pa = kCC * 2 * kBT * (gru ? 3 * kCU : kCN) * 4;     // [C][halves][64][n]
-    rx = gru ? kCU * kBT * 4 : 0;                       // [4][64]
+    rs = kind == kGruBwd ? hs : 0;                      // rh, the same
+    pa = kCC * (kind == kGruFwd ? kGfWG : 2) * kBT *    // [C][parts][64][n]
+         (gru ? 3 * kCU : kCN) * 4;
+    rx = kind == kGruBwd ? kCU * kBT * 4 : 0;           // [4][64]
   }
   __host__ __device__ size_t bytes() const {          // + 1024: alignment
     return 1024 + 2 * (static_cast<size_t>(wt) + wq + dg) + hs + rs + pa +
@@ -2097,14 +2102,28 @@ gru_bwd_cluster_kernel(const float* __restrict__ x,
                        const float* __restrict__ dhlast, float* dx,
                        float* dh0, float* part, unsigned* count,
                        unsigned base, int t_len, int b_len, int h);
+__global__ void __launch_bounds__(kGfThreads, 1)
+gru_fwd_cluster_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ order,
+                       const int* __restrict__ live,
+                       const float* __restrict__ h0, float* hidden,
+                       float* __restrict__ hlast, float* rh, unsigned* count,
+                       unsigned base, int t_len, int b_len, int h);
 
-// the cluster kernel of `kind` (kLstmFwd, kLstmBwd or kGruBwd)
+// the cluster kernel of `kind`
 const void* cluster_kernel(int kind) {
-  return kind == kLstmFwd
-             ? reinterpret_cast<const void*>(lstm_fwd_cluster_kernel)
-         : kind == kLstmBwd
-             ? reinterpret_cast<const void*>(lstm_bwd_cluster_kernel)
-             : reinterpret_cast<const void*>(gru_bwd_cluster_kernel);
+  switch (kind) {
+    case kLstmFwd:
+      return reinterpret_cast<const void*>(lstm_fwd_cluster_kernel);
+    case kLstmBwd:
+      return reinterpret_cast<const void*>(lstm_bwd_cluster_kernel);
+    case kGruFwd:
+      return reinterpret_cast<const void*>(gru_fwd_cluster_kernel);
+    default:
+      return reinterpret_cast<const void*>(gru_bwd_cluster_kernel);
+  }
 }
 
 // the launch configuration of the cluster kernel of `kind` on `blocks`
@@ -2124,7 +2143,7 @@ cudaError_t cluster_config(int kind, int h, int blocks,
   attrs[1].id = cudaLaunchAttributeCooperative;
   attrs[1].val.cooperative = 1;
   cfg->gridDim = dim3(blocks);
-  cfg->blockDim = dim3(kThreads);
+  cfg->blockDim = dim3(kind == kGruFwd ? kGfThreads : kThreads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = nullptr;
   cfg->attrs = attrs;
@@ -2217,12 +2236,11 @@ extern "C" int paddle_lstm_train_fwd(const float* x, const float* w,
   return launch_cluster(kLstmFwd, blocks, h, args, s);
 }
 
-// clusters of 2 blocks of the cluster kernel of `kind` (kLstmFwd, kLstmBwd
-// or kGruBwd) that the card holds at once at width h (0: none fit); a
-// negative CUDA error
+// clusters of 2 blocks of the cluster kernel of `kind` (every Kind has
+// one) that the card holds at once at width h (0: none fit); a negative
+// CUDA error
 extern "C" int paddle_rnn_max_clusters(int kind, int h) {
-  if (h < 1 || h > kCMaxH ||
-      (kind != kLstmFwd && kind != kLstmBwd && kind != kGruBwd))
+  if (h < 1 || h > kCMaxH || kind < kLstmFwd || kind > kGruBwd)
     return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
   const cudaError_t err = max_clusters(kind, h, &n);
@@ -2305,11 +2323,11 @@ extern "C" int paddle_lstm_train_bwd(
 // A GRU step has two dependent products: (r * h) @ w_c needs r of every
 // unit, so the forward takes two barriers a step where the LSTM takes one.
 //
-// Design of the grid kernels (the forward at every width; the backward above
-// H 512, at H not a multiple of 4, or where the cluster kernel's clusters do
-// not all fit), on the LSTM's skeleton (cooperative launch of ceil(H/U)
-// blocks of U units, the block's slice of w in shared memory for the whole
-// sequence, tile_product over the rows still inside their length):
+// Design of the grid kernels (above H 512, at H not a multiple of 4, or
+// where the cluster kernels' clusters do not all fit), on the LSTM's
+// skeleton (cooperative launch of ceil(H/U) blocks of U units, the block's
+// slice of w in shared memory for the whole sequence, tile_product over the
+// rows still inside their length):
 //   forward   phase 1: the block's u and r columns ([H, 2U] of w_ur) times
 //             the state h; r * h_prev of its units goes to rh[t] (in global
 //             memory: the other blocks need it), u to hidden[t] (read back by
@@ -3148,21 +3166,338 @@ gru_bwd_cluster_kernel(const float* __restrict__ x,
   cluster.sync();                      // no peer reads this block's memory
 }
 
+// W_q^T of gru_fwd_cluster_kernel, split into TF32 hi and lo, a box of 32 of
+// depth at a time: 48 rows, the u and r columns' hi (rows 0-15) then lo
+// (16-31), the c column's hi (32-39) then lo (40-47), K-major with the
+// 128-byte swizzle (sw_at); row n = gate * 8 + v of gru_bwd_cluster_kernel's
+// W_q^T is row gf_hi_row(n) (hi) and gf_lo_row(n) (lo) here.
+constexpr int kGfRows = 2 * kGN;
+__host__ __device__ constexpr int gf_hi_row(int n) {
+  return n < 16 ? n : 16 + n;
+}
+__host__ __device__ constexpr int gf_lo_row(int n) {
+  return n < 16 ? 16 + n : 24 + n;
+}
+
+// One product of gru_fwd_cluster_kernel: the pass's staged rows (the state
+// for u and r, kC 16 columns from W row row0 = 0; rh[t] for c, kC 8 from
+// row 32) over warpgroup wg's quarter of the block's depth (boxes of 32, in
+// order), 3xTF32 in two wgmma a k-step: A_hi x [B_hi | B_lo] (N 2 kC) and
+// A_lo x B_hi (N kC), where gru_gates takes three. Each owner's columns of
+// the partial, hi hi + hi lo + lo hi, go into its pa[q][wg].
+template <int kC>
+__device__ __forceinline__ void gru_fwd_gates(cg::cluster_group& cluster,
+                                              const float* staged,
+                                              const float* wt, int row0,
+                                              int gate0, float* pa, int rows,
+                                              int q, int wg, int kh) {
+  constexpr int kUC = 3 * kCU;
+  constexpr int kJ = kC / 8;                   // column groups of 8
+  const int lane = threadIdx.x % 32, wq = threadIdx.x / 32 % 4;
+  const int g8 = lane / 4, tig = lane % 4, hst = kh + 4;
+  const int boxes = kh / 32, r = 16 * wq + g8;
+  const int kb0 = wg * boxes / kGfWG * 32;
+  const int kb1 = (wg + 1) * boxes / kGfWG * 32;
+  float hb[kC], lh[kC / 2];                    // hi x [hi | lo], lo x hi
+#pragma unroll
+  for (int i = 0; i < kC; ++i) hb[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kC / 2; ++i) lh[i] = 0.f;
+  for (int kb = kb0; kb < kb1; kb += 32) {     // one box of depth
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = kb + 8 * s + tig;
+      split_tf32(staged[r * hst + k], ah[s][0], al[s][0]);
+      split_tf32(staged[(r + 8) * hst + k], ah[s][1], al[s][1]);
+      split_tf32(staged[r * hst + k + 4], ah[s][2], al[s][2]);
+      split_tf32(staged[(r + 8) * hst + k + 4], ah[s][3], al[s][3]);
+    }
+    const uint64_t d = sw_desc(wt + static_cast<size_t>(kb >> 5) * kGfRows *
+                                        32 + row0 * 32);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      wgmma_rs(hb, ah[s], d + 2 * s);
+      wgmma_rs(lh, al[s], d + 2 * s);
+    }
+    wg_commit_wait();
+    hold(ah);
+    hold(al);
+    settle(hb);
+    settle(lh);
+  }
+  // column 8 jn + 2 tig + e (jn < kJ) is gate gate0 + jn of unit v = 2 tig
+  // + e of the cluster (owner v / 4); its hi x lo term is column group jn +
+  // kJ of hb
+  const int v = 2 * tig;
+  float* dst = cluster.map_shared_rank(pa, v / kCU) +
+               (q * kGfWG + wg) * kBT * kUC + v % kCU;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r + 8 * hh;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int jn = 0; jn < kJ; ++jn) {
+      const int i = 4 * jn + 2 * hh, o = 4 * (jn + kJ) + 2 * hh;
+      *reinterpret_cast<float2*>(dst + row * kUC + (gate0 + jn) * kCU) =
+          make_float2(hb[i] + hb[o] + lh[i], hb[i + 1] + hb[o + 1] +
+                                                 lh[i + 1]);
+    }
+  }
+}
+
+// ---- GRU forward on thread-block clusters and tensor cores ----------------
+//
+// gru_fwd_cluster_kernel computes what gru_fwd_kernel computes, at the
+// widths of the other cluster kernels (H <= 512, H a multiple of 4), for any
+// T and B. What held gru_fwd_kernel back: per step each of its 128 blocks
+// staged all of the state, then all of rh[t], from L2 (~16 MB a phase across
+// the grid at B 64, H 512) for fp32 SIMT products, behind two cooperative
+// grid syncs, and u made a round trip through hidden[t] between them. Here,
+// on the LSTM forward's skeleton (lstm_fwd_cluster_kernel) and with the GRU
+// backward's W_q^T (gru_bwd_cluster_kernel): clusters of C = 2 blocks
+// (kCC), block g owning units [4g, 4g + 4) for the cell, block rank q
+// holding W_q^T = w[q kh .. q kh + kh)[the cluster's 24 gate columns]^T,
+// split into TF32 hi and lo, in shared memory for the whole sequence (u and
+// r: 2 gates x 4 units x 2 blocks = 16 columns; c: 8 columns, wgmma's least
+// N; 49 KB at H 512).
+//   * Phase 1: each block stages columns [q kh, q kh + kh) of the live rows
+//     of the state (cp.async through L2; no carry buffer: a row inside its
+//     length at step t was inside it at t - 1, so its state is hidden[t - 1],
+//     or h0), so the cluster reads the state once, multiplies them by the u
+//     and r columns of W_q on the tensor cores (wgmma, 3xTF32 in two
+//     instructions a k-step: gru_fwd_gates)
+//     and sends each owner its units' partials through distributed shared
+//     memory; the owner adds the C x 4 partials in rank order to xproj[t],
+//     computes u and r, keeps u in
+//     a register (a batch's later passes of 64 rows keep it in hidden[t]
+//     until phase 2) and writes rh[t] = r h_prev, which phase 2 and the
+//     backward read. Grid barrier.
+//   * Phase 2: rh[t]'s columns staged the same way, times the c columns of
+//     W_q; the owner adds the partials to xproj[t]'s c column and writes
+//     hidden[t] = (1 - u) h_prev + u c. Grid barrier.
+//   Two grid barriers a step (c needs every unit's r h_prev, the next step
+//   every unit's new state), on the hand-written counter of the other
+//   cluster kernels, the same stream's counter: a launch adds 2T x blocks.
+//   Between a barrier's arrival and its wait a block has only the loads of
+//   inputs to overlap: xproj[t]'s c column at the first, xproj[t + 1]'s u
+//   and r columns at the second (the staged state and rh[t] exist only
+//   after the barrier before them). A block runs four warpgroups (512
+//   threads; the other cluster kernels two), each multiplying a quarter of
+//   the depth's boxes, which stages the rows with more copies in flight;
+//   a quarter of the threads own the cell's (row, unit) pairs. The first
+//   pass's state and length stay in registers from step to step. The steps
+//   past each row's length are zeroed before the recurrence. Batches above
+//   64 rows take passes of 64 rows. Every sum runs in a fixed order: two
+//   runs give the same bits.
+__global__ void __launch_bounds__(kGfThreads, 1)
+gru_fwd_cluster_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ order,
+                       const int* __restrict__ live,
+                       const float* __restrict__ h0, float* hidden,
+                       float* __restrict__ hlast, float* rh, unsigned* count,
+                       unsigned base, int t_len, int b_len, int h) {
+  constexpr int kUC = 3 * kCU;               // a block's gate columns
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ char smem_raw[];
+  const ClusterSmem lay(h, kGruFwd);
+  const int kh = lstm_cluster_kh(h), hst = kh + 4;
+  float* wt = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* hs = wt + lay.wt / 2;               // the staged rows [64][kh + 4]
+  float* pa = hs + lay.hs / 4;               // [C][4 parts][64][12] fp32
+  const int tid = threadIdx.x;
+  // the warpgroup (uniform to the compiler, or it serializes the wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int q = static_cast<int>(cluster.block_rank());
+  const int cl = blockIdx.x / kCC;
+  const int u0 = blockIdx.x * kCU, k0q = q * kh;
+  const size_t h3 = 3 * static_cast<size_t>(h);
+
+  // W_q^T [48][kh] (gru_fwd_gates): row n = gate * 8 + v (gates u, r, c;
+  // v = q' * 4 + u, unit cl * 8 + v) of w[q kh + k][gate * H + cl * 8 + v]
+  // at rows gf_hi_row(n) and gf_lo_row(n)
+  for (int idx = tid; idx < kGN * kh; idx += kGfThreads) {
+    const int n = idx / kh, k = idx % kh, kk = k0q + k;
+    const int j = cl * kCC * kCU + n % 8;
+    uint32_t hi = 0, lo = 0;
+    if (kk < h && j < h) split_tf32(w[kk * h3 + (n / 8) * h + j], hi, lo);
+    wt[sw_at(kGfRows, gf_hi_row(n), k)] = __uint_as_float(hi);
+    wt[sw_at(kGfRows, gf_lo_row(n), k)] = __uint_as_float(lo);
+  }
+  for (int idx = tid; idx < lay.hs / 4; idx += kGfThreads) hs[idx] = 0.0f;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();                     // the zeros before any staged row
+  cluster.sync();                      // every block's memory is in place
+
+  // stage columns [q kh, q kh + kh) of rows order[r0 .. r0 + rows) of src
+  // into hs (landed(): they are in place)
+  auto stage = [&](const float* src, int r0, int rows) {
+    const int c4 = kh / 4;
+    for (int idx = tid; idx < rows * c4; idx += kGfThreads) {
+      const int i = idx / c4, c = idx % c4 * 4, k = k0q + c;
+      const bool valid = k < h;
+      copy16(hs + i * hst + c,
+             valid ? src + static_cast<size_t>(order[r0 + i]) * h + k : src,
+             valid);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  auto landed = [&]() {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+  };
+  // the partials of gate g of this thread's pair, added in rank order
+  auto gate_sum = [&](int bl, int g, int ju) {
+    float sum = 0.f;
+    for (int p = 0; p < kCC * kGfWG; ++p)
+      sum += pa[(p * kBT + bl) * kUC + g * kCU + ju];
+    return sum;
+  };
+
+  // this thread's (row, unit) pair of a pass: row tid / 4, unit j (the
+  // threads past the pass's 64 rows own none)
+  const int bl = tid / kCU, ju = tid % kCU, j = u0 + ju;
+  const bool unit = j < h && bl < kBT;
+  const size_t bh = static_cast<size_t>(b_len) * h;
+  auto x_at = [&](int tt, int b, int gate) {
+    return x[(static_cast<size_t>(tt) * b_len + b) * h3 + gate * h + j];
+  };
+  // the steps past each row's length: zero outputs, written before the
+  // recurrence (which never reads them); a row of length 0 keeps h0
+  if (unit) {
+    for (int r = bl; r < b_len; r += kBT) {
+      const int b = order[r], len_b = lens[b];
+      const size_t at = static_cast<size_t>(b) * h + j;
+      for (int t = len_b > 0 ? len_b : 0; t < t_len; ++t) {
+        hidden[static_cast<size_t>(t) * bh + at] = 0.0f;
+        rh[static_cast<size_t>(t) * bh + at] = 0.0f;
+      }
+      if (len_b <= 0) hlast[at] = h0[at];
+    }
+  }
+  // the first pass's pair: its row, length and state stay in registers,
+  // its inputs load across the barriers
+  const bool mine = unit && bl < b_len;
+  const int b0 = mine ? order[bl] : 0;
+  const int len0 = mine ? lens[b0] : 0;
+  const size_t at0 = static_cast<size_t>(b0) * h + j;
+  float h_reg = mine ? h0[at0] : 0.f, u_reg = 0.f;
+  float xu = 0.f, xr = 0.f, xc = 0.f;
+  if (mine && bl < live[0]) {
+    xu = x_at(0, b0, 0);
+    xr = x_at(0, b0, 1);
+  }
+  unsigned target = base;
+
+  for (int t = 0; t < t_len; ++t) {
+    const float* hp = t == 0 ? h0 : hidden + (t - 1) * bh;
+    float* hid_t = hidden + t * bh;
+    float* rh_t = rh + t * bh;
+    const int n_live = live[t];
+
+    // phase 1: u and r of the pass's rows, rh[t]
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const int rows = min(kBT, n_live - r0);
+      stage(hp, r0, rows);
+      // a later pass's inputs, in flight while the staged rows land
+      const bool alive = unit && bl < rows;
+      const int b = r0 == 0 ? b0 : alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float pu = xu, pr = xr, hpv = h_reg;
+      if (r0 > 0 && alive) {
+        pu = x_at(t, b, 0);
+        pr = x_at(t, b, 1);
+        hpv = hp[at];
+      }
+      landed();
+      gru_fwd_gates<16>(cluster, hs, wt, 0, 0, pa, rows, q, wg, kh);
+      cluster.sync();                  // every partial of u, r landed
+      if (alive) {
+        const float u = sigmoidf(pu + gate_sum(bl, 0, ju));
+        const float r = sigmoidf(pr + gate_sum(bl, 1, ju));
+        rh_t[at] = r * hpv;
+        if (r0 == 0)
+          u_reg = u;
+        else
+          hid_t[at] = u;               // until phase 2 of this pass
+      }
+      if (r0 + kBT < n_live) cluster.sync();   // pa and hs are read before
+                                               // the next pass reuses them
+    }
+    grid_arrive(count);
+    if (mine && bl < n_live) xc = x_at(t, b0, 2);
+    grid_wait(count, target += gridDim.x);
+
+    // phase 2: c from the pass's rows of rh[t], the new state
+    for (int r0 = 0; r0 < n_live; r0 += kBT) {
+      const int rows = min(kBT, n_live - r0);
+      stage(rh_t, r0, rows);
+      const bool alive = unit && bl < rows;
+      const int b = r0 == 0 ? b0 : alive ? order[r0 + bl] : 0;
+      const size_t at = static_cast<size_t>(b) * h + j;
+      float pc = xc, ug = u_reg, hpv = h_reg;
+      int len_b = len0;
+      if (r0 > 0 && alive) {
+        pc = x_at(t, b, 2);
+        ug = hid_t[at];
+        hpv = hp[at];
+        len_b = lens[b];
+      }
+      landed();
+      gru_fwd_gates<8>(cluster, hs, wt, 32, 2, pa, rows, q, wg, kh);
+      cluster.sync();                  // every partial of c landed
+      if (alive) {
+        const float c = tanhf(pc + gate_sum(bl, 2, ju));
+        const float h_new = (1.0f - ug) * hpv + ug * c;
+        hid_t[at] = h_new;
+        if (r0 == 0) h_reg = h_new;
+        if (t + 1 == t_len || t + 1 == len_b) hlast[at] = h_new;
+      }
+      if (r0 + kBT < n_live) cluster.sync();
+    }
+    grid_arrive(count);
+    if (mine && t + 1 < t_len && bl < live[t + 1]) {
+      xu = x_at(t + 1, b0, 0);
+      xr = x_at(t + 1, b0, 1);
+    }
+    grid_wait(count, target += gridDim.x);
+  }
+}
+
 }  // namespace
 
+// blocks 0: gru_fwd_kernel on plan_for's grid (wscratch where the plan
+// needs it); else gru_fwd_cluster_kernel on `blocks` blocks (whole clusters
+// of 2, 4 units each, H <= 512 and a multiple of 4, h0, hidden and rh
+// 16-byte aligned), count the grid barrier's counter at `base` when the
+// launch starts (two barriers a step: it ends at base + 2T x blocks, modulo
+// 2^32).
 extern "C" int paddle_gru_train_fwd(const float* x, const float* w,
                                     const int* lens, const int* order,
                                     const int* live, const float* h0,
                                     float* hidden, float* hlast, float* rh,
-                                    float* wscratch, int t_len, int b_len,
-                                    int h, void* stream) {
-  Plan p;
-  cudaError_t err = checked_plan(kGruFwd, t_len, b_len, h, wscratch, &p);
-  if (err != cudaSuccess) return err;
-  void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &hlast, &rh,
-                  &wscratch, &t_len, &b_len, &h};
+                                    float* wscratch, unsigned* count,
+                                    unsigned base, int t_len, int b_len,
+                                    int h, int blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return PADDLE_RNN_LAUNCH(gru_fwd_kernel, p, h, args, s);
+  if (blocks == 0) {
+    Plan p;
+    cudaError_t err = checked_plan(kGruFwd, t_len, b_len, h, wscratch, &p);
+    if (err != cudaSuccess) return err;
+    void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &hlast, &rh,
+                    &wscratch, &t_len, &b_len, &h};
+    return PADDLE_RNN_LAUNCH(gru_fwd_kernel, p, h, args, s);
+  }
+  if (!cluster_args_ok(t_len, b_len, h, blocks, count, h0, hidden) ||
+      (reinterpret_cast<uintptr_t>(rh) & 15) != 0)
+    return cudaErrorInvalidValue;
+  void* args[] = {&x, &w, &lens, &order, &live, &h0, &hidden, &hlast, &rh,
+                  &count, &base, &t_len, &b_len, &h};
+  return launch_cluster(kGruFwd, blocks, h, args, s);
 }
 
 // blocks 0: rnn_gemm (the gate pre-activations) and gru_bwd_kernel on

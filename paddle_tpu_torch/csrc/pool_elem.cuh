@@ -270,3 +270,18 @@ struct Elem<Fnuz<E, M>> {
     return value(bits(c));
   }
 };
+
+// Float8 sums round every partial sum, so their order is part of the
+// result: the kernels walk such a pool in t order on one warp (W = 1).
+template <typename E>
+struct Ordered {
+  static constexpr bool value = false;
+};
+template <__nv_fp8_interpretation_t K>
+struct Ordered<F8<K>> {
+  static constexpr bool value = true;
+};
+template <int E, int M>
+struct Ordered<Fnuz<E, M>> {
+  static constexpr bool value = true;
+};

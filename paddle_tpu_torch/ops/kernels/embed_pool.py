@@ -45,9 +45,10 @@ from paddle_tpu_torch.ops.kernels import build as _build
 from paddle_tpu_torch.ops.kernels import seqpool as _seqpool
 
 LAUNCHES = {"embed_pool": 0}
-MAX_WARPS = 8                       # warps of a block, all on one row
-IDS_PER_WARP = 12                   # the least chunk of t worth a warp
-ORDERED_CODES = (5, 6, 7, 8)        # float8 PoolDtype codes: t order
+# the warps of a row: the plan the masked sequence pool shares
+MAX_WARPS = _seqpool.MAX_WARPS
+IDS_PER_WARP = _seqpool.STEPS_PER_WARP
+pool_warps = _seqpool.pool_warps
 
 _lib = None
 
@@ -66,16 +67,6 @@ def _kernels():
         lib.paddle_embed_pool.restype = i
         _lib = lib
     return _lib
-
-
-def pool_warps(t: int, code: int) -> int:
-    """The warps that share one row's ids in the kernel: enough that none
-    walks more than about ``IDS_PER_WARP`` of its T ids, at most
-    ``MAX_WARPS``; 1 for the float8 types (``ORDERED_CODES``), whose sum
-    is taken in t order."""
-    if code in ORDERED_CODES:
-        return 1
-    return max(1, min(MAX_WARPS, -(-t // IDS_PER_WARP)))
 
 
 def fused_embed_seq_pool_ref(w, ids, lens=None):

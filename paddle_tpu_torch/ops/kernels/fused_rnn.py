@@ -64,14 +64,14 @@ wrapper allocates scratch in device memory for them
 (:func:`_scratch`). Above 16 units on every SM (H > 2112 on an H100)
 one block per SM walks several groups of 16 units a step, in passes
 between the same grid barriers, their slices in that scratch too: every
-width takes the one cooperative launch. The LSTM forward and backward and
-the GRU backward at H <= 512, H a multiple of 4, run other kernels
-(:func:`rnn_plan`, :func:`rnn_kernel_for`): clusters of 2 blocks that
-split each step's products by depth (the cluster reads the state, or
-``h_prev`` and ``rh``, once) and exchange partial gates (and gate
-gradients) through distributed shared memory, the products on the tensor
-cores at fp32 accuracy (3xTF32); the backwards' ``dw`` products run on the
-tensor cores at every width.
+width takes the one cooperative launch. All four kernels at H <= 512, H a
+multiple of 4, run other kernels (:func:`rnn_plan`,
+:func:`rnn_kernel_for`): clusters of 2 blocks that split each step's
+products by depth (the cluster reads the state, or ``h_prev`` and ``rh``,
+once) and exchange partial gates (and gate gradients) through distributed
+shared memory, the products on the tensor cores at fp32 accuracy
+(3xTF32); the backwards' ``dw`` products run on the tensor cores at every
+width.
 ``LAUNCHES`` counts kernel launches per wrapper; only a kernel launch
 adds to it.
 """
@@ -89,9 +89,9 @@ LAUNCHES = {"lstm_train_fwd": 0, "lstm_train_bwd": 0, "gru_train_fwd": 0,
             "gru_train_bwd": 0}
 KINDS = {"lstm_train_fwd": 0, "lstm_train_bwd": 1, "gru_train_fwd": 2,
          "gru_train_bwd": 3}         # the kernels' Kind
-# the kernels with a cluster kernel, and its grid barriers a step
+# the kernels with a cluster kernel (all four), and its grid barriers a step
 CLUSTER_BARRIERS = {"lstm_train_fwd": 1, "lstm_train_bwd": 1,
-                    "gru_train_bwd": 2}
+                    "gru_train_fwd": 2, "gru_train_bwd": 2}
 
 CLUSTER = 2                   # blocks of a cluster of the cluster kernel
 CLUSTER_UNITS = 4             # hidden units of one of its blocks
@@ -118,7 +118,8 @@ def _kernels():
                                               + [i] * 4 + [p])
         lib.paddle_rnn_max_clusters.argtypes = [i, i]
         lib.paddle_rnn_max_clusters.restype = i
-        lib.paddle_gru_train_fwd.argtypes = [p] * 10 + [i] * 3 + [p]
+        lib.paddle_gru_train_fwd.argtypes = ([p] * 11 + [ctypes.c_uint]
+                                             + [i] * 4 + [p])
         lib.paddle_gru_train_bwd.argtypes = ([p] * 16 + [ctypes.c_uint]
                                              + [i] * 4 + [p])
         lib.paddle_rnn_scratch_floats.argtypes = [i, i]
@@ -262,8 +263,8 @@ def _scratch(name: str, h: int, device):
 
 
 def rnn_plan(h: int, sms: int, max_clusters: int):
-    """Which kernel a recurrent kernel with a cluster kernel (the LSTM's
-    two directions, the GRU's backward) runs at width ``h`` on a card of
+    """Which kernel a recurrent kernel (each of the LSTM's and the GRU's
+    two directions has a cluster kernel) runs at width ``h`` on a card of
     ``sms`` SMs that holds ``max_clusters`` of that cluster kernel's
     clusters at once (``cudaOccupancyMaxActiveClusters``): the blocks of the
     cluster kernel (ceil(h / ``CLUSTER_UNITS``) rounded up to whole
@@ -278,13 +279,12 @@ def rnn_plan(h: int, sms: int, max_clusters: int):
 
 def _plan(name: str, h: int):
     """:func:`rnn_plan` of kernel ``name`` on the current card, asked once
-    per width; None (the grid kernel) for a kernel without a cluster kernel
-    (the GRU forward)."""
+    per width."""
     dev = torch.cuda.current_device()
     key = (dev, name, h)
     if key not in _plans:
         fit = 0
-        if name in CLUSTER_BARRIERS and 0 < h <= CLUSTER_MAX_H:
+        if 0 < h <= CLUSTER_MAX_H:
             fit = _kernels().paddle_rnn_max_clusters(KINDS[name], h)
         if fit < 0:
             raise RuntimeError(f"{name}: no cluster occupancy at hidden "
@@ -299,8 +299,8 @@ def _barrier(device):
     ``device`` and the value the stream's next launch finds in it: a list
     [counter, value], zeroed once when first asked for. A launch adds T x
     blocks for each of its grid barriers a step (the LSTM's kernels one, the
-    GRU backward's two) and the wrapper adds the same to the value, so
-    launches in one stream share the counter and none zeroes it."""
+    GRU's two) and the wrapper adds the same to the value, so launches in
+    one stream share the counter and none zeroes it."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
@@ -570,12 +570,23 @@ def gru_train_fwd(xproj, w, seq_lens, h0):
     rh = torch.empty_like(hidden)
     h_last = torch.empty_like(h0)
     with torch.cuda.device(xproj.device):
-        ws = _scratch("gru_train_fwd", h, xproj.device)
+        blocks = _cluster_blocks("gru_train_fwd", h, h0, hidden, rh)
+        ws = bar = None
+        base = 0
+        if blocks is None:
+            blocks = 0
+            ws = _scratch("gru_train_fwd", h, xproj.device)
+        else:
+            bar = _barrier(xproj.device)
+            base = bar[1]
         err = _kernels().paddle_gru_train_fwd(
             xproj.data_ptr(), w.data_ptr(), lens.data_ptr(), order.data_ptr(),
             live.data_ptr(), h0.data_ptr(), hidden.data_ptr(),
-            h_last.data_ptr(), rh.data_ptr(), _ptr(ws), t, b, h,
+            h_last.data_ptr(), rh.data_ptr(), _ptr(ws),
+            _ptr(bar[0] if bar else None), base, t, b, h, blocks,
             torch.cuda.current_stream().cuda_stream)
+        if bar:
+            _advance(bar, base, err, "gru_train_fwd", t, blocks)
     _check_launch(err, "gru_train_fwd")
     LAUNCHES["gru_train_fwd"] += 1
     return hidden, h_last, rh

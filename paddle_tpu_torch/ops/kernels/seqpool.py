@@ -22,6 +22,12 @@ plain version, CUDA tensors to the kernel (any B, T and D), which is built
 on its first launch; anything else raises. ``LAUNCHES`` counts kernel
 launches; only a kernel launch adds to it.
 
+The kernel splits each row's T steps across the warps of one block
+(:func:`pool_warps`, the plan it shares with the embedding gather + pool),
+each warp summing a contiguous chunk of :func:`pool_chunk` steps in
+increasing t, and adds the warps' sums in warp order: an fp32 (fp64,
+int64) sum of the same terms in another order than the plain version's.
+
 The kernel takes every dtype the JAX op's refer branch pools
 (:func:`kernel_operand`): fp32, fp64, fp16 and bf16 as they are, summed in
 fp32 (fp64 for fp64); integers and bool summed in int64, as ``torch.sum``
@@ -59,6 +65,9 @@ DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
 FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2, torch.float8_e4m3fnuz,
           torch.float8_e5m2fnuz)
 UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+MAX_WARPS = 8                       # warps of a block, all on one row
+STEPS_PER_WARP = 12                 # the least chunk of t worth a warp
+ORDERED_CODES = (5, 6, 7, 8)        # float8 dtype codes: t order
 
 _lib = None
 
@@ -73,10 +82,27 @@ def _kernels():
     if _lib is None:
         lib = _build.load("seqpool")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paddle_seqpool.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.paddle_seqpool.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.paddle_seqpool.restype = i
         _lib = lib
     return _lib
+
+
+def pool_warps(t: int, code: int) -> int:
+    """The warps that share one row's T steps in the pooling kernels
+    (this module's and the embedding gather + pool's): enough that none
+    walks more than about ``STEPS_PER_WARP`` of them, at most
+    ``MAX_WARPS``; 1 for the float8 types (``ORDERED_CODES``), whose sum
+    is taken in t order."""
+    if code in ORDERED_CODES:
+        return 1
+    return max(1, min(MAX_WARPS, -(-t // STEPS_PER_WARP)))
+
+
+def pool_chunk(t: int, warps: int) -> int:
+    """The steps of t that each of ``warps`` warps sums: warp k takes
+    [k c, (k + 1) c), cut at the row's length."""
+    return -(-t // warps)
 
 
 def _mode(pooltype: str) -> str:
@@ -117,7 +143,7 @@ def masked_sum(x, mask):
     step, in t order."""
     if x.dtype in FLOAT8:
         xs = x.to(torch.float32) * mask[:, :, None]
-        acc = torch.zeros_like(xs[:, 0])
+        acc = xs.new_zeros((x.shape[0], x.shape[2]))
         for i in range(x.shape[1]):
             acc = (acc + xs[:, i]).to(x.dtype).to(torch.float32)
         return acc.to(x.dtype)
@@ -217,7 +243,8 @@ def masked_seqpool_fwd(x, lens, pooltype: str = "SUM"):
     with torch.cuda.device(x.device):
         err = _kernels().paddle_seqpool(
             x.data_ptr(), lens32.data_ptr(), out.data_ptr(), b, t, d,
-            MODES[ptype], code, torch.cuda.current_stream().cuda_stream)
+            MODES[ptype], code, pool_warps(t, code),
+            torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "masked_seqpool")
     LAUNCHES["seqpool"] += 1
     return out.view(torch.uint64) if unsigned else out

@@ -325,6 +325,54 @@ def test_three_tf32_terms_hold_the_gru_tolerance(monkeypatch, shape):
             assert e > 1.5, e
 
 
+# the tolerance of the kernels' outputs against the plain version on the
+# card (chip_smoke.py GRU_FWD_TOL, the gpu tests below)
+CARD_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 512), (7, 5, 100)],
+                         ids=["T32xB64xH512", "T7xB5xH100"])
+def test_three_tf32_terms_hold_the_gru_forward_tolerance(monkeypatch,
+                                                         shape):
+    """Why the cluster forward takes three TF32 products a gate, and that
+    the card's checks tell them from one: the plain forward with both of a
+    step's products (u, r and c) made as the kernel's wgmma makes them
+    (each operand split hi = tf32(a), lo = tf32(a - hi); the two small
+    products, then hi * hi), three terms or one, at the training shape
+    (T 32, B 64, H 512) and at GRU_EDGE (T 7, B 5, H 100), ragged, w x
+    H**-0.5. Against the fp32 plain forward (hidden, h_last and rh), three
+    terms stay within 5 % of CARD_FWD_TOL and one breaks it by more than
+    1.5 times at these seeds."""
+    T, B, H = shape
+    ins = _torch(_make(seed=3, T=T, B=B, H=H, w_scale=H ** -0.5))
+    want = tfr.gru_train_fwd_plain(*ins)
+    matmul = torch.matmul
+    from paddle_tpu_torch.ops.kernels import fused_ce as tfc
+
+    def one(a, b):
+        return matmul(tfc.split_tf32(a.contiguous())[0],
+                      tfc.split_tf32(b.contiguous())[0])
+
+    def three(a, b):
+        (ah, al), (bh, bl) = (tfc.split_tf32(x.contiguous())
+                              for x in (a, b))
+        return (matmul(ah, bl) + matmul(al, bh)) + matmul(ah, bh)
+
+    def excess(got, ref):
+        return float(((got - ref).abs() / (CARD_FWD_TOL["atol"]
+                                           + CARD_FWD_TOL["rtol"]
+                                           * ref.abs())).max())
+    for terms, inside in ((three, True), (one, False)):
+        monkeypatch.setattr(torch.Tensor, "__matmul__", terms)
+        got = tfr.gru_train_fwd_plain(*ins)
+        monkeypatch.undo()
+        e = max(excess(a, b) for a, b in zip(got, want))
+        if inside:
+            assert e < 0.05, e
+        else:
+            assert e > 1.5, e
+
+
 class _Lib:
     """The kernels' library as the plan asks it: the clusters of 2 that
     each kind's cluster kernel fits (``fits``), and which kinds were
@@ -345,15 +393,16 @@ class _Lib:
     ("gru_train_bwd", {3: 66}, 102, None),      # not a multiple of 4
     ("gru_train_bwd", {3: 66}, 516, None),      # above H 512
     ("gru_train_bwd", {3: 0}, 64, None),        # no cluster fits at all
-    ("gru_train_fwd", {}, 512, None),           # no cluster kernel
+    ("gru_train_fwd", {2: 66}, 512, 128),
+    ("gru_train_fwd", {2: 63}, 512, None),      # not every cluster fits
     ("lstm_train_fwd", {0: 66}, 512, 128),
     ("lstm_train_bwd", {1: 66}, 480, 120)])
 def test_plan_routes_each_kernel(monkeypatch, name, fits, h, plan):
-    """The shared plan on a card of 132 SMs (the H100's): the GRU backward
-    asks its own cluster kernel's occupancy (kind 3) and takes it where
-    all its clusters fit at once, H <= 512 and H a multiple of 4; the GRU
-    forward has no cluster kernel and asks nothing; the LSTM's directions
-    ask theirs. The plan is asked once per width."""
+    """The shared plan on a card of 132 SMs (the H100's): each kernel asks
+    its own cluster kernel's occupancy (the GRU backward kind 3, the GRU
+    forward kind 2) and takes it where all its clusters fit at once, H <=
+    512 and H a multiple of 4; the LSTM's directions ask theirs. The plan
+    is asked once per width."""
     lib = _Lib(fits)
     monkeypatch.setattr(tfr, "_kernels", lambda: lib)
     monkeypatch.setattr(tfr, "_plans", {})
@@ -363,17 +412,17 @@ def test_plan_routes_each_kernel(monkeypatch, name, fits, h, plan):
                             "multi_processor_count": 132})())
     assert tfr._plan(name, h) == plan
     assert tfr._plan(name, h) == plan
-    asks = [tfr.KINDS[name]] if name in tfr.CLUSTER_BARRIERS and (
-        h <= tfr.CLUSTER_MAX_H) else []
+    asks = [tfr.KINDS[name]] if h <= tfr.CLUSTER_MAX_H else []
     assert lib.asked == asks
 
 
 @pytest.mark.parametrize("name, barriers", [
-    ("gru_train_bwd", 2), ("lstm_train_bwd", 1), ("lstm_train_fwd", 1)])
+    ("gru_train_bwd", 2), ("lstm_train_bwd", 1), ("lstm_train_fwd", 1),
+    ("gru_train_fwd", 2)])
 def test_barrier_counter_advances_by_each_kernels_barriers(name, barriers):
     """A stream's grid-barrier counter: a launch from ``base`` ends at
-    base + barriers a step x T x blocks (modulo 2^32; the GRU backward
-    waits twice a step), and a failed launch leaves a new zeroed counter."""
+    base + barriers a step x T x blocks (modulo 2^32; the GRU's kernels
+    wait twice a step), and a failed launch leaves a new zeroed counter."""
     count = torch.zeros(1, dtype=torch.int32)
     bar = [count, 2 ** 32 - 100]
     tfr._advance(bar, bar[1], 0, name, 32, 128)
@@ -477,23 +526,23 @@ def test_cuda_cluster_and_grid_gru_backward_agree(cuda_device, monkeypatch,
     at H 512: 128 blocks in clusters of 2), it and the grid kernel (forced
     by emptying the plan) against the plain versions, each bit-equal across
     two runs, and against each other within the gradients' tolerance. A
-    new stream starts its own grid-barrier counter, which the backward
+    new stream starts its own grid-barrier counter, which each GRU kernel
     advances by 2T x blocks a launch (two barriers a step): after one
-    forward (the grid kernel, no counter) and two backward launches it
-    stands at 4T x blocks, and the wrapper's value agrees."""
+    forward (the cluster kernel too, on the same plan) and two backward
+    launches it stands at 6T x blocks, and the wrapper's value agrees."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     dev = cuda_device
     T, B, H = shape
     report = tfr.rnn_kernel_for("gru_train_bwd", H, dev)
     assert report["kernel"] == "cluster", report
-    assert tfr.rnn_kernel_for("gru_train_fwd", H, dev) == {"kernel": "grid"}
+    assert tfr.rnn_kernel_for("gru_train_fwd", H, dev) == report
     if H == 512 and torch.cuda.get_device_properties(
             dev).multi_processor_count == 132:
         assert (report["cluster"], report["blocks"]) == (2, 128), report
     with torch.cuda.stream(torch.cuda.Stream(dev)):
         _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
         count, base = tfr._barrier(dev)
-        assert int(count) % 2 ** 32 == base == 4 * T * report["blocks"]
+        assert int(count) % 2 ** 32 == base == 6 * T * report["blocks"]
     ins = [a.to(dev) for a in _torch(_make(seed=2, T=T, B=B, H=H,
                                            w_scale=H ** -0.5))]
     rng = np.random.RandomState(3)
@@ -508,5 +557,39 @@ def test_cuda_cluster_and_grid_gru_backward_agree(cuda_device, monkeypatch,
     torch.cuda.synchronize()
     for name, a, b in zip(GRAD_NAMES, cluster, grid):
         torch.testing.assert_close(a, b, **CARD_GRAD_TOL,
+                                   msg=f"{name}: cluster against grid")
+    _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cuda_cluster_and_grid_gru_forward_agree(cuda_device, monkeypatch,
+                                                 shape):
+    """Where the plan picks the GRU forward's cluster kernel (on an H100 at
+    H 512: 128 blocks in clusters of 2), it against the plain versions
+    (``_card_check``), bit-equal across two runs, and against the grid
+    kernel (forced by emptying the plan) within the forward's tolerance;
+    the grid kernel against the plain versions too."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dev = cuda_device
+    T, B, H = shape
+    report = tfr.rnn_kernel_for("gru_train_fwd", H, dev)
+    assert report["kernel"] == "cluster", report
+    if H == 512 and torch.cuda.get_device_properties(
+            dev).multi_processor_count == 132:
+        assert (report["cluster"], report["blocks"]) == (2, 128), report
+    _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))
+    ins = [a.to(dev) for a in _torch(_make(seed=2, T=T, B=B, H=H,
+                                           w_scale=H ** -0.5))]
+    cluster = tfr.gru_train_fwd(*ins)
+    again = tfr.gru_train_fwd(*ins)
+    monkeypatch.setitem(tfr._plans, (torch.cuda.current_device(),
+                                     "gru_train_fwd", H), None)
+    assert tfr.rnn_kernel_for("gru_train_fwd", H, dev) == {"kernel": "grid"}
+    grid = tfr.gru_train_fwd(*ins)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(OUT_NAMES + ("rh",), cluster, again, grid):
+        assert torch.equal(a, b), f"{name}: not repeatable"
+        torch.testing.assert_close(a, c, **CARD_FWD_TOL,
                                    msg=f"{name}: cluster against grid")
     _card_check(dev, T, B, H, 1, min(0.2, H ** -0.5))

@@ -84,6 +84,71 @@ def test_gradient_matches_the_pallas_vjp(jx, pooltype):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), **POOL_TOL)
 
 
+def _chunked_pool(x, lens, pooltype, warps, chunk):
+    """The CUDA kernel's fp32 arithmetic in numpy: warp k sums rows
+    [k chunk, (k + 1) chunk) of t below min(lens[b], T) in increasing t,
+    the warps' sums are added in warp order, then divided by max(n, 1)
+    (AVERAGE) or its square root (SQRT)."""
+    b, t, d = x.shape
+    out = np.zeros((b, d), np.float32)
+    for row in range(b):
+        end = min(max(int(lens[row]), 0), t)
+        parts = []
+        for k in range(warps):
+            acc = np.zeros(d, np.float32)
+            for tt in range(k * chunk, min(end, (k + 1) * chunk)):
+                acc = acc + x[row, tt]
+            parts.append(acc)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        denom = np.float32(max(int(lens[row]), 1))
+        if pooltype == "SQRT":
+            denom = np.sqrt(denom)
+        out[row] = total if pooltype == "SUM" else total / denom
+    return out
+
+
+@pytest.mark.parametrize("pooltype", MODES)
+def test_the_kernels_chunk_order_matches_the_pallas_kernel(jx, pooltype):
+    """The redesigned kernel's order of the fp32 sum (T split into 8 chunks
+    of 13 steps at T 100, the plan the wrapper passes: ``pool_warps`` and
+    ``pool_chunk``), ragged lengths with 0, 1, T and one above T among
+    them, against the JAX package's Pallas kernel in interpret mode: within
+    rtol 1e-5 of the pool of |x|, atol 1e-6 (POOL_TOL, as the card's
+    checks hold the kernel)."""
+    jax, psp = jx
+    rng = np.random.RandomState(9)
+    b, t, d = 7, 100, 24
+    x = rng.randn(b, t, d).astype(np.float32)
+    lens = np.array([100, 0, 37, 1, 99, 13, 250], np.int32)
+    warps = tsp.pool_warps(t, tsp.DTYPES[torch.float32])
+    chunk = tsp.pool_chunk(t, warps)
+    assert (warps, chunk) == (8, 13)
+    got = _chunked_pool(x, lens, pooltype, warps, chunk)
+    jnp = jax.numpy
+    want = np.asarray(psp.masked_seqpool(jnp.asarray(x), jnp.asarray(lens),
+                                         pooltype, True))
+    scale = np.asarray(psp.masked_seqpool(jnp.asarray(np.abs(x)),
+                                          jnp.asarray(lens), pooltype, True))
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= POOL_TOL["atol"] + POOL_TOL["rtol"] * scale).all(), \
+        float(err.max())
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("t", [0, 1, 7, 12, 13, 30, 96, 100, 1000])
+def test_pool_chunks_cover_t(t):
+    """The kernel's chunks of t: the ``pool_warps`` warps of a row (the
+    plan the embedding gather + pool shares, held by its own test) take
+    ``pool_chunk`` steps each; the chunks cover T, every warp's starts
+    inside it, and none is longer than ~12 steps below 8 warps."""
+    warps = tsp.pool_warps(t, tsp.DTYPES[torch.float32])
+    chunk = tsp.pool_chunk(t, warps)
+    assert warps * chunk >= t and (warps - 1) * chunk < max(t, 1)
+    assert chunk <= tsp.STEPS_PER_WARP or warps == tsp.MAX_WARPS
+
+
 @pytest.mark.parametrize("shape", [(5, 7, 6), (5, 7, 3, 4), (5, 7)],
                          ids=["rank3", "rank4", "rank2"])
 @pytest.mark.parametrize("pooltype", MODES)
@@ -277,6 +342,19 @@ def test_fnuz_rounding_rule_is_the_references(dtype):
     np.testing.assert_array_equal(got, by_torch)
 
 
+@pytest.mark.parametrize("dtype", sorted(FNUZ) + ["float8_e4m3fn",
+                                                 "float8_e5m2"])
+def test_float8_pool_of_no_steps_is_zero(dtype):
+    """T 0: every pool type of a float8 x [B, 0, D] is zeros of x's type
+    (the plain version's t-order loop has no step to start from)."""
+    x = torch.zeros(3, 0, 5).to(NARROW[dtype])
+    lens = torch.tensor([0, 2, 1])
+    for mode in MODES:
+        got = tsp.masked_seqpool_fwd(x, lens, mode)
+        assert got.dtype == x.dtype and got.shape == (3, 5)
+        assert bool((got.to(torch.float32) == 0).all())
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     x, lens = _data(d=12)
     xt, lt = torch.from_numpy(x), torch.from_numpy(lens)
@@ -409,3 +487,39 @@ def test_cuda_kernel_takes_every_dtype(cuda_device, dtype):
         err = (got.to(wide) - want.to(wide)).abs()
         assert bool((err <= 1e-6 + DTYPE_RTOL[dtype] * scale).all()), \
             f"{dtype} {mode}: max abs err {float(err.max())}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn, torch.int64],
+                         ids=str)
+def test_cuda_kernel_splits_rows_across_warps(cuda_device, dtype):
+    """The kernel's plan at its edges: T 100 (8 warps a row; float8 one,
+    in t order) with lengths 0, 1, T and above T, at D 512 (whole float4s
+    for fp32) and D 6 (no whole float4s); T 1 and T 0. Each pool type
+    (SUM only for int64) against the plain version within the dtype's
+    rtol of the pool of |x| (fp32: POOL_TOL), one launch a call, the same
+    bits on a second call (the warps' sums are added in warp order)."""
+    rng = np.random.RandomState(13)
+    lens_of = {100: [100, 0, 37, 1, 99, 250], 1: [1, 0, 1, 5, 1, 0],
+               0: [0, 0, 3, 0, 1, 0]}
+    rtol = {torch.float32: POOL_TOL["rtol"], torch.int64: 0.0}.get(
+        dtype, DTYPE_RTOL.get(dtype))
+    modes = ("SUM",) if dtype == torch.int64 else MODES
+    for t, d in ((100, 512), (100, 6), (1, 8), (0, 4)):
+        x = torch.from_numpy(rng.randn(6, t, d) * 4).to(dtype).to(
+            cuda_device)
+        lens = torch.tensor(lens_of[t], device=cuda_device)
+        for mode in modes:
+            n0 = tsp.LAUNCHES["seqpool"]
+            got = tsp.masked_seqpool_fwd(x, lens, mode)
+            again = tsp.masked_seqpool_fwd(x, lens, mode)
+            want = tsp.masked_seqpool_ref(x, lens, mode)
+            torch.cuda.synchronize()
+            assert tsp.LAUNCHES["seqpool"] == n0 + 2
+            assert torch.equal(got, again), f"{dtype} {mode} T {t} D {d}"
+            assert got.dtype == want.dtype and got.shape == want.shape
+            scale = tsp.masked_seqpool_ref(x.double().abs(), lens, mode)
+            err = (got.double() - want.double()).abs()
+            assert bool((err <= POOL_TOL["atol"] + rtol * scale).all()), \
+                f"{dtype} {mode} T {t} D {d}: max abs err {float(err.max())}"

@@ -39,7 +39,13 @@ ragged, from ``chip_smoke.gru_inputs``; device time by kernel too) and the
 dequantizing page gather (``gather_rows_dequant``) at the decode step's
 shape (4096 of 4096 pool rows of 512 int8 codes, 8 heads, from
 ``chip_smoke.decode_rows``; device time after the same L2 flush as the
-events, ``chip_smoke.flushed_device_ms``).
+events, ``chip_smoke.flushed_device_ms``). Since the GRU forward's and the
+sequence pool's redesign it also times, by events and by device time, the
+GRU forward (``gru_train_fwd``) at the same shape (device time by kernel
+too) and the masked sequence pool (``masked_seqpool_fwd``, SQRT) at the
+text-conv classifier's pools (B 128, T 100, D 512, ragged, from
+``chip_smoke.SEQPOOL`` and ``ragged_lens``; device time after the same L2
+flush as the events).
 """
 
 from __future__ import annotations
@@ -95,7 +101,43 @@ def main():
     out.update(flash_rows(cs, torch, dev, flush))
     out.update(forward_rows(cs, torch, dev, flush))
     out.update(gru_gather_rows(cs, torch, dev, flush))
+    out.update(gru_fwd_seqpool_rows(cs, torch, dev, flush))
     print(json.dumps(out), flush=True)
+
+
+def gru_fwd_seqpool_rows(cs, torch, dev, flush):
+    """Row 8, the GRU forward at the translation model's training shape,
+    and row 11, the masked sequence pool (SQRT) at the text-conv
+    classifier's pools, in us: by events (``_us``) and by device time
+    (``_device_us``: the GRU forward's profiler window, by kernel too in
+    ``gru_train_fwd_split_us``; the pool's after the same L2 flush as its
+    events)."""
+    import numpy as np
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    from paddle_tpu_torch.ops.kernels import seqpool as sp
+    rows = {}
+    ins, _, _ = cs.gru_inputs(torch, dev, cs.MT["max_len"], cs.MT_BATCH,
+                              cs.MT["hid_dim"], 15)
+
+    def gru():
+        return fr.gru_train_fwd(*ins)
+    rows["gru_train_fwd_us"] = 1e3 * cs.time_ms(torch, gru, flush, n=20)
+    split = cs.kernel_split(torch, gru, n=10)
+    rows["gru_train_fwd_device_us"] = 1e3 * sum(split.values())
+    rows["gru_train_fwd_split_us"] = {
+        cs.short_name(k.replace("(anonymous namespace)::", "")): 1e3 * v
+        for k, v in split.items() if v > 1e-3}
+    rng = np.random.RandomState(16)
+    b, t, d = cs.SEQPOOL
+    x = torch.from_numpy(rng.randn(b, t, d).astype(np.float32)).to(dev)
+    lens = torch.from_numpy(cs.ragged_lens(rng, b, t)).to(dev)
+
+    def pool():
+        return sp.masked_seqpool_fwd(x, lens, "SQRT")
+    rows["seqpool_us"] = 1e3 * cs.time_ms(torch, pool, flush)
+    ms = cs.flushed_device_ms(torch, pool, flush)
+    rows["seqpool_device_us"] = None if ms is None else 1e3 * ms
+    return rows
 
 
 def gru_gather_rows(cs, torch, dev, flush):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a step of the PyTorch port's whole-sequence LSTM kernels and GRU
-backward goes, in SM cycles, on one NVIDIA GPU.
+"""Where a step of the PyTorch port's whole-sequence LSTM and GRU kernels
+goes, in SM cycles, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
@@ -41,6 +41,12 @@ and, at the translation model's shape (T 32, B 64, H 512; ragged lengths
   the exchange of ``[dgu, dgr]``, the cluster's partial of Dh, the second
   grid barrier (with the next step's c product and its cluster sync, then
   the wait), the reduce of the clusters' partials of Dh;
+- the GRU forward (the cluster kernel, ``gru_fwd_cluster_kernel``): per
+  phase, the staged columns (of the state in phase 1, of ``rh[t]`` in
+  phase 2) landing, the product on the tensor cores (u and r; c), the
+  exchange of its partials inside the cluster, the cell and its stores,
+  the grid barrier (from the arrival, with the loads of the next inputs,
+  to the end of the wait);
 
 with the same numbers at the first and last steps, where a ragged batch
 has most and fewest live rows. The marks are placed by matching lines of
@@ -154,6 +160,30 @@ GRU_MARKS = (
      "    grid_wait(count, target += gridDim.x); MARK(11)\n\n    // the carry"),
     ("    // end of a step\n", 1, "    MARK(12)\n"),
 )
+# gru_fwd_cluster_kernel's marks, in the GRU section too
+GRU_FWD_MARKS = (
+    ("    const int n_live = live[t];\n\n    // phase 1: u and r", 1,
+     "    const int n_live = live[t]; MARK(0)\n\n    // phase 1: u and r"),
+    ("      landed();\n      gru_fwd_gates<16>(", 1,
+     "      landed(); MARK(1)\n      gru_fwd_gates<16>("),
+    ("      cluster.sync();                  // every partial of u, r landed\n",
+     1, "      MARK(2) cluster.sync();          // every partial of u, r "
+     "landed\n      MARK(3)\n"),
+    ("    grid_arrive(count);\n    if (mine && bl < n_live) xc", 1,
+     "    MARK(4) grid_arrive(count);\n    if (mine && bl < n_live) xc"),
+    ("    grid_wait(count, target += gridDim.x);\n\n    // phase 2: c from", 1,
+     "    grid_wait(count, target += gridDim.x); MARK(5)\n\n"
+     "    // phase 2: c from"),
+    ("      landed();\n      gru_fwd_gates<8>(", 1,
+     "      landed(); MARK(6)\n      gru_fwd_gates<8>("),
+    ("      cluster.sync();                  // every partial of c landed\n",
+     1, "      MARK(7) cluster.sync();          // every partial of c "
+     "landed\n      MARK(8)\n"),
+    ("    grid_arrive(count);\n    if (mine && t + 1 < t_len", 1,
+     "    MARK(9) grid_arrive(count);\n    if (mine && t + 1 < t_len"),
+    ("    grid_wait(count, target += gridDim.x);\n  }\n}\n", 1,
+     "    grid_wait(count, target += gridDim.x); MARK(10)\n  }\n}\n"),
+)
 READ_BACK = (
     '\nextern "C" int paddle_lstm_cycles(long long* host) {\n'
     "  return cudaMemcpyFromSymbol(host, g_dbg, sizeof(long long) * %d);\n}\n"
@@ -177,10 +207,10 @@ def marked(text: str, marks) -> str:
 
 def instrumented(source: str) -> str:
     """The source with the LSTM's marks in its part before the GRU section
-    and the GRU backward's after it."""
+    and the GRU kernels' after it."""
     lstm, gru_banner, gru = source.partition(GRU_SECTION)
-    return (marked(lstm, MARKS) + gru_banner + marked(gru, GRU_MARKS)
-            + READ_BACK)
+    return (marked(lstm, MARKS) + gru_banner
+            + marked(gru, GRU_MARKS + GRU_FWD_MARKS) + READ_BACK)
 
 
 def main():
@@ -201,7 +231,7 @@ def main():
     lib = ctypes.CDLL(str(lib_path))
     fr._kernels()                      # the port's own argtypes, then swap
     for name in ("paddle_lstm_train_fwd", "paddle_lstm_train_bwd",
-                 "paddle_gru_train_bwd"):
+                 "paddle_gru_train_fwd", "paddle_gru_train_bwd"):
         getattr(lib, name).argtypes = getattr(fr._lib, name).argtypes
         getattr(lib, name).restype = ctypes.c_int
     lib.paddle_lstm_cycles.argtypes = [ctypes.c_void_p]
@@ -286,6 +316,7 @@ def main():
               "exchange B", "phase B", "grid barrier", "reduce"),
              np.stack([d[:, i + 1] - d[:, i] for i in range(8)], 1))
     gru(torch, fr, dev, marks, show)
+    gru_fwd(torch, fr, dev, marks, show)
     print(f"SM clock now / max: {smi('clocks.sm,clocks.max.sm')}")
 
 
@@ -311,6 +342,28 @@ def gru(torch, fr, dev, marks, show):
               "the next u, r gates", "barrier 1 wait", "reduce d_rh",
               "dgr and exchange", "product C", "barrier 2 with the next c "
               "gates", "cluster sync", "barrier 2 wait", "reduce Dh"), seg)
+
+
+def gru_fwd(torch, fr, dev, marks, show):
+    """The GRU forward's cluster kernel, ragged and full lengths, at the
+    translation model's shape."""
+    import chip_smoke as cs
+    t_len, b, h = cs.MT["max_len"], cs.MT_BATCH, cs.MT["hid_dim"]
+    ins, _, _ = cs.gru_inputs(torch, dev, t_len, b, h, 15)
+    full = torch.full_like(ins[2], t_len)
+    for label, lens in (("ragged", ins[2]), ("full", full)):
+        args = (ins[0], ins[1], lens, ins[3])
+        for _ in range(3):
+            fr.gru_train_fwd(*args)
+        d = marks()[:t_len]
+        step = np.median(d[1:, 0] - d[:-1, 0])
+        seg = np.stack([d[:, i + 1] - d[:, i] for i in range(10)], 1)
+        show(f"GRU forward ({fr.rnn_kernel_for('gru_train_fwd', h, dev)}), "
+             f"{label} lengths ({int(lens.sum())} of {t_len * b} pairs "
+             f"live), T {t_len}, step {step:.0f}",
+             ("staging 1", "product u, r", "exchange 1", "cell 1 and stores",
+              "barrier 1", "staging 2", "product c", "exchange 2",
+              "cell 2 and stores", "barrier 2"), seg)
 
 
 if __name__ == "__main__":
