@@ -12,7 +12,8 @@ final line:
    Without CUDA the script fails.
 2. Build: every CUDA source of ``paddle_tpu_torch/csrc`` with ``nvcc``
    for ``sm_90a`` (one process per source, all at once), printing
-   ptxas's register and spill report.
+   ptxas's register and spill report; beside them this script's empty
+   kernel (``FLOOR_SOURCE``), timed in phase 16 as the floor of a launch.
 3. Kernels: each page-gather kernel at the decode shapes of phase 4
    (4096 pool rows, 4096 gathered rows, 512 wide, sentinel rows
    included) must equal its plain PyTorch version exactly; the
@@ -284,15 +285,24 @@ final line:
     four fifths: one gather + pool launch a step and nothing else; the
     rows read inside no length bit-equal, every row read inside one
     moved; the first 3 losses within rtol 1e-3 of the CPU's.
-16. The hot-rows cache's kernels: the row gather (the page gather's
-    kernel) and the in-place row scatter at deepfm's cache [32769, 17]
-    fp32 with K 8192 distinct slots and at an edge of K 5 (slots R - 1,
-    R and R + 1 among them), each bit-equal to its plain version, the
-    scatter leaving every other row unchanged and its storage in place;
-    timed as in phase 3 beside the plain version, the bound (bytes over
-    3.35 TB/s: the K rows read, the K rows written, the K slots) and one
-    PyTorch call (``index_select``, ``index_copy_``), each by events and
-    by device time.
+16. The hot-rows cache's kernels: the row gather and the in-place row
+    scatter, each one launch over F families (``gather_rows_families``,
+    ``scatter_rows_families``), bit-equal to their plain versions at F 1,
+    2 and 3, at rows of 17, 16 and 18 fp32 and 7 uint8 (4-, 16-, 8- and
+    1-byte words), with K 8192 distinct slots of 32769 rows and at an
+    edge of K 5 (slots R - 1, R and R + 1 among them): every family
+    written through its own storage, every other row unchanged; at F 1
+    the single-family wrappers too. Timed at deepfm's cache [32769, 17]
+    fp32, F 1 and F 3, at K 8192 and at phase 17's most used bucket (4096
+    slots, 3719 live, the rest padding; ``CACHE_BUCKET``), each shape
+    first held bit-equal to its plain version on the inputs it is timed
+    on, as in phase 3: by events and by device time after the L2 flush,
+    beside the plain version, F calls of ``index_select`` /
+    ``index_copy_`` (device time summed), the bound (bytes over 3.35
+    TB/s, all F families: the gather's slots, distinct rows read and K
+    rows written; the scatter's slots and kept rows, read and written)
+    and the device time of an empty kernel on the gather's grid (the
+    floor of one launch).
 17. deepfm over the hot-rows cache: ``deepfm.build()`` at its defaults
     (26 fields, V 100000, K 16, fc 400 x 3, lazy Adam 1e-3), batch 2048,
     seeded zipf(1.1) ids, seeded weights, TF32 off, the table on 2
@@ -301,16 +311,20 @@ final line:
     on the host (pulls and installs the misses, writes dirty evicted rows
     back), then steps the model. Counts zeroed just before the steps and
     the final flush and read just after: the cache kernels and nothing
-    else, 3 scatter launches a call that installed, 3 gather launches a
-    call that wrote back (the flush's included), write-backs in at least
-    10 steps; the table's and the moments' storage unchanged; all losses
-    within rtol 1e-4 of the same model on one table on the card (the
-    twin), the first 3 within rtol 1e-3 of the CPU's; after the flush
-    the shards hold the twin's rows (rtol 1e-4, atol 1e-6). Prints both
-    arms' step p50 and examples/s, the host split of a step (translate,
-    pull, write-back, install, model step), hit rates by unique id and by
-    occurrence, misses and evictions a step, pull and push bytes a step,
-    peak memory and a 3-step profiler window.
+    else, 1 scatter launch a call that installed, 1 gather launch a call
+    that wrote back (the flush's included; each for all three families),
+    write-backs in at least 10 steps; the table's and the moments'
+    storage unchanged; all losses within rtol 1e-4 of the same model on
+    one table on the card (the twin), the first 3 within rtol 1e-3 of the
+    CPU's; after the flush the shards hold the twin's rows (rtol 1e-4,
+    atol 1e-6). Prints both arms' step p50 and examples/s, the host split
+    of a step (translate, pull, write-back, install, model step), hit
+    rates by unique id and by occurrence, misses and evictions a step,
+    pull and push bytes a step, peak memory and a 3-step profiler window;
+    a window over a warmup of the cache (its install and read at each
+    bucket) names both cache kernels, no more often than they launched.
+    The most used install and write-back buckets, with their median live
+    rows, must be ``CACHE_BUCKET``, the shape phase 16 timed.
 18. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
@@ -320,7 +334,9 @@ final line:
 
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import subprocess
 import time
 
@@ -433,10 +449,53 @@ DEEPFM_RTOL = 1e-4                 # cached against the single-table twin
 DEEPFM_ORACLE_STEPS = 3
 DEEPFM_ROWS_TOL = dict(rtol=1e-4, atol=1e-6)
 CACHE_FAMILIES = 3                 # param, moment1, moment2
+CACHE_WIDTHS = ((17, "float32"), (16, "float32"), (18, "float32"),
+                (7, "uint8"))      # 4-, 16-, 8- and 1-byte words
+# phase 17's most used bucket, of installs and write-backs alike, and the
+# median of its live rows (fixed by the seeds)
+CACHE_BUCKET = (4096, 3719)
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# an empty kernel, timed beside the cache kernels as the floor of one launch
+FLOOR_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void launch_floor_kernel() {}
+extern "C" int launch_floor(unsigned blocks, unsigned threads,
+                            void* stream) {
+  launch_floor_kernel<<<blocks, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+"""
+
+
+def start_floor_build(build):
+    """Start ``nvcc`` on ``FLOOR_SOURCE`` into the build directory, with
+    the port's flags; returns a function that waits for it and returns
+    the library's ``launch_floor(blocks, threads, stream)``."""
+    out = build.BUILD_DIR.parent / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "launch_floor.cu", out / f"launch_floor.{os.getpid()}.so"
+    src.write_text(FLOOR_SOURCE)
+    proc = subprocess.Popen(
+        [build.nvcc(), *[f for f in build.NVCC_FLAGS
+                         if f not in ("-Xptxas", "-v")], "-o", str(lib),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def finish():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"the empty kernel did not build:\n{text[-4000:]}")
+        launch = ctypes.CDLL(str(lib)).launch_floor
+        launch.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        return launch
+    return finish
 
 
 def card_line() -> str:
@@ -1728,7 +1787,9 @@ KERNEL_FAMILIES = (
     ("gru_bwd cluster", "gru_bwd_cluster_kernel", None),
     ("gru_bwd grid", "gru_bwd_kernel", None),
     ("rnn_gemm", "rnn_gemm_kernel", None),
-    ("rnn_dw", "rnn_dw_kernel", None))
+    ("rnn_dw", "rnn_dw_kernel", None),
+    ("cache_gather", "cache_gather_kernel", None),
+    ("cache_scatter", "cache_scatter_kernel", None))
 
 
 def kernel_family(key):
@@ -1738,6 +1799,22 @@ def kernel_family(key):
         if has in key and (lacks is None or lacks not in key):
             return name
     return None
+
+
+def named_launches(torch, work, counters):
+    """(kernels by KERNEL_FAMILIES name in a profiler window of one call of
+    ``work``, the launches that call added to each ``counters[family]``,
+    an ``all_launches`` key). A profiler window late in this script can
+    lose kernel records (24 of 26 in one window on an H100), so the names
+    are lower bounds of the counts."""
+    before = all_launches()
+    prof = profile_calls(torch, lambda: (work(), torch.cuda.synchronize()),
+                         1)
+    after = all_launches()
+    want = {fam: after[key] - before[key] for fam, key in counters.items()}
+    named = {fam: round(prof["families"].get(fam, (0.0, 0.0))[1])
+             for fam in counters}
+    return named, want
 
 
 def family_line(prof, busy_key="device_busy_ms_per_step"):
@@ -3332,78 +3409,178 @@ def op_program_phase(torch, dev, card, cfg=None, batch=OP_PROGRAM_BATCH,
 
 # -- phase 16: the hot-rows cache's kernels ---------------------------------
 
-def cache_kernel_phase(torch, dev, card, shape=CACHE_ROWS, k=CACHE_K):
-    """The cache's row gather and in-place row scatter at deepfm's cache
-    [32769, 17] fp32, K distinct slots (as the free list gives them), and
-    at an edge of K 5 whose slots hold R - 1, R and R + 1: each bit-equal
-    to its plain version, the scatter leaving every other row unchanged
-    and writing through the cache's own storage; timed (CUDA events, L2
-    flushed) beside the plain version, the bound (bytes over 3.35 TB/s:
-    the K rows read, the K rows written, the K slots) and one PyTorch
-    call (``index_select`` over the clamped slots, ``index_copy_`` over
-    the kept ones)."""
+def cache_check(torch, ek, dev, gen, r, w, dtype, n_fam, kk):
+    """The families kernels (and at F 1 the single-family wrappers) on F
+    caches [r, w] of ``dtype`` and kk distinct slots (at K 5: R - 1, R and
+    R + 1 among them): bit-equal to their plain versions, every family
+    written in place, every other row unchanged."""
+    label = f"cache kernels, {dtype} W {w}, F {n_fam}, K {kk}"
+    caches = [(torch.rand(r, w, generator=gen, device=dev) * 100).to(dtype)
+              for _ in range(n_fam)]
+    slots = torch.randperm(r - 1, generator=gen, device=dev)[:kk] \
+        .to(torch.int32)
+    if kk == 5:
+        slots[:3] = torch.tensor([r - 1, r, r + 1], device=dev)
+    rows = (torch.rand(n_fam, kk, w, generator=gen, device=dev)
+            * 100).to(dtype)
+    orig = [c.clone() for c in caches]
+    ptrs = [c.data_ptr() for c in caches]
+    got = ek.gather_rows_families(caches, slots)
+    out = ek.scatter_rows_families(caches, slots, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ek.gather_rows_families_ref(orig, slots)):
+        fail(f"{label}: the gather differs from its plain version")
+    if out is not caches or [c.data_ptr() for c in caches] != ptrs:
+        fail(f"{label}: the scatter did not write in place")
+    want = ek.scatter_rows_families_ref([o.clone() for o in orig], slots,
+                                        rows)
+    others = torch.ones(r, dtype=torch.bool, device=dev)
+    others[slots[(slots >= 0) & (slots < r)].long()] = False
+    for f, (c, wnt, o) in enumerate(zip(caches, want, orig)):
+        if not torch.equal(c, wnt) or not torch.equal(c[others], o[others]):
+            fail(f"{label}: family {f} after the scatter differs from its "
+                 f"plain version")
+    if n_fam == 1:
+        one = orig[0].clone()
+        g1 = ek.gather_rows(one, slots)
+        ek.scatter_rows(one, slots, rows[0])
+        torch.cuda.synchronize()
+        if not (torch.equal(g1, got[0]) and torch.equal(one, caches[0])):
+            fail(f"{label}: the single-family wrappers differ from the "
+                 f"families kernels")
+
+
+def cache_timing(torch, ek, dev, gen, flush, card, launch_floor, r, w,
+                 n_fam, k, live):
+    """Both families kernels on F fp32 caches [r, w] at a bucket of k slots
+    whose first ``live`` are distinct and the rest padding (the gather's
+    the pad slot R - 1, the scatter's the dropped R + 1), as the cache
+    issues them: first held bit-equal to their plain versions on these
+    inputs (the scatter on clones of the caches), then timed by events and
+    by device time after the L2 flush, beside the plain version, F calls
+    of the library (``index_select`` over the slots, ``index_copy_`` over
+    the kept ones; device time summed), the bound (bytes over 3.35 TB/s,
+    all F families: the gather's slots, distinct rows read and K rows
+    written; the scatter's slots and kept rows, read and written) and the
+    device time of ``launch_floor`` on the gather's grid."""
+    label = f"F {n_fam} x [{r}x{w}] fp32, K {k} ({live} live)"
+    caches = [torch.randn(r, w, generator=gen, device=dev)
+              for _ in range(n_fam)]
+    distinct = torch.randperm(r - 1, generator=gen, device=dev)[:live] \
+        .to(torch.int32)
+    g_slots = torch.full((k,), r - 1, dtype=torch.int32, device=dev)
+    s_slots = torch.full((k,), r + 1, dtype=torch.int32, device=dev)
+    g_slots[:live] = s_slots[:live] = distinct
+    rows = torch.randn(n_fam, k, w, generator=gen, device=dev)
+    pairs = {
+        "cache_gather_rows": [(ek.gather_rows_families(caches, g_slots),
+                               ek.gather_rows_families_ref(caches,
+                                                           g_slots))],
+        "cache_scatter_rows": list(zip(
+            ek.scatter_rows_families([c.clone() for c in caches], s_slots,
+                                     rows),
+            ek.scatter_rows_families_ref([c.clone() for c in caches],
+                                         s_slots, rows)))}
+    torch.cuda.synchronize()
+    gathered = g_slots.long()
+    kept, kept_rows = distinct.long(), rows[:, :live]
+    read = live + (1 if k > live else 0)           # the pad row once
+    out = {}
+    for name, fn, ref, lib, nbytes in (
+            ("cache_gather_rows",
+             lambda: ek.gather_rows_families(caches, g_slots),
+             lambda: ek.gather_rows_families_ref(caches, g_slots),
+             lambda: [c.index_select(0, gathered) for c in caches],
+             k * 4 + n_fam * w * 4 * (read + k)),
+            ("cache_scatter_rows",
+             lambda: ek.scatter_rows_families(caches, s_slots, rows),
+             lambda: ek.scatter_rows_families_ref(caches, s_slots, rows),
+             lambda: [c.index_copy_(0, kept, kr)
+                      for c, kr in zip(caches, kept_rows)],
+             k * 4 + 2 * n_fam * w * 4 * live)):
+        if not all(torch.equal(a, b) for a, b in pairs[name]):
+            fail(f"{name} {label}: differs from its plain version on the "
+                 f"inputs it is timed on")
+        row = out[name] = {
+            "max_abs_err": max((a - b).abs().max().item()
+                               for a, b in pairs[name]),
+            "ms": time_ms(torch, fn, flush),
+            "device_ms": flushed_device_ms(torch, fn, flush),
+            "plain_ms": time_ms(torch, ref, flush),
+            "library_ms": time_ms(torch, lib, flush),
+            "library_device_ms": flushed_device_ms(torch, lib, flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": nbytes, "k": k, "live": live,
+            "families": n_fam, "cache": [r, w]}
+        print(f"[{card}] {name} {label}: bit-equal to its plain version; "
+              f"kernel {row['ms'] * 1e3:.2f} us (device "
+              f"{us(row['device_ms'])}), plain {row['plain_ms'] * 1e3:.2f} "
+              f"us, library x {n_fam} {row['library_ms'] * 1e3:.2f} us "
+              f"(device {us(row['library_device_ms'])}), bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.3f} MB)")
+    # the gather's grid at these 4-byte words: a thread a word, 256 a
+    # block, below one wave
+    blocks = -(-k * w // 256)
+
+    def floor():
+        err = launch_floor(blocks, 256,
+                           torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the empty kernel did not launch: CUDA error {err}")
+    out["floor_device_ms"] = flushed_device_ms(torch, floor, flush)
+    out["floor_blocks"] = blocks
+    return out
+
+
+def cache_kernel_phase(torch, dev, card, launch_floor, shape=CACHE_ROWS,
+                       k=CACHE_K, widths=CACHE_WIDTHS, bucket=CACHE_BUCKET):
+    """The cache's families gather and in-place scatter: held bit-equal to
+    their plain versions at F 1, 2 and 3, every word width (``widths``), K
+    5 (slots R - 1, R and R + 1 among them) and K distinct slots
+    (``cache_check``); then timed at deepfm's cache [32769, 17] fp32, F 1
+    and F 3, at K distinct slots and at phase 17's most used bucket
+    (``cache_timing``, each shape first held bit-equal on the inputs it is
+    timed on), beside ``launch_floor`` (the empty kernel of
+    ``FLOOR_SOURCE``) on the gather's grid: the floor of one launch, device
+    time. Returns the kernels' rows at F 3
+    and the bucket (the main path's shape), each with every timed shape
+    under ``shapes``."""
     from paddle_tpu_torch.ops.kernels import embed_cache as ek
     r, w = shape
     gen = torch.Generator(device=dev).manual_seed(16)
+    for width, dtype in widths:
+        for n_fam in (1, 2, 3):
+            for kk in (5, k):
+                cache_check(torch, ek, dev, gen, r, width,
+                            getattr(torch, dtype), n_fam, kk)
+    print(f"[{card}] cache kernels at R {r}: gather and scatter bit-equal "
+          f"to their plain versions at F 1, 2, 3, W "
+          f"{', '.join(f'{a} {b}' for a, b in widths)} (4-, 16-, 8- and "
+          f"1-byte words), K 5 (slots R - 1, R, R + 1) and K {k}; every "
+          f"family written in place, every other row unchanged; at F 1 the "
+          f"single-family wrappers equal them")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    results = {}
-    for kk in (5, k):
-        cache = torch.randn(r, w, generator=gen, device=dev)
-        slots = torch.randperm(r - 1, generator=gen, device=dev)[:kk] \
-            .to(torch.int32)
-        if kk == 5:
-            slots[:3] = torch.tensor([r - 1, r, r + 1], device=dev)
-        rows = torch.randn(kk, w, generator=gen, device=dev)
-        orig = cache.clone()
-        got = ek.gather_rows(cache, slots)
-        ptr = cache.data_ptr()
-        out = ek.scatter_rows(cache, slots, rows)
-        torch.cuda.synchronize()
-        want_g = ek.gather_rows_ref(orig, slots)
-        want_s = ek.scatter_rows_ref(orig.clone(), slots, rows)
-        keep = (slots >= 0) & (slots < r)
-        others = torch.ones(r, dtype=torch.bool, device=dev)
-        others[slots[keep].long()] = False
-        if not torch.equal(got, want_g):
-            fail(f"cache gather K {kk} differs from its plain version")
-        if out is not cache or cache.data_ptr() != ptr:
-            fail(f"cache scatter K {kk} did not write in place")
-        if not torch.equal(cache, want_s) or not torch.equal(
-                cache[others], orig[others]):
-            fail(f"cache scatter K {kk} differs from its plain version")
-        if kk != k:
-            print(f"[{card}] cache kernels, edge K {kk} (slots R - 1, R, "
-                  f"R + 1 among them): gather and scatter bit-equal to "
-                  f"their plain versions, the other rows unchanged")
-            continue
-        kept_slots, kept_rows = slots[keep].long(), rows[keep]
-        clamped = slots.long().clamp(0, r - 1)
-        nbytes = 2 * kk * w * 4 + kk * 4
-        for name, fn, ref, lib in (
-                ("cache_gather_rows", lambda: ek.gather_rows(cache, slots),
-                 lambda: ek.gather_rows_ref(cache, slots),
-                 lambda: cache.index_select(0, clamped)),
-                ("cache_scatter_rows",
-                 lambda: ek.scatter_rows(cache, slots, rows),
-                 lambda: ek.scatter_rows_ref(cache, slots, rows),
-                 lambda: cache.index_copy_(0, kept_slots, kept_rows))):
-            row = results[name] = {
-                "max_abs_err": 0.0, "ms": time_ms(torch, fn, flush),
-                "plain_ms": time_ms(torch, ref, flush),
-                "library_ms": time_ms(torch, lib, flush),
-                "device_ms": flushed_device_ms(torch, fn, flush),
-                "library_device_ms": flushed_device_ms(torch, lib, flush),
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "bytes": nbytes, "k": kk,
-                "cache": [r, w]}
-            print(f"[{card}] {name} [{r}x{w}] fp32, K {kk}: bit-equal; "
-                  f"kernel {row['ms'] * 1e3:.2f} us (device "
-                  f"{us(row['device_ms'])}), plain "
-                  f"{row['plain_ms'] * 1e3:.2f} us, library "
-                  f"{row['library_ms'] * 1e3:.2f} us (device "
-                  f"{us(row['library_device_ms'])}), bound "
-                  f"{row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.3f} MB)")
+    shapes = {}
+    for kk, live in ((k, k), bucket):
+        for n_fam in (1, CACHE_FAMILIES):
+            shapes[f"K{kk}/F{n_fam}"] = cache_timing(
+                torch, ek, dev, gen, flush, card, launch_floor, r, w, n_fam,
+                kk, live)
     del flush
+    main = shapes[f"K{bucket[0]}/F{CACHE_FAMILIES}"]
+    results = {}
+    for name in ("cache_gather_rows", "cache_scatter_rows"):
+        results[name] = dict(main[name], floor_device_ms=main[
+            "floor_device_ms"], shapes={
+                key: dict(res[name], floor_device_ms=res["floor_device_ms"])
+                for key, res in shapes.items()})
+    print(f"[{card}] cache kernels: an empty kernel on the gather's grid "
+          f"takes " + ", ".join(f"{key.split('/')[0]} "
+                                f"({res['floor_blocks']} blocks) "
+                                f"{us(res['floor_device_ms'])}"
+                                for key, res in shapes.items()
+                                if key.endswith("/F1"))
+          + " of device time (the floor of one launch)")
     return results
 
 
@@ -3439,6 +3616,14 @@ def deepfm_weights(cfg, seed: int) -> dict:
         out[f"fc_{i}.w_0"] = rng.uniform(-bound, bound, w).astype(np.float32)
         out[f"fc_{i}.b_0"] = np.zeros(shapes[f"fc_b{i}"], np.float32)
     return out
+
+
+def bucket_counts(calls):
+    """{bucket: {"calls", "median_rows"}} of (bucket, rows) pairs."""
+    return {str(b): {"calls": sum(1 for bb, _ in calls if bb == b),
+                     "median_rows": int(np.median([n for bb, n in calls
+                                                   if bb == b]))}
+            for b in sorted({b for b, _ in calls})}
 
 
 class Split:
@@ -3502,10 +3687,11 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
     seeded zipf ids, TF32 off, against the same model on one table on the
     card (the twin) and, for the first steps, on the CPU. Counts zeroed
     just before the steps and the final flush and read just after: every
-    launch is a cache kernel, the scatter's 3 a call that installed, the
-    gather's 3 a call that wrote back (the flush's included). Then the
-    step time and host split of both arms, the cache's rates, memory and
-    a profiler window."""
+    launch is a cache kernel, the scatter's 1 a call that installed, the
+    gather's 1 a call that wrote back (the flush's included), each for all
+    the families. Then the step time and host split of both arms, the
+    cache's rates, memory and a profiler window; one over a warmup of the
+    cache must name both cache kernels."""
     from paddle_tpu_torch.distributed import sharded_table as st
     from paddle_tpu_torch.models import convert, deepfm
     from paddle_tpu_torch.ops import embed_cache as ec
@@ -3539,13 +3725,15 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
     cache = ec.enable_sharded_table(model.emb, opt, client, capacity)
     enable_s = time.perf_counter() - t0
     split = Split(cache, client)
-    sizes = []
-    set_rows = cache._device_set_rows
+    sizes = {"install": [], "write_back": []}      # (bucket, rows) a call
 
-    def sized(fam, slots, vals):
-        sizes.append(ec.bucket(slots.size))
-        return set_rows(fam, slots, vals)
-    cache._device_set_rows = sized
+    def sized(fn, key):
+        def call(slots, *args):
+            sizes[key].append((ec.bucket(slots.size), int(slots.size)))
+            return fn(slots, *args)
+        return call
+    cache._device_set_rows = sized(cache._device_set_rows, "install")
+    cache._device_get_rows = sized(cache._device_get_rows, "write_back")
     ptrs = lambda: (model.emb.data_ptr(),  # noqa: E731
                     *(opt.state[model.emb][m].data_ptr()
                       for m in ("moment1", "moment2")))
@@ -3565,8 +3753,7 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
     if any(launched.values()):
         fail(f"deepfm over the cache: launched {launched} beside the cache "
              f"kernels")
-    if scatters != CACHE_FAMILIES * cache.installs or \
-            gathers != CACHE_FAMILIES * cache.writebacks:
+    if scatters != cache.installs or gathers != cache.writebacks:
         fail(f"deepfm over the cache: {scatters} scatter and {gathers} "
              f"gather launches for {cache.installs} installs and "
              f"{cache.writebacks} write-backs (the flush's included)")
@@ -3633,14 +3820,16 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
         "installs": cache.installs, "writebacks": cache.writebacks,
         "steps_that_wrote_back": wrote, "flushed_rows": flushed,
         "launches": {"gather_rows": gathers, "scatter_rows": scatters},
-        "install_buckets": {str(b): sizes.count(b) // CACHE_FAMILIES
-                            for b in sorted(set(sizes))},
+        **{f"{key}_buckets": bucket_counts(calls)
+           for key, calls in sizes.items()},
         "peak_mem_bytes": peak, "feeds_s": gen_s, "enable_s": enable_s,
         "capacity": capacity, "shards": shards, "batch": batch,
         "occupancy": cache.occupancy}
-    common = max(stats["install_buckets"],
-                 key=lambda b: stats["install_buckets"][b])
-    stats["most_used_install_bucket"] = int(common)
+    for key in sizes:
+        common = max(stats[f"{key}_buckets"],
+                     key=lambda b: stats[f"{key}_buckets"][b]["calls"])
+        stats[f"most_used_{key}_bucket"] = [
+            int(common), stats[f"{key}_buckets"][common]["median_rows"]]
     print(f"[{card}] deepfm (26 fields, V {v}, K {k1 - 1}, fc 400 x 3, lazy "
           f"Adam {cfg['lr']}), batch {batch}, {steps} steps over a "
           f"{capacity}-row cache on {shards} shards: losses "
@@ -3651,9 +3840,13 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
           f"kept")
     print(f"[{card}] deepfm cache kernels: {scatters} scatter launches for "
           f"{cache.installs} installs, {gathers} gather launches for "
-          f"{cache.writebacks} write-backs (flush included), {wrote} steps "
-          f"wrote back; install buckets {stats['install_buckets']} (most "
-          f"used {common})")
+          f"{cache.writebacks} write-backs (flush included; all "
+          f"{CACHE_FAMILIES} families a launch), {wrote} steps wrote back; "
+          f"buckets (calls, median rows): install "
+          f"{stats['install_buckets']}, write-back "
+          f"{stats['write_back_buckets']}; most used (bucket, median rows): "
+          f"install {stats['most_used_install_bucket']}, write-back "
+          f"{stats['most_used_write_back_bucket']}")
     print(f"[{card}] deepfm step p50 {p50:.3f} ms = "
           f"{stats['examples_per_s']:.0f} examples/s over the cache, twin "
           f"{twin_p50:.3f} ms = {stats['twin_examples_per_s']:.0f} "
@@ -3678,6 +3871,20 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
             profile_steps)
         prof["idle_share_at_p50"] = 1.0 - prof[
             "device_busy_ms_per_step"] / p50
+        # by name, the kernels of the cache's install and read at every
+        # bucket (warmup: installs to the dropped slot, reads of the pad
+        # slot; nothing resident changes), counted as they launch
+        named, want = named_launches(
+            torch, cache.warmup, {"cache_scatter": "embed_cache.scatter_rows",
+                                  "cache_gather": "embed_cache.gather_rows"})
+        if not all(want.values()) or not all(named.values()) or any(
+                named[fam] > want[fam] for fam in want):
+            fail(f"deepfm cache: kernels by profiler name {named} for the "
+                 f"launches {want} of a warmup")
+        print(f"[{card}] deepfm profile: " + family_line(prof)
+              + f"; a warmup of the cache (its buckets 8 to "
+              f"{ec.bucket(capacity)}, all {CACHE_FAMILIES} families a "
+              f"launch): {named} kernels by name for {want} launches")
         print(f"[{card}] deepfm profile ({profile_steps} steps over the "
               f"cache): host {prof['host_ms_per_step']:.3f} ms/step, device "
               f"busy {prof['device_busy_ms_per_step']:.3f} ms/step, idle "
@@ -3711,7 +3918,11 @@ def main():
     print(card)
 
     t = time.perf_counter()
-    reports = build.build()
+    floor_build = start_floor_build(build)
+    try:
+        reports = build.build()
+    finally:
+        launch_floor = floor_build()
     for src, rep in reports.items():
         keep = [ln.strip() for ln in rep.splitlines()
                 if "registers" in ln or "spill" in ln
@@ -3734,8 +3945,13 @@ def main():
     pools = pool_phase(torch, dev, card)
     tc_launches, tc_run = textconv_phase(torch, dev, card)
     op_launches, op_run = op_program_phase(torch, dev, card)
-    cache_kernels = cache_kernel_phase(torch, dev, card)
+    cache_kernels = cache_kernel_phase(torch, dev, card, launch_floor)
     fm_launches, fm_run = deepfm_phase(torch, dev, card)
+    for key in ("install", "write_back"):
+        if fm_run[f"most_used_{key}_bucket"] != list(CACHE_BUCKET):
+            fail(f"deepfm's most used {key} bucket (bucket, median rows) "
+                 f"{fm_run[f'most_used_{key}_bucket']} is not the "
+                 f"CACHE_BUCKET {list(CACHE_BUCKET)} that phase 16 timed")
     flash_launches = train_launches["fused_attention"]
 
     kernels = []
@@ -3872,21 +4088,20 @@ def main():
                                  "kernel_device_ms", "library_device_ms",
                                  "device_ms", "modes_device_ms")
                if k in m}})
-    for kname, key, source, line in (
-            ("cache_gather_rows", "gather_rows", SOURCE, 79),
-            ("cache_scatter_rows", "scatter_rows", CACHE_SOURCE, 133)):
+    for kname, key, line in (("cache_gather_rows", "gather_rows", 79),
+                             ("cache_scatter_rows", "scatter_rows", 133)):
         m = cache_kernels[kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": source,
+            "name": kname, "route": "cuda", "source": CACHE_SOURCE,
             "replaces": f"paddle_tpu/ops/pallas/embed_cache.py:{line}",
             "launches": fm_launches[key], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
             "launches_per_train_step": fm_launches[key] / DEEPFM_STEPS,
-            "device_ms": m["device_ms"],
-            "library_device_ms": m["library_device_ms"],
-            "k": m["k"], "card": card})
+            "card": card, **{k: m[k] for k in (
+                "device_ms", "library_device_ms", "floor_device_ms", "k",
+                "live", "families", "shapes")}})
     wide = {key: row for res in (flash, fce, lstm, gru)
             for key, row in res.items()
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024

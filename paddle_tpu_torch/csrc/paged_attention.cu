@@ -26,16 +26,15 @@
 // attention mask zeroes whatever those rows hold. Nothing is carried
 // between blocks. Rows whose byte width is not a multiple of 16 (or whose
 // base is not 16-byte aligned) take the widest word that the width and the
-// bases allow, 8 or 4 bytes (the hot-rows cache's 68-byte rows: 17 words),
-// else single bytes. gather_rows_dequant has a design of its own (at
+// bases allow, 8 or 4 bytes, else single bytes. gather_rows_dequant has a design of its own (at
 // gather_rows_dequant_kernel: two rows a warp, every load in flight
 // before the first store), and a scalar kernel for head widths that are
 // not a multiple of 4.
 //
-// paddle_gather_rows is also the port of the hot-rows cache's gather
-// (paddle_tpu/ops/pallas/embed_cache.py gather_rows, :58, pallas_call :79:
-// cache[min(slot, R - 1)], the same function on the slots >= 0 that the
-// cache issues; paddle_tpu_torch/ops/kernels/embed_cache.py launches it).
+// The hot-rows cache's gather (paddle_tpu/ops/pallas/embed_cache.py
+// gather_rows, :58) computes the same function on the slots >= 0 that the
+// cache issues, but has a kernel of its own, which moves every family of
+// the cache in one launch (paddle_tpu_torch/csrc/embed_cache.cu).
 //
 // Both functions launch on the caller's stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() of the launch (0 = success).

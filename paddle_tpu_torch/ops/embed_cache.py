@@ -12,12 +12,13 @@ step the host translates the batch's vocab ids to cache slots
 - ids already resident are hits and cost nothing more;
 - misses are pulled from their shards (param and moments; rows never
   pushed come back zero) and installed into free slots by the scatter
-  kernel (``ops/kernels/embed_cache.py`` ``scatter_rows``), in place;
+  kernel (``ops/kernels/embed_cache.py`` ``scatter_rows_families``), in
+  place, every family in one launch;
 - when the free slots run out, the least recently used rows are evicted,
-  and the dirty ones are first read back by the gather kernel and pushed
-  to their shards, so the moments stay exact across evictions. The
-  current batch's rows are pinned (moved to the recent end, never
-  evicted).
+  and the dirty ones are first read back by the gather kernel
+  (``gather_rows_families``, every family in one launch) and pushed to
+  their shards, so the moments stay exact across evictions. The current
+  batch's rows are pinned (moved to the recent end, never evicted).
 
 Installs and reads are padded to power-of-two buckets (at least 8):
 installs with the out-of-range slot ``capacity + 1``, which the scatter
@@ -31,7 +32,11 @@ Hits, misses, evictions and occupancy are plain counters, counted as the
 JAX cache counts them (unique ids per :meth:`~HotRowsCache.translate`;
 padding never counts); ``lookups`` and ``hit_lookups`` count occurrences.
 ``installs`` and ``writebacks`` count the calls that installed and that
-wrote back (each launches one kernel per family on the card).
+wrote back. On the card each launches one kernel for all of the families
+(in sorted family order, as :meth:`_ensure` pulls and pushes them): an
+install makes one host-to-device copy of the padded slots and one of the
+stacked [F, bucket, W] rows, a write-back one device-to-host copy, which
+waits for the work queued before it.
 
 :func:`enable_sharded_table` puts a model's table Parameter and its Adam
 state on such a cache. The JAX package rewrites the program instead
@@ -65,8 +70,9 @@ class HotRowsCache:
     """Fixed-capacity row cache for ONE sharded table.
 
     ``families`` maps family name -> its ``[capacity + 1, width]`` fp32
-    tensor (all on one device); ``param`` is the table itself, the others
-    its row-aligned optimizer state. The cache writes them in place and
+    tensor (all on one device, one width); ``param`` is the table itself,
+    the others its row-aligned optimizer state (at most
+    ``MAX_FAMILIES`` families in all). The cache writes them in place and
     never replaces them."""
 
     def __init__(self, table: str, height: int, capacity: int, client,
@@ -83,12 +89,20 @@ class HotRowsCache:
                                  f"{tuple(t.shape)} {t.dtype}")
         if len({t.device for t in families.values()}) != 1:
             raise ValueError("the families lie on several devices")
+        if len({t.shape for t in families.values()}) != 1:
+            raise ValueError("the families differ in width")
+        if len(families) > _kernels.MAX_FAMILIES:
+            raise ValueError(f"at most {_kernels.MAX_FAMILIES} families, got "
+                             f"{sorted(families)}")
         self.table = table
         self.height = int(height)
         self.capacity = int(capacity)
         self.pad_slot = int(capacity)
         self.client = client
         self.families = dict(families)
+        self._order = sorted(self.families)     # the kernels' family order
+        self._stack = [self.families[fam] for fam in self._order]
+        self.width = int(self._stack[0].shape[1])
         self.device = families["param"].device
         self.padding_idx = -1 if padding_idx is None else int(padding_idx)
         self._slot_lut = np.full(self.height, -1, dtype=np.int64)
@@ -102,29 +116,33 @@ class HotRowsCache:
 
     # -- device plumbing ---------------------------------------------------
 
-    def _device_set_rows(self, fam: str, slots: np.ndarray,
-                         vals: np.ndarray) -> None:
-        """Install rows at slots, padded to a bucket with the dropped slot
-        ``capacity + 1``."""
-        cache = self.families[fam]
+    def _device_set_rows(self, slots: np.ndarray,
+                         vals: Dict[str, np.ndarray]) -> None:
+        """Install every family's rows (``vals[fam]`` [n, W]) at slots,
+        padded to a bucket with the dropped slot ``capacity + 1``: one
+        launch."""
         b = bucket(slots.size)
         idx = np.full(b, self.capacity + 1, dtype=np.int32)
         idx[:slots.size] = slots
-        v = np.zeros((b, cache.shape[1]), dtype=np.float32)
-        v[:slots.size] = vals
-        _kernels.scatter_rows(cache, torch.from_numpy(idx).to(self.device),
-                              torch.from_numpy(v).to(self.device))
+        v = np.zeros((len(self._order), b, self.width), dtype=np.float32)
+        for i, fam in enumerate(self._order):
+            v[i, :slots.size] = vals[fam]
+        _kernels.scatter_rows_families(
+            self._stack, torch.from_numpy(idx).to(self.device),
+            torch.from_numpy(v).to(self.device))
 
-    def _device_get_rows(self, fam: str, slots: np.ndarray) -> np.ndarray:
-        """Read rows at slots, padded to a bucket with the pad slot (sliced
-        off here). The copy to the host waits for the work queued before
-        it on the stream: the last step's optimizer writes."""
+    def _device_get_rows(self, slots: np.ndarray) -> Dict[str, np.ndarray]:
+        """Every family's rows at slots, padded to a bucket with the pad
+        slot (sliced off here): one launch. The copy to the host waits for
+        the work queued before it on the stream: the last step's optimizer
+        writes."""
         b = bucket(slots.size)
         idx = np.full(b, self.pad_slot, dtype=np.int32)
         idx[:slots.size] = slots
-        out = _kernels.gather_rows(self.families[fam],
-                                   torch.from_numpy(idx).to(self.device))
-        return out.cpu().numpy()[:slots.size]
+        out = _kernels.gather_rows_families(
+            self._stack, torch.from_numpy(idx).to(self.device))
+        out = out.cpu().numpy()[:, :slots.size]
+        return {fam: out[i] for i, fam in enumerate(self._order)}
 
     # -- the hot path ------------------------------------------------------
 
@@ -190,16 +208,14 @@ class HotRowsCache:
                       for fam, t in sorted(self.families.items())])
         slots = np.asarray([self._free.pop() for _ in range(miss.size)],
                            dtype=np.int64)
-        for fam in self.families:
-            self._device_set_rows(fam, slots, pulled[fam])
+        self._device_set_rows(slots, pulled)
         self.installs += 1
         self._slot_lut[miss] = slots
         for vid, slot in zip(miss.tolist(), slots.tolist()):
             self._lru[vid] = slot
 
     def _writeback(self, vocab_rows: np.ndarray, slots: np.ndarray) -> None:
-        values = {fam: self._device_get_rows(fam, slots)
-                  for fam in sorted(self.families)}
+        values = self._device_get_rows(slots)
         self.writebacks += 1
         self.client.push_rows(self.table, vocab_rows, values)
 
@@ -233,10 +249,10 @@ class HotRowsCache:
         while b <= top:
             drop = np.full(b, self.capacity + 1, dtype=np.int64)
             pad = np.full(b, self.pad_slot, dtype=np.int64)
-            for fam, t in self.families.items():
-                self._device_set_rows(
-                    fam, drop, np.zeros((b, t.shape[1]), dtype=np.float32))
-                self._device_get_rows(fam, pad)
+            self._device_set_rows(drop, {
+                fam: np.zeros((b, self.width), dtype=np.float32)
+                for fam in self._order})
+            self._device_get_rows(pad)
             b *= 2
 
     @property

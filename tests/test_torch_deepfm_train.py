@@ -284,8 +284,8 @@ def cuda_device():
 def test_cache_on_the_card_matches_the_single_table(cuda_device,
                                                     monkeypatch):
     """On the card the cache's installs and write-backs run the scatter
-    and gather kernels (3 launches a call that installed or wrote back,
-    the flush's included) and train the losses of the same model on one
+    and gather kernels (1 launch a call that installed or wrote back, for
+    all three families, the flush's included) and train the losses of the same model on one
     table on the card (rtol 1e-4: the sparse gradient's duplicate rows
     summed in another order), from seeded weights."""
     from paddle_tpu_torch.ops.kernels import embed_cache as tek
@@ -315,8 +315,8 @@ def test_cache_on_the_card_matches_the_single_table(cuda_device,
         if cache:
             cache.flush()
             torch.cuda.synchronize()
-            assert tek.LAUNCHES == {"gather_rows": 3 * cache.writebacks,
-                                    "scatter_rows": 3 * cache.installs}
+            assert tek.LAUNCHES == {"gather_rows": cache.writebacks,
+                                    "scatter_rows": cache.installs}
             assert cache.writebacks > 10
         runs.append(losses)
     assert all(np.isfinite(runs[0]))

@@ -1,11 +1,13 @@
 """The PyTorch port's hot-rows cache of a sharded table against the JAX
 package: the row gather / in-place row scatter (paddle_tpu_torch/ops/
-kernels/embed_cache.py) against the Pallas kernels in interpret mode
+kernels/embed_cache.py), one family or several at once, against the
+Pallas kernels in interpret mode, one family at a time
 (paddle_tpu/ops/pallas/embed_cache.py), the shard routing and row codecs
 (paddle_tpu_torch/distributed/sharded_table.py) against
 paddle_tpu/distributed/sharded_table.py, and ``HotRowsCache``
 (paddle_tpu_torch/ops/embed_cache.py) against the JAX cache on the
-schedules of tests/test_sharded_table.py.
+schedules of tests/test_sharded_table.py, with one kernel call for all of
+its families per install and per write-back.
 
 Tolerances: none. The primitives copy rows, the codecs are elementwise
 and the cache is bookkeeping, so every comparison is exact. The
@@ -91,6 +93,56 @@ def test_plain_scatter_equals_the_pallas_kernel_in_place(pk, slots):
     np.testing.assert_array_equal(out.numpy()[untouched], cache[untouched])
 
 
+FAMILY_SLOTS = {"past-R": [11, 12, 13, 40, 0, 5, 6, 1, 2, 9, 10],
+                "eight": list(range(8)), "last": [11]}
+
+
+@pytest.mark.parametrize("n_families", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(FAMILY_SLOTS))
+def test_plain_families_gather_equals_the_pallas_kernel(pk, case,
+                                                        n_families):
+    """Every family's rows of ``gather_rows_families`` bit-equal to the
+    interpret-mode TPU kernel on that family alone: slots R - 1, slots >= R
+    (clamped onto R - 1), K off a multiple of 8."""
+    import jax.numpy as jnp
+    slots = FAMILY_SLOTS[case]
+    caches = [_cache(seed=10 + f) for f in range(n_families)]
+    got = tek.gather_rows_families([torch.from_numpy(c) for c in caches],
+                                   torch.tensor(slots, dtype=torch.int32))
+    assert tuple(got.shape) == (n_families, len(slots), 17)
+    for f, cache in enumerate(caches):
+        want = np.asarray(pk.gather_rows(jnp.asarray(cache),
+                                         jnp.asarray(slots, jnp.int32),
+                                         interpret=True))
+        np.testing.assert_array_equal(got[f].numpy(), want)
+
+
+@pytest.mark.parametrize("n_families", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(FAMILY_SLOTS))
+def test_plain_families_scatter_equals_the_pallas_kernel_in_place(
+        pk, case, n_families):
+    """Every family after ``scatter_rows_families`` bit-equal to the
+    interpret-mode TPU kernel's scatter of that family's rows (slots >= R
+    dropped), written in place: the same tensors, the same storage."""
+    import jax.numpy as jnp
+    slots = FAMILY_SLOTS[case]
+    caches = [_cache(seed=20 + f) for f in range(n_families)]
+    rows = np.random.RandomState(3).randn(n_families, len(slots),
+                                          17).astype(np.float32)
+    tcs = [torch.from_numpy(c.copy()) for c in caches]
+    ptrs = [t.data_ptr() for t in tcs]
+    out = tek.scatter_rows_families(tcs, torch.tensor(slots,
+                                                      dtype=torch.int32),
+                                    torch.from_numpy(rows))
+    assert out is tcs and [t.data_ptr() for t in tcs] == ptrs
+    for f, cache in enumerate(caches):
+        want = np.asarray(pk.scatter_rows(jnp.asarray(cache),
+                                          jnp.asarray(slots, jnp.int32),
+                                          jnp.asarray(rows[f]),
+                                          interpret=True))
+        np.testing.assert_array_equal(tcs[f].numpy(), want)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     cache = torch.from_numpy(_cache())
     slots = torch.tensor([1, 12, -1], dtype=torch.int32)
@@ -116,6 +168,23 @@ def test_wrappers_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         tek.gather_rows(meta, torch.zeros(1, dtype=torch.int32,
                                           device="meta"))
+
+
+def test_families_wrappers_reject_what_they_do_not_take():
+    """No family or more than four, caches of two shapes or dtypes, rows
+    that are not [F, K, W]."""
+    slots = torch.tensor([0, 1], dtype=torch.int32)
+    cache = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="1 to 4 caches"):
+        tek.gather_rows_families([], slots)
+    with pytest.raises(ValueError, match="1 to 4 caches"):
+        tek.gather_rows_families([cache] * 5, slots)
+    for other in (torch.zeros(4, 2), torch.zeros(4, 3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="caches differ"):
+            tek.gather_rows_families([cache, other], slots)
+    with pytest.raises(ValueError, match=r"rows must be \[2, 2, 3\]"):
+        tek.scatter_rows_families([cache, cache.clone()], slots,
+                                  torch.zeros(2, 3))
 
 
 # -- routing and codecs --------------------------------------------------------
@@ -276,11 +345,11 @@ def test_cache_replays_the_known_schedule_as_jax_does():
     assert got[1][3] == cache.pad_slot
     assert cache._slot_lut[2] == -1
     np.testing.assert_array_equal(
-        cache._device_get_rows("param", np.asarray(got[0][:2])),
+        cache._device_get_rows(np.asarray(got[0][:2]))["param"],
         seed[[0, 1]])
     assert cache._slot_lut[0] >= 0 and cache._slot_lut[1] >= 0
     np.testing.assert_array_equal(
-        cache._device_get_rows("param", np.asarray(got[3])),
+        cache._device_get_rows(np.asarray(got[3]))["param"],
         seed[[0, 1, 5, 6]])
     assert cache.lookups == 11 and cache.hit_lookups == 4
     with pytest.raises(ValueError, match="cache capacity"):
@@ -293,8 +362,8 @@ def test_cache_writes_back_on_eviction_and_flush():
     client.seed_from_value("tbl", np.zeros((16, 4), np.float32))
     cache = _port_cache(client, 2)
     s = cache.translate(np.asarray([3]), train=True)
-    cache._device_set_rows("param", np.asarray(s),
-                           7.0 * np.ones((1, 4), np.float32))
+    cache._device_set_rows(np.asarray(s),
+                           {"param": 7.0 * np.ones((1, 4), np.float32)})
     cache.translate(np.asarray([8, 9]), train=True)      # evicts row 3
     got = client.pull_rows("tbl", [3], families=[("param", 4)])
     np.testing.assert_array_equal(got["param"], 7.0)
@@ -302,6 +371,65 @@ def test_cache_writes_back_on_eviction_and_flush():
     assert cache.flush() == 2 and cache.flush() == 0
     assert cache.writebacks == 2
     assert cache.drop_all() == 0 and cache.resident == 0
+
+
+def test_cache_makes_one_families_call_per_install_and_write_back(
+        monkeypatch):
+    """Over Adam's three families (param, moment1, moment2) every install
+    is one ``scatter_rows_families`` call and every write-back (the
+    flush's included) one ``gather_rows_families`` call, both with the
+    three tensors in sorted family order; the single-family wrappers are
+    never called; warmup makes one of each per bucket."""
+    v, w, cap = 16, 5, 4
+    param = torch.nn.Parameter(torch.randn(v, w))
+    opt = topt.Adam([param], learning_rate=0.1, lazy_mode=True)
+    client = tst.in_process_fleet(v, 2)
+    client.seed_from_value("tbl", param.detach().numpy())
+    calls = []
+
+    def counted(name):
+        fn = getattr(tek, name)
+
+        def call(caches, *args):
+            calls.append((name, [c.data_ptr() for c in caches],
+                          args[0].shape[0]))
+            return fn(caches, *args)
+        return call
+
+    def never(*args):
+        raise AssertionError("a single-family wrapper was called")
+    for name in ("gather_rows_families", "scatter_rows_families"):
+        monkeypatch.setattr(tek, name, counted(name))
+    for name in ("gather_rows", "scatter_rows"):
+        monkeypatch.setattr(tek, name, never)
+    cache = tec.enable_sharded_table(param, opt, client, cap)
+    order = [cache.families[f].data_ptr()
+             for f in ("moment1", "moment2", "param")]
+    assert [(n, k) for n, _, k in calls] == [
+        ("scatter_rows_families", 8), ("gather_rows_families", 8)]
+    calls.clear()
+    for batch in SCHEDULE:
+        cache.translate(np.asarray(batch), train=True)
+    cache.flush()
+    assert cache.installs == 4 and cache.writebacks == 4
+    assert [n for n, _, _ in calls].count("scatter_rows_families") == \
+        cache.installs
+    assert [n for n, _, _ in calls].count("gather_rows_families") == \
+        cache.writebacks
+    assert all(ptrs == order for _, ptrs, _ in calls)
+
+
+def test_cache_refuses_families_its_kernels_cannot_take():
+    """The families share one width and number at most four: the kernels
+    move a row of every family per slot from one [F, K, W] buffer."""
+    client = tst.in_process_fleet(16, 2)
+    fams = {"param": torch.zeros(5, 4), "moment1": torch.zeros(5, 3)}
+    with pytest.raises(ValueError, match="differ in width"):
+        tec.HotRowsCache("tbl", 16, 4, client, fams)
+    fams = {"param": torch.zeros(5, 4),
+            **{f"m{i}": torch.zeros(5, 4) for i in range(4)}}
+    with pytest.raises(ValueError, match="at most 4 families"):
+        tec.HotRowsCache("tbl", 16, 4, client, fams)
 
 
 def test_enable_sharded_table_aliases_the_parameter_and_adam_state():
@@ -376,11 +504,53 @@ def test_cuda_kernels_match_plain_versions(cuda_device, width, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_families", [1, 2, 3])
+@pytest.mark.parametrize("width,dtype", [(17, torch.float32),
+                                         (16, torch.float32),
+                                         (18, torch.float32),
+                                         (7, torch.uint8)],
+                         ids=["4-byte", "16-byte", "8-byte", "1-byte"])
+def test_cuda_families_kernels_match_plain_versions(cuda_device, width,
+                                                    dtype, n_families):
+    """Both families kernels bit-equal to their plain versions at every
+    word width, at K 5 (slots R - 1, R, R + 1) and at a bucket of 8192
+    distinct slots: every family written through its own storage, every
+    other row unchanged, one launch a call whatever F is."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    r = 32769
+    for k in (5, 8192):
+        caches = [(torch.rand(r, width, generator=gen, device=cuda_device)
+                   * 100).to(dtype) for _ in range(n_families)]
+        slots = torch.randperm(r - 1, generator=gen,
+                               device=cuda_device)[:k].to(torch.int32)
+        slots[:3] = torch.tensor([r - 1, r, r + 1])
+        rows = (torch.rand(n_families, k, width, generator=gen,
+                           device=cuda_device) * 100).to(dtype)
+        orig = [c.clone() for c in caches]
+        ptrs = [c.data_ptr() for c in caches]
+        n0 = dict(tek.LAUNCHES)
+        got = tek.gather_rows_families(caches, slots)
+        out = tek.scatter_rows_families(caches, slots, rows)
+        torch.cuda.synchronize()
+        assert {n: tek.LAUNCHES[n] - n0[n] for n in n0} == \
+            {"gather_rows": 1, "scatter_rows": 1}
+        assert torch.equal(got, tek.gather_rows_families_ref(orig, slots))
+        assert out is caches and [c.data_ptr() for c in caches] == ptrs
+        want = tek.scatter_rows_families_ref([o.clone() for o in orig],
+                                             slots, rows)
+        others = torch.ones(r, dtype=torch.bool, device=cuda_device)
+        others[slots[(slots >= 0) & (slots < r)].long()] = False
+        for c, w, o in zip(caches, want, orig):
+            assert torch.equal(c, w)
+            assert torch.equal(c[others], o[others])
+
+
+@pytest.mark.gpu
 def test_cuda_gather_matches_its_plain_version_before_the_scatter(
         cuda_device):
-    """The gather of the cache (the page gather's kernel) bit-equal to its
-    plain version at deepfm's 68-byte rows and at a bucket padded with the
-    pad slot."""
+    """The gather of the cache (the families kernel at F 1) bit-equal to
+    its plain version at deepfm's 68-byte rows and at a bucket padded with
+    the pad slot."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     cache = torch.randn(32769, 17, generator=gen, device=cuda_device)
     slots = torch.full((8192,), 32768, dtype=torch.int32, device=cuda_device)

@@ -5,7 +5,10 @@ checkouts can be compared on one card in one call.
 Run on a machine with one CUDA card and nvcc, once per checkout, in
 turns (parent, change, change, parent) inside one command:
 
-    python3 tools/torch_ab_rows.py PATH_TO_CHECKOUT
+    python3 tools/torch_ab_rows.py PATH_TO_CHECKOUT [GROUP ...]
+
+GROUPs (all of them by default): ``fused_ce``, ``embed_pool``, ``flash``,
+``forward``, ``gru_bwd_gather``, ``gru_fwd_seqpool``, ``cache``.
 
 It imports ``paddle_tpu_torch`` from that checkout (its kernels build
 into the checkout's own ``build/``; both checkouts must share the
@@ -45,7 +48,15 @@ GRU forward (``gru_train_fwd``) at the same shape (device time by kernel
 too) and the masked sequence pool (``masked_seqpool_fwd``, SQRT) at the
 text-conv classifier's pools (B 128, T 100, D 512, ragged, from
 ``chip_smoke.SEQPOOL`` and ``ragged_lens``; device time after the same L2
-flush as the events).
+flush as the events). Since the cache kernels' redesign (group
+``cache``) it also times, by events and by device time after the L2 flush,
+the hot-rows cache's gather and scatter at deepfm's cache
+(``chip_smoke.CACHE_ROWS``, fp32) with F 1 and F 3 families, at K 8192
+distinct slots and at phase 17's most used bucket
+(``chip_smoke.CACHE_BUCKET``, padded as the cache pads it): one call of
+the checkout's families wrappers, or, in a checkout without them, one
+call of its single-family wrapper a family, as its cache made them; and
+the page gather (``gather_rows``, fp32) at the decode step's shape.
 """
 
 from __future__ import annotations
@@ -67,8 +78,15 @@ def smoke():
     return mod
 
 
+GROUPS = ("fused_ce", "embed_pool", "flash", "forward", "gru_bwd_gather",
+          "gru_fwd_seqpool", "cache")
+
+
 def main():
     root = os.path.abspath(sys.argv[1])
+    groups = sys.argv[2:] or list(GROUPS)
+    if set(groups) - set(GROUPS):
+        raise SystemExit(f"torch_ab_rows: groups are {GROUPS}")
     cs = smoke()
     sys.path.insert(0, root)
     import numpy as np
@@ -84,6 +102,8 @@ def main():
     n, d, v = (cs.BATCH * cs.TRAIN["max_len"], cs.TRAIN["d_model"],
                cs.TRAIN["tgt_vocab"])
     for name, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+        if "fused_ce" not in groups:
+            break
         x, w, labels, g = cs.fce_inputs(torch, dev, n, d, v, 8, dt)
         _, lse = fc.fused_ce_fwd(x, w, labels, 0.1)
         out[f"fused_ce_fwd_{name}_ms"] = cs.time_ms(
@@ -91,18 +111,76 @@ def main():
         out[f"fused_ce_bwd_{name}_ms"] = cs.time_ms(
             torch, lambda: fc.fused_ce_bwd(x, w, labels, lse, g, 0.1), flush,
             n=20)
-    rng = np.random.RandomState(16)
-    vv, dd, b, t = cs.EMBED_POOL
-    table = torch.from_numpy(rng.randn(vv, dd).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(rng.randint(0, vv, (b, t))).to(dev)
-    lens = torch.from_numpy(cs.ragged_lens(rng, b, t)).to(dev)
-    out["embed_pool_us"] = cs.time_ms(
-        torch, lambda: ep.fused_embed_seq_pool(table, ids, lens), flush) * 1e3
-    out.update(flash_rows(cs, torch, dev, flush))
-    out.update(forward_rows(cs, torch, dev, flush))
-    out.update(gru_gather_rows(cs, torch, dev, flush))
-    out.update(gru_fwd_seqpool_rows(cs, torch, dev, flush))
+    if "embed_pool" in groups:
+        rng = np.random.RandomState(16)
+        vv, dd, b, t = cs.EMBED_POOL
+        table = torch.from_numpy(rng.randn(vv, dd).astype(np.float32)).to(dev)
+        ids = torch.from_numpy(rng.randint(0, vv, (b, t))).to(dev)
+        lens = torch.from_numpy(cs.ragged_lens(rng, b, t)).to(dev)
+        out["embed_pool_us"] = cs.time_ms(
+            torch, lambda: ep.fused_embed_seq_pool(table, ids, lens),
+            flush) * 1e3
+    for group, rows in (("flash", flash_rows), ("forward", forward_rows),
+                        ("gru_bwd_gather", gru_gather_rows),
+                        ("gru_fwd_seqpool", gru_fwd_seqpool_rows),
+                        ("cache", cache_rows)):
+        if group in groups:
+            out.update(rows(cs, torch, dev, flush))
     print(json.dumps(out), flush=True)
+
+
+def cache_rows(cs, torch, dev, flush):
+    """Rows 12 and 13, the cache's gather and scatter, F 1 and F 3 families
+    at K 8192 and at the bucket, and row 14, the page gather at the decode
+    step's fp32 shape, in us: by events (``_us``) and by device time after
+    the same L2 flush (``_device_us``)."""
+    import numpy as np
+    from paddle_tpu_torch.ops.kernels import embed_cache as ek
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    families = hasattr(ek, "gather_rows_families")
+
+    def gather(caches, slots):
+        if families:
+            return ek.gather_rows_families(caches, slots)
+        return [ek.gather_rows(c, slots) for c in caches]
+
+    def scatter(caches, slots, rows):
+        if families:
+            return ek.scatter_rows_families(caches, slots, rows)
+        return [ek.scatter_rows(c, slots, x) for c, x in zip(caches, rows)]
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(16)
+    r, w = cs.CACHE_ROWS
+    for k, live in ((cs.CACHE_K, cs.CACHE_K), cs.CACHE_BUCKET):
+        for n_fam in (1, cs.CACHE_FAMILIES):
+            caches = [torch.randn(r, w, generator=gen, device=dev)
+                      for _ in range(n_fam)]
+            distinct = torch.randperm(r - 1, generator=gen, device=dev)[
+                :live].to(torch.int32)
+            g = torch.full((k,), r - 1, dtype=torch.int32, device=dev)
+            s = torch.full((k,), r + 1, dtype=torch.int32, device=dev)
+            g[:live] = s[:live] = distinct
+            rows = torch.randn(n_fam, k, w, generator=gen, device=dev)
+            for kind, fn in (("gather", lambda: gather(caches, g)),
+                             ("scatter", lambda: scatter(caches, s, rows))):
+                key = f"cache_{kind}_K{k}_F{n_fam}"
+                out[f"{key}_us"] = 1e3 * cs.time_ms(torch, fn, flush)
+                ms = cs.flushed_device_ms(torch, fn, flush)
+                out[f"{key}_device_us"] = None if ms is None else 1e3 * ms
+    sv = cs.SERVE
+    ids = torch.from_numpy(cs.decode_rows(
+        np.random.RandomState(0), sv["n_slots"],
+        cs.CACHE_LEN // sv["page_size"], sv["n_pages"],
+        sv["page_size"])).to(dev)
+    pool = torch.randn(sv["n_pages"] * sv["page_size"], cs.LM["d_model"],
+                       generator=gen, device=dev)
+
+    def page():
+        return pa.gather_rows(pool, ids)
+    out["gather_rows_us"] = 1e3 * cs.time_ms(torch, page, flush)
+    ms = cs.flushed_device_ms(torch, page, flush)
+    out["gather_rows_device_us"] = None if ms is None else 1e3 * ms
+    return out
 
 
 def gru_fwd_seqpool_rows(cs, torch, dev, flush):
