@@ -136,6 +136,16 @@ final line:
    by profiler name the forward's tensor-core kernel and ``flash_bwd``
    (each 18 a step, the SIMT forward none: checked) with their launches
    and device time a step; then the three runs' device busy side by side.
+   Then mixed precision: the fused-attention and fused-head runs again
+   from the same weights under pure AMP (``contrib.mixed_precision.
+   rewrite_program_amp`` after ``build``, as the reference's ``--amp``),
+   with the same checks of launches a step, the profiler window naming
+   the bf16 flash forward and backward (18 a step each, their fp32
+   kernels none) and the bf16 fused-CE forward (1 a step) and backward
+   (its dz kernel once a slab of 2048 columns); the first 3 losses
+   within rtol 0.05 of the fp32 run's (bf16 keeps 8 significant bits;
+   the reference's own AMP test holds step 0 at 5 %); step p50, device
+   busy, idle share and peak memory beside fp32's.
 8. LSTM kernels: the whole-sequence LSTM forward and backward kernels
    at the shapes of phase 9 (T 100, B 64, H 512; seeded ``xproj`` x 0.4,
    ``peep`` x 0.1, ``h0, c0`` x 0.3, ``w`` x H**-0.5, ragged lengths
@@ -181,7 +191,12 @@ final line:
    peak memory and a 3-step ``torch.profiler`` window with the LSTM
    kernels' share of device time, and by profiler name each LSTM kernel's
    launches and device time a step (the cluster forward and backward 3 a
-   step each, the grid kernels none: checked).
+   step each, the grid kernels none: checked). Then the same 10 steps
+   from the same weights under ``rewrite_program_amp(pure=None)``, which
+   picks conservative mode for a model with LSTMs: the products in bf16,
+   the LSTM kernels fp32 (3 + 3 a step by count and by name, checked),
+   the first 3 losses within rtol 0.05 of the fp32 run's; the same
+   numbers beside fp32's.
 10. GRU kernels: the whole-sequence GRU forward and backward kernels at
     the shapes of phase 11 (T 32, B 64, H 512; seeded ``xproj`` x 0.4,
     ``w`` x H**-0.5, ``h0`` x 0.3, ragged lengths 1-32 with one full row,
@@ -382,6 +397,13 @@ EVAL_RTOL = 1e-4
 TRAIN_RUNS = {"fused_attention": dict(fused_attention=True),
               "composed": dict(fused_attention=False),
               "fused_head": dict(fused_attention=True, fused_head=True)}
+# the same runs under pure AMP, each against its fp32 run
+AMP_RUNS = {"amp_fused_attention": ("fused_attention",
+                                    dict(fused_attention=True)),
+            "amp_fused_head": ("fused_head",
+                               dict(fused_attention=True, fused_head=True))}
+AMP_RTOL = 0.05                    # bf16 against fp32, as the reference
+AMP_CHECKED_STEPS = 3
 IGNORE = -100
 LSTM_SOURCE = "paddle_tpu_torch/csrc/fused_rnn.cu"
 LSTM = dict(dict_dim=5000, max_len=100, emb_dim=512, hid_dim=512,
@@ -1770,9 +1792,16 @@ def profile_calls(torch, work, n):
                              ev.count / n) for ev in top]}
 
 
-# the port's kernels by profiler name: (family, what the name holds, what
-# it must not hold)
+# the port's kernels by profiler name: (family, what the name holds (one
+# string, or several that it holds all), what it must not hold); the bf16
+# instantiations (tc::BF16, Bf16) before the families that take any dtype
 KERNEL_FAMILIES = (
+    ("flash_fwd bf16", ("tc::flash_fwd_kernel", "BF16"), None),
+    ("flash_bwd bf16", ("flash_bwd_kernel", "BF16"), None),
+    ("fused_ce_fwd bf16", ("fused_ce_fwd_kernel", "Bf16"), None),
+    ("fused_ce_dz bf16", ("fused_ce_dz_kernel", "Bf16"), None),
+    ("fused_ce_fwd", "fused_ce_fwd_kernel", None),
+    ("fused_ce_dz", "fused_ce_dz_kernel", None),
     ("flash_fwd tensor cores", "tc::flash_fwd_kernel", None),
     ("flash_fwd SIMT", "flash_fwd_kernel", "tc::"),
     ("flash_bwd", "flash_bwd_kernel", None),
@@ -1796,7 +1825,8 @@ def kernel_family(key):
     """The family of KERNEL_FAMILIES a profiler kernel name belongs to, or
     None."""
     for name, has, lacks in KERNEL_FAMILIES:
-        if has in key and (lacks is None or lacks not in key):
+        has = (has,) if isinstance(has, str) else has
+        if all(h in key for h in has) and (lacks is None or lacks not in key):
             return name
     return None
 
@@ -1839,9 +1869,11 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
                 profile_steps=PROFILE_STEPS):
     """The training slice: fused attention (the flash kernels), composed
     (the oracle) and fused attention with the fused head (the flash and
-    fused-CE kernels) from the same weights, launch counts per step, an
-    evaluation forward of each head, a dropout run, and the step-time and
-    profiler numbers."""
+    fused-CE kernels) from the same weights, the first and the last under
+    pure AMP too (the bf16 kernels), launch counts per step, an evaluation
+    forward of each head, a dropout run, and the step-time and profiler
+    numbers."""
+    from paddle_tpu_torch.contrib.mixed_precision import rewrite_program_amp
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models.transformer import build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -1866,12 +1898,20 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
         model.load_state_dict(convert.transformer_params_from_jax(
             {names[key]: w for key, w in weights.items()}))
 
+    slabs = -(-cfg["tgt_vocab"] // fc.SLAB_COLS)    # dz launches a backward
     runs, launched = {}, {}
-    for label, kw in TRAIN_RUNS.items():
+    for label, kw in {**TRAIN_RUNS, **{k: v[1] for k, v in
+                                       AMP_RUNS.items()}}.items():
+        amp = label in AMP_RUNS
+        head = kw.get("fused_head", False)
         model, opt = build(**cfg, dropout=0.0, device=dev, **kw)
         if weights is None:
             weights = transformer_weights(model, 1)
         load(model, kw)
+        if amp:
+            tagged = rewrite_program_amp(model)
+            if not model.amp["lookup_table"].keep_bf16:
+                fail(f"{label}: the rewrite did not pick pure mode")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset()
@@ -1896,6 +1936,8 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
                  "step_p50_ms": float(np.median(step_ms)),
                  "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
                  "launches": launched[label]}
+        if amp:
+            stats["amp_sites_tagged"] = tagged
         stats["tokens_per_s"] = tokens / stats["step_p50_ms"] * 1e3
         if profile_steps:
             stats["profile"] = prof = profile_window(torch, model, opt,
@@ -1923,13 +1965,21 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
             for key, us, count in prof["top_kernels"]:
                 print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
             if kw["fused_attention"]:
+                tc = n_attn if fa.fwd_kernel(
+                    cfg["d_model"] // cfg["n_head"]) == "tensor_cores" \
+                    else 0
+                bf16 = {"flash_fwd bf16": tc, "flash_bwd bf16": n_attn * one,
+                        "fused_ce_fwd bf16": int(head),
+                        "fused_ce_dz bf16": slabs * head}
+                fp32 = {"flash_fwd tensor cores": tc,
+                        "flash_bwd": n_attn * one,
+                        "fused_ce_fwd": int(head),
+                        "fused_ce_dz": slabs * head}
                 check_families(label, prof, {
-                    "flash_fwd tensor cores": n_attn
-                    if fa.fwd_kernel(cfg["d_model"] // cfg["n_head"])
-                    == "tensor_cores" else 0,
-                    "flash_bwd": n_attn * one})
-                print(f"[{card}] {label}: the flash kernels a step: "
-                      f"{family_line(prof)}")
+                    **{k: v * amp for k, v in bf16.items()},
+                    **{k: v * (not amp) for k, v in fp32.items()}})
+                print(f"[{card}] {label}: the flash and fused-CE kernels a "
+                      f"step: {family_line(prof)}")
         del model, opt
     a = runs["fused_attention"]["losses"]
     for label in ("composed", "fused_head"):
@@ -1944,13 +1994,37 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
           f"backward {n_attn} times each ({launched['fused_attention']}); "
           f"each fused-head step the fused-CE forward and backward once "
           f"each")
+    for label, (base, _) in AMP_RUNS.items():
+        a = runs[label]["losses"][:AMP_CHECKED_STEPS]
+        b = runs[base]["losses"][:AMP_CHECKED_STEPS]
+        if not np.allclose(a, b, rtol=AMP_RTOL, atol=0.0):
+            fail(f"{label}: first losses {a} differ from the fp32 run's "
+                 f"{b} beyond rtol {AMP_RTOL}")
+        gap = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        runs[label]["fp32_max_rel_diff"] = gap
+        amp_run, fp32_run = runs[label], runs[base]
+        print(f"[{card}] {label}: first {AMP_CHECKED_STEPS} losses within "
+              f"rtol {AMP_RTOL} of {base}'s (max rel diff {gap:.3g}); "
+              f"{amp_run['amp_sites_tagged']} op sites tagged; step p50 "
+              f"{amp_run['step_p50_ms']:.3f} ms against "
+              f"{fp32_run['step_p50_ms']:.3f} ms fp32; peak memory "
+              f"{amp_run['peak_mem_bytes'] / 2 ** 20:.1f} MiB against "
+              f"{fp32_run['peak_mem_bytes'] / 2 ** 20:.1f} MiB")
     if profile_steps:
         busy = {label: runs[label]["profile"]["device_busy_ms_per_step"]
-                for label in TRAIN_RUNS}
+                for label in runs}
+        idle = {label: runs[label]["profile"]["idle_share_at_p50"]
+                for label in runs}
         print(f"[{card}] device busy a step: fused head "
               f"{busy['fused_head']:.3f} ms, composed head (fused attention) "
               f"{busy['fused_attention']:.3f} ms, composed attention and head "
-              f"{busy['composed']:.3f} ms")
+              f"{busy['composed']:.3f} ms; pure AMP: fused head "
+              f"{busy['amp_fused_head']:.3f} ms (idle "
+              f"{idle['amp_fused_head']:.3f} at p50, fp32 "
+              f"{idle['fused_head']:.3f}), composed head "
+              f"{busy['amp_fused_attention']:.3f} ms (idle "
+              f"{idle['amp_fused_attention']:.3f}, fp32 "
+              f"{idle['fused_attention']:.3f})")
 
     # the evaluation model (no smoothing) of each head, one forward
     eval_loss = {}
@@ -2138,8 +2212,8 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
                      steps=TRAIN_STEPS, profile_steps=PROFILE_STEPS,
                      oracle_steps=LSTM_ORACLE_STEPS):
     """The LSTM training slice on the card, its launch counts per step,
-    the CPU oracle over the first steps, and the step-time and profiler
-    numbers."""
+    the same steps under conservative AMP, the CPU oracle over the first
+    steps, and the step-time and profiler numbers."""
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models.stacked_dynamic_lstm import build
     from paddle_tpu_torch.ops.kernels import fused_rnn as fr
@@ -2207,6 +2281,8 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
         print(f"[{card}] stacked_dynamic_lstm: the LSTM kernels a step: "
               f"{family_line(prof)}")
     del model, opt
+    stats["amp"] = amp_lstm_run(torch, card, make, state, feed, steps,
+                                profile_steps, stats, want, n_layer)
 
     # the oracle: the same model on the CPU, where the wrappers take the
     # plain versions, from the same weights on the same feeds
@@ -2236,6 +2312,69 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
           f"match the CPU oracle's within rtol {CURVE_RTOL} (max rel diff "
           f"{gap:.3g}; oracle took {time.perf_counter() - t0:.1f} s)")
     return launched, n_layer, stats
+
+
+def amp_lstm_run(torch, card, make, state, feed, steps, profile_steps,
+                 fp32, want, n_layer):
+    """Phase 9 under ``rewrite_program_amp(pure=None)``: conservative mode
+    for a model with LSTMs (bf16 products, fp32 LSTM kernels); its
+    launches a step, first losses against the fp32 run's and the same
+    numbers beside fp32's."""
+    from paddle_tpu_torch.contrib.mixed_precision import rewrite_program_amp
+    from paddle_tpu_torch.ops.kernels import fused_rnn as fr
+    model, opt = make(feed[0].device)
+    model.load_state_dict(state)
+    tagged = rewrite_program_amp(model)
+    if any(t.keep_bf16 for t in model.amp.values()) \
+            or not model.amp["mul"].bf16:
+        fail(f"LSTM training AMP: not conservative mode: {model.amp}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fr.reset_launches()
+    losses, step_ms, per_step = train(torch, model, opt, [feed] * steps,
+                                      lambda: dict(fr.LAUNCHES))
+    for i, c in enumerate(per_step):
+        if c != want:
+            fail(f"LSTM training AMP: step {i} launched {c}, want {want}")
+    a, b = losses[:AMP_CHECKED_STEPS], fp32["losses"][:AMP_CHECKED_STEPS]
+    if not all(np.isfinite(losses)) or not np.allclose(
+            a, b, rtol=AMP_RTOL, atol=0.0):
+        fail(f"LSTM training AMP: losses {losses} not finite or beyond "
+             f"rtol {AMP_RTOL} of the fp32 run's {b}")
+    run = {"losses": losses, "step_ms": step_ms,
+           "step_p50_ms": float(np.median(step_ms)),
+           "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+           "launches": dict(fr.LAUNCHES), "amp_sites_tagged": tagged,
+           "fp32_max_rel_diff": max(abs(x - y) / abs(y)
+                                    for x, y in zip(a, b))}
+    run["words_per_s"] = fp32["valid_words"] / run["step_p50_ms"] * 1e3
+    line = ""
+    if profile_steps:
+        run["profile"] = prof = profile_window(torch, model, opt,
+                                               [feed] * profile_steps)
+        prof["idle_share_at_p50"] = 1.0 - prof[
+            "device_busy_ms_per_step"] / run["step_p50_ms"]
+        plans = {k: fr.rnn_kernel_for(k, model.hid_dim,
+                                      feed[0].device)["kernel"]
+                 for k in ("lstm_train_fwd", "lstm_train_bwd")}
+        check_families("LSTM training AMP", prof, {
+            f"lstm_{k[11:]} {plans[k]}": n_layer for k in plans})
+        base = fp32["profile"]
+        line = (f"; device busy {prof['device_busy_ms_per_step']:.3f} ms a "
+                f"step against {base['device_busy_ms_per_step']:.3f} fp32, "
+                f"idle share {prof['idle_share_at_p50']:.3f} against "
+                f"{base['idle_share_at_p50']:.3f} at p50; the LSTM kernels "
+                f"a step: {family_line(prof)}")
+        for key, us, count in prof["top_kernels"]:
+            print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
+    print(f"[{card}] stacked_dynamic_lstm under conservative AMP ({tagged} "
+          f"op sites tagged): losses {[round(x, 5) for x in losses]}, the "
+          f"first {AMP_CHECKED_STEPS} within rtol {AMP_RTOL} of fp32's (max "
+          f"rel diff {run['fp32_max_rel_diff']:.3g}); step p50 "
+          f"{run['step_p50_ms']:.3f} ms against {fp32['step_p50_ms']:.3f} "
+          f"fp32; peak memory {run['peak_mem_bytes'] / 2 ** 20:.1f} MiB "
+          f"against {fp32['peak_mem_bytes'] / 2 ** 20:.1f}{line}")
+    return run
 
 
 # -- phase 10: GRU kernels --------------------------------------------------
@@ -3909,6 +4048,8 @@ def main():
     from paddle_tpu_torch.ops.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products sum in fp32, as the reference's dots
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -3988,6 +4129,8 @@ def main():
             "name": kname, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": flash_launches[kname],
+            "launches_bf16":
+                train_launches["amp_fused_attention"][kname],
             "max_abs_err": max(flash[f"{kname}/{v}"]["max_abs_err"]
                                for v in FLASH_VARIANTS),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
@@ -4023,6 +4166,7 @@ def main():
             "name": kname, "route": "cuda", "source": FCE_SOURCE,
             "replaces": f"paddle_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": train_launches["fused_head"][kname],
+            "launches_bf16": train_launches["amp_fused_head"][kname],
             "max_abs_err": max(m["max_abs_err"], m["edge_max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -4039,6 +4183,7 @@ def main():
             "name": kname, "route": "cuda", "source": LSTM_SOURCE,
             "replaces": f"paddle_tpu/ops/pallas/fused_rnn.py:{line}",
             "launches": lstm_launches[kname],
+            "launches_under_amp": lstm_run["amp"]["launches"][kname],
             "max_abs_err": max(m["max_abs_err"], m["edge_max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

@@ -52,7 +52,11 @@ def param_shapes(src_vocab: int, tgt_vocab: int, emb_dim: int,
 class MachineTranslation(nn.Module):
     """``forward(src, tgt_in, tgt_out)`` ([B, max_len] int64 each) -> the
     mean cross entropy; :meth:`generate` (src) -> (ids [B, beam_size,
-    max_len] int32, lane scores [B, beam_size])."""
+    max_len] int32, lane scores [B, beam_size]). ``amp`` holds the AMP
+    tags of each op type of the training forward (empty: fp32), set by
+    ``contrib.mixed_precision.rewrite_program_amp`` from :meth:`op_sites`;
+    :meth:`generate` stays fp32, as the reference rewrites only its
+    training program."""
 
     def __init__(self, src_vocab: int = 30, tgt_vocab: int = 30,
                  max_len: int = 8, emb_dim: int = 32, hid_dim: int = 32,
@@ -63,6 +67,7 @@ class MachineTranslation(nn.Module):
         self.max_len, self.emb_dim = int(max_len), int(emb_dim)
         self.hid_dim, self.beam_size = int(hid_dim), int(beam_size)
         self.start_id, self.end_id = int(start_id), int(end_id)
+        self.amp = {}
         for key, shape in param_shapes(src_vocab, tgt_vocab, emb_dim,
                                        hid_dim).items():
             setattr(self, key, nn.Parameter(torch.zeros(shape)))
@@ -80,30 +85,40 @@ class MachineTranslation(nn.Module):
                 bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
                 p.uniform_(-bound, bound)
 
-    def encode(self, src):
+    def op_sites(self):
+        """The op type of each site of the training forward that the AMP
+        rewrite reads, one entry a site: its ``dynamic_gru`` ops make
+        ``pure=None`` choose conservative mode."""
+        add = "elementwise_add"
+        return (["lookup_table", "mul", add, "dynamic_gru", "mul", add,
+                 "lookup_table", "mul", "dynamic_gru", "matmul", "matmul",
+                 "mul", "mul", add])
+
+    def encode(self, src, amp=None):
         """-> (enc [B, T, H], the decoder's first state [B, H])."""
         emb = nn_ops.lookup_table(self.src_emb, src[..., None],
-                                  sparse=True)
-        proj = nn_ops.fc(emb, self.enc_proj_w, self.enc_proj_b)
+                                  sparse=True, amp=amp)
+        proj = nn_ops.fc(emb, self.enc_proj_w, self.enc_proj_b, amp=amp)
         enc, _ = rnn_ops.dynamic_gru(proj, self.enc_gru_w, self.enc_gru_b)
         dec_h0 = nn_ops.fc(enc[:, self.max_len - 1], self.h0_w, self.h0_b,
-                           act="tanh")
+                           act="tanh", amp=amp)
         return enc, dec_h0
 
     def forward(self, src, tgt_in, tgt_out):
-        enc, dec_h0 = self.encode(src)
+        amp = self.amp
+        enc, dec_h0 = self.encode(src, amp)
         temb = nn_ops.lookup_table(self.tgt_emb, tgt_in[..., None],
-                                   sparse=True)
-        dproj = nn_ops.fc(temb, self.dec_proj_w)
+                                   sparse=True, amp=amp)
+        dproj = nn_ops.fc(temb, self.dec_proj_w, amp=amp)
         dec, _ = rnn_ops.dynamic_gru(dproj, self.dec_gru_w, self.dec_gru_b,
                                      h0=dec_h0)
         # Luong attention over all decoder states at once
-        scores = nn_ops.matmul(dec, enc, transpose_y=True)
+        scores = nn_ops.matmul(dec, enc, transpose_y=True, amp=amp)
         probs = nn_ops.softmax(nn_ops.scale(scores, self.hid_dim ** -0.5))
-        ctx = nn_ops.matmul(probs, enc)
+        ctx = nn_ops.matmul(probs, enc, amp=amp)
         combined = nn_ops.fc(torch.cat([dec, ctx], dim=2), self.attn_w,
-                             act="tanh")
-        logits = nn_ops.fc(combined, self.out_w, self.out_b)
+                             act="tanh", amp=amp)
+        logits = nn_ops.fc(combined, self.out_w, self.out_b, amp=amp)
         loss = nn_ops.softmax_with_cross_entropy(
             logits.reshape(-1, self.tgt_vocab), tgt_out.reshape(-1, 1))
         return nn_ops.mean(loss)

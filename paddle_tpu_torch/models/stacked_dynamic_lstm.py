@@ -44,11 +44,12 @@ class LSTMLayer(nn.Module):
         self.lstm_w = nn.Parameter(torch.zeros(hid_dim, h4))
         self.lstm_b = nn.Parameter(torch.zeros(1, 7 * hid_dim))
 
-    def forward(self, inputs, seq_lens):
+    def forward(self, inputs, seq_lens, amp=None):
         if len(inputs) == 1:
-            proj = nn_ops.fc(inputs[0], self.fc_w0, self.fc_b)
+            proj = nn_ops.fc(inputs[0], self.fc_w0, self.fc_b, amp=amp)
         else:
-            proj = nn_ops.fc(inputs, [self.fc_w0, self.fc_w1], self.fc_b)
+            proj = nn_ops.fc(inputs, [self.fc_w0, self.fc_w1], self.fc_b,
+                             amp=amp)
         hidden, _, _, _ = rnn_ops.dynamic_lstm(
             proj, self.lstm_w, self.lstm_b, seq_lens=seq_lens,
             use_peepholes=True)
@@ -58,7 +59,10 @@ class LSTMLayer(nn.Module):
 class StackedDynamicLSTM(nn.Module):
     """``forward(words [B,T] int64, seq_lens [B] int32, label [B,1] int64)``
     -> (mean cross entropy, top-1 accuracy [1]); :meth:`predict` gives the
-    class probabilities [B, class_dim]."""
+    class probabilities [B, class_dim]. ``amp`` holds the AMP tags of
+    each op type (empty: fp32), set by
+    ``contrib.mixed_precision.rewrite_program_amp`` from
+    :meth:`op_sites`."""
 
     def __init__(self, dict_dim: int = 5000, emb_dim: int = 512,
                  hid_dim: int = 512, stacked_num: int = 3,
@@ -69,6 +73,7 @@ class StackedDynamicLSTM(nn.Module):
         self.dict_dim, self.emb_dim = int(dict_dim), int(emb_dim)
         self.hid_dim, self.stacked_num = int(hid_dim), int(stacked_num)
         self.class_dim = int(class_dim)
+        self.amp = {}
         self.emb = nn.Parameter(torch.zeros(dict_dim, emb_dim))
         self.layers = nn.ModuleList(
             LSTMLayer(emb_dim if i == 0 else 4 * hid_dim, hid_dim, i == 0)
@@ -83,6 +88,15 @@ class StackedDynamicLSTM(nn.Module):
     def device(self) -> torch.device:
         return self.emb.device
 
+    def op_sites(self):
+        """The op type of each site of ``lstm_net``'s forward that the AMP
+        rewrite reads, one entry a site: its ``dynamic_lstm`` ops make
+        ``pure=None`` choose conservative mode."""
+        layer = ["mul", "elementwise_add", "dynamic_lstm"]
+        return (["lookup_table"] + layer
+                + (["mul"] + layer) * (self.stacked_num - 1)
+                + ["mul", "mul", "elementwise_add"])
+
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         """Matrices and the embedding Xavier-uniform, biases (the LSTMs'
@@ -95,13 +109,14 @@ class StackedDynamicLSTM(nn.Module):
                 p.uniform_(-bound, bound, generator=generator)
 
     def predict(self, words, seq_lens):
-        inputs = [nn_ops.lookup_table(self.emb, words[..., None])]
+        inputs = [nn_ops.lookup_table(self.emb, words[..., None],
+                                      amp=self.amp)]
         for layer in self.layers:
-            inputs = layer(inputs, seq_lens)
+            inputs = layer(inputs, seq_lens, self.amp)
         pooled = [sequence_ops.sequence_pool(x, seq_lens, "MAX")
                   for x in inputs]
         return nn_ops.fc(pooled, [self.head_w0, self.head_w1], self.head_b,
-                         act="softmax")
+                         act="softmax", amp=self.amp)
 
     def forward(self, words, seq_lens, label):
         prediction = self.predict(words, seq_lens)

@@ -314,28 +314,30 @@ class AttentionWeights(nn.Module):
 
 
 def multi_head_attention(x_q, x_kv, w: AttentionWeights, n_head: int,
-                         mask=None, dropout_p: float = 0.0, seed: int = 0):
+                         mask=None, dropout_p: float = 0.0, seed: int = 0,
+                         amp=None):
     """The composed attention of ``multi_head_attention`` (``:72-93``):
     projections, q scaled by D**-0.5, ``q k^T`` (+ the additive mask),
     softmax, dropout on the weights (``upscale_in_train``), ``w v``,
-    heads merged, ``Wo``. No kernel: the card-side oracle of the fused
-    block."""
+    heads merged, ``Wo``; its ``mul``, ``matmul`` and mask add under
+    ``amp``. No kernel: the card-side oracle of the fused block."""
     b, tq, m = x_q.shape
     tk = x_kv.shape[1]
     h, d = n_head, m // n_head
 
     def split_heads(x, wt, t):                       # [B,T,M] -> [B,H,T,D]
-        return nn_ops.fc(x, wt).view(b, t, h, d).transpose(1, 2)
+        return nn_ops.fc(x, wt, amp=amp).view(b, t, h, d).transpose(1, 2)
     q = nn_ops.scale(split_heads(x_q, w.wq, tq), d ** -0.5)
     k, v = split_heads(x_kv, w.wk, tk), split_heads(x_kv, w.wv, tk)
-    logits = nn_ops.matmul(q, k, transpose_y=True)   # [B,H,Tq,Tk]
+    logits = nn_ops.matmul(q, k, transpose_y=True, amp=amp)  # [B,H,Tq,Tk]
     if mask is not None:
-        logits = logits + mask
+        logits = nn_ops.elementwise_add(logits, mask, amp)
     weights = nn_ops.softmax(logits)
     if dropout_p:
         weights = nn_ops.dropout(weights, dropout_p, seed)
-    ctx = nn_ops.matmul(weights, v).transpose(1, 2).reshape(b, tq, m)
-    return nn_ops.fc(ctx, w.wo)
+    ctx = nn_ops.matmul(weights, v, amp=amp).transpose(1, 2) \
+        .reshape(b, tq, m)
+    return nn_ops.fc(ctx, w.wo, amp=amp)
 
 
 class _FFN(nn.Module):
@@ -391,7 +393,11 @@ class Transformer(nn.Module):
     torch's default one when None) on each forward, and the counter-hash
     masks of the JAX ops turn it into keep bits. Weights start from the
     port's own initialization (``reset_parameters``); parity runs load
-    the JAX scope instead (``convert.transformer_params_from_jax``)."""
+    the JAX scope instead (``convert.transformer_params_from_jax``).
+
+    ``amp`` holds the AMP tags of each op type (empty: fp32), which
+    ``contrib.mixed_precision.rewrite_program_amp`` sets from
+    :meth:`op_sites`; every op of the forward reads its own."""
 
     def __init__(self, src_vocab: int, tgt_vocab: int, max_len: int,
                  d_model: int = 512, d_inner: int = 2048, n_head: int = 8,
@@ -413,6 +419,7 @@ class Transformer(nn.Module):
         self.fused_attention = bool(fused_attention)
         self.fused_head = bool(fused_head)
         self.generator = generator
+        self.amp = {}
         m = d_model
         self.src_emb = nn.Parameter(torch.zeros(src_vocab, m))
         self.encoder = nn.ModuleList(EncoderLayer(m, d_inner)
@@ -438,6 +445,25 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.src_emb.device
+
+    def op_sites(self):
+        """The op type of each site of ``build``'s forward that the AMP
+        rewrite reads (the AMP op types, the elementwise binaries and
+        ``lookup_table``), one entry a site."""
+        add = "elementwise_add"
+        if self.fused_attention:
+            attn, self_attn = ["fused_attention_block"], \
+                ["fused_attention_block"]
+        else:
+            attn = ["mul"] * 3 + ["matmul"] * 2 + ["mul"]
+            self_attn = ["mul"] * 3 + ["matmul", add, "matmul", "mul"]
+        ffn = ["mul", add, "mul", add]
+        embed = ["lookup_table", add]
+        enc = attn + [add] + ffn + [add]
+        dec = self_attn + [add] + attn + [add] + ffn + [add]
+        head = ["fused_linear_ce"] if self.fused_head else ["mul"]
+        return (embed + enc * self.n_layer + embed + dec * self.n_layer
+                + head)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -475,41 +501,48 @@ class Transformer(nn.Module):
         if self.fused_attention:
             return ab.fused_attention_block(x_q, x_kv, w.wq, w.wk, w.wv,
                                             w.wo, self.n_head, causal, p,
-                                            seed)
+                                            seed, self.amp)
         t = x_q.shape[1]
         mask = self.causal_mask[:, :, :t, :t] if causal else None
         return multi_head_attention(x_q, x_kv, w, self.n_head, mask, p,
-                                    seed)
+                                    seed, self.amp)
 
     def _ffn(self, layer: _FFN, x):
-        h = nn_ops.fc(x, layer.ffn1_w, layer.ffn1_b, act="relu")
-        return nn_ops.fc(self._dropout(h), layer.ffn2_w, layer.ffn2_b)
+        h = nn_ops.fc(x, layer.ffn1_w, layer.ffn1_b, act="relu",
+                      amp=self.amp)
+        return nn_ops.fc(self._dropout(h), layer.ffn2_w, layer.ffn2_b,
+                         amp=self.amp)
+
+    def _residual(self, x, sub):
+        return nn_ops.elementwise_add(x, self._dropout(sub), self.amp)
 
     def _embed(self, emb, ids):
-        x = nn_ops.scale(nn_ops.lookup_table(emb, ids[..., None]),
+        x = nn_ops.scale(nn_ops.lookup_table(emb, ids[..., None],
+                                             amp=self.amp),
                          self.d_model ** 0.5)
-        return self._dropout(x + self.pos_enc[:ids.shape[1]])
+        return self._dropout(nn_ops.elementwise_add(
+            x, self.pos_enc[:ids.shape[1]], self.amp))
 
     def encode(self, src):
         x = self._embed(self.src_emb, src)
         for layer in self.encoder:
             a = nn_ops.layer_norm(x, layer.ln1_scale, layer.ln1_bias)
-            x = x + self._dropout(self._attention(a, a, layer.attn, False))
+            x = self._residual(x, self._attention(a, a, layer.attn, False))
             f = nn_ops.layer_norm(x, layer.ln2_scale, layer.ln2_bias)
-            x = x + self._dropout(self._ffn(layer, f))
+            x = self._residual(x, self._ffn(layer, f))
         return nn_ops.layer_norm(x, self.enc_ln_scale, self.enc_ln_bias)
 
     def decode(self, tgt, enc):
         x = self._embed(self.tgt_emb, tgt)
         for layer in self.decoder:
             a = nn_ops.layer_norm(x, layer.ln1_scale, layer.ln1_bias)
-            x = x + self._dropout(self._attention(a, a, layer.self_attn,
+            x = self._residual(x, self._attention(a, a, layer.self_attn,
                                                   True))
             c = nn_ops.layer_norm(x, layer.ln2_scale, layer.ln2_bias)
-            x = x + self._dropout(self._attention(c, enc, layer.cross_attn,
+            x = self._residual(x, self._attention(c, enc, layer.cross_attn,
                                                   False))
             f = nn_ops.layer_norm(x, layer.ln3_scale, layer.ln3_bias)
-            x = x + self._dropout(self._ffn(layer, f))
+            x = self._residual(x, self._ffn(layer, f))
         return nn_ops.layer_norm(x, self.dec_ln_scale, self.dec_ln_bias)
 
     def _decoded(self, src_ids, tgt_ids) -> torch.Tensor:
@@ -523,7 +556,8 @@ class Transformer(nn.Module):
 
     def logits(self, src_ids, tgt_ids) -> torch.Tensor:
         """[B, T, 1] (or [B, T]) ids -> [B, T, tgt_vocab] logits."""
-        return nn_ops.fc(self._decoded(src_ids, tgt_ids), self.head_w)
+        return nn_ops.fc(self._decoded(src_ids, tgt_ids), self.head_w,
+                         amp=self.amp)
 
     def forward(self, src_ids, tgt_ids, lbl_ids) -> torch.Tensor:
         """The scalar training loss of one batch: feeds [B, T, 1] int."""
@@ -532,7 +566,8 @@ class Transformer(nn.Module):
         if self.fused_head:
             dec = self._decoded(src_ids, tgt_ids)
             loss = nn_ops.fused_linear_ce(dec.reshape(-1, self.d_model),
-                                          self.head_w, label, eps)
+                                          self.head_w, label, eps,
+                                          amp=self.amp)
         else:
             loss = nn_ops.softmax_with_cross_entropy(
                 self.logits(src_ids, tgt_ids).reshape(-1, self.tgt_vocab),

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch import device as _device
-from paddle_tpu_torch.ops import sequence_ops
+from paddle_tpu_torch.ops import nn_ops, sequence_ops
 
 ACTS = {None: lambda x: x, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
 
@@ -26,7 +26,9 @@ class SequenceConvPool(nn.Module):
     ``filter`` [filter_size * D, num_filters] and ``bias``
     [num_filters] (zeros, as the JAX layer's bias starts; ``bias=False``
     for none). ``context_start`` defaults to the layer's
-    ``-(filter_size - 1) // 2``."""
+    ``-(filter_size - 1) // 2``. :meth:`forward` takes the caller's AMP
+    dict (``contrib/mixed_precision.py``), which tags the bias add; its
+    op sites are :meth:`op_sites`."""
 
     def __init__(self, input_dim: int, num_filters: int, filter_size: int,
                  act: Optional[str] = "sigmoid", pool_type: str = "max",
@@ -47,12 +49,18 @@ class SequenceConvPool(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_filters, device=dev)) \
             if bias else None
 
+    def op_sites(self):
+        """The op types the AMP rewrite reads, one entry a site: the
+        bias's ``elementwise_add`` (``sequence_conv`` is none of them)."""
+        return ["elementwise_add"] if self.bias is not None else []
+
     def forward(self, x: torch.Tensor,
-                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_lens: Optional[torch.Tensor] = None,
+                amp=None) -> torch.Tensor:
         conv = sequence_ops.sequence_conv(x, self.filter, seq_lens,
                                           self.filter_size,
                                           self.context_start)
         if self.bias is not None:
-            conv = conv + self.bias
+            conv = nn_ops.elementwise_add(conv, self.bias, amp)
         return sequence_ops.sequence_pool(ACTS[self.act](conv), seq_lens,
                                           self.pool_type)

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.contrib.mixed_precision import policy
 from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
+from paddle_tpu_torch.ops.nn_ops import amp_product
 
 # masked scores take this finite value, not -inf (attention_block.py:42):
 # a row with every position masked still softmaxes to finite numbers
@@ -34,7 +36,7 @@ def fused_attention_block(x_q: torch.Tensor, x_kv: torch.Tensor,
                           wq: torch.Tensor, wk: torch.Tensor,
                           wv: torch.Tensor, wo: torch.Tensor, n_head: int,
                           causal: bool = False, dropout_p: float = 0.0,
-                          seed: int = 0) -> torch.Tensor:
+                          seed: int = 0, amp=None) -> torch.Tensor:
     """x_q [B,Tq,M], x_kv [B,Tk,M], w* [M,M] ([in, out]) -> [B,Tq,M]: the
     q/k/v projections, flash attention over [B,H,T,D] with scale D**-0.5
     (attention-weight dropout inside, keyed by ``seed``), and the output
@@ -45,16 +47,30 @@ def fused_attention_block(x_q: torch.Tensor, x_kv: torch.Tensor,
     Their [B,T,H,D] results are copied into the [B*H,T,D] layout the
     kernels take, and the attention output is copied back to [B,T,M]
     before ``Wo``; the backward pays the mirror copies. These relayouts
-    are the cost of the kernels' layout, not hidden."""
+    are the cost of the kernels' layout, not hidden.
+
+    Where ``amp`` tags ``fused_attention_block`` with ``bf16``
+    (``nn_ops.py:826-841``), every projection takes bf16 operands and is
+    rounded to bf16 after its fp32 sums (``nn_ops.amp_product``), so
+    flash runs in bf16 (its bf16 kernels on the card); the ``Wo``
+    product is rounded to bf16 too, then kept in pure mode and widened
+    to fp32 otherwise. Either way the gradient reaching flash is bf16,
+    the dtype of its output."""
     b, tq, m = x_q.shape
     tk = x_kv.shape[1]
     if m % n_head:
         raise ValueError(f"d_model {m} not divisible by n_head {n_head}")
     h, d = n_head, m // n_head
+    tags = policy(amp, "fused_attention_block")
+
+    def product(x, w):
+        return amp_product(x, w, True) if tags.bf16 else torch.matmul(x, w)
 
     def heads(x, w, t):                  # [B,T,M] -> [B,H,T,D]
-        return torch.matmul(x, w).view(b, t, h, d).transpose(1, 2)
+        return product(x, w).view(b, t, h, d).transpose(1, 2)
     o = flash_attention(heads(x_q, wq, tq), heads(x_kv, wk, tk),
                         heads(x_kv, wv, tk), causal, float(d) ** -0.5,
                         dropout_p, seed)
-    return torch.matmul(o.transpose(1, 2).reshape(b, tq, m), wo)
+    out = product(o.transpose(1, 2).reshape(b, tq, m), wo)
+    # _amp_out (nn_ops.py:42-48): fp32 at the edge in conservative mode
+    return out.float() if tags.bf16 and not tags.keep_bf16 else out

@@ -2,7 +2,8 @@
 numerics of their JAX emitters:
 
 - :func:`layer_norm` -- ``paddle_tpu/ops/nn_ops.py:392``: population
-  variance, eps 1e-5, normalized over the trailing dims.
+  variance, eps 1e-5, normalized over the trailing dims (statistics in
+  fp32 for a bf16 or fp16 input).
 - :func:`lookup_table` -- ``nn_ops.py:504`` (and ``gather``,
   ``paddle_tpu/ops/math_ops.py:245``): rows of a table by index, a
   trailing id dim of 1 dropped, ``padding_idx`` rows zeroed; with
@@ -20,7 +21,8 @@ the ops above):
 
 - :func:`dropout` -- ``nn_ops.py:462`` in training, ``upscale_in_train``:
   the counter-hash keep mask over the flat element index
-  (``hash_keep_mask(seed, 0, index, 0, p)``).
+  (``hash_keep_mask(seed, 0, index, 0, p)``), keep / (1 - p) rounded to
+  x's dtype before the product, as the JAX op multiplies.
 - :func:`softmax` -- ``nn_ops.py:528``, over the last axis.
 - :func:`softmax_with_cross_entropy` -- ``nn_ops.py:563``, hard labels:
   ``lse - picked`` with closed-form label smoothing ``+ eps * (picked -
@@ -46,11 +48,19 @@ and those of deepfm:
   ``max(x, 0) - x * label + log1p(exp(-|x|))``, 0 where the label is
   ``ignore_index``, divided by the count of the others with
   ``normalize``.
-- :func:`sigmoid`, :func:`square` (the activations of
+- :func:`square_error_cost` (``nn_ops.py:666``), :func:`sigmoid`,
+  :func:`square` (the activations of
   ``paddle_tpu/ops/basic.py:197-203``), :func:`reduce_sum`
   (``math_ops.py:100-115``), :func:`slice` (``math_ops.py:218``, the
   bounds clipped as there) and :func:`reshape` (``math_ops.py:147``, a 0
   copying the input's dim).
+
+Mixed precision: the ops of the AMP rewrite take ``amp``, a model's
+dict of AMP tags by op type (``contrib/mixed_precision.py``; None: fp32),
+and read their own type's tags: ``fc`` (its products as ``mul``, its bias
+add as ``elementwise_add``), ``matmul``, ``lookup_table``,
+``fused_linear_ce`` and :func:`elementwise_add` (the ``match_dtype``
+rule, :func:`match_low_precision`).
 """
 
 from __future__ import annotations
@@ -60,34 +70,94 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.contrib.mixed_precision import policy
 from paddle_tpu_torch.ops.kernels import fused_ce as _fused_ce
 from paddle_tpu_torch.ops.kernels.flash_attention import hash_keep_mask
+
+LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+# one [rows, V] fp32 block of softmax_with_cross_entropy at a time
+CE_BLOCK_ELEMS = 1 << 24
+
+
+def amp_product(x: torch.Tensor, y: torch.Tensor, keep: bool
+                ) -> torch.Tensor:
+    """``x @ y`` as a tagged ``mul`` / ``matmul`` computes it
+    (``paddle_tpu/ops/math_ops.py:36-47``): bf16 operands, fp32
+    accumulation, the result bf16 with ``keep`` (pure mode), else fp32.
+    On the CPU the operands are rounded to bf16 and multiplied in fp32,
+    which is exact per product, as the JAX dot on the CPU. On CUDA it is
+    one bf16 cuBLAS product (fp32 accumulation, bf16 result): PyTorch
+    2.11 has no derivative for ``torch.mm(..., out_dtype=torch.float32)``
+    on bf16, so conservative mode's fp32 result is the bf16 one widened,
+    one rounding more than the JAX op."""
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    if xb.is_cuda:
+        out = torch.matmul(xb, yb)
+        return out if keep else out.float()
+    out = torch.matmul(xb.float(), yb.float())
+    return out.to(torch.bfloat16) if keep else out
+
+
+def match_low_precision(x: torch.Tensor, y: torch.Tensor):
+    """``_match_low_precision`` (``paddle_tpu/ops/basic.py:138-155``): of a
+    bf16 (or fp16) and an fp32 operand, the fp32 one cast down to the
+    other's dtype instead of the result promoted to fp32."""
+    if x.dtype in LOW_PRECISION and y.dtype == torch.float32:
+        y = y.to(x.dtype)
+    elif y.dtype in LOW_PRECISION and x.dtype == torch.float32:
+        x = x.to(y.dtype)
+    return x, y
+
+
+def elementwise_add(x: torch.Tensor, y: torch.Tensor, amp=None
+                    ) -> torch.Tensor:
+    """``x + y`` (``y`` broadcast from the right), the float operands
+    matched by :func:`match_low_precision` where ``amp`` tags
+    ``elementwise_add`` with ``match_dtype``: the models' residual, bias
+    and position-encoding adds."""
+    if policy(amp, "elementwise_add").match_dtype \
+            and x.is_floating_point() and y.is_floating_point():
+        x, y = match_low_precision(x, y)
+    return x + y
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], begin_norm_axis: int = -1,
                eps: float = 1e-5) -> torch.Tensor:
+    """Normalized over the dims from ``begin_norm_axis`` on. A bf16 or
+    fp16 ``x`` takes its statistics in fp32 and is normalized in its own
+    dtype, the scale and bias cast down to it (``nn_ops.py:399-414``)."""
     axes = tuple(range(begin_norm_axis % x.dim(), x.dim()))
-    mean = x.mean(dim=axes, keepdim=True)
-    var = (x - mean).square().mean(dim=axes, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + eps)
+    lowp = x.dtype in LOW_PRECISION
+    xs = x.float() if lowp else x
+    mean = xs.mean(dim=axes, keepdim=True)
+    var = (xs - mean).square().mean(dim=axes, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    if lowp:
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+    else:
+        y = (x - mean) * inv
     norm_shape = x.shape[axes[0]:]
     if weight is not None:
-        y = y * weight.reshape(norm_shape)
+        y = y * weight.reshape(norm_shape).to(y.dtype)
     if bias is not None:
-        y = y + bias.reshape(norm_shape)
+        y = y + bias.reshape(norm_shape).to(y.dtype)
     return y
 
 
 def lookup_table(w: torch.Tensor, ids: torch.Tensor, sparse: bool = False,
-                 padding_idx: Optional[int] = None) -> torch.Tensor:
+                 padding_idx: Optional[int] = None, amp=None
+                 ) -> torch.Tensor:
     """ids [..., 1] or [...] int -> [..., D] rows of ``w`` [V, D]: a
     trailing id dim of 1 is dropped (``nn_ops.py:513``), so ids [B, T]
     give [B, T, D] and so do ids [B, T, 1]. ``padding_idx`` >= 0: the rows
     whose id equals it are zeros, and their gradient is too
     (``:508-512``, ``grad_ops.py:68-71``). ``sparse``: the gradient of
     ``w`` is a sparse tensor with one row per looked-up id (duplicates not
-    yet summed)."""
+    yet summed). Where ``amp`` tags ``lookup_table`` with ``keep_bf16``
+    (pure mode) an fp32 result is cast to bf16; autograd casts its
+    gradient back to fp32 before it reaches the table (``:515-521``)."""
     ids = ids.long()
     keep = ids.shape[:-1] if ids.dim() and ids.shape[-1] == 1 else ids.shape
     flat = ids.reshape(-1)
@@ -97,25 +167,35 @@ def lookup_table(w: torch.Tensor, ids: torch.Tensor, sparse: bool = False,
         out = w[flat]
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((flat == padding_idx)[:, None], 0.0)
+    if policy(amp, "lookup_table").keep_bf16 and out.dtype == torch.float32:
+        out = out.to(torch.bfloat16)
     return out.reshape(*keep, w.shape[-1])
 
 
 def fc(x, w, b: Optional[torch.Tensor] = None,
-       act: Optional[str] = None) -> torch.Tensor:
+       act: Optional[str] = None, amp=None) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b) (+ act: relu, tanh or softmax over
-    the last axis). With a list of inputs and a list of as many weights,
-    the products are summed before the one bias (``layers.fc``,
-    ``fluid/layers/nn.py:25-45``)."""
+    the last axis): the ``mul`` (+ ``sum``) + ``elementwise_add`` + act
+    ops of ``layers.fc`` (``fluid/layers/nn.py:25-45``). With a list of
+    inputs and a list of as many weights, the products are summed before
+    the one bias. Each product is a ``mul`` under ``amp``
+    (:func:`amp_product` where it tags ``mul`` with ``bf16``), the bias
+    add an ``elementwise_add`` (:func:`elementwise_add`)."""
+    tags = policy(amp, "mul")
+
+    def product(xi, wi):
+        return amp_product(xi, wi, tags.keep_bf16) if tags.bf16 \
+            else xi @ wi
     if isinstance(x, (list, tuple)):
         if not isinstance(w, (list, tuple)) or len(w) != len(x):
             raise ValueError("a multi-input fc takes one weight per input")
-        out = x[0] @ w[0]
+        out = product(x[0], w[0])
         for xi, wi in zip(x[1:], w[1:]):
-            out = out + xi @ wi
+            out = out + product(xi, wi)
     else:
-        out = x @ w
+        out = product(x, w)
     if b is not None:
-        out = out + b
+        out = elementwise_add(out, b, amp)
     if act == "relu":
         out = torch.relu(out)
     elif act == "tanh":
@@ -147,28 +227,85 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x, dim=-1)
 
 
+class _SoftmaxCE(torch.autograd.Function):
+    """Hard-label softmax CE over [N, V] logits of any float dtype, in
+    blocks of rows: each block widened to fp32 for its reductions (the
+    streaming form of ``nn_ops.py:575-600``), so no fp32 copy of the
+    whole logits is made and the backward keeps only the logits and the
+    [N] log-sum-exp. The gradient, ``softmax - (1 - eps) * onehot - eps /
+    V`` times the loss's cotangent (0 on ignored rows), is returned in
+    the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, lab, eps, ignore_index):
+        n, v = logits.shape
+        rows = max(1, CE_BLOCK_ELEMS // max(v, 1))
+        loss = torch.empty((n, 1), dtype=torch.float32,
+                           device=logits.device)
+        lse = torch.empty_like(loss)
+        safe = lab.clamp(0, v - 1)
+        for i in range(0, n, rows):
+            z = logits[i:i + rows].float()
+            m = z.amax(dim=-1, keepdim=True)
+            blk = m + torch.log(torch.exp(z - m).sum(dim=-1, keepdim=True))
+            picked = z.gather(-1, safe[i:i + rows])
+            out = blk - picked
+            if eps:
+                out = out + eps * (picked - z.mean(dim=-1, keepdim=True))
+            loss[i:i + rows] = out
+            lse[i:i + rows] = blk
+        loss = torch.where(lab == ignore_index, torch.zeros_like(loss), loss)
+        ctx.save_for_backward(logits, lab, lse)
+        ctx.args = (eps, ignore_index)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lab, lse = ctx.saved_tensors
+        eps, ignore_index = ctx.args
+        n, v = logits.shape
+        rows = max(1, CE_BLOCK_ELEMS // max(v, 1))
+        g = torch.where(lab == ignore_index, torch.zeros_like(g),
+                        g.float())
+        safe = lab.clamp(0, v - 1)
+        dz = torch.empty_like(logits)
+        for i in range(0, n, rows):
+            z = logits[i:i + rows].float()
+            d = torch.exp(z - lse[i:i + rows])
+            if eps:
+                d = d - eps / v
+            d = d.scatter_add(-1, safe[i:i + rows], torch.full_like(
+                lse[i:i + rows], -(1.0 - eps)))
+            dz[i:i + rows] = d * g[i:i + rows]
+        return dz, None, None, None
+
+
 def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
                                label_smoothing: float = 0.0,
                                ignore_index: int = -100) -> torch.Tensor:
     """logits [..., V], integer label [..., 1] (or [...]) -> loss [..., 1]
-    (fp32). The max is taken off the graph, as the JAX op stops its
-    gradient; the result and its gradient are those of ``-sum(q *
-    log_softmax(logits))`` with ``q = (1 - eps) * onehot + eps / V``."""
-    lg = logits.to(torch.float32)
-    m = lg.detach().amax(dim=-1, keepdim=True)
-    lse = m + torch.log(torch.exp(lg - m).sum(dim=-1, keepdim=True))
-    lab = label.reshape(logits.shape[:-1] + (1,)).long()
-    picked = lg.gather(-1, lab.clamp(0, logits.shape[-1] - 1))
-    loss = lse - picked
-    if label_smoothing:
-        loss = loss + label_smoothing * (picked
-                                         - lg.mean(dim=-1, keepdim=True))
-    return torch.where(lab == ignore_index, torch.zeros_like(loss), loss)
+    (fp32): ``lse - picked`` with closed-form label smoothing ``+ eps *
+    (picked - mean(logits))`` and ``ignore_index`` rows at 0, reduced in
+    fp32 from logits of any float dtype (:class:`_SoftmaxCE`). The result
+    and its gradient are those of ``-sum(q * log_softmax(logits))`` with
+    ``q = (1 - eps) * onehot + eps / V``."""
+    v = logits.shape[-1]
+    lab = label.reshape(-1, 1).long()
+    loss = _SoftmaxCE.apply(logits.reshape(-1, v), lab,
+                            float(label_smoothing), int(ignore_index))
+    return loss.reshape(logits.shape[:-1] + (1,))
 
 
-def matmul(x: torch.Tensor, y: torch.Tensor,
-           transpose_y: bool = False) -> torch.Tensor:
-    return torch.matmul(x, y.transpose(-1, -2) if transpose_y else y)
+def matmul(x: torch.Tensor, y: torch.Tensor, transpose_y: bool = False,
+           amp=None) -> torch.Tensor:
+    """``x @ y`` (``y`` transposed on its last two axes with
+    ``transpose_y``), a tagged ``matmul`` through :func:`amp_product`
+    (``math_ops.py:50-66``)."""
+    y = y.transpose(-1, -2) if transpose_y else y
+    tags = policy(amp, "matmul")
+    if tags.bf16:
+        return amp_product(x, y, tags.keep_bf16)
+    return torch.matmul(x, y)
 
 
 def mean(x: torch.Tensor) -> torch.Tensor:
@@ -207,12 +344,17 @@ def accuracy(prob: torch.Tensor, label: torch.Tensor, k: int = 1):
 
 def fused_linear_ce(x: torch.Tensor, w: torch.Tensor, label: torch.Tensor,
                     label_smoothing: float = 0.0,
-                    ignore_index: int = -100) -> torch.Tensor:
+                    ignore_index: int = -100, amp=None) -> torch.Tensor:
     """X [N, D] @ W [D, V] and the label-smoothed softmax CE of Label
     [N, 1] int -> Loss [N, 1], the logits never materialized on the card.
     Every shape goes to the fused function: the JAX op's ``supported``
     gate is a TPU tiling rule, and its composed branch computes the same
-    function."""
+    function. Where ``amp`` tags ``fused_linear_ce`` with ``bf16``, x and
+    W are cast to bf16 first (``nn_ops.py:625-640``), so on the card the
+    bf16 kernels run; the loss stays fp32 and W's gradient comes back in
+    fp32 through the cast."""
+    if policy(amp, "fused_linear_ce").bf16:
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
     return _fused_ce.fused_linear_ce(x, w, label.reshape(-1),
                                      label_smoothing, ignore_index)
 
@@ -232,6 +374,11 @@ def sigmoid_cross_entropy_with_logits(x: torch.Tensor, label: torch.Tensor,
     if normalize:
         loss = loss / torch.clamp_min((~ignored).to(x.dtype).sum(), 1.0)
     return loss
+
+
+def square_error_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``(x - y) ** 2`` elementwise (``nn_ops.py:666``)."""
+    return torch.square(x - y)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

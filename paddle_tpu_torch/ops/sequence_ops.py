@@ -90,7 +90,8 @@ def sequence_conv(x: torch.Tensor, filt: torch.Tensor,
     the rows t + context_start .. t + context_start + context_length - 1
     of the masked x (zeros outside [0, T) and past each length),
     flattened and multiplied by the filter; the rows past each length are
-    0."""
+    0. A bf16 x and an fp32 filter multiply in fp32 and give fp32, as the
+    JAX op's ``einsum`` promotes them (``sequence_ops.py:155-180``)."""
     if context_start is None:
         context_start = default_context_start(context_length)
     b, t, d = x.shape
@@ -106,5 +107,6 @@ def sequence_conv(x: torch.Tensor, filt: torch.Tensor,
         valid = ((idx >= 0) & (idx < t)).to(x.dtype)
         cols.append(xm.index_select(1, idx.clamp(0, t - 1))
                     * valid[None, :, None])
-    out = torch.matmul(torch.cat(cols, dim=-1), filt)
+    wide = torch.promote_types(x.dtype, filt.dtype)
+    out = torch.matmul(torch.cat(cols, dim=-1).to(wide), filt.to(wide))
     return out * mask

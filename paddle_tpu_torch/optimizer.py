@@ -7,6 +7,9 @@ and epsilon is added to ``sqrt(m2)`` unscaled. A dense gradient takes the
 dense branch (``:140-149``); a row-sparse one (``lookup_table(...,
 sparse=True)``) the sparse branches (``:102-139``).
 
+:class:`SGD` is ``SGDOptimizer`` (rule ``ops/optimizer_ops.py:23-36``
+``_sgd``): ``p - lr * g``, dense gradients only.
+
 :class:`Adagrad` is ``AdagradOptimizer`` (``optimizer.py:268-287``, rule
 ``ops/optimizer_ops.py:173-182``), not ``torch.optim.Adagrad``: no
 learning-rate decay, no initial accumulator, epsilon outside the root.
@@ -123,6 +126,32 @@ class Adam(torch.optim.Optimizer):
         m1.mul_(b1).index_add_(0, rows, (1.0 - b1) * vals)
         m2.mul_(b2).index_add_(0, rows, (1.0 - b2) * vals * vals)
         p.sub_(lr_t * m1 / (torch.sqrt(m2) + eps))
+
+
+class SGD(torch.optim.Optimizer):
+    """``p -= lr * g`` in place, the product rounded before the
+    subtraction as in the JAX op, ``lr`` a float32 value (or a schedule,
+    read once per :meth:`step`). Parameters without a gradient are
+    skipped; a row-sparse gradient raises (the port's trainers give SGD
+    none)."""
+
+    def __init__(self, params,
+                 learning_rate: Union[float, Callable] = 1e-3):
+        self.schedule, lr = _rate(learning_rate)
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self):
+        scheduled = self.schedule() if self.schedule is not None else None
+        for group in self.param_groups:
+            rate = float(np.float32(group["lr"] if scheduled is None
+                                    else scheduled))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                if p.grad.is_sparse:
+                    raise ValueError("SGD takes dense gradients only")
+                p.sub_(p.grad * rate)
 
 
 class Adagrad(torch.optim.Optimizer):
