@@ -39,6 +39,20 @@ final line:
    layer. Then, per codec, a profiler window of 20 decode steps with
    every slot busy: device busy per step, idle share, and by profiler
    name that every page gather ran that codec's kernel.
+4b. Speculative decoding: phase 4's model and requests through the spec
+   engine (``make_slot_model(..., spec_k=4)``), per codec: (a) the
+   n-gram drafter, (b) a scripted drafter proposing (a)'s own streams
+   (full windows until a budget's end), each checked as phase 4 checks
+   its streams (int8: a second scripted run replays), with tokens/s,
+   verify dispatches, drafts proposed / accepted and the tokens
+   committed per slot per dispatch; the page gathers launched twice per
+   layer a verify dispatch (counts zeroed just before each run, read
+   just after); (c) a profiler window of 20 verify dispatches of 16 full
+   windows: device busy per dispatch and per committed token beside
+   phase 4's decode step, idle share, ``token_sample``'s sort share, and
+   by profiler name and launch count every page gather that codec's
+   kernel; (d) fp32 only, the ``ModelDrafter`` over the target model on
+   4 requests of budget 32, checked against the oracle.
 5. Flash kernels: the flash-attention forward (on the tensor cores up to
    head width 128, fp32 through 3xTF32; a second call bit-equal), the
    one-pass backward (``flash_bwd``: dQ, dK and dV in one launch on the
@@ -369,6 +383,9 @@ SERVE = dict(n_slots=16, prompt_buckets=(32, 64, 128), page_size=16,
              n_pages=256)
 CACHE_LEN = 256                    # largest bucket 128 + max_new 128
 N_REQUESTS = 24
+SPEC = dict(spec_k=4)              # phase 4b's verify window: K + 1 = 5
+MODEL_DRAFTER_REQUESTS = 4
+MODEL_DRAFTER_BUDGET = 32
 DECODE_PROFILE_STEPS = 20
 SAMPLED = (5, 11, 17, 23)          # request indices served with sampling
 SAMPLING = dict(temperature=0.8, top_k=40)
@@ -863,7 +880,8 @@ def decode_busy(torch, engine, card, label, kname, per_layer,
     out = {"device_busy_ms_per_step": busy_us / steps / 1e3,
            "host_ms_per_step": wall_ms / steps,
            "gather_us_per_step": gather_us / steps,
-           "launches_per_step": sum(ev.count for ev in kernels) / steps}
+           "launches_per_step": sum(ev.count for ev in kernels) / steps,
+           "top_host_ops_us_per_step": host_top(torch, prof, steps)}
     out["idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out[
         "host_ms_per_step"]
     print(f"[{card}] {label} profile ({steps} decode steps of "
@@ -873,7 +891,8 @@ def decode_busy(torch, engine, card, label, kname, per_layer,
           f"{out['host_ms_per_step']:.3f} ms/step "
           f"(profiler on), idle share {out['idle_share']:.3f}; page gathers "
           f"{out['gather_us_per_step']:.1f} us/step, {per_layer} a step, "
-          f"all {want}")
+          f"all {want}; top host ops us/step (self CPU time) "
+          f"{json.dumps(rounded(out['top_host_ops_us_per_step']))}")
     return out
 
 
@@ -924,7 +943,288 @@ def slice_phase(torch, dev, card):
                                f"kv_codec={codec}", kname, per_layer)
             for codec, kname in (("none", "gather_rows"),
                                  ("int8", "gather_rows_dequant"))}
-    return main_path_launches, per_layer, busy
+    return main_path_launches, per_layer, busy, dict(lm=lm, reqs=reqs,
+                                                     streams=streams)
+
+
+# -- phase 4b: speculative decoding ------------------------------------------
+
+class ScriptedDrafter:
+    """Proposes the continuation of a known stream (prompt + tokens) of
+    the request whose prompt begins the history, so windows are full
+    until a budget's end; nothing where the history has left that stream
+    (a near tie the verify step resolved otherwise)."""
+
+    def __init__(self, prompts, streams):
+        self.targets = {tuple(int(t) for t in p):
+                        [int(t) for t in p] + [int(t) for t in s]
+                        for p, s in zip(prompts, streams)}
+        self.lengths = sorted({len(p) for p in self.targets}, reverse=True)
+
+    def propose(self, tokens, k):
+        n = len(tokens)
+        for length in self.lengths:
+            target = self.targets.get(tuple(tokens[:length]))
+            if target is not None:
+                return target[n:n + k] if target[:n] == list(tokens) \
+                    else []
+        return []
+
+
+def spec_stats(engine, before, label, card):
+    """The verify dispatches, proposed / accepted drafts and the mean
+    tokens committed per slot per dispatch since ``before`` (a copy of
+    the engine's counters)."""
+    commits = engine.tokens_per_step - before["tokens_per_step"]
+    out = {"verify_dispatches": engine.decode_steps - before["decode_steps"],
+           "proposed": engine.spec_proposed - before["spec_proposed"],
+           "accepted": engine.spec_accepted - before["spec_accepted"],
+           "committed_per_slot_dispatch":
+               sum(n * c for n, c in commits.items())
+               / max(1, sum(commits.values())),
+           "commits": dict(sorted(commits.items()))}
+    print(f"[{card}] {label}: {out['verify_dispatches']} verify dispatches, "
+          f"{out['proposed']} drafts proposed, {out['accepted']} accepted; "
+          f"{out['committed_per_slot_dispatch']:.3f} tokens committed per "
+          f"slot per dispatch (by count: {json.dumps(out['commits'])})")
+    return out
+
+
+def counters(engine):
+    return {"decode_steps": engine.decode_steps,
+            "spec_proposed": engine.spec_proposed,
+            "spec_accepted": engine.spec_accepted,
+            "tokens_per_step": engine.tokens_per_step.copy()}
+
+
+def spec_serve(torch, engine, reqs, card, label, pa, kname, per_layer):
+    """One ``generate`` of ``reqs`` on the spec engine (timed as
+    :func:`serve`), its speculation counters, and the page gathers: the
+    launch counts zeroed just before and read just after, ``per_layer``
+    a verify dispatch, all ``kname``."""
+    before = counters(engine)
+    timed = engine.drafter = TimedDrafter(engine.drafter)
+    pa.reset_launches()
+    try:
+        streams, stats = serve(torch, engine, reqs, card, label)
+    finally:
+        engine.drafter = timed.drafter
+    launches = dict(pa.LAUNCHES)
+    stats.update(spec_stats(engine, before, label, card))
+    stats["drafter_ms_per_dispatch"] = (timed.seconds * 1e3
+                                        / stats["verify_dispatches"])
+    print(f"[{card}] {label}: the drafter took "
+          f"{stats['drafter_ms_per_dispatch']:.3f} ms of host time a "
+          f"dispatch")
+    want = {k: per_layer * stats["verify_dispatches"] if k == kname else 0
+            for k in launches}
+    if launches != want:
+        fail(f"{label}: the page gathers launched {launches}, want {want}")
+    stats["launches"] = launches
+    return streams, stats
+
+
+def verify_busy(torch, engine, card, label, kname, per_layer, decode,
+                steps=DECODE_PROFILE_STEPS):
+    """Device busy per verify dispatch and per committed token with every
+    slot busy and every window full (16 seeded 64-token prompts, budget
+    128: their streams first taken with the n-gram drafter, then drafted
+    by :class:`ScriptedDrafter`; 5 untraced dispatches, then ``steps`` in
+    a profiler window), beside phase 4's decode step (``decode``); by
+    profiler name and by the launch counts (zeroed just before the
+    window, read just after) every page gather ran ``kname``'s kernel,
+    ``per_layer`` a dispatch; the sort of ``token_sample`` and the
+    gathers' shares of device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, LM["vocab"], 64) for _ in range(engine.n_slots)]
+    drafter = engine.drafter
+    streams = engine.generate(prompts, max_new=128)
+    engine.drafter = ScriptedDrafter(prompts, streams)
+    try:
+        for p in prompts:
+            engine.admit(p, max_new=128)
+        for _ in range(5):
+            engine.step()
+        before = counters(engine)
+        torch.cuda.synchronize()
+        pa.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(pa.LAUNCHES)
+        stats = spec_stats(engine, before, f"{label} profile window", card)
+    finally:
+        engine.drafter = drafter
+        engine.reset()
+    committed = stats["committed_per_slot_dispatch"] * engine.n_slots * steps
+    if stats["proposed"] != stats["accepted"] or \
+            committed != (SPEC["spec_k"] + 1) * engine.n_slots * steps:
+        fail(f"{label}: the profile window's windows were not all full "
+             f"and accepted: {stats}")
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    want = {"gather_rows": "gather_rows_kernel",
+            "gather_rows_dequant": "gather_rows_dequant_kernel"}[kname]
+    ran = {ev.key: ev.count for ev in kernels if "gather_rows" in ev.key}
+    if sum(ran.values()) != per_layer * steps or any(
+            want not in key for key in ran):
+        fail(f"{label}: the page gathers of {steps} verify dispatches ran "
+             f"{ran}, want {per_layer * steps} of {want}")
+    if launches.get(kname) != per_layer * steps or \
+            sum(launches.values()) != per_layer * steps:
+        fail(f"{label}: the launch counts of {steps} verify dispatches are "
+             f"{launches}, want {per_layer * steps} of {kname}")
+    gather_us = sum(ev.self_device_time_total for ev in kernels
+                    if "gather_rows" in ev.key)
+    sort_us = sum(ev.self_device_time_total for ev in kernels
+                  if "sort" in ev.key.lower())
+    top = {}
+    for ev in kernels:
+        top[ev.key[:60]] = top.get(ev.key[:60], 0.0) + \
+            ev.self_device_time_total / steps
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
+    out = {"device_busy_ms_per_dispatch": busy_us / steps / 1e3,
+           "host_ms_per_dispatch": wall_ms / steps,
+           "tokens_per_dispatch": committed / steps,
+           "gather_us_per_dispatch": gather_us / steps,
+           "sort_share": sort_us / busy_us,
+           "gather_share": gather_us / busy_us,
+           "launches_per_dispatch": sum(ev.count for ev in kernels) / steps,
+           "top_kernels_us_per_dispatch": top,
+           "top_host_ops_us_per_dispatch": host_top(torch, prof, steps)}
+    out["device_busy_ms_per_token"] = (out["device_busy_ms_per_dispatch"]
+                                       / out["tokens_per_dispatch"])
+    out["idle_share"] = 1.0 - out["device_busy_ms_per_dispatch"] / out[
+        "host_ms_per_dispatch"]
+    out["decode_busy_ms_per_token"] = (decode["device_busy_ms_per_step"]
+                                       / engine.n_slots)
+    print(f"[{card}] {label} profile ({steps} verify dispatches of "
+          f"{engine.n_slots} full windows of {SPEC['spec_k'] + 1}): device "
+          f"busy {out['device_busy_ms_per_dispatch']:.3f} ms/dispatch = "
+          f"{out['device_busy_ms_per_token'] * 1e3:.2f} us/token (phase 4's "
+          f"decode step: {decode['device_busy_ms_per_step']:.3f} ms/step = "
+          f"{out['decode_busy_ms_per_token'] * 1e3:.2f} us/token), host "
+          f"{out['host_ms_per_dispatch']:.3f} ms/dispatch (profiler on), "
+          f"idle share {out['idle_share']:.3f}; page gathers "
+          f"{out['gather_us_per_dispatch']:.1f} us/dispatch "
+          f"({out['gather_share']:.3f} of device time), {per_layer} a "
+          f"dispatch, all {want}; token_sample's sort "
+          f"{out['sort_share']:.3f} of device time; "
+          f"{out['launches_per_dispatch']:.1f} launches a dispatch; top "
+          f"kernels us/dispatch {json.dumps(rounded(top))}; top host ops "
+          f"us/dispatch (self CPU time) "
+          f"{json.dumps(rounded(out['top_host_ops_us_per_dispatch']))}")
+    return out
+
+
+def rounded(d):
+    return {k: round(v, 1) for k, v in d.items()}
+
+
+def host_top(torch, prof, steps, n=6):
+    """The ``n`` host ops of a profiler window with the most self CPU time,
+    us a step."""
+    ops = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CPU
+           and ev.self_cpu_time_total > 0]
+    ops.sort(key=lambda ev: -ev.self_cpu_time_total)
+    return {ev.key[:60]: ev.self_cpu_time_total / steps for ev in ops[:n]}
+
+
+class TimedDrafter:
+    """A drafter's proposals and the host time they take."""
+
+    def __init__(self, drafter):
+        self.drafter = drafter
+        self.seconds = 0.0
+
+    def propose(self, tokens, k):
+        t = time.perf_counter()
+        try:
+            return self.drafter.propose(tokens, k)
+        finally:
+            self.seconds += time.perf_counter() - t
+
+
+def spec_phase(torch, dev, card, served, per_layer, decode):
+    """Phase 4b: phase 4's DecoderLM and requests through the spec
+    engine (``spec_k`` 4) for both codecs: (a) the n-gram drafter, (b) a
+    scripted drafter replaying (a)'s streams, (c) a profiler window of
+    full windows, and (d), fp32 only, the ModelDrafter over the target
+    itself on 4 requests of budget 32."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving.engine import (ModelDrafter, NgramDrafter,
+                                                 make_slot_model)
+    lm, reqs = served["lm"], served["reqs"]
+    out = {}
+    for codec, kname in (("none", "gather_rows"),
+                         ("int8", "gather_rows_dequant")):
+        engine = make_slot_model(f"decoder_lm_spec_{codec}", lm,
+                                 kv_codec=codec, device=dev, **SERVE, **SPEC)
+        engine.warmup()
+        label = f"spec kv_codec={codec}"
+        streams, ngram = spec_serve(torch, engine, reqs, card,
+                                    f"{label} ngram", pa, kname, per_layer)
+        engine.drafter = ScriptedDrafter(reqs[0], streams)
+        scripted_streams, scripted = spec_serve(
+            torch, engine, reqs, card, f"{label} scripted", pa, kname,
+            per_layer)
+        if codec == "none":
+            for name, ss in (("ngram", streams),
+                             ("scripted", scripted_streams)):
+                ties = oracle_check(torch, lm, reqs, ss, f"{label} {name}")
+                print(f"[{card}] {label} {name}: {N_REQUESTS} streams equal "
+                      f"the fp32 full-view oracle ({ties} near ties)")
+        else:
+            again, _ = spec_serve(torch, engine, reqs, card,
+                                  f"{label} scripted replay", pa, kname,
+                                  per_layer)
+            if any(not np.array_equal(a, b)
+                   for a, b in zip(scripted_streams, again)):
+                fail(f"{label}: a second scripted run gave other streams")
+            for name, ss in (("ngram", streams),
+                             ("scripted", scripted_streams)):
+                ties = oracle_check(torch, lm, reqs, ss, f"{label} {name}",
+                                    first_only=True)
+                print(f"[{card}] {label} {name}: first tokens equal the "
+                      f"oracle's ({ties} near ties)")
+            print(f"[{card}] {label}: a second scripted run replays every "
+                  f"stream")
+        same = sum(np.array_equal(a, b)
+                   for a, b in zip(streams, served["streams"][codec]))
+        print(f"[{card}] {label}: {same} of {N_REQUESTS} streams equal "
+              f"phase 4's (the verify products have M 80, not 16)")
+        engine.drafter = NgramDrafter()
+        busy = verify_busy(torch, engine, card, label, kname, per_layer,
+                           decode[codec])
+        out[codec] = {"ngram": ngram, "scripted": scripted, "busy": busy,
+                      "same_as_phase_4": int(same)}
+        if codec == "none":
+            prompts, budgets, temps, topks, seeds = (
+                r[:MODEL_DRAFTER_REQUESTS] for r in reqs)
+            small = (prompts, [MODEL_DRAFTER_BUDGET] * len(prompts), temps,
+                     topks, seeds)
+            engine.drafter = ModelDrafter(lm)
+            model_streams, model = spec_serve(
+                torch, engine, small, card, f"{label} ModelDrafter", pa,
+                kname, per_layer)
+            ties = oracle_check(torch, lm, small, model_streams,
+                                f"{label} ModelDrafter")
+            print(f"[{card}] {label} ModelDrafter: "
+                  f"{MODEL_DRAFTER_REQUESTS} streams equal the fp32 "
+                  f"full-view oracle ({ties} near ties); acceptance "
+                  f"{model['accepted']} / {model['proposed']}")
+            out[codec]["model_drafter"] = model
+        del engine
+    return out
 
 
 # -- phase 5: flash kernels -------------------------------------------------
@@ -4048,8 +4348,6 @@ def main():
     from paddle_tpu_torch.ops.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 products sum in fp32, as the reference's dots
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -4074,7 +4372,9 @@ def main():
     measured = kernel_phase(torch, dev, card)
     flash = flash_phase(torch, dev, card)
     fce = fused_ce_phase(torch, dev, card)
-    launches, per_layer, decode = slice_phase(torch, dev, card)
+    launches, per_layer, decode, served = slice_phase(torch, dev, card)
+    spec = spec_phase(torch, dev, card, served, per_layer, decode)
+    del served
     train_launches, per_step, runs = train_phase(torch, dev, card)
     lstm = rnn_phase(torch, dev, card, "LSTM")
     lstm_launches, lstm_per_step, lstm_run = lstm_train_phase(torch, dev,
@@ -4096,9 +4396,10 @@ def main():
     flash_launches = train_launches["fused_attention"]
 
     kernels = []
-    for kname, key, line in (
-            ("gather_rows", "gather_rows/fp32", 78),
-            ("gather_rows_dequant", "gather_rows_dequant/int8", 140)):
+    for kname, key, line, codec in (
+            ("gather_rows", "gather_rows/fp32", 78, "none"),
+            ("gather_rows_dequant", "gather_rows_dequant/int8", 140,
+             "int8")):
         m = measured[key]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE,
@@ -4115,8 +4416,9 @@ def main():
             "device_ms": m["device_ms"],
             "library_device_ms": m["library_device_ms"],
             "launches_per_decode_step": per_layer,
-            "decode_step": decode["none" if kname == "gather_rows"
-                                  else "int8"],
+            "decode_step": decode[codec],
+            "launches_verify": spec[codec]["ngram"]["launches"][kname],
+            "verify_step": spec[codec]["busy"],
             "launches_per_train_step": 0, "card": card})
     for kname, line in (("flash_fwd", "189"), ("flash_bwd", "481, :504"),
                         ("flash_dq", "481"), ("flash_dkv", "504")):
@@ -4252,7 +4554,7 @@ def main():
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
     bf16 = measured["gather_rows/bf16"]
     print(json.dumps({"gather_rows_bf16": bf16, "decode_steps": decode,
-                      "card": card}))
+                      "speculative": spec, "card": card}))
     print(json.dumps({"flash": {key: row for key, row in flash.items()
                                 if not key.startswith("block/")},
                       "card": card}))

@@ -16,6 +16,11 @@ One :class:`DecoderLM` holds the weights; its views are methods:
 - :meth:`DecoderLM.decode_paged` -- one token for every slot of the
   pool: K/V read and written through the ``[n_slots, max_pages]`` page
   table, next tokens sampled on the device (``"decode_paged"``).
+- :meth:`DecoderLM.decode_verify_paged` -- the speculative-decoding
+  verify step: a ``[n_slots, K+1]`` window (each slot's last committed
+  token and K drafts) scored in one causal pass over the paged pool,
+  every window position sampled on the device
+  (``"decode_verify_paged"``).
 
 The paged pools live in a :class:`PagedKVCache` that the serving engine
 owns and passes to the views; :func:`paged_geometry` validates its
@@ -71,13 +76,15 @@ def position_encoding(max_len: int, d_model: int) -> np.ndarray:
 class PagedGeometry:
     """The paged pool's geometry: ``n_pages`` pages of ``page_size``
     rows per layer, ``max_pages = cache_len / page_size`` table entries
-    per slot, K/V stored per ``kv_codec``."""
+    per slot, K/V stored per ``kv_codec``; ``spec_k`` drafted tokens a
+    verify window (None: the engine decodes one token a step)."""
     cache_len: int
     n_slots: int
     page_size: int
     n_pages: int
     max_pages: int
     kv_codec: str
+    spec_k: Optional[int] = None
 
     @property
     def store_dtype(self) -> torch.dtype:
@@ -87,14 +94,29 @@ class PagedGeometry:
 def paged_geometry(prompt_len: int, cache_len: int, n_slots: int,
                    page_size: Optional[int] = None,
                    n_pages: Optional[int] = None,
-                   kv_codec: str = "none") -> PagedGeometry:
+                   kv_codec: str = "none",
+                   spec_k: Optional[int] = None) -> PagedGeometry:
     """Validate and complete a paged geometry: ``page_size`` (default 4)
     must divide ``cache_len``; ``n_pages`` defaults to the contiguous
     pool's capacity ``n_slots * max_pages`` and must hold at least one
-    whole request."""
+    whole request. ``spec_k``, the verify window's drafted tokens (None:
+    no verify view; the JAX view's default is 4), must be at least 1,
+    and its K+1 window must fit the generated region ``cache_len -
+    prompt_len`` plus the row of the last committed token
+    (``analysis/contracts.py:154-162``)."""
     prompt_len, cache_len = int(prompt_len), int(cache_len)
     if prompt_len > cache_len:
         raise ValueError(f"prompt_len {prompt_len} > cache_len {cache_len}")
+    if spec_k is not None:
+        spec_k = int(spec_k)
+        if spec_k < 1:
+            raise ValueError(f"spec_k {spec_k} < 1 -- the verify view "
+                             f"needs at least one drafted token")
+        if spec_k + 1 > cache_len - prompt_len + 1:
+            raise ValueError(
+                f"spec_k {spec_k}: the K+1={spec_k + 1} verify window "
+                f"exceeds the generated region (cache_len {cache_len} - "
+                f"prompt_len {prompt_len})")
     if not n_slots or int(n_slots) < 1:
         raise ValueError(f"paged serving needs n_slots >= 1, got {n_slots}")
     page_size = int(page_size) if page_size else 4
@@ -109,7 +131,7 @@ def paged_geometry(prompt_len: int, cache_len: int, n_slots: int,
     if kv_codec not in KV_CODECS:
         raise ValueError(f"kv_codec {kv_codec!r} not in {KV_CODECS}")
     return PagedGeometry(cache_len, int(n_slots), page_size, n_pages,
-                         max_pages, kv_codec)
+                         max_pages, kv_codec, spec_k)
 
 
 class PagedKVCache:
@@ -274,30 +296,57 @@ class DecoderLM(nn.Module):
         true prompt length, first generated position, live flag),
         seed/sample_step/temperature/top_k [S, 1] (sampling state),
         page_table [S, max_pages] -> next tokens [S, 1]. Inactive slots
-        ride along masked: their pages are not written."""
+        ride along masked: their pages are not written. The verify
+        view's window of one."""
+        return self.decode_verify_paged(tok, pos, seq_len, gen_start,
+                                        active, None, seed, sample_step,
+                                        temperature, top_k, page_table,
+                                        cache)
+
+    @torch.no_grad()
+    def decode_verify_paged(self, tok, pos, seq_len, gen_start, active,
+                            win_len, seed, sample_step, temperature, top_k,
+                            page_table, cache: PagedKVCache) -> torch.Tensor:
+        """One speculative verify step over every slot: tok [S, K1] (each
+        slot's last committed token, then its drafts), pos/seq_len/
+        gen_start/active/win_len [S, 1] (the cache row of window position
+        0, true prompt length, first generated position, live flag,
+        valid window positions; win_len None: all K1), seed/sample_step/
+        temperature/top_k [S, K1] (the sampling state of each window
+        position: sample_step[b, i] = gen_count[b] + i), page_table
+        [S, max_pages] -> the token sampled at every window position
+        [S, K1]. Window positions < win_len of live slots write their
+        K/V rows; the rest ride along masked."""
         dev = self.device
         g = cache.geometry
-        geom = kva.decode_geometry(page_table, pos, seq_len, gen_start,
-                                   active, g.n_pages, g.page_size, dev)
-        # semantic position: seq_len + generated-so-far; prompts are
-        # right-padded to their bucket, the cache row is storage only
-        sem = (seq_len.reshape(-1).long()
-               + pos.reshape(-1).long() - gen_start.reshape(-1).long())
+        s, k1 = sample_step.shape
+        geom = kva.verify_geometry(page_table, pos, seq_len, gen_start,
+                                   active, win_len, k1, g.n_pages,
+                                   g.page_size, dev)
+        # semantic position of window position i: seq_len + generated-
+        # so-far + i (= seq_len + sample_step - 1); prompts are right-
+        # padded to their bucket, the cache row is storage only. Clamped:
+        # a free slot's is -1, and positions past win_len may run past
+        # the table; neither is committed
+        sem = (seq_len.reshape(-1, 1).long() + pos.reshape(-1, 1).long()
+               - gen_start.reshape(-1, 1).long()
+               + torch.arange(k1, device=sample_step.device))
         sem = sem.clamp(0, self.cache_len - 1)
         tok, sem, seed, sample_step, temperature, top_k = self._to_device(
-            tok.reshape(-1, 1), sem[:, None], seed, sample_step,
-            temperature, top_k)
+            tok.reshape(s, k1), sem, seed, sample_step, temperature, top_k)
         x = self._embed(tok, sem)
         h, codec = self.n_head, g.kv_codec
         for i, layer in enumerate(self.layers):
             def attend(a, wq, wk, wv, wo, i=i):
-                return kva.decode_paged_layer(
+                return kva.verify_paged_layer(
                     a, wq, wk, wv, wo, cache.k[i], cache.v[i], cache.ks[i],
                     cache.vs[i], geom, h, codec)
             x = layer(x, attend)
-        logits = self._logits(x[:, 0])                       # [S, V]
-        return kva.token_sample(logits, temperature, top_k, seed,
-                                sample_step)
+        logits = self._logits(x).reshape(s * k1, -1)         # [S*K1, V]
+        out = kva.token_sample(logits, temperature.reshape(-1, 1),
+                               top_k.reshape(-1, 1), seed.reshape(-1, 1),
+                               sample_step.reshape(-1, 1))
+        return out.view(s, k1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Paged KV-cache attention and on-device token sampling: the serving
 ops of the decoder LM (counterpart of ``paddle_tpu/ops/kv_attention.py``,
-paged layout).
+paged layout: prefill, decode and the speculative verify window).
 
 Same numerics as the JAX emitters: every dot accumulates in fp32 and is
 cast back to the compute dtype, the softmax runs in fp32 over scores
@@ -19,9 +19,11 @@ inactive slot, and writing it would break the copy-on-write contract of
 
 The per-step geometry (which rows each slot reads, which rows it
 writes, which positions it may attend to) is computed once per step by
-:func:`decode_geometry` and shared by every layer; where the caller's
-index tensors lie on the CPU, it is computed there and moved to the
-pools' device in one copy each, so no layer waits on the device.
+:func:`verify_geometry` (a speculative window of K+1 tokens a slot; a
+decode step is the window of one) and shared by every layer;
+where the caller's index tensors lie on the CPU, it is computed there
+and moved to the pools' device in one copy each, so no layer waits on
+the device.
 """
 
 from __future__ import annotations
@@ -129,39 +131,51 @@ def paged_write(flat: torch.Tensor, fscale: Optional[torch.Tensor],
         flat.index_copy_(0, write.dst, vals.to(flat.dtype))
 
 
-class DecodeGeometry(NamedTuple):
-    """One decode step's index sets, shared by every layer."""
+class VerifyGeometry(NamedTuple):
+    """One decode or verify step's index sets, shared by every layer."""
     rows: torch.Tensor       # [B * S] int32 gather rows (sentinels >= R)
-    valid: torch.Tensor      # [B, S] bool: positions a slot attends to
-    write: RowWrite          # this step's K/V row per active slot
+    valid: torch.Tensor      # [B, K1, S] bool: positions each window
+    #                          position attends to (causal in the window)
+    write: RowWrite          # the window's K/V rows, [B * K1] flattened
 
 
-def decode_geometry(page_table, pos, seq_len, gen_start, active,
-                    n_pages: int, page_size: int,
-                    device: torch.device) -> DecodeGeometry:
-    """The paged decode's geometry (kv_attention.py:346-383) from the
+def verify_geometry(page_table, pos, seq_len, gen_start, active, win_len,
+                    k1: int, n_pages: int, page_size: int,
+                    device: torch.device) -> VerifyGeometry:
+    """The paged verify's geometry (kv_attention.py:510-527) from the
     step's feeds: PageTable [B, MP] int (sentinel n_pages past a slot's
-    span), Pos/SeqLen/GenStart/Active [B] or [B, 1] int. Computed where
-    the feeds lie, then moved to ``device``."""
+    span), Pos/SeqLen/GenStart/Active/WinLen [B] or [B, 1] int (WinLen
+    None: all ``k1`` positions), and the window length ``k1``. Window
+    position ``i`` writes logical position ``pos + i`` through the page
+    table where the slot is active, ``i < win_len`` and ``pos + i`` lies
+    inside the table's span, else the sentinel (the write drops; a free
+    slot's pages stay bit-identical); it attends over {j < seq_len} U
+    {gen_start <= j <= pos + i}. A decode step is the window of one
+    (``k1`` 1, kv_attention.py:346-383). Computed where the feeds lie,
+    then moved to ``device``."""
     table = page_table.long()
     b, mp = table.shape
     ps = int(page_size)
     rtot = int(n_pages) * ps
+    s_len = mp * ps
     pos = pos.reshape(-1).long()
     lens = seq_len.reshape(-1).long()
     gen0 = gen_start.reshape(-1).long()
     act = active.reshape(-1) > 0
-    # this step's write row through the page table; inactive slots get
-    # the sentinel and drop -- a free slot's pages stay bit-identical
-    wpage = table.gather(1, (pos // ps).clamp(0, mp - 1)[:, None])[:, 0]
-    wrow = torch.where(act, wpage * ps + pos % ps,
-                       torch.full_like(pos, rtot))
+    i = torch.arange(int(k1), device=table.device)
+    wp = pos[:, None] + i[None, :]                          # [B, K1]
+    wpage = table.gather(1, (wp // ps).clamp(0, mp - 1))
+    ok = act[:, None] & (wp < s_len)
+    if win_len is not None:
+        ok &= i[None, :] < win_len.reshape(-1, 1).long()
+    wrow = torch.where(ok, wpage * ps + wp % ps, torch.full_like(wp, rtot))
     j = torch.arange(ps, device=table.device)
     rows = (table[:, :, None] * ps + j).reshape(-1).to(torch.int32)
-    s = torch.arange(mp * ps, device=table.device)
-    valid = (s[None, :] < lens[:, None]) | (
-        (s[None, :] >= gen0[:, None]) & (s[None, :] <= pos[:, None]))
-    return DecodeGeometry(rows.to(device), valid.to(device),
+    s = torch.arange(s_len, device=table.device)
+    valid = (s[None, None, :] < lens[:, None, None]) | (
+        (s[None, None, :] >= gen0[:, None, None])
+        & (s[None, None, :] <= wp[:, :, None]))
+    return VerifyGeometry(rows.to(device), valid.to(device),
                           RowWrite.of(wrow, rtot, device))
 
 
@@ -176,14 +190,16 @@ def attend_paged(q, kk, vv, valid, wo, h: int, dt: torch.dtype):
     return _ab.dot("bhqd,hdm->bqm", c, wo.view(h, d, m)).to(dt)
 
 
-def decode_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks, page_vs,
-                       geom: DecodeGeometry, n_head: int,
+def verify_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks, page_vs,
+                       geom: VerifyGeometry, n_head: int,
                        codec: str) -> torch.Tensor:
-    """One layer's paged decode attention for X [B,1,M] under a
-    precomputed :class:`DecodeGeometry`; writes this step's K/V rows
-    into the pools in place and returns Out [B,1,M]."""
+    """One layer's paged decode or verify attention for the window X
+    [B,K1,M] under a precomputed :class:`VerifyGeometry`: the window's
+    K/V rows are written into the pools in place BEFORE the gather (so
+    position i reads positions < i of its own window), then every
+    position attends through the page gathers. Returns Out [B,K1,M]."""
     h = n_head
-    b, _, m = x.shape
+    b, k1, m = x.shape
     d = m // h
     dt = x.dtype
     flat_k, flat_v, fks, fvs = paged_pools(page_k, page_v, page_ks,
@@ -191,11 +207,11 @@ def decode_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks, page_vs,
     q = _ab.proj(x, wq, h)
     k_t = _ab.proj(x, wk, h)
     v_t = _ab.proj(x, wv, h)
-    paged_write(flat_k, fks, geom.write, k_t[:, 0], codec)
-    paged_write(flat_v, fvs, geom.write, v_t[:, 0], codec)
+    paged_write(flat_k, fks, geom.write, k_t.reshape(-1, h, d), codec)
+    paged_write(flat_v, fvs, geom.write, v_t.reshape(-1, h, d), codec)
     kk = paged_gather(flat_k, fks, geom.rows, h, dt).view(b, -1, h, d)
     vv = paged_gather(flat_v, fvs, geom.rows, h, dt).view(b, -1, h, d)
-    return attend_paged(q, kk, vv, geom.valid[:, None, None, :], wo, h, dt)
+    return attend_paged(q, kk, vv, geom.valid[:, None], wo, h, dt)
 
 
 def kv_attention_decode_paged(x, wq, wk, wv, wo, page_k, page_v, page_table,
@@ -205,13 +221,32 @@ def kv_attention_decode_paged(x, wq, wk, wv, wo, page_k, page_v, page_table,
     """One-token decode over the paged pool (kv_attention.py:323): X
     [B,1,M], Wq..Wo [M,M], PageK/PageV [n_pages, ps, H, Dk] (+ PageKS/
     PageVS [n_pages, ps, H] for int8), PageTable [B, MP], Pos/SeqLen/
-    GenStart/Active [B,1]. Writes the step's K/V at Pos where active
-    (pools updated in place) and attends over {j < seq_len} U
-    {gen_start <= j <= pos}. Returns Out [B,1,M]."""
+    GenStart/Active [B,1]. The verify window of one: writes the step's
+    K/V at Pos where active (pools updated in place) and attends over
+    {j < seq_len} U {gen_start <= j <= pos}. Returns Out [B,1,M]."""
+    return kv_attention_verify_paged(x, wq, wk, wv, wo, page_k, page_v,
+                                     page_table, pos, seq_len, gen_start,
+                                     active, None, n_head, codec, page_ks,
+                                     page_vs)
+
+
+def kv_attention_verify_paged(x, wq, wk, wv, wo, page_k, page_v,
+                              page_table, pos, seq_len, gen_start, active,
+                              win_len, n_head: int, codec: str = "none",
+                              page_ks=None, page_vs=None) -> torch.Tensor:
+    """Speculative-decoding verify over the paged pool
+    (kv_attention.py:462): X [B,K1,M] (each slot's last committed token
+    and K drafts), Wq..Wo [M,M], the pools and PageTable as in
+    :func:`kv_attention_decode_paged`, Pos/SeqLen/GenStart/Active/WinLen
+    [B,1] (Pos the cache row of window position 0, WinLen the valid
+    window positions, 1..K1). Writes window position i at Pos + i where
+    active, i < WinLen and inside the table's span (pools updated in
+    place) and attends it causally over the slot's cache and its window.
+    Returns Out [B,K1,M]."""
     n_pages, ps = page_k.shape[:2]
-    geom = decode_geometry(page_table, pos, seq_len, gen_start, active,
-                           n_pages, ps, x.device)
-    return decode_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks,
+    geom = verify_geometry(page_table, pos, seq_len, gen_start, active,
+                           win_len, x.shape[1], n_pages, ps, x.device)
+    return verify_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks,
                               page_vs, geom, n_head, codec)
 
 

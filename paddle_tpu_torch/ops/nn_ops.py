@@ -80,23 +80,105 @@ LOW_PRECISION = (torch.bfloat16, torch.float16)
 CE_BLOCK_ELEMS = 1 << 24
 
 
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in fp32 from bf16 operands: ``b`` 2-D
+    (``a``'s leading dims flattened) or of ``a``'s batch dims. On CUDA
+    one cuBLAS product of the bf16 operands with an fp32 result: its sums
+    are fp32 whatever ``allow_bf16_reduced_precision_reduction`` says,
+    which governs only products with a bf16 result. On the CPU the fp32
+    product of the widened operands, each term exact."""
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    f32 = torch.float32
+    if b.dim() == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=f32)
+        return out.view(*a.shape[:-1], b.shape[-1])
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                    b.reshape(-1, *b.shape[-2:]), out_dtype=f32)
+    return out.view(*a.shape[:-1], b.shape[-1])
+
+
+def _split_bf16(g: torch.Tensor):
+    """fp32 ``g`` as three bf16 tensors whose sum is ``g`` exactly (8
+    significant bits each; bf16 has fp32's exponent range)."""
+    hi = g.to(torch.bfloat16)
+    rest = g - hi                        # fp32: bf16 widens exactly
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid).to(torch.bfloat16)
+
+
+def _cotangent_terms(g: torch.Tensor):
+    """The cotangent of a product as the bf16-valued terms it meets the
+    other operand in. JAX's transposed ``dot_general`` multiplies the
+    cotangent (fp32, or bf16 under ``keep``) by the bf16 operand in fp32
+    (``_dot_general_transpose_lhs``); on the card an fp32 cotangent is
+    taken as its exact split into three bf16 terms, so that the product
+    runs on bf16 operands with fp32 sums and means the same."""
+    if not g.is_cuda or g.dtype == torch.bfloat16:
+        return (g,)
+    return _split_bf16(g.float())
+
+
+def _sum_products(terms, b: torch.Tensor, left: bool) -> torch.Tensor:
+    """``sum(t @ b)`` (``left``) or ``sum(b @ t)`` over the terms, in
+    fp32."""
+    out = None
+    for t in terms:
+        p = _product_f32(t, b) if left else _product_f32(b, t)
+        out = p if out is None else out + p
+    return out
+
+
+class _AmpProduct(torch.autograd.Function):
+    """bf16 ``x @ y`` with fp32 sums: the forward and its hand-written
+    backward of ``jnp.matmul(x, y, preferred_element_type=float32)``
+    (``paddle_tpu/ops/math_ops.py:36-47``, ``:59-65``), the fp32 result
+    rounded to bf16 with ``keep``. The cotangent meets the other operand
+    as JAX's transpose rule has it (:func:`_cotangent_terms`): an fp32
+    product of the cotangent and the bf16 operand, rounded to the
+    operand's dtype, bf16."""
+
+    @staticmethod
+    def forward(ctx, xb, yb, keep):
+        ctx.save_for_backward(xb, yb)
+        out = _product_f32(xb, yb)
+        return out.to(torch.bfloat16) if keep else out
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, yb = ctx.saved_tensors
+        terms = _cotangent_terms(g)
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            dx = _sum_products(terms, yb.transpose(-1, -2), True)
+            dx = dx.to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            if yb.dim() == 2:                # x's leading dims folded
+                x2 = xb.reshape(-1, xb.shape[-1]).t()
+                dy = _sum_products([t.reshape(-1, t.shape[-1])
+                                    for t in terms], x2, False)
+            else:
+                dy = _sum_products(terms, xb.transpose(-1, -2), False)
+            dy = dy.to(torch.bfloat16)
+        return dx, dy, None
+
+
 def amp_product(x: torch.Tensor, y: torch.Tensor, keep: bool
                 ) -> torch.Tensor:
     """``x @ y`` as a tagged ``mul`` / ``matmul`` computes it
-    (``paddle_tpu/ops/math_ops.py:36-47``): bf16 operands, fp32
-    accumulation, the result bf16 with ``keep`` (pure mode), else fp32.
-    On the CPU the operands are rounded to bf16 and multiplied in fp32,
-    which is exact per product, as the JAX dot on the CPU. On CUDA it is
-    one bf16 cuBLAS product (fp32 accumulation, bf16 result): PyTorch
-    2.11 has no derivative for ``torch.mm(..., out_dtype=torch.float32)``
-    on bf16, so conservative mode's fp32 result is the bf16 one widened,
-    one rounding more than the JAX op."""
-    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
-    if xb.is_cuda:
-        out = torch.matmul(xb, yb)
-        return out if keep else out.float()
-    out = torch.matmul(xb.float(), yb.float())
-    return out.to(torch.bfloat16) if keep else out
+    (``paddle_tpu/ops/math_ops.py:36-47``): bf16 operands, fp32 sums, the
+    result bf16 with ``keep`` (pure mode), else fp32 (conservative
+    mode), through :class:`_AmpProduct` on both devices. ``y`` is 2-D
+    (``fc``'s weight) or has ``x``'s batch dims (``matmul``). On the CPU
+    the products are fp32 products of the bf16-rounded operands, exact
+    per term, as the JAX dot on the CPU; on CUDA they are cuBLAS products
+    of bf16 operands with fp32 results."""
+    if y.dim() > 2 and x.shape[:-2] != y.shape[:-2]:
+        raise ValueError(f"amp_product takes a 2-D y or one of x's batch "
+                         f"dims, got x {tuple(x.shape)} and y "
+                         f"{tuple(y.shape)}")
+    return _AmpProduct.apply(x.to(torch.bfloat16), y.to(torch.bfloat16),
+                             bool(keep))
 
 
 def match_low_precision(x: torch.Tensor, y: torch.Tensor):

@@ -21,13 +21,25 @@ Sampling is greedy when ``temperature <= 0`` or ``top_k == 1``, else
 temperature/top-k Gumbel sampling keyed only by the per-request seed and
 the token index, so a sampled stream replays identically.
 
+Speculative decoding (an engine built with ``spec_k``): each step a
+drafter proposes up to K next tokens per slot from its committed
+history (:class:`NgramDrafter`, :class:`ModelDrafter`, or any object
+with ``propose(tokens, k)``), ONE verify dispatch scores every slot's
+``[K+1]`` window and samples each window position on the device, and
+each slot commits the longest prefix of drafts that equal those samples
+plus one more token. The samples are what sequential decoding would
+emit, so the streams are the non-speculative engine's, token for token.
+
 Thread discipline: one dispatcher at a time; ``admit``/``step``/
 ``release`` are not internally locked. Counters (``prefills``,
-``decode_steps``, ``tokens_generated``) are plain attributes.
+``decode_steps``, ``tokens_generated``, ``spec_proposed``,
+``spec_accepted`` and ``tokens_per_step``, the committed tokens of a
+slot in a dispatch by count) are plain attributes.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,20 +60,130 @@ class SlotExhaustedError(RuntimeError):
     must wait for a leave, or shed."""
 
 
+# -- speculative-decoding drafters ----------------------------------------
+#
+# A drafter proposes up to K next tokens for one slot from its COMMITTED
+# token history (prompt + accepted generations). The verify dispatch then
+# scores the whole window at once and the engine keeps the longest prefix
+# whose drafts match what the model would have emitted sequentially --
+# the accept rule is exact-match against the on-device samples, which is
+# LOSSLESS for greedy and for seeded sampling alike (token_sample's
+# Gumbel noise is a pure function of (seed, step, vocab index), so the
+# sequential stream is a deterministic function of the logits -- matching
+# it bit-for-bit is the only way a draft survives).
+
+class NgramDrafter:
+    """Model-free prompt-lookup drafting (``serving/engine.py:590``):
+    match the last n-gram of the slot's committed tokens against earlier
+    positions in the same history and propose the tokens that followed
+    the most recent match. Host-side and no device memory -- the
+    profitable regime is output that re-quotes its own context (code,
+    structured text, greedy cycles), where acceptance approaches the
+    full window."""
+
+    def __init__(self, max_ngram: int = 3, min_ngram: int = 1):
+        self.max_ngram = int(max_ngram)
+        self.min_ngram = max(1, int(min_ngram))
+
+    def propose(self, tokens, k: int):
+        n_tok = len(tokens)
+        if k <= 0 or n_tok < self.min_ngram + 1:
+            return []
+        toks = list(tokens)
+        # the drafter runs on the hot serving path once per slot per
+        # verify step -- encode the history once and let bytes.rfind do
+        # the suffix search at C speed instead of a python scan
+        lo, hi = min(toks), max(toks)
+        if 0 <= lo and hi < 256:
+            enc, width = (lambda t: bytes(t)), 1
+        elif 0 <= lo and hi < (1 << 16):
+            enc = lambda t: np.asarray(t, np.uint16).tobytes()
+            width = 2
+        else:
+            enc = lambda t: np.asarray(t, np.uint32).tobytes()
+            width = 4
+        buf = enc(toks)
+        # self-extending lookup: when the matched continuation runs out
+        # before filling the window (the match sat near the end of the
+        # history), re-match against history + drafts-so-far -- on
+        # repetitive streams this walks the repeating span and fills
+        # the full K instead of stalling at the history frontier
+        drafts: list = []
+        while len(drafts) < k:
+            got = self._lookup(buf, toks, width, k - len(drafts))
+            if not got:
+                break
+            drafts.extend(got)
+            toks.extend(got)
+            buf += enc(got)
+        return drafts
+
+    def _lookup(self, buf, toks, width: int, k: int):
+        n_tok = len(toks)
+        for n in range(min(self.max_ngram, n_tok - 1),
+                       self.min_ngram - 1, -1):
+            tail = buf[(n_tok - n) * width:]
+            # most recent earlier occurrence of the suffix n-gram:
+            # restrict the search window so the match ends before the
+            # tail itself, and re-search on token misalignment
+            j = buf.rfind(tail, 0, (n_tok - 1) * width)
+            while j >= 0 and j % width:
+                j = buf.rfind(tail, 0, j + len(tail) - 1)
+            if j >= 0:
+                cont = toks[j // width + n:j // width + n + k]
+                if cont:
+                    return cont
+        return []
+
+
+class ModelDrafter:
+    """The draft-model arm (``serving/engine.py:653``): greedy
+    continuations from a (smaller) :class:`~paddle_tpu_torch.models.
+    transformer.DecoderLM`, its ``full`` view recomputed once per
+    drafted token over ``cache_len`` positions (the span of the JAX
+    ``full`` view, ``prompt_len + max_new``). Useful where histories do
+    not repeat themselves (:class:`NgramDrafter`'s blind spot); the
+    accept rule is unchanged, so a poor draft model costs only
+    acceptance, never correctness."""
+
+    def __init__(self, model: _tf.DecoderLM):
+        self.model = model
+
+    def propose(self, tokens, k: int):
+        m = self.model
+        t_total = m.cache_len
+        # greedy continuation needs room for k drafts after the context
+        ctx = list(tokens)[-(t_total - k):] if k < t_total else []
+        if k <= 0 or not ctx:
+            return []
+        seq = np.zeros((1, t_total), np.int64)
+        seq[0, :len(ctx)] = ctx
+        drafts = []
+        for i in range(k):
+            logits = m.full(torch.from_numpy(seq))
+            tok = int(logits[0, len(ctx) - 1 + i].argmax(-1))
+            drafts.append(tok)
+            seq[0, len(ctx) + i] = tok
+        return drafts
+
+
 class SlotGenerativeModel:
     """The slot lifecycle shared by the KV layouts: host mirror of the
     per-slot state, admission, the decode step, release and
     ``generate``. A layout subclass names its model views (``PREFILL``,
-    ``DECODE``), passes its cache to them (``_view_state``) and
-    supplies the capacity hooks (``_reserve_capacity``,
+    ``DECODE``, ``VERIFY``), passes its cache to them (``_view_state``)
+    and supplies the capacity hooks (``_reserve_capacity``,
     ``_admit_feeds``, ``_release_capacity``). The paged layout is the
-    one ported so far."""
+    one ported so far. With ``spec_k`` set, ``step`` is draft -> verify
+    -> commit over a ``[n_slots, spec_k + 1]`` window."""
 
     PREFILL: str = ""
     DECODE: str = ""
+    VERIFY: str = ""
 
     def __init__(self, name: str, model: _tf.DecoderLM,
-                 prompt_buckets: Sequence[int], n_slots: int):
+                 prompt_buckets: Sequence[int], n_slots: int,
+                 spec_k: Optional[int] = None, drafter=None):
         self.name = name
         self.model = model
         self.prompt_buckets = bucketing.ladder(prompt_buckets)
@@ -69,9 +191,14 @@ class SlotGenerativeModel:
         self.n_slots = int(n_slots)
         self.cache_len = model.cache_len
         self.max_new = self.cache_len - self.prompt_len
+        self.spec_k = int(spec_k) if spec_k else 0
+        self.drafter = drafter if drafter is not None else NgramDrafter()
         self.prefills = 0
         self.decode_steps = 0
         self.tokens_generated = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.tokens_per_step: Counter = Counter()
         # host mirror of the per-slot device state
         s = self.n_slots
         self._active = np.zeros(s, bool)
@@ -84,6 +211,9 @@ class SlotGenerativeModel:
         self._topk = np.zeros(s, np.int64)
         self._budget = np.zeros(s, np.int64)
         self._eos: List[Optional[int]] = [None] * s
+        # committed-token history per slot (prompt + accepted tokens):
+        # what the drafter proposes from
+        self._hist: List[List[int]] = [[] for _ in range(s)]
 
     # -- layout hooks ----------------------------------------------------
     def _view_state(self) -> dict:
@@ -140,6 +270,31 @@ class SlotGenerativeModel:
                 "temperature": self._temp[:, None],
                 "top_k": self._topk[:, None]}
 
+    def _verify_feeds(self, tok_w=None, win_len=None
+                      ) -> Dict[str, np.ndarray]:
+        """The verify dispatch's feeds (``serving/engine.py:833-857``).
+        The sampling feeds are per WINDOW POSITION: sample_step[b, i] =
+        gen_count[b] + i, so position i draws exactly the (seed, step)
+        noise the sequential engine would at that emission, and a
+        rejected position's draw is derived again next dispatch."""
+        s, k1 = self.n_slots, self.spec_k + 1
+        if tok_w is None:
+            tok_w = np.zeros((s, k1), np.int64)
+            tok_w[:, 0] = self._tok
+        if win_len is None:
+            win_len = np.ones((s, 1), np.int64)
+        steps = self._gen_count[:, None] + np.arange(k1, dtype=np.int64)
+        return {"tok": tok_w,
+                "pos": (self._gen0 + self._gen_count - 1)[:, None],
+                "seq_len": self._seq[:, None],
+                "gen_start": self._gen0[:, None],
+                "active": self._active.astype(np.int64)[:, None],
+                "win_len": win_len,
+                "seed": np.tile(self._seed[:, None], (1, k1)),
+                "sample_step": steps,
+                "temperature": np.tile(self._temp[:, None], (1, k1)),
+                "top_k": np.tile(self._topk[:, None], (1, k1))}
+
     def _prefill_feeds(self, p_len: int) -> Dict[str, np.ndarray]:
         return {"ids": np.zeros((1, p_len), np.int64),
                 **self._admit_feeds(0, p_len),
@@ -149,17 +304,21 @@ class SlotGenerativeModel:
                 "top_k": np.zeros((1, 1), np.int64)}
 
     def warmup(self) -> Dict[str, int]:
-        """Dispatch every prefill bucket and the decode step once with
-        nothing live (no cache row is written), so first-use costs --
-        building the kernels, allocator growth -- land here and not on
-        the first request."""
+        """Dispatch every prefill bucket, the decode step and (with
+        ``spec_k``) the verify step once with nothing live (no cache row
+        is written), so first-use costs -- building the kernels,
+        allocator growth -- land here and not on the first request."""
         n = 0
         for p in self.prompt_buckets:
             self._dispatch(self.PREFILL, self._prefill_feeds(p))
             n += 1
         self._dispatch(self.DECODE, self._decode_feeds())
+        n += 1
+        if self.spec_k:
+            self._dispatch(self.VERIFY, self._verify_feeds())
+            n += 1
         self.reset()
-        return {"dispatched": n + 1}
+        return {"dispatched": n}
 
     # -- slot lifecycle --------------------------------------------------
     def admit(self, prompt, *, seed: int = 0, temperature: float = 0.0,
@@ -218,6 +377,7 @@ class SlotGenerativeModel:
         self._seq[slot] = length
         self._gen0[slot] = p_len
         self._gen_count[slot] = 1
+        self._hist[slot] = [int(t) for t in prompt] + [first]
         self._seed[slot] = int(seed)
         self._temp[slot] = float(temperature)
         self._topk[slot] = int(top_k)
@@ -233,21 +393,28 @@ class SlotGenerativeModel:
         return slot, first, done
 
     def step(self) -> List[Tuple[int, int, Optional[str]]]:
-        """One decode call over the WHOLE pool (free slots ride along
-        masked). Returns (slot, token, done_cause) events; slots that hit
-        EOS or their token budget are released."""
+        """One dispatch over the WHOLE pool (free slots ride along
+        masked). Returns (slot, token, done_cause) events in commit
+        order; slots that hit EOS or their token budget are released.
+        Without ``spec_k`` this is one decode call, one token a live
+        slot; with it, draft -> verify -> commit (:meth:`_step_verify`),
+        up to ``spec_k + 1`` tokens a slot."""
         live = np.flatnonzero(self._active)
         if live.size == 0:
             return []
+        if self.spec_k:
+            return self._step_verify(live)
         out = self._dispatch(self.DECODE, self._decode_feeds())
         self.decode_steps += 1
         self.tokens_generated += int(live.size)
+        self.tokens_per_step[1] += int(live.size)
         events = []
         for slot in live:
             slot = int(slot)
             tok = int(out[slot])
             self._tok[slot] = tok
             self._gen_count[slot] += 1
+            self._hist[slot].append(tok)
             eos = self._eos[slot]
             done = None
             if eos is not None and tok == eos:
@@ -257,6 +424,72 @@ class SlotGenerativeModel:
             if done:
                 self.release(slot, cause=done)
             events.append((slot, tok, done))
+        return events
+
+    def _step_verify(self, live) -> List[Tuple[int, int, Optional[str]]]:
+        """Draft -> verify -> commit (``serving/engine.py:1109-1188``).
+        Window position 0 carries the slot's last committed token
+        (writing its K/V row again with the same values), positions
+        1..K the drafts; the token sampled at position i is the one the
+        sequential engine would emit at step gen_count + i given the
+        window's prefix, so draft i survives iff it equals sample i - 1,
+        and the commit is the accepted prefix plus one more token. An
+        EOS inside the window ends the request there."""
+        s, k1 = self.n_slots, self.spec_k + 1
+        tok_w = np.zeros((s, k1), np.int64)
+        tok_w[:, 0] = self._tok
+        win_len = np.ones((s, 1), np.int64)
+        drafts: Dict[int, List[int]] = {}
+        proposed = 0
+        for slot in live:
+            slot = int(slot)
+            # a window commits at most accepted + 1 tokens: never draft
+            # past the remaining budget, nor past the cache's end (the
+            # admission invariant makes the budget cap the binding one)
+            remaining = int(self._budget[slot] - self._gen_count[slot])
+            pos0 = int(self._gen0[slot] + self._gen_count[slot] - 1)
+            kq = min(self.spec_k, remaining - 1, self.cache_len - 1 - pos0)
+            d: List[int] = []
+            if kq > 0:
+                d = [int(t) for t in
+                     self.drafter.propose(self._hist[slot], kq)][:kq]
+            drafts[slot] = d
+            tok_w[slot, 1:1 + len(d)] = d
+            win_len[slot, 0] = 1 + len(d)
+            proposed += len(d)
+        out = self._dispatch(self.VERIFY,
+                             self._verify_feeds(tok_w, win_len))
+        out = out.reshape(s, k1)
+        self.decode_steps += 1
+        self.spec_proposed += proposed
+        events = []
+        for slot in live:
+            slot = int(slot)
+            d = drafts[slot]
+            t = out[slot]
+            a = 0
+            while a < len(d) and d[a] == int(t[a]):
+                a += 1
+            self.spec_accepted += a
+            eos = self._eos[slot]
+            done = None
+            n_commit = 0
+            for tok in (int(x) for x in t[:a + 1]):
+                n_commit += 1
+                self._tok[slot] = tok
+                self._gen_count[slot] += 1
+                self._hist[slot].append(tok)
+                if eos is not None and tok == eos:
+                    done = "eos"
+                elif self._gen_count[slot] >= self._budget[slot]:
+                    done = "max_new"
+                events.append((slot, tok, done))
+                if done:
+                    break
+            self.tokens_generated += n_commit
+            self.tokens_per_step[n_commit] += 1
+            if done:
+                self.release(slot, cause=done)
         return events
 
     def release(self, slot: int, cause: str = "cancelled"):
@@ -322,11 +555,13 @@ class PagedSlotGenerativeModel(SlotGenerativeModel):
 
     PREFILL = "prefill_paged"
     DECODE = "decode_paged"
+    VERIFY = "decode_verify_paged"
 
     def __init__(self, name: str, model: _tf.DecoderLM,
                  geometry: _tf.PagedGeometry,
-                 prompt_buckets: Sequence[int]):
-        super().__init__(name, model, prompt_buckets, geometry.n_slots)
+                 prompt_buckets: Sequence[int], drafter=None):
+        super().__init__(name, model, prompt_buckets, geometry.n_slots,
+                         geometry.spec_k, drafter)
         g = geometry
         self.geometry = g
         self.n_pages, self.page_size = g.n_pages, g.page_size
@@ -352,6 +587,11 @@ class PagedSlotGenerativeModel(SlotGenerativeModel):
         feeds["page_table"] = self._table.copy()
         return feeds
 
+    def _verify_feeds(self, tok_w=None, win_len=None):
+        feeds = SlotGenerativeModel._verify_feeds(self, tok_w, win_len)
+        feeds["page_table"] = self._table.copy()
+        return feeds
+
     def _admit_feeds(self, slot: int, p_len: int):
         """Prefill feed: the flat pool row of each prompt position, or
         the drop sentinel where the page is SHARED with the radix tree
@@ -364,6 +604,10 @@ class PagedSlotGenerativeModel(SlotGenerativeModel):
         return {"page_rows": rows}
 
     def _reserve_capacity(self, slot, prompt, p_len, budget):
+        # no draft headroom even under speculation: _step_verify caps
+        # each window at remaining - 1 drafts, so verify writes never
+        # pass row p_len + budget - 1. An engine drafting a FULL window
+        # at the max_new boundary would need spec_k more rows here.
         span = self.pool.span_for(p_len + budget)
         try:
             pages, n_shared = self.pool.acquire(
@@ -409,16 +653,21 @@ def make_slot_model(name: str, model: _tf.DecoderLM, *, n_slots: int,
                     prompt_buckets: Sequence[int],
                     page_size: Optional[int] = None,
                     n_pages: Optional[int] = None, kv_codec: str = "none",
+                    spec_k: Optional[int] = None, drafter=None,
                     device=None) -> PagedSlotGenerativeModel:
     """Build the paged slot engine over ``model``: ``n_slots`` decode
     slots, prompts padded to ``prompt_buckets`` (the largest is the
     longest prompt; ``model.cache_len`` minus it is the token budget),
     a pool of ``n_pages`` pages of ``page_size`` rows (default: room for
     every slot's worst case) stored per ``kv_codec`` ('none' | 'bf16' |
-    'int8'). The model is moved to ``device`` (``cuda`` unless
-    ``"cpu"`` is asked for) and the pools are allocated there."""
+    'int8'). With ``spec_k`` the engine decodes speculatively: each step
+    ``drafter`` (default :class:`NgramDrafter`) proposes up to
+    ``spec_k`` tokens a slot and one verify dispatch checks them. The
+    model is moved to ``device`` (``cuda`` unless ``"cpu"`` is asked
+    for) and the pools are allocated there."""
     model.to(_device.resolve(device))
     buckets = bucketing.ladder(prompt_buckets)
     geometry = _tf.paged_geometry(buckets[-1], model.cache_len, n_slots,
-                                  page_size, n_pages, kv_codec)
-    return PagedSlotGenerativeModel(name, model, geometry, buckets)
+                                  page_size, n_pages, kv_codec, spec_k)
+    return PagedSlotGenerativeModel(name, model, geometry, buckets,
+                                    drafter)

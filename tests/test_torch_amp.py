@@ -919,19 +919,23 @@ def test_cuda_pure_amp_step_runs_the_bf16_kernels(cuda_device, monkeypatch,
     6 times each and every call hands them bf16 q, k, v and dO; with the
     fused head the fused-CE pair launches once each on bf16 x and W. The
     loss within rtol 2e-3 and each parameter's gradient within 10 % of
-    its norm of the same step on the CPU: the cuBLAS products round to
-    bf16 after fp32 sums in another order, and the gradients of one step
-    at this width are small sums of bf16 terms that cancel. On the CPU
-    alone the fp32 and the AMP step's gradients differ by up to 6.9 % of
-    a gradient's norm (median 3.1 %), the port's and the JAX executor's
-    AMP gradients by 2-8 %; an H100 gave 5.2 % at most. The dtype
-    checks, not this bound, tell bf16 from fp32."""
+    its norm of the same step on the CPU. The products round as on the
+    CPU (fp32 sums of bf16 operands, one rounding to bf16, whatever
+    ``allow_bf16_reduced_precision_reduction`` says), but sum in another
+    order, and the bf16 flash kernels, softmax and layer norm round at
+    other points than the CPU's plain versions; the gradients of one
+    step at this width are small sums of bf16 terms that cancel, so a
+    few flipped bf16 steps move them by percents. On the CPU alone the
+    fp32 and the AMP step's gradients differ by up to 6.9 % of a
+    gradient's norm (median 3.1 %), the port's and the JAX executor's
+    AMP gradients by 2-8 %; an H100 (700 W) gave 5.6 % at most (median
+    2.3-2.4 %, the largest the last layer norm's bias), so the bound
+    keeps 1.8x over it and is not lowered. The dtype checks, not this
+    bound, tell bf16 from fp32."""
     from paddle_tpu_torch.models import transformer as tT
     from paddle_tpu_torch.ops.kernels import flash_attention as tfa
     from paddle_tpu_torch.ops.kernels import fused_ce as tfc
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cuda.matmul,
-                        "allow_bf16_reduced_precision_reduction", False)
     calls = []
 
     def spy(module, name, n_args):
@@ -976,6 +980,11 @@ def test_cuda_pure_amp_step_runs_the_bf16_kernels(cuda_device, monkeypatch,
     assert all(dtypes == {torch.bfloat16} for _, dtypes in calls), calls
     (want, want_g), (got, got_g) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(got, want, rtol=CARD_LOSS_RTOL)
-    for name, g in want_g.items():
-        err = float((got_g[name] - g).norm() / (g.norm() + 1e-12))
+    errs = {name: float((got_g[name] - g).norm() / (g.norm() + 1e-12))
+            for name, g in want_g.items()}
+    worst = max(errs, key=errs.get)
+    print(f"loss {got} (CPU {want}); largest gradient error "
+          f"{errs[worst]:.4f} ({worst}), median "
+          f"{float(np.median(list(errs.values()))):.4f}")
+    for name, err in errs.items():
         assert err < CARD_GRAD_TOL, (name, err)
