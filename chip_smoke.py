@@ -354,7 +354,26 @@ final line:
     bucket) names both cache kernels, no more often than they launched.
     The most used install and write-back buckets, with their median live
     rows, must be ``CACHE_BUCKET``, the shape phase 16 timed.
-18. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+18. The image classifiers (no kernel of the port on this path: cuDNN's
+    convs, PyTorch's pools and batch norms): the seven models of the
+    reference's bench.py (mnist, smallnet, alexnet, resnet50, googlenet,
+    vgg16, se_resnext50) at their ``build`` defaults (class_dim 1000 at
+    224 px; mnist 28 px, smallnet 32 px and 10 classes) and bench.py's
+    batches (2048, 512, 256, 128, 128, 64, 64), fp32 with TF32 off, seeded
+    weights (``reset_parameters``) and 2 seeded batches of images and
+    labels made on the card, 6 steps (the first also plans cuDNN's convs)
+    and a 3-step profiler window each. Counts of every kernel module zeroed
+    just before and read just after: none launched. Checks: losses finite;
+    the first 3 losses at batch 8 (lr 1e-4, ``IMAGE_ORACLE_LR`` says why)
+    within rtol 1e-3 of the same model on the CPU from the same weights and
+    batches, dropouts on, their masks from the same seeds. ResNet-50 also
+    under pure AMP (``rewrite_program_amp``): its first 3 losses within
+    rtol 0.05 of fp32's. Prints per model images/s, step p50 (and the
+    first step), device busy a step, idle share, peak memory, launches a
+    step, the conv and GEMM kernels' share of device time, the top 8
+    device kernels by name, and the model FLOPs a step beside their fp32
+    and bf16 bounds (``image_flops``); for ResNet-50 AMP beside fp32.
+19. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range), then, last,
@@ -2046,7 +2065,8 @@ def profile_window(torch, model, opt, feeds):
 def profile_calls(torch, work, n):
     """(device busy ms per step, idle share, the flash, fused-CE,
     recurrent (LSTM or GRU loops and their products) and pooling kernels'
-    shares of device time, host ms per step) over a torch.profiler window of
+    shares of device time, the library's conv and GEMM kernels' share
+    (``CONV_MARKS``), host ms per step) over a torch.profiler window of
     ``work()``, which does ``n`` steps and ends in a synchronize."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2071,6 +2091,8 @@ def profile_calls(torch, work, n):
                  if any(k in ev.key for k in ("lstm_", "gru_", "rnn_")))
     pool_us = sum(ev.self_device_time_total for ev in kernels
                   if "seqpool" in ev.key or "embed_pool" in ev.key)
+    conv_us = sum(ev.self_device_time_total for ev in kernels
+                  if any(m in ev.key.lower() for m in CONV_MARKS))
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
     families = {}
     for ev in kernels:
@@ -2086,6 +2108,7 @@ def profile_calls(torch, work, n):
             "fused_ce_share": fce_us / busy_us if busy_us else 0.0,
             "rnn_share": rnn_us / busy_us if busy_us else 0.0,
             "pool_share": pool_us / busy_us if busy_us else 0.0,
+            "conv_gemm_share": conv_us / busy_us if busy_us else 0.0,
             "launches_per_step": sum(ev.count for ev in kernels) / n,
             "families": families,
             "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
@@ -4341,6 +4364,204 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
     return {"gather_rows": gathers, "scatter_rows": scatters}, stats
 
 
+# -- phase 18: the image classifiers ----------------------------------------
+
+# (label, module of paddle_tpu_torch.models, build kwargs, bench.py's batch:
+# bench.py:120-126), in the order the roadmap ports them
+IMAGE_MODELS = (("mnist", "mnist", {}, 2048),
+                ("smallnet", "smallnet", {}, 512),
+                ("alexnet", "alexnet", {}, 256),
+                ("resnet50", "resnet", {"depth": 50}, 128),
+                ("googlenet", "googlenet", {}, 128),
+                ("vgg16", "vgg", {}, 64),
+                ("se_resnext50", "se_resnext", {}, 64))
+IMAGE_STEPS = 6                    # the first also plans cuDNN's convs
+IMAGE_BATCHES = 2                  # distinct seeded batches, in turn
+IMAGE_ORACLE_BATCH = 8
+IMAGE_ORACLE_STEPS = 3
+# the card against the CPU at lr 1e-4: at the builds' rates (0.1 for the
+# ResNets) the first step doubles the loss on random labels, and two
+# correct fp32 runs whose sums differ in order part by 1e-3 to 3e-2 by the
+# third loss (the CPU in fp32 against fp64 at batch 8, 224 px: vgg16 2.8e-2,
+# resnet50 1.5e-3); at 1e-4 they agree within 3e-4
+IMAGE_ORACLE_LR = 1e-4
+IMAGE_AMP = "resnet50"             # the reference's headline (bench.py:15)
+# what cuDNN's and cuBLAS's conv and GEMM kernels carry in their names
+CONV_MARKS = ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad",
+              "fprop", "gemm", "cutlass")
+
+
+def image_feeds(torch, dev, batch, shape, classes, seed, n=IMAGE_BATCHES):
+    """``n`` seeded (images in [0, 1), labels of ``classes``) batches,
+    made on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.rand((batch,) + shape, generator=gen, device=dev),
+             torch.randint(0, classes, (batch, 1), generator=gen,
+                           device=dev))
+            for _ in range(n)]
+
+
+def image_flops(torch, model, data):
+    """FLOPs of one training step: 3x the forward's multiply-adds of every
+    conv and fc, counted from the shapes (a conv's data and weight
+    gradients each cost its forward), x2 for multiply and add."""
+    from paddle_tpu_torch import layers
+    macs = [0]
+
+    def conv(m, inp, out):
+        kh, kw = m.weight.shape[2:]
+        macs[0] += out.numel() * (m.weight.shape[1]) * kh * kw
+
+    def fc(m, inp, out):
+        macs[0] += out.numel() * m.weight.shape[0]
+    hooks = [m.register_forward_hook(conv if isinstance(m, layers.Conv2D)
+                                     else fc)
+             for m in model.modules()
+             if isinstance(m, (layers.Conv2D, layers.FC))]
+    try:
+        with torch.no_grad():
+            model.predict(data)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * 2 * macs[0]
+
+
+def image_run(torch, dev, card, label, make, state, feeds, batch, steps,
+              profile_steps, amp=False):
+    """Train ``make(dev)``'s model from ``state`` for ``steps`` steps on
+    ``feeds`` (in turn), then a profiler window; -> the run's numbers."""
+    from paddle_tpu_torch.contrib.mixed_precision import rewrite_program_amp
+    model, opt = make(dev)
+    model.load_state_dict(state)
+    if amp:
+        rewrite_program_amp(model)
+    feeds = [feeds[i % len(feeds)] for i in range(steps + profile_steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, step_ms, _ = train(torch, model, opt, feeds[:steps])
+    if any(all_launches().values()):
+        fail(f"{label}: a kernel of the port launched: {all_launches()}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: losses {losses} are not finite")
+    p50 = float(np.median(step_ms[1:]))
+    stats = {"batch": batch, "losses": losses, "step_ms": step_ms,
+             "first_step_ms": step_ms[0], "step_p50_ms": p50,
+             "images_per_s": batch / p50 * 1e3,
+             "peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+    prof = profile_window(torch, model, opt, feeds[steps:])
+    busy = prof["device_busy_ms_per_step"]
+    prof["idle_share_at_p50"] = 1.0 - busy / p50
+    stats["profile"] = prof
+    print(f"[{card}] {label}{' (pure AMP)' if amp else ''}, batch {batch}: "
+          f"losses {[round(x, 4) for x in losses]}; first step "
+          f"{step_ms[0]:.1f} ms, step p50 {p50:.3f} ms = "
+          f"{stats['images_per_s']:.1f} images/s; device busy "
+          f"{busy:.3f} ms/step, idle share {prof['idle_share']:.3f} "
+          f"({prof['idle_share_at_p50']:.3f} against the step p50); peak "
+          f"memory {stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; "
+          f"{prof['launches_per_step']:.0f} launches/step; conv and GEMM "
+          f"kernels {prof['conv_gemm_share']:.3f} of device time")
+    for key, us_, count in prof["top_kernels"]:
+        print(f"    {us_:10.1f} us/step {count:6.1f}/step  {key}")
+    del model, opt
+    return stats
+
+
+def image_phase(torch, dev, card, models=IMAGE_MODELS, steps=IMAGE_STEPS,
+                profile_steps=PROFILE_STEPS, oracle_batch=IMAGE_ORACLE_BATCH,
+                oracle_steps=IMAGE_ORACLE_STEPS, image_size=None):
+    """The seven image classifiers of bench.py trained on the card at their
+    ``build`` defaults and bench.py's batches in fp32 (and ResNet-50 under
+    pure AMP), each held against the same model on the CPU at a cut batch;
+    no kernel of the port runs on this path. ``image_size`` (the CPU
+    rehearsal) overrides the 224 of the ImageNet models."""
+    import importlib
+    from paddle_tpu_torch import layers
+    out = {}
+    for i, (label, module, kw, batch) in enumerate(models):
+        mod = importlib.import_module(f"paddle_tpu_torch.models.{module}")
+        kw = dict(kw)
+        if image_size is not None and module not in ("mnist", "smallnet"):
+            kw.update(image_size=image_size)
+        size = {"mnist": 28, "smallnet": 32}.get(module,
+                                                 kw.get("image_size", 224))
+        shape = (1 if module == "mnist" else 3, size, size)
+        classes = 10 if module in ("mnist", "smallnet") else 1000
+
+        def make(device, lr=None, mod=mod, kw=kw):
+            model, opt, _ = mod.build(device=device, **kw, **(
+                {} if lr is None else {"lr": lr}))
+            for j, m in enumerate(model.modules()):
+                if isinstance(m, layers.Dropout):      # the same masks on
+                    m.generator = torch.Generator()    # both devices
+                    m.generator.manual_seed(100 + j)
+            return model, opt
+        cpu_model, _ = make("cpu")
+        cpu_model.reset_parameters(torch.Generator().manual_seed(30 + i))
+        state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+        del cpu_model
+        feeds = image_feeds(torch, dev, batch, shape, classes, 40 + i)
+        flops = image_flops(torch, make(dev)[0], feeds[0][0])
+        t0 = time.perf_counter()
+        stats = image_run(torch, dev, card, label, make, state, feeds, batch,
+                          steps, profile_steps)
+        stats["flops_per_step"] = flops
+        stats["tflops_per_s"] = flops / stats["step_p50_ms"] / 1e9
+        stats["fp32_bound_ms"] = flops / FP32_FLOPS_PER_S * 1e3
+        stats["bf16_bound_ms"] = flops / BF16_FLOPS_PER_S * 1e3
+        print(f"[{card}] {label}: {flops / 1e12:.3f} TFLOP a step "
+              f"(convs and fcs, 3x the forward) = "
+              f"{stats['tflops_per_s']:.1f} TFLOP/s at the p50; bound "
+              f"{stats['fp32_bound_ms']:.2f} ms at 67 TFLOP/s fp32, "
+              f"{stats['bf16_bound_ms']:.3f} ms at 989 TFLOP/s bf16; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if label == IMAGE_AMP:
+            amp = image_run(torch, dev, card, label, make, state, feeds,
+                            batch, steps, profile_steps, amp=True)
+            n = AMP_CHECKED_STEPS
+            if not np.allclose(amp["losses"][:n], stats["losses"][:n],
+                               rtol=AMP_RTOL, atol=0.0):
+                fail(f"{label} under AMP: losses {amp['losses'][:n]} differ "
+                     f"from fp32's {stats['losses'][:n]} beyond rtol "
+                     f"{AMP_RTOL}")
+            amp["tflops_per_s"] = flops / amp["step_p50_ms"] / 1e9
+            print(f"[{card}] {label} pure AMP against fp32: step p50 "
+                  f"{amp['step_p50_ms']:.3f} / {stats['step_p50_ms']:.3f} ms,"
+                  f" device busy {amp['profile']['device_busy_ms_per_step']:.3f}"
+                  f" / {stats['profile']['device_busy_ms_per_step']:.3f} ms,"
+                  f" idle share {amp['profile']['idle_share']:.3f} / "
+                  f"{stats['profile']['idle_share']:.3f}, peak memory "
+                  f"{amp['peak_mem_bytes'] / 2 ** 20:.1f} / "
+                  f"{stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; the first "
+                  f"{n} losses within rtol {AMP_RTOL}")
+            stats["amp"] = amp
+        del feeds
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        small = [tuple(a.cpu().numpy() for a in f) for f in image_feeds(
+            torch, dev, oracle_batch, shape, classes, 50 + i,
+            oracle_steps)]
+        model, opt = make(dev, IMAGE_ORACLE_LR)
+        model.load_state_dict(state)
+        got, _, _ = train(torch, model, opt, [
+            tuple(torch.from_numpy(a).to(dev) for a in f) for f in small])
+        del model, opt
+        want = train_oracle(torch, lambda d: make(d, IMAGE_ORACLE_LR),
+                            state, small, oracle_steps)
+        stats["oracle_batch"], stats["oracle_lr"] = oracle_batch, \
+            IMAGE_ORACLE_LR
+        stats["oracle_losses"], stats["card_losses"] = want, got
+        stats["oracle_max_rel_diff"] = check_oracle(
+            f"{label} at batch {oracle_batch}", got, want, card, t0)
+        out[label] = stats
+        torch.cuda.empty_cache()
+    return out
+
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4388,6 +4609,7 @@ def main():
     op_launches, op_run = op_program_phase(torch, dev, card)
     cache_kernels = cache_kernel_phase(torch, dev, card, launch_floor)
     fm_launches, fm_run = deepfm_phase(torch, dev, card)
+    image = image_phase(torch, dev, card)
     for key in ("install", "write_back"):
         if fm_run[f"most_used_{key}_bucket"] != list(CACHE_BUCKET):
             fail(f"deepfm's most used {key} bucket (bucket, median rows) "
@@ -4570,6 +4792,7 @@ def main():
         key: row for key, row in flash.items() if key.startswith("block/")},
         "cache_kernels": cache_kernels, "deepfm_training": fm_run,
         "card": card}))
+    print(json.dumps({"image_classifiers": image, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

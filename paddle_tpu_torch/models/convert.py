@@ -41,6 +41,16 @@ already agree: matrices are [in, out] on both sides.
   ``paddle_tpu.models.deepfm.build`` names the table ``deepfm_emb``; its
   four ``fc`` layers take auto-names ``fc_<k>.w_0/b_0``, matched by
   creation order.
+- :func:`classifier_params_from_jax` -> any of the seven image
+  classifiers (``models/mnist.py``, ``smallnet.py``, ``alexnet.py``,
+  ``vgg.py``, ``resnet.py``, ``se_resnext.py``, ``googlenet.py``). Their
+  JAX ``build`` functions name nothing: ``conv2d_<k>.w_0/b_0``,
+  ``batch_norm_<k>.w_0/b_0`` (scale, bias) with the running statistics
+  ``batch_norm_<k>.mean_0/var_0`` (persistable scope variables,
+  ``fluid/layers/nn.py:175-177``, which become buffers) and
+  ``fc_<k>.w_0/b_0``. The layout is read from the port's model itself:
+  its layers (``paddle_tpu_torch.layers``) in registration order, which
+  is the JAX creation order, each naming its family and suffixes.
 """
 
 from __future__ import annotations
@@ -475,4 +485,51 @@ def deepfm_params_from_jax(arrays: Dict[str, np.ndarray], table: str =
         if tuple(t.shape) != want[key]:
             raise ValueError(f"{key}: shape {tuple(t.shape)}, want "
                              f"{want[key]}")
+    return state
+
+
+# -- the image classifiers (models/mnist.py ... models/googlenet.py) ---------
+
+_IMAGE_AUTO = re.compile(r"(conv2d|batch_norm|fc)_(\d+)\."
+                         r"((?:[wb]|mean|var)_\d+)$")
+
+
+def classifier_layout(model) -> List[Tuple[str, List[Tuple[str, str]]]]:
+    """``(family, [(name suffix, state key), ...])`` for each layer of an
+    image classifier in registration order (the JAX creation order): its
+    modules that name a ``JAX_FAMILY``, with the ``JAX_PARAMS`` they
+    hold (a conv without bias has no ``b_0``)."""
+    out = []
+    for name, m in model.named_modules():
+        family = getattr(m, "JAX_FAMILY", None)
+        if family is not None:
+            out.append((family, [(suffix, f"{name}.{attr}")
+                                 for suffix, attr in m.JAX_PARAMS
+                                 if getattr(m, attr) is not None]))
+    return out
+
+
+def classifier_state_keys(names, model) -> Dict[str, str]:
+    """{JAX name: ``model`` state key} for the parameter and running
+    statistic names of one image-classifier ``build`` (any counter
+    offsets); raises on a missing or an unused name."""
+    return _auto_state_keys(names, _IMAGE_AUTO, classifier_layout(model),
+                            "image-classifier", type(model).__name__)
+
+
+def classifier_params_from_jax(arrays: Dict[str, np.ndarray], model
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX scope arrays of one image-classifier ``build`` -> a state dict
+    for ``model.load_state_dict`` (fp32 CPU tensors): its parameters and
+    its batch norms' running statistics, matched by family and creation
+    order (:func:`classifier_layout`). Raises on a missing or an unused
+    name and on a shape that differs from the model's."""
+    keys = classifier_state_keys(arrays, model)
+    state = {keys[n]: torch.from_numpy(np.array(v, dtype=np.float32))
+             for n, v in arrays.items()}
+    want = model.state_dict()
+    for key, t in state.items():
+        if tuple(t.shape) != tuple(want[key].shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, want "
+                             f"{tuple(want[key].shape)}")
     return state

@@ -55,20 +55,49 @@ and those of deepfm:
   bounds clipped as there) and :func:`reshape` (``math_ops.py:147``, a 0
   copying the input's dim).
 
+and those of the image classifiers (``paddle_tpu/models/mnist.py``,
+``smallnet.py``, ``alexnet.py``, ``vgg.py``, ``resnet.py``,
+``se_resnext.py``, ``googlenet.py``), which the JAX package leaves to XLA
+and the port to cuDNN and PyTorch's own kernels (no Pallas kernel lies on
+this path):
+
+- :func:`conv2d` -- ``nn_ops.py:69-114``: NCHW input, OIHW filter,
+  strides, paddings, dilations and groups. An fp32 conv is full fp32 on
+  the card whatever ``torch.backends.cudnn.allow_tf32`` says
+  (:class:`_IeeeConv`).
+- :func:`pool2d` -- ``nn_ops.py:187-227``: max (padded with -inf, the
+  gradient to the first maximum of a window) or average (exclusive of
+  the padding by default), ``global_pooling``; the output size always
+  floors, as the JAX op ignores ``ceil_mode``.
+- :func:`batch_norm` -- ``nn_ops.py:252-388``: batch statistics (the
+  biased variance) and the running update ``running * momentum + batch *
+  (1 - momentum)`` in training, the running statistics in test mode; a
+  bf16 or fp16 input takes the low-precision path (:class:`_BatchNormLowp`).
+- :func:`dropout` with ``implementation="downgrade_in_infer"`` (the
+  layer's default, ``nn_ops.py:462-501``), the ``axis`` broadcast of
+  :func:`elementwise_add` and :func:`elementwise_mul`
+  (``paddle_tpu/ops/basic.py:126-133``), :func:`concat`
+  (``math_ops.py:193``), :func:`sums` (``math_ops.py:84``), :func:`relu`,
+  and ``fc``'s ``num_flatten_dims`` (the ``mul`` op's
+  ``x_num_col_dims``, ``math_ops.py:25-47``).
+
 Mixed precision: the ops of the AMP rewrite take ``amp``, a model's
 dict of AMP tags by op type (``contrib/mixed_precision.py``; None: fp32),
 and read their own type's tags: ``fc`` (its products as ``mul``, its bias
 add as ``elementwise_add``), ``matmul``, ``lookup_table``,
-``fused_linear_ce`` and :func:`elementwise_add` (the ``match_dtype``
-rule, :func:`match_low_precision`).
+``fused_linear_ce``, :func:`conv2d` and :func:`elementwise_add` /
+:func:`elementwise_mul` (the ``match_dtype`` rule,
+:func:`match_low_precision`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from builtins import slice as builtins_slice
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.contrib.mixed_precision import policy
 from paddle_tpu_torch.ops.kernels import fused_ce as _fused_ce
@@ -192,16 +221,59 @@ def match_low_precision(x: torch.Tensor, y: torch.Tensor):
     return x, y
 
 
-def elementwise_add(x: torch.Tensor, y: torch.Tensor, amp=None
-                    ) -> torch.Tensor:
-    """``x + y`` (``y`` broadcast from the right), the float operands
-    matched by :func:`match_low_precision` where ``amp`` tags
-    ``elementwise_add`` with ``match_dtype``: the models' residual, bias
-    and position-encoding adds."""
-    if policy(amp, "elementwise_add").match_dtype \
+def _broadcast_y(x: torch.Tensor, y: torch.Tensor, axis: int
+                 ) -> torch.Tensor:
+    """``y`` shaped to broadcast into ``x`` with its dims aligned at
+    ``axis`` of x (-1: at the trailing dims), fluid's convention
+    (``paddle_tpu/ops/basic.py:126-133``): a [C] bias at axis 1 of an
+    [N, C, H, W] map, an [N, C] gate at axis 0."""
+    if y.dim() == 0 or x.shape == y.shape:
+        return y
+    if axis is None or axis == -1:
+        axis = x.dim() - y.dim()
+    return y.reshape((1,) * axis + tuple(y.shape)
+                     + (1,) * (x.dim() - axis - y.dim()))
+
+
+def _elementwise(fn, op_type, x, y, amp, axis):
+    y = _broadcast_y(x, y, axis)
+    if policy(amp, op_type).match_dtype \
             and x.is_floating_point() and y.is_floating_point():
         x, y = match_low_precision(x, y)
-    return x + y
+    return fn(x, y)
+
+
+def elementwise_add(x: torch.Tensor, y: torch.Tensor, amp=None,
+                    axis: int = -1) -> torch.Tensor:
+    """``x + y``, ``y`` broadcast from ``axis`` (:func:`_broadcast_y`;
+    -1: from the right), the float operands matched by
+    :func:`match_low_precision` where ``amp`` tags ``elementwise_add``
+    with ``match_dtype``: the models' residual, bias and position-encoding
+    adds."""
+    return _elementwise(torch.add, "elementwise_add", x, y, amp, axis)
+
+
+def elementwise_mul(x: torch.Tensor, y: torch.Tensor, amp=None,
+                    axis: int = -1) -> torch.Tensor:
+    """``x * y`` as :func:`elementwise_add` adds: the SE gate [N, C] over
+    an [N, C, H, W] map at ``axis=0``."""
+    return _elementwise(torch.mul, "elementwise_mul", x, y, amp, axis)
+
+
+def concat(xs, axis: int = 0) -> torch.Tensor:
+    return torch.cat(list(xs), dim=axis)
+
+
+def sums(xs) -> torch.Tensor:
+    """The ``sum`` op: the inputs added left to right."""
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
@@ -255,17 +327,25 @@ def lookup_table(w: torch.Tensor, ids: torch.Tensor, sparse: bool = False,
 
 
 def fc(x, w, b: Optional[torch.Tensor] = None,
-       act: Optional[str] = None, amp=None) -> torch.Tensor:
-    """x [..., in] @ w [in, out] (+ b) (+ act: relu, tanh or softmax over
-    the last axis): the ``mul`` (+ ``sum``) + ``elementwise_add`` + act
-    ops of ``layers.fc`` (``fluid/layers/nn.py:25-45``). With a list of
-    inputs and a list of as many weights, the products are summed before
-    the one bias. Each product is a ``mul`` under ``amp``
-    (:func:`amp_product` where it tags ``mul`` with ``bf16``), the bias
-    add an ``elementwise_add`` (:func:`elementwise_add`)."""
+       act: Optional[str] = None, amp=None,
+       num_flatten_dims: Optional[int] = None) -> torch.Tensor:
+    """x [..., in] @ w [in, out] (+ b) (+ act: relu, tanh, sigmoid or
+    softmax over the last axis): the ``mul`` (+ ``sum``) +
+    ``elementwise_add`` + act ops of ``layers.fc``
+    (``fluid/layers/nn.py:20-45``). With ``num_flatten_dims`` k, x's
+    dims from k on are flattened first, as the ``mul`` op's
+    ``x_num_col_dims`` does (``math_ops.py:25-47``: an [N, C, H, W] map
+    at k 1 is [N, C*H*W]), and the result is x.shape[:k] + [out]; None
+    multiplies the last axis. With a list of inputs and a list of as
+    many weights, the products are summed before the one bias. Each
+    product is a ``mul`` under ``amp`` (:func:`amp_product` where it tags
+    ``mul`` with ``bf16``), the bias add an ``elementwise_add``
+    (:func:`elementwise_add`)."""
     tags = policy(amp, "mul")
 
     def product(xi, wi):
+        if num_flatten_dims is not None:
+            xi = xi.reshape(*xi.shape[:num_flatten_dims], -1)
         return amp_product(xi, wi, tags.keep_bf16) if tags.bf16 \
             else xi @ wi
     if isinstance(x, (list, tuple)):
@@ -282,6 +362,8 @@ def fc(x, w, b: Optional[torch.Tensor] = None,
         out = torch.relu(out)
     elif act == "tanh":
         out = torch.tanh(out)
+    elif act == "sigmoid":
+        out = torch.sigmoid(out)
     elif act == "softmax":
         out = torch.softmax(out, dim=-1)
     elif act is not None:
@@ -293,16 +375,31 @@ def scale(x: torch.Tensor, factor: float, bias: float = 0.0) -> torch.Tensor:
     return x * factor + bias
 
 
-def dropout(x: torch.Tensor, p: float, seed: int) -> torch.Tensor:
-    """Training-mode dropout, ``upscale_in_train``, with the JAX op's keep
-    mask: element ``i`` of the flattened ``x`` is kept (and scaled by
-    1 / (1 - p)) iff ``hash_keep_mask(seed, 0, i, 0, p)`` is non-zero, so
-    the same seed drops the same elements as the JAX op. ``seed`` is an
-    int32 value (the JAX op draws it from its step key)."""
+DROPOUT_IMPLEMENTATIONS = ("upscale_in_train", "downgrade_in_infer")
+
+
+def dropout(x: torch.Tensor, p: float, seed: int, is_test: bool = False,
+            implementation: str = "upscale_in_train") -> torch.Tensor:
+    """Dropout with the JAX op's keep mask (``nn_ops.py:462-501``):
+    element ``i`` of the flattened ``x`` is kept iff ``hash_keep_mask(seed,
+    0, i, 0, p)`` is non-zero, so the same seed drops the same elements as
+    the JAX op. ``seed`` is an int32 value (the JAX op draws it from its
+    step key). In training, ``upscale_in_train`` scales the kept elements
+    by 1 / (1 - p) (rounded to x's dtype before the product) and
+    ``downgrade_in_infer`` keeps them as they are; in test mode
+    (``is_test``) the first is the identity and the second scales x by
+    (1 - p)."""
+    if implementation not in DROPOUT_IMPLEMENTATIONS:
+        raise ValueError(f"unknown dropout implementation "
+                         f"{implementation!r}")
+    upscale = implementation == "upscale_in_train"
+    if is_test:
+        return x if upscale else x * (1.0 - p)
     if p >= 1.0:
         return torch.zeros_like(x)      # everything dropped, no 0 * inf
     idx = torch.arange(x.numel(), device=x.device).view(x.shape)
-    return x * hash_keep_mask(seed, 0, idx, 0, p).to(x.dtype)
+    keep = hash_keep_mask(seed, 0, idx, 0, p)
+    return x * (keep if upscale else (keep > 0)).to(x.dtype)
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
@@ -499,3 +596,201 @@ def reshape(x: torch.Tensor, shape) -> torch.Tensor:
     one -1 takes the rest."""
     shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
     return x.reshape(shape)
+
+
+# -- the image classifiers' ops (paddle_tpu/ops/nn_ops.py:69-388) ------------
+
+def _pair(v):
+    return tuple(int(i) for i in v) if isinstance(v, (list, tuple)) \
+        else (int(v), int(v))
+
+
+@contextlib.contextmanager
+def _ieee_conv(x: torch.Tensor):
+    """For a conv on the card: cuDNN's fp32 conv precision set to
+    ``"ieee"`` and restored on exit, so that an fp32 conv runs in fp32
+    whatever the caller set (``torch.backends.cudnn.allow_tf32``, True by
+    default, or ``torch.backends.cudnn.conv.fp32_precision``, which the
+    conv reads). On the CPU there is no TF32 and nothing to set."""
+    if not x.is_cuda:
+        yield
+        return
+    conv = torch.backends.cudnn.conv
+    saved = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = saved
+
+
+class _IeeeConv(torch.autograd.Function):
+    """``F.conv2d`` whose forward and backward both run under
+    :func:`_ieee_conv`: the reference's fp32 conv is full fp32
+    (``nn_ops.py:101-108``), and PyTorch would otherwise compute an fp32
+    conv on the card in TF32 by default. The backward is
+    ``convolution_backward``, the library's own."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.args = (stride, padding, dilation, groups)
+        with _ieee_conv(x):
+            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.args
+        with _ieee_conv(x):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, dilation, False, [0, 0],
+                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                         False])
+        return dx, dw, None, None, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
+           dilation=1, groups: int = 1, amp=None) -> torch.Tensor:
+    """x [N, C, H, W] conv w [O, C / groups, kh, kw] -> [N, O, H', W'],
+    no bias (``layers.conv2d`` adds it as an ``elementwise_add`` at axis
+    1). A grouped conv is one ``F.conv2d(groups=...)``: the JAX op's dense
+    block-diagonal rewrite of narrow groups (``nn_ops.py:84-100``) is a
+    TPU layout choice with the same result. Where ``amp`` tags ``conv2d``
+    with ``bf16`` both operands are cast to bf16 and the conv runs in
+    bf16 (fp32 sums inside cuDNN); its bf16 result is kept in pure mode
+    and widened to fp32 in conservative mode, one bf16 rounding as in the
+    JAX op (``:109-113``). Otherwise the conv runs in the operands' dtype,
+    an fp32 one in full fp32 on the card (:class:`_IeeeConv`)."""
+    args = (_pair(stride), _pair(padding), _pair(dilation), int(groups))
+    tags = policy(amp, "conv2d")
+    if tags.bf16:
+        out = F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), None,
+                       *args)
+        return out if tags.keep_bf16 else out.float()
+    return _IeeeConv.apply(x, w, *args)
+
+
+def pool2d(x: torch.Tensor, pool_size, pool_type: str = "max",
+           pool_stride=1, pool_padding=0, global_pooling: bool = False,
+           exclusive: bool = True) -> torch.Tensor:
+    """Max or average pooling of x [N, C, H, W] (``nn_ops.py:187-227``).
+    Max pooling pads with -inf and gives a window's gradient to its first
+    maximum, as XLA's ``select_and_scatter`` does; average pooling divides
+    by the count of cells inside the input where ``exclusive`` and
+    padding are both set, else by kh * kw. ``global_pooling`` takes the
+    whole map as the window, with no padding and stride 1. The output size
+    floors, ``(H + 2 p - k) // s + 1``: the JAX op ignores the layer's
+    ``ceil_mode``, and so does the port. A padding above half the window
+    raises (PyTorch's pools take at most half; no model pads more)."""
+    ksize, strides, pads = (_pair(pool_size), _pair(pool_stride),
+                            _pair(pool_padding))
+    if global_pooling:
+        ksize, strides, pads = tuple(x.shape[2:]), (1, 1), (0, 0)
+    if any(p > k // 2 for p, k in zip(pads, ksize)):
+        raise ValueError(f"pool2d padding {pads} exceeds half the window "
+                         f"{ksize}")
+    if pool_type == "max":
+        return F.max_pool2d(x, ksize, strides, pads)
+    if pool_type == "avg":
+        return F.avg_pool2d(x, ksize, strides, pads,
+                            count_include_pad=not exclusive)
+    raise ValueError(f"unknown pooling type {pool_type!r}")
+
+
+def _bn_shape(x: torch.Tensor):
+    """(the reduction axes: all but the channel axis 1, the broadcast
+    shape of a [C] vector)."""
+    return ((0,) + tuple(range(2, x.dim())),
+            (1, -1) + (1,) * (x.dim() - 2))
+
+
+def _bn_fold(x, mean, var, scale, bias, eps):
+    """``x * k + b`` in x's dtype, with k and b per channel computed in
+    fp32 and rounded to it (``nn_ops.py:260-266``); and ``inv``."""
+    _, bshape = _bn_shape(x)
+    inv = torch.rsqrt(var + eps)
+    k = (inv * scale).to(x.dtype)
+    b = (bias - mean * inv * scale).to(x.dtype)
+    return x * k.view(bshape) + b.view(bshape), inv
+
+
+class _BatchNormLowp(torch.autograd.Function):
+    """Train-mode batch norm of a bf16 or fp16 x, the JAX op's
+    ``_bn_train_lowp`` (``nn_ops.py:269-325``): fp32 statistics from
+    one-pass moments ``E[x^2] - E[x]^2`` clamped at 0, the folded
+    normalize :func:`_bn_fold`, and the hand-written backward ``dx = k *
+    (dy - mean(dy) - xhat * mean(dy * xhat))``, elementwise in x's dtype
+    with fp32 channel sums. Returns (y, batch mean, batch variance); the
+    statistics carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        axes, _ = _bn_shape(x)
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+        y, inv = _bn_fold(x, mean, var, scale, bias, eps)
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, inv = ctx.saved_tensors
+        axes, bshape = _bn_shape(x)
+        xdt = x.dtype
+        n = x.numel() // x.shape[1]
+        dyl = dy.to(xdt)
+        xhat = (x - mean.to(xdt).view(bshape)) * inv.to(xdt).view(bshape)
+        sum_dy = dyl.sum(dim=axes, dtype=torch.float32)
+        sum_dy_xhat = (dyl * xhat).sum(dim=axes, dtype=torch.float32)
+        k = (scale * inv).to(xdt).view(bshape)
+        m1 = (sum_dy / n).to(xdt).view(bshape)
+        m2 = (sum_dy_xhat / n).to(xdt).view(bshape)
+        dx = k * (dyl - m1 - xhat * m2)
+        return (dx, sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype),
+                None)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               mean: torch.Tensor, variance: torch.Tensor,
+               is_test: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """Batch norm of x [N, C, ...] over every axis but the channel axis 1
+    (``nn_ops.py:328-388``; a 2-D [N, C] x too). ``mean`` and
+    ``variance`` [C] are the running statistics.
+
+    Training (``is_test`` False): the batch mean and the biased variance
+    normalize x, and the running statistics are updated in place, outside
+    the gradient, to ``running * momentum + batch * (1 - momentum)``.
+    (``F.batch_norm``'s own update would store the unbiased variance and
+    weigh the batch by ``momentum``: it gets no running buffers here.)
+    Test mode: the running statistics normalize x and stay as they are.
+
+    A bf16 or fp16 x takes the JAX op's low-precision path: fp32
+    statistics and a folded normalize in x's dtype (:class:`_BatchNormLowp`
+    in training, :func:`_bn_fold` in test mode). Otherwise PyTorch's
+    batch norm computes y and its gradient."""
+    lowp = x.dtype in LOW_PRECISION
+    if is_test:
+        if lowp:
+            return _bn_fold(x, mean, variance, scale, bias, epsilon)[0]
+        return F.batch_norm(x, mean, variance, scale, bias, False, 0.0,
+                            epsilon)
+    if lowp:
+        y, bmean, bvar = _BatchNormLowp.apply(x, scale, bias, epsilon)
+    else:
+        # the op itself: F.batch_norm refuses one value a channel, which
+        # the JAX op normalizes to its bias
+        y = torch.batch_norm(x, scale, bias, None, None, True, 0.0,
+                             epsilon, torch.backends.cudnn.enabled)
+        with torch.no_grad():
+            bvar, bmean = torch.var_mean(x, dim=_bn_shape(x)[0],
+                                         correction=0)
+    with torch.no_grad():
+        mean.copy_(mean * momentum + bmean * (1.0 - momentum))
+        variance.copy_(variance * momentum + bvar * (1.0 - momentum))
+    return y

@@ -13,6 +13,12 @@ sparse=True)``) the sparse branches (``:102-139``).
 :class:`Adagrad` is ``AdagradOptimizer`` (``optimizer.py:268-287``, rule
 ``ops/optimizer_ops.py:173-182``), not ``torch.optim.Adagrad``: no
 learning-rate decay, no initial accumulator, epsilon outside the root.
+
+:class:`Momentum` is ``MomentumOptimizer`` (``optimizer.py:148-167``,
+rule ``ops/optimizer_ops.py:39-66`` ``_momentum``), dense gradients only.
+It takes ``regularization=``, a decay of ``paddle_tpu_torch.regularizer``
+added to every parameter's gradient before the rule
+(``optimizer.py:106-112``); ``p.grad`` keeps the gradient before decay.
 """
 
 from __future__ import annotations
@@ -188,3 +194,56 @@ class Adagrad(torch.optim.Optimizer):
                 moment = st["moment"]
                 moment.add_(g * g)
                 p.sub_(rate * g / (torch.sqrt(moment) + group["epsilon"]))
+
+
+class Momentum(torch.optim.Optimizer):
+    """Per parameter, with a ``velocity`` that starts at 0::
+
+        v  = mu * v + g
+        p -= lr * v                    # use_nesterov=False
+        p -= (g + mu * v) * lr         # use_nesterov=True
+
+    in place, ``lr`` a float32 value (or a schedule, read once per
+    :meth:`step`), ``g`` the gradient after ``regularization``'s decay.
+    Parameters without a gradient are skipped; a row-sparse gradient
+    raises (no trainer of the port gives Momentum one)."""
+
+    def __init__(self, params, learning_rate: Union[float, Callable],
+                 momentum: float, use_nesterov: bool = False,
+                 regularization=None):
+        self.schedule, lr = _rate(learning_rate)
+        self.use_nesterov = bool(use_nesterov)
+        self.regularization = regularization
+        super().__init__(params, dict(lr=lr, momentum=float(momentum)))
+
+    @torch.no_grad()
+    def step(self):
+        scheduled = self.schedule() if self.schedule is not None else None
+        for group in self.param_groups:
+            rate = float(np.float32(group["lr"] if scheduled is None
+                                    else scheduled))
+            mu = group["momentum"]
+            ps, gs, vs = [], [], []
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                if p.grad.is_sparse:
+                    raise ValueError("Momentum takes dense gradients only")
+                st = self.state[p]
+                if not st:
+                    st["velocity"] = torch.zeros_like(p)
+                ps.append(p)
+                gs.append(p.grad if self.regularization is None
+                          else self.regularization(p, p.grad))
+                vs.append(st["velocity"])
+            if not ps:
+                continue
+            torch._foreach_mul_(vs, mu)
+            torch._foreach_add_(vs, gs)
+            if self.use_nesterov:
+                upd = torch._foreach_mul(vs, mu)
+                torch._foreach_add_(upd, gs)
+                torch._foreach_mul_(upd, rate)
+            else:
+                upd = torch._foreach_mul(vs, rate)
+            torch._foreach_sub_(ps, upd)
