@@ -373,7 +373,31 @@ final line:
     step, the conv and GEMM kernels' share of device time, the top 8
     device kernels by name, and the model FLOPs a step beside their fp32
     and bf16 bounds (``image_flops``); for ResNet-50 AMP beside fp32.
-19. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+19. The contiguous KV layout and the wave engine (no kernel of the port
+    on these paths: they attend over the cache as it lies; run right
+    after phase 4b, on phase 4's model and requests): (a)
+    ``make_slot_model(layout="contiguous")`` (16 slots, buckets
+    32/64/128) serves the 24 requests; its streams must pass the oracle
+    as phase 4's do, and whether they equal phase 4's paged
+    ``kv_codec="none"`` streams token for token is printed (a parting
+    must be at a near tie, ``NEAR_TIE``); tokens/s, decode-step p50 and a
+    profiler window of 20 decode steps (device busy, idle share) beside
+    phase 4's paged step. (b) The same engine with ``spec_k`` 4 and the
+    n-gram drafter: streams equal (a)'s up to near ties, tokens committed
+    per slot per dispatch, a window of full verify dispatches (device
+    busy per committed token beside (a)'s step). (c) ``GenerativeModel``
+    (``BucketPolicy.pow2(16)``, the same prompt ladder) serves the 20
+    greedy requests in waves of up to 16 at each wave's largest budget;
+    each stream cut to its budget equals (a)'s up to near ties; tokens/s,
+    prefill p50 by prompt bucket, decode-step p50, a profiler window of
+    20 decode steps of a wave of 16; ``full_forward_generate`` on 4
+    prompts at ``max_new`` 32 equals the wave's streams (near ties
+    aside), its tokens/s beside the wave's (the KV cache's speedup), and
+    ``decode_flops`` / ``full_forward_flops`` at batch bucket 4. The
+    page-gather counts, zeroed just before each path and read just
+    after, must stay 0, and no profiler window may name a page gather.
+    Its JSON line is ``{"contiguous_layout": ...}``.
+20. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range), then, last,
@@ -767,10 +791,15 @@ def requests(seed: int):
 def serve(torch, engine, reqs, card, label):
     """One ``generate`` over the requests, timing each admission
     (prefill) and decode step on the host clock: both end in the one
-    device wait of the call, the read of its tokens."""
+    device wait of the call, the read of its tokens. A paged engine must
+    have shared a prefix page."""
     prompts, budgets, temps, topks, seeds = reqs
     prefill_ms, step_ms, shared = {}, [], []
     admit, step = engine.admit, engine.step
+
+    from paddle_tpu_torch.serving.engine import PagedSlotGenerativeModel
+    pool = engine.pool if isinstance(engine, PagedSlotGenerativeModel) \
+        else None
 
     def timed_admit(prompt, **kw):
         t = time.perf_counter()
@@ -778,7 +807,7 @@ def serve(torch, engine, reqs, card, label):
         bucket = engine.prompt_bucket_for(len(prompt))
         prefill_ms.setdefault(bucket, []).append(
             (time.perf_counter() - t) * 1e3)
-        lease = engine.pool.lease(out[0])
+        lease = pool.lease(out[0]) if pool is not None else None
         shared.append(lease.n_shared if lease is not None else 0)
         return out
 
@@ -806,7 +835,7 @@ def serve(torch, engine, reqs, card, label):
             fail(f"{label}: request {n} gave {s.shape} tokens in "
                  f"[{s.min()}, {s.max()}], want {budgets[n]} in "
                  f"[0, {LM['vocab']})")
-    if sum(shared) == 0:
+    if pool is not None and sum(shared) == 0:
         fail(f"{label}: no admission shared a prefix page")
     stats = {"tokens": tokens, "decode_steps": steps, "wall_s": wall,
              "tokens_per_s": tokens / wall,
@@ -824,42 +853,99 @@ def serve(torch, engine, reqs, card, label):
     return streams, stats
 
 
+def oracle_scores(torch, lm, reqs, n, stream):
+    """The scores [len(stream), V] (fp64) that request ``n``'s tokens are
+    chosen from by the ``full`` view recomputed over its prompt and
+    ``stream`` (teacher forcing): the logits, for a sampled request
+    scaled, top-k masked and with the request's Gumbel noise added."""
+    from paddle_tpu_torch.ops import kv_attention as kva
+    prompts, _, temps, topks, seeds = reqs
+    prompt = prompts[n]
+    seq = np.concatenate([prompt, stream[:-1]])
+    logits = lm.full(torch.from_numpy(seq[None]))[0]
+    p0 = len(prompt) - 1
+    lg = logits[p0:p0 + len(stream)].double()
+    if temps[n] <= 0:
+        return lg
+    steps = torch.arange(len(stream))
+    scores = lg / temps[n]
+    kth = scores.topk(topks[n], dim=-1).values[:, -1:]
+    scores = scores.masked_fill(scores < kth, float("-inf"))
+    noise = kva.gumbel_noise(torch.full_like(steps, seeds[n]), steps,
+                             lg.shape[-1])
+    return scores + noise.to(lg)
+
+
+def near_tie(row, *tokens):
+    """Whether the top-2 gap of a score row is under ``NEAR_TIE`` and
+    every one of ``tokens`` scores within it of the top."""
+    top2 = row.topk(2).values
+    return float(top2[0] - top2[1]) < NEAR_TIE and all(
+        float(top2[0] - row[int(t)]) < NEAR_TIE for t in tokens)
+
+
 def oracle_check(torch, lm, reqs, streams, label, first_only=False):
     """Hold each stream against the ``full`` view recomputed over the
     prompt and the stream itself (teacher forcing: if every token is
     the oracle's choice given the tokens before it, the oracle's own
     generation is the same stream). Returns the near ties accepted."""
-    from paddle_tpu_torch.ops import kv_attention as kva
-    prompts, _, temps, topks, seeds = reqs
     ties = 0
-    for n, (prompt, stream) in enumerate(zip(prompts, streams)):
-        seq = np.concatenate([prompt, stream[:-1]])
-        logits = lm.full(torch.from_numpy(seq[None]))[0]
-        p0 = len(prompt) - 1
-        lg = logits[p0:p0 + len(stream)].double()
-        steps = torch.arange(len(stream))
-        if temps[n] > 0:
-            scores = lg / temps[n]
-            kth = scores.topk(topks[n], dim=-1).values[:, -1:]
-            scores = scores.masked_fill(scores < kth, float("-inf"))
-            noise = kva.gumbel_noise(torch.full_like(steps, seeds[n]),
-                                     steps, lg.shape[-1])
-            scores = scores + noise.to(lg)
-        else:
-            scores = lg
+    for n, stream in enumerate(streams):
+        scores = oracle_scores(torch, lm, reqs, n, stream)
         want = scores.argmax(-1).cpu().numpy()
         n_check = 1 if first_only else len(stream)
         bad = np.flatnonzero(want[:n_check] != stream[:n_check])
         if bad.size:
             i = int(bad[0])
-            top2 = scores[i].topk(2).values
-            gap = float(top2[0] - top2[1])
-            chosen = float(scores[i, int(stream[i])])
-            if gap >= NEAR_TIE or float(top2[0]) - chosen >= NEAR_TIE:
+            if not near_tie(scores[i], stream[i]):
+                top2 = scores[i].topk(2).values
                 fail(f"{label}: request {n} token {i} is {stream[i]}, the "
-                     f"oracle's is {want[i]} (top-2 gap {gap:.3g})")
+                     f"oracle's is {want[i]} (top-2 gap "
+                     f"{float(top2[0] - top2[1]):.3g})")
             ties += 1
     return ties
+
+
+def streams_agree(torch, lm, reqs, want, got, label):
+    """Two engines' streams of the same requests: equal, or parting first
+    at a near tie of the ``full`` view (teacher-forced over the common
+    prefix; after it the streams may differ). Returns (equal streams,
+    near ties)."""
+    equal = ties = 0
+    for n, (a, b) in enumerate(zip(want, got)):
+        if len(a) != len(b):
+            fail(f"{label}: request {n} gave {len(b)} tokens, want {len(a)}")
+        bad = np.flatnonzero(a != b)
+        if not bad.size:
+            equal += 1
+            continue
+        i = int(bad[0])
+        row = oracle_scores(torch, lm, reqs, n, a[:i + 1])[i]
+        if not near_tie(row, a[i], b[i]):
+            fail(f"{label}: request {n} parts at token {i} ({a[i]} against "
+                 f"{b[i]}) away from a near tie")
+        ties += 1
+    return equal, ties
+
+
+GATHER_KERNELS = {"gather_rows": "gather_rows_kernel",
+                  "gather_rows_dequant": "gather_rows_dequant_kernel"}
+
+
+def check_gathers(kernels, kname, n, label, what):
+    """By profiler name: the page gathers of a window (``what``) ran
+    ``kname``'s kernel ``n`` times and no other; ``kname`` None (the
+    contiguous layout): no page gather ran. Returns what was seen."""
+    ran = {ev.key: ev.count for ev in kernels if "gather_rows" in ev.key}
+    if kname is None:
+        if ran:
+            fail(f"{label}: {what} ran page gathers {ran}, want none")
+        return "no page gather"
+    want = GATHER_KERNELS[kname]
+    if sum(ran.values()) != n or any(want not in key for key in ran):
+        fail(f"{label}: the page gathers of {what} ran {ran}, want {n} of "
+             f"{want}")
+    return f"all {want}"
 
 
 def decode_busy(torch, engine, card, label, kname, per_layer,
@@ -867,7 +953,8 @@ def decode_busy(torch, engine, card, label, kname, per_layer,
     """Device busy per decode step of ``engine`` (every slot filled with
     a seeded 64-token prompt, 5 untraced steps, then ``steps`` in a
     profiler window), its idle share, and by profiler name that every page
-    gather of the window ran ``kname``'s kernel (``per_layer`` a step)."""
+    gather of the window ran ``kname``'s kernel (``per_layer`` a step;
+    ``kname`` None: no page gather)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(3)
     for _ in range(engine.n_slots):
@@ -887,13 +974,8 @@ def decode_busy(torch, engine, card, label, kname, per_layer,
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and ev.self_device_time_total > 0]
     busy_us = sum(ev.self_device_time_total for ev in kernels)
-    want = {"gather_rows": "gather_rows_kernel",
-            "gather_rows_dequant": "gather_rows_dequant_kernel"}[kname]
-    ran = {ev.key: ev.count for ev in kernels if "gather_rows" in ev.key}
-    if sum(ran.values()) != per_layer * steps or any(
-            want not in key for key in ran):
-        fail(f"{label}: the page gathers of {steps} decode steps ran "
-             f"{ran}, want {per_layer * steps} of {want}")
+    seen = check_gathers(kernels, kname, per_layer * steps, label,
+                         f"{steps} decode steps")
     gather_us = sum(ev.self_device_time_total for ev in kernels
                     if "gather_rows" in ev.key)
     out = {"device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -910,7 +992,7 @@ def decode_busy(torch, engine, card, label, kname, per_layer,
           f"{out['host_ms_per_step']:.3f} ms/step "
           f"(profiler on), idle share {out['idle_share']:.3f}; page gathers "
           f"{out['gather_us_per_step']:.1f} us/step, {per_layer} a step, "
-          f"all {want}; top host ops us/step (self CPU time) "
+          f"{seen}; top host ops us/step (self CPU time) "
           f"{json.dumps(rounded(out['top_host_ops_us_per_step']))}")
     return out
 
@@ -923,7 +1005,8 @@ def slice_phase(torch, dev, card):
     lm = DecoderLM(**LM, cache_len=CACHE_LEN, device=dev)
     lm.load_state_dict(convert.params_from_jax(random_params(1)))
     engines = {codec: make_slot_model(f"decoder_lm_{codec}", lm,
-                                      kv_codec=codec, device=dev, **SERVE)
+                                      layout="paged", kv_codec=codec,
+                                      device=dev, **SERVE)
                for codec in ("none", "int8")}
     for e in engines.values():
         e.warmup()
@@ -1049,11 +1132,11 @@ def verify_busy(torch, engine, card, label, kname, per_layer, decode,
     slot busy and every window full (16 seeded 64-token prompts, budget
     128: their streams first taken with the n-gram drafter, then drafted
     by :class:`ScriptedDrafter`; 5 untraced dispatches, then ``steps`` in
-    a profiler window), beside phase 4's decode step (``decode``); by
-    profiler name and by the launch counts (zeroed just before the
-    window, read just after) every page gather ran ``kname``'s kernel,
-    ``per_layer`` a dispatch; the sort of ``token_sample`` and the
-    gathers' shares of device time."""
+    a profiler window), beside the plain engine's decode step
+    (``decode``); by profiler name and by the launch counts (zeroed just
+    before the window, read just after) every page gather ran ``kname``'s
+    kernel, ``per_layer`` a dispatch (``kname`` None: none ran); the sort
+    of ``token_sample`` and the gathers' shares of device time."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     rng = np.random.RandomState(3)
@@ -1090,15 +1173,10 @@ def verify_busy(torch, engine, card, label, kname, per_layer, decode,
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and ev.self_device_time_total > 0]
     busy_us = sum(ev.self_device_time_total for ev in kernels)
-    want = {"gather_rows": "gather_rows_kernel",
-            "gather_rows_dequant": "gather_rows_dequant_kernel"}[kname]
-    ran = {ev.key: ev.count for ev in kernels if "gather_rows" in ev.key}
-    if sum(ran.values()) != per_layer * steps or any(
-            want not in key for key in ran):
-        fail(f"{label}: the page gathers of {steps} verify dispatches ran "
-             f"{ran}, want {per_layer * steps} of {want}")
-    if launches.get(kname) != per_layer * steps or \
-            sum(launches.values()) != per_layer * steps:
+    seen = check_gathers(kernels, kname, per_layer * steps, label,
+                         f"{steps} verify dispatches")
+    if sum(launches.values()) != per_layer * steps or (
+            kname is not None and launches.get(kname) != per_layer * steps):
         fail(f"{label}: the launch counts of {steps} verify dispatches are "
              f"{launches}, want {per_layer * steps} of {kname}")
     gather_us = sum(ev.self_device_time_total for ev in kernels
@@ -1128,14 +1206,15 @@ def verify_busy(torch, engine, card, label, kname, per_layer, decode,
     print(f"[{card}] {label} profile ({steps} verify dispatches of "
           f"{engine.n_slots} full windows of {SPEC['spec_k'] + 1}): device "
           f"busy {out['device_busy_ms_per_dispatch']:.3f} ms/dispatch = "
-          f"{out['device_busy_ms_per_token'] * 1e3:.2f} us/token (phase 4's "
-          f"decode step: {decode['device_busy_ms_per_step']:.3f} ms/step = "
+          f"{out['device_busy_ms_per_token'] * 1e3:.2f} us/token (the plain "
+          f"engine's decode step: {decode['device_busy_ms_per_step']:.3f} "
+          f"ms/step = "
           f"{out['decode_busy_ms_per_token'] * 1e3:.2f} us/token), host "
           f"{out['host_ms_per_dispatch']:.3f} ms/dispatch (profiler on), "
           f"idle share {out['idle_share']:.3f}; page gathers "
           f"{out['gather_us_per_dispatch']:.1f} us/dispatch "
           f"({out['gather_share']:.3f} of device time), {per_layer} a "
-          f"dispatch, all {want}; token_sample's sort "
+          f"dispatch, {seen}; token_sample's sort "
           f"{out['sort_share']:.3f} of device time; "
           f"{out['launches_per_dispatch']:.1f} launches a dispatch; top "
           f"kernels us/dispatch {json.dumps(rounded(top))}; top host ops "
@@ -1187,7 +1266,8 @@ def spec_phase(torch, dev, card, served, per_layer, decode):
     for codec, kname in (("none", "gather_rows"),
                          ("int8", "gather_rows_dequant")):
         engine = make_slot_model(f"decoder_lm_spec_{codec}", lm,
-                                 kv_codec=codec, device=dev, **SERVE, **SPEC)
+                                 layout="paged", kv_codec=codec, device=dev,
+                                 **SERVE, **SPEC)
         engine.warmup()
         label = f"spec kv_codec={codec}"
         streams, ngram = spec_serve(torch, engine, reqs, card,
@@ -1243,6 +1323,249 @@ def spec_phase(torch, dev, card, served, per_layer, decode):
                   f"{model['accepted']} / {model['proposed']}")
             out[codec]["model_drafter"] = model
         del engine
+    return out
+
+
+# -- phase 19: the contiguous layout and the wave engine ---------------------
+# (run right after phase 4b, while phase 4's model is on the card)
+
+def no_gathers(pa, label):
+    """The page-gather launch counts, zeroed just before a path ran, read
+    just after: the contiguous layout gathers nothing."""
+    if any(pa.LAUNCHES.values()):
+        fail(f"{label}: the page gathers launched {dict(pa.LAUNCHES)}, "
+             f"want none")
+
+
+def subset(reqs, idx):
+    return tuple([r[i] for i in idx] for r in reqs)
+
+
+def wave_serve(torch, engine, reqs, card, label):
+    """The requests through the wave engine in waves of up to its largest
+    batch bucket, each wave at its largest budget, the streams cut to
+    each request's budget; each prefill (at its prompt bucket) and decode
+    step timed on the host clock (each ends in its read of the tokens)."""
+    prompts, budgets = reqs[0], reqs[1]
+    prefill_ms, step_ms = {}, []
+    prefill, decode = engine._prefill, engine._decode
+
+    def timed_prefill(ids, lens):
+        t = time.perf_counter()
+        out = prefill(ids, lens)
+        prefill_ms.setdefault(ids.shape[1], []).append(
+            (time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_decode(*args):
+        t = time.perf_counter()
+        out = decode(*args)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    engine._prefill, engine._decode = timed_prefill, timed_decode
+    toks0 = engine.tokens_generated
+    size = engine.policy.max_batch
+    streams = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        for lo in range(0, len(prompts), size):
+            part = range(lo, min(len(prompts), lo + size))
+            got = engine.generate([prompts[i] for i in part],
+                                  max_new=max(budgets[i] for i in part))
+            streams += [g[:budgets[i]] for g, i in zip(got, part)]
+    finally:
+        del engine._prefill, engine._decode
+    wall = time.perf_counter() - t0
+    tokens = engine.tokens_generated - toks0
+    stats = {"waves": -(-len(prompts) // size), "tokens": tokens,
+             "tokens_delivered": int(sum(budgets)), "wall_s": wall,
+             "tokens_per_s": tokens / wall,
+             "delivered_tokens_per_s": sum(budgets) / wall,
+             "decode_steps": len(step_ms),
+             "decode_step_p50_ms": float(np.median(step_ms)),
+             "prefill_ms": {b: float(np.median(v))
+                            for b, v in sorted(prefill_ms.items())},
+             "peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+    print(f"[{card}] {label}: {len(prompts)} requests in {stats['waves']} "
+          f"waves, {tokens} tokens generated in {wall:.3f} s = "
+          f"{stats['tokens_per_s']:.1f} tokens/s "
+          f"({stats['delivered_tokens_per_s']:.1f} tokens/s within the "
+          f"budgets); {len(step_ms)} decode steps, p50 "
+          f"{stats['decode_step_p50_ms']:.3f} ms; prefill p50 ms by bucket "
+          f"{json.dumps(stats['prefill_ms'])}; peak memory "
+          f"{stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB")
+    return streams, stats
+
+
+def wave_busy(torch, engine, card, label, steps=DECODE_PROFILE_STEPS):
+    """Device busy per decode step of a wave of the largest batch bucket
+    (seeded 64-token prompts; 5 untraced steps, then ``steps`` in a
+    profiler window), its idle share; no page gather by profiler name."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(3)
+    b, p = engine.policy.max_batch, 64
+    lens = np.full(b, p, np.int64)
+    tok, cache = engine._prefill(rng.randint(1, LM["vocab"], (b, p)), lens)
+    for s in range(5):
+        tok = engine._decode(cache, tok, p + s, lens, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(5, 5 + steps):
+            tok = engine._decode(cache, tok, p + s, lens, p)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    seen = check_gathers(kernels, None, 0, label, f"{steps} decode steps")
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    out = {"device_busy_ms_per_step": busy_us / steps / 1e3,
+           "host_ms_per_step": wall_ms / steps,
+           "launches_per_step": sum(ev.count for ev in kernels) / steps,
+           "top_host_ops_us_per_step": host_top(torch, prof, steps)}
+    out["idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out[
+        "host_ms_per_step"]
+    print(f"[{card}] {label} profile ({steps} decode steps of a wave of "
+          f"{b}): device busy {out['device_busy_ms_per_step']:.3f} ms/step, "
+          f"host {out['host_ms_per_step']:.3f} ms/step (profiler on), idle "
+          f"share {out['idle_share']:.3f}; "
+          f"{out['launches_per_step']:.1f} launches a step; {seen}; top host "
+          f"ops us/step (self CPU time) "
+          f"{json.dumps(rounded(out['top_host_ops_us_per_step']))}")
+    return out
+
+
+def contiguous_phase(torch, dev, card, served, decode):
+    """Phase 19: phase 4's DecoderLM and requests through (a) the
+    contiguous slot engine, (b) the same with ``spec_k`` 4 and the n-gram
+    drafter, and (c) the wave engine, with its ``full_forward_generate``
+    on one wave of 4 prompts. No page gather may launch on any of them."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving.bucketing import BucketPolicy
+    from paddle_tpu_torch.serving.engine import (GenerativeModel,
+                                                 make_slot_model)
+    lm, reqs = served["lm"], served["reqs"]
+    slots = dict(n_slots=SERVE["n_slots"],
+                 prompt_buckets=SERVE["prompt_buckets"])
+    out = {}
+
+    # (a) the contiguous slot engine
+    engine = make_slot_model("decoder_lm_contiguous", lm,
+                             layout="contiguous", device=dev, **slots)
+    engine.warmup()
+    label = "contiguous"
+    pa.reset_launches()
+    streams, stats = serve(torch, engine, reqs, card, label)
+    no_gathers(pa, label)
+    ties = oracle_check(torch, lm, reqs, streams, label)
+    paged = served["streams"]["none"]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(streams, paged)]
+    eq, paged_ties = streams_agree(torch, lm, reqs, paged, streams,
+                                   f"{label} / paged")
+    stats.update(oracle_ties=ties, equal_to_paged=int(sum(same)),
+                 sampled_equal_to_paged=int(sum(same[n] for n in SAMPLED)),
+                 paged_near_ties=paged_ties)
+    print(f"[{card}] {label}: {N_REQUESTS} streams equal the fp32 full-view "
+          f"oracle ({ties} near ties), no page gather launched; "
+          f"{sum(same)} of {N_REQUESTS} equal phase 4's paged kv_codec=none "
+          f"streams token for token ({stats['sampled_equal_to_paged']} of "
+          f"the {len(SAMPLED)} sampled), {paged_ties} part at a near tie")
+    stats["busy"] = decode_busy(torch, engine, card, label, None, 0)
+    print(f"[{card}] {label}: device busy "
+          f"{stats['busy']['device_busy_ms_per_step']:.3f} ms a decode step "
+          f"against phase 4's paged "
+          f"{decode['none']['device_busy_ms_per_step']:.3f} ms (gathers "
+          f"{decode['none']['gather_us_per_step']:.1f} us of it)")
+    out[label] = stats
+    del engine
+
+    # (b) contiguous speculative decoding, the n-gram drafter
+    engine = make_slot_model("decoder_lm_contiguous_spec", lm,
+                             layout="contiguous", device=dev, **slots,
+                             **SPEC)
+    engine.warmup()
+    label = "contiguous spec"
+    spec_streams, spec = spec_serve(torch, engine, reqs, card,
+                                    f"{label} ngram", pa, None, 0)
+    eq, ties = streams_agree(torch, lm, reqs, streams, spec_streams,
+                             f"{label} / contiguous")
+    spec.update(equal_to_contiguous=eq, near_ties=ties)
+    print(f"[{card}] {label}: {eq} of {N_REQUESTS} streams equal (a)'s, "
+          f"{ties} part at a near tie")
+    spec["busy"] = verify_busy(torch, engine, card, label, None, 0,
+                               stats["busy"])
+    out[label] = spec
+    del engine
+
+    # (c) the wave engine and the full-forward baseline
+    wave = GenerativeModel("decoder_lm_wave", lm, SERVE["prompt_buckets"],
+                           BucketPolicy.pow2(SERVE["n_slots"]))
+    label = "wave"
+    t = time.perf_counter()
+    warm = wave.warmup()
+    warm["seconds"] = time.perf_counter() - t
+    greedy = [n for n in range(N_REQUESTS) if n not in SAMPLED]
+    greqs = subset(reqs, greedy)
+    pa.reset_launches()
+    wave_streams, wstats = wave_serve(torch, wave, greqs, card, label)
+    no_gathers(pa, label)
+    eq, ties = streams_agree(torch, lm, greqs, [streams[n] for n in greedy],
+                             wave_streams, f"{label} / contiguous")
+    wstats.update(warmup=warm, equal_to_contiguous=eq, near_ties=ties)
+    print(f"[{card}] {label}: warmup dispatched {warm['dispatched']} in "
+          f"{warm['seconds']:.1f} s; {eq} of {len(greedy)} greedy streams "
+          f"equal (a)'s, {ties} part at a near tie; no page gather launched")
+    wstats["busy"] = wave_busy(torch, wave, card, label)
+    four = subset(greqs, range(4))
+    budget = MODEL_DRAFTER_BUDGET
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    kv = wave.generate(four[0], max_new=budget)
+    kv_s = time.perf_counter() - t
+    t = time.perf_counter()
+    full = wave.full_forward_generate(four[0], max_new=budget)
+    full_s = time.perf_counter() - t
+    no_gathers(pa, f"{label} full forward")
+    eq, ties = streams_agree(torch, lm, four, kv, full,
+                             f"{label} full forward / wave")
+    bucket = wave.policy.bucket_for(4)
+    ff = {"requests": 4, "max_new": budget, "equal": eq, "near_ties": ties,
+          "wave_tokens_per_s": 4 * budget / kv_s,
+          "full_forward_tokens_per_s": 4 * budget / full_s,
+          "decode_flops": wave.decode_flops(bucket),
+          "full_forward_flops": wave.full_forward_flops(bucket)}
+    ff["kv_cache_speedup"] = ff["wave_tokens_per_s"] / ff[
+        "full_forward_tokens_per_s"]
+    # device time of one token each way at that bucket: a full forward
+    # over cache_len positions, a decode step over a cache prefilled at
+    # the largest prompt bucket (the tokens do not change the time)
+    p = wave.prompt_len
+    lens = np.full(bucket, p, np.int64)
+    tok, cache = wave._prefill(np.zeros((bucket, p), np.int64), lens)
+    ids = torch.zeros((bucket, wave.cache_len), dtype=torch.int64)
+    ff["full_forward_device_ms"] = device_ms(torch, lambda: lm.full(ids), 5)
+    ff["decode_step_device_ms"] = device_ms(
+        torch, lambda: wave._decode(cache, tok, p, lens, p), 5)
+    ff["kv_cache_device_speedup"] = (ff["full_forward_device_ms"]
+                                     / ff["decode_step_device_ms"])
+    print(f"[{card}] {label} full_forward_generate (4 prompts, max_new "
+          f"{budget}): {eq} of 4 streams equal the wave's, {ties} part at a "
+          f"near tie; {ff['full_forward_tokens_per_s']:.1f} tokens/s against "
+          f"the wave's {ff['wave_tokens_per_s']:.1f}: the KV cache's speedup "
+          f"{ff['kv_cache_speedup']:.2f}x; by device time a token "
+          f"{ff['full_forward_device_ms']:.3f} ms (full forward) against "
+          f"{ff['decode_step_device_ms']:.3f} ms (decode step): "
+          f"{ff['kv_cache_device_speedup']:.2f}x; at batch bucket {bucket} a "
+          f"decode step {ff['decode_flops'] / 1e9:.3f} GFLOP, a full forward "
+          f"({wave.cache_len} positions) {ff['full_forward_flops'] / 1e9:.3f} "
+          f"GFLOP (products, FlopCounterMode)")
+    wstats["full_forward"] = ff
+    out[label] = wstats
     return out
 
 
@@ -4595,6 +4918,7 @@ def main():
     fce = fused_ce_phase(torch, dev, card)
     launches, per_layer, decode, served = slice_phase(torch, dev, card)
     spec = spec_phase(torch, dev, card, served, per_layer, decode)
+    contiguous = contiguous_phase(torch, dev, card, served, decode)
     del served
     train_launches, per_step, runs = train_phase(torch, dev, card)
     lstm = rnn_phase(torch, dev, card, "LSTM")
@@ -4793,6 +5117,7 @@ def main():
         "cache_kernels": cache_kernels, "deepfm_training": fm_run,
         "card": card}))
     print(json.dumps({"image_classifiers": image, "card": card}))
+    print(json.dumps({"contiguous_layout": contiguous, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -4,28 +4,37 @@ serving path (``decoder_lm``, ``:228``) and the encoder-decoder
 Transformer-base of the training path (``transformer``, ``:135``, and
 ``build``, ``:701``).
 
-One :class:`DecoderLM` holds the weights; its views are methods:
+One :class:`DecoderLM` holds the weights; its views are methods, named
+as the JAX modes:
 
 - :meth:`DecoderLM.full` -- logits over a whole sequence with dense
   causal attention, recomputed from scratch (the JAX ``"full"`` mode:
   the parity oracle).
-- :meth:`DecoderLM.prefill_paged` -- one request's prompt, right-padded
-  to its prompt bucket: causal attention whose K/V rows land in the
-  paged pool through the request's page lease, and the first token,
-  sampled on the device (``"prefill_paged"``).
-- :meth:`DecoderLM.decode_paged` -- one token for every slot of the
+- :meth:`DecoderLM.prefill` / :meth:`DecoderLM.decode` -- the wave
+  engine's pair: a batch of prompts at one prompt bucket, whose K/V land
+  in a fresh :class:`ContiguousKVCache` of the batch's rows, then one
+  token a row over that cache; both return logits (``"prefill"``,
+  ``"decode"``).
+- :meth:`DecoderLM.prefill_slot` / :meth:`DecoderLM.decode_slot` /
+  :meth:`DecoderLM.decode_verify` -- the slot engine over the contiguous
+  pool (the reference's default KV layout): one request's prompt into
+  its slot's whole ``[cache_len, H, D]`` row, then one token (or, to
+  verify, a ``[n_slots, K+1]`` window) for every slot, sampled on the
+  device (``"prefill_slot"``, ``"decode_slot"``, ``"decode_verify"``).
+- :meth:`DecoderLM.prefill_paged` / :meth:`DecoderLM.decode_paged` /
+  :meth:`DecoderLM.decode_verify_paged` -- the same three over the paged
   pool: K/V read and written through the ``[n_slots, max_pages]`` page
-  table, next tokens sampled on the device (``"decode_paged"``).
-- :meth:`DecoderLM.decode_verify_paged` -- the speculative-decoding
-  verify step: a ``[n_slots, K+1]`` window (each slot's last committed
-  token and K drafts) scored in one causal pass over the paged pool,
-  every window position sampled on the device
-  (``"decode_verify_paged"``).
+  table, the prompt's rows through the request's page lease.
 
-The paged pools live in a :class:`PagedKVCache` that the serving engine
-owns and passes to the views; :func:`paged_geometry` validates its
-shape (``analysis/contracts.py`` ``validate_geometry``, paged subset).
-Weights come from a JAX checkpoint through ``models/convert.py``.
+Each decode view is its verify view's window of one. The contiguous
+views attend over the cache as it lies; the paged ones gather the pages
+first, then attend through the same function, so in fp32 the two layouts
+give the same bits. The caches (:class:`ContiguousKVCache`,
+:class:`PagedKVCache`) belong to the serving engine, which passes them
+to the views; :func:`validate_slots` and :func:`paged_geometry` check
+their shape (``analysis/contracts.py`` ``validate_geometry``). Weights
+come from a JAX checkpoint through ``models/convert.py``; one
+:class:`DecoderLM` serves every engine.
 
 Training: :func:`build` makes a :class:`Transformer` (its ``forward``
 is the mean label-smoothed loss of ``build``'s graph) and its
@@ -72,6 +81,33 @@ def position_encoding(max_len: int, d_model: int) -> np.ndarray:
     return enc.astype(np.float32)
 
 
+def validate_slots(prompt_len: int, cache_len: int, n_slots: int,
+                   spec_k: Optional[int] = None):
+    """Validate a slot pool of either layout (``analysis/contracts.py:
+    139-164``): ``n_slots >= 1``, ``prompt_len <= cache_len``, and
+    ``spec_k``, the verify window's drafted tokens (None: no verify
+    view; the JAX view's default is 4), at least 1 with its K+1 window
+    inside the generated region ``cache_len - prompt_len`` plus the row
+    of the last committed token (``:154-162``). Returns (n_slots,
+    spec_k) as ints (spec_k may stay None)."""
+    prompt_len, cache_len = int(prompt_len), int(cache_len)
+    if prompt_len > cache_len:
+        raise ValueError(f"prompt_len {prompt_len} > cache_len {cache_len}")
+    if spec_k is not None:
+        spec_k = int(spec_k)
+        if spec_k < 1:
+            raise ValueError(f"spec_k {spec_k} < 1 -- the verify view "
+                             f"needs at least one drafted token")
+        if spec_k + 1 > cache_len - prompt_len + 1:
+            raise ValueError(
+                f"spec_k {spec_k}: the K+1={spec_k + 1} verify window "
+                f"exceeds the generated region (cache_len {cache_len} - "
+                f"prompt_len {prompt_len})")
+    if not n_slots or int(n_slots) < 1:
+        raise ValueError(f"slot serving needs n_slots >= 1, got {n_slots}")
+    return int(n_slots), spec_k
+
+
 @dataclass(frozen=True)
 class PagedGeometry:
     """The paged pool's geometry: ``n_pages`` pages of ``page_size``
@@ -96,42 +132,49 @@ def paged_geometry(prompt_len: int, cache_len: int, n_slots: int,
                    n_pages: Optional[int] = None,
                    kv_codec: str = "none",
                    spec_k: Optional[int] = None) -> PagedGeometry:
-    """Validate and complete a paged geometry: ``page_size`` (default 4)
-    must divide ``cache_len``; ``n_pages`` defaults to the contiguous
-    pool's capacity ``n_slots * max_pages`` and must hold at least one
-    whole request. ``spec_k``, the verify window's drafted tokens (None:
-    no verify view; the JAX view's default is 4), must be at least 1,
-    and its K+1 window must fit the generated region ``cache_len -
-    prompt_len`` plus the row of the last committed token
-    (``analysis/contracts.py:154-162``)."""
-    prompt_len, cache_len = int(prompt_len), int(cache_len)
-    if prompt_len > cache_len:
-        raise ValueError(f"prompt_len {prompt_len} > cache_len {cache_len}")
-    if spec_k is not None:
-        spec_k = int(spec_k)
-        if spec_k < 1:
-            raise ValueError(f"spec_k {spec_k} < 1 -- the verify view "
-                             f"needs at least one drafted token")
-        if spec_k + 1 > cache_len - prompt_len + 1:
-            raise ValueError(
-                f"spec_k {spec_k}: the K+1={spec_k + 1} verify window "
-                f"exceeds the generated region (cache_len {cache_len} - "
-                f"prompt_len {prompt_len})")
-    if not n_slots or int(n_slots) < 1:
-        raise ValueError(f"paged serving needs n_slots >= 1, got {n_slots}")
+    """Validate and complete a paged geometry: the slot pool as
+    :func:`validate_slots` checks it; ``page_size`` (default 4) must
+    divide ``cache_len``; ``n_pages`` defaults to the contiguous pool's
+    capacity ``n_slots * max_pages`` and must hold at least one whole
+    request."""
+    n_slots, spec_k = validate_slots(prompt_len, cache_len, n_slots, spec_k)
+    cache_len = int(cache_len)
     page_size = int(page_size) if page_size else 4
     if cache_len % page_size:
         raise ValueError(f"page_size {page_size} must divide cache_len "
                          f"{cache_len}")
     max_pages = cache_len // page_size
-    n_pages = int(n_pages) if n_pages else int(n_slots) * max_pages
+    n_pages = int(n_pages) if n_pages else n_slots * max_pages
     if n_pages < max_pages:
         raise ValueError(f"n_pages {n_pages} < one slot's span "
                          f"{max_pages} -- no request could admit")
     if kv_codec not in KV_CODECS:
         raise ValueError(f"kv_codec {kv_codec!r} not in {KV_CODECS}")
-    return PagedGeometry(cache_len, int(n_slots), page_size, n_pages,
+    return PagedGeometry(cache_len, n_slots, page_size, n_pages,
                          max_pages, kv_codec, spec_k)
+
+
+class ContiguousKVCache:
+    """Per-layer contiguous caches: K and V ``[n, cache_len, H, D]``
+    fp32, row ``b`` the cache of batch row (slot) ``b``. The slot engine
+    keeps one of ``n_slots`` rows, zero-filled (:meth:`zeros`), that its
+    views update in place; the wave engine's prefill returns a fresh one
+    of its batch's rows. fp32 only: the reference keeps no codec for the
+    contiguous layout (``analysis/contracts.py:184-185``)."""
+
+    def __init__(self, k, v):
+        self.k, self.v = list(k), list(v)
+        self.n, self.cache_len = self.k[0].shape[:2]
+
+    @classmethod
+    def zeros(cls, n: int, cache_len: int, n_layer: int, n_head: int,
+              head_dim: int, device: torch.device) -> "ContiguousKVCache":
+        shape = (int(n), int(cache_len), n_head, head_dim)
+
+        def planes():
+            return [torch.zeros(shape, dtype=torch.float32, device=device)
+                    for _ in range(n_layer)]
+        return cls(planes(), planes())
 
 
 class PagedKVCache:
@@ -229,6 +272,14 @@ class DecoderLM(nn.Module):
         return PagedKVCache(geometry, self.n_layer, self.n_head,
                             self.d_model // self.n_head, self.device)
 
+    def contiguous_cache(self, n: int) -> ContiguousKVCache:
+        """A zero-filled contiguous cache of ``n`` rows of ``cache_len``
+        positions (the slot pool), on the model's device."""
+        return ContiguousKVCache.zeros(n, self.cache_len, self.n_layer,
+                                       self.n_head,
+                                       self.d_model // self.n_head,
+                                       self.device)
+
     def _embed(self, ids: torch.Tensor, positions: torch.Tensor):
         """ids [B, T] -> emb[ids] * sqrt(M) + pe[positions]."""
         # ids [..., 1]: the table keeps the ids' shape at any T, 1 too
@@ -259,6 +310,96 @@ class DecoderLM(nn.Module):
         stream, so a copy after the layers would stall their launch."""
         return [f.to(self.device) for f in feeds]
 
+    def _layers(self, x, attend):
+        """Every block over ``x``; ``attend(i, a, wq, wk, wv, wo)`` is
+        layer ``i``'s attention."""
+        for i, layer in enumerate(self.layers):
+            x = layer(x, lambda *a, i=i: attend(i, *a))
+        return x
+
+    # -- the wave engine's views (transformer.py:298-310, :405-440) ------
+    @torch.no_grad()
+    def prefill(self, ids):
+        """ids [B, P] (prompts right-padded to the bucket P) -> (logits
+        [B, P, V], a fresh :class:`ContiguousKVCache` of B rows holding
+        the prompts' K/V in positions < P and zeros beyond)."""
+        (ids,) = self._to_device(ids)
+        p = ids.shape[1]
+        x = self._embed(ids, torch.arange(p, device=self.device))
+        ks, vs = [], []
+
+        def attend(i, a, wq, wk, wv, wo):
+            out, k, v = kva.kv_attention_prefill(a, wq, wk, wv, wo,
+                                                 self.n_head, self.cache_len)
+            ks.append(k)
+            vs.append(v)
+            return out
+        logits = self._logits(self._layers(x, attend))
+        return logits, ContiguousKVCache(ks, vs)
+
+    @torch.no_grad()
+    def decode(self, tok, pos, seq_len, gen_start, active,
+               cache: ContiguousKVCache) -> torch.Tensor:
+        """One decode step of a wave: tok [B, 1] (each row's last token),
+        pos/seq_len/gen_start/active [B, 1] (cache write index, true
+        prompt length, first generated position, live flag) over the
+        wave's ``cache`` -> logits [B, 1, V]. Rows with active 0 write
+        nothing."""
+        geom = kva.slot_geometry(pos, seq_len, gen_start, active, None, 1,
+                                 cache.n, cache.cache_len, self.device)
+        logits, _ = self._window(tok, pos, seq_len, gen_start, 1,
+                                 self._slot_attend(cache, geom))
+        return logits
+
+    # -- the slot views: contiguous pool, then paged ----------------------
+    def _slot_attend(self, cache: ContiguousKVCache, geom):
+        def attend(i, a, wq, wk, wv, wo):
+            return kva.verify_slot_layer(a, wq, wk, wv, wo, cache.k[i],
+                                         cache.v[i], geom, self.n_head)
+        return attend
+
+    def _paged_attend(self, cache: PagedKVCache, geom):
+        codec = cache.geometry.kv_codec
+
+        def attend(i, a, wq, wk, wv, wo):
+            return kva.verify_paged_layer(a, wq, wk, wv, wo, cache.k[i],
+                                          cache.v[i], cache.ks[i],
+                                          cache.vs[i], geom, self.n_head,
+                                          codec)
+        return attend
+
+    def _prefill_sample(self, ids, seq_len, seed, temperature, top_k,
+                        attend) -> torch.Tensor:
+        """The slot prefills' body: ids [1, P], the first token sampled
+        at the prompt's last true position by ``token_sample``."""
+        dev = self.device
+        last = seq_len.reshape(-1).long() - 1
+        ids, last, seed, temperature, top_k = self._to_device(
+            ids.reshape(1, -1), last, seed, temperature, top_k)
+        p = ids.shape[1]
+        x = self._layers(self._embed(ids, torch.arange(p, device=dev)),
+                         attend)
+        logits = self._logits(x[0, last])                    # [1, V]
+        return kva.token_sample(logits, temperature, top_k, seed,
+                                torch.zeros_like(seed))
+
+    @torch.no_grad()
+    def prefill_slot(self, ids, seq_len, slot, seed, temperature, top_k,
+                     cache: ContiguousKVCache) -> torch.Tensor:
+        """ids [1, P] (a prompt right-padded to its bucket P), seq_len
+        [1, 1] (its true length), slot [1, 1] (the pool row it takes),
+        seed/temperature/top_k [1, 1] -> the first generated token [1, 1],
+        sampled at the prompt's last true position. Overwrites the slot's
+        whole row of ``cache`` in place: the prompt's K/V, zeros
+        beyond."""
+        write = kva.slot_write(slot, cache.n, cache.cache_len, self.device)
+
+        def attend(i, a, wq, wk, wv, wo):
+            return kva.prefill_slot_layer(a, wq, wk, wv, wo, cache.k[i],
+                                          cache.v[i], write, self.n_head)
+        return self._prefill_sample(ids, seq_len, seed, temperature, top_k,
+                                    attend)
+
     @torch.no_grad()
     def prefill_paged(self, ids, seq_len, page_rows, seed, temperature,
                       top_k, cache: PagedKVCache) -> torch.Tensor:
@@ -268,24 +409,76 @@ class DecoderLM(nn.Module):
         temperature/top_k [1, 1] -> the first generated token [1, 1],
         sampled at the prompt's last true position. Writes the prompt's
         K/V into ``cache`` in place."""
-        dev = self.device
         g = cache.geometry
-        write = kva.RowWrite.of(page_rows, g.n_pages * g.page_size, dev)
-        last = seq_len.reshape(-1).long() - 1
-        ids, last, seed, temperature, top_k = self._to_device(
-            ids.reshape(1, -1), last, seed, temperature, top_k)
-        p = ids.shape[1]
-        x = self._embed(ids, torch.arange(p, device=dev))
-        h, codec = self.n_head, g.kv_codec
-        for i, layer in enumerate(self.layers):
-            def attend(a, wq, wk, wv, wo, i=i):
-                return kva.prefill_paged_layer(
-                    a, wq, wk, wv, wo, cache.k[i], cache.v[i], cache.ks[i],
-                    cache.vs[i], write, h, codec)
-            x = layer(x, attend)
-        logits = self._logits(x[0, last])                    # [1, V]
-        return kva.token_sample(logits, temperature, top_k, seed,
-                                torch.zeros_like(seed))
+        write = kva.RowWrite.of(page_rows, g.n_pages * g.page_size,
+                                self.device)
+
+        def attend(i, a, wq, wk, wv, wo):
+            return kva.prefill_paged_layer(
+                a, wq, wk, wv, wo, cache.k[i], cache.v[i], cache.ks[i],
+                cache.vs[i], write, self.n_head, g.kv_codec)
+        return self._prefill_sample(ids, seq_len, seed, temperature, top_k,
+                                    attend)
+
+    def _window(self, tok, pos, seq_len, gen_start, k1: int, attend,
+                *feeds):
+        """The decode and verify views' body: tok [S, K1] at window
+        position ``i``'s semantic position, seq_len + generated-so-far +
+        i = seq_len + pos - gen_start + i (prompts are right-padded to
+        their bucket, the cache row is storage only). Clamped: a free
+        slot's is -1, and positions past win_len may run past the cache;
+        neither is committed. Returns (logits [S, K1, V], ``feeds`` on
+        the device)."""
+        s = tok.reshape(-1, k1).shape[0]
+        sem = (seq_len.reshape(-1, 1).long() + pos.reshape(-1, 1).long()
+               - gen_start.reshape(-1, 1).long()
+               + torch.arange(k1, device=pos.device))
+        sem = sem.clamp(0, self.cache_len - 1)
+        tok, sem, *feeds = self._to_device(tok.reshape(s, k1), sem, *feeds)
+        x = self._layers(self._embed(tok, sem), attend)
+        return self._logits(x), feeds
+
+    def _sample_window(self, tok, pos, seq_len, gen_start, seed,
+                       sample_step, temperature, top_k,
+                       attend) -> torch.Tensor:
+        """Every window position's token [S, K1], sampled by
+        ``token_sample`` from its (seed, sample_step) draw."""
+        s, k1 = sample_step.shape
+        logits, (seed, sample_step, temperature, top_k) = self._window(
+            tok, pos, seq_len, gen_start, k1, attend, seed, sample_step,
+            temperature, top_k)
+        out = kva.token_sample(logits.reshape(s * k1, -1),
+                               temperature.reshape(-1, 1),
+                               top_k.reshape(-1, 1), seed.reshape(-1, 1),
+                               sample_step.reshape(-1, 1))
+        return out.view(s, k1)
+
+    @torch.no_grad()
+    def decode_slot(self, tok, pos, seq_len, gen_start, active, seed,
+                    sample_step, temperature, top_k,
+                    cache: ContiguousKVCache) -> torch.Tensor:
+        """One decode step over every slot of the contiguous pool: the
+        feeds of :meth:`decode_paged` without the page table -> next
+        tokens [S, 1]. The verify view's window of one."""
+        return self.decode_verify(tok, pos, seq_len, gen_start, active,
+                                  None, seed, sample_step, temperature,
+                                  top_k, cache)
+
+    @torch.no_grad()
+    def decode_verify(self, tok, pos, seq_len, gen_start, active, win_len,
+                      seed, sample_step, temperature, top_k,
+                      cache: ContiguousKVCache) -> torch.Tensor:
+        """One speculative verify step over every slot of the contiguous
+        pool: the feeds of :meth:`decode_verify_paged` without the page
+        table -> the token sampled at every window position [S, K1].
+        Window positions < win_len of live slots write their K/V rows
+        (inside the cache); the rest ride along masked."""
+        geom = kva.slot_geometry(pos, seq_len, gen_start, active, win_len,
+                                 sample_step.shape[1], cache.n,
+                                 cache.cache_len, self.device)
+        return self._sample_window(tok, pos, seq_len, gen_start, seed,
+                                   sample_step, temperature, top_k,
+                                   self._slot_attend(cache, geom))
 
     @torch.no_grad()
     def decode_paged(self, tok, pos, seq_len, gen_start, active, seed,
@@ -317,36 +510,13 @@ class DecoderLM(nn.Module):
         [S, max_pages] -> the token sampled at every window position
         [S, K1]. Window positions < win_len of live slots write their
         K/V rows; the rest ride along masked."""
-        dev = self.device
         g = cache.geometry
-        s, k1 = sample_step.shape
         geom = kva.verify_geometry(page_table, pos, seq_len, gen_start,
-                                   active, win_len, k1, g.n_pages,
-                                   g.page_size, dev)
-        # semantic position of window position i: seq_len + generated-
-        # so-far + i (= seq_len + sample_step - 1); prompts are right-
-        # padded to their bucket, the cache row is storage only. Clamped:
-        # a free slot's is -1, and positions past win_len may run past
-        # the table; neither is committed
-        sem = (seq_len.reshape(-1, 1).long() + pos.reshape(-1, 1).long()
-               - gen_start.reshape(-1, 1).long()
-               + torch.arange(k1, device=sample_step.device))
-        sem = sem.clamp(0, self.cache_len - 1)
-        tok, sem, seed, sample_step, temperature, top_k = self._to_device(
-            tok.reshape(s, k1), sem, seed, sample_step, temperature, top_k)
-        x = self._embed(tok, sem)
-        h, codec = self.n_head, g.kv_codec
-        for i, layer in enumerate(self.layers):
-            def attend(a, wq, wk, wv, wo, i=i):
-                return kva.verify_paged_layer(
-                    a, wq, wk, wv, wo, cache.k[i], cache.v[i], cache.ks[i],
-                    cache.vs[i], geom, h, codec)
-            x = layer(x, attend)
-        logits = self._logits(x).reshape(s * k1, -1)         # [S*K1, V]
-        out = kva.token_sample(logits, temperature.reshape(-1, 1),
-                               top_k.reshape(-1, 1), seed.reshape(-1, 1),
-                               sample_step.reshape(-1, 1))
-        return out.view(s, k1)
+                                   active, win_len, sample_step.shape[1],
+                                   g.n_pages, g.page_size, self.device)
+        return self._sample_window(tok, pos, seq_len, gen_start, seed,
+                                   sample_step, temperature, top_k,
+                                   self._paged_attend(cache, geom))
 
 
 # ---------------------------------------------------------------------------

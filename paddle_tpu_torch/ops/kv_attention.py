@@ -1,29 +1,37 @@
-"""Paged KV-cache attention and on-device token sampling: the serving
-ops of the decoder LM (counterpart of ``paddle_tpu/ops/kv_attention.py``,
-paged layout: prefill, decode and the speculative verify window).
+"""KV-cache attention and on-device token sampling: the serving ops of
+the decoder LM (counterpart of ``paddle_tpu/ops/kv_attention.py``), for
+both KV layouts: prefill, decode and the speculative verify window.
 
 Same numerics as the JAX emitters: every dot accumulates in fp32 and is
 cast back to the compute dtype, the softmax runs in fp32 over scores
 masked with the finite ``NEG``, and the probabilities are cast to the
-compute dtype before they meet V. The paged pools are
-``[n_pages, page_size, H, D]`` per layer, stored as fp32, bf16 or int8
-codes with one fp32 scale per (position, head); logical cache position
-``j`` of slot ``b`` lives at flat row ``table[b, j // ps] * ps + j % ps``.
+compute dtype before they meet V.
 
-Unlike the JAX ops, which return new pools, these update the pools IN
-PLACE (``index_copy_``), as the donated buffers of the JAX executable
-are in effect. Write rows at or past the pool's end are DROPPED: a
-sentinel row marks a prefix page shared with another request, or an
-inactive slot, and writing it would break the copy-on-write contract of
-``serving/kv_pool.py``.
+The contiguous layout keeps each slot's cache as one ``[S, H, D]`` row of
+a ``[n, S, H, D]`` fp32 tensor per layer (``n`` the slot pool, or the
+batch of a wave); the ops attend over it as it lies, with no gather. The
+paged pools are ``[n_pages, page_size, H, D]`` per layer, stored as
+fp32, bf16 or int8 codes with one fp32 scale per (position, head);
+logical cache position ``j`` of slot ``b`` lives at flat row
+``table[b, j // ps] * ps + j % ps``.
 
-The per-step geometry (which rows each slot reads, which rows it
-writes, which positions it may attend to) is computed once per step by
-:func:`verify_geometry` (a speculative window of K+1 tokens a slot; a
-decode step is the window of one) and shared by every layer;
-where the caller's index tensors lie on the CPU, it is computed there
-and moved to the pools' device in one copy each, so no layer waits on
-the device.
+Unlike the JAX ops, which return new caches, these update them IN PLACE
+(``index_copy_``), as the donated buffers of the JAX executable are in
+effect. Both layouts write through flat row indices, and rows outside
+the cache are DROPPED: in the paged pool a sentinel row marks a prefix
+page shared with another request, or an inactive slot, and writing it
+would break the copy-on-write contract of ``serving/kv_pool.py``; the
+contiguous cache is the paged rule with one page of ``S`` rows a slot,
+so a free slot's ``pos = -1`` or a window running past ``S`` drops
+instead of wrapping onto a neighbouring row.
+
+The per-step geometry (which rows each slot writes, which positions it
+may attend to, and, paged, which rows it reads) is computed once per
+step by :func:`slot_geometry` or :func:`verify_geometry` (a speculative
+window of K+1 tokens a slot; a decode step is the window of one) and
+shared by every layer; where the caller's index tensors lie on the CPU,
+it is computed there and moved to the cache's device in one copy each,
+so no layer waits on the device.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.ops import attention_block as _ab
 from paddle_tpu_torch.ops.kernels import paged_attention as _pk
@@ -133,10 +142,33 @@ def paged_write(flat: torch.Tensor, fscale: Optional[torch.Tensor],
 
 class VerifyGeometry(NamedTuple):
     """One decode or verify step's index sets, shared by every layer."""
-    rows: torch.Tensor       # [B * S] int32 gather rows (sentinels >= R)
+    rows: Optional[torch.Tensor]  # [B * S] int32 gather rows (sentinels
+    #                               >= R); None for the contiguous cache
     valid: torch.Tensor      # [B, K1, S] bool: positions each window
     #                          position attends to (causal in the window)
     write: RowWrite          # the window's K/V rows, [B * K1] flattened
+
+
+def _window(pos, seq_len, gen_start, active, win_len, k1: int, s_len: int):
+    """The window's logical write positions ``wp`` [B, K1] (``pos + i``),
+    where a write is allowed ``ok`` [B, K1] (an active slot, ``i <
+    win_len``, ``wp < s_len``) and the attention mask ``valid`` [B, K1,
+    S]: window position i attends over {j < seq_len} U {gen_start <= j <=
+    pos + i} (kv_attention.py:437-452), causal inside the window."""
+    pos = pos.reshape(-1).long()
+    lens = seq_len.reshape(-1).long()
+    gen0 = gen_start.reshape(-1).long()
+    act = active.reshape(-1) > 0
+    i = torch.arange(int(k1), device=pos.device)
+    wp = pos[:, None] + i[None, :]                          # [B, K1]
+    ok = act[:, None] & (wp < s_len)
+    if win_len is not None:
+        ok &= i[None, :] < win_len.reshape(-1, 1).long()
+    s = torch.arange(s_len, device=pos.device)
+    valid = (s[None, None, :] < lens[:, None, None]) | (
+        (s[None, None, :] >= gen0[:, None, None])
+        & (s[None, None, :] <= wp[:, :, None]))
+    return wp, ok, valid
 
 
 def verify_geometry(page_table, pos, seq_len, gen_start, active, win_len,
@@ -157,31 +189,45 @@ def verify_geometry(page_table, pos, seq_len, gen_start, active, win_len,
     b, mp = table.shape
     ps = int(page_size)
     rtot = int(n_pages) * ps
-    s_len = mp * ps
-    pos = pos.reshape(-1).long()
-    lens = seq_len.reshape(-1).long()
-    gen0 = gen_start.reshape(-1).long()
-    act = active.reshape(-1) > 0
-    i = torch.arange(int(k1), device=table.device)
-    wp = pos[:, None] + i[None, :]                          # [B, K1]
+    wp, ok, valid = _window(pos, seq_len, gen_start, active, win_len, k1,
+                            mp * ps)
     wpage = table.gather(1, (wp // ps).clamp(0, mp - 1))
-    ok = act[:, None] & (wp < s_len)
-    if win_len is not None:
-        ok &= i[None, :] < win_len.reshape(-1, 1).long()
     wrow = torch.where(ok, wpage * ps + wp % ps, torch.full_like(wp, rtot))
     j = torch.arange(ps, device=table.device)
     rows = (table[:, :, None] * ps + j).reshape(-1).to(torch.int32)
-    s = torch.arange(s_len, device=table.device)
-    valid = (s[None, None, :] < lens[:, None, None]) | (
-        (s[None, None, :] >= gen0[:, None, None])
-        & (s[None, None, :] <= wp[:, :, None]))
     return VerifyGeometry(rows.to(device), valid.to(device),
                           RowWrite.of(wrow, rtot, device))
 
 
-def attend_paged(q, kk, vv, valid, wo, h: int, dt: torch.dtype):
-    """Masked attention of q [B,Tq,H,D] over gathered K/V [B,S,H,D];
-    ``valid`` broadcasts to [B,1,Tq,S]. Returns [B,Tq,M]."""
+def slot_geometry(pos, seq_len, gen_start, active, win_len, k1: int,
+                  n: int, cache_len: int,
+                  device: torch.device) -> VerifyGeometry:
+    """The contiguous cache's decode or verify geometry (kv_attention.py:
+    194-206, :437-452) for the ``[n, cache_len, H, D]`` cache whose row
+    ``b`` serves batch row ``b``: the feeds as in
+    :func:`verify_geometry`, without a page table. Window position ``i``
+    writes cache row ``pos + i`` of its slot where the slot is active,
+    ``i < win_len`` and ``0 <= pos + i < cache_len``; every other write
+    drops (a free slot's ``pos`` is -1), so no write wraps onto another
+    slot's row. The flat write row is ``b * cache_len + pos + i``: the
+    paged rule with one page of ``cache_len`` rows a slot. Computed where
+    the feeds lie, then moved to ``device``."""
+    s_len = int(cache_len)
+    wp, ok, valid = _window(pos, seq_len, gen_start, active, win_len, k1,
+                            s_len)
+    rtot = int(n) * s_len
+    b = torch.arange(wp.shape[0], device=wp.device)[:, None]
+    wrow = torch.where(ok & (wp >= 0), b * s_len + wp,
+                       torch.full_like(wp, rtot))
+    return VerifyGeometry(None, valid.to(device),
+                          RowWrite.of(wrow, rtot, device))
+
+
+def attend(q, kk, vv, valid, wo, h: int, dt: torch.dtype):
+    """Masked attention of q [B,Tq,H,D] over K/V [B,S,H,D] (a contiguous
+    cache as it lies, or the paged pool's gathered rows); ``valid``
+    broadcasts to [B,1,Tq,S]. Returns [B,Tq,M]. Both layouts attend
+    through this one function, so in fp32 they give the same bits."""
     b, _, _, d = q.shape
     m = h * d
     s = _ab.dot("bqhd,bshd->bhqs", q, kk) * (float(d) ** -0.5)
@@ -211,7 +257,7 @@ def verify_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks, page_vs,
     paged_write(flat_v, fvs, geom.write, v_t.reshape(-1, h, d), codec)
     kk = paged_gather(flat_k, fks, geom.rows, h, dt).view(b, -1, h, d)
     vv = paged_gather(flat_v, fvs, geom.rows, h, dt).view(b, -1, h, d)
-    return attend_paged(q, kk, vv, geom.valid[:, None], wo, h, dt)
+    return attend(q, kk, vv, geom.valid[:, None], wo, h, dt)
 
 
 def kv_attention_decode_paged(x, wq, wk, wv, wo, page_k, page_v, page_table,
@@ -277,6 +323,114 @@ def kv_attention_prefill_paged(x, wq, wk, wv, wo, page_k, page_v, rows,
     write = RowWrite.of(rows, n_pages * ps, x.device)
     return prefill_paged_layer(x, wq, wk, wv, wo, page_k, page_v, page_ks,
                                page_vs, write, n_head, codec)
+
+
+# -- the contiguous layout (kv_attention.py:112-213, :400-459) -------------
+
+def _flat(cache: torch.Tensor) -> torch.Tensor:
+    """[n, S, H, D] -> the [n * S, H, D] view the row writes go through
+    (shares storage: writes land in the cache)."""
+    n, s, h, d = cache.shape
+    return cache.view(n * s, h, d)
+
+
+def kv_attention_prefill(x, wq, wk, wv, wo, n_head: int, cache_len: int):
+    """Causal self-attention over X [B,T,M] (kv_attention.py:117) that
+    also returns fresh caches CacheK/CacheV [B, cache_len, H, D] holding
+    the K/V projections in ``[:, :T]`` and zeros beyond: the wave
+    engine's prefill. Returns (Out [B,T,M], CacheK, CacheV)."""
+    out, k, v = causal_prefill(x, wq, wk, wv, wo, n_head)
+    pad = (0, 0, 0, 0, 0, int(cache_len) - x.shape[1])
+    return out, F.pad(k, pad), F.pad(v, pad)
+
+
+def slot_write(slot, n: int, cache_len: int,
+               device: torch.device) -> RowWrite:
+    """The rows a slot prefill writes: the WHOLE ``[cache_len, H, D]`` row
+    of each ``Slot`` [B] or [B, 1] (flat rows ``slot * cache_len + j``),
+    so a reused slot never leaks its earlier occupant's keys; a slot
+    outside ``[0, n)`` writes nothing."""
+    s_len = int(cache_len)
+    slot = slot.reshape(-1, 1).long()
+    rows = slot * s_len + torch.arange(s_len, device=slot.device)
+    rows = torch.where((slot >= 0) & (slot < int(n)), rows,
+                       torch.full_like(rows, int(n) * s_len))
+    return RowWrite.of(rows, int(n) * s_len, device)
+
+
+def prefill_slot_layer(x, wq, wk, wv, wo, pool_k, pool_v, write: RowWrite,
+                       n_head: int) -> torch.Tensor:
+    """One layer's slot prefill: causal attention over X [B,T,M] whose
+    K/V, zero-padded to the pool's ``S`` rows, overwrite the rows of
+    ``write`` (:func:`slot_write`) in the fp32 pools [n, S, H, D] in
+    place. Returns Out [B,T,M]."""
+    s_len = pool_k.shape[1]
+    out, k, v = kv_attention_prefill(x, wq, wk, wv, wo, n_head, s_len)
+    h, d = k.shape[2:]
+    paged_write(_flat(pool_k), None, write, k.reshape(-1, h, d), "none")
+    paged_write(_flat(pool_v), None, write, v.reshape(-1, h, d), "none")
+    return out
+
+
+def kv_attention_prefill_slot(x, wq, wk, wv, wo, pool_k, pool_v, slot,
+                              n_head: int) -> torch.Tensor:
+    """Causal prefill whose K/V rows join the pools PoolK/PoolV [n, S, H,
+    D] at the per-row slot indices Slot [B, 1] (kv_attention.py:139): each
+    slot's whole row is overwritten, zeros beyond T. Returns Out [B,T,M];
+    the pools are updated in place."""
+    n, s_len = pool_k.shape[:2]
+    write = slot_write(slot, n, s_len, x.device)
+    return prefill_slot_layer(x, wq, wk, wv, wo, pool_k, pool_v, write,
+                              n_head)
+
+
+def verify_slot_layer(x, wq, wk, wv, wo, cache_k, cache_v,
+                      geom: VerifyGeometry, n_head: int) -> torch.Tensor:
+    """One layer's contiguous decode or verify attention for the window X
+    [B,K1,M] over the fp32 caches [B,S,H,D] under a precomputed
+    :func:`slot_geometry`: the window's K/V rows are written in place
+    BEFORE the attention (so position i reads positions < i of its own
+    window), then every position attends over the cache as it lies, with
+    no gather. Returns Out [B,K1,M]."""
+    h = n_head
+    q = _ab.proj(x, wq, h)
+    k_t = _ab.proj(x, wk, h)
+    v_t = _ab.proj(x, wv, h)
+    d = q.shape[-1]
+    paged_write(_flat(cache_k), None, geom.write, k_t.reshape(-1, h, d),
+                "none")
+    paged_write(_flat(cache_v), None, geom.write, v_t.reshape(-1, h, d),
+                "none")
+    return attend(q, cache_k, cache_v, geom.valid[:, None], wo, h, x.dtype)
+
+
+def kv_attention_decode(x, wq, wk, wv, wo, cache_k, cache_v, pos, seq_len,
+                        gen_start, active, n_head: int) -> torch.Tensor:
+    """One-token decode over the contiguous caches (kv_attention.py:166):
+    X [B,1,M], Wq..Wo [M,M], CacheK/CacheV [B,S,H,D] fp32, Pos/SeqLen/
+    GenStart/Active [B,1]. The verify window of one: writes the step's
+    K/V at Pos where active (caches updated in place; a Pos outside the
+    cache writes nothing) and attends over {j < seq_len} U {gen_start <=
+    j <= pos}. Returns Out [B,1,M]."""
+    return kv_attention_verify(x, wq, wk, wv, wo, cache_k, cache_v, pos,
+                               seq_len, gen_start, active, None, n_head)
+
+
+def kv_attention_verify(x, wq, wk, wv, wo, cache_k, cache_v, pos, seq_len,
+                        gen_start, active, win_len,
+                        n_head: int) -> torch.Tensor:
+    """Speculative-decoding verify over the contiguous caches
+    (kv_attention.py:405): X [B,K1,M] (each row's last committed token
+    and K drafts), CacheK/CacheV [B,S,H,D] fp32, Pos/SeqLen/GenStart/
+    Active/WinLen [B,1] (WinLen None: all K1). Writes window position i
+    at row Pos + i where active, i < WinLen and Pos + i < S (caches
+    updated in place) and attends it causally over the row's cache and
+    its window. Returns Out [B,K1,M]."""
+    n, s_len = cache_k.shape[:2]
+    geom = slot_geometry(pos, seq_len, gen_start, active, win_len,
+                         x.shape[1], n, s_len, x.device)
+    return verify_slot_layer(x, wq, wk, wv, wo, cache_k, cache_v, geom,
+                             n_head)
 
 
 def gumbel_noise(seed: torch.Tensor, step: torch.Tensor,

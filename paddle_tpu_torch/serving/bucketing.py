@@ -1,15 +1,20 @@
-"""The prompt-bucket ladder (counterpart of
-``paddle_tpu/serving/bucketing.py`` and ``engine.py:361``
-``prompt_bucket_for``).
+"""Shape buckets (counterpart of ``paddle_tpu/serving/bucketing.py``
+and ``utils/padding.py``): the prompt-bucket ladder and the batch-bucket
+policy of the wave engine.
 
 A prompt is right-padded to the smallest bucket that holds it, so
 mixed-length traffic pays for its bucket instead of the longest prompt;
-the generated tokens land from the bucket's end on.
+the generated tokens land from the bucket's end on. A batch of ``n``
+requests runs at the smallest batch bucket >= n, its rows padded by
+repeating the last one (always-valid inputs) and sliced back off.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+from dataclasses import dataclass
+from typing import Iterable, List, Optional, Tuple
+
+import numpy as np
 
 
 def ladder(buckets: Iterable[int]) -> Tuple[int, ...]:
@@ -26,3 +31,74 @@ def bucket_for(length: int, buckets: Tuple[int, ...]) -> Optional[int]:
         if length <= b:
             return b
     return None
+
+
+def pow2_buckets(max_size: int) -> List[int]:
+    """[1, 2, 4, ..., max] powers of two, ``max_size`` last
+    (``utils/padding.py:140``)."""
+    out = []
+    b = 1
+    while b < max_size:
+        out.append(b)
+        b *= 2
+    out.append(int(max_size))
+    return sorted(set(out))
+
+
+def pad_rows(arr, target: int) -> np.ndarray:
+    """Pad ``arr``'s leading dim up to ``target`` rows by repeating the
+    last row (``utils/padding.py:42``, mode ``"edge"``); a no-op at or
+    over ``target``."""
+    arr = np.asarray(arr)
+    n = arr.shape[0] if arr.ndim else 0
+    if arr.ndim == 0 or n >= target:
+        return arr
+    if n == 0:
+        raise ValueError("cannot pad an empty batch (no row to repeat)")
+    return np.concatenate([arr, np.repeat(arr[-1:], target - n, axis=0)])
+
+
+@dataclass(frozen=True)
+class BucketPolicy:
+    """Batch-bucket ladder for one model (``bucketing.py:32``):
+    ``batch_buckets`` sorted and distinct; ``max_batch`` is the largest
+    (an oversized batch is chunked by it)."""
+
+    batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
+
+    def __post_init__(self):
+        if not self.batch_buckets:
+            raise ValueError("BucketPolicy needs at least one bucket")
+        object.__setattr__(self, "batch_buckets",
+                           tuple(sorted({int(b)
+                                         for b in self.batch_buckets})))
+        if self.batch_buckets[0] < 1:
+            raise ValueError("bucket sizes must be >= 1")
+
+    @classmethod
+    def pow2(cls, max_batch: int) -> "BucketPolicy":
+        return cls(tuple(pow2_buckets(max_batch)))
+
+    @property
+    def max_batch(self) -> int:
+        return self.batch_buckets[-1]
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket >= n (callers chunk by max_batch first)."""
+        b = bucket_for(n, self.batch_buckets)
+        if b is None:
+            raise ValueError(
+                f"batch of {n} exceeds the largest bucket "
+                f"{self.max_batch}; chunk the request first")
+        return b
+
+    def chunks(self, n: int) -> List[int]:
+        """Split n rows into chunk sizes, each <= max_batch (all but the
+        last are exactly max_batch)."""
+        out = []
+        while n > self.max_batch:
+            out.append(self.max_batch)
+            n -= self.max_batch
+        if n:
+            out.append(n)
+        return out

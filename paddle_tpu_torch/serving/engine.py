@@ -1,27 +1,40 @@
-"""In-flight batched decoding over a paged KV cache (counterpart of
-``paddle_tpu/serving/engine.py`` ``SlotGenerativeModel`` and
-``PagedSlotGenerativeModel``).
+"""Serving engines of the decoder LM (counterpart of
+``paddle_tpu/serving/engine.py``): the wave engine
+:class:`GenerativeModel` and the in-flight slot engines
+:class:`ContiguousSlotGenerativeModel` and
+:class:`PagedSlotGenerativeModel`.
 
-The decode step is ONE call over a fixed ``[n_slots]`` batch where each
-slot carries its own cache geometry and sampling state. Requests JOIN a
-free slot mid-flight (``admit`` prefills the prompt at its prompt bucket
-and samples the first token on the device) and LEAVE on EOS or their
-token budget (``step`` reports the leave and frees the slot): there is
-no wave barrier.
+The wave engine serves a whole coalesced batch at once: one prefill at
+the prompt bucket of its longest prompt and the batch bucket of its
+size, then decode steps until the batch's budget is spent. Its
+``full_forward_generate`` recomputes the ``full`` view for every token:
+the baseline the KV cache is measured against.
 
-The paged layout addresses each slot's cache through a per-slot page
-table into one shared ``[n_pages, page_size, H, D]`` pool per layer.
-Admission is gated by FREE PAGES for the request's span (prompt bucket
-+ token budget) instead of a whole worst-case row, and requests with a
-common prompt prefix share its full pages through the refcounted radix
-tree of ``serving/kv_pool.py``. The decode step reads every slot's K/V
+The slot engines' decode step is ONE call over a fixed ``[n_slots]``
+batch where each slot carries its own cache geometry and sampling
+state. Requests JOIN a free slot mid-flight (``admit`` prefills the
+prompt at its prompt bucket and samples the first token on the device)
+and LEAVE on EOS or their token budget (``step`` reports the leave and
+frees the slot): there is no wave barrier.
+
+The contiguous layout (the reference's default, ``make_slot_model``'s
+too) gives each slot a whole ``[cache_len, H, D]`` row per layer; the
+views attend over the pool as it lies. The paged layout addresses each
+slot's cache through a per-slot page table into one shared
+``[n_pages, page_size, H, D]`` pool per layer. Admission is gated by
+FREE PAGES for the request's span (prompt bucket + token budget) instead
+of a whole worst-case row, and requests with a common prompt prefix
+share its full pages through the refcounted radix tree of
+``serving/kv_pool.py``. The paged decode step reads every slot's K/V
 through the page-gather kernels (``ops/kernels/paged_attention.py``).
 
 Sampling is greedy when ``temperature <= 0`` or ``top_k == 1``, else
 temperature/top-k Gumbel sampling keyed only by the per-request seed and
-the token index, so a sampled stream replays identically.
+the token index, so a sampled stream replays identically. The wave
+engine is greedy: it takes the argmax on the device and brings only the
+tokens to the host.
 
-Speculative decoding (an engine built with ``spec_k``): each step a
+Speculative decoding (a slot engine built with ``spec_k``): each step a
 drafter proposes up to K next tokens per slot from its committed
 history (:class:`NgramDrafter`, :class:`ModelDrafter`, or any object
 with ``propose(tokens, k)``), ONE verify dispatch scores every slot's
@@ -31,10 +44,10 @@ plus one more token. The samples are what sequential decoding would
 emit, so the streams are the non-speculative engine's, token for token.
 
 Thread discipline: one dispatcher at a time; ``admit``/``step``/
-``release`` are not internally locked. Counters (``prefills``,
-``decode_steps``, ``tokens_generated``, ``spec_proposed``,
-``spec_accepted`` and ``tokens_per_step``, the committed tokens of a
-slot in a dispatch by count) are plain attributes.
+``release``/``generate`` are not internally locked. Counters
+(``prefills``, ``decode_steps``, ``tokens_generated``; the slot engines'
+``spec_proposed``, ``spec_accepted`` and ``tokens_per_step``, the
+committed tokens of a slot in a dispatch by count) are plain attributes.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.models import transformer as _tf
@@ -58,6 +72,183 @@ class PromptTooLongError(ValueError):
 class SlotExhaustedError(RuntimeError):
     """No free decode slot (or, paged, too few free pages) -- the caller
     must wait for a leave, or shed."""
+
+
+LAYOUTS = ("contiguous", "paged")
+
+
+def _prompt_bucket(length: int, buckets) -> int:
+    """Smallest prompt bucket >= ``length`` (``serving/engine.py:361``)."""
+    b = bucketing.bucket_for(length, buckets)
+    if b is None:
+        raise PromptTooLongError(
+            f"prompt of length {length} exceeds the prompt bucket "
+            f"{buckets[-1]}")
+    return b
+
+
+class GenerativeModel:
+    """Prefill + KV-cache decode serving, a wave a batch
+    (``serving/engine.py:220-570``): the whole coalesced batch decodes to
+    completion, the control arm the slot engines are measured against.
+    One prefill at the prompt bucket of the wave's longest prompt (a
+    LADDER of ``prompt_buckets``: mixed lengths pad to the nearest bucket
+    instead of the longest) and the batch bucket of its size
+    (``policy``, default ``BucketPolicy()``), its K/V in a fresh
+    :class:`~paddle_tpu_torch.models.transformer.ContiguousKVCache` of
+    the bucket's rows; then one decode step a token over that cache.
+    Greedy: the argmax is taken on the device and only the ``[B]``
+    tokens come to the host, one copy a step. ``model.cache_len`` minus
+    the largest prompt bucket is the token budget."""
+
+    def __init__(self, name: str, model: _tf.DecoderLM,
+                 prompt_buckets: Sequence[int],
+                 policy: Optional[bucketing.BucketPolicy] = None):
+        self.name = name
+        self.model = model
+        self.policy = policy or bucketing.BucketPolicy()
+        self.prompt_buckets = bucketing.ladder(prompt_buckets)
+        self.prompt_len = self.prompt_buckets[-1]
+        self.cache_len = model.cache_len
+        if self.prompt_len > self.cache_len:
+            raise ValueError(f"prompt bucket {self.prompt_len} > cache_len "
+                             f"{self.cache_len}")
+        self.max_new = self.cache_len - self.prompt_len
+        self.prefills = 0
+        self.decode_steps = 0
+        self.tokens_generated = 0
+
+    def prompt_bucket_for(self, length: int) -> int:
+        return _prompt_bucket(length, self.prompt_buckets)
+
+    # -- the two dispatches ----------------------------------------------
+    def _prefill(self, ids: np.ndarray, lens: np.ndarray):
+        """ids [B, P], lens [B] (true lengths) -> (the greedy first
+        tokens [B] on the host, taken at each row's ``len - 1``, and the
+        wave's cache)."""
+        dev = self.model.device
+        last = torch.from_numpy(lens - 1).to(dev)
+        logits, cache = self.model.prefill(torch.from_numpy(ids))
+        rows = torch.arange(len(lens), device=dev)
+        return logits[rows, last].argmax(-1).cpu().numpy(), cache
+
+    def _decode(self, cache, tok: np.ndarray, pos: int, lens: np.ndarray,
+                p_len: int) -> np.ndarray:
+        """One decode step of every row at cache row ``pos`` (generated
+        rows from ``p_len`` on) -> the greedy next tokens [B] on the
+        host."""
+        b = len(tok)
+
+        def col(v):
+            return torch.from_numpy(np.asarray(v, np.int64).reshape(b, 1))
+        logits = self.model.decode(col(tok), col(np.full(b, pos)), col(lens),
+                                   col(np.full(b, p_len)),
+                                   col(np.ones(b)), cache)
+        return logits[:, 0].argmax(-1).cpu().numpy()
+
+    def _budget(self, max_new: Optional[int]) -> int:
+        max_new = self.max_new if max_new is None else int(max_new)
+        if max_new > self.max_new:
+            raise ValueError(f"max_new {max_new} exceeds the cache budget "
+                             f"{self.max_new}")
+        return max_new
+
+    def _batch(self, prompts):
+        """(lens [n], the batch bucket, its lens padded by repeating the
+        last)."""
+        lens = np.array([len(p) for p in prompts], np.int64)
+        bucket = self.policy.bucket_for(len(prompts))
+        return lens, bucket, bucketing.pad_rows(lens, bucket)
+
+    def warmup(self) -> Dict[str, int]:
+        """Dispatch every (batch bucket x prompt bucket) prefill and the
+        decode step at each batch bucket once (``serving/engine.py:
+        385-419``), so first-use costs land here. Returns the count
+        dispatched."""
+        n = 0
+        for bucket in self.policy.batch_buckets:
+            lens = np.ones(bucket, np.int64)
+            for p in self.prompt_buckets:
+                tok, cache = self._prefill(np.zeros((bucket, p), np.int64),
+                                           lens)
+                n += 1
+            self._decode(cache, tok, self.prompt_len, lens, self.prompt_len)
+            n += 1
+        return {"dispatched": n}
+
+    # -- generation ------------------------------------------------------
+    def generate(self, prompts: Sequence, max_new: Optional[int] = None
+                 ) -> List[np.ndarray]:
+        """Greedy-decode ``max_new`` tokens for each prompt (1-D int
+        arrays no longer than the largest prompt bucket): one prefill and
+        ``max_new - 1`` decode steps at ``pos = p_len + s``,
+        ``gen_start = p_len`` (``serving/engine.py:468-520``)."""
+        max_new = self._budget(max_new)
+        n = len(prompts)
+        lens, bucket, blens = self._batch(prompts)
+        p_len = self.prompt_bucket_for(int(lens.max()) if n else 1)
+        ids = np.zeros((bucket, p_len), np.int64)
+        for i, p in enumerate(prompts):
+            ids[i, :len(p)] = np.asarray(p, np.int64)
+        tok, cache = self._prefill(ids, blens)
+        self.prefills += 1
+        out = [tok]
+        for s in range(max_new - 1):
+            tok = self._decode(cache, tok, p_len + s, blens, p_len)
+            self.decode_steps += 1
+            out.append(tok)
+        self.tokens_generated += n * max_new
+        toks = np.stack(out, axis=1)            # [bucket, max_new]
+        return [toks[i] for i in range(n)]
+
+    def full_forward_generate(self, prompts: Sequence,
+                              max_new: Optional[int] = None
+                              ) -> List[np.ndarray]:
+        """The O(T)-per-token baseline (``serving/engine.py:522-551``): a
+        fresh ``full`` forward over ``prompt_len + max_new`` positions for
+        every emitted token, on the same weights."""
+        max_new = self._budget(max_new)
+        n = len(prompts)
+        lens, bucket, blens = self._batch(prompts)
+        seq = np.zeros((bucket, self.cache_len), np.int64)
+        for i, p in enumerate(prompts):
+            seq[i, :len(p)] = np.asarray(p, np.int64)
+        dev = self.model.device
+        rows = torch.arange(bucket, device=dev)
+        last = torch.from_numpy(blens - 1).to(dev)
+        out = []
+        for s in range(max_new):
+            logits = self.model.full(torch.from_numpy(seq))
+            out.append(logits[rows, last + s].argmax(-1).cpu().numpy())
+            # each row's token right after its current end
+            seq[np.arange(bucket), blens + s] = out[-1]
+        toks = np.stack(out, axis=1)
+        return [toks[i] for i in range(n)]
+
+    def decode_flops(self, bucket: Optional[int] = None,
+                     step: int = 0) -> int:
+        """The FLOPs of one decode step at ``bucket`` rows and generated
+        position ``step`` (one prefill first, for a cache of that
+        bucket), as ``torch.utils.flop_counter.FlopCounterMode`` counts
+        them: the matrix products only, where the reference's
+        ``analyzed_flops`` counts every op of the executable. The shapes
+        do not depend on the step, so neither does the count."""
+        bucket = bucket or self.policy.batch_buckets[0]
+        p = self.prompt_len
+        lens = np.full(bucket, p, np.int64)
+        tok, cache = self._prefill(np.zeros((bucket, p), np.int64), lens)
+        with FlopCounterMode(display=False) as fc:
+            self._decode(cache, tok, p + int(step), lens, p)
+        return fc.get_total_flops()
+
+    def full_forward_flops(self, bucket: Optional[int] = None) -> int:
+        """The FLOPs of one ``full`` forward over ``prompt_len + max_new``
+        positions at ``bucket`` rows, counted as :meth:`decode_flops`."""
+        bucket = bucket or self.policy.batch_buckets[0]
+        ids = torch.zeros((bucket, self.cache_len), dtype=torch.int64)
+        with FlopCounterMode(display=False) as fc:
+            self.model.full(ids)
+        return fc.get_total_flops()
 
 
 # -- speculative-decoding drafters ----------------------------------------
@@ -173,9 +364,10 @@ class SlotGenerativeModel:
     ``generate``. A layout subclass names its model views (``PREFILL``,
     ``DECODE``, ``VERIFY``), passes its cache to them (``_view_state``)
     and supplies the capacity hooks (``_reserve_capacity``,
-    ``_admit_feeds``, ``_release_capacity``). The paged layout is the
-    one ported so far. With ``spec_k`` set, ``step`` is draft -> verify
-    -> commit over a ``[n_slots, spec_k + 1]`` window."""
+    ``_admit_feeds``, ``_release_capacity``):
+    :class:`ContiguousSlotGenerativeModel` and
+    :class:`PagedSlotGenerativeModel`. With ``spec_k`` set, ``step`` is
+    draft -> verify -> commit over a ``[n_slots, spec_k + 1]`` window."""
 
     PREFILL: str = ""
     DECODE: str = ""
@@ -246,12 +438,7 @@ class SlotGenerativeModel:
         return out.cpu().numpy().reshape(-1)
 
     def prompt_bucket_for(self, length: int) -> int:
-        b = bucketing.bucket_for(length, self.prompt_buckets)
-        if b is None:
-            raise PromptTooLongError(
-                f"prompt of length {length} exceeds the prompt bucket "
-                f"{self.prompt_len}")
-        return b
+        return _prompt_bucket(length, self.prompt_buckets)
 
     def free_count(self) -> int:
         return int((~self._active).sum())
@@ -305,9 +492,13 @@ class SlotGenerativeModel:
 
     def warmup(self) -> Dict[str, int]:
         """Dispatch every prefill bucket, the decode step and (with
-        ``spec_k``) the verify step once with nothing live (no cache row
-        is written), so first-use costs -- building the kernels,
-        allocator growth -- land here and not on the first request."""
+        ``spec_k``) the verify step once with nothing live, so first-use
+        costs -- building the kernels, allocator growth -- land here and
+        not on the first request. The decode and verify steps write no
+        cache row (no slot is active). The paged prefills write none
+        either (every row a sentinel); the contiguous prefills write slot
+        0's row, which is harmless: an admission overwrites its slot's
+        whole row."""
         n = 0
         for p in self.prompt_buckets:
             self._dispatch(self.PREFILL, self._prefill_feeds(p))
@@ -543,6 +734,34 @@ class SlotGenerativeModel:
         return [np.asarray(collected[i], np.int64) for i in range(n)]
 
 
+class ContiguousSlotGenerativeModel(SlotGenerativeModel):
+    """Slot engine over the CONTIGUOUS KV pool (``serving/engine.py:687``,
+    the reference's default layout): each slot owns one whole
+    ``[cache_len, H, D]`` row of an fp32 ``[n_slots, cache_len, H, D]``
+    cache per layer. An admission needs only a free slot: its prefill
+    overwrites the slot's whole row (zeros beyond the prompt), so a
+    reused slot never leaks its earlier occupant's keys. The views
+    attend over the pool as it lies: no page gather runs."""
+
+    PREFILL = "prefill_slot"
+    DECODE = "decode_slot"
+    VERIFY = "decode_verify"
+
+    def __init__(self, name: str, model: _tf.DecoderLM,
+                 prompt_buckets: Sequence[int], n_slots: int,
+                 spec_k: Optional[int] = None, drafter=None):
+        super().__init__(name, model, prompt_buckets, n_slots, spec_k,
+                         drafter)
+        self.cache = model.contiguous_cache(self.n_slots)
+
+    def _view_state(self) -> dict:
+        return {"cache": self.cache}
+
+    def _admit_feeds(self, slot: int, p_len: int):
+        """Prefill feed: the slot index (its whole cache row)."""
+        return {"slot": np.asarray([[slot]], np.int64)}
+
+
 class PagedSlotGenerativeModel(SlotGenerativeModel):
     """Slot engine over a PAGED KV pool: the decode view reads each
     slot's K/V through a ``[n_slots, max_pages]`` page table into one
@@ -650,24 +869,44 @@ class PagedSlotGenerativeModel(SlotGenerativeModel):
 
 
 def make_slot_model(name: str, model: _tf.DecoderLM, *, n_slots: int,
-                    prompt_buckets: Sequence[int],
+                    prompt_buckets: Sequence[int], layout: str = "contiguous",
                     page_size: Optional[int] = None,
                     n_pages: Optional[int] = None, kv_codec: str = "none",
                     spec_k: Optional[int] = None, drafter=None,
-                    device=None) -> PagedSlotGenerativeModel:
-    """Build the paged slot engine over ``model``: ``n_slots`` decode
-    slots, prompts padded to ``prompt_buckets`` (the largest is the
-    longest prompt; ``model.cache_len`` minus it is the token budget),
-    a pool of ``n_pages`` pages of ``page_size`` rows (default: room for
-    every slot's worst case) stored per ``kv_codec`` ('none' | 'bf16' |
-    'int8'). With ``spec_k`` the engine decodes speculatively: each step
-    ``drafter`` (default :class:`NgramDrafter`) proposes up to
-    ``spec_k`` tokens a slot and one verify dispatch checks them. The
-    model is moved to ``device`` (``cuda`` unless ``"cpu"`` is asked
-    for) and the pools are allocated there."""
+                    device=None) -> SlotGenerativeModel:
+    """Build the slot engine over ``model`` for a KV ``layout``
+    (``serving/engine.py:1384``; ``transformer.py:617`` ``slot_modes``):
+    ``n_slots`` decode slots, prompts padded to ``prompt_buckets`` (the
+    largest is the longest prompt; ``model.cache_len`` minus it is the
+    token budget). ``"contiguous"`` (the default, as the reference's
+    ``FLAGS_kv_cache_layout``) gives each slot a whole fp32 cache row;
+    the paged-only arguments raise ``ValueError`` there, so no caller
+    changes layout silently. ``"paged"`` pools ``n_pages`` pages of
+    ``page_size`` rows (default: room for every slot's worst case)
+    stored per ``kv_codec`` ('none' | 'bf16' | 'int8'). With ``spec_k``
+    the engine decodes speculatively: each step ``drafter`` (default
+    :class:`NgramDrafter`) proposes up to ``spec_k`` tokens a slot and
+    one verify dispatch checks them. The model is moved to ``device``
+    (``cuda`` unless ``"cpu"`` is asked for) and the caches are
+    allocated there."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
     model.to(_device.resolve(device))
     buckets = bucketing.ladder(prompt_buckets)
-    geometry = _tf.paged_geometry(buckets[-1], model.cache_len, n_slots,
-                                  page_size, n_pages, kv_codec, spec_k)
-    return PagedSlotGenerativeModel(name, model, geometry, buckets,
-                                    drafter)
+    if layout == "paged":
+        geometry = _tf.paged_geometry(buckets[-1], model.cache_len, n_slots,
+                                      page_size, n_pages, kv_codec, spec_k)
+        return PagedSlotGenerativeModel(name, model, geometry, buckets,
+                                        drafter)
+    paged_only = [k for k, v in (("page_size", page_size),
+                                 ("n_pages", n_pages)) if v is not None]
+    if kv_codec != "none":
+        paged_only.append(f"kv_codec={kv_codec!r}")
+    if paged_only:
+        raise ValueError(f"{', '.join(paged_only)}: paged-only arguments; "
+                         f"the contiguous pool is fp32 rows, no pages "
+                         f"(pass layout='paged')")
+    n_slots, spec_k = _tf.validate_slots(buckets[-1], model.cache_len,
+                                         n_slots, spec_k)
+    return ContiguousSlotGenerativeModel(name, model, buckets, n_slots,
+                                         spec_k, drafter)

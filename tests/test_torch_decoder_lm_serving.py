@@ -75,7 +75,7 @@ def _port(progs, m, codec="none", n_pages=None, device="cpu"):
     lm = tT.DecoderLM(**LM, cache_len=CACHE_LEN, device=device)
     lm.load_state_dict(convert.params_from_jax(_params(progs, m)))
     e = teng.make_slot_model("lm_port", lm, prompt_buckets=BUCKETS,
-                             kv_codec=codec, n_pages=n_pages,
+                             layout="paged", kv_codec=codec, n_pages=n_pages,
                              device=device, **GEOM)
     e.warmup()
     return e
@@ -265,7 +265,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         tT.DecoderLM(**LM, cache_len=CACHE_LEN)
     lm = tT.DecoderLM(**LM, cache_len=CACHE_LEN, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
-        teng.make_slot_model("lm", lm, prompt_buckets=BUCKETS, **GEOM)
+        teng.make_slot_model("lm", lm, prompt_buckets=BUCKETS,
+                             layout="paged", **GEOM)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        teng.make_slot_model("lm", lm, prompt_buckets=BUCKETS,
+                             n_slots=GEOM["n_slots"])
 
 
 def test_port_imports_neither_jax_nor_paddle_tpu():

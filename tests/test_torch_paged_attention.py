@@ -210,7 +210,8 @@ def test_paged_engine_on_the_card_matches_the_cpu(cuda_device,
             lm = DecoderLM(64, 32, 64, 2, 2, cache_len=32, device=dev)
             lm.load_state_dict(params)
             e = make_slot_model("lm", lm, n_slots=3, prompt_buckets=(8, 16),
-                                page_size=4, kv_codec=codec, device=dev)
+                                layout="paged", page_size=4, kv_codec=codec,
+                                device=dev)
             n0 = tpa.LAUNCHES[kname]
             streams[str(dev)] = e.generate(prompts, max_new=10,
                                            temperature=[0, .8, 0, .8, 0],

@@ -120,8 +120,9 @@ def _lm(params, device="cpu"):
 
 def _port(params, spec_k=SPEC_K, drafter=None, device="cpu"):
     e = teng.make_slot_model("lm_port", _lm(params, device),
-                             prompt_buckets=BUCKETS, spec_k=spec_k,
-                             drafter=drafter, device=device, **GEOM)
+                             prompt_buckets=BUCKETS, layout="paged",
+                             spec_k=spec_k, drafter=drafter, device=device,
+                             **GEOM)
     e.warmup()
     return e
 
@@ -459,8 +460,8 @@ def test_paged_geometry_validates_spec_k():
     assert tT.paged_geometry(PROMPT_LEN, CACHE_LEN, 2).spec_k is None
     lm = tT.DecoderLM(**LM, cache_len=CACHE_LEN, device="cpu")
     with pytest.raises(ValueError, match="spec_k"):
-        teng.make_slot_model("lm", lm, prompt_buckets=BUCKETS, spec_k=-2,
-                             device="cpu", **GEOM)
+        teng.make_slot_model("lm", lm, prompt_buckets=BUCKETS,
+                             layout="paged", spec_k=-2, device="cpu", **GEOM)
 
 
 def test_span_for_matches_the_jax_pool_without_draft_headroom(jx):
@@ -686,8 +687,8 @@ def test_cuda_spec_engine_streams_equal_the_plain_engine(cuda_device):
 
     def engine(spec_k, drafter=None):
         e = teng.make_slot_model("lm", lm, prompt_buckets=BUCKETS,
-                                 spec_k=spec_k, drafter=drafter,
-                                 device=cuda_device, **GEOM)
+                                 layout="paged", spec_k=spec_k,
+                                 drafter=drafter, device=cuda_device, **GEOM)
         e.warmup()
         return e
     prompts = _prompts(3, (3, 4, 7, 8, 5, 2))

@@ -52,8 +52,8 @@ def main():
     lm.load_state_dict(convert.params_from_jax(cs.random_params(1)))
     rng = np.random.RandomState(3)
     for codec in args.codecs.split(","):
-        e = make_slot_model(f"profile_{codec}", lm, kv_codec=codec,
-                            device=dev, **cs.SERVE)
+        e = make_slot_model(f"profile_{codec}", lm, layout="paged",
+                            kv_codec=codec, device=dev, **cs.SERVE)
         e.warmup()
         for _ in range(e.n_slots):
             e.admit(rng.randint(1, cs.LM["vocab"], 64), max_new=128)
