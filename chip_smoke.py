@@ -397,7 +397,45 @@ final line:
     page-gather counts, zeroed just before each path and read just
     after, must stay 0, and no profiler window may name a page gather.
     Its JSON line is ``{"contiguous_layout": ...}``.
-20. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+20. The model server (run last, on phase 4's model and requests, kept
+    for it: its profiler window, opened on the server's scheduler thread,
+    left phase 9's window one LSTM kernel record short when it ran right
+    after phase 19): one ``ModelServer`` hosts (a) the paged slot engine with
+    ``kv_codec="int8"``, (b) the same with ``"none"``, (c) the
+    contiguous slot engine, (d) the paged spec engine (``spec_k`` 4, the
+    n-gram drafter) and (e) the wave engine (``BucketPolicy.pow2(16)``),
+    and serves on ``127.0.0.1:0``. From 8 client threads, each with its
+    own ``ServingClient``, the 24 requests go to (a)-(d), one prompt a
+    request with its seed, temperature, top-k and budget, and the 20
+    greedy ones to (e). Each stream over the wire must equal the same
+    engine's in-process stream of phases 4, 4b and 19 token for token;
+    (e)'s, each equal to its wave replayed in process (the batcher forms
+    its own waves), are held to phase 19's streams up to near ties. The
+    page-gather counts, zeroed just before each run and read just after:
+    that codec's kernel twice a layer a decode or verify dispatch for
+    (a), (b), (d), none for (c), (e). In two turns (wire then in process,
+    then the other way), (a)-(d) also take the 24 requests from 16
+    clients, one a slot, so the pool can fill as in process, and the
+    same requests go through a twin engine's in-process ``generate``:
+    tokens/s and requests/s each way, and TTFT and inter-token p50 / p99
+    from the histograms. Over the wire a
+    request of budget 128 is cancelled after its first tokens: the
+    client gets ``RequestCancelledError``, the slot is free within one
+    scheduler step. A window of exactly 20 scheduler steps of (b), opened
+    and closed on the scheduler thread, while one request of 16 prompts
+    keeps every slot busy, timed alone and then under the profiler:
+    device busy a step, the idle share against the host time a step with
+    the profiler off, the page gathers by name, the host's top ops and the scheduler thread's
+    top Python functions (sampled); as in every late window, the page
+    gathers named there are a lower bound of the counters'.
+    ``paddle_serving_requests_applied_
+    total`` and ``..._tokens_generated_total`` of every model equal the
+    requests sent and the tokens returned (the cancelled request's, the
+    waves' padding to their longest budget, included); a scrape of a
+    ``MetricsServer`` shows the latency, TTFT, inter-token and KV page
+    families; ``readyz`` answers ready, ``drain`` drains, ``readyz`` then
+    answers not ready. Its JSON line is ``{"server": ...}``.
+21. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range), then, last,
@@ -997,13 +1035,19 @@ def decode_busy(torch, engine, card, label, kname, per_layer,
     return out
 
 
-def slice_phase(torch, dev, card):
+def decoder_lm(dev):
+    """Phase 4's model: Transformer-base width, seeded random weights."""
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models.transformer import DecoderLM
-    from paddle_tpu_torch.ops.kernels import paged_attention as pa
-    from paddle_tpu_torch.serving.engine import make_slot_model
     lm = DecoderLM(**LM, cache_len=CACHE_LEN, device=dev)
     lm.load_state_dict(convert.params_from_jax(random_params(1)))
+    return lm
+
+
+def slice_phase(torch, dev, card):
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving.engine import make_slot_model
+    lm = decoder_lm(dev)
     engines = {codec: make_slot_model(f"decoder_lm_{codec}", lm,
                                       layout="paged", kv_codec=codec,
                                       device=dev, **SERVE)
@@ -1272,6 +1316,8 @@ def spec_phase(torch, dev, card, served, per_layer, decode):
         label = f"spec kv_codec={codec}"
         streams, ngram = spec_serve(torch, engine, reqs, card,
                                     f"{label} ngram", pa, kname, per_layer)
+        if codec == "none":
+            served["spec_streams"] = streams     # phase 20's reference
         engine.drafter = ScriptedDrafter(reqs[0], streams)
         scripted_streams, scripted = spec_serve(
             torch, engine, reqs, card, f"{label} scripted", pa, kname,
@@ -1466,6 +1512,7 @@ def contiguous_phase(torch, dev, card, served, decode):
     same = [bool(np.array_equal(a, b)) for a, b in zip(streams, paged)]
     eq, paged_ties = streams_agree(torch, lm, reqs, paged, streams,
                                    f"{label} / paged")
+    served["contiguous_streams"] = streams       # phase 20's reference
     stats.update(oracle_ties=ties, equal_to_paged=int(sum(same)),
                  sampled_equal_to_paged=int(sum(same[n] for n in SAMPLED)),
                  paged_near_ties=paged_ties)
@@ -1513,6 +1560,7 @@ def contiguous_phase(torch, dev, card, served, decode):
     pa.reset_launches()
     wave_streams, wstats = wave_serve(torch, wave, greqs, card, label)
     no_gathers(pa, label)
+    served["wave_streams"], served["greedy"] = wave_streams, greedy
     eq, ties = streams_agree(torch, lm, greqs, [streams[n] for n in greedy],
                              wave_streams, f"{label} / contiguous")
     wstats.update(warmup=warm, equal_to_contiguous=eq, near_ties=ties)
@@ -1566,6 +1614,569 @@ def contiguous_phase(torch, dev, card, served, decode):
           f"GFLOP (products, FlopCounterMode)")
     wstats["full_forward"] = ff
     out[label] = wstats
+    return out
+
+
+# -- phase 20: the model server on the card ----------------------------------
+# (run last, on phase 4's model and requests)
+
+SERVER_CLIENTS = 8                 # client threads, one ServingClient each
+SERVER_CLIENTS_FULL = 16           # one client a slot: a full pool
+SERVER_TURNS = 2                   # wire / in-process rounds, in turns
+SERVER_PROFILE = dict(skip=5, steps=DECODE_PROFILE_STEPS, prompt=64,
+                      budget=32)   # the window of 16 busy slots
+CANCEL_BUDGET = 128
+
+
+def wire_run(torch, endpoint, name, reqs, idx, rid, greedy=False,
+             clients=SERVER_CLIENTS):
+    """Send requests ``idx`` of ``reqs`` to model ``name`` over the wire,
+    one prompt a request, from ``clients`` threads, each with its own
+    ``ServingClient`` (request ids ``rid-n``). Each request carries
+    its own budget and, unless ``greedy``, its seed, temperature and
+    top-k. Returns ({n: stream}, wall seconds, per-request latency s)."""
+    import threading
+    from paddle_tpu_torch.serving.client import ServingClient
+    prompts, budgets, temps, topks, seeds = reqs
+    todo = list(idx)[::-1]
+    lock = threading.Lock()
+    out, lat, errors = {}, {}, []
+
+    def worker():
+        client = ServingClient(endpoint)
+        try:
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    n = todo.pop()
+                kw = {} if greedy else dict(temperature=temps[n],
+                                            top_k=topks[n], seed=seeds[n])
+                t = time.perf_counter()
+                (out[n],) = client.generate(name, [prompts[n]],
+                                            max_new=budgets[n],
+                                            request_id=f"{rid}-{n}", **kw)
+                lat[n] = time.perf_counter() - t
+        except BaseException as e:          # noqa: BLE001 - re-raised below
+            errors.append(e)
+        finally:
+            client.close()
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return out, wall, lat
+
+
+class WaveRecorder:
+    """The waves a hosted wave engine's ``generate`` was called with
+    (the prompts in order, the wave's budget)."""
+
+    def __init__(self, engine):
+        self.engine, self.generate, self.waves = engine, engine.generate, []
+
+    def __call__(self, prompts, max_new=None):
+        self.waves.append(([np.asarray(p).copy() for p in prompts],
+                           max_new))
+        return self.generate(prompts, max_new=max_new)
+
+
+class StepWindow:
+    """Wraps a hosted slot engine's ``step`` so that a window covers
+    exactly ``steps`` scheduler steps after ``skip``, opened and closed on
+    the scheduler thread itself, and timed. With ``profile``, a profiler
+    records the window, and a sampler thread meanwhile reads that
+    thread's innermost Python frame every ``every`` s (the host's top
+    functions)."""
+
+    def __init__(self, torch, engine, skip, steps, profile=True,
+                 every=0.002):
+        import threading
+        self.torch, self.engine, self.step = torch, engine, engine.step
+        self.skip, self.steps, self.every = skip, steps, every
+        self.profile = profile
+        self.n, self.prof, self.wall_ms = 0, None, None
+        self.done, self.stop = threading.Event(), threading.Event()
+        self.samples = {}
+
+    def _sample(self, tid):
+        import sys
+        while not self.stop.wait(self.every):
+            frame = sys._current_frames().get(tid)
+            if frame is not None:
+                code = frame.f_code
+                key = (f"{os.path.basename(code.co_filename)}:"
+                       f"{code.co_name}")
+                self.samples[key] = self.samples.get(key, 0) + 1
+
+    def __call__(self):
+        import threading
+        from torch.profiler import ProfilerActivity, profile
+        n, self.n = self.n, self.n + 1
+        if n == self.skip:
+            self.torch.cuda.synchronize()
+            if self.profile:
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                threading.Thread(target=self._sample,
+                                 args=(threading.get_ident(),),
+                                 daemon=True).start()
+            self.t0 = time.perf_counter()
+        out = self.step()
+        if n == self.skip + self.steps - 1:
+            self.torch.cuda.synchronize()
+            self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+            self.stop.set()
+            if self.profile:
+                self.prof.__exit__(None, None, None)
+            self.done.set()
+        return out
+
+
+def served_window(torch, server, engine, label, kname, per_layer, profile):
+    """One wire request of 16 seeded prompts keeps every slot of the
+    hosted ``engine`` busy while a ``StepWindow`` covers exactly
+    ``SERVER_PROFILE["steps"]`` of its scheduler's steps, with or without
+    the profiler. Returns the window."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving.client import ServingClient
+    p = SERVER_PROFILE
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, LM["vocab"], p["prompt"])
+               for _ in range(engine.n_slots)]
+    window = engine.step = StepWindow(torch, engine, p["skip"], p["steps"],
+                                      profile=profile)
+    client = ServingClient(server.endpoint)
+    steps0 = engine.decode_steps
+    pa.reset_launches()
+    try:
+        toks = client.generate(
+            engine.name, prompts, max_new=p["budget"],
+            request_id=f"{label}-{'profiled' if profile else 'timed'}")
+    finally:
+        client.close()
+        del engine.step
+    want = {k: per_layer * (engine.decode_steps - steps0) if k == kname
+            else 0 for k in pa.LAUNCHES}
+    if dict(pa.LAUNCHES) != want:
+        fail(f"{label}: the request of 16 launched {dict(pa.LAUNCHES)}, "
+             f"want {want}")
+    if not window.done.is_set():
+        fail(f"{label}: the served run ended before its window")
+    if any(len(t) != p["budget"] for t in toks):
+        fail(f"{label}: the request of 16 gave {[len(t) for t in toks]}"
+             f" tokens, want {p['budget']} each")
+    return window
+
+
+def served_busy(torch, server, engine, card, label, kname, per_layer):
+    """The window of ``served_window`` twice: timed alone, then under the
+    profiler: device busy a step, the idle share against the host time a
+    step with the profiler off, the page gathers by profiler name, the
+    host's top ops and top Python functions of the scheduler thread.
+    Sends two requests of ``engine.n_slots`` prompts."""
+    p = SERVER_PROFILE
+    timed = served_window(torch, server, engine, label, kname, per_layer,
+                          profile=False)
+    window = served_window(torch, server, engine, label, kname, per_layer,
+                           profile=True)
+    prof, steps = window.prof, p["steps"]
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    # the counters give the launches exactly; a late window may lose
+    # kernel records, so its names bound them from below
+    ran = {ev.key: ev.count for ev in kernels if "gather_rows" in ev.key}
+    named, launched = sum(ran.values()), per_layer * steps
+    if (not 0 < named <= launched
+            or any(GATHER_KERNELS[kname] not in key for key in ran)):
+        fail(f"{label}: the page gathers of {steps} served scheduler steps "
+             f"ran {ran} by name, want up to {launched} of "
+             f"{GATHER_KERNELS[kname]}")
+    seen = f"{named} of {launched} named, all {GATHER_KERNELS[kname]}"
+    total = sum(window.samples.values()) or 1
+    top = sorted(window.samples.items(), key=lambda kv: -kv[1])[:8]
+    out = {"steps": steps, "slots_busy": engine.n_slots,
+           "gathers_named": named, "gathers_launched": launched,
+           "device_busy_ms_per_step": busy_us / steps / 1e3,
+           "host_ms_per_step": timed.wall_ms / steps,
+           "host_ms_per_step_profiled": window.wall_ms / steps,
+           "launches_per_step": sum(ev.count for ev in kernels) / steps,
+           "top_host_ops_us_per_step": host_top(torch, prof, steps),
+           "top_functions_share": {k: v / total for k, v in top},
+           "samples": total}
+    out["idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out[
+        "host_ms_per_step"]
+    out["idle_share_profiled"] = 1.0 - out["device_busy_ms_per_step"] / out[
+        "host_ms_per_step_profiled"]
+    print(f"[{card}] {label} served profile ({steps} scheduler steps, all "
+          f"{engine.n_slots} slots busy): device busy "
+          f"{out['device_busy_ms_per_step']:.3f} ms/step, host "
+          f"{out['host_ms_per_step']:.3f} ms/step with the profiler off "
+          f"({out['host_ms_per_step_profiled']:.3f} on), idle share "
+          f"{out['idle_share']:.3f} ({out['idle_share_profiled']:.3f} against "
+          f"the profiled window); {out['launches_per_step']:.1f} launches "
+          f"a step; {seen}; top host ops us/step "
+          f"{json.dumps(rounded(out['top_host_ops_us_per_step']))}; top "
+          f"functions of the scheduler thread (share of {total} samples) "
+          f"{json.dumps({k: round(v, 3) for k, v in out['top_functions_share'].items()})}")
+    return out
+
+
+def wire_cancel(torch, server, engine, card, label):
+    """Over the wire, a request with a budget of ``CANCEL_BUDGET`` is
+    cancelled from a second client after its first tokens: the first
+    client gets ``RequestCancelledError``, and the slot is free within one
+    scheduler step. Returns the tokens the request generated."""
+    import threading
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.server import RequestCancelledError
+    from paddle_tpu_torch.serving import metrics as smetrics
+    hosted = server.model(engine.name)
+    rid = f"{label}-cancel"
+    caught = []
+    toks0 = engine.tokens_generated
+    ev0 = smetrics.SLOT_EVICTIONS.labels(model=engine.name,
+                                         cause="cancelled").value
+    a, b = ServingClient(server.endpoint), ServingClient(server.endpoint)
+
+    def run():
+        try:
+            a.generate(engine.name, [np.arange(1, 40)], max_new=CANCEL_BUDGET,
+                       request_id=rid)
+        except BaseException as e:          # noqa: BLE001 - checked below
+            caught.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    deadline = time.perf_counter() + 60
+    while (engine.tokens_generated - toks0 < 4
+           and time.perf_counter() < deadline):
+        time.sleep(0.001)
+    try:
+        if not b.cancel(engine.name, rid):
+            fail(f"{label}: the cancel found no request {rid!r}")
+        steps0 = hosted.sched_steps
+        t.join(60)
+    finally:
+        a.close()
+        b.close()
+    gone = hosted.sched_steps - steps0
+    if len(caught) != 1 or not isinstance(caught[0], RequestCancelledError):
+        fail(f"{label}: the cancelled request ended with {caught!r}, want "
+             f"RequestCancelledError")
+    if engine.active_count() != 0 or gone > 1:
+        fail(f"{label}: {engine.active_count()} slots still busy "
+             f"{gone} scheduler steps after the cancel")
+    if smetrics.SLOT_EVICTIONS.labels(
+            model=engine.name, cause="cancelled").value - ev0 != 1:
+        fail(f"{label}: the cancel was not counted as a slot eviction")
+    tokens = engine.tokens_generated - toks0
+    print(f"[{card}] {label}: a request of budget {CANCEL_BUDGET} cancelled "
+          f"over the wire after {tokens} tokens: RequestCancelledError "
+          f"(kind cancelled), its slot free within {gone} scheduler step")
+    return tokens
+
+
+def server_phase(torch, dev, card, served, per_layer):
+    """Phase 20: one ``ModelServer`` on the card hosts (a) the paged slot
+    engine, int8 codec, (b) the same, no codec, (c) the contiguous slot
+    engine, (d) the spec engine on the paged layout (``spec_k`` 4, n-gram
+    drafter) and (e) the wave engine, all over phase 4's model; clients
+    reach them over a real socket."""
+    from paddle_tpu_torch.observability.exporters import MetricsServer
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving import metrics as smetrics
+    from paddle_tpu_torch.serving.bucketing import BucketPolicy
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.engine import (GenerativeModel,
+                                                 NgramDrafter,
+                                                 make_slot_model)
+    from paddle_tpu_torch.serving.server import ModelServer
+    import urllib.request
+    lm, reqs = decoder_lm(dev), served["reqs"]
+    greedy = served["greedy"]
+    greqs = subset(reqs, greedy)
+    slots = dict(n_slots=SERVE["n_slots"],
+                 prompt_buckets=SERVE["prompt_buckets"])
+
+    def slot_engine(key, name):
+        kw = {"a": dict(layout="paged", kv_codec="int8", **SERVE),
+              "b": dict(layout="paged", kv_codec="none", **SERVE),
+              "c": dict(layout="contiguous", **slots),
+              "d": dict(layout="paged", kv_codec="none", drafter=NgramDrafter(),
+                        **SERVE, **SPEC)}[key]
+        return make_slot_model(name, lm, device=dev, **kw)
+    cells = {  # key: (label, kernel, in-process streams of phases 4-19)
+        "a": ("paged int8", "gather_rows_dequant", served["streams"]["int8"]),
+        "b": ("paged none", "gather_rows", served["streams"]["none"]),
+        "c": ("contiguous", None, served["contiguous_streams"]),
+        "d": ("spec paged none", "gather_rows", served["spec_streams"])}
+    engines = {k: slot_engine(k, f"srv_{k}") for k in cells}
+    twins = {k: slot_engine(k, f"twin_{k}") for k in cells}
+    wave = GenerativeModel("srv_e", lm, SERVE["prompt_buckets"],
+                           BucketPolicy.pow2(SERVE["n_slots"]))
+    twin_wave = GenerativeModel("twin_e", lm, SERVE["prompt_buckets"],
+                                BucketPolicy.pow2(SERVE["n_slots"]))
+    for e in twins.values():
+        e.warmup()
+    twin_wave.warmup()
+    server = ModelServer()
+    t = time.perf_counter()
+    for e in (*engines.values(), wave):
+        server.add_model(e)
+    warm_s = time.perf_counter() - t
+    endpoint = server.serve(host="127.0.0.1", port=0)
+    names = [e.name for e in engines.values()] + [wave.name]
+    fams = ("REQUESTS_APPLIED", "TOKENS_GENERATED")
+    before = {n: {f: getattr(smetrics, f).labels(model=n).value
+                  for f in fams} for n in names}
+    sent = dict.fromkeys(names, 0)
+    returned = dict.fromkeys(names, 0)
+    print(f"[{card}] server: 5 engines hosted (warmup {warm_s:.1f} s), "
+          f"serving at {endpoint}")
+    out = {"endpoint_kind": "tcp 127.0.0.1", "clients": SERVER_CLIENTS,
+           "clients_full": SERVER_CLIENTS_FULL,
+           "warmup_s": warm_s, "cells": {}}
+    everything = list(range(N_REQUESTS))
+    launches_served = {k: 0 for k in pa.LAUNCHES}
+    for turn in range(SERVER_TURNS):
+        for key, (label, kname, want) in cells.items():
+            engine, twin = engines[key], twins[key]
+            cell = out["cells"].setdefault(key, {"label": label, "wire": [],
+                                                 "wire_full": [],
+                                                 "inproc": []})
+
+            def wire(clients):
+                steps0 = engine.decode_steps
+                pa.reset_launches()
+                got, wall, lat = wire_run(torch, endpoint, engine.name, reqs,
+                                          everything, f"{key}{turn}c{clients}",
+                                          clients=clients)
+                launches = dict(pa.LAUNCHES)
+                steps = engine.decode_steps - steps0
+                streams = [got[n] for n in everything]
+                bad = [n for n in everything
+                       if not np.array_equal(streams[n], want[n])]
+                if bad:
+                    n = bad[0]
+                    fail(f"server {label}: request {n} over the wire gave "
+                         f"{streams[n].tolist()}, in process "
+                         f"{want[n].tolist()}")
+                wl = {k: per_layer * steps if k == kname else 0
+                      for k in launches}
+                if launches != wl:
+                    fail(f"server {label}: the page gathers launched "
+                         f"{launches}, want {wl} ({steps} dispatches)")
+                if turn == 0:
+                    for k in launches:
+                        launches_served[k] += launches[k]
+                tokens = int(sum(len(s) for s in streams))
+                sent[engine.name] += len(everything)
+                returned[engine.name] += tokens
+                lat_s = sorted(lat.values())
+                row = {"tokens": tokens, "wall_s": wall,
+                       "requests_per_s": len(everything) / wall,
+                       "tokens_per_s": tokens / wall, "dispatches": steps,
+                       "ms_per_dispatch": wall * 1e3 / steps,
+                       "launches": launches,
+                       "latency_p50_s": float(np.percentile(lat_s, 50)),
+                       "latency_p99_s": float(np.percentile(lat_s, 99))}
+                cell["wire" if clients == SERVER_CLIENTS
+                     else "wire_full"].append(row)
+                print(f"[{card}] server {label} (turn {turn}): {N_REQUESTS} "
+                      f"requests over the wire from {clients} clients "
+                      f"equal phases 4-19's in-process streams token for "
+                      f"token; {tokens} tokens in {wall:.3f} s = "
+                      f"{row['tokens_per_s']:.1f} tokens/s, "
+                      f"{row['requests_per_s']:.2f} requests/s; {steps} "
+                      f"dispatches ({row['ms_per_dispatch']:.3f} ms of wall "
+                      f"each), page gathers {launches}")
+
+            def inproc():
+                got, stats = serve(torch, twin, reqs, card,
+                                   f"server {label} in process (twin, "
+                                   f"turn {turn})")
+                if any(not np.array_equal(a, b) for a, b in zip(got, want)):
+                    fail(f"server {label}: the in-process twin gave other "
+                         f"streams")
+                cell["inproc"].append({k: stats[k] for k in (
+                    "tokens", "wall_s", "tokens_per_s", "decode_steps")})
+                cell["inproc"][-1]["ms_per_dispatch"] = (
+                    stats["wall_s"] * 1e3 / stats["decode_steps"])
+            runs = (lambda: wire(SERVER_CLIENTS),
+                    lambda: wire(SERVER_CLIENTS_FULL), inproc)
+            for run in runs if turn % 2 == 0 else runs[::-1]:
+                run()
+            if turn == 0:
+                cell["ttft_p50_s"] = smetrics.histogram_percentile(
+                    smetrics.TTFT, 0.5, model=engine.name)
+                cell["ttft_p99_s"] = smetrics.histogram_percentile(
+                    smetrics.TTFT, 0.99, model=engine.name)
+                cell["inter_token_p50_s"] = smetrics.histogram_percentile(
+                    smetrics.INTER_TOKEN, 0.5, model=engine.name)
+                cell["inter_token_p99_s"] = smetrics.histogram_percentile(
+                    smetrics.INTER_TOKEN, 0.99, model=engine.name)
+                print(f"[{card}] server {label}: from the histograms (bucket "
+                      f"bounds) TTFT p50 / p99 {cell['ttft_p50_s']} / "
+                      f"{cell['ttft_p99_s']} s, inter-token p50 / p99 "
+                      f"{cell['inter_token_p50_s']} / "
+                      f"{cell['inter_token_p99_s']} s")
+
+        # (e) the wave engine on the wave batcher, greedy requests
+        cell = out["cells"].setdefault("e", {"label": "wave", "wire": [],
+                                             "inproc": []})
+
+        def wave_wire():
+            rec = wave.generate = WaveRecorder(wave)
+            pa.reset_launches()
+            toks0 = wave.tokens_generated
+            try:
+                got, wall, lat = wire_run(torch, endpoint, wave.name, greqs,
+                                          range(len(greedy)), f"e{turn}",
+                                          greedy=True)
+            finally:
+                del wave.generate
+            no_gathers(pa, "server wave")
+            streams = [got[n] for n in range(len(greedy))]
+            # the stream of a request depends on the wave it rode in (the
+            # wave's prompt and batch buckets): replay each wave the
+            # batcher formed, in process on the twin
+            by_prompt = {tuple(int(x) for x in greqs[0][n]): n
+                         for n in range(len(greedy))}
+            for prompts, max_new in rec.waves:
+                replay = twin_wave.generate(prompts, max_new=max_new)
+                for p, r in zip(prompts, replay):
+                    n = by_prompt[tuple(int(x) for x in p)]
+                    if not np.array_equal(streams[n], r[:greqs[1][n]]):
+                        fail(f"server wave: request {n} over the wire "
+                             f"differs from its wave replayed in process")
+            eq, ties = streams_agree(torch, lm, greqs, served["wave_streams"],
+                                     streams, "server wave / phase 19")
+            generated = sum(len(p) * m for p, m in rec.waves)
+            if wave.tokens_generated - toks0 != generated:
+                fail(f"server wave: {wave.tokens_generated - toks0} tokens "
+                     f"generated, want {generated} (its waves at their "
+                     f"budgets)")
+            tokens = int(sum(len(s) for s in streams))
+            sent[wave.name] += len(greedy)
+            returned[wave.name] += generated
+            row = {"tokens": tokens, "generated": generated, "wall_s": wall,
+                   "requests_per_s": len(greedy) / wall,
+                   "tokens_per_s": tokens / wall,
+                   "waves": [len(p) for p, _ in rec.waves],
+                   "equal_to_phase_19": eq, "near_ties": ties}
+            cell["wire"].append(row)
+            if turn == 0:
+                for q in (0.5, 0.99):
+                    cell[f"ttft_p{int(q * 100)}_s"] = \
+                        smetrics.histogram_percentile(smetrics.TTFT, q,
+                                                      model=wave.name)
+            print(f"[{card}] server wave (turn {turn}): {len(greedy)} greedy "
+                  f"requests over the wire in waves of {row['waves']}: each "
+                  f"stream equals its wave replayed in process; {eq} of "
+                  f"{len(greedy)} equal phase 19's (waves 16 + 4), {ties} "
+                  f"part at a near tie; {tokens} tokens within the budgets in "
+                  f"{wall:.3f} s = {row['tokens_per_s']:.1f} tokens/s, "
+                  f"{row['requests_per_s']:.2f} requests/s; no page gather")
+
+        def wave_inproc():
+            got, stats = wave_serve(torch, twin_wave, greqs, card,
+                                    f"server wave in process (twin, turn "
+                                    f"{turn})")
+            if any(not np.array_equal(a, b)
+                   for a, b in zip(got, served["wave_streams"])):
+                fail("server wave: the in-process twin gave other streams "
+                     "than phase 19's")
+            cell["inproc"].append({k: stats[k] for k in (
+                "tokens_delivered", "wall_s", "delivered_tokens_per_s")})
+        for run in ((wave_wire, wave_inproc) if turn % 2 == 0
+                    else (wave_inproc, wave_wire)):
+            run()
+
+    # the cancel, and a window of 16 busy slots, on (b)
+    eng_b = engines["b"]
+    cancelled = wire_cancel(torch, server, eng_b, card, "server paged none")
+    sent[eng_b.name] += 1
+    returned[eng_b.name] += cancelled
+    out["cancel"] = {"budget": CANCEL_BUDGET, "tokens_before_cancel":
+                     cancelled}
+    out["busy"] = served_busy(torch, server, eng_b, card, "server paged none",
+                              "gather_rows", per_layer)
+    sent[eng_b.name] += 2
+    returned[eng_b.name] += 2 * eng_b.n_slots * SERVER_PROFILE["budget"]
+
+    # the counters
+    for n in names:
+        got = {f: getattr(smetrics, f).labels(model=n).value - before[n][f]
+               for f in fams}
+        if got != {"REQUESTS_APPLIED": sent[n], "TOKENS_GENERATED": returned[n]}:
+            fail(f"server {n}: applied / tokens {got}, want {sent[n]} "
+                 f"requests and {returned[n]} tokens")
+    print(f"[{card}] server: requests applied and tokens generated by model "
+          f"equal the requests sent and the tokens returned (the cancelled "
+          f"request's and the waves' padding to their longest budget "
+          f"included): {json.dumps({n: [sent[n], returned[n]] for n in names})}")
+    msrv = MetricsServer(port=0)
+    try:
+        body = urllib.request.urlopen(f"http://{msrv.endpoint}/metrics",
+                                      timeout=30).read().decode()
+    finally:
+        msrv.stop()
+    want = []
+    for n in names:
+        want += [f'paddle_serving_request_latency_seconds_bucket{{model="{n}"',
+                 f'paddle_serving_ttft_seconds_bucket{{model="{n}"']
+    for key in cells:
+        n = engines[key].name
+        want.append(f'paddle_serving_inter_token_latency_seconds_bucket'
+                    f'{{model="{n}"')
+        if key != "c":
+            want += [f'paddle_kv_pages_total{{model="{n}"}}',
+                     f'paddle_kv_pages_free{{model="{n}"}}',
+                     f'paddle_kv_prefix_shared_pages{{model="{n}"}}']
+    missing = [w for w in want if w not in body]
+    if missing:
+        fail(f"server: the scrape lacks {missing}")
+    print(f"[{card}] server: the scrape shows the latency and TTFT families "
+          f"of every model, inter-token of the slot engines, the KV page "
+          f"gauges of the paged ones ({len(want)} series checked)")
+
+    # lifecycle
+    client = ServingClient(endpoint)
+    try:
+        rz = client._call({"method": "readyz"})
+        dr = client._call({"method": "drain", "timeout_s": 30.0,
+                           "exit": False})
+        rz2 = client._call({"method": "readyz"})
+    finally:
+        client.close()
+        server.stop()
+    if not (rz["ready"] and dr["drained"] and not rz2["ready"]):
+        fail(f"server: readyz {rz}, drain {dr}, then readyz {rz2}")
+    print(f"[{card}] server: readyz ready; drain drained in "
+          f"{dr['duration_s']:.3f} s; readyz then not ready")
+    for key, cell in out["cells"].items():
+        w = np.mean([r["tokens_per_s"] for r in cell["wire"]])
+        i = np.mean([r.get("tokens_per_s", r.get("delivered_tokens_per_s"))
+                     for r in cell["inproc"]])
+        cell["wire_over_inproc"] = float(w / i)
+        full = ""
+        if cell.get("wire_full"):
+            f = np.mean([r["tokens_per_s"] for r in cell["wire_full"]])
+            cell["full_wire_over_inproc"] = float(f / i)
+            full = (f"; from {SERVER_CLIENTS_FULL} clients {f:.1f}: "
+                    f"{cell['full_wire_over_inproc']:.3f}x")
+        print(f"[{card}] server {cell['label']}: over the wire from "
+              f"{SERVER_CLIENTS} clients {w:.1f} tokens/s against {i:.1f} in "
+              f"process: {cell['wire_over_inproc']:.3f}x{full}")
+    out["launches"] = launches_served
     return out
 
 
@@ -4919,7 +5530,7 @@ def main():
     launches, per_layer, decode, served = slice_phase(torch, dev, card)
     spec = spec_phase(torch, dev, card, served, per_layer, decode)
     contiguous = contiguous_phase(torch, dev, card, served, decode)
-    del served
+    del served["lm"]         # phase 20 keeps only the host streams
     train_launches, per_step, runs = train_phase(torch, dev, card)
     lstm = rnn_phase(torch, dev, card, "LSTM")
     lstm_launches, lstm_per_step, lstm_run = lstm_train_phase(torch, dev,
@@ -4934,6 +5545,8 @@ def main():
     cache_kernels = cache_kernel_phase(torch, dev, card, launch_floor)
     fm_launches, fm_run = deepfm_phase(torch, dev, card)
     image = image_phase(torch, dev, card)
+    server = server_phase(torch, dev, card, served, per_layer)
+    del served
     for key in ("install", "write_back"):
         if fm_run[f"most_used_{key}_bucket"] != list(CACHE_BUCKET):
             fail(f"deepfm's most used {key} bucket (bucket, median rows) "
@@ -4964,6 +5577,7 @@ def main():
             "launches_per_decode_step": per_layer,
             "decode_step": decode[codec],
             "launches_verify": spec[codec]["ngram"]["launches"][kname],
+            "launches_server": server["launches"][kname],
             "verify_step": spec[codec]["busy"],
             "launches_per_train_step": 0, "card": card})
     for kname, line in (("flash_fwd", "189"), ("flash_bwd", "481, :504"),
@@ -5118,6 +5732,7 @@ def main():
         "card": card}))
     print(json.dumps({"image_classifiers": image, "card": card}))
     print(json.dumps({"contiguous_layout": contiguous, "card": card}))
+    print(json.dumps({"server": server, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

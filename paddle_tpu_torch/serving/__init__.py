@@ -1,1 +1,86 @@
-"""Serving side of the port: page pool, prompt buckets, slot engine."""
+"""Serving side of the port (counterpart of ``paddle_tpu/serving``): the
+page pool, prompt and batch buckets, the slot and wave engines, and the
+model server with its JSON/TCP wire and client.
+
+Public surface::
+
+    from paddle_tpu_torch import serving
+    engine = serving.make_slot_model("lm", decoder_lm, n_slots=16,
+                                     prompt_buckets=(32, 64, 128))
+    server = serving.ModelServer()
+    server.add_model(engine)
+    endpoint = server.serve()
+    client = serving.ServingClient(endpoint)
+    toks = client.generate("lm", prompts, max_new=32)
+
+Submodules import lazily (PEP 562), so ``paddle_tpu_torch.serving.
+metrics`` imports without the engines. Not here yet (they wait for
+their items): the router, the replica process and the autoscaler,
+``ServedModel`` and ``forbid_compiles``.
+"""
+
+from __future__ import annotations
+
+_LAZY = {
+    "BucketPolicy": ("paddle_tpu_torch.serving.bucketing", "BucketPolicy"),
+    "FeedSignature": ("paddle_tpu_torch.serving.bucketing",
+                      "FeedSignature"),
+    "GenerativeModel": ("paddle_tpu_torch.serving.engine",
+                        "GenerativeModel"),
+    "SlotGenerativeModel": ("paddle_tpu_torch.serving.engine",
+                            "SlotGenerativeModel"),
+    "ContiguousSlotGenerativeModel": ("paddle_tpu_torch.serving.engine",
+                                      "ContiguousSlotGenerativeModel"),
+    "PagedSlotGenerativeModel": ("paddle_tpu_torch.serving.engine",
+                                 "PagedSlotGenerativeModel"),
+    "make_slot_model": ("paddle_tpu_torch.serving.engine",
+                        "make_slot_model"),
+    "NgramDrafter": ("paddle_tpu_torch.serving.engine", "NgramDrafter"),
+    "ModelDrafter": ("paddle_tpu_torch.serving.engine", "ModelDrafter"),
+    "PagePool": ("paddle_tpu_torch.serving.kv_pool", "PagePool"),
+    "PagesExhaustedError": ("paddle_tpu_torch.serving.kv_pool",
+                            "PagesExhaustedError"),
+    "SlotExhaustedError": ("paddle_tpu_torch.serving.engine",
+                           "SlotExhaustedError"),
+    "PromptTooLongError": ("paddle_tpu_torch.serving.engine",
+                           "PromptTooLongError"),
+    "ModelServer": ("paddle_tpu_torch.serving.server", "ModelServer"),
+    "RequestShedError": ("paddle_tpu_torch.serving.server",
+                         "RequestShedError"),
+    "ReplicaDrainingError": ("paddle_tpu_torch.serving.server",
+                             "ReplicaDrainingError"),
+    "RequestCancelledError": ("paddle_tpu_torch.serving.server",
+                              "RequestCancelledError"),
+    "ModelNotFoundError": ("paddle_tpu_torch.serving.server",
+                           "ModelNotFoundError"),
+    "SERVING_ENV": ("paddle_tpu_torch.serving.server", "SERVING_ENV"),
+    "ServingClient": ("paddle_tpu_torch.serving.client", "ServingClient"),
+    "ServingUnavailableError": ("paddle_tpu_torch.serving.client",
+                                "ServingUnavailableError"),
+    "ServingRequestError": ("paddle_tpu_torch.serving.client",
+                            "ServingRequestError"),
+    "metrics": ("paddle_tpu_torch.serving.metrics", None),
+    "bucketing": ("paddle_tpu_torch.serving.bucketing", None),
+    "engine": ("paddle_tpu_torch.serving.engine", None),
+    "kv_pool": ("paddle_tpu_torch.serving.kv_pool", None),
+    "server": ("paddle_tpu_torch.serving.server", None),
+    "client": ("paddle_tpu_torch.serving.client", None),
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    entry = _LAZY.get(name)
+    if entry is None:
+        raise AttributeError(f"module 'paddle_tpu_torch.serving' has no "
+                             f"attribute {name!r}")
+    import importlib
+    mod = importlib.import_module(entry[0])
+    value = mod if entry[1] is None else getattr(mod, entry[1])
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return __all__

@@ -6,13 +6,14 @@ A prompt is right-padded to the smallest bucket that holds it, so
 mixed-length traffic pays for its bucket instead of the longest prompt;
 the generated tokens land from the bucket's end on. A batch of ``n``
 requests runs at the smallest batch bucket >= n, its rows padded by
-repeating the last one (always-valid inputs) and sliced back off.
+repeating the last one (always-valid inputs) and sliced back off. The
+model server coalesces only requests of one :class:`FeedSignature`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Iterable, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -102,3 +103,21 @@ class BucketPolicy:
         if n:
             out.append(n)
         return out
+
+
+@dataclass(frozen=True)
+class FeedSignature:
+    """Per-example feed signature (``bucketing.py:111``): the (name,
+    per-row shape, dtype) set requests must share to coalesce into one
+    batch."""
+
+    items: Tuple[Tuple[str, Tuple[int, ...], str], ...] = field(
+        default_factory=tuple)
+
+    @classmethod
+    def of(cls, feeds: Dict[str, np.ndarray]) -> "FeedSignature":
+        items = []
+        for name in sorted(feeds):
+            a = np.asarray(feeds[name])
+            items.append((name, tuple(a.shape[1:]), str(a.dtype)))
+        return cls(tuple(items))

@@ -44,10 +44,23 @@ plus one more token. The samples are what sequential decoding would
 emit, so the streams are the non-speculative engine's, token for token.
 
 Thread discipline: one dispatcher at a time; ``admit``/``step``/
-``release``/``generate`` are not internally locked. Counters
-(``prefills``, ``decode_steps``, ``tokens_generated``; the slot engines'
+``release``/``generate`` are not internally locked (the model server
+drives each engine from its one scheduler thread).
+
+Telemetry, where the reference's engines update it: the serving
+families of ``serving/metrics.py`` (``paddle_serving_prefills_total``,
+``_slot_admissions_total``, ``_tokens_generated_total``,
+``_decode_steps_total``, ``_decode_slot_occupancy_ratio``,
+``_slot_evictions_total{cause}``, ``_spec_proposed_tokens_total``,
+``_spec_accepted_tokens_total``, ``_tokens_per_step``; the page pool's
+``paddle_kv_*``), labelled by the engine's ``name``; the span
+``serving.prefill@{bucket}`` around each prefill, under the caller's
+trace context; the fault site ``serving.dispatch`` before each model
+call. The engines also keep plain attribute counters (``prefills``,
+``decode_steps``, ``tokens_generated``; the slot engines'
 ``spec_proposed``, ``spec_accepted`` and ``tokens_per_step``, the
-committed tokens of a slot in a dispatch by count) are plain attributes.
+committed tokens of a slot in a dispatch by count), which count the
+same events and are what callers holding the engine read.
 """
 
 from __future__ import annotations
@@ -61,7 +74,10 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.models import transformer as _tf
+from paddle_tpu_torch.observability import trace_context as tctx
 from paddle_tpu_torch.serving import bucketing, kv_pool
+from paddle_tpu_torch.serving import metrics as smetrics
+from paddle_tpu_torch.utils import faults
 
 
 class PromptTooLongError(ValueError):
@@ -128,6 +144,7 @@ class GenerativeModel:
         wave's cache)."""
         dev = self.model.device
         last = torch.from_numpy(lens - 1).to(dev)
+        faults.inject("serving.dispatch")
         logits, cache = self.model.prefill(torch.from_numpy(ids))
         rows = torch.arange(len(lens), device=dev)
         return logits[rows, last].argmax(-1).cpu().numpy(), cache
@@ -141,6 +158,7 @@ class GenerativeModel:
 
         def col(v):
             return torch.from_numpy(np.asarray(v, np.int64).reshape(b, 1))
+        faults.inject("serving.dispatch")
         logits = self.model.decode(col(tok), col(np.full(b, pos)), col(lens),
                                    col(np.full(b, p_len)),
                                    col(np.ones(b)), cache)
@@ -190,14 +208,19 @@ class GenerativeModel:
         ids = np.zeros((bucket, p_len), np.int64)
         for i, p in enumerate(prompts):
             ids[i, :len(p)] = np.asarray(p, np.int64)
-        tok, cache = self._prefill(ids, blens)
+        with tctx.span(f"serving.prefill@{p_len}", model=self.name,
+                       rows=bucket):
+            tok, cache = self._prefill(ids, blens)
         self.prefills += 1
+        smetrics.PREFILLS.labels(model=self.name).inc()
         out = [tok]
         for s in range(max_new - 1):
             tok = self._decode(cache, tok, p_len + s, blens, p_len)
             self.decode_steps += 1
+            smetrics.DECODE_STEPS.labels(model=self.name).inc()
             out.append(tok)
         self.tokens_generated += n * max_new
+        smetrics.TOKENS_GENERATED.labels(model=self.name).inc(n * max_new)
         toks = np.stack(out, axis=1)            # [bucket, max_new]
         return [toks[i] for i in range(n)]
 
@@ -381,6 +404,9 @@ class SlotGenerativeModel:
         self.prompt_buckets = bucketing.ladder(prompt_buckets)
         self.prompt_len = self.prompt_buckets[-1]
         self.n_slots = int(n_slots)
+        # what a server reads for the most prompts one request may carry
+        # (``max_rows``) and reports as ``buckets`` (serving/engine.py:740)
+        self.policy = bucketing.BucketPolicy((self.n_slots,))
         self.cache_len = model.cache_len
         self.max_new = self.cache_len - self.prompt_len
         self.spec_k = int(spec_k) if spec_k else 0
@@ -434,6 +460,7 @@ class SlotGenerativeModel:
         host (the one wait for the device per call)."""
         args = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in feeds.items()}
+        faults.inject("serving.dispatch")
         out = getattr(self.model, view)(**args, **self._view_state())
         return out.cpu().numpy().reshape(-1)
 
@@ -445,6 +472,9 @@ class SlotGenerativeModel:
 
     def active_count(self) -> int:
         return int(self._active.sum())
+
+    def occupancy(self) -> float:
+        return self.active_count() / float(self.n_slots)
 
     def _decode_feeds(self) -> Dict[str, np.ndarray]:
         return {"tok": self._tok[:, None],
@@ -548,20 +578,27 @@ class SlotGenerativeModel:
         self._reserve_capacity(slot, prompt, p_len, budget)
         ids = np.zeros((1, p_len), np.int64)
         ids[0, :length] = prompt
+        # the span is named by the prompt bucket the admission landed on,
+        # under the admitting request's trace (the scheduler activates it)
         try:
-            tok = self._dispatch(self.PREFILL, {
-                "ids": ids,
-                **self._admit_feeds(slot, p_len),
-                "seq_len": np.asarray([[length]], np.int64),
-                "seed": np.asarray([[int(seed)]], np.int64),
-                "temperature": np.asarray([[float(temperature)]],
-                                          np.float32),
-                "top_k": np.asarray([[int(top_k)]], np.int64)})
+            with tctx.span(f"serving.prefill@{p_len}", model=self.name,
+                           slot=slot):
+                tok = self._dispatch(self.PREFILL, {
+                    "ids": ids,
+                    **self._admit_feeds(slot, p_len),
+                    "seq_len": np.asarray([[length]], np.int64),
+                    "seed": np.asarray([[int(seed)]], np.int64),
+                    "temperature": np.asarray([[float(temperature)]],
+                                              np.float32),
+                    "top_k": np.asarray([[int(top_k)]], np.int64)})
         except BaseException:
             self._release_capacity(slot)
             raise
         self.prefills += 1
         self.tokens_generated += 1
+        smetrics.PREFILLS.labels(model=self.name).inc()
+        smetrics.SLOT_ADMISSIONS.labels(model=self.name).inc()
+        smetrics.TOKENS_GENERATED.labels(model=self.name).inc()
         first = int(tok[0])
         self._active[slot] = True
         self._tok[slot] = first
@@ -581,6 +618,9 @@ class SlotGenerativeModel:
             done = "max_new"
         if done:
             self.release(slot, cause=done)
+        else:
+            smetrics.SLOT_OCCUPANCY.labels(model=self.name).set(
+                self.occupancy())
         return slot, first, done
 
     def step(self) -> List[Tuple[int, int, Optional[str]]]:
@@ -599,6 +639,9 @@ class SlotGenerativeModel:
         self.decode_steps += 1
         self.tokens_generated += int(live.size)
         self.tokens_per_step[1] += int(live.size)
+        smetrics.DECODE_STEPS.labels(model=self.name).inc()
+        smetrics.TOKENS_GENERATED.labels(model=self.name).inc(int(live.size))
+        per_step = smetrics.TOKENS_PER_STEP.labels(model=self.name)
         events = []
         for slot in live:
             slot = int(slot)
@@ -606,6 +649,7 @@ class SlotGenerativeModel:
             self._tok[slot] = tok
             self._gen_count[slot] += 1
             self._hist[slot].append(tok)
+            per_step.observe(1.0)
             eos = self._eos[slot]
             done = None
             if eos is not None and tok == eos:
@@ -615,6 +659,8 @@ class SlotGenerativeModel:
             if done:
                 self.release(slot, cause=done)
             events.append((slot, tok, done))
+        smetrics.SLOT_OCCUPANCY.labels(model=self.name).set(
+            self.occupancy())
         return events
 
     def _step_verify(self, live) -> List[Tuple[int, int, Optional[str]]]:
@@ -653,6 +699,10 @@ class SlotGenerativeModel:
         out = out.reshape(s, k1)
         self.decode_steps += 1
         self.spec_proposed += proposed
+        smetrics.DECODE_STEPS.labels(model=self.name).inc()
+        smetrics.SPEC_PROPOSED.labels(model=self.name).inc(proposed)
+        per_step = smetrics.TOKENS_PER_STEP.labels(model=self.name)
+        accepted = committed = 0
         events = []
         for slot in live:
             slot = int(slot)
@@ -662,6 +712,7 @@ class SlotGenerativeModel:
             while a < len(d) and d[a] == int(t[a]):
                 a += 1
             self.spec_accepted += a
+            accepted += a
             eos = self._eos[slot]
             done = None
             n_commit = 0
@@ -679,8 +730,14 @@ class SlotGenerativeModel:
                     break
             self.tokens_generated += n_commit
             self.tokens_per_step[n_commit] += 1
+            committed += n_commit
+            per_step.observe(float(n_commit))
             if done:
                 self.release(slot, cause=done)
+        smetrics.SPEC_ACCEPTED.labels(model=self.name).inc(accepted)
+        smetrics.TOKENS_GENERATED.labels(model=self.name).inc(committed)
+        smetrics.SLOT_OCCUPANCY.labels(model=self.name).set(
+            self.occupancy())
         return events
 
     def release(self, slot: int, cause: str = "cancelled"):
@@ -689,11 +746,15 @@ class SlotGenerativeModel:
             return
         self._active[slot] = False
         self._eos[slot] = None
+        smetrics.SLOT_EVICTIONS.labels(model=self.name, cause=cause).inc()
+        smetrics.SLOT_OCCUPANCY.labels(model=self.name).set(
+            self.occupancy())
 
     def reset(self):
         self._active[:] = False
         self._gen_count[:] = 0
         self._eos = [None] * self.n_slots
+        smetrics.SLOT_OCCUPANCY.labels(model=self.name).set(0.0)
 
     def generate(self, prompts: Sequence, max_new=None, temperature=0.0,
                  top_k=0, seeds: Optional[Sequence[int]] = None,
@@ -786,7 +847,8 @@ class PagedSlotGenerativeModel(SlotGenerativeModel):
         self.n_pages, self.page_size = g.n_pages, g.page_size
         self.max_pages = g.max_pages
         self.cache = model.new_cache(g)
-        self.pool = kv_pool.PagePool(self.n_pages, self.page_size)
+        self.pool = kv_pool.PagePool(self.n_pages, self.page_size,
+                                     model=self.name)
         # write-row sentinel: one past the flat pool -> the write drops
         self._row_sentinel = self.n_pages * self.page_size
         # host page-table mirror; n_pages is the TABLE sentinel (gather

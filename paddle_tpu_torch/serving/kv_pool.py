@@ -1,6 +1,5 @@
 """Paged KV-cache page pool: the host-side allocator behind the paged
-serving engine (the port's own copy of ``paddle_tpu/serving/kv_pool.py``;
-the Prometheus publishes became plain counters read off the pool).
+serving engine (the port's own copy of ``paddle_tpu/serving/kv_pool.py``).
 
 A request whose prompt pads to bucket ``P`` with token budget ``B``
 holds ``span = ceil((P + B) / page_size)`` pages of the per-layer
@@ -29,6 +28,12 @@ it. Three cooperating structures:
   (``evictions["capacity"]``); :meth:`PagePool.reset` drops the whole
   cache (``evictions["reset"]``).
 
+A pool built with a ``model`` tag publishes its accounting as the
+reference's does: the ``paddle_kv_pages_total`` / ``_free`` /
+``paddle_kv_prefix_shared_pages`` gauges after every lease change and
+``paddle_kv_page_evictions_total{cause}`` per reclaimed page
+(``serving/metrics.py``); the ``evictions`` dict counts the same.
+
 Thread discipline matches the engine: one dispatcher at a time -- no
 internal locking.
 """
@@ -36,6 +41,8 @@ internal locking.
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from paddle_tpu_torch.serving import metrics as smetrics
 
 
 class PagesExhaustedError(RuntimeError):
@@ -74,20 +81,23 @@ class PagePool:
     model's paged KV pool. Page ids index the device pools' leading
     axis; the engine turns a lease into the slot's page-table row and
     the prefill's write-row vector. ``evictions`` counts reclaimed tree
-    pages by cause."""
+    pages by cause; ``model`` tags the published gauges (none when
+    empty)."""
 
-    def __init__(self, n_pages: int, page_size: int):
+    def __init__(self, n_pages: int, page_size: int, model: str = ""):
         if n_pages < 1 or page_size < 1:
             raise ValueError(f"bad pool geometry: n_pages={n_pages}, "
                              f"page_size={page_size}")
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
+        self.model = model
         self._free: List[int] = list(range(self.n_pages))[::-1]
         self._root = _Node(None, -1, None)
         self._slots: Dict[int, _SlotLease] = {}
         self._clock = 0
         self._cached = 0          # refcount-0 nodes resident in the tree
         self.evictions = {"capacity": 0, "reset": 0}
+        self._publish()
 
     # -- accounting -------------------------------------------------------
     def free_count(self) -> int:
@@ -131,6 +141,15 @@ class PagePool:
             yield nd
             stack.extend(nd.children.values())
 
+    def _publish(self):
+        if not self.model:
+            return
+        smetrics.KV_PAGES_TOTAL.labels(model=self.model).set(self.n_pages)
+        smetrics.KV_PAGES_FREE.labels(model=self.model).set(
+            self.free_count())
+        smetrics.KV_PREFIX_SHARED_PAGES.labels(model=self.model).set(
+            self.shared_count())
+
     # -- eviction ---------------------------------------------------------
     def _evict_one(self, cause: str) -> bool:
         """Reclaim the LRU refcount-0 LEAF (a refcount-0 node's whole
@@ -147,6 +166,9 @@ class PagePool:
         self._free.append(victim.page)
         self._cached -= 1
         self.evictions[cause] += 1
+        if self.model:
+            smetrics.KV_PAGE_EVICTIONS.labels(
+                model=self.model, cause=cause).inc()
         return True
 
     def _take_pages(self, need: int) -> List[int]:
@@ -232,6 +254,7 @@ class PagePool:
         tail = private[k:]
         pages = [nd.page for nd in nodes] + tail
         self._slots[slot] = _SlotLease(pages, nodes, tail, n_shared)
+        self._publish()
         return pages, n_shared
 
     def release(self, slot: int):
@@ -248,6 +271,7 @@ class PagePool:
                 nd.last_use = self._clock
                 self._cached += 1
         self._free.extend(lease.tail)
+        self._publish()
 
     def abort(self, slot: int):
         """Failed-admission release: the nodes THIS lease inserted hold
@@ -271,6 +295,7 @@ class PagePool:
                 nd.last_use = self._clock
                 self._cached += 1
         self._free.extend(lease.tail)
+        self._publish()
 
     def lease(self, slot: int) -> Optional[_SlotLease]:
         return self._slots.get(slot)
@@ -279,7 +304,12 @@ class PagePool:
         """Drop every lease AND the prefix cache (engine reset: cached
         pages would alias stale K/V)."""
         self._slots.clear()
-        self.evictions["reset"] += sum(1 for _ in self._iter_nodes())
+        n = sum(1 for _ in self._iter_nodes())
+        self.evictions["reset"] += n
+        if n and self.model:
+            smetrics.KV_PAGE_EVICTIONS.labels(
+                model=self.model, cause="reset").inc(n)
         self._root.children.clear()
         self._cached = 0
         self._free = list(range(self.n_pages))[::-1]
+        self._publish()
