@@ -435,7 +435,34 @@ final line:
     ``MetricsServer`` shows the latency, TTFT, inter-token and KV page
     families; ``readyz`` answers ready, ``drain`` drains, ``readyz`` then
     answers not ready. Its JSON line is ``{"server": ...}``.
-21. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+21. The serving fleet (after phase 20): phase 4's seeded weights saved
+    as an ``.npz`` under their JAX names, and a port ``Router`` over
+    replicas spawned (``python -m paddle_tpu_torch.serving.replica``,
+    one process each, loading the kernels phase 2 built) from one spec:
+    phase 4's paged engine (16 slots, 256 pages of 16 rows, buckets
+    32/64/128, codec none, ``device: "cuda"``). (a) One replica; an
+    ``Autoscaler`` (queue-wait SLO 0.01 s) grows the pool to 2 under a
+    burst of phase 20's 24 requests from 16 clients through the router;
+    (b) those streams, and a second pass's over two replicas, equal
+    phase 4's up to near ties, with tokens/s and requests/s beside phase
+    20's direct to one server; (c) the replica with the most requests in
+    flight is SIGKILLed under load: every request answered, the
+    failovers counted, the slot restarted (the time from the kill to
+    readyz); (d) ``rolling_restart`` under load: no failure but typed
+    sheds, every replica a new process; (f) after a quiet period the
+    autoscaler drains the pool back to 1 (its pool 1 -> 2 -> 1); (g) a
+    replica whose spec sets ``oom_exit`` and a fault plan raising
+    ``MemoryError`` at its first admission exits 42 without a reply,
+    every request answered by the survivor; its memdump holds the
+    card's allocated bytes (at least the weights' 198 MiB), and the
+    router records ``cause="oom"`` and replaces it once with the
+    fallback spec; (e) that replica SIGTERMed drains and exits 0; (h) a
+    client process's spans chain client -> ``router.route`` -> replica
+    in the merged spools (``tools/trace_collect.py``'s checks, the
+    killed replicas' torn parents aside). The replicas' page-gather
+    launches are not this process's to count. Its JSON line is
+    ``{"fleet": ...}``.
+22. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range), then, last,
@@ -855,7 +882,7 @@ def serve(torch, engine, reqs, card, label):
         step_ms.append((time.perf_counter() - t) * 1e3)
         return out
     engine.admit, engine.step = timed_admit, timed_step
-    steps0, toks0 = engine.decode_steps, engine.tokens_generated
+    before = counters(engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -866,8 +893,9 @@ def serve(torch, engine, reqs, card, label):
     finally:
         del engine.admit, engine.step
     wall = time.perf_counter() - t0
-    steps = engine.decode_steps - steps0
-    tokens = engine.tokens_generated - toks0
+    after = counters(engine)
+    steps = after["decode_steps"] - before["decode_steps"]
+    tokens = after["tokens_generated"] - before["tokens_generated"]
     for n, s in enumerate(streams):
         if s.shape != (budgets[n],) or s.min() < 0 or s.max() >= LM["vocab"]:
             fail(f"{label}: request {n} gave {s.shape} tokens in "
@@ -1120,11 +1148,12 @@ class ScriptedDrafter:
 def spec_stats(engine, before, label, card):
     """The verify dispatches, proposed / accepted drafts and the mean
     tokens committed per slot per dispatch since ``before`` (a copy of
-    the engine's counters)."""
-    commits = engine.tokens_per_step - before["tokens_per_step"]
-    out = {"verify_dispatches": engine.decode_steps - before["decode_steps"],
-           "proposed": engine.spec_proposed - before["spec_proposed"],
-           "accepted": engine.spec_accepted - before["spec_accepted"],
+    :func:`counters` of the engine)."""
+    now = counters(engine)
+    commits = now["tokens_per_step"] - before["tokens_per_step"]
+    out = {"verify_dispatches": now["decode_steps"] - before["decode_steps"],
+           "proposed": now["spec_proposed"] - before["spec_proposed"],
+           "accepted": now["spec_accepted"] - before["spec_accepted"],
            "committed_per_slot_dispatch":
                sum(n * c for n, c in commits.items())
                / max(1, sum(commits.values())),
@@ -1136,11 +1165,34 @@ def spec_stats(engine, before, label, card):
     return out
 
 
+def per_value(hist):
+    """A histogram child's observations by value: {upper bound: count}
+    over its non-empty buckets (exact for ``paddle_serving_tokens_per_step``
+    up to 6, whose buckets are one token wide there)."""
+    from collections import Counter
+    out, prev = Counter(), 0
+    for ub, cum in hist.snapshot()[0]:
+        if cum > prev:
+            out[int(ub) if ub != float("inf") else ub] = cum - prev
+        prev = cum
+    return out
+
+
 def counters(engine):
-    return {"decode_steps": engine.decode_steps,
-            "spec_proposed": engine.spec_proposed,
-            "spec_accepted": engine.spec_accepted,
-            "tokens_per_step": engine.tokens_per_step.copy()}
+    """The engine's serving families, read as ``Family.labels(model=
+    engine.name)`` (process-wide: callers take deltas): decode steps,
+    tokens generated, prefills, drafts proposed and accepted, and the
+    tokens committed a slot a dispatch by count."""
+    from paddle_tpu_torch.serving import metrics as sm
+    fams = {"decode_steps": sm.DECODE_STEPS,
+            "tokens_generated": sm.TOKENS_GENERATED,
+            "prefills": sm.PREFILLS, "spec_proposed": sm.SPEC_PROPOSED,
+            "spec_accepted": sm.SPEC_ACCEPTED}
+    out = {k: int(f.labels(model=engine.name).value)
+           for k, f in fams.items()}
+    out["tokens_per_step"] = per_value(
+        sm.TOKENS_PER_STEP.labels(model=engine.name))
+    return out
 
 
 def spec_serve(torch, engine, reqs, card, label, pa, kname, per_layer):
@@ -1409,7 +1461,7 @@ def wave_serve(torch, engine, reqs, card, label):
         step_ms.append((time.perf_counter() - t) * 1e3)
         return out
     engine._prefill, engine._decode = timed_prefill, timed_decode
-    toks0 = engine.tokens_generated
+    toks0 = counters(engine)["tokens_generated"]
     size = engine.policy.max_batch
     streams = []
     torch.cuda.synchronize()
@@ -1424,7 +1476,7 @@ def wave_serve(torch, engine, reqs, card, label):
     finally:
         del engine._prefill, engine._decode
     wall = time.perf_counter() - t0
-    tokens = engine.tokens_generated - toks0
+    tokens = counters(engine)["tokens_generated"] - toks0
     stats = {"waves": -(-len(prompts) // size), "tokens": tokens,
              "tokens_delivered": int(sum(budgets)), "wall_s": wall,
              "tokens_per_s": tokens / wall,
@@ -1753,7 +1805,7 @@ def served_window(torch, server, engine, label, kname, per_layer, profile):
     window = engine.step = StepWindow(torch, engine, p["skip"], p["steps"],
                                       profile=profile)
     client = ServingClient(server.endpoint)
-    steps0 = engine.decode_steps
+    steps0 = counters(engine)["decode_steps"]
     pa.reset_launches()
     try:
         toks = client.generate(
@@ -1762,7 +1814,8 @@ def served_window(torch, server, engine, label, kname, per_layer, profile):
     finally:
         client.close()
         del engine.step
-    want = {k: per_layer * (engine.decode_steps - steps0) if k == kname
+    steps = counters(engine)["decode_steps"] - steps0
+    want = {k: per_layer * steps if k == kname
             else 0 for k in pa.LAUNCHES}
     if dict(pa.LAUNCHES) != want:
         fail(f"{label}: the request of 16 launched {dict(pa.LAUNCHES)}, "
@@ -1842,7 +1895,7 @@ def wire_cancel(torch, server, engine, card, label):
     hosted = server.model(engine.name)
     rid = f"{label}-cancel"
     caught = []
-    toks0 = engine.tokens_generated
+    toks0 = counters(engine)["tokens_generated"]
     ev0 = smetrics.SLOT_EVICTIONS.labels(model=engine.name,
                                          cause="cancelled").value
     a, b = ServingClient(server.endpoint), ServingClient(server.endpoint)
@@ -1856,7 +1909,7 @@ def wire_cancel(torch, server, engine, card, label):
     t = threading.Thread(target=run)
     t.start()
     deadline = time.perf_counter() + 60
-    while (engine.tokens_generated - toks0 < 4
+    while (counters(engine)["tokens_generated"] - toks0 < 4
            and time.perf_counter() < deadline):
         time.sleep(0.001)
     try:
@@ -1877,7 +1930,7 @@ def wire_cancel(torch, server, engine, card, label):
     if smetrics.SLOT_EVICTIONS.labels(
             model=engine.name, cause="cancelled").value - ev0 != 1:
         fail(f"{label}: the cancel was not counted as a slot eviction")
-    tokens = engine.tokens_generated - toks0
+    tokens = counters(engine)["tokens_generated"] - toks0
     print(f"[{card}] {label}: a request of budget {CANCEL_BUDGET} cancelled "
           f"over the wire after {tokens} tokens: RequestCancelledError "
           f"(kind cancelled), its slot free within {gone} scheduler step")
@@ -1954,13 +2007,13 @@ def server_phase(torch, dev, card, served, per_layer):
                                                  "inproc": []})
 
             def wire(clients):
-                steps0 = engine.decode_steps
+                steps0 = counters(engine)["decode_steps"]
                 pa.reset_launches()
                 got, wall, lat = wire_run(torch, endpoint, engine.name, reqs,
                                           everything, f"{key}{turn}c{clients}",
                                           clients=clients)
                 launches = dict(pa.LAUNCHES)
-                steps = engine.decode_steps - steps0
+                steps = counters(engine)["decode_steps"] - steps0
                 streams = [got[n] for n in everything]
                 bad = [n for n in everything
                        if not np.array_equal(streams[n], want[n])]
@@ -2036,7 +2089,7 @@ def server_phase(torch, dev, card, served, per_layer):
         def wave_wire():
             rec = wave.generate = WaveRecorder(wave)
             pa.reset_launches()
-            toks0 = wave.tokens_generated
+            toks0 = counters(wave)["tokens_generated"]
             try:
                 got, wall, lat = wire_run(torch, endpoint, wave.name, greqs,
                                           range(len(greedy)), f"e{turn}",
@@ -2060,8 +2113,9 @@ def server_phase(torch, dev, card, served, per_layer):
             eq, ties = streams_agree(torch, lm, greqs, served["wave_streams"],
                                      streams, "server wave / phase 19")
             generated = sum(len(p) * m for p, m in rec.waves)
-            if wave.tokens_generated - toks0 != generated:
-                fail(f"server wave: {wave.tokens_generated - toks0} tokens "
+            made = counters(wave)["tokens_generated"] - toks0
+            if made != generated:
+                fail(f"server wave: {made} tokens "
                      f"generated, want {generated} (its waves at their "
                      f"budgets)")
             tokens = int(sum(len(s) for s in streams))
@@ -2177,6 +2231,452 @@ def server_phase(torch, dev, card, served, per_layer):
               f"{SERVER_CLIENTS} clients {w:.1f} tokens/s against {i:.1f} in "
               f"process: {cell['wire_over_inproc']:.3f}x{full}")
     out["launches"] = launches_served
+    return out
+
+
+# -- phase 21: the serving fleet ---------------------------------------------
+
+FLEET_CLIENTS = 16                 # phase 20's full pool: one client a slot
+FLEET_POLICY = dict(slo_queue_wait_p99_s=0.01, min_replicas=1,
+                    max_replicas=2, breach_window_s=0.5,
+                    clear_window_s=2.0, cooldown_s=2.0, window_s=5.0,
+                    poll_interval_s=0.25)
+# serving.dispatch hits of a paged replica's warmup: its three prompt
+# buckets' prefills and the decode step; the next hit is an admission
+FLEET_WARMUP_HITS = len(SERVE["prompt_buckets"]) + 1
+FLEET_DEADLINE_S = 150.0
+WEIGHT_BYTES_MIN = 198 * 2 ** 20   # phase 4's weights, fp32
+
+
+def fleet_spec(weights, **top):
+    """Phase 4's paged engine as a replica spec (the reference's
+    ``decoder_lm`` params plus the port's ``weights`` and ``device``)."""
+    p_len = SERVE["prompt_buckets"][-1]
+    params = dict(prompt_len=p_len, max_new=CACHE_LEN - p_len, **LM,
+                  n_slots=SERVE["n_slots"],
+                  prompt_buckets=list(SERVE["prompt_buckets"]),
+                  modes=["prefill_paged", "decode_paged"],
+                  page_size=SERVE["page_size"], n_pages=SERVE["n_pages"],
+                  kv_codec="none")
+    return {"model": {"kind": "decoder_lm", "name": "fleet",
+                      "weights": weights, "device": "cuda",
+                      "params": params}, **top}
+
+
+def wait_for(pred, what, timeout=FLEET_DEADLINE_S):
+    """Poll ``pred`` until true; fail after ``timeout`` s. Returns the
+    seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            fail(f"fleet: no {what} within {timeout:.0f} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+class LazyModel:
+    """Phase 4's model for the near-tie oracle, rebuilt from its seed only
+    if a stream comparison needs it."""
+
+    def __init__(self, dev):
+        self.dev, self.lm = dev, None
+
+    def full(self, ids):
+        if self.lm is None:
+            self.lm = decoder_lm(self.dev)
+        return self.lm.full(ids)
+
+
+def fleet_load(endpoint, name, reqs, rid, stop=None):
+    """Phase 20's requests through the router from ``FLEET_CLIENTS``
+    threads, each with its own ``ServingClient``: one pass, or, with
+    ``stop``, passes until it is set (the jobs taken by then finish).
+    Returns ({(pass, n): stream}, typed sheds, other failures, wall s)."""
+    import threading
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.server import RequestShedError
+    prompts, budgets, temps, topks, seeds = reqs
+    lock = threading.Lock()
+    state = {"pass": 0, "todo": list(range(len(prompts)))[::-1]}
+    out, sheds, errors = {}, [], []
+
+    def take():
+        with lock:
+            if not state["todo"]:
+                if stop is None or stop.is_set():
+                    return None
+                state["pass"] += 1
+                state["todo"] = list(range(len(prompts)))[::-1]
+            return state["pass"], state["todo"].pop()
+
+    def worker():
+        client = ServingClient(endpoint, timeout_s=FLEET_DEADLINE_S)
+        try:
+            while (job := take()) is not None:
+                p, n = job
+                try:
+                    (out[p, n],) = client.generate(
+                        name, [prompts[n]], max_new=budgets[n],
+                        request_id=f"{rid}-{p}-{n}", temperature=temps[n],
+                        top_k=topks[n], seed=seeds[n])
+                except RequestShedError as e:
+                    sheds.append((p, n, repr(e)))
+                except Exception as e:        # noqa: BLE001 - counted
+                    errors.append((p, n, repr(e)))
+        finally:
+            client.close()
+    threads = [threading.Thread(target=worker) for _ in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, sheds, errors, time.perf_counter() - t0
+
+
+def fleet_check(torch, lm, reqs, want, run, label, sheds_ok=False):
+    """Every request of ``run`` (``fleet_load``'s) answered -- no failure,
+    no shed unless ``sheds_ok``, every full pass complete -- and every
+    stream equal to phase 4's paged ``kv_codec="none"`` stream, up to
+    near ties (phase 19's rule). Returns a summary row."""
+    out, sheds, errors, wall = run
+    if errors:
+        fail(f"fleet {label}: {len(errors)} requests failed, first "
+             f"{errors[0]}")
+    if sheds and not sheds_ok:
+        fail(f"fleet {label}: {len(sheds)} requests shed, first {sheds[0]}")
+    n_req = len(reqs[0])
+    passes = sorted({p for p, _ in out} | {p for p, _, _ in sheds})
+    answered = {(p, n) for p, n in out} | {(p, n) for p, n, _ in sheds}
+    full = passes if not sheds_ok else passes[:-1]   # the last may be cut
+    if any((p, n) not in answered for p in full for n in range(n_req)):
+        fail(f"fleet {label}: a request of a full pass was never answered")
+    equal = ties = 0
+    for p in passes:
+        idx = [n for n in range(n_req) if (p, n) in out]
+        e, t = streams_agree(torch, lm, subset(reqs, idx),
+                             [want[n] for n in idx],
+                             [out[p, n] for n in idx], f"fleet {label}")
+        equal, ties = equal + e, ties + t
+    tokens = int(sum(len(s) for s in out.values()))
+    return {"requests": len(out), "passes": len(passes),
+            "sheds": len(sheds), "failures": 0, "equal": equal,
+            "near_ties": ties, "tokens": tokens, "wall_s": wall,
+            "requests_per_s": len(out) / wall, "tokens_per_s": tokens / wall}
+
+
+def replica_of(router, index):
+    return next(r for r in router._replicas if r.index == index)
+
+
+def ready_with_new_pid(router, index, old_pid):
+    r = [r for r in router._replicas if r.index == index]
+    return bool(r) and r[0].state == "ready" and r[0].proc is not None \
+        and r[0].proc.pid != old_pid and r[0].proc.poll() is None
+
+
+def fleet_phase(torch, dev, card, served, server):
+    """Phase 21: the port's ``Router`` over replicas spawned from one
+    spec (phase 4's paged engine, its seeded weights saved as the
+    ``.npz`` under their JAX names, ``device: "cuda"``), in this order:
+    (a) an ``Autoscaler`` grows the pool 1 -> 2 under a burst of phase
+    20's requests from 16 clients, (b) whose streams (and a second
+    pass's over 2 replicas) equal phase 4's; (c) a replica SIGKILLed
+    under load: every request answered, the slot restarted; (d)
+    ``rolling_restart`` under load: no failure but typed sheds; (f) after
+    a quiet period the autoscaler drains the pool back to 1; (g) a
+    replica whose spec sets ``oom_exit`` and a ``MemoryError`` fault plan
+    at its first admission exits 42 without a reply, its memdump holds
+    the card's allocated bytes, and the router replaces it once with the
+    fallback spec; (e) that replica SIGTERMed drains and exits 0; (h) a
+    client process's spans chain through ``router.route`` into replica
+    spans in the merged spools (``tools/trace_collect.py``). The replicas
+    launch rows 14's kernel in their own processes: this process's
+    launch counters do not see them."""
+    import importlib.util
+    import shutil
+    import signal
+    import sys
+    import tempfile
+    import threading
+    from paddle_tpu_torch.observability import spool
+    from paddle_tpu_torch.serving import metrics as smetrics
+    from paddle_tpu_torch.serving.autoscaler import (Autoscaler,
+                                                     AutoscalePolicy)
+    from paddle_tpu_torch.serving.router import Router
+    reqs, want = served["reqs"], served["streams"]["none"]
+    lm = LazyModel(dev)
+    work = tempfile.mkdtemp(prefix="paddle-fleet-")
+    weights = os.path.join(work, "decoder_lm.npz")
+    np.savez(weights, **random_params(1))
+    spools = os.path.join(work, "spools")
+    os.environ["FLAGS_trace_spool_dir"] = spools     # the children's
+    spool.ensure_started(spools, role="router")
+    fallback = fleet_spec(weights, oom_exit=True)
+    plan = f"serving.dispatch:raise@{FLEET_WARMUP_HITS + 1}:exc=MemoryError"
+    doomed = fleet_spec(weights, oom_exit=True,
+                        env={"FLAGS_fault_plan": plan})
+    restarts = {c: smetrics.ROUTER_RESTARTS.labels(cause=c)
+                for c in ("crash", "rolling", "oom")}
+    restarts0 = {c: f.value for c, f in restarts.items()}
+
+    def failovers():
+        return sum(c.value for c in
+                   smetrics.ROUTER_FAILOVERS.children().values())
+    out = {"clients": FLEET_CLIENTS, "policy": FLEET_POLICY,
+           "weights_bytes": os.path.getsize(weights)}
+    router = Router(spec=fleet_spec(weights), replicas=1,
+                    workdir=os.path.join(work, "fleet"),
+                    ready_timeout_s=FLEET_DEADLINE_S)
+    asc = None
+    killed = []
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        if not router.wait_ready(timeout_s=FLEET_DEADLINE_S):
+            fail(f"fleet: the first replica never passed readyz: "
+                 f"{router.stats()}")
+        out["spawn_to_ready_s"] = time.perf_counter() - t0
+        endpoint = router.serve()
+        print(f"[{card}] fleet: a replica of phase 4's paged engine (the "
+              f"{out['weights_bytes'] / 2 ** 20:.1f} MiB .npz) went from "
+              f"spawn to readyz in {out['spawn_to_ready_s']:.2f} s; the "
+              f"router serves at {endpoint}")
+
+        # (a) + (b): the burst, the scale-up, the streams
+        asc = Autoscaler(router, AutoscalePolicy(
+            model="fleet", oom_fallback=fallback, **FLEET_POLICY))
+        asc.start()
+        out["burst"] = fleet_check(torch, lm, reqs, want, fleet_load(
+            endpoint, "fleet", reqs, "burst"), "burst (a, b)")
+        wait_for(lambda: router.stats()["size"] >= 2,
+                 "scale-up by the autoscaler")
+        up = next(d for d in asc.decisions if d["action"] == "scale_up")
+        wait_for(lambda: router.stats()["ready"] == 2,
+                 "second replica ready")
+        out["scale_up"] = {"p99_s": up["p99"], "decision": up,
+                           "spawn_to_ready_s": time.monotonic() - up["t"]}
+        asc.stop()
+        out["two_replicas"] = fleet_check(torch, lm, reqs, want, fleet_load(
+            endpoint, "fleet", reqs, "two"), "two replicas (b)")
+        direct = server["cells"]["b"]["wire_full"]
+        out["direct_one_server"] = {
+            k: float(np.mean([r[k] for r in direct]))
+            for k in ("tokens_per_s", "requests_per_s")}
+        for key in ("burst", "two_replicas"):
+            row = out[key]
+            print(f"[{card}] fleet {key}: {row['requests']} requests from "
+                  f"{FLEET_CLIENTS} clients through the router, "
+                  f"{row['equal']} equal phase 4's streams, "
+                  f"{row['near_ties']} part at a near tie; "
+                  f"{row['tokens_per_s']:.1f} tokens/s, "
+                  f"{row['requests_per_s']:.2f} requests/s (phase 20 "
+                  f"direct to one server from 16 clients: "
+                  f"{out['direct_one_server']['tokens_per_s']:.1f} / "
+                  f"{out['direct_one_server']['requests_per_s']:.2f})")
+        print(f"[{card}] fleet (a): the autoscaler saw a queue-wait p99 of "
+              f"{up['p99']} s against the SLO "
+              f"{FLEET_POLICY['slo_queue_wait_p99_s']} s and scaled 1 -> 2; "
+              f"the new replica was ready "
+              f"{out['scale_up']['spawn_to_ready_s']:.2f} s after the "
+              f"decision")
+
+        # (c) SIGKILL a replica under load
+        f0 = failovers()
+        res = {}
+        load = threading.Thread(target=lambda: res.setdefault(
+            "run", fleet_load(endpoint, "fleet", reqs, "kill")))
+        load.start()
+        wait_for(lambda: sum(r.inflight for r in router._replicas) >= 4,
+                 "requests in flight")
+        victim = max(router._replicas, key=lambda r: r.inflight)
+        pid = victim.proc.pid
+        inflight = victim.inflight
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        killed.append(pid)
+        load.join()
+        out["sigkill"] = fleet_check(torch, lm, reqs, want, res["run"],
+                                     "SIGKILL (c)")
+        restart_s = wait_for(lambda: ready_with_new_pid(
+            router, victim.index, pid), "restart of the killed slot")
+        out["sigkill"].update(
+            victim=victim.index, inflight_at_kill=inflight,
+            failovers=failovers() - f0,
+            restart_s=time.perf_counter() - t_kill,
+            restart_wait_after_load_s=restart_s,
+            crash_restarts=restarts["crash"].value - restarts0["crash"])
+        if out["sigkill"]["failovers"] < 1 or \
+                out["sigkill"]["crash_restarts"] < 1:
+            fail(f"fleet SIGKILL (c): {out['sigkill']}")
+        print(f"[{card}] fleet (c): replica {victim.index} SIGKILLed with "
+              f"{inflight} requests in flight: all {N_REQUESTS} answered "
+              f"({out['sigkill']['equal']} equal phase 4's), "
+              f"{out['sigkill']['failovers']:.0f} failovers; the slot was "
+              f"ready again {out['sigkill']['restart_s']:.2f} s after the "
+              f"kill")
+
+        # (d) rolling restart under load
+        pids = {r.index: r.proc.pid for r in router._replicas}
+        stop = threading.Event()
+        load = threading.Thread(target=lambda: res.__setitem__(
+            "roll", fleet_load(endpoint, "fleet", reqs, "roll", stop=stop)))
+        load.start()
+        t_roll = time.perf_counter()
+        rolled = router.rolling_restart()
+        roll_s = time.perf_counter() - t_roll
+        stop.set()
+        load.join()
+        if not rolled.get("ok"):
+            fail(f"fleet rolling restart (d): {rolled}")
+        out["rolling"] = fleet_check(torch, lm, reqs, want, res["roll"],
+                                     "rolling restart (d)", sheds_ok=True)
+        out["rolling"].update(seconds=roll_s, results=rolled["results"])
+        if any(r.proc.pid == pids.get(r.index) for r in router._replicas):
+            fail("fleet rolling restart (d): a replica kept its process")
+        print(f"[{card}] fleet (d): rolling restart of "
+              f"{len(rolled['results'])} replicas in {roll_s:.2f} s under "
+              f"load: {out['rolling']['requests']} requests answered, 0 "
+              f"failures, {out['rolling']['sheds']} typed sheds; every "
+              f"replica has a new process")
+
+        # (f) a quiet period: the autoscaler drains the pool back to 1
+        t_quiet = time.perf_counter()
+        asc.start()
+        wait_for(lambda: router.stats()["size"] == 1,
+                 "scale-down by the autoscaler")
+        asc.stop()
+        down = [d for d in asc.decisions if d["action"] == "scale_down"]
+        sizes = [s["size"] for s in asc.fleet_trace]
+        path = [s for i, s in enumerate(sizes) if i == 0 or s != sizes[i - 1]]
+        if path != [1, 2, 1] or not down[-1].get("drained"):
+            fail(f"fleet (f): the autoscaler's pool went {path}, "
+                 f"decisions {asc.decisions}")
+        out["scale_down"] = {"seconds_after_quiet":
+                             time.perf_counter() - t_quiet,
+                             "decision": down[-1], "pool": path}
+        print(f"[{card}] fleet (f): after a quiet period the autoscaler "
+              f"drained replica {down[-1]['removed']} "
+              f"{out['scale_down']['seconds_after_quiet']:.2f} s in: the "
+              f"pool went {' -> '.join(map(str, path))}")
+
+        # (g) the OOM replica: exit 42, memdump, replaced once
+        added = router.scale_up(spec=doomed)
+        k = added["added"][0]
+        slot = replica_of(router, k)
+        wait_for(lambda: slot.state == "ready", "the oom_exit replica ready")
+        oom_pid = slot.proc.pid
+        f0 = failovers()
+        t_oom = time.perf_counter()
+        run = fleet_load(endpoint, "fleet", reqs, "oom")
+        out["oom"] = fleet_check(torch, lm, reqs, want, run,
+                                 "OOM replica (g)")
+        killed.append(oom_pid)
+        wait_for(lambda: ready_with_new_pid(router, k, oom_pid),
+                 "the fallback replica ready")
+        exit_ = slot.last_exit or {}
+        memdump = exit_.get("memdump")
+        if exit_.get("code") != 42 or exit_.get("cause") != "oom" \
+                or not memdump:
+            fail(f"fleet OOM (g): the replica's exit was {exit_}")
+        with open(memdump) as f:
+            doc = json.load(f)
+        if doc["total_bytes"] < WEIGHT_BYTES_MIN or \
+                doc["exc_type"] != "MemoryError" or doc["pid"] != oom_pid:
+            fail(f"fleet OOM (g): memdump {memdump} holds {doc}")
+        oom_restarts = restarts["oom"].value - restarts0["oom"]
+        if oom_restarts != 1 or slot.spec != fallback \
+                or not slot.oom_replaced:
+            fail(f"fleet OOM (g): {oom_restarts} oom restarts, spec "
+                 f"{slot.spec}")
+        out["oom"].update(
+            exit=exit_, failovers=failovers() - f0,
+            memdump_total_bytes=doc["total_bytes"],
+            memdump_device=doc["device"], oom_restarts=oom_restarts,
+            fallback_ready_s=time.perf_counter() - t_oom)
+        print(f"[{card}] fleet (g): replica {k} (oom_exit, fault plan "
+              f"{plan!r}) exited 42 without a reply; every request "
+              f"answered ({out['oom']['failovers']:.0f} failovers); its "
+              f"memdump holds {doc['total_bytes'] / 2 ** 20:.1f} MiB "
+              f"allocated on {doc['device'].get('device')} (peak "
+              f"{doc['watermark_bytes'] / 2 ** 20:.1f}); the router "
+              f"recorded cause=oom and replaced it once with the fallback "
+              f"spec")
+
+        # (e) SIGTERM: the replica drains and exits 0
+        pid, before = slot.proc.pid, slot.last_exit
+        t_term = time.perf_counter()
+        os.kill(pid, signal.SIGTERM)
+        wait_for(lambda: slot.last_exit is not before,
+                 "the SIGTERMed replica's exit")
+        if (slot.last_exit or {}).get("code") != 0:
+            fail(f"fleet SIGTERM (e): the replica exited {slot.last_exit}")
+        out["sigterm"] = {"exit": slot.last_exit,
+                          "seconds": time.perf_counter() - t_term}
+        print(f"[{card}] fleet (e): replica {k} SIGTERMed drained and "
+              f"exited 0 in {out['sigterm']['seconds']:.2f} s")
+
+        # (h) a client process's spans through router.route to replicas
+        code = ("import sys\n"
+                "from paddle_tpu_torch import flags\n"
+                "flags.set('trace_role', 'client')\n"
+                "from paddle_tpu_torch.observability import spool\n"
+                "from paddle_tpu_torch.serving.client import ServingClient\n"
+                "c = ServingClient(sys.argv[1])\n"
+                "for i in range(2):\n"
+                "    c.generate(sys.argv[2], [[1, 2, 3, 4, 5]], max_new=4,\n"
+                "               request_id=f'trace-{i}')\n"
+                "c.close()\n"
+                "spool.shutdown()\n")
+        subprocess.run([sys.executable, "-c", code, endpoint, "fleet"],
+                       check=True, timeout=FLEET_DEADLINE_S)
+        wait_for(lambda: router.stats()["ready"] == 2,
+                 "the SIGTERMed slot's restart")
+        out["stats"] = router.stats()
+    finally:
+        if asc is not None:
+            asc.stop()
+        router.stop()
+        spool.shutdown()
+        os.environ.pop("FLAGS_trace_spool_dir", None)
+    out["seconds"] = time.perf_counter() - t_phase
+
+    spec = importlib.util.spec_from_file_location(
+        "trace_collect", os.path.join("tools", "trace_collect.py"))
+    tc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tc)
+    paths = tc.find_spools(spools)
+    torn = {f"replica.{pid}.jsonl" for pid in killed}
+    problems = [p for p in tc.check(paths, chain=["client", "router",
+                                                  "replica"])
+                if not (p.split("[")[0] in torn
+                        and "unresolved parent" in p)]
+    if problems:
+        fail(f"fleet trace (h): {problems[:5]}")
+    roles, routed = {}, 0
+    spans = {}
+    for path in paths:
+        meta, recs, _ = tc.load_spool(path)
+        roles[meta["role"]] = roles.get(meta["role"], 0) + len(recs)
+        spans.update({r["span_id"]: (meta["role"], r) for r in recs
+                      if r.get("span_id")})
+    for role, rec in spans.values():
+        parent = spans.get(rec.get("parent_id"))
+        if role == "replica" and parent and parent[1]["name"] == \
+                "router.route":
+            routed += 1
+    if not routed:
+        fail("fleet trace (h): no replica span under a router.route span")
+    out["trace"] = {"spools": len(paths), "spans_by_role": roles,
+                    "replica_spans_under_router_route": routed}
+    print(f"[{card}] fleet (h): {len(paths)} spools merged; a client "
+          f"process's spans chain client -> router.route -> replica "
+          f"({routed} replica spans under router.route; spans by role "
+          f"{json.dumps(roles)}); the killed replicas' torn parents aside, "
+          f"trace_collect's checks pass")
+    print(f"[{card}] fleet: phase 21 took {out['seconds']:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -5048,7 +5548,12 @@ def deepfm_cached_steps(torch, dev, model, opt, cache, feeds, split=None):
     """Train steps over the cache: translate on the host, then the model
     step, ending in a synchronize. Per step: loss, ms of the translate,
     of the model step and of the cache's parts, and the cache's counters
-    after it."""
+    after it (its families' hits, misses and evictions since the call)."""
+    from paddle_tpu_torch.ops import embed_cache as ec
+    fams = {"hits": ec.CACHE_HITS, "misses": ec.CACHE_MISSES,
+            "evictions": ec.CACHE_EVICTIONS}
+    fams = {k: f.labels(param=cache.table) for k, f in fams.items()}
+    base = {k: c.value for k, c in fams.items()}
     out = []
     for ids, label in feeds:
         before = dict(split.ms) if split else {}
@@ -5064,8 +5569,8 @@ def deepfm_cached_steps(torch, dev, model, opt, cache, feeds, split=None):
         t2 = time.perf_counter()
         rec = {"loss": float(loss.detach()), "translate_ms": (t1 - t0) * 1e3,
                "model_ms": (t2 - t1) * 1e3, "step_ms": (t2 - t0) * 1e3,
-               "hits": cache.hits, "misses": cache.misses,
-               "evictions": cache.evictions, "lookups": cache.lookups,
+               **{k: int(c.value - base[k]) for k, c in fams.items()},
+               "lookups": cache.lookups,
                "hit_lookups": cache.hit_lookups, "installs": cache.installs,
                "writebacks": cache.writebacks}
         if split:
@@ -5220,7 +5725,7 @@ def deepfm_phase(torch, dev, card, cfg=None, batch=DEEPFM_BATCH,
            for key, calls in sizes.items()},
         "peak_mem_bytes": peak, "feeds_s": gen_s, "enable_s": enable_s,
         "capacity": capacity, "shards": shards, "batch": batch,
-        "occupancy": cache.occupancy}
+        "occupancy": ec.CACHE_OCCUPANCY.labels(param=cache.table).value}
     for key in sizes:
         common = max(stats[f"{key}_buckets"],
                      key=lambda b: stats[f"{key}_buckets"][b]["calls"])
@@ -5546,6 +6051,7 @@ def main():
     fm_launches, fm_run = deepfm_phase(torch, dev, card)
     image = image_phase(torch, dev, card)
     server = server_phase(torch, dev, card, served, per_layer)
+    fleet = fleet_phase(torch, dev, card, served, server)
     del served
     for key in ("install", "write_back"):
         if fm_run[f"most_used_{key}_bucket"] != list(CACHE_BUCKET):
@@ -5578,6 +6084,8 @@ def main():
             "decode_step": decode[codec],
             "launches_verify": spec[codec]["ngram"]["launches"][kname],
             "launches_server": server["launches"][kname],
+            "launches_fleet": "not counted: phase 21's replicas launch "
+                              "it in their own processes",
             "verify_step": spec[codec]["busy"],
             "launches_per_train_step": 0, "card": card})
     for kname, line in (("flash_fwd", "189"), ("flash_bwd", "481, :504"),
@@ -5733,6 +6241,7 @@ def main():
     print(json.dumps({"image_classifiers": image, "card": card}))
     print(json.dumps({"contiguous_layout": contiguous, "card": card}))
     print(json.dumps({"server": server, "card": card}))
+    print(json.dumps({"fleet": fleet, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -13,9 +13,8 @@
 Clock, sleep and rng are injectable so tests run in virtual time with
 deterministic jitter.
 
-Port difference: the reference notes a breaker trip in the flight
-recorder, which the port does not have yet; the trip is counted in
-``paddle_breaker_opens_total`` as there.
+A trip is counted in ``paddle_breaker_opens_total`` and noted in the
+flight recorder (``observability/flight_recorder.py``), as there.
 """
 
 from __future__ import annotations
@@ -217,6 +216,13 @@ class CircuitBreaker:
                 self._publish_state()
                 if not was_open:
                     BREAKER_OPENS.labels(name=self.name).inc()
+                    # a breaker trip is exactly the kind of last-moments
+                    # context the flight recorder exists for (no-op when
+                    # the recorder is off)
+                    from paddle_tpu_torch.observability import \
+                        flight_recorder
+                    flight_recorder.note("breaker_open", breaker=self.name,
+                                         failures=self._failures)
 
     def call(self, fn: Callable):
         if not self.allow():

@@ -6,9 +6,13 @@ A flag's value is the programmatic override (``flags.set``), else the
 its default -- the reference's gflags-from-the-environment bootstrap.
 The defaults and the parsing are the JAX registry's.
 
-Read by ``utils/faults.py`` (``fault_plan``, ``fault_seed``) and
-``observability/exporters.py`` (``metrics_port``, ``metrics_host``).
-``trace_role`` comes with the span spool, which reads it.
+Read by ``utils/faults.py`` (``fault_plan``, ``fault_seed``),
+``observability/exporters.py`` (``metrics_port``, ``metrics_host``),
+``observability/spool.py`` (``trace_spool_dir``, ``trace_role``),
+``observability/flight_recorder.py`` and ``observability/memory.py``
+(``flight_recorder_dir``, ``flight_recorder_capacity``),
+``observability/lock_witness.py`` (``lock_witness``) and
+``serving/autoscaler.py`` (``hbm_bytes``, the placement budget).
 """
 
 from __future__ import annotations
@@ -100,3 +104,34 @@ define("metrics_port", int, -1,
 define("metrics_host", str, "127.0.0.1",
        "Interface the scrape endpoint binds. The loopback default is "
        "deliberate (the registry is unauthenticated).")
+define("trace_spool_dir", str, "",
+       "Directory the per-process span spool appends to "
+       "(<role>.<pid>.jsonl, one JSON span per line, flushed per span -- "
+       "crash-tolerant). Empty (default) disables. Merge every spool "
+       "into one Perfetto trace with tools/trace_collect.py.")
+define("trace_role", str, "",
+       "Role label naming this process's spool file and Perfetto "
+       "process track ('router', 'replica', 'client'...). Defaults to "
+       "the process name derived from sys.argv when empty.")
+define("flight_recorder_dir", str, "",
+       "Directory for the crash flight recorder: a bounded in-memory "
+       "ring of recent spans, metric deltas and fault-site hits, dumped "
+       "atomically (<role>.<pid>.dump.json) on unhandled exception, "
+       "SIGTERM, or a fault-injection fire -- plus an always-flushed "
+       "blackbox JSONL that survives SIGKILL. OOM memdumps "
+       "(<role>.<pid>.memdump.json) land here too. Empty (default) "
+       "disables (paddle_tpu_torch.observability.flight_recorder).")
+define("flight_recorder_capacity", int, 256,
+       "Ring capacity (recent events kept) of the flight recorder.")
+define("hbm_bytes", float, 0.0,
+       "The per-host device memory budget (bytes) the serving "
+       "placement (serving/autoscaler.py bin_pack / validate_host) "
+       "packs models against when no budget is passed. 0 (default): "
+       "none, and placement refuses to guess.")
+define("lock_witness", bool, False,
+       "Runtime lock-order witness (observability/lock_witness.py): "
+       "ObservedLock records per-thread acquisition order and validates "
+       "the global lock DAG online. A held->acquiring edge that closes "
+       "a cycle is a witnessed inversion: it increments "
+       "paddle_lock_witness_violations_total and dumps BOTH stacks "
+       "through the flight recorder. Off by default.")

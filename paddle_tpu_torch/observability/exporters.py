@@ -2,25 +2,28 @@
 endpoint half of ``paddle_tpu/observability/exporters.py``).
 
 :class:`MetricsServer` is a stdlib ``http.server`` thread serving
-``GET /metrics`` (the registry in Prometheus text) and ``/healthz``
-(liveness: "this process serves HTTP"). Its socket binds at construction (port 0 = ephemeral; read ``.port`` back), so
-there is no pick-a-port-then-rebind window.
+``GET /metrics`` (the registry in Prometheus text), ``/healthz``
+(liveness: "this process serves HTTP") and ``/readyz`` (readiness: "send
+me traffic", from the probe :func:`set_ready_probe` registers -- the
+replica process and the router register theirs). Its socket binds at
+construction (port 0 = ephemeral; read ``.port`` back), so there is no
+pick-a-port-then-rebind window.
 
 :func:`ensure_started` starts one from ``FLAGS_metrics_port`` (and
 ``FLAGS_metrics_host``), idempotently, after importing the modules
 whose families the catalog holds, so a scrape shows them at zero from
-the start: the serving families (``serving/metrics.py``), the
-retry / breaker families (``distributed/resilience.py``) and the
-tracer's dropped-span counter (``observability/tracing.py``).
+the start: the serving, router and autoscaler families
+(``serving/metrics.py``), the retry / breaker families
+(``distributed/resilience.py``), the tracer's dropped-span counter
+(``observability/tracing.py``), the OOM counter
+(``observability/memory.py``) and the lock witness's violation counter
+(``observability/lock_witness.py``).
 
-Port differences: no ``/readyz`` route and no ``set_ready_probe`` (the
-reference's readiness probe is registered only by its replica process
-and router, which come later; a server's readiness is the ``readyz``
-wire method of ``serving/server.py``); no ``MetricsDumper`` and no ``FLAGS_metrics_dump_path``
+Port differences: no ``MetricsDumper`` and no ``FLAGS_metrics_dump_path``
 (the step-record dump serves the reference's executor, which the port
 does not have yet); no ``/memory`` route (its HBM census is not ported);
-and the analysis, program-contract, lock-witness and pass-pipeline
-catalogs of the reference have no counterpart in the port.
+and the analysis, program-contract and pass-pipeline catalogs of the
+reference have no counterpart in the port.
 """
 
 from __future__ import annotations
@@ -34,6 +37,20 @@ from paddle_tpu_torch.observability import metrics
 _lock = threading.Lock()
 _server: Optional["MetricsServer"] = None
 _started_from_flags = False
+_ready_probe = None
+
+
+def set_ready_probe(fn) -> None:
+    """Register the process's readiness callable for ``GET /readyz``
+    (``None`` clears it). Distinct from ``/healthz`` the same way the
+    replica wire protocol splits them: healthz says "this process serves
+    HTTP", readyz says "send me traffic" -- false during warmup and
+    while draining. With no probe registered /readyz answers 200 like
+    /healthz (a process with no warmup phase is ready the moment it
+    serves). A probe that returns falsy OR raises answers 503 -- a
+    broken probe must read as not-ready, never as ready."""
+    global _ready_probe
+    _ready_probe = fn
 
 
 class _ScrapeHandler(BaseHTTPRequestHandler):
@@ -44,6 +61,19 @@ class _ScrapeHandler(BaseHTTPRequestHandler):
             # no registry render, just "this process serves HTTP"
             body = b"ok\n"
             self.send_response(200)
+            self.send_header("Content-Type", "text/plain; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        if route == "/readyz":
+            probe = _ready_probe
+            try:
+                ready = True if probe is None else bool(probe())
+            except Exception:
+                ready = False
+            body = b"ready\n" if ready else b"not ready\n"
+            self.send_response(200 if ready else 503)
             self.send_header("Content-Type", "text/plain; charset=utf-8")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
@@ -98,6 +128,8 @@ def _preregister_catalog():
     exist in the registry before the first scrape."""
     import importlib
     for mod in ("paddle_tpu_torch.observability.tracing",
+                "paddle_tpu_torch.observability.memory",
+                "paddle_tpu_torch.observability.lock_witness",
                 "paddle_tpu_torch.distributed.resilience",
                 "paddle_tpu_torch.serving.metrics"):
         importlib.import_module(mod)

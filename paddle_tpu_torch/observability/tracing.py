@@ -17,13 +17,10 @@ parent_id from ``observability.trace_context``), and
 request span across the wire. **Sinks** -- callables invoked with each
 finished :class:`Span` outside the tracer lock -- see every span while
 attached; spans are constructed when the tracer is enabled OR a sink is
-attached.
-
-Port difference: the reference's :func:`active` starts the span spool
-and the flight recorder from their flags on its first call
-(``_autostart_from_flags``; the spool names its file by
-``FLAGS_trace_role``). Those two modules are not ported yet, so here
-capture is on only when the tracer is started or a sink attached.
+attached. The first :func:`active` call starts the span spool and the
+flight recorder from their flags (``FLAGS_trace_spool_dir``,
+``FLAGS_flight_recorder_dir``), so a process the router spawns turns
+capture on from its environment.
 
 Export: :func:`to_chrome_trace` emits the chrome://tracing JSON dict,
 which Perfetto opens natively -- the host side of the timeline; the
@@ -258,15 +255,31 @@ class Tracer:
 
 
 _DEFAULT = Tracer()
+_autostart_done = False
 
 
 def default_tracer() -> Tracer:
     return _DEFAULT
 
 
+def _autostart_from_flags():
+    """One-shot: attach the span spool / flight recorder when their
+    flags are set (how a spawned replica -- which cannot call our Python
+    API before main -- turns capture on via env)."""
+    global _autostart_done
+    _autostart_done = True
+    from paddle_tpu_torch.observability import flight_recorder, spool
+    spool.maybe_start_from_flags()
+    flight_recorder.maybe_start_from_flags()
+
+
 def active() -> bool:
-    """One cheap check for hot paths: is ANY span capture on (the
-    tracer ring, or a sink)?"""
+    """One cheap check for hot paths: is ANY span capture on (tracer
+    ring, spool, flight recorder)? The first call consults the
+    spool / flight flags so flag-configured processes start capturing
+    lazily."""
+    if not _autostart_done:
+        _autostart_from_flags()
     return _DEFAULT._enabled or bool(_DEFAULT._sinks)
 
 

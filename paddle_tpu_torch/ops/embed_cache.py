@@ -28,9 +28,12 @@ see a handful of shapes (what a later CUDA graph needs). The free list
 is ``range(capacity - 1, -1, -1)`` popped from its end, as in the JAX
 cache, so both give the same slots for the same schedule.
 
-Hits, misses, evictions and occupancy are plain counters, counted as the
-JAX cache counts them (unique ids per :meth:`~HotRowsCache.translate`;
-padding never counts); ``lookups`` and ``hit_lookups`` count occurrences.
+Hits, misses, evictions and occupancy are the reference's families
+``paddle_embed_cache_{hits,misses,evictions}_total`` and
+``paddle_embed_cache_occupancy_ratio``, labelled by the table
+(``param``), counted as the JAX cache counts them (unique ids per
+:meth:`~HotRowsCache.translate`; padding never counts); the plain
+counters ``lookups`` and ``hit_lookups`` count occurrences.
 ``installs`` and ``writebacks`` count the calls that installed and that
 wrote back. On the card each launches one kernel for all of the families
 (in sorted family order, as :meth:`_ensure` pulls and pushes them): an
@@ -52,9 +55,29 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.observability import metrics as _metrics
 from paddle_tpu_torch.ops.kernels import embed_cache as _kernels
 
 MIN_BUCKET = 8
+
+# the reference's families (``paddle_tpu/ops/embed_cache.py:56-71``):
+# hits / misses count UNIQUE ids per translate() call
+CACHE_HITS = _metrics.counter(
+    "paddle_embed_cache_hits_total",
+    "Unique ids found resident per translate() call",
+    labelnames=("param",))
+CACHE_MISSES = _metrics.counter(
+    "paddle_embed_cache_misses_total",
+    "Unique ids pulled from their owning shard (cold rows)",
+    labelnames=("param",))
+CACHE_EVICTIONS = _metrics.counter(
+    "paddle_embed_cache_evictions_total",
+    "LRU evictions (dirty rows write back to their shard first)",
+    labelnames=("param",))
+CACHE_OCCUPANCY = _metrics.gauge(
+    "paddle_embed_cache_occupancy_ratio",
+    "Resident rows / capacity after the last translate()",
+    labelnames=("param",))
 
 
 def bucket(n: int) -> int:
@@ -109,10 +132,12 @@ class HotRowsCache:
         self._lru: "OrderedDict[int, int]" = OrderedDict()  # vocab -> slot
         self._free = list(range(self.capacity - 1, -1, -1))
         self._dirty: set = set()
-        self.hits = self.misses = self.evictions = 0
+        self._hits = CACHE_HITS.labels(param=table)
+        self._misses = CACHE_MISSES.labels(param=table)
+        self._evictions = CACHE_EVICTIONS.labels(param=table)
+        self._occupancy = CACHE_OCCUPANCY.labels(param=table)
         self.lookups = self.hit_lookups = 0
         self.installs = self.writebacks = 0
-        self.occupancy = 0.0
 
     # -- device plumbing ---------------------------------------------------
 
@@ -162,9 +187,9 @@ class HotRowsCache:
         self.lookups += int(valid.size)
         self.hit_lookups += int(resident.sum())
         miss = uniq[self._slot_lut[uniq] < 0] if uniq.size else uniq
-        self.hits += int(uniq.size - miss.size)
+        self._hits.inc(int(uniq.size - miss.size))
         if miss.size:
-            self.misses += int(miss.size)
+            self._misses.inc(int(miss.size))
             self._ensure(miss, keep=uniq)
         for vid in uniq.tolist():               # one batch, one recency tick
             self._lru.move_to_end(vid)
@@ -173,7 +198,7 @@ class HotRowsCache:
         slots = self._slot_lut[flat]
         if pad_mask is not None:
             slots[pad_mask] = self.pad_slot
-        self.occupancy = len(self._lru) / self.capacity
+        self._occupancy.set(len(self._lru) / self.capacity)
         return slots.reshape(a.shape).astype(a.dtype)
 
     def _ensure(self, miss: np.ndarray, keep: np.ndarray) -> None:
@@ -194,7 +219,7 @@ class HotRowsCache:
                 continue
             self._slot_lut[vid] = -1
             self._free.append(slot)
-            self.evictions += 1
+            self._evictions.inc()
             if vid in self._dirty:
                 self._dirty.discard(vid)
                 evict_ids.append(vid)
@@ -237,7 +262,7 @@ class HotRowsCache:
             self._slot_lut[vid] = -1
         self._free = list(range(self.capacity - 1, -1, -1))
         self._lru.clear()
-        self.occupancy = 0.0
+        self._occupancy.set(0.0)
         return n
 
     def warmup(self) -> None:

@@ -1,6 +1,7 @@
 """Serving side of the port (counterpart of ``paddle_tpu/serving``): the
-page pool, prompt and batch buckets, the slot and wave engines, and the
-model server with its JSON/TCP wire and client.
+page pool, prompt and batch buckets, the slot and wave engines, the
+model server with its JSON/TCP wire and client, and the fleet: the
+replica process, the router and the autoscaler.
 
 Public surface::
 
@@ -13,10 +14,13 @@ Public surface::
     client = serving.ServingClient(endpoint)
     toks = client.generate("lm", prompts, max_new=32)
 
+    router = serving.Router(spec=replica_spec, replicas=2).start()
+    router.wait_ready()
+    endpoint = router.serve()          # clients speak to it unchanged
+
 Submodules import lazily (PEP 562), so ``paddle_tpu_torch.serving.
 metrics`` imports without the engines. Not here yet (they wait for
-their items): the router, the replica process and the autoscaler,
-``ServedModel`` and ``forbid_compiles``.
+their items): ``ServedModel`` and ``forbid_compiles``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,19 @@ _LAZY = {
     "PromptTooLongError": ("paddle_tpu_torch.serving.engine",
                            "PromptTooLongError"),
     "ModelServer": ("paddle_tpu_torch.serving.server", "ModelServer"),
+    "Router": ("paddle_tpu_torch.serving.router", "Router"),
+    "ROUTER_ENV": ("paddle_tpu_torch.serving.router", "ROUTER_ENV"),
+    "Autoscaler": ("paddle_tpu_torch.serving.autoscaler", "Autoscaler"),
+    "AutoscalePolicy": ("paddle_tpu_torch.serving.autoscaler",
+                        "AutoscalePolicy"),
+    "RouterSource": ("paddle_tpu_torch.serving.autoscaler", "RouterSource"),
+    "PlacementError": ("paddle_tpu_torch.serving.autoscaler",
+                       "PlacementError"),
+    "bin_pack": ("paddle_tpu_torch.serving.autoscaler", "bin_pack"),
+    "plan_placement": ("paddle_tpu_torch.serving.autoscaler",
+                       "plan_placement"),
+    "validate_host": ("paddle_tpu_torch.serving.autoscaler",
+                      "validate_host"),
     "RequestShedError": ("paddle_tpu_torch.serving.server",
                          "RequestShedError"),
     "ReplicaDrainingError": ("paddle_tpu_torch.serving.server",
@@ -65,6 +82,9 @@ _LAZY = {
     "kv_pool": ("paddle_tpu_torch.serving.kv_pool", None),
     "server": ("paddle_tpu_torch.serving.server", None),
     "client": ("paddle_tpu_torch.serving.client", None),
+    "router": ("paddle_tpu_torch.serving.router", None),
+    "replica": ("paddle_tpu_torch.serving.replica", None),
+    "autoscaler": ("paddle_tpu_torch.serving.autoscaler", None),
 }
 
 __all__ = sorted(_LAZY)

@@ -56,16 +56,13 @@ families of ``serving/metrics.py`` (``paddle_serving_prefills_total``,
 ``paddle_kv_*``), labelled by the engine's ``name``; the span
 ``serving.prefill@{bucket}`` around each prefill, under the caller's
 trace context; the fault site ``serving.dispatch`` before each model
-call. The engines also keep plain attribute counters (``prefills``,
-``decode_steps``, ``tokens_generated``; the slot engines'
-``spec_proposed``, ``spec_accepted`` and ``tokens_per_step``, the
-committed tokens of a slot in a dispatch by count), which count the
-same events and are what callers holding the engine read.
+call. The families are the only counters: a caller holding an engine
+reads ``Family.labels(model=engine.name)`` (a delta where an earlier
+engine shared the name), as the reference's callers do.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -130,9 +127,6 @@ class GenerativeModel:
             raise ValueError(f"prompt bucket {self.prompt_len} > cache_len "
                              f"{self.cache_len}")
         self.max_new = self.cache_len - self.prompt_len
-        self.prefills = 0
-        self.decode_steps = 0
-        self.tokens_generated = 0
 
     def prompt_bucket_for(self, length: int) -> int:
         return _prompt_bucket(length, self.prompt_buckets)
@@ -211,15 +205,12 @@ class GenerativeModel:
         with tctx.span(f"serving.prefill@{p_len}", model=self.name,
                        rows=bucket):
             tok, cache = self._prefill(ids, blens)
-        self.prefills += 1
         smetrics.PREFILLS.labels(model=self.name).inc()
         out = [tok]
         for s in range(max_new - 1):
             tok = self._decode(cache, tok, p_len + s, blens, p_len)
-            self.decode_steps += 1
             smetrics.DECODE_STEPS.labels(model=self.name).inc()
             out.append(tok)
-        self.tokens_generated += n * max_new
         smetrics.TOKENS_GENERATED.labels(model=self.name).inc(n * max_new)
         toks = np.stack(out, axis=1)            # [bucket, max_new]
         return [toks[i] for i in range(n)]
@@ -411,12 +402,6 @@ class SlotGenerativeModel:
         self.max_new = self.cache_len - self.prompt_len
         self.spec_k = int(spec_k) if spec_k else 0
         self.drafter = drafter if drafter is not None else NgramDrafter()
-        self.prefills = 0
-        self.decode_steps = 0
-        self.tokens_generated = 0
-        self.spec_proposed = 0
-        self.spec_accepted = 0
-        self.tokens_per_step: Counter = Counter()
         # host mirror of the per-slot device state
         s = self.n_slots
         self._active = np.zeros(s, bool)
@@ -594,8 +579,6 @@ class SlotGenerativeModel:
         except BaseException:
             self._release_capacity(slot)
             raise
-        self.prefills += 1
-        self.tokens_generated += 1
         smetrics.PREFILLS.labels(model=self.name).inc()
         smetrics.SLOT_ADMISSIONS.labels(model=self.name).inc()
         smetrics.TOKENS_GENERATED.labels(model=self.name).inc()
@@ -636,9 +619,6 @@ class SlotGenerativeModel:
         if self.spec_k:
             return self._step_verify(live)
         out = self._dispatch(self.DECODE, self._decode_feeds())
-        self.decode_steps += 1
-        self.tokens_generated += int(live.size)
-        self.tokens_per_step[1] += int(live.size)
         smetrics.DECODE_STEPS.labels(model=self.name).inc()
         smetrics.TOKENS_GENERATED.labels(model=self.name).inc(int(live.size))
         per_step = smetrics.TOKENS_PER_STEP.labels(model=self.name)
@@ -697,8 +677,6 @@ class SlotGenerativeModel:
         out = self._dispatch(self.VERIFY,
                              self._verify_feeds(tok_w, win_len))
         out = out.reshape(s, k1)
-        self.decode_steps += 1
-        self.spec_proposed += proposed
         smetrics.DECODE_STEPS.labels(model=self.name).inc()
         smetrics.SPEC_PROPOSED.labels(model=self.name).inc(proposed)
         per_step = smetrics.TOKENS_PER_STEP.labels(model=self.name)
@@ -711,7 +689,6 @@ class SlotGenerativeModel:
             a = 0
             while a < len(d) and d[a] == int(t[a]):
                 a += 1
-            self.spec_accepted += a
             accepted += a
             eos = self._eos[slot]
             done = None
@@ -728,8 +705,6 @@ class SlotGenerativeModel:
                 events.append((slot, tok, done))
                 if done:
                     break
-            self.tokens_generated += n_commit
-            self.tokens_per_step[n_commit] += 1
             committed += n_commit
             per_step.observe(float(n_commit))
             if done:

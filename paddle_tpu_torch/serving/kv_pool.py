@@ -25,14 +25,15 @@ it. Three cooperating structures:
   refcounts but keeps refcount-0 nodes RESIDENT: the next request with
   the same prefix re-shares them without a prefill write. Under
   allocation pressure refcount-0 leaves are reclaimed LRU-first
-  (``evictions["capacity"]``); :meth:`PagePool.reset` drops the whole
-  cache (``evictions["reset"]``).
+  (``cause="capacity"``); :meth:`PagePool.reset` drops the whole
+  cache (``cause="reset"``).
 
 A pool built with a ``model`` tag publishes its accounting as the
 reference's does: the ``paddle_kv_pages_total`` / ``_free`` /
 ``paddle_kv_prefix_shared_pages`` gauges after every lease change and
 ``paddle_kv_page_evictions_total{cause}`` per reclaimed page
-(``serving/metrics.py``); the ``evictions`` dict counts the same.
+(``serving/metrics.py``), as the reference's does; an untagged pool
+publishes nothing.
 
 Thread discipline matches the engine: one dispatcher at a time -- no
 internal locking.
@@ -80,9 +81,8 @@ class PagePool:
     """Free-list page allocator + prompt-prefix radix tree for one
     model's paged KV pool. Page ids index the device pools' leading
     axis; the engine turns a lease into the slot's page-table row and
-    the prefill's write-row vector. ``evictions`` counts reclaimed tree
-    pages by cause; ``model`` tags the published gauges (none when
-    empty)."""
+    the prefill's write-row vector. ``model`` tags the published gauges
+    and the eviction counter (none when empty)."""
 
     def __init__(self, n_pages: int, page_size: int, model: str = ""):
         if n_pages < 1 or page_size < 1:
@@ -96,7 +96,6 @@ class PagePool:
         self._slots: Dict[int, _SlotLease] = {}
         self._clock = 0
         self._cached = 0          # refcount-0 nodes resident in the tree
-        self.evictions = {"capacity": 0, "reset": 0}
         self._publish()
 
     # -- accounting -------------------------------------------------------
@@ -165,7 +164,6 @@ class PagePool:
         del victim.parent.children[victim.key]
         self._free.append(victim.page)
         self._cached -= 1
-        self.evictions[cause] += 1
         if self.model:
             smetrics.KV_PAGE_EVICTIONS.labels(
                 model=self.model, cause=cause).inc()
@@ -305,7 +303,6 @@ class PagePool:
         pages would alias stale K/V)."""
         self._slots.clear()
         n = sum(1 for _ in self._iter_nodes())
-        self.evictions["reset"] += n
         if n and self.model:
             smetrics.KV_PAGE_EVICTIONS.labels(
                 model=self.model, cause="reset").inc(n)

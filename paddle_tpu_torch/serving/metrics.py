@@ -1,8 +1,9 @@
 """Serving telemetry of the port (the port's own copy of
 ``paddle_tpu/serving/metrics.py``): the metric families the model
-server, the slot and wave engines and the page pool update, declared in
-one place so a scrape of ``observability.exporters.MetricsServer``
-shows the serving surface at zero before the first request.
+server, the slot and wave engines, the page pool, the router and the
+autoscaler update, declared in one place so a scrape of
+``observability.exporters.MetricsServer`` shows the serving surface at
+zero before the first request.
 
 Label conventions: ``model`` carries the operator-chosen model tag
 (bounded -- the hosted-model set), ``cause`` / ``outcome`` are
@@ -11,7 +12,7 @@ enum-like strings, never ids or paths.
 Not here yet: the compile families and their guard
 (``paddle_serving_compilations_total``, ``..._aot_fallback_total``,
 ``forbid_compiles``, ``count_compile``) wait for the port's inference
-and AOT item; the router and autoscaler families wait for the router.
+and AOT item.
 """
 
 from __future__ import annotations
@@ -136,6 +137,70 @@ KV_PAGE_EVICTIONS = _metrics.counter(
     "Cached prefix pages dropped from the radix tree, by cause: "
     "capacity (LRU reclaim to satisfy an admission) | reset (engine "
     "reset/warmup scrub)", labelnames=("model", "cause"))
+
+# -- router families (serving/router.py) -------------------------------
+# ``replica`` is the router-assigned slot index ("0".."N-1") — bounded
+# by the pool size, stable across restarts of the replica in that slot.
+ROUTER_REPLICA_UP = _metrics.gauge(
+    "paddle_router_replica_up",
+    "1 while the replica in this pool slot is alive AND ready (readyz "
+    "true), else 0 — the router's routing-eligibility view",
+    labelnames=("replica",))
+ROUTER_REQUESTS = _metrics.counter(
+    "paddle_router_requests_total",
+    "Requests routed, by terminal outcome: ok | typed_error | "
+    "unavailable", labelnames=("outcome",))
+ROUTER_FAILOVERS = _metrics.counter(
+    "paddle_router_failovers_total",
+    "Re-dispatches of a request to another replica, by cause: "
+    "conn_error | breaker_open | dead_sticky | draining",
+    labelnames=("cause",))
+ROUTER_DRAIN_DURATION = _metrics.histogram(
+    "paddle_router_drain_duration_seconds",
+    "Observed drain time of a replica (drain RPC begin to in-flight "
+    "settled) during restart_replica / rolling restart")
+ROUTER_RESTARTS = _metrics.counter(
+    "paddle_router_replica_restarts_total",
+    "Replica respawns, by cause: crash (supervisor restart-with-"
+    "backoff) | rolling (operator-driven drain+replace) | oom "
+    "(memdump-witnessed death, replaced with the fallback spec) | "
+    "quarantine_retry (cooldown expired on a FAILED slot)",
+    labelnames=("cause",))
+ROUTER_REPLICA_INFLIGHT = _metrics.gauge(
+    "paddle_router_replica_inflight",
+    "Requests the router currently has outstanding against this pool "
+    "slot — the router-side congestion view the autoscaler reads "
+    "instead of object internals", labelnames=("replica",))
+ROUTER_REPLICA_QUEUE_DEPTH = _metrics.gauge(
+    "paddle_router_replica_queue_depth",
+    "Queued requests on the replica (summed over its hosted models, "
+    "polled via the stats RPC by the router's monitor thread)",
+    labelnames=("replica",))
+ROUTER_REPLICA_STATE = _metrics.gauge(
+    "paddle_router_replica_state",
+    "One-hot replica lifecycle state per pool slot: exactly one of "
+    "starting | ready | draining | down | failed is 1",
+    labelnames=("replica", "state"))
+
+# -- autoscaler families (serving/autoscaler.py) ------------------------
+AUTOSCALER_DECISIONS = _metrics.counter(
+    "paddle_autoscaler_decisions_total",
+    "Control-loop verdicts, by action: hold | scale_up | scale_down "
+    "(one per step; scale actions also appear in the fleet-size trace)",
+    labelnames=("action",))
+AUTOSCALER_FLEET_SIZE = _metrics.gauge(
+    "paddle_autoscaler_fleet_size",
+    "Replica counts the reconciler sees, by kind: desired (the "
+    "policy's target) | ready (routable now) | total (pool slots "
+    "incl. starting/draining)", labelnames=("kind",))
+AUTOSCALER_SIGNAL = _metrics.gauge(
+    "paddle_autoscaler_signal",
+    "The scaling signals of the last step: queue_wait_p99_s (windowed "
+    "across the fleet) | queue_depth (summed)", labelnames=("signal",))
+AUTOSCALER_SLO_ATTAINMENT = _metrics.gauge(
+    "paddle_autoscaler_slo_attainment_ratio",
+    "Fraction of windowed queue-wait observations at or under the "
+    "policy SLO (1.0 with an empty window — no evidence of breach)")
 
 
 def histogram_percentile(family, q: float, **labels) -> float:

@@ -60,17 +60,22 @@ thread makes its engine's device current first (:func:`_bind_device`);
 and the first launch of a kernel builds it under ``build.load``'s lock
 (``ops/kernels/build.py``).
 
-Port differences: ``add_model`` takes no ``aot_dir``; there is no
-``oom_exit`` option (the reference's replica-host setting, which exits
-42 on a dispatch OOM instead of replying: it comes with the replica
-process); the ``metricz`` wire method returns the port registry's
-``snapshot()``. ``SERVING_ENV`` keeps its name.
+``ModelServer(oom_exit=True)`` is the replica host's setting
+(``serving/replica.py``): a dispatch OOM (``observability.memory.
+is_oom_error``: ``torch.cuda.OutOfMemoryError``, ``MemoryError``) kills
+the process with exit code 42 and no reply, after writing the memdump
+the router classifies the death by (:meth:`_HostedModel._fatal_oom`).
+
+Port differences: ``add_model`` takes no ``aot_dir``; the ``metricz``
+wire method returns the port registry's ``snapshot()``. ``SERVING_ENV``
+keeps its name.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import os
 import socket as socket_module
 import socketserver
 import threading
@@ -194,9 +199,11 @@ class _HostedModel:
     """One model's queue + batcher thread + idempotency cache."""
 
     def __init__(self, name: str, engine, max_queue_depth: int,
-                 linger_s: float, dedup_capacity: int = 1024):
+                 linger_s: float, dedup_capacity: int = 1024,
+                 oom_exit: bool = False):
         self.name = name
         self.engine = engine
+        self.oom_exit = bool(oom_exit)
         self.max_queue_depth = int(max_queue_depth)
         self.linger_s = float(linger_s)
         self.queue: deque = deque()
@@ -330,7 +337,35 @@ class _HostedModel:
                 else:
                     self._run_generate_wave(wave)
             except BaseException as e:   # engine error: fail the wave
+                if self._is_fatal_oom(e):
+                    self._fatal_oom(e)   # never returns
                 self._settle_all(wave, exc=e)
+
+    def _fatal_oom(self, exc: BaseException):
+        """Die WITHOUT replying (``oom_exit`` replicas only): an OOM is
+        deterministic under the same config, so settling the wave with
+        an error hands every queued client a non-retryable failure and
+        leaves the process to OOM again on the next dispatch. Dropping
+        the connections instead means no request was acked-failed -- a
+        router fails the ids over to a survivor, and the supervisor
+        finds the memdump and replaces this replica with a
+        smaller-footprint config. Runs on the scheduler thread: the
+        memdump is fsynced and the flight recorder's black box closed
+        before ``os._exit`` (which skips the interpreter's and CUDA's
+        teardown on purpose)."""
+        from paddle_tpu_torch.observability import flight_recorder
+        from paddle_tpu_torch.observability import memory as obs_memory
+        obs_memory.oom_dump(exc, program=self.name)
+        flight_recorder.note("serving_oom_exit", model=self.name,
+                             error=str(exc))
+        flight_recorder.shutdown()
+        os._exit(42)
+
+    def _is_fatal_oom(self, exc: BaseException) -> bool:
+        if not self.oom_exit:
+            return False
+        from paddle_tpu_torch.observability import memory as obs_memory
+        return obs_memory.is_oom_error(exc)
 
     def _run_infer_wave(self, wave: List[_Request]):
         names = list(wave[0].feeds)
@@ -449,7 +484,8 @@ class _SlotHostedModel(_HostedModel):
     continuous batching at token granularity."""
 
     def __init__(self, name: str, engine, max_queue_depth: int,
-                 linger_s: float, dedup_capacity: int = 1024):
+                 linger_s: float, dedup_capacity: int = 1024,
+                 oom_exit: bool = False):
         # scheduler state lives on the scheduler thread; create it
         # BEFORE super() starts the thread
         self._streams: Dict[str, _GenStream] = {}
@@ -457,7 +493,7 @@ class _SlotHostedModel(_HostedModel):
         self.sched_steps = 0
         self.sched_slot_steps = 0       # occupied slot-steps (occupancy)
         super().__init__(name, engine, max_queue_depth, linger_s,
-                         dedup_capacity)
+                         dedup_capacity, oom_exit=oom_exit)
 
     # -- cancellation ----------------------------------------------------
     def cancel(self, request_id: str) -> bool:
@@ -550,6 +586,8 @@ class _SlotHostedModel(_HostedModel):
                 stream.pending.appendleft((pi, prompt))
                 return
             except BaseException as e:
+                if self._is_fatal_oom(e):
+                    self._fatal_oom(e)     # never returns
                 self._fail_stream(stream, e)
                 continue
             now = time.perf_counter()
@@ -591,6 +629,8 @@ class _SlotHostedModel(_HostedModel):
                 try:
                     events = engine.step()
                 except BaseException as e:
+                    if self._is_fatal_oom(e):
+                        self._fatal_oom(e)  # never returns
                     for stream in list(self._streams.values()):
                         self._fail_stream(stream, e)
                     continue
@@ -643,10 +683,15 @@ class ModelServer:
     ``observability.exporters.ensure_started()``."""
 
     def __init__(self, linger_s: float = 0.002,
-                 max_queue_depth: int = 64):
+                 max_queue_depth: int = 64, oom_exit: bool = False):
         self._models: Dict[str, _HostedModel] = {}
         self._default_linger = linger_s
         self._default_depth = max_queue_depth
+        # oom_exit=True (the replica-host setting): a dispatch OOM
+        # kills the process WITHOUT replying instead of settling the
+        # wave with errors -- the supervisor's memdump-witnessed
+        # replace path, see _HostedModel._fatal_oom
+        self._oom_exit = bool(oom_exit)
         self._rpc: Optional["_RpcServer"] = None
         self._rpc_thread = None
         # replica lifecycle (docs/serving.md "Deployment"): readiness
@@ -735,7 +780,8 @@ class ModelServer:
             name, engine,
             self._default_depth if max_queue_depth is None
             else max_queue_depth,
-            self._default_linger if linger_s is None else linger_s)
+            self._default_linger if linger_s is None else linger_s,
+            oom_exit=self._oom_exit)
         return self._models[name]
 
     def model(self, name: str) -> _HostedModel:

@@ -29,6 +29,7 @@ from paddle_tpu_torch.models import transformer as tT
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.serving import bucketing as tbk
 from paddle_tpu_torch.serving import engine as teng
+from paddle_tpu_torch.serving import metrics as tsm
 
 LM = dict(vocab=64, d_model=32, d_inner=64, n_head=2, n_layer=2)
 CACHE_LEN = 32
@@ -86,10 +87,11 @@ def test_cuda_contiguous_and_paged_engines_give_the_same_streams(
         tpa.reset_launches()
         got = contiguous.generate(prompts, **kw)
         assert sum(tpa.LAUNCHES.values()) == 0, dict(tpa.LAUNCHES)
-        steps = paged.decode_steps
+        decode_steps = tsm.DECODE_STEPS.labels(model=paged.name)
+        steps = decode_steps.value
         want = paged.generate(prompts, **kw)
         assert tpa.LAUNCHES["gather_rows"] == \
-            2 * LM["n_layer"] * (paged.decode_steps - steps)
+            2 * LM["n_layer"] * (decode_steps.value - steps)
         for i, (a, b) in enumerate(zip(want, got)):
             np.testing.assert_array_equal(b, a, err_msg=f"{kw} {i}")
 

@@ -10,6 +10,7 @@ with ``params_from_jax``; the port's engine runs the same geometry on
 Token streams must be IDENTICAL; the ``full`` view's logits agree at
 rtol=atol=1e-5 (fp32 sums in another order)."""
 
+import itertools
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ from paddle_tpu_torch.models import convert
 from paddle_tpu_torch.models import transformer as tT
 from paddle_tpu_torch.serving import engine as teng
 from paddle_tpu_torch.serving import kv_pool as tpool
+from paddle_tpu_torch.serving import metrics as tsm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM = dict(vocab=32, d_model=16, d_inner=32, n_head=2, n_layer=2)
@@ -71,14 +73,27 @@ def _params(progs, m):
     return {n: np.asarray(m.scope.find_var(n)) for n in names}
 
 
+_NAMES = itertools.count()
+
+
 def _port(progs, m, codec="none", n_pages=None, device="cpu"):
     lm = tT.DecoderLM(**LM, cache_len=CACHE_LEN, device=device)
     lm.load_state_dict(convert.params_from_jax(_params(progs, m)))
-    e = teng.make_slot_model("lm_port", lm, prompt_buckets=BUCKETS,
+    e = teng.make_slot_model(f"lm_paged_port{next(_NAMES)}", lm,
+                             prompt_buckets=BUCKETS,
                              layout="paged", kv_codec=codec, n_pages=n_pages,
                              device=device, **GEOM)
     e.warmup()
     return e
+
+
+def _counts(engine):
+    """The engine's prefills and tokens, read from the process-wide
+    ``paddle_serving_*`` families under its name (``_port`` names every
+    engine afresh)."""
+    return {k: int(f.labels(model=engine.name).value) for k, f in (
+        ("prefills", tsm.PREFILLS), ("tokens_generated",
+                                     tsm.TOKENS_GENERATED))}
 
 
 def _prompts():
@@ -98,7 +113,8 @@ def test_greedy_streams_match_jax(jax_engines, codec):
     port = _port(progs, m, codec)
     want = m.generate(_prompts(), max_new=6)
     _assert_streams_equal(want, port.generate(_prompts(), max_new=6))
-    assert port.prefills == 6 and port.tokens_generated == 36
+    c = _counts(port)
+    assert c["prefills"] == 6 and c["tokens_generated"] == 36
 
 
 @pytest.mark.parametrize("codec", ["none", "int8"])
@@ -239,11 +255,14 @@ def _pool_schedule(pool):
 def test_page_pool_follows_the_jax_pool():
     assert _pool_schedule(tpool.PagePool(8, 4)) == \
         _pool_schedule(jpool.PagePool(8, 4))
-    p = tpool.PagePool(4, 4)
+    p = tpool.PagePool(4, 4, model="pool_evictions")
+    evictions = tsm.KV_PAGE_EVICTIONS.labels(model="pool_evictions",
+                                             cause="capacity")
+    e0 = evictions.value
     p.acquire(0, [1, 2, 3, 4], 1)
     p.release(0)
     p.acquire(1, [5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5], 4)
-    assert p.evictions["capacity"] == 1
+    assert evictions.value - e0 == 1
 
 
 def test_geometry_validation():

@@ -330,18 +330,23 @@ def test_cache_replays_the_known_schedule_as_jax_does():
     h0 = jec.CACHE_HITS.labels(param="tbl").value
     m0 = jec.CACHE_MISSES.labels(param="tbl").value
     e0 = jec.CACHE_EVICTIONS.labels(param="tbl").value
+    port0 = [f.labels(param="tbl").value for f in
+             (tec.CACHE_HITS, tec.CACHE_MISSES, tec.CACHE_EVICTIONS)]
     got = []
     for i, batch in enumerate(SCHEDULE):
         want = jcache.translate(np.asarray(batch), train=False)
         got.append(cache.translate(np.asarray(batch), train=False))
         np.testing.assert_array_equal(got[-1], want)
         if i == 2:
-            assert (cache.hits, cache.misses, cache.evictions) == (2, 5, 1)
+            assert tuple(f.labels(param="tbl").value - v0 for f, v0 in zip(
+                (tec.CACHE_HITS, tec.CACHE_MISSES, tec.CACHE_EVICTIONS),
+                port0)) == (2, 5, 1)
             assert (jec.CACHE_HITS.labels(param="tbl").value - h0,
                     jec.CACHE_MISSES.labels(param="tbl").value - m0,
                     jec.CACHE_EVICTIONS.labels(param="tbl").value - e0) \
                 == (2, 5, 1)
-            assert cache.occupancy == 1.0 and cache.resident == 4
+            assert tec.CACHE_OCCUPANCY.labels(param="tbl").value == 1.0
+            assert cache.resident == 4
     assert got[1][3] == cache.pad_slot
     assert cache._slot_lut[2] == -1
     np.testing.assert_array_equal(

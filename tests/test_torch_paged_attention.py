@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+from paddle_tpu_torch.serving import metrics as tsm
 
 
 @pytest.fixture(scope="module")
@@ -213,10 +214,12 @@ def test_paged_engine_on_the_card_matches_the_cpu(cuda_device,
                                 layout="paged", page_size=4, kv_codec=codec,
                                 device=dev)
             n0 = tpa.LAUNCHES[kname]
+            s0 = tsm.DECODE_STEPS.labels(model="lm").value
             streams[str(dev)] = e.generate(prompts, max_new=10,
                                            temperature=[0, .8, 0, .8, 0],
                                            top_k=5, seeds=[1, 2, 3, 4, 5])
             launched = tpa.LAUNCHES[kname] - n0
-            assert launched == (0 if dev == "cpu" else 4 * e.decode_steps)
+            steps = tsm.DECODE_STEPS.labels(model="lm").value - s0
+            assert launched == (0 if dev == "cpu" else 4 * steps)
         for a, b in zip(streams["cpu"], streams[str(cuda_device)]):
             np.testing.assert_array_equal(b, a)

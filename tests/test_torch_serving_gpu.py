@@ -27,6 +27,7 @@ from paddle_tpu_torch.models import convert
 from paddle_tpu_torch.models.transformer import DecoderLM
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.serving import client as tcli
+from paddle_tpu_torch.serving import metrics as tsm
 from paddle_tpu_torch.serving import server as tsrv
 from paddle_tpu_torch.serving.engine import make_slot_model
 
@@ -92,7 +93,8 @@ def _serve(dev, params, codec, reqs):
                                         seed=seed)
         finally:
             client.close()
-    steps0 = engine.decode_steps
+    decode_steps = tsm.DECODE_STEPS.labels(model=engine.name)
+    steps0 = decode_steps.value
     tpa.reset_launches()
     threads = [threading.Thread(target=send, args=(i,))
                for i in range(len(reqs))]
@@ -105,7 +107,7 @@ def _serve(dev, params, codec, reqs):
     finally:
         server.stop()
     assert all(s is not None for s in out)
-    return out, engine.decode_steps - steps0, launches
+    return out, decode_steps.value - steps0, launches
 
 
 @pytest.mark.gpu

@@ -36,6 +36,7 @@ the spec engine's streams on the card against the plain engine's.
 """
 
 import importlib
+import itertools
 import os
 import subprocess
 import sys
@@ -52,6 +53,7 @@ from paddle_tpu_torch.models import transformer as tT
 from paddle_tpu_torch.ops import kv_attention as tkv
 from paddle_tpu_torch.ops import nn_ops as tnn
 from paddle_tpu_torch.serving import engine as teng
+from paddle_tpu_torch.serving import metrics as tsm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM = dict(vocab=32, d_model=16, d_inner=32, n_head=2, n_layer=2)
@@ -118,13 +120,38 @@ def _lm(params, device="cpu"):
     return lm
 
 
+_NAMES = itertools.count()
+
+
 def _port(params, spec_k=SPEC_K, drafter=None, device="cpu"):
-    e = teng.make_slot_model("lm_port", _lm(params, device),
+    e = teng.make_slot_model(f"lm_spec_port{next(_NAMES)}",
+                             _lm(params, device),
                              prompt_buckets=BUCKETS, layout="paged",
                              spec_k=spec_k, drafter=drafter, device=device,
                              **GEOM)
     e.warmup()
     return e
+
+
+def _counts(engine):
+    """The engine's serving counters, read from the process-wide
+    ``paddle_serving_*`` families under its name (the helpers name every
+    engine afresh): prefills, decode steps, tokens, drafts proposed and
+    accepted, and the tokens committed a slot a dispatch by count (the
+    ``tokens_per_step`` buckets are one token wide up to 6)."""
+    out = {k: int(f.labels(model=engine.name).value) for k, f in (
+        ("prefills", tsm.PREFILLS), ("decode_steps", tsm.DECODE_STEPS),
+        ("tokens_generated", tsm.TOKENS_GENERATED),
+        ("spec_proposed", tsm.SPEC_PROPOSED),
+        ("spec_accepted", tsm.SPEC_ACCEPTED))}
+    per, prev = Counter(), 0
+    for ub, cum in tsm.TOKENS_PER_STEP.labels(
+            model=engine.name).snapshot()[0]:
+        if cum > prev:
+            per[ub] = cum - prev
+        prev = cum
+    out["tokens_per_step"] = per
+    return out
 
 
 class _CannedDrafter:
@@ -302,10 +329,11 @@ def test_greedy_streams_match_jax_and_the_plain_engine(jx):
     base = _port(params, spec_k=None).generate(prompts, max_new=6)
     _assert_streams_equal(want, got, "jax/port")
     _assert_streams_equal(base, got, "plain/spec")
-    assert port.tokens_generated == 36 and port.prefills == 6
-    assert sum(n * c for n, c in port.tokens_per_step.items()) == 30
-    assert sum(port.tokens_per_step.values()) >= port.decode_steps
-    assert port.spec_accepted <= port.spec_proposed
+    c = _counts(port)
+    assert c["tokens_generated"] == 36 and c["prefills"] == 6
+    assert sum(n * k for n, k in c["tokens_per_step"].items()) == 30
+    assert sum(c["tokens_per_step"].values()) >= c["decode_steps"]
+    assert c["spec_accepted"] <= c["spec_proposed"]
 
 
 def test_seeded_sampled_streams_match_and_replay(jx):
@@ -359,8 +387,9 @@ def test_perfect_drafter_commits_a_budget_of_8_in_two_dispatches(jx):
                                                 LM["vocab"]))
     np.testing.assert_array_equal(port.generate([prompt], max_new=8)[0],
                                   ref)
-    assert port.decode_steps == 2
-    assert port.tokens_per_step == {4: 1, 3: 1}
+    c = _counts(port)
+    assert c["decode_steps"] == 2
+    assert c["tokens_per_step"] == {4: 1, 3: 1}
 
 
 def test_scripted_schedule_counts_as_the_reference(jx):
@@ -380,9 +409,10 @@ def test_scripted_schedule_counts_as_the_reference(jx):
     np.testing.assert_array_equal(port.generate([prompt], max_new=8)[0],
                                   ref)
     assert drafter.calls == 2
-    assert (port.spec_proposed, port.spec_accepted) == (5, 4)
-    assert port.tokens_per_step == {4: 1, 2: 1, 1: 1}
-    assert port.decode_steps == 3 and port.tokens_generated == 8
+    c = _counts(port)
+    assert (c["spec_proposed"], c["spec_accepted"]) == (5, 4)
+    assert c["tokens_per_step"] == {4: 1, 2: 1, 1: 1}
+    assert c["decode_steps"] == 3 and c["tokens_generated"] == 8
     m.drafter = _CannedDrafter(target, LM["vocab"], sched=[3, 1])
     np.testing.assert_array_equal(m.generate([prompt], max_new=8)[0], ref)
 
@@ -442,7 +472,7 @@ def test_model_drafter_streams_stay_lossless(jx):
     port = _port(params, drafter=teng.ModelDrafter(_lm(params)))
     np.testing.assert_array_equal(
         port.generate([[3, 14, 15]], max_new=6)[0], ref)
-    assert port.spec_accepted > 0
+    assert _counts(port)["spec_accepted"] > 0
 
 
 # -- geometry and imports ----------------------------------------------------
@@ -686,7 +716,8 @@ def test_cuda_spec_engine_streams_equal_the_plain_engine(cuda_device):
                 rng.randn(*p.shape).astype(np.float32) * 0.5))
 
     def engine(spec_k, drafter=None):
-        e = teng.make_slot_model("lm", lm, prompt_buckets=BUCKETS,
+        e = teng.make_slot_model(f"lm_spec_gpu{next(_NAMES)}", lm,
+                                 prompt_buckets=BUCKETS,
                                  layout="paged", spec_k=spec_k,
                                  drafter=drafter, device=cuda_device, **GEOM)
         e.warmup()
@@ -697,13 +728,13 @@ def test_cuda_spec_engine_streams_equal_the_plain_engine(cuda_device):
         want = engine(None).generate(prompts, **kw)
         spec = engine(SPEC_K)
         _assert_streams_equal(want, spec.generate(prompts, **kw), "ngram")
-        assert spec.decode_steps > 0
+        assert _counts(spec)["decode_steps"] > 0
     one = [int(t) for t in prompts[0]]
     ref = engine(None).generate([one], max_new=8)[0]
     perfect = engine(SPEC_K, _CannedDrafter(one + list(ref), LM["vocab"]))
     np.testing.assert_array_equal(perfect.generate([one], max_new=8)[0],
                                   ref)
-    assert perfect.decode_steps == 2
+    assert _counts(perfect)["decode_steps"] == 2
 
 
 class _Products(TorchDispatchMode):

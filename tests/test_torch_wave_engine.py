@@ -20,9 +20,11 @@ held to the reference's properties (flat in position, the full forward
 at least 5x a decode step), not to XLA's counts.
 """
 
+import itertools
 import os
 import subprocess
 import sys
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -37,6 +39,7 @@ from paddle_tpu_torch.models import convert
 from paddle_tpu_torch.models import transformer as tT
 from paddle_tpu_torch.serving import bucketing as tbk
 from paddle_tpu_torch.serving import engine as teng
+from paddle_tpu_torch.serving import metrics as tsm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM_CFG = dict(prompt_len=8, max_new=8, vocab=32, d_model=16, d_inner=32,
@@ -100,19 +103,45 @@ def _lm(params, cache_len=CACHE_LEN, device="cpu"):
     return lm
 
 
+_NAMES = itertools.count()
+
+
 def _wave(params, prompt_buckets=(8,), policy=(2, 4), cache_len=CACHE_LEN):
-    return teng.GenerativeModel("lm_wave", _lm(params, cache_len),
+    return teng.GenerativeModel(f"lm_wave{next(_NAMES)}",
+                                _lm(params, cache_len),
                                 prompt_buckets, tbk.BucketPolicy(policy))
 
 
 def _slots(params, layout="contiguous", n_slots=4, spec_k=None,
            drafter=None, **kw):
-    e = teng.make_slot_model("lm_slots", _lm(params), n_slots=n_slots,
+    e = teng.make_slot_model(f"lm_slots{next(_NAMES)}", _lm(params),
+                             n_slots=n_slots,
                              prompt_buckets=SLOT_BUCKETS, layout=layout,
                              spec_k=spec_k, drafter=drafter, device="cpu",
                              **kw)
     e.warmup()
     return e
+
+
+def _counts(engine):
+    """The engine's serving counters, read from the process-wide
+    ``paddle_serving_*`` families under its name (the helpers name every
+    engine afresh): prefills, decode steps, tokens, drafts proposed and
+    accepted, and the tokens committed a slot a dispatch by count (the
+    ``tokens_per_step`` buckets are one token wide up to 6)."""
+    out = {k: int(f.labels(model=engine.name).value) for k, f in (
+        ("prefills", tsm.PREFILLS), ("decode_steps", tsm.DECODE_STEPS),
+        ("tokens_generated", tsm.TOKENS_GENERATED),
+        ("spec_proposed", tsm.SPEC_PROPOSED),
+        ("spec_accepted", tsm.SPEC_ACCEPTED))}
+    per, prev = Counter(), 0
+    for ub, cum in tsm.TOKENS_PER_STEP.labels(
+            model=engine.name).snapshot()[0]:
+        if cum > prev:
+            per[ub] = cum - prev
+        prev = cum
+    out["tokens_per_step"] = per
+    return out
 
 
 def _assert_streams_equal(want, got, label=""):
@@ -150,7 +179,9 @@ def test_wave_transcript_equals_full_forward_and_jax(jx):
     _assert_streams_equal(want, gm.generate(prompts, max_new=8), "wave")
     _assert_streams_equal(want, gm.full_forward_generate(prompts,
                                                          max_new=8), "full")
-    assert (gm.prefills, gm.decode_steps, gm.tokens_generated) == (1, 7, 32)
+    c = _counts(gm)
+    assert (c["prefills"], c["decode_steps"], c["tokens_generated"]) == \
+        (1, 7, 32)
 
 
 def test_wave_bucket_invariance(jx):
@@ -306,9 +337,10 @@ def test_spec_greedy_streams_match_jax_and_the_plain_engine(jx):
     _assert_streams_equal(want, got, "jax/port")
     _assert_streams_equal(_slots(jx.params()).generate(prompts, max_new=6),
                           got, "plain/spec")
-    assert port.tokens_generated == 36 and port.prefills == 6
-    assert sum(n * c for n, c in port.tokens_per_step.items()) == 30
-    assert port.spec_accepted <= port.spec_proposed
+    c = _counts(port)
+    assert c["tokens_generated"] == 36 and c["prefills"] == 6
+    assert sum(n * k for n, k in c["tokens_per_step"].items()) == 30
+    assert c["spec_accepted"] <= c["spec_proposed"]
 
 
 def test_spec_seeded_sampled_streams_match_and_replay(jx):
@@ -338,7 +370,7 @@ def test_spec_eos_inside_a_window_ends_the_request(jx):
                   drafter=_CannedDrafter(target))
     np.testing.assert_array_equal(port.generate([prompt], max_new=8,
                                                 eos_id=eos)[0], want)
-    assert port.spec_accepted > 0
+    assert _counts(port)["spec_accepted"] > 0
     m = jx("spec")
     m.drafter = _CannedDrafter(target)
     np.testing.assert_array_equal(m.generate([prompt], max_new=8,
