@@ -462,10 +462,31 @@ final line:
     killed replicas' torn parents aside). The replicas' page-gather
     launches are not this process's to count. Its JSON line is
     ``{"fleet": ...}``.
-22. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+22. Saved programs through the executor (after phase 21): the five
+    committed inference programs of ``tests/torch_programs/`` (resnet50,
+    transformer_base with the fused attention and head, the stacked LSTM,
+    deepfm, mnist; written by ``tools/torch_export_programs.py`` from the
+    JAX models' ``build``) with seeded weights and the manifest's CRC32s
+    beside them, loaded by ``paddle_tpu_torch.fluid.io.load_inference_model``
+    onto ``CUDAPlace(0)`` and run by its ``Executor`` at full width:
+    ResNet-50 at batch 128 and 224 px, the Transformer at batch 32 and T
+    128 (the loss of a copy task), the LSTM at batch 64 and T 100
+    (lengths 1..100), deepfm and mnist at batch 2048. (a) the fetches are
+    finite and a classifier's mean top probability is below 0.99; (b)
+    one run's launches are exactly 18 flash forwards and 1 fused-CE
+    forward (the Transformer), 3 LSTM forwards (the LSTM) and none
+    elsewhere; (c) a ``CPUPlace()`` executor on the same directory gives
+    the same fetch (the first 8 rows; the Transformer's loss at a batch
+    of 4 on both); (d) the Transformer's and the LSTM's fetches equal the
+    port's nn.Modules' on the same arrays; (e) ``Executor.run``'s host
+    p50 over 10 runs and device busy over a profiler window, beside the
+    nn.Module's; (f) a tampered ``.npy`` raises ``ChecksumError`` and
+    counts one CRC failure. Its JSON line is ``{"executor": ...}``.
+23. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
-    that run above its range), then, last,
+    that run above its range; flash_fwd, fused_ce_fwd and lstm_train_fwd
+    with phase 22's ``launches_executor``), then, last,
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -5999,6 +6020,260 @@ def image_phase(torch, dev, card, models=IMAGE_MODELS, steps=IMAGE_STEPS,
     return out
 
 
+# -- phase 22: saved programs through the executor ----------------------------
+
+EXEC_DIR = "tests/torch_programs"
+# program -> batch on the card (bench.py's batches; the Transformer's and
+# the LSTM's of phases 7 and 9)
+EXEC_BATCH = {"resnet50": 128, "transformer_base": BATCH,
+              "stacked_dynamic_lstm": LSTM_BATCH, "deepfm": DEEPFM_BATCH,
+              "mnist": 2048}
+EXEC_CPU_ROWS = 8                  # the row-wise fetches held on the CPU
+EXEC_CPU_TF_BATCH = 4              # the Transformer's loss, both devices
+EXEC_RUNS = 10                     # timed Executor.run calls a program
+EXEC_PROFILE_RUNS = 3
+EXEC_SEED = 22
+# fp32 on both devices, TF32 off on the card: the sums run in another
+# order (cuDNN's convs, cuBLAS's products, the card's flash, fused-CE and
+# LSTM kernels with their 3xTF32 products) -- the kernels' own phases hold
+# them to 1e-4 / 1e-5 (FLASH_FWD_TOL, FCE_FWD_TOL, LSTM_FWD_TOL)
+EXEC_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+# the executor against the port's nn.Module on the card: the same
+# functions and kernels, the ops called in another grouping
+EXEC_MODULE_TOL = dict(rtol=1e-5, atol=1e-6)
+EXEC_TOP_PROB = 0.99               # a classifier's mean top probability
+
+
+def exec_feeds(name, batch, seed):
+    """Host feeds of program ``name`` at ``batch``: images N(0, 1); the
+    Transformer's copy task (``copy_task``); the LSTM's words with
+    lengths in 1..100 (one full row, ``lstm_batch``); deepfm's ids
+    uniform over the vocabulary."""
+    rng = np.random.RandomState(seed)
+    if name in ("resnet50", "mnist"):
+        shape = (3, 224, 224) if name == "resnet50" else (1, 28, 28)
+        key = "data" if name == "resnet50" else "pixel"
+        return {key: rng.standard_normal((batch,) + shape).astype(
+            np.float32)}
+    if name == "transformer_base":
+        src = rng.randint(3, TRAIN["tgt_vocab"], (batch, TRAIN["max_len"]))
+        tgt = np.concatenate([np.ones((batch, 1), np.int64), src[:, :-1]], 1)
+        return {k: v[:, :, None].astype(np.int64) for k, v in
+                (("src_ids", src), ("tgt_ids", tgt), ("lbl_ids", src))}
+    if name == "stacked_dynamic_lstm":
+        words, lens, _ = lstm_batch(seed, batch, LSTM["max_len"],
+                                    LSTM["dict_dim"])
+        return {"words": words, "seq_lens": lens}
+    return {"feat_ids": rng.randint(0, DEEPFM["vocab_size"], (
+        batch, DEEPFM["num_fields"], 1)).astype(np.int64)}
+
+
+def exec_dir(torch, name, root):
+    """A saved-model directory for committed program ``name``: its
+    ``__model__.json`` and one ``.npy`` per persistable drawn by
+    ``convert.seeded_persistables`` (the Transformer's position table the
+    sinusoid its nn.Module computes), written by the port's
+    ``save_persistables`` with the manifest's CRC32s. Returns (directory,
+    the arrays by name)."""
+    import shutil
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.models import convert
+    from paddle_tpu_torch.models.transformer import position_encoding
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    src = os.path.join(EXEC_DIR, name, "__model__.json")
+    shutil.copy(src, d)
+    with open(src) as f:
+        desc = ir.ProgramDesc.parse_from_string(
+            json.dumps(json.load(f)["program"]).encode())
+    arrays = convert.seeded_persistables(desc.global_block, EXEC_SEED)
+    if "transformer_pos_enc" in arrays:
+        arrays["transformer_pos_enc"] = position_encoding(
+            *arrays["transformer_pos_enc"].shape).astype(np.float32)
+    scope = fluid.Scope()
+    for n, a in arrays.items():
+        scope.set_var(n, torch.from_numpy(a))
+    fluid.io.save_persistables(None, d, fluid.Program(desc), scope=scope)
+    return d, arrays
+
+
+def exec_module(torch, dev, name, arrays):
+    """The port's nn.Module of ``name`` on the card with ``arrays``, as a
+    function of the executor's feeds returning its fetch."""
+    from paddle_tpu_torch.models import convert
+    if name == "transformer_base":
+        from paddle_tpu_torch.models.transformer import build
+        model, _ = build(False, **TRAIN, fused_attention=True,
+                         fused_head=True, device=dev)
+        model.load_state_dict(convert.transformer_params_from_jax(
+            {n: a for n, a in arrays.items() if n != "transformer_pos_enc"}))
+
+        def run(f):
+            with torch.no_grad():
+                return model(*(torch.from_numpy(f[k]).to(dev) for k in
+                               ("src_ids", "tgt_ids", "lbl_ids")))
+        return run
+    from paddle_tpu_torch.models.stacked_dynamic_lstm import build
+    model, _, _ = build(False, **LSTM, device=dev)
+    model.load_state_dict(convert.lstm_params_from_jax(
+        arrays, LSTM["stacked_num"]))
+
+    def run(f):
+        with torch.no_grad():
+            return model.predict(torch.from_numpy(f["words"]).to(dev),
+                                 torch.from_numpy(f["seq_lens"]).to(dev))
+    return run
+
+
+def exec_time(torch, fn, n=EXEC_RUNS, profile_runs=EXEC_PROFILE_RUNS):
+    """(host ms of each of ``n`` calls of ``fn``, which ends in its fetch
+    on the host, and ``profile_calls`` over ``profile_runs`` more)."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    def work():
+        for _ in range(profile_runs):
+            fn()
+        torch.cuda.synchronize()
+    return ms, profile_calls(torch, work, profile_runs)
+
+
+def executor_phase(torch, dev, card, batches=None):
+    """Phase 22: the committed saved programs (``tests/torch_programs/``)
+    with seeded weights, loaded by the port's ``fluid.io.
+    load_inference_model`` onto ``CUDAPlace(0)`` and run by its
+    ``Executor`` at full width: the fetches finite and a classifier's not
+    saturated, held against a ``CPUPlace()`` executor on the same
+    directory and, for the Transformer and the LSTM, against the port's
+    nn.Module; the kernels' launches counted over one run; a tampered
+    ``.npy`` refused; host p50 and device busy beside the module path's.
+    ``batches`` overrides ``EXEC_BATCH`` (the CPU rehearsal)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import sharded_io
+    batches = dict(EXEC_BATCH if batches is None else batches)
+    want_launches = {
+        "transformer_base": {"flash_attention.flash_fwd":
+                             3 * TRAIN["n_layer"],
+                             "fused_ce.fused_ce_fwd": 1},
+        "stacked_dynamic_lstm": {"fused_rnn.lstm_train_fwd":
+                                 LSTM["stacked_num"]}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_exec_")
+    out = {}
+    try:
+        for i, (name, batch) in enumerate(batches.items()):
+            t_prog = time.perf_counter()
+            d, arrays = exec_dir(torch, name, root)
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            scope = fluid.Scope()
+            prog, feed_names, fetch = fluid.io.load_inference_model(
+                d, exe, scope=scope)
+            feeds = exec_feeds(name, batch, 60 + i)
+            if sorted(feeds) != sorted(feed_names):
+                fail(f"{name}: feeds {sorted(feeds)}, the program wants "
+                     f"{feed_names}")
+
+            def run(f=feeds):
+                return exe.run(prog, feed=f, fetch_list=fetch, scope=scope)
+            run()                                  # first use
+            torch.cuda.synchronize()
+            reset_all_launches()
+            got = run()[0]
+            launched = {k: n for k, n in all_launches().items() if n}
+            want = want_launches.get(name, {})
+            if launched != want:
+                fail(f"{name}: one Executor.run launched {launched}, "
+                     f"want {want}")
+            if not np.isfinite(got).all():
+                fail(f"{name}: non-finite fetch")
+            stats = {"batch": batch, "ops": len(prog.global_block().ops),
+                     "persistables": len(arrays), "fetch": fetch,
+                     "fetch_shape": list(got.shape), "launches": launched}
+            if got.ndim == 2 and got.shape[1] > 1:     # class probabilities
+                top = float(got.max(1).mean())
+                stats["mean_top_prob"] = top
+                if not top < EXEC_TOP_PROB:
+                    fail(f"{name}: mean top probability {top} saturates")
+            # (c) the same directory on a CPUPlace executor
+            cexe = fluid.Executor(fluid.CPUPlace())
+            cscope = fluid.Scope()
+            cprog, _, _ = fluid.io.load_inference_model(d, cexe,
+                                                        scope=cscope)
+            if name == "transformer_base":
+                small = {k: v[:EXEC_CPU_TF_BATCH] for k, v in feeds.items()}
+                card_v = run(small)[0]
+                cpu_v = cexe.run(cprog, feed=small, fetch_list=fetch,
+                                 scope=cscope)[0]
+            else:
+                small = {k: v[:EXEC_CPU_ROWS] for k, v in feeds.items()}
+                card_v = got[:EXEC_CPU_ROWS]
+                cpu_v = cexe.run(cprog, feed=small, fetch_list=fetch,
+                                 scope=cscope)[0]
+            err = float(np.abs(card_v - cpu_v).max())
+            if not np.allclose(card_v, cpu_v, **EXEC_CPU_TOL):
+                fail(f"{name}: the card's fetch differs from the CPU's by "
+                     f"{err} (tolerance {EXEC_CPU_TOL})")
+            stats["cpu_max_abs_err"] = err
+            del cexe, cscope, cprog
+            # (g) host p50 and device busy of Executor.run
+            ms, prof = exec_time(torch, run)
+            stats["run_ms"] = ms
+            stats["run_p50_ms"] = float(np.median(ms))
+            stats["profile"] = prof
+            line = (f"[{card}] executor {name} at batch {batch}: "
+                    f"Executor.run p50 {stats['run_p50_ms']:.3f} ms, device "
+                    f"busy {prof['device_busy_ms_per_step']:.3f} ms, idle "
+                    f"{prof['idle_share']:.3f}, "
+                    f"{prof['launches_per_step']:.0f} launches a run; card "
+                    f"against CPU max abs {err:.3g}")
+            # (d) the nn.Module on the same arrays and feeds
+            if name in want_launches:
+                module = exec_module(torch, dev, name, arrays)
+                mod_v = module(feeds).float().cpu().numpy()
+                merr = float(np.abs(mod_v - got).max())
+                if not np.allclose(got, mod_v, **EXEC_MODULE_TOL):
+                    fail(f"{name}: the executor's fetch differs from the "
+                         f"nn.Module's by {merr} (tolerance "
+                         f"{EXEC_MODULE_TOL})")
+                mms, mprof = exec_time(torch, lambda: module(feeds).cpu())
+                stats["module"] = {"max_abs_err": merr, "run_ms": mms,
+                                   "run_p50_ms": float(np.median(mms)),
+                                   "profile": mprof}
+                line += (f"; the nn.Module p50 "
+                         f"{stats['module']['run_p50_ms']:.3f} ms, busy "
+                         f"{mprof['device_busy_ms_per_step']:.3f} ms, "
+                         f"{mprof['launches_per_step']:.0f} launches "
+                         f"(max abs {merr:.3g} from the executor's)")
+                del module
+            print(line + f"; {time.perf_counter() - t_prog:.1f} s")
+            out[name] = stats
+            del exe, scope, prog
+            torch.cuda.empty_cache()
+        # (f) a tampered .npy is refused
+        d = os.path.join(root, next(iter(batches)))
+        npy = sorted(f for f in os.listdir(d) if f.endswith(".npy"))[0]
+        with open(os.path.join(d, npy), "r+b") as f:
+            f.seek(-4, 2)
+            f.write(b"\x00\x01\x02\x03")
+        before = sharded_io.CKPT_CRC_FAILURES.value
+        try:
+            fluid.io.load_inference_model(d, fluid.Executor(
+                fluid.CUDAPlace(0)), scope=fluid.Scope())
+        except sharded_io.ChecksumError:
+            pass
+        else:
+            fail(f"a tampered {npy} loaded without a ChecksumError")
+        if sharded_io.CKPT_CRC_FAILURES.value != before + 1:
+            fail("the tampered file did not count one CRC failure")
+        out["tampered"] = {"file": npy, "crc_failures": 1}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def main():
@@ -6053,6 +6328,9 @@ def main():
     server = server_phase(torch, dev, card, served, per_layer)
     fleet = fleet_phase(torch, dev, card, served, server)
     del served
+    executor = executor_phase(torch, dev, card)
+    exec_launches = {key: n for run in executor.values()
+                     for key, n in run.get("launches", {}).items()}
     for key in ("install", "write_back"):
         if fm_run[f"most_used_{key}_bucket"] != list(CACHE_BUCKET):
             fail(f"deepfm's most used {key} bucket (bucket, median rows) "
@@ -6112,6 +6390,8 @@ def main():
             "library_event_ms": m["library_event_ms"],
             "launches_per_train_step":
                 flash_launches[kname] // TRAIN_STEPS, "kernel": m["route"],
+            "launches_executor": exec_launches.get(
+                f"flash_attention.{kname}", 0),
             "card": card,
             "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -6141,6 +6421,7 @@ def main():
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "launches_per_train_step": 1,
+            "launches_executor": exec_launches.get(f"fused_ce.{kname}", 0),
             "simt_bound_ms": m["simt_bound_ms"], "prep_ms": m["prep_ms"],
             "mixed": fce["mixed"],
             "bf16": {key: fce[f"{kname}/bf16"][key] for key in
@@ -6158,6 +6439,7 @@ def main():
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "launches_per_train_step": lstm_per_step,
+            "launches_executor": exec_launches.get(f"fused_rnn.{kname}", 0),
             "us_per_step": m["us_per_step"],
             "dense_bound_ms": m["dense_bound_ms"], "card": card,
             **{k: m[k] for k in ("kernel", "tf32x3_bound_ms",
@@ -6242,6 +6524,7 @@ def main():
     print(json.dumps({"contiguous_layout": contiguous, "card": card}))
     print(json.dumps({"server": server, "card": card}))
     print(json.dumps({"fleet": fleet, "card": card}, default=str))
+    print(json.dumps({"executor": executor, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -11,8 +11,9 @@ Read by ``utils/faults.py`` (``fault_plan``, ``fault_seed``),
 ``observability/spool.py`` (``trace_spool_dir``, ``trace_role``),
 ``observability/flight_recorder.py`` and ``observability/memory.py``
 (``flight_recorder_dir``, ``flight_recorder_capacity``),
-``observability/lock_witness.py`` (``lock_witness``) and
-``serving/autoscaler.py`` (``hbm_bytes``, the placement budget).
+``observability/lock_witness.py`` (``lock_witness``),
+``serving/autoscaler.py`` (``hbm_bytes``, the placement budget) and
+``core/executor.py`` (``check_nan_inf``, ``benchmark``).
 """
 
 from __future__ import annotations
@@ -135,3 +136,9 @@ define("lock_witness", bool, False,
        "a cycle is a witnessed inversion: it increments "
        "paddle_lock_witness_violations_total and dumps BOTH stacks "
        "through the flight recorder. Off by default.")
+define("check_nan_inf", bool, False,
+       "Scan every fetch and updated state var for NaN/Inf after each "
+       "executor run (reference: operator.cc FLAGS_check_nan_inf).")
+define("benchmark", bool, False,
+       "Print each executor run's wall time, the device synchronized "
+       "(reference: FLAGS_benchmark executor timing).")

@@ -51,6 +51,9 @@ already agree: matrices are [in, out] on both sides.
   ``fc_<k>.w_0/b_0``. The layout is read from the port's model itself:
   its layers (``paddle_tpu_torch.layers``) in registration order, which
   is the JAX creation order, each naming its family and suffixes.
+- :func:`seeded_persistables` -> weights for a saved program that has
+  none (``tests/torch_programs/``): every persistable of a block drawn
+  from a seed by the role its first consumer gives it.
 """
 
 from __future__ import annotations
@@ -533,3 +536,49 @@ def classifier_params_from_jax(arrays: Dict[str, np.ndarray], model
             raise ValueError(f"{key}: shape {tuple(t.shape)}, want "
                              f"{tuple(want[key].shape)}")
     return state
+
+
+# -- seeded weights for a saved program (tests/torch_programs/) --------------
+
+# op type -> {input slot: role} for the persistables that are not weights
+_ROLES = {"batch_norm": {"Scale": "one", "Bias": "zero", "Mean": "zero",
+                         "Variance": "variance"},
+          "layer_norm": {"Scale": "one", "Bias": "zero"},
+          "conv2d": {"Filter": "filter"}}
+BIAS_STD = 0.1
+
+
+def seeded_persistables(block, seed: int) -> Dict[str, np.ndarray]:
+    """{name: array} for every persistable ``VarDesc`` of ``block`` (a
+    ``core/ir.py`` ``BlockDesc`` of either package), in its declared shape
+    and dtype, from ``np.random.default_rng(seed)`` in name order: batch
+    and layer norm scales 1 and biases 0, batch-norm moving means 0 and
+    variances uniform in [0.5, 1.5]; a conv filter [O, C, kh, kw] normal
+    / sqrt(C kh kw); another matrix or table [n, ...] with n > 1 normal /
+    sqrt(n) (the fan-in of an [in, out] weight); a bias ([n] or [1, n])
+    normal * ``BIAS_STD``."""
+    roles = {}
+    for op in block.ops:
+        for slot, role in _ROLES.get(op.type, {}).items():
+            for n in op.inputs.get(slot, []):
+                roles.setdefault(n, role)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(n for n, v in block.vars.items() if v.persistable):
+        vd = block.vars[name]
+        shape = tuple(vd.shape)
+        role = roles.get(name)
+        if role == "one":
+            a = np.ones(shape)
+        elif role == "zero":
+            a = np.zeros(shape)
+        elif role == "variance":
+            a = rng.uniform(0.5, 1.5, shape)
+        elif role == "filter":
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif len(shape) >= 2 and shape[0] > 1:
+            a = rng.standard_normal(shape) / np.sqrt(shape[0])
+        else:
+            a = rng.standard_normal(shape) * BIAS_STD
+        out[name] = a.astype(vd.dtype)
+    return out

@@ -5,6 +5,9 @@
   or an error whose text says "out of memory" / the reference's
   ``RESOURCE_EXHAUSTED``) or the host analogue a fault plan injects
   (``MemoryError``).
+- :func:`dump_on_oom` -- the except path of a dispatch (the executor's
+  ``run``, the serving engines' ``_run``): an OOM error inside it calls
+  :func:`oom_dump` under the dispatch's program label, then goes on.
 - :func:`oom_dump` -- writes ``<role>.<pid>.memdump.json`` atomically
   (tmp + fsync + replace) into the flight recorder's directory (the
   running recorder's, else ``FLAGS_flight_recorder_dir``), counts
@@ -27,6 +30,7 @@ ported).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -118,3 +122,17 @@ def oom_dump(exc: BaseException, program: Optional[str] = None
         return path
     except Exception:
         return None
+
+
+@contextlib.contextmanager
+def dump_on_oom(program: str):
+    """Around a dispatch (``paddle_tpu/core/executor.py:466-471``,
+    ``paddle_tpu/serving/engine.py:336-339``): an OOM error raised inside
+    writes the memdump under ``program`` (:func:`oom_dump`, which never
+    raises), then the error goes on."""
+    try:
+        yield
+    except Exception as e:
+        if is_oom_error(e):
+            oom_dump(e, program=program)
+        raise

@@ -1,0 +1,80 @@
+"""Emitters of the linear-algebra, reduction and shape ops (counterpart of
+``paddle_tpu/ops/math_ops.py``) over the functions of ``ops/nn_ops.py``:
+``mul`` (``:26``), ``matmul`` (``:51``), ``scale`` (``:74``), ``sum``
+(``:84``), ``reduce_sum`` (``:115``), ``mean`` (``:122``), ``top_k``
+(``:137``), ``reshape`` (``:147``), ``transpose`` (``:181``), ``concat``
+(``:193``) and ``slice`` (``:218``).
+"""
+
+from __future__ import annotations
+
+from paddle_tpu_torch.core.registry import first, register_op, single
+from paddle_tpu_torch.ops import nn_ops
+
+
+@register_op("mul", ref="operators/mul_op.cc")
+def _mul(ctx, ins, attrs):
+    return single(nn_ops.mul(first(ins, "X"), first(ins, "Y"),
+                             attrs.get("x_num_col_dims", 1),
+                             attrs.get("y_num_col_dims", 1)))
+
+
+@register_op("matmul", ref="operators/matmul_op.cc")
+def _matmul(ctx, ins, attrs):
+    return single(nn_ops.matmul(first(ins, "X"), first(ins, "Y"),
+                                transpose_y=attrs.get("transpose_Y", False),
+                                transpose_x=attrs.get("transpose_X", False),
+                                alpha=attrs.get("alpha", 1.0)))
+
+
+@register_op("scale", ref="operators/scale_op.cc")
+def _scale(ctx, ins, attrs):
+    return single(nn_ops.scale(first(ins, "X"), attrs.get("scale", 1.0),
+                               attrs.get("bias", 0.0),
+                               attrs.get("bias_after_scale", True)))
+
+
+@register_op("sum", ref="operators/sum_op.cc")
+def _sum(ctx, ins, attrs):
+    return single(nn_ops.sums(ins.get("X", [])))
+
+
+@register_op("reduce_sum", ref="operators/reduce_ops/reduce_sum_op.cc")
+def _reduce_sum(ctx, ins, attrs):
+    dim = None if attrs.get("reduce_all", False) else attrs.get("dim", [0])
+    return single(nn_ops.reduce_sum(first(ins, "X"), dim,
+                                    attrs.get("keep_dim", False)))
+
+
+@register_op("mean", ref="operators/mean_op.cc")
+def _mean(ctx, ins, attrs):
+    return single(nn_ops.mean(first(ins, "X")))
+
+
+@register_op("top_k", no_grad=True, ref="operators/top_k_op.cc")
+def _top_k(ctx, ins, attrs):
+    vals, idx = nn_ops.top_k(first(ins, "X"), attrs.get("k", 1))
+    return {"Out": [vals], "Indices": [idx]}
+
+
+@register_op("reshape", ref="operators/reshape_op.cc")
+def _reshape(ctx, ins, attrs):
+    return single(nn_ops.reshape(first(ins, "X"),
+                                 list(attrs.get("shape", ()))))
+
+
+@register_op("transpose", ref="operators/transpose_op.cc")
+def _transpose(ctx, ins, attrs):
+    return single(nn_ops.transpose(first(ins, "X"), attrs.get("axis")))
+
+
+@register_op("concat", ref="operators/concat_op.cc")
+def _concat(ctx, ins, attrs):
+    return single(nn_ops.concat(ins.get("X", []), attrs.get("axis", 0)))
+
+
+@register_op("slice", ref="operators/slice_op.cc")
+def _slice(ctx, ins, attrs):
+    return single(nn_ops.slice(first(ins, "Input"), attrs.get("axes", []),
+                               attrs.get("starts", []),
+                               attrs.get("ends", [])))

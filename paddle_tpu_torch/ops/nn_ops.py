@@ -81,6 +81,14 @@ this path):
   and ``fc``'s ``num_flatten_dims`` (the ``mul`` op's
   ``x_num_col_dims``, ``math_ops.py:25-47``).
 
+and those the program executor adds (``core/lowering.py``):
+:func:`elementwise_sub`, :func:`mul` (``math_ops.py:25-47``), :func:`top_k`
+(``math_ops.py:137``; ties in index order, as ``lax.top_k`` gives them),
+:func:`transpose` (``math_ops.py:181``), ``matmul``'s ``transpose_x`` and
+``alpha``, ``scale``'s ``bias_after_scale``. The emitters at the end of the
+file register the executor's op types of this module
+(``core/registry.py``), each a thin adapter onto the functions here.
+
 Mixed precision: the ops of the AMP rewrite take ``amp``, a model's
 dict of AMP tags by op type (``contrib/mixed_precision.py``; None: fp32),
 and read their own type's tags: ``fc`` (its products as ``mul``, its bias
@@ -93,6 +101,7 @@ add as ``elementwise_add``), ``matmul``, ``lookup_table``,
 from __future__ import annotations
 
 import contextlib
+import math
 from builtins import slice as builtins_slice
 from typing import Optional
 
@@ -100,6 +109,8 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.contrib.mixed_precision import policy
+from paddle_tpu_torch.core.registry import first, register_op, single
+from paddle_tpu_torch.ops import metric_ops as _metric_ops
 from paddle_tpu_torch.ops.kernels import fused_ce as _fused_ce
 from paddle_tpu_torch.ops.kernels.flash_attention import hash_keep_mask
 
@@ -260,6 +271,13 @@ def elementwise_mul(x: torch.Tensor, y: torch.Tensor, amp=None,
     return _elementwise(torch.mul, "elementwise_mul", x, y, amp, axis)
 
 
+def elementwise_sub(x: torch.Tensor, y: torch.Tensor, amp=None,
+                    axis: int = -1) -> torch.Tensor:
+    """``x - y`` as :func:`elementwise_add` adds (deepfm's
+    ``sum_sq - sq_sum``)."""
+    return _elementwise(torch.sub, "elementwise_sub", x, y, amp, axis)
+
+
 def concat(xs, axis: int = 0) -> torch.Tensor:
     return torch.cat(list(xs), dim=axis)
 
@@ -371,8 +389,24 @@ def fc(x, w, b: Optional[torch.Tensor] = None,
     return out
 
 
-def scale(x: torch.Tensor, factor: float, bias: float = 0.0) -> torch.Tensor:
-    return x * factor + bias
+def scale(x: torch.Tensor, factor: float, bias: float = 0.0,
+          bias_after_scale: bool = True) -> torch.Tensor:
+    """``x * factor + bias``, or ``(x + bias) * factor`` without
+    ``bias_after_scale``."""
+    if bias_after_scale:
+        return x * factor + bias
+    return (x + bias) * factor
+
+
+def mul(x: torch.Tensor, y: torch.Tensor, x_num_col_dims: int = 1,
+        y_num_col_dims: int = 1) -> torch.Tensor:
+    """The ``mul`` op (``math_ops.py:25-47``): x flattened to 2-D at
+    ``x_num_col_dims`` (its dims before it the rows), y at
+    ``y_num_col_dims``, one product, reshaped to ``x.shape[:xn] +
+    y.shape[yn:]``: an [N, C, H, W] map at 1 is [N, C*H*W]."""
+    lead, rows = x.shape[:x_num_col_dims], y.shape[:y_num_col_dims]
+    out = x.reshape(math.prod(lead), -1) @ y.reshape(math.prod(rows), -1)
+    return out.reshape(tuple(lead) + tuple(y.shape[y_num_col_dims:]))
 
 
 DROPOUT_IMPLEMENTATIONS = ("upscale_in_train", "downgrade_in_infer")
@@ -476,15 +510,22 @@ def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, transpose_y: bool = False,
-           amp=None) -> torch.Tensor:
-    """``x @ y`` (``y`` transposed on its last two axes with
-    ``transpose_y``), a tagged ``matmul`` through :func:`amp_product`
-    (``math_ops.py:50-66``)."""
-    y = y.transpose(-1, -2) if transpose_y else y
+           amp=None, transpose_x: bool = False, alpha: float = 1.0
+           ) -> torch.Tensor:
+    """``x @ y`` (``x`` or ``y`` transposed on its last two axes with
+    ``transpose_x`` / ``transpose_y``; a 1-D operand is not), a tagged
+    ``matmul`` through :func:`amp_product` (``math_ops.py:50-71``), times
+    ``alpha`` when it is not 1."""
+    if transpose_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
     tags = policy(amp, "matmul")
     if tags.bf16:
-        return amp_product(x, y, tags.keep_bf16)
-    return torch.matmul(x, y)
+        out = amp_product(x, y, tags.keep_bf16)
+    else:
+        out = torch.matmul(x, y)
+    return out * alpha if alpha != 1.0 else out
 
 
 def mean(x: torch.Tensor) -> torch.Tensor:
@@ -509,16 +550,20 @@ def cross_entropy(prob: torch.Tensor, label: torch.Tensor,
 
 def accuracy(prob: torch.Tensor, label: torch.Tensor, k: int = 1):
     """-> (accuracy [1] fp32, correct [1] int32, total [1] int32): the
-    share of rows whose label is among the k largest of ``prob`` [N, D].
-    Carries no gradient."""
+    share of rows whose label is among the k largest of ``prob`` [N, D]
+    (:func:`top_k`, then ``ops/metric_ops.py`` ``accuracy``, as
+    ``layers.accuracy`` chains the two ops). Carries no gradient."""
     with torch.no_grad():
-        idx = prob.topk(k, dim=-1).indices
-        hit = (idx == label.reshape(-1, 1)).any(dim=1)
-        correct = hit.to(torch.float32).sum()
-        total = idx.shape[0]
-        return ((correct / total).reshape(1),
-                correct.to(torch.int32).reshape(1),
-                torch.tensor([total], dtype=torch.int32, device=prob.device))
+        return _metric_ops.accuracy(top_k(prob, k)[1], label)
+
+
+def top_k(x: torch.Tensor, k: int = 1):
+    """-> (values, int64 indices) of the ``k`` largest along the last axis
+    (``math_ops.py:137``), in descending order with ties in index order,
+    as ``lax.top_k`` returns them: a stable descending sort, where
+    ``torch.topk`` promises no order among equal values."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def fused_linear_ce(x: torch.Tensor, w: torch.Tensor, label: torch.Tensor,
@@ -589,6 +634,11 @@ def slice(x: torch.Tensor, axes, starts, ends) -> torch.Tensor:  # noqa: A001
         e = max(e + dim, 0) if e < 0 else min(e, dim)
         idx[a] = builtins_slice(s, e)
     return x[tuple(idx)]
+
+
+def transpose(x: torch.Tensor, perm) -> torch.Tensor:
+    """``x`` with its axes in the order ``perm`` (``math_ops.py:181``)."""
+    return x.permute(*perm)
 
 
 def reshape(x: torch.Tensor, shape) -> torch.Tensor:
@@ -794,3 +844,139 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         mean.copy_(mean * momentum + bmean * (1.0 - momentum))
         variance.copy_(variance * momentum + bvar * (1.0 - momentum))
     return y
+
+
+# -- emitters of the program executor (paddle_tpu/ops/nn_ops.py) -------------
+# Thin adapters: each maps the op's slots and attrs onto the function above
+# that computes it. The executor refuses AMP-tagged and NHWC ops before any
+# op runs (core/lowering.py check_supported), so none of these reads a tag.
+
+@register_op("conv2d", ref="operators/conv_op.cc:44 Conv2DOp")
+def _conv2d_op(ctx, ins, attrs):
+    return {"Output": [conv2d(first(ins, "Input"), first(ins, "Filter"),
+                              attrs.get("strides", [1, 1]),
+                              attrs.get("paddings", [0, 0]),
+                              attrs.get("dilations", [1, 1]),
+                              attrs.get("groups", 1))]}
+
+
+@register_op("pool2d", ref="operators/pool_op.cc")
+def _pool2d_op(ctx, ins, attrs):
+    # ceil_mode is ignored, as the JAX op ignores it (the output floors)
+    return single(pool2d(first(ins, "X"), attrs.get("ksize", [2, 2]),
+                         attrs.get("pooling_type", "max"),
+                         attrs.get("strides", [1, 1]),
+                         attrs.get("paddings", [0, 0]),
+                         attrs.get("global_pooling", False),
+                         attrs.get("exclusive", True)))
+
+
+@register_op("batch_norm", ref="operators/batch_norm_op.cc:40")
+def _batch_norm_op(ctx, ins, attrs):
+    """Test mode (the ``is_test`` attr, the program's, or
+    ``use_global_stats``): the running statistics normalize x and come
+    out as they went in. Training: :func:`batch_norm` updates copies of
+    them, returned as ``MeanOut`` / ``VarianceOut`` (the executor writes
+    them back); ``SavedMean`` / ``SavedVariance`` are not emitted there."""
+    x, scale_, bias = (first(ins, n) for n in ("X", "Scale", "Bias"))
+    mean_, var = first(ins, "Mean"), first(ins, "Variance")
+    eps = attrs.get("epsilon", 1e-5)
+    if attrs.get("is_test", False) or ctx.is_test \
+            or attrs.get("use_global_stats", False):
+        y = batch_norm(x, scale_, bias, mean_, var, True, epsilon=eps)
+        return {"Y": [y], "MeanOut": [mean_], "VarianceOut": [var],
+                "SavedMean": [mean_], "SavedVariance": [var]}
+    mean_out, var_out = mean_.clone(), var.clone()
+    y = batch_norm(x, scale_, bias, mean_out, var_out, False,
+                   attrs.get("momentum", 0.9), eps)
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out]}
+
+
+@register_op("layer_norm", ref="operators/layer_norm_op.cc")
+def _layer_norm_op(ctx, ins, attrs):
+    """``Y`` only: the statistics outputs are not emitted."""
+    return {"Y": [layer_norm(first(ins, "X"), first(ins, "Scale"),
+                             first(ins, "Bias"),
+                             attrs.get("begin_norm_axis", 1),
+                             attrs.get("epsilon", 1e-5))]}
+
+
+@register_op("dropout", ref="operators/dropout_op.cc")
+def _dropout_op(ctx, ins, attrs):
+    """Test mode: ``Out`` (x, or x * (1 - p) for ``downgrade_in_infer``,
+    the attr's default) and a ``Mask`` of ones. Training: ``Out`` under
+    the hash keep mask seeded by the step key; ``Mask`` not emitted."""
+    x = first(ins, "X")
+    p = attrs.get("dropout_prob", 0.5)
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False) or ctx.is_test:
+        return {"Out": [dropout(x, p, 0, True, impl)],
+                "Mask": [torch.ones_like(x)]}
+    return single(dropout(x, p, ctx.step_key(), False, impl))
+
+
+@register_op("lookup_table", ref="operators/lookup_table_op.cc")
+def _lookup_table_op(ctx, ins, attrs):
+    return single(lookup_table(first(ins, "W"), first(ins, "Ids"),
+                               padding_idx=attrs.get("padding_idx", -1)))
+
+
+@register_op("softmax", ref="operators/softmax_op.cc")
+def _softmax_op(ctx, ins, attrs):
+    return single(softmax(first(ins, "X")))
+
+
+@register_op("cross_entropy", ref="operators/cross_entropy_op.cc")
+def _cross_entropy_op(ctx, ins, attrs):
+    return {"Y": [cross_entropy(first(ins, "X"), first(ins, "Label"),
+                                attrs.get("soft_label", False),
+                                attrs.get("ignore_index", -100))]}
+
+
+@register_op("softmax_with_cross_entropy",
+             ref="operators/softmax_with_cross_entropy_op.cc")
+def _softmax_with_cross_entropy_op(ctx, ins, attrs):
+    """Hard labels: ``Loss`` and ``Softmax`` (in the logits' dtype). A
+    soft-label op raises: it is not ported."""
+    if attrs.get("soft_label", False):
+        raise NotImplementedError(
+            "softmax_with_cross_entropy with soft_label is not ported "
+            "(ROADMAP A6.6)")
+    logits = first(ins, "Logits")
+    loss = softmax_with_cross_entropy(logits, first(ins, "Label"),
+                                      attrs.get("label_smoothing", 0.0),
+                                      attrs.get("ignore_index", -100))
+    return {"Loss": [loss], "Softmax": [softmax(logits)]}
+
+
+@register_op("fused_linear_ce",
+             ref="composed: mul_op.cc + softmax_with_cross_entropy_op.cc")
+def _fused_linear_ce_op(ctx, ins, attrs):
+    return {"Loss": [fused_linear_ce(first(ins, "X"), first(ins, "W"),
+                                     first(ins, "Label"),
+                                     float(attrs.get("label_smoothing", 0.0)),
+                                     attrs.get("ignore_index", -100))]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits",
+             ref="operators/sigmoid_cross_entropy_with_logits_op.cc")
+def _sigmoid_ce_op(ctx, ins, attrs):
+    return single(sigmoid_cross_entropy_with_logits(
+        first(ins, "X"), first(ins, "Label"),
+        attrs.get("ignore_index", -100), attrs.get("normalize", False)))
+
+
+@register_op("fused_attention_block",
+             ref="composed: mul+transpose+matmul+softmax ops")
+def _fused_attention_block_op(ctx, ins, attrs):
+    """The flash path of ``ops/attention_block.py``; attention dropout
+    keyed by the step key, off in test mode."""
+    from paddle_tpu_torch.ops.attention_block import fused_attention_block
+    p = float(attrs.get("dropout_prob") or 0.0)
+    if ctx.is_test or attrs.get("is_test"):
+        p = 0.0
+    return single(fused_attention_block(
+        first(ins, "Xq"), first(ins, "Xkv"),
+        *(first(ins, n) for n in ("Wq", "Wk", "Wv", "Wo")),
+        int(attrs["n_head"]), bool(attrs.get("causal", False)), p,
+        ctx.step_key() if p > 0 else 0))

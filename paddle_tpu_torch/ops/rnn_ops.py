@@ -23,6 +23,9 @@ sends the default cell (sigmoid gates, tanh candidate) without reverse to
 plain versions on the CPU), and a reversed sequence or another activation
 to the step loop of ``:205-218``. The alignment and VMEM conditions
 (``:194-196``) are not carried over, as for the LSTM.
+
+The ``dynamic_lstm`` op of the program executor (``core/registry.py``) is
+a thin adapter onto :func:`dynamic_lstm`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.core.registry import first, register_op
 from paddle_tpu_torch.ops.kernels import fused_rnn as _fused_rnn
 
 _ACTS = {
@@ -157,3 +161,21 @@ def dynamic_gru(x: torch.Tensor, weight: torch.Tensor,
         h_prev = m * h_new + (1 - m) * h_prev
         hs[step] = h_prev * m
     return torch.stack(hs, dim=1), h_prev
+
+
+@register_op("dynamic_lstm", ref="operators/lstm_op.cc; math/lstm_compute.cc")
+def _dynamic_lstm_op(ctx, ins, attrs):
+    """The op (``paddle_tpu/ops/rnn_ops.py:49``) over :func:`dynamic_lstm`:
+    Input [B,T,4H], Weight [H,4H], Bias, optional H0 / C0 and SeqLens ->
+    Hidden, Cell, LastHidden, LastCell. ``use_peepholes`` defaults to
+    False when the attr is absent, as in the JAX op."""
+    hid, cell, h_last, c_last = dynamic_lstm(
+        first(ins, "Input"), first(ins, "Weight"), first(ins, "Bias"),
+        first(ins, "H0"), first(ins, "C0"), first(ins, "SeqLens"),
+        bool(attrs.get("use_peepholes", False)),
+        bool(attrs.get("is_reverse", False)),
+        attrs.get("gate_activation", "sigmoid"),
+        attrs.get("cell_activation", "tanh"),
+        attrs.get("candidate_activation", "tanh"))
+    return {"Hidden": [hid], "Cell": [cell], "LastHidden": [h_last],
+            "LastCell": [c_last]}

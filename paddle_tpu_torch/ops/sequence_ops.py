@@ -14,6 +14,9 @@ computation.
 - :func:`sequence_conv` is ``_sequence_conv`` (``:152-181``): the context
   window as shifted copies (im2col), one product with the filter
   (``torch.matmul``, as JAX leaves the einsum to XLA), the result masked.
+
+The ``sequence_pool`` op of the program executor (``core/registry.py``)
+is a thin adapter onto :func:`sequence_pool`.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.core.registry import first, register_op
 from paddle_tpu_torch.ops.kernels import seqpool as _seqpool
 
 POOL_TYPES = ("SUM", "AVERAGE", "SQRT", "MAX", "LAST", "FIRST")
@@ -110,3 +114,16 @@ def sequence_conv(x: torch.Tensor, filt: torch.Tensor,
     wide = torch.promote_types(x.dtype, filt.dtype)
     out = torch.matmul(torch.cat(cols, dim=-1).to(wide), filt.to(wide))
     return out * mask
+
+
+@register_op("sequence_pool",
+             ref="operators/sequence_ops/sequence_pool_op.cc")
+def _sequence_pool_op(ctx, ins, attrs):
+    """The op (``paddle_tpu/ops/sequence_ops.py:55``) over
+    :func:`sequence_pool`: ``Out``, and for MAX also ``MaxIndex``."""
+    x, lens = first(ins, "X"), first(ins, "SeqLens")
+    pooltype = str(attrs.get("pooltype", "AVERAGE")).upper()
+    if pooltype == "MAX":
+        out, idx = sequence_pool(x, lens, pooltype, return_max_index=True)
+        return {"Out": [out], "MaxIndex": [idx]}
+    return {"Out": [sequence_pool(x, lens, pooltype)]}

@@ -56,7 +56,12 @@ families of ``serving/metrics.py`` (``paddle_serving_prefills_total``,
 ``paddle_kv_*``), labelled by the engine's ``name``; the span
 ``serving.prefill@{bucket}`` around each prefill, under the caller's
 trace context; the fault site ``serving.dispatch`` before each model
-call. The families are the only counters: a caller holding an engine
+call, both inside the reference's OOM path (``_run``, ``:336-339``): an
+OOM there writes the memdump and counts ``paddle_oom_events_total`` under
+the program label of the reference (``{name}.prefill@{p}`` and
+``{name}.decode`` for the wave engine; ``{name}.{PREFILL}@{p}``,
+``{name}.{DECODE}`` and ``{name}.{VERIFY}`` for the slot engines), then
+re-raises. The families are the only counters: a caller holding an engine
 reads ``Family.labels(model=engine.name)`` (a delta where an earlier
 engine shared the name), as the reference's callers do.
 """
@@ -71,6 +76,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.models import transformer as _tf
+from paddle_tpu_torch.observability import memory as _obs_memory
 from paddle_tpu_torch.observability import trace_context as tctx
 from paddle_tpu_torch.serving import bucketing, kv_pool
 from paddle_tpu_torch.serving import metrics as smetrics
@@ -138,8 +144,9 @@ class GenerativeModel:
         wave's cache)."""
         dev = self.model.device
         last = torch.from_numpy(lens - 1).to(dev)
-        faults.inject("serving.dispatch")
-        logits, cache = self.model.prefill(torch.from_numpy(ids))
+        with _obs_memory.dump_on_oom(f"{self.name}.prefill@{ids.shape[1]}"):
+            faults.inject("serving.dispatch")
+            logits, cache = self.model.prefill(torch.from_numpy(ids))
         rows = torch.arange(len(lens), device=dev)
         return logits[rows, last].argmax(-1).cpu().numpy(), cache
 
@@ -152,10 +159,11 @@ class GenerativeModel:
 
         def col(v):
             return torch.from_numpy(np.asarray(v, np.int64).reshape(b, 1))
-        faults.inject("serving.dispatch")
-        logits = self.model.decode(col(tok), col(np.full(b, pos)), col(lens),
-                                   col(np.full(b, p_len)),
-                                   col(np.ones(b)), cache)
+        with _obs_memory.dump_on_oom(f"{self.name}.decode"):
+            faults.inject("serving.dispatch")
+            logits = self.model.decode(
+                col(tok), col(np.full(b, pos)), col(lens),
+                col(np.full(b, p_len)), col(np.ones(b)), cache)
         return logits[:, 0].argmax(-1).cpu().numpy()
 
     def _budget(self, max_new: Optional[int]) -> int:
@@ -445,8 +453,11 @@ class SlotGenerativeModel:
         host (the one wait for the device per call)."""
         args = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in feeds.items()}
-        faults.inject("serving.dispatch")
-        out = getattr(self.model, view)(**args, **self._view_state())
+        program = (f"{self.name}.{view}@{feeds['ids'].shape[1]}"
+                   if view == self.PREFILL else f"{self.name}.{view}")
+        with _obs_memory.dump_on_oom(program):
+            faults.inject("serving.dispatch")
+            out = getattr(self.model, view)(**args, **self._view_state())
         return out.cpu().numpy().reshape(-1)
 
     def prompt_bucket_for(self, length: int) -> int:

@@ -15,6 +15,10 @@ Instrumented sites in the port (grep for ``faults.inject``):
     serving.dispatch    the slot and wave engines, before each model
                         call (admission prefill, decode / verify step,
                         wave prefill)
+    executor.dispatch   Executor.run, before the block runs
+    ckpt.write_var      fluid.io, before each variable file is written
+                        (raise / delay) and after its checksum (truncate,
+                        by ``mutate_file``)
 
 Plan grammar (``FLAGS_fault_plan`` env / ``flags.set("fault_plan", ...)``
 or programmatic :func:`arm` / :func:`active`):
@@ -37,10 +41,8 @@ or programmatic :func:`arm` / :func:`active`):
     e.g.  serving.rpc.send:raise@2,4:exc=ConnectionError;serving.handle:delay@1:s=0.05
 
 A site counts a *hit* only for specs whose mode applies to the call:
-``inject()`` services raise/delay specs. Truncate specs parse (one plan
-can drive the reference's processes and the port's) but nothing in the
-port services them: the reference's ``mutate_file`` tears checkpoint
-files, and the port writes none.
+``inject()`` services raise/delay specs, ``mutate_file()`` truncate specs
+(it tears a file just written, as a crash after its checksum would).
 """
 
 from __future__ import annotations
@@ -267,6 +269,17 @@ class FaultRegistry:
         exc = spec.exc or FaultInjected
         raise exc(f"injected fault at site {site!r}")
 
+    def mutate_file(self, site: str, path: str):
+        """Instrumentation point for truncate specs: tears the file that
+        was just written (models a crash/partial flush *after* any
+        integrity metadata was recorded)."""
+        spec = self._fire(site, ("truncate",))
+        if spec is None:
+            return
+        self._notify(site, spec.mode)
+        with open(path, "r+b") as f:
+            f.truncate(spec.truncate_to)
+
 
 _REG = FaultRegistry()
 
@@ -275,6 +288,12 @@ def inject(site: str) -> None:
     if _REG._loaded and not _REG._sites:   # zero-cost when idle
         return
     _REG.inject(site)
+
+
+def mutate_file(site: str, path: str) -> None:
+    if _REG._loaded and not _REG._sites:
+        return
+    _REG.mutate_file(site, path)
 
 
 def arm(site: str, spec: Union[FaultSpec, str]) -> None:

@@ -1,0 +1,119 @@
+"""Regenerate the saved inference programs the port's executor runs
+without JAX: ``tests/torch_programs/<name>/__model__.json``.
+
+Each program is a bench model's ``build(is_train=False)`` in the JAX
+package at its defaults (or the tiny widths named below), under a fresh
+``Program`` pair and a fresh ``unique_name`` generator (so the names are
+those a fresh process gives, the names ``paddle_tpu_torch.models.convert``
+maps), pruned to one fetch and written by the JAX package's own
+``save_inference_model`` from an empty scope: the program in exactly the
+saved-model format, and no weights. ``chip_smoke.py`` (phase 22) and
+``tests/test_torch_executor_gpu.py`` write seeded weights beside a copy.
+
+    JAX_PLATFORMS=cpu python tools/torch_export_programs.py [NAME ...]
+
+writes every program (or the named ones); ``--check`` writes nothing and
+exits 1 when a committed file differs from what ``build`` gives now.
+Files are compared as JSON values: ``prune_block`` collects the variables
+in a set, so their order in the file (not their content) varies with the
+process's string hashing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT_DIR = os.path.join(REPO, "tests", "torch_programs")
+MODEL_FILE = "__model__.json"
+
+# name -> (model module, build kwargs, feed names, fetch: "loss" for the
+# model's loss, else the op type whose last output in the program is it)
+PROGRAMS = {
+    "resnet50": ("resnet", {}, ["data"], "softmax"),
+    "transformer_base": ("transformer",
+                         dict(fused_attention=True, fused_head=True),
+                         ["src_ids", "tgt_ids", "lbl_ids"], "loss"),
+    "stacked_dynamic_lstm": ("stacked_dynamic_lstm", {},
+                             ["words", "seq_lens"], "softmax"),
+    "deepfm": ("deepfm", {}, ["feat_ids"], "sigmoid"),
+    "mnist": ("mnist", {}, ["pixel"], "softmax"),
+    # tiny twins for the card's tests (tests/test_torch_executor_gpu.py)
+    "transformer_tiny": ("transformer",
+                         dict(src_vocab=64, tgt_vocab=64, max_len=8,
+                              d_model=32, d_inner=64, n_head=2, n_layer=1,
+                              fused_attention=True, fused_head=True),
+                         ["src_ids", "tgt_ids", "lbl_ids"], "loss"),
+    "stacked_dynamic_lstm_tiny": ("stacked_dynamic_lstm",
+                                  dict(dict_dim=50, max_len=8, emb_dim=16,
+                                       hid_dim=16, stacked_num=2),
+                                  ["words", "seq_lens"], "softmax"),
+}
+
+
+def _last_output(main, op_type: str) -> str:
+    ops = [op for op in main.global_block().desc.ops if op.type == op_type]
+    if not ops:
+        raise ValueError(f"the program has no {op_type!r} op")
+    return ops[-1].output("Out")[0]
+
+
+def program_json(name: str) -> bytes:
+    """The ``__model__.json`` bytes of program ``name``, built now."""
+    import importlib
+    import paddle_tpu.fluid as fluid
+    from paddle_tpu.fluid import unique_name
+    module, kwargs, feeds, fetch = PROGRAMS[name]
+    model = importlib.import_module(f"paddle_tpu.models.{module}")
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), unique_name.guard():
+        loss, _, _ = model.build(is_train=False, **kwargs)
+    target = loss.name if fetch == "loss" else _last_output(main, fetch)
+    with tempfile.TemporaryDirectory() as d:
+        fluid.io.save_inference_model(d, feeds, [target], None,
+                                      main_program=main,
+                                      scope=fluid.Scope())
+        with open(os.path.join(d, MODEL_FILE), "rb") as f:
+            return f.read()
+
+
+def committed_path(name: str) -> str:
+    return os.path.join(OUT_DIR, name, MODEL_FILE)
+
+
+def is_current(name: str) -> bool:
+    """The committed file holds what ``build`` gives now."""
+    with open(committed_path(name), "rb") as f:
+        return json.loads(f.read()) == json.loads(program_json(name))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("names", nargs="*", help=f"of {sorted(PROGRAMS)}")
+    ap.add_argument("--check", action="store_true",
+                    help="compare with the committed files, write nothing")
+    args = ap.parse_args(argv)
+    stale = []
+    for name in args.names or PROGRAMS:
+        if args.check:
+            if not is_current(name):
+                stale.append(name)
+            continue
+        data = program_json(name)
+        path = committed_path(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        print(f"{path}: {len(data)} bytes")
+    if stale:
+        print(f"stale: {stale}")
+    return 1 if stale else 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)        # the JAX package, from a checkout
+    sys.exit(main())
