@@ -481,12 +481,43 @@ final line:
     port's nn.Modules' on the same arrays; (e) ``Executor.run``'s host
     p50 over 10 runs and device busy over a profiler window, beside the
     nn.Module's; (f) a tampered ``.npy`` raises ``ChecksumError`` and
-    counts one CRC failure. Its JSON line is ``{"executor": ...}``.
-23. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+    counts one CRC failure (in a copy: phase 23 serves the directories).
+    Its JSON line is ``{"executor": ...}``.
+23. Saved models served (after phase 22, on its directories): (a) each
+    of the five through ``inference.PaddlePredictor`` on the card with
+    the default analysis passes: the op types after the passes
+    (``SAVED_OPS``: ResNet-50's 53 batch norms folded, every conv a
+    ``conv2d_fusion``, the mul + add pairs ``fc``), the fetch against
+    phase 22's unrewritten ``Executor.run`` on the same feeds (the BN
+    fold's tolerance), the first rows against a ``disable_gpu()``
+    predictor on the CPU, one run's launches; the three tiny pass
+    programs of ``tests/torch_programs/`` (``fusion_lstm``,
+    ``fusion_gru``, ``fusion_seqpool_concat``) the same way, for rows 6,
+    8 and 11; (b) ``ServedModel``s of all five behind one
+    ``ModelServer`` (ladders 1..32, the Transformer 1..8), each driven in
+    turn by 8 ``ServingClient``s over the socket with mixed request
+    sizes: every wave the server dispatched equals the predictor at its
+    padded shape, every request its wave's rows (the Transformer's
+    batch-mean loss: its wave's), and a row-wise request the predictor on
+    its own rows; (c) the launch counters zeroed before each model's
+    traffic and read after: exactly the per-dispatch count times the
+    dispatches (18 flash forwards and 1 fused-CE forward a Transformer
+    wave, 3 LSTM forwards an LSTM wave, none elsewhere); (d) the port's
+    ``Router`` spawns one ``kind: "saved"`` replica of the LSTM on the
+    card, whose answers equal the in-process server's, then drains and
+    exits 0; (e) requests/s and p50 / p99 latency by client and by the
+    server's histogram, device busy a dispatch from a profiler window
+    opened on the scheduler thread, ``PaddlePredictor.run`` host p50
+    beside device busy at batch 1, 8 and 32 for the Transformer and
+    ResNet-50, and the replica's spawn-to-readyz time. Its JSON line is
+    ``{"saved_models": ...}``.
+24. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range; flash_fwd, fused_ce_fwd and lstm_train_fwd
-    with phase 22's ``launches_executor``), then, last,
+    with phase 22's ``launches_executor``, and with phase 23's
+    ``launches_predictor`` and ``launches_served``; gru_train_fwd and
+    seqpool with phase 23's ``launches_predictor``), then, last,
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -6142,18 +6173,19 @@ def exec_time(torch, fn, n=EXEC_RUNS, profile_runs=EXEC_PROFILE_RUNS):
     return ms, profile_calls(torch, work, profile_runs)
 
 
-def executor_phase(torch, dev, card, batches=None):
+def executor_phase(torch, dev, card, root, batches=None):
     """Phase 22: the committed saved programs (``tests/torch_programs/``)
-    with seeded weights, loaded by the port's ``fluid.io.
+    with seeded weights, written under ``root`` (one directory each,
+    which phase 23 serves), loaded by the port's ``fluid.io.
     load_inference_model`` onto ``CUDAPlace(0)`` and run by its
     ``Executor`` at full width: the fetches finite and a classifier's not
     saturated, held against a ``CPUPlace()`` executor on the same
     directory and, for the Transformer and the LSTM, against the port's
     nn.Module; the kernels' launches counted over one run; a tampered
-    ``.npy`` refused; host p50 and device busy beside the module path's.
-    ``batches`` overrides ``EXEC_BATCH`` (the CPU rehearsal)."""
+    copy of a ``.npy`` refused; host p50 and device busy beside the
+    module path's. ``batches`` overrides ``EXEC_BATCH`` (the CPU
+    rehearsal)."""
     import shutil
-    import tempfile
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.fluid import sharded_io
     batches = dict(EXEC_BATCH if batches is None else batches)
@@ -6163,116 +6195,605 @@ def executor_phase(torch, dev, card, batches=None):
                              "fused_ce.fused_ce_fwd": 1},
         "stacked_dynamic_lstm": {"fused_rnn.lstm_train_fwd":
                                  LSTM["stacked_num"]}}
-    root = tempfile.mkdtemp(prefix="chip_smoke_exec_")
     out = {}
-    try:
-        for i, (name, batch) in enumerate(batches.items()):
-            t_prog = time.perf_counter()
-            d, arrays = exec_dir(torch, name, root)
-            exe = fluid.Executor(fluid.CUDAPlace(0))
-            scope = fluid.Scope()
-            prog, feed_names, fetch = fluid.io.load_inference_model(
-                d, exe, scope=scope)
-            feeds = exec_feeds(name, batch, 60 + i)
-            if sorted(feeds) != sorted(feed_names):
-                fail(f"{name}: feeds {sorted(feeds)}, the program wants "
-                     f"{feed_names}")
+    for i, (name, batch) in enumerate(batches.items()):
+        t_prog = time.perf_counter()
+        d, arrays = exec_dir(torch, name, root)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        prog, feed_names, fetch = fluid.io.load_inference_model(
+            d, exe, scope=scope)
+        feeds = exec_feeds(name, batch, 60 + i)
+        if sorted(feeds) != sorted(feed_names):
+            fail(f"{name}: feeds {sorted(feeds)}, the program wants "
+                 f"{feed_names}")
 
-            def run(f=feeds):
-                return exe.run(prog, feed=f, fetch_list=fetch, scope=scope)
-            run()                                  # first use
-            torch.cuda.synchronize()
-            reset_all_launches()
-            got = run()[0]
-            launched = {k: n for k, n in all_launches().items() if n}
-            want = want_launches.get(name, {})
-            if launched != want:
-                fail(f"{name}: one Executor.run launched {launched}, "
-                     f"want {want}")
-            if not np.isfinite(got).all():
-                fail(f"{name}: non-finite fetch")
-            stats = {"batch": batch, "ops": len(prog.global_block().ops),
-                     "persistables": len(arrays), "fetch": fetch,
-                     "fetch_shape": list(got.shape), "launches": launched}
-            if got.ndim == 2 and got.shape[1] > 1:     # class probabilities
-                top = float(got.max(1).mean())
-                stats["mean_top_prob"] = top
-                if not top < EXEC_TOP_PROB:
-                    fail(f"{name}: mean top probability {top} saturates")
-            # (c) the same directory on a CPUPlace executor
-            cexe = fluid.Executor(fluid.CPUPlace())
-            cscope = fluid.Scope()
-            cprog, _, _ = fluid.io.load_inference_model(d, cexe,
-                                                        scope=cscope)
-            if name == "transformer_base":
-                small = {k: v[:EXEC_CPU_TF_BATCH] for k, v in feeds.items()}
-                card_v = run(small)[0]
-                cpu_v = cexe.run(cprog, feed=small, fetch_list=fetch,
-                                 scope=cscope)[0]
-            else:
-                small = {k: v[:EXEC_CPU_ROWS] for k, v in feeds.items()}
-                card_v = got[:EXEC_CPU_ROWS]
-                cpu_v = cexe.run(cprog, feed=small, fetch_list=fetch,
-                                 scope=cscope)[0]
-            err = float(np.abs(card_v - cpu_v).max())
-            if not np.allclose(card_v, cpu_v, **EXEC_CPU_TOL):
-                fail(f"{name}: the card's fetch differs from the CPU's by "
-                     f"{err} (tolerance {EXEC_CPU_TOL})")
-            stats["cpu_max_abs_err"] = err
-            del cexe, cscope, cprog
-            # (g) host p50 and device busy of Executor.run
-            ms, prof = exec_time(torch, run)
-            stats["run_ms"] = ms
-            stats["run_p50_ms"] = float(np.median(ms))
-            stats["profile"] = prof
-            line = (f"[{card}] executor {name} at batch {batch}: "
-                    f"Executor.run p50 {stats['run_p50_ms']:.3f} ms, device "
-                    f"busy {prof['device_busy_ms_per_step']:.3f} ms, idle "
-                    f"{prof['idle_share']:.3f}, "
-                    f"{prof['launches_per_step']:.0f} launches a run; card "
-                    f"against CPU max abs {err:.3g}")
-            # (d) the nn.Module on the same arrays and feeds
-            if name in want_launches:
-                module = exec_module(torch, dev, name, arrays)
-                mod_v = module(feeds).float().cpu().numpy()
-                merr = float(np.abs(mod_v - got).max())
-                if not np.allclose(got, mod_v, **EXEC_MODULE_TOL):
-                    fail(f"{name}: the executor's fetch differs from the "
-                         f"nn.Module's by {merr} (tolerance "
-                         f"{EXEC_MODULE_TOL})")
-                mms, mprof = exec_time(torch, lambda: module(feeds).cpu())
-                stats["module"] = {"max_abs_err": merr, "run_ms": mms,
-                                   "run_p50_ms": float(np.median(mms)),
-                                   "profile": mprof}
-                line += (f"; the nn.Module p50 "
-                         f"{stats['module']['run_p50_ms']:.3f} ms, busy "
-                         f"{mprof['device_busy_ms_per_step']:.3f} ms, "
-                         f"{mprof['launches_per_step']:.0f} launches "
-                         f"(max abs {merr:.3g} from the executor's)")
-                del module
-            print(line + f"; {time.perf_counter() - t_prog:.1f} s")
-            out[name] = stats
-            del exe, scope, prog
-            torch.cuda.empty_cache()
-        # (f) a tampered .npy is refused
-        d = os.path.join(root, next(iter(batches)))
-        npy = sorted(f for f in os.listdir(d) if f.endswith(".npy"))[0]
-        with open(os.path.join(d, npy), "r+b") as f:
-            f.seek(-4, 2)
-            f.write(b"\x00\x01\x02\x03")
-        before = sharded_io.CKPT_CRC_FAILURES.value
-        try:
-            fluid.io.load_inference_model(d, fluid.Executor(
-                fluid.CUDAPlace(0)), scope=fluid.Scope())
-        except sharded_io.ChecksumError:
-            pass
+        def run(f=feeds):
+            return exe.run(prog, feed=f, fetch_list=fetch, scope=scope)
+        run()                                  # first use
+        torch.cuda.synchronize()
+        reset_all_launches()
+        got = run()[0]
+        launched = {k: n for k, n in all_launches().items() if n}
+        want = want_launches.get(name, {})
+        if launched != want:
+            fail(f"{name}: one Executor.run launched {launched}, "
+                 f"want {want}")
+        if not np.isfinite(got).all():
+            fail(f"{name}: non-finite fetch")
+        stats = {"batch": batch, "ops": len(prog.global_block().ops),
+                 "persistables": len(arrays), "fetch": fetch,
+                 "fetch_shape": list(got.shape), "launches": launched}
+        if got.ndim == 2 and got.shape[1] > 1:     # class probabilities
+            top = float(got.max(1).mean())
+            stats["mean_top_prob"] = top
+            if not top < EXEC_TOP_PROB:
+                fail(f"{name}: mean top probability {top} saturates")
+        # (c) the same directory on a CPUPlace executor
+        cexe = fluid.Executor(fluid.CPUPlace())
+        cscope = fluid.Scope()
+        cprog, _, _ = fluid.io.load_inference_model(d, cexe,
+                                                    scope=cscope)
+        if name == "transformer_base":
+            small = {k: v[:EXEC_CPU_TF_BATCH] for k, v in feeds.items()}
+            card_v = run(small)[0]
+            cpu_v = cexe.run(cprog, feed=small, fetch_list=fetch,
+                             scope=cscope)[0]
         else:
-            fail(f"a tampered {npy} loaded without a ChecksumError")
-        if sharded_io.CKPT_CRC_FAILURES.value != before + 1:
-            fail("the tampered file did not count one CRC failure")
-        out["tampered"] = {"file": npy, "crc_failures": 1}
+            small = {k: v[:EXEC_CPU_ROWS] for k, v in feeds.items()}
+            card_v = got[:EXEC_CPU_ROWS]
+            cpu_v = cexe.run(cprog, feed=small, fetch_list=fetch,
+                             scope=cscope)[0]
+        err = float(np.abs(card_v - cpu_v).max())
+        if not np.allclose(card_v, cpu_v, **EXEC_CPU_TOL):
+            fail(f"{name}: the card's fetch differs from the CPU's by "
+                 f"{err} (tolerance {EXEC_CPU_TOL})")
+        stats["cpu_max_abs_err"] = err
+        del cexe, cscope, cprog
+        # (g) host p50 and device busy of Executor.run
+        ms, prof = exec_time(torch, run)
+        stats["run_ms"] = ms
+        stats["run_p50_ms"] = float(np.median(ms))
+        stats["profile"] = prof
+        line = (f"[{card}] executor {name} at batch {batch}: "
+                f"Executor.run p50 {stats['run_p50_ms']:.3f} ms, device "
+                f"busy {prof['device_busy_ms_per_step']:.3f} ms, idle "
+                f"{prof['idle_share']:.3f}, "
+                f"{prof['launches_per_step']:.0f} launches a run; card "
+                f"against CPU max abs {err:.3g}")
+        # (d) the nn.Module on the same arrays and feeds
+        if name in want_launches:
+            module = exec_module(torch, dev, name, arrays)
+            mod_v = module(feeds).float().cpu().numpy()
+            merr = float(np.abs(mod_v - got).max())
+            if not np.allclose(got, mod_v, **EXEC_MODULE_TOL):
+                fail(f"{name}: the executor's fetch differs from the "
+                     f"nn.Module's by {merr} (tolerance "
+                     f"{EXEC_MODULE_TOL})")
+            mms, mprof = exec_time(torch, lambda: module(feeds).cpu())
+            stats["module"] = {"max_abs_err": merr, "run_ms": mms,
+                               "run_p50_ms": float(np.median(mms)),
+                               "profile": mprof}
+            line += (f"; the nn.Module p50 "
+                     f"{stats['module']['run_p50_ms']:.3f} ms, busy "
+                     f"{mprof['device_busy_ms_per_step']:.3f} ms, "
+                     f"{mprof['launches_per_step']:.0f} launches "
+                     f"(max abs {merr:.3g} from the executor's)")
+            del module
+        print(line + f"; {time.perf_counter() - t_prog:.1f} s")
+        out[name] = stats
+        del exe, scope, prog
+        torch.cuda.empty_cache()
+    # (f) a tampered .npy (in a copy: phase 23 serves the original)
+    # is refused
+    d = os.path.join(root, "tampered")
+    shutil.copytree(os.path.join(root, next(iter(batches))), d)
+    npy = sorted(f for f in os.listdir(d) if f.endswith(".npy"))[0]
+    with open(os.path.join(d, npy), "r+b") as f:
+        f.seek(-4, 2)
+        f.write(b"\x00\x01\x02\x03")
+    before = sharded_io.CKPT_CRC_FAILURES.value
+    try:
+        fluid.io.load_inference_model(d, fluid.Executor(
+            fluid.CUDAPlace(0)), scope=fluid.Scope())
+    except sharded_io.ChecksumError:
+        pass
+    else:
+        fail(f"a tampered {npy} loaded without a ChecksumError")
+    if sharded_io.CKPT_CRC_FAILURES.value != before + 1:
+        fail("the tampered file did not count one CRC failure")
+    out["tampered"] = {"file": npy, "crc_failures": 1}
+    shutil.rmtree(d)
+    return out
+
+
+# -- phase 23: saved models served through the predictor ---------------------
+
+# the op types of each program after the predictor's default passes (the
+# JAX predictor's, op for op: tests/test_torch_predictor.py)
+SAVED_OPS = {
+    "resnet50": {"conv2d_fusion": 53, "pool2d": 2, "fc": 1, "softmax": 1},
+    "transformer_base": {"reshape": 2, "lookup_table": 2, "scale": 2,
+                         "elementwise_add": 32, "layer_norm": 32,
+                         "fused_attention_block": 18, "fc": 24,
+                         "fused_linear_ce": 1, "mean": 1},
+    "stacked_dynamic_lstm": {"lookup_table": 1, "fc": 1, "dynamic_lstm": 3,
+                             "mul": 6, "sum": 3, "elementwise_add": 3,
+                             "sequence_pool": 2, "softmax": 1},
+    "deepfm": {"lookup_table": 1, "slice": 2, "reduce_sum": 4, "square": 2,
+               "elementwise_sub": 1, "scale": 1, "reshape": 1, "fc": 4,
+               "elementwise_add": 2, "sigmoid": 1},
+    "mnist": {"conv2d_fusion": 2, "pool2d": 2, "fc": 1, "softmax": 1},
+}
+# the kernels of one predictor run (one served dispatch): rows 1 and 4,
+# row 6; none elsewhere
+SAVED_PER_RUN = {
+    "transformer_base": {"flash_attention.flash_fwd": 3 * TRAIN["n_layer"],
+                         "fused_ce.fused_ce_fwd": 1},
+    "stacked_dynamic_lstm": {"fused_rnn.lstm_train_fwd": LSTM["stacked_num"]}}
+# the tiny pass programs of tests/torch_programs/: fused op, the kernels of
+# one run (rows 6, 8 and 11)
+SAVED_PASS_PROGRAMS = {
+    "fc_lstm_tiny": ("fusion_lstm", {"fused_rnn.lstm_train_fwd": 1}),
+    "fc_gru_tiny": ("fusion_gru", {"fused_rnn.gru_train_fwd": 1}),
+    "seqpool_concat_tiny": ("fusion_seqpool_concat", {"seqpool.seqpool": 2})}
+SAVED_PASS_BATCH = 64
+SAVED_LADDER = (1, 2, 4, 8, 16, 32)
+SAVED_LADDERS = {"transformer_base": (1, 2, 4, 8)}
+# request sizes each client sends (ResNet-50's 224 px rows are 600 KB a
+# row on the wire: smaller requests)
+SAVED_SIZES = {"resnet50": (1, 2, 4, 8), "transformer_base": (1, 2, 3, 5, 8)}
+SAVED_DEFAULT_SIZES = (1, 2, 3, 5, 8, 13, 21, 32)
+SAVED_CLIENTS = 8
+SAVED_TURNS = 2                    # traffic turns a model: the spread
+SAVED_PROFILE_WAVES = 4            # dispatches in the scheduler's window
+SAVED_EXEC_BATCHES = (1, 8, 32)
+SAVED_REPLICA = "stacked_dynamic_lstm"
+SAVED_REPLICA_SIZES = (1, 5, 32)
+SAVED_REPLICA_DEVICE = "cuda"
+# the predictor against the unrewritten executor: the passes fold each
+# batch norm into its conv (conv(x, alpha W) + shift against
+# bn(conv(x, W))) and an fc adds its bias in another grouping, so the fp32
+# sums are regrouped; TF32 is off (main), so the difference is fp32
+# rounding over ResNet-50's 53 layers, as the CPU's is in phase 22
+SAVED_FOLD_TOL = EXEC_CPU_TOL
+# one predictor against another on the same rows at another batch size
+# (another GEMM or conv algorithm) or the same one: fp32 rounding only
+SAVED_ROW_TOL = EXEC_MODULE_TOL
+
+
+def saved_feeds(name, n, seed):
+    """``exec_feeds`` of ``name`` at ``n`` rows; the pass programs' x, a,
+    b [n, 8, 16] N(0, 1) and lengths 0..8."""
+    if name not in SAVED_PASS_PROGRAMS:
+        return exec_feeds(name, n, seed)
+    rng = np.random.RandomState(seed)
+    keys = ("a", "b") if name == "seqpool_concat_tiny" else ("x",)
+    f = {k: rng.standard_normal((n, 8, 16)).astype(np.float32)
+         for k in keys}
+    f["sl"] = rng.randint(0, 9, n).astype(np.int32)
+    return f
+
+
+class InferRecorder:
+    """Wraps a hosted ``ServedModel``'s ``infer`` (the server calls it on
+    its scheduler thread): records each wave's merged feeds and outputs,
+    and opens a profiler window on that thread over the ``profile``
+    dispatches after ``skip``."""
+
+    def __init__(self, engine, profile=0, skip=0):
+        self.engine, self.infer = engine, engine.infer
+        self.waves, self.profile, self.skip = [], profile, skip
+        self.prof = self.window_ms = None
+
+    def __call__(self, feeds):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        k = len(self.waves)
+        if self.profile and k == self.skip:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        outs = self.infer(feeds)
+        self.waves.append(({n: np.array(v) for n, v in feeds.items()},
+                           [np.array(o) for o in outs]))
+        if self.profile and k == self.skip + self.profile - 1:
+            torch.cuda.synchronize()
+            self.window_ms = (time.perf_counter() - self.t0) * 1e3
+            self.prof.__exit__(None, None, None)
+        return outs
+
+
+def saved_traffic(endpoint, model, program, sizes, seed,
+                  clients=SAVED_CLIENTS):
+    """Each of ``clients`` threads (its own ``ServingClient``) sends
+    model ``model`` one request of ``program``'s feeds at every size in
+    ``sizes``, in its own order. Returns ([(feeds, outputs, latency s)],
+    wall s)."""
+    import threading
+    from paddle_tpu_torch.serving.client import ServingClient
+    results, errors, lock = [], [], threading.Lock()
+
+    def worker(c):
+        client = ServingClient(endpoint)
+        rng = np.random.RandomState(seed + c)
+        try:
+            for j in rng.permutation(len(sizes)):
+                feeds = saved_feeds(program, sizes[j],
+                                    seed * 1000 + c * 50 + j)
+                t = time.perf_counter()
+                outs = client.infer(model, feeds)
+                with lock:
+                    results.append((feeds, outs, time.perf_counter() - t))
+        except BaseException as e:          # noqa: BLE001 - re-raised below
+            errors.append(e)
+        finally:
+            client.close()
+    threads = [threading.Thread(target=worker, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def wave_of(waves, feeds):
+    """(index, first row) of the recorded wave whose merged feeds hold
+    ``feeds``' rows as a block."""
+    key = next(iter(feeds))
+    rows = np.asarray(feeds[key])
+    n = len(rows)
+    for w, (merged, _) in enumerate(waves):
+        m = merged[key]
+        for r in range(len(m) - n + 1):
+            if np.array_equal(m[r:r + n], rows) and all(
+                    np.array_equal(merged[k][r:r + n], v)
+                    for k, v in feeds.items()):
+                return w, r
+    fail(f"no recorded wave holds a request's rows ({key} {rows.shape})")
+
+
+def saved_check_traffic(name, predictor, policy, results, waves):
+    """Every wave's outputs equal the predictor at its padded shape;
+    every request's result is its rows of its wave (a scalar fetch: the
+    wave's); a row-wise request also the predictor on its own rows.
+    Returns the max abs differences and bit-equal counts."""
+    from paddle_tpu_torch.serving import bucketing
+    wave_err, wave_equal = 0.0, 0
+    for merged, outs in waves:
+        n = len(merged[next(iter(merged))])
+        padded, _ = bucketing.pad_to_bucket(merged, policy.bucket_for(n),
+                                            batch_names=list(merged))
+        want = bucketing.slice_outputs(predictor.run(padded), n)
+        for o, w in zip(outs, want):
+            if o.shape != w.shape or not np.allclose(o, w, **SAVED_ROW_TOL):
+                fail(f"saved {name}: a wave of {n} rows served "
+                     f"{o.ravel()[:4]}, the predictor at its padded shape "
+                     f"{w.ravel()[:4]}")
+            wave_err = max(wave_err, float(np.abs(o - w).max()))
+            wave_equal += int(np.array_equal(o, w))
+    own_err, scalar = 0.0, None
+    for feeds, outs, _ in results:
+        w, r = wave_of(waves, feeds)
+        n = len(feeds[next(iter(feeds))])
+        for o, wo in zip(outs, waves[w][1]):
+            # the wire carries a scalar as [1] (encode_array's
+            # ascontiguousarray, as the reference's)
+            part = wo.reshape(1) if wo.ndim == 0 else wo[r:r + n]
+            if not np.array_equal(o, part):
+                fail(f"saved {name}: a request's result {o.ravel()[:4]} is "
+                     f"not its rows of its wave {part.ravel()[:4]}")
+        if waves[w][1][0].ndim == 0:
+            scalar = "the wave's batch-mean loss (padding included)"
+            continue
+        alone = predictor.run(feeds)
+        for o, a in zip(outs, alone):
+            if not np.allclose(o, a, **SAVED_ROW_TOL):
+                fail(f"saved {name}: a request of {n} rows served "
+                     f"{o.ravel()[:4]}, the predictor on its rows "
+                     f"{a.ravel()[:4]}")
+            own_err = max(own_err, float(np.abs(o - a).max()))
+    return {"wave_max_abs_err": wave_err, "waves_bit_equal": wave_equal,
+            "own_rows_max_abs_err": None if scalar else own_err,
+            "scalar_fetch": scalar}
+
+
+def saved_turn(name, engine, predictor, endpoint, sizes, seed):
+    """One turn of ``saved_traffic`` to a hosted ``ServedModel``: its
+    waves recorded, the launch counters zeroed before and read after
+    (exactly ``SAVED_PER_RUN`` a dispatch), the results checked
+    (``saved_check_traffic``). Returns the turn's numbers."""
+    from paddle_tpu_torch.serving import metrics as smetrics
+    rec = engine.infer = InferRecorder(engine)
+    lat0 = smetrics.REQUEST_LATENCY.labels(model=engine.name).snapshot()[2]
+    reset_all_launches()
+    try:
+        results, wall = saved_traffic(endpoint, engine.name, name, sizes,
+                                      seed)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        del engine.infer
+    launched = {k: n for k, n in all_launches().items() if n}
+    dispatches = len(rec.waves)
+    want = {k: n * dispatches for k, n in SAVED_PER_RUN.get(name, {}).items()}
+    if launched != want:
+        fail(f"saved {name}: {dispatches} served dispatches launched "
+             f"{launched}, want {want}")
+    lat = sorted(r[2] for r in results)
+    rows = sum(len(r[0][next(iter(r[0]))]) for r in results)
+    return {"requests": len(results), "rows": rows, "wall_s": wall,
+            "dispatches": dispatches, "launches": launched,
+            "requests_per_s": len(results) / wall, "rows_per_s": rows / wall,
+            "client_p50_s": float(np.percentile(lat, 50)),
+            "client_p99_s": float(np.percentile(lat, 99)),
+            "wire_count": smetrics.REQUEST_LATENCY.labels(
+                model=engine.name).snapshot()[2] - lat0,
+            **saved_check_traffic(name, predictor, engine.policy, results,
+                                  rec.waves)}
+
+
+def saved_phase(torch, dev, card, root, batches=None):
+    """Phase 23 (module docstring): phase 22's saved directories under
+    ``root`` through the predictor, behind one server, and as a replica.
+    ``batches`` overrides ``EXEC_BATCH`` (the CPU rehearsal)."""
+    import collections
+    import shutil
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import AnalysisConfig, PaddlePredictor
+    from paddle_tpu_torch.serving import metrics as smetrics
+    from paddle_tpu_torch.serving.bucketing import BucketPolicy
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.engine import ServedModel
+    from paddle_tpu_torch.serving.router import Router
+    from paddle_tpu_torch.serving.server import ModelServer
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        fail("saved models: TF32 must be off (process-wide) before the "
+             "server's scheduler threads start")
+    batches = dict(EXEC_BATCH if batches is None else batches)
+    t_phase = time.perf_counter()
+    out = {"predictor": {}, "served": {}, "executor_batches": {}}
+
+    def cpu_config(d):
+        cfg = AnalysisConfig(model_dir=d)
+        cfg.disable_gpu()
+        return cfg
+
+    def one_run(pred, feeds, want, label):
+        reset_all_launches()
+        got = pred.run(feeds)
+        launched = {k: n for k, n in all_launches().items() if n}
+        if launched != want:
+            fail(f"{label}: one predictor run launched {launched}, want "
+                 f"{want}")
+        return got, launched
+
+    # (a) the predictor, the five programs and the three pass programs
+    predictors = {}
+    for i, (name, batch) in enumerate(batches.items()):
+        d = os.path.join(root, name)
+        pred = PaddlePredictor(AnalysisConfig(model_dir=d))
+        if pred.device.type != dev.type:
+            fail(f"{name}: the default predictor runs on {pred.device}")
+        ops = dict(collections.Counter(
+            op.type for op in pred._program.desc.global_block.ops))
+        if ops != SAVED_OPS[name]:
+            fail(f"{name}: the passes left {ops}, want {SAVED_OPS[name]}")
+        feeds = exec_feeds(name, batch, 60 + i)       # phase 22's feeds
+        pred.run(feeds)                               # first use
+        got, launched = one_run(pred, feeds, SAVED_PER_RUN.get(name, {}),
+                                name)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        prog, _, fetch = fluid.io.load_inference_model(d, exe, scope=scope)
+        want = exe.run(prog, feed=feeds, fetch_list=fetch, scope=scope)
+        del exe, scope, prog
+        err = float(np.abs(got[0] - want[0]).max())
+        if not np.allclose(got[0], want[0], **SAVED_FOLD_TOL):
+            fail(f"{name}: the predictor's fetch differs from the "
+                 f"unrewritten executor's by {err} (tolerance "
+                 f"{SAVED_FOLD_TOL})")
+        rows = (EXEC_CPU_TF_BATCH if name == "transformer_base"
+                else EXEC_CPU_ROWS)
+        small = {k: v[:rows] for k, v in feeds.items()}
+        cpu = PaddlePredictor(cpu_config(d))
+        card_v, cpu_v = pred.run(small)[0], cpu.run(small)[0]
+        del cpu
+        cerr = float(np.abs(card_v - cpu_v).max())
+        if not np.allclose(card_v, cpu_v, **EXEC_CPU_TOL):
+            fail(f"{name}: the card's predictor differs from the CPU's by "
+                 f"{cerr} (tolerance {EXEC_CPU_TOL})")
+        predictors[name] = pred
+        out["predictor"][name] = {
+            "batch": batch, "ops": ops, "launches": launched,
+            "executor_max_abs_err": err, "cpu_max_abs_err": cerr}
+        print(f"[{card}] predictor {name} at batch {batch}: ops {ops}; "
+              f"one run launched {launched}; against the unrewritten "
+              f"executor max abs {err:.3g}, against the CPU predictor "
+              f"{cerr:.3g}")
+    for i, (name, (fused, want_run)) in enumerate(
+            SAVED_PASS_PROGRAMS.items()):
+        d, _ = exec_dir(torch, name, root)
+        pred = PaddlePredictor(AnalysisConfig(model_dir=d))
+        types = [op.type for op in pred._program.desc.global_block.ops]
+        if types != [fused]:
+            fail(f"{name}: the passes left {types}, want [{fused!r}]")
+        feeds = saved_feeds(name, SAVED_PASS_BATCH, 70 + i)
+        pred.run(feeds)
+        got, launched = one_run(pred, feeds, want_run, name)
+        ref = PaddlePredictor(cpu_config(d)).run(feeds)[0]
+        err = float(np.abs(got[0] - ref).max())
+        if not np.allclose(got[0], ref, **EXEC_CPU_TOL):
+            fail(f"{name}: the card's {fused} differs from the CPU's by "
+                 f"{err}")
+        out["predictor"][name] = {"batch": SAVED_PASS_BATCH, "ops": types,
+                                  "launches": launched,
+                                  "cpu_max_abs_err": err}
+        print(f"[{card}] predictor {name} at batch {SAVED_PASS_BATCH}: "
+              f"{types}, one run launched {launched}; against the CPU "
+              f"max abs {err:.3g}")
+
+    # (b) + (c) + (e) one server, each model's traffic in turn
+    server = ModelServer()
+    engines = {}
+    t = time.perf_counter()
+    for name in batches:
+        policy = BucketPolicy(SAVED_LADDERS.get(name, SAVED_LADDER))
+        engines[name] = ServedModel(f"saved_{name}", os.path.join(root, name),
+                                    policy)
+        server.add_model(engines[name])
+    out["warmup_s"] = time.perf_counter() - t
+    endpoint = server.serve(host="127.0.0.1", port=0)
+    print(f"[{card}] saved models: {len(engines)} ServedModels hosted "
+          f"(warmup {out['warmup_s']:.1f} s) at {endpoint}")
+    try:
+        for m, (name, engine) in enumerate(engines.items()):
+            sizes = SAVED_SIZES.get(name, SAVED_DEFAULT_SIZES)
+            turns = [saved_turn(name, engine, predictors[name], endpoint,
+                                sizes, 80 + 10 * t + m)
+                     for t in range(SAVED_TURNS)]
+            launched = {k: sum(t["launches"].get(k, 0) for t in turns)
+                        for k in turns[0]["launches"]}
+            stats = {"sizes": list(sizes), "turns": turns,
+                     "launches": launched,
+                     "wire_p50_s": smetrics.histogram_percentile(
+                         smetrics.REQUEST_LATENCY, 0.5, model=engine.name),
+                     "wire_p99_s": smetrics.histogram_percentile(
+                         smetrics.REQUEST_LATENCY, 0.99, model=engine.name)}
+            # the profiled round: requests of half the largest bucket
+            half = max(1, engine.policy.max_batch // 2)
+            rec = engine.infer = InferRecorder(engine, SAVED_PROFILE_WAVES)
+            try:
+                saved_traffic(endpoint, engine.name, name, (half, half),
+                              90 + m)
+            finally:
+                del engine.infer
+            if rec.window_ms is None:
+                fail(f"saved {name}: the profiled round ran "
+                     f"{len(rec.waves)} dispatches, fewer than "
+                     f"{SAVED_PROFILE_WAVES}")
+            kernels = [ev for ev in rec.prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and ev.self_device_time_total > 0]
+            busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+            stats["profile"] = {
+                "dispatches": SAVED_PROFILE_WAVES,
+                "rows_per_dispatch": [len(w[0][next(iter(w[0]))])
+                                      for w in rec.waves[:SAVED_PROFILE_WAVES]],
+                "device_busy_ms_per_dispatch": busy_ms / SAVED_PROFILE_WAVES,
+                "host_ms_per_dispatch": rec.window_ms / SAVED_PROFILE_WAVES,
+                "idle_share": 1.0 - busy_ms / rec.window_ms,
+                "launches_per_dispatch": sum(ev.count for ev in kernels)
+                / SAVED_PROFILE_WAVES}
+            out["served"][name] = stats
+            p = stats["profile"]
+            print(f"[{card}] served {name}: {SAVED_TURNS} turns of "
+                  f"{turns[0]['requests']} requests ({turns[0]['rows']} "
+                  f"rows, sizes {list(sizes)}) from {SAVED_CLIENTS} "
+                  f"clients: "
+                  + "; ".join(
+                      f"{t['requests_per_s']:.1f} requests/s, "
+                      f"{t['rows_per_s']:.1f} rows/s, {t['dispatches']} "
+                      f"dispatches, client p50 / p99 "
+                      f"{t['client_p50_s'] * 1e3:.2f} / "
+                      f"{t['client_p99_s'] * 1e3:.2f} ms" for t in turns)
+                  + f"; launches {launched}; the server's histogram "
+                  f"(bucket bounds) p50 / p99 {stats['wire_p50_s']} / "
+                  f"{stats['wire_p99_s']} s; every wave equals the "
+                  f"predictor at its padded shape (max abs "
+                  f"{max(t['wave_max_abs_err'] for t in turns):.3g}, "
+                  f"{sum(t['waves_bit_equal'] for t in turns)} of "
+                  f"{sum(t['dispatches'] for t in turns)} bit-equal), every "
+                  f"request its wave's rows"
+                  + (f", and the predictor on its own rows (max abs "
+                     f"{max(t['own_rows_max_abs_err'] for t in turns):.3g})"
+                     if turns[0]["scalar_fetch"] is None else
+                     f" ({turns[0]['scalar_fetch']})")
+                  + f"; scheduler-thread window of {SAVED_PROFILE_WAVES} "
+                  f"dispatches of {p['rows_per_dispatch']} rows: device busy "
+                  f"{p['device_busy_ms_per_dispatch']:.3f} ms, host "
+                  f"{p['host_ms_per_dispatch']:.3f} ms a dispatch, idle "
+                  f"{p['idle_share']:.3f}, "
+                  f"{p['launches_per_dispatch']:.0f} launches")
+
+        # (e) PaddlePredictor.run host p50 against device busy by batch
+        for name in ("transformer_base", "resnet50"):
+            if name not in predictors:
+                continue
+            # and phase 22's batch: the passes against the plain executor
+            for b in sorted({*SAVED_EXEC_BATCHES, batches[name]}):
+                f = exec_feeds(name, b, 95 + b)
+                pred = predictors[name]
+                pred.run(f)
+                ms, prof = exec_time(torch, lambda: pred.run(f))
+                row = {"run_p50_ms": float(np.median(ms)), "run_ms": ms,
+                       "device_busy_ms": prof["device_busy_ms_per_step"],
+                       "idle_share": prof["idle_share"],
+                       "launches": prof["launches_per_step"]}
+                out["executor_batches"][f"{name}/{b}"] = row
+                print(f"[{card}] predictor {name} at batch {b}: run p50 "
+                      f"{row['run_p50_ms']:.3f} ms, device busy "
+                      f"{row['device_busy_ms']:.3f} ms, idle "
+                      f"{row['idle_share']:.3f}, {row['launches']:.0f} "
+                      f"launches")
+
+        # (d) one saved replica of the LSTM behind the port's Router
+        work = os.path.join(root, "replica")
+        spec = {"model": {"kind": "saved", "name": f"saved_{SAVED_REPLICA}",
+                          "model_dir": os.path.join(root, SAVED_REPLICA),
+                          "buckets": list(SAVED_LADDER),
+                          "device": SAVED_REPLICA_DEVICE}}
+        router = Router(spec=spec, replicas=1, workdir=work,
+                        ready_timeout_s=FLEET_DEADLINE_S)
+        t0 = time.perf_counter()
+        router.start()
+        try:
+            if not router.wait_ready(timeout_s=FLEET_DEADLINE_S):
+                fail(f"saved replica: never passed readyz: "
+                     f"{router.stats()}")
+            spawn_s = time.perf_counter() - t0
+            proc = router._replicas[0].proc
+            via_router = ServingClient(router.serve())
+            direct = ServingClient(endpoint)
+            errs, equal = [], 0
+            try:
+                for j, n in enumerate(SAVED_REPLICA_SIZES):
+                    f = exec_feeds(SAVED_REPLICA, n, 99 + j)
+                    got = via_router.infer(spec["model"]["name"], f)[0]
+                    ref = direct.infer(spec["model"]["name"], f)[0]
+                    if not np.allclose(got, ref, **SAVED_ROW_TOL):
+                        fail(f"saved replica: {n} rows through the router "
+                             f"differ from the in-process server's")
+                    errs.append(float(np.abs(got - ref).max()))
+                    equal += int(np.array_equal(got, ref))
+            finally:
+                via_router.close()
+                direct.close()
+        finally:
+            router.stop()
+        code = proc.wait(timeout=60)
+        if code != 0:
+            fail(f"saved replica: exited {code} after the router's stop, "
+                 f"want a clean drain (0)")
+        out["replica"] = {"spawn_to_ready_s": spawn_s,
+                          "sizes": list(SAVED_REPLICA_SIZES),
+                          "max_abs_err": max(errs), "bit_equal": equal,
+                          "exit_code": code}
+        print(f"[{card}] saved replica of {SAVED_REPLICA}: spawn to readyz "
+              f"{spawn_s:.2f} s; {len(errs)} requests through the router "
+              f"equal the in-process server's (max abs {max(errs):.3g}, "
+              f"{equal} bit-equal); drained and exited {code}")
+    finally:
+        server.stop()
+        shutil.rmtree(os.path.join(root, "replica"), ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 23 (saved models) took {out['phase_s']:.1f} s")
     return out
 
 
@@ -6328,9 +6849,29 @@ def main():
     server = server_phase(torch, dev, card, served, per_layer)
     fleet = fleet_phase(torch, dev, card, served, server)
     del served
-    executor = executor_phase(torch, dev, card)
+    import shutil
+    import tempfile
+    exec_root = tempfile.mkdtemp(prefix="chip_smoke_exec_")
+    try:
+        executor = executor_phase(torch, dev, card, exec_root)
+        saved = saved_phase(torch, dev, card, exec_root)
+    finally:
+        shutil.rmtree(exec_root, ignore_errors=True)
     exec_launches = {key: n for run in executor.values()
                      for key, n in run.get("launches", {}).items()}
+
+    def saved_launches(key):
+        """Phase 23's launches of ``key``: one predictor run of each
+        program, and the served traffic."""
+        return {"launches_predictor": {
+                    name: run["launches"][key]
+                    for name, run in saved["predictor"].items()
+                    if key in run["launches"]},
+                "launches_served": {
+                    name: run["launches"][key]
+                    for name, run in saved["served"].items()
+                    if key in run["launches"]}}
+
     for key in ("install", "write_back"):
         if fm_run[f"most_used_{key}_bucket"] != list(CACHE_BUCKET):
             fail(f"deepfm's most used {key} bucket (bucket, median rows) "
@@ -6392,6 +6933,7 @@ def main():
                 flash_launches[kname] // TRAIN_STEPS, "kernel": m["route"],
             "launches_executor": exec_launches.get(
                 f"flash_attention.{kname}", 0),
+            **saved_launches(f"flash_attention.{kname}"),
             "card": card,
             "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -6422,6 +6964,7 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "launches_per_train_step": 1,
             "launches_executor": exec_launches.get(f"fused_ce.{kname}", 0),
+            **saved_launches(f"fused_ce.{kname}"),
             "simt_bound_ms": m["simt_bound_ms"], "prep_ms": m["prep_ms"],
             "mixed": fce["mixed"],
             "bf16": {key: fce[f"{kname}/bf16"][key] for key in
@@ -6440,6 +6983,7 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "launches_per_train_step": lstm_per_step,
             "launches_executor": exec_launches.get(f"fused_rnn.{kname}", 0),
+            **saved_launches(f"fused_rnn.{kname}"),
             "us_per_step": m["us_per_step"],
             "dense_bound_ms": m["dense_bound_ms"], "card": card,
             **{k: m[k] for k in ("kernel", "tf32x3_bound_ms",
@@ -6458,6 +7002,7 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "launches_per_train_step": MT_GRU_PER_STEP,
             "launches_per_generate": gen_launches[f"fused_rnn.{kname}"],
+            **saved_launches(f"fused_rnn.{kname}"),
             "us_per_step": m["us_per_step"],
             "dense_bound_ms": m["dense_bound_ms"], "card": card,
             **{k: m[k] for k in ("kernel", "tf32x3_bound_ms",
@@ -6481,6 +7026,7 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
             "launches_per_train_step": per_step, "card": card,
+            **saved_launches(f"{path}.{kname}"),
             **{k: m[k] for k in ("rounds_ms", "warps", "faster_than_library",
                                  "kernel_device_ms", "library_device_ms",
                                  "device_ms", "modes_device_ms")
@@ -6525,6 +7071,7 @@ def main():
     print(json.dumps({"server": server, "card": card}))
     print(json.dumps({"fleet": fleet, "card": card}, default=str))
     print(json.dumps({"executor": executor, "card": card}, default=str))
+    print(json.dumps({"saved_models": saved, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -139,6 +139,10 @@ define("lock_witness", bool, False,
 define("check_nan_inf", bool, False,
        "Scan every fetch and updated state var for NaN/Inf after each "
        "executor run (reference: operator.cc FLAGS_check_nan_inf).")
+define("debug_graphviz_path", str, "",
+       "Where graph_viz_pass writes the graphviz dot source of the block "
+       "it sees (fluid/debugger.py draw_block_graphviz). Empty "
+       "(default): nothing is written.")
 define("benchmark", bool, False,
        "Print each executor run's wall time, the device synchronized "
        "(reference: FLAGS_benchmark executor timing).")

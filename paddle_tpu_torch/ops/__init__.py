@@ -4,4 +4,4 @@ package's numerics (``nn_ops``, ``rnn_ops``, ``sequence_ops``,
 ``metric_ops``), the hot-rows cache of a sharded table (``embed_cache``),
 and the kernels under ``ops/kernels``. The program executor's op emitters
 (``core/registry.py``) sit beside the functions they adapt, and in
-``basic`` and ``math_ops``."""
+``basic``, ``math_ops`` and ``misc_ops``."""

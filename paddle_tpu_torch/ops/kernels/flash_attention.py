@@ -558,13 +558,16 @@ def flash_attention(q, k, v, causal: bool = False,
     """q [B,H,Tq,D], k/v [B,H,Tk,D] -> [B,H,Tq,D]; ``scale`` defaults to
     D**-0.5, ``seed`` (an int32 value) keys the dropout mask. The
     [B*H,T,D] layout the kernels take is a copy when the inputs are not
-    contiguous in [B,H,T,D] (``reshape`` copies them)."""
+    contiguous in [B,H,T,D]: ``reshape`` copies them at B > 1 but returns
+    a strided view of a [1,T,H,D] transpose at B = 1, so ``contiguous``
+    copies that too."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if scale is None:
         scale = float(d) ** -0.5
-    o = FlashAttention.apply(q.reshape(b * h, tq, d),
-                             k.reshape(b * h, tk, d),
-                             v.reshape(b * h, tk, d), bool(causal),
-                             float(scale), float(dropout_p), int(seed))
+    o = FlashAttention.apply(q.reshape(b * h, tq, d).contiguous(),
+                             k.reshape(b * h, tk, d).contiguous(),
+                             v.reshape(b * h, tk, d).contiguous(),
+                             bool(causal), float(scale), float(dropout_p),
+                             int(seed))
     return o.view(b, h, tq, d)

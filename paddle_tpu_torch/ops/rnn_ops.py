@@ -24,8 +24,9 @@ plain versions on the CPU), and a reversed sequence or another activation
 to the step loop of ``:205-218``. The alignment and VMEM conditions
 (``:194-196``) are not carried over, as for the LSTM.
 
-The ``dynamic_lstm`` op of the program executor (``core/registry.py``) is
-a thin adapter onto :func:`dynamic_lstm`.
+The ``dynamic_lstm`` and ``dynamic_gru`` ops of the program executor
+(``core/registry.py``) are thin adapters onto :func:`dynamic_lstm` and
+:func:`dynamic_gru`.
 """
 
 from __future__ import annotations
@@ -179,3 +180,17 @@ def _dynamic_lstm_op(ctx, ins, attrs):
         attrs.get("candidate_activation", "tanh"))
     return {"Hidden": [hid], "Cell": [cell], "LastHidden": [h_last],
             "LastCell": [c_last]}
+
+
+@register_op("dynamic_gru", ref="operators/gru_op.cc; math/gru_compute.cc")
+def _dynamic_gru_op(ctx, ins, attrs):
+    """The op (``paddle_tpu/ops/rnn_ops.py:160``) over :func:`dynamic_gru`:
+    Input [B,T,3H], Weight [H,3H], optional Bias [1,3H], H0 and SeqLens
+    -> Hidden, LastHidden."""
+    hid, h_last = dynamic_gru(
+        first(ins, "Input"), first(ins, "Weight"), first(ins, "Bias"),
+        first(ins, "H0"), first(ins, "SeqLens"),
+        bool(attrs.get("is_reverse", False)),
+        attrs.get("gate_activation", "sigmoid"),
+        attrs.get("activation", "tanh"))
+    return {"Hidden": [hid], "LastHidden": [h_last]}

@@ -15,8 +15,9 @@ computation.
   window as shifted copies (im2col), one product with the filter
   (``torch.matmul``, as JAX leaves the einsum to XLA), the result masked.
 
-The ``sequence_pool`` op of the program executor (``core/registry.py``)
-is a thin adapter onto :func:`sequence_pool`.
+The ``sequence_pool`` and ``sequence_conv`` ops of the program executor
+(``core/registry.py``) are thin adapters onto :func:`sequence_pool` and
+:func:`sequence_conv`.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from paddle_tpu_torch.core.registry import first, register_op
+from paddle_tpu_torch.core.registry import first, register_op, single
 from paddle_tpu_torch.ops.kernels import seqpool as _seqpool
 
 POOL_TYPES = ("SUM", "AVERAGE", "SQRT", "MAX", "LAST", "FIRST")
@@ -127,3 +128,17 @@ def _sequence_pool_op(ctx, ins, attrs):
         out, idx = sequence_pool(x, lens, pooltype, return_max_index=True)
         return {"Out": [out], "MaxIndex": [idx]}
     return {"Out": [sequence_pool(x, lens, pooltype)]}
+
+
+@register_op("sequence_conv",
+             ref="operators/sequence_ops/sequence_conv_op.cc; "
+                 "math/context_project.h")
+def _sequence_conv_op(ctx, ins, attrs):
+    """The op (``paddle_tpu/ops/sequence_ops.py:152``) over
+    :func:`sequence_conv`: ``contextLength`` (3) and ``contextStart``
+    (:func:`default_context_start`)."""
+    ctx_len = int(attrs.get("contextLength", 3))
+    return single(sequence_conv(
+        first(ins, "X"), first(ins, "Filter"), first(ins, "SeqLens"),
+        ctx_len, int(attrs.get("contextStart",
+                               default_context_start(ctx_len)))))

@@ -18,9 +18,17 @@ Public surface::
     router.wait_ready()
     endpoint = router.serve()          # clients speak to it unchanged
 
+A saved inference model (``save_inference_model``'s directory) is served
+through the predictor's passes and the executor::
+
+    served = serving.ServedModel("clf", dirname,
+                                 serving.BucketPolicy((1, 2, 4, 8)))
+    server.add_model(served)           # warms every bucket
+    outs = client.infer("clf", {"img": x})
+
 Submodules import lazily (PEP 562), so ``paddle_tpu_torch.serving.
-metrics`` imports without the engines. Not here yet (they wait for
-their items): ``ServedModel`` and ``forbid_compiles``.
+metrics`` imports without the engines. Not here yet (it waits for its
+item, ROADMAP A6.8): ``forbid_compiles``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ _LAZY = {
     "BucketPolicy": ("paddle_tpu_torch.serving.bucketing", "BucketPolicy"),
     "FeedSignature": ("paddle_tpu_torch.serving.bucketing",
                       "FeedSignature"),
+    "ServedModel": ("paddle_tpu_torch.serving.engine", "ServedModel"),
     "GenerativeModel": ("paddle_tpu_torch.serving.engine",
                         "GenerativeModel"),
     "SlotGenerativeModel": ("paddle_tpu_torch.serving.engine",

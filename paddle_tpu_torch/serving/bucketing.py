@@ -1,6 +1,8 @@
 """Shape buckets (counterpart of ``paddle_tpu/serving/bucketing.py``
-and ``utils/padding.py``): the prompt-bucket ladder and the batch-bucket
-policy of the wave engine.
+and ``utils/padding.py``): the prompt-bucket ladder, the batch-bucket
+policy of the wave engine and ``ServedModel``, and the pad-and-slice of
+a feed dict (:func:`pad_to_bucket`, :func:`slice_outputs`), on the host
+in numpy.
 
 A prompt is right-padded to the smallest bucket that holds it, so
 mixed-length traffic pays for its bucket instead of the longest prompt;
@@ -13,7 +15,7 @@ model server coalesces only requests of one :class:`FeedSignature`.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -57,6 +59,50 @@ def pad_rows(arr, target: int) -> np.ndarray:
     if n == 0:
         raise ValueError("cannot pad an empty batch (no row to repeat)")
     return np.concatenate([arr, np.repeat(arr[-1:], target - n, axis=0)])
+
+
+def slice_rows(arr, n: int) -> np.ndarray:
+    """Undo :func:`pad_rows` on a fetch: its first ``n`` rows where it
+    has a row axis longer than ``n``; a scalar passes through
+    (``utils/padding.py:65``)."""
+    a = np.asarray(arr)
+    if a.ndim == 0 or a.shape[0] <= n:
+        return a
+    return a[:n]
+
+
+def pad_to_bucket(feeds: Dict[str, np.ndarray], bucket: int,
+                  batch_names: Optional[Sequence[str]] = None
+                  ) -> Tuple[Dict[str, np.ndarray], int]:
+    """Every batch-carrying feed padded to ``bucket`` rows by
+    :func:`pad_rows` (``bucketing.py:77``) -> (the padded feeds, the
+    original row count). ``batch_names`` names the batch feeds; by
+    default the leading dim most feeds share is the batch (a vote; a
+    tie goes to the smaller dim), and feeds of another leading dim or
+    none are left alone."""
+    if batch_names is None:
+        votes: Dict[int, int] = {}
+        for v in feeds.values():
+            s = np.shape(v)
+            if len(s) >= 1:
+                votes[s[0]] = votes.get(s[0], 0) + 1
+        if not votes:
+            return dict(feeds), bucket
+        n = max(sorted(votes), key=lambda k: votes[k])
+        batch_names = [k for k, v in feeds.items()
+                       if len(np.shape(v)) >= 1 and np.shape(v)[0] == n]
+    else:
+        n = int(np.shape(feeds[batch_names[0]])[0])
+    out = dict(feeds)
+    for name in batch_names:
+        out[name] = pad_rows(feeds[name], bucket)
+    return out, n
+
+
+def slice_outputs(outs: List[np.ndarray], n: int) -> List[np.ndarray]:
+    """The padded rows sliced off every row-shaped output
+    (``bucketing.py:104``)."""
+    return [slice_rows(o, n) for o in outs]
 
 
 @dataclass(frozen=True)

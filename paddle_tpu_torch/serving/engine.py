@@ -1,8 +1,15 @@
-"""Serving engines of the decoder LM (counterpart of
-``paddle_tpu/serving/engine.py``): the wave engine
-:class:`GenerativeModel` and the in-flight slot engines
-:class:`ContiguousSlotGenerativeModel` and
+"""Serving engines (counterpart of ``paddle_tpu/serving/engine.py``):
+:class:`ServedModel`, a saved inference model behind the batch buckets,
+and the decoder LM's wave engine :class:`GenerativeModel` and in-flight
+slot engines :class:`ContiguousSlotGenerativeModel` and
 :class:`PagedSlotGenerativeModel`.
+
+:class:`ServedModel` runs a ``save_inference_model`` directory through
+the port's ``inference.PaddlePredictor`` (the analysis passes, then the
+executor): a request batch is chunked by the largest bucket, each chunk
+padded to its bucket (``bucketing.pad_to_bucket``, on the host), run, and
+its padded rows sliced back off. An OOM inside a run leaves its memdump
+under the model's name (the executor's except path).
 
 The wave engine serves a whole coalesced batch at once: one prefill at
 the prompt bucket of its longest prompt and the batch bucket of its
@@ -104,6 +111,80 @@ def _prompt_bucket(length: int, buckets) -> int:
             f"prompt of length {length} exceeds the prompt bucket "
             f"{buckets[-1]}")
     return b
+
+
+class ServedModel:
+    """A saved inference model behind the bucket discipline
+    (``serving/engine.py:117-217``): ``name``, the model directory, the
+    :class:`~paddle_tpu_torch.serving.bucketing.BucketPolicy` and the
+    predictor's ``AnalysisConfig`` (default: the directory on
+    ``CUDAPlace(0)``; ``config.disable_gpu()`` for the CPU). ``row_specs``
+    holds each feed's per-row shape and dtype from its ``VarDesc``."""
+
+    def __init__(self, name: str, model_dir: str,
+                 policy: Optional[bucketing.BucketPolicy] = None,
+                 config=None):
+        from paddle_tpu_torch.inference import (AnalysisConfig,
+                                                PaddlePredictor)
+        self.name = name
+        self.model_dir = model_dir
+        self.policy = policy or bucketing.BucketPolicy()
+        if config is None:
+            config = AnalysisConfig(model_dir=model_dir)
+        config.model_tag = name
+        self.predictor = PaddlePredictor(config)
+        # the server's scheduler thread makes this device current
+        self.device = self.predictor.device
+        block = self.predictor._program.desc.global_block
+        self.row_specs: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+        for fname in self.predictor.get_input_names():
+            v = block.var(fname)
+            self.row_specs[fname] = (tuple(int(d) for d in v.shape[1:]),
+                                     v.dtype or "float32")
+        self.warmed: set = set()        # padded feed-shape signatures
+
+    def _example_feeds(self, batch: int) -> Dict[str, np.ndarray]:
+        return {n: np.zeros((batch,) + shape, dtype=np.dtype(dtype))
+                for n, (shape, dtype) in self.row_specs.items()}
+
+    def _shape_sig(self, feeds) -> Tuple:
+        return tuple(sorted((n, tuple(np.shape(v)), str(
+            np.asarray(v).dtype)) for n, v in feeds.items()))
+
+    def warmup(self) -> Dict[str, int]:
+        """Dispatch every batch bucket once on zero feeds, as the other
+        engines warm up, so first-use costs (building the kernels,
+        allocator growth) land here. Returns the count dispatched. No
+        ``aot_dir`` / ``persist`` as in the reference: eager PyTorch has
+        no compiled executable to load or save (ROADMAP A6.8)."""
+        for bucket in self.policy.batch_buckets:
+            feeds = self._example_feeds(bucket)
+            self.predictor.run(feeds)
+            self.warmed.add(self._shape_sig(feeds))
+        return {"dispatched": len(self.policy.batch_buckets)}
+
+    def infer(self, feeds: Dict[str, np.ndarray]) -> List[np.ndarray]:
+        """n rows in, n rows out, each dispatch at a batch bucket: the
+        batch chunked by the largest bucket, each chunk padded to its
+        bucket and its outputs sliced back, the chunks concatenated. A
+        batch-reduced fetch (a mean loss) sees the padded rows, as in the
+        reference."""
+        n_total = int(np.shape(feeds[next(iter(feeds))])[0])
+        outs_per_chunk: List[List[np.ndarray]] = []
+        row0 = 0
+        for chunk_rows in self.policy.chunks(n_total):
+            chunk = {n: np.asarray(v)[row0:row0 + chunk_rows]
+                     for n, v in feeds.items()}
+            row0 += chunk_rows
+            padded, n = bucketing.pad_to_bucket(
+                chunk, self.policy.bucket_for(chunk_rows),
+                batch_names=list(chunk))
+            outs = self.predictor.run(padded)
+            outs_per_chunk.append(bucketing.slice_outputs(outs, n))
+        if len(outs_per_chunk) == 1:
+            return outs_per_chunk[0]
+        return [np.concatenate([c[i] for c in outs_per_chunk], axis=0)
+                for i in range(len(outs_per_chunk[0]))]
 
 
 class GenerativeModel:

@@ -18,6 +18,12 @@ a JSON spec, with the lifecycle protocol the router supervises it by:
 
 Spec format (``--spec`` file or ``--spec-json`` inline)::
 
+    {"model": {"kind": "saved", "name": "clf",
+               "model_dir": "/path/saved_model", "buckets": [1, 2, 4],
+               "device": "cuda"}}
+
+or::
+
     {"model": {"kind": "decoder_lm", "name": "lm", "slots": true,
                "weights": "/path/lm.npz", "device": "cuda",
                "buckets": [1, 2],
@@ -30,7 +36,10 @@ Spec format (``--spec`` file or ``--spec-json`` inline)::
      "env": {"FLAGS_fault_plan": "..."}}
 
 (``env`` is consumed by the SUPERVISOR: ``serving/router.py`` merges it
-into the child's environment at spawn.) ``params`` maps as the
+into the child's environment at spawn.) ``kind: "saved"`` (the default
+kind, as in the reference) hosts a ``ServedModel`` of ``model_dir`` (a
+``save_inference_model`` directory of either package: its weights come
+with it) behind ``buckets`` (default ``[1]``). ``params`` maps as the
 reference's ``build_decoder_lm_programs`` reads it: ``prompt_len`` +
 ``max_new`` is the model's ``cache_len``, ``prompt_buckets`` (default
 ``[prompt_len]``) the prompt ladder, ``n_slots`` (default 2) the slot
@@ -44,6 +53,11 @@ Port differences (one spec file drives a JAX replica and a port replica
 alike: the reference's ``build_engine`` reads only ``kind``, ``name``,
 ``params``, ``slots`` and ``buckets``):
 
+* ``device`` (either kind): ``"cuda"`` by default; ``"cpu"`` only when
+  the spec asks. A ``cuda`` spec on a machine without a card raises (the
+  router records a crash), never falls back to the CPU.
+* ``aot_dir`` (``saved``) raises ``NotImplementedError``: eager PyTorch
+  has no compiled executable to load (ROADMAP A6.8).
 * ``weights`` (required for ``decoder_lm``) names an ``.npz`` of the
   parameter arrays under their JAX scope names (``lm_emb``,
   ``lm_l0_attn.wq``, ...; ``models/convert.py`` ``params_from_jax``).
@@ -51,12 +65,6 @@ alike: the reference's ``build_engine`` reads only ``kind``, ``name``,
   JAX startup program, whose random bits the port cannot draw; a spec
   without ``weights`` raises ``ValueError`` -- a replica never serves
   the zeros a ``DecoderLM`` starts from. ``seed`` is ignored.
-* ``device``: ``"cuda"`` by default; ``"cpu"`` only when the spec asks.
-  A ``cuda`` spec on a machine without a card raises (the router records
-  a crash), never falls back to the CPU.
-* ``kind: "saved"`` (``ServedModel``) raises ``ValueError``: it needs
-  the executor (ROADMAP A6). No ``aot_dir``: eager PyTorch has no
-  executable to load.
 
 Run as ``python -m paddle_tpu_torch.serving.replica --spec spec.json
 --endpoint-file ep.txt`` -- exactly how
@@ -85,9 +93,7 @@ def build_engine(model_spec: dict):
     kind = model_spec.get("kind", "saved")
     name = model_spec.get("name", "model")
     if kind == "saved":
-        raise ValueError(
-            "replica spec kind 'saved' (ServedModel) is not in the port: "
-            "it needs the ProgramDesc executor (ROADMAP A6)")
+        return _saved_engine(name, model_spec)
     if kind != "decoder_lm":
         raise ValueError(f"unknown model kind {kind!r} in replica spec")
     weights = model_spec.get("weights")
@@ -130,6 +136,27 @@ def build_engine(model_spec: dict):
     return engine.GenerativeModel(
         name, lm, buckets,
         bucketing.BucketPolicy(tuple(int(b) for b in policy)))
+
+
+def _saved_engine(name: str, model_spec: dict):
+    """A ``ServedModel`` of ``model_dir`` on the spec's device."""
+    if model_spec.get("aot_dir") is not None:
+        raise NotImplementedError(
+            "a saved replica's 'aot_dir' is not ported: eager PyTorch has "
+            "no compiled executable to load (ROADMAP A6.8)")
+    from paddle_tpu_torch import device as _device
+    from paddle_tpu_torch.inference import AnalysisConfig
+    from paddle_tpu_torch.serving import bucketing, engine
+    dev = _device.resolve(model_spec.get("device", "cuda"))
+    config = AnalysisConfig(model_dir=model_spec["model_dir"])
+    if dev.type == "cpu":
+        config.disable_gpu()
+    else:
+        config.enable_use_gpu(device_id=dev.index or 0)
+    buckets = model_spec.get("buckets") or (1,)
+    return engine.ServedModel(
+        name, model_spec["model_dir"],
+        bucketing.BucketPolicy(tuple(int(b) for b in buckets)), config)
 
 
 def _write_endpoint(path: str, endpoint: str):

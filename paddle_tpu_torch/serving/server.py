@@ -187,9 +187,12 @@ class _Request:
 def _bind_device(engine):
     """Make the engine's CUDA device current on the calling (scheduler)
     thread: the current device is thread-local, and a kernel wrapper
-    launches on the current stream of the CURRENT device. A no-op for
-    an engine on the CPU or without a model (a stub)."""
-    dev = getattr(getattr(engine, "model", None), "device", None)
+    launches on the current stream of the CURRENT device. The device is
+    the engine's own (``ServedModel``) or its model's (the decoder-LM
+    engines). A no-op for an engine on the CPU or with neither (a
+    stub)."""
+    dev = getattr(engine, "device", None) \
+        or getattr(getattr(engine, "model", None), "device", None)
     if getattr(dev, "type", None) == "cuda":
         import torch
         torch.cuda.set_device(dev)

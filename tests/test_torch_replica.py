@@ -100,8 +100,12 @@ def test_build_engine_refuses_a_spec_without_weights():
 @pytest.mark.parametrize("kind,match", [("saved", "A6"),
                                         ("mystery", "unknown model kind")])
 def test_build_engine_refuses_saved_and_unknown_kinds(kind, match):
-    with pytest.raises(ValueError, match=match):
-        build_engine({"kind": kind, "name": "m", "model_dir": "/nowhere"})
+    """An unknown kind raises ValueError; a saved spec with an
+    ``aot_dir`` raises NotImplementedError naming A6.8 (the saved kind
+    itself is served since A6.2: tests/test_torch_served_model.py)."""
+    with pytest.raises((ValueError, NotImplementedError), match=match):
+        build_engine({"kind": kind, "name": "m", "model_dir": "/nowhere",
+                      "aot_dir": "/nowhere/aot"})
 
 
 def test_build_engine_maps_the_reference_params(jx):

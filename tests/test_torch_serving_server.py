@@ -14,9 +14,9 @@ logits lie near a tie (tests/test_torch_wave_engine.py).
 
 The coalesce, shed, dedup, drain and error-kind cases host a numpy stub
 engine (``name``, ``policy``, ``warmup``, ``infer``) on the JAX server
-and on the port's, and must give the same outcomes on both: the generic
-infer wave is ported though ``ServedModel`` (a saved-model predictor)
-is not.
+and on the port's, and must give the same outcomes on both
+(``ServedModel``, the saved-model engine of this wave, has its own tests
+in ``tests/test_torch_served_model.py``).
 """
 
 import os

@@ -2,13 +2,18 @@
 without JAX: ``tests/torch_programs/<name>/__model__.json``.
 
 Each program is a bench model's ``build(is_train=False)`` in the JAX
-package at its defaults (or the tiny widths named below), under a fresh
-``Program`` pair and a fresh ``unique_name`` generator (so the names are
-those a fresh process gives, the names ``paddle_tpu_torch.models.convert``
-maps), pruned to one fetch and written by the JAX package's own
-``save_inference_model`` from an empty scope: the program in exactly the
-saved-model format, and no weights. ``chip_smoke.py`` (phase 22) and
-``tests/test_torch_executor_gpu.py`` write seeded weights beside a copy.
+package at its defaults (or the tiny widths named below), or one of the
+small layer programs whose patterns the predictor's passes fuse
+(``fc_lstm_tiny``, ``fc_gru_tiny``, ``seqpool_concat_tiny``: the
+``fusion_lstm``, ``fusion_gru`` and ``fusion_seqpool_concat`` ops on the
+card), under a fresh ``Program`` pair and a fresh ``unique_name``
+generator (so the names are those a fresh process gives, the names
+``paddle_tpu_torch.models.convert`` maps), pruned to one fetch and
+written by the JAX package's own ``save_inference_model`` from an empty
+scope: the program in exactly the saved-model format, and no weights.
+``chip_smoke.py`` (phases 22-23), ``tests/test_torch_executor_gpu.py``
+and ``tests/test_torch_predictor_gpu.py`` write seeded weights beside a
+copy.
 
     JAX_PLATFORMS=cpu python tools/torch_export_programs.py [NAME ...]
 
@@ -31,8 +36,43 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_DIR = os.path.join(REPO, "tests", "torch_programs")
 MODEL_FILE = "__model__.json"
 
+# the pass programs' widths: batch rows of T steps of D features, and
+# the recurrent cells' hidden width
+PASS_T, PASS_D, PASS_H = 8, 16, 16
+
+
+def _fc_lstm(layers):
+    """x -> a bias-free fc (the gate projection) -> dynamic_lstm."""
+    x = layers.data(name="x", shape=[PASS_T, PASS_D], dtype="float32")
+    sl = layers.data(name="sl", shape=[], dtype="int32")
+    proj = layers.fc(x, size=4 * PASS_H, num_flatten_dims=2,
+                     bias_attr=False)
+    hidden, _ = layers.dynamic_lstm(proj, size=4 * PASS_H, seq_lens=sl)
+    return ["x", "sl"], hidden.name
+
+
+def _fc_gru(layers):
+    """x -> a bias-free fc (the gate projection) -> dynamic_gru."""
+    x = layers.data(name="x", shape=[PASS_T, PASS_D], dtype="float32")
+    sl = layers.data(name="sl", shape=[], dtype="int32")
+    proj = layers.fc(x, size=3 * PASS_H, num_flatten_dims=2,
+                     bias_attr=False)
+    return ["x", "sl"], layers.dynamic_gru(proj, size=PASS_H,
+                                           seq_lens=sl).name
+
+
+def _seqpool_concat(layers):
+    """Two SUM sequence pools over the same lengths -> concat on axis 1."""
+    a = layers.data(name="a", shape=[PASS_T, PASS_D], dtype="float32")
+    b = layers.data(name="b", shape=[PASS_T, PASS_D], dtype="float32")
+    sl = layers.data(name="sl", shape=[], dtype="int32")
+    pools = [layers.sequence_pool(v, "sum", seq_lens=sl) for v in (a, b)]
+    return ["a", "b", "sl"], layers.concat(pools, axis=1).name
+
+
 # name -> (model module, build kwargs, feed names, fetch: "loss" for the
-# model's loss, else the op type whose last output in the program is it)
+# model's loss, else the op type whose last output in the program is it),
+# or a builder: layers -> (feed names, the fetch's name)
 PROGRAMS = {
     "resnet50": ("resnet", {}, ["data"], "softmax"),
     "transformer_base": ("transformer",
@@ -52,6 +92,10 @@ PROGRAMS = {
                                   dict(dict_dim=50, max_len=8, emb_dim=16,
                                        hid_dim=16, stacked_num=2),
                                   ["words", "seq_lens"], "softmax"),
+    # the fused recurrent and pooling ops, for tests/test_torch_predictor_gpu.py
+    "fc_lstm_tiny": _fc_lstm,
+    "fc_gru_tiny": _fc_gru,
+    "seqpool_concat_tiny": _seqpool_concat,
 }
 
 
@@ -66,13 +110,18 @@ def program_json(name: str) -> bytes:
     """The ``__model__.json`` bytes of program ``name``, built now."""
     import importlib
     import paddle_tpu.fluid as fluid
-    from paddle_tpu.fluid import unique_name
-    module, kwargs, feeds, fetch = PROGRAMS[name]
-    model = importlib.import_module(f"paddle_tpu.models.{module}")
+    from paddle_tpu.fluid import layers, unique_name
+    entry = PROGRAMS[name]
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), unique_name.guard():
-        loss, _, _ = model.build(is_train=False, **kwargs)
-    target = loss.name if fetch == "loss" else _last_output(main, fetch)
+        if callable(entry):
+            feeds, target = entry(layers)
+        else:
+            module, kwargs, feeds, fetch = entry
+            model = importlib.import_module(f"paddle_tpu.models.{module}")
+            loss, _, _ = model.build(is_train=False, **kwargs)
+            target = (loss.name if fetch == "loss"
+                      else _last_output(main, fetch))
     with tempfile.TemporaryDirectory() as d:
         fluid.io.save_inference_model(d, feeds, [target], None,
                                       main_program=main,
