@@ -511,14 +511,41 @@ final line:
     beside device busy at batch 1, 8 and 32 for the Transformer and
     ResNet-50, and the replica's spawn-to-readyz time. Its JSON line is
     ``{"saved_models": ...}``.
-24. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+24. Training programs through the executor (``train_program_phase``):
+    the five full-width training pairs of ``tests/torch_programs/``
+    (``transformer_base_train``: the fused attention and head at the
+    bench config; ``stacked_dynamic_lstm_train``; ``machine_translation_
+    train``; ``deepfm_train``, one 100000-row table under lazy Adam;
+    ``resnet50_train``, Momentum with L2 decay), each initialised by the
+    port's own startup program on ``CUDAPlace(0)`` (``random_seed`` 24)
+    and trained by ``Executor.run(main, feed, fetch_list=[loss])``, fp32,
+    TF32 off. (a) Oracles: the Transformer (its dropout zeroed,
+    ``zero_dropout``), the LSTM, the translation model and ResNet-50
+    (batch 8, lr 1e-4 on both) against the port's nn.Module trainers of
+    phases 7, 11, 14 and 18 from the same scope (``models/convert.py``)
+    on the same batches: the loss curves and the updated weights within
+    ``CURVE_RTOL``; deepfm against a ``CPUPlace()`` run of the same
+    program from a copy of the same scope, 3 steps, the rows no batch
+    touched and their moments bit-equal to the startup's. (b) From zeroed
+    counters, every executor step launches what the Module's step
+    launches: 18 flash forwards and 18 flash backwards and 1 fused-CE
+    forward and backward (the Transformer), 3 + 3 LSTM kernels, 2 + 2
+    GRU kernels, none elsewhere. (c) Step p50 by host clock over 6 steps
+    and device busy and idle share over a profiler window of 3, beside
+    the Module's in the same phase; peak memory of the 2nd and the 5th
+    timed step within 1 %. (d) The Transformer's bench program (dropout
+    0.1): 10 steps on one batch, a finite falling loss. Its JSON line is
+    ``{"train_programs": ...}``.
+25. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range; flash_fwd, fused_ce_fwd and lstm_train_fwd
     with phase 22's ``launches_executor``, and with phase 23's
     ``launches_predictor`` and ``launches_served``; gru_train_fwd and
-    seqpool with phase 23's ``launches_predictor``), then, last,
-    ``{"ok": true, "device": {...}}``.
+    seqpool with phase 23's ``launches_predictor``; every kernel with
+    phase 24's ``launches_train_program``, one executor training step of
+    each program that launches it), then, last, ``{"ok": true, "device":
+    {...}}``.
 """
 
 from __future__ import annotations
@@ -3533,7 +3560,8 @@ def train(torch, model, opt, feeds, launches=None):
         loss = out[0] if isinstance(out, tuple) else out
         loss.backward()
         opt.step()
-        torch.cuda.synchronize()
+        if loss.is_cuda:
+            torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss.detach()))
         if launches is not None:
@@ -3665,13 +3693,32 @@ def family_line(prof, busy_key="device_busy_ms_per_step"):
                                                      .items()))
 
 
-def check_families(label, prof, want):
-    """Fail unless each family of ``want`` launched that many kernels a step
-    in the profiler window (0: none)."""
-    got = {name: round(prof["families"].get(name, (0.0, 0.0))[1], 3)
-           for name in want}
-    if got != {name: float(n) for name, n in want.items()}:
-        fail(f"{label}: kernels a step by family {got}, want {want}")
+# a profiler window can drop a kernel record, never add one: on an H100 one
+# 3-step window of the MT training showed 5 of its 6 GRU forwards while the
+# wrappers' counters showed every launch. A window short of a family is
+# taken again, at most this many windows in all.
+PROFILE_WINDOWS = 3
+
+
+def checked_window(label, take, want):
+    """``take()``, a :func:`profile_calls` result in which each family of
+    ``want`` launched that many kernels a step (0: none). A window that
+    shows fewer is taken again, at most PROFILE_WINDOWS in all; one that
+    shows more of any family, or a shortfall in every window, fails. The
+    result's ``windows`` counts the windows taken."""
+    want_f = {name: float(n) for name, n in want.items()}
+    for i in range(1, PROFILE_WINDOWS + 1):
+        prof = take()
+        got = {name: round(prof["families"].get(name, (0.0, 0.0))[1], 3)
+               for name in want}
+        if got == want_f:
+            prof["windows"] = i
+            return prof
+        if any(got[name] > n for name, n in want_f.items()):
+            break
+        print(f"{label}: profiler window {i} showed {got}, fewer than "
+              f"launched ({want}); taking another")
+    fail(f"{label}: kernels a step by family {got}, want {want}")
 
 
 def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
@@ -3748,9 +3795,21 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
         if amp:
             stats["amp_sites_tagged"] = tagged
         stats["tokens_per_s"] = tokens / stats["step_p50_ms"] * 1e3
+        families = {}
+        if kw["fused_attention"]:
+            tc = n_attn if fa.fwd_kernel(
+                cfg["d_model"] // cfg["n_head"]) == "tensor_cores" else 0
+            bf16 = {"flash_fwd bf16": tc, "flash_bwd bf16": n_attn * one,
+                    "fused_ce_fwd bf16": int(head),
+                    "fused_ce_dz bf16": slabs * head}
+            fp32 = {"flash_fwd tensor cores": tc, "flash_bwd": n_attn * one,
+                    "fused_ce_fwd": int(head), "fused_ce_dz": slabs * head}
+            families = {**{k: v * amp for k, v in bf16.items()},
+                        **{k: v * (not amp) for k, v in fp32.items()}}
         if profile_steps:
-            stats["profile"] = prof = profile_window(torch, model, opt,
-                                                     feeds[steps:])
+            stats["profile"] = prof = checked_window(
+                label, lambda: profile_window(torch, model, opt,
+                                              feeds[steps:]), families)
             # against the step time without the profiler's own overhead
             prof["idle_share_at_p50"] = 1.0 - prof[
                 "device_busy_ms_per_step"] / stats["step_p50_ms"]
@@ -3773,20 +3832,7 @@ def train_phase(torch, dev, card, cfg=None, batch=BATCH, steps=TRAIN_STEPS,
                   f"time, {prof['launches_per_step']:.0f} launches/step")
             for key, us, count in prof["top_kernels"]:
                 print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
-            if kw["fused_attention"]:
-                tc = n_attn if fa.fwd_kernel(
-                    cfg["d_model"] // cfg["n_head"]) == "tensor_cores" \
-                    else 0
-                bf16 = {"flash_fwd bf16": tc, "flash_bwd bf16": n_attn * one,
-                        "fused_ce_fwd bf16": int(head),
-                        "fused_ce_dz bf16": slabs * head}
-                fp32 = {"flash_fwd tensor cores": tc,
-                        "flash_bwd": n_attn * one,
-                        "fused_ce_fwd": int(head),
-                        "fused_ce_dz": slabs * head}
-                check_families(label, prof, {
-                    **{k: v * amp for k, v in bf16.items()},
-                    **{k: v * (not amp) for k, v in fp32.items()}})
+            if families:
                 print(f"[{card}] {label}: the flash and fused-CE kernels a "
                       f"step: {family_line(prof)}")
         del model, opt
@@ -4070,8 +4116,12 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
           f"memory {stats['peak_mem_bytes'] / 2 ** 20:.1f} MiB; launches "
           f"{launched} ({n_layer} of each per step)")
     if profile_steps:
-        stats["profile"] = prof = profile_window(torch, model, opt,
-                                                 [feed] * profile_steps)
+        plans = {k: fr.rnn_kernel_for(k, cfg["hid_dim"], dev)["kernel"]
+                 for k in ("lstm_train_fwd", "lstm_train_bwd")}
+        stats["profile"] = prof = checked_window(
+            "LSTM training", lambda: profile_window(
+                torch, model, opt, [feed] * profile_steps),
+            {f"lstm_{k[11:]} {plans[k]}": n_layer for k in plans})
         prof["idle_share_at_p50"] = 1.0 - prof[
             "device_busy_ms_per_step"] / stats["step_p50_ms"]
         print(f"[{card}] stacked_dynamic_lstm profile ({profile_steps} "
@@ -4083,10 +4133,6 @@ def lstm_train_phase(torch, dev, card, cfg=None, batch=LSTM_BATCH,
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
-        plans = {k: fr.rnn_kernel_for(k, cfg["hid_dim"], dev)["kernel"]
-                 for k in ("lstm_train_fwd", "lstm_train_bwd")}
-        check_families("LSTM training", prof, {
-            f"lstm_{k[11:]} {plans[k]}": n_layer for k in plans})
         print(f"[{card}] stacked_dynamic_lstm: the LSTM kernels a step: "
               f"{family_line(prof)}")
     del model, opt
@@ -4159,15 +4205,15 @@ def amp_lstm_run(torch, card, make, state, feed, steps, profile_steps,
     run["words_per_s"] = fp32["valid_words"] / run["step_p50_ms"] * 1e3
     line = ""
     if profile_steps:
-        run["profile"] = prof = profile_window(torch, model, opt,
-                                               [feed] * profile_steps)
-        prof["idle_share_at_p50"] = 1.0 - prof[
-            "device_busy_ms_per_step"] / run["step_p50_ms"]
         plans = {k: fr.rnn_kernel_for(k, model.hid_dim,
                                       feed[0].device)["kernel"]
                  for k in ("lstm_train_fwd", "lstm_train_bwd")}
-        check_families("LSTM training AMP", prof, {
-            f"lstm_{k[11:]} {plans[k]}": n_layer for k in plans})
+        run["profile"] = prof = checked_window(
+            "LSTM training AMP", lambda: profile_window(
+                torch, model, opt, [feed] * profile_steps),
+            {f"lstm_{k[11:]} {plans[k]}": n_layer for k in plans})
+        prof["idle_share_at_p50"] = 1.0 - prof[
+            "device_busy_ms_per_step"] / run["step_p50_ms"]
         base = fp32["profile"]
         line = (f"; device busy {prof['device_busy_ms_per_step']:.3f} ms a "
                 f"step against {base['device_busy_ms_per_step']:.3f} fp32, "
@@ -4679,8 +4725,15 @@ def mt_train_phase(torch, dev, card, cfg=None, batch=MT_BATCH,
           f"batch touched are bit-equal to their start; every touched row "
           f"moved")
     if profile_steps:
-        stats["profile"] = prof = profile_window(torch, model, opt,
-                                                 feeds[steps:])
+        want = {}
+        for name in ("gru_fwd", "gru_bwd"):
+            plan = gru_plan(name, cfg["hid_dim"], dev)
+            want[f"{name} cluster"] = MT_GRU_PER_STEP * (plan == "cluster")
+            want[f"{name} grid"] = MT_GRU_PER_STEP * (plan == "grid")
+            stats[f"{name}_kernel"] = plan
+        stats["profile"] = prof = checked_window(
+            "MT training", lambda: profile_window(torch, model, opt,
+                                                  feeds[steps:]), want)
         prof["idle_share_at_p50"] = 1.0 - prof[
             "device_busy_ms_per_step"] / stats["step_p50_ms"]
         print(f"[{card}] machine_translation profile ({profile_steps} "
@@ -4692,13 +4745,6 @@ def mt_train_phase(torch, dev, card, cfg=None, batch=MT_BATCH,
               f"{prof['launches_per_step']:.0f} launches/step")
         for key, us, count in prof["top_kernels"]:
             print(f"    {us:10.1f} us/step {count:6.1f}/step  {key}")
-        want = {}
-        for name in ("gru_fwd", "gru_bwd"):
-            plan = gru_plan(name, cfg["hid_dim"], dev)
-            want[f"{name} cluster"] = MT_GRU_PER_STEP * (plan == "cluster")
-            want[f"{name} grid"] = MT_GRU_PER_STEP * (plan == "grid")
-            stats[f"{name}_kernel"] = plan
-        check_families("MT training", prof, want)
         print(f"[{card}] machine_translation: the GRU kernels a step: "
               f"{family_line(prof)}")
 
@@ -4834,12 +4880,12 @@ def mt_beam_phase(torch, dev, card, model, batch=MT_BATCH, reps=5):
         for _ in range(PROFILE_STEPS):
             model.generate(src)
         torch.cuda.synchronize()
-    prof = profile_calls(torch, calls, PROFILE_STEPS)
     plan = gru_plan("gru_fwd", cfg["hid_dim"], dev)
-    check_families("MT generate", prof, {
-        "gru_fwd cluster": int(plan == "cluster"),
-        "gru_fwd grid": int(plan == "grid"), "gru_bwd cluster": 0,
-        "gru_bwd grid": 0})
+    prof = checked_window(
+        "MT generate", lambda: profile_calls(torch, calls, PROFILE_STEPS), {
+            "gru_fwd cluster": int(plan == "cluster"),
+            "gru_fwd grid": int(plan == "grid"), "gru_bwd cluster": 0,
+            "gru_bwd grid": 0})
     stats = {"profile": prof, "call_ms": call_ms, "call_p50_ms": p50,
              "sequences_per_s": batch / p50 * 1e3, "near_ties": ties,
              "near_tie_gaps": gaps, "rows_equal": len(agree),
@@ -6797,6 +6843,396 @@ def saved_phase(torch, dev, card, root, batches=None):
     return out
 
 
+# -- phase 24: training programs through the executor ------------------------
+
+TRAIN_PROGRAM_SEED = 24            # the startup programs' random_seed
+TRAIN_PROGRAM_ORACLE_STEPS = 3
+TRAIN_PROGRAM_TIMED_STEPS = 6      # the 2nd and the 5th: peak memory
+TRAIN_PROGRAM_BENCH_STEPS = 10
+TRAIN_PROGRAM_PEAK_RTOL = 0.01
+# the executor's weights against the Module's (or the CPU's) after the
+# oracle steps, in the L2 norm (weights_agree): rtol CURVE_RTOL, and 1e-5
+# a weight (a tenth of the Transformer's lr, which Adam's update
+# approaches whatever the gradient's size)
+TRAIN_PROGRAM_ATOL = 1e-5
+# the card against the CPU on deepfm: cuBLAS and MKL sum in other orders
+TRAIN_PROGRAM_CPU_TOL = EXEC_CPU_TOL
+# program -> what it trains (``model``: the nn.Module twin's family, None
+# for deepfm, held against the CPU), its batch, its config and the
+# launches of one training step
+TRAIN_PROGRAMS = {
+    "transformer_base_train": dict(
+        model="transformer", batch=BATCH, cfg=TRAIN,
+        want={"flash_attention.flash_fwd": 3 * TRAIN["n_layer"],
+              "flash_attention.flash_bwd": 3 * TRAIN["n_layer"],
+              "fused_ce.fused_ce_fwd": 1, "fused_ce.fused_ce_bwd": 1}),
+    "stacked_dynamic_lstm_train": dict(
+        model="lstm", batch=LSTM_BATCH, cfg=LSTM,
+        want={"fused_rnn.lstm_train_fwd": LSTM["stacked_num"],
+              "fused_rnn.lstm_train_bwd": LSTM["stacked_num"]}),
+    "machine_translation_train": dict(
+        model="mt", batch=MT_BATCH, cfg=MT,
+        want={"fused_rnn.gru_train_fwd": MT_GRU_PER_STEP,
+              "fused_rnn.gru_train_bwd": MT_GRU_PER_STEP}),
+    "resnet50_train": dict(model="resnet", batch=IMAGE_ORACLE_BATCH,
+                           cfg=dict(image_size=224), want={}),
+    "deepfm_train": dict(model=None, batch=DEEPFM_BATCH, cfg=DEEPFM,
+                         want={}),
+}
+TRAIN_PROGRAM_LOSS = "mean_0.tmp_0"
+
+
+def train_pair(name):
+    """(main, startup) ``ProgramDesc``s of committed training pair
+    ``name``, parsed by the port."""
+    from paddle_tpu_torch.core import ir
+    out = []
+    for f in ("__main__", "__startup__"):
+        with open(os.path.join(EXEC_DIR, name, f + ".json"), "rb") as fh:
+            out.append(ir.ProgramDesc.parse_from_string(fh.read()))
+    return out
+
+
+def program_feeds(torch, dev, kind, cfg, batch, seed, n):
+    """``n`` (executor feed dict, nn.Module arguments) pairs of tensors on
+    ``dev``: the copy task (the Transformer), the LSTM's and the
+    translation model's batches of phases 11 and 14, seeded images and
+    labels (ResNet-50), ids uniform over deepfm's vocabulary."""
+    if kind == "transformer":
+        return [(dict(zip(("src_ids", "tgt_ids", "lbl_ids"), f)), f)
+                for f in copy_task(torch, dev, seed, n, batch,
+                                   cfg["max_len"], cfg["tgt_vocab"])]
+    if kind == "resnet":
+        size = cfg["image_size"]
+        return [({"data": x, "label": y}, (x, y)) for x, y in image_feeds(
+            torch, dev, batch, (3, size, size), 1000, seed, n)]
+    if kind == "lstm":
+        arrays = [lstm_batch(seed + i, batch, cfg["max_len"],
+                             cfg["dict_dim"]) for i in range(n)]
+        keys = ("words", "seq_lens", "label")
+    elif kind == "mt":
+        arrays = mt_batches(seed, n, batch, cfg["max_len"], cfg["tgt_vocab"])
+        keys = ("src", "tgt_in", "tgt_out")
+    else:
+        rng = np.random.RandomState(seed)
+        arrays = [(rng.randint(0, cfg["vocab_size"], (
+            batch, cfg["num_fields"], 1)).astype(np.int64),
+            rng.randint(0, 2, (batch, 1)).astype(np.float32))
+            for _ in range(n)]
+        keys = ("feat_ids", "label")
+    out = []
+    for a in arrays:
+        t = tuple(torch.from_numpy(x).to(dev) for x in a)
+        out.append((dict(zip(keys, t)), t))
+    return out
+
+
+def program_module(torch, dev, kind, cfg, block):
+    """(build, to_state) of the nn.Module twin: ``build(arrays)`` gives
+    (model, optimizer) on ``dev`` with the weights of ``arrays`` (scope
+    arrays by JAX name), ``to_state(arrays)`` the state dict those arrays
+    make. ResNet-50's Momentum (with its L2 decay) at IMAGE_ORACLE_LR."""
+    import importlib
+    from paddle_tpu_torch.models import convert
+    names = [n for n, v in block.vars.items() if v.is_parameter or (
+        kind == "resnet" and n.endswith((".mean_0", ".var_0")))]
+    mod = importlib.import_module("paddle_tpu_torch.models." + {
+        "transformer": "transformer", "lstm": "stacked_dynamic_lstm",
+        "mt": "machine_translation", "resnet": "resnet"}[kind])
+
+    def make():
+        if kind == "transformer":
+            return mod.build(**cfg, dropout=0.0, fused_attention=True,
+                             fused_head=True, device=dev)
+        if kind == "resnet":
+            return mod.build(device=dev, lr=IMAGE_ORACLE_LR, **cfg)[:2]
+        return mod.build(**cfg, device=dev)[:2]
+
+    def to_state(arrays, model=None):
+        a = {n: arrays[n] for n in names}
+        if kind == "transformer":
+            return convert.transformer_params_from_jax(a)
+        if kind == "lstm":
+            return convert.lstm_params_from_jax(a, cfg["stacked_num"])
+        if kind == "mt":
+            return convert.mt_params_from_jax(a)
+        return convert.classifier_params_from_jax(a, model)
+
+    def build(arrays):
+        model, opt = make()
+        model.load_state_dict(to_state(arrays, model))
+        return model, opt
+    return build, to_state
+
+
+def scope_arrays(scope, names):
+    return {n: scope.find_var(n).detach().cpu().numpy() for n in names}
+
+
+def scope_of(torch, arrays, dev):
+    from paddle_tpu_torch import fluid
+    s = fluid.Scope()
+    for n, a in arrays.items():
+        s.set_var(n, torch.from_numpy(a.copy()).to(dev))
+    return s
+
+
+def exe_steps(torch, exe, prog, scope, feeds, want=None, label="",
+              peak_at=()):
+    """One ``Executor.run`` a feed, fetching the loss: (losses, host ms a
+    step, peak bytes of the steps at ``peak_at``, the kernels each step
+    launched). With ``want``, every step must launch exactly those."""
+    cuda = exe.device.type == "cuda"
+    losses, ms, peaks, launched = [], [], {}, []
+    for i, f in enumerate(feeds):
+        if cuda and i in peak_at:
+            torch.cuda.reset_peak_memory_stats()
+        before = all_launches()
+        t0 = time.perf_counter()
+        out = exe.run(prog, feed=f, fetch_list=[TRAIN_PROGRAM_LOSS],
+                      scope=scope)
+        if cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if cuda and i in peak_at:
+            peaks[i] = int(torch.cuda.max_memory_allocated())
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+        got = {k: n - before[k] for k, n in all_launches().items()
+               if n != before[k]}
+        launched.append(got)
+        if want is not None and got != want:
+            fail(f"{label}: executor step {i} launched {got}, want {want}")
+    return losses, ms, peaks, launched
+
+
+def weights_agree(label, got, want, rtol=CURVE_RTOL,
+                  atol=TRAIN_PROGRAM_ATOL):
+    """Two state dicts (fp32 tensors or arrays by key) after the same
+    steps: each tensor as ``np.allclose`` in the L2 norm,
+    ``|got - want| <= rtol |want| + atol sqrt(n)``. Adam divides each
+    gradient by its own root mean square, so an element whose gradient
+    sums to nearly 0 (a layer-norm bias over 4096 tokens) takes the
+    summation order's noise as a sizeable share of ``lr``, and of
+    millions of weights a few move by ``lr`` one way on one side and the
+    other way on the other; a norm tells those from an update that is
+    wrong. Returns (the largest ``|got - want| / (rtol |want| + atol
+    sqrt(n))``, the largest elementwise difference)."""
+    worst_rel = worst_abs = 0.0
+    for key, w in want.items():
+        g = np.asarray(got[key], np.float64)
+        w = np.asarray(w.detach().cpu() if hasattr(w, "detach") else w,
+                       np.float64)
+        if not w.size:
+            continue
+        bound = rtol * float(np.linalg.norm(w)) + atol * np.sqrt(w.size)
+        rel = float(np.linalg.norm(g - w)) / bound
+        worst_rel = max(worst_rel, rel)
+        worst_abs = max(worst_abs, float(np.abs(g - w).max()))
+        if not rel <= 1.0:
+            fail(f"{label}: {key} differs by {rel:.3g} of its bound (rtol "
+                 f"{rtol}, atol {atol} a weight in the L2 norm; max abs "
+                 f"{np.abs(g - w).max():.3g})")
+    return worst_rel, worst_abs
+
+
+def train_program_phase(torch, dev, card, module_runs, programs=None):
+    """Phase 24: each full-width training pair through the port's startup
+    and ``Executor.run`` on ``dev``, against its nn.Module twin (or the
+    CPU), with its launches a step, its step time beside the Module's and
+    its peak memory across steps. ``module_runs`` holds phases 7, 11, 14
+    and 18's Module numbers by program, kept beside in the JSON line;
+    ``programs`` overrides ``TRAIN_PROGRAMS`` (the CPU rehearsal: the
+    tiny pairs on the CPU, where the profiler, the peak memory and the
+    bench program's "falling" are skipped)."""
+    from paddle_tpu_torch import fluid
+    programs = TRAIN_PROGRAMS if programs is None else programs
+    cuda = dev.type == "cuda"
+    place = fluid.CUDAPlace(0) if cuda else fluid.CPUPlace()
+    out = {}
+    for i, (name, spec) in enumerate(programs.items()):
+        t_prog = time.perf_counter()
+        kind, batch, cfg = spec["model"], spec["batch"], spec["cfg"]
+        want = dict(spec["want"]) if cuda else {}
+        main, startup = train_pair(name)
+        block = main.global_block
+        persist = sorted(n for n, v in block.vars.items() if v.persistable)
+        startup.random_seed = TRAIN_PROGRAM_SEED
+        exe = fluid.Executor(place)
+        scope0 = fluid.Scope()
+        exe.run(fluid.Program(startup), scope=scope0)
+        start = scope_arrays(scope0, persist)
+        del scope0
+        oracle = fluid.Program(zero_dropout(main) if kind == "transformer"
+                               else main)
+        k, n_timed = TRAIN_PROGRAM_ORACLE_STEPS, TRAIN_PROGRAM_TIMED_STEPS
+        feeds = program_feeds(torch, dev, kind, cfg, batch, 70 + i,
+                              k + n_timed + PROFILE_STEPS)
+        stats = {"batch": batch, "ops": len(block.ops),
+                 "vjp_ops": sum(op.type == "__vjp__" for op in block.ops),
+                 "persistables": len(persist)}
+        if kind == "resnet":              # the oracle's rate on both
+            start["learning_rate_0"] = np.full_like(
+                start["learning_rate_0"], IMAGE_ORACLE_LR)
+        scope = scope_of(torch, start, dev)
+        # (a, b) the oracle steps, launches counted a step
+        losses, _, _, launched = exe_steps(
+            torch, exe, oracle, scope, [f for f, _ in feeds[:k]], want, name)
+        stats["losses"] = losses
+        stats["launches_per_step"] = launched[0]
+        if not all(np.isfinite(losses)):
+            fail(f"{name}: non-finite executor losses {losses}")
+        if kind is None:
+            cexe = fluid.Executor(fluid.CPUPlace())
+            cscope = scope_of(torch, start, torch.device("cpu"))
+            cpu_feeds = [{key: t.cpu() for key, t in f.items()}
+                         for f, _ in feeds[:k]]
+            want_l, _, _, cpu_launched = exe_steps(torch, cexe, oracle,
+                                                   cscope, cpu_feeds)
+            if any(cpu_launched):
+                fail(f"{name}: the CPU run launched {cpu_launched}")
+            if not np.allclose(losses, want_l, **TRAIN_PROGRAM_CPU_TOL):
+                fail(f"{name}: the card's losses {losses} differ from the "
+                     f"CPU's {want_l} beyond {TRAIN_PROGRAM_CPU_TOL}")
+            card_a = scope_arrays(scope, persist)
+            stats["cpu_max_rel_err"], stats["cpu_max_abs_err"] = \
+                weights_agree(name, card_a, scope_arrays(cscope, persist))
+            # lazy Adam: a row no batch touched keeps its value and moments
+            ids = np.unique(np.concatenate(
+                [f["feat_ids"].cpu().numpy().ravel() for f, _ in feeds[:k]]))
+            untouched = np.setdiff1d(np.arange(cfg["vocab_size"]), ids)
+            for n in ("deepfm_emb", "deepfm_emb_moment1_0",
+                      "deepfm_emb_moment2_0"):
+                if not np.array_equal(card_a[n][untouched],
+                                      start[n][untouched]):
+                    fail(f"{name}: lazy Adam moved untouched rows of {n}")
+            stats["untouched_rows"] = int(untouched.size)
+            stats["oracle"] = "CPUPlace"
+            line = (f"[{card}] {name}: card losses "
+                    f"{[round(x, 6) for x in losses]} = the CPU's within "
+                    f"{TRAIN_PROGRAM_CPU_TOL} (weights at "
+                    f"{stats['cpu_max_rel_err']:.3g} of their bound, max "
+                    f"abs {stats['cpu_max_abs_err']:.3g}); {untouched.size} "
+                    f"untouched rows bit-equal")
+            del cexe, cscope
+        else:
+            build, to_state = program_module(torch, dev, kind, cfg, block)
+            model, opt = build(start)
+            mlosses, _, per_step = train(
+                torch, model, opt, [a for _, a in feeds[:k]], all_launches)
+            for j, c in enumerate(per_step):
+                got = {key: m for key, m in c.items() if m}
+                if got != want:
+                    fail(f"{name}: Module step {j} launched {got}, want "
+                         f"{want}")
+            if not np.allclose(losses, mlosses, rtol=CURVE_RTOL, atol=0.0):
+                fail(f"{name}: executor losses {losses} differ from the "
+                     f"Module's {mlosses} beyond rtol {CURVE_RTOL}")
+            stats["module_losses"] = mlosses
+            stats["module_max_rel_err"], stats["module_max_abs_err"] = \
+                weights_agree(name, to_state(scope_arrays(scope, persist),
+                                             model), model.state_dict())
+            stats["oracle"] = "nn.Module"
+            line = (f"[{card}] {name}: executor losses "
+                    f"{[round(x, 6) for x in losses]} = the Module's "
+                    f"within rtol {CURVE_RTOL} (weights at "
+                    f"{stats['module_max_rel_err']:.3g} of their bound, "
+                    f"max abs {stats['module_max_abs_err']:.3g})")
+        # (c) host p50, busy and idle over the next steps, peak memory
+        timed = [f for f, _ in feeds[k:k + n_timed]]
+        if kind == "resnet" and cuda:       # timed at bench.py's batch
+            big = program_feeds(torch, dev, kind, cfg, 128, 90, n_timed
+                                + PROFILE_STEPS)
+            timed = [f for f, _ in big[:n_timed]]
+            prof_feeds = [f for f, _ in big[n_timed:]]
+            stats["timed_batch"] = 128
+        else:
+            prof_feeds = [f for f, _ in feeds[k + n_timed:]]
+        _, ms, peaks, _ = exe_steps(torch, exe, oracle, scope, timed,
+                                    peak_at=(1, 4))
+        stats["step_ms"] = ms
+        stats["step_p50_ms"] = float(np.median(ms))
+        if cuda:
+            stats["peak_mem_bytes"] = peaks
+            if abs(peaks[4] - peaks[1]) > TRAIN_PROGRAM_PEAK_RTOL * peaks[1]:
+                fail(f"{name}: peak memory {peaks[1]} at step 2 and "
+                     f"{peaks[4]} at step 5 (a graph outlives its step?)")
+            stats["profile"] = prof = profile_calls(
+                torch, lambda: exe_steps(torch, exe, oracle, scope,
+                                         prof_feeds),
+                len(prof_feeds))
+            line += (f"; step p50 {stats['step_p50_ms']:.3f} ms, device "
+                     f"busy {prof['device_busy_ms_per_step']:.3f} ms, idle "
+                     f"{prof['idle_share']:.3f}, "
+                     f"{prof['launches_per_step']:.0f} launches a step; "
+                     f"peak memory {peaks[1] / 2 ** 20:.1f} / "
+                     f"{peaks[4] / 2 ** 20:.1f} MiB at steps 2 / 5")
+        if kind is not None and cuda:
+            m_timed = ([a for _, a in big[:n_timed]] if kind == "resnet"
+                       else [a for _, a in feeds[k:k + n_timed]])
+            m_prof = ([a for _, a in big[n_timed:]] if kind == "resnet"
+                      else [a for _, a in feeds[k + n_timed:]])
+            _, mms, _ = train(torch, model, opt, m_timed)
+            mprof = profile_window(torch, model, opt, m_prof)
+            stats["module"] = {"step_ms": mms,
+                               "step_p50_ms": float(np.median(mms)),
+                               "profile": mprof}
+            line += (f"; the Module's step p50 "
+                     f"{stats['module']['step_p50_ms']:.3f} ms, busy "
+                     f"{mprof['device_busy_ms_per_step']:.3f} ms, idle "
+                     f"{mprof['idle_share']:.3f}, "
+                     f"{mprof['launches_per_step']:.0f} launches")
+            earlier = module_runs.get(name)
+            if earlier:
+                stats["module_earlier_phase"] = earlier
+        if kind is not None:
+            del model, opt
+        # (d) the bench program (the Transformer's dropout 0.1)
+        if kind == "transformer":
+            bscope = scope_of(torch, start, dev)
+            # one batch, fitted: from the startup's near-uniform output
+            # (ln 32000) fresh copy-task batches move the loss by less
+            # than their own spread in 10 steps at lr 1e-4
+            one = program_feeds(torch, dev, kind, cfg, batch, 80, 1)[0][0]
+            blosses, bms, bpeaks, _ = exe_steps(
+                torch, exe, fluid.Program(main), bscope,
+                [one] * TRAIN_PROGRAM_BENCH_STEPS, want,
+                name + " (dropout 0.1)", peak_at=(1, 4))
+            # falling: the last three steps' mean below the first three's
+            # (at full width; the rehearsal's tiny copy task is noise)
+            if not all(np.isfinite(blosses)) or (cuda and not np.mean(
+                    blosses[-3:]) < np.mean(blosses[:3])):
+                fail(f"{name} (dropout 0.1): losses {blosses} are not "
+                     f"finite and falling")
+            stats["bench"] = {"losses": blosses, "step_ms": bms,
+                              "step_p50_ms": float(np.median(bms)),
+                              "peak_mem_bytes": bpeaks}
+            line += (f"; the bench program (dropout 0.1) "
+                     f"{blosses[0]:.4f} -> {blosses[-1]:.4f} in "
+                     f"{len(blosses)} steps, p50 "
+                     f"{stats['bench']['step_p50_ms']:.3f} ms")
+            del bscope
+        stats["seconds"] = time.perf_counter() - t_prog
+        print(line + f"; {stats['seconds']:.1f} s")
+        out[name] = stats
+        del exe, scope
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def zero_dropout(desc):
+    """A copy of a training program's desc with every dropout probability
+    0: the ``dropout`` ops' and the attention blocks' ``dropout_prob``,
+    and those of the forward ops that their ``__vjp__`` ops carry."""
+    out = desc.clone()
+    for op in out.global_block.ops:
+        for attrs in (op.attrs, op.attrs.get("fwd_op", {}).get("attrs", {})):
+            if "dropout_prob" in attrs:
+                attrs["dropout_prob"] = 0.0
+    out.bump_version()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6857,6 +7293,27 @@ def main():
         saved = saved_phase(torch, dev, card, exec_root)
     finally:
         shutil.rmtree(exec_root, ignore_errors=True)
+
+    def earlier(phase, run):
+        """An earlier phase's Module step: p50 and device busy."""
+        return {"phase": phase, "step_p50_ms": run.get("step_p50_ms"),
+                "device_busy_ms_per_step": run.get("profile", {}).get(
+                    "device_busy_ms_per_step")}
+    t_train = time.perf_counter()
+    train_programs = train_program_phase(torch, dev, card, {
+        "transformer_base_train": earlier(7, runs["fused_head"]),
+        "stacked_dynamic_lstm_train": earlier(11, lstm_run),
+        "machine_translation_train": earlier(14, mt_run),
+        "resnet50_train": earlier(18, image["resnet50"])})
+    print(f"[{card}] phase 24 (training programs) took "
+          f"{time.perf_counter() - t_train:.1f} s")
+
+    def train_program_launches(key):
+        """Phase 24's launches of ``key`` in one executor training step,
+        by program."""
+        return {name: run["launches_per_step"][key]
+                for name, run in train_programs.items()
+                if key in run["launches_per_step"]}
     exec_launches = {key: n for run in executor.values()
                      for key, n in run.get("launches", {}).items()}
 
@@ -7045,6 +7502,15 @@ def main():
             "card": card, **{k: m[k] for k in (
                 "device_ms", "library_device_ms", "floor_device_ms", "k",
                 "live", "families", "shapes")}})
+    for entry in kernels:
+        module = {"gather_rows": "paged_attention",
+                  "gather_rows_dequant": "paged_attention",
+                  "cache_gather_rows": "embed_cache",
+                  "cache_scatter_rows": "embed_cache"}.get(entry["name"])
+        key = (f"{module}.{entry['name'].replace('cache_', '')}" if module
+               else next((k for k in all_launches()
+                          if k.endswith("." + entry["name"])), None))
+        entry["launches_train_program"] = train_program_launches(key)
     wide = {key: row for res in (flash, fce, lstm, gru)
             for key, row in res.items()
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
@@ -7072,6 +7538,8 @@ def main():
     print(json.dumps({"fleet": fleet, "card": card}, default=str))
     print(json.dumps({"executor": executor, "card": card}, default=str))
     print(json.dumps({"saved_models": saved, "card": card}, default=str))
+    print(json.dumps({"train_programs": train_programs, "card": card},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -22,6 +22,9 @@ python/paddle/fluid/executor.py:260 class, :447 run).
   updated state (``:475-485``); ``FLAGS_benchmark`` prints the run's wall
   time; the ``executor.run`` span is recorded when span capture is on
   (``observability/tracing.py`` ``active``).
+- Each row-sparse optimizer apply (``core/selected_rows.py``
+  ``record_sparse_apply``) advances ``paddle_sparse_rows_touched_total``
+  by its rows once a step (``:601-617``).
 
 Not ported, and refused where a program asks for them: attached
 ``py_readers`` (ROADMAP A6.10), the build strategy's passes (A6.10),
@@ -43,18 +46,12 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.core.lowering import BlockRunner
+from paddle_tpu_torch.core.registry import TORCH_DTYPES
 from paddle_tpu_torch.core.scope import Scope, global_scope
 from paddle_tpu_torch.observability import memory as _obs_memory
+from paddle_tpu_torch.observability import metrics as _obs_metrics
 from paddle_tpu_torch.observability import tracing as _obs_tracing
 from paddle_tpu_torch.utils import faults as _faults
-
-# the IR's dtype strings as torch dtypes (core/ir.py _VALID_DTYPES)
-TORCH_DTYPES = {
-    "float32": torch.float32, "float64": torch.float64,
-    "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
-    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
-}
 
 
 class Place:
@@ -219,6 +216,7 @@ class Executor:
             # 'executor.dispatch:raise@1:exc=MemoryError' here
             _faults.inject("executor.dispatch")
             outs = [runner(scope, f, seed0 + i) for i, f in enumerate(steps)]
+        _count_sparse_rows(runner, iterations)
         fetches = outs[0] if iterations == 1 else [
             torch.stack([o[j] for o in outs]) for j in range(len(fetch_names))]
         if bench:
@@ -239,6 +237,20 @@ class Executor:
         if return_numpy:
             return [_to_numpy(o) for o in fetches]
         return list(fetches)
+
+
+def _count_sparse_rows(runner: BlockRunner, iterations: int) -> None:
+    """Advance the rows-touched counter of every sparse-apply site the
+    run's optimizer ops registered, once a step."""
+    sites = getattr(runner._program_desc, "_sparse_sites", None)
+    if not sites:
+        return
+    fam = _obs_metrics.counter(
+        "paddle_sparse_rows_touched_total",
+        "embedding-table rows (incl. duplicates) carried by row-sparse "
+        "gradients into the sparse optimizer apply, per param", ("param",))
+    for pname, (k, _height) in sites.items():
+        fam.labels(param=pname).inc(k * iterations)
 
 
 def _assert_finite(name: str, arr):

@@ -13,9 +13,22 @@ functions, whose CUDA tensors go to the hand-written kernels.
   (``:32-112``): liveness from the fetches and the persistable writes (dead
   ops are skipped, so their feeds are not needed), and the state, const
   and created-persistable sets.
+- :func:`emit_op_seq` (``:150-198``) keeps the reference's row-sparse
+  hooks (``:180-190``, ``core/selected_rows.py``): a sparse-apply
+  optimizer op takes a row-sparse gradient intact, ``sum`` and ``scale``
+  keep it sparse, every other op gets it densified.
 - :func:`build_block_fn` (``:218-262``) returns ``fn(state, consts, feeds,
   step_seed) -> (fetches, new_state)``; randomness is seeded by the
-  program's ``random_seed`` when non-zero, else per step.
+  program's ``random_seed`` when non-zero, else per step. Ops run under
+  ``torch.no_grad()``, except the training forwards: a live forward op
+  that a live ``__vjp__`` names (``fwd_op_index``) runs with grad
+  recording on its own detached inputs (``ops/grad_ops.py``
+  ``record_forward``), and the runner keeps its outputs for that
+  ``__vjp__`` by op index, so each forward runs once a step, as in the
+  compiled JAX step. A ``__remat__`` forward is not kept: its
+  ``__vjp__`` replays it. Fetches and state are detached, and the kept
+  forwards die with the step; a fetched row-sparse gradient comes back
+  dense (``:244-248``).
 - :class:`BlockRunner` mirrors ``CompiledBlock`` (``:825`` ``__call__``,
   ``obs_label``): one per (program version, feeds, fetches), built by the
   executor's cache.
@@ -35,13 +48,15 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core import ir
+from paddle_tpu_torch.core import selected_rows as sr
 from paddle_tpu_torch.core.registry import (EmitContext, draw_seed, get_op,
                                             has_op)
 
 # every emitter registers itself on import
-from paddle_tpu_torch.ops import (basic, lod_ops,  # noqa: F401
-                                  math_ops, metric_ops, misc_ops, nn_ops,
-                                  rnn_ops, sequence_ops)
+from paddle_tpu_torch.ops import (basic, grad_ops,  # noqa: F401
+                                  lod_ops, math_ops, metric_ops, misc_ops,
+                                  nn_ops, optimizer_ops, rnn_ops,
+                                  sequence_ops)
 
 # op attrs the port does not run yet, by the ROADMAP item that takes them
 _AMP_ATTRS = ("__amp_bf16__", "__amp_keep_bf16__", "__amp_match_dtype__")
@@ -130,9 +145,7 @@ def check_supported(program: ir.ProgramDesc) -> None:
     causes = []
     if missing:
         causes.append(f"op types not registered in the port: {missing} "
-                      f"(autodiff and optimizer ops such as __vjp__ and "
-                      f"adam: ROADMAP A6.3; the rest of the op corpus: "
-                      f"A6.6)")
+                      f"(the rest of the op corpus: ROADMAP A6.6)")
     amp = sorted({op.type for b in program.blocks for op in b.ops
                   if any(a in op.attrs for a in _AMP_ATTRS)})
     if amp:
@@ -161,9 +174,13 @@ def check_supported(program: ir.ProgramDesc) -> None:
 
 def emit_op_seq(program: ir.ProgramDesc, block: ir.BlockDesc, indices,
                 env: Dict[str, Any], base_seed: int, step_seed: int,
-                is_test: bool, device=None) -> None:
+                is_test: bool, device=None, record=None,
+                tape=None) -> None:
     """Run the ops at ``indices`` of ``block`` over ``env`` (mutated in
-    place), the reference's interpreter loop (``:150-198``)."""
+    place), the reference's interpreter loop (``:150-198``). ``record``
+    maps a forward op's index to the ``in_grad_mask`` of its ``__vjp__``:
+    that op runs with grad recording, and ``tape`` keeps what it
+    recorded, by op index, for the ``__vjp__``."""
     for i in indices:
         op = block.ops[i]
         spec = get_op(op.type)
@@ -172,7 +189,7 @@ def emit_op_seq(program: ir.ProgramDesc, block: ir.BlockDesc, indices,
         ctx = EmitContext(base_seed=base_seed, step_base_seed=step_seed,
                           op_index=block.idx * 100_000 + op_salt,
                           is_test=is_test, program=program, op=op,
-                          device=device)
+                          device=device, tape=tape)
         ins = {}
         for slot, names in op.inputs.items():
             try:
@@ -181,7 +198,15 @@ def emit_op_seq(program: ir.ProgramDesc, block: ir.BlockDesc, indices,
                 raise KeyError(
                     f"op {op.type!r} input {slot} references undefined var "
                     f"{e.args[0]!r}; did you run the startup program?") from e
-        outs = spec.emit(ctx, ins, op.attrs)
+        if any(sr.is_sparse(v) for vals in ins.values() for v in vals) \
+                and op.type not in sr.SPARSE_APPLY_OPS:
+            outs = sr.try_sparse_emit(op.type, ins, op.attrs)
+            if outs is None:
+                outs = spec.emit(ctx, sr.densify_ins(ins), op.attrs)
+        elif record is not None and i in record:
+            outs, tape[i] = grad_ops.record_forward(ctx, op, ins, record[i])
+        else:
+            outs = spec.emit(ctx, ins, op.attrs)
         for slot, names in op.outputs.items():
             vals = outs.get(slot)
             if vals is None:
@@ -190,12 +215,36 @@ def emit_op_seq(program: ir.ProgramDesc, block: ir.BlockDesc, indices,
                 env[n] = v
 
 
+def recorded_forwards(block: ir.BlockDesc, live_ops) -> Dict[int, list]:
+    """{forward op index: its ``__vjp__``'s ``in_grad_mask``} for every
+    live forward op that a live ``__vjp__`` names, unless it carries
+    ``__remat__`` or its ``__vjp__`` takes the lookup fast path (which
+    needs no graph)."""
+    live = set(live_ops)
+    record = {}
+    for i in live_ops:
+        op = block.ops[i]
+        if op.type != "__vjp__":
+            continue
+        j = op.attrs["fwd_op_index"]
+        fwd = ir.OpDesc.from_dict(op.attrs["fwd_op"])
+        if (j not in live or block.ops[j].type != fwd.type
+                or fwd.attrs.get("__remat__")
+                or grad_ops.sparse_path_applies(
+                    fwd, op.attrs["in_grad_mask"],
+                    op.attrs["out_grad_mask"])):
+            continue
+        record[j] = list(op.attrs["in_grad_mask"])
+    return record
+
+
 def build_block_fn(program: ir.ProgramDesc, block_idx: int,
                    sig: BlockSignature, is_test: bool = False, device=None):
     """Returns ``fn(state, consts, feeds, step_seed) -> (fetches,
     new_state)`` over dicts of tensors."""
     block = program.block(block_idx)
     seed0 = program.random_seed
+    record = recorded_forwards(block, sig.live_ops)
 
     def fn(state: Dict[str, Any], consts: Dict[str, Any],
            feeds: Dict[str, Any], step_seed: int):
@@ -208,8 +257,8 @@ def build_block_fn(program: ir.ProgramDesc, block_idx: int,
         base = seed0 if seed0 != 0 else draw_seed(0, step_seed)
         with torch.no_grad():
             emit_op_seq(program, block, sig.live_ops, env, base, base,
-                        is_test, device)
-        fetches = [env[n] for n in sig.fetch_names]
+                        is_test, device, record, {})
+        fetches = [sr.densify(env[n]) for n in sig.fetch_names]
         new_state = {n: env[n] for n in sig.state_names if n in env}
         for n in sig.created_persistable:
             if n in env:

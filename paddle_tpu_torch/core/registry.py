@@ -27,6 +27,14 @@ import torch
 
 _SEED_MAX = 2 ** 31 - 1
 
+# the IR's dtype strings as torch dtypes (core/ir.py _VALID_DTYPES)
+TORCH_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+}
+
 
 def draw_seed(base: int, *salts: int) -> int:
     """An int32 seed in [0, 2**31 - 1) drawn from a ``torch.Generator``
@@ -68,6 +76,10 @@ class EmitContext:
     op: Any = None
     # the executor's device: where an emitter creates a tensor from nothing
     device: Optional[torch.device] = None
+    # the block runner's recorded forwards of this step, by op index:
+    # what a ``__vjp__`` differentiates instead of replaying its forward
+    # (``core/lowering.py``, ``ops/grad_ops.py``); None outside a runner
+    tape: Optional[Dict[int, Any]] = None
 
     def key(self, salt: int = 0) -> int:
         return draw_seed(self.base_seed, self.op_index, salt)

@@ -13,7 +13,8 @@ Read by ``utils/faults.py`` (``fault_plan``, ``fault_seed``),
 (``flight_recorder_dir``, ``flight_recorder_capacity``),
 ``observability/lock_witness.py`` (``lock_witness``),
 ``serving/autoscaler.py`` (``hbm_bytes``, the placement budget) and
-``core/executor.py`` (``check_nan_inf``, ``benchmark``).
+``core/executor.py`` (``check_nan_inf``, ``benchmark``) and
+``core/selected_rows.py`` (``disable_sparse_grad``).
 """
 
 from __future__ import annotations
@@ -146,3 +147,8 @@ define("debug_graphviz_path", str, "",
 define("benchmark", bool, False,
        "Print each executor run's wall time, the device synchronized "
        "(reference: FLAGS_benchmark executor timing).")
+define("disable_sparse_grad", bool, False,
+       "Densify embedding-table gradients instead of carrying the "
+       "row-sparse (rows, values) pair from the lookup_table / "
+       "fused_embedding_seq_pool VJP to the sparse optimizer apply "
+       "(core/selected_rows.py).")

@@ -18,7 +18,8 @@ folded weight is bit-equal to the JAX package's.
 
 Not ported: ``fuse_elewise_add_act_pass`` and the ``vjp_*`` helpers
 (``:494-521``, ``:892``). They rewrite the ``__vjp__`` ops of training
-programs (ROADMAP A6.3, A6.10).
+programs, which the port runs (``ops/grad_ops.py``); they come with
+ROADMAP A6.10.
 """
 
 from __future__ import annotations

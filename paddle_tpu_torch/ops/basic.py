@@ -1,22 +1,103 @@
-"""Emitters of the elementwise binaries and activations (counterpart of
-``paddle_tpu/ops/basic.py``) over the functions of ``ops/nn_ops.py``:
+"""Emitters of the creation ops, the elementwise binaries and the
+activations (counterpart of ``paddle_tpu/ops/basic.py``):
 
+- the creation ops of the startup programs (``basic.py:34-100``):
+  ``fill_constant``, ``fill_zeros_like``, ``gaussian_random``,
+  ``uniform_random``, ``truncated_gaussian_random`` and ``assign_value``.
+  The random ops draw from a ``torch.Generator`` on the executor's device
+  seeded by :meth:`EmitContext.key` (the program's ``random_seed`` and the
+  op's index, ``core/registry.py`` ``draw_seed``): a non-zero seed repeats
+  its draws. The bits cannot be ``jax.random``'s, so parity runs carry the
+  JAX startup scope across;
 - ``elementwise_add``, ``elementwise_sub``, ``elementwise_mul``
-  (``basic.py:181-183``): Y broadcast into X from the ``axis`` attr
-  (``nn_ops._broadcast_y``; -1: from the right);
-- ``relu``, ``sigmoid``, ``square`` (``basic.py:196-203``).
+  (``basic.py:181-183``) over ``ops/nn_ops.py``: Y broadcast into X from
+  the ``axis`` attr (``nn_ops._broadcast_y``; -1: from the right);
+- ``relu``, ``sigmoid``, ``tanh``, ``square`` (``basic.py:196-203``).
 """
 
 from __future__ import annotations
 
-from paddle_tpu_torch.core.registry import first, register_op, single
+import numpy as np
+import torch
+
+from paddle_tpu_torch.core.registry import (TORCH_DTYPES, first, register_op,
+                                            single)
 from paddle_tpu_torch.ops import nn_ops
+
+
+def _device(ctx) -> torch.device:
+    return ctx.device if ctx.device is not None else torch.device("cpu")
+
+
+def _generator(ctx) -> torch.Generator:
+    """The op's own generator on the executor's device, seeded by its
+    program-level key (the reference's initializers draw ``ctx.key()``)."""
+    g = torch.Generator(device=_device(ctx))
+    g.manual_seed(ctx.key())
+    return g
+
+
+@register_op("fill_constant", no_grad=True,
+             ref="operators/fill_constant_op.cc")
+def _fill_constant(ctx, ins, attrs):
+    return single(torch.full(tuple(attrs.get("shape", ())),
+                             attrs.get("value", 0.0),
+                             dtype=TORCH_DTYPES[attrs.get("dtype", "float32")],
+                             device=_device(ctx)))
+
+
+@register_op("fill_zeros_like", no_grad=True,
+             ref="operators/fill_zeros_like_op.cc")
+def _fill_zeros_like(ctx, ins, attrs):
+    return single(torch.zeros_like(first(ins, "X")))
+
+
+def _random(ctx, attrs, draw):
+    """``draw(t, generator)`` fills a float32 tensor of the op's shape in
+    place; the result is cast to the op's dtype."""
+    t = torch.empty(tuple(attrs.get("shape", ())), dtype=torch.float32,
+                    device=_device(ctx))
+    return single(draw(t, _generator(ctx))
+                  .to(TORCH_DTYPES[attrs.get("dtype", "float32")]))
+
+
+@register_op("gaussian_random", no_grad=True,
+             ref="operators/gaussian_random_op.cc")
+def _gaussian_random(ctx, ins, attrs):
+    mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
+    return _random(ctx, attrs,
+                   lambda t, g: t.normal_(generator=g) * std + mean)
+
+
+@register_op("uniform_random", no_grad=True,
+             ref="operators/uniform_random_op.cc")
+def _uniform_random(ctx, ins, attrs):
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    return _random(ctx, attrs, lambda t, g: t.uniform_(lo, hi, generator=g))
+
+
+@register_op("truncated_gaussian_random", no_grad=True,
+             ref="operators/truncated_gaussian_random_op.cc")
+def _truncated_gaussian_random(ctx, ins, attrs):
+    """A standard normal truncated to [-2, 2], then ``* std + mean``."""
+    mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
+    return _random(ctx, attrs, lambda t, g: torch.nn.init.trunc_normal_(
+        t, 0.0, 1.0, -2.0, 2.0, generator=g) * std + mean)
+
+
+@register_op("assign_value", no_grad=True,
+             ref="operators/assign_value_op.cc")
+def _assign_value(ctx, ins, attrs):
+    dtype = attrs.get("dtype", "float32")
+    vals = np.asarray(attrs.get("values", []), dtype=dtype).reshape(
+        tuple(attrs.get("shape", ())))
+    return single(torch.from_numpy(vals).to(_device(ctx)))
 
 _ELEMENTWISE = {"elementwise_add": nn_ops.elementwise_add,
                 "elementwise_sub": nn_ops.elementwise_sub,
                 "elementwise_mul": nn_ops.elementwise_mul}
 _ACTIVATIONS = {"relu": nn_ops.relu, "sigmoid": nn_ops.sigmoid,
-                "square": nn_ops.square}
+                "tanh": torch.tanh, "square": nn_ops.square}
 
 
 def _register_elementwise(name, fn):

@@ -16,6 +16,9 @@ are those the JAX package gives it:
 - ``sparse=False``: the dense scatter-add of ``_embed_pool_bwd``
   (``paddle_tpu/ops/pallas/embed_pool.py:114-127``).
 
+Its op emitter takes the dense gradient: the executor's row-sparse W
+gradient comes from the ``__vjp__`` fast path (``ops/grad_ops.py``).
+
 An id outside [0, V) reads the clipped row (the kernel's rule), and its
 gradient goes to that row too.
 
@@ -219,6 +222,14 @@ def _lstm_attrs(attrs):
                 cell_activation=attrs.get("cell_activation", "tanh"),
                 candidate_activation=attrs.get("candidate_activation",
                                                "tanh"))
+
+
+@register_op("fused_embedding_seq_pool",
+             ref="operators/fused/fused_embedding_seq_pool_op.cc")
+def _fused_embedding_seq_pool_op(ctx, ins, attrs):
+    return single(fused_embedding_seq_pool(first(ins, "W"), first(ins, "Ids"),
+                                           first(ins, "SeqLens"),
+                                           sparse=False))
 
 
 @register_op("conv2d_fusion", ref="operators/fused/conv_fusion_op.cc")

@@ -2,11 +2,13 @@
 ``paddle_tpu/ops/math_ops.py``) over the functions of ``ops/nn_ops.py``:
 ``mul`` (``:26``), ``matmul`` (``:51``), ``scale`` (``:74``), ``sum``
 (``:84``), ``reduce_sum`` (``:115``), ``mean`` (``:122``), ``top_k``
-(``:137``), ``reshape`` (``:147``), ``transpose`` (``:181``), ``concat``
-(``:193``) and ``slice`` (``:218``).
+(``:137``), ``reshape`` (``:147``), ``squeeze`` (``:164``), ``transpose``
+(``:181``), ``concat`` (``:193``) and ``slice`` (``:218``).
 """
 
 from __future__ import annotations
+
+import torch
 
 from paddle_tpu_torch.core.registry import first, register_op, single
 from paddle_tpu_torch.ops import nn_ops
@@ -61,6 +63,21 @@ def _top_k(ctx, ins, attrs):
 def _reshape(ctx, ins, attrs):
     return single(nn_ops.reshape(first(ins, "X"),
                                  list(attrs.get("shape", ()))))
+
+
+@register_op("squeeze", ref="operators/squeeze_op.cc")
+def _squeeze(ctx, ins, attrs):
+    """Drop the size-1 ``axes`` (all size-1 axes when none are named); a
+    named axis of another size raises, as ``jnp.squeeze`` does."""
+    x = first(ins, "X")
+    axes = attrs.get("axes", [])
+    if not axes:
+        return single(torch.squeeze(x))
+    axes = tuple(a % x.dim() for a in axes)
+    if any(x.shape[a] != 1 for a in axes):
+        raise ValueError(f"squeeze: axes {axes} of shape {tuple(x.shape)} "
+                         f"are not all of size 1")
+    return single(torch.squeeze(x, axes))
 
 
 @register_op("transpose", ref="operators/transpose_op.cc")

@@ -431,6 +431,8 @@ def dropout(x: torch.Tensor, p: float, seed: int, is_test: bool = False,
         return x if upscale else x * (1.0 - p)
     if p >= 1.0:
         return torch.zeros_like(x)      # everything dropped, no 0 * inf
+    if p == 0.0:
+        return x        # the mask keeps every element (threshold 0), x * 1
     idx = torch.arange(x.numel(), device=x.device).view(x.shape)
     keep = hash_keep_mask(seed, 0, idx, 0, p)
     return x * (keep if upscale else (keep > 0)).to(x.dtype)

@@ -79,6 +79,7 @@ import torch
 
 import paddle_tpu.fluid as fluid
 from paddle_tpu import models as jmodels
+from paddle_tpu.fluid import unique_name
 
 from paddle_tpu_torch.contrib import mixed_precision as tmp
 from paddle_tpu_torch.layers import Dropout
@@ -312,6 +313,20 @@ def test_classifier_matches_the_jax_executor(name):
         f"eval logits off by {err:.3g}"
 
 
+def _test_program(name):
+    """(main, startup, loss, params_grads) of ``build(is_train=False)`` with
+    a backward, under a fresh ``unique_name`` guard: the names, and so the
+    running statistics drawn in their sorted order, do not depend on what
+    the worker built before."""
+    jmod, _, kw, _, _ = MODELS[name]
+    kw = {k: v for k, v in kw.items() if k != "lr"}
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), unique_name.guard():
+        loss, _, _ = jmod.build(is_train=False, **kw)
+        params_grads = fluid.backward.append_backward(loss)
+    return main, startup, loss, params_grads
+
+
 @pytest.mark.parametrize("name", BN_MODELS)
 def test_test_program_gradients_match_the_jax_program(name):
     """The gradients of the test program: ``build(is_train=False)`` with a
@@ -319,12 +334,9 @@ def test_test_program_gradients_match_the_jax_program(name):
     runs on the running statistics and every dropout scales by 1 - p, so
     the model's gradient is as well conditioned as a plain conv net's and
     is held to ``TIGHT``."""
-    jmod, tmod, kw, _, _ = MODELS[name]
+    _, tmod, kw, _, _ = MODELS[name]
     kw = {k: v for k, v in kw.items() if k != "lr"}
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
-        loss, _, _ = jmod.build(is_train=False, **kw)
-        params_grads = fluid.backward.append_backward(loss)
+    main, startup, loss, params_grads = _test_program(name)
     block = main.global_block()
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CPUPlace())
@@ -356,6 +368,23 @@ def test_test_program_gradients_match_the_jax_program(name):
     want = dict(zip([p.name for p, _ in params_grads],
                     (np.asarray(g) for g in out[1:])))
     _grads_close(names, grads, want, TIGHT["grad"], name)
+
+
+def test_test_program_names_ignore_names_drawn_before():
+    """81 ``batch_norm`` names drawn first (outside the guard) leave the
+    test program's names as a fresh process builds them. Unguarded, they
+    took resnet's names across ``batch_norm_99`` / ``batch_norm_100``,
+    where the sorted order draws other running statistics: there
+    ``batch_norm_99.w_0``'s fp32 gradient lies 1.4 % from fp64 on both
+    sides, and the two sides 1.44e-3 apart by ``_grads_close``'s measure
+    (7.6e-6 at the fresh names)."""
+    fresh = sorted(_test_program("resnet")[0].global_block().vars)
+    with unique_name.guard():
+        for _ in range(81):
+            unique_name.generate("batch_norm")
+        drawn = sorted(_test_program("resnet")[0].global_block().vars)
+    assert drawn == fresh
+    assert "batch_norm_0.mean_0" in fresh
 
 
 @pytest.mark.parametrize("name", sorted(AMP_TOL))

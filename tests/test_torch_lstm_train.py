@@ -26,6 +26,7 @@ Tolerances, each with its reason:
   parity (__graft_entry__.py:180), ten Adam steps amplifying those last-bit
   differences. A curve that is not finite fails outright."""
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -35,6 +36,7 @@ import pytest
 import torch
 
 import paddle_tpu.fluid as fluid
+from paddle_tpu.fluid import unique_name
 from paddle_tpu.models import stacked_dynamic_lstm as jL
 from paddle_tpu.ops import pallas as pk
 
@@ -70,16 +72,26 @@ def _finite_curve(curve):
     return curve
 
 
-def _jax_train(cfg, batch):
-    """(initial parameters, step-1 gradients, loss curve, accuracies) of
-    the JAX executor."""
+def _jax_startup(cfg, fresh_names=True):
+    """(main, loss, acc, parameter names, scope, executor) of the JAX
+    build, its startup run. ``fresh_names``: built under its own
+    ``unique_name`` guard, so the names do not depend on what the process
+    built before."""
     main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
+    with fluid.program_guard(main, startup), (
+            unique_name.guard() if fresh_names else contextlib.nullcontext()):
         loss, (acc,), _ = jL.build(**cfg)
     names = [p.name for p in main.global_block().all_parameters()]
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CPUPlace())
     exe.run(startup, scope=scope)
+    return main, loss, acc, names, scope, exe
+
+
+def _jax_train(cfg, batch):
+    """(initial parameters, step-1 gradients, loss curve, accuracies) of
+    the JAX executor."""
+    main, loss, acc, names, scope, exe = _jax_startup(cfg)
     rng = np.random.RandomState(3)
     for n in names:
         if n.startswith("dynamic_lstm_") and n.endswith(".b_0"):
@@ -193,16 +205,16 @@ def test_scope_names_map_onto_every_port_parameter(jax_runs):
         sorted(keys.values())
 
 
-def test_lstm_params_from_jax_raises_on_missing_and_unused_names(jax_runs):
-    init, _, _, _ = jax_runs("scan")
-    n_layer = RUNS["scan"][0]["stacked_num"]
+def _check_refusals(init, n_layer):
+    """``lstm_params_from_jax``'s six refusals on the scope ``init``."""
     lstm_bias = next(n for n in init if n.startswith("dynamic_lstm_")
                      and n.endswith(".b_0"))
     missing = {n: v for n, v in init.items() if n != lstm_bias}
     with pytest.raises(KeyError, match="dynamic_lstm"):
         convert.lstm_params_from_jax(missing, n_layer)
-    head = max((n for n in init if n.startswith("fc_")),
-               key=lambda n: int(n.split("_")[1].split(".")[0]))
+    fc_index = {n: int(n.split("_")[1].split(".")[0]) for n in init
+                if n.startswith("fc_")}
+    head = max(fc_index, key=fc_index.get)
     with pytest.raises(KeyError, match="fc"):
         convert.lstm_params_from_jax(
             {n: v for n, v in init.items()
@@ -210,8 +222,9 @@ def test_lstm_params_from_jax_raises_on_missing_and_unused_names(jax_runs):
     with pytest.raises(KeyError, match="not a stacked-LSTM parameter"):
         convert.lstm_params_from_jax({**init, "layer_norm_0.w_0": init[
             lstm_bias]}, n_layer)
+    unused = f"fc_{max(fc_index.values()) + 1}.w_0"    # no layer of the scope
     with pytest.raises(KeyError, match="fc"):
-        convert.lstm_params_from_jax({**init, "fc_99.w_0": init[lstm_bias]},
+        convert.lstm_params_from_jax({**init, unused: init[lstm_bias]},
                                      n_layer)
     with pytest.raises(KeyError, match="layers in the scope"):
         convert.lstm_params_from_jax(init, n_layer + 1)
@@ -219,6 +232,27 @@ def test_lstm_params_from_jax_raises_on_missing_and_unused_names(jax_runs):
     no_peep[lstm_bias] = init[lstm_bias][:, :4 * 16]
     with pytest.raises(ValueError, match="lstm_b"):
         convert.lstm_params_from_jax(no_peep, n_layer)
+
+
+def test_lstm_params_from_jax_raises_on_missing_and_unused_names(jax_runs):
+    init, _, _, _ = jax_runs("scan")
+    _check_refusals(init, RUNS["scan"][0]["stacked_num"])
+
+
+@pytest.mark.parametrize("fresh_names", [True, False],
+                         ids=["guarded_build", "unguarded_build"])
+def test_lstm_params_from_jax_refusals_after_97_fc_names(fresh_names):
+    """The refusals hold whatever the process drew before: 97 ``fc`` names
+    drawn first (the JAX build's own ``fc`` layers then number 97-99
+    without a guard of their own, and the "unused" name is past them)."""
+    cfg = RUNS["scan"][0]
+    with unique_name.guard():
+        for _ in range(97):
+            unique_name.generate("fc")
+        _, _, _, names, scope, _ = _jax_startup(cfg, fresh_names)
+    init = {n: np.array(scope.find_var(n)) for n in names}
+    assert any(n.startswith("fc_97") for n in init) != fresh_names
+    _check_refusals(init, cfg["stacked_num"])
 
 
 def test_build_follows_the_jax_defaults_and_the_device_rule():

@@ -15,6 +15,17 @@ scope: the program in exactly the saved-model format, and no weights.
 and ``tests/test_torch_predictor_gpu.py`` write seeded weights beside a
 copy.
 
+Beside them, the training pairs ``tests/torch_programs/<name>/
+__main__.json`` and ``__startup__.json`` (:data:`TRAIN_PROGRAMS`): a
+bench model's ``build(is_train=True)`` (its backward's ``__vjp__`` ops
+and its optimizer ops) and the startup program that initialises its
+scope, each ``ProgramDesc.serialize_to_string()`` of the JAX build under
+a fresh ``unique_name`` guard. The port loads a pair with
+``fluid.Program(ir.ProgramDesc.parse_from_string(...))``. The full-width
+pairs are ``chip_smoke.py``'s phase 24; the tiny twins are
+``tests/test_torch_train_programs.py``'s and
+``tests/test_torch_train_programs_gpu.py``'s.
+
     JAX_PLATFORMS=cpu python tools/torch_export_programs.py [NAME ...]
 
 writes every program (or the named ones); ``--check`` writes nothing and
@@ -99,6 +110,40 @@ PROGRAMS = {
 }
 
 
+# name -> (model module, build kwargs) of the training pairs
+TRAIN_PROGRAMS = {
+    # full width, for the card (chip_smoke.py's TRAIN, LSTM, MT, DEEPFM)
+    "transformer_base_train": ("transformer",
+                               dict(fused_attention=True, fused_head=True)),
+    "stacked_dynamic_lstm_train": ("stacked_dynamic_lstm",
+                                   dict(dict_dim=5000, max_len=100,
+                                        emb_dim=512, hid_dim=512,
+                                        stacked_num=3)),
+    "machine_translation_train": ("machine_translation",
+                                  dict(src_vocab=10000, tgt_vocab=10000,
+                                       max_len=32, emb_dim=512,
+                                       hid_dim=512)),
+    "deepfm_train": ("deepfm", dict(num_fields=26, vocab_size=100000,
+                                    embed_dim=16, lr=1e-3)),
+    "resnet50_train": ("resnet", {}),
+    # tiny twins, for the CPU tests
+    "transformer_tiny_train": ("transformer",
+                               dict(src_vocab=64, tgt_vocab=64, max_len=8,
+                                    d_model=32, d_inner=64, n_head=2,
+                                    n_layer=1, dropout=0.0,
+                                    fused_attention=True, fused_head=True)),
+    "stacked_dynamic_lstm_tiny_train": ("stacked_dynamic_lstm",
+                                        dict(dict_dim=50, max_len=8,
+                                             emb_dim=16, hid_dim=16,
+                                             stacked_num=2)),
+    "mnist_train": ("mnist", {}),
+    "deepfm_tiny_train": ("deepfm", dict(num_fields=4, vocab_size=64,
+                                         embed_dim=8)),
+    "machine_translation_tiny_train": ("machine_translation", {}),
+}
+MAIN_FILE, STARTUP_FILE = "__main__.json", "__startup__.json"
+
+
 def _last_output(main, op_type: str) -> str:
     ops = [op for op in main.global_block().desc.ops if op.type == op_type]
     if not ops:
@@ -130,34 +175,59 @@ def program_json(name: str) -> bytes:
             return f.read()
 
 
-def committed_path(name: str) -> str:
-    return os.path.join(OUT_DIR, name, MODEL_FILE)
+def train_json(name: str):
+    """``{file name: bytes}`` of training pair ``name``, built now."""
+    import importlib
+    import paddle_tpu.fluid as fluid
+    from paddle_tpu.fluid import unique_name
+    module, kwargs = TRAIN_PROGRAMS[name]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), unique_name.guard():
+        importlib.import_module(f"paddle_tpu.models.{module}").build(
+            is_train=True, **kwargs)
+    return {MAIN_FILE: main.desc.serialize_to_string(),
+            STARTUP_FILE: startup.desc.serialize_to_string()}
+
+
+def files_of(name: str):
+    """``{file name: bytes}`` of program ``name`` (saved or training)."""
+    if name in TRAIN_PROGRAMS:
+        return train_json(name)
+    return {MODEL_FILE: program_json(name)}
+
+
+def committed_path(name: str, file: str = MODEL_FILE) -> str:
+    return os.path.join(OUT_DIR, name, file)
 
 
 def is_current(name: str) -> bool:
-    """The committed file holds what ``build`` gives now."""
-    with open(committed_path(name), "rb") as f:
-        return json.loads(f.read()) == json.loads(program_json(name))
+    """The committed files hold what ``build`` gives now."""
+    for file, data in files_of(name).items():
+        with open(committed_path(name, file), "rb") as f:
+            if json.loads(f.read()) != json.loads(data):
+                return False
+    return True
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("names", nargs="*", help=f"of {sorted(PROGRAMS)}")
+    ap.add_argument("names", nargs="*",
+                    help=f"of {sorted(PROGRAMS) + sorted(TRAIN_PROGRAMS)}")
     ap.add_argument("--check", action="store_true",
                     help="compare with the committed files, write nothing")
     args = ap.parse_args(argv)
     stale = []
-    for name in args.names or PROGRAMS:
+    for name in args.names or [*PROGRAMS, *TRAIN_PROGRAMS]:
         if args.check:
             if not is_current(name):
                 stale.append(name)
             continue
-        data = program_json(name)
-        path = committed_path(name)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "wb") as f:
-            f.write(data)
-        print(f"{path}: {len(data)} bytes")
+        for file, data in files_of(name).items():
+            path = committed_path(name, file)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(data)
+            print(f"{path}: {len(data)} bytes")
     if stale:
         print(f"stale: {stale}")
     return 1 if stale else 0
