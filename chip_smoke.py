@@ -6,7 +6,11 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero without the
-final line:
+final line. Every profiler window (``profile_calls``) opens with 1024
+launches that it does not count: late in this script the profiler drops
+the first kernel records of a window. Every window counts the launch
+calls whose kernel record is missing, and the tally is printed after
+phase 25.
 
 1. Device: the card's name, count and power limit (``nvidia-smi``).
    Without CUDA the script fails.
@@ -534,9 +538,34 @@ final line:
     and device busy and idle share over a profiler window of 3, beside
     the Module's in the same phase; peak memory of the 2nd and the 5th
     timed step within 1 %. (d) The Transformer's bench program (dropout
-    0.1): 10 steps on one batch, a finite falling loss. Its JSON line is
+    0.1): 10 steps on one batch, a finite falling loss, step p50, the 2nd
+    and 5th steps' peak memory and device busy over a profiler window of
+    3 more steps. Its JSON line is
     ``{"train_programs": ...}``.
-25. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+25. Programs built by the port (``builder_phase``), with no JAX on the
+    machine: (1) ``paddle_tpu_torch.fluid.models.transformer.build`` and
+    ``stacked_dynamic_lstm.build`` at the arguments of
+    ``tools/torch_export_programs.py``'s ``TRAIN_PROGRAMS`` give main and
+    startup descs equal, as JSON values, to the committed JAX builds
+    ``transformer_base_train`` and ``stacked_dynamic_lstm_train``. (2)
+    Transformer-base built again with ``fused_attention``, ``fused_head``
+    and the Noam schedule (``lr`` 2.0, warmup 4000, dropout 0.1): its
+    startup on ``fluid.Executor()`` (the default place), then 3 steps at
+    batch 32 through ``exe.run(feed=..., fetch_list=[loss, rate])`` on the
+    default main program; the rates equal the closed form at steps 1-3,
+    the losses are finite, and from zeroed counters every step launches
+    18 flash forwards, 18 flash backwards and 1 fused-CE forward and
+    backward, confirmed by profiler name in a window of one more step
+    (``checked_window``; step p50 and the 2nd step's peak memory beside
+    device busy). (3) The port-built
+    stacked LSTM (batch 64) trains 3 steps from its own startup: 3 LSTM
+    forward and 3 backward launches a step. (4) The Transformer's test
+    clone saved by ``save_inference_model`` and loaded by
+    ``load_inference_model`` answers one batch bit-equal to the clone;
+    ``save_checkpoint`` then ``load_checkpoint`` gives every persistable
+    back bit-equal. Its JSON line is ``{"built_programs": ...}``; the
+    phase prints its own time.
+26. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range; flash_fwd, fused_ce_fwd and lstm_train_fwd
@@ -544,8 +573,9 @@ final line:
     ``launches_predictor`` and ``launches_served``; gru_train_fwd and
     seqpool with phase 23's ``launches_predictor``; every kernel with
     phase 24's ``launches_train_program``, one executor training step of
-    each program that launches it), then, last, ``{"ok": true, "device":
-    {...}}``.
+    each program that launches it, and phase 25's
+    ``launches_built_program``, its 3 steps of each port-built program),
+    then, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2596,7 +2626,12 @@ def fleet_phase(torch, dev, card, served, server):
               f"ready again {out['sigkill']['restart_s']:.2f} s after the "
               f"kill")
 
-        # (d) rolling restart under load
+        # (d) rolling restart under load, once every replica is ready
+        # again: the restart refuses to start with no other replica
+        # ready, and the SIGKILL's failovers can leave the survivor
+        # briefly not ready
+        wait_for(lambda: all(r.state == "ready" for r in router._replicas),
+                 "every replica ready before the rolling restart")
         pids = {r.index: r.proc.pid for r in router._replicas}
         stop = threading.Event()
         load = threading.Thread(target=lambda: res.__setitem__(
@@ -3576,57 +3611,129 @@ def profile_window(torch, model, opt, feeds):
                          len(feeds))
 
 
+# The profiler drops the first kernel records of a window late in this
+# script: the first 8-16 launches of each window from phase 4b on, 34-39
+# from phase 22 on, none before (PERF.md, section 6), whatever the window's
+# length or the host time before them. Every window therefore opens with
+# PROFILE_PRIMER launches of a one-element add and WARM_GAP_S of host
+# sleep, and counts only the device records whose CUDA call started after
+# the middle of the gap. PROFILE_LOG keeps, a window, (phase, launch
+# calls, calls whose kernel record is missing, of those in the counted
+# part); main() prints the tally.
+PROFILE_PRIMER = 1024
+WARM_GAP_S = 0.05
+PROFILE_LOG = []
+LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
+COUNTED = "chip_smoke.counted"
+
+
+def phase_on_stack():
+    """The innermost ``*_phase`` function on the stack, or ``main``."""
+    import traceback
+    names = [f.name for f in traceback.extract_stack()]
+    return next((n for n in reversed(names) if n.endswith("_phase")),
+                "main")
+
+
+def lost_line(calls, lost, n_lost_counted):
+    """A printed account of the launch calls whose kernel record is
+    missing: where in the window the first were (ordinal among the launch
+    calls, ms after the first call) and how many fell in the counted
+    part."""
+    t0 = calls[0].time_range.start
+    where = [(calls.index(ev), round((ev.time_range.start - t0) / 1e3, 3))
+             for ev in lost[:4]]
+    return (f"profiler: {len(lost)} of {len(calls)} launch calls have no "
+            f"kernel record, {n_lost_counted} in the counted part; the "
+            f"first at (launch call #, ms after the first call) {where}")
+
+
 def profile_calls(torch, work, n):
     """(device busy ms per step, idle share, the flash, fused-CE,
     recurrent (LSTM or GRU loops and their products) and pooling kernels'
     shares of device time, the library's conv and GEMM kernels' share
     (``CONV_MARKS``), host ms per step) over a torch.profiler window of
-    ``work()``, which does ``n`` steps and ends in a synchronize."""
-    from torch.profiler import ProfilerActivity, profile
+    ``work()``, which does ``n`` steps and ends in a synchronize. The
+    window opens with the primer (PROFILE_PRIMER above), whose records
+    are not counted; ``lost_records`` counts the launch calls of the
+    window whose kernel record is missing, and those of the counted
+    part."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    one = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        work()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events only: a user annotation (Optimizer.step#Adam.step)
-    # also carries device time, the sum of the kernels under it
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0
+        for _ in range(PROFILE_PRIMER):
+            one.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(WARM_GAP_S)
+        with record_function(COUNTED):
+            t0 = time.perf_counter()
+            work()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    cut = next(ev.time_range.start for ev in events
+               if ev.name == COUNTED and ev.device_type == cpu
+               ) - WARM_GAP_S * 1e6 / 2
+    api = [ev for ev in events
+           if ev.device_type == cpu and ev.name.startswith("cu")]
+    counted_ids = {ev.id for ev in api if ev.time_range.start >= cut}
+    records = [ev for ev in events
+               if ev.device_type == cuda
                and not getattr(ev, "is_user_annotation", False)
-               and not ev.key.startswith("Optimizer.")]
+               and ev.name != COUNTED]
+    have = {ev.id for ev in records}
+    calls = sorted((ev for ev in api
+                    if any(c in ev.name for c in LAUNCH_CALLS)),
+                   key=lambda ev: ev.time_range.start)
+    lost = [ev for ev in calls if ev.id not in have]
+    counted_calls = sum(ev.id in counted_ids for ev in calls)
+    n_lost_counted = sum(ev.id in counted_ids for ev in lost)
+    PROFILE_LOG.append((phase_on_stack(), len(calls), len(lost),
+                        n_lost_counted))
+    if lost:
+        print(lost_line(calls, lost, n_lost_counted))
+    if counted_calls and n_lost_counted == counted_calls:
+        fail(f"profiler: every one of the {counted_calls} kernel records "
+             f"after the primer is missing")
+    # device records only: a user annotation (Optimizer.step#Adam.step)
+    # also carries device time, the sum of the kernels under it
+    kernels = [ev for ev in records
+               if ev.self_device_time_total > 0
+               and not ev.name.startswith("Optimizer.")
+               and ev.id in counted_ids]
     busy_us = sum(ev.self_device_time_total for ev in kernels)
-    flash_us = sum(ev.self_device_time_total for ev in kernels
-                   if "flash_" in ev.key)
-    fce_us = sum(ev.self_device_time_total for ev in kernels
-                 if "fused_ce_" in ev.key)
-    rnn_us = sum(ev.self_device_time_total for ev in kernels
-                 if any(k in ev.key for k in ("lstm_", "gru_", "rnn_")))
-    pool_us = sum(ev.self_device_time_total for ev in kernels
-                  if "seqpool" in ev.key or "embed_pool" in ev.key)
-    conv_us = sum(ev.self_device_time_total for ev in kernels
-                  if any(m in ev.key.lower() for m in CONV_MARKS))
-    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
-    families = {}
+
+    def share(pred):
+        us = sum(ev.self_device_time_total for ev in kernels if pred(ev.name))
+        return us / busy_us if busy_us else 0.0
+    by_name, families = {}, {}
     for ev in kernels:
-        name = kernel_family(ev.key)
-        if name:
-            us, count = families.get(name, (0.0, 0.0))
-            families[name] = (us + ev.self_device_time_total / n,
-                              count + ev.count / n)
+        us, count = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (us + ev.self_device_time_total, count + 1)
+    for name, (us, count) in by_name.items():
+        fam = kernel_family(name)
+        if fam:
+            f_us, f_count = families.get(fam, (0.0, 0.0))
+            families[fam] = (f_us + us / n, f_count + count / n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"device_busy_ms_per_step": busy_us / n / 1e3,
             "host_ms_per_step": wall_ms / n,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
-            "flash_share": flash_us / busy_us if busy_us else 0.0,
-            "fused_ce_share": fce_us / busy_us if busy_us else 0.0,
-            "rnn_share": rnn_us / busy_us if busy_us else 0.0,
-            "pool_share": pool_us / busy_us if busy_us else 0.0,
-            "conv_gemm_share": conv_us / busy_us if busy_us else 0.0,
-            "launches_per_step": sum(ev.count for ev in kernels) / n,
+            "flash_share": share(lambda k: "flash_" in k),
+            "fused_ce_share": share(lambda k: "fused_ce_" in k),
+            "rnn_share": share(lambda k: any(
+                m in k for m in ("lstm_", "gru_", "rnn_"))),
+            "pool_share": share(lambda k: "seqpool" in k
+                                or "embed_pool" in k),
+            "conv_gemm_share": share(lambda k: any(
+                m in k.lower() for m in CONV_MARKS)),
+            "launches_per_step": len(kernels) / n,
+            "lost_records": {"window": len(lost), "counted": n_lost_counted},
             "families": families,
-            "top_kernels": [(ev.key[:80], ev.self_device_time_total / n,
-                             ev.count / n) for ev in top]}
+            "top_kernels": [(name[:80], us / n, count / n)
+                            for name, (us, count) in top]}
 
 
 # the port's kernels by profiler name: (family, what the name holds (one
@@ -3693,10 +3800,11 @@ def family_line(prof, busy_key="device_busy_ms_per_step"):
                                                      .items()))
 
 
-# a profiler window can drop a kernel record, never add one: on an H100 one
-# 3-step window of the MT training showed 5 of its 6 GRU forwards while the
-# wrappers' counters showed every launch. A window short of a family is
-# taken again, at most this many windows in all.
+# a profiler window can drop a kernel record, never add one: on an H100,
+# late in this script, one 3-step window of the MT training showed 5 of its
+# 6 GRU forwards while the wrappers' counters showed every launch (before
+# profile_calls opened each window with its primer). A window short of a
+# family is taken again, at most this many windows in all.
 PROFILE_WINDOWS = 3
 
 
@@ -7210,6 +7318,16 @@ def train_program_phase(torch, dev, card, module_runs, programs=None):
                      f"{blosses[0]:.4f} -> {blosses[-1]:.4f} in "
                      f"{len(blosses)} steps, p50 "
                      f"{stats['bench']['step_p50_ms']:.3f} ms")
+            if cuda:
+                stats["bench"]["profile"] = bprof = profile_calls(
+                    torch, lambda: exe_steps(torch, exe, fluid.Program(main),
+                                             bscope, [one] * PROFILE_STEPS),
+                    PROFILE_STEPS)
+                line += (f", device busy "
+                         f"{bprof['device_busy_ms_per_step']:.3f} ms, idle "
+                         f"{bprof['idle_share']:.3f}, peak memory "
+                         f"{bpeaks[1] / 2 ** 20:.1f} / "
+                         f"{bpeaks[4] / 2 ** 20:.1f} MiB at steps 2 / 5")
             del bscope
         stats["seconds"] = time.perf_counter() - t_prog
         print(line + f"; {stats['seconds']:.1f} s")
@@ -7230,6 +7348,244 @@ def zero_dropout(desc):
             if "dropout_prob" in attrs:
                 attrs["dropout_prob"] = 0.0
     out.bump_version()
+    return out
+
+
+# -- phase 25: programs built by the port -------------------------------------
+
+# committed pair -> (builder under paddle_tpu_torch/fluid/models, its
+# arguments): tools/torch_export_programs.py's TRAIN_PROGRAMS
+BUILDER_PAIRS = {
+    "transformer_base_train": ("transformer",
+                               dict(fused_attention=True, fused_head=True)),
+    "stacked_dynamic_lstm_train": ("stacked_dynamic_lstm", dict(LSTM)),
+}
+BUILDER_NOAM = dict(fused_attention=True, fused_head=True,
+                    lr_scheduler="noam", lr=2.0)
+BUILDER_STEPS = 3
+# steps a profiler window of the Noam Transformer (7200 kernel records a
+# step)
+BUILDER_PROFILE_STEPS = 1
+BUILDER_SEED = 25
+
+
+def build_program(name, kwargs):
+    """(main, startup, loss name) of ``paddle_tpu_torch.fluid.models.
+    <name>.build(**kwargs)`` under a fresh program pair and name guard."""
+    import importlib
+    from paddle_tpu_torch import fluid
+    mod = importlib.import_module("paddle_tpu_torch.fluid.models." + name)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = mod.build(**kwargs)
+    return main, startup, loss.name
+
+
+def noam_rate(lr, d_model, warmup, step):
+    """The Noam schedule's closed form at ``step`` (1-based)."""
+    return lr * d_model ** -0.5 * min(step ** -0.5, step * warmup ** -1.5)
+
+
+def builder_phase(torch, dev, card, pairs=None, cfg=None, batch=BATCH,
+                  lstm_cfg=None, lstm_batch=LSTM_BATCH):
+    """Phase 25 (module docstring): the port's program builder without
+    JAX. ``pairs`` {committed pair: (builder, arguments)}, ``cfg`` /
+    ``lstm_cfg`` and the batches override the full-width defaults (the
+    CPU rehearsal: the tiny pairs and widths, where the profiler and the
+    launch counts are skipped)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.models import transformer as builder
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as fc
+    t_phase = time.perf_counter()
+    pairs = BUILDER_PAIRS if pairs is None else pairs
+    cfg = dict(TRAIN if cfg is None else cfg)
+    lstm_cfg = dict(LSTM if lstm_cfg is None else lstm_cfg)
+    cuda = dev.type == "cuda"
+    out = {"card": card}
+
+    # (1) the builders against the committed JAX builds, as JSON values
+    built = {}
+    for name, (model, kwargs) in pairs.items():
+        t0 = time.perf_counter()
+        main, startup, loss = build_program(model, kwargs)
+        for prog, f in ((main, "__main__"), (startup, "__startup__")):
+            with open(os.path.join(EXEC_DIR, name, f + ".json")) as fh:
+                want = json.load(fh)
+            if json.loads(prog.desc.serialize_to_string()) != want:
+                fail(f"{name}: the port's {model}.build gives another "
+                     f"{f} program than the committed JAX build")
+        built[name] = (main, startup, loss)
+        out[f"{name}_build_s"] = time.perf_counter() - t0
+        print(f"[{card}] {name}: the port's build equals the committed "
+              f"pair ({len(main.desc.global_block.ops)} + "
+              f"{len(startup.desc.global_block.ops)} ops) in "
+              f"{out[f'{name}_build_s']:.2f} s")
+
+    # (2) Transformer-base (Noam) on the default place and programs
+    kw = dict(cfg, **BUILDER_NOAM)
+    n_attn = 3 * cfg["n_layer"]
+    want = {"flash_attention.flash_fwd": n_attn,
+            "flash_attention.flash_bwd": n_attn,
+            "fused_ce.fused_ce_fwd": 1, "fused_ce.fused_ce_bwd": 1}
+    feeds = [f for f, _ in program_feeds(
+        torch, dev, "transformer", cfg, batch, BUILDER_SEED,
+        BUILDER_STEPS + BUILDER_PROFILE_STEPS)]
+    main, startup = fluid.Program(), fluid.Program()
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard(), \
+            fluid.scope_guard(scope):
+        loss, _, _ = builder.build(**kw)
+        out["noam_build_s"] = time.perf_counter() - t0
+        rate = next(op for op in main.desc.global_block.ops
+                    if op.type == "adam").input("LearningRate")[0]
+        exe = fluid.Executor() if cuda else fluid.Executor(fluid.CPUPlace())
+        exe.run(fluid.default_startup_program())
+        losses, rates, ms = [], [], []
+        reset_all_launches()
+        for f in feeds[:BUILDER_STEPS]:
+            before = all_launches()
+            if cuda and len(ms) == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            l, r = exe.run(feed=f, fetch_list=[loss, rate])
+            if cuda:
+                torch.cuda.synchronize()
+                if len(ms) == 1:
+                    peak = int(torch.cuda.max_memory_allocated())
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(np.asarray(l).reshape(-1)[0]))
+            rates.append(float(np.asarray(r).reshape(-1)[0]))
+            got = {k: n - before[k] for k, n in all_launches().items()
+                   if n != before[k]}
+            if cuda and got != want:
+                fail(f"Noam Transformer: step {len(ms)} launched {got}, "
+                     f"want {want}")
+        launched = {k: n for k, n in all_launches().items() if n}
+        if not all(np.isfinite(losses)):
+            fail(f"Noam Transformer: non-finite losses {losses}")
+        closed = [noam_rate(kw["lr"], cfg["d_model"], 4000, i)
+                  for i in range(1, BUILDER_STEPS + 1)]
+        if not np.allclose(rates, closed, rtol=1e-6, atol=0.0):
+            fail(f"Noam Transformer: rates {rates}, closed form {closed}")
+        run = {"losses": losses, "rates": rates, "noam_closed_form": closed,
+               "step_ms": ms, "step_p50_ms": float(np.median(ms)),
+               "launches": launched}
+        if cuda:
+            run["peak_mem_bytes_step_2"] = peak
+        t0 = time.perf_counter()
+        if cuda:
+            slabs = -(-cfg["tgt_vocab"] // fc.SLAB_COLS)
+            d = cfg["d_model"] // cfg["n_head"]
+            tc = n_attn if fa.fwd_kernel(d) == "tensor_cores" else 0
+            one = fa.bwd_kernel(cfg["max_len"], d) == "flash_bwd"
+            prof_feeds = feeds[BUILDER_STEPS:]
+
+            def steps():
+                for f in prof_feeds:
+                    exe.run(feed=f, fetch_list=[loss])
+                torch.cuda.synchronize()
+            run["profile"] = prof = checked_window(
+                "Noam Transformer", lambda: profile_calls(
+                    torch, steps, len(prof_feeds)),
+                {"flash_fwd tensor cores": tc, "flash_bwd": n_attn * one,
+                 "fused_ce_fwd": 1, "fused_ce_dz": slabs})
+        run["profile_s"] = time.perf_counter() - t0
+        out["transformer_noam"] = run
+        line = (f"[{card}] Noam Transformer-base (batch {batch}) on "
+                f"fluid.Executor() and the default programs: losses "
+                f"{[round(x, 5) for x in losses]}, rates "
+                f"{[f'{x:.6g}' for x in rates]} (closed form), launches "
+                f"{launched}; step p50 {run['step_p50_ms']:.3f} ms; profile "
+                f"{run['profile_s']:.1f} s")
+        if "profile" in run:
+            line += (f", device busy "
+                     f"{run['profile']['device_busy_ms_per_step']:.3f} ms, "
+                     f"idle {run['profile']['idle_share']:.3f}, peak memory "
+                     f"{peak / 2 ** 20:.1f} MiB at step 2; "
+                     + family_line(run["profile"]))
+        print(line)
+
+        # (4) save and load: an inference model of the test clone, and a
+        # checkpoint
+        root = tempfile.mkdtemp(prefix="chip_smoke_builder_")
+        t0 = time.perf_counter()
+        try:
+            test = main.clone(for_test=True)
+            names = sorted(feeds[0])
+            fluid.io.save_inference_model(os.path.join(root, "inf"),
+                                          names, [loss], exe,
+                                          main_program=test)
+            # the clone keeps the optimizer ops: its fetch comes before
+            # its update, from the saved weights
+            want_out = exe.run(test, feed=feeds[0], fetch_list=[loss],
+                               return_numpy=False)[0]
+            lscope = fluid.Scope()
+            prog, _, fetches = fluid.io.load_inference_model(
+                os.path.join(root, "inf"), exe, scope=lscope)
+            got_out = exe.run(prog, feed=feeds[0], fetch_list=fetches,
+                              scope=lscope, return_numpy=False)[0]
+            if not torch.equal(got_out, want_out):
+                fail(f"the loaded inference model gives {got_out}, the "
+                     f"test clone {want_out}")
+            del lscope
+            persist = sorted(n for n, v in main.desc.global_block.vars
+                             .items() if v.persistable)
+            step = fluid.io.save_checkpoint(exe, os.path.join(root, "ck"))
+            cscope = fluid.Scope()
+            fluid.io.load_checkpoint(exe, os.path.join(root, "ck"),
+                                     scope=cscope)
+            bad = [n for n in persist if not torch.equal(
+                cscope.find_var(n), scope.find_var(n))]
+            if bad:
+                fail(f"checkpoint {step} did not load bit-equal: {bad[:5]}")
+            out["saved"] = {"inference_fetch": float(got_out.reshape(-1)[0]),
+                            "checkpoint_vars": len(persist),
+                            "seconds": time.perf_counter() - t0}
+            print(f"[{card}] the test clone's inference model answers "
+                  f"bit-equal ({out['saved']['inference_fetch']:.6f}); "
+                  f"checkpoint of {len(persist)} persistables loads "
+                  f"bit-equal; {out['saved']['seconds']:.1f} s")
+            del cscope
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    del exe, scope, main, startup
+
+    # (3) the port-built stacked LSTM
+    lname = next(n for n, (m, _) in pairs.items()
+                 if m == "stacked_dynamic_lstm")
+    lmain, lstart, lloss = built[lname]
+    lscope = fluid.Scope()
+    exe = fluid.Executor() if cuda else fluid.Executor(fluid.CPUPlace())
+    exe.run(lstart, scope=lscope)
+    lwant = {"fused_rnn.lstm_train_fwd": lstm_cfg["stacked_num"],
+             "fused_rnn.lstm_train_bwd": lstm_cfg["stacked_num"]}
+    lfeeds = [f for f, _ in program_feeds(torch, dev, "lstm", lstm_cfg,
+                                          lstm_batch, BUILDER_SEED,
+                                          BUILDER_STEPS)]
+    reset_all_launches()
+    llosses, lms, _, _ = exe_steps(torch, exe, lmain, lscope, lfeeds,
+                                   lwant if cuda else None,
+                                   "port-built stacked LSTM")
+    if not all(np.isfinite(llosses)):
+        fail(f"port-built stacked LSTM: non-finite losses {llosses}")
+    out["stacked_lstm"] = {
+        "losses": llosses, "step_ms": lms,
+        "step_p50_ms": float(np.median(lms)),
+        "launches": {k: n for k, n in all_launches().items() if n}}
+    print(f"[{card}] port-built stacked LSTM (batch {lstm_batch}): losses "
+          f"{[round(x, 5) for x in llosses]}, launches "
+          f"{out['stacked_lstm']['launches']}, step p50 "
+          f"{out['stacked_lstm']['step_p50_ms']:.3f} ms")
+    del exe, lscope, built
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 25 (programs built by the port) took "
+          f"{out['phase_s']:.1f} s")
+    if cuda:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -7307,6 +7663,12 @@ def main():
         "resnet50_train": earlier(18, image["resnet50"])})
     print(f"[{card}] phase 24 (training programs) took "
           f"{time.perf_counter() - t_train:.1f} s")
+    built = builder_phase(torch, dev, card)
+    short = [w for w in PROFILE_LOG if w[2]]
+    print(f"[{card}] profiler windows: {len(PROFILE_LOG)}; {len(short)} "
+          f"lost kernel records, {sum(w[3] > 0 for w in short)} in the "
+          f"counted part: (phase, launch calls, lost, lost counted) "
+          f"{short}")
 
     def train_program_launches(key):
         """Phase 24's launches of ``key`` in one executor training step,
@@ -7511,6 +7873,10 @@ def main():
                else next((k for k in all_launches()
                           if k.endswith("." + entry["name"])), None))
         entry["launches_train_program"] = train_program_launches(key)
+        entry["launches_built_program"] = {
+            run: built[run]["launches"][key]
+            for run in ("transformer_noam", "stacked_lstm")
+            if key in built[run]["launches"]}
     wide = {key: row for res in (flash, fce, lstm, gru)
             for key, row in res.items()
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
@@ -7540,6 +7906,7 @@ def main():
     print(json.dumps({"saved_models": saved, "card": card}, default=str))
     print(json.dumps({"train_programs": train_programs, "card": card},
                      default=str))
+    print(json.dumps({"built_programs": built}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

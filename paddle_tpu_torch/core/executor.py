@@ -6,8 +6,8 @@ python/paddle/fluid/executor.py:260 class, :447 run).
   ``Executor()`` with no place is ``CUDAPlace(0)`` and raises without a
   card; the CPU is used only when ``CPUPlace()`` is passed. There is no
   ``TPUPlace``.
-- :meth:`Executor.run` (``:116``) takes ``program`` (required: the port has
-  no default program before its program-building API, ROADMAP A6.4), ``feed``
+- :meth:`Executor.run` (``:116``) takes ``program`` (None: the default main
+  program, ``fluid/framework.py`` ``default_main_program``), ``feed``
   (a dict, or a list of ``iterations`` dicts), ``fetch_list`` (names or
   variables), ``scope``, ``return_numpy`` and ``iterations``. Feeds move to
   the executor's device and are cast there to their ``VarDesc`` dtype.
@@ -169,10 +169,8 @@ class Executor:
         with ``iterations > 1`` each fetch comes back stacked on a leading
         [iterations] axis."""
         if program is None:
-            raise ValueError(
-                "Executor.run needs a program: the port has no default "
-                "program before its program-building API (ROADMAP A6.4); load "
-                "one with fluid.io.load_inference_model")
+            from paddle_tpu_torch.fluid.framework import default_main_program
+            program = default_main_program()
         self._refuse_unported(program, stacked_feed)
         scope = scope or global_scope()
         fetch_list = fetch_list or []

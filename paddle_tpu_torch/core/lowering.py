@@ -26,9 +26,10 @@ functions, whose CUDA tensors go to the hand-written kernels.
   ``record_forward``), and the runner keeps its outputs for that
   ``__vjp__`` by op index, so each forward runs once a step, as in the
   compiled JAX step. A ``__remat__`` forward is not kept: its
-  ``__vjp__`` replays it. Fetches and state are detached, and the kept
-  forwards die with the step; a fetched row-sparse gradient comes back
-  dense (``:244-248``).
+  ``__vjp__`` replays it. An output that no live op reads and that is
+  neither fetched nor state is not kept. Fetches and state are detached,
+  and the kept forwards die with the step; a fetched row-sparse gradient
+  comes back dense (``:244-248``).
 - :class:`BlockRunner` mirrors ``CompiledBlock`` (``:825`` ``__call__``,
   ``obs_label``): one per (program version, feeds, fetches), built by the
   executor's cache.
@@ -175,12 +176,14 @@ def check_supported(program: ir.ProgramDesc) -> None:
 def emit_op_seq(program: ir.ProgramDesc, block: ir.BlockDesc, indices,
                 env: Dict[str, Any], base_seed: int, step_seed: int,
                 is_test: bool, device=None, record=None,
-                tape=None) -> None:
+                tape=None, keep=None) -> None:
     """Run the ops at ``indices`` of ``block`` over ``env`` (mutated in
     place), the reference's interpreter loop (``:150-198``). ``record``
     maps a forward op's index to the ``in_grad_mask`` of its ``__vjp__``:
     that op runs with grad recording, and ``tape`` keeps what it
-    recorded, by op index, for the ``__vjp__``."""
+    recorded, by op index, for the ``__vjp__``. With ``keep``, an output
+    whose name is not in it goes nowhere (no op reads it, and it is
+    neither fetched nor state), so its memory is freed at once."""
     for i in indices:
         op = block.ops[i]
         spec = get_op(op.type)
@@ -212,7 +215,8 @@ def emit_op_seq(program: ir.ProgramDesc, block: ir.BlockDesc, indices,
             if vals is None:
                 continue
             for n, v in zip(names, vals):
-                env[n] = v
+                if keep is None or n in keep:
+                    env[n] = v
 
 
 def recorded_forwards(block: ir.BlockDesc, live_ops) -> Dict[int, list]:
@@ -245,6 +249,12 @@ def build_block_fn(program: ir.ProgramDesc, block_idx: int,
     block = program.block(block_idx)
     seed0 = program.random_seed
     record = recorded_forwards(block, sig.live_ops)
+    # what the step reads: every live op's inputs, the fetches and the
+    # state; an output outside it (a training dropout's Mask, a layer
+    # norm's Mean) is dropped as soon as its op returns
+    keep = {n for i in sig.live_ops
+            for names in block.ops[i].inputs.values() for n in names}
+    keep.update(sig.fetch_names, sig.state_names, sig.created_persistable)
 
     def fn(state: Dict[str, Any], consts: Dict[str, Any],
            feeds: Dict[str, Any], step_seed: int):
@@ -257,7 +267,7 @@ def build_block_fn(program: ir.ProgramDesc, block_idx: int,
         base = seed0 if seed0 != 0 else draw_seed(0, step_seed)
         with torch.no_grad():
             emit_op_seq(program, block, sig.live_ops, env, base, base,
-                        is_test, device, record, {})
+                        is_test, device, record, {}, keep)
         fetches = [sr.densify(env[n]) for n in sig.fetch_names]
         new_state = {n: env[n] for n in sig.state_names if n in env}
         for n in sig.created_persistable:

@@ -16,7 +16,24 @@ caller's back. The CPU is used only when the caller asks for it
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+_abstract = threading.local()
+
+
+@contextlib.contextmanager
+def abstract_evaluation():
+    """Within this block (on this thread) ``meta`` tensors take the plain
+    versions: the emitters run over shapes and dtypes only."""
+    prev = getattr(_abstract, "on", False)
+    _abstract.on = True
+    try:
+        yield
+    finally:
+        _abstract.on = prev
 
 
 def resolve(device=None) -> torch.device:
@@ -37,7 +54,13 @@ def resolve(device=None) -> torch.device:
 def uses_kernel(*tensors: torch.Tensor) -> bool:
     """The tier rule: True when every tensor lies on one CUDA device
     (launch the kernel), False when every tensor lies on the CPU (run
-    the plain version). Anything else raises."""
+    the plain version). Anything else raises.
+
+    Inside :func:`abstract_evaluation`, ``meta`` tensors (no data, only
+    shape and dtype) take the plain version too: that is build-time shape
+    inference (``core/shape_inference.py``), which computes nothing, and
+    not a fallback. A CUDA tensor still launches its kernel or raises,
+    and outside that context a meta tensor raises like any other device."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: "
@@ -46,5 +69,7 @@ def uses_kernel(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":
+        return False
+    if dev.type == "meta" and getattr(_abstract, "on", False):
         return False
     raise ValueError(f"unsupported device {dev} (cuda or cpu)")

@@ -1,0 +1,163 @@
+"""Parameter initializers of the port (counterpart of
+``paddle_tpu/fluid/initializer.py``; reference:
+python/paddle/fluid/initializer.py): each appends its init op, with the
+JAX package's op type and attrs, to the startup program's block (the
+two-program convention). The draws themselves are the port's
+(``ops/basic.py``): the same attrs give the same distribution, not the
+same bits."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+class Initializer:
+    def __call__(self, var, block):
+        raise NotImplementedError
+
+
+class ConstantInitializer(Initializer):
+    def __init__(self, value: float = 0.0):
+        self.value = value
+
+    def __call__(self, var, block):
+        block.append_op(
+            "fill_constant", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "value": float(self.value)})
+
+
+class UniformInitializer(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0, seed: int = 0):
+        self.low, self.high, self.seed = low, high, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "uniform_random", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "min": self.low, "max": self.high, "seed": self.seed})
+
+
+class NormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "gaussian_random", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "truncated_gaussian_random", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
+def _fan_in_out(shape):
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    recv = int(np.prod(shape[2:]))
+    return shape[1] * recv, shape[0] * recv
+
+
+class XavierInitializer(Initializer):
+    """reference: initializer.py XavierInitializer (Glorot)."""
+
+    def __init__(self, uniform: bool = True, fan_in=None, fan_out=None,
+                 seed: int = 0):
+        self.uniform, self.fan_in, self.fan_out = uniform, fan_in, fan_out
+        self.seed = seed
+
+    def __call__(self, var, block):
+        fi, fo = _fan_in_out(var.shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class MSRAInitializer(Initializer):
+    """reference: initializer.py MSRAInitializer (He / Kaiming)."""
+
+    def __init__(self, uniform: bool = True, fan_in=None, seed: int = 0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var.shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fi)
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """reference: initializer.py NumpyArrayInitializer: the values as an
+    ``assign_value`` op's attrs."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        block.append_op(
+            "assign_value", outputs={"Out": [var]},
+            attrs={"shape": list(self.value.shape), "dtype": var.dtype,
+                   "values": self.value.reshape(-1).tolist()})
+
+
+class BilinearInitializer(Initializer):
+    """reference: initializer.py BilinearInitializer — the bilinear
+    upsampling kernel of a [C_in, C_out, kH, kW] transposed-conv weight
+    (each spatial map the separable triangle filter)."""
+
+    def __call__(self, var, block):
+        shape = list(var.shape)
+        if len(shape) != 4:
+            raise ValueError("BilinearInitializer needs a 4-D weight")
+        kh, kw = shape[2], shape[3]
+        f = np.zeros((kh, kw), dtype=np.float32)
+        fh = np.ceil(kh / 2.0)
+        ch = (2 * fh - 1 - fh % 2) / (2.0 * fh)
+        fw = np.ceil(kw / 2.0)
+        cw = (2 * fw - 1 - fw % 2) / (2.0 * fw)
+        for i in range(kh):
+            for j in range(kw):
+                f[i, j] = (1 - abs(i / fh - ch)) * (1 - abs(j / fw - cw))
+        weight = np.broadcast_to(f, shape).astype(np.float32)
+        return NumpyArrayInitializer(weight)(var, block)
+
+
+# fluid-style aliases
+Constant = ConstantInitializer
+Uniform = UniformInitializer
+Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
+Xavier = XavierInitializer
+MSRA = MSRAInitializer
+NumpyArray = NumpyArrayInitializer
+Bilinear = BilinearInitializer
+
+
+def _global_weight_initializer():
+    return XavierInitializer()
+
+
+def _global_bias_initializer():
+    return ConstantInitializer(0.0)

@@ -18,15 +18,21 @@ loads on the other.
 - The chaos site ``ckpt.write_var`` fires before each file is written
   (``faults.inject``) and may tear it after its checksum is recorded
   (``faults.mutate_file``), as in the reference.
+- ``main_program=None`` is the default main program (``_need_program``,
+  ``:50``).
+- :func:`save_checkpoint` / :func:`load_checkpoint` (``:216-256``): the
+  persistables under ``<dir>/checkpoint_<step>``, the newest
+  ``max_num_checkpoints`` kept.
 - Not ported: the sharded layout (``sharded=True`` and a per-shard
-  directory raise; ROADMAP A6.9) and the checkpoint API
-  (``save_checkpoint``, ``AsyncCheckpointer``).
+  directory raise; ROADMAP A6.9) and ``AsyncCheckpointer`` (ROADMAP
+  A6.4b).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import time
 from typing import List, Optional
 
@@ -48,11 +54,8 @@ def _var_path(dirname: str, name: str) -> str:
 
 
 def _need_program(main_program):
-    if main_program is None:
-        raise ValueError("the port has no default program before its "
-                         "program-building API (ROADMAP A6.4): pass "
-                         "main_program")
-    return main_program
+    return main_program if main_program is not None \
+        else framework.default_main_program()
 
 
 def _refuse_sharded():
@@ -250,3 +253,52 @@ def load_params(executor, dirname, main_program=None, filename=None,
     main_program = _need_program(main_program)
     return load_vars(executor, dirname, main_program,
                      vars=_param_names(main_program), scope=scope)
+
+
+# -- checkpoints (``io.py:216-256``) ----------------------------------------
+
+def save_checkpoint(executor, checkpoint_dir, trainer_id=0,
+                    main_program=None, step=None, max_num_checkpoints=3,
+                    scope=None):
+    """The program's persistables under ``checkpoint_<step>`` (``step``
+    None: one past the newest); only the newest ``max_num_checkpoints``
+    directories stay. Returns the step."""
+    main_program = _need_program(main_program)
+    step = step if step is not None else _latest_step(checkpoint_dir) + 1
+    d = os.path.join(checkpoint_dir, f"checkpoint_{step}")
+    save_persistables(executor, d, main_program, scope=scope)
+    for s in sorted(_all_steps(checkpoint_dir))[:-max_num_checkpoints]:
+        shutil.rmtree(os.path.join(checkpoint_dir, f"checkpoint_{s}"),
+                      ignore_errors=True)
+    return step
+
+
+def load_checkpoint(executor, checkpoint_dir, serial=None,
+                    main_program=None, scope=None):
+    """Load ``checkpoint_<serial>`` (None: the newest) into the scope.
+    Returns the step."""
+    step = serial if serial is not None else _latest_step(checkpoint_dir)
+    if step < 0:
+        raise FileNotFoundError(f"no checkpoints under {checkpoint_dir}")
+    load_persistables(executor,
+                      os.path.join(checkpoint_dir, f"checkpoint_{step}"),
+                      main_program, scope=scope)
+    return step
+
+
+def _all_steps(checkpoint_dir):
+    if not os.path.isdir(checkpoint_dir):
+        return []
+    out = []
+    for name in os.listdir(checkpoint_dir):
+        if name.startswith("checkpoint_"):
+            try:
+                out.append(int(name.split("_")[1]))
+            except ValueError:
+                pass
+    return out
+
+
+def _latest_step(checkpoint_dir):
+    steps = _all_steps(checkpoint_dir)
+    return max(steps) if steps else -1

@@ -1,7 +1,9 @@
 """The layers of the image classifiers (counterpart of ``conv2d``,
 ``batch_norm``, ``fc`` and ``dropout`` in ``paddle_tpu/fluid/layers/nn.py``):
 each an ``nn.Module`` that owns the layer's parameters and calls the
-port's ops (``ops/nn_ops.py``) as the JAX layer appends its ops.
+port's ops (``ops/nn_ops.py``) as the JAX layer appends its ops. The
+program-building layers, which append those ops to a ``Program``, are
+``paddle_tpu_torch/fluid/layers``.
 
 - :class:`Conv2D` -- ``layers.conv2d`` (``:72-98``): the ``conv2d`` op,
   then the bias [O] as an ``elementwise_add`` at axis 1 (none with

@@ -1,5 +1,7 @@
-"""Learning-rate schedules (counterpart of
-``paddle_tpu/fluid/learning_rate_scheduler.py``).
+"""Learning-rate schedules of the nn.Module trainers (counterpart of
+``paddle_tpu/fluid/learning_rate_scheduler.py``; the program-building
+schedules, ops over a step counter in the scope, are
+``paddle_tpu_torch/fluid/learning_rate_scheduler.py``).
 
 The JAX package keeps a float32 global step counter in the scope
 (``_global_step_var``, ``:19``): it starts at 0 and the train step

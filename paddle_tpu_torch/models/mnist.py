@@ -1,7 +1,8 @@
 """The MNIST CNN (counterpart of ``paddle_tpu/models/mnist.py``): two
 ``simple_img_conv_pool`` blocks (5x5 convs of 20 and 50 filters, relu, 2x2
 max pools) and a softmax ``fc`` of 10 classes, ``cross_entropy``,
-``mean`` and Adam (``:10-32``). Input [N, 1, 28, 28].
+``mean`` and Adam (``:10-32``). Input [N, 1, 28, 28]. The training
+program of the same model is ``paddle_tpu_torch/fluid/models/mnist.py``.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ package leaves them to XLA.
 
 :func:`build` makes the model, its Adam and the feed specs, with the JAX
 ``build``'s names and defaults (``:37-53``). Scope weights carry across
-with ``convert.lstm_params_from_jax``.
+with ``convert.lstm_params_from_jax``. The training program of the same
+model is ``paddle_tpu_torch/fluid/models/stacked_dynamic_lstm.py``.
 """
 
 from __future__ import annotations

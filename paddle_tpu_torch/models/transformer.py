@@ -47,6 +47,8 @@ With ``fused_head`` the vocabulary projection and the loss are one
 kernels run on the card; without it, the head's matmul and
 ``softmax_with_cross_entropy``.
 Scope weights carry across with ``convert.transformer_params_from_jax``.
+The training program of the same model (``build``'s ops and descs) is
+``paddle_tpu_torch/fluid/models/transformer.py``.
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ sequence-pool kernel on the card.
 :class:`SimpleImgConvPool` and :class:`ImgConvGroup` are
 ``simple_img_conv_pool`` and ``img_conv_group`` (``:10-52``), the conv
 blocks of the mnist CNN and of VGG, built from ``paddle_tpu_torch.layers``.
+The program-building ``simple_img_conv_pool`` and ``img_conv_group`` are
+``paddle_tpu_torch/fluid/nets.py``.
 """
 
 from __future__ import annotations

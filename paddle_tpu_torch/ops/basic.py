@@ -9,10 +9,17 @@ activations (counterpart of ``paddle_tpu/ops/basic.py``):
   op's index, ``core/registry.py`` ``draw_seed``): a non-zero seed repeats
   its draws. The bits cannot be ``jax.random``'s, so parity runs carry the
   JAX startup scope across;
-- ``elementwise_add``, ``elementwise_sub``, ``elementwise_mul``
-  (``basic.py:181-183``) over ``ops/nn_ops.py``: Y broadcast into X from
-  the ``axis`` attr (``nn_ops._broadcast_y``; -1: from the right);
-- ``relu``, ``sigmoid``, ``tanh``, ``square`` (``basic.py:196-203``).
+- ``assign`` (``basic.py:90``), ``sign`` (``:104``) and ``increment``
+  (``:109``, the learning-rate schedules' step counter);
+- the elementwise binaries ``elementwise_add``, ``_sub``, ``_mul`` over
+  ``ops/nn_ops.py`` and ``_div``, ``_max``, ``_min``, ``_pow``
+  (``basic.py:181-186``): Y broadcast into X from the ``axis`` attr
+  (``nn_ops._broadcast_y``; -1: from the right);
+- the activations ``relu``, ``sigmoid``, ``tanh``, ``square``, ``exp``,
+  ``sqrt``, ``floor``, ``ceil``, ``cos``, ``reciprocal``
+  (``basic.py:196-213``), ``pow`` (``:247``) and ``clip`` (``:269``);
+- ``less_than`` (``:289``) and ``select`` (``:315``), the piecewise
+  schedule's comparison and choice.
 """
 
 from __future__ import annotations
@@ -57,8 +64,9 @@ def _random(ctx, attrs, draw):
     place; the result is cast to the op's dtype."""
     t = torch.empty(tuple(attrs.get("shape", ())), dtype=torch.float32,
                     device=_device(ctx))
-    return single(draw(t, _generator(ctx))
-                  .to(TORCH_DTYPES[attrs.get("dtype", "float32")]))
+    if not t.is_meta:           # shape inference draws nothing
+        t = draw(t, _generator(ctx))
+    return single(t.to(TORCH_DTYPES[attrs.get("dtype", "float32")]))
 
 
 @register_op("gaussian_random", no_grad=True,
@@ -93,11 +101,42 @@ def _assign_value(ctx, ins, attrs):
         tuple(attrs.get("shape", ())))
     return single(torch.from_numpy(vals).to(_device(ctx)))
 
+
+@register_op("assign", ref="operators/assign_op.cc")
+def _assign(ctx, ins, attrs):
+    return single(first(ins, "X"))
+
+
+@register_op("sign", ref="operators/sign_op.cc")
+def _sign(ctx, ins, attrs):
+    return single(torch.sign(first(ins, "X")))
+
+
+@register_op("increment", no_grad=True, ref="operators/increment_op.cc")
+def _increment(ctx, ins, attrs):
+    x = first(ins, "X")
+    return single(x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                                   device=x.device))
+
+
+def _binary(fn):
+    def apply(x, y, axis=-1):
+        return fn(x, nn_ops._broadcast_y(x, y, axis))
+    return apply
+
+
 _ELEMENTWISE = {"elementwise_add": nn_ops.elementwise_add,
                 "elementwise_sub": nn_ops.elementwise_sub,
-                "elementwise_mul": nn_ops.elementwise_mul}
+                "elementwise_mul": nn_ops.elementwise_mul,
+                "elementwise_div": _binary(torch.div),
+                "elementwise_max": _binary(torch.maximum),
+                "elementwise_min": _binary(torch.minimum),
+                "elementwise_pow": _binary(torch.pow)}
 _ACTIVATIONS = {"relu": nn_ops.relu, "sigmoid": nn_ops.sigmoid,
-                "tanh": torch.tanh, "square": nn_ops.square}
+                "tanh": torch.tanh, "square": nn_ops.square,
+                "exp": torch.exp, "sqrt": torch.sqrt, "floor": torch.floor,
+                "ceil": torch.ceil, "cos": torch.cos,
+                "reciprocal": torch.reciprocal}
 
 
 def _register_elementwise(name, fn):
@@ -117,3 +156,28 @@ for _name, _fn in _ELEMENTWISE.items():
     _register_elementwise(_name, _fn)
 for _name, _fn in _ACTIVATIONS.items():
     _register_activation(_name, _fn)
+
+
+@register_op("pow", ref="operators/activation_op.cc")
+def _pow(ctx, ins, attrs):
+    return single(torch.pow(first(ins, "X"), attrs.get("factor", 1.0)))
+
+
+@register_op("clip", ref="operators/clip_op.cc")
+def _clip(ctx, ins, attrs):
+    return single(torch.clamp(first(ins, "X"), attrs.get("min"),
+                              attrs.get("max")))
+
+
+@register_op("less_than", no_grad=True,
+             ref="operators/controlflow/compare_op.cc")
+def _less_than(ctx, ins, attrs):
+    x = first(ins, "X")
+    return single(torch.lt(x, nn_ops._broadcast_y(x, first(ins, "Y"),
+                                                  attrs.get("axis", -1))))
+
+
+@register_op("select", ref="lax.select; elementwise choice")
+def _select(ctx, ins, attrs):
+    return single(torch.where(first(ins, "Condition"), first(ins, "X"),
+                              first(ins, "Y")))

@@ -142,7 +142,10 @@ def record_forward(ctx: EmitContext, fwd_op: ir.OpDesc, ins, in_grad_mask
     """Run ``fwd_op``'s emitter with grad recording on detached copies of
     its differentiated inputs: ``(outs, (leaves, flat_outs))``. ``outs``
     is the emitter's dict with every tensor detached (what the block's
-    environment keeps); the pair is what its ``__vjp__`` differentiates."""
+    environment keeps); the pair is what its ``__vjp__`` differentiates.
+    ``flat_outs`` holds only the outputs that carry grad, None in the
+    place of the others (a dropout's Mask), so the tape keeps no tensor
+    that its ``__vjp__`` skips."""
     in_layout = _slot_layout(fwd_op.inputs)
     vals = _flatten(ins, in_layout)
     leaves = []
@@ -156,7 +159,10 @@ def record_forward(ctx: EmitContext, fwd_op: ir.OpDesc, ins, in_grad_mask
     with torch.enable_grad():
         outs = get_op(fwd_op.type).emit(ctx, _unflatten(vals, in_layout),
                                         fwd_op.attrs)
-    flat_outs = _flatten(outs, _slot_layout(fwd_op.outputs), strict=False)
+    flat_outs = [o if isinstance(o, torch.Tensor) and o.requires_grad
+                 else None
+                 for o in _flatten(outs, _slot_layout(fwd_op.outputs),
+                                   strict=False)]
     detached = {slot: [v.detach() if isinstance(v, torch.Tensor) else v
                        for v in vs] for slot, vs in outs.items()}
     return detached, (leaves, flat_outs)

@@ -3,14 +3,16 @@
 ``mul`` (``:26``), ``matmul`` (``:51``), ``scale`` (``:74``), ``sum``
 (``:84``), ``reduce_sum`` (``:115``), ``mean`` (``:122``), ``top_k``
 (``:137``), ``reshape`` (``:147``), ``squeeze`` (``:164``), ``transpose``
-(``:181``), ``concat`` (``:193``) and ``slice`` (``:218``).
+(``:181``), ``concat`` (``:193``), ``slice`` (``:218``), ``cast``
+(``:93``) and ``squared_l2_norm`` (``:303``, the global-norm clip's).
 """
 
 from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.core.registry import first, register_op, single
+from paddle_tpu_torch.core.registry import (TORCH_DTYPES, first, register_op,
+                                            single)
 from paddle_tpu_torch.ops import nn_ops
 
 
@@ -95,3 +97,14 @@ def _slice(ctx, ins, attrs):
     return single(nn_ops.slice(first(ins, "Input"), attrs.get("axes", []),
                                attrs.get("starts", []),
                                attrs.get("ends", [])))
+
+
+@register_op("cast", ref="operators/cast_op.cc")
+def _cast(ctx, ins, attrs):
+    return single(first(ins, "X").to(
+        TORCH_DTYPES[attrs.get("out_dtype", "float32")]))
+
+
+@register_op("squared_l2_norm", ref="operators/squared_l2_norm_op.cc")
+def _squared_l2_norm(ctx, ins, attrs):
+    return single(torch.sum(torch.square(first(ins, "X"))))

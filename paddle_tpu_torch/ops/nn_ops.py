@@ -296,10 +296,12 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], begin_norm_axis: int = -1,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, with_stats: bool = False):
     """Normalized over the dims from ``begin_norm_axis`` on. A bf16 or
     fp16 ``x`` takes its statistics in fp32 and is normalized in its own
-    dtype, the scale and bias cast down to it (``nn_ops.py:399-414``)."""
+    dtype, the scale and bias cast down to it (``nn_ops.py:399-414``).
+    ``with_stats`` also returns the mean and the variance, shaped
+    ``x.shape[:begin_norm_axis]`` and detached (``:415-419``)."""
     axes = tuple(range(begin_norm_axis % x.dim(), x.dim()))
     lowp = x.dtype in LOW_PRECISION
     xs = x.float() if lowp else x
@@ -315,6 +317,9 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
         y = y * weight.reshape(norm_shape).to(y.dtype)
     if bias is not None:
         y = y + bias.reshape(norm_shape).to(y.dtype)
+    if with_stats:
+        lead = x.shape[:axes[0]]
+        return y, mean.detach().reshape(lead), var.detach().reshape(lead)
     return y
 
 
@@ -413,7 +418,8 @@ DROPOUT_IMPLEMENTATIONS = ("upscale_in_train", "downgrade_in_infer")
 
 
 def dropout(x: torch.Tensor, p: float, seed: int, is_test: bool = False,
-            implementation: str = "upscale_in_train") -> torch.Tensor:
+            implementation: str = "upscale_in_train",
+            with_mask: bool = False):
     """Dropout with the JAX op's keep mask (``nn_ops.py:462-501``):
     element ``i`` of the flattened ``x`` is kept iff ``hash_keep_mask(seed,
     0, i, 0, p)`` is non-zero, so the same seed drops the same elements as
@@ -422,20 +428,31 @@ def dropout(x: torch.Tensor, p: float, seed: int, is_test: bool = False,
     by 1 / (1 - p) (rounded to x's dtype before the product) and
     ``downgrade_in_infer`` keeps them as they are; in test mode
     (``is_test``) the first is the identity and the second scales x by
-    (1 - p)."""
+    (1 - p). ``with_mask`` also returns the op's ``Mask`` output, the
+    keep mask as 0 / 1 in x's dtype (ones in test mode), detached; a
+    constant mask is a broadcast view of one element, which takes no
+    memory."""
     if implementation not in DROPOUT_IMPLEMENTATIONS:
         raise ValueError(f"unknown dropout implementation "
                          f"{implementation!r}")
     upscale = implementation == "upscale_in_train"
-    if is_test:
-        return x if upscale else x * (1.0 - p)
+
+    def const_mask(value):
+        return torch.full((), value, dtype=x.dtype,
+                          device=x.device).expand(x.shape)
+    if is_test or p == 0.0:
+        # p 0: the mask keeps every element (threshold 0), x * 1
+        out = x if (upscale or not is_test) else x * (1.0 - p)
+        return (out, const_mask(1.0)) if with_mask else out
     if p >= 1.0:
-        return torch.zeros_like(x)      # everything dropped, no 0 * inf
-    if p == 0.0:
-        return x        # the mask keeps every element (threshold 0), x * 1
+        out = torch.zeros_like(x)       # everything dropped, no 0 * inf
+        return (out, const_mask(0.0)) if with_mask else out
     idx = torch.arange(x.numel(), device=x.device).view(x.shape)
     keep = hash_keep_mask(seed, 0, idx, 0, p)
-    return x * (keep if upscale else (keep > 0)).to(x.dtype)
+    out = x * (keep if upscale else (keep > 0)).to(x.dtype)
+    if with_mask:
+        return out, (keep > 0).to(x.dtype).detach()
+    return out
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
@@ -810,7 +827,7 @@ class _BatchNormLowp(torch.autograd.Function):
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, variance: torch.Tensor,
                is_test: bool = False, momentum: float = 0.9,
-               epsilon: float = 1e-5) -> torch.Tensor:
+               epsilon: float = 1e-5, with_stats: bool = False):
     """Batch norm of x [N, C, ...] over every axis but the channel axis 1
     (``nn_ops.py:328-388``; a 2-D [N, C] x too). ``mean`` and
     ``variance`` [C] are the running statistics.
@@ -825,7 +842,9 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     A bf16 or fp16 x takes the JAX op's low-precision path: fp32
     statistics and a folded normalize in x's dtype (:class:`_BatchNormLowp`
     in training, :func:`_bn_fold` in test mode). Otherwise PyTorch's
-    batch norm computes y and its gradient."""
+    batch norm computes y and its gradient. ``with_stats`` (training)
+    also returns the batch mean and variance, detached: the op's
+    ``SavedMean`` / ``SavedVariance``."""
     lowp = x.dtype in LOW_PRECISION
     if is_test:
         if lowp:
@@ -845,6 +864,8 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     with torch.no_grad():
         mean.copy_(mean * momentum + bmean * (1.0 - momentum))
         variance.copy_(variance * momentum + bvar * (1.0 - momentum))
+    if with_stats:
+        return y, bmean.detach(), bvar.detach()
     return y
 
 
@@ -879,7 +900,8 @@ def _batch_norm_op(ctx, ins, attrs):
     ``use_global_stats``): the running statistics normalize x and come
     out as they went in. Training: :func:`batch_norm` updates copies of
     them, returned as ``MeanOut`` / ``VarianceOut`` (the executor writes
-    them back); ``SavedMean`` / ``SavedVariance`` are not emitted there."""
+    them back), and the batch statistics as ``SavedMean`` /
+    ``SavedVariance``."""
     x, scale_, bias = (first(ins, n) for n in ("X", "Scale", "Bias"))
     mean_, var = first(ins, "Mean"), first(ins, "Variance")
     eps = attrs.get("epsilon", 1e-5)
@@ -889,32 +911,36 @@ def _batch_norm_op(ctx, ins, attrs):
         return {"Y": [y], "MeanOut": [mean_], "VarianceOut": [var],
                 "SavedMean": [mean_], "SavedVariance": [var]}
     mean_out, var_out = mean_.clone(), var.clone()
-    y = batch_norm(x, scale_, bias, mean_out, var_out, False,
-                   attrs.get("momentum", 0.9), eps)
-    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out]}
+    y, bmean, bvar = batch_norm(x, scale_, bias, mean_out, var_out, False,
+                                attrs.get("momentum", 0.9), eps,
+                                with_stats=True)
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [bmean], "SavedVariance": [bvar]}
 
 
 @register_op("layer_norm", ref="operators/layer_norm_op.cc")
 def _layer_norm_op(ctx, ins, attrs):
-    """``Y`` only: the statistics outputs are not emitted."""
-    return {"Y": [layer_norm(first(ins, "X"), first(ins, "Scale"),
-                             first(ins, "Bias"),
-                             attrs.get("begin_norm_axis", 1),
-                             attrs.get("epsilon", 1e-5))]}
+    """``Y``, and the statistics ``Mean`` / ``Variance`` (no gradient
+    flows through them)."""
+    y, mean, var = layer_norm(first(ins, "X"), first(ins, "Scale"),
+                              first(ins, "Bias"),
+                              attrs.get("begin_norm_axis", 1),
+                              attrs.get("epsilon", 1e-5), with_stats=True)
+    return {"Y": [y], "Mean": [mean], "Variance": [var]}
 
 
 @register_op("dropout", ref="operators/dropout_op.cc")
 def _dropout_op(ctx, ins, attrs):
     """Test mode: ``Out`` (x, or x * (1 - p) for ``downgrade_in_infer``,
     the attr's default) and a ``Mask`` of ones. Training: ``Out`` under
-    the hash keep mask seeded by the step key; ``Mask`` not emitted."""
+    the hash keep mask seeded by the step key, and that ``Mask``."""
     x = first(ins, "X")
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
-    if attrs.get("is_test", False) or ctx.is_test:
-        return {"Out": [dropout(x, p, 0, True, impl)],
-                "Mask": [torch.ones_like(x)]}
-    return single(dropout(x, p, ctx.step_key(), False, impl))
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    out, mask = dropout(x, p, 0 if is_test else ctx.step_key(), is_test,
+                        impl, with_mask=True)
+    return {"Out": [out], "Mask": [mask]}
 
 
 @register_op("lookup_table", ref="operators/lookup_table_op.cc")

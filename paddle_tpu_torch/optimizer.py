@@ -1,4 +1,7 @@
-"""Optimizers (counterpart of ``paddle_tpu/fluid/optimizer.py``).
+"""Optimizers of the nn.Module trainers (counterpart of
+``paddle_tpu/fluid/optimizer.py``). The program-building optimizers,
+whose ``minimize`` appends the backward and the update ops to a
+``Program``, are ``paddle_tpu_torch/fluid/optimizer.py``.
 
 :class:`Adam` is the JAX package's Adam (``optimizer.py:197``
 ``AdamOptimizer``, update rule ``ops/optimizer_ops.py:89`` ``_adam``),

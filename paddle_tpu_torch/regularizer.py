@@ -1,5 +1,6 @@
-"""Weight-decay regularizers (counterpart of
-``paddle_tpu/fluid/regularizer.py``).
+"""Weight-decay regularizers of the nn.Module trainers (counterpart of
+``paddle_tpu/fluid/regularizer.py``; the program-building ones are
+``paddle_tpu_torch/fluid/regularizer.py``).
 
 An optimizer given ``regularization=`` adds the decay term to every
 parameter's gradient before its update rule, as ``apply_gradients``
