@@ -10,7 +10,7 @@ final line. Every profiler window (``profile_calls``) opens with 1024
 launches that it does not count: late in this script the profiler drops
 the first kernel records of a window. Every window counts the launch
 calls whose kernel record is missing, and the tally is printed after
-phase 25.
+phase 26.
 
 1. Device: the card's name, count and power limit (``nvidia-smi``).
    Without CUDA the script fails.
@@ -543,11 +543,14 @@ phase 25.
     3 more steps. Its JSON line is
     ``{"train_programs": ...}``.
 25. Programs built by the port (``builder_phase``), with no JAX on the
-    machine: (1) ``paddle_tpu_torch.fluid.models.transformer.build`` and
-    ``stacked_dynamic_lstm.build`` at the arguments of
+    machine: (1) ``paddle_tpu_torch.fluid.models.transformer.build``,
+    ``stacked_dynamic_lstm.build``, ``resnet.build``, ``deepfm.build`` and
+    ``machine_translation.build`` at the arguments of
     ``tools/torch_export_programs.py``'s ``TRAIN_PROGRAMS`` give main and
     startup descs equal, as JSON values, to the committed JAX builds
-    ``transformer_base_train`` and ``stacked_dynamic_lstm_train``. (2)
+    ``transformer_base_train``, ``stacked_dynamic_lstm_train``,
+    ``resnet50_train``, ``deepfm_train`` and
+    ``machine_translation_train`` (``BUILDER_PAIRS``). (2)
     Transformer-base built again with ``fused_attention``, ``fused_head``
     and the Noam schedule (``lr`` 2.0, warmup 4000, dropout 0.1): its
     startup on ``fluid.Executor()`` (the default place), then 3 steps at
@@ -565,7 +568,33 @@ phase 25.
     ``save_checkpoint`` then ``load_checkpoint`` gives every persistable
     back bit-equal. Its JSON line is ``{"built_programs": ...}``; the
     phase prints its own time.
-26. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+26. The rest of the bench builders (``built_models_phase``), with no
+    JAX on the machine. (b) ``machine_translation.build(**MT)`` from its
+    own startup (``random_seed`` 24) on ``CUDAPlace(0)`` trains 3 steps at
+    batch 64 on phase 24's batches of the committed pair: its losses
+    equal phase 24's within ``BUILT_RTOL``, and each step launches 2 GRU
+    forwards and 2 GRU backwards, by counter and by profiler name in a
+    window of one more step. Then ``build(is_train=False, **MT)`` (the
+    encoder and one ``attention_gru_beam_decode`` op) decodes 64 sources
+    (beam 4) in the trained scope: its ``SentenceIds`` equal
+    ``MachineTranslation.generate``'s on the same weights token for token
+    (the scores within ``BEAM_RTOL``), with 1 GRU forward launch a run by
+    counter and by name. (c) The text-conv classifier as user code over
+    ``fluid`` (``textconv_program``: ``nets.sequence_conv_pool`` with
+    ``"sqrt"`` pools) at phase 14's widths and batch 128, on phase 14's
+    weights and batches: 3 losses equal phase 14's Module trainer's within
+    ``BUILT_RTOL``, 2 ``seqpool`` launches a step by counter and by name.
+    (e) ``deepfm.build(**DEEPFM)`` from its own startup trains 3 steps at
+    batch 2048 on phase 24's batches: losses equal phase 24's. (d)
+    ``resnet.build()`` at batch 128 takes 3 steps and ``smallnet``,
+    ``alexnet``, ``googlenet``, ``vgg`` and ``se_resnext`` at batch 8 take
+    2 each, from their own startups: finite losses, none of the port's
+    kernels, cuDNN's and cuBLAS's kernels by name (``CONV_MARKS``) in a
+    profiler window of one more step; ResNet-50's step p50, device busy
+    and idle beside phase 24's for the committed program. Each build is
+    timed. Its JSON line is ``{"built_models": ...}``; the phase prints
+    its own time.
+27. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range; flash_fwd, fused_ce_fwd and lstm_train_fwd
@@ -573,8 +602,9 @@ phase 25.
     ``launches_predictor`` and ``launches_served``; gru_train_fwd and
     seqpool with phase 23's ``launches_predictor``; every kernel with
     phase 24's ``launches_train_program``, one executor training step of
-    each program that launches it, and phase 25's
-    ``launches_built_program``, its 3 steps of each port-built program),
+    each program that launches it, and phases 25 and 26's
+    ``launches_built_program``: the 3 steps of each port-built program
+    and the port-built decode),
     then, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -3762,7 +3792,8 @@ KERNEL_FAMILIES = (
     ("rnn_gemm", "rnn_gemm_kernel", None),
     ("rnn_dw", "rnn_dw_kernel", None),
     ("cache_gather", "cache_gather_kernel", None),
-    ("cache_scatter", "cache_scatter_kernel", None))
+    ("cache_scatter", "cache_scatter_kernel", None),
+    ("seqpool", "seqpool_kernel", None))
 
 
 def kernel_family(key):
@@ -7086,8 +7117,8 @@ def scope_of(torch, arrays, dev):
 
 
 def exe_steps(torch, exe, prog, scope, feeds, want=None, label="",
-              peak_at=()):
-    """One ``Executor.run`` a feed, fetching the loss: (losses, host ms a
+              peak_at=(), loss=TRAIN_PROGRAM_LOSS):
+    """One ``Executor.run`` a feed, fetching ``loss``: (losses, host ms a
     step, peak bytes of the steps at ``peak_at``, the kernels each step
     launched). With ``want``, every step must launch exactly those."""
     cuda = exe.device.type == "cuda"
@@ -7097,8 +7128,7 @@ def exe_steps(torch, exe, prog, scope, feeds, want=None, label="",
             torch.cuda.reset_peak_memory_stats()
         before = all_launches()
         t0 = time.perf_counter()
-        out = exe.run(prog, feed=f, fetch_list=[TRAIN_PROGRAM_LOSS],
-                      scope=scope)
+        out = exe.run(prog, feed=f, fetch_list=[loss], scope=scope)
         if cuda:
             torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -7173,9 +7203,13 @@ def train_program_phase(torch, dev, card, module_runs, programs=None):
         oracle = fluid.Program(zero_dropout(main) if kind == "transformer"
                                else main)
         k, n_timed = TRAIN_PROGRAM_ORACLE_STEPS, TRAIN_PROGRAM_TIMED_STEPS
-        feeds = program_feeds(torch, dev, kind, cfg, batch, 70 + i,
+        # a program's batches follow its place in TRAIN_PROGRAMS, also
+        # in a run of a few of them
+        seed = 70 + (list(TRAIN_PROGRAMS).index(name)
+                     if name in TRAIN_PROGRAMS else i)
+        feeds = program_feeds(torch, dev, kind, cfg, batch, seed,
                               k + n_timed + PROFILE_STEPS)
-        stats = {"batch": batch, "ops": len(block.ops),
+        stats = {"batch": batch, "feed_seed": seed, "ops": len(block.ops),
                  "vjp_ops": sum(op.type == "__vjp__" for op in block.ops),
                  "persistables": len(persist)}
         if kind == "resnet":              # the oracle's rate on both
@@ -7359,6 +7393,9 @@ BUILDER_PAIRS = {
     "transformer_base_train": ("transformer",
                                dict(fused_attention=True, fused_head=True)),
     "stacked_dynamic_lstm_train": ("stacked_dynamic_lstm", dict(LSTM)),
+    "resnet50_train": ("resnet", {}),
+    "deepfm_train": ("deepfm", dict(DEEPFM)),
+    "machine_translation_train": ("machine_translation", dict(MT)),
 }
 BUILDER_NOAM = dict(fused_attention=True, fused_head=True,
                     lr_scheduler="noam", lr=2.0)
@@ -7589,6 +7626,342 @@ def builder_phase(torch, dev, card, pairs=None, cfg=None, batch=BATCH,
     return out
 
 
+# -- phase 26: the rest of the bench builders ---------------------------------
+
+BUILT_STEPS = 3
+BUILT_IMAGE_STEPS = 2
+BUILT_IMAGE_BATCH = 8
+BUILT_RESNET_BATCH = 128
+BUILT_SEED = 26
+# the other five image builds at their defaults (smallnet 32 px, the rest
+# 224 px), in IMAGE_MODELS' order
+BUILT_IMAGES = ("smallnet", "alexnet", "googlenet", "vgg", "se_resnext")
+# the port-built programs against phase 24's runs of the committed pairs
+# and phase 14's Module trainer: the same descs (or the same model) on
+# the same scope and batches. Their losses were bit-equal on the card
+# (PERF.md, section 6); the margin is for the atomic adds of the
+# row-sparse gradients, whose order may change between runs
+BUILT_RTOL = 1e-6
+
+
+def textconv_program(fluid, cfg):
+    """The text-conv classifier of phase 14 as user code over the port's
+    ``fluid`` (``tests/test_torch_builder_models_train.py`` writes the
+    same program): a sparse ``embedding``, two ``nets.sequence_conv_pool``
+    (filter sizes 3 and 4, tanh, ``"sqrt"``), a softmax ``fc`` over both,
+    ``cross_entropy``, ``mean`` and Adagrad. -> the loss variable."""
+    L = fluid.layers
+    words = L.data(name="words", shape=[cfg["max_len"]], dtype="int64")
+    sl = L.data(name="sl", shape=[], dtype="int32")
+    label = L.data(name="label", shape=[1], dtype="int64")
+    emb = L.embedding(words, size=[cfg["dict_dim"], cfg["emb_dim"]],
+                      is_sparse=True)
+    pools = [fluid.nets.sequence_conv_pool(
+        emb, num_filters=cfg["num_filters"], filter_size=k, seq_lens=sl,
+        act="tanh", pool_type="sqrt") for k in (3, 4)]
+    pred = L.fc(pools, size=cfg["classes"], act="softmax")
+    loss = L.mean(L.cross_entropy(pred, label))
+    fluid.optimizer.Adagrad(learning_rate=TEXTCONV_LR).minimize(loss)
+    return loss
+
+
+def agree(label, got, want):
+    """Two loss curves within ``BUILT_RTOL``: the largest relative gap."""
+    rtol = BUILT_RTOL
+    gap = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    if not np.all(np.isfinite(got)) or not gap <= rtol:
+        fail(f"{label}: losses {got} differ from {want} beyond rtol {rtol} "
+             f"(max rel diff {gap:.3g})")
+    return gap
+
+
+def built_models_phase(torch, dev, card, train_programs, tc_losses,
+                       mt=None, mt_batch=MT_BATCH, textconv=None,
+                       tc_batch=TEXTCONV_BATCH, deepfm=None,
+                       deepfm_batch=DEEPFM_BATCH, images=BUILT_IMAGES,
+                       image_size=None, resnet_batch=BUILT_RESNET_BATCH,
+                       image_batch=BUILT_IMAGE_BATCH):
+    """Phase 26 (module docstring): the builders of the rest of the bench
+    models, without JAX. ``train_programs`` is phase 24's result (its
+    runs of the committed ``machine_translation_train``, ``deepfm_train``
+    and ``resnet50_train``), ``tc_losses`` phase 14's Module losses; the
+    keyword arguments override the full-width configs and batches (the
+    CPU rehearsal, where the profiler and the launch counts are
+    skipped)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import convert
+    t_phase = time.perf_counter()
+    mt = dict(MT if mt is None else mt)
+    tcfg = dict(TEXTCONV if textconv is None else textconv)
+    fm = dict(DEEPFM if deepfm is None else deepfm)
+    cuda = dev.type == "cuda"
+    place = fluid.CUDAPlace(0) if cuda else fluid.CPUPlace()
+    out = {"card": card}
+    k = TRAIN_PROGRAM_ORACLE_STEPS
+    n_feeds = k + TRAIN_PROGRAM_TIMED_STEPS + PROFILE_STEPS
+
+    def startup_scope(startup, seed):
+        scope = fluid.Scope()
+        startup.random_seed = seed
+        fluid.Executor(place).run(startup, scope=scope)
+        return scope
+
+    def launches_of(per_step):
+        total = {}
+        for c in per_step:
+            for key, n in c.items():
+                total[key] = total.get(key, 0) + n
+        return total
+
+    # (b) machine translation: 3 steps against phase 24's run of the
+    # committed pair, then the beam decode in the trained scope
+    t0 = time.perf_counter()
+    main, startup, loss = build_program("machine_translation", mt)
+    ref = train_programs["machine_translation_train"]
+    scope = startup_scope(startup, TRAIN_PROGRAM_SEED)
+    feeds = program_feeds(torch, dev, "mt", mt, mt_batch, ref["feed_seed"],
+                          n_feeds)
+    exe = fluid.Executor(place)
+    want = ({"fused_rnn.gru_train_fwd": MT_GRU_PER_STEP,
+             "fused_rnn.gru_train_bwd": MT_GRU_PER_STEP} if cuda else None)
+    reset_all_launches()
+    losses, ms, _, per_step = exe_steps(
+        torch, exe, main, scope, [f for f, _ in feeds[:k]], want,
+        "port-built machine translation")
+    run = {"losses": losses, "phase24_losses": ref["losses"],
+           "max_rel_diff": agree("port-built machine translation", losses,
+                                 ref["losses"]),
+           "step_ms": ms, "step_p50_ms": float(np.median(ms)),
+           "launches": launches_of(per_step)}
+    line = (f"[{card}] port-built machine translation (batch {mt_batch}): "
+            f"losses {[round(x, 6) for x in losses]} = phase 24's within "
+            f"rtol {BUILT_RTOL} (max rel diff {run['max_rel_diff']:.3g}); "
+            f"launches {run['launches']}")
+    if cuda:
+        plan_f = gru_plan("gru_fwd", mt["hid_dim"], dev)
+        plan_b = gru_plan("gru_bwd", mt["hid_dim"], dev)
+        prof_feeds = [f for f, _ in feeds[k:k + 1]]
+        run["profile"] = prof = checked_window(
+            "port-built machine translation", lambda: profile_calls(
+                torch, lambda: exe_steps(torch, exe, main, scope,
+                                         prof_feeds), len(prof_feeds)),
+            {f"gru_fwd {p}": MT_GRU_PER_STEP * (plan_f == p)
+             for p in ("cluster", "grid")} | {
+             f"gru_bwd {p}": MT_GRU_PER_STEP * (plan_b == p)
+             for p in ("cluster", "grid")})
+        line += (f"; step p50 {run['step_p50_ms']:.3f} ms, device busy "
+                 f"{prof['device_busy_ms_per_step']:.3f} ms, idle "
+                 f"{prof['idle_share']:.3f}; "
+                 + family_line(prof))
+    print(line)
+    # the decode: the inference program in the trained scope against
+    # phase 12's beam decoder on the same weights
+    imain, _, _ = build_program("machine_translation",
+                                dict(mt, is_train=False))
+    ids_var, scores_var = (imain.desc.global_block.ops[-1].output(s)[0]
+                           for s in ("SentenceIds", "SentenceScores"))
+    src_np = np.random.RandomState(8).randint(
+        0, mt["src_vocab"], (mt_batch, mt["max_len"])).astype(np.int64)
+    src = torch.from_numpy(src_np).to(dev)
+    reset_all_launches()
+    t1 = time.perf_counter()
+    got_ids, got_scores = exe.run(imain, feed={"src": src},
+                                  fetch_list=[ids_var, scores_var],
+                                  scope=scope, return_numpy=False)
+    if cuda:
+        torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t1) * 1e3
+    decoded = {key: n for key, n in all_launches().items() if n}
+    if cuda and decoded != {"fused_rnn.gru_train_fwd": 1}:
+        fail(f"port-built decode launched {decoded}, want 1 gru_train_fwd")
+    block = main.desc.global_block
+    build_m, _ = program_module(torch, dev, "mt", mt, block)
+    names = [n for n, v in block.vars.items() if v.is_parameter]
+    model, _ = build_m(scope_arrays(scope, names))
+    model.eval()
+    want_ids, want_scores = model.generate(src)
+    if tuple(got_ids.shape) != (mt_batch, model.beam_size, mt["max_len"]):
+        fail(f"port-built decode: SentenceIds {tuple(got_ids.shape)}")
+    rows = int((got_ids != want_ids).flatten(1).any(1).sum())
+    if rows:
+        fail(f"port-built decode: {rows} of {mt_batch} rows of "
+             f"SentenceIds differ from MachineTranslation.generate's")
+    if not torch.allclose(got_scores, want_scores, rtol=BEAM_RTOL, atol=0):
+        fail("port-built decode: SentenceScores differ from generate's "
+             f"beyond rtol {BEAM_RTOL}")
+    dec = {"ms": decode_ms, "launches": decoded,
+           "scores_max_abs_diff": float(
+               (got_scores - want_scores).abs().max()),
+           "rows_equal": mt_batch}
+    dline = (f"[{card}] port-built decode (batch {mt_batch}, beam "
+             f"{model.beam_size}): SentenceIds equal generate's token for "
+             f"token, scores within {dec['scores_max_abs_diff']:.3g}; "
+             f"launches {decoded}; {decode_ms:.1f} ms")
+    if cuda:
+        def decode():
+            exe.run(imain, feed={"src": src}, fetch_list=[ids_var],
+                    scope=scope)
+            torch.cuda.synchronize()
+        dec["profile"] = dprof = checked_window(
+            "port-built decode", lambda: profile_calls(torch, decode, 1),
+            {f"gru_fwd {p}": int(plan_f == p) for p in ("cluster", "grid")}
+            | {"gru_bwd cluster": 0, "gru_bwd grid": 0})
+        dline += (f", device busy {dprof['device_busy_ms_per_step']:.3f} "
+                  f"ms, idle {dprof['idle_share']:.3f}")
+    print(dline)
+    run["seconds"] = time.perf_counter() - t0
+    out["machine_translation"] = run
+    out["machine_translation_decode"] = dec
+    del model, exe, scope, main, startup, imain
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) the text-conv classifier against phase 14's Module trainer
+    t0 = time.perf_counter()
+    tmain, tstart = fluid.Program(), fluid.Program()
+    with fluid.program_guard(tmain, tstart), fluid.unique_name.guard():
+        tloss = textconv_program(fluid, tcfg)
+    build_s = time.perf_counter() - t0
+    scope = startup_scope(tstart, BUILT_SEED)
+    weights = textconv_weights(tcfg, 21)
+    params = sorted(p.name for p in tmain.all_parameters())
+    if params != sorted(weights):
+        fail(f"text-conv program: parameters {params}, phase 14's "
+             f"{sorted(weights)}")
+    for n, a in weights.items():
+        scope.set_var(n, torch.from_numpy(a).to(dev))
+    feeds = [dict(zip(("words", "sl", "label"),
+                      (torch.from_numpy(a).to(dev) for a in textconv_batch(
+                          20 + i, tc_batch, tcfg["max_len"],
+                          tcfg["dict_dim"]))))
+             for i in range(BUILT_STEPS + 1)]
+    exe = fluid.Executor(place)
+    reset_all_launches()
+    want = ({"seqpool.seqpool": TEXTCONV_POOLS_PER_STEP} if cuda else None)
+    losses, ms, _, per_step = exe_steps(torch, exe, tmain, scope,
+                                        feeds[:BUILT_STEPS], want,
+                                        "port-built text-conv",
+                                        loss=tloss.name)
+    run = {"build_s": build_s, "losses": losses,
+           "phase14_losses": list(tc_losses[:BUILT_STEPS]),
+           "max_rel_diff": agree("port-built text-conv", losses,
+                                 tc_losses[:BUILT_STEPS]),
+           "step_ms": ms, "step_p50_ms": float(np.median(ms)),
+           "launches": launches_of(per_step)}
+    line = (f"[{card}] port-built text-conv (batch {tc_batch}): losses "
+            f"{[round(x, 6) for x in losses]} = phase 14's Module within "
+            f"rtol {BUILT_RTOL} (max rel diff {run['max_rel_diff']:.3g}); "
+            f"launches {run['launches']}")
+    if cuda:
+        run["profile"] = prof = checked_window(
+            "port-built text-conv", lambda: profile_calls(
+                torch, lambda: exe_steps(torch, exe, tmain, scope,
+                                         feeds[BUILT_STEPS:],
+                                         loss=tloss.name), 1),
+            {"seqpool": TEXTCONV_POOLS_PER_STEP})
+        line += (f"; step p50 {run['step_p50_ms']:.3f} ms, device busy "
+                 f"{prof['device_busy_ms_per_step']:.3f} ms, idle "
+                 f"{prof['idle_share']:.3f}, pools "
+                 f"{prof['pool_share']:.4f} of device time")
+    run["seconds"] = time.perf_counter() - t0
+    print(line)
+    out["textconv"] = run
+    del exe, scope
+
+    # (e) deepfm: 3 steps against phase 24's run of the committed pair
+    t0 = time.perf_counter()
+    main, startup, loss = build_program("deepfm", fm)
+    build_s = time.perf_counter() - t0
+    ref = train_programs["deepfm_train"]
+    scope = startup_scope(startup, TRAIN_PROGRAM_SEED)
+    feeds = program_feeds(torch, dev, None, fm, deepfm_batch,
+                          ref["feed_seed"], n_feeds)
+    exe = fluid.Executor(place)
+    reset_all_launches()
+    losses, ms, _, per_step = exe_steps(
+        torch, exe, main, scope, [f for f, _ in feeds[:k]],
+        {} if cuda else None, "port-built deepfm")
+    run = {"build_s": build_s, "losses": losses,
+           "phase24_losses": ref["losses"],
+           "max_rel_diff": agree("port-built deepfm", losses,
+                                 ref["losses"]),
+           "step_ms": ms, "step_p50_ms": float(np.median(ms)),
+           "seconds": time.perf_counter() - t0}
+    print(f"[{card}] port-built deepfm (batch {deepfm_batch}): losses "
+          f"{[round(x, 6) for x in losses]} = phase 24's within rtol "
+          f"{BUILT_RTOL} (max rel diff {run['max_rel_diff']:.3g}); no "
+          f"kernel of the port; step p50 {run['step_p50_ms']:.3f} ms")
+    out["deepfm"] = run
+    del exe, scope, main, startup
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the image classifiers: ResNet-50 at batch 128, the other five at
+    # batch 8, each from its own startup; finite losses, cuDNN's convs
+    icfg = {} if image_size is None else {"image_size": image_size}
+    size = image_size or 224
+    images_out = {}
+    for label, model_name, batch, steps in (
+            [("resnet50", "resnet", resnet_batch, BUILT_STEPS)]
+            + [(m, m, image_batch, BUILT_IMAGE_STEPS) for m in images]):
+        t0 = time.perf_counter()
+        px = 32 if model_name == "smallnet" and image_size is None else size
+        main, startup, loss = build_program(model_name, icfg)
+        build_s = time.perf_counter() - t0
+        scope = startup_scope(startup, BUILT_SEED)
+        classes = 10 if model_name == "smallnet" else 1000
+        feeds = [{"data": x, "label": y} for x, y in image_feeds(
+            torch, dev, batch, (3, px, px), classes, 60, steps + 1)]
+        exe = fluid.Executor(place)
+        reset_all_launches()
+        losses, ms, _, per_step = exe_steps(
+            torch, exe, main, scope, feeds[:steps], {} if cuda else None,
+            f"port-built {label}", loss=loss)
+        if not all(np.isfinite(losses)):
+            fail(f"port-built {label}: non-finite losses {losses}")
+        run = {"batch": batch, "build_s": build_s,
+               "ops": len(main.desc.global_block.ops), "losses": losses,
+               "step_ms": ms, "step_p50_ms": float(np.median(ms))}
+        line = (f"[{card}] port-built {label} (batch {batch}, {px} px, "
+                f"{run['ops']} ops, built in {build_s:.2f} s): losses "
+                f"{[round(x, 5) for x in losses]}, step p50 "
+                f"{run['step_p50_ms']:.3f} ms")
+        if cuda:
+            run["profile"] = prof = profile_calls(
+                torch, lambda: exe_steps(torch, exe, main, scope,
+                                         feeds[steps:], loss=loss), 1)
+            if not prof["conv_gemm_share"] > 0.0 or prof["families"]:
+                fail(f"port-built {label}: conv and GEMM kernels "
+                     f"{prof['conv_gemm_share']:.3f} of device time, the "
+                     f"port's kernels {prof['families']}")
+            line += (f", device busy {prof['device_busy_ms_per_step']:.3f} "
+                     f"ms, idle {prof['idle_share']:.3f}, cuDNN's and "
+                     f"cuBLAS's kernels {prof['conv_gemm_share']:.3f} of "
+                     f"device time")
+            if label == "resnet50":
+                ref = train_programs["resnet50_train"]
+                run["phase24"] = {
+                    key: ref.get(key) for key in ("timed_batch",
+                                                  "step_p50_ms")}
+                if "profile" in ref:
+                    run["phase24"]["device_busy_ms_per_step"] = ref[
+                        "profile"]["device_busy_ms_per_step"]
+                    run["phase24"]["idle_share"] = ref["profile"][
+                        "idle_share"]
+                line += f"; phase 24's committed program {run['phase24']}"
+        run["seconds"] = time.perf_counter() - t0
+        print(line + f"; {run['seconds']:.1f} s")
+        images_out[label] = run
+        del exe, scope, main, startup
+        if cuda:
+            torch.cuda.empty_cache()
+    out["images"] = images_out
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 26 (the rest of the bench builders) took "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7664,6 +8037,8 @@ def main():
     print(f"[{card}] phase 24 (training programs) took "
           f"{time.perf_counter() - t_train:.1f} s")
     built = builder_phase(torch, dev, card)
+    models = built_models_phase(torch, dev, card, train_programs,
+                                tc_run["losses"])
     short = [w for w in PROFILE_LOG if w[2]]
     print(f"[{card}] profiler windows: {len(PROFILE_LOG)}; {len(short)} "
           f"lost kernel records, {sum(w[3] > 0 for w in short)} in the "
@@ -7874,9 +8249,12 @@ def main():
                           if k.endswith("." + entry["name"])), None))
         entry["launches_train_program"] = train_program_launches(key)
         entry["launches_built_program"] = {
-            run: built[run]["launches"][key]
-            for run in ("transformer_noam", "stacked_lstm")
-            if key in built[run]["launches"]}
+            run: res[run]["launches"][key]
+            for res, runs in ((built, ("transformer_noam", "stacked_lstm")),
+                              (models, ("machine_translation",
+                                        "machine_translation_decode",
+                                        "textconv")))
+            for run in runs if key in res[run]["launches"]}
     wide = {key: row for res in (flash, fce, lstm, gru)
             for key, row in res.items()
             if key.split("/")[-1][1:].isdigit()}     # .../d48, .../h1024
@@ -7907,6 +8285,7 @@ def main():
     print(json.dumps({"train_programs": train_programs, "card": card},
                      default=str))
     print(json.dumps({"built_programs": built}, default=str))
+    print(json.dumps({"built_models": models}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

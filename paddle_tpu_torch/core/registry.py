@@ -12,9 +12,9 @@ way::
 (e.g. ``ins["X"][0]``, returns ``{"Out": [y]}``). The port's emitters are
 thin adapters onto the port's torch functions (``ops/nn_ops.py``,
 ``ops/rnn_ops.py``, ``ops/sequence_ops.py``, ``ops/attention_block.py``,
-``ops/metric_ops.py``, ``ops/lod_ops.py``), which route CUDA tensors to
-the hand-written kernels and CPU tensors to their plain versions
-(``device.uses_kernel``).
+``ops/metric_ops.py``, ``ops/lod_ops.py``, ``ops/beam_ops.py``), which
+route CUDA tensors to the hand-written kernels and CPU tensors to their
+plain versions (``device.uses_kernel``).
 The block runner calls them one by one, eagerly (``core/lowering.py``).
 """
 

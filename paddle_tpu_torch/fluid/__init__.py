@@ -16,7 +16,10 @@
     exe.run(startup)
     exe.run(main, feed=batch, fetch_list=[loss])
 
-A saved model runs the same way:
+``fluid.models`` holds the bench builders (mnist, the stacked LSTM, the
+Transformer, the six image classifiers, deepfm and machine translation,
+whose ``build(is_train=False)`` is the beam decoder). A saved model runs
+the same way:
 ``prog, feeds, fetches = fluid.io.load_inference_model(dirname, exe)``.
 What the JAX package's ``fluid`` has beyond this (``compiler``,
 ``data_feeder``, ``evaluator``, ``metrics``, ``profiler``, ``transpiler``,

@@ -1,10 +1,14 @@
 """Neural-network layers of the port (counterpart of ``paddle_tpu/fluid/
 layers/nn.py``; reference: python/paddle/fluid/layers/nn.py): the layers
-the mnist, stacked-LSTM and Transformer builders call, and their
-neighbours. Each appends the JAX layer's ops, with its attrs and names,
-through :class:`LayerHelper`. On the card ``fused_multi_head_attention``
-trains through the flash kernels and ``fused_linear_cross_entropy``
-through the fused-CE kernels. The rest of the file is ROADMAP A6.4b."""
+the bench builders call (deepfm's ``sigmoid_cross_entropy_with_logits``
+among them), ``split``, ``beam_search`` / ``beam_search_decode``, ``sum``
+and ``clip_by_norm``. Each appends the JAX layer's ops, with its attrs
+and names, through :class:`LayerHelper`. On the card
+``fused_multi_head_attention`` trains through the flash kernels and
+``fused_linear_cross_entropy`` through the fused-CE kernels. The layers
+whose ops the port lacks (``reduce_mean`` and the other reductions, the
+image resizes, ``dice_loss``, the logical ops, ``one_hot``, ``gather``
+and the rest) are ROADMAP A6.4b."""
 
 from __future__ import annotations
 
@@ -237,6 +241,19 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False):
+    """``nn.py:280`` — deepfm's loss."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
+
+
 # -- reductions / math ------------------------------------------------------
 
 def mean(x, name=None):
@@ -349,6 +366,26 @@ def transpose(x, perm, name=None):
     return out
 
 
+def split(input, num_or_sections, dim=-1, name=None):
+    """``nn.py:451`` — ``num_or_sections`` equal parts, or parts of the
+    given sizes, along ``dim``."""
+    helper = LayerHelper("split", name=name)
+    dim = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+        n_out = num
+    else:
+        num = 0
+        sections = list(num_or_sections)
+        n_out = len(sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n_out)]
+    helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs},
+                     attrs={"axis": dim, "num": num, "sections": sections})
+    return outs
+
+
 def slice(input, axes, starts, ends):
     helper = LayerHelper("slice")
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -376,6 +413,60 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={"Accuracy": [acc_out], "Correct": [correct],
                               "Total": [total]})
     return acc_out
+
+
+# -- beam search ------------------------------------------------------------
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id, name=None):
+    """``nn.py:1036`` — one step over dense [B, W] lanes (``ops/
+    beam_ops.py``). Returns (selected_ids, selected_scores, parent_idx)."""
+    helper = LayerHelper("beam_search", name=name)
+    ids = helper.create_variable_for_type_inference("int32")
+    sc = helper.create_variable_for_type_inference(scores.dtype)
+    parent = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "beam_search",
+        inputs={"PreIds": [pre_ids], "PreScores": [pre_scores],
+                "Scores": [scores]},
+        outputs={"SelectedIds": [ids], "SelectedScores": [sc],
+                 "ParentIdx": [parent]},
+        attrs={"beam_size": beam_size, "end_id": end_id})
+    return ids, sc, parent
+
+
+def beam_search_decode(ids, parent_idx, scores, end_id=0, name=None):
+    """``nn.py:1054`` — backtrack the stacked per-step selections
+    [T, B, W]. Returns (sentence_ids [B, W, T], sentence_scores [B, W])."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent = helper.create_variable_for_type_inference("int32")
+    ssc = helper.create_variable_for_type_inference(scores.dtype)
+    helper.append_op(
+        "beam_search_decode",
+        inputs={"Ids": [ids], "ParentIdx": [parent_idx],
+                "Scores": [scores]},
+        outputs={"SentenceIds": [sent], "SentenceScores": [ssc]},
+        attrs={"end_id": end_id})
+    return sent, ssc
+
+
+# -- lists and norms --------------------------------------------------------
+
+def sum(x):
+    """``nn.py:1690`` — the elementwise sum of a list (``sum_op.cc``)."""
+    helper = LayerHelper("sum")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("sum", inputs={"X": list(xs)}, outputs={"Out": [out]})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """``nn.py:1713`` — ``clip_by_norm_op.cc``."""
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
 
 
 # -- fused blocks -----------------------------------------------------------

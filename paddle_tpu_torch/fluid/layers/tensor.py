@@ -1,7 +1,10 @@
 """Tensor layers of the port (counterpart of ``paddle_tpu/fluid/layers/
 tensor.py``; reference: python/paddle/fluid/layers/tensor.py):
 ``fill_constant``, ``concat``, ``sums``, ``assign``, ``cast``, ``zeros``,
-``ones`` and ``zeros_like``. The rest of the file is ROADMAP A6.4b."""
+``ones``, ``zeros_like``, ``create_tensor``, ``create_parameter`` and
+``create_global_var``. The layers whose ops the port lacks (``has_inf``,
+``has_nan``, ``isfinite``, ``argmax``, ``shape``, ``reverse``, ...) are
+ROADMAP A6.4b."""
 
 from __future__ import annotations
 
@@ -67,3 +70,37 @@ def zeros_like(x, out=None):
     helper.append_op("fill_zeros_like", inputs={"X": [x]},
                      outputs={"Out": [out]})
     return out
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    """``tensor.py:104`` (reference tensor.py:35)."""
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_global_variable(shape=[1], dtype=dtype,
+                                         name=name, persistable=persistable)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """``tensor.py:111`` (reference tensor.py:59)."""
+    from paddle_tpu_torch.fluid.param_attr import ParamAttr
+    helper = LayerHelper("create_parameter")
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape=list(shape), dtype=dtype,
+                                   is_bias=is_bias,
+                                   default_initializer=default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """``tensor.py:122`` (reference tensor.py:97) — a global variable that
+    the startup program fills with ``value``."""
+    from paddle_tpu_torch.fluid.initializer import ConstantInitializer
+    helper = LayerHelper("global_var")
+    var = helper.create_global_variable(shape=list(shape), dtype=dtype,
+                                        name=name, persistable=persistable)
+    startup_block = helper.startup_program.global_block()
+    if not startup_block.has_var(var.name):
+        sp = startup_block.create_var(name=var.name, shape=list(shape),
+                                      dtype=dtype, persistable=persistable)
+        ConstantInitializer(float(value))(sp, startup_block)
+    return var

@@ -4,6 +4,8 @@ the first, second and fifth, ``fc`` 4096 relu, dropout 0.5, ``fc`` 4096
 relu, dropout 0.5, ``fc`` class_dim, softmax cross entropy and Momentum
 0.9 (``:11-44``). The dropouts take no ``is_test``: only ``eval()`` turns
 them off.
+The training program of the same model is
+``paddle_tpu_torch/fluid/models/alexnet.py``.
 """
 
 from __future__ import annotations

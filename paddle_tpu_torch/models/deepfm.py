@@ -18,6 +18,8 @@ over a sharded fleet (``ops/embed_cache.py`` ``enable_sharded_table``):
 then :meth:`DeepFM.forward` takes cache slots in place of vocab ids, as
 ``HotRowsCache.translate`` gives them. Scope weights carry across with
 ``convert.deepfm_params_from_jax``.
+The training program of the same model is
+``paddle_tpu_torch/fluid/models/deepfm.py``.
 """
 
 from __future__ import annotations

@@ -9,6 +9,8 @@ stride-3 average pool, a 1x1 conv of 128, ``fc`` 1024 relu, dropout 0.7,
 scale(sums([aux1, aux2]), 0.3)])`` (``:85-92``). Every conv has a bias
 and relu; Momentum 0.9. The last dropout takes ``is_test=not is_train``,
 the heads' dropouts none.
+The training program of the same model is
+``paddle_tpu_torch/fluid/models/googlenet.py``.
 """
 
 from __future__ import annotations

@@ -24,6 +24,8 @@ only the rows a batch touched move.
 
 :func:`build` has the JAX ``build``'s names and defaults (``:49-51``).
 Scope weights carry across with ``convert.mt_params_from_jax``.
+The training and inference programs of the same model are
+``paddle_tpu_torch/fluid/models/machine_translation.py``.
 """
 
 from __future__ import annotations

@@ -6,6 +6,8 @@ width or the stride changes; the residual add with relu), a global
 average pool and ``fc`` class_dim; softmax cross entropy and Momentum 0.9
 with L2 decay 1e-4 on every parameter (``:17-84``). Every conv has no
 bias; every batch norm takes ``is_test=not is_train``.
+The training program of the same model is
+``paddle_tpu_torch/fluid/models/resnet.py``.
 """
 
 from __future__ import annotations

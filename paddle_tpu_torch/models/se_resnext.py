@@ -6,6 +6,8 @@ sigmoid, the [N, C] gate multiplied in at axis 0) before the residual add
 with relu; a global average pool, dropout 0.5, ``fc`` class_dim; softmax
 cross entropy and Momentum 0.9 (``:12-93``). The dropout takes no
 ``is_test``: only ``eval()`` turns it off.
+The training program of the same model is
+``paddle_tpu_torch/fluid/models/se_resnext.py``.
 """
 
 from __future__ import annotations

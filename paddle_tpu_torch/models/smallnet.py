@@ -3,6 +3,8 @@
 filters (padding 2), a 3x3 stride-2 max pool then relu, two 3x3 stride-2
 average pools, ``fc`` 64 and ``fc`` class_dim, softmax cross entropy and
 Momentum 0.9 (``:11-41``). Input [N, 3, 32, 32].
+The training program of the same model is
+``paddle_tpu_torch/fluid/models/smallnet.py``.
 """
 
 from __future__ import annotations

@@ -5,6 +5,8 @@ max pool a block; ``fc`` 4096, batch norm with relu, dropout 0.5, ``fc``
 4096, ``fc`` class_dim; softmax cross entropy and Momentum 0.9
 (``:10-43``). The block's batch norms and the dropout take no
 ``is_test``; the batch norm after the first ``fc`` does.
+The training program of the same model is
+``paddle_tpu_torch/fluid/models/vgg.py``.
 """
 
 from __future__ import annotations

@@ -19,13 +19,17 @@ changes; at step 0 only lane 0 is live (pre-scores ``[0, -1e9, ...]``).
   ``max_len`` steps of plain torch. The JAX op runs the decoder's GRU step
   inline (no Pallas kernel), and so does this loop.
 
-Ids and parents come out int32, as from the JAX ops. Nothing here carries
-a gradient.
+The ops ``beam_search``, ``beam_search_decode`` and
+``attention_gru_beam_decode`` of the program executor are thin adapters
+onto these functions. Ids and parents come out int32, as from the JAX
+ops. Nothing here carries a gradient.
 """
 
 from __future__ import annotations
 
 import torch
+
+from paddle_tpu_torch.core.registry import first, register_op
 
 NEG_INF = -1e9                   # ``_NEG_INF``: a dead lane's score
 
@@ -121,3 +125,45 @@ def attention_gru_beam_decode(enc, h0, emb, proj_w, proj_b, gru_w, gru_b,
         ids_seq.append(ids)
         par_seq.append(parent)
     return backtrack(torch.stack(ids_seq), torch.stack(par_seq)), pre_scores
+
+
+@register_op("beam_search", no_grad=True,
+             ref="operators/beam_search_op.cc BeamSearch::operator()")
+def _beam_search_op(ctx, ins, attrs):
+    """``:53``: PreIds, PreScores [B, W], Scores [B, W, V] ->
+    SelectedIds, SelectedScores, ParentIdx."""
+    ids, sc, parent = beam_search(first(ins, "PreIds"),
+                                  first(ins, "PreScores"),
+                                  first(ins, "Scores"),
+                                  attrs["beam_size"], attrs["end_id"])
+    return {"SelectedIds": [ids], "SelectedScores": [sc],
+            "ParentIdx": [parent]}
+
+
+@register_op("beam_search_decode", no_grad=True,
+             ref="operators/beam_search_decode_op.cc BeamSearchDecoder")
+def _beam_search_decode_op(ctx, ins, attrs):
+    """``:83``: Ids, ParentIdx [T, B, W] (and Scores [B, W]) ->
+    SentenceIds [B, W, T] (and SentenceScores)."""
+    sent, scores = beam_search_decode(first(ins, "Ids"),
+                                      first(ins, "ParentIdx"),
+                                      first(ins, "Scores"))
+    outs = {"SentenceIds": [sent]}
+    if scores is not None:
+        outs["SentenceScores"] = [scores]
+    return outs
+
+
+@register_op("attention_gru_beam_decode", no_grad=True,
+             ref="capability: RecurrentGradientMachine beam generation "
+                 "(legacy/gserver/gradientmachines/RecurrentGradientMachine"
+                 ".cpp) + beam_search_op.cc, fused into one loop")
+def _attention_gru_beam_decode_op(ctx, ins, attrs):
+    """``:99``: EncOut, H0, Emb, ProjW, ProjB, GruW, GruB, AttnW, OutW,
+    OutB -> SentenceIds [B, W, max_len] int32, SentenceScores [B, W]."""
+    sent, scores = attention_gru_beam_decode(
+        *(first(ins, n) for n in ("EncOut", "H0", "Emb", "ProjW", "ProjB",
+                                  "GruW", "GruB", "AttnW", "OutW", "OutB")),
+        beam_size=int(attrs["beam_size"]), max_len=int(attrs["max_len"]),
+        start_id=int(attrs["start_id"]), end_id=int(attrs["end_id"]))
+    return {"SentenceIds": [sent], "SentenceScores": [scores]}

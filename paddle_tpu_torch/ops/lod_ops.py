@@ -43,6 +43,12 @@ over the port's ops with a thin op emitter beside it:
   :func:`fusion_seqexpand_concat_fc` (``:390``).
 
 An activation name the JAX emitter would pass over raises here.
+
+Two more ops of the JAX file, plain torch with its numerics:
+:func:`sequence_scatter` (``:165``; padded ids, clamped as the JAX op
+clamps them, add 0) and :func:`lstmp` (``:417``, the LSTM with a
+recurrent projection of ``fluid.layers.dynamic_lstmp``: a step loop, as
+the JAX op's ``lax.scan``, not the LSTM kernel).
 """
 
 from __future__ import annotations
@@ -302,3 +308,66 @@ def _fusion_seqexpand_concat_fc_op(ctx, ins, attrs):
     return single(fusion_seqexpand_concat_fc(
         ins.get("X", []), first(ins, "FCWeight"), first(ins, "FCBias"),
         attrs.get("fc_activation", "identity")))
+
+
+def sequence_scatter(x: torch.Tensor, ids: torch.Tensor,
+                     updates: torch.Tensor) -> torch.Tensor:
+    """``_sequence_scatter`` (``:165-178``): X [B, D], Ids [B, S] (padded
+    with -1), Updates [B, S] -> out[b, ids[b, s]] += updates[b, s] over
+    the ids >= 0. The padding's ids are clamped into range, as the JAX
+    op's are, and add 0 there."""
+    valid = ids >= 0
+    safe = ids.long().clamp(0, x.shape[1] - 1)
+    return x.scatter_add(1, safe, torch.where(valid, updates,
+                                              torch.zeros_like(updates)))
+
+
+def lstmp(x: torch.Tensor, weight: torch.Tensor, proj_weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          h0: Optional[torch.Tensor] = None,
+          c0: Optional[torch.Tensor] = None,
+          seq_lens: Optional[torch.Tensor] = None):
+    """``_lstmp`` (``:417-451``): an LSTM over the projected x [B, T, 4D]
+    whose recurrent state is the projection h_t = (o * tanh(c_t)) @
+    proj_weight [D, P]; weight [P, 4D]; the bias's first 4D columns are
+    added to x (the JAX op uses no peepholes and the default
+    activations). A step past a row's length keeps the state. ->
+    (Projection [B, T, P], Cell [B, T, D]). A step loop in plain torch,
+    not the LSTM kernel: the JAX op is a ``lax.scan``."""
+    b, t, d4 = x.shape
+    d = d4 // 4
+    p = proj_weight.shape[1]
+    if bias is not None:
+        x = x + bias.reshape(1, 1, -1)[:, :, :d4]
+    h = torch.zeros((b, p), dtype=x.dtype, device=x.device) \
+        if h0 is None else h0
+    c = torch.zeros((b, d), dtype=x.dtype, device=x.device) \
+        if c0 is None else c0
+    hs, cs = [], []
+    for step in range(t):
+        gates = x[:, step] + h @ weight
+        i, f, cc, o = gates.split(d, dim=1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(cc)
+        h_new = (torch.sigmoid(o) * torch.tanh(c_new)) @ proj_weight
+        if seq_lens is not None:
+            alive = step < seq_lens.reshape(-1, 1)
+            c_new = torch.where(alive, c_new, c)
+            h_new = torch.where(alive, h_new, h)
+        h, c = h_new, c_new
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+
+
+@register_op("sequence_scatter",
+             ref="operators/sequence_ops/sequence_scatter_op.cc")
+def _sequence_scatter_op(ctx, ins, attrs):
+    return single(sequence_scatter(first(ins, "X"), first(ins, "Ids"),
+                                   first(ins, "Updates")))
+
+
+@register_op("lstmp", ref="operators/lstmp_op.cc")
+def _lstmp_op(ctx, ins, attrs):
+    proj, cell = lstmp(*(first(ins, n) for n in (
+        "Input", "Weight", "ProjWeight", "Bias", "H0", "C0", "SeqLens")))
+    return {"Projection": [proj], "Cell": [cell]}

@@ -3,8 +3,9 @@
 ``mul`` (``:26``), ``matmul`` (``:51``), ``scale`` (``:74``), ``sum``
 (``:84``), ``reduce_sum`` (``:115``), ``mean`` (``:122``), ``top_k``
 (``:137``), ``reshape`` (``:147``), ``squeeze`` (``:164``), ``transpose``
-(``:181``), ``concat`` (``:193``), ``slice`` (``:218``), ``cast``
-(``:93``) and ``squared_l2_norm`` (``:303``, the global-norm clip's).
+(``:181``), ``concat`` (``:193``), ``split`` (``:204``), ``slice``
+(``:218``), ``cast`` (``:93``) and ``squared_l2_norm`` (``:303``, the
+global-norm clip's).
 """
 
 from __future__ import annotations
@@ -108,3 +109,23 @@ def _cast(ctx, ins, attrs):
 @register_op("squared_l2_norm", ref="operators/squared_l2_norm_op.cc")
 def _squared_l2_norm(ctx, ins, attrs):
     return single(torch.sum(torch.square(first(ins, "X"))))
+
+
+@register_op("split", ref="operators/split_op.cc")
+def _split(ctx, ins, attrs):
+    """``num`` equal parts (it must divide the axis, as ``jnp.split``
+    requires), or parts of the ``sections`` sizes (the last takes the
+    rest)."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", 0)
+    num = attrs.get("num", 0)
+    if num:
+        if x.shape[axis] % num:
+            raise ValueError(f"split: axis {axis} of {tuple(x.shape)} does "
+                             f"not divide into {num} equal parts")
+        return {"Out": list(torch.tensor_split(x, num, dim=axis))}
+    offsets, at = [], 0
+    for s in list(attrs.get("sections", []))[:-1]:
+        at += int(s)
+        offsets.append(at)
+    return {"Out": list(torch.tensor_split(x, offsets, dim=axis))}

@@ -24,9 +24,12 @@ plain versions on the CPU), and a reversed sequence or another activation
 to the step loop of ``:205-218``. The alignment and VMEM conditions
 (``:194-196``) are not carried over, as for the LSTM.
 
-The ``dynamic_lstm`` and ``dynamic_gru`` ops of the program executor
-(``core/registry.py``) are thin adapters onto :func:`dynamic_lstm` and
-:func:`dynamic_gru`.
+:func:`lstm_unit` (``:222``) and :func:`gru_unit` (``:239``) are one
+step each, plain torch: the JAX ops reach no kernel.
+
+The ``dynamic_lstm``, ``dynamic_gru``, ``lstm_unit`` and ``gru_unit`` ops
+of the program executor (``core/registry.py``) are thin adapters onto the
+functions of their names.
 """
 
 from __future__ import annotations
@@ -194,3 +197,49 @@ def _dynamic_gru_op(ctx, ins, attrs):
         attrs.get("gate_activation", "sigmoid"),
         attrs.get("activation", "tanh"))
     return {"Hidden": [hid], "LastHidden": [h_last]}
+
+
+def lstm_unit(x: torch.Tensor, c_prev: torch.Tensor,
+              forget_bias: float = 0.0):
+    """One LSTM step (``paddle_tpu/ops/rnn_ops.py:222``): x [B, 4H] the
+    projected gates i, f, c~, o (the recurrent term included), c_prev
+    [B, H] -> (c, h). Plain torch: the JAX op reaches no kernel."""
+    h = c_prev.shape[-1]
+    i = torch.sigmoid(x[:, :h])
+    f = torch.sigmoid(x[:, h:2 * h] + forget_bias)
+    z = torch.tanh(x[:, 2 * h:3 * h])
+    o = torch.sigmoid(x[:, 3 * h:])
+    c = f * c_prev + i * z
+    return c, o * torch.tanh(c)
+
+
+def gru_unit(x: torch.Tensor, h_prev: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor] = None,
+             activation: str = "tanh",
+             gate_activation: str = "sigmoid") -> torch.Tensor:
+    """One GRU step (``paddle_tpu/ops/rnn_ops.py:239``): x [B, 3H]
+    projected, h_prev [B, H], weight [H, 3H], bias [1, 3H] -> h [B, H],
+    the cell of :func:`dynamic_gru`. Plain torch: the JAX op reaches no
+    kernel."""
+    h = h_prev.shape[-1]
+    if bias is not None:
+        x = x + bias.reshape(-1)
+    ur = _act(gate_activation)(x[:, :2 * h] + h_prev @ weight[:, :2 * h])
+    u, r = ur[:, :h], ur[:, h:]
+    c = _act(activation)(x[:, 2 * h:] + (r * h_prev) @ weight[:, 2 * h:])
+    return (1.0 - u) * h_prev + u * c
+
+
+@register_op("lstm_unit", ref="operators/lstm_unit_op.cc")
+def _lstm_unit_op(ctx, ins, attrs):
+    c, h = lstm_unit(first(ins, "X"), first(ins, "C_prev"),
+                     attrs.get("forget_bias", 0.0))
+    return {"C": [c], "H": [h]}
+
+
+@register_op("gru_unit", ref="operators/gru_unit_op.cc")
+def _gru_unit_op(ctx, ins, attrs):
+    return {"Hidden": [gru_unit(
+        first(ins, "Input"), first(ins, "HiddenPrev"), first(ins, "Weight"),
+        first(ins, "Bias"), attrs.get("activation", "tanh"),
+        attrs.get("gate_activation", "sigmoid"))]}

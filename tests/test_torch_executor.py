@@ -582,7 +582,17 @@ def test_new_modules_import_no_jax():
             "import paddle_tpu_torch.fluid.models.transformer\n"
             "import paddle_tpu_torch.fluid.models.mnist\n"
             "import paddle_tpu_torch.fluid.models.stacked_dynamic_lstm\n"
-            "assert len(OPS) == 87, sorted(OPS)\n"
+            "import paddle_tpu_torch.fluid.models.smallnet\n"
+            "import paddle_tpu_torch.fluid.models.alexnet\n"
+            "import paddle_tpu_torch.fluid.models.vgg\n"
+            "import paddle_tpu_torch.fluid.models.resnet\n"
+            "import paddle_tpu_torch.fluid.models.se_resnext\n"
+            "import paddle_tpu_torch.fluid.models.googlenet\n"
+            "import paddle_tpu_torch.fluid.models.deepfm\n"
+            "import paddle_tpu_torch.fluid.models.machine_translation\n"
+            "import paddle_tpu_torch.fluid.nets\n"
+            "import paddle_tpu_torch.ops.beam_ops\n"
+            "assert len(OPS) == 108, sorted(OPS)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m == 'paddle_tpu'\n"
