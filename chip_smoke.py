@@ -10,7 +10,7 @@ final line. Every profiler window (``profile_calls``) opens with 1024
 launches that it does not count: late in this script the profiler drops
 the first kernel records of a window. Every window counts the launch
 calls whose kernel record is missing, and the tally is printed after
-phase 26.
+phase 27.
 
 1. Device: the card's name, count and power limit (``nvidia-smi``).
    Without CUDA the script fails.
@@ -594,7 +594,30 @@ phase 26.
     and idle beside phase 24's for the committed program. Each build is
     timed. Its JSON line is ``{"built_models": ...}``; the phase prints
     its own time.
-27. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+27. The decoder LM as serving programs (``program_phase``, after phase
+    26, on phase 4's weights and requests): the families of
+    ``fluid.models.transformer.build_decoder_lm_programs`` at phase 4's
+    widths and geometry, built by the port (each build timed), phase 4's
+    weights carried into their scopes under the JAX names, served by the
+    engines over the families (``make_slot_model(name, programs)``,
+    ``GenerativeModel(name, programs)``), every view run by the port's
+    executor. (a) The paged family of ``slot_modes("paged")``, per codec:
+    the 24 requests, whose streams equal phase 4's Module streams or part
+    at a near tie (fp32 also against the oracle; int8 its first tokens,
+    and a second run replays), the page gathers 2 x n_layer a decode step
+    by counter (zeroed just before, read just after); a profiler window
+    of 20 decode steps of 16 busy slots (``checked_window``: that codec's
+    kernel 2 x n_layer a step by name, and by counter): device busy,
+    host ms, idle share and launches a step beside phase 4's Module
+    engine. (b) The contiguous family with its verify view
+    (``slot_modes("contiguous", spec=True)``, spec_k 4) on 6 requests
+    against phase 19's contiguous Module streams, no page gather. (c) The
+    wave engine over ``prefill@P`` / ``decode`` / ``full`` on 6 greedy
+    requests against phase 19's wave, and the ``full`` view's logits
+    against ``DecoderLM.full`` (``PROGRAM_FULL_TOL``: the view's flash
+    forward against the Module's dense attention), one flash forward a
+    layer. The phase prints its own time.
+28. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range; flash_fwd, fused_ce_fwd and lstm_train_fwd
@@ -604,7 +627,9 @@ phase 26.
     phase 24's ``launches_train_program``, one executor training step of
     each program that launches it, and phases 25 and 26's
     ``launches_built_program``: the 3 steps of each port-built program
-    and the port-built decode),
+    and the port-built decode; the page gathers with phase 27's
+    ``launches_program`` and ``program_decode_step``, flash_fwd with its
+    ``launches_full_view``),
     then, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -3793,7 +3818,12 @@ KERNEL_FAMILIES = (
     ("rnn_dw", "rnn_dw_kernel", None),
     ("cache_gather", "cache_gather_kernel", None),
     ("cache_scatter", "cache_scatter_kernel", None),
-    ("seqpool", "seqpool_kernel", None))
+    ("seqpool", "seqpool_kernel", None),
+    ("page_gather", "gather_rows_kernel", None),
+    ("page_gather_dequant", "gather_rows_dequant", None))
+# the page gathers' wrappers -> their KERNEL_FAMILIES names
+PAGE_FAMILIES = {"gather_rows": "page_gather",
+                 "gather_rows_dequant": "page_gather_dequant"}
 
 
 def kernel_family(key):
@@ -7019,6 +7049,15 @@ TRAIN_PROGRAMS = {
                          want={}),
 }
 TRAIN_PROGRAM_LOSS = "mean_0.tmp_0"
+# deepfm's weights part from the CPU's, and the JAX executor's from the
+# port's on one CPU, at batch seeds where an input of the deep tower's
+# relus lies within the sums' rounding of 0 and the two sides disagree on
+# its sign: the gradient passes that relu on one side only, and lazy Adam
+# moves every element it reaches by ~lr (PERF.md §6). A failure here
+# is such a kink or a gap; the tool tells them apart.
+DEEPFM_GAP_HINT = ("; tools/torch_deepfm_gap.py counts the relu inputs "
+                   "whose sign the two sides disagree on (a kink, not a "
+                   "gap, where its JAX-against-port run parts alike)")
 
 
 def train_pair(name):
@@ -7144,7 +7183,7 @@ def exe_steps(torch, exe, prog, scope, feeds, want=None, label="",
 
 
 def weights_agree(label, got, want, rtol=CURVE_RTOL,
-                  atol=TRAIN_PROGRAM_ATOL):
+                  atol=TRAIN_PROGRAM_ATOL, hint=""):
     """Two state dicts (fp32 tensors or arrays by key) after the same
     steps: each tensor as ``np.allclose`` in the L2 norm,
     ``|got - want| <= rtol |want| + atol sqrt(n)``. Adam divides each
@@ -7154,7 +7193,8 @@ def weights_agree(label, got, want, rtol=CURVE_RTOL,
     millions of weights a few move by ``lr`` one way on one side and the
     other way on the other; a norm tells those from an update that is
     wrong. Returns (the largest ``|got - want| / (rtol |want| + atol
-    sqrt(n))``, the largest elementwise difference)."""
+    sqrt(n))``, the largest elementwise difference). ``hint`` ends the
+    failure's message."""
     worst_rel = worst_abs = 0.0
     for key, w in want.items():
         g = np.asarray(got[key], np.float64)
@@ -7169,7 +7209,7 @@ def weights_agree(label, got, want, rtol=CURVE_RTOL,
         if not rel <= 1.0:
             fail(f"{label}: {key} differs by {rel:.3g} of its bound (rtol "
                  f"{rtol}, atol {atol} a weight in the L2 norm; max abs "
-                 f"{np.abs(g - w).max():.3g})")
+                 f"{np.abs(g - w).max():.3g}){hint}")
     return worst_rel, worst_abs
 
 
@@ -7237,7 +7277,8 @@ def train_program_phase(torch, dev, card, module_runs, programs=None):
                      f"CPU's {want_l} beyond {TRAIN_PROGRAM_CPU_TOL}")
             card_a = scope_arrays(scope, persist)
             stats["cpu_max_rel_err"], stats["cpu_max_abs_err"] = \
-                weights_agree(name, card_a, scope_arrays(cscope, persist))
+                weights_agree(name, card_a, scope_arrays(cscope, persist),
+                              hint=DEEPFM_GAP_HINT)
             # lazy Adam: a row no batch touched keeps its value and moments
             ids = np.unique(np.concatenate(
                 [f["feat_ids"].cpu().numpy().ravel() for f, _ in feeds[:k]]))
@@ -7962,6 +8003,229 @@ def built_models_phase(torch, dev, card, train_programs, tc_losses,
     return out
 
 
+# -- phase 27: the decoder LM as serving programs ------------------------------
+# (phase 4's weights and requests, the engines over program families)
+
+PROGRAM_FEW = 6                    # requests through the verify and wave views
+PROGRAM_FULL_TOL = dict(rtol=1e-3, atol=1e-3)  # full view: flash vs dense
+
+
+def program_family(modes, **kw):
+    """(``build_decoder_lm_programs`` at ``LM`` / ``SERVE`` under a fresh
+    name guard, its build seconds). The family is named ``lm``, so its
+    parameters carry :func:`random_params`' names."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.models.transformer import (
+        build_decoder_lm_programs)
+    buckets = SERVE["prompt_buckets"]
+    t = time.perf_counter()
+    with fluid.unique_name.guard():
+        progs = build_decoder_lm_programs(
+            prompt_len=buckets[-1], max_new=CACHE_LEN - buckets[-1], **LM,
+            name="lm", modes=modes, prompt_buckets=buckets,
+            n_slots=SERVE["n_slots"], **kw)
+    return progs, time.perf_counter() - t
+
+
+def carry_weights(torch, engine, progs, dev):
+    """Phase 4's weights (:func:`random_params`) into an engine's scope
+    under the JAX names; the family's parameters must be exactly those."""
+    params = random_params(1)
+    names = {p.name for key in progs
+             for p in progs[key][0].global_block().all_parameters()}
+    if names != set(params):
+        fail(f"the family's parameters {sorted(names ^ set(params))[:6]} "
+             f"differ from phase 4's")
+    for n, a in params.items():
+        engine.scope.set_var(n, torch.from_numpy(a).to(dev))
+
+
+def program_busy(torch, engine, card, label, kname, per_layer,
+                 steps=DECODE_PROFILE_STEPS):
+    """Device busy, host ms and launches a decode step of the program
+    engine with every slot busy (seeded 64-token prompts, budget 128; 5
+    untraced steps, then ``steps`` in a :func:`profile_calls` window): by
+    profiler name (``checked_window``) and by the launch counters, zeroed
+    just before the window, ``kname``'s kernel ``per_layer`` times a
+    step."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.RandomState(3)
+    for _ in range(engine.n_slots):
+        engine.admit(rng.randint(1, LM["vocab"], 64), max_new=128)
+    for _ in range(5):
+        engine.step()
+    family = PAGE_FAMILIES[kname]
+    counted = []
+
+    def take():
+        pa.reset_launches()
+        prof = profile_calls(torch, lambda: (
+            [engine.step() for _ in range(steps)], torch.cuda.synchronize()),
+            steps)
+        counted.append(dict(pa.LAUNCHES))
+        return prof
+    prof = checked_window(label, take, {family: per_layer})
+    engine.reset()
+    want = {k: per_layer * steps if k == kname else 0 for k in pa.LAUNCHES}
+    if counted[-1] != want:
+        fail(f"{label}: the launch counts of {steps} decode steps are "
+             f"{counted[-1]}, want {want}")
+    return prof
+
+
+def program_phase(torch, dev, card, served, decode, per_layer):
+    """Phase 27: phase 4's weights and requests through the engines over
+    program families (``build_decoder_lm_programs``, the views run by the
+    port's executor): (a) the paged family of ``slot_modes("paged")`` for
+    both codecs through ``make_slot_model(name, programs)`` against phase
+    4's Module streams, the page gathers 2 x n_layer a decode step by
+    counter and by profiler name, host p50 and device busy beside phase
+    4's; (b) the contiguous family with its verify view on a few requests
+    against phase 19's contiguous Module engine; (c) the wave engine over
+    ``prefill@P`` / ``decode`` / ``full`` against phase 19's wave, and
+    the ``full`` view's logits against the Module's ``full``."""
+    from paddle_tpu_torch.fluid.models.transformer import slot_modes
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving.bucketing import BucketPolicy
+    from paddle_tpu_torch.serving.engine import (GenerativeModel,
+                                                 make_slot_model)
+    t_phase = time.perf_counter()
+    lm = decoder_lm(dev)                 # phase 4's model: the oracle
+    reqs = served["reqs"]
+    out = {"launches": {}}
+
+    # (a) the paged family, both codecs
+    for codec, kname in (("none", "gather_rows"),
+                         ("int8", "gather_rows_dequant")):
+        label = f"program kv_codec={codec}"
+        progs, build_s = program_family(
+            slot_modes("paged"), page_size=SERVE["page_size"],
+            n_pages=SERVE["n_pages"], kv_codec=codec)
+        engine = make_slot_model(f"decoder_lm_program_{codec}", progs,
+                                 device=dev)
+        carry_weights(torch, engine, progs, dev)
+        engine.warmup()
+        pa.reset_launches()
+        streams, stats = serve(torch, engine, reqs, card, label)
+        launches = dict(pa.LAUNCHES)
+        want = {k: per_layer * stats["decode_steps"] if k == kname else 0
+                for k in launches}
+        if launches != want:
+            fail(f"{label}: the page gathers launched {launches}, want "
+                 f"{want}")
+        out["launches"][kname] = launches[kname]
+        module = served["streams"][codec]
+        eq, ties = streams_agree(torch, lm, reqs, module, streams,
+                                 f"{label} / phase 4")
+        if codec == "none":
+            oracle = oracle_check(torch, lm, reqs, streams, label)
+        else:
+            oracle = oracle_check(torch, lm, reqs, streams, label,
+                                  first_only=True)
+            again, _ = serve(torch, engine, reqs, card, f"{label} replay")
+            if any(not np.array_equal(a, b)
+                   for a, b in zip(streams, again)):
+                fail(f"{label}: a second run gave other streams")
+        stats.update(build_s=build_s, equal_to_module=eq,
+                     module_near_ties=ties, oracle_near_ties=oracle)
+        print(f"[{card}] {label}: built in {build_s:.2f} s; {eq} of "
+              f"{N_REQUESTS} streams equal phase 4's Module engine token "
+              f"for token, {ties} part at a near tie; the oracle's "
+              f"{'first tokens' if codec == 'int8' else 'streams'} "
+              f"({oracle} near ties); {launches[kname]} {kname} launches "
+              f"= {per_layer} a decode step")
+        prof = program_busy(torch, engine, card, label, kname, per_layer)
+        mod = decode[codec]
+        stats["busy"] = {k: prof[k] for k in (
+            "device_busy_ms_per_step", "host_ms_per_step", "idle_share",
+            "launches_per_step", "windows")}
+        stats["module_busy"] = {k: mod[k] for k in (
+            "device_busy_ms_per_step", "host_ms_per_step", "idle_share",
+            "launches_per_step")}
+        print(f"[{card}] {label} profile ({DECODE_PROFILE_STEPS} decode "
+              f"steps of {engine.n_slots} slots): device busy "
+              f"{prof['device_busy_ms_per_step']:.3f} ms/step, host "
+              f"{prof['host_ms_per_step']:.3f} ms/step (profiler on), idle "
+              f"{prof['idle_share']:.3f}, "
+              f"{prof['launches_per_step']:.1f} launches a step, "
+              f"{PAGE_FAMILIES[kname]} {per_layer} a step by name; phase "
+              f"4's Module engine: busy "
+              f"{mod['device_busy_ms_per_step']:.3f}, host "
+              f"{mod['host_ms_per_step']:.3f}, idle {mod['idle_share']:.3f},"
+              f" {mod['launches_per_step']:.1f} launches; host decode-step "
+              f"p50 {stats['decode_step_p50_ms']:.3f} ms here")
+        out[label] = stats
+        del engine, progs
+
+    # (b) the contiguous family with its verify view
+    label = "program contiguous spec"
+    few = subset(reqs, range(PROGRAM_FEW))
+    progs, build_s = program_family(slot_modes("contiguous", spec=True),
+                                    **SPEC)
+    engine = make_slot_model("decoder_lm_program_contiguous_spec", progs,
+                             device=dev)
+    carry_weights(torch, engine, progs, dev)
+    engine.warmup()
+    streams, stats = spec_serve(torch, engine, few, card, f"{label} ngram",
+                                pa, None, 0)
+    module = served["contiguous_streams"][:PROGRAM_FEW]
+    eq, ties = streams_agree(torch, lm, few, module, streams,
+                             f"{label} / phase 19")
+    stats.update(build_s=build_s, equal_to_module=eq, module_near_ties=ties)
+    print(f"[{card}] {label}: built in {build_s:.2f} s; {eq} of "
+          f"{PROGRAM_FEW} streams equal phase 19's contiguous Module "
+          f"engine, {ties} part at a near tie; no page gather launched")
+    out[label] = stats
+    del engine, progs
+
+    # (c) the wave engine over prefill@P / decode / full
+    label = "program wave"
+    progs, build_s = program_family(("prefill", "decode", "full"))
+    wave = GenerativeModel("decoder_lm_program_wave", progs,
+                           policy=BucketPolicy.pow2(SERVE["n_slots"]),
+                           device=dev)
+    carry_weights(torch, wave, progs, dev)
+    wave.warmup()
+    greedy = served["greedy"][:PROGRAM_FEW]
+    greqs = subset(reqs, greedy)
+    pa.reset_launches()
+    wave_streams, wstats = wave_serve(torch, wave, greqs, card, label)
+    no_gathers(pa, label)
+    module = served["wave_streams"][:PROGRAM_FEW]
+    eq, ties = streams_agree(torch, lm, greqs, module, wave_streams,
+                             f"{label} / phase 19")
+    seq = np.zeros((4, CACHE_LEN), np.int64)
+    for i, p in enumerate(greqs[0][:4]):
+        seq[i, :len(p)] = p
+    ids = torch.from_numpy(seq)
+    fa.reset_launches()
+    got = wave.model.full(ids)
+    full_launches = dict(fa.LAUNCHES)
+    want = lm.full(ids)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **PROGRAM_FULL_TOL) or \
+            full_launches["flash_fwd"] != LM["n_layer"]:
+        fail(f"{label}: the full view's logits differ from the Module's "
+             f"by {err:.3g} (tolerance {PROGRAM_FULL_TOL}) or its flash "
+             f"launches {full_launches} are not {LM['n_layer']} flash_fwd")
+    out["launches"]["flash_fwd_full_view"] = full_launches["flash_fwd"]
+    wstats.update(build_s=build_s, equal_to_module=eq, module_near_ties=ties,
+                  full_max_abs_err=err)
+    print(f"[{card}] {label}: built in {build_s:.2f} s; {eq} of "
+          f"{len(greedy)} greedy streams equal phase 19's wave, {ties} part "
+          f"at a near tie; the full view's logits (4 x {CACHE_LEN}) within "
+          f"{err:.3g} of the Module's, {full_launches['flash_fwd']} "
+          f"flash_fwd launches (one a layer)")
+    out[label] = wstats
+    del wave, progs, lm
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 27 (the decoder LM as serving programs) took "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8013,6 +8277,9 @@ def main():
     image = image_phase(torch, dev, card)
     server = server_phase(torch, dev, card, served, per_layer)
     fleet = fleet_phase(torch, dev, card, served, server)
+    # phase 27 holds the program engines against these Module streams
+    module_serving = {k: served[k] for k in (
+        "reqs", "streams", "contiguous_streams", "wave_streams", "greedy")}
     del served
     import shutil
     import tempfile
@@ -8039,6 +8306,9 @@ def main():
     built = builder_phase(torch, dev, card)
     models = built_models_phase(torch, dev, card, train_programs,
                                 tc_run["losses"])
+    programs = program_phase(torch, dev, card, module_serving, decode,
+                             per_layer)
+    del module_serving
     short = [w for w in PROFILE_LOG if w[2]]
     print(f"[{card}] profiler windows: {len(PROFILE_LOG)}; {len(short)} "
           f"lost kernel records, {sum(w[3] > 0 for w in short)} in the "
@@ -8100,6 +8370,9 @@ def main():
             "launches_fleet": "not counted: phase 21's replicas launch "
                               "it in their own processes",
             "verify_step": spec[codec]["busy"],
+            "launches_program": programs["launches"][kname],
+            "program_decode_step": programs[
+                f"program kv_codec={codec}"]["busy"],
             "launches_per_train_step": 0, "card": card})
     for kname, line in (("flash_fwd", "189"), ("flash_bwd", "481, :504"),
                         ("flash_dq", "481"), ("flash_dkv", "504")):
@@ -8128,6 +8401,8 @@ def main():
             "launches_executor": exec_launches.get(
                 f"flash_attention.{kname}", 0),
             **saved_launches(f"flash_attention.{kname}"),
+            "launches_full_view": (programs["launches"][
+                "flash_fwd_full_view"] if kname == "flash_fwd" else 0),
             "card": card,
             "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -8286,6 +8561,8 @@ def main():
                      default=str))
     print(json.dumps({"built_programs": built}, default=str))
     print(json.dumps({"built_models": models}, default=str))
+    print(json.dumps({"serving_programs": programs, "card": card},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -55,9 +55,9 @@ from paddle_tpu_torch.core.registry import (EmitContext, draw_seed, get_op,
 
 # every emitter registers itself on import
 from paddle_tpu_torch.ops import (basic, beam_ops,  # noqa: F401
-                                  grad_ops, lod_ops, math_ops, metric_ops,
-                                  misc_ops, nn_ops, optimizer_ops, rnn_ops,
-                                  sequence_ops)
+                                  grad_ops, kv_attention, lod_ops, math_ops,
+                                  metric_ops, misc_ops, nn_ops,
+                                  optimizer_ops, rnn_ops, sequence_ops)
 
 # op attrs the port does not run yet, by the ROADMAP item that takes them
 _AMP_ATTRS = ("__amp_bf16__", "__amp_keep_bf16__", "__amp_match_dtype__")

@@ -31,6 +31,9 @@ import torch
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core import ir
+# every emitter registers itself when the block runner imports the ops
+# (the serving ops of ``ops/kv_attention.py`` among them)
+from paddle_tpu_torch.core import lowering as _lowering  # noqa: F401
 from paddle_tpu_torch.core.registry import (TORCH_DTYPES, EmitContext,
                                             get_op, has_op)
 

@@ -13,8 +13,11 @@ Read by ``utils/faults.py`` (``fault_plan``, ``fault_seed``),
 (``flight_recorder_dir``, ``flight_recorder_capacity``),
 ``observability/lock_witness.py`` (``lock_witness``),
 ``serving/autoscaler.py`` (``hbm_bytes``, the placement budget) and
-``core/executor.py`` (``check_nan_inf``, ``benchmark``) and
-``core/selected_rows.py`` (``disable_sparse_grad``).
+``core/executor.py`` (``check_nan_inf``, ``benchmark``),
+``core/selected_rows.py`` (``disable_sparse_grad``) and the decoder-LM
+serving programs (``kv_cache_layout``, ``kv_cache_codec``:
+``fluid/models/transformer.py`` ``slot_modes``,
+``analysis/contracts.py`` ``validate_geometry``).
 """
 
 from __future__ import annotations
@@ -152,3 +155,19 @@ define("disable_sparse_grad", bool, False,
        "row-sparse (rows, values) pair from the lookup_table / "
        "fused_embedding_seq_pool VJP to the sparse optimizer apply "
        "(core/selected_rows.py).")
+define("kv_cache_layout", str, "contiguous",
+       "Decode KV-cache layout for the slot-pool serving engine "
+       "(serving/engine.py): 'contiguous' reserves one worst-case "
+       "[n_slots, S, H, D] region per layer; 'paged' breaks the cache "
+       "into fixed-size pages behind a per-slot page table "
+       "(serving/kv_pool.py) with prompt-prefix sharing -- admission is "
+       "by free-PAGE count, so short requests stop paying the "
+       "worst-case reservation. Read by fluid/models/transformer.py "
+       "slot_modes.")
+define("kv_cache_codec", str, "none",
+       "Storage codec for the PAGED KV pool (kv_cache_layout=paged): "
+       "'none' stores fp32 (bit-exact vs the contiguous pool), 'bf16' "
+       "truncates to 2 bytes/elem, 'int8' stores int8 codes + one fp32 "
+       "scale per (position, head) row. Quantize on page write, "
+       "dequantize in the attention gather (analysis/contracts.py "
+       "validate_geometry's default).")

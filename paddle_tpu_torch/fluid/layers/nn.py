@@ -1,14 +1,17 @@
 """Neural-network layers of the port (counterpart of ``paddle_tpu/fluid/
 layers/nn.py``; reference: python/paddle/fluid/layers/nn.py): the layers
 the bench builders call (deepfm's ``sigmoid_cross_entropy_with_logits``
-among them), ``split``, ``beam_search`` / ``beam_search_decode``, ``sum``
-and ``clip_by_norm``. Each appends the JAX layer's ops, with its attrs
-and names, through :class:`LayerHelper`. On the card
-``fused_multi_head_attention`` trains through the flash kernels and
-``fused_linear_cross_entropy`` through the fused-CE kernels. The layers
-whose ops the port lacks (``reduce_mean`` and the other reductions, the
-image resizes, ``dice_loss``, the logical ops, ``one_hot``, ``gather``
-and the rest) are ROADMAP A6.4b."""
+among them), ``split``, ``beam_search`` / ``beam_search_decode``, ``sum``,
+``clip_by_norm``, ``gather`` and ``expand``, and the decoder LM's serving
+layers (the seven ``kv_attention_*`` and ``token_sample``). Each appends
+the JAX layer's ops, with its attrs and names, through
+:class:`LayerHelper`. On the card ``fused_multi_head_attention`` trains
+through the flash kernels, ``fused_linear_cross_entropy`` through the
+fused-CE kernels, and the paged decode and verify layers read their
+pools through the page-gather kernels. The layers whose ops the port
+lacks (``reduce_mean`` and the other reductions, the image resizes,
+``dice_loss``, the logical ops, ``one_hot`` and the rest) are ROADMAP
+A6.4b's dense layers."""
 
 from __future__ import annotations
 
@@ -398,6 +401,24 @@ def slice(input, axes, starts, ends):
 
 # -- metrics ----------------------------------------------------------------
 
+def expand(x, expand_times, name=None):
+    """``nn.py:477`` — ``expand_op.cc``: tile ``x`` ``expand_times``."""
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def gather(input, index):
+    """``nn.py:495`` — ``gather_op.cc``: rows ``index`` of ``input``."""
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
 def accuracy(input, label, k=1, correct=None, total=None):
     """``nn.py:531`` (reference layers/metric_op.py) — top_k + accuracy."""
     helper = LayerHelper("accuracy")
@@ -471,15 +492,11 @@ def clip_by_norm(x, max_norm, name=None):
 
 # -- fused blocks -----------------------------------------------------------
 
-def fused_multi_head_attention(q_in, kv_in, d_model, n_head, causal=False,
-                               dropout_prob=0.0, param_attr=None,
-                               name=None):
-    """``nn.py:599`` — the whole attention block (q / k / v / out
-    projections and the scaled-dot attention) as one
-    ``fused_attention_block`` op, which on the card runs the flash
-    forward and backward kernels. q_in [B, Tq, M], kv_in [B, Tk, M] ->
-    [B, Tq, M]; the four weights are named as fc's."""
-    helper = LayerHelper("fused_multi_head_attention", name=name)
+def _attention_projection_params(helper, d_model, param_attr):
+    """``nn.py:638``: the four [M, M] projection weights, named exactly
+    like ``fused_multi_head_attention``'s (``<base>.wq`` ... ``.wo``), so
+    one scope serves the training graph, the ``full`` view and every
+    serving view of the decoder LM."""
     if isinstance(param_attr, (list, tuple)):
         attrs4 = list(param_attr)           # one ParamAttr per projection
     elif param_attr is None:
@@ -491,8 +508,20 @@ def fused_multi_head_attention(q_in, kv_in, d_model, n_head, causal=False,
             if a.name is not None:
                 a.name = f"{a.name}.{tag}"
             attrs4.append(a)
-    ws = [helper.create_parameter(a, shape=[d_model, d_model],
-                                  dtype="float32") for a in attrs4]
+    return [helper.create_parameter(a, shape=[d_model, d_model],
+                                    dtype="float32") for a in attrs4]
+
+
+def fused_multi_head_attention(q_in, kv_in, d_model, n_head, causal=False,
+                               dropout_prob=0.0, param_attr=None,
+                               name=None):
+    """``nn.py:599`` — the whole attention block (q / k / v / out
+    projections and the scaled-dot attention) as one
+    ``fused_attention_block`` op, which on the card runs the flash
+    forward and backward kernels. q_in [B, Tq, M], kv_in [B, Tk, M] ->
+    [B, Tq, M]; the four weights are named as fc's."""
+    helper = LayerHelper("fused_multi_head_attention", name=name)
+    ws = _attention_projection_params(helper, d_model, param_attr)
     out = helper.create_variable_for_type_inference(q_in.dtype)
     helper.append_op("fused_attention_block",
                      inputs={"Xq": [q_in], "Xkv": [kv_in],
@@ -501,6 +530,153 @@ def fused_multi_head_attention(q_in, kv_in, d_model, n_head, causal=False,
                      outputs={"Out": [out]},
                      attrs={"n_head": int(n_head), "causal": bool(causal),
                             "dropout_prob": float(dropout_prob)})
+    return out
+
+
+# -- the decoder LM's serving layers (nn.py:659-883) ------------------------
+#
+# Each appends one op of ``ops/kv_attention.py``. The caches and pools are
+# persistable vars the op reads and writes under one name (its ``*Out``
+# slots name the same var), so the block runner keeps them as state and the
+# emitters update them in place.
+
+def _kv_op(op_type, x, d_model, n_head, param_attr, name, inputs, outputs,
+           attrs):
+    """Append ``op_type`` over X and the four projection weights, plus
+    ``inputs``; ``outputs`` and ``attrs`` beside Out [like X]."""
+    helper = LayerHelper(op_type, name=name)
+    ws = _attention_projection_params(helper, d_model, param_attr)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(op_type,
+                     inputs={"X": [x], "Wq": [ws[0]], "Wk": [ws[1]],
+                             "Wv": [ws[2]], "Wo": [ws[3]], **inputs},
+                     outputs={"Out": [out], **outputs}, attrs=attrs)
+    return out
+
+
+def kv_attention_prefill(x, d_model, n_head, cache_k, cache_v,
+                         param_attr=None, name=None):
+    """``nn.py:659`` — causal self-attention over the padded prompt that
+    also fills the persistable caches ``cache_k`` / ``cache_v`` [B, S, H,
+    D] (S from their shape). x [B, T, M] -> [B, T, M]."""
+    return _kv_op("kv_attention_prefill", x, d_model, n_head, param_attr,
+                  name, {}, {"CacheK": [cache_k], "CacheV": [cache_v]},
+                  {"n_head": int(n_head),
+                   "cache_len": int(cache_k.shape[1])})
+
+
+def kv_attention_prefill_slot(x, slot, d_model, n_head, pool_k, pool_v,
+                              param_attr=None, name=None):
+    """``nn.py:683`` — the in-flight prefill: the prompt's K/V, zeros
+    beyond it, overwrite the whole rows ``slot`` [B, 1] of the pools
+    ``pool_k`` / ``pool_v`` [n_slots, S, H, D]. x [B, T, M] -> [B, T, M]."""
+    return _kv_op("kv_attention_prefill_slot", x, d_model, n_head,
+                  param_attr, name,
+                  {"PoolK": [pool_k], "PoolV": [pool_v], "Slot": [slot]},
+                  {"PoolKOut": [pool_k], "PoolVOut": [pool_v]},
+                  {"n_head": int(n_head)})
+
+
+def kv_attention_decode(x, pos, seq_len, gen_start, active, d_model,
+                        n_head, cache_k, cache_v, param_attr=None,
+                        name=None):
+    """``nn.py:709`` — one token a row over the static cache: writes each
+    active row's K/V at ``pos`` and attends over {j < seq_len} U
+    {gen_start <= j <= pos}. x [B, 1, M], pos / seq_len / gen_start /
+    active [B, 1] int -> [B, 1, M]."""
+    return _kv_op("kv_attention_decode", x, d_model, n_head, param_attr,
+                  name,
+                  {"CacheK": [cache_k], "CacheV": [cache_v], "Pos": [pos],
+                   "SeqLen": [seq_len], "GenStart": [gen_start],
+                   "Active": [active]},
+                  {"CacheKOut": [cache_k], "CacheVOut": [cache_v]},
+                  {"n_head": int(n_head)})
+
+
+def _paged_slots(page_k, page_v, page_ks, page_vs, codec):
+    """The pool inputs and outputs of a paged op (the scale planes only
+    under int8)."""
+    inputs = {"PageK": [page_k], "PageV": [page_v]}
+    outputs = {"PageKOut": [page_k], "PageVOut": [page_v]}
+    if codec == "int8":
+        inputs["PageKS"], inputs["PageVS"] = [page_ks], [page_vs]
+        outputs["PageKSOut"], outputs["PageVSOut"] = [page_ks], [page_vs]
+    return inputs, outputs
+
+
+def kv_attention_prefill_paged(x, rows, d_model, n_head, page_k, page_v,
+                               page_ks=None, page_vs=None, codec="none",
+                               param_attr=None, name=None):
+    """``nn.py:735`` — causal prefill whose K/V land in the paged pools at
+    the flat rows ``rows`` [B*T, 1] (sentinels drop: prefix-shared pages).
+    x [B, T, M] -> [B, T, M]."""
+    inputs, outputs = _paged_slots(page_k, page_v, page_ks, page_vs, codec)
+    inputs["Rows"] = [rows]
+    return _kv_op("kv_attention_prefill_paged", x, d_model, n_head,
+                  param_attr, name, inputs, outputs,
+                  {"n_head": int(n_head), "codec": str(codec)})
+
+
+def kv_attention_decode_paged(x, page_table, pos, seq_len, gen_start,
+                              active, d_model, n_head, page_k, page_v,
+                              page_ks=None, page_vs=None, codec="none",
+                              param_attr=None, name=None):
+    """``nn.py:766`` — one token a row over the paged pools through the
+    page table [B, max_pages]; on the card the page gathers run the
+    hand-written kernels. x [B, 1, M] -> [B, 1, M]."""
+    inputs, outputs = _paged_slots(page_k, page_v, page_ks, page_vs, codec)
+    inputs.update({"PageTable": [page_table], "Pos": [pos],
+                   "SeqLen": [seq_len], "GenStart": [gen_start],
+                   "Active": [active]})
+    return _kv_op("kv_attention_decode_paged", x, d_model, n_head,
+                  param_attr, name, inputs, outputs,
+                  {"n_head": int(n_head), "codec": str(codec)})
+
+
+def kv_attention_verify(x, pos, seq_len, gen_start, active, win_len,
+                        d_model, n_head, cache_k, cache_v,
+                        param_attr=None, name=None):
+    """``nn.py:799`` — the speculative verify window over the contiguous
+    cache: window position i writes row ``pos + i`` where active and
+    ``i < win_len``, and attends causally. x [B, K+1, M] -> [B, K+1, M]."""
+    return _kv_op("kv_attention_verify", x, d_model, n_head, param_attr,
+                  name,
+                  {"CacheK": [cache_k], "CacheV": [cache_v], "Pos": [pos],
+                   "SeqLen": [seq_len], "GenStart": [gen_start],
+                   "Active": [active], "WinLen": [win_len]},
+                  {"CacheKOut": [cache_k], "CacheVOut": [cache_v]},
+                  {"n_head": int(n_head)})
+
+
+def kv_attention_verify_paged(x, page_table, pos, seq_len, gen_start,
+                              active, win_len, d_model, n_head, page_k,
+                              page_v, page_ks=None, page_vs=None,
+                              codec="none", param_attr=None, name=None):
+    """``nn.py:832`` — the verify window over the paged pools, each
+    position's write row through the page table (past the lease: the
+    sentinel, dropped). x [B, K+1, M] -> [B, K+1, M]."""
+    inputs, outputs = _paged_slots(page_k, page_v, page_ks, page_vs, codec)
+    inputs.update({"PageTable": [page_table], "Pos": [pos],
+                   "SeqLen": [seq_len], "GenStart": [gen_start],
+                   "Active": [active], "WinLen": [win_len]})
+    return _kv_op("kv_attention_verify_paged", x, d_model, n_head,
+                  param_attr, name, inputs, outputs,
+                  {"n_head": int(n_head), "codec": str(codec)})
+
+
+def token_sample(logits, temperature, top_k, seed, step_idx, name=None):
+    """``nn.py:864`` — next-token selection on the device: the argmax
+    where ``temperature <= 0`` or ``top_k == 1``, else top-k Gumbel
+    sampling keyed by (seed, step_idx) alone. logits [B, V]; temperature
+    [B, 1] float; top_k, seed, step_idx [B, 1] int -> [B, 1] int64."""
+    helper = LayerHelper("token_sample", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("token_sample",
+                     inputs={"Logits": [logits],
+                             "Temperature": [temperature],
+                             "TopK": [top_k], "Seed": [seed],
+                             "StepIdx": [step_idx]},
+                     outputs={"Out": [out]})
     return out
 
 

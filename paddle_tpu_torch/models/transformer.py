@@ -32,9 +32,13 @@ first, then attend through the same function, so in fp32 the two layouts
 give the same bits. The caches (:class:`ContiguousKVCache`,
 :class:`PagedKVCache`) belong to the serving engine, which passes them
 to the views; :func:`validate_slots` and :func:`paged_geometry` check
-their shape (``analysis/contracts.py`` ``validate_geometry``). Weights
-come from a JAX checkpoint through ``models/convert.py``; one
-:class:`DecoderLM` serves every engine.
+their shape through the geometry record the program views use
+(``analysis/contracts.py`` ``validate_geometry``). Weights come from a
+JAX checkpoint through ``models/convert.py``; one :class:`DecoderLM`
+serves every engine. The same model as serving programs
+(``decoder_lm``, ``build_decoder_lm_programs``, ``slot_modes``) is
+``paddle_tpu_torch/fluid/models/transformer.py``, re-exported here at
+the JAX import path.
 
 Training: :func:`build` makes a :class:`Transformer` (its ``forward``
 is the mean label-smoothed loss of ``build``'s graph) and its
@@ -62,6 +66,7 @@ from torch import nn
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch import learning_rate_scheduler as lrs
+from paddle_tpu_torch.analysis.contracts import validate_geometry
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.ops import attention_block as ab
 from paddle_tpu_torch.ops import kv_attention as kva
@@ -83,31 +88,33 @@ def position_encoding(max_len: int, d_model: int) -> np.ndarray:
     return enc.astype(np.float32)
 
 
-def validate_slots(prompt_len: int, cache_len: int, n_slots: int,
-                   spec_k: Optional[int] = None):
-    """Validate a slot pool of either layout (``analysis/contracts.py:
-    139-164``): ``n_slots >= 1``, ``prompt_len <= cache_len``, and
-    ``spec_k``, the verify window's drafted tokens (None: no verify
-    view; the JAX view's default is 4), at least 1 with its K+1 window
-    inside the generated region ``cache_len - prompt_len`` plus the row
-    of the last committed token (``:154-162``). Returns (n_slots,
-    spec_k) as ints (spec_k may stay None)."""
-    prompt_len, cache_len = int(prompt_len), int(cache_len)
-    if prompt_len > cache_len:
-        raise ValueError(f"prompt_len {prompt_len} > cache_len {cache_len}")
-    if spec_k is not None:
-        spec_k = int(spec_k)
-        if spec_k < 1:
-            raise ValueError(f"spec_k {spec_k} < 1 -- the verify view "
-                             f"needs at least one drafted token")
-        if spec_k + 1 > cache_len - prompt_len + 1:
-            raise ValueError(
-                f"spec_k {spec_k}: the K+1={spec_k + 1} verify window "
-                f"exceeds the generated region (cache_len {cache_len} - "
-                f"prompt_len {prompt_len})")
+def _slot_prechecks(n_slots, spec_k):
+    """The port's own checks before the shared record: a pool of at
+    least one slot, and an explicit ``spec_k`` of at least 1 (the
+    record takes a falsy ``spec_k`` as its default of 4)."""
     if not n_slots or int(n_slots) < 1:
         raise ValueError(f"slot serving needs n_slots >= 1, got {n_slots}")
-    return int(n_slots), spec_k
+    if spec_k is not None and int(spec_k) < 1:
+        raise ValueError(f"spec_k {spec_k} < 1 -- the verify view "
+                         f"needs at least one drafted token")
+
+
+def validate_slots(prompt_len: int, cache_len: int, n_slots: int,
+                   spec_k: Optional[int] = None):
+    """Validate a slot pool of either layout through the serving
+    geometry record (``analysis/contracts.py`` ``validate_geometry``, the
+    one the program views use): ``n_slots >= 1``, ``prompt_len <=
+    cache_len``, and ``spec_k``, the verify window's drafted tokens
+    (None: no verify view), at least 1 with its K+1 window inside the
+    generated region ``cache_len - prompt_len`` plus the row of the last
+    committed token. Returns (n_slots, spec_k) as ints (spec_k may stay
+    None)."""
+    _slot_prechecks(n_slots, spec_k)
+    g = validate_geometry(
+        "decode_verify" if spec_k is not None else "decode_slot",
+        prompt_len, int(cache_len) - int(prompt_len), cache_len=cache_len,
+        n_slots=n_slots, spec_k=spec_k)
+    return g.n_slots, g.spec_k
 
 
 @dataclass(frozen=True)
@@ -134,26 +141,19 @@ def paged_geometry(prompt_len: int, cache_len: int, n_slots: int,
                    n_pages: Optional[int] = None,
                    kv_codec: str = "none",
                    spec_k: Optional[int] = None) -> PagedGeometry:
-    """Validate and complete a paged geometry: the slot pool as
-    :func:`validate_slots` checks it; ``page_size`` (default 4) must
-    divide ``cache_len``; ``n_pages`` defaults to the contiguous pool's
-    capacity ``n_slots * max_pages`` and must hold at least one whole
-    request."""
-    n_slots, spec_k = validate_slots(prompt_len, cache_len, n_slots, spec_k)
-    cache_len = int(cache_len)
-    page_size = int(page_size) if page_size else 4
-    if cache_len % page_size:
-        raise ValueError(f"page_size {page_size} must divide cache_len "
-                         f"{cache_len}")
-    max_pages = cache_len // page_size
-    n_pages = int(n_pages) if n_pages else n_slots * max_pages
-    if n_pages < max_pages:
-        raise ValueError(f"n_pages {n_pages} < one slot's span "
-                         f"{max_pages} -- no request could admit")
-    if kv_codec not in KV_CODECS:
-        raise ValueError(f"kv_codec {kv_codec!r} not in {KV_CODECS}")
-    return PagedGeometry(cache_len, n_slots, page_size, n_pages,
-                         max_pages, kv_codec, spec_k)
+    """Validate and complete a paged geometry through the serving
+    geometry record: the slot pool as :func:`validate_slots` checks it;
+    ``page_size`` (default 4) must divide ``cache_len``; ``n_pages``
+    defaults to the contiguous pool's capacity ``n_slots * max_pages``
+    and must hold at least one whole request."""
+    _slot_prechecks(n_slots, spec_k)
+    g = validate_geometry(
+        "decode_verify_paged" if spec_k is not None else "decode_paged",
+        prompt_len, int(cache_len) - int(prompt_len), cache_len=cache_len,
+        n_slots=n_slots, page_size=page_size, n_pages=n_pages,
+        kv_codec=kv_codec, spec_k=spec_k)
+    return PagedGeometry(g.cache_len, g.n_slots, g.page_size, g.n_pages,
+                         g.max_pages, g.kv_codec, g.spec_k)
 
 
 class ContiguousKVCache:
@@ -832,3 +832,18 @@ def build(is_train: bool = True, src_vocab: int = 32000,
                          f"(expected 'const' or 'noam')")
     return model.train(), Adam(model.parameters(), learning_rate=rate,
                                beta1=0.9, beta2=0.997, epsilon=1e-9)
+
+
+_PROGRAM_VIEWS = ("decoder_lm", "build_decoder_lm_programs", "slot_modes")
+
+
+def __getattr__(name):
+    """The serving programs at the JAX import path
+    (``paddle_tpu.models.transformer``): ``decoder_lm``,
+    ``build_decoder_lm_programs`` and ``slot_modes`` live in
+    ``paddle_tpu_torch/fluid/models/transformer.py``, which imports this
+    module, so they are resolved on first use."""
+    if name in _PROGRAM_VIEWS:
+        from paddle_tpu_torch.fluid.models import transformer as _programs
+        return getattr(_programs, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,14 +16,16 @@ the start: the serving, router and autoscaler families
 (``serving/metrics.py``), the retry / breaker families
 (``distributed/resilience.py``), the tracer's dropped-span counter
 (``observability/tracing.py``), the OOM counter
-(``observability/memory.py``) and the lock witness's violation counter
-(``observability/lock_witness.py``).
+(``observability/memory.py``), the lock witness's violation counter
+(``observability/lock_witness.py``) and the geometry record's check
+counter (``analysis/contracts.py``).
 
 Port differences: no ``MetricsDumper`` and no ``FLAGS_metrics_dump_path``
 (the step-record dump serves the reference's executor, which the port
 does not have yet); no ``/memory`` route (its HBM census is not ported);
-and the analysis, program-contract and pass-pipeline catalogs of the
-reference have no counterpart in the port.
+and the analysis and pass-pipeline catalogs of the reference have no
+counterpart in the port (of the program-contract one, only the geometry
+record's counter).
 """
 
 from __future__ import annotations
@@ -130,6 +132,7 @@ def _preregister_catalog():
     for mod in ("paddle_tpu_torch.observability.tracing",
                 "paddle_tpu_torch.observability.memory",
                 "paddle_tpu_torch.observability.lock_witness",
+                "paddle_tpu_torch.analysis.contracts",
                 "paddle_tpu_torch.distributed.resilience",
                 "paddle_tpu_torch.serving.metrics"):
         importlib.import_module(mod)

@@ -32,6 +32,16 @@ window of K+1 tokens a slot; a decode step is the window of one) and
 shared by every layer; where the caller's index tensors lie on the CPU,
 it is computed there and moved to the cache's device in one copy each,
 so no layer waits on the device.
+
+The eight op types of the serving programs (``kv_attention_prefill``,
+``_prefill_slot``, ``_decode``, ``_verify``, ``_prefill_paged``,
+``_decode_paged``, ``_verify_paged``, ``token_sample``) are registered at
+the end over the same functions. An op is one layer, and its feeds lie
+on the executor's device already, so each emitter computes its index sets
+there and drops out-of-pool writes with :meth:`RowWrite.on_device`, which
+reads nothing on the host: the rows are redirected onto a row the step
+writes with the same value (or onto one row with its own bits), never
+filtered.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core.registry import first, register_op
 from paddle_tpu_torch.ops import attention_block as _ab
 from paddle_tpu_torch.ops.kernels import paged_attention as _pk
 
@@ -110,34 +121,62 @@ def paged_pools(page_k, page_v, page_ks, page_vs, codec: str):
 
 class RowWrite(NamedTuple):
     """Which computed rows land where: ``vals[src]`` -> pool rows
-    ``dst``. Rows outside the pool are already filtered out."""
+    ``dst``. With ``keep`` None every entry writes; else an entry whose
+    ``keep`` is False writes back the bits its row already holds (the
+    drop of :meth:`on_device`)."""
     src: torch.Tensor
     dst: torch.Tensor
+    keep: Optional[torch.Tensor] = None
 
     @classmethod
     def of(cls, rows: torch.Tensor, n_rows: int,
            device: torch.device) -> "RowWrite":
         """Drop the rows outside ``[0, n_rows)`` (scatter mode="drop",
-        kv_attention.py:281). Filtering a CUDA tensor waits for the
-        device; the engine hands CPU index tensors instead."""
+        kv_attention.py:281) by filtering them out. Filtering a CUDA
+        tensor waits for the device; the nn.Module views hand CPU index
+        tensors (and the program ops take :meth:`on_device`)."""
         rows = rows.reshape(-1).long()
         keep = (rows >= 0) & (rows < n_rows)
         src = torch.nonzero(keep).reshape(-1)
         return cls(src.to(device), rows[keep].to(device))
 
+    @classmethod
+    def on_device(cls, rows: torch.Tensor, n_rows: int) -> "RowWrite":
+        """The same drop without reading a value on the host (so it runs
+        where ``rows`` lies, meta tensors too, with no wait): every entry
+        outside ``[0, n_rows)`` is sent to the first kept entry's row with
+        that entry's value, so the row is written twice with one value;
+        when no entry is kept, all go to one row and write back its own
+        bits. A dropped row stays bit-unchanged either way."""
+        rows = rows.reshape(-1).long()
+        keep = (rows >= 0) & (rows < n_rows)
+        first = torch.argmax(keep.to(torch.int32))      # 0 when none
+        src = torch.where(keep, torch.arange(rows.numel(),
+                                             device=rows.device), first)
+        return cls(src, rows.clamp(0, n_rows - 1)[src], keep[src])
+
 
 def paged_write(flat: torch.Tensor, fscale: Optional[torch.Tensor],
                 write: RowWrite, vals: torch.Tensor, codec: str):
     """Scatter K/V rows (and int8 scales) into the flat pools in place
-    (kv_attention.py:274). ``vals`` [N, H, D]; only ``vals[write.src]``
-    is stored, at rows ``write.dst``."""
+    (kv_attention.py:274). ``vals`` [N, H, D]; ``vals[write.src]`` is
+    stored at rows ``write.dst`` (where ``write.keep`` is False, the
+    row's own bits)."""
     vals = vals[write.src]
+    keep = write.keep
     if codec == "int8":
         codes, scale = kv_quant(vals.to(torch.float32))
+        if keep is not None:
+            codes = torch.where(keep[:, None, None], codes,
+                                flat[write.dst])
+            scale = torch.where(keep[:, None], scale, fscale[write.dst])
         flat.index_copy_(0, write.dst, codes)
         fscale.index_copy_(0, write.dst, scale)
     else:
-        flat.index_copy_(0, write.dst, vals.to(flat.dtype))
+        vals = vals.to(flat.dtype)
+        if keep is not None:
+            vals = torch.where(keep[:, None, None], vals, flat[write.dst])
+        flat.index_copy_(0, write.dst, vals)
 
 
 class VerifyGeometry(NamedTuple):
@@ -173,7 +212,8 @@ def _window(pos, seq_len, gen_start, active, win_len, k1: int, s_len: int):
 
 def verify_geometry(page_table, pos, seq_len, gen_start, active, win_len,
                     k1: int, n_pages: int, page_size: int,
-                    device: torch.device) -> VerifyGeometry:
+                    device: torch.device,
+                    on_device: bool = False) -> VerifyGeometry:
     """The paged verify's geometry (kv_attention.py:510-527) from the
     step's feeds: PageTable [B, MP] int (sentinel n_pages past a slot's
     span), Pos/SeqLen/GenStart/Active/WinLen [B] or [B, 1] int (WinLen
@@ -184,7 +224,9 @@ def verify_geometry(page_table, pos, seq_len, gen_start, active, win_len,
     slot's pages stay bit-identical); it attends over {j < seq_len} U
     {gen_start <= j <= pos + i}. A decode step is the window of one
     (``k1`` 1, kv_attention.py:346-383). Computed where the feeds lie,
-    then moved to ``device``."""
+    then moved to ``device``; with ``on_device`` (the program ops, whose
+    feeds lie on the pools' device already) the writes drop by
+    :meth:`RowWrite.on_device` and nothing moves."""
     table = page_table.long()
     b, mp = table.shape
     ps = int(page_size)
@@ -195,13 +237,15 @@ def verify_geometry(page_table, pos, seq_len, gen_start, active, win_len,
     wrow = torch.where(ok, wpage * ps + wp % ps, torch.full_like(wp, rtot))
     j = torch.arange(ps, device=table.device)
     rows = (table[:, :, None] * ps + j).reshape(-1).to(torch.int32)
+    if on_device:
+        return VerifyGeometry(rows, valid, RowWrite.on_device(wrow, rtot))
     return VerifyGeometry(rows.to(device), valid.to(device),
                           RowWrite.of(wrow, rtot, device))
 
 
 def slot_geometry(pos, seq_len, gen_start, active, win_len, k1: int,
-                  n: int, cache_len: int,
-                  device: torch.device) -> VerifyGeometry:
+                  n: int, cache_len: int, device: torch.device,
+                  on_device: bool = False) -> VerifyGeometry:
     """The contiguous cache's decode or verify geometry (kv_attention.py:
     194-206, :437-452) for the ``[n, cache_len, H, D]`` cache whose row
     ``b`` serves batch row ``b``: the feeds as in
@@ -211,7 +255,8 @@ def slot_geometry(pos, seq_len, gen_start, active, win_len, k1: int,
     drops (a free slot's ``pos`` is -1), so no write wraps onto another
     slot's row. The flat write row is ``b * cache_len + pos + i``: the
     paged rule with one page of ``cache_len`` rows a slot. Computed where
-    the feeds lie, then moved to ``device``."""
+    the feeds lie, then moved to ``device`` (``on_device``: as in
+    :func:`verify_geometry`)."""
     s_len = int(cache_len)
     wp, ok, valid = _window(pos, seq_len, gen_start, active, win_len, k1,
                             s_len)
@@ -219,6 +264,8 @@ def slot_geometry(pos, seq_len, gen_start, active, win_len, k1: int,
     b = torch.arange(wp.shape[0], device=wp.device)[:, None]
     wrow = torch.where(ok & (wp >= 0), b * s_len + wp,
                        torch.full_like(wp, rtot))
+    if on_device:
+        return VerifyGeometry(None, valid, RowWrite.on_device(wrow, rtot))
     return VerifyGeometry(None, valid.to(device),
                           RowWrite.of(wrow, rtot, device))
 
@@ -344,17 +391,20 @@ def kv_attention_prefill(x, wq, wk, wv, wo, n_head: int, cache_len: int):
     return out, F.pad(k, pad), F.pad(v, pad)
 
 
-def slot_write(slot, n: int, cache_len: int,
-               device: torch.device) -> RowWrite:
+def slot_write(slot, n: int, cache_len: int, device: torch.device,
+               on_device: bool = False) -> RowWrite:
     """The rows a slot prefill writes: the WHOLE ``[cache_len, H, D]`` row
     of each ``Slot`` [B] or [B, 1] (flat rows ``slot * cache_len + j``),
     so a reused slot never leaks its earlier occupant's keys; a slot
-    outside ``[0, n)`` writes nothing."""
+    outside ``[0, n)`` writes nothing (``on_device``: dropped by
+    :meth:`RowWrite.on_device`)."""
     s_len = int(cache_len)
     slot = slot.reshape(-1, 1).long()
     rows = slot * s_len + torch.arange(s_len, device=slot.device)
     rows = torch.where((slot >= 0) & (slot < int(n)), rows,
                        torch.full_like(rows, int(n) * s_len))
+    if on_device:
+        return RowWrite.on_device(rows, int(n) * s_len)
     return RowWrite.of(rows, int(n) * s_len, device)
 
 
@@ -477,3 +527,146 @@ def token_sample(logits, temperature, top_k, seed, step) -> torch.Tensor:
     sampled = torch.argmax(masked + gumbel_noise(seed, step, v), dim=-1)
     use_greedy = (temp <= 0.0) | (topk == 1)
     return torch.where(use_greedy, greedy, sampled)[:, None]
+
+
+# -- the program ops (kv_attention.py:112-600) ------------------------------
+#
+# The emitters of the eight serving op types over the functions above, with
+# the JAX ops' slots and attrs. The caches and pools are read and written
+# under one var name (state of the block runner): the emitters update them
+# in place and return the same tensors under the ``*Out`` slots. Every index
+# set is computed where the feeds lie (the executor's device) and every
+# dropped write is dropped there (``on_device``), so no layer waits on the
+# device and shape inference runs them on meta tensors.
+
+def _weights(ins):
+    return [first(ins, n) for n in ("Wq", "Wk", "Wv", "Wo")]
+
+
+def _paged_ins(ins, codec: str):
+    """PageK, PageV and, for int8, PageKS / PageVS (else None)."""
+    pk, pv = first(ins, "PageK"), first(ins, "PageV")
+    if codec == "int8":
+        return pk, pv, first(ins, "PageKS"), first(ins, "PageVS")
+    return pk, pv, None, None
+
+
+def _paged_outs(out, pk, pv, pks, pvs, codec: str):
+    res = {"Out": [out], "PageKOut": [pk], "PageVOut": [pv]}
+    if codec == "int8":
+        res["PageKSOut"], res["PageVSOut"] = [pks], [pvs]
+    return res
+
+
+def _window_feeds(ins):
+    return (first(ins, "Pos"), first(ins, "SeqLen"), first(ins, "GenStart"),
+            first(ins, "Active"))
+
+
+@register_op("kv_attention_prefill", no_grad=True,
+             ref="TPU-native serving op: causal attention + KV-cache "
+                 "population (kv_attention.py:112)")
+def _emit_prefill(ctx, ins, attrs):
+    """X [B,T,M], Wq..Wo -> Out [B,T,M] and fresh CacheK / CacheV [B,
+    cache_len, H, D] (the K/V in ``[:, :T]``, zeros beyond)."""
+    out, ck, cv = kv_attention_prefill(first(ins, "X"), *_weights(ins),
+                                       int(attrs["n_head"]),
+                                       int(attrs["cache_len"]))
+    return {"Out": [out], "CacheK": [ck], "CacheV": [cv]}
+
+
+@register_op("kv_attention_prefill_slot", no_grad=True,
+             ref="TPU-native serving op: causal prefill into a live "
+                 "[n_slots, S, H, D] pool at per-row slots "
+                 "(kv_attention.py:134)")
+def _emit_prefill_slot(ctx, ins, attrs):
+    x = first(ins, "X")
+    pk, pv = first(ins, "PoolK"), first(ins, "PoolV")
+    n, s_len = pk.shape[:2]
+    write = slot_write(first(ins, "Slot"), n, s_len, x.device,
+                       on_device=True)
+    out = prefill_slot_layer(x, *_weights(ins), pk, pv, write,
+                             int(attrs["n_head"]))
+    return {"Out": [out], "PoolKOut": [pk], "PoolVOut": [pv]}
+
+
+def _emit_window(ins, attrs, win_len):
+    """The contiguous decode and verify ops: the window X [B,K1,M] over
+    CacheK / CacheV [B,S,H,D], written in place."""
+    x = first(ins, "X")
+    ck, cv = first(ins, "CacheK"), first(ins, "CacheV")
+    n, s_len = ck.shape[:2]
+    geom = slot_geometry(*_window_feeds(ins), win_len, x.shape[1], n, s_len,
+                         x.device, on_device=True)
+    out = verify_slot_layer(x, *_weights(ins), ck, cv, geom,
+                            int(attrs["n_head"]))
+    return {"Out": [out], "CacheKOut": [ck], "CacheVOut": [cv]}
+
+
+@register_op("kv_attention_decode", no_grad=True,
+             ref="TPU-native serving op: one-token decode over a static "
+                 "KV cache with per-row geometry (kv_attention.py:161)")
+def _emit_decode(ctx, ins, attrs):
+    return _emit_window(ins, attrs, None)
+
+
+@register_op("kv_attention_verify", no_grad=True,
+             ref="TPU-native serving op: speculative-decode verify over "
+                 "the contiguous KV cache (kv_attention.py:400)")
+def _emit_verify(ctx, ins, attrs):
+    return _emit_window(ins, attrs, first(ins, "WinLen"))
+
+
+@register_op("kv_attention_prefill_paged", no_grad=True,
+             ref="TPU-native serving op: causal prefill into the PAGED "
+                 "pool through flat rows, sentinels dropped "
+                 "(kv_attention.py:287)")
+def _emit_prefill_paged(ctx, ins, attrs):
+    x = first(ins, "X")
+    codec = str(attrs.get("codec", "none"))
+    pk, pv, pks, pvs = _paged_ins(ins, codec)
+    n_pages, ps = pk.shape[:2]
+    write = RowWrite.on_device(first(ins, "Rows"), n_pages * ps)
+    out = prefill_paged_layer(x, *_weights(ins), pk, pv, pks, pvs, write,
+                              int(attrs["n_head"]), codec)
+    return _paged_outs(out, pk, pv, pks, pvs, codec)
+
+
+def _emit_paged_window(ins, attrs, win_len):
+    """The paged decode and verify ops: the window X [B,K1,M] through the
+    page table, the pools written in place, then read by the page
+    gathers."""
+    x = first(ins, "X")
+    codec = str(attrs.get("codec", "none"))
+    pk, pv, pks, pvs = _paged_ins(ins, codec)
+    n_pages, ps = pk.shape[:2]
+    geom = verify_geometry(first(ins, "PageTable"), *_window_feeds(ins),
+                           win_len, x.shape[1], n_pages, ps, x.device,
+                           on_device=True)
+    out = verify_paged_layer(x, *_weights(ins), pk, pv, pks, pvs, geom,
+                             int(attrs["n_head"]), codec)
+    return _paged_outs(out, pk, pv, pks, pvs, codec)
+
+
+@register_op("kv_attention_decode_paged", no_grad=True,
+             ref="TPU-native serving op: one-token decode over the PAGED "
+                 "pool through the page table (kv_attention.py:323)")
+def _emit_decode_paged(ctx, ins, attrs):
+    return _emit_paged_window(ins, attrs, None)
+
+
+@register_op("kv_attention_verify_paged", no_grad=True,
+             ref="TPU-native serving op: speculative-decode verify over "
+                 "the PAGED pool (kv_attention.py:462)")
+def _emit_verify_paged(ctx, ins, attrs):
+    return _emit_paged_window(ins, attrs, first(ins, "WinLen"))
+
+
+@register_op("token_sample", no_grad=True,
+             ref="TPU-native serving op: greedy argmax or seeded top-k "
+                 "Gumbel sampling (kv_attention.py:545)")
+def _emit_token_sample(ctx, ins, attrs):
+    return {"Out": [token_sample(first(ins, "Logits"),
+                                 first(ins, "Temperature"),
+                                 first(ins, "TopK"), first(ins, "Seed"),
+                                 first(ins, "StepIdx"))]}

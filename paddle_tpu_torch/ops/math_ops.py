@@ -4,8 +4,9 @@
 (``:84``), ``reduce_sum`` (``:115``), ``mean`` (``:122``), ``top_k``
 (``:137``), ``reshape`` (``:147``), ``squeeze`` (``:164``), ``transpose``
 (``:181``), ``concat`` (``:193``), ``split`` (``:204``), ``slice``
-(``:218``), ``cast`` (``:93``) and ``squared_l2_norm`` (``:303``, the
-global-norm clip's).
+(``:218``), ``cast`` (``:93``), ``squared_l2_norm`` (``:303``, the
+global-norm clip's), ``expand`` (``:238``) and ``gather`` (``:245``,
+the decoder-LM serving views').
 """
 
 from __future__ import annotations
@@ -129,3 +130,43 @@ def _split(ctx, ins, attrs):
         at += int(s)
         offsets.append(at)
     return {"Out": list(torch.tensor_split(x, offsets, dim=axis))}
+
+
+@register_op("expand", ref="operators/expand_op.cc")
+def _expand(ctx, ins, attrs):
+    """``jnp.tile`` (``math_ops.py:238``): ``expand_times`` repeats each
+    axis; a shorter list repeats the trailing axes."""
+    x = first(ins, "X")
+    times = list(attrs.get("expand_times", [1] * x.dim()))
+    times = [1] * (x.dim() - len(times)) + times
+    return single(x.repeat(*times))
+
+
+@register_op("gather", ref="operators/gather_op.cc")
+def _gather(ctx, ins, attrs):
+    """``jnp.take`` along axis 0 of the flattened ``Index``
+    (``math_ops.py:245``), with its default mode: a negative index
+    counts from the end, and an index still outside the axis gives the
+    fill value (NaN for floats, the dtype's least value for signed
+    integers, its largest for unsigned ones, True for bool) instead of
+    raising. int64 data fills with the int32 least value, the JAX
+    package's (64-bit types off, its ids are int32). Nothing is read on
+    the host, so it runs on meta tensors."""
+    x = first(ins, "X")
+    idx = first(ins, "Index").reshape(-1).long()
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    outside = (idx < 0) | (idx >= n)
+    out = x.index_select(0, idx.clamp(0, max(n - 1, 0)))
+    if x.dtype == torch.bool:
+        fill = True
+    elif x.is_floating_point():
+        fill = float("nan")
+    elif x.dtype == torch.uint8:
+        fill = 255
+    elif x.dtype == torch.int64:
+        fill = torch.iinfo(torch.int32).min
+    else:
+        fill = torch.iinfo(x.dtype).min
+    mask = outside.reshape((-1,) + (1,) * (x.dim() - 1))
+    return single(out.masked_fill(mask, fill))

@@ -90,6 +90,184 @@ from paddle_tpu_torch.serving import metrics as smetrics
 from paddle_tpu_torch.utils import faults
 
 
+# -- a program family behind the views' calls ------------------------------
+
+def _refuse_dist(dist):
+    if dist is not None:
+        raise NotImplementedError(
+            "serving a model over a mesh (dist=) is not ported "
+            "(ROADMAP A6.9): pass dist=None")
+
+
+class ProgramViews:
+    """A decoder-LM serving program family (``fluid.models.transformer.
+    build_decoder_lm_programs``: {key: (main, startup, feed_specs,
+    fetch_name)}) behind the calls the engines make on a
+    :class:`~paddle_tpu_torch.models.transformer.DecoderLM` view, so one
+    slot lifecycle serves both (``serving/engine.py:236-298``, ``:719-
+    806`` keep one ``CompiledBlock`` a view). One
+    :class:`~paddle_tpu_torch.core.lowering.BlockRunner` a view of
+    ``modes`` (each prefill bucket its own), built once, runs over one
+    scope: the weights, and the caches or pools the ops read and write
+    in place as the runner's state. ``init`` runs a startup (their
+    parameter initializers are the same) into the scope. A view call
+    reshapes each feed to its declared shape (``tok [S, 1]`` to ``[S, 1,
+    1]``), moves it to the device in its declared dtype and returns the
+    fetch on the device; the ``cache`` the engines pass is None here
+    (:meth:`new_cache` and :meth:`contiguous_cache` check the geometry
+    and give None). Runs on ``device`` (``cuda`` unless ``"cpu"`` is
+    asked for)."""
+
+    def __init__(self, name: str, programs: Dict, modes: Sequence[str],
+                 scope=None, init: bool = True, device=None):
+        from paddle_tpu_torch import fluid
+        from paddle_tpu_torch.core.lowering import BlockRunner
+        self.device = _device.resolve(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the startup's executor places the scope on CUDAPlace(i)
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.scope = scope if scope is not None else fluid.Scope()
+        self._runners: Dict[str, tuple] = {}
+        self.prompt_buckets: Tuple[int, ...] = ()
+        startup = None
+        bucketed = {k.split("@")[0] for k in programs if "@" in k}
+        for key, (main, start, feeds, fetch) in programs.items():
+            mode = key.split("@")[0]
+            if mode not in modes or (key == mode and mode in bucketed):
+                continue        # the bare prefill aliases its largest
+            main.desc._obs_name = f"{name}.{key}"
+            runner = BlockRunner(main.desc, 0, sorted(feeds), [fetch],
+                                 is_test=True, device=self.device)
+            self._runners[key] = (runner, feeds)
+            if mode.startswith("prefill"):
+                self.prompt_buckets += (int(feeds["ids"][0][1]),)
+            if startup is None:
+                startup = start
+        self.prompt_buckets = tuple(sorted(self.prompt_buckets))
+        if not self.prompt_buckets:
+            raise ValueError(f"programs {sorted(programs)} hold no view "
+                             f"of {tuple(modes)} with a prefill")
+        if init:
+            place = (fluid.CPUPlace() if self.device.type == "cpu"
+                     else fluid.CUDAPlace(self.device.index or 0))
+            fluid.Executor(place).run(startup, scope=self.scope)
+        self.cache_len = self._cache_len()
+
+    def _block(self, mode: str):
+        for key, (runner, _) in self._runners.items():
+            if key.split("@")[0] == mode:
+                return runner.block
+        return None
+
+    def _cache_len(self) -> int:
+        """The cache rows a slot: the pools' (``*_slot_k_0`` [n, S, H,
+        D]), the page table's span, or the wave caches' (``*_cache_k_0``
+        [B, S, H, D])."""
+        for mode, suffix in (("decode_slot", "_slot_k_0"),
+                             ("decode", "_cache_k_0")):
+            block = self._block(mode)
+            if block is not None:
+                for n, v in block.vars.items():
+                    if n.endswith(suffix):
+                        return int(v.shape[1])
+        block = self._block("decode_paged")
+        if block is not None:
+            table = block.var("page_table").shape[1]
+            for n, v in block.vars.items():
+                if n.endswith("_page_k_0"):
+                    return int(table) * int(v.shape[1])
+        raise ValueError("the family's decode view declares no cache")
+
+    def has(self, mode: str) -> bool:
+        return self._block(mode) is not None
+
+    def feed_spec(self, mode: str) -> Dict:
+        return next(feeds for key, (_, feeds) in self._runners.items()
+                    if key.split("@")[0] == mode)
+
+    def pool_var(self, mode: str, suffix: str):
+        """The first var of ``mode``'s view whose name ends in
+        ``suffix``."""
+        return next(v for n, v in self._block(mode).vars.items()
+                    if n.endswith(suffix))
+
+    def op_attr(self, mode: str, op_type: str, attr: str):
+        return next(op.attrs[attr] for op in self._block(mode).ops
+                    if op.type == op_type)
+
+    def run(self, key: str, **feeds) -> torch.Tensor:
+        """One dispatch of view ``key``: its fetch, on the device."""
+        from paddle_tpu_torch.core.registry import TORCH_DTYPES
+        runner, specs = self._runners[key]
+        if sorted(feeds) != sorted(specs):
+            raise ValueError(f"view {key!r} takes feeds {sorted(specs)}, "
+                             f"got {sorted(feeds)}")
+        args = {}
+        for n, (shape, dtype) in specs.items():
+            t = feeds[n]
+            args[n] = t.reshape(shape if -1 not in shape else
+                                [t.shape[0]] + list(shape[1:])).to(
+                self.device, TORCH_DTYPES[dtype])
+        return runner(self.scope, args, 0)[0]
+
+    def _prefill_key(self, mode: str, ids) -> str:
+        """The prefill view of the prompt bucket ``ids`` is padded to (a
+        family of one unbucketed prefill keys it bare)."""
+        key = f"{mode}@{ids.shape[1]}"
+        return key if key in self._runners else mode
+
+    # -- the DecoderLM calls the engines make -----------------------------
+    def new_cache(self, geometry) -> None:
+        """The paged pools live in the scope; ``geometry`` must be the
+        family's."""
+        if geometry.cache_len != self.cache_len:
+            raise ValueError(f"geometry cache_len {geometry.cache_len} != "
+                             f"the family's {self.cache_len}")
+        return None
+
+    def contiguous_cache(self, n: int) -> None:
+        return None
+
+    def prefill_slot(self, cache=None, **feeds):
+        return self.run(self._prefill_key("prefill_slot", feeds["ids"]),
+                        **feeds)
+
+    def prefill_paged(self, cache=None, **feeds):
+        return self.run(self._prefill_key("prefill_paged", feeds["ids"]),
+                        **feeds)
+
+    def decode_slot(self, cache=None, **feeds):
+        return self.run("decode_slot", **feeds)
+
+    def decode_paged(self, cache=None, **feeds):
+        return self.run("decode_paged", **feeds)
+
+    def decode_verify(self, cache=None, **feeds):
+        return self.run("decode_verify", **feeds)
+
+    def decode_verify_paged(self, cache=None, **feeds):
+        return self.run("decode_verify_paged", **feeds)
+
+    def prefill(self, ids):
+        """The wave's prefill: (logits [B, P, V], None); the caches are
+        created in the scope."""
+        return self.run(self._prefill_key("prefill", ids), ids=ids), None
+
+    def decode(self, tok, pos, seq_len, gen_start, active, cache=None):
+        return self.run("decode", tok=tok, pos=pos, seq_len=seq_len,
+                        gen_start=gen_start, active=active)
+
+    def full(self, ids):
+        """ids [B, T] (T <= cache_len) -> logits [B, T, V]: the ``full``
+        view over ids zero-padded to its ``cache_len`` positions, cut
+        back to T (causal: the padding changes no earlier row)."""
+        ids = torch.as_tensor(ids)
+        t = ids.shape[1]
+        pad = torch.zeros((ids.shape[0], self.cache_len - t),
+                          dtype=ids.dtype, device=ids.device)
+        return self.run("full", ids=torch.cat([ids, pad], 1))[:, :t]
+
+
 class PromptTooLongError(ValueError):
     """Admission rejection: the prompt exceeds the largest prompt
     bucket."""
@@ -199,12 +377,36 @@ class GenerativeModel:
     the bucket's rows; then one decode step a token over that cache.
     Greedy: the argmax is taken on the device and only the ``[B]``
     tokens come to the host, one copy a step. ``model.cache_len`` minus
-    the largest prompt bucket is the token budget."""
+    the largest prompt bucket is the token budget.
 
-    def __init__(self, name: str, model: _tf.DecoderLM,
-                 prompt_buckets: Sequence[int],
-                 policy: Optional[bucketing.BucketPolicy] = None):
+    ``model`` is a :class:`~paddle_tpu_torch.models.transformer.DecoderLM`
+    or, as the JAX engine takes it, a program family of
+    ``build_decoder_lm_programs`` with the views ``prefill@P``, ``decode``
+    (and ``full`` for :meth:`full_forward_generate`), served through
+    :class:`ProgramViews` over ``scope`` (a new one by default, filled
+    by a startup run unless ``init`` is False) on ``device``; the prompt
+    buckets are then the family's. ``dist`` (serving over a mesh) is
+    ROADMAP A6.9 and raises."""
+
+    def __init__(self, name: str, model,
+                 prompt_buckets: Optional[Sequence[int]] = None,
+                 policy: Optional[bucketing.BucketPolicy] = None,
+                 scope=None, init: bool = True, dist=None, device=None):
+        _refuse_dist(dist)
         self.name = name
+        if isinstance(model, dict):
+            # a program family: the views prefill@P, decode and full
+            # (serving/engine.py:236-298); its prompt buckets are its own
+            if prompt_buckets is not None:
+                raise ValueError("a program family carries its prompt "
+                                 "buckets: pass prompt_buckets=None")
+            model = ProgramViews(name, model, ("prefill", "decode", "full"),
+                                 scope, init, device)
+            prompt_buckets = model.prompt_buckets
+            self.scope = model.scope
+        elif scope is not None or device is not None or not init:
+            raise ValueError("scope, init and device belong to a program "
+                             "family; a DecoderLM carries its own device")
         self.model = model
         self.policy = policy or bucketing.BucketPolicy()
         self.prompt_buckets = bucketing.ladder(prompt_buckets)
@@ -997,14 +1199,65 @@ class PagedSlotGenerativeModel(SlotGenerativeModel):
         SlotGenerativeModel.reset(self)
 
 
-def make_slot_model(name: str, model: _tf.DecoderLM, *, n_slots: int,
-                    prompt_buckets: Sequence[int], layout: str = "contiguous",
+def _slot_model_from_programs(name: str, programs: Dict, scope, init: bool,
+                              drafter, device) -> SlotGenerativeModel:
+    """The slot engine over a program family (``serving/engine.py:1384-
+    1401``): the paged engine where the family has paged views, else the
+    contiguous one. ``n_slots``, the prompt buckets, ``spec_k`` (the
+    verify view, where there is one), the cache length and the page pool
+    are read off the views' feeds and pool variables (``:719-806``,
+    ``:1271-``) and checked by the geometry record."""
+    paged = any(k.split("@")[0] in ("prefill_paged", "decode_paged")
+                for k in programs)
+    cls = PagedSlotGenerativeModel if paged else \
+        ContiguousSlotGenerativeModel
+    if not any(k.split("@")[0] == cls.PREFILL for k in programs) or \
+            cls.DECODE not in programs:
+        raise ValueError(f"programs must contain {cls.PREFILL!r} and "
+                         f"{cls.DECODE!r} views (build_decoder_lm_programs"
+                         f"(..., n_slots=...))")
+    views = ProgramViews(name, programs, (cls.PREFILL, cls.DECODE,
+                                          cls.VERIFY), scope, init, device)
+    n_slots = int(views.feed_spec(cls.DECODE)["tok"][0][0])
+    spec_k = (int(views.feed_spec(cls.VERIFY)["tok"][0][1]) - 1
+              if views.has(cls.VERIFY) else None)
+    buckets = views.prompt_buckets
+    if paged:
+        pool = views.pool_var(cls.DECODE, "_page_k_0")
+        g = _tf.paged_geometry(
+            buckets[-1], views.cache_len, n_slots, int(pool.shape[1]),
+            int(pool.shape[0]), views.op_attr(
+                cls.DECODE, "kv_attention_decode_paged", "codec"), spec_k)
+        engine = PagedSlotGenerativeModel(name, views, g, buckets, drafter)
+    else:
+        n_slots, spec_k = _tf.validate_slots(buckets[-1], views.cache_len,
+                                             n_slots, spec_k)
+        engine = ContiguousSlotGenerativeModel(name, views, buckets, n_slots,
+                                               spec_k, drafter)
+    engine.scope = views.scope
+    return engine
+
+
+def make_slot_model(name: str, model, scope=None, init: bool = True,
+                    dist=None, drafter=None, *,
+                    n_slots: Optional[int] = None,
+                    prompt_buckets: Optional[Sequence[int]] = None,
+                    layout: str = "contiguous",
                     page_size: Optional[int] = None,
                     n_pages: Optional[int] = None, kv_codec: str = "none",
-                    spec_k: Optional[int] = None, drafter=None,
+                    spec_k: Optional[int] = None,
                     device=None) -> SlotGenerativeModel:
     """Build the slot engine over ``model`` for a KV ``layout``
-    (``serving/engine.py:1384``; ``transformer.py:617`` ``slot_modes``):
+    (``serving/engine.py:1384``; ``transformer.py:617`` ``slot_modes``).
+
+    ``model`` a program family of ``build_decoder_lm_programs`` (the
+    JAX engine's argument, ``modes=slot_modes(...)``): the engine's
+    layout, slots, buckets, verify window and pool are the family's
+    views', served through :class:`ProgramViews` over ``scope`` (a new
+    one by default, filled by a startup run unless ``init`` is False) on
+    ``device``; the keyword-only arguments below stay unset.
+
+    ``model`` a :class:`~paddle_tpu_torch.models.transformer.DecoderLM`:
     ``n_slots`` decode slots, prompts padded to ``prompt_buckets`` (the
     largest is the longest prompt; ``model.cache_len`` minus it is the
     token budget). ``"contiguous"`` (the default, as the reference's
@@ -1017,7 +1270,30 @@ def make_slot_model(name: str, model: _tf.DecoderLM, *, n_slots: int,
     :class:`NgramDrafter`) proposes up to ``spec_k`` tokens a slot and
     one verify dispatch checks them. The model is moved to ``device``
     (``cuda`` unless ``"cpu"`` is asked for) and the caches are
-    allocated there."""
+    allocated there.
+
+    ``dist`` (serving over a mesh) is ROADMAP A6.9 and raises."""
+    _refuse_dist(dist)
+    if isinstance(model, dict):
+        given = [k for k, v in (("n_slots", n_slots),
+                                ("prompt_buckets", prompt_buckets),
+                                ("page_size", page_size),
+                                ("n_pages", n_pages), ("spec_k", spec_k))
+                 if v is not None]
+        if layout != "contiguous":
+            given.append("layout")
+        if kv_codec != "none":
+            given.append("kv_codec")
+        if given:
+            raise ValueError(f"{', '.join(given)}: a program family "
+                             f"carries its own geometry")
+        return _slot_model_from_programs(name, model, scope, init, drafter,
+                                         device)
+    if scope is not None or not init:
+        raise ValueError("scope and init belong to a program family")
+    if n_slots is None or prompt_buckets is None:
+        raise ValueError("a DecoderLM engine needs n_slots and "
+                         "prompt_buckets")
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
     model.to(_device.resolve(device))
