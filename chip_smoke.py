@@ -10,7 +10,7 @@ final line. Every profiler window (``profile_calls``) opens with 1024
 launches that it does not count: late in this script the profiler drops
 the first kernel records of a window. Every window counts the launch
 calls whose kernel record is missing, and the tally is printed after
-phase 27.
+phase 28.
 
 1. Device: the card's name, count and power limit (``nvidia-smi``).
    Without CUDA the script fails.
@@ -617,7 +617,40 @@ phase 27.
     against ``DecoderLM.full`` (``PROGRAM_FULL_TOL``: the view's flash
     forward against the Module's dense attention), one flash forward a
     layer. The phase prints its own time.
-28. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
+28. AMP and NHWC programs, ``bench.py``'s default pipeline
+    (``amp_layout_phase``): port-built programs, the passes ``none``
+    (``bench.py:211``), then ``rewrite_program_amp``, then
+    ``rewrite_program_nhwc`` (``bench.py:291-296``). (a) ResNet-50 train
+    at batch 128, 224 px (``bench.py:15``, ``:120``), three arms from one
+    startup scope (copied) on the same batches: fp32, AMP, AMP + NHWC;
+    per arm the losses, host p50, peak memory, and from a profiler window
+    device busy, idle share, launches a step and cuDNN's layout
+    transposes a step by name (``nchwToNhwcKernel`` / ``nhwcToNchwKernel``,
+    ``LAYOUT_KERNELS``) beside phase 18's Module under AMP; AMP + NHWC
+    against AMP (``AMP_LAYOUT_FIRST_RTOL`` at step 1, then ``AMP_RTOL``:
+    the same bf16 math, other cuDNN algorithms) and AMP against fp32
+    (``AMP_RTOL``). (b) SE-ResNeXt-50 and GoogLeNet at batch 8, 224 px,
+    AMP + NHWC against AMP only, 2 steps each (their SE gates and
+    channel concats tagged ``__nhwc_bcast_bc__`` / ``__nhwc_concat__``).
+    (c) ``bench.py``'s ``transformer`` row (max_len 256, vocabs 32000,
+    fused attention; ``:238-242``) with the fused head at batch 32,
+    dropout 0, under pure AMP: each step launches 3 x n_layer flash
+    forwards and backwards and one fused-CE forward and backward (by
+    counter) and a profiler window shows them bf16 by name
+    (``checked_window``); the losses against the nn.Module Transformer
+    under the same AMP policy on the same scope and batches (step 1 rtol
+    2e-4, the curve 1e-3: PR 15's bf16 tolerances; both run the same
+    kernels), so the kernels are then held against their plain versions
+    at the program's own shapes (``amp_row_checks``): bf16 ``flash_fwd``
+    and the tensor-core ``flash_bwd`` at [256 x 256 x 64], full and
+    causal, and the bf16 fused CE at N 8192, D 512, V 32000. (d) The
+    stacked LSTM at its defaults under ``rewrite_program_amp()`` (auto:
+    conservative, a recurrent op): its LSTM kernels in fp32 (the kernels
+    take fp32 only) n_layer a step by counter and by name, its ``mul``
+    products in bf16 (``nn_ops.amp_product`` called once a tagged forward
+    op a step).
+    The phase prints its own time.
+29. Report: a ``{"kernels": [...]}`` line (sixteen kernels: the fifteen
     functions of the JAX package that reach ``pl.pallas_call``, with the
     flash backward's two as ``flash_bwd`` and as the dQ and dK/dV kernels
     that run above its range; flash_fwd, fused_ce_fwd and lstm_train_fwd
@@ -629,7 +662,9 @@ phase 27.
     ``launches_built_program``: the 3 steps of each port-built program
     and the port-built decode; the page gathers with phase 27's
     ``launches_program`` and ``program_decode_step``, flash_fwd with its
-    ``launches_full_view``),
+    ``launches_full_view``; flash_fwd, flash_bwd and the fused-CE pair
+    with phase 28's ``launches_amp_program``, the LSTM pair with its
+    ``launches_amp_lstm_program``),
     then, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -3785,11 +3820,18 @@ def profile_calls(torch, work, n):
             "conv_gemm_share": share(lambda k: any(
                 m in k.lower() for m in CONV_MARKS)),
             "launches_per_step": len(kernels) / n,
+            "layout_kernels": {k: sum(c for name, (_, c) in by_name.items()
+                                      if k in name) / n
+                               for k in LAYOUT_KERNELS},
             "lost_records": {"window": len(lost), "counted": n_lost_counted},
             "families": families,
             "top_kernels": [(name[:80], us / n, count / n)
                             for name, (us, count) in top]}
 
+
+# cuDNN's (and PyTorch's) layout transposes of NCHW maps around NHWC
+# kernels, counted by name in every profiler window (phase 28)
+LAYOUT_KERNELS = ("nchwToNhwcKernel", "nhwcToNchwKernel")
 
 # the port's kernels by profiler name: (family, what the name holds (one
 # string, or several that it holds all), what it must not hold); the bf16
@@ -8226,6 +8268,348 @@ def program_phase(torch, dev, card, served, decode, per_layer):
     return out
 
 
+# -- phase 28: AMP and NHWC programs (bench.py's default pipeline) ------------
+
+AMP_LAYOUT_SEED = 28
+AMP_LAYOUT_IMAGE_SIZE = 224        # the image builders' default
+AMP_LAYOUT_RESNET_BATCH = 128      # bench.py:120
+AMP_LAYOUT_STEPS = 3               # an arm's timed steps (the 1st plans cuDNN)
+AMP_LAYOUT_IMAGES = ("se_resnext", "googlenet")
+AMP_LAYOUT_IMAGE_BATCH = 8
+AMP_LAYOUT_IMAGE_STEPS = 2
+# AMP + NHWC against AMP: the same bf16 math through other cuDNN
+# algorithms (NHWC kernels sum in another order and round their bf16
+# outputs elsewhere), ~2**-8 on single activations: the first loss (one
+# forward) within 5e-3, the later ones within AMP_RTOL, as bf16 against
+# fp32 in phase 18
+AMP_LAYOUT_FIRST_RTOL = 5e-3
+# bench.py:238-242's transformer row, here with the fused head; dropout 0
+# so that the program and the Module draw no masks
+AMP_TRANSFORMER = dict(src_vocab=32000, tgt_vocab=32000, max_len=256,
+                       d_model=512, d_inner=2048, n_head=8, n_layer=6)
+AMP_TRANSFORMER_BATCH = 32
+AMP_TRANSFORMER_STEPS = 3
+AMP_T_FIRST_RTOL, AMP_T_CURVE_RTOL = 2e-4, 1e-3    # PR 15's bf16 bounds
+
+
+def amp_row_checks(torch, dev, card, cfg, b):
+    """The bf16 kernels of the Transformer AMP program against their plain
+    versions at the shapes the program gives them (phases 5 and 6 hold
+    bf16 at TRAIN's shapes, key length 128 and N 4096): ``flash_fwd`` and
+    the tensor-core ``flash_bwd`` at [B*H, T, D], full (the encoder's and
+    the cross attention) and causal (the decoder's), dropout 0 as the
+    program runs, within ``low_tol`` (FLASH_LOW_STEP); the fused CE at
+    [B*T, d_model] x [d_model, V] with the builder's label smoothing 0.1,
+    within ``fce_low_tol`` (FCE_MANTISSA). Seeded inputs of the phase 5 /
+    6 kinds; these launches are not the main path's."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as fc
+    h, t = cfg["n_head"], cfg["max_len"]
+    d = cfg["d_model"] // h
+    gen = torch.Generator(device=dev).manual_seed(AMP_LAYOUT_SEED)
+    qkvg = tuple(torch.randn(b * h, t, d, generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(4))
+    out = {}
+    for label, causal in (("full", False), ("causal", True)):
+        rows = flash_rows(torch, fa, card, f"{label} bfloat16, the "
+                          f"Transformer row's shape", qkvg, causal, 0.0,
+                          AMP_LAYOUT_SEED, None,
+                          kernels=("flash_fwd", "flash_bwd"), timed=False)
+        if (rows["flash_fwd"]["route"], rows["flash_bwd"]["route"]) != (
+                "tensor_cores", "flash_bwd"):
+            fail(f"flash {label} [{b * h}x{t}x{d}] bfloat16: the kernels "
+                 f"checked are {rows['flash_fwd']['route']} / "
+                 f"{rows['flash_bwd']['route']}, not the program's "
+                 f"tensor-core forward and flash_bwd")
+        for kname, row in rows.items():
+            out[f"{kname}/{label}"] = row["max_abs_err"]
+    n, v = b * t, cfg["tgt_vocab"]
+    errs, _, _ = fce_check(
+        torch, fc, *fce_inputs(torch, dev, n, cfg["d_model"], v,
+                               AMP_LAYOUT_SEED, torch.bfloat16),
+        0.1, f"N {n} D {cfg['d_model']} V {v} bfloat16 (the Transformer "
+        f"row)")
+    out["fused_ce"] = errs
+    print(f"[{card}] fused CE bfloat16 at the Transformer row's head [N {n}, "
+          f"D {cfg['d_model']}, V {v}] against the plain versions: max abs "
+          f"err " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_layout_phase(torch, dev, card, module_resnet=None):
+    """Phase 28 (module docstring). ``module_resnet`` is phase 18's
+    ResNet-50 result (its AMP run's profile). On a CPU device (the
+    rehearsal, with the ``AMP_*`` and ``LSTM*`` constants narrowed) the
+    profiler, peak memory, the launch counts and the kernel checks are
+    skipped."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib.layout import rewrite_program_nhwc
+    from paddle_tpu_torch.contrib.mixed_precision import rewrite_program_amp
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.kernels import fused_ce as fc
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    place = fluid.CUDAPlace(0) if cuda else fluid.CPUPlace()
+    tcfg, tbatch = dict(AMP_TRANSFORMER), AMP_TRANSFORMER_BATCH
+    lcfg, lbatch = dict(LSTM), LSTM_BATCH
+    resnet_batch, image_batch = (AMP_LAYOUT_RESNET_BATCH,
+                                 AMP_LAYOUT_IMAGE_BATCH)
+    out = {"card": card}
+
+    def start(startup):
+        scope = fluid.Scope()
+        startup.random_seed = AMP_LAYOUT_SEED
+        fluid.Executor(place).run(startup, scope=scope)
+        return scope
+
+    def persistables(main):
+        return sorted(n for n, v in main.desc.global_block.vars.items()
+                      if v.persistable)
+
+    def tagged(prog, attr):
+        return sum(1 for op in prog.desc.global_block.ops
+                   if op.attrs.get(attr))
+
+    def arm_run(label, prog, arrays, feeds, steps, loss, want=None):
+        """Steps on a fresh copy of ``arrays``, then a profiler window of
+        one more step: the arm's numbers."""
+        scope = scope_of(torch, arrays, dev)
+        exe = fluid.Executor(place)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        losses, ms, _, launched = exe_steps(
+            torch, exe, prog, scope, feeds[:steps],
+            (want or {}) if cuda else None, label, loss=loss)
+        if not all(np.isfinite(losses)):
+            fail(f"{label}: non-finite losses {losses}")
+        run = {"losses": losses, "step_ms": ms,
+               "step_p50_ms": float(np.median(ms[1:] or ms)),
+               "launches_per_step": launched[-1]}
+        if cuda:
+            run["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+
+            def work():
+                exe_steps(torch, exe, prog, scope, feeds[steps:], loss=loss)
+            prof = checked_window(label, lambda: profile_calls(
+                torch, work, len(feeds) - steps), want_names.get(label, {}))
+            run["profile"] = {k: prof[k] for k in (
+                "device_busy_ms_per_step", "idle_share", "launches_per_step",
+                "layout_kernels", "conv_gemm_share", "families",
+                "top_kernels", "windows")}
+        return run
+
+    def line(label, run):
+        text = (f"[{card}] {label}: losses "
+                f"{[round(x, 5) for x in run['losses']]}, host p50 "
+                f"{run['step_p50_ms']:.3f} ms")
+        if "profile" in run:
+            p = run["profile"]
+            text += (f", device busy {p['device_busy_ms_per_step']:.3f} ms, "
+                     f"idle {p['idle_share']:.3f}, "
+                     f"{p['launches_per_step']:.0f} launches a step, layout "
+                     f"transposes a step {p['layout_kernels']}, peak memory "
+                     f"{run['peak_mem_bytes'] / 2 ** 20:.1f} MiB")
+        return text
+
+    def held(label, got, want, first, rest):
+        gaps = [abs(x - y) / abs(y) for x, y in zip(got, want)]
+        if not (gaps[0] <= first and all(g <= rest for g in gaps)):
+            fail(f"{label}: losses {got} against {want}: relative gaps "
+                 f"{gaps}, bound {first} at step 1 and {rest} after")
+        return max(gaps)
+
+    want_names = {}
+
+    # (a) ResNet-50: fp32, AMP, AMP + NHWC from one scope on one batch set
+    t0 = time.perf_counter()
+    px = AMP_LAYOUT_IMAGE_SIZE
+    icfg = {"image_size": px}
+    main, startup, loss = build_program("resnet", icfg)
+    arrays = scope_arrays(start(startup), persistables(main))
+    feeds = [{"data": x, "label": y} for x, y in image_feeds(
+        torch, dev, resnet_batch, (3, px, px), 1000, 62,
+        AMP_LAYOUT_STEPS + 1)]
+    resnet = {"batch": resnet_batch, "build_s": time.perf_counter() - t0}
+    for arm in ("fp32", "amp", "amp+nhwc"):
+        prog = main.clone()
+        tags = {}
+        if "amp" in arm:
+            tags["amp_tagged"] = rewrite_program_amp(prog)
+        if "nhwc" in arm:
+            tags["nhwc_tagged"] = rewrite_program_nhwc(prog)
+            if not tags["nhwc_tagged"]:
+                fail("ResNet-50: rewrite_program_nhwc tagged no op")
+        run = arm_run(f"ResNet-50 {arm}", prog, arrays, feeds,
+                      AMP_LAYOUT_STEPS, loss)
+        run.update(tags)
+        resnet[arm] = run
+        print(line(f"ResNet-50 train {arm} (batch {resnet_batch}, {px} px, "
+                   f"port-built, passes none)", run))
+        del prog
+        if cuda:
+            torch.cuda.empty_cache()
+    resnet["amp_nhwc_vs_amp_max_rel"] = held(
+        "ResNet-50 AMP + NHWC against AMP", resnet["amp+nhwc"]["losses"],
+        resnet["amp"]["losses"], AMP_LAYOUT_FIRST_RTOL, AMP_RTOL)
+    resnet["amp_vs_fp32_max_rel"] = held(
+        "ResNet-50 AMP against fp32", resnet["amp"]["losses"],
+        resnet["fp32"]["losses"], AMP_RTOL, AMP_RTOL)
+    if module_resnet is not None and "amp" in module_resnet:
+        mp = module_resnet["amp"]["profile"]
+        resnet["phase18_module_amp"] = {
+            k: mp.get(k) for k in ("device_busy_ms_per_step", "idle_share",
+                                   "launches_per_step", "layout_kernels")}
+        resnet["phase18_module_amp"]["step_p50_ms"] = \
+            module_resnet["amp"]["step_p50_ms"]
+        print(f"[{card}] phase 18's ResNet-50 Module under AMP: "
+              f"{resnet['phase18_module_amp']}")
+    resnet["seconds"] = time.perf_counter() - t0
+    out["resnet50"] = resnet
+    del main, startup, arrays, feeds
+
+    # (b) SE-ResNeXt-50 and GoogLeNet at batch 8: AMP + NHWC against AMP
+    for model in AMP_LAYOUT_IMAGES:
+        t0 = time.perf_counter()
+        main, startup, loss = build_program(model, icfg)
+        main.random_seed = AMP_LAYOUT_SEED      # one dropout mask set
+        arrays = scope_arrays(start(startup), persistables(main))
+        feeds = [{"data": x, "label": y} for x, y in image_feeds(
+            torch, dev, image_batch, (3, px, px), 1000, 63,
+            AMP_LAYOUT_IMAGE_STEPS + 1)]
+        res = {"batch": image_batch}
+        for arm in ("amp", "amp+nhwc"):
+            prog = main.clone()
+            rewrite_program_amp(prog)
+            if "nhwc" in arm:
+                res["nhwc_tagged"] = rewrite_program_nhwc(prog)
+                res["bcast_bc_ops"] = tagged(prog, "__nhwc_bcast_bc__")
+                res["concat_ops"] = tagged(prog, "__nhwc_concat__")
+                key = ("bcast_bc_ops" if model == "se_resnext"
+                       else "concat_ops")
+                if not res[key]:
+                    fail(f"{model}: no op tagged for {key}")
+            run = arm_run(f"{model} {arm}", prog, arrays, feeds,
+                          AMP_LAYOUT_IMAGE_STEPS, loss)
+            res[arm] = run
+            print(line(f"{model} train {arm} (batch {image_batch}, {px} px)",
+                       run))
+            del prog
+        res["amp_nhwc_vs_amp_max_rel"] = held(
+            f"{model} AMP + NHWC against AMP", res["amp+nhwc"]["losses"],
+            res["amp"]["losses"], AMP_LAYOUT_FIRST_RTOL, AMP_RTOL)
+        res["seconds"] = time.perf_counter() - t0
+        out[model] = res
+        del main, startup, arrays, feeds
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # (c) the Transformer row under pure AMP: the bf16 flash and fused-CE
+    # kernels, against the Module under the same policy
+    t0 = time.perf_counter()
+    main, startup, loss = build_program("transformer", dict(
+        tcfg, dropout=0.0, fused_attention=True, fused_head=True))
+    n_amp = rewrite_program_amp(main)
+    if not all(op.attrs.get("__amp_keep_bf16__")
+               for op in main.desc.global_block.ops
+               if op.attrs.get("__amp_bf16__")):
+        fail("the Transformer program's AMP rewrite is not pure")
+    block = main.desc.global_block
+    arrays = scope_arrays(start(startup), persistables(main))
+    pairs = program_feeds(torch, dev, "transformer", tcfg, tbatch, 64,
+                          AMP_TRANSFORMER_STEPS + 1)
+    n_attn = 3 * tcfg["n_layer"]
+    want = {"flash_attention.flash_fwd": n_attn,
+            "flash_attention.flash_bwd": n_attn,
+            "fused_ce.fused_ce_fwd": 1, "fused_ce.fused_ce_bwd": 1}
+    slabs = -(-tcfg["tgt_vocab"] // fc.SLAB_COLS)
+    want_names["Transformer AMP program"] = {
+        "flash_fwd bf16": n_attn, "flash_bwd bf16": n_attn,
+        "fused_ce_fwd bf16": 1, "fused_ce_dz bf16": slabs}
+    trun = arm_run("Transformer AMP program", main, arrays,
+                   [f for f, _ in pairs], AMP_TRANSFORMER_STEPS, loss, want)
+    trun["amp_tagged"] = n_amp
+    trun["launches"] = {k: n * AMP_TRANSFORMER_STEPS for k, n in want.items()}
+    if cuda and set(trun["profile"]["families"]) - set(
+            want_names["Transformer AMP program"]):
+        fail(f"Transformer AMP program: kernels of other dtypes ran: "
+             f"{trun['profile']['families']}")
+    build_module, _ = program_module(torch, dev, "transformer", tcfg, block)
+    model, opt = build_module(arrays)
+    rewrite_program_amp(model)
+    mlosses, _, _ = train(torch, model, opt,
+                          [a for _, a in pairs[:AMP_TRANSFORMER_STEPS]])
+    del model, opt
+    trun["module_losses"] = mlosses
+    trun["vs_module_max_rel"] = held(
+        "Transformer AMP program against the Module", trun["losses"],
+        mlosses, AMP_T_FIRST_RTOL, AMP_T_CURVE_RTOL)
+    if cuda:
+        trun["kernel_checks"] = amp_row_checks(torch, dev, card, tcfg, tbatch)
+    trun["seconds"] = time.perf_counter() - t0
+    out["transformer"] = trun
+    print(line(f"Transformer AMP program (batch {tbatch}, max_len "
+               f"{tcfg['max_len']}, pure AMP, {n_amp} ops tagged)", trun)
+          + f"; the Module's losses {[round(x, 5) for x in mlosses]} "
+          f"(max rel gap {trun['vs_module_max_rel']:.3g}); bf16 kernels "
+          f"a step {want_names['Transformer AMP program']}")
+    del main, startup, arrays, pairs
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the stacked LSTM under auto AMP: conservative
+    t0 = time.perf_counter()
+    main, startup, loss = build_program("stacked_dynamic_lstm", lcfg)
+    n_amp = rewrite_program_amp(main)
+    if tagged(main, "__amp_keep_bf16__"):
+        fail("the LSTM program's auto AMP is not conservative")
+    products = sum(1 for op in main.desc.global_block.ops
+                   if op.type in ("mul", "matmul", "fc")
+                   and op.attrs.get("__amp_bf16__"))
+    arrays = scope_arrays(start(startup), persistables(main))
+    feeds = [f for f, _ in program_feeds(torch, dev, "lstm", lcfg, lbatch,
+                                         65, AMP_LAYOUT_STEPS + 1)]
+    k = lcfg["stacked_num"]
+    lwant = {"fused_rnn.lstm_train_fwd": k, "fused_rnn.lstm_train_bwd": k}
+    want_names["LSTM auto-AMP program"] = {"lstm_fwd cluster": k,
+                                           "lstm_bwd cluster": k}
+    calls = []
+    real = nn_ops.amp_product
+
+    def counted(x, y, keep):
+        calls.append((x.dtype, y.dtype, keep))
+        return real(x, y, keep)
+    nn_ops.amp_product = counted
+    try:
+        lrun = arm_run("LSTM auto-AMP program", main, arrays, feeds,
+                       AMP_LAYOUT_STEPS, loss, lwant)
+    finally:
+        nn_ops.amp_product = real
+    steps_run = AMP_LAYOUT_STEPS + (1 if cuda else 0) * (
+        lrun.get("profile", {}).get("windows", 0))
+    if not products or len(calls) != products * steps_run or any(
+            keep for _, _, keep in calls):
+        fail(f"LSTM auto-AMP program: {len(calls)} bf16 products with "
+             f"fp32 results in {steps_run} steps, want {products} a step")
+    lrun.update(amp_tagged=n_amp, bf16_products_per_step=products,
+                launches={key: n * AMP_LAYOUT_STEPS
+                          for key, n in lwant.items()},
+                seconds=time.perf_counter() - t0)
+    out["stacked_lstm"] = lrun
+    print(line(f"stacked LSTM auto-AMP program (batch {lbatch}, "
+               f"conservative, {n_amp} ops tagged): LSTM kernels fp32 "
+               f"{lwant} a step, {products} bf16 products a step", lrun))
+    del main, startup, arrays, feeds
+    if cuda:
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 28 (AMP and NHWC programs) took "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8309,6 +8693,7 @@ def main():
     programs = program_phase(torch, dev, card, module_serving, decode,
                              per_layer)
     del module_serving
+    amp_layout = amp_layout_phase(torch, dev, card, image.get("resnet50"))
     short = [w for w in PROFILE_LOG if w[2]]
     print(f"[{card}] profiler windows: {len(PROFILE_LOG)}; {len(short)} "
           f"lost kernel records, {sum(w[3] > 0 for w in short)} in the "
@@ -8403,6 +8788,11 @@ def main():
             **saved_launches(f"flash_attention.{kname}"),
             "launches_full_view": (programs["launches"][
                 "flash_fwd_full_view"] if kname == "flash_fwd" else 0),
+            "launches_amp_program": amp_layout["transformer"]["launches"]
+            .get(f"flash_attention.{kname}", 0),
+            "amp_row_max_abs_err": max(
+                (e for k, e in amp_layout["transformer"]["kernel_checks"]
+                 .items() if k.startswith(kname + "/")), default=None),
             "card": card,
             "variants": {v: {key: flash[f"{kname}/{v}"][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -8434,6 +8824,12 @@ def main():
             "library_ms": m["library_ms"], "launches_per_train_step": 1,
             "launches_executor": exec_launches.get(f"fused_ce.{kname}", 0),
             **saved_launches(f"fused_ce.{kname}"),
+            "launches_amp_program": amp_layout["transformer"]["launches"][
+                f"fused_ce.{kname}"],
+            "amp_row_max_abs_err": max(
+                amp_layout["transformer"]["kernel_checks"]["fused_ce"][o]
+                for o in (("loss", "lse") if kname == "fused_ce_fwd"
+                          else ("dx", "dw"))),
             "simt_bound_ms": m["simt_bound_ms"], "prep_ms": m["prep_ms"],
             "mixed": fce["mixed"],
             "bf16": {key: fce[f"{kname}/bf16"][key] for key in
@@ -8453,6 +8849,8 @@ def main():
             "library_ms": None, "launches_per_train_step": lstm_per_step,
             "launches_executor": exec_launches.get(f"fused_rnn.{kname}", 0),
             **saved_launches(f"fused_rnn.{kname}"),
+            "launches_amp_lstm_program": amp_layout["stacked_lstm"][
+                "launches"][f"fused_rnn.{kname}"],
             "us_per_step": m["us_per_step"],
             "dense_bound_ms": m["dense_bound_ms"], "card": card,
             **{k: m[k] for k in ("kernel", "tf32x3_bound_ms",
@@ -8563,6 +8961,7 @@ def main():
     print(json.dumps({"built_models": models}, default=str))
     print(json.dumps({"serving_programs": programs, "card": card},
                      default=str))
+    print(json.dumps({"amp_layout_programs": amp_layout}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -33,10 +33,15 @@ functions, whose CUDA tensors go to the hand-written kernels.
 - :class:`BlockRunner` mirrors ``CompiledBlock`` (``:825`` ``__call__``,
   ``obs_label``): one per (program version, feeds, fetches), built by the
   executor's cache.
+- Programs rewritten by ``contrib/`` run as they are: each emitter reads
+  its own AMP and NHWC tags (``ops/nn_ops.py`` lists which). An
+  NHWC-resident var is a channels-last tensor of NCHW shape, and a fetch
+  comes back in the default contiguous format (``:251-254`` transposes
+  it back to NCHW).
 - :func:`check_supported` refuses, before any op runs, what the port
-  cannot run yet (unregistered op types, AMP-tagged or NHWC ops,
-  ``__sharded__`` tables, sub-blocks), each naming the ROADMAP item that
-  takes it. None of these falls back to anything.
+  cannot run yet (unregistered op types, ``__sharded__`` tables,
+  sub-blocks), each naming the ROADMAP item that takes it. None of these
+  falls back to anything.
 """
 
 from __future__ import annotations
@@ -58,10 +63,6 @@ from paddle_tpu_torch.ops import (basic, beam_ops,  # noqa: F401
                                   grad_ops, kv_attention, lod_ops, math_ops,
                                   metric_ops, misc_ops, nn_ops,
                                   optimizer_ops, rnn_ops, sequence_ops)
-
-# op attrs the port does not run yet, by the ROADMAP item that takes them
-_AMP_ATTRS = ("__amp_bf16__", "__amp_keep_bf16__", "__amp_match_dtype__")
-_NHWC_PREFIX = "__nhwc"
 
 
 @dataclass(frozen=True)
@@ -146,17 +147,8 @@ def check_supported(program: ir.ProgramDesc) -> None:
     causes = []
     if missing:
         causes.append(f"op types not registered in the port: {missing} "
-                      f"(the rest of the op corpus: ROADMAP A6.6)")
-    amp = sorted({op.type for b in program.blocks for op in b.ops
-                  if any(a in op.attrs for a in _AMP_ATTRS)})
-    if amp:
-        causes.append(f"AMP-tagged ops {amp} (attrs {list(_AMP_ATTRS)}; "
-                      f"the AMP program rewrite: ROADMAP A1)")
-    nhwc = sorted({op.type for b in program.blocks for op in b.ops
-                   if any(a.startswith(_NHWC_PREFIX) for a in op.attrs)})
-    if nhwc:
-        causes.append(f"NHWC-tagged ops {nhwc} (the layout region: "
-                      f"ROADMAP A6.5)")
+                      f"(the dense layers' ops: ROADMAP A6.4b.b; the rest "
+                      f"of the op corpus: A6.6)")
     sharded = sorted(n for b in program.blocks for n, v in b.vars.items()
                      if v.attrs.get("__sharded__"))
     if sharded:
@@ -166,7 +158,7 @@ def check_supported(program: ir.ProgramDesc) -> None:
                    if "sub_block" in op.attrs})
     if len(program.blocks) > 1 or subs:
         causes.append(f"sub-blocks ({len(program.blocks)} blocks; ops "
-                      f"{subs}; control flow: ROADMAP A6.6)")
+                      f"{subs}; control flow: ROADMAP A6.4b.c)")
     if causes:
         raise NotImplementedError(
             "the port's executor cannot run this program: "
@@ -242,6 +234,10 @@ def recorded_forwards(block: ir.BlockDesc, live_ops) -> Dict[int, list]:
     return record
 
 
+def _contiguous(v):
+    return v.contiguous() if isinstance(v, torch.Tensor) else v
+
+
 def build_block_fn(program: ir.ProgramDesc, block_idx: int,
                    sig: BlockSignature, is_test: bool = False, device=None):
     """Returns ``fn(state, consts, feeds, step_seed) -> (fetches,
@@ -268,7 +264,8 @@ def build_block_fn(program: ir.ProgramDesc, block_idx: int,
         with torch.no_grad():
             emit_op_seq(program, block, sig.live_ops, env, base, base,
                         is_test, device, record, {}, keep)
-        fetches = [sr.densify(env[n]) for n in sig.fetch_names]
+        # an NHWC-resident fetch leaves channels-last (``:251-254``)
+        fetches = [_contiguous(sr.densify(env[n])) for n in sig.fetch_names]
         new_state = {n: env[n] for n in sig.state_names if n in env}
         for n in sig.created_persistable:
             if n in env:

@@ -16,8 +16,11 @@ the reference does, and write the results back as tensors on the device
 of the value they read (:func:`host_array`, :func:`put_like`), so a
 folded weight is bit-equal to the JAX package's.
 
-Not ported: ``fuse_elewise_add_act_pass`` and the ``vjp_*`` helpers
-(``:494-521``, ``:892``). They rewrite the ``__vjp__`` ops of training
+:func:`vjp_snapshot_key` (``:494-503``) pairs a forward op with its
+``__vjp__`` snapshot by (type, outputs); ``contrib/layout.py`` mirrors its
+tags into the snapshots through it. Not ported:
+``fuse_elewise_add_act_pass`` and the other ``vjp_*`` helpers
+(``:506-521``, ``:892``). They rewrite the ``__vjp__`` ops of training
 programs, which the port runs (``ops/grad_ops.py``); they come with
 ROADMAP A6.10.
 """
@@ -456,6 +459,15 @@ def _alive(graph, ops):
     already fused is stale."""
     cur = {id(o) for o in graph.block.ops}
     return all(id(o) in cur for o in ops)
+
+
+def vjp_snapshot_key(op_type, outputs):
+    """The identity that pairs a forward op with its ``__vjp__`` backward
+    snapshot: (type, sorted outputs). Output names are unique in a block,
+    so it survives a pass that reorders or renumbers the ops, where
+    ``fwd_op_index`` goes stale."""
+    return (op_type, tuple(sorted((s, tuple(n)) for s, n in
+                                  (outputs or {}).items())))
 
 
 def _first_out(op):

@@ -11,7 +11,7 @@ ROADMAP A6.4b's later parts."""
 from paddle_tpu_torch.fluid.layers.io import data  # noqa: F401
 from paddle_tpu_torch.fluid.layers.tensor import (  # noqa: F401
     assign, cast, concat, create_global_var, create_parameter,
-    create_tensor, fill_constant, ones, sums, zeros, zeros_like)
+    create_tensor, fill_constant, isfinite, ones, sums, zeros, zeros_like)
 from paddle_tpu_torch.fluid.layers.nn import (  # noqa: F401
     accuracy, batch_norm, beam_search, beam_search_decode, clip,
     clip_by_norm, conv2d, cross_entropy, dropout, embedding, expand, fc,
@@ -32,8 +32,9 @@ from paddle_tpu_torch.fluid.layers.sequence import (  # noqa: F401
     sequence_softmax, sequence_unpad)
 from paddle_tpu_torch.fluid.layers.ops import (  # noqa: F401
     ceil, cos, elementwise_add, elementwise_div, elementwise_max,
-    elementwise_min, elementwise_mul, elementwise_pow, elementwise_sub, exp,
-    floor, less_than, pow, reciprocal, relu, sigmoid, sqrt, square, tanh)
+    elementwise_min, elementwise_mul, elementwise_pow, elementwise_sub, equal,
+    exp, floor, greater_equal, greater_than, less_equal, less_than,
+    not_equal, pow, reciprocal, relu, sigmoid, sqrt, square, tanh)
 from paddle_tpu_torch.fluid.learning_rate_scheduler import (  # noqa: F401
     append_LARS, cosine_decay, exponential_decay, inverse_time_decay,
     natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay)

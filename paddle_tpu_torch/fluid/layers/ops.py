@@ -18,7 +18,8 @@ _BINARY = ["elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "elementwise_min",
            "elementwise_pow"]
 
-_COMPARE = ["less_than"]
+_COMPARE = ["equal", "not_equal", "less_than", "less_equal", "greater_than",
+            "greater_equal"]
 
 _mod = sys.modules[__name__]
 

@@ -2,8 +2,8 @@
 tensor.py``; reference: python/paddle/fluid/layers/tensor.py):
 ``fill_constant``, ``concat``, ``sums``, ``assign``, ``cast``, ``zeros``,
 ``ones``, ``zeros_like``, ``create_tensor``, ``create_parameter`` and
-``create_global_var``. The layers whose ops the port lacks (``has_inf``,
-``has_nan``, ``isfinite``, ``argmax``, ``shape``, ``reverse``, ...) are
+``create_global_var``, ``isfinite``. The layers whose ops the port lacks
+(``has_inf``, ``has_nan``, ``argmax``, ``shape``, ``reverse``, ...) are
 ROADMAP A6.4b."""
 
 from __future__ import annotations
@@ -53,6 +53,14 @@ def assign(input, output=None):
     helper.append_op("assign", inputs={"X": [input]},
                      outputs={"Out": [output]})
     return output
+
+
+def isfinite(x):
+    """[1] bool: every element of ``x`` finite (``tensor.py:165``)."""
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op("isfinite", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
 
 
 def zeros(shape, dtype="float32"):

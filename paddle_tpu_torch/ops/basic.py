@@ -11,15 +11,20 @@ activations (counterpart of ``paddle_tpu/ops/basic.py``):
   JAX startup scope across;
 - ``assign`` (``basic.py:90``), ``sign`` (``:104``) and ``increment``
   (``:109``, the learning-rate schedules' step counter);
-- the elementwise binaries ``elementwise_add``, ``_sub``, ``_mul`` over
-  ``ops/nn_ops.py`` and ``_div``, ``_max``, ``_min``, ``_pow``
-  (``basic.py:181-186``): Y broadcast into X from the ``axis`` attr
-  (``nn_ops._broadcast_y``; -1: from the right);
+- the elementwise binaries ``elementwise_add``, ``_sub``, ``_mul``,
+  ``_div``, ``_max``, ``_min``, ``_pow`` (``basic.py:158-186``) over
+  ``nn_ops._elementwise``: Y broadcast into X from the ``axis`` attr
+  (``nn_ops._broadcast_y``; -1: from the right), the float operands
+  matched under ``__amp_match_dtype__``;
 - the activations ``relu``, ``sigmoid``, ``tanh``, ``square``, ``exp``,
   ``sqrt``, ``floor``, ``ceil``, ``cos``, ``reciprocal``
   (``basic.py:196-213``), ``pow`` (``:247``) and ``clip`` (``:269``);
-- ``less_than`` (``:289``) and ``select`` (``:315``), the piecewise
-  schedule's comparison and choice.
+- the comparisons of ``_register_compare`` (``:279-292``: ``equal``,
+  ``not_equal``, ``less_than``, ``less_equal``, ``greater_than``,
+  ``greater_equal``; Y broadcast from ``axis`` as in the binaries),
+  ``select`` (``:315``) and ``isfinite`` (``:324``), with which the
+  piecewise schedule chooses and the AMP decorator
+  (``contrib/mixed_precision.py``) tests and moves its loss scale.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paddle_tpu_torch.contrib.mixed_precision import policy_of
 from paddle_tpu_torch.core.registry import (TORCH_DTYPES, first, register_op,
                                             single)
 from paddle_tpu_torch.ops import nn_ops
@@ -119,31 +125,34 @@ def _increment(ctx, ins, attrs):
                                    device=x.device))
 
 
-def _binary(fn):
-    def apply(x, y, axis=-1):
-        return fn(x, nn_ops._broadcast_y(x, y, axis))
-    return apply
-
-
-_ELEMENTWISE = {"elementwise_add": nn_ops.elementwise_add,
-                "elementwise_sub": nn_ops.elementwise_sub,
-                "elementwise_mul": nn_ops.elementwise_mul,
-                "elementwise_div": _binary(torch.div),
-                "elementwise_max": _binary(torch.maximum),
-                "elementwise_min": _binary(torch.minimum),
-                "elementwise_pow": _binary(torch.pow)}
+_ELEMENTWISE = {"elementwise_add": torch.add, "elementwise_sub": torch.sub,
+                "elementwise_mul": torch.mul, "elementwise_div": torch.div,
+                "elementwise_max": torch.maximum,
+                "elementwise_min": torch.minimum,
+                "elementwise_pow": torch.pow}
 _ACTIVATIONS = {"relu": nn_ops.relu, "sigmoid": nn_ops.sigmoid,
                 "tanh": torch.tanh, "square": nn_ops.square,
                 "exp": torch.exp, "sqrt": torch.sqrt, "floor": torch.floor,
                 "ceil": torch.ceil, "cos": torch.cos,
                 "reciprocal": torch.reciprocal}
+_COMPARE = {"equal": torch.eq, "not_equal": torch.ne, "less_than": torch.lt,
+            "less_equal": torch.le, "greater_than": torch.gt,
+            "greater_equal": torch.ge}
 
 
 def _register_elementwise(name, fn):
     @register_op(name, ref="operators/elementwise/" + name + "_op.cc")
     def _emit(ctx, ins, attrs):
-        return single(fn(first(ins, "X"), first(ins, "Y"),
-                         axis=attrs.get("axis", -1)))
+        """``__amp_match_dtype__`` matches the float operands
+        (``nn_ops.match_low_precision``). ``__nhwc_bcast__`` ([C] at axis
+        1) and ``__nhwc_bcast_bc__`` ([B, C] at axis 0) over an NHWC-resident
+        X: the JAX op re-aims Y at the physical channel axis
+        (``basic.py:163-172``); a channels-last X keeps its NCHW shape, so
+        the ``axis`` broadcast is already the channel one."""
+        return single(nn_ops._elementwise(fn, name, first(ins, "X"),
+                                          first(ins, "Y"),
+                                          policy_of(name, attrs),
+                                          attrs.get("axis", -1)))
 
 
 def _register_activation(name, fn):
@@ -169,12 +178,23 @@ def _clip(ctx, ins, attrs):
                               attrs.get("max")))
 
 
-@register_op("less_than", no_grad=True,
-             ref="operators/controlflow/compare_op.cc")
-def _less_than(ctx, ins, attrs):
-    x = first(ins, "X")
-    return single(torch.lt(x, nn_ops._broadcast_y(x, first(ins, "Y"),
-                                                  attrs.get("axis", -1))))
+def _register_compare(name, fn):
+    @register_op(name, no_grad=True,
+                 ref="operators/controlflow/compare_op.cc")
+    def _emit(ctx, ins, attrs):
+        x = first(ins, "X")
+        return single(fn(x, nn_ops._broadcast_y(x, first(ins, "Y"),
+                                                attrs.get("axis", -1))))
+
+
+for _name, _fn in _COMPARE.items():
+    _register_compare(_name, _fn)
+
+
+@register_op("isfinite", no_grad=True, ref="operators/isfinite_op.cc")
+def _isfinite(ctx, ins, attrs):
+    """[1] bool: every element of X finite (``basic.py:324``)."""
+    return single(torch.isfinite(first(ins, "X")).all().reshape(1))
 
 
 @register_op("select", ref="lax.select; elementwise choice")

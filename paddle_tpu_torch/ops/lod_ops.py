@@ -27,8 +27,9 @@ the JAX emitters compute them (``lod_ops.py:225-400``), each a function
 over the port's ops with a thin op emitter beside it:
 
 - :func:`conv2d_fusion` (``:290``): ``nn_ops.conv2d``, the channel bias,
-  the ``ResidualData`` and the activation. An NHWC-tagged op is refused
-  before any op runs (``core/lowering.py``, ROADMAP A6.5).
+  the ``ResidualData`` and the activation; its emitter reads the AMP and
+  NHWC tags of ``contrib/`` (ROADMAP A1, A6.5) and passes them on to the
+  conv.
 - :func:`fusion_lstm` (``:357``), :func:`fused_embedding_fc_lstm`
   (``:363``) and :func:`fusion_gru` (``:351``): the gate projection (or
   the pre-multiplied table's rows), then ``rnn_ops.dynamic_lstm`` /
@@ -58,6 +59,7 @@ from typing import List, Optional
 
 import torch
 
+from paddle_tpu_torch.contrib.mixed_precision import policy_of
 from paddle_tpu_torch.core.registry import first, register_op, single
 from paddle_tpu_torch.ops import nn_ops, rnn_ops, sequence_ops
 from paddle_tpu_torch.ops.kernels import embed_pool as _embed_pool
@@ -124,12 +126,20 @@ def conv2d_fusion(x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   residual: Optional[torch.Tensor] = None,
                   activation: str = "relu", stride=1, padding=0,
-                  dilation=1, groups: int = 1) -> torch.Tensor:
-    """act(conv2d(x, w) + bias [C] on axis 1 + residual), NCHW."""
-    out = nn_ops.conv2d(x, w, stride, padding, dilation, groups)
+                  dilation=1, groups: int = 1, amp=None,
+                  channels_last: bool = False) -> torch.Tensor:
+    """act(conv2d(x, w) + bias [C] on axis 1 + residual), NCHW shapes; the
+    bias and the residual cast to the conv's dtype (bf16 under a pure
+    ``amp``, whose tags of ``conv2d`` the conv reads). With
+    ``channels_last`` the conv and its epilogue run channels-last and the
+    residual is made so."""
+    out = nn_ops.conv2d(x, w, stride, padding, dilation, groups, amp,
+                        channels_last=channels_last)
     if bias is not None:
         out = out + bias.reshape(1, -1, 1, 1).to(out.dtype)
     if residual is not None:
+        if channels_last:
+            residual = residual.contiguous(memory_format=torch.channels_last)
         out = out + residual.to(out.dtype)
     return _fused_act(out, activation)
 
@@ -240,11 +250,25 @@ def _fused_embedding_seq_pool_op(ctx, ins, attrs):
 
 @register_op("conv2d_fusion", ref="operators/fused/conv_fusion_op.cc")
 def _conv2d_fusion_op(ctx, ins, attrs):
-    return {"Output": [conv2d_fusion(
-        first(ins, "Input"), first(ins, "Filter"), first(ins, "Bias"),
-        first(ins, "ResidualData"), attrs.get("activation", "relu"),
+    """The op's tags pass on to its conv, as the JAX op passes them
+    (``lod_ops.py:290-325``): the AMP ones as the ``conv2d`` policy; under
+    ``__nhwc__`` the input enters as ``nhwc_in`` has it, the epilogue
+    runs channels-last, ``ResidualData`` is made channels-last unless
+    ``__nhwc_resid_ready__`` says it is, and the output leaves as
+    ``nhwc_out`` has it. Untagged, a channels-last residual is added to
+    the contiguous conv (the layout follows the conv's)."""
+    nhwc = bool(attrs.get("__nhwc__"))
+    resid = first(ins, "ResidualData")
+    if resid is not None and not nhwc \
+            and attrs.get("__nhwc_resid_ready__"):
+        resid = resid.contiguous()
+    out = conv2d_fusion(
+        nn_ops.nhwc_in(first(ins, "Input"), attrs), first(ins, "Filter"),
+        first(ins, "Bias"), resid, attrs.get("activation", "relu"),
         attrs.get("strides", [1, 1]), attrs.get("paddings", [0, 0]),
-        attrs.get("dilations", [1, 1]), attrs.get("groups", 1))]}
+        attrs.get("dilations", [1, 1]), attrs.get("groups", 1),
+        policy_of("conv2d", attrs), channels_last=nhwc)
+    return {"Output": [nn_ops.nhwc_out(out, attrs)]}
 
 
 @register_op("fusion_lstm", ref="operators/fused/fusion_lstm_op.cc")

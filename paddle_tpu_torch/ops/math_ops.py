@@ -6,13 +6,15 @@
 (``:181``), ``concat`` (``:193``), ``split`` (``:204``), ``slice``
 (``:218``), ``cast`` (``:93``), ``squared_l2_norm`` (``:303``, the
 global-norm clip's), ``expand`` (``:238``) and ``gather`` (``:245``,
-the decoder-LM serving views').
+the decoder-LM serving views'). ``mul`` and ``matmul`` read their AMP
+tags (``math_ops.py:36-47``, ``:59-65``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.contrib.mixed_precision import policy_of
 from paddle_tpu_torch.core.registry import (TORCH_DTYPES, first, register_op,
                                             single)
 from paddle_tpu_torch.ops import nn_ops
@@ -22,13 +24,15 @@ from paddle_tpu_torch.ops import nn_ops
 def _mul(ctx, ins, attrs):
     return single(nn_ops.mul(first(ins, "X"), first(ins, "Y"),
                              attrs.get("x_num_col_dims", 1),
-                             attrs.get("y_num_col_dims", 1)))
+                             attrs.get("y_num_col_dims", 1),
+                             policy_of("mul", attrs)))
 
 
 @register_op("matmul", ref="operators/matmul_op.cc")
 def _matmul(ctx, ins, attrs):
     return single(nn_ops.matmul(first(ins, "X"), first(ins, "Y"),
                                 transpose_y=attrs.get("transpose_Y", False),
+                                amp=policy_of("matmul", attrs),
                                 transpose_x=attrs.get("transpose_X", False),
                                 alpha=attrs.get("alpha", 1.0)))
 
@@ -91,6 +95,10 @@ def _transpose(ctx, ins, attrs):
 
 @register_op("concat", ref="operators/concat_op.cc")
 def _concat(ctx, ins, attrs):
+    """``__nhwc_concat__`` (an NHWC region's channel concat): the JAX op
+    re-aims axis 1 at the physical last axis; channels-last inputs keep
+    their NCHW shape, so axis 1 stays, and ``torch.cat`` of channels-last
+    inputs is channels-last."""
     return single(nn_ops.concat(ins.get("X", []), attrs.get("axis", 0)))
 
 

@@ -89,13 +89,20 @@ and those the program executor adds (``core/lowering.py``):
 file register the executor's op types of this module
 (``core/registry.py``), each a thin adapter onto the functions here.
 
-Mixed precision: the ops of the AMP rewrite take ``amp``, a model's
-dict of AMP tags by op type (``contrib/mixed_precision.py``; None: fp32),
-and read their own type's tags: ``fc`` (its products as ``mul``, its bias
-add as ``elementwise_add``), ``matmul``, ``lookup_table``,
+Mixed precision: the ops of the AMP rewrite take ``amp``, a dict of AMP
+tags by op type (``contrib/mixed_precision.py``; None: fp32), and read
+their own type's tags: ``fc`` (its products as ``mul``, its bias add as
+``elementwise_add``), :func:`mul`, ``matmul``, ``lookup_table``,
 ``fused_linear_ce``, :func:`conv2d` and :func:`elementwise_add` /
 :func:`elementwise_mul` (the ``match_dtype`` rule,
-:func:`match_low_precision`).
+:func:`match_low_precision`). A trainer hands its model's dict; an
+emitter the dict of its op's attributes (``policy_of``).
+
+The NHWC layout (``contrib/layout.py``): :func:`conv2d` with
+``channels_last`` takes channels-last operands and gives a channels-last
+result of NCHW shape, and the emitters of ``conv2d``, ``pool2d`` and
+``batch_norm`` enter and leave a region by their tags (:func:`nhwc_in`,
+:func:`nhwc_out`); the emitters' section says which tags each reads.
 """
 
 from __future__ import annotations
@@ -108,7 +115,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.contrib.mixed_precision import policy
+from paddle_tpu_torch.contrib.mixed_precision import policy, policy_of
 from paddle_tpu_torch.core.registry import first, register_op, single
 from paddle_tpu_torch.ops import metric_ops as _metric_ops
 from paddle_tpu_torch.ops.kernels import fused_ce as _fused_ce
@@ -404,13 +411,16 @@ def scale(x: torch.Tensor, factor: float, bias: float = 0.0,
 
 
 def mul(x: torch.Tensor, y: torch.Tensor, x_num_col_dims: int = 1,
-        y_num_col_dims: int = 1) -> torch.Tensor:
+        y_num_col_dims: int = 1, amp=None) -> torch.Tensor:
     """The ``mul`` op (``math_ops.py:25-47``): x flattened to 2-D at
     ``x_num_col_dims`` (its dims before it the rows), y at
     ``y_num_col_dims``, one product, reshaped to ``x.shape[:xn] +
-    y.shape[yn:]``: an [N, C, H, W] map at 1 is [N, C*H*W]."""
+    y.shape[yn:]``: an [N, C, H, W] map at 1 is [N, C*H*W]. Where ``amp``
+    tags ``mul`` with ``bf16`` the product is :func:`amp_product`."""
     lead, rows = x.shape[:x_num_col_dims], y.shape[:y_num_col_dims]
-    out = x.reshape(math.prod(lead), -1) @ y.reshape(math.prod(rows), -1)
+    x2, y2 = x.reshape(math.prod(lead), -1), y.reshape(math.prod(rows), -1)
+    tags = policy(amp, "mul")
+    out = amp_product(x2, y2, tags.keep_bf16) if tags.bf16 else x2 @ y2
     return out.reshape(tuple(lead) + tuple(y.shape[y_num_col_dims:]))
 
 
@@ -721,7 +731,8 @@ class _IeeeConv(torch.autograd.Function):
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
-           dilation=1, groups: int = 1, amp=None) -> torch.Tensor:
+           dilation=1, groups: int = 1, amp=None,
+           channels_last: bool = False) -> torch.Tensor:
     """x [N, C, H, W] conv w [O, C / groups, kh, kw] -> [N, O, H', W'],
     no bias (``layers.conv2d`` adds it as an ``elementwise_add`` at axis
     1). A grouped conv is one ``F.conv2d(groups=...)``: the JAX op's dense
@@ -731,14 +742,22 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
     bf16 (fp32 sums inside cuDNN); its bf16 result is kept in pure mode
     and widened to fp32 in conservative mode, one bf16 rounding as in the
     JAX op (``:109-113``). Otherwise the conv runs in the operands' dtype,
-    an fp32 one in full fp32 on the card (:class:`_IeeeConv`)."""
+    an fp32 one in full fp32 on the card (:class:`_IeeeConv`).
+
+    ``channels_last`` (an NHWC region, ``contrib/layout.py``): x and w
+    are made channels-last, w in the same copy as its bf16 cast, so
+    cuDNN takes both without a transpose and returns a channels-last
+    result; the shapes stay NCHW."""
     args = (_pair(stride), _pair(padding), _pair(dilation), int(groups))
     tags = policy(amp, "conv2d")
+    fmt = torch.channels_last if channels_last else torch.preserve_format
+    x = x.contiguous(memory_format=fmt) if channels_last else x
     if tags.bf16:
-        out = F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), None,
-                       *args)
+        out = F.conv2d(x.to(torch.bfloat16),
+                       w.to(torch.bfloat16, memory_format=fmt), None, *args)
         return out if tags.keep_bf16 else out.float()
-    return _IeeeConv.apply(x, w, *args)
+    return _IeeeConv.apply(x, w.contiguous(memory_format=fmt) if
+                           channels_last else w, *args)
 
 
 def pool2d(x: torch.Tensor, pool_size, pool_type: str = "max",
@@ -871,27 +890,60 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 # -- emitters of the program executor (paddle_tpu/ops/nn_ops.py) -------------
 # Thin adapters: each maps the op's slots and attrs onto the function above
-# that computes it. The executor refuses AMP-tagged and NHWC ops before any
-# op runs (core/lowering.py check_supported), so none of these reads a tag.
+# that computes it. The tags of the program rewrites (contrib/) that each
+# emitter of the port reads:
+# - AMP (contrib/mixed_precision.py, policy_of): conv2d and conv2d_fusion,
+#   mul, matmul, fc, fused_linear_ce, fused_attention_block __amp_bf16__ /
+#   __amp_keep_bf16__; lookup_table __amp_keep_bf16__; the elementwise
+#   binaries __amp_match_dtype__. batch_norm reads none: a bf16 input
+#   (a pure conv's output) takes its low-precision path by dtype.
+# - NHWC (contrib/layout.py): conv2d, conv2d_fusion, pool2d and batch_norm
+#   __nhwc__ / __nhwc_in_ready__ / __nhwc_out_keep__ (nhwc_in, nhwc_out;
+#   conv2d_fusion also __nhwc_resid_ready__); the elementwise binaries
+#   __nhwc_bcast__ / __nhwc_bcast_bc__ and concat __nhwc_concat__, whose
+#   JAX re-aims at the physical channel axis are identities here (a
+#   channels-last tensor keeps its NCHW shape).
+
+def nhwc_in(x: torch.Tensor, attrs) -> torch.Tensor:
+    """An NHWC region's entry (``nn_ops.py:53-58`` ``_nhwc_in``): x made
+    channels-last unless its producer kept it so
+    (``__nhwc_in_ready__``). Its shape stays NCHW."""
+    if attrs.get("__nhwc__") and not attrs.get("__nhwc_in_ready__"):
+        return x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+def nhwc_out(out: torch.Tensor, attrs) -> torch.Tensor:
+    """An NHWC region's exit (``nn_ops.py:61-66`` ``_nhwc_out``): a tagged
+    op's output stays channels-last where every consumer takes it
+    (``__nhwc_out_keep__``), else goes back to the default contiguous
+    format."""
+    if not attrs.get("__nhwc__"):
+        return out
+    if attrs.get("__nhwc_out_keep__"):
+        return out.contiguous(memory_format=torch.channels_last)
+    return out.contiguous()
+
 
 @register_op("conv2d", ref="operators/conv_op.cc:44 Conv2DOp")
 def _conv2d_op(ctx, ins, attrs):
-    return {"Output": [conv2d(first(ins, "Input"), first(ins, "Filter"),
-                              attrs.get("strides", [1, 1]),
-                              attrs.get("paddings", [0, 0]),
-                              attrs.get("dilations", [1, 1]),
-                              attrs.get("groups", 1))]}
+    x = nhwc_in(first(ins, "Input"), attrs)
+    out = conv2d(x, first(ins, "Filter"), attrs.get("strides", [1, 1]),
+                 attrs.get("paddings", [0, 0]), attrs.get("dilations", [1, 1]),
+                 attrs.get("groups", 1), policy_of("conv2d", attrs),
+                 channels_last=bool(attrs.get("__nhwc__")))
+    return {"Output": [nhwc_out(out, attrs)]}
 
 
 @register_op("pool2d", ref="operators/pool_op.cc")
 def _pool2d_op(ctx, ins, attrs):
     # ceil_mode is ignored, as the JAX op ignores it (the output floors)
-    return single(pool2d(first(ins, "X"), attrs.get("ksize", [2, 2]),
-                         attrs.get("pooling_type", "max"),
-                         attrs.get("strides", [1, 1]),
-                         attrs.get("paddings", [0, 0]),
-                         attrs.get("global_pooling", False),
-                         attrs.get("exclusive", True)))
+    out = pool2d(nhwc_in(first(ins, "X"), attrs), attrs.get("ksize", [2, 2]),
+                 attrs.get("pooling_type", "max"),
+                 attrs.get("strides", [1, 1]), attrs.get("paddings", [0, 0]),
+                 attrs.get("global_pooling", False),
+                 attrs.get("exclusive", True))
+    return single(nhwc_out(out, attrs))
 
 
 @register_op("batch_norm", ref="operators/batch_norm_op.cc:40")
@@ -902,20 +954,23 @@ def _batch_norm_op(ctx, ins, attrs):
     them, returned as ``MeanOut`` / ``VarianceOut`` (the executor writes
     them back), and the batch statistics as ``SavedMean`` /
     ``SavedVariance``."""
-    x, scale_, bias = (first(ins, n) for n in ("X", "Scale", "Bias"))
+    x = nhwc_in(first(ins, "X"), attrs)
+    scale_, bias = first(ins, "Scale"), first(ins, "Bias")
     mean_, var = first(ins, "Mean"), first(ins, "Variance")
     eps = attrs.get("epsilon", 1e-5)
     if attrs.get("is_test", False) or ctx.is_test \
             or attrs.get("use_global_stats", False):
         y = batch_norm(x, scale_, bias, mean_, var, True, epsilon=eps)
-        return {"Y": [y], "MeanOut": [mean_], "VarianceOut": [var],
-                "SavedMean": [mean_], "SavedVariance": [var]}
+        return {"Y": [nhwc_out(y, attrs)], "MeanOut": [mean_],
+                "VarianceOut": [var], "SavedMean": [mean_],
+                "SavedVariance": [var]}
     mean_out, var_out = mean_.clone(), var.clone()
     y, bmean, bvar = batch_norm(x, scale_, bias, mean_out, var_out, False,
                                 attrs.get("momentum", 0.9), eps,
                                 with_stats=True)
-    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
-            "SavedMean": [bmean], "SavedVariance": [bvar]}
+    return {"Y": [nhwc_out(y, attrs)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [bmean],
+            "SavedVariance": [bvar]}
 
 
 @register_op("layer_norm", ref="operators/layer_norm_op.cc")
@@ -946,7 +1001,8 @@ def _dropout_op(ctx, ins, attrs):
 @register_op("lookup_table", ref="operators/lookup_table_op.cc")
 def _lookup_table_op(ctx, ins, attrs):
     return single(lookup_table(first(ins, "W"), first(ins, "Ids"),
-                               padding_idx=attrs.get("padding_idx", -1)))
+                               padding_idx=attrs.get("padding_idx", -1),
+                               amp=policy_of("lookup_table", attrs)))
 
 
 @register_op("softmax", ref="operators/softmax_op.cc")
@@ -983,7 +1039,8 @@ def _fused_linear_ce_op(ctx, ins, attrs):
     return {"Loss": [fused_linear_ce(first(ins, "X"), first(ins, "W"),
                                      first(ins, "Label"),
                                      float(attrs.get("label_smoothing", 0.0)),
-                                     attrs.get("ignore_index", -100))]}
+                                     attrs.get("ignore_index", -100),
+                                     policy_of("fused_linear_ce", attrs))]}
 
 
 @register_op("sigmoid_cross_entropy_with_logits",
@@ -1007,4 +1064,5 @@ def _fused_attention_block_op(ctx, ins, attrs):
         first(ins, "Xq"), first(ins, "Xkv"),
         *(first(ins, n) for n in ("Wq", "Wk", "Wv", "Wo")),
         int(attrs["n_head"]), bool(attrs.get("causal", False)), p,
-        ctx.step_key() if p > 0 else 0))
+        ctx.step_key() if p > 0 else 0,
+        policy_of("fused_attention_block", attrs)))

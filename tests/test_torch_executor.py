@@ -351,33 +351,60 @@ def _train_program():
     return main, loss
 
 
-def _tagged(op_program, what):
-    prog, _, _ = op_program
-    desc = tir.ProgramDesc.parse_from_string(prog.desc.serialize_to_string())
+def _tag(desc, what):
+    """Tag ``desc`` (either package's) in place as case ``what`` says."""
     ops = desc.global_block.ops
     if what == "amp":
         next(op for op in ops if op.type == "mul").attrs["__amp_bf16__"] = True
     elif what == "nhwc":
-        ops[0].attrs["__nhwc__"] = True
+        next(op for op in ops
+             if op.type == "concat").attrs["__nhwc_concat__"] = True
     elif what == "sharded":
         next(v for v in desc.global_block.vars.values()
              if v.persistable).attrs["__sharded__"] = True
     elif what == "sub_block":
         desc.append_block(0)
-    return tfluid.Program(desc)
+
+
+def _tagged(op_program, what):
+    prog, _, _ = op_program
+    desc = tir.ProgramDesc.parse_from_string(prog.desc.serialize_to_string())
+    _tag(desc, what)
+    p = tfluid.Program(desc)
+    p._is_test = prog._is_test
+    return p
 
 
 @pytest.mark.parametrize("what,match", [
     ("unregistered", r"not registered in the port: \['log'\].*A6\.6"),
-    ("amp", r"AMP-tagged ops \['mul'\].*ROADMAP A1"),
-    ("nhwc", r"NHWC-tagged ops.*A6\.5"),
+    ("amp", None),
+    ("nhwc", None),
     ("sharded", r"__sharded__ tables.*A6\.9"),
-    ("sub_block", r"sub-blocks \(2 blocks.*A6\.6")])
+    ("sub_block", r"sub-blocks \(2 blocks.*A6\.4b\.c")])
 def test_refusals_before_any_op_runs(op_program, monkeypatch, what, match):
+    """Each unported cause raises before any op runs. An AMP-tagged op
+    (a conservative ``mul``: bf16 operands, fp32 result) and an
+    NHWC-tagged one (``__nhwc_concat__`` on the rank-2 concat, which the
+    JAX op re-aims at its last axis, 1, as it is) are ported: the tagged
+    program runs and its fetch matches the JAX executor's on the same
+    desc (``TOL``: the bf16 products are exact in fp32 on both sides)."""
     ran = []
     real = tlow.emit_op_seq
     monkeypatch.setattr(tlow, "emit_op_seq",
                         lambda *a, **k: ran.append(1) or real(*a, **k))
+    if match is None:
+        prog, jscope, vs = op_program
+        tagged = _tagged(op_program, what)
+        jprog = prog.clone(for_test=True)
+        _tag(jprog.desc, what)
+        fetch = [vs["prob"].name]
+        want = _run_jax(jprog, jscope, _op_feeds(), fetch)
+        got = tfluid.Executor(tfluid.CPUPlace()).run(
+            tagged, feed=_op_feeds(), fetch_list=fetch,
+            scope=_port_scope(jscope, _persistables(prog)))
+        np.testing.assert_allclose(got[0], want[0], **TOL)
+        assert ran
+        return
     if what == "unregistered":
         main, loss = _train_program()
         prog, feeds, fetch = _port_program(main), {
@@ -592,7 +619,7 @@ def test_new_modules_import_no_jax():
             "import paddle_tpu_torch.fluid.models.machine_translation\n"
             "import paddle_tpu_torch.fluid.nets\n"
             "import paddle_tpu_torch.ops.beam_ops\n"
-            "assert len(OPS) == 118, sorted(OPS)\n"
+            "assert len(OPS) == 124, sorted(OPS)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m == 'paddle_tpu'\n"

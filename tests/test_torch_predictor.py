@@ -489,12 +489,16 @@ def test_fusion_seqpool_concat_zero_length_row(pooltype):
 
 
 @pytest.mark.parametrize("op_type,attr,match", [
-    ("fc", "__amp_bf16__", "AMP-tagged"),
-    ("conv2d_fusion", "__nhwc__", "NHWC-tagged"),
+    ("fc", "__amp_bf16__", r"not registered in the port: "
+                           r"\['depthwise_conv2d'\]"),
+    ("conv2d_fusion", "__nhwc__", r"not registered in the port: "
+                                  r"\['depthwise_conv2d'\]"),
     ("fusion_lstm", None, "not registered")])
 def test_no_fallback(op_type, attr, match, tmp_path_factory):
-    """An AMP- or NHWC-tagged fused op and an op type with no emitter
-    raise before any op runs."""
+    """An op type with no emitter raises before any op runs, whatever
+    its tags: an AMP- or NHWC-tagged fused op (both tags are ported, so
+    neither is named) turned into ``depthwise_conv2d`` (ROADMAP A6.5),
+    and an unknown fused op."""
     case = {"fc": "fc_fuse_pass", "conv2d_fusion":
             "conv_elementwise_add_fuse_pass",
             "fusion_lstm": "fc_lstm_fuse_pass"}[op_type]
@@ -504,11 +508,13 @@ def test_no_fallback(op_type, attr, match, tmp_path_factory):
               if o.type == op_type)
     if attr:
         op.attrs[attr] = True
+        op.type = "depthwise_conv2d"
     else:
         op.type = "fusion_lstm_unported"
     tp._program.desc.bump_version()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as err:
         tp.run(feeds)
+    assert "AMP" not in str(err.value) and "NHWC" not in str(err.value)
 
 
 def test_default_place_is_the_card(tmp_path_factory, monkeypatch):

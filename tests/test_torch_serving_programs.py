@@ -752,7 +752,7 @@ def test_new_modules_import_no_jax():
             "from paddle_tpu_torch.serving import engine\n"
             "from paddle_tpu_torch.core.registry import OPS\n"
             "import paddle_tpu_torch.ops.kv_attention\n"
-            "assert len(OPS) == 118, sorted(OPS)\n"
+            "assert len(OPS) == 124, sorted(OPS)\n"
             "p = T.build_decoder_lm_programs(prompt_len=4, max_new=4,\n"
             "    vocab=16, d_model=8, d_inner=8, n_head=2, n_layer=1,\n"
             "    modes=T.slot_modes('paged'), n_slots=2, page_size=2)\n"
